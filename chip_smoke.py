@@ -1,0 +1,405 @@
+"""Chip smoke for the PyTorch/CUDA port (``dynamo_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Builds every CUDA kernel of the port from ``dynamo_tpu_torch/csrc`` (one
+``nvcc`` per source, all started together), then runs, in order, and
+exits non-zero if any phase fails:
+
+(a) each kernel against its plain PyTorch version on the card, in bf16 at
+    the main path's shapes (llama-3-8b-lite attention: KH=8, H=32, D=128,
+    block 16), with kernel / plain / library (``scaled_dot_product_attention``
+    on the pre-gathered context, a yardstick the port never calls) times
+    and the least time the card could take for the same work;
+(b) the port's serving path at full llama-3-8b-lite width (8 layers,
+    random weights from a seed) through ``build_engine`` and
+    ``AsyncTorchEngine.generate``: 32 requests, prompt 128, 64 greedy
+    output tokens; the kernel launch counts are set to 0 just before and
+    read just after;
+(c) coherence: the trained checkpoint ``tests/data/tiny-real-llama``
+    through the port's loader and tokenizer must continue "one two three
+    four" with " five six seven eight" on the card, and its f32 greedy
+    tokens on the card must equal the plain path's on the CPU; no step
+    dispatch may wait for the card (the host/device overlap of the
+    pipelined step loop).
+
+Prints the card's name and power limit (nvidia-smi), one JSON ``kernels``
+line, and as its last line ``{"ok": true, "device": {...}}``. Without a
+CUDA card it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --profile`` also runs phase (b) under
+``torch.profiler`` and prints device time by kernel and the device's busy
+share of the serving wall time.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+TOL = 2e-2  # bf16 kernel vs plain, as tests/test_ops.py holds the TPU kernel
+# Both versions accumulate in f32 from the same bf16 inputs, so an output
+# element may differ only by one bf16 rounding of its value (2^-7 relative)
+# plus f32 noise: each shape is also held to |err| <= ULP_REL*|ref| + ULP_ABS.
+ULP_REL, ULP_ABS = 2.0**-7, 1e-4
+
+# H100 SXM memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s), NVIDIA
+# data sheet; the port runs on that card only.
+CARD, CARD_BW, CARD_PEAK = "H100 80GB HBM3", 3.35e12, 989e12
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def card_rates(name: str) -> tuple[float, float]:
+    if CARD not in name:
+        raise RuntimeError(f"no memory/compute rates known for card {name!r}")
+    return CARD_BW, CARD_PEAK
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` with L2 flushed before each call (the main
+    path streams ~400 MB of weights between two attention calls)."""
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+# ---------------------------------------------------------------------------
+# (a) kernel vs plain
+# ---------------------------------------------------------------------------
+
+def attention_case(gen, b, t, nblk, q_start, q_len, h=32, kh=8, d=128, bs=16):
+    nb = b * nblk + 1
+    dt = torch.bfloat16
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((nb, bs, kh, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((nb, bs, kh, d), generator=gen, device="cuda").to(dt)
+    perm = torch.randperm(nb - 1, generator=gen, device="cuda")[: b * nblk] + 1
+    bt = perm.reshape(b, nblk).to(torch.int32).contiguous()
+    qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
+    kl = qs + torch.tensor(q_len, dtype=torch.int32, device="cuda")
+    return q, k, v, bt, qs, kl
+
+
+def attention_work(q, k, bt, qs, kl) -> tuple[float, float]:
+    """Bytes the function must move (q and out once, K/V of each row's
+    kv_len context once, tables) and the products' operations on this
+    run's visible (query, context) pairs."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    item = q.element_size()
+    kv_tok = int(kl.sum())
+    nbytes = (2 * q.numel() * item + 2 * kv_tok * kh * d * item
+              + 4 * (bt.numel() + qs.numel() + kl.numel()))
+    pos = qs[:, None].long() + torch.arange(t, device=q.device)[None, :]
+    vis = torch.minimum(pos + 1, kl[:, None].long()).clamp(min=0)
+    ops = 4.0 * d * h * float(vis.sum())
+    return float(nbytes), ops
+
+
+def library_fn(q, k, v, bt, qs, kl):
+    """SDPA over the pre-gathered, head-expanded context with the kernel's
+    mask (built outside the timed call)."""
+    from dynamo_tpu_torch.models.llama import _gather_kv
+
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    ck = _gather_kv(k, bt).repeat_interleave(h // kh, dim=2).transpose(1, 2).contiguous()
+    cv = _gather_kv(v, bt).repeat_interleave(h // kh, dim=2).transpose(1, 2).contiguous()
+    s = ck.shape[2]
+    ctx = torch.arange(s, device=q.device)
+    pos = qs[:, None].long() + torch.arange(t, device=q.device)[None, :]
+    mask = (ctx[None, None, :] <= pos[:, :, None]) & (ctx[None, None, :] < kl[:, None, None].long())
+    mask = mask[:, None]                                      # [B, 1, T, S]
+    qt = q.transpose(1, 2).contiguous()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask)
+
+
+def phase_kernels(bw: float, peak: float) -> dict:
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    lens = torch.randint(128, 193, (32,), generator=gen, device="cuda").tolist()
+    ragged_start = [0, 37, 5, 100, 0, 64, 15, 0]
+    ragged_len = [16, 1, 11, 1, 0, 16, 1, 9]                  # row 4: kv_len 0
+    cases = {
+        "decode B=32 T=1 kv 128-192": (attention_case(
+            gen, 32, 1, 16, [n - 1 for n in lens], [1] * 32), 0),
+        "prefill B=32 T=128 kv 128": (attention_case(
+            gen, 32, 128, 8, [0] * 32, [128] * 32), 0),
+        "ragged B=8 T=16 with a zero-length row": (attention_case(
+            gen, 8, 16, 8, ragged_start, ragged_len), 0),
+        "split-K B=2 T=1 kv 2048 ns=4": (attention_case(
+            gen, 2, 1, 128, [2047, 2047], [1, 1]), 4),
+    }
+    results = {}
+    for name, (args, ns) in cases.items():
+        out = pa.paged_attention(*args, num_splits=ns)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(*args, num_splits=max(ns, 1)).float()
+        limit = ULP_REL * ref.abs() + ULP_ABS
+        outs = [out] + ([pa.paged_attention(*args, num_splits=1)] if ns > 1 else [])
+        diffs = [(o.float() - ref).abs() for o in outs]
+        err = max(d.max().item() for d in diffs)
+        ratio = max((d / limit).max().item() for d in diffs)
+        finite = bool(torch.isfinite(out.float()).all())
+        if name.startswith("ragged"):
+            finite = finite and bool((out[4] == 0).all())      # all-masked row → 0
+        nbytes, ops = attention_work(args[0], args[1], args[3], args[4], args[5])
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / peak * 1e3
+        row = {
+            "max_abs_err": err, "err_over_limit": ratio,
+            "ms": time_ms(lambda: pa.paged_attention(*args, num_splits=ns)),
+            "plain_ms": time_ms(lambda: pa.paged_attention_plain(*args, num_splits=max(ns, 1))),
+            "library_ms": time_ms(library_fn(*args)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops,
+        }
+        log(f"[a] paged_attention {name}: max_abs_err={err:.3e} (tol {TOL}); "
+            f"worst err / ({ULP_REL:g}*|ref| + {ULP_ABS:g}) = {ratio:.3f} (limit 1) "
+            + " ".join(f"{k}={row[k]}" for k in ("ms", "plain_ms", "library_ms",
+                                                   "bound_ms", "bound_by")))
+        if not (err <= TOL and ratio <= 1.0 and finite):
+            raise AssertionError(f"paged_attention {name}: err {err} "
+                                 f"err/limit {ratio} finite {finite}")
+        results[name] = row
+    return results
+
+
+# ---------------------------------------------------------------------------
+# (b) serving at full width
+# ---------------------------------------------------------------------------
+
+def print_profile(prof, wall_s: float) -> None:
+    """Device time by kernel over the whole serving run, and the device's
+    busy share of its wall time (kernels of one stream do not overlap).
+    The profiler's own host overhead slows the run it watches."""
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    log(f"[profile] wall {wall_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"({busy_us / 1e4 / wall_s:.1f}%)")
+    for e in rows[:20]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{100 * e.self_device_time_total / busy_us:5.1f}% x{e.count:<6d} {e.key[:90]}")
+
+
+def phase_serve(profile: bool = False) -> dict:
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    batch, prompt, decode = 32, 128, 64
+    t0 = time.perf_counter()
+    engine = build_engine(EngineConfig(
+        model="llama-3-8b-lite", block_size=16, max_batch_size=batch,
+        max_model_len=prompt + decode + 16, prefill_chunk=prompt,
+        allow_random_weights=True))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    vocab = engine.core.model_cfg.vocab_size
+    log(f"[b] llama-3-8b-lite engine built in {setup_s:.2f}s; kv blocks "
+        f"{engine.core.runner.spec.num_blocks}")
+
+    async def serve():
+        first_at, done_at, streams = {}, {}, {}
+
+        async def one(i: int):
+            hi = vocab - 5
+            req = PreprocessedRequest(
+                token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(prompt)],
+                stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+                sampling_options=SamplingOptions(temperature=0.0),
+                request_id=f"bench-{i}")
+            toks, lps = [], []
+            async for out in engine.generate(req):
+                if out.error:
+                    raise RuntimeError(f"request {i} failed: {out.error}")
+                if not toks:
+                    first_at[i] = time.perf_counter()
+                toks += out.token_ids
+                lps += out.log_probs or []
+            done_at[i] = time.perf_counter()
+            streams[i] = (toks, lps)
+
+        t_start = time.perf_counter()
+        try:
+            await asyncio.gather(*(one(i) for i in range(batch)))
+        finally:
+            await engine.shutdown()
+        return t_start, first_at, done_at, streams
+
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = engine.core.metrics.num_steps
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    pa.paged_attention.launches = 0
+    t_start, first_at, done_at, streams = asyncio.run(serve())
+    launches = pa.paged_attention.launches
+    if prof is not None:
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        print_profile(prof, max(done_at.values()) - t_start)
+    steps = engine.core.metrics.num_steps - steps0
+    for i, (toks, lps) in streams.items():
+        if len(toks) != decode or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"request {i}: {len(toks)} tokens, expected {decode}")
+        if not all(lp <= 1e-3 and lp == lp for lp in lps):
+            raise AssertionError(f"request {i}: bad logprobs {lps[:4]}")
+    if launches <= 0:
+        raise AssertionError("the paged-attention kernel was not launched by the main path")
+    t_first = max(first_at.values())
+    t_end = max(done_at.values())
+    res = {
+        "requests": batch, "tokens": batch * decode, "steps": steps,
+        "launches": launches,
+        "launches_per_step": launches / max(steps, 1),
+        "ttft_all_s": t_first - t_start,
+        "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
+        "wall_s": t_end - t_start,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log("[b] " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# (c) coherence on the trained checkpoint
+# ---------------------------------------------------------------------------
+
+def phase_coherence() -> dict:
+    from dynamo_tpu_torch.engine.engine import EngineCore
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS, ModelConfig
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.tokenizer import load_tokenizer
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    ckpt = str(ROOT / "tests" / "data" / "tiny-real-llama")
+    tok = load_tokenizer(ckpt)
+    ids = tok.encode("one two three four", add_bos=True)
+
+    def greedy(model: str, device: str, params=None, hold_stream: bool = False):
+        """Greedy tokens, and with ``hold_stream`` the count of held steps
+        and of those whose dispatch waited for the card: from the third
+        step on (first uses of the step shapes are past), the stream is held
+        busy by a ~0.1 s sleep kernel before ``step_begin``; a dispatch
+        that synchronises returns only after the sleep, with the stream
+        idle."""
+        core = EngineCore(EngineConfig(model=model, block_size=16, num_blocks=64,
+                                       max_batch_size=4, max_model_len=256),
+                          params=params, device=device)
+        core.add_request(PreprocessedRequest(
+            token_ids=ids, request_id="c",
+            stop_conditions=StopConditions(max_tokens=8, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0)))
+        out: list[int] = []
+        held = waited = 0
+        while core.has_work():
+            if hold_stream and core.metrics.num_steps >= 2:
+                torch.cuda._sleep(200_000_000)
+                pending = core.step_begin()
+                held += 1
+                waited += torch.cuda.current_stream().query()
+                outs = core.step_finalize(pending)
+            else:
+                outs = core.step()
+            for o in outs.values():
+                out += o.token_ids
+        return out, held, waited
+
+    toks, held, waited = greedy(ckpt, "cuda", hold_stream=True)
+    text = tok.decode(toks)
+    log(f"[c] tiny-real-llama bf16 on the card: {text!r}")
+    if " five six seven eight" not in text:
+        raise AssertionError(f"incoherent continuation on the card: {text!r}")
+    log(f"[c] step dispatches that waited for a busy card: {waited} of {held}")
+    if held == 0 or waited:
+        raise AssertionError(f"{waited} of {held} step dispatches synchronised with "
+                             "the card: the pipelined loop would not overlap")
+    cfg32 = dataclasses.replace(ModelConfig.from_hf_config(ckpt), dtype="float32",
+                                name="tiny-real-llama-f32")
+    MODEL_PRESETS[cfg32.name] = cfg32
+    gpu32 = greedy(cfg32.name, "cuda", load_params(cfg32, ckpt, device="cuda"))[0]
+    cpu32 = greedy(cfg32.name, "cpu", load_params(cfg32, ckpt, device="cpu"))[0]
+    log(f"[c] f32 greedy tokens: card {gpu32} cpu {cpu32}")
+    if gpu32 != cpu32:
+        raise AssertionError("f32 greedy tokens on the card differ from the CPU plain path")
+    return {"text": text, "f32_tokens": gpu32, "held_steps": held}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from dynamo_tpu_torch.ops import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    name = torch.cuda.get_device_name(0)
+    bw, peak = card_rates(name)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+        f"sms {torch.cuda.get_device_properties(0).multi_processor_count}")
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f}s")
+    for kname in libs:
+        for line in build.build_log(kname).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {kname}: {line.strip()}")
+
+    kern = phase_kernels(bw, peak)
+    serve = phase_serve(profile="--profile" in sys.argv[1:])
+    phase_coherence()
+
+    main_shape = kern["decode B=32 T=1 kv 128-192"]
+    print(json.dumps({"kernels": [{
+        "name": "paged_attention", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/paged_attention.py:314",
+        "launches": serve["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
+        "err_over_limit": max(r["err_over_limit"] for r in kern.values()),
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"], "tol": TOL, "pass": True,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

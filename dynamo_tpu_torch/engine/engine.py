@@ -1,0 +1,704 @@
+"""The port's engine: model runner + engine core + async facade.
+
+Port of ``dynamo_tpu/engine/engine.py`` for the dense Llama serving path
+on one device:
+
+- ``ModelRunner``: owns params, the paged KV cache and per-slot sampling
+  state on the device; runs one bucketed ragged step per dispatch.
+- ``EngineCore``: synchronous scheduler + step loop (directly testable),
+  pipelined one step deep through ``step_begin`` / ``step_finalize``.
+- ``AsyncTorchEngine``: thread-hosted step loop bridging to asyncio
+  streams.
+
+Where JAX donates the cache and the sampling state to a jitted step and
+gets new arrays back, the runner updates them in place. Host/device
+overlap: JAX gets it from async dispatch. Here a dispatch stages its
+inputs in pinned host memory and copies them with ``non_blocking=True``
+(a copy from pageable memory would synchronise the stream), and copies the
+sampled tokens back into pinned memory behind a CUDA event, so finalizing
+step N waits for step N only while step N+1 already runs on the card.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import queue as thread_queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine.cache import KVCacheSpec, allocate_cache
+from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
+from dynamo_tpu_torch.engine.sampling import (
+    SamplingState,
+    greedy_sample,
+    record_tokens,
+    sample,
+)
+from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq
+from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
+from dynamo_tpu_torch.protocols.common import (
+    FinishReason,
+    LLMEngineOutput,
+    PreprocessedRequest,
+)
+from dynamo_tpu_torch.qos.deadline import deadline_of, expired
+from dynamo_tpu_torch.utils.config import EngineConfig
+from dynamo_tpu_torch.utils.device import resolve_device
+from dynamo_tpu_torch.utils.logging import get_logger
+
+log = get_logger("engine")
+
+
+def _bucket(n: int, buckets: tuple[int, ...]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+def _pow2_bucket(n: int, lo: int, hi: int) -> int:
+    b = lo
+    while b < n and b < hi:
+        b *= 2
+    return b
+
+
+def _derived_seed(request_id: str) -> int:
+    """Stable per-request sampler seed for requests that set none: every
+    stream's noise is then a pure function of (request, draws)."""
+    return int.from_bytes(hashlib.sha256(request_id.encode()).digest()[:4], "big")
+
+
+def check_supported(ec: EngineConfig) -> None:
+    """Raise on settings this slice of the port does not carry, naming the
+    slice that brings them (ROADMAP)."""
+    later = {
+        "tp/pp/dp/ep/sp > 1 (parallelism slice)":
+            any(v != 1 for v in ec.mesh_shape().values()),
+        "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
+        f"kv_dtype={ec.kv_dtype} (quantized KV cache slice)":
+            ec.kv_dtype in ("int8", "int4"),
+        "spec_ngram > 0 (speculative decoding, variants slice)": ec.spec_ngram > 0,
+        "decode_window > 1 (fused decode windows, variants slice)": ec.decode_window > 1,
+        "host/disk/remote KV tiers (KVBM slice)": bool(
+            ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr
+            or ec.global_prefix_cache or ec.stream_ckpt_blocks > 0),
+        "session_ttl > 0 (session retention slice)": ec.session_ttl > 0,
+        "prefill_chunk=0 auto sizing (cost model, observability slice)":
+            ec.prefill_chunk <= 0,
+    }
+    missing = [name for name, hit in later.items() if hit]
+    if missing:
+        raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
+    if ec.quantization not in ("none", ""):
+        raise ValueError(f"unknown quantization {ec.quantization!r} (supported: none)")
+    if ec.kv_dtype not in ("bfloat16", ""):
+        raise ValueError(f"unknown kv_dtype {ec.kv_dtype!r} (supported: bfloat16 "
+                         "[model-precision cache])")
+    if ec.attn_num_splits < 0:
+        raise ValueError(f"attn_num_splits must be >= 0 (0 = auto), got {ec.attn_num_splits}")
+
+
+@dataclass
+class EngineMetrics:
+    """Engine-side stats (the JAX engine's EngineMetrics, minus the
+    counters of features not ported yet)."""
+
+    num_steps: int = 0
+    num_prefill_tokens: int = 0
+    num_decode_tokens: int = 0
+    num_requests_finished: int = 0
+    num_preemptions: int = 0
+    prefix_hit_blocks: int = 0
+    prefix_lookup_blocks: int = 0
+    deadline_cancelled: int = 0
+    kv_cache_bytes: int = 0
+    kv_quant_enabled: bool = False
+
+    def snapshot(self, sched: Scheduler, pool: PrefixPool) -> dict:
+        return {
+            "kv_cache_bytes": self.kv_cache_bytes,
+            "kv_quant_enabled": self.kv_quant_enabled,
+            "num_waiting": sched.num_waiting,
+            "num_running": sched.num_running,
+            "kv_usage": pool.usage,
+            "kv_total_blocks": pool.num_blocks,
+            "num_steps": self.num_steps,
+            "prefill_tokens": self.num_prefill_tokens,
+            "decode_tokens": self.num_decode_tokens,
+            "requests_finished": self.num_requests_finished,
+            "preemptions": self.num_preemptions,
+            "prefix_hit_rate": self.prefix_hit_blocks / max(self.prefix_lookup_blocks, 1),
+            "deadline_cancelled": self.deadline_cancelled,
+        }
+
+
+@dataclass
+class StepOutputs:
+    """A dispatched step's sampled tokens and logprobs. On the card they are
+    being copied into pinned host memory behind ``event``;
+    :meth:`materialize` waits for that copy only."""
+
+    tokens: torch.Tensor
+    logprobs: torch.Tensor
+    event: torch.cuda.Event | None = None
+
+    def materialize(self) -> tuple[np.ndarray, np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.tokens.numpy(), self.logprobs.numpy()
+
+
+@dataclass
+class PendingStep:
+    """A dispatched-but-unmaterialized engine step: per batch,
+    (kind, rows, sample_rows, outputs)."""
+
+    batches: list[tuple[str, list, list[bool], StepOutputs]] = field(default_factory=list)
+    # Unified steps: the leading decode-row count of the "mixed" batch,
+    # captured at plan time (prefill_target() moves as finalize appends).
+    mixed_dec_rows: int = 0
+
+
+class ModelRunner:
+    """Device-state owner + bucketed step dispatch."""
+
+    def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig, params=None,
+                 device: str | torch.device | None = None):
+        self.cfg = cfg
+        self.engine_cfg = engine_cfg
+        self.device = resolve_device(device)
+        if params is not None:
+            self.params = params
+        else:
+            from dynamo_tpu_torch.models.config import MODEL_PRESETS
+            from dynamo_tpu_torch.models.loader import has_weights, load_params
+
+            if has_weights(engine_cfg.model):
+                self.params = load_params(cfg, engine_cfg.model, device=self.device)
+            else:
+                if engine_cfg.model not in MODEL_PRESETS:
+                    # A real model PATH without safetensors: serving random
+                    # weights would look like a working server producing
+                    # garbage. Fail fast unless explicitly allowed.
+                    if not engine_cfg.allow_random_weights:
+                        raise ValueError(
+                            f"{engine_cfg.model!r} has no *.safetensors "
+                            "weights to load; convert the checkpoint, fix "
+                            "the path, or pass --allow-random-weights to "
+                            "serve RANDOM weights (tests/benches only)")
+                    log.warning("%s has no *.safetensors weights: engine will "
+                                "serve RANDOM weights", engine_cfg.model)
+                self.params = llama.init_params(cfg, seed=engine_cfg.seed,
+                                                device=self.device)
+        num_blocks = engine_cfg.num_blocks or self._auto_num_blocks()
+        self.spec = KVCacheSpec.for_model(cfg, num_blocks, engine_cfg.block_size,
+                                          kv_dtype=engine_cfg.kv_dtype)
+        self.cache_k, self.cache_v = allocate_cache(self.spec, self.device)
+        maxb = engine_cfg.max_batch_size
+        dev = self.device
+        # Row maxb is the trash row: padding/non-sampling rows write their
+        # sampling-state updates there, so real slots are never clobbered
+        # by duplicate scatter indices and draw counters only advance on
+        # real samples.
+        self.counts = torch.zeros((maxb + 1, cfg.vocab_size), dtype=torch.int32, device=dev)
+        self.seeds = torch.zeros((maxb + 1,), dtype=torch.int64, device=dev)
+        self.draws = torch.zeros((maxb + 1,), dtype=torch.int64, device=dev)
+        # Per-slot latest sampled token, ON DEVICE: lets the next decode step
+        # consume this step's token without a host round-trip — the core of
+        # the pipelined step loop. Row maxb = trash.
+        self.slot_toks = torch.zeros((maxb + 1,), dtype=torch.int32, device=dev)
+        self.max_nblk = -(-engine_cfg.max_model_len // engine_cfg.block_size)
+
+    def _auto_num_blocks(self) -> int:
+        """Size the device KV pool from free card memory, or a small default
+        on the CPU."""
+        ec = self.engine_cfg
+        budget = 0
+        if self.device.type == "cuda":
+            free, _total = torch.cuda.mem_get_info(self.device)
+            budget = int(free * 0.85)
+        spec = KVCacheSpec.for_model(self.cfg, 1, ec.block_size, kv_dtype=ec.kv_dtype)
+        n = max(budget // spec.bytes_per_block(), 16) if budget > 0 else 512
+        cap = (ec.max_model_len // ec.block_size) * ec.max_batch_size + 1
+        return int(min(n, cap))
+
+    def reset_slot(self, slot: int, seed: int) -> None:
+        """Initialize a seq's persistent sampling state: fresh penalty
+        counts, its seed, and a draw counter at 0."""
+        self.counts[slot] = 0
+        self.seeds[slot] = seed
+        self.draws[slot] = 0
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def dispatch(self, rows: list[tuple[Seq, int, int]], sample_rows: list[bool],
+                 mixed: bool = False) -> StepOutputs:
+        """Enqueue one bucketed step on the device without waiting for it;
+        returns its outputs, to be materialized later. ``mixed`` marks a
+        unified ragged step (decode rows packed with prefill-chunk rows):
+        the batch buckets over the decode row ladder while t takes the
+        prefill chunk ladder."""
+        ec = self.engine_cfg
+        n = len(rows)
+        t_max = max(length for _, _, length in rows)
+        if t_max == 1:
+            # Degenerate mixed batches (every live row is one token) ARE
+            # the decode step.
+            b, t = _bucket(n, ec.decode_bucket), 1
+        elif mixed:
+            b, t = _bucket(n, ec.decode_bucket), _pow2_bucket(t_max, 16, ec.prefill_chunk)
+        else:
+            b, t = _bucket(n, (1, 2, 4, 8)), _pow2_bucket(t_max, 16, ec.prefill_chunk)
+        # Block-table width from the batch's max KV coverage — blocks past
+        # start + length are never read. Pow2-bucketed like the JAX runner.
+        bsz = ec.block_size
+        nblk_need = max(min(len(s.block_ids), -(-(start + length) // bsz))
+                        for s, start, length in rows)
+        nblk = min(_pow2_bucket(max(nblk_need, 1), 4, self.max_nblk), self.max_nblk)
+
+        # One int32 and one float32 host buffer carry every step input, so
+        # the step costs two host→device copies.
+        ints = np.zeros(b * t + b * nblk + 6 * b, np.int32)
+        tokens = ints[: b * t].reshape(b, t)
+        bt = ints[b * t: b * t + b * nblk].reshape(b, nblk)
+        q_start, q_len, slots, top_k, do_sample, from_slot = (
+            ints[b * (t + nblk):].reshape(6, b))
+        floats = np.zeros((5, b), np.float32)
+        temp, top_p, fp, pp, rp = floats
+        top_p[:] = 1.0
+        rp[:] = 1.0
+        fast_greedy = True  # padding rows (temp 0, rp 1) are greedy-compatible
+
+        for i, (seq, start, length) in enumerate(rows):
+            # Decode rows only (start at/after the prefill target): a
+            # length-1 resume-prefill chunk must read its host token, not
+            # the in-flight sampled one.
+            if (seq.inflight_samples > 0 and length == 1
+                    and start >= seq.prefill_target()):
+                # The input token was sampled by a still-in-flight step;
+                # the step reads it from slot_toks on the device.
+                from_slot[i] = 1
+            else:
+                chunk = seq.tokens[start: start + length]
+                tokens[i, : len(chunk)] = chunk
+            q_start[i] = start
+            q_len[i] = length
+            ids = seq.block_ids[:nblk]  # beyond-coverage blocks never read
+            bt[i, : len(ids)] = ids
+            slots[i] = max(seq.slot, 0)
+            so = seq.req.sampling_options
+            temp[i] = so.temperature if so.temperature is not None else 1.0
+            top_k[i] = so.top_k or 0
+            top_p[i] = so.top_p if so.top_p is not None else 1.0
+            fp[i] = so.frequency_penalty or 0.0
+            pp[i] = so.presence_penalty or 0.0
+            rp[i] = so.repetition_penalty or 1.0
+            do_sample[i] = sample_rows[i]
+            if temp[i] > 0.0 or fp[i] != 0.0 or pp[i] != 0.0 or rp[i] != 1.0:
+                fast_greedy = False
+        return self._step(self._to_device(ints), self._to_device(floats),
+                          b, t, nblk, fast_greedy)
+
+    def _step(self, ints: torch.Tensor, floats: torch.Tensor, b: int, t: int,
+              nblk: int, fast_greedy: bool) -> StepOutputs:
+        """The step program (JAX: ``_build_step_fn``) on device tensors."""
+        cfg = self.cfg
+        trash_row = self.engine_cfg.max_batch_size
+        tokens = ints[: b * t].view(b, t)
+        bt = ints[b * t: b * t + b * nblk].view(b, nblk)
+        q_start, q_len, slots, top_k, do_sample, from_slot = ints[b * (t + nblk):].view(6, b)
+        slots_l = slots.long()
+        do_sample = do_sample.bool()
+        # Device-fed decode input: rows whose previous token was sampled by
+        # an in-flight step read it from slot_toks (stream order guarantees
+        # the producing step has run).
+        tokens[:, 0] = torch.where(from_slot.bool(), self.slot_toks[slots_l], tokens[:, 0])
+        hidden = llama.forward(self.params, cfg, tokens, q_start, q_len, bt,
+                               self.cache_k, self.cache_v,
+                               attn_num_splits=self.engine_cfg.attn_num_splits)
+        logits = llama.logits_from_hidden(self.params, cfg, hidden).float()
+        write_slots = torch.where(do_sample, slots_l, torch.full_like(slots_l, trash_row))
+        if fast_greedy:
+            # Whole batch greedy + penalty-free: argmax over raw logits is
+            # identical to the general path and skips its sort and noise.
+            toks, lps = greedy_sample(logits)
+        else:
+            temp, top_p, fp, pp, rp = floats
+            st = SamplingState(
+                temperature=temp, top_k=top_k, top_p=top_p,
+                frequency_penalty=fp, presence_penalty=pp, repetition_penalty=rp,
+                seeds=self.seeds[slots_l], draws=self.draws[slots_l],
+                token_counts=self.counts[slots_l])
+            toks, lps = sample(logits, st)
+            # Only sampling rows persist state; others write to the trash row.
+            self.counts[write_slots] = record_tokens(st.token_counts, toks, do_sample)
+            self.draws[write_slots] = st.draws + 1
+        self.slot_toks[write_slots] = toks
+        if self.device.type != "cuda":
+            return StepOutputs(toks, lps)
+        toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+        lps_h = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
+        toks_h.copy_(toks, non_blocking=True)
+        lps_h.copy_(lps, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return StepOutputs(toks_h, lps_h, event)
+
+    def run(self, rows: list[tuple[Seq, int, int]],
+            sample_rows: list[bool]) -> tuple[np.ndarray, np.ndarray]:
+        """Dispatch one step and block for host results (tokens, logprobs)."""
+        toks, lps = self.dispatch(rows, sample_rows).materialize()
+        n = len(rows)
+        return toks[:n], lps[:n]
+
+
+class EngineCore:
+    """Synchronous engine: scheduler + runner + output assembly."""
+
+    def __init__(self, engine_cfg: EngineConfig, params=None,
+                 device: str | torch.device | None = None):
+        check_supported(engine_cfg)
+        self.engine_cfg = engine_cfg
+        self.model_cfg = resolve_model_config(engine_cfg.model)
+        if self.model_cfg.is_moe:
+            raise ValueError(f"{engine_cfg.model!r} is a MoE model: not supported "
+                             "by the torch port yet (MoE slice)")
+        self._unified = engine_cfg.unified_step
+        self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
+                                  device=device)
+        self.pool = PrefixPool(self.runner.spec.num_blocks, engine_cfg.block_size,
+                               enable_prefix_caching=engine_cfg.enable_prefix_caching)
+        self.sched = Scheduler(
+            pool=self.pool,
+            max_batch_size=engine_cfg.max_batch_size,
+            prefill_chunk=engine_cfg.prefill_chunk,
+            max_model_len=engine_cfg.max_model_len,
+            max_tokens_per_step=engine_cfg.max_tokens_per_step,
+        )
+        self.metrics = EngineMetrics(
+            kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks)
+        self._seqs: dict[str, Seq] = {}
+        self.default_eos: list[int] = []
+        # Deadline clock for the current step window.
+        self._step_now: float | None = None
+
+    # ------------------------------------------------------------------
+    def add_request(self, req: PreprocessedRequest,
+                    now: float | None = None) -> LLMEngineOutput | None:
+        """Queue a request; returns an immediate error output if rejected."""
+        if not req.token_ids:
+            return LLMEngineOutput(
+                finish_reason=FinishReason.ERROR, error="empty prompt (no token_ids)")
+        if expired(deadline_of(req.annotations), now):
+            # Already past deadline: never enters the scheduler.
+            self.metrics.deadline_cancelled += 1
+            return LLMEngineOutput(finish_reason=FinishReason.CANCELLED)
+        if req.sampling_options.guided_json is not None or req.mm_embeddings:
+            return LLMEngineOutput(
+                finish_reason=FinishReason.ERROR,
+                error="guided decoding and multimodal requests are not supported "
+                      "by the torch port yet (variants slice)")
+        seq = Seq(req=req, block_size=self.engine_cfg.block_size)
+        self.sched.add(seq)
+        if seq.phase is Phase.FINISHED:  # rejected (too long for model or pool)
+            return LLMEngineOutput(
+                finish_reason=FinishReason.ERROR,
+                error=f"prompt of {seq.prompt_len} tokens exceeds capacity "
+                      f"(max_model_len={self.engine_cfg.max_model_len}, "
+                      f"usable_kv_blocks={self.pool.num_blocks - 1})",
+            )
+        self._seqs[req.request_id] = seq
+        self.metrics.prefix_lookup_blocks += max(len(seq.tokens) // seq.block_size, 1)
+        return None
+
+    def abort(self, request_id: str) -> None:
+        seq = self._seqs.get(request_id)
+        if seq is None or seq.phase is Phase.FINISHED:
+            return
+        self.sched.finish(seq, FinishReason.CANCELLED)
+
+    def has_work(self) -> bool:
+        return self.sched.has_work()
+
+    # ------------------------------------------------------------------
+    def _check_stop(self, seq: Seq, token: int) -> FinishReason | None:
+        sc = seq.req.stop_conditions
+        n_out = seq.num_output_tokens
+        if expired(seq.deadline_ts, self._step_now):
+            # Mid-decode deadline: nobody is waiting for the rest.
+            self.metrics.deadline_cancelled += 1
+            return FinishReason.CANCELLED
+        eos_ids = set(seq.req.eos_token_ids or self.default_eos)
+        if token in (sc.stop_token_ids or []):
+            return FinishReason.STOP
+        if token in eos_ids and not sc.ignore_eos and (sc.min_tokens or 0) <= n_out:
+            return FinishReason.STOP
+        if sc.max_tokens is not None and n_out >= sc.max_tokens:
+            return FinishReason.LENGTH
+        if len(seq.tokens) >= self.engine_cfg.max_model_len:
+            return FinishReason.LENGTH
+        return None
+
+    def _init_slot(self, seq: Seq) -> None:
+        """Reset a seq's sampling slot: every stream gets a concrete seed
+        (explicit or request-derived)."""
+        so = seq.req.sampling_options
+        seed = so.seed if so.seed is not None else _derived_seed(seq.request_id)
+        self.runner.reset_slot(seq.slot, seed)
+
+    def step_begin(self) -> PendingStep | None:
+        """Plan one engine step and dispatch it to the device without
+        waiting for results. Host-side state is advanced speculatively
+        (positions — everything value-independent), so the caller may plan
+        and dispatch the NEXT step while this one computes: the sampled
+        tokens stay on the device (slot_toks) and feed the next decode step
+        directly. Value-dependent effects (token append, hash commit, stop
+        conditions) happen in :meth:`step_finalize`."""
+        plan = self.sched.plan()
+        self.metrics.num_preemptions = self.sched.preemption_count
+        if plan.empty:
+            return None
+        self.metrics.num_steps += 1
+        for seq in [w.seq for w in plan.prefill] + plan.decode:
+            if not seq.slot_initialized and seq.slot >= 0:
+                self._init_slot(seq)
+                seq.slot_initialized = True
+
+        pending = PendingStep()
+        batches: list[tuple[str, list, list[bool]]] = []
+        dec_rows = [(s, s.num_computed, 1) for s in plan.decode]
+        pf_rows = [(w.seq, w.start, w.length) for w in plan.prefill]
+        # Sample only on the chunk completing a *fresh* prompt; a
+        # preempt-resumed seq already holds its next token (the resume
+        # prefill just rebuilds KV), so sampling would duplicate output.
+        pf_sample_rows = [
+            w.start + w.length >= w.seq.prefill_target()
+            and len(w.seq.tokens) == w.seq.prompt_len
+            for w in plan.prefill
+        ]
+        if self._unified and pf_rows:
+            # One ragged step: decode rows, then the prefill chunks.
+            pending.mixed_dec_rows = len(dec_rows)
+            batches.append(("mixed", dec_rows + pf_rows,
+                            [True] * len(dec_rows) + pf_sample_rows))
+        else:
+            if dec_rows:
+                batches.append(("decode", dec_rows, [True] * len(dec_rows)))
+            if pf_rows:
+                batches.append(("prefill", pf_rows, pf_sample_rows))
+
+        for kind, rows, sample_rows in batches:
+            out = self.runner.dispatch(rows, sample_rows, mixed=(kind == "mixed"))
+            # Value-independent bookkeeping, done at dispatch so the next
+            # plan() sees advanced positions.
+            for i, (seq, start, length) in enumerate(rows):
+                seq.num_computed = start + length
+                if sample_rows[i]:
+                    seq.inflight_samples += 1
+            pending.batches.append((kind, rows, sample_rows, out))
+        return pending
+
+    def _emit_and_finish(self, seq: Seq, token: int, lp: float,
+                         outputs: dict[str, LLMEngineOutput],
+                         count_decode: bool) -> None:
+        """Append the sampled token, commit blocks, assemble the output and
+        run finish bookkeeping."""
+        seq.tokens.append(token)
+        seq.block_seq.append(token)
+        reason = self._check_stop(seq, token)
+        if count_decode:
+            self.metrics.num_decode_tokens += 1
+        self.sched.commit_computed_blocks(seq)
+        if seq.prefix_hit_blocks:
+            self.metrics.prefix_hit_blocks += seq.prefix_hit_blocks
+            seq.prefix_hit_blocks = 0
+        out = LLMEngineOutput(token_ids=[token], cum_log_probs=lp, log_probs=[lp])
+        if reason is not None:
+            out.finish_reason = reason
+            self.sched.finish(seq, reason)
+            self.metrics.num_requests_finished += 1
+            del self._seqs[seq.request_id]
+        outputs[seq.request_id] = out
+
+    def step_finalize(self, pending: PendingStep) -> dict[str, LLMEngineOutput]:
+        """Materialize a dispatched step's tokens and apply value-dependent
+        effects: append tokens, commit full blocks (hash chain), evaluate
+        stop conditions, assemble per-request outputs."""
+        outputs: dict[str, LLMEngineOutput] = {}
+        for kind, rows, sample_rows, out in pending.batches:
+            toks, lps = out.materialize()
+            for i, (seq, start, length) in enumerate(rows):
+                if seq.phase is Phase.FINISHED:
+                    # Finished (stop/abort) while this step was in flight:
+                    # its speculative row is discarded.
+                    continue
+                decode_row = (kind == "decode"
+                              or (kind == "mixed" and i < pending.mixed_dec_rows))
+                if not decode_row:
+                    self.metrics.num_prefill_tokens += length
+                if not sample_rows[i]:
+                    # Intermediate prefill chunk: no token emitted. (A seq
+                    # preempted while in flight is WAITING with num_computed
+                    # reset to 0 — commit is then a no-op.)
+                    self.sched.commit_computed_blocks(seq)
+                    continue
+                seq.inflight_samples -= 1
+                self._emit_and_finish(seq, int(toks[i]), float(lps[i]), outputs,
+                                      count_decode=decode_row)
+        return outputs
+
+    def set_step_time(self, now: float | None) -> None:
+        self._step_now = now
+
+    def has_expired_waiting(self, now: float | None = None) -> bool:
+        return any(expired(s.deadline_ts, now) for s in self.sched.waiting)
+
+    def reap_expired(self, now: float | None = None) -> dict[str, LLMEngineOutput]:
+        """Cancel WAITING seqs whose deadline passed and emit their terminal
+        outputs."""
+        outs: dict[str, LLMEngineOutput] = {}
+        for seq in self.sched.expire_waiting(now):
+            self._seqs.pop(seq.request_id, None)
+            self.metrics.deadline_cancelled += 1
+            outs[seq.request_id] = LLMEngineOutput(finish_reason=FinishReason.CANCELLED)
+        return outs
+
+    def step(self) -> dict[str, LLMEngineOutput]:
+        """Run one engine step synchronously; returns per-request deltas."""
+        now = time.time()
+        self.set_step_time(now)
+        outs = self.reap_expired(now)
+        pending = self.step_begin()
+        if pending is not None:
+            outs.update(self.step_finalize(pending))
+        return outs
+
+    def fail_all(self, error: str) -> list[str]:
+        """Abort every in-flight request (engine-fatal path). Returns the
+        request ids that were failed."""
+        rids = list(self._seqs)
+        for rid in rids:
+            self.abort(rid)
+        self._seqs.clear()
+        return rids
+
+
+class AsyncTorchEngine:
+    """Async facade: background step-loop thread + asyncio output streams
+    (the JAX package's AsyncJaxEngine for one process)."""
+
+    def __init__(self, core: EngineCore):
+        self.core = core
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._inbox: thread_queue.Queue = thread_queue.Queue()
+        self._streams: dict[str, asyncio.Queue] = {}
+        self._wake = threading.Event()
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, name="engine-core", daemon=True)
+        self._started = False
+
+    def start(self) -> None:
+        if not self._started:
+            self._loop = asyncio.get_running_loop()
+            self._thread.start()
+            self._started = True
+
+    async def shutdown(self) -> None:
+        self._stop = True
+        self._wake.set()
+        if self._started:
+            await asyncio.get_running_loop().run_in_executor(None, self._thread.join, 5.0)
+
+    def _run(self) -> None:
+        # Pipelined step loop: keep ONE step in flight. Each iteration plans
+        # and dispatches step N+1 BEFORE waiting on step N's tokens, so host
+        # work (scheduling, input packing, output assembly) runs while the
+        # card computes.
+        pending: PendingStep | None = None
+        while not self._stop:
+            moved = False
+            while True:
+                try:
+                    kind, payload = self._inbox.get_nowait()
+                except thread_queue.Empty:
+                    break
+                moved = True
+                if kind == "add":
+                    err = self.core.add_request(payload, now=time.time())
+                    if err is not None:
+                        self._post(payload.request_id, err)
+                elif kind == "abort":
+                    self.core.abort(payload)
+                    self._post(payload, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
+            if not self.core.has_work() and pending is None:
+                if not moved:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                continue
+            try:
+                t_step = time.time()
+                if self.core.has_expired_waiting(t_step):
+                    for rid, out in self.core.reap_expired(t_step).items():
+                        self._post(rid, out)
+                self.core.set_step_time(t_step)
+                nxt = self.core.step_begin() if self.core.has_work() else None
+                if pending is not None:
+                    for rid, out in self.core.step_finalize(pending).items():
+                        self._post(rid, out)
+                pending = nxt
+            except Exception as exc:
+                # Engine-fatal: fail + drain all in-flight state so the loop
+                # doesn't spin hot retrying the same failing step.
+                log.exception("engine step failed; failing all in-flight requests")
+                pending = None
+                self.core.fail_all(str(exc))
+                for rid in list(self._streams):
+                    self._post(rid, LLMEngineOutput(finish_reason=FinishReason.ERROR,
+                                                    error=str(exc)))
+
+    def _post(self, rid: str, out: LLMEngineOutput) -> None:
+        loop, q = self._loop, self._streams.get(rid)
+        if loop is None or q is None:
+            return
+        loop.call_soon_threadsafe(q.put_nowait, out)
+
+    async def generate(self, req: PreprocessedRequest) -> AsyncIterator[LLMEngineOutput]:
+        self.start()
+        q: asyncio.Queue = asyncio.Queue()
+        self._streams[req.request_id] = q
+        self._inbox.put(("add", req))
+        self._wake.set()
+        out: LLMEngineOutput | None = None
+        try:
+            while True:
+                out = await q.get()
+                yield out
+                if out.finish_reason is not None:
+                    break
+        finally:
+            self._streams.pop(req.request_id, None)
+            if out is None or out.finish_reason is None:  # client bailed early
+                self._inbox.put(("abort", req.request_id))
+                self._wake.set()
+
+    def stats(self) -> dict[str, Any]:
+        return self.core.metrics.snapshot(self.core.sched, self.core.pool)
+
+
+def build_engine(engine_cfg: EngineConfig, params=None,
+                 device: str | torch.device | None = None) -> AsyncTorchEngine:
+    """The port's engine for ``engine_cfg`` on ``device`` (default: the
+    CUDA card; raises when there is none)."""
+    return AsyncTorchEngine(EngineCore(engine_cfg, params=params, device=device))

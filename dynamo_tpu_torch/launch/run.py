@@ -1,0 +1,156 @@
+"""Single-process launcher for the port:
+``python -m dynamo_tpu_torch.launch.run in=<batch|text> out=torch``.
+
+Port of ``dynamo_tpu/launch/run.py`` for the two inputs this slice serves
+(tokenizer → engine → detokenizer, all in-process). ``in=http`` comes with
+the frontend slice: the card's machine has no ``aiohttp``.
+
+Examples:
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model llama-3-8b-lite \
+        --allow-random-weights --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=text out=torch --model tests/data/tiny-real-llama
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import sys
+
+from dynamo_tpu_torch.engine.engine import AsyncTorchEngine, build_engine
+from dynamo_tpu_torch.protocols.common import (
+    PreprocessedRequest,
+    SamplingOptions,
+    StopConditions,
+)
+from dynamo_tpu_torch.tokenizer import DecodeStream, load_tokenizer
+from dynamo_tpu_torch.utils.config import EngineConfig
+from dynamo_tpu_torch.utils.logging import configure_logging
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    in_mode, out_mode = "text", "torch"
+    rest = []
+    for a in argv:
+        if a.startswith("in="):
+            in_mode = a[3:]
+        elif a.startswith("out="):
+            out_mode = a[4:]
+        else:
+            rest.append(a)
+    p = argparse.ArgumentParser("dynamo-run (torch)")
+    p.add_argument("--model", default="tiny-llama")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device; default: the CUDA card (cpu runs the "
+                        "plain PyTorch path)")
+    p.add_argument("--max-batch-size", type=int, default=64)
+    p.add_argument("--max-model-len", type=int, default=8192)
+    p.add_argument("--block-size", type=int, default=16)
+    p.add_argument("--num-blocks", type=int, default=0)
+    p.add_argument("--prefill-chunk", type=int, default=512)
+    p.add_argument("--no-unified-step", action="store_true",
+                   help="dispatch decode and prefill chunks as two steps "
+                        "instead of one ragged mixed step")
+    p.add_argument("--max-tokens", type=int, default=256, help="default max output tokens")
+    p.add_argument("--input-jsonl", default=None)
+    p.add_argument("--allow-random-weights", action="store_true",
+                   help="serve RANDOM weights when the model path has no "
+                        "loadable safetensors (tests/benches only)")
+    ns = p.parse_args(rest)
+    ns.in_mode, ns.out_mode = in_mode, out_mode
+    return ns
+
+
+def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, EngineConfig]:
+    cfg = EngineConfig(
+        model=ns.model,
+        max_batch_size=ns.max_batch_size,
+        max_model_len=ns.max_model_len,
+        block_size=ns.block_size,
+        num_blocks=ns.num_blocks,
+        prefill_chunk=ns.prefill_chunk,
+        unified_step=not ns.no_unified_step,
+        allow_random_weights=ns.allow_random_weights,
+    )
+    return build_engine(cfg, device=ns.device), cfg
+
+
+async def run_text(ns: argparse.Namespace) -> None:
+    engine, _cfg = build_local_engine(ns)
+    tok = load_tokenizer(ns.tokenizer or ns.model)
+    print(f"dynamo_tpu_torch REPL — model={ns.model} (ctrl-d to exit)")
+    loop = asyncio.get_running_loop()
+    while True:
+        try:
+            line = await loop.run_in_executor(None, lambda: input("> "))
+        except (EOFError, KeyboardInterrupt):
+            break
+        req = PreprocessedRequest(
+            token_ids=tok.encode(tok.apply_chat_template([{"role": "user", "content": line}]),
+                                 add_bos=True),
+            stop_conditions=StopConditions(max_tokens=ns.max_tokens),
+            sampling_options=SamplingOptions(temperature=0.7),
+            eos_token_ids=[tok.eos_id],
+        )
+        stream = DecodeStream(tok)
+        async for out in engine.generate(req):
+            for t in out.token_ids:
+                sys.stdout.write(stream.step(t))
+                sys.stdout.flush()
+        sys.stdout.write(stream.flush() + "\n")
+    await engine.shutdown()
+
+
+async def run_batch(ns: argparse.Namespace) -> None:
+    """Batch mode: JSONL of {"prompt": ...} → JSONL of completions."""
+    engine, _cfg = build_local_engine(ns)
+    tok = load_tokenizer(ns.tokenizer or ns.model)
+
+    async def one(line: str) -> dict:
+        obj = json.loads(line)
+        req = PreprocessedRequest(
+            token_ids=tok.encode(obj["prompt"], add_bos=True),
+            stop_conditions=StopConditions(max_tokens=obj.get("max_tokens", ns.max_tokens)),
+            sampling_options=SamplingOptions(temperature=obj.get("temperature", 0.0)),
+            eos_token_ids=[tok.eos_id],
+        )
+        toks: list[int] = []
+        async for out in engine.generate(req):
+            toks.extend(out.token_ids)
+            if out.error:
+                raise RuntimeError(f"request failed: {out.error}")
+        return {"prompt": obj["prompt"], "text": tok.decode(toks), "tokens": len(toks)}
+
+    if ns.input_jsonl:
+        with open(ns.input_jsonl) as src:
+            text = src.read()
+    else:
+        text = sys.stdin.read()
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    try:
+        results = await asyncio.gather(*(one(ln) for ln in lines))
+    finally:
+        await engine.shutdown()
+    for r in results:
+        print(json.dumps(r))
+
+
+def main(argv: list[str] | None = None) -> None:
+    configure_logging()
+    ns = parse_args(argv)
+    if ns.out_mode != "torch":
+        raise SystemExit(f"unknown out={ns.out_mode} (supported: torch)")
+    if ns.in_mode == "text":
+        asyncio.run(run_text(ns))
+    elif ns.in_mode == "batch":
+        asyncio.run(run_batch(ns))
+    else:
+        raise SystemExit(f"unknown in={ns.in_mode} (supported: batch, text; "
+                         "http comes with the frontend slice)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,5 @@
+"""The port's kernels: hand-written CUDA for Hopper (``csrc/``), each with
+its plain PyTorch version beside it.
+
+- paged_attention: flash attention over a block-table-paged KV cache.
+"""

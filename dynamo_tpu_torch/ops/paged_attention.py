@@ -1,0 +1,282 @@
+"""Paged attention over a block-table KV cache: the hand-written CUDA
+kernel (``csrc/paged_attention.cu``), its plain PyTorch version, and the
+split-K sizing.
+
+Port of ``dynamo_tpu/ops/paged_attention.py`` (``paged_attention_kernel``)
+for a bf16/f32 cache; the int8 and packed-int4 cache variants are still
+to be ported (ROADMAP). :func:`paged_attention` is the one entry: on a
+CUDA tensor it launches the kernel (or raises — there is no fallback), on
+a CPU tensor it runs :func:`paged_attention_plain`.
+
+Conventions kept from the TPU kernel, so both versions agree with it:
+- q is scaled by ``D^-0.5`` in q's own dtype before attention
+  (:func:`scale_query`), not in f32 as the dense path of ``models/llama``
+  does — in bf16 the two differ by a rounding;
+- a row whose context is all masked outputs 0;
+- split-K emits each split's f32 ``(acc, m, l)`` and
+  :func:`combine_splits` merges them outside the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+NEG_INF = -1e30
+
+#: f32 per-split partial-state budget: the split-K prefill gate (see
+#: :func:`resolve_num_splits`).
+_SPLIT_STATE_CAP_BYTES = 8 * 2**20
+
+#: the JAX cost model's default core count (a TPU's); the CPU path uses it
+#: so its split choice matches the JAX kernel's.
+TPU_CORE_COUNT = 8
+
+#: query rows per CUDA thread block (4 warps x 4 rows, csrc/paged_attention.cu)
+ROWS_PER_BLOCK = 16
+
+
+def auto_num_splits(num_blocks: int, *, batch: int, q_chunks: int = 1,
+                    core_count: int = TPU_CORE_COUNT,
+                    min_blocks_per_split: int = 4, max_splits: int = 16) -> int:
+    """Split-K split count (copy of ``obs/costmodel.auto_num_splits``):
+    the smallest count that fills ``core_count`` parallel streams given the
+    ``batch × q_chunks`` programs that already exist, without shrinking a
+    split below ``min_blocks_per_split`` context blocks."""
+    if num_blocks <= min_blocks_per_split:
+        return 1
+    streams = max(1, batch * q_chunks)
+    want = -(-core_count // streams)
+    cap = max(1, num_blocks // min_blocks_per_split)
+    return max(1, min(want, cap, max_splits))
+
+
+def resolve_num_splits(num_splits: int, *, nblk: int, batch: int,
+                       q_chunks: int, q_tokens: int,
+                       state_rows: int = 0, kv_heads: int = 0,
+                       head_dim: int = 0,
+                       core_count: int = TPU_CORE_COUNT) -> int:
+    """Resolve a ``num_splits`` request to the split count used (copy of
+    the JAX function, with ``core_count`` passed through).
+
+    0 ("auto") defers to :func:`auto_num_splits`. Decode (q_tokens == 1)
+    engages whenever the batch underfills the cores. Chunked prefill engages
+    under the same signal but only while the f32 per-split partial state
+    fits ``_SPLIT_STATE_CAP_BYTES``; without the state geometry it stays
+    sequential. Explicit values are clamped to [1, nblk]."""
+    if num_splits <= 0:
+        want = auto_num_splits(nblk, batch=batch, q_chunks=q_chunks,
+                               core_count=core_count)
+        if q_tokens != 1 and want > 1:
+            if not (state_rows and kv_heads and head_dim):
+                return 1
+            bytes_per_split = (batch * kv_heads * state_rows
+                               * (head_dim + 256) * 4)
+            want = min(want, max(
+                _SPLIT_STATE_CAP_BYTES // max(bytes_per_split, 1), 1))
+        return max(1, min(want, nblk))
+    return max(1, min(num_splits, nblk))
+
+
+def num_splits_for(q: torch.Tensor, kv_heads: int, nblk: int,
+                   num_splits: int) -> int:
+    """The split count :func:`paged_attention` uses for these shapes. On the
+    card the parallel programs are (kv head × tile of query rows) per row
+    and the cores are its SMs; on the CPU it is the JAX kernel's choice."""
+    b, t, h, d = q.shape
+    r = t * (h // kv_heads)
+    if q.is_cuda:
+        cores = torch.cuda.get_device_properties(q.device).multi_processor_count
+        chunks = kv_heads * -(-r // ROWS_PER_BLOCK)
+    else:
+        cores, chunks = TPU_CORE_COUNT, 1
+    return resolve_num_splits(num_splits, nblk=nblk, batch=b, q_chunks=chunks,
+                              q_tokens=t, state_rows=r, kv_heads=kv_heads,
+                              head_dim=d, core_count=cores)
+
+
+@functools.cache
+def _query_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """D^-0.5 rounded to ``dtype`` on the host, as JAX rounds a weak-typed
+    Python scalar. A Python float: a device scalar would cost a pageable
+    host-to-device copy, which synchronises the stream, at every launch."""
+    return torch.tensor(head_dim ** -0.5, dtype=dtype).item()
+
+
+def scale_query(q: torch.Tensor) -> torch.Tensor:
+    """q · D^-0.5 in q's own dtype, the scale itself rounded to that dtype."""
+    return q * _query_scale(q.shape[-1], q.dtype)
+
+
+def combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Merge per-split flash state — acc [B, NS, KH, R, D], m and l
+    [B, NS, KH, R] — into rows [B, KH, R, D]: the logsumexp-weighted merge
+    of ``_combine_splits``. A row whose every split is empty has l_tot 0
+    and yields 0. With one split it is the kernel's own normalisation."""
+    m_tot = m.amax(dim=1, keepdim=True)
+    w = torch.exp(m - m_tot)
+    l_tot = (w * l).sum(dim=1)
+    out = (acc * w[..., None]).sum(dim=1)
+    l_tot = torch.where(l_tot == 0.0, torch.ones_like(l_tot), l_tot)
+    return (out / l_tot[..., None]).to(out_dtype)
+
+
+def _rows_to_bthd(rows: torch.Tensor, t: int) -> torch.Tensor:
+    """[B, KH, T*REP, D] (row r ↔ token r // rep, head r % rep) → [B, T, H, D]."""
+    b, kh, r, d = rows.shape
+    rep = r // t
+    return rows.reshape(b, kh, t, rep, d).permute(0, 2, 1, 3, 4).reshape(b, t, kh * rep, d)
+
+
+def split_state_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, block_tables: torch.Tensor,
+                      q_start: torch.Tensor, kv_lens: torch.Tensor,
+                      num_splits: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each split's raw flash state, computed densely: the function the
+    kernel computes before normalising. q is already scaled. Split s covers
+    context blocks [s·spb, (s+1)·spb). Returns f32 acc [B, NS, KH, R, D],
+    m and l [B, NS, KH, R]."""
+    b, t, h, d = q.shape
+    _, bs, kh, _ = k_cache.shape
+    nblk = block_tables.shape[1]
+    rep = h // kh
+    ns = num_splits
+    spb = -(-nblk // ns)
+    span = spb * bs
+    s_pad = ns * span
+    idx = block_tables.long()
+    ctx_k = k_cache[idx].reshape(b, nblk * bs, kh, d).float()
+    ctx_v = v_cache[idx].reshape(b, nblk * bs, kh, d).float()
+    pad = s_pad - nblk * bs
+    if pad:
+        ctx_k = torch.nn.functional.pad(ctx_k, (0, 0, 0, 0, 0, pad))
+        ctx_v = torch.nn.functional.pad(ctx_v, (0, 0, 0, 0, 0, pad))
+    qf = q.float().reshape(b, t, kh, rep, d)
+    scores = torch.einsum("btkrd,bskd->btkrs", qf, ctx_k)
+    ctx = torch.arange(s_pad, device=q.device)
+    pos = q_start.long()[:, None] + torch.arange(t, device=q.device)[None, :]
+    visible = ((ctx[None, None, :] <= pos[:, :, None])
+               & (ctx[None, None, :] < kv_lens.long()[:, None, None])
+               & (ctx[None, None, :] < nblk * bs))                     # [B, T, S]
+    visible = visible[:, :, None, None, :].reshape(b, t, 1, 1, ns, span)
+    scores = scores.reshape(b, t, kh, rep, ns, span)
+    scores = torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)                                            # [B,T,KH,REP,NS]
+    p = torch.where(visible, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("btkrns,bnskd->btkrnd", p, ctx_v.reshape(b, ns, span, kh, d))
+    # [B, T, KH, REP, NS, ...] → [B, NS, KH, T*REP, ...]
+    acc = acc.permute(0, 4, 2, 1, 3, 5).reshape(b, ns, kh, t * rep, d)
+    m = m.permute(0, 4, 2, 1, 3).reshape(b, ns, kh, t * rep)
+    l = l.permute(0, 4, 2, 1, 3).reshape(b, ns, kh, t * rep)
+    return acc, m, l
+
+
+def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, block_tables: torch.Tensor,
+                          q_start: torch.Tensor, kv_lens: torch.Tensor, *,
+                          num_splits: int = 1) -> torch.Tensor:
+    """The kernel's plain PyTorch version: gather the context, attend
+    densely with the kernel's mask, scaling and split-K combine.
+    Returns [B, T, H, D] in q's dtype."""
+    t = q.shape[1]
+    acc, m, l = split_state_plain(scale_query(q), k_cache, v_cache,
+                                  block_tables, q_start, kv_lens, num_splits)
+    return _rows_to_bthd(combine_splits(acc, m, l, q.dtype), t)
+
+
+def _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens) -> None:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged attention takes float32 or bfloat16 q, got {q.dtype}")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {x.dtype} != q dtype {q.dtype} (the "
+                            "int8/int4 cache variants are not ported yet)")
+    for name, x in (("block_tables", block_tables), ("q_start", q_start),
+                    ("kv_lens", kv_lens)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+    tensors = (q, k_cache, v_cache, block_tables, q_start, kv_lens)
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("paged attention inputs must share one CUDA device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("paged attention inputs must be contiguous")
+    b, t, h, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[3] != d:
+        raise ValueError(f"caches must be [NB, BS, KH, {d}], got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    kh = k_cache.shape[2]
+    if h % kh:
+        raise ValueError(f"{h} query heads do not divide over {kh} kv heads")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be [{b}, NBLK], got {tuple(block_tables.shape)}")
+    if q_start.shape != (b,) or kv_lens.shape != (b,):
+        raise ValueError("q_start and kv_lens must be [B]")
+
+
+def _ptr(x: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+
+
+@functools.cache
+def _kernel_fn():
+    from dynamo_tpu_torch.ops.build import load_library
+
+    fn = load_library("paged_attention").dyn_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return fn
+
+
+def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, block_tables: torch.Tensor,
+                    q_start: torch.Tensor, kv_lens: torch.Tensor, *,
+                    num_splits: int = 0) -> torch.Tensor:
+    """Flash paged attention. q [B, T, H, D]; caches [NB, BS, KH, D];
+    block_tables [B, NBLK] int32; q_start, kv_lens [B] int32. Returns
+    [B, T, H, D] in q's dtype.
+
+    ``num_splits``: 0 = auto (:func:`num_splits_for`), 1 = sequential walk,
+    N = forced (clamped to NBLK). On a CUDA tensor this launches the
+    ``sm_90a`` kernel and counts it in ``paged_attention.launches``; on a
+    CPU tensor it runs :func:`paged_attention_plain`."""
+    nblk = block_tables.shape[1]
+    ns = num_splits_for(q, k_cache.shape[2], nblk, num_splits)
+    if not q.is_cuda:
+        return paged_attention_plain(q, k_cache, v_cache, block_tables, q_start,
+                                     kv_lens, num_splits=ns)
+    _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens)
+    b, t, h, d = q.shape
+    _, bs, kh, _ = k_cache.shape
+    r = t * (h // kh)
+    qs = scale_query(q).contiguous()
+    if ns == 1:
+        out = torch.empty_like(q)
+        acc = m = l = None
+    else:
+        out = None
+        acc = torch.empty((b, ns, kh, r, d), dtype=torch.float32, device=q.device)
+        m = torch.empty((b, ns, kh, r), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _kernel_fn()(
+        1 if q.dtype == torch.bfloat16 else 0,
+        _ptr(qs), _ptr(k_cache), _ptr(v_cache), _ptr(block_tables), _ptr(q_start),
+        _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l),
+        b, t, h, kh, d, bs, nblk, ns, -(-nblk // ns), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"paged-attention kernel launch failed: CUDA error {rc}")
+    paged_attention.launches += 1
+    if ns == 1:
+        return out
+    return _rows_to_bthd(combine_splits(acc, m, l, q.dtype), t)
+
+
+#: launches of the CUDA kernel since the count was last set to 0
+paged_attention.launches = 0

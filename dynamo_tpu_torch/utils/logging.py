@@ -1,0 +1,59 @@
+"""Logging for the port: human-readable lines on stderr, or JSONL.
+
+Copy of ``dynamo_tpu/utils/logging.py`` (its trace-context helpers come
+back with the observability slice). ``DYN_LOG`` sets the level and
+``DYN_LOGGING_JSONL=1`` switches to one JSON object per line.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+import time
+
+_CONFIGURED = False
+
+
+class JsonlFormatter(logging.Formatter):
+    def format(self, record: logging.LogRecord) -> str:
+        entry = {
+            "ts": round(time.time(), 6),
+            "level": record.levelname,
+            "target": record.name,
+            "msg": record.getMessage(),
+        }
+        for key in ("trace_id", "span_id", "request_id", "component", "endpoint"):
+            val = getattr(record, key, None)
+            if val is not None:
+                entry[key] = val
+        if record.exc_info:
+            entry["exception"] = self.formatException(record.exc_info)
+        return json.dumps(entry, separators=(",", ":"))
+
+
+def configure_logging(level: str | None = None, jsonl: bool | None = None) -> None:
+    global _CONFIGURED
+    if _CONFIGURED:
+        return
+    _CONFIGURED = True
+    level = level or os.environ.get("DYN_LOG", "info")
+    if jsonl is None:
+        jsonl = os.environ.get("DYN_LOGGING_JSONL", "").lower() in ("1", "true")
+    handler = logging.StreamHandler(sys.stderr)
+    if jsonl:
+        handler.setFormatter(JsonlFormatter())
+    else:
+        handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname).1s %(name)s: %(message)s", datefmt="%H:%M:%S")
+        )
+    root = logging.getLogger("dynamo_tpu_torch")
+    root.setLevel(getattr(logging, level.upper(), logging.INFO))
+    root.addHandler(handler)
+    root.propagate = False
+
+
+def get_logger(name: str) -> logging.Logger:
+    configure_logging()
+    return logging.getLogger(f"dynamo_tpu_torch.{name}")
