@@ -6,22 +6,30 @@ Builds every CUDA kernel of the port from ``dynamo_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together), then runs, in order, and
 exits non-zero if any phase fails:
 
-(a) each kernel against its plain PyTorch version on the card, in bf16 at
-    the main path's shapes (llama-3-8b-lite attention: KH=8, H=32, D=128,
-    block 16), with kernel / plain / library (``scaled_dot_product_attention``
-    on the pre-gathered context, a yardstick the port never calls) times
-    and the least time the card could take for the same work;
+(a) each kernel variant (bf16 cache, int8 cache, packed-int4 cache)
+    against its plain PyTorch version on the card, with bf16 queries at the
+    main path's shapes (llama-3-8b-lite attention: KH=8, H=32, D=128,
+    block 16) and at the long-context decode geometry of ``bench.py``
+    (B=16, kv 8192), with kernel / plain / library
+    (``scaled_dot_product_attention`` on the pre-gathered, dequantized
+    context, a yardstick the port never calls) times and the least time
+    the card could take for the same work. The quantized content is made
+    on the card by the port's own ``_scatter_kv`` from the bf16 values, and
+    must equal, byte for byte and scale for scale, the same scatter on the
+    CPU; the quantized scatter of a prefill step is timed per cache dtype;
 (b) the port's serving path at full llama-3-8b-lite width (8 layers,
     random weights from a seed) through ``build_engine`` and
     ``AsyncTorchEngine.generate``: 32 requests, prompt 128, 64 greedy
-    output tokens; the kernel launch counts are set to 0 just before and
-    read just after;
+    output tokens, once for each KV cache dtype (bfloat16, int8, int4); the
+    kernel launch counts are set to 0 just before each run and read just
+    after, and each run must launch its own variant only, 8 per step;
 (c) coherence: the trained checkpoint ``tests/data/tiny-real-llama``
     through the port's loader and tokenizer must continue "one two three
-    four" with " five six seven eight" on the card, and its f32 greedy
-    tokens on the card must equal the plain path's on the CPU; no step
-    dispatch may wait for the card (the host/device overlap of the
-    pipelined step loop).
+    four" with " five six seven eight" on the card, with a bf16 and with an
+    int8 cache (the int4 continuation is printed); its f32 greedy tokens on
+    the card must equal the plain path's on the CPU for every cache dtype;
+    no step dispatch may wait for the card (the host/device overlap of the
+    pipelined step loop), with a bf16 and with an int8 cache.
 
 Prints the card's name and power limit (nvidia-smi), one JSON ``kernels``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -29,13 +37,14 @@ CUDA card it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b) under
 ``torch.profiler`` and prints device time by kernel and the device's busy
-share of the serving wall time.
+share of the serving wall time, for each cache dtype.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -54,6 +63,12 @@ ULP_REL, ULP_ABS = 2.0**-7, 1e-4
 # H100 SXM memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s), NVIDIA
 # data sheet; the port runs on that card only.
 CARD, CARD_BW, CARD_PEAK = "H100 80GB HBM3", 3.35e12, 989e12
+
+#: the kernel's cache variants (ops.paged_attention.CACHE_KINDS), the name
+#: each carries in the kernels line, and the engine's kv_dtype that serves it
+KERNEL_NAMES = {"float": "paged_attention", "int8": "paged_attention_int8",
+                "int4": "paged_attention_int4"}
+KV_DTYPES = {"float": "bfloat16", "int8": "int8", "int4": "int4"}
 
 
 def log(*a) -> None:
@@ -101,15 +116,54 @@ def attention_case(gen, b, t, nblk, q_start, q_len, h=32, kh=8, d=128, bs=16):
     return q, k, v, bt, qs, kl
 
 
+def quantize(x: torch.Tensor, kind: str, chunk_blocks: int = 128) -> dict:
+    """A quantized cache holding ``x`` [NB, BS, KH, D], written through the
+    port's own ``_scatter_kv`` on ``x``'s device, whole blocks at a time
+    (``chunk_blocks`` per call bounds the requant's transient gather)."""
+    from dynamo_tpu_torch.models.llama import _scatter_kv
+
+    nb, bs, kh, d = x.shape
+    cache = {"q": torch.zeros((nb, bs, kh, d // 2 if kind == "int4" else d),
+                              dtype=torch.uint8 if kind == "int4" else torch.int8,
+                              device=x.device),
+             "s": torch.zeros((nb, kh), dtype=torch.float32, device=x.device)}
+    flat = x.reshape(nb * bs, kh, d)
+    step = chunk_blocks * bs
+    for s0 in range(0, nb * bs, step):
+        n = min(step, nb * bs - s0)
+        slots = torch.arange(s0, s0 + n, dtype=torch.int32, device=x.device)[None]
+        _scatter_kv(cache, flat[s0: s0 + n][None], slots)
+    return cache
+
+
+def scatter_mismatch(x: torch.Tensor, card: dict, kind: str, blocks: int = 128) -> tuple[int, int]:
+    """Elements of the card's quantized cache (payload bytes, scales) that
+    differ from the same scatter run on the CPU, over the first ``blocks``
+    blocks (the chunks are independent, so this is the CPU's whole work
+    for those blocks)."""
+    cpu = quantize(x[:blocks].cpu(), kind)
+    return (int((card["q"][:blocks].cpu() != cpu["q"]).sum()),
+            int((card["s"][:blocks].cpu() != cpu["s"]).sum()))
+
+
 def attention_work(q, k, bt, qs, kl) -> tuple[float, float]:
-    """Bytes the function must move (q and out once, K/V of each row's
-    kv_len context once, tables) and the products' operations on this
-    run's visible (query, context) pairs."""
+    """Bytes the function must move (q and out once; K/V of each row's
+    kv_len context once, at the cache's bytes per element: the payload's
+    for a quantized cache, half a byte for packed int4, plus the f32 K and
+    V scales of each (block, kv head) read; tables) and the products'
+    operations on this run's visible (query, context) pairs."""
+    from dynamo_tpu_torch.engine.cache import cache_payload
+
     b, t, h, d = q.shape
-    kh = k.shape[2]
-    item = q.element_size()
+    payload = cache_payload(k)
+    bs, kh = payload.shape[1], payload.shape[2]
+    elem = payload.element_size() * payload.shape[3] / d      # int4: 0.5
     kv_tok = int(kl.sum())
-    nbytes = (2 * q.numel() * item + 2 * kv_tok * kh * d * item
+    kv_bytes = 2 * kv_tok * kh * d * elem
+    if isinstance(k, dict):
+        blocks_read = int(((kl.long() + bs - 1) // bs).clamp(max=bt.shape[1]).sum())
+        kv_bytes += 2 * blocks_read * kh * k["s"].element_size()
+    nbytes = (2 * q.numel() * q.element_size() + kv_bytes
               + 4 * (bt.numel() + qs.numel() + kl.numel()))
     pos = qs[:, None].long() + torch.arange(t, device=q.device)[None, :]
     vis = torch.minimum(pos + 1, kl[:, None].long()).clamp(min=0)
@@ -118,14 +172,16 @@ def attention_work(q, k, bt, qs, kl) -> tuple[float, float]:
 
 
 def library_fn(q, k, v, bt, qs, kl):
-    """SDPA over the pre-gathered, head-expanded context with the kernel's
-    mask (built outside the timed call)."""
+    """SDPA over the pre-gathered (dequantized), head-expanded context in
+    q's dtype, with the kernel's mask; all built outside the timed call."""
     from dynamo_tpu_torch.models.llama import _gather_kv
 
     b, t, h, d = q.shape
-    kh = k.shape[2]
-    ck = _gather_kv(k, bt).repeat_interleave(h // kh, dim=2).transpose(1, 2).contiguous()
-    cv = _gather_kv(v, bt).repeat_interleave(h // kh, dim=2).transpose(1, 2).contiguous()
+    ck = _gather_kv(k, bt).to(q.dtype)
+    cv = _gather_kv(v, bt).to(q.dtype)
+    rep = h // ck.shape[2]
+    ck = ck.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    cv = cv.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
     s = ck.shape[2]
     ctx = torch.arange(s, device=q.device)
     pos = qs[:, None].long() + torch.arange(t, device=q.device)[None, :]
@@ -135,7 +191,31 @@ def library_fn(q, k, v, bt, qs, kl):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask)
 
 
+def time_scatter(gen) -> dict:
+    """Device time of one layer's K scatter for a prefill step of the
+    serving phase (32 rows x 128 tokens into a 417-block cache), per cache
+    dtype: bf16 ``index_copy_`` against the quantized scatter, whose
+    requant gathers each token's whole block."""
+    from dynamo_tpu_torch.models.llama import _scatter_kv
+
+    nb, bs, kh, d, n = 417, 16, 8, 128, 32 * 128
+    new = torch.randn((32, 128, kh, d), generator=gen, device="cuda").to(torch.bfloat16)
+    slots = (torch.arange(n, dtype=torch.int32, device="cuda") + bs).reshape(32, 128)
+    res = {}
+    for kind in KERNEL_NAMES:
+        if kind == "float":
+            cache = torch.zeros((nb, bs, kh, d), dtype=torch.bfloat16, device="cuda")
+        else:
+            cache = quantize(torch.zeros((nb, bs, kh, d), dtype=torch.bfloat16,
+                                         device="cuda"), kind)
+        res[kind] = time_ms(lambda: _scatter_kv(cache, new, slots), iters=10)
+    log(f"[a] one layer's K scatter, prefill 32x128 tokens, ms: "
+        + " ".join(f"{KV_DTYPES[k]}={v}" for k, v in res.items()))
+    return res
+
+
 def phase_kernels(bw: float, peak: float) -> dict:
+    """Rows by cache kind, then by shape."""
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda")
@@ -152,39 +232,62 @@ def phase_kernels(bw: float, peak: float) -> dict:
             gen, 8, 16, 8, ragged_start, ragged_len), 0),
         "split-K B=2 T=1 kv 2048 ns=4": (attention_case(
             gen, 2, 1, 128, [2047, 2047], [1, 1]), 4),
+        "long-context B=16 T=1 kv 8192 auto splits": (attention_case(
+            gen, 16, 1, 512, [8191] * 16, [1] * 16), 0),
     }
-    results = {}
-    for name, (args, ns) in cases.items():
-        out = pa.paged_attention(*args, num_splits=ns)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_plain(*args, num_splits=max(ns, 1)).float()
-        limit = ULP_REL * ref.abs() + ULP_ABS
-        outs = [out] + ([pa.paged_attention(*args, num_splits=1)] if ns > 1 else [])
-        diffs = [(o.float() - ref).abs() for o in outs]
-        err = max(d.max().item() for d in diffs)
-        ratio = max((d / limit).max().item() for d in diffs)
-        finite = bool(torch.isfinite(out.float()).all())
-        if name.startswith("ragged"):
-            finite = finite and bool((out[4] == 0).all())      # all-masked row → 0
-        nbytes, ops = attention_work(args[0], args[1], args[3], args[4], args[5])
-        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / peak * 1e3
-        row = {
-            "max_abs_err": err, "err_over_limit": ratio,
-            "ms": time_ms(lambda: pa.paged_attention(*args, num_splits=ns)),
-            "plain_ms": time_ms(lambda: pa.paged_attention_plain(*args, num_splits=max(ns, 1))),
-            "library_ms": time_ms(library_fn(*args)),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": ops,
-        }
-        log(f"[a] paged_attention {name}: max_abs_err={err:.3e} (tol {TOL}); "
-            f"worst err / ({ULP_REL:g}*|ref| + {ULP_ABS:g}) = {ratio:.3f} (limit 1) "
-            + " ".join(f"{k}={row[k]}" for k in ("ms", "plain_ms", "library_ms",
-                                                   "bound_ms", "bound_by")))
-        if not (err <= TOL and ratio <= 1.0 and finite):
-            raise AssertionError(f"paged_attention {name}: err {err} "
-                                 f"err/limit {ratio} finite {finite}")
-        results[name] = row
+    results: dict[str, dict] = {kind: {} for kind in KERNEL_NAMES}
+    for name, ((q, k, v, bt, qs, kl), ns) in cases.items():
+        for kind in KERNEL_NAMES:
+            if kind == "float":
+                kc, vc, mism = k, v, None
+            else:
+                kc, vc = quantize(k, kind), quantize(v, kind)
+                mism = [a + b for a, b in zip(scatter_mismatch(k, kc, kind),
+                                              scatter_mismatch(v, vc, kind))]
+            args = (q, kc, vc, bt, qs, kl)
+            ns_used = pa.num_splits_for(q, k.shape[2], bt.shape[1], ns)
+            out = pa.paged_attention(*args, num_splits=ns)
+            torch.cuda.synchronize()
+            ref = pa.paged_attention_plain(*args, num_splits=ns_used).float()
+            limit = ULP_REL * ref.abs() + ULP_ABS
+            outs = [out] + ([pa.paged_attention(*args, num_splits=1)] if ns_used > 1 else [])
+            diffs = [(o.float() - ref).abs() for o in outs]
+            err = max(d.max().item() for d in diffs)
+            ratio = max((d / limit).max().item() for d in diffs)
+            finite = bool(torch.isfinite(out.float()).all())
+            if name.startswith("ragged"):
+                finite = finite and bool((out[4] == 0).all())  # all-masked row → 0
+            nbytes, ops = attention_work(q, kc, bt, qs, kl)
+            bytes_ms, ops_ms = nbytes / bw * 1e3, ops / peak * 1e3
+            row = {
+                "max_abs_err": err, "err_over_limit": ratio, "num_splits": ns_used,
+                "ms": time_ms(lambda: pa.paged_attention(*args, num_splits=ns)),
+                "plain_ms": time_ms(lambda: pa.paged_attention_plain(*args, num_splits=ns_used)),
+                "library_ms": time_ms(library_fn(*args)),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "ops": ops,
+            }
+            if mism is not None:
+                row["scatter_cpu_mismatch"] = {"payload": mism[0], "scales": mism[1]}
+            log(f"[a] {KERNEL_NAMES[kind]} {name}: max_abs_err={err:.3e} (tol {TOL}); "
+                f"worst err / ({ULP_REL:g}*|ref| + {ULP_ABS:g}) = {ratio:.3f} (limit 1) "
+                + " ".join(f"{key}={row[key]}" for key in (
+                    "num_splits", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
+                + ("" if mism is None else
+                   f" card-vs-cpu scatter: {mism[0]} payload bytes, {mism[1]} scales "
+                   "differ (first 128 blocks of K and V)"))
+            if not (err <= TOL and ratio <= 1.0 and finite):
+                raise AssertionError(f"{KERNEL_NAMES[kind]} {name}: err {err} "
+                                     f"err/limit {ratio} finite {finite}")
+            if mism is not None and any(mism):
+                raise AssertionError(f"{KERNEL_NAMES[kind]} {name}: the card's quantized "
+                                     f"scatter differs from the CPU's ({mism[0]} payload "
+                                     f"bytes, {mism[1]} scales)")
+            results[kind][name] = row
+            del kc, vc, args, out, ref, outs, diffs, limit
+        torch.cuda.empty_cache()
+    time_scatter(gen)
     return results
 
 
@@ -206,7 +309,9 @@ def print_profile(prof, wall_s: float) -> None:
             f"{100 * e.self_device_time_total / busy_us:5.1f}% x{e.count:<6d} {e.key[:90]}")
 
 
-def phase_serve(profile: bool = False) -> dict:
+def phase_serve(kind: str, profile: bool = False) -> dict:
+    """One serving run with the KV cache of ``kind``: it must launch that
+    kernel variant only, once per layer and step."""
     from dynamo_tpu_torch.engine.engine import build_engine
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.common import (
@@ -218,12 +323,14 @@ def phase_serve(profile: bool = False) -> dict:
     engine = build_engine(EngineConfig(
         model="llama-3-8b-lite", block_size=16, max_batch_size=batch,
         max_model_len=prompt + decode + 16, prefill_chunk=prompt,
-        allow_random_weights=True))
+        kv_dtype=KV_DTYPES[kind], allow_random_weights=True))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     vocab = engine.core.model_cfg.vocab_size
-    log(f"[b] llama-3-8b-lite engine built in {setup_s:.2f}s; kv blocks "
-        f"{engine.core.runner.spec.num_blocks}")
+    spec = engine.core.runner.spec
+    tag = f"[b] kv_dtype={KV_DTYPES[kind]}"
+    log(f"{tag}: llama-3-8b-lite engine built in {setup_s:.2f}s; kv blocks "
+        f"{spec.num_blocks}, {spec.bytes_per_block()} bytes per block")
 
     async def serve():
         first_at, done_at, streams = {}, {}, {}
@@ -261,9 +368,10 @@ def phase_serve(profile: bool = False) -> dict:
         prof = torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.__enter__()
-    pa.paged_attention.launches = 0
+    pa.reset_launches()
     t_start, first_at, done_at, streams = asyncio.run(serve())
     launches = pa.paged_attention.launches
+    by_kind = dict(pa.paged_attention.launches_by_kind)
     if prof is not None:
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
@@ -274,20 +382,27 @@ def phase_serve(profile: bool = False) -> dict:
             raise AssertionError(f"request {i}: {len(toks)} tokens, expected {decode}")
         if not all(lp <= 1e-3 and lp == lp for lp in lps):
             raise AssertionError(f"request {i}: bad logprobs {lps[:4]}")
-    if launches <= 0:
-        raise AssertionError("the paged-attention kernel was not launched by the main path")
+    layers = engine.core.model_cfg.num_layers
+    want = {k: (layers * steps if k == kind else 0) for k in by_kind}
+    if launches <= 0 or by_kind != want:
+        raise AssertionError(f"{tag}: kernel launches by cache kind {by_kind}, expected "
+                             f"{want} ({layers} per step, this run's variant only)")
     t_first = max(first_at.values())
     t_end = max(done_at.values())
     res = {
-        "requests": batch, "tokens": batch * decode, "steps": steps,
-        "launches": launches,
+        "kv_dtype": KV_DTYPES[kind], "requests": batch, "tokens": batch * decode,
+        "steps": steps, "launches": launches, "launches_by_kind": by_kind,
         "launches_per_step": launches / max(steps, 1),
         "ttft_all_s": t_first - t_start,
         "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
         "wall_s": t_end - t_start,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kv_blocks": spec.num_blocks, "bytes_per_block": spec.bytes_per_block(),
     }
-    log("[b] " + json.dumps(res))
+    log(f"{tag} " + json.dumps(res))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -308,7 +423,8 @@ def phase_coherence() -> dict:
     tok = load_tokenizer(ckpt)
     ids = tok.encode("one two three four", add_bos=True)
 
-    def greedy(model: str, device: str, params=None, hold_stream: bool = False):
+    def greedy(model: str, device: str, params=None, hold_stream: bool = False,
+               kv_dtype: str = "bfloat16"):
         """Greedy tokens, and with ``hold_stream`` the count of held steps
         and of those whose dispatch waited for the card: from the third
         step on (first uses of the step shapes are past), the stream is held
@@ -316,7 +432,8 @@ def phase_coherence() -> dict:
         that synchronises returns only after the sleep, with the stream
         idle."""
         core = EngineCore(EngineConfig(model=model, block_size=16, num_blocks=64,
-                                       max_batch_size=4, max_model_len=256),
+                                       max_batch_size=4, max_model_len=256,
+                                       kv_dtype=kv_dtype),
                           params=params, device=device)
         core.add_request(PreprocessedRequest(
             token_ids=ids, request_id="c",
@@ -337,24 +454,35 @@ def phase_coherence() -> dict:
                 out += o.token_ids
         return out, held, waited
 
-    toks, held, waited = greedy(ckpt, "cuda", hold_stream=True)
-    text = tok.decode(toks)
-    log(f"[c] tiny-real-llama bf16 on the card: {text!r}")
-    if " five six seven eight" not in text:
-        raise AssertionError(f"incoherent continuation on the card: {text!r}")
-    log(f"[c] step dispatches that waited for a busy card: {waited} of {held}")
-    if held == 0 or waited:
-        raise AssertionError(f"{waited} of {held} step dispatches synchronised with "
-                             "the card: the pipelined loop would not overlap")
+    res: dict = {}
+    for kv_dtype in ("bfloat16", "int8", "int4"):
+        toks, held, waited = greedy(ckpt, "cuda", hold_stream=True, kv_dtype=kv_dtype)
+        text = tok.decode(toks)
+        log(f"[c] tiny-real-llama bf16, kv_dtype={kv_dtype}, on the card: {text!r}")
+        if kv_dtype != "int4" and " five six seven eight" not in text:
+            raise AssertionError(f"incoherent continuation on the card with "
+                                 f"kv_dtype={kv_dtype}: {text!r}")
+        log(f"[c] kv_dtype={kv_dtype}: step dispatches that waited for a busy card: "
+            f"{waited} of {held}")
+        if held == 0 or waited:
+            raise AssertionError(f"kv_dtype={kv_dtype}: {waited} of {held} step "
+                                 "dispatches synchronised with the card: the "
+                                 "pipelined loop would not overlap")
+        res[kv_dtype] = {"text": text, "held_steps": held, "waited": waited}
     cfg32 = dataclasses.replace(ModelConfig.from_hf_config(ckpt), dtype="float32",
                                 name="tiny-real-llama-f32")
     MODEL_PRESETS[cfg32.name] = cfg32
-    gpu32 = greedy(cfg32.name, "cuda", load_params(cfg32, ckpt, device="cuda"))[0]
-    cpu32 = greedy(cfg32.name, "cpu", load_params(cfg32, ckpt, device="cpu"))[0]
-    log(f"[c] f32 greedy tokens: card {gpu32} cpu {cpu32}")
-    if gpu32 != cpu32:
-        raise AssertionError("f32 greedy tokens on the card differ from the CPU plain path")
-    return {"text": text, "f32_tokens": gpu32, "held_steps": held}
+    p_gpu = load_params(cfg32, ckpt, device="cuda")
+    p_cpu = load_params(cfg32, ckpt, device="cpu")
+    for kv_dtype in ("bfloat16", "int8", "int4"):
+        gpu32 = greedy(cfg32.name, "cuda", p_gpu, kv_dtype=kv_dtype)[0]
+        cpu32 = greedy(cfg32.name, "cpu", p_cpu, kv_dtype=kv_dtype)[0]
+        log(f"[c] f32, kv_dtype={kv_dtype}: greedy tokens card {gpu32} cpu {cpu32}")
+        if gpu32 != cpu32:
+            raise AssertionError(f"kv_dtype={kv_dtype}: f32 greedy tokens on the card "
+                                 "differ from the CPU plain path")
+        res[kv_dtype]["f32_tokens"] = gpu32
+    return res
 
 
 def main() -> int:
@@ -381,21 +509,27 @@ def main() -> int:
                 log(f"  ptxas {kname}: {line.strip()}")
 
     kern = phase_kernels(bw, peak)
-    serve = phase_serve(profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    serve = {kind: phase_serve(kind, profile=profile) for kind in KERNEL_NAMES}
     phase_coherence()
 
-    main_shape = kern["decode B=32 T=1 kv 128-192"]
-    print(json.dumps({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "dynamo_tpu/ops/paged_attention.py:314",
-        "launches": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
-        "err_over_limit": max(r["err_over_limit"] for r in kern.values()),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"], "tol": TOL, "pass": True,
-    }]}), flush=True)
+    lines = []
+    for kind, kernel in KERNEL_NAMES.items():
+        rows = kern[kind]
+        main_shape = rows["decode B=32 T=1 kv 128-192"]
+        lines.append({
+            "name": kernel, "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "dynamo_tpu/ops/paged_attention.py:314",
+            "cache": KV_DTYPES[kind],
+            "launches": serve[kind]["launches_by_kind"][kind],
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "err_over_limit": max(r["err_over_limit"] for r in rows.values()),
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"], "tol": TOL, "pass": True,
+        })
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

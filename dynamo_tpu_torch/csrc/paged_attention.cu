@@ -1,15 +1,28 @@
 // Paged attention over a block-table KV cache, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel, body _kernel) for a bf16/f32 cache. Same
-// function: flash attention with an online softmax straight over the
-// paged cache, no gathered context tensor in device memory. Query token t
+// (paged_attention_kernel, body _kernel) for its three caches: model
+// precision (bf16/f32), int8, and packed int4. Same function: flash
+// attention with an online softmax straight over the paged cache, no
+// gathered or widened context tensor in device memory. Query token t
 // of row b sees context position c when c <= q_start[b] + t and
 // c < kv_lens[b]; a row whose context is all masked outputs 0. q arrives
 // pre-scaled by D^-0.5 in its own dtype (the wrapper does it, as the JAX
 // wrapper does); every sum is f32.
 //
-// What bounds it on an H100: the bytes of K/V read. Each context block a
+// Quantized caches (the TPU kernel's quant/int4 branches) keep a
+// per-(block, kv head) f32 scale beside an int payload. A cache policy
+// (FloatCache / Int8Cache / Int4Cache below) loads one element of one
+// context position as f32: int8 reads the byte and widens it; int4 reads
+// the split-half packed byte (element d < D/2 is the low nibble of byte d,
+// element d >= D/2 the high nibble of byte d - D/2) and sign-extends it.
+// The tiles hold the int values; as on the TPU, the block's K scale
+// multiplies the scores after q.k and its V scale multiplies the block's
+// p.v before it joins the accumulator. The scales are looked up by the
+// physical block bt[b, g], once per context block.
+//
+// What bounds it on an H100: the bytes of K/V read (1 byte an element for
+// int8, half a byte for int4, plus 8 bytes of scales a block and head). Each context block a
 // row uses is read once per (row, kv head, tile of query rows, split); the
 // arithmetic (two length-D products per visible position) is far below
 // the card's FMA rate. The design keeps the reads to what the rows need:
@@ -54,6 +67,38 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// Cache policies: the payload element type, whether the cache carries
+// scales, and the load of element d of a context row as f32. `row` points
+// at the row's payload for one kv head (Dp elements: D, or D/2 for int4).
+template <typename T>
+struct FloatCache {
+    using Elem = T;
+    static constexpr bool kQuant = false;
+    static constexpr int kPack = 1;
+    __device__ static float load(const Elem* row, int d, int /*half*/) { return to_f32(row[d]); }
+};
+
+struct Int8Cache {
+    using Elem = int8_t;
+    static constexpr bool kQuant = true;
+    static constexpr int kPack = 1;
+    __device__ static float load(const Elem* row, int d, int /*half*/) {
+        return static_cast<float>(row[d]);
+    }
+};
+
+struct Int4Cache {
+    using Elem = uint8_t;
+    static constexpr bool kQuant = true;
+    static constexpr int kPack = 2;  // two elements a byte
+    // half = D/2: byte j holds element j (low nibble) and j + D/2 (high).
+    __device__ static float load(const Elem* row, int d, int half) {
+        const int byte = row[d < half ? d : d - half];
+        const int x = d < half ? (byte & 0xF) : (byte >> 4);
+        return static_cast<float>(x - ((x & 8) << 1));  // sign-extend 4 bits
+    }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
     return v;
@@ -65,11 +110,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // NCH = ceil(D / 32): head-dim elements each lane accumulates.
-template <typename T, int NCH>
+template <typename T, typename Cache, int NCH>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
-                       const T* __restrict__ k_cache,         // [NB, BS, KH, D]
-                       const T* __restrict__ v_cache,         // [NB, BS, KH, D]
+                       const typename Cache::Elem* __restrict__ k_cache,  // [NB, BS, KH, Dp]
+                       const typename Cache::Elem* __restrict__ v_cache,  // [NB, BS, KH, Dp]
+                       const float* __restrict__ k_scale,     // [NB, KH] (quantized)
+                       const float* __restrict__ v_scale,     // [NB, KH] (quantized)
                        const int32_t* __restrict__ block_tables,  // [B, NBLK]
                        const int32_t* __restrict__ q_start,   // [B]
                        const int32_t* __restrict__ kv_lens,   // [B]
@@ -130,16 +177,22 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
     const int used_blocks = min((kv_len + BS - 1) / BS, NBLK);
     const int g_end = min(min(used_blocks, causal_blocks), (split + 1) * spb);
 
+    const int Dp = D / Cache::kPack;  // payload elements of a row and head
     for (int g = split * spb; g < g_end; ++g) {
-        const size_t base = (size_t)block_tables[(size_t)b * NBLK + g] * BS * KH * D
-                            + (size_t)kh * D;
+        const int blk = block_tables[(size_t)b * NBLK + g];
+        const size_t base = (size_t)blk * BS * KH * Dp + (size_t)kh * Dp;
+        float ks = 1.f, vs = 1.f;
+        if constexpr (Cache::kQuant) {
+            ks = k_scale[(size_t)blk * KH + kh];
+            vs = v_scale[(size_t)blk * KH + kh];
+        }
         __syncthreads();  // the previous tile is consumed (and q_s is staged)
         for (int e = threadIdx.x; e < BS * D; e += kThreads) {
             const int c = e / D;
             const int d = e % D;
-            const size_t off = base + (size_t)c * KH * D + d;
-            k_s[c * (D + 1) + d] = to_f32(k_cache[off]);
-            v_s[c * D + d] = to_f32(v_cache[off]);
+            const size_t row = base + (size_t)c * KH * Dp;
+            k_s[c * (D + 1) + d] = Cache::load(k_cache + row, d, Dp);
+            v_s[c * D + d] = Cache::load(v_cache + row, d, Dp);
         }
         __syncthreads();
 
@@ -163,20 +216,39 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
 #pragma unroll
             for (int i = 0; i < kRowsPerWarp; ++i) {
                 const bool vis = in_tile && pos <= qpos[i] && pos < kv_len;
-                const float sc = vis ? s[i] : kNegInf;
+                const float sc = vis ? s[i] * ks : kNegInf;  // ks == 1: float cache
                 const float m_new = fmaxf(m[i], warp_max(sc));
                 const float alpha = expf(m[i] - m_new);
                 const float p = vis ? expf(sc - m_new) : 0.f;
                 l[i] = alpha * l[i] + warp_sum(p);
+                if constexpr (Cache::kQuant) {
+                    // p.v over the chunk's int values, then times the
+                    // block's V scale (the TPU kernel's order)
+                    float pv[NCH];
 #pragma unroll
-                for (int j = 0; j < NCH; ++j) acc[i][j] *= alpha;
-                for (int cc = 0; cc < nc; ++cc) {
-                    const float pc = __shfl_sync(kFull, p, cc);
-                    const float* vrow = v_s + (c0 + cc) * D;
+                    for (int j = 0; j < NCH; ++j) pv[j] = 0.f;
+                    for (int cc = 0; cc < nc; ++cc) {
+                        const float pc = __shfl_sync(kFull, p, cc);
+                        const float* vrow = v_s + (c0 + cc) * D;
 #pragma unroll
-                    for (int j = 0; j < NCH; ++j) {
-                        const int d = lane + 32 * j;
-                        if (d < D) acc[i][j] = fmaf(pc, vrow[d], acc[i][j]);
+                        for (int j = 0; j < NCH; ++j) {
+                            const int d = lane + 32 * j;
+                            if (d < D) pv[j] = fmaf(pc, vrow[d], pv[j]);
+                        }
+                    }
+#pragma unroll
+                    for (int j = 0; j < NCH; ++j) acc[i][j] = fmaf(acc[i][j], alpha, pv[j] * vs);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < NCH; ++j) acc[i][j] *= alpha;
+                    for (int cc = 0; cc < nc; ++cc) {
+                        const float pc = __shfl_sync(kFull, p, cc);
+                        const float* vrow = v_s + (c0 + cc) * D;
+#pragma unroll
+                        for (int j = 0; j < NCH; ++j) {
+                            const int d = lane + 32 * j;
+                            if (d < D) acc[i][j] = fmaf(pc, vrow[d], acc[i][j]);
+                        }
                     }
                 }
                 m[i] = m_new;
@@ -212,16 +284,17 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
     }
 }
 
-template <typename T, int NCH>
-int launch(const void* q, const void* k, const void* v, const int32_t* bt,
-           const int32_t* qs, const int32_t* kl, void* out, float* acc, float* m,
-           float* l, int B, int n_tok, int H, int KH, int D, int BS, int NBLK,
+template <typename T, typename Cache, int NCH>
+int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+           const int32_t* bt, const int32_t* qs, const int32_t* kl, void* out, float* acc,
+           float* m, float* l, int B, int n_tok, int H, int KH, int D, int BS, int NBLK,
            int ns, int spb, cudaStream_t stream) {
+    using Elem = typename Cache::Elem;
     const int R = n_tok * (H / KH);
     const int n_rtiles = (R + kRowsPerBlock - 1) / kRowsPerBlock;
     const size_t smem = sizeof(float) * ((size_t)kRowsPerBlock * D
                                          + (size_t)BS * (D + 1) + (size_t)BS * D);
-    auto kernel = paged_attention_kernel<T, NCH>;
+    auto kernel = paged_attention_kernel<T, Cache, NCH>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -229,21 +302,21 @@ int launch(const void* q, const void* k, const void* v, const int32_t* bt,
     }
     dim3 grid((unsigned)(B * KH * n_rtiles), (unsigned)ns);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        bt, qs, kl, static_cast<T*>(out), acc, m, l, n_tok, H, KH, D, BS, NBLK, spb,
-        n_rtiles);
+        static_cast<const T*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+        ks, vs, bt, qs, kl, static_cast<T*>(out), acc, m, l, n_tok, H, KH, D, BS, NBLK,
+        spb, n_rtiles);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_nch(const void* q, const void* k, const void* v, const int32_t* bt,
-                 const int32_t* qs, const int32_t* kl, void* out, float* acc,
-                 float* m, float* l, int B, int n_tok, int H, int KH, int D, int BS,
-                 int NBLK, int ns, int spb, cudaStream_t stream) {
+template <typename T, typename Cache>
+int dispatch_nch(const void* q, const void* k, const void* v, const float* ks,
+                 const float* vs, const int32_t* bt, const int32_t* qs, const int32_t* kl,
+                 void* out, float* acc, float* m, float* l, int B, int n_tok, int H,
+                 int KH, int D, int BS, int NBLK, int ns, int spb, cudaStream_t stream) {
     const int nch = (D + 31) / 32;
-#define DYN_PA_LAUNCH(N)                                                           \
-    return launch<T, N>(q, k, v, bt, qs, kl, out, acc, m, l, B, n_tok, H, KH, D, BS, \
-                        NBLK, ns, spb, stream)
+#define DYN_PA_LAUNCH(N)                                                              \
+    return launch<T, Cache, N>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, \
+                               H, KH, D, BS, NBLK, ns, spb, stream)
     if (nch <= 1) DYN_PA_LAUNCH(1);
     if (nch <= 2) DYN_PA_LAUNCH(2);
     if (nch <= 4) DYN_PA_LAUNCH(4);
@@ -251,27 +324,48 @@ int dispatch_nch(const void* q, const void* k, const void* v, const int32_t* bt,
 #undef DYN_PA_LAUNCH
 }
 
+template <typename T>
+int dispatch_cache(int cache_kind, const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, const int32_t* bt, const int32_t* qs,
+                   const int32_t* kl, void* out, float* acc, float* m, float* l, int B,
+                   int n_tok, int H, int KH, int D, int BS, int NBLK, int ns, int spb,
+                   cudaStream_t stream) {
+#define DYN_PA_CACHE(C)                                                                 \
+    return dispatch_nch<T, C>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, \
+                              KH, D, BS, NBLK, ns, spb, stream)
+    if (cache_kind == 1) DYN_PA_CACHE(Int8Cache);
+    if (cache_kind == 2) DYN_PA_CACHE(Int4Cache);
+    if (cache_kind != 0) return (int)cudaErrorInvalidValue;
+    DYN_PA_CACHE(FloatCache<T>);
+#undef DYN_PA_CACHE
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q and out share it).
+// cache_kind: 0 = model precision (caches in q's dtype, scales unused),
+// 1 = int8 payload, 2 = packed-int4 uint8 payload [NB, BS, KH, D/2]; 1 and
+// 2 take f32 scales [NB, KH] for K and V.
 // ns == 1 writes normalised rows to `out`; ns > 1 writes each split's raw
 // (acc, m, l) and leaves `out` alone. Returns cudaGetLastError() of the
 // launch (0 = launched).
-int dyn_paged_attention(int dtype, const void* q, const void* k_cache,
-                        const void* v_cache, const int32_t* block_tables,
-                        const int32_t* q_start, const int32_t* kv_lens, void* out,
-                        float* acc, float* m, float* l, int B, int n_tok, int H,
-                        int KH, int D, int BS, int NBLK, int ns, int spb,
-                        void* stream) {
+int dyn_paged_attention(int dtype, int cache_kind, const void* q, const void* k_cache,
+                        const void* v_cache, const float* k_scale, const float* v_scale,
+                        const int32_t* block_tables, const int32_t* q_start,
+                        const int32_t* kv_lens, void* out, float* acc, float* m, float* l,
+                        int B, int n_tok, int H, int KH, int D, int BS, int NBLK, int ns,
+                        int spb, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 1)
-        return dispatch_nch<__nv_bfloat16>(q, k_cache, v_cache, block_tables, q_start,
-                                           kv_lens, out, acc, m, l, B, n_tok, H, KH,
-                                           D, BS, NBLK, ns, spb, s);
-    return dispatch_nch<float>(q, k_cache, v_cache, block_tables, q_start, kv_lens, out,
-                               acc, m, l, B, n_tok, H, KH, D, BS, NBLK, ns, spb, s);
+        return dispatch_cache<__nv_bfloat16>(cache_kind, q, k_cache, v_cache, k_scale,
+                                             v_scale, block_tables, q_start, kv_lens, out,
+                                             acc, m, l, B, n_tok, H, KH, D, BS, NBLK, ns,
+                                             spb, s);
+    return dispatch_cache<float>(cache_kind, q, k_cache, v_cache, k_scale, v_scale,
+                                 block_tables, q_start, kv_lens, out, acc, m, l, B, n_tok,
+                                 H, KH, D, BS, NBLK, ns, spb, s);
 }
 
 }  // extern "C"

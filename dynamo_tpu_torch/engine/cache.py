@@ -1,11 +1,16 @@
 """Paged KV cache storage and block allocator — port of
-``dynamo_tpu/engine/cache.py`` for a model-precision (bf16/f32) cache.
+``dynamo_tpu/engine/cache.py`` for one device.
 
 Cache tensors are ``[layers, num_blocks, block_size, kv_heads, head_dim]``
 on the engine's device. Block 0 is reserved as the trash block for padding
-writes (models/llama.py). The int8/int4 quantized layouts are still to be
-ported (ROADMAP); ``bytes_per_block`` already prices them exactly as the
-JAX spec does, since it sizes the pool.
+writes (models/llama.py).
+
+With ``kv_dtype="int8"`` each cache is a dict ``{"q": int8 payload
+[L, NB, BS, KH, D], "s": float32 scales [L, NB, KH]}`` — symmetric
+per-(layer, block, kv head) quantization at scatter time. ``kv_dtype=
+"int4"`` keeps the dict but packs two signed nibbles a byte along head_dim:
+``{"q": uint8 [L, NB, BS, KH, D//2], "s": f32}``; the uint8 payload dtype
+is the packed-int4 marker everywhere downstream (scatter, gather, kernel).
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ class KVCacheSpec:
     num_kv_heads: int
     head_dim: int
     dtype: str = "bfloat16"
-    #: "int8" / "int4" mean quantized storage (not ported yet); any other
-    #: value means the cache is stored at ``dtype`` (model precision).
+    #: "int8" / "int4" enable quantized storage; any other value means the
+    #: cache is stored at ``dtype`` (model precision).
     kv_dtype: str = "bfloat16"
 
     @classmethod
@@ -51,13 +56,44 @@ class KVCacheSpec:
         return self.kv_dtype in ("int8", "int4")
 
     @property
+    def packed_int4(self) -> bool:
+        return self.kv_dtype == "int4"
+
+    @property
+    def payload_dtype(self) -> torch.dtype:
+        """Storage dtype of the quantized payload: uint8 is the packed-int4
+        marker (two nibbles a byte), int8 one byte an element."""
+        return torch.uint8 if self.packed_int4 else torch.int8
+
+    @property
+    def payload_head_dim(self) -> int:
+        """Trailing payload dim: head_dim, halved when int4-packed."""
+        if self.packed_int4:
+            if self.head_dim % 2:
+                raise ValueError(
+                    f"kv_dtype=int4 needs an even head_dim, got {self.head_dim}")
+            return self.head_dim // 2
+        return self.head_dim
+
+    @property
     def shape(self) -> tuple[int, int, int, int, int]:
         return (self.num_layers, self.num_blocks, self.block_size, self.num_kv_heads, self.head_dim)
 
+    @property
+    def payload_shape(self) -> tuple[int, int, int, int, int]:
+        """Stored payload shape: ``shape`` with head_dim/2 when int4-packed."""
+        return (self.num_layers, self.num_blocks, self.block_size,
+                self.num_kv_heads, self.payload_head_dim)
+
+    @property
+    def scale_shape(self) -> tuple[int, int, int]:
+        """Quantization scales [layers, blocks, kv_heads] (int8/int4)."""
+        return (self.num_layers, self.num_blocks, self.num_kv_heads)
+
     def bytes_per_block(self) -> int:
         if self.quantized:
-            d = self.head_dim // 2 if self.kv_dtype == "int4" else self.head_dim
-            payload = 2 * self.num_layers * self.block_size * self.num_kv_heads * d
+            payload = (2 * self.num_layers * self.block_size
+                       * self.num_kv_heads * self.payload_head_dim)
             scales = 2 * self.num_layers * self.num_kv_heads * _SCALE_ITEMSIZE
             return payload + scales
         itemsize = torch.empty((), dtype=getattr(torch, self.dtype)).element_size()
@@ -65,15 +101,24 @@ class KVCacheSpec:
         return 2 * self.num_layers * self.block_size * self.num_kv_heads * self.head_dim * itemsize
 
 
-def allocate_cache(spec: KVCacheSpec, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed K and V caches on ``device`` (model-precision storage)."""
+def allocate_cache(spec: KVCacheSpec, device: torch.device):
+    """Zeroed K and V caches on ``device``: tensors at model precision, or
+    ``{"q", "s"}`` dicts when ``spec.quantized``."""
     if spec.quantized:
-        raise NotImplementedError(
-            f"kv_dtype={spec.kv_dtype!r}: the quantized KV cache is not "
-            "ported yet (ROADMAP: int8/int4 cache slice)")
+        def qzeros() -> dict[str, torch.Tensor]:
+            return {"q": torch.zeros(spec.payload_shape, dtype=spec.payload_dtype,
+                                     device=device),
+                    "s": torch.zeros(spec.scale_shape, dtype=torch.float32, device=device)}
+        return qzeros(), qzeros()
     dt = getattr(torch, spec.dtype)
     return (torch.zeros(spec.shape, dtype=dt, device=device),
             torch.zeros(spec.shape, dtype=dt, device=device))
+
+
+def cache_payload(cache) -> torch.Tensor:
+    """The payload of a quantized cache, or the tensor itself: wherever the
+    [L, NB, BS, KH, Dp] geometry is needed regardless of quantization."""
+    return cache["q"] if isinstance(cache, dict) else cache
 
 
 @dataclass

@@ -83,8 +83,6 @@ def check_supported(ec: EngineConfig) -> None:
         "tp/pp/dp/ep/sp > 1 (parallelism slice)":
             any(v != 1 for v in ec.mesh_shape().values()),
         "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
-        f"kv_dtype={ec.kv_dtype} (quantized KV cache slice)":
-            ec.kv_dtype in ("int8", "int4"),
         "spec_ngram > 0 (speculative decoding, variants slice)": ec.spec_ngram > 0,
         "decode_window > 1 (fused decode windows, variants slice)": ec.decode_window > 1,
         "host/disk/remote KV tiers (KVBM slice)": bool(
@@ -99,9 +97,9 @@ def check_supported(ec: EngineConfig) -> None:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
     if ec.quantization not in ("none", ""):
         raise ValueError(f"unknown quantization {ec.quantization!r} (supported: none)")
-    if ec.kv_dtype not in ("bfloat16", ""):
+    if ec.kv_dtype not in ("bfloat16", "", "int8", "int4"):
         raise ValueError(f"unknown kv_dtype {ec.kv_dtype!r} (supported: bfloat16 "
-                         "[model-precision cache])")
+                         "[model-precision cache], int8, int4)")
     if ec.attn_num_splits < 0:
         raise ValueError(f"attn_num_splits must be >= 0 (0 = auto), got {ec.attn_num_splits}")
 
@@ -388,7 +386,8 @@ class EngineCore:
             max_tokens_per_step=engine_cfg.max_tokens_per_step,
         )
         self.metrics = EngineMetrics(
-            kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks)
+            kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks,
+            kv_quant_enabled=self.runner.spec.quantized)
         self._seqs: dict[str, Seq] = {}
         self.default_eos: list[int] = []
         # Deadline clock for the current step window.

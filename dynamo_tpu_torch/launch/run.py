@@ -9,6 +9,8 @@ Examples:
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model llama-3-8b-lite \
         --allow-random-weights --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=text out=torch --model tests/data/tiny-real-llama
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
+        --device cpu --kv-dtype int8 --input-jsonl prompts.jsonl
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--num-blocks", type=int, default=0)
     p.add_argument("--prefill-chunk", type=int, default=512)
+    p.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "int8", "int4"],
+                   help="KV cache storage: model precision, or int8 / packed int4 "
+                        "with per-(block, kv head) scales (2x / 4x the blocks)")
     p.add_argument("--no-unified-step", action="store_true",
                    help="dispatch decode and prefill chunks as two steps "
                         "instead of one ragged mixed step")
@@ -72,6 +77,7 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         block_size=ns.block_size,
         num_blocks=ns.num_blocks,
         prefill_chunk=ns.prefill_chunk,
+        kv_dtype=ns.kv_dtype,
         unified_step=not ns.no_unified_step,
         allow_random_weights=ns.allow_random_weights,
     )

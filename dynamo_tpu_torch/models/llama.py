@@ -9,7 +9,9 @@
 - **The cache is updated in place.** JAX donates the cache to the step
   program and gets a new array back; here ``_scatter_kv`` writes the new
   K/V into the layer's cache slice with ``index_copy_``, and ``forward``
-  returns only the hidden state.
+  returns only the hidden state. A quantized cache (``{"q": payload
+  [L, NB, BS, KH, Dp], "s": f32 scales [L, NB, KH]}``, engine/cache.py) is
+  quantized at scatter time, in place on the layer's payload and scales.
 - **Block 0 is the trash block**: padding tokens scatter their KV to flat
   slot 0, so ragged batches need no control flow. Duplicate indices there
   are harmless because no row ever reads block 0 below its kv_len.
@@ -25,7 +27,13 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.engine.cache import cache_payload
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops.paged_attention import (
+    INT4_QMAX,
+    pack_int4,
+    unpack_int4,
+)
 from dynamo_tpu_torch.ops.paged_attention import paged_attention as paged_attention_kernel
 from dynamo_tpu_torch.utils.device import resolve_device
 
@@ -102,21 +110,109 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _scatter_kv(cache: torch.Tensor, new: torch.Tensor, slot_idx: torch.Tensor) -> None:
+#: floor for quantization scales — avoids div-by-zero on all-zero updates
+#: (e.g. trash-block padding writes) while keeping real scales untouched.
+_KV_SCALE_EPS = 1e-8
+
+Cache = torch.Tensor | dict[str, torch.Tensor]
+
+
+def _scatter_kv(cache: Cache, new: torch.Tensor, slot_idx: torch.Tensor) -> None:
     """Write new KV [B, T, KH, D] into one layer's paged cache
     [NB, BS, KH, D] at flat slots [B, T] (block * block_size + offset), in
-    place. Padding tokens point at flat slot 0 of the trash block."""
+    place. Padding tokens point at flat slot 0 of the trash block. A
+    quantized cache (``{"q", "s"}``) goes through :func:`_scatter_kv_quant`."""
+    if isinstance(cache, dict):
+        _scatter_kv_quant(cache, new, slot_idx)
+        return
     nb, bs, kh, d = cache.shape
     cache.view(nb * bs, kh, d).index_copy_(
         0, slot_idx.reshape(-1).long(), new.reshape(-1, kh, d).to(cache.dtype))
 
 
-def _gather_kv(cache: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+def _scatter_kv_quant(cache: dict[str, torch.Tensor], new: torch.Tensor,
+                      slot_idx: torch.Tensor) -> None:
+    """Int8/int4 scatter, in place on the layer's payload [NB, BS, KH, Dp]
+    and scales [NB, KH]: the abs-max over the block update sets or merges
+    the block's per-head scale, the rows already in touched blocks are
+    requantized to the new scale, then the new rows are quantized and
+    written over them.
+
+    A write at block offset 0 marks the block as freshly (re)tenanted and
+    resets its scale; mid-block writes merge by max so committed rows never
+    lose range. A uint8 payload is packed int4 (±7, two nibbles a byte).
+
+    Same arithmetic as the JAX function, bit for bit: everything new (the
+    scales, the requantized rows) is computed from the OLD payload and
+    scales before anything is written. Shapes are static — the requant
+    gathers each token's whole block (duplicates write identical bytes) —
+    so nothing here waits for the device."""
+    q, s = cache["q"], cache["s"]
+    int4 = q.dtype == torch.uint8
+    qmax = INT4_QMAX if int4 else 127.0
+    nb, bs, kh, _dp = q.shape
+    d = new.shape[-1]
+    idx = slot_idx.reshape(-1).long()                            # [N]
+    vals = new.reshape(-1, kh, d).float()                        # [N, KH, D]
+    blk = (idx // bs).clamp(0, nb - 1)
+    off = idx % bs
+
+    row_amax = vals.abs().amax(dim=-1)                           # [N, KH]
+    upd_amax = torch.zeros((nb, kh), dtype=torch.float32, device=q.device).scatter_reduce_(
+        0, blk[:, None].expand(-1, kh), row_amax, "amax")
+    resets = torch.zeros((nb,), dtype=torch.int32, device=q.device).scatter_reduce_(
+        0, blk, (off == 0).to(torch.int32), "amax") > 0          # fresh tenant
+    # A divisor that is a Python scalar becomes a multiply by its reciprocal
+    # on CUDA (another rounding than the CPU's and XLA's true division).
+    s_cand = upd_amax / torch.full_like(upd_amax, qmax)
+    s_new = torch.where(resets[:, None], s_cand, torch.maximum(s, s_cand))
+    s_new = torch.maximum(s_new, torch.where(upd_amax > 0, _KV_SCALE_EPS, s_new))
+
+    # Requantize the already-written rows of every touched block.
+    ratio = torch.where(s_new > 0, s / s_new.clamp_min(_KV_SCALE_EPS), 0.0)
+    old = q.index_select(0, blk)                                 # [N, BS, KH, Dp]
+    old = (unpack_int4(old) if int4 else old).float()            # [N, BS, KH, D]
+    requant = torch.clamp(torch.round(old * ratio.index_select(0, blk)[:, None, :, None]),
+                          -qmax, qmax).to(torch.int32)
+    requant = pack_int4(requant) if int4 else requant.to(torch.int8)
+
+    # Quantize the new rows.
+    s_rows = s_new.index_select(0, blk).clamp_min(_KV_SCALE_EPS)  # [N, KH]
+    q_rows = torch.clamp(torch.round(vals / s_rows[:, :, None]), -qmax, qmax)
+    q_rows = pack_int4(q_rows.to(torch.int32)) if int4 else q_rows.to(torch.int8)
+
+    q.index_copy_(0, blk, requant)
+    q.view(nb * bs, kh, -1).index_copy_(0, idx, q_rows)          # over the rescaled slots
+    s.copy_(s_new)
+
+
+def _gather_kv(cache: Cache, block_tables: torch.Tensor) -> torch.Tensor:
     """cache [NB, BS, KH, D], block_tables [B, NBLK] → [B, NBLK*BS, KH, D]
-    in position order."""
-    g = cache[block_tables.long()]
+    in position order. A quantized cache is dequantized to f32 (a packed
+    int4 payload unpacks its nibbles first)."""
+    idx = block_tables.long()
+    if isinstance(cache, dict):
+        g = cache["q"][idx]                                      # [B, NBLK, BS, KH, Dp]
+        if g.dtype == torch.uint8:
+            g = unpack_int4(g)
+        g = g.float() * cache["s"][idx][:, :, None, :, None]
+    else:
+        g = cache[idx]
     b, nblk, bs, kh, d = g.shape
     return g.reshape(b, nblk * bs, kh, d)
+
+
+def _cache_block_size(cache: Cache) -> int:
+    """block_size of a per-layer-stacked cache (tensor or ``{"q", "s"}``)."""
+    return cache_payload(cache).shape[2]
+
+
+def _layer_cache(cache: Cache, li: int) -> Cache:
+    """Layer ``li``'s slice of a stacked cache: contiguous views, so the
+    scatter writes through to the cache."""
+    if isinstance(cache, dict):
+        return {"q": cache["q"][li], "s": cache["s"][li]}
+    return cache[li]
 
 
 def paged_attention(q: torch.Tensor, ctx_k: torch.Tensor, ctx_v: torch.Tensor,
@@ -164,8 +260,8 @@ def forward(params: Params, cfg: ModelConfig,
             q_start: torch.Tensor,        # [B] position of first query token
             q_len: torch.Tensor,          # [B] valid query tokens (≤ T)
             block_tables: torch.Tensor,   # [B, NBLK] int32 block ids
-            cache_k: torch.Tensor,        # [L, NB, BS, KH, D], updated in place
-            cache_v: torch.Tensor,
+            cache_k: Cache,               # [L, NB, BS, KH, D] or {"q", "s"}, updated in place
+            cache_v: Cache,
             attn_num_splits: int = 0,     # split-K: 0 auto, 1 off, N forced
             return_all_hidden: bool = False) -> torch.Tensor:
     """One engine step. Returns the final-norm hidden state at each row's
@@ -176,7 +272,7 @@ def forward(params: Params, cfg: ModelConfig,
     the cache slot its block table names; attention sees every cache
     position ≤ its own and < q_start + q_len."""
     b, t = token_ids.shape
-    bs = cache_k.shape[2]
+    bs = _cache_block_size(cache_k)
     dev = token_ids.device
     ar = torch.arange(t, device=dev)
     positions = q_start[:, None].long() + ar[None, :]                 # [B, T]
@@ -197,10 +293,10 @@ def forward(params: Params, cfg: ModelConfig,
         v = mm(x, layers["wv"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        _scatter_kv(cache_k[li], k, slot)
-        _scatter_kv(cache_v[li], v, slot)
-        attn = paged_attention_kernel(q.contiguous(), cache_k[li], cache_v[li],
-                                      bt32, qs32, kv_lens,
+        ck, cv = _layer_cache(cache_k, li), _layer_cache(cache_v, li)
+        _scatter_kv(ck, k, slot)
+        _scatter_kv(cv, v, slot)
+        attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
                                       num_splits=attn_num_splits)
         hid = hid + mm(attn.reshape(b, t, cfg.q_size), layers["wo"][li])
         x = rms_norm(hid, layers["mlp_norm"][li], cfg.rms_norm_eps)

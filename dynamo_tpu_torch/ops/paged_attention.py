@@ -1,12 +1,14 @@
 """Paged attention over a block-table KV cache: the hand-written CUDA
-kernel (``csrc/paged_attention.cu``), its plain PyTorch version, and the
-split-K sizing.
+kernel (``csrc/paged_attention.cu``), its plain PyTorch version, the
+split-K sizing and the int4 nibble packing.
 
 Port of ``dynamo_tpu/ops/paged_attention.py`` (``paged_attention_kernel``)
-for a bf16/f32 cache; the int8 and packed-int4 cache variants are still
-to be ported (ROADMAP). :func:`paged_attention` is the one entry: on a
-CUDA tensor it launches the kernel (or raises — there is no fallback), on
-a CPU tensor it runs :func:`paged_attention_plain`.
+for its three caches: model precision (bf16/f32 tensor ``[NB, BS, KH, D]``),
+int8 (``{"q": int8 [NB, BS, KH, D], "s": f32 [NB, KH]}``) and packed int4
+(``{"q": uint8 [NB, BS, KH, D/2], "s": f32 [NB, KH]}``); the payload dtype
+is the variant marker, as in JAX. :func:`paged_attention` is the one entry:
+on a CUDA tensor it launches the kernel's variant for the cache (or raises
+— there is no fallback), on a CPU tensor it runs :func:`paged_attention_plain`.
 
 Conventions kept from the TPU kernel, so both versions agree with it:
 - q is scaled by ``D^-0.5`` in q's own dtype before attention
@@ -36,6 +38,45 @@ TPU_CORE_COUNT = 8
 
 #: query rows per CUDA thread block (4 warps x 4 rows, csrc/paged_attention.cu)
 ROWS_PER_BLOCK = 16
+
+#: int4 payloads clip to ±7 (not -8): a symmetric range keeps dequant a pure
+#: scale multiply, mirroring int8's ±127.
+INT4_QMAX = 7.0
+
+#: the kernel's cache variants, by the ``cache_kind`` code it takes
+CACHE_KINDS = ("float", "int8", "int4")
+
+
+def pack_int4(vals: torch.Tensor) -> torch.Tensor:
+    """Pack signed nibbles [-8..7] (any int dtype) into uint8 along the
+    trailing axis, split-half layout: byte j of a length-D/2 packed row
+    holds element j in its low nibble and element j + D/2 in its high one."""
+    d = vals.shape[-1]
+    if d % 2:
+        raise ValueError(f"int4 packing needs an even trailing dim, got {d}")
+    w = vals.to(torch.int32)
+    lo = w[..., : d // 2] & 0xF
+    hi = w[..., d // 2:] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 [..., D/2] → int32 [..., D],
+    each nibble sign-extended."""
+    w = packed.to(torch.int32)
+    lo = w & 0xF
+    hi = (w >> 4) & 0xF
+    lo = lo - ((lo & 0x8) << 1)
+    hi = hi - ((hi & 0x8) << 1)
+    return torch.cat([lo, hi], dim=-1)
+
+
+def cache_kind(cache) -> str:
+    """The cache variant: ``float`` for a tensor, ``int8`` / ``int4`` for a
+    ``{"q", "s"}`` dict by its payload dtype (uint8 = packed int4)."""
+    if not isinstance(cache, dict):
+        return "float"
+    return "int4" if cache["q"].dtype == torch.uint8 else "int8"
 
 
 def auto_num_splits(num_blocks: int, *, batch: int, q_chunks: int = 1,
@@ -131,16 +172,35 @@ def _rows_to_bthd(rows: torch.Tensor, t: int) -> torch.Tensor:
     return rows.reshape(b, kh, t, rep, d).permute(0, 2, 1, 3, 4).reshape(b, t, kh * rep, d)
 
 
-def split_state_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, block_tables: torch.Tensor,
+def _context(cache, idx: torch.Tensor, d: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The rows' context [B, NBLK*BS, KH, D] in f32 — int-valued for a
+    quantized cache (int4 unpacked), whose per-(block, kv head) scales come
+    back beside it as [B, NBLK, KH] (None for a model-precision cache)."""
+    if isinstance(cache, dict):
+        g = cache["q"][idx]                                   # [B, NBLK, BS, KH, Dp]
+        if g.dtype == torch.uint8:
+            g = unpack_int4(g)
+        scale = cache["s"].float()[idx]                       # [B, NBLK, KH]
+    else:
+        g, scale = cache[idx], None
+    b, nblk, bs, kh = g.shape[:4]
+    return g.reshape(b, nblk * bs, kh, d).float(), scale
+
+
+def split_state_plain(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
                       q_start: torch.Tensor, kv_lens: torch.Tensor,
                       num_splits: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Each split's raw flash state, computed densely: the function the
     kernel computes before normalising. q is already scaled. Split s covers
     context blocks [s·spb, (s+1)·spb). Returns f32 acc [B, NS, KH, R, D],
-    m and l [B, NS, KH, R]."""
+    m and l [B, NS, KH, R].
+
+    A quantized cache follows the TPU kernel's order: scores are the
+    products with the int-valued context times the block's K scale, and
+    each block's p·v over the int-valued context is times its V scale."""
     b, t, h, d = q.shape
-    _, bs, kh, _ = k_cache.shape
+    payload = k_cache["q"] if isinstance(k_cache, dict) else k_cache
+    bs, kh = payload.shape[1], payload.shape[2]
     nblk = block_tables.shape[1]
     rep = h // kh
     ns = num_splits
@@ -148,14 +208,18 @@ def split_state_plain(q: torch.Tensor, k_cache: torch.Tensor,
     span = spb * bs
     s_pad = ns * span
     idx = block_tables.long()
-    ctx_k = k_cache[idx].reshape(b, nblk * bs, kh, d).float()
-    ctx_v = v_cache[idx].reshape(b, nblk * bs, kh, d).float()
+    ctx_k, k_scale = _context(k_cache, idx, d)
+    ctx_v, v_scale = _context(v_cache, idx, d)
     pad = s_pad - nblk * bs
     if pad:
         ctx_k = torch.nn.functional.pad(ctx_k, (0, 0, 0, 0, 0, pad))
         ctx_v = torch.nn.functional.pad(ctx_v, (0, 0, 0, 0, 0, pad))
     qf = q.float().reshape(b, t, kh, rep, d)
     scores = torch.einsum("btkrd,bskd->btkrs", qf, ctx_k)
+    if k_scale is not None:
+        ks = torch.nn.functional.pad(k_scale, (0, 0, 0, ns * spb - nblk))
+        ks = ks.repeat_interleave(bs, dim=1).permute(0, 2, 1)          # [B, KH, S]
+        scores = scores * ks[:, None, :, None, :]
     ctx = torch.arange(s_pad, device=q.device)
     pos = q_start.long()[:, None] + torch.arange(t, device=q.device)[None, :]
     visible = ((ctx[None, None, :] <= pos[:, :, None])
@@ -167,7 +231,14 @@ def split_state_plain(q: torch.Tensor, k_cache: torch.Tensor,
     m = scores.amax(dim=-1)                                            # [B,T,KH,REP,NS]
     p = torch.where(visible, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
     l = p.sum(dim=-1)
-    acc = torch.einsum("btkrns,bnskd->btkrnd", p, ctx_v.reshape(b, ns, span, kh, d))
+    if v_scale is None:
+        acc = torch.einsum("btkrns,bnskd->btkrnd", p, ctx_v.reshape(b, ns, span, kh, d))
+    else:
+        pv = torch.einsum("btkrngc,bngckd->btkrngd", p.reshape(b, t, kh, rep, ns, spb, bs),
+                          ctx_v.reshape(b, ns, spb, bs, kh, d))
+        vs = torch.nn.functional.pad(v_scale, (0, 0, 0, ns * spb - nblk))
+        vs = vs.reshape(b, ns, spb, kh).permute(0, 3, 1, 2)            # [B, KH, NS, SPB]
+        acc = (pv * vs[:, None, :, None, :, :, None]).sum(dim=-2)
     # [B, T, KH, REP, NS, ...] → [B, NS, KH, T*REP, ...]
     acc = acc.permute(0, 4, 2, 1, 3, 5).reshape(b, ns, kh, t * rep, d)
     m = m.permute(0, 4, 2, 1, 3).reshape(b, ns, kh, t * rep)
@@ -175,8 +246,7 @@ def split_state_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return acc, m, l
 
 
-def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, block_tables: torch.Tensor,
+def paged_attention_plain(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
                           q_start: torch.Tensor, kv_lens: torch.Tensor, *,
                           num_splits: int = 1) -> torch.Tensor:
     """The kernel's plain PyTorch version: gather the context, attend
@@ -191,24 +261,41 @@ def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 def _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"paged attention takes float32 or bfloat16 q, got {q.dtype}")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dtype != q.dtype:
-            raise TypeError(f"{name} dtype {x.dtype} != q dtype {q.dtype} (the "
-                            "int8/int4 cache variants are not ported yet)")
+    b, t, h, d = q.shape
+    kind = cache_kind(k_cache)
+    if cache_kind(v_cache) != kind:
+        raise TypeError(f"k_cache is a {kind} cache, v_cache a {cache_kind(v_cache)} one")
+    if kind == "float":
+        payloads, scales = (k_cache, v_cache), ()
+        want_dtype, dp = q.dtype, d
+    else:
+        payloads, scales = (k_cache["q"], v_cache["q"]), (k_cache["s"], v_cache["s"])
+        want_dtype = torch.uint8 if kind == "int4" else torch.int8
+        if kind == "int4" and d % 2:
+            raise ValueError(f"a packed int4 cache needs an even head_dim, got {d}")
+        dp = d // 2 if kind == "int4" else d
+    for name, x in zip(("k_cache", "v_cache"), payloads):
+        if x.dtype != want_dtype:
+            raise TypeError(f"{name} payload dtype {x.dtype} != {want_dtype} "
+                            f"({kind} cache, q {q.dtype})")
     for name, x in (("block_tables", block_tables), ("q_start", q_start),
                     ("kv_lens", kv_lens)):
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
-    tensors = (q, k_cache, v_cache, block_tables, q_start, kv_lens)
+    kp, vp = payloads
+    if kp.dim() != 4 or kp.shape != vp.shape or kp.shape[3] != dp:
+        raise ValueError(f"{kind} cache payloads must be [NB, BS, KH, {dp}], got "
+                         f"{tuple(kp.shape)} / {tuple(vp.shape)}")
+    nb, _, kh, _ = kp.shape
+    for name, x in zip(("k_cache scales", "v_cache scales"), scales):
+        if x.dtype != torch.float32 or tuple(x.shape) != (nb, kh):
+            raise TypeError(f"{name} must be float32 [{nb}, {kh}], got "
+                            f"{x.dtype} {tuple(x.shape)}")
+    tensors = (q, *payloads, *scales, block_tables, q_start, kv_lens)
     if any(x.device != q.device for x in tensors):
         raise ValueError("paged attention inputs must share one CUDA device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged attention inputs must be contiguous")
-    b, t, h, d = q.shape
-    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[3] != d:
-        raise ValueError(f"caches must be [NB, BS, KH, {d}], got "
-                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
-    kh = k_cache.shape[2]
     if h % kh:
         raise ValueError(f"{h} query heads do not divide over {kh} kv heads")
     if d > 256:
@@ -229,31 +316,35 @@ def _kernel_fn():
 
     fn = load_library("paged_attention").dyn_paged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     return fn
 
 
-def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, block_tables: torch.Tensor,
+def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
                     q_start: torch.Tensor, kv_lens: torch.Tensor, *,
                     num_splits: int = 0) -> torch.Tensor:
-    """Flash paged attention. q [B, T, H, D]; caches [NB, BS, KH, D];
-    block_tables [B, NBLK] int32; q_start, kv_lens [B] int32. Returns
-    [B, T, H, D] in q's dtype.
+    """Flash paged attention. q [B, T, H, D]; caches [NB, BS, KH, D] in q's
+    dtype, or quantized ``{"q": payload, "s": f32 [NB, KH]}`` dicts (int8
+    [NB, BS, KH, D] or packed-int4 uint8 [NB, BS, KH, D/2]); block_tables
+    [B, NBLK] int32; q_start, kv_lens [B] int32. Returns [B, T, H, D] in
+    q's dtype.
 
     ``num_splits``: 0 = auto (:func:`num_splits_for`), 1 = sequential walk,
     N = forced (clamped to NBLK). On a CUDA tensor this launches the
-    ``sm_90a`` kernel and counts it in ``paged_attention.launches``; on a
-    CPU tensor it runs :func:`paged_attention_plain`."""
+    ``sm_90a`` kernel's variant for the cache and counts it in
+    ``paged_attention.launches`` and ``paged_attention.launches_by_kind``;
+    on a CPU tensor it runs :func:`paged_attention_plain`."""
+    kind = cache_kind(k_cache)
+    payload = k_cache if kind == "float" else k_cache["q"]
     nblk = block_tables.shape[1]
-    ns = num_splits_for(q, k_cache.shape[2], nblk, num_splits)
+    ns = num_splits_for(q, payload.shape[2], nblk, num_splits)
     if not q.is_cuda:
         return paged_attention_plain(q, k_cache, v_cache, block_tables, q_start,
                                      kv_lens, num_splits=ns)
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens)
     b, t, h, d = q.shape
-    _, bs, kh, _ = k_cache.shape
+    _, bs, kh, _ = payload.shape
     r = t * (h // kh)
     qs = scale_query(q).contiguous()
     if ns == 1:
@@ -264,19 +355,32 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         acc = torch.empty((b, ns, kh, r, d), dtype=torch.float32, device=q.device)
         m = torch.empty((b, ns, kh, r), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
+    if kind == "float":
+        kp, vp, ks, vs = k_cache, v_cache, None, None
+    else:
+        kp, vp, ks, vs = k_cache["q"], v_cache["q"], k_cache["s"], v_cache["s"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel_fn()(
-        1 if q.dtype == torch.bfloat16 else 0,
-        _ptr(qs), _ptr(k_cache), _ptr(v_cache), _ptr(block_tables), _ptr(q_start),
-        _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l),
+        1 if q.dtype == torch.bfloat16 else 0, CACHE_KINDS.index(kind),
+        _ptr(qs), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(block_tables),
+        _ptr(q_start), _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l),
         b, t, h, kh, d, bs, nblk, ns, -(-nblk // ns), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"paged-attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"paged-attention kernel launch failed ({kind} cache): "
+                           f"CUDA error {rc}")
     paged_attention.launches += 1
+    paged_attention.launches_by_kind[kind] += 1
     if ns == 1:
         return out
     return _rows_to_bthd(combine_splits(acc, m, l, q.dtype), t)
 
 
-#: launches of the CUDA kernel since the count was last set to 0
-paged_attention.launches = 0
+def reset_launches() -> None:
+    """Set the kernel's launch counts (total and per cache kind) to 0."""
+    paged_attention.launches = 0
+    paged_attention.launches_by_kind = dict.fromkeys(CACHE_KINDS, 0)
+
+
+#: launches of the CUDA kernel since the counts were last set to 0: in
+#: all (``launches``) and per cache kind (``launches_by_kind``)
+reset_launches()

@@ -39,7 +39,9 @@ class EngineConfig:
     sp: int = 1
     # Weight-only quantization: "none" | "int8".
     quantization: str = "none"
-    # KV-cache storage dtype: "bfloat16" (model precision) | "int8" | "int4".
+    # KV-cache storage: "bfloat16" or "" (model precision: the cache is
+    # stored at the model's dtype) | "int8" | "int4" (quantized payload +
+    # per-(layer, block, kv head) f32 scales; int4 packs two nibbles a byte).
     kv_dtype: str = "bfloat16"
     enable_prefix_caching: bool = True
     # KVBM tiers: G2 host blocks, G3 disk, G4 remote store.

@@ -299,8 +299,8 @@ def test_block_allocator_matches_jax():
 
 
 @pytest.mark.parametrize("setting", [
-    dict(tp=2), dict(pp=2), dict(dp=2), dict(ep=2), dict(sp=2), dict(kv_dtype="int8"),
-    dict(kv_dtype="int4"), dict(quantization="int8"), dict(spec_ngram=3),
+    dict(tp=2), dict(pp=2), dict(dp=2), dict(ep=2), dict(sp=2), dict(kv_dtype="fp8"),
+    dict(quantization="int8"), dict(spec_ngram=3),
     dict(decode_window=4), dict(host_kv_blocks=8), dict(disk_kv_path="/nonexistent"),
     dict(remote_kv_addr="localhost:1"), dict(session_ttl=5.0), dict(prefill_chunk=0),
     dict(global_prefix_cache=True), dict(stream_ckpt_blocks=4),
