@@ -1,0 +1,155 @@
+"""Device time of the port's paged-attention wrapper, under two timers.
+
+    python3 attention_timing.py [--label NAME]
+
+Times ``dynamo_tpu_torch.ops.paged_attention.paged_attention`` with bf16
+queries over a bf16, an int8 and a packed-int4 cache at the five shapes of
+``chip_smoke.py`` phase (a) that every slice of the port has run (decode,
+prefill, ragged, split-K, long context; llama-3-8b-lite attention: KH=8,
+H=32, D=128, block 16). Each case is timed by two timers, 20 calls each,
+L2 flushed before each call:
+
+- ``ms``: a ~5 ms sleep kernel ahead of the first event keeps the card busy
+  while the host enqueues the call, so this is the call's device time (the
+  timer of ``chip_smoke.time_ms``);
+- ``ms_idle``: the same events with nothing queued ahead of the call (the
+  timer of the port's first two slices), which also counts the wrapper's
+  host side where that outlasts its kernels.
+
+It uses only what every slice of the port has (the wrapper, its plain
+version and ``models.llama._scatter_kv``) and imports the
+``dynamo_tpu_torch`` beside it, so a copy placed at the root of an older
+checkout times that checkout's kernels. To compare two commits, run it in
+both on one machine, in the order old, new, new, old.
+
+Prints the card's name and power limit (nvidia-smi), then one JSON line a
+case: ``label``, ``cache``, ``shape``, ``ms``, ``ms_idle`` and
+``max_abs_err`` against the plain version. Exits non-zero without a CUDA
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+KINDS = ("float", "int8", "int4")
+
+
+def timed(fn, sleep: bool, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` between two events, L2 flushed before each call;
+    with ``sleep`` a ~5 ms sleep kernel is queued ahead of the first event."""
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        if sleep:
+            torch.cuda._sleep(10_000_000)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def case(seed: int, b: int, t: int, nblk: int, q_start, q_len, device: str = "cuda",
+         h: int = 32, kh: int = 8, d: int = 128, bs: int = 16):
+    """bf16 q, K, V and the tables of one shape, from ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    nb = b * nblk + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v = randn(b, t, h, d), randn(nb, bs, kh, d), randn(nb, bs, kh, d)
+    perm = torch.randperm(nb - 1, generator=gen, device=device)[: b * nblk] + 1
+    bt = perm.reshape(b, nblk).to(torch.int32).contiguous()
+    qs = torch.tensor(q_start, dtype=torch.int32, device=device)
+    kl = qs + torch.tensor(q_len, dtype=torch.int32, device=device)
+    return q, k, v, bt, qs, kl
+
+
+def quantize(x: torch.Tensor, kind: str, chunk_blocks: int = 128) -> dict:
+    """A quantized cache holding ``x`` [NB, BS, KH, D], written through the
+    port's ``_scatter_kv`` whole blocks at a time."""
+    from dynamo_tpu_torch.models.llama import _scatter_kv
+
+    nb, bs, kh, d = x.shape
+    cache = {"q": torch.zeros((nb, bs, kh, d // 2 if kind == "int4" else d),
+                              dtype=torch.uint8 if kind == "int4" else torch.int8,
+                              device=x.device),
+             "s": torch.zeros((nb, kh), dtype=torch.float32, device=x.device)}
+    flat = x.reshape(nb * bs, kh, d)
+    step = chunk_blocks * bs
+    for s0 in range(0, nb * bs, step):
+        n = min(step, nb * bs - s0)
+        slots = torch.arange(s0, s0 + n, dtype=torch.int32, device=x.device)[None]
+        _scatter_kv(cache, flat[s0: s0 + n][None], slots)
+    return cache
+
+
+def shapes(device: str = "cuda") -> dict:
+    """name -> (q, k, v, block_tables, q_start, kv_lens), num_splits: the
+    phase-(a) shapes of chip_smoke.py that every slice has run."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lens = torch.randint(128, 193, (32,), generator=gen, device=device).tolist()
+    return {
+        "decode B=32 T=1 kv 128-192": (case(1, 32, 1, 16, [n - 1 for n in lens], [1] * 32,
+                                            device), 0),
+        "prefill B=32 T=128 kv 128": (case(2, 32, 128, 8, [0] * 32, [128] * 32, device), 0),
+        "ragged B=8 T=16 with a zero-length row": (case(
+            3, 8, 16, 8, [0, 37, 5, 100, 0, 64, 15, 0], [16, 1, 11, 1, 0, 16, 1, 9],
+            device), 0),
+        "split-K B=2 T=1 kv 2048 ns=4": (case(4, 2, 1, 128, [2047, 2047], [1, 1], device), 4),
+        "long-context B=16 T=1 kv 8192 auto splits": (case(
+            5, 16, 1, 512, [8191] * 16, [1] * 16, device), 0),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--label", default=ROOT.name, help="tag of every output line")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("attention_timing: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
+    for name, ((q, k, v, bt, qs, kl), ns) in shapes().items():
+        for kind in KINDS:
+            kc, vc = (k, v) if kind == "float" else (quantize(k, kind), quantize(v, kind))
+            call = (q, kc, vc, bt, qs, kl)
+            ref = pa.paged_attention_plain(*call, num_splits=1).float()
+            err = (pa.paged_attention(*call, num_splits=ns).float() - ref).abs().max().item()
+            row = {"label": args.label, "cache": kind, "shape": name,
+                   "ms": timed(lambda: pa.paged_attention(*call, num_splits=ns), sleep=True),
+                   "ms_idle": timed(lambda: pa.paged_attention(*call, num_splits=ns),
+                                    sleep=False),
+                   "max_abs_err": err}
+            print(json.dumps(row), flush=True)
+            if not err <= 2e-2:
+                raise AssertionError(f"{kind} {name}: max_abs_err {err} against the plain "
+                                     "version (tol 2e-2)")
+            del kc, vc, call, ref
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,11 @@ exits non-zero if any phase fails:
     against its plain PyTorch version on the card, with bf16 queries at the
     main path's shapes (llama-3-8b-lite attention: KH=8, H=32, D=128,
     block 16) and at the long-context decode geometry of ``bench.py``
-    (B=16, kv 8192), with kernel / plain / library
+    (B=16, kv 8192); the int8/int4 variants also at the two other head
+    widths the tensor-core design serves (D=16, KH=2, H=4: tiny-real-llama;
+    D=64, KH=8, H=64: the D=64 presets) and with f32 queries (the scalar
+    design's f32-product route); each case checks it ran the kernel
+    ``ops.paged_attention.ROUTES`` names; with kernel / plain / library
     (``scaled_dot_product_attention`` on the pre-gathered, dequantized
     context, a yardstick the port never calls) times and the least time
     the card could take for the same work. The quantized content is made
@@ -22,12 +26,14 @@ exits non-zero if any phase fails:
     ``AsyncTorchEngine.generate``: 32 requests, prompt 128, 64 greedy
     output tokens, once for each KV cache dtype (bfloat16, int8, int4); the
     kernel launch counts are set to 0 just before each run and read just
-    after, and each run must launch its own variant only, 8 per step;
+    after, and each run must launch its own variant only, 8 per step, through
+    its route's kernel (int8/int4: the tensor-core ``mma_*`` kernels);
 (c) coherence: the trained checkpoint ``tests/data/tiny-real-llama``
     through the port's loader and tokenizer must continue "one two three
     four" with " five six seven eight" on the card, with a bf16 and with an
     int8 cache (the int4 continuation is printed); its f32 greedy tokens on
-    the card must equal the plain path's on the CPU for every cache dtype;
+    the card must equal the plain path's on the CPU for every cache dtype,
+    and those f32 runs must go through the scalar design's kernels only;
     no step dispatch may wait for the card (the host/device overlap of the
     pipelined step loop), with a bf16 and with an int8 cache.
 
@@ -62,7 +68,10 @@ ULP_REL, ULP_ABS = 2.0**-7, 1e-4
 
 # H100 SXM memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s), NVIDIA
 # data sheet; the port runs on that card only.
+# float32 outside the tensor cores: 67 TFLOP/s, the rate of the scalar
+# design's f32-q products.
 CARD, CARD_BW, CARD_PEAK = "H100 80GB HBM3", 3.35e12, 989e12
+CARD_PEAK_F32 = 67e12
 
 #: the kernel's cache variants (ops.paged_attention.CACHE_KINDS), the name
 #: each carries in the kernels line, and the engine's kv_dtype that serves it
@@ -81,15 +90,24 @@ def card_rates(name: str) -> tuple[float, float]:
     return CARD_BW, CARD_PEAK
 
 
+#: the source of each kernel design
+SOURCES = {"scalar": "dynamo_tpu_torch/csrc/paged_attention.cu",
+           "mma": "dynamo_tpu_torch/csrc/paged_attention_mma.cu"}
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` with L2 flushed before each call (the main
-    path streams ~400 MB of weights between two attention calls)."""
+    path streams ~400 MB of weights between two attention calls). A ~5 ms
+    sleep kernel ahead of the first event keeps the card busy while the
+    host enqueues ``fn``, so a call whose host side outlasts its kernels
+    (the wrapper's checks and allocations) is timed by its kernels."""
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(10_000_000)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -103,10 +121,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # (a) kernel vs plain
 # ---------------------------------------------------------------------------
 
-def attention_case(gen, b, t, nblk, q_start, q_len, h=32, kh=8, d=128, bs=16):
+def attention_case(gen, b, t, nblk, q_start, q_len, h=32, kh=8, d=128, bs=16,
+                   q_dtype=torch.bfloat16):
     nb = b * nblk + 1
     dt = torch.bfloat16
-    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dt)
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(q_dtype)
     k = torch.randn((nb, bs, kh, d), generator=gen, device="cuda").to(dt)
     v = torch.randn((nb, bs, kh, d), generator=gen, device="cuda").to(dt)
     perm = torch.randperm(nb - 1, generator=gen, device="cuda")[: b * nblk] + 1
@@ -223,21 +242,29 @@ def phase_kernels(bw: float, peak: float) -> dict:
     lens = torch.randint(128, 193, (32,), generator=gen, device="cuda").tolist()
     ragged_start = [0, 37, 5, 100, 0, 64, 15, 0]
     ragged_len = [16, 1, 11, 1, 0, 16, 1, 9]                  # row 4: kv_len 0
+    decode = dict(b=32, t=1, nblk=16, q_start=[n - 1 for n in lens], q_len=[1] * 32)
+    every, quant = tuple(KERNEL_NAMES), ("int8", "int4")
+    # name: (case, num_splits, the cache kinds it runs)
     cases = {
-        "decode B=32 T=1 kv 128-192": (attention_case(
-            gen, 32, 1, 16, [n - 1 for n in lens], [1] * 32), 0),
+        "decode B=32 T=1 kv 128-192": (attention_case(gen, **decode), 0, every),
         "prefill B=32 T=128 kv 128": (attention_case(
-            gen, 32, 128, 8, [0] * 32, [128] * 32), 0),
+            gen, 32, 128, 8, [0] * 32, [128] * 32), 0, every),
         "ragged B=8 T=16 with a zero-length row": (attention_case(
-            gen, 8, 16, 8, ragged_start, ragged_len), 0),
+            gen, 8, 16, 8, ragged_start, ragged_len), 0, every),
         "split-K B=2 T=1 kv 2048 ns=4": (attention_case(
-            gen, 2, 1, 128, [2047, 2047], [1, 1]), 4),
+            gen, 2, 1, 128, [2047, 2047], [1, 1]), 4, every),
         "long-context B=16 T=1 kv 8192 auto splits": (attention_case(
-            gen, 16, 1, 512, [8191] * 16, [1] * 16), 0),
+            gen, 16, 1, 512, [8191] * 16, [1] * 16), 0, every),
+        "decode D=16 KH=2 H=4 B=32 kv 128-192": (attention_case(
+            gen, **decode, h=4, kh=2, d=16), 0, quant),
+        "decode D=64 KH=8 H=64 B=32 kv 128-192": (attention_case(
+            gen, **decode, h=64, kh=8, d=64), 0, quant),
+        "f32 q decode B=32 T=1 kv 128-192": (attention_case(
+            gen, **decode, q_dtype=torch.float32), 0, quant),
     }
     results: dict[str, dict] = {kind: {} for kind in KERNEL_NAMES}
-    for name, ((q, k, v, bt, qs, kl), ns) in cases.items():
-        for kind in KERNEL_NAMES:
+    for name, ((q, k, v, bt, qs, kl), ns, kinds) in cases.items():
+        for kind in kinds:
             if kind == "float":
                 kc, vc, mism = k, v, None
             else:
@@ -245,9 +272,16 @@ def phase_kernels(bw: float, peak: float) -> dict:
                 mism = [a + b for a, b in zip(scatter_mismatch(k, kc, kind),
                                               scatter_mismatch(v, vc, kind))]
             args = (q, kc, vc, bt, qs, kl)
-            ns_used = pa.num_splits_for(q, k.shape[2], bt.shape[1], ns)
+            route = pa.ROUTES[(q.dtype, kind)]
+            ns_used = pa.num_splits_for(q, k.shape[2], bt.shape[1], ns, kind)
+            pa.reset_launches()
             out = pa.paged_attention(*args, num_splits=ns)
             torch.cuda.synchronize()
+            if pa.paged_attention.launches_by_kernel != {
+                    k: int(k == route) for k in pa.ROUTE_KERNELS}:
+                raise AssertionError(f"{name} ({kind}): launches by kernel "
+                                     f"{pa.paged_attention.launches_by_kernel}, expected "
+                                     f"one of {route}")
             ref = pa.paged_attention_plain(*args, num_splits=ns_used).float()
             limit = ULP_REL * ref.abs() + ULP_ABS
             outs = [out] + ([pa.paged_attention(*args, num_splits=1)] if ns_used > 1 else [])
@@ -258,8 +292,10 @@ def phase_kernels(bw: float, peak: float) -> dict:
             if name.startswith("ragged"):
                 finite = finite and bool((out[4] == 0).all())  # all-masked row → 0
             nbytes, ops = attention_work(q, kc, bt, qs, kl)
-            bytes_ms, ops_ms = nbytes / bw * 1e3, ops / peak * 1e3
+            rate = peak if q.dtype == torch.bfloat16 else CARD_PEAK_F32
+            bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
             row = {
+                "route": route, "design": pa.design(route),
                 "max_abs_err": err, "err_over_limit": ratio, "num_splits": ns_used,
                 "ms": time_ms(lambda: pa.paged_attention(*args, num_splits=ns)),
                 "plain_ms": time_ms(lambda: pa.paged_attention_plain(*args, num_splits=ns_used)),
@@ -273,7 +309,8 @@ def phase_kernels(bw: float, peak: float) -> dict:
             log(f"[a] {KERNEL_NAMES[kind]} {name}: max_abs_err={err:.3e} (tol {TOL}); "
                 f"worst err / ({ULP_REL:g}*|ref| + {ULP_ABS:g}) = {ratio:.3f} (limit 1) "
                 + " ".join(f"{key}={row[key]}" for key in (
-                    "num_splits", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
+                    "route", "num_splits", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by"))
                 + ("" if mism is None else
                    f" card-vs-cpu scatter: {mism[0]} payload bytes, {mism[1]} scales "
                    "differ (first 128 blocks of K and V)"))
@@ -370,8 +407,7 @@ def phase_serve(kind: str, profile: bool = False) -> dict:
         prof.__enter__()
     pa.reset_launches()
     t_start, first_at, done_at, streams = asyncio.run(serve())
-    launches = pa.paged_attention.launches
-    by_kind = dict(pa.paged_attention.launches_by_kind)
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
     if prof is not None:
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
@@ -383,15 +419,17 @@ def phase_serve(kind: str, profile: bool = False) -> dict:
         if not all(lp <= 1e-3 and lp == lp for lp in lps):
             raise AssertionError(f"request {i}: bad logprobs {lps[:4]}")
     layers = engine.core.model_cfg.num_layers
-    want = {k: (layers * steps if k == kind else 0) for k in by_kind}
-    if launches <= 0 or by_kind != want:
-        raise AssertionError(f"{tag}: kernel launches by cache kind {by_kind}, expected "
-                             f"{want} ({layers} per step, this run's variant only)")
+    route = pa.ROUTES[(torch.bfloat16, kind)]
+    want = {k: (layers * steps if k == route else 0) for k in by_kernel}
+    launches = sum(by_kernel.values())
+    if launches <= 0 or by_kernel != want:
+        raise AssertionError(f"{tag}: kernel launches {by_kernel}, expected {want} "
+                             f"({layers} per step, this run's route only)")
     t_first = max(first_at.values())
     t_end = max(done_at.values())
     res = {
         "kv_dtype": KV_DTYPES[kind], "requests": batch, "tokens": batch * decode,
-        "steps": steps, "launches": launches, "launches_by_kind": by_kind,
+        "steps": steps, "launches": launches, "launches_by_kernel": by_kernel,
         "launches_per_step": launches / max(steps, 1),
         "ttft_all_s": t_first - t_start,
         "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
@@ -414,6 +452,7 @@ def phase_coherence() -> dict:
     from dynamo_tpu_torch.engine.engine import EngineCore
     from dynamo_tpu_torch.models.config import MODEL_PRESETS, ModelConfig
     from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.tokenizer import load_tokenizer
@@ -474,13 +513,21 @@ def phase_coherence() -> dict:
     MODEL_PRESETS[cfg32.name] = cfg32
     p_gpu = load_params(cfg32, ckpt, device="cuda")
     p_cpu = load_params(cfg32, ckpt, device="cpu")
-    for kv_dtype in ("bfloat16", "int8", "int4"):
+    for kind, kv_dtype in KV_DTYPES.items():
+        pa.reset_launches()
         gpu32 = greedy(cfg32.name, "cuda", p_gpu, kv_dtype=kv_dtype)[0]
+        by_kernel = dict(pa.paged_attention.launches_by_kernel)
         cpu32 = greedy(cfg32.name, "cpu", p_cpu, kv_dtype=kv_dtype)[0]
-        log(f"[c] f32, kv_dtype={kv_dtype}: greedy tokens card {gpu32} cpu {cpu32}")
+        log(f"[c] f32, kv_dtype={kv_dtype}: greedy tokens card {gpu32} cpu {cpu32}; "
+            f"launches by kernel {by_kernel}")
         if gpu32 != cpu32:
             raise AssertionError(f"kv_dtype={kv_dtype}: f32 greedy tokens on the card "
                                  "differ from the CPU plain path")
+        route = pa.ROUTES[(torch.float32, kind)]
+        if pa.design(route) != "scalar" or by_kernel[route] <= 0 or any(
+                n for k, n in by_kernel.items() if k != route):
+            raise AssertionError(f"kv_dtype={kv_dtype}: the f32 run launched {by_kernel}, "
+                                 f"expected {route} (the scalar design) only")
         res[kv_dtype]["f32_tokens"] = gpu32
     return res
 
@@ -517,12 +564,13 @@ def main() -> int:
     for kind, kernel in KERNEL_NAMES.items():
         rows = kern[kind]
         main_shape = rows["decode B=32 T=1 kv 128-192"]
+        route = main_shape["route"]
         lines.append({
-            "name": kernel, "route": "cuda",
-            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "name": kernel, "route": "cuda", "design": main_shape["design"],
+            "kernel": route, "source": SOURCES[main_shape["design"]],
             "replaces": "dynamo_tpu/ops/paged_attention.py:314",
             "cache": KV_DTYPES[kind],
-            "launches": serve[kind]["launches_by_kind"][kind],
+            "launches": serve[kind]["launches_by_kernel"][route],
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "err_over_limit": max(r["err_over_limit"] for r in rows.values()),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],

@@ -1,8 +1,12 @@
-// Paged attention over a block-table KV cache, for Hopper (sm_90a).
+// Paged attention over a block-table KV cache, for Hopper (sm_90a): the
+// scalar design (CUDA cores, f32 products).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel, body _kernel) for its three caches: model
-// precision (bf16/f32), int8, and packed int4. Same function: flash
+// (paged_attention_kernel, body _kernel) for its model-precision cache
+// (bf16/f32 q and cache) and for f32 q over its int8 and packed-int4
+// caches, whose products must stay f32. bf16 q over an int8 or int4 cache
+// runs the tensor-core design in paged_attention_mma.cu (its head comment
+// has the table of routes). Same function: flash
 // attention with an online softmax straight over the paged cache, no
 // gathered or widened context tensor in device memory. Query token t
 // of row b sees context position c when c <= q_start[b] + t and
@@ -347,7 +351,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it).
 // cache_kind: 0 = model precision (caches in q's dtype, scales unused),
 // 1 = int8 payload, 2 = packed-int4 uint8 payload [NB, BS, KH, D/2]; 1 and
-// 2 take f32 scales [NB, KH] for K and V.
+// 2 take f32 scales [NB, KH] for K and V and f32 q only (bf16 q over them
+// is dyn_paged_attention_mma).
 // ns == 1 writes normalised rows to `out`; ns > 1 writes each split's raw
 // (acc, m, l) and leaves `out` alone. Returns cudaGetLastError() of the
 // launch (0 = launched).
@@ -358,11 +363,13 @@ int dyn_paged_attention(int dtype, int cache_kind, const void* q, const void* k_
                         int B, int n_tok, int H, int KH, int D, int BS, int NBLK, int ns,
                         int spb, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 1)
-        return dispatch_cache<__nv_bfloat16>(cache_kind, q, k_cache, v_cache, k_scale,
-                                             v_scale, block_tables, q_start, kv_lens, out,
-                                             acc, m, l, B, n_tok, H, KH, D, BS, NBLK, ns,
-                                             spb, s);
+    if (dtype == 1) {
+        // bf16 q over an int8 / int4 cache is paged_attention_mma.cu's
+        if (cache_kind != 0) return (int)cudaErrorInvalidValue;
+        return dispatch_nch<__nv_bfloat16, FloatCache<__nv_bfloat16>>(
+            q, k_cache, v_cache, k_scale, v_scale, block_tables, q_start, kv_lens, out, acc,
+            m, l, B, n_tok, H, KH, D, BS, NBLK, ns, spb, s);
+    }
     return dispatch_cache<float>(cache_kind, q, k_cache, v_cache, k_scale, v_scale,
                                  block_tables, q_start, kv_lens, out, acc, m, l, B, n_tok,
                                  H, KH, D, BS, NBLK, ns, spb, s);

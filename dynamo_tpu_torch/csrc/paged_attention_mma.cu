@@ -1,0 +1,596 @@
+// Paged attention for bf16 queries over an int8 or a packed-int4 KV cache,
+// on Hopper's tensor cores (sm_90a).
+//
+// Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
+// (paged_attention_kernel :314, body _kernel :199) for its quantized
+// caches when q is bf16:
+//
+//   TPU kernel variant (:314)             | route here (q dtype, cache) | design
+//   model-precision cache                 | bf16/f32 q, float cache     | scalar, paged_attention.cu
+//   int8 cache (quant :201-206, :258-276) | bf16 q, int8 cache          | mma, this file
+//   packed-int4 cache (int4 :240-251)     | bf16 q, int4 cache          | mma, this file
+//   int8 / int4 cache with f32 q          | f32 q, int8 / int4 cache    | scalar, paged_attention.cu
+//
+// Same function as the TPU kernel and the scalar kernel: flash attention
+// with an online softmax straight over the paged cache. Query token t of
+// row b sees context position c when c <= q_start[b] + t and c < kv_lens[b];
+// a row whose context is all masked outputs 0; the block's f32 K scale
+// multiplies the scores after q.k and its V scale the block's p.v before it
+// joins the accumulator; split-K (gridDim.y > 1) writes each split's raw
+// f32 (acc, m, l) for the torch combine. q arrives pre-scaled by D^-0.5.
+// Payloads: int8 [NB, BS, KH, D]; int4 uint8 [NB, BS, KH, D/2], byte j
+// holding element j (low nibble) and j + D/2 (high), sign-extended.
+//
+// What bounds it on an H100: bytes. Each (row, kv head) reads its context
+// once at 1 byte (int8) or half a byte (int4) an element plus 8 bytes of
+// scales per block; the two products do ~4 operations per byte read, far
+// below the ~295 per byte at which the tensor cores would be the limit. So
+// the design keeps many loads in flight and little work per byte:
+//   - loads: the context is walked in units of 16 positions (a block is
+//     BS/16 units). Each warp copies its own units' K and V rows with
+//     16-byte cp.async (8-byte where a head's row is not a multiple of 16
+//     bytes), and the unit's two f32 scales with 4-byte ones, into a
+//     warp-private ring of kStages units in shared memory: the next
+//     kStages-1 units are in flight while one is consumed. The warp's
+//     block-table entries are read 32 at a time, one per lane;
+//   - dequant in registers, once per element, while the MMA fragments are
+//     built: int8 through an exact f32 magic-number widening (|x| <= 127
+//     fits bf16's significand, so the f32's upper half is the bf16); int4
+//     by placing the biased nibble in a bf16 mantissa and subtracting the
+//     bias, both nibbles of a byte from one load;
+//   - both products on tensor cores (mma.sync m16n8k16, bf16 in, f32
+//     accumulate): S = Q.K^T with a warp's 16 query rows on M and the
+//     unit's 16 positions on N; S's accumulator fragments are P's A
+//     fragments for O += P.V, a unit being one k-step. P enters as
+//     p = p_hi + p_lo, both bf16, two MMAs, so p keeps ~16 bits;
+//   - parallelism: one CTA of 4 warps per (row, kv head, tile of query
+//     rows, split). Decode (R = T * H/KH <= 16 rows) puts all 4 warps on
+//     the same 16 rows, each walking every 4th unit; R <= 32 puts 2 row
+//     groups of 16 in a CTA with 2 warps each, larger R 4 row groups of
+//     one warp. The warps' (acc, m, l) merge in shared memory at the end
+//     with the logsumexp merge. The wrapper (ops/paged_attention.py,
+//     mma_row_groups) picks the row groups.
+// Fragment layout: each index of a product's contraction may be permuted
+// as long as both operands agree, so each thread reads contiguous bytes of
+// a row: K bytes [tig*D/4, +D/4) (int8) or [tig*D/8, +D/8) (int4) of
+// positions gid and gid+8; V bytes [gid*D/8, +D/8) or [gid*D/16, +D/16) of
+// positions 2tig, 2tig+1, 2tig+8, 2tig+9. The output columns follow (dmap).
+//
+// Shapes: D a multiple of 16 up to 256, BS a multiple of 16 (the wrapper
+// refuses others). Built by dynamo_tpu_torch/ops/build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and called through ctypes (dyn_paged_attention_mma below).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 3;      // units in a warp's ring
+constexpr int kUnit = 16;       // context positions a unit (one MMA tile)
+constexpr int kRows = 16;       // query rows a warp holds (the MMA's M)
+constexpr int kPad = 16;        // bytes of padding after each staged row
+constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr int pow2_align(int x) {
+    return x % 16 == 0 ? 16 : x % 8 == 0 ? 8 : x % 4 == 0 ? 4 : x % 2 == 0 ? 2 : 1;
+}
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// Byte geometry of one kv head's payload row and of a thread's fragments.
+template <bool kInt4, int D>
+struct Geom {
+    static constexpr int Dp = kInt4 ? D / 2 : D;         // payload bytes of a row
+    static constexpr int SP = Dp + kPad;                  // staged row stride
+    static constexpr int CB = Dp % 16 == 0 ? 16 : 8;      // cp.async bytes
+    static constexpr int CPR = Dp / CB;                   // copies a row
+    static constexpr int KCH = kInt4 ? D / 8 : D / 4;     // K bytes a thread reads a row
+    static constexpr int VCH = kInt4 ? D / 16 : D / 8;    // V bytes a thread reads a row
+    static constexpr int NK = D / 16;                     // k-steps of q.k
+    static constexpr int NN = D / 8;                      // n-tiles of p.v
+    static constexpr int KW = (KCH + 3) / 4;
+    static constexpr int VW = (VCH + 3) / 4;
+    static constexpr int KALIGN = cmin(pow2_align(SP), pow2_align(KCH));
+    static constexpr int VALIGN = cmin(pow2_align(SP), pow2_align(VCH));
+    static constexpr int STAGE = 2 * kUnit * SP + 16;     // K rows, V rows, 2 scales
+    // merge area: element d of a row sits d / (2 VCH) words past d, and a
+    // row takes MS words, MS / 4 odd, so a warp's store of one accumulator
+    // register (rows gid, columns 2tig + e) hits 32 banks
+    static constexpr int MS0 = D + D / (2 * VCH);
+    static constexpr int MS = MS0 % 8 == 0 ? MS0 + 4 : MS0;
+};
+
+template <bool kInt4, int D>
+__device__ __forceinline__ int merge_idx(int row, int d) {
+    using G = Geom<kInt4, D>;
+    return row * G::MS + d + d / (2 * G::VCH);
+}
+
+// The head-dim element held in column n of p.v's n-tile j (the inverse of
+// the V fragment's byte choice below).
+template <bool kInt4, int D>
+__device__ __forceinline__ int dmap(int j, int n) {
+    constexpr int VCH = Geom<kInt4, D>::VCH;
+    if constexpr (kInt4)
+        return j < VCH ? n * VCH + j : D / 2 + n * VCH + (j - VCH);
+    else
+        return n * VCH + j;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(smem_addr(dst)), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                     :: "r"(smem_addr(dst)), "l"(src), "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// c += a.b: m16n8k16, a row-major bf16 (4 regs), b col-major bf16 (2 regs)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+    return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+// N bytes at p (address aligned to A) into words, byte i at bits 8*(i%4)
+// of word i/4, with the widest loads the alignment allows.
+template <int N, int A>
+__device__ __forceinline__ void load_bytes(uint32_t (&w)[(N + 3) / 4], const uint8_t* p) {
+    if constexpr (N % 16 == 0 && A % 16 == 0) {
+#pragma unroll
+        for (int i = 0; i < N / 16; ++i) {
+            const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+            w[4 * i] = v.x;
+            w[4 * i + 1] = v.y;
+            w[4 * i + 2] = v.z;
+            w[4 * i + 3] = v.w;
+        }
+    } else if constexpr (N % 8 == 0 && A % 8 == 0) {
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i) {
+            const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+            w[2 * i] = v.x;
+            w[2 * i + 1] = v.y;
+        }
+    } else if constexpr (N % 4 == 0 && A % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) w[i] = reinterpret_cast<const uint32_t*>(p)[i];
+    } else if constexpr (N % 2 == 0 && A % 2 == 0) {
+#pragma unroll
+        for (int i = 0; i < (N + 3) / 4; ++i) w[i] = 0;
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i)
+            w[i / 2] |= uint32_t(reinterpret_cast<const uint16_t*>(p)[i]) << (16 * (i % 2));
+    } else {
+#pragma unroll
+        for (int i = 0; i < (N + 3) / 4; ++i) w[i] = 0;
+#pragma unroll
+        for (int i = 0; i < N; ++i) w[i / 4] |= uint32_t(p[i]) << (8 * (i % 4));
+    }
+}
+
+template <int W>
+__device__ __forceinline__ uint32_t byte_of(const uint32_t (&w)[W], int i) {
+    return (w[i >> 2] >> ((i & 3) * 8)) & 0xFFu;
+}
+
+// f32 bits of the int8 held in byte i of x, where x is the payload word
+// XOR 0x80808080 (the byte is x + 128): 2^23 + (x + 128) - (2^23 + 128),
+// exact.
+__device__ __forceinline__ uint32_t i8_f32(uint32_t x, int i) {
+    const uint32_t u = __byte_perm(x, 0x4B000000u, 0x7440u | i);
+    return __float_as_uint(__uint_as_float(u) - 8388736.0f);
+}
+
+// bf16x2 of two f32s that bf16 holds exactly (their upper halves).
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi) {
+    return __byte_perm(lo, hi, 0x7632u);
+}
+
+// bf16x2 of two signed nibbles (the low 4 bits of n0, n1): 128 + (n ^ 8)
+// in a bf16 mantissa, minus 136, exact.
+__device__ __forceinline__ uint32_t nib_pair(uint32_t n0, uint32_t n1) {
+    const uint32_t v = ((n0 & 0xFu) | ((n1 & 0xFu) << 16)) ^ 0x43084308u;
+    return as_u32(__hsub2(as_bf162(v), as_bf162(0x43084308u)));
+}
+
+// p = hi + lo, both bf16x2, for the pair (a, b)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    hi = as_u32(h);
+    lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+template <bool kInt4, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D]
+                           const uint8_t* __restrict__ k_cache,      // [NB, BS, KH, Dp]
+                           const uint8_t* __restrict__ v_cache,      // [NB, BS, KH, Dp]
+                           const float* __restrict__ k_scale,        // [NB, KH]
+                           const float* __restrict__ v_scale,        // [NB, KH]
+                           const int32_t* __restrict__ block_tables, // [B, NBLK]
+                           const int32_t* __restrict__ q_start,      // [B]
+                           const int32_t* __restrict__ kv_lens,      // [B]
+                           __nv_bfloat16* __restrict__ out,          // [B, T, H, D] (1 split)
+                           float* __restrict__ acc_out,              // [B, NS, KH, R, D]
+                           float* __restrict__ m_out,                // [B, NS, KH, R]
+                           float* __restrict__ l_out,                // [B, NS, KH, R]
+                           int n_tok, int H, int KH, int BS, int NBLK, int spb, int n_rtiles,
+                           int RW) {
+    using G = Geom<kInt4, D>;
+    extern __shared__ __align__(16) uint8_t smem[];
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int gid = lane >> 2;  // MMA group: row gid / gid + 8, column gid
+    const int tig = lane & 3;   // thread in group
+    const int rep = H / KH;
+    const int R = n_tok * rep;
+    const int rtile = blockIdx.x % n_rtiles;
+    const int kh = (blockIdx.x / n_rtiles) % KH;
+    const int b = blockIdx.x / (n_rtiles * KH);
+    const int split = blockIdx.y;
+    const int ns = gridDim.y;
+    const int rg = warp % RW;        // the warp's row group
+    const int pl = warp / RW;        // its place among the row group's walkers
+    const int PW = kWarps / RW;      // walkers of a row group
+    const int row0 = (rtile * RW + rg) * kRows;
+    const int qs = q_start[b];
+    const int kv_len = kv_lens[b];
+
+    // Q's A fragments for every k-step, rows gid (half 0) and gid + 8 (half 1)
+    int qpos[2];  // query position of the row; -1 past the last row
+    uint32_t qa[G::NK][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int r = row0 + gid + 8 * half;
+        qpos[half] = r < R ? qs + r / rep : -1;
+        const __nv_bfloat16* qrow =
+            r < R ? q + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D : nullptr;
+#pragma unroll
+        for (int kk = 0; kk < G::NK; ++kk) {
+            uint32_t lo = 0, hi = 0;  // k 2tig, 2tig+1 and 2tig+8, 2tig+9
+            if (qrow != nullptr) {
+                if constexpr (kInt4) {
+                    const int d0 = tig * G::KCH + 2 * kk;
+                    lo = *reinterpret_cast<const uint32_t*>(qrow + d0);
+                    hi = *reinterpret_cast<const uint32_t*>(qrow + D / 2 + d0);
+                } else {
+                    const uint2 v =
+                        *reinterpret_cast<const uint2*>(qrow + tig * G::KCH + 4 * kk);
+                    lo = v.x;
+                    hi = v.y;
+                }
+            }
+            qa[kk][half] = lo;
+            qa[kk][2 + half] = hi;
+        }
+    }
+
+    // Units this warp walks: the split's blocks, cut at the row's last used
+    // block (ragged early exit) and at the row group's last visible
+    // position; every PW-th unit from the warp's place.
+    const int U = BS / kUnit;
+    const int u_begin = split * spb * U;
+    int u_end = u_begin;
+    const int last_row = min(row0 + kRows, R) - 1;
+    if (last_row >= row0) {
+        const int used_blocks = min((kv_len + BS - 1) / BS, NBLK);
+        const int g_end = min(used_blocks, (split + 1) * spb);
+        const int vis_end = min(kv_len, qs + last_row / rep + 1);
+        u_end = min(g_end * U, (vis_end + kUnit - 1) / kUnit);
+    }
+    const int n_my = u_end > u_begin + pl ? (u_end - u_begin - pl + PW - 1) / PW : 0;
+
+    uint8_t* ring = smem + (size_t)warp * kStages * G::STAGE;
+    const size_t row_stride = (size_t)KH * G::Dp;
+    const int32_t* bt_row = block_tables + (size_t)b * NBLK;
+    int blk_vec = 0;  // block of the warp's unit (32-aligned base) + lane
+
+    // copy the warp's unit i (K rows, V rows, scales) into stage i % kStages
+    auto issue = [&](int i) {
+        if (i % 32 == 0) {
+            const int ii = i + lane;
+            blk_vec = ii < n_my ? bt_row[(u_begin + pl + ii * PW) / U] : 0;
+        }
+        const int u = u_begin + pl + i * PW;
+        const int blk = __shfl_sync(kFull, blk_vec, i % 32);
+        uint8_t* st = ring + (i % kStages) * G::STAGE;
+        const size_t base = ((size_t)blk * BS + (size_t)(u % U) * kUnit) * row_stride
+                            + (size_t)kh * G::Dp;
+        for (int c = lane; c < kUnit * G::CPR; c += 32) {
+            const int row = c / G::CPR;
+            const int ch = c % G::CPR;
+            const size_t src = base + row * row_stride + ch * G::CB;
+            cp_async<G::CB>(st + row * G::SP + ch * G::CB, k_cache + src);
+            cp_async<G::CB>(st + (kUnit + row) * G::SP + ch * G::CB, v_cache + src);
+        }
+        if (lane < 2)
+            cp_async<4>(st + 2 * kUnit * G::SP + 4 * lane,
+                        (lane == 0 ? k_scale : v_scale) + (size_t)blk * KH + kh);
+    };
+
+    float acc[G::NN][4];
+#pragma unroll
+    for (int j = 0; j < G::NN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad at the end
+
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < n_my) issue(s);
+        cp_async_commit();
+    }
+    for (int i = 0; i < n_my; ++i) {
+        if (i + kStages - 1 < n_my) issue(i + kStages - 1);
+        cp_async_commit();
+        cp_async_wait<kStages - 1>();  // unit i has landed
+        __syncwarp();
+        const uint8_t* st = ring + (i % kStages) * G::STAGE;
+        const float ks = reinterpret_cast<const float*>(st + 2 * kUnit * G::SP)[0];
+        const float vs = reinterpret_cast<const float*>(st + 2 * kUnit * G::SP)[1];
+        const int pos0 = (u_begin + pl + i * PW) * kUnit;
+
+        // S = Q.K^T: n-tile n holds positions 8n + gid
+        float s[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+            uint32_t kw[G::KW];
+            load_bytes<G::KCH, G::KALIGN>(kw, st + (gid + 8 * n) * G::SP + tig * G::KCH);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < G::NK; ++kk) {
+                uint32_t b0, b1;
+                if constexpr (kInt4) {
+                    const uint32_t x0 = byte_of(kw, 2 * kk);
+                    const uint32_t x1 = byte_of(kw, 2 * kk + 1);
+                    b0 = nib_pair(x0, x1);
+                    b1 = nib_pair(x0 >> 4, x1 >> 4);
+                } else {
+                    const uint32_t x = kw[kk] ^ 0x80808080u;
+                    b0 = bf16_pair(i8_f32(x, 0), i8_f32(x, 1));
+                    b1 = bf16_pair(i8_f32(x, 2), i8_f32(x, 3));
+                }
+                mma_bf16(s[n], qa[kk], b0, b1);
+            }
+        }
+
+        // online softmax; s[n][e] is row gid + 8*(e>>1), position
+        // pos0 + 8n + 2tig + (e&1)
+        float mx[2] = {kNegInf, kNegInf};
+        bool vis[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1;
+                const int pos = pos0 + 8 * n + 2 * tig + (e & 1);
+                vis[n][e] = pos <= qpos[h] && pos < kv_len;
+                s[n][e] = vis[n][e] ? s[n][e] * ks : kNegInf;
+                mx[h] = fmaxf(mx[h], s[n][e]);
+            }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+            const float m_new = fmaxf(m[h], mx[h]);
+            alpha[h] = expf(m[h] - m_new);
+            m[h] = m_new;
+            l[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1;
+                s[n][e] = vis[n][e] ? expf(s[n][e] - m[h]) : 0.f;
+                l[h] += s[n][e];
+            }
+        uint32_t p_hi[4], p_lo[4];  // P's A fragments: S's accumulators
+        split_bf16(s[0][0], s[0][1], p_hi[0], p_lo[0]);
+        split_bf16(s[0][2], s[0][3], p_hi[1], p_lo[1]);
+        split_bf16(s[1][0], s[1][1], p_hi[2], p_lo[2]);
+        split_bf16(s[1][2], s[1][3], p_hi[3], p_lo[3]);
+
+        // O = O * alpha + (P.V) * vs, n-tile j by n-tile j
+        uint32_t vw[4][G::VW];  // positions 2tig, 2tig+1, 2tig+8, 2tig+9
+#pragma unroll
+        for (int i4 = 0; i4 < 4; ++i4) {
+            const int row = 2 * tig + (i4 & 1) + 8 * (i4 >> 1);
+            load_bytes<G::VCH, G::VALIGN>(vw[i4], st + (kUnit + row) * G::SP + gid * G::VCH);
+            if constexpr (!kInt4) {
+#pragma unroll
+                for (int w = 0; w < G::VW; ++w) vw[i4][w] ^= 0x80808080u;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < G::NN; ++j) {
+            uint32_t b0, b1;
+            if constexpr (kInt4) {
+                const int jj = j < G::VCH ? j : j - G::VCH;
+                const int sh = j < G::VCH ? 0 : 4;
+                b0 = nib_pair(byte_of(vw[0], jj) >> sh, byte_of(vw[1], jj) >> sh);
+                b1 = nib_pair(byte_of(vw[2], jj) >> sh, byte_of(vw[3], jj) >> sh);
+            } else {
+                b0 = bf16_pair(i8_f32(vw[0][j >> 2], j & 3), i8_f32(vw[1][j >> 2], j & 3));
+                b1 = bf16_pair(i8_f32(vw[2][j >> 2], j & 3), i8_f32(vw[3][j >> 2], j & 3));
+            }
+            float pv[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(pv, p_hi, b0, b1);
+            mma_bf16(pv, p_lo, b0, b1);
+            acc[j][0] = fmaf(acc[j][0], alpha[0], pv[0] * vs);
+            acc[j][1] = fmaf(acc[j][1], alpha[0], pv[1] * vs);
+            acc[j][2] = fmaf(acc[j][2], alpha[1], pv[2] * vs);
+            acc[j][3] = fmaf(acc[j][3], alpha[1], pv[3] * vs);
+        }
+        __syncwarp();  // the stage is consumed before it is refilled
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(kFull, l[h], 1);
+        l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    }
+
+    // merge the walkers of each row group (the rings are free now)
+    __syncthreads();
+    float* sm_acc = reinterpret_cast<float*>(smem);   // [kWarps][16][MS]
+    float* sm_m = sm_acc + kWarps * kRows * G::MS;     // [kWarps][16]
+    float* sm_l = sm_m + kWarps * kRows;               // [kWarps][16]
+#pragma unroll
+    for (int j = 0; j < G::NN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int row = gid + 8 * (e >> 1);
+            sm_acc[merge_idx<kInt4, D>(warp * kRows + row, dmap<kInt4, D>(j, 2 * tig + (e & 1)))] =
+                acc[j][e];
+        }
+    if (tig == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            sm_m[warp * kRows + gid + 8 * h] = m[h];
+            sm_l[warp * kRows + gid + 8 * h] = l[h];
+        }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < RW * kRows * D; e += kThreads) {
+        const int d = e % D;
+        const int lr = (e / D) % kRows;
+        const int g = e / (kRows * D);
+        const int r = (rtile * RW + g) * kRows + lr;
+        if (r >= R) continue;
+        float M = kNegInf;
+        for (int p = 0; p < PW; ++p) M = fmaxf(M, sm_m[(g + RW * p) * kRows + lr]);
+        float L = 0.f, O = 0.f;
+        for (int p = 0; p < PW; ++p) {
+            const int w = g + RW * p;
+            const float wt = expf(sm_m[w * kRows + lr] - M);
+            L += wt * sm_l[w * kRows + lr];
+            O += wt * sm_acc[merge_idx<kInt4, D>(w * kRows + lr, d)];
+        }
+        if (ns == 1) {
+            const int h = kh * rep + r % rep;
+            out[(((size_t)b * n_tok + r / rep) * H + h) * D + d] =
+                __float2bfloat16(O / (L == 0.f ? 1.f : L));  // all-masked rows -> 0
+        } else {
+            const size_t srow = (((size_t)b * ns + split) * KH + kh) * R + r;
+            acc_out[srow * D + d] = O;
+            if (d == 0) {
+                m_out[srow] = M;
+                l_out[srow] = L;
+            }
+        }
+    }
+}
+
+template <bool kInt4, int D>
+int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+           const int32_t* bt, const int32_t* qs, const int32_t* kl, void* out, float* acc,
+           float* m, float* l, int B, int n_tok, int H, int KH, int BS, int NBLK, int ns,
+           int spb, int RW, cudaStream_t stream) {
+    using G = Geom<kInt4, D>;
+    const int R = n_tok * (H / KH);
+    const int n_rtiles = (R + kRows * RW - 1) / (kRows * RW);
+    const size_t ring = (size_t)kWarps * kStages * G::STAGE;
+    const size_t merge = sizeof(float) * ((size_t)kWarps * kRows * G::MS + 2 * kWarps * kRows);
+    const size_t smem = ring > merge ? ring : merge;
+    auto kernel = paged_attention_mma_kernel<kInt4, D>;
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    dim3 grid((unsigned)(B * KH * n_rtiles), (unsigned)ns);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
+        static_cast<const uint8_t*>(v), ks, vs, bt, qs, kl, static_cast<__nv_bfloat16*>(out),
+        acc, m, l, n_tok, H, KH, BS, NBLK, spb, n_rtiles, RW);
+    return (int)cudaGetLastError();
+}
+
+template <bool kInt4>
+int dispatch_d(int D, const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, const int32_t* bt, const int32_t* qs, const int32_t* kl,
+               void* out, float* acc, float* m, float* l, int B, int n_tok, int H, int KH,
+               int BS, int NBLK, int ns, int spb, int RW, cudaStream_t stream) {
+    switch (D) {
+#define DYN_MMA_D(N)                                                                         \
+    case N:                                                                                  \
+        return launch<kInt4, N>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, KH, \
+                                BS, NBLK, ns, spb, RW, stream);
+        DYN_MMA_D(16) DYN_MMA_D(32) DYN_MMA_D(48) DYN_MMA_D(64)
+        DYN_MMA_D(80) DYN_MMA_D(96) DYN_MMA_D(112) DYN_MMA_D(128)
+        DYN_MMA_D(144) DYN_MMA_D(160) DYN_MMA_D(176) DYN_MMA_D(192)
+        DYN_MMA_D(208) DYN_MMA_D(224) DYN_MMA_D(240) DYN_MMA_D(256)
+#undef DYN_MMA_D
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 q and out. cache_kind: 1 = int8 payload [NB, BS, KH, D], 2 = packed
+// int4 uint8 payload [NB, BS, KH, D/2]; f32 scales [NB, KH] for K and V.
+// D a multiple of 16 up to 256, BS a multiple of 16; RW = row groups of 16
+// query rows a CTA holds (1, 2 or 4). ns == 1 writes normalised rows to
+// `out`; ns > 1 writes each split's raw (acc, m, l) and leaves `out` alone.
+// Returns cudaGetLastError() of the launch (0 = launched).
+int dyn_paged_attention_mma(int cache_kind, const void* q, const void* k_cache,
+                            const void* v_cache, const float* k_scale, const float* v_scale,
+                            const int32_t* block_tables, const int32_t* q_start,
+                            const int32_t* kv_lens, void* out, float* acc, float* m, float* l,
+                            int B, int n_tok, int H, int KH, int D, int BS, int NBLK, int ns,
+                            int spb, int RW, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (BS % kUnit != 0 || !(RW == 1 || RW == 2 || RW == 4)) return (int)cudaErrorInvalidValue;
+    if (cache_kind == 1)
+        return dispatch_d<false>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables,
+                                 q_start, kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK,
+                                 ns, spb, RW, s);
+    if (cache_kind == 2)
+        return dispatch_d<true>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables,
+                                q_start, kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK,
+                                ns, spb, RW, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -26,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: every kernel source of the package (``csrc/<name>.cu``)
-KERNELS = ("paged_attention",)
+KERNELS = ("paged_attention", "paged_attention_mma")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

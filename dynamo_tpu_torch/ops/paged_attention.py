@@ -1,14 +1,17 @@
 """Paged attention over a block-table KV cache: the hand-written CUDA
-kernel (``csrc/paged_attention.cu``), its plain PyTorch version, the
-split-K sizing and the int4 nibble packing.
+kernels (``csrc/paged_attention.cu``, ``csrc/paged_attention_mma.cu``),
+their plain PyTorch version, the split-K sizing and the int4 nibble packing.
 
 Port of ``dynamo_tpu/ops/paged_attention.py`` (``paged_attention_kernel``)
 for its three caches: model precision (bf16/f32 tensor ``[NB, BS, KH, D]``),
 int8 (``{"q": int8 [NB, BS, KH, D], "s": f32 [NB, KH]}``) and packed int4
 (``{"q": uint8 [NB, BS, KH, D/2], "s": f32 [NB, KH]}``); the payload dtype
 is the variant marker, as in JAX. :func:`paged_attention` is the one entry:
-on a CUDA tensor it launches the kernel's variant for the cache (or raises
-— there is no fallback), on a CPU tensor it runs :func:`paged_attention_plain`.
+on a CUDA tensor it launches the kernel that :data:`ROUTES` names for (q
+dtype, cache kind) — or raises, there is no fallback — and on a CPU tensor
+it runs :func:`paged_attention_plain`. Two designs: ``scalar`` (CUDA cores,
+f32 products: float caches, and f32 q over quantized caches) and ``mma``
+(tensor cores, pipelined cp.async page loads: bf16 q over int8/int4).
 
 Conventions kept from the TPU kernel, so both versions agree with it:
 - q is scaled by ``D^-0.5`` in q's own dtype before attention
@@ -36,8 +39,13 @@ _SPLIT_STATE_CAP_BYTES = 8 * 2**20
 #: so its split choice matches the JAX kernel's.
 TPU_CORE_COUNT = 8
 
-#: query rows per CUDA thread block (4 warps x 4 rows, csrc/paged_attention.cu)
+#: query rows per thread block of the scalar design (4 warps x 4 rows,
+#: csrc/paged_attention.cu)
 ROWS_PER_BLOCK = 16
+
+#: query rows one warp holds in the mma design (the MMA's M,
+#: csrc/paged_attention_mma.cu); a thread block has 4 warps
+MMA_WARP_ROWS = 16
 
 #: int4 payloads clip to ±7 (not -8): a symmetric range keeps dequant a pure
 #: scale multiply, mirroring int8's ±127.
@@ -45,6 +53,39 @@ INT4_QMAX = 7.0
 
 #: the kernel's cache variants, by the ``cache_kind`` code it takes
 CACHE_KINDS = ("float", "int8", "int4")
+
+#: (q dtype, cache kind) -> the kernel that serves it on the card; the part
+#: before "_" is its design
+ROUTES = {
+    (torch.float32, "float"): "scalar_float",
+    (torch.bfloat16, "float"): "scalar_float",
+    (torch.float32, "int8"): "scalar_int8_f32q",
+    (torch.float32, "int4"): "scalar_int4_f32q",
+    (torch.bfloat16, "int8"): "mma_int8",
+    (torch.bfloat16, "int4"): "mma_int4",
+}
+ROUTE_KERNELS = tuple(dict.fromkeys(ROUTES.values()))
+
+
+def design(route: str) -> str:
+    """``scalar`` or ``mma``: the design of a :data:`ROUTES` kernel."""
+    return route.split("_", 1)[0]
+
+
+def mma_row_groups(rows: int) -> int:
+    """Row groups of :data:`MMA_WARP_ROWS` query rows a thread block of the
+    mma design holds: decode (<= 16 rows) puts all 4 warps on one group,
+    each walking every 4th unit of the context; 2 groups of 2 warps up to
+    32 rows; else 4 groups of one warp."""
+    return 1 if rows <= MMA_WARP_ROWS else 2 if rows <= 2 * MMA_WARP_ROWS else 4
+
+
+def programs_per_row(route: str, rows: int, kv_heads: int) -> int:
+    """Thread blocks the route's kernel runs for one batch row and split:
+    kv heads x tiles of query rows."""
+    tile = (MMA_WARP_ROWS * mma_row_groups(rows) if design(route) == "mma"
+            else ROWS_PER_BLOCK)
+    return kv_heads * -(-rows // tile)
 
 
 def pack_int4(vals: torch.Tensor) -> torch.Tensor:
@@ -121,16 +162,17 @@ def resolve_num_splits(num_splits: int, *, nblk: int, batch: int,
     return max(1, min(num_splits, nblk))
 
 
-def num_splits_for(q: torch.Tensor, kv_heads: int, nblk: int,
-                   num_splits: int) -> int:
-    """The split count :func:`paged_attention` uses for these shapes. On the
-    card the parallel programs are (kv head × tile of query rows) per row
-    and the cores are its SMs; on the CPU it is the JAX kernel's choice."""
+def num_splits_for(q: torch.Tensor, kv_heads: int, nblk: int, num_splits: int,
+                   kind: str) -> int:
+    """The split count :func:`paged_attention` uses for these shapes and
+    cache kind. On the card the parallel programs per row are those of the
+    route's kernel (:func:`programs_per_row`) and the cores are its SMs; on
+    the CPU it is the JAX kernel's choice."""
     b, t, h, d = q.shape
     r = t * (h // kv_heads)
     if q.is_cuda:
         cores = torch.cuda.get_device_properties(q.device).multi_processor_count
-        chunks = kv_heads * -(-r // ROWS_PER_BLOCK)
+        chunks = programs_per_row(ROUTES[(q.dtype, kind)], r, kv_heads)
     else:
         cores, chunks = TPU_CORE_COUNT, 1
     return resolve_num_splits(num_splits, nblk=nblk, batch=b, q_chunks=chunks,
@@ -300,6 +342,15 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens) -> N
         raise ValueError(f"{h} query heads do not divide over {kh} kv heads")
     if d > 256:
         raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
+    route = ROUTES[(q.dtype, kind)]
+    if design(route) == "mma":
+        bs = kp.shape[1]
+        if d % 16 or bs % 16:
+            raise ValueError(f"the {route} kernel takes head_dim and block_size multiples "
+                             f"of 16, got head_dim {d}, block_size {bs}")
+        if any(x.data_ptr() % 16 for x in payloads):
+            raise ValueError(f"the {route} kernel copies payload rows 16 bytes at a time: "
+                             "the cache payloads must be 16-byte aligned")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be [{b}, NBLK], got {tuple(block_tables.shape)}")
     if q_start.shape != (b,) or kv_lens.shape != (b,):
@@ -311,13 +362,21 @@ def _ptr(x: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(kernel_design: str):
+    """The ctypes entry of a design: ``dyn_paged_attention`` (scalar:
+    dtype code, cache kind, ...) or ``dyn_paged_attention_mma`` (cache kind,
+    ..., row groups)."""
     from dynamo_tpu_torch.ops.build import load_library
 
-    fn = load_library("paged_attention").dyn_paged_attention
+    if kernel_design == "mma":
+        fn = load_library("paged_attention_mma").dyn_paged_attention_mma
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    else:
+        fn = load_library("paged_attention").dyn_paged_attention
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     return fn
 
 
@@ -332,17 +391,18 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
 
     ``num_splits``: 0 = auto (:func:`num_splits_for`), 1 = sequential walk,
     N = forced (clamped to NBLK). On a CUDA tensor this launches the
-    ``sm_90a`` kernel's variant for the cache and counts it in
-    ``paged_attention.launches`` and ``paged_attention.launches_by_kind``;
-    on a CPU tensor it runs :func:`paged_attention_plain`."""
+    ``sm_90a`` kernel that :data:`ROUTES` names for (q dtype, cache kind)
+    and counts it in ``paged_attention.launches_by_kernel``; on a CPU
+    tensor it runs :func:`paged_attention_plain`."""
     kind = cache_kind(k_cache)
     payload = k_cache if kind == "float" else k_cache["q"]
     nblk = block_tables.shape[1]
-    ns = num_splits_for(q, payload.shape[2], nblk, num_splits)
+    ns = num_splits_for(q, payload.shape[2], nblk, num_splits, kind)
     if not q.is_cuda:
         return paged_attention_plain(q, k_cache, v_cache, block_tables, q_start,
                                      kv_lens, num_splits=ns)
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens)
+    route = ROUTES[(q.dtype, kind)]
     b, t, h, d = q.shape
     _, bs, kh, _ = payload.shape
     r = t * (h // kh)
@@ -359,28 +419,31 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
         kp, vp, ks, vs = k_cache, v_cache, None, None
     else:
         kp, vp, ks, vs = k_cache["q"], v_cache["q"], k_cache["s"], v_cache["s"]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel_fn()(
-        1 if q.dtype == torch.bfloat16 else 0, CACHE_KINDS.index(kind),
-        _ptr(qs), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(block_tables),
-        _ptr(q_start), _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l),
-        b, t, h, kh, d, bs, nblk, ns, -(-nblk // ns), ctypes.c_void_p(stream))
+    ptrs = (_ptr(qs), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(block_tables),
+            _ptr(q_start), _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l))
+    dims = (b, t, h, kh, d, bs, nblk, ns, -(-nblk // ns))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    if design(route) == "mma":
+        rc = _kernel_fn("mma")(CACHE_KINDS.index(kind), *ptrs, *dims, mma_row_groups(r),
+                               stream)
+    else:
+        rc = _kernel_fn("scalar")(1 if q.dtype == torch.bfloat16 else 0,
+                                  CACHE_KINDS.index(kind), *ptrs, *dims, stream)
     if rc != 0:
-        raise RuntimeError(f"paged-attention kernel launch failed ({kind} cache): "
-                           f"CUDA error {rc}")
-    paged_attention.launches += 1
-    paged_attention.launches_by_kind[kind] += 1
+        raise RuntimeError(f"paged-attention kernel {route} launch failed ({kind} cache, "
+                           f"q {q.dtype}): CUDA error {rc}")
+    paged_attention.launches_by_kernel[route] += 1
     if ns == 1:
         return out
     return _rows_to_bthd(combine_splits(acc, m, l, q.dtype), t)
 
 
 def reset_launches() -> None:
-    """Set the kernel's launch counts (total and per cache kind) to 0."""
-    paged_attention.launches = 0
-    paged_attention.launches_by_kind = dict.fromkeys(CACHE_KINDS, 0)
+    """Set the kernels' launch counts to 0."""
+    paged_attention.launches_by_kernel = dict.fromkeys(ROUTE_KERNELS, 0)
 
 
-#: launches of the CUDA kernel since the counts were last set to 0: in
-#: all (``launches``) and per cache kind (``launches_by_kind``)
+#: launches of each CUDA kernel of :data:`ROUTES` since the counts were last
+#: set to 0 (``launches_by_kernel``); a total or a count per cache kind is a
+#: sum over it
 reset_launches()

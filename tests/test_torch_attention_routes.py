@@ -1,0 +1,191 @@
+"""Which paged-attention kernel serves which call, and the arithmetic the
+tensor-core design rests on, on the CPU.
+
+``ops.paged_attention.ROUTES`` maps (q dtype, cache kind) to a kernel:
+the scalar design (``csrc/paged_attention.cu``: float caches, and f32 q
+over quantized caches) or the mma design (``csrc/paged_attention_mma.cu``:
+bf16 q over int8 / packed-int4 caches). Both kernels run only on the card,
+where ``chip_smoke.py`` holds them against the plain version; here the
+route table, the input checks, the split count and the exactness argument
+of the mma design are checked:
+- int8 and int4 values widen to bf16 exactly (|x| <= 127 fits bf16's 8-bit
+  significand), including through the kernel's bit tricks;
+- P enters the MMA as p_hi + p_lo, both bf16: the product with V then
+  equals the f32 product to 2^-16 of sum |p v| (p alone as bf16 errs by
+  up to 2^-9 a weight).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu_torch.ops import paged_attention as tpa
+
+PAIRS = {
+    (torch.float32, "float"): ("scalar_float", "scalar"),
+    (torch.bfloat16, "float"): ("scalar_float", "scalar"),
+    (torch.float32, "int8"): ("scalar_int8_f32q", "scalar"),
+    (torch.float32, "int4"): ("scalar_int4_f32q", "scalar"),
+    (torch.bfloat16, "int8"): ("mma_int8", "mma"),
+    (torch.bfloat16, "int4"): ("mma_int4", "mma"),
+}
+
+
+@pytest.mark.parametrize("pair", list(PAIRS), ids=lambda p: f"{p[0]}-{p[1]}")
+def test_route_table(pair):
+    route, design = PAIRS[pair]
+    assert tpa.ROUTES[pair] == route and tpa.design(route) == design
+    assert set(tpa.ROUTES) == set(PAIRS)
+    tpa.reset_launches()
+    assert tpa.paged_attention.launches_by_kernel == dict.fromkeys(tpa.ROUTE_KERNELS, 0)
+    assert route in tpa.ROUTE_KERNELS
+
+
+def _inputs(q_dtype, kind, d, bs, kh=2, h=4, b=2, nblk=3, nb=8):
+    q = torch.zeros((b, 1, h, d), dtype=q_dtype)
+    dp = d // 2 if kind == "int4" else d
+    payload = torch.uint8 if kind == "int4" else torch.int8
+
+    def cache():
+        return {"q": torch.zeros((nb, bs, kh, dp), dtype=payload),
+                "s": torch.ones((nb, kh), dtype=torch.float32)}
+
+    bt = torch.arange(1, 1 + b * nblk, dtype=torch.int32).reshape(b, nblk)
+    qs = torch.zeros((b,), dtype=torch.int32)
+    return q, cache(), cache(), bt, qs, qs + 1
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("d,bs", [(24, 16), (40, 16), (16, 8), (64, 24)])
+def test_mma_route_refuses_shapes_it_does_not_take(kind, d, bs):
+    """bf16 q over a quantized cache needs D and BS multiples of 16 and
+    raises otherwise (never re-routes); f32 q at the same shape takes the
+    scalar route and passes."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
+    tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("d,bs", [(16, 16), (64, 16), (128, 16), (128, 32), (256, 16)])
+def test_mma_route_takes_its_shapes(kind, d, bs):
+    tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
+
+
+def test_programs_per_row():
+    # rows = T * H/KH; kv heads 8
+    for rows, mma, scalar in ((2, 8, 8), (4, 8, 8), (16, 8, 8), (32, 8, 16), (48, 8, 24),
+                              (65, 16, 40), (512, 64, 256)):
+        assert tpa.programs_per_row("mma_int8", rows, 8) == mma, rows
+        assert tpa.programs_per_row("scalar_float", rows, 8) == scalar, rows
+    assert [tpa.mma_row_groups(r) for r in (1, 16, 17, 32, 33, 512)] == [1, 1, 2, 2, 4, 4]
+
+
+# (b, t, h, kh, d, nblk): the card's split counts at the serving shapes, on
+# a stubbed 132-SM card
+SERVING = {
+    # llama-3-8b-lite decode, 32 rows: 8 programs a row fill 256 >= 132 SMs
+    "decode llama-3-8b-lite": ((32, 1, 32, 8, 128, 13), 1),
+    # bench long context: 16 rows x 8 programs = 128 < 132 -> 2 splits
+    "long context": ((16, 1, 32, 8, 128, 512), 2),
+    # prefill chunk of 128 tokens: 64 mma programs a row, no split
+    "prefill": ((32, 128, 32, 8, 128, 13), 1),
+    # tiny-real-llama decode, 4 rows x 2 programs: split to nblk / 4
+    "decode tiny-real-llama": ((4, 1, 4, 2, 16, 16), 4),
+}
+
+
+@pytest.fixture
+def card_splits(monkeypatch):
+    """num_splits_for on a stand-in for a card tensor of q's shape and
+    dtype, with the card's SM count stubbed to 132."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+
+    def splits(q, kh, nblk, num_splits, kind):
+        on_card = SimpleNamespace(shape=q.shape, dtype=q.dtype, is_cuda=True, device="cuda")
+        return tpa.num_splits_for(on_card, kh, nblk, num_splits, kind)
+    return splits
+
+
+@pytest.mark.parametrize("name", list(SERVING))
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_num_splits_for_at_the_serving_shapes(name, kind, card_splits):
+    (b, t, h, kh, d, nblk), want = SERVING[name]
+    q = torch.zeros((b, t, h, d), dtype=torch.bfloat16)
+    got = card_splits(q, kh, nblk, 0, kind)
+    assert got == want
+    programs = tpa.programs_per_row(tpa.ROUTES[(q.dtype, kind)], t * h // kh, kh)
+    assert got == tpa.resolve_num_splits(0, nblk=nblk, batch=b, q_chunks=programs,
+                                         q_tokens=t, state_rows=t * h // kh, kv_heads=kh,
+                                         head_dim=d, core_count=132)
+    # on a CPU tensor it stays the JAX kernel's choice
+    assert tpa.num_splits_for(q, kh, nblk, 0, kind) == tpa.resolve_num_splits(
+        0, nblk=nblk, batch=b, q_chunks=1, q_tokens=t, state_rows=t * h // kh,
+        kv_heads=kh, head_dim=d)
+
+
+def test_num_splits_for_counts_the_route_programs(card_splits):
+    """8 query tokens x rep 4 = 32 rows: the scalar design has 2 row tiles of
+    16 a kv head, the mma design one CTA of 2 row groups, so the mma route
+    splits further to fill the card."""
+    q32 = torch.zeros((1, 8, 32, 128), dtype=torch.float32)
+    q16 = q32.to(torch.bfloat16)
+    assert card_splits(q32, 8, 64, 0, "int8") == 9
+    assert card_splits(q16, 8, 64, 0, "int8") == 16
+    assert card_splits(q16, 8, 64, 3, "int8") == 3
+
+
+def test_int_values_widen_to_bf16_exactly():
+    i8 = torch.arange(-127, 128, dtype=torch.int32)
+    i4 = torch.arange(-8, 8, dtype=torch.int32)
+    for vals in (i8, i4):
+        assert torch.equal(vals.to(torch.bfloat16).to(torch.int32), vals)
+
+
+def _bf16_of_bits(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns (uint16) as f32 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def test_kernel_widening_bit_tricks_are_exact():
+    """The mma kernel's widening: int8 byte b -> f32 bits 0x4B000000 | (b ^
+    0x80) minus 2^23 + 128, whose upper half is the bf16; int4 nibble n ->
+    bf16 bits 0x4300 | (n ^ 8) minus 136 (the sign-extended x - ((x&8)<<1))."""
+    b = np.arange(256, dtype=np.uint32)
+    f = ((0x4B000000 | (b ^ 0x80)).view(np.float32) - np.float32(8388736.0)).astype(np.float32)
+    assert np.array_equal(f, b.astype(np.uint8).view(np.int8).astype(np.float32))
+    assert not (f.view(np.uint32) & 0xFFFF).any()  # the bf16 is the upper half, exactly
+    assert np.array_equal(_bf16_of_bits((f.view(np.uint32) >> 16).astype(np.uint16)), f)
+    n = np.arange(16, dtype=np.uint32)
+    bias = _bf16_of_bits(np.array([0x4308], np.uint16))            # 136
+    w = _bf16_of_bits((0x4300 | (n ^ 8)).astype(np.uint16)) - bias
+    assert np.array_equal(w, (n.astype(np.int64) - ((n & 8) << 1)).astype(np.float32))
+    # both nibbles of one packed byte: element d low, d + D/2 high
+    packed = torch.arange(256, dtype=torch.int32).to(torch.uint8)[:, None]
+    lo_hi = tpa.unpack_int4(packed)
+    assert np.array_equal(lo_hi[:, 0].numpy(), w[np.arange(256) & 15])
+    assert np.array_equal(lo_hi[:, 1].numpy(), w[np.arange(256) >> 4])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_p_keeps_pv_to_2_pow_minus_16(seed):
+    """A unit of 16 positions: p in [0, 1] (softmax weights) times int8 V,
+    summed in f32 as the MMA does. p as one bf16 errs by up to 2^-9 a
+    weight; p_hi + p_lo within 2^-16 of sum |p v|."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((64, 16)).astype(np.float32) * 4
+    p = torch.from_numpy(np.exp(s - s.max(axis=1, keepdims=True)))
+    v = torch.from_numpy(rng.integers(-127, 128, size=(16, 128)).astype(np.float32))
+    ref = p.double() @ v.double()
+    scale = p.double().abs() @ v.double().abs()
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    split = (hi @ v + lo @ v).double()
+    assert ((split - ref).abs() / scale).max().item() <= 2.0**-16
+    one = (hi @ v).double()
+    assert ((one - ref).abs() / scale).max().item() > 2.0**-12  # why the split is needed

@@ -252,10 +252,10 @@ def test_wrapper_on_cpu_uses_the_plain_version_and_counts_no_launch(kind):
     rng = np.random.default_rng(9)
     q, (kq, ks), (vq, vs), bt, qs, kl = _quant_case(rng, kind, 2, 4, 4, 2, 32, 16, 16, 4)
     args = (_t(q), {"q": _t(kq), "s": _t(ks)}, {"q": _t(vq), "s": _t(vs)}, _t(bt), _t(qs), _t(kl))
-    before = (tpa.paged_attention.launches, dict(tpa.paged_attention.launches_by_kind))
+    before = dict(tpa.paged_attention.launches_by_kernel)
     out = tpa.paged_attention(*args, num_splits=1)
     assert torch.equal(out, tpa.paged_attention_plain(*args, num_splits=1))
-    assert (tpa.paged_attention.launches, tpa.paged_attention.launches_by_kind) == before
+    assert tpa.paged_attention.launches_by_kernel == before
     assert tpa.cache_kind(args[1]) == kind and tpa.cache_kind(args[0]) == "float"
 
 

@@ -147,7 +147,7 @@ def test_resolve_num_splits_matches_jax():
 def test_wrapper_on_cpu_uses_the_plain_version_and_counts_no_launch():
     rng = np.random.default_rng(9)
     args = [torch.from_numpy(a) for a in _case(rng, 2, 4, 4, 2, 32, 16, 16, 4)]
-    before = tpa.paged_attention.launches
+    before = dict(tpa.paged_attention.launches_by_kernel)
     out = tpa.paged_attention(*args, num_splits=1)
     assert torch.equal(out, tpa.paged_attention_plain(*args, num_splits=1))
-    assert tpa.paged_attention.launches == before
+    assert tpa.paged_attention.launches_by_kernel == before
