@@ -1,13 +1,15 @@
 """Device time of the port's paged-attention wrapper, under two timers.
 
-    python3 attention_timing.py [--label NAME]
+    python3 attention_timing.py [--label NAME] [--cache float,int8,int4]
 
 Times ``dynamo_tpu_torch.ops.paged_attention.paged_attention`` with bf16
 queries over a bf16, an int8 and a packed-int4 cache at the five shapes of
 ``chip_smoke.py`` phase (a) that every slice of the port has run (decode,
 prefill, ragged, split-K, long context; llama-3-8b-lite attention: KH=8,
-H=32, D=128, block 16). Each case is timed by two timers, 20 calls each,
-L2 flushed before each call:
+H=32, D=128, block 16), then at decode with the two other head widths
+(D=64, KH=8, H=64; D=16, KH=2, H=4) and at phase (a)'s 8-token chunk (B=8:
+32 query rows a kv head, 2 row groups a CTA in the mma design). Each case
+is timed by two timers, 20 calls each, L2 flushed before each call:
 
 - ``ms``: a ~5 ms sleep kernel ahead of the first event keeps the card busy
   while the host enqueues the call, so this is the call's device time (the
@@ -19,8 +21,9 @@ L2 flushed before each call:
 It uses only what every slice of the port has (the wrapper, its plain
 version and ``models.llama._scatter_kv``) and imports the
 ``dynamo_tpu_torch`` beside it, so a copy placed at the root of an older
-checkout times that checkout's kernels. To compare two commits, run it in
-both on one machine, in the order old, new, new, old.
+checkout (or of a copy with an edited kernel source) times that tree's
+kernels. To compare two trees, run it in both on one machine, in the order
+old, new, new, old.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line a
 case: ``label``, ``cache``, ``shape``, ``ms``, ``ms_idle`` and
@@ -101,7 +104,8 @@ def quantize(x: torch.Tensor, kind: str, chunk_blocks: int = 128) -> dict:
 
 def shapes(device: str = "cuda") -> dict:
     """name -> (q, k, v, block_tables, q_start, kv_lens), num_splits: the
-    phase-(a) shapes of chip_smoke.py that every slice has run."""
+    five phase-(a) shapes of chip_smoke.py that every slice has run, then
+    its decode at the two other head widths."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     lens = torch.randint(128, 193, (32,), generator=gen, device=device).tolist()
@@ -115,13 +119,24 @@ def shapes(device: str = "cuda") -> dict:
         "split-K B=2 T=1 kv 2048 ns=4": (case(4, 2, 1, 128, [2047, 2047], [1, 1], device), 4),
         "long-context B=16 T=1 kv 8192 auto splits": (case(
             5, 16, 1, 512, [8191] * 16, [1] * 16, device), 0),
+        "decode D=64 KH=8 H=64 B=32 kv 128-192": (case(
+            6, 32, 1, 16, [n - 1 for n in lens], [1] * 32, device, h=64, kh=8, d=64), 0),
+        "decode D=16 KH=2 H=4 B=32 kv 128-192": (case(
+            7, 32, 1, 16, [n - 1 for n in lens], [1] * 32, device, h=4, kh=2, d=16), 0),
+        "chunk B=8 T=8 kv 8-144": (case(
+            8, 8, 8, 9, [0, 31, 64, 100, 127, 5, 77, 136], [8] * 8, device), 0),
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--label", default=ROOT.name, help="tag of every output line")
+    ap.add_argument("--cache", default=",".join(KINDS),
+                    help="comma-separated cache kinds to time (float = bf16 cache)")
     args = ap.parse_args()
+    kinds = [k for k in args.cache.split(",") if k]
+    if not set(kinds) <= set(KINDS):
+        ap.error(f"--cache takes kinds of {KINDS}, got {kinds}")
     if not torch.cuda.is_available():
         print("attention_timing: no CUDA device is available", file=sys.stderr)
         return 2
@@ -132,7 +147,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
     for name, ((q, k, v, bt, qs, kl), ns) in shapes().items():
-        for kind in KINDS:
+        for kind in kinds:
             kc, vc = (k, v) if kind == "float" else (quantize(k, kind), quantize(v, kind))
             call = (q, kc, vc, bt, qs, kl)
             ref = pa.paged_attention_plain(*call, num_splits=1).float()

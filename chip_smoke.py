@@ -6,28 +6,32 @@ Builds every CUDA kernel of the port from ``dynamo_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together), then runs, in order, and
 exits non-zero if any phase fails:
 
-(a) each kernel variant (bf16 cache, int8 cache, packed-int4 cache)
-    against its plain PyTorch version on the card, with bf16 queries at the
-    main path's shapes (llama-3-8b-lite attention: KH=8, H=32, D=128,
-    block 16) and at the long-context decode geometry of ``bench.py``
-    (B=16, kv 8192); the int8/int4 variants also at the two other head
-    widths the tensor-core design serves (D=16, KH=2, H=4: tiny-real-llama;
-    D=64, KH=8, H=64: the D=64 presets) and with f32 queries (the scalar
-    design's f32-product route); each case checks it ran the kernel
-    ``ops.paged_attention.ROUTES`` names; with kernel / plain / library
+(a) each kernel of ``ops.paged_attention.ROUTES`` against its plain
+    PyTorch version on the card: every cache (bf16, int8, packed int4)
+    with bf16 queries (the tensor-core ``mma_*`` kernels) at the main
+    path's shapes (llama-3-8b-lite attention: KH=8, H=32, D=128, block 16:
+    decode, a 128-token prefill, ragged chunks, an 8-token chunk whose 32
+    query rows make 2 row groups a CTA, split-K), at the long-context
+    decode geometry of ``bench.py`` (B=16, kv 8192) and at the two other
+    head widths the tensor-core design serves (D=16, KH=2, H=4:
+    tiny-real-llama; D=64, KH=8, H=64: the D=64 presets); and every cache
+    with f32 queries (the scalar design's f32-product ``scalar_*``
+    kernels; the float cache then holds f32). Each case checks it ran the
+    kernel its route names; with kernel / plain / library
     (``scaled_dot_product_attention`` on the pre-gathered, dequantized
-    context, a yardstick the port never calls) times and the least time
-    the card could take for the same work. The quantized content is made
-    on the card by the port's own ``_scatter_kv`` from the bf16 values, and
-    must equal, byte for byte and scale for scale, the same scatter on the
-    CPU; the quantized scatter of a prefill step is timed per cache dtype;
+    context in q's dtype, a yardstick the port never calls) times and the
+    least time the card could take for the same work. The quantized
+    content is made on the card by the port's own ``_scatter_kv`` from the
+    bf16 values, and must equal, byte for byte and scale for scale, the
+    same scatter on the CPU; the quantized scatter of a prefill step is
+    timed per cache dtype;
 (b) the port's serving path at full llama-3-8b-lite width (8 layers,
     random weights from a seed) through ``build_engine`` and
     ``AsyncTorchEngine.generate``: 32 requests, prompt 128, 64 greedy
     output tokens, once for each KV cache dtype (bfloat16, int8, int4); the
     kernel launch counts are set to 0 just before each run and read just
     after, and each run must launch its own variant only, 8 per step, through
-    its route's kernel (int8/int4: the tensor-core ``mma_*`` kernels);
+    its route's kernel (the tensor-core ``mma_*`` kernels);
 (c) coherence: the trained checkpoint ``tests/data/tiny-real-llama``
     through the port's loader and tokenizer must continue "one two three
     four" with " five six seven eight" on the card, with a bf16 and with an
@@ -38,8 +42,10 @@ exits non-zero if any phase fails:
     pipelined step loop), with a bf16 and with an int8 cache.
 
 Prints the card's name and power limit (nvidia-smi), one JSON ``kernels``
-line, and as its last line ``{"ok": true, "device": {...}}``. Without a
-CUDA card it exits non-zero and prints no result.
+line (an entry per kernel of ``ROUTES``, its launches counted in the run
+that serves its route: (b) for ``mma_*``, (c)'s f32 runs for
+``scalar_*``), and as its last line ``{"ok": true, "device": {...}}``.
+Without a CUDA card it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b) under
 ``torch.profiler`` and prints device time by kernel and the device's busy
@@ -73,11 +79,12 @@ ULP_REL, ULP_ABS = 2.0**-7, 1e-4
 CARD, CARD_BW, CARD_PEAK = "H100 80GB HBM3", 3.35e12, 989e12
 CARD_PEAK_F32 = 67e12
 
-#: the kernel's cache variants (ops.paged_attention.CACHE_KINDS), the name
-#: each carries in the kernels line, and the engine's kv_dtype that serves it
-KERNEL_NAMES = {"float": "paged_attention", "int8": "paged_attention_int8",
-                "int4": "paged_attention_int4"}
+#: the kernel's cache variants (ops.paged_attention.CACHE_KINDS) and the
+#: engine's kv_dtype that serves each with bf16 queries
 KV_DTYPES = {"float": "bfloat16", "int8": "int8", "int4": "int4"}
+#: the phase-(a) case whose numbers stand in the kernels line, by q dtype
+MAIN_CASE = {torch.bfloat16: "decode B=32 T=1 kv 128-192",
+             torch.float32: "f32 q decode B=32 T=1 kv 128-192"}
 
 
 def log(*a) -> None:
@@ -221,7 +228,7 @@ def time_scatter(gen) -> dict:
     new = torch.randn((32, 128, kh, d), generator=gen, device="cuda").to(torch.bfloat16)
     slots = (torch.arange(n, dtype=torch.int32, device="cuda") + bs).reshape(32, 128)
     res = {}
-    for kind in KERNEL_NAMES:
+    for kind in KV_DTYPES:
         if kind == "float":
             cache = torch.zeros((nb, bs, kh, d), dtype=torch.bfloat16, device="cuda")
         else:
@@ -234,7 +241,7 @@ def time_scatter(gen) -> dict:
 
 
 def phase_kernels(bw: float, peak: float) -> dict:
-    """Rows by cache kind, then by shape."""
+    """Rows by route, then by shape."""
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda")
@@ -243,30 +250,30 @@ def phase_kernels(bw: float, peak: float) -> dict:
     ragged_start = [0, 37, 5, 100, 0, 64, 15, 0]
     ragged_len = [16, 1, 11, 1, 0, 16, 1, 9]                  # row 4: kv_len 0
     decode = dict(b=32, t=1, nblk=16, q_start=[n - 1 for n in lens], q_len=[1] * 32)
-    every, quant = tuple(KERNEL_NAMES), ("int8", "int4")
-    # name: (case, num_splits, the cache kinds it runs)
+    # name: (case, num_splits); every case runs every cache kind
     cases = {
-        "decode B=32 T=1 kv 128-192": (attention_case(gen, **decode), 0, every),
+        MAIN_CASE[torch.bfloat16]: (attention_case(gen, **decode), 0),
         "prefill B=32 T=128 kv 128": (attention_case(
-            gen, 32, 128, 8, [0] * 32, [128] * 32), 0, every),
+            gen, 32, 128, 8, [0] * 32, [128] * 32), 0),
         "ragged B=8 T=16 with a zero-length row": (attention_case(
-            gen, 8, 16, 8, ragged_start, ragged_len), 0, every),
+            gen, 8, 16, 8, ragged_start, ragged_len), 0),
+        "chunk B=8 T=8 kv 8-144 (2 row groups a CTA)": (attention_case(
+            gen, 8, 8, 9, [0, 31, 64, 100, 127, 5, 77, 136], [8] * 8), 0),
         "split-K B=2 T=1 kv 2048 ns=4": (attention_case(
-            gen, 2, 1, 128, [2047, 2047], [1, 1]), 4, every),
+            gen, 2, 1, 128, [2047, 2047], [1, 1]), 4),
         "long-context B=16 T=1 kv 8192 auto splits": (attention_case(
-            gen, 16, 1, 512, [8191] * 16, [1] * 16), 0, every),
+            gen, 16, 1, 512, [8191] * 16, [1] * 16), 0),
         "decode D=16 KH=2 H=4 B=32 kv 128-192": (attention_case(
-            gen, **decode, h=4, kh=2, d=16), 0, quant),
+            gen, **decode, h=4, kh=2, d=16), 0),
         "decode D=64 KH=8 H=64 B=32 kv 128-192": (attention_case(
-            gen, **decode, h=64, kh=8, d=64), 0, quant),
-        "f32 q decode B=32 T=1 kv 128-192": (attention_case(
-            gen, **decode, q_dtype=torch.float32), 0, quant),
+            gen, **decode, h=64, kh=8, d=64), 0),
+        MAIN_CASE[torch.float32]: (attention_case(gen, **decode, q_dtype=torch.float32), 0),
     }
-    results: dict[str, dict] = {kind: {} for kind in KERNEL_NAMES}
-    for name, ((q, k, v, bt, qs, kl), ns, kinds) in cases.items():
-        for kind in kinds:
-            if kind == "float":
-                kc, vc, mism = k, v, None
+    results: dict[str, dict] = {route: {} for route in pa.ROUTE_KERNELS}
+    for name, ((q, k, v, bt, qs, kl), ns) in cases.items():
+        for kind in KV_DTYPES:
+            if kind == "float":   # a model-precision cache holds q's dtype
+                kc, vc, mism = k.to(q.dtype), v.to(q.dtype), None
             else:
                 kc, vc = quantize(k, kind), quantize(v, kind)
                 mism = [a + b for a, b in zip(scatter_mismatch(k, kc, kind),
@@ -306,7 +313,7 @@ def phase_kernels(bw: float, peak: float) -> dict:
             }
             if mism is not None:
                 row["scatter_cpu_mismatch"] = {"payload": mism[0], "scales": mism[1]}
-            log(f"[a] {KERNEL_NAMES[kind]} {name}: max_abs_err={err:.3e} (tol {TOL}); "
+            log(f"[a] {route} {name}: max_abs_err={err:.3e} (tol {TOL}); "
                 f"worst err / ({ULP_REL:g}*|ref| + {ULP_ABS:g}) = {ratio:.3f} (limit 1) "
                 + " ".join(f"{key}={row[key]}" for key in (
                     "route", "num_splits", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -315,13 +322,13 @@ def phase_kernels(bw: float, peak: float) -> dict:
                    f" card-vs-cpu scatter: {mism[0]} payload bytes, {mism[1]} scales "
                    "differ (first 128 blocks of K and V)"))
             if not (err <= TOL and ratio <= 1.0 and finite):
-                raise AssertionError(f"{KERNEL_NAMES[kind]} {name}: err {err} "
+                raise AssertionError(f"{route} {name}: err {err} "
                                      f"err/limit {ratio} finite {finite}")
             if mism is not None and any(mism):
-                raise AssertionError(f"{KERNEL_NAMES[kind]} {name}: the card's quantized "
+                raise AssertionError(f"{route} {name}: the card's quantized "
                                      f"scatter differs from the CPU's ({mism[0]} payload "
                                      f"bytes, {mism[1]} scales)")
-            results[kind][name] = row
+            results[route][name] = row
             del kc, vc, args, out, ref, outs, diffs, limit
         torch.cuda.empty_cache()
     time_scatter(gen)
@@ -529,6 +536,7 @@ def phase_coherence() -> dict:
             raise AssertionError(f"kv_dtype={kv_dtype}: the f32 run launched {by_kernel}, "
                                  f"expected {route} (the scalar design) only")
         res[kv_dtype]["f32_tokens"] = gpu32
+        res[kv_dtype]["f32_launches_by_kernel"] = by_kernel
     return res
 
 
@@ -538,6 +546,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from dynamo_tpu_torch.ops import build
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES, design
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -557,20 +566,24 @@ def main() -> int:
 
     kern = phase_kernels(bw, peak)
     profile = "--profile" in sys.argv[1:]
-    serve = {kind: phase_serve(kind, profile=profile) for kind in KERNEL_NAMES}
-    phase_coherence()
+    serve = {kind: phase_serve(kind, profile=profile) for kind in KV_DTYPES}
+    coherence = phase_coherence()
 
     lines = []
-    for kind, kernel in KERNEL_NAMES.items():
-        rows = kern[kind]
-        main_shape = rows["decode B=32 T=1 kv 128-192"]
-        route = main_shape["route"]
+    for (q_dtype, kind), route in ROUTES.items():
+        rows = kern[route]
+        main_shape = rows[MAIN_CASE[q_dtype]]
+        if q_dtype == torch.bfloat16:
+            launches, run = serve[kind]["launches_by_kernel"][route], "(b) serving"
+        else:
+            launches = coherence[KV_DTYPES[kind]]["f32_launches_by_kernel"][route]
+            run = "(c) f32 coherence"
         lines.append({
-            "name": kernel, "route": "cuda", "design": main_shape["design"],
-            "kernel": route, "source": SOURCES[main_shape["design"]],
+            "name": route, "route": "cuda", "design": design(route),
+            "source": SOURCES[design(route)],
             "replaces": "dynamo_tpu/ops/paged_attention.py:314",
-            "cache": KV_DTYPES[kind],
-            "launches": serve[kind]["launches_by_kernel"][route],
+            "q_dtype": str(q_dtype).removeprefix("torch."), "cache": KV_DTYPES[kind],
+            "launches": launches, "launched_in": run,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "err_over_limit": max(r["err_over_limit"] for r in rows.values()),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],

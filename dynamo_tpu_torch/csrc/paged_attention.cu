@@ -2,17 +2,18 @@
 // scalar design (CUDA cores, f32 products).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel, body _kernel) for its model-precision cache
-// (bf16/f32 q and cache) and for f32 q over its int8 and packed-int4
-// caches, whose products must stay f32. bf16 q over an int8 or int4 cache
-// runs the tensor-core design in paged_attention_mma.cu (its head comment
-// has the table of routes). Same function: flash
+// (paged_attention_kernel, body _kernel) for f32 q: over its f32
+// model-precision cache and over its int8 and packed-int4 caches, whose
+// products must stay f32 (f32 parity). bf16 q over any cache runs the
+// tensor-core design in paged_attention_mma.cu (its head comment has the
+// table of routes). Same function: flash
 // attention with an online softmax straight over the paged cache, no
 // gathered or widened context tensor in device memory. Query token t
 // of row b sees context position c when c <= q_start[b] + t and
-// c < kv_lens[b]; a row whose context is all masked outputs 0. q arrives
-// pre-scaled by D^-0.5 in its own dtype (the wrapper does it, as the JAX
-// wrapper does); every sum is f32.
+// c < kv_lens[b]; a row whose context is all masked outputs 0. q is
+// scaled by D^-0.5 (qscale, rounded to f32) as it is loaded, one f32
+// rounding of the product, as the JAX wrapper's multiply rounds it;
+// every sum is f32.
 //
 // Quantized caches (the TPU kernel's quant/int4 branches) keep a
 // per-(block, kv head) f32 scale beside an int payload. A cache policy
@@ -25,10 +26,10 @@
 // p.v before it joins the accumulator. The scales are looked up by the
 // physical block bt[b, g], once per context block.
 //
-// What bounds it on an H100: the bytes of K/V read (1 byte an element for
-// int8, half a byte for int4, plus 8 bytes of scales a block and head). Each context block a
-// row uses is read once per (row, kv head, tile of query rows, split); the
-// arithmetic (two length-D products per visible position) is far below
+// What bounds it on an H100: the bytes of K/V read (4 bytes an element for
+// an f32 cache, 1 for int8, half a byte for int4, plus 8 bytes of scales a
+// block and head). Each context block a row uses is read once per (row,
+// kv head, tile of query rows, split); the arithmetic (two length-D products per visible position) is far below
 // the card's FMA rate. The design keeps the reads to what the rows need:
 //   - one thread block per (row b, kv head, tile of 16 query rows, split);
 //     the TPU's sequential grid axis over context blocks becomes a loop
@@ -53,7 +54,6 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (dyn_paged_attention below).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,20 +66,14 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 // Cache policies: the payload element type, whether the cache carries
 // scales, and the load of element d of a context row as f32. `row` points
 // at the row's payload for one kv head (Dp elements: D, or D/2 for int4).
-template <typename T>
 struct FloatCache {
-    using Elem = T;
+    using Elem = float;
     static constexpr bool kQuant = false;
     static constexpr int kPack = 1;
-    __device__ static float load(const Elem* row, int d, int /*half*/) { return to_f32(row[d]); }
+    __device__ static float load(const Elem* row, int d, int /*half*/) { return row[d]; }
 };
 
 struct Int8Cache {
@@ -114,9 +108,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // NCH = ceil(D / 32): head-dim elements each lane accumulates.
-template <typename T, typename Cache, int NCH>
+template <typename Cache, int NCH>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
+paged_attention_kernel(const float* __restrict__ q,           // [B, T, H, D]
                        const typename Cache::Elem* __restrict__ k_cache,  // [NB, BS, KH, Dp]
                        const typename Cache::Elem* __restrict__ v_cache,  // [NB, BS, KH, Dp]
                        const float* __restrict__ k_scale,     // [NB, KH] (quantized)
@@ -124,12 +118,12 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
                        const int32_t* __restrict__ block_tables,  // [B, NBLK]
                        const int32_t* __restrict__ q_start,   // [B]
                        const int32_t* __restrict__ kv_lens,   // [B]
-                       T* __restrict__ out,                   // [B, T, H, D] (1 split)
+                       float* __restrict__ out,               // [B, T, H, D] (1 split)
                        float* __restrict__ acc_out,           // [B, NS, KH, R, D]
                        float* __restrict__ m_out,             // [B, NS, KH, R]
                        float* __restrict__ l_out,             // [B, NS, KH, R]
                        int n_tok, int H, int KH, int D, int BS, int NBLK,
-                       int spb, int n_rtiles) {
+                       int spb, int n_rtiles, float qscale) {
     extern __shared__ float smem[];
     float* q_s = smem;                         // [16][D]
     float* k_s = q_s + kRowsPerBlock * D;      // [BS][D + 1], padded: lane c reads row c
@@ -154,7 +148,7 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
         float val = 0.f;
         if (r < R) {
             const int h = kh * rep + r % rep;
-            val = to_f32(q[(((size_t)b * n_tok + r / rep) * H + h) * D + d]);
+            val = q[(((size_t)b * n_tok + r / rep) * H + h) * D + d] * qscale;
         }
         q_s[e] = val;
     }
@@ -267,11 +261,11 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
         if (ns == 1) {
             const float denom = l[i] == 0.f ? 1.f : l[i];  // all-masked rows -> 0
             const int h = kh * rep + r % rep;
-            T* o = out + (((size_t)b * n_tok + r / rep) * H + h) * D;
+            float* o = out + (((size_t)b * n_tok + r / rep) * H + h) * D;
 #pragma unroll
             for (int j = 0; j < NCH; ++j) {
                 const int d = lane + 32 * j;
-                if (d < D) store_out(o + d, acc[i][j] / denom);
+                if (d < D) o[d] = acc[i][j] / denom;
             }
         } else {
             const size_t srow = (((size_t)b * ns + split) * KH + kh) * R + r;
@@ -288,17 +282,17 @@ paged_attention_kernel(const T* __restrict__ q,               // [B, T, H, D]
     }
 }
 
-template <typename T, typename Cache, int NCH>
+template <typename Cache, int NCH>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int32_t* bt, const int32_t* qs, const int32_t* kl, void* out, float* acc,
            float* m, float* l, int B, int n_tok, int H, int KH, int D, int BS, int NBLK,
-           int ns, int spb, cudaStream_t stream) {
+           int ns, int spb, float qscale, cudaStream_t stream) {
     using Elem = typename Cache::Elem;
     const int R = n_tok * (H / KH);
     const int n_rtiles = (R + kRowsPerBlock - 1) / kRowsPerBlock;
     const size_t smem = sizeof(float) * ((size_t)kRowsPerBlock * D
                                          + (size_t)BS * (D + 1) + (size_t)BS * D);
-    auto kernel = paged_attention_kernel<T, Cache, NCH>;
+    auto kernel = paged_attention_kernel<Cache, NCH>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -306,21 +300,22 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     }
     dim3 grid((unsigned)(B * KH * n_rtiles), (unsigned)ns);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
-        ks, vs, bt, qs, kl, static_cast<T*>(out), acc, m, l, n_tok, H, KH, D, BS, NBLK,
-        spb, n_rtiles);
+        static_cast<const float*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+        ks, vs, bt, qs, kl, static_cast<float*>(out), acc, m, l, n_tok, H, KH, D, BS, NBLK,
+        spb, n_rtiles, qscale);
     return (int)cudaGetLastError();
 }
 
-template <typename T, typename Cache>
+template <typename Cache>
 int dispatch_nch(const void* q, const void* k, const void* v, const float* ks,
                  const float* vs, const int32_t* bt, const int32_t* qs, const int32_t* kl,
                  void* out, float* acc, float* m, float* l, int B, int n_tok, int H,
-                 int KH, int D, int BS, int NBLK, int ns, int spb, cudaStream_t stream) {
+                 int KH, int D, int BS, int NBLK, int ns, int spb, float qscale,
+                 cudaStream_t stream) {
     const int nch = (D + 31) / 32;
 #define DYN_PA_LAUNCH(N)                                                              \
-    return launch<T, Cache, N>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, \
-                               H, KH, D, BS, NBLK, ns, spb, stream)
+    return launch<Cache, N>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, \
+                            KH, D, BS, NBLK, ns, spb, qscale, stream)
     if (nch <= 1) DYN_PA_LAUNCH(1);
     if (nch <= 2) DYN_PA_LAUNCH(2);
     if (nch <= 4) DYN_PA_LAUNCH(4);
@@ -328,31 +323,31 @@ int dispatch_nch(const void* q, const void* k, const void* v, const float* ks,
 #undef DYN_PA_LAUNCH
 }
 
-template <typename T>
 int dispatch_cache(int cache_kind, const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int32_t* bt, const int32_t* qs,
                    const int32_t* kl, void* out, float* acc, float* m, float* l, int B,
                    int n_tok, int H, int KH, int D, int BS, int NBLK, int ns, int spb,
-                   cudaStream_t stream) {
+                   float qscale, cudaStream_t stream) {
 #define DYN_PA_CACHE(C)                                                                 \
-    return dispatch_nch<T, C>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, \
-                              KH, D, BS, NBLK, ns, spb, stream)
+    return dispatch_nch<C>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, KH, \
+                           D, BS, NBLK, ns, spb, qscale, stream)
+    if (cache_kind == 0) DYN_PA_CACHE(FloatCache);
     if (cache_kind == 1) DYN_PA_CACHE(Int8Cache);
     if (cache_kind == 2) DYN_PA_CACHE(Int4Cache);
-    if (cache_kind != 0) return (int)cudaErrorInvalidValue;
-    DYN_PA_CACHE(FloatCache<T>);
 #undef DYN_PA_CACHE
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out share it).
-// cache_kind: 0 = model precision (caches in q's dtype, scales unused),
-// 1 = int8 payload, 2 = packed-int4 uint8 payload [NB, BS, KH, D/2]; 1 and
-// 2 take f32 scales [NB, KH] for K and V and f32 q only (bf16 q over them
-// is dyn_paged_attention_mma).
+// dtype: 0 = float32 q and out, the only q this design takes (bf16 q over
+// any cache is dyn_paged_attention_mma; 1 = bfloat16 returns
+// cudaErrorInvalidValue). q is unscaled: the kernel multiplies it by
+// qscale = D^-0.5 rounded to f32. cache_kind: 0 = model precision (an f32
+// cache, scales unused), 1 = int8 payload, 2 = packed-int4 uint8 payload
+// [NB, BS, KH, D/2]; 1 and 2 take f32 scales [NB, KH] for K and V.
 // ns == 1 writes normalised rows to `out`; ns > 1 writes each split's raw
 // (acc, m, l) and leaves `out` alone. Returns cudaGetLastError() of the
 // launch (0 = launched).
@@ -361,18 +356,11 @@ int dyn_paged_attention(int dtype, int cache_kind, const void* q, const void* k_
                         const int32_t* block_tables, const int32_t* q_start,
                         const int32_t* kv_lens, void* out, float* acc, float* m, float* l,
                         int B, int n_tok, int H, int KH, int D, int BS, int NBLK, int ns,
-                        int spb, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) {
-        // bf16 q over an int8 / int4 cache is paged_attention_mma.cu's
-        if (cache_kind != 0) return (int)cudaErrorInvalidValue;
-        return dispatch_nch<__nv_bfloat16, FloatCache<__nv_bfloat16>>(
-            q, k_cache, v_cache, k_scale, v_scale, block_tables, q_start, kv_lens, out, acc,
-            m, l, B, n_tok, H, KH, D, BS, NBLK, ns, spb, s);
-    }
-    return dispatch_cache<float>(cache_kind, q, k_cache, v_cache, k_scale, v_scale,
-                                 block_tables, q_start, kv_lens, out, acc, m, l, B, n_tok,
-                                 H, KH, D, BS, NBLK, ns, spb, s);
+                        int spb, float qscale, void* stream) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    return dispatch_cache(cache_kind, q, k_cache, v_cache, k_scale, v_scale, block_tables,
+                          q_start, kv_lens, out, acc, m, l, B, n_tok, H, KH, D, BS, NBLK, ns,
+                          spb, qscale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

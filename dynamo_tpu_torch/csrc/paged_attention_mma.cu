@@ -1,43 +1,49 @@
-// Paged attention for bf16 queries over an int8 or a packed-int4 KV cache,
-// on Hopper's tensor cores (sm_90a).
+// Paged attention for bf16 queries over a bf16, an int8 or a packed-int4 KV
+// cache, on Hopper's tensor cores (sm_90a).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel :314, body _kernel :199) for its quantized
-// caches when q is bf16:
+// (paged_attention_kernel :314, body _kernel :199) whenever q is bf16:
 //
 //   TPU kernel variant (:314)             | route here (q dtype, cache) | design
-//   model-precision cache                 | bf16/f32 q, float cache     | scalar, paged_attention.cu
-//   int8 cache (quant :201-206, :258-276) | bf16 q, int8 cache          | mma, this file
-//   packed-int4 cache (int4 :240-251)     | bf16 q, int4 cache          | mma, this file
+//   model-precision cache                 | bf16 q, bf16 cache          | mma, this file (Bf16Cache)
+//   int8 cache (quant :201-206, :258-276) | bf16 q, int8 cache          | mma, this file (Int8Cache)
+//   packed-int4 cache (int4 :240-251)     | bf16 q, int4 cache          | mma, this file (Int4Cache)
+//   model-precision cache, f32            | f32 q, f32 cache            | scalar, paged_attention.cu
 //   int8 / int4 cache with f32 q          | f32 q, int8 / int4 cache    | scalar, paged_attention.cu
 //
 // Same function as the TPU kernel and the scalar kernel: flash attention
 // with an online softmax straight over the paged cache. Query token t of
 // row b sees context position c when c <= q_start[b] + t and c < kv_lens[b];
-// a row whose context is all masked outputs 0; the block's f32 K scale
-// multiplies the scores after q.k and its V scale the block's p.v before it
-// joins the accumulator; split-K (gridDim.y > 1) writes each split's raw
-// f32 (acc, m, l) for the torch combine. q arrives pre-scaled by D^-0.5.
-// Payloads: int8 [NB, BS, KH, D]; int4 uint8 [NB, BS, KH, D/2], byte j
-// holding element j (low nibble) and j + D/2 (high), sign-extended.
+// a row whose context is all masked outputs 0; for a quantized cache the
+// block's f32 K scale multiplies the scores after q.k and its V scale the
+// block's p.v before it joins the accumulator; split-K (gridDim.y > 1)
+// writes each split's raw f32 (acc, m, l) for the torch combine. q is
+// scaled by D^-0.5 in bf16 as it is loaded (the TPU wrapper's rounding).
+// Payloads: bf16 [NB, BS, KH, D]; int8 [NB, BS, KH, D]; int4 uint8 [NB, BS,
+// KH, D/2], byte j holding element j (low nibble) and j + D/2 (high),
+// sign-extended.
 //
 // What bounds it on an H100: bytes. Each (row, kv head) reads its context
-// once at 1 byte (int8) or half a byte (int4) an element plus 8 bytes of
-// scales per block; the two products do ~4 operations per byte read, far
-// below the ~295 per byte at which the tensor cores would be the limit. So
-// the design keeps many loads in flight and little work per byte:
+// once at 2 bytes (bf16), 1 byte (int8) or half a byte (int4) an element,
+// plus 8 bytes of scales per block for a quantized cache; the two products
+// do ~2-4 operations per byte read, far below the ~295 per byte at which
+// the tensor cores would be the limit. So the design keeps many loads in
+// flight and little work per byte:
 //   - loads: the context is walked in units of 16 positions (a block is
-//     BS/16 units). Each warp copies its own units' K and V rows with
-//     16-byte cp.async (8-byte where a head's row is not a multiple of 16
-//     bytes), and the unit's two f32 scales with 4-byte ones, into a
-//     warp-private ring of kStages units in shared memory: the next
-//     kStages-1 units are in flight while one is consumed. The warp's
-//     block-table entries are read 32 at a time, one per lane;
-//   - dequant in registers, once per element, while the MMA fragments are
-//     built: int8 through an exact f32 magic-number widening (|x| <= 127
-//     fits bf16's significand, so the f32's upper half is the bf16); int4
-//     by placing the biased nibble in a bf16 mantissa and subtracting the
-//     bias, both nibbles of a byte from one load;
+//     BS/16 units). A unit's K and V rows are copied with 16-byte cp.async
+//     (8-byte where a quantized head's row is not a multiple of 16 bytes),
+//     and a quantized unit's two f32 scales with 4-byte ones, into a ring
+//     of kStages units in shared memory: the next kStages-1 units are in
+//     flight while one is consumed. Block-table entries are read 32 at a
+//     time, one per lane;
+//   - operands: a cache policy (Bf16Cache, Int8Cache, Int4Cache below)
+//     turns staged bytes into the MMA's bf16 B fragments. bf16 rows already
+//     are the operands: ldmatrix.x4 reads K as q.k's col-major B and
+//     ldmatrix.x4.trans reads V as p.v's. int8 / int4 are widened in
+//     registers, once per element: int8 through an exact f32 magic-number
+//     widening (|x| <= 127 fits bf16's significand, so the f32's upper half
+//     is the bf16); int4 by placing the biased nibble in a bf16 mantissa and
+//     subtracting the bias, both nibbles of a byte from one load;
 //   - both products on tensor cores (mma.sync m16n8k16, bf16 in, f32
 //     accumulate): S = Q.K^T with a warp's 16 query rows on M and the
 //     unit's 16 positions on N; S's accumulator fragments are P's A
@@ -45,16 +51,24 @@
 //     p = p_hi + p_lo, both bf16, two MMAs, so p keeps ~16 bits;
 //   - parallelism: one CTA of 4 warps per (row, kv head, tile of query
 //     rows, split). Decode (R = T * H/KH <= 16 rows) puts all 4 warps on
-//     the same 16 rows, each walking every 4th unit; R <= 32 puts 2 row
-//     groups of 16 in a CTA with 2 warps each, larger R 4 row groups of
-//     one warp. The warps' (acc, m, l) merge in shared memory at the end
-//     with the logsumexp merge. The wrapper (ops/paged_attention.py,
+//     the same 16 rows, each walking every 4th unit through its own ring;
+//     R <= 32 puts 2 row groups of 16 in a CTA with 2 warps each, larger R
+//     4 row groups of one warp. There a quantized policy keeps one ring a
+//     warp, while the bf16 policy stages each unit once for the whole CTA
+//     (one ring the CTA's warps fill together, a CTA barrier before a stage
+//     is refilled) and every row group reads it: a bf16 unit is copied, not
+//     widened, so prefill's copies per (row, kv head) are the whole cost.
+//     The walkers of a row group merge their (acc, m, l) in shared memory
+//     at the end with the logsumexp merge; a warp alone on its row group
+//     writes from its registers. The wrapper (ops/paged_attention.py,
 //     mma_row_groups) picks the row groups.
-// Fragment layout: each index of a product's contraction may be permuted
-// as long as both operands agree, so each thread reads contiguous bytes of
-// a row: K bytes [tig*D/4, +D/4) (int8) or [tig*D/8, +D/8) (int4) of
-// positions gid and gid+8; V bytes [gid*D/8, +D/8) or [gid*D/16, +D/16) of
-// positions 2tig, 2tig+1, 2tig+8, 2tig+9. The output columns follow (dmap).
+// Fragment layout of the quantized policies: each index of a product's
+// contraction may be permuted as long as both operands agree, so each
+// thread reads contiguous bytes of a row: K bytes [tig*D/4, +D/4) (int8) or
+// [tig*D/8, +D/8) (int4) of positions gid and gid+8; V bytes [gid*D/8,
+// +D/8) or [gid*D/16, +D/16) of positions 2tig, 2tig+1, 2tig+8, 2tig+9.
+// The output columns follow (dmap). The bf16 policy keeps the MMA's own
+// layout (dmap is the identity).
 //
 // Shapes: D a multiple of 16 up to 256, BS a multiple of 16 (the wrapper
 // refuses others). Built by dynamo_tpu_torch/ops/build.py with
@@ -69,57 +83,21 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kStages = 3;      // units in a warp's ring
 constexpr int kUnit = 16;       // context positions a unit (one MMA tile)
 constexpr int kRows = 16;       // query rows a warp holds (the MMA's M)
 constexpr int kPad = 16;        // bytes of padding after each staged row
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
+// Units in a ring of the bf16 policy: 2 and 3 time alike at D = 16, 64 and
+// 128 on an NVIDIA H100 80GB HBM3 (700 W), 4 costs a CTA an SM at decode
+// (PERF.md, the bf16 stage count), so the smaller ring, at every D.
+constexpr int kBf16Stages = 2;
+
 constexpr int pow2_align(int x) {
     return x % 16 == 0 ? 16 : x % 8 == 0 ? 8 : x % 4 == 0 ? 4 : x % 2 == 0 ? 2 : 1;
 }
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
-
-// Byte geometry of one kv head's payload row and of a thread's fragments.
-template <bool kInt4, int D>
-struct Geom {
-    static constexpr int Dp = kInt4 ? D / 2 : D;         // payload bytes of a row
-    static constexpr int SP = Dp + kPad;                  // staged row stride
-    static constexpr int CB = Dp % 16 == 0 ? 16 : 8;      // cp.async bytes
-    static constexpr int CPR = Dp / CB;                   // copies a row
-    static constexpr int KCH = kInt4 ? D / 8 : D / 4;     // K bytes a thread reads a row
-    static constexpr int VCH = kInt4 ? D / 16 : D / 8;    // V bytes a thread reads a row
-    static constexpr int NK = D / 16;                     // k-steps of q.k
-    static constexpr int NN = D / 8;                      // n-tiles of p.v
-    static constexpr int KW = (KCH + 3) / 4;
-    static constexpr int VW = (VCH + 3) / 4;
-    static constexpr int KALIGN = cmin(pow2_align(SP), pow2_align(KCH));
-    static constexpr int VALIGN = cmin(pow2_align(SP), pow2_align(VCH));
-    static constexpr int STAGE = 2 * kUnit * SP + 16;     // K rows, V rows, 2 scales
-    // merge area: element d of a row sits d / (2 VCH) words past d, and a
-    // row takes MS words, MS / 4 odd, so a warp's store of one accumulator
-    // register (rows gid, columns 2tig + e) hits 32 banks
-    static constexpr int MS0 = D + D / (2 * VCH);
-    static constexpr int MS = MS0 % 8 == 0 ? MS0 + 4 : MS0;
-};
-
-template <bool kInt4, int D>
-__device__ __forceinline__ int merge_idx(int row, int d) {
-    using G = Geom<kInt4, D>;
-    return row * G::MS + d + d / (2 * G::VCH);
-}
-
-// The head-dim element held in column n of p.v's n-tile j (the inverse of
-// the V fragment's byte choice below).
-template <bool kInt4, int D>
-__device__ __forceinline__ int dmap(int j, int n) {
-    constexpr int VCH = Geom<kInt4, D>::VCH;
-    if constexpr (kInt4)
-        return j < VCH ? n * VCH + j : D / 2 + n * VCH + (j - VCH);
-    else
-        return n * VCH + j;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -142,6 +120,22 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane L gives the address of
+// row L%8 of matrix L/8. Thread t gets, of matrix i, row t/4, columns
+// 2(t%4), 2(t%4)+1 (ldsm_x4) or rows 2(t%4), 2(t%4)+1, column t/4
+// (ldsm_x4_trans), the lower index in the lower half.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
 }
 
 // c += a.b: m16n8k16, a row-major bf16 (4 regs), b col-major bf16 (2 regs)
@@ -232,13 +226,242 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
     lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-template <bool kInt4, int D>
+// q * D^-0.5 rounded to bf16, as the wrapper's torch multiply rounds it
+// (the bf16 x bf16 product is exact in f32, then one rounding)
+__device__ __forceinline__ uint32_t scale_pair(uint32_t u, float s) {
+    const float2 f = __bfloat1622float2(as_bf162(u));
+    return as_u32(__floats2bfloat162_rn(f.x * s, f.y * s));
+}
+
+// acc[j] = acc[j] * alpha + pv * vs for one n-tile of p.v
+__device__ __forceinline__ void accumulate(float (&acc)[4], const float (&pv)[4],
+                                           const float (&alpha)[2], float vs) {
+    acc[0] = fmaf(acc[0], alpha[0], pv[0] * vs);
+    acc[1] = fmaf(acc[1], alpha[0], pv[1] * vs);
+    acc[2] = fmaf(acc[2], alpha[1], pv[2] * vs);
+    acc[3] = fmaf(acc[3], alpha[1], pv[3] * vs);
+}
+
+// ---------------------------------------------------------------------------
+// Cache policies. Each gives a staged unit's byte geometry (K rows, V rows,
+// and for a quantized cache the block's two f32 scales), the q A-fragment
+// layout its K fragments agree with, S = Q.K^T and O += P.V over one staged
+// unit, the head-dim element of each output column (dmap) and a merge-area
+// layout free of bank conflicts.
+// ---------------------------------------------------------------------------
+
+// int8 (kInt4 false) or packed int4 (true): widened in registers.
+template <bool kInt4, int D_>
+struct QuantCache {
+    static constexpr int D = D_;
+    static constexpr bool kScaled = true;
+    static constexpr bool kSharedStage = false;
+    static constexpr int kStages = 3;
+    static constexpr int Dp = kInt4 ? D / 2 : D;         // payload bytes of a row
+    static constexpr int SP = Dp + kPad;                  // staged row stride
+    static constexpr int CB = Dp % 16 == 0 ? 16 : 8;      // cp.async bytes
+    static constexpr int CPR = Dp / CB;                   // copies a row
+    static constexpr int STAGE = 2 * kUnit * SP + 16;     // K rows, V rows, 2 scales
+    static constexpr int KCH = kInt4 ? D / 8 : D / 4;     // K bytes a thread reads a row
+    static constexpr int VCH = kInt4 ? D / 16 : D / 8;    // V bytes a thread reads a row
+    static constexpr int NK = D / 16;                     // k-steps of q.k
+    static constexpr int NN = D / 8;                      // n-tiles of p.v
+    static constexpr int KW = (KCH + 3) / 4;
+    static constexpr int VW = (VCH + 3) / 4;
+    static constexpr int KALIGN = cmin(pow2_align(SP), pow2_align(KCH));
+    static constexpr int VALIGN = cmin(pow2_align(SP), pow2_align(VCH));
+    // merge area: element d of a row sits d / (2 VCH) words past d, and a
+    // row takes MS words, MS / 4 odd, so a warp's store of one accumulator
+    // register (rows gid, columns 2tig + e) hits 32 banks
+    static constexpr int MS0 = D + D / (2 * VCH);
+    static constexpr int MS = MS0 % 8 == 0 ? MS0 + 4 : MS0;
+
+    __device__ static int merge_idx(int row, int d) { return row * MS + d + d / (2 * VCH); }
+
+    // The head-dim element held in column n of p.v's n-tile j (the inverse
+    // of the V fragment's byte choice below).
+    __device__ static int dmap(int j, int n) {
+        if constexpr (kInt4)
+            return j < VCH ? n * VCH + j : D / 2 + n * VCH + (j - VCH);
+        else
+            return n * VCH + j;
+    }
+
+    // Q's A fragments of one half (row gid or gid + 8) for every k-step,
+    // times qscale; zeros past the last row (qrow null)
+    __device__ static void load_q(uint32_t (&qa)[NK][4], const __nv_bfloat16* qrow, int half,
+                                  int tig, float qscale) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+            uint32_t lo = 0, hi = 0;  // k 2tig, 2tig+1 and 2tig+8, 2tig+9
+            if (qrow != nullptr) {
+                if constexpr (kInt4) {
+                    const int d0 = tig * KCH + 2 * kk;
+                    lo = *reinterpret_cast<const uint32_t*>(qrow + d0);
+                    hi = *reinterpret_cast<const uint32_t*>(qrow + D / 2 + d0);
+                } else {
+                    const uint2 v = *reinterpret_cast<const uint2*>(qrow + tig * KCH + 4 * kk);
+                    lo = v.x;
+                    hi = v.y;
+                }
+                lo = scale_pair(lo, qscale);
+                hi = scale_pair(hi, qscale);
+            }
+            qa[kk][half] = lo;
+            qa[kk][2 + half] = hi;
+        }
+    }
+
+    // S = Q.K^T over the staged K rows: n-tile n holds positions 8n + gid
+    __device__ static void scores(float (&s)[2][4], const uint32_t (&qa)[NK][4],
+                                  const uint8_t* kst, int lane) {
+        const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+            uint32_t kw[KW];
+            load_bytes<KCH, KALIGN>(kw, kst + (gid + 8 * n) * SP + tig * KCH);
+#pragma unroll
+            for (int kk = 0; kk < NK; ++kk) {
+                uint32_t b0, b1;
+                if constexpr (kInt4) {
+                    const uint32_t x0 = byte_of(kw, 2 * kk);
+                    const uint32_t x1 = byte_of(kw, 2 * kk + 1);
+                    b0 = nib_pair(x0, x1);
+                    b1 = nib_pair(x0 >> 4, x1 >> 4);
+                } else {
+                    const uint32_t x = kw[kk] ^ 0x80808080u;
+                    b0 = bf16_pair(i8_f32(x, 0), i8_f32(x, 1));
+                    b1 = bf16_pair(i8_f32(x, 2), i8_f32(x, 3));
+                }
+                mma_bf16(s[n], qa[kk], b0, b1);
+            }
+        }
+    }
+
+    // O = O * alpha + (P.V) * vs over the staged V rows, n-tile j by n-tile j
+    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p_hi)[4],
+                              const uint32_t (&p_lo)[4], const uint8_t* vst, int lane,
+                              const float (&alpha)[2], float vs) {
+        const int gid = lane >> 2, tig = lane & 3;
+        uint32_t vw[4][VW];  // positions 2tig, 2tig+1, 2tig+8, 2tig+9
+#pragma unroll
+        for (int i4 = 0; i4 < 4; ++i4) {
+            const int row = 2 * tig + (i4 & 1) + 8 * (i4 >> 1);
+            load_bytes<VCH, VALIGN>(vw[i4], vst + row * SP + gid * VCH);
+            if constexpr (!kInt4) {
+#pragma unroll
+                for (int w = 0; w < VW; ++w) vw[i4][w] ^= 0x80808080u;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NN; ++j) {
+            uint32_t b0, b1;
+            if constexpr (kInt4) {
+                const int jj = j < VCH ? j : j - VCH;
+                const int sh = j < VCH ? 0 : 4;
+                b0 = nib_pair(byte_of(vw[0], jj) >> sh, byte_of(vw[1], jj) >> sh);
+                b1 = nib_pair(byte_of(vw[2], jj) >> sh, byte_of(vw[3], jj) >> sh);
+            } else {
+                b0 = bf16_pair(i8_f32(vw[0][j >> 2], j & 3), i8_f32(vw[1][j >> 2], j & 3));
+                b1 = bf16_pair(i8_f32(vw[2][j >> 2], j & 3), i8_f32(vw[3][j >> 2], j & 3));
+            }
+            float p[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(p, p_hi, b0, b1);
+            mma_bf16(p, p_lo, b0, b1);
+            accumulate(acc[j], p, alpha, vs);
+        }
+    }
+};
+
+template <int D>
+using Int8Cache = QuantCache<false, D>;
+template <int D>
+using Int4Cache = QuantCache<true, D>;
+
+// bf16: staged rows are the MMA's operands, read with ldmatrix.
+template <int D_>
+struct Bf16Cache {
+    static constexpr int D = D_;
+    static constexpr bool kScaled = false;
+    static constexpr bool kSharedStage = true;
+    static constexpr int kStages = kBf16Stages;
+    static constexpr int Dp = 2 * D;             // payload bytes of a row
+    // staged row stride: SP / 16 is odd, so the 8 rows of one ldmatrix
+    // matrix fall in 8 distinct 16-byte bank groups
+    static constexpr int SP = Dp + kPad;
+    static constexpr int CB = 16;                // cp.async bytes (Dp is a multiple of 32)
+    static constexpr int CPR = Dp / CB;
+    static constexpr int STAGE = 2 * kUnit * SP;  // K rows, V rows
+    static constexpr int NK = D / 16;
+    static constexpr int NN = D / 8;
+    // merge area: MS = 8 (mod 32) words a row and rows 4-7 of each 8 one
+    // word later, so a warp's store of one accumulator register (rows gid,
+    // columns 2tig + e) hits 32 banks
+    static constexpr int MS = D + (D % 32 == 0 ? 8 : 24);
+
+    __device__ static int merge_idx(int row, int d) { return row * MS + d + ((row >> 2) & 1); }
+    __device__ static int dmap(int j, int n) { return 8 * j + n; }
+
+    __device__ static void load_q(uint32_t (&qa)[NK][4], const __nv_bfloat16* qrow, int half,
+                                  int tig, float qscale) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+            uint32_t lo = 0, hi = 0;  // k 2tig, 2tig+1 and 2tig+8, 2tig+9
+            if (qrow != nullptr) {
+                lo = scale_pair(*reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * tig),
+                                qscale);
+                hi = scale_pair(*reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig),
+                                qscale);
+            }
+            qa[kk][half] = lo;
+            qa[kk][2 + half] = hi;
+        }
+    }
+
+    // One ldmatrix.x4 a k-step: matrices (positions 0-7 | 8-15) x (dims
+    // 16kk.. | 16kk+8..), the B fragments of both n-tiles.
+    __device__ static void scores(float (&s)[2][4], const uint32_t (&qa)[NK][4],
+                                  const uint8_t* kst, int lane) {
+        const int mi = lane >> 3;
+        const uint8_t* row = kst + ((lane & 7) + 8 * (mi >> 1)) * SP + 16 * (mi & 1);
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+            uint32_t b[4];
+            ldsm_x4(b, row + 32 * kk);
+            mma_bf16(s[0], qa[kk], b[0], b[1]);
+            mma_bf16(s[1], qa[kk], b[2], b[3]);
+        }
+    }
+
+    // One ldmatrix.x4.trans a pair of n-tiles: matrices (positions 0-7 |
+    // 8-15) x (dims 8j.. | 8j+8..), V^T's B fragments of n-tiles j, j+1.
+    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p_hi)[4],
+                              const uint32_t (&p_lo)[4], const uint8_t* vst, int lane,
+                              const float (&alpha)[2], float vs) {
+        const int mi = lane >> 3;
+        const uint8_t* row = vst + ((lane & 7) + 8 * (mi & 1)) * SP + 16 * (mi >> 1);
+#pragma unroll
+        for (int j = 0; j < NN; j += 2) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, row + 16 * j);
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+                float p[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_bf16(p, p_hi, b[2 * t], b[2 * t + 1]);
+                mma_bf16(p, p_lo, b[2 * t], b[2 * t + 1]);
+                accumulate(acc[j + t], p, alpha, vs);
+            }
+        }
+    }
+};
+
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D]
                            const uint8_t* __restrict__ k_cache,      // [NB, BS, KH, Dp]
                            const uint8_t* __restrict__ v_cache,      // [NB, BS, KH, Dp]
-                           const float* __restrict__ k_scale,        // [NB, KH]
-                           const float* __restrict__ v_scale,        // [NB, KH]
+                           const float* __restrict__ k_scale,        // [NB, KH] (quantized)
+                           const float* __restrict__ v_scale,        // [NB, KH] (quantized)
                            const int32_t* __restrict__ block_tables, // [B, NBLK]
                            const int32_t* __restrict__ q_start,      // [B]
                            const int32_t* __restrict__ kv_lens,      // [B]
@@ -247,8 +470,9 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
                            float* __restrict__ m_out,                // [B, NS, KH, R]
                            float* __restrict__ l_out,                // [B, NS, KH, R]
                            int n_tok, int H, int KH, int BS, int NBLK, int spb, int n_rtiles,
-                           int RW) {
-    using G = Geom<kInt4, D>;
+                           int RW, float qscale) {
+    constexpr int D = C::D;
+    constexpr int S = C::kStages;
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int warp = threadIdx.x >> 5;
@@ -268,197 +492,163 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
     const int row0 = (rtile * RW + rg) * kRows;
     const int qs = q_start[b];
     const int kv_len = kv_lens[b];
+    // one ring for the whole CTA (bf16 with 2 or 4 row groups), else one a warp
+    const bool shared = C::kSharedStage && RW > 1;
 
     // Q's A fragments for every k-step, rows gid (half 0) and gid + 8 (half 1)
     int qpos[2];  // query position of the row; -1 past the last row
-    uint32_t qa[G::NK][4];
+    uint32_t qa[C::NK][4];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int r = row0 + gid + 8 * half;
         qpos[half] = r < R ? qs + r / rep : -1;
-        const __nv_bfloat16* qrow =
-            r < R ? q + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D : nullptr;
-#pragma unroll
-        for (int kk = 0; kk < G::NK; ++kk) {
-            uint32_t lo = 0, hi = 0;  // k 2tig, 2tig+1 and 2tig+8, 2tig+9
-            if (qrow != nullptr) {
-                if constexpr (kInt4) {
-                    const int d0 = tig * G::KCH + 2 * kk;
-                    lo = *reinterpret_cast<const uint32_t*>(qrow + d0);
-                    hi = *reinterpret_cast<const uint32_t*>(qrow + D / 2 + d0);
-                } else {
-                    const uint2 v =
-                        *reinterpret_cast<const uint2*>(qrow + tig * G::KCH + 4 * kk);
-                    lo = v.x;
-                    hi = v.y;
-                }
-            }
-            qa[kk][half] = lo;
-            qa[kk][2 + half] = hi;
-        }
+        C::load_q(qa,
+                  r < R ? q + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D
+                        : nullptr,
+                  half, tig, qscale);
     }
 
-    // Units this warp walks: the split's blocks, cut at the row's last used
-    // block (ragged early exit) and at the row group's last visible
-    // position; every PW-th unit from the warp's place.
+    // The units of rows up to last_row: the split's blocks, cut at the row's
+    // last used block (ragged early exit) and at last_row's last visible
+    // position.
     const int U = BS / kUnit;
     const int u_begin = split * spb * U;
-    int u_end = u_begin;
-    const int last_row = min(row0 + kRows, R) - 1;
-    if (last_row >= row0) {
+    auto units_end = [&](int last_row) {
         const int used_blocks = min((kv_len + BS - 1) / BS, NBLK);
         const int g_end = min(used_blocks, (split + 1) * spb);
         const int vis_end = min(kv_len, qs + last_row / rep + 1);
-        u_end = min(g_end * U, (vis_end + kUnit - 1) / kUnit);
+        return min(g_end * U, (vis_end + kUnit - 1) / kUnit);
+    };
+    auto count = [&](int end, int first) {  // units first, first + PW, ... before end
+        return end > first ? (end - first + PW - 1) / PW : 0;
+    };
+    // The warp consumes every PW-th unit of its row group from its place:
+    // unit u_begin + pl + i * PW at step i. A private ring holds only the
+    // warp's units; a shared one holds at step i units u_begin + i * PW + p
+    // (p < PW) up to the end of the CTA's last row, unit p copied by the
+    // warps with warp % PW == p.
+    const int n_my = row0 < R ? count(units_end(min(row0 + kRows, R) - 1), u_begin + pl) : 0;
+    const int pc = shared ? warp % PW : pl;  // the unit slot this warp copies
+    int n_copy = n_my, n_steps = n_my;       // units it copies, steps of the walk
+    if (shared) {
+        const int cta_end = units_end(min((rtile + 1) * RW * kRows, R) - 1);
+        n_copy = count(cta_end, u_begin + pc);
+        n_steps = count(cta_end, u_begin);
     }
-    const int n_my = u_end > u_begin + pl ? (u_end - u_begin - pl + PW - 1) / PW : 0;
+    const int c_first = shared ? (warp / PW) * 32 + lane : lane;
+    const int c_stride = shared ? 32 * RW : 32;
+    const int slot_units = shared ? PW : 1;
+    uint8_t* ring = shared ? smem : smem + (size_t)warp * S * C::STAGE;
 
-    uint8_t* ring = smem + (size_t)warp * kStages * G::STAGE;
-    const size_t row_stride = (size_t)KH * G::Dp;
+    const size_t row_stride = (size_t)KH * C::Dp;
     const int32_t* bt_row = block_tables + (size_t)b * NBLK;
-    int blk_vec = 0;  // block of the warp's unit (32-aligned base) + lane
+    int blk_vec = 0;  // block of the warp's copied unit (32-aligned base) + lane
 
-    // copy the warp's unit i (K rows, V rows, scales) into stage i % kStages
+    // copy unit u_begin + pc + i * PW (K rows, V rows, scales) into step i's stage
     auto issue = [&](int i) {
         if (i % 32 == 0) {
             const int ii = i + lane;
-            blk_vec = ii < n_my ? bt_row[(u_begin + pl + ii * PW) / U] : 0;
+            blk_vec = ii < n_copy ? bt_row[(u_begin + pc + ii * PW) / U] : 0;
         }
-        const int u = u_begin + pl + i * PW;
+        const int u = u_begin + pc + i * PW;
         const int blk = __shfl_sync(kFull, blk_vec, i % 32);
-        uint8_t* st = ring + (i % kStages) * G::STAGE;
+        uint8_t* st = ring + ((i % S) * slot_units + (shared ? pc : 0)) * C::STAGE;
         const size_t base = ((size_t)blk * BS + (size_t)(u % U) * kUnit) * row_stride
-                            + (size_t)kh * G::Dp;
-        for (int c = lane; c < kUnit * G::CPR; c += 32) {
-            const int row = c / G::CPR;
-            const int ch = c % G::CPR;
-            const size_t src = base + row * row_stride + ch * G::CB;
-            cp_async<G::CB>(st + row * G::SP + ch * G::CB, k_cache + src);
-            cp_async<G::CB>(st + (kUnit + row) * G::SP + ch * G::CB, v_cache + src);
+                            + (size_t)kh * C::Dp;
+        for (int c = c_first; c < kUnit * C::CPR; c += c_stride) {
+            const int row = c / C::CPR;
+            const int ch = c % C::CPR;
+            const size_t src = base + row * row_stride + ch * C::CB;
+            cp_async<C::CB>(st + row * C::SP + ch * C::CB, k_cache + src);
+            cp_async<C::CB>(st + (kUnit + row) * C::SP + ch * C::CB, v_cache + src);
         }
-        if (lane < 2)
-            cp_async<4>(st + 2 * kUnit * G::SP + 4 * lane,
+        if (C::kScaled && lane < 2)
+            cp_async<4>(st + 2 * kUnit * C::SP + 4 * lane,
                         (lane == 0 ? k_scale : v_scale) + (size_t)blk * KH + kh);
     };
+    // the ring's readers: the warp (private) or the CTA (shared)
+    auto sync_ring = [&]() {
+        if (shared)
+            __syncthreads();
+        else
+            __syncwarp();
+    };
 
-    float acc[G::NN][4];
+    float acc[C::NN][4];
 #pragma unroll
-    for (int j = 0; j < G::NN; ++j)
+    for (int j = 0; j < C::NN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad at the end
 
 #pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < n_my) issue(s);
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < n_copy) issue(s);
         cp_async_commit();
     }
-    for (int i = 0; i < n_my; ++i) {
-        if (i + kStages - 1 < n_my) issue(i + kStages - 1);
+    for (int i = 0; i < n_steps; ++i) {
+        if (i + S - 1 < n_copy) issue(i + S - 1);
         cp_async_commit();
-        cp_async_wait<kStages - 1>();  // unit i has landed
-        __syncwarp();
-        const uint8_t* st = ring + (i % kStages) * G::STAGE;
-        const float ks = reinterpret_cast<const float*>(st + 2 * kUnit * G::SP)[0];
-        const float vs = reinterpret_cast<const float*>(st + 2 * kUnit * G::SP)[1];
-        const int pos0 = (u_begin + pl + i * PW) * kUnit;
+        cp_async_wait<S - 1>();  // step i's unit has landed
+        sync_ring();
+        if (i < n_my) {
+            const uint8_t* st = ring + ((i % S) * slot_units + (shared ? pl : 0)) * C::STAGE;
+            float ks = 1.f, vs = 1.f;
+            if constexpr (C::kScaled) {
+                ks = reinterpret_cast<const float*>(st + 2 * kUnit * C::SP)[0];
+                vs = reinterpret_cast<const float*>(st + 2 * kUnit * C::SP)[1];
+            }
+            const int pos0 = (u_begin + pl + i * PW) * kUnit;
 
-        // S = Q.K^T: n-tile n holds positions 8n + gid
-        float s[2][4];
+            float s[2][4];
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-            uint32_t kw[G::KW];
-            load_bytes<G::KCH, G::KALIGN>(kw, st + (gid + 8 * n) * G::SP + tig * G::KCH);
+            for (int n = 0; n < 2; ++n)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+                for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+            C::scores(s, qa, st, lane);
+
+            // online softmax; s[n][e] is row gid + 8*(e>>1), position
+            // pos0 + 8n + 2tig + (e&1)
+            float mx[2] = {kNegInf, kNegInf};
+            bool vis[2][4];
 #pragma unroll
-            for (int kk = 0; kk < G::NK; ++kk) {
-                uint32_t b0, b1;
-                if constexpr (kInt4) {
-                    const uint32_t x0 = byte_of(kw, 2 * kk);
-                    const uint32_t x1 = byte_of(kw, 2 * kk + 1);
-                    b0 = nib_pair(x0, x1);
-                    b1 = nib_pair(x0 >> 4, x1 >> 4);
-                } else {
-                    const uint32_t x = kw[kk] ^ 0x80808080u;
-                    b0 = bf16_pair(i8_f32(x, 0), i8_f32(x, 1));
-                    b1 = bf16_pair(i8_f32(x, 2), i8_f32(x, 3));
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const int pos = pos0 + 8 * n + 2 * tig + (e & 1);
+                    vis[n][e] = pos <= qpos[h] && pos < kv_len;
+                    s[n][e] = vis[n][e] ? s[n][e] * ks : kNegInf;
+                    mx[h] = fmaxf(mx[h], s[n][e]);
                 }
-                mma_bf16(s[n], qa[kk], b0, b1);
+            float alpha[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+                const float m_new = fmaxf(m[h], mx[h]);
+                alpha[h] = expf(m[h] - m_new);
+                m[h] = m_new;
+                l[h] *= alpha[h];
             }
-        }
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    s[n][e] = vis[n][e] ? expf(s[n][e] - m[h]) : 0.f;
+                    l[h] += s[n][e];
+                }
+            uint32_t p_hi[4], p_lo[4];  // P's A fragments: S's accumulators
+            split_bf16(s[0][0], s[0][1], p_hi[0], p_lo[0]);
+            split_bf16(s[0][2], s[0][3], p_hi[1], p_lo[1]);
+            split_bf16(s[1][0], s[1][1], p_hi[2], p_lo[2]);
+            split_bf16(s[1][2], s[1][3], p_hi[3], p_lo[3]);
 
-        // online softmax; s[n][e] is row gid + 8*(e>>1), position
-        // pos0 + 8n + 2tig + (e&1)
-        float mx[2] = {kNegInf, kNegInf};
-        bool vis[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int h = e >> 1;
-                const int pos = pos0 + 8 * n + 2 * tig + (e & 1);
-                vis[n][e] = pos <= qpos[h] && pos < kv_len;
-                s[n][e] = vis[n][e] ? s[n][e] * ks : kNegInf;
-                mx[h] = fmaxf(mx[h], s[n][e]);
-            }
-        float alpha[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-            const float m_new = fmaxf(m[h], mx[h]);
-            alpha[h] = expf(m[h] - m_new);
-            m[h] = m_new;
-            l[h] *= alpha[h];
+            C::pv(acc, p_hi, p_lo, st + kUnit * C::SP, lane, alpha, vs);
         }
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int h = e >> 1;
-                s[n][e] = vis[n][e] ? expf(s[n][e] - m[h]) : 0.f;
-                l[h] += s[n][e];
-            }
-        uint32_t p_hi[4], p_lo[4];  // P's A fragments: S's accumulators
-        split_bf16(s[0][0], s[0][1], p_hi[0], p_lo[0]);
-        split_bf16(s[0][2], s[0][3], p_hi[1], p_lo[1]);
-        split_bf16(s[1][0], s[1][1], p_hi[2], p_lo[2]);
-        split_bf16(s[1][2], s[1][3], p_hi[3], p_lo[3]);
-
-        // O = O * alpha + (P.V) * vs, n-tile j by n-tile j
-        uint32_t vw[4][G::VW];  // positions 2tig, 2tig+1, 2tig+8, 2tig+9
-#pragma unroll
-        for (int i4 = 0; i4 < 4; ++i4) {
-            const int row = 2 * tig + (i4 & 1) + 8 * (i4 >> 1);
-            load_bytes<G::VCH, G::VALIGN>(vw[i4], st + (kUnit + row) * G::SP + gid * G::VCH);
-            if constexpr (!kInt4) {
-#pragma unroll
-                for (int w = 0; w < G::VW; ++w) vw[i4][w] ^= 0x80808080u;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < G::NN; ++j) {
-            uint32_t b0, b1;
-            if constexpr (kInt4) {
-                const int jj = j < G::VCH ? j : j - G::VCH;
-                const int sh = j < G::VCH ? 0 : 4;
-                b0 = nib_pair(byte_of(vw[0], jj) >> sh, byte_of(vw[1], jj) >> sh);
-                b1 = nib_pair(byte_of(vw[2], jj) >> sh, byte_of(vw[3], jj) >> sh);
-            } else {
-                b0 = bf16_pair(i8_f32(vw[0][j >> 2], j & 3), i8_f32(vw[1][j >> 2], j & 3));
-                b1 = bf16_pair(i8_f32(vw[2][j >> 2], j & 3), i8_f32(vw[3][j >> 2], j & 3));
-            }
-            float pv[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_bf16(pv, p_hi, b0, b1);
-            mma_bf16(pv, p_lo, b0, b1);
-            acc[j][0] = fmaf(acc[j][0], alpha[0], pv[0] * vs);
-            acc[j][1] = fmaf(acc[j][1], alpha[0], pv[1] * vs);
-            acc[j][2] = fmaf(acc[j][2], alpha[1], pv[2] * vs);
-            acc[j][3] = fmaf(acc[j][3], alpha[1], pv[3] * vs);
-        }
-        __syncwarp();  // the stage is consumed before it is refilled
+        sync_ring();  // the stage is consumed before it is refilled
     }
     cp_async_wait<0>();
 
@@ -468,18 +658,49 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
         l[h] += __shfl_xor_sync(kFull, l[h], 2);
     }
 
+    if (PW == 1) {
+        // each warp holds its row group alone: write from registers (the
+        // merge below would weigh its one walker by expf(0) = 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = row0 + gid + 8 * h;
+            if (r >= R) continue;
+            if (ns == 1) {
+                __nv_bfloat16* o =
+                    out + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D;
+                const float L = l[h] == 0.f ? 1.f : l[h];  // all-masked rows -> 0
+#pragma unroll
+                for (int j = 0; j < C::NN; ++j)
+#pragma unroll
+                    for (int e = 2 * h; e < 2 * h + 2; ++e)
+                        o[C::dmap(j, 2 * tig + (e & 1))] = __float2bfloat16(acc[j][e] / L);
+            } else {
+                const size_t srow = (((size_t)b * ns + split) * KH + kh) * R + r;
+#pragma unroll
+                for (int j = 0; j < C::NN; ++j)
+#pragma unroll
+                    for (int e = 2 * h; e < 2 * h + 2; ++e)
+                        acc_out[srow * D + C::dmap(j, 2 * tig + (e & 1))] = acc[j][e];
+                if (tig == 0) {
+                    m_out[srow] = m[h];
+                    l_out[srow] = l[h];
+                }
+            }
+        }
+        return;
+    }
+
     // merge the walkers of each row group (the rings are free now)
     __syncthreads();
     float* sm_acc = reinterpret_cast<float*>(smem);   // [kWarps][16][MS]
-    float* sm_m = sm_acc + kWarps * kRows * G::MS;     // [kWarps][16]
+    float* sm_m = sm_acc + kWarps * kRows * C::MS;     // [kWarps][16]
     float* sm_l = sm_m + kWarps * kRows;               // [kWarps][16]
 #pragma unroll
-    for (int j = 0; j < G::NN; ++j)
+    for (int j = 0; j < C::NN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int row = gid + 8 * (e >> 1);
-            sm_acc[merge_idx<kInt4, D>(warp * kRows + row, dmap<kInt4, D>(j, 2 * tig + (e & 1)))] =
-                acc[j][e];
+            sm_acc[C::merge_idx(warp * kRows + row, C::dmap(j, 2 * tig + (e & 1)))] = acc[j][e];
         }
     if (tig == 0) {
 #pragma unroll
@@ -502,7 +723,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
             const int w = g + RW * p;
             const float wt = expf(sm_m[w * kRows + lr] - M);
             L += wt * sm_l[w * kRows + lr];
-            O += wt * sm_acc[merge_idx<kInt4, D>(w * kRows + lr, d)];
+            O += wt * sm_acc[C::merge_idx(w * kRows + lr, d)];
         }
         if (ns == 1) {
             const int h = kh * rep + r % rep;
@@ -519,18 +740,19 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
     }
 }
 
-template <bool kInt4, int D>
+template <class C>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int32_t* bt, const int32_t* qs, const int32_t* kl, void* out, float* acc,
            float* m, float* l, int B, int n_tok, int H, int KH, int BS, int NBLK, int ns,
-           int spb, int RW, cudaStream_t stream) {
-    using G = Geom<kInt4, D>;
+           int spb, int RW, float qscale, cudaStream_t stream) {
     const int R = n_tok * (H / KH);
     const int n_rtiles = (R + kRows * RW - 1) / (kRows * RW);
-    const size_t ring = (size_t)kWarps * kStages * G::STAGE;
-    const size_t merge = sizeof(float) * ((size_t)kWarps * kRows * G::MS + 2 * kWarps * kRows);
+    const int rings = C::kSharedStage && RW > 1 ? kWarps / RW : kWarps;  // units a step
+    const size_t ring = (size_t)rings * C::kStages * C::STAGE;
+    const size_t merge = RW == kWarps ? 0  // one walker a row group: no merge
+                         : sizeof(float) * ((size_t)kWarps * kRows * C::MS + 2 * kWarps * kRows);
     const size_t smem = ring > merge ? ring : merge;
-    auto kernel = paged_attention_mma_kernel<kInt4, D>;
+    auto kernel = paged_attention_mma_kernel<C>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -540,20 +762,20 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
         static_cast<const uint8_t*>(v), ks, vs, bt, qs, kl, static_cast<__nv_bfloat16*>(out),
-        acc, m, l, n_tok, H, KH, BS, NBLK, spb, n_rtiles, RW);
+        acc, m, l, n_tok, H, KH, BS, NBLK, spb, n_rtiles, RW, qscale);
     return (int)cudaGetLastError();
 }
 
-template <bool kInt4>
+template <template <int> class Policy>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const float* ks,
                const float* vs, const int32_t* bt, const int32_t* qs, const int32_t* kl,
                void* out, float* acc, float* m, float* l, int B, int n_tok, int H, int KH,
-               int BS, int NBLK, int ns, int spb, int RW, cudaStream_t stream) {
+               int BS, int NBLK, int ns, int spb, int RW, float qscale, cudaStream_t stream) {
     switch (D) {
-#define DYN_MMA_D(N)                                                                         \
-    case N:                                                                                  \
-        return launch<kInt4, N>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, KH, \
-                                BS, NBLK, ns, spb, RW, stream);
+#define DYN_MMA_D(N)                                                                       \
+    case N:                                                                                \
+        return launch<Policy<N>>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, \
+                                 KH, BS, NBLK, ns, spb, RW, qscale, stream);
         DYN_MMA_D(16) DYN_MMA_D(32) DYN_MMA_D(48) DYN_MMA_D(64)
         DYN_MMA_D(80) DYN_MMA_D(96) DYN_MMA_D(112) DYN_MMA_D(128)
         DYN_MMA_D(144) DYN_MMA_D(160) DYN_MMA_D(176) DYN_MMA_D(192)
@@ -568,8 +790,11 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const float* 
 
 extern "C" {
 
-// bf16 q and out. cache_kind: 1 = int8 payload [NB, BS, KH, D], 2 = packed
-// int4 uint8 payload [NB, BS, KH, D/2]; f32 scales [NB, KH] for K and V.
+// bf16 q (unscaled: the kernel multiplies it by qscale = D^-0.5 rounded to
+// bf16, rounding the product to bf16) and out. cache_kind: 0 = bf16
+// payload [NB, BS, KH, D] (scales
+// unused), 1 = int8 payload [NB, BS, KH, D], 2 = packed int4 uint8 payload
+// [NB, BS, KH, D/2]; 1 and 2 take f32 scales [NB, KH] for K and V.
 // D a multiple of 16 up to 256, BS a multiple of 16; RW = row groups of 16
 // query rows a CTA holds (1, 2 or 4). ns == 1 writes normalised rows to
 // `out`; ns > 1 writes each split's raw (acc, m, l) and leaves `out` alone.
@@ -579,17 +804,17 @@ int dyn_paged_attention_mma(int cache_kind, const void* q, const void* k_cache,
                             const int32_t* block_tables, const int32_t* q_start,
                             const int32_t* kv_lens, void* out, float* acc, float* m, float* l,
                             int B, int n_tok, int H, int KH, int D, int BS, int NBLK, int ns,
-                            int spb, int RW, void* stream) {
+                            int spb, int RW, float qscale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (BS % kUnit != 0 || !(RW == 1 || RW == 2 || RW == 4)) return (int)cudaErrorInvalidValue;
-    if (cache_kind == 1)
-        return dispatch_d<false>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables,
-                                 q_start, kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK,
-                                 ns, spb, RW, s);
-    if (cache_kind == 2)
-        return dispatch_d<true>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables,
-                                q_start, kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK,
-                                ns, spb, RW, s);
+#define DYN_MMA_CACHE(P)                                                                   \
+    return dispatch_d<P>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables, q_start, \
+                         kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK, ns, spb, RW,    \
+                         qscale, s)
+    if (cache_kind == 0) DYN_MMA_CACHE(Bf16Cache);
+    if (cache_kind == 1) DYN_MMA_CACHE(Int8Cache);
+    if (cache_kind == 2) DYN_MMA_CACHE(Int4Cache);
+#undef DYN_MMA_CACHE
     return (int)cudaErrorInvalidValue;
 }
 

@@ -9,14 +9,15 @@ int8 (``{"q": int8 [NB, BS, KH, D], "s": f32 [NB, KH]}``) and packed int4
 is the variant marker, as in JAX. :func:`paged_attention` is the one entry:
 on a CUDA tensor it launches the kernel that :data:`ROUTES` names for (q
 dtype, cache kind) — or raises, there is no fallback — and on a CPU tensor
-it runs :func:`paged_attention_plain`. Two designs: ``scalar`` (CUDA cores,
-f32 products: float caches, and f32 q over quantized caches) and ``mma``
-(tensor cores, pipelined cp.async page loads: bf16 q over int8/int4).
+it runs :func:`paged_attention_plain`. Two designs: ``mma`` (tensor cores,
+pipelined cp.async page loads: bf16 q over every cache) and ``scalar`` (CUDA
+cores, f32 products: f32 q over every cache, for f32 parity).
 
 Conventions kept from the TPU kernel, so both versions agree with it:
 - q is scaled by ``D^-0.5`` in q's own dtype before attention
-  (:func:`scale_query`), not in f32 as the dense path of ``models/llama``
-  does — in bf16 the two differ by a rounding;
+  (:func:`scale_query`; both kernels do the same rounded multiply as they
+  load q), not in f32 as the dense path of ``models/llama`` does — in bf16
+  the two differ by a rounding;
 - a row whose context is all masked outputs 0;
 - split-K emits each split's f32 ``(acc, m, l)`` and
   :func:`combine_splits` merges them outside the kernel.
@@ -57,12 +58,12 @@ CACHE_KINDS = ("float", "int8", "int4")
 #: (q dtype, cache kind) -> the kernel that serves it on the card; the part
 #: before "_" is its design
 ROUTES = {
-    (torch.float32, "float"): "scalar_float",
-    (torch.bfloat16, "float"): "scalar_float",
-    (torch.float32, "int8"): "scalar_int8_f32q",
-    (torch.float32, "int4"): "scalar_int4_f32q",
+    (torch.bfloat16, "float"): "mma_bf16",
     (torch.bfloat16, "int8"): "mma_int8",
     (torch.bfloat16, "int4"): "mma_int4",
+    (torch.float32, "float"): "scalar_float",
+    (torch.float32, "int8"): "scalar_int8_f32q",
+    (torch.float32, "int4"): "scalar_int4_f32q",
 }
 ROUTE_KERNELS = tuple(dict.fromkeys(ROUTES.values()))
 
@@ -348,9 +349,9 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens) -> N
         if d % 16 or bs % 16:
             raise ValueError(f"the {route} kernel takes head_dim and block_size multiples "
                              f"of 16, got head_dim {d}, block_size {bs}")
-        if any(x.data_ptr() % 16 for x in payloads):
-            raise ValueError(f"the {route} kernel copies payload rows 16 bytes at a time: "
-                             "the cache payloads must be 16-byte aligned")
+        if any(x.data_ptr() % 16 for x in (q, *payloads)):
+            raise ValueError(f"the {route} kernel reads q and payload rows in vectors of up "
+                             "to 16 bytes: q and the cache payloads must be 16-byte aligned")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be [{b}, NBLK], got {tuple(block_tables.shape)}")
     if q_start.shape != (b,) or kv_lens.shape != (b,):
@@ -364,18 +365,18 @@ def _ptr(x: torch.Tensor | None) -> ctypes.c_void_p:
 @functools.cache
 def _kernel_fn(kernel_design: str):
     """The ctypes entry of a design: ``dyn_paged_attention`` (scalar:
-    dtype code, cache kind, ...) or ``dyn_paged_attention_mma`` (cache kind,
-    ..., row groups)."""
+    dtype code, cache kind, ..., q scale) or ``dyn_paged_attention_mma``
+    (cache kind, ..., row groups, q scale)."""
     from dynamo_tpu_torch.ops.build import load_library
 
     if kernel_design == "mma":
         fn = load_library("paged_attention_mma").dyn_paged_attention_mma
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     else:
         fn = load_library("paged_attention").dyn_paged_attention
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -406,7 +407,6 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
     b, t, h, d = q.shape
     _, bs, kh, _ = payload.shape
     r = t * (h // kh)
-    qs = scale_query(q).contiguous()
     if ns == 1:
         out = torch.empty_like(q)
         acc = m = l = None
@@ -419,16 +419,17 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
         kp, vp, ks, vs = k_cache, v_cache, None, None
     else:
         kp, vp, ks, vs = k_cache["q"], v_cache["q"], k_cache["s"], v_cache["s"]
-    ptrs = (_ptr(qs), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(block_tables),
+    ptrs = (_ptr(q), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(block_tables),
             _ptr(q_start), _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l))
     dims = (b, t, h, kh, d, bs, nblk, ns, -(-nblk // ns))
+    qscale = _query_scale(d, q.dtype)   # both kernels scale q as they load it
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     if design(route) == "mma":
         rc = _kernel_fn("mma")(CACHE_KINDS.index(kind), *ptrs, *dims, mma_row_groups(r),
-                               stream)
+                               qscale, stream)
     else:
-        rc = _kernel_fn("scalar")(1 if q.dtype == torch.bfloat16 else 0,
-                                  CACHE_KINDS.index(kind), *ptrs, *dims, stream)
+        rc = _kernel_fn("scalar")(0, CACHE_KINDS.index(kind), *ptrs, *dims,  # 0: f32 q
+                                  qscale, stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel {route} launch failed ({kind} cache, "
                            f"q {q.dtype}): CUDA error {rc}")

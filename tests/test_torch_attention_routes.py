@@ -2,17 +2,19 @@
 tensor-core design rests on, on the CPU.
 
 ``ops.paged_attention.ROUTES`` maps (q dtype, cache kind) to a kernel:
-the scalar design (``csrc/paged_attention.cu``: float caches, and f32 q
-over quantized caches) or the mma design (``csrc/paged_attention_mma.cu``:
-bf16 q over int8 / packed-int4 caches). Both kernels run only on the card,
-where ``chip_smoke.py`` holds them against the plain version; here the
-route table, the input checks, the split count and the exactness argument
-of the mma design are checked:
+the mma design (``csrc/paged_attention_mma.cu``: bf16 q over a bf16, int8
+or packed-int4 cache) or the scalar design (``csrc/paged_attention.cu``:
+f32 q over every cache). Both kernels run only on the card, where
+``chip_smoke.py`` holds them against the plain version; here the route
+table, the input checks, the split count and the exactness argument of the
+mma design are checked:
 - int8 and int4 values widen to bf16 exactly (|x| <= 127 fits bf16's 8-bit
   significand), including through the kernel's bit tricks;
-- P enters the MMA as p_hi + p_lo, both bf16: the product with V then
-  equals the f32 product to 2^-16 of sum |p v| (p alone as bf16 errs by
-  up to 2^-9 a weight).
+- P enters the MMA as p_hi + p_lo, both bf16: the product with int8 or
+  bf16 V then equals the f32 product to 2^-16 of sum |p v| (p alone as
+  bf16 errs by up to 2^-9 a weight);
+- q scaled by D^-0.5 as either kernel loads it (bf16 or f32) has the bits
+  of the wrapper's ``scale_query``.
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ import torch
 from dynamo_tpu_torch.ops import paged_attention as tpa
 
 PAIRS = {
-    (torch.float32, "float"): ("scalar_float", "scalar"),
-    (torch.bfloat16, "float"): ("scalar_float", "scalar"),
-    (torch.float32, "int8"): ("scalar_int8_f32q", "scalar"),
-    (torch.float32, "int4"): ("scalar_int4_f32q", "scalar"),
+    (torch.bfloat16, "float"): ("mma_bf16", "mma"),
     (torch.bfloat16, "int8"): ("mma_int8", "mma"),
     (torch.bfloat16, "int4"): ("mma_int4", "mma"),
+    (torch.float32, "float"): ("scalar_float", "scalar"),
+    (torch.float32, "int8"): ("scalar_int8_f32q", "scalar"),
+    (torch.float32, "int4"): ("scalar_int4_f32q", "scalar"),
 }
+KINDS = ["float", "int8", "int4"]
 
 
 @pytest.mark.parametrize("pair", list(PAIRS), ids=lambda p: f"{p[0]}-{p[1]}")
@@ -51,6 +54,8 @@ def _inputs(q_dtype, kind, d, bs, kh=2, h=4, b=2, nblk=3, nb=8):
     payload = torch.uint8 if kind == "int4" else torch.int8
 
     def cache():
+        if kind == "float":
+            return torch.zeros((nb, bs, kh, d), dtype=q_dtype)
         return {"q": torch.zeros((nb, bs, kh, dp), dtype=payload),
                 "s": torch.ones((nb, kh), dtype=torch.float32)}
 
@@ -59,21 +64,41 @@ def _inputs(q_dtype, kind, d, bs, kh=2, h=4, b=2, nblk=3, nb=8):
     return q, cache(), cache(), bt, qs, qs + 1
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,bs", [(24, 16), (40, 16), (16, 8), (64, 24)])
 def test_mma_route_refuses_shapes_it_does_not_take(kind, d, bs):
-    """bf16 q over a quantized cache needs D and BS multiples of 16 and
-    raises otherwise (never re-routes); f32 q at the same shape takes the
-    scalar route and passes."""
+    """bf16 q over any cache needs D and BS multiples of 16 and raises
+    otherwise (never re-routes); f32 q at the same shape takes the scalar
+    route and passes."""
     with pytest.raises(ValueError, match="multiples of 16"):
         tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
     tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,bs", [(16, 16), (64, 16), (128, 16), (128, 32), (256, 16)])
 def test_mma_route_takes_its_shapes(kind, d, bs):
     tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
+
+
+def _offset_view(x: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous view of a copy of ``x`` that starts ``elems`` elements
+    into its storage."""
+    flat = torch.zeros(x.numel() + elems, dtype=x.dtype)
+    return flat[elems:].view(x.shape)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mma_route_refuses_a_misaligned_query(kind):
+    """The mma kernels read q in 4- and 8-byte vectors: a contiguous q at a
+    storage offset off 16 bytes raises instead of faulting on the card; the
+    scalar route reads f32 q an element at a time and takes it."""
+    q, *rest = _inputs(torch.bfloat16, kind, 128, 16)
+    tpa._check_cuda_inputs(_offset_view(q, 8), *rest)        # 16 bytes in: aligned
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpa._check_cuda_inputs(_offset_view(q, 1), *rest)
+    q32, *rest32 = _inputs(torch.float32, kind, 128, 16)
+    tpa._check_cuda_inputs(_offset_view(q32, 1), *rest32)
 
 
 def test_programs_per_row():
@@ -81,6 +106,7 @@ def test_programs_per_row():
     for rows, mma, scalar in ((2, 8, 8), (4, 8, 8), (16, 8, 8), (32, 8, 16), (48, 8, 24),
                               (65, 16, 40), (512, 64, 256)):
         assert tpa.programs_per_row("mma_int8", rows, 8) == mma, rows
+        assert tpa.programs_per_row("mma_bf16", rows, 8) == mma, rows
         assert tpa.programs_per_row("scalar_float", rows, 8) == scalar, rows
     assert [tpa.mma_row_groups(r) for r in (1, 16, 17, 32, 33, 512)] == [1, 1, 2, 2, 4, 4]
 
@@ -113,7 +139,7 @@ def card_splits(monkeypatch):
 
 
 @pytest.mark.parametrize("name", list(SERVING))
-@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_num_splits_for_at_the_serving_shapes(name, kind, card_splits):
     (b, t, h, kh, d, nblk), want = SERVING[name]
     q = torch.zeros((b, t, h, d), dtype=torch.bfloat16)
@@ -172,15 +198,50 @@ def test_kernel_widening_bit_tricks_are_exact():
     assert np.array_equal(lo_hi[:, 1].numpy(), w[np.arange(256) >> 4])
 
 
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_kernel_q_scale_matches_scale_query(d):
+    """The mma kernel scales q as it loads it: the f32 product of the bf16
+    q and the bf16-rounded D^-0.5 (exact: 8-bit x 8-bit significands),
+    rounded once to bf16, is the wrapper's ``scale_query`` bit for bit."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32) * 8).to(torch.bfloat16)
+    s = tpa._query_scale(d, torch.bfloat16)
+    assert torch.tensor(s, dtype=torch.bfloat16).item() == s
+    exact = q.double() * s
+    assert torch.equal(exact.float().double(), exact)
+    kernel = (q.float() * torch.tensor(s, dtype=torch.float32)).to(torch.bfloat16)
+    assert torch.equal(kernel.view(torch.int16), tpa.scale_query(q).view(torch.int16))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_scalar_kernel_q_scale_matches_scale_query(d):
+    """The scalar kernel scales f32 q as it loads it: one f32 multiply by
+    D^-0.5 rounded to f32, i.e. the exact product (24-bit x 24-bit
+    significands fit a double) rounded once to f32, is the wrapper's
+    ``scale_query`` bit for bit."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32) * 8)
+    s = tpa._query_scale(d, torch.float32)
+    assert torch.tensor(s, dtype=torch.float32).item() == s
+    kernel = (q.double() * s).float()
+    assert torch.equal(kernel.view(torch.int32), tpa.scale_query(q).view(torch.int32))
+
+
+@pytest.mark.parametrize("v_kind", ["int8", "bf16"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_split_p_keeps_pv_to_2_pow_minus_16(seed):
-    """A unit of 16 positions: p in [0, 1] (softmax weights) times int8 V,
-    summed in f32 as the MMA does. p as one bf16 errs by up to 2^-9 a
-    weight; p_hi + p_lo within 2^-16 of sum |p v|."""
+def test_split_p_keeps_pv_to_2_pow_minus_16(seed, v_kind):
+    """A unit of 16 positions: p in [0, 1] (softmax weights) times int8 V
+    or bf16 V (standard-normal values rounded to bf16), summed in f32 as
+    the MMA does. p as one bf16 errs by up to 2^-9 a weight; p_hi + p_lo
+    within 2^-16 of sum |p v|."""
     rng = np.random.default_rng(seed)
     s = rng.standard_normal((64, 16)).astype(np.float32) * 4
     p = torch.from_numpy(np.exp(s - s.max(axis=1, keepdims=True)))
-    v = torch.from_numpy(rng.integers(-127, 128, size=(16, 128)).astype(np.float32))
+    if v_kind == "int8":
+        v = torch.from_numpy(rng.integers(-127, 128, size=(16, 128)).astype(np.float32))
+    else:
+        v = torch.from_numpy(rng.standard_normal((16, 128)).astype(np.float32))
+        v = v.to(torch.bfloat16).float()
     ref = p.double() @ v.double()
     scale = p.double().abs() @ v.double().abs()
     hi = p.to(torch.bfloat16).float()

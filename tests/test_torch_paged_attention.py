@@ -116,6 +116,15 @@ def test_plain_bf16_at_bench_shapes(ns):
     np.testing.assert_allclose(out, ref, atol=2e-2, rtol=2e-2)
 
 
+def test_plain_bf16_prefill_at_bench_shapes():
+    """A 128-token prefill chunk at the llama-3-8b-lite attention geometry
+    (kh=8, h=32, d=128, bs=16): 512 query rows a kv head, the shape at which
+    the card's kernel shares one staged unit between a CTA's row groups."""
+    rng = np.random.default_rng(8)
+    out, ref = _both(_case(rng, 2, 128, 32, 8, 128, 24, 16, 10), dtype="bfloat16")
+    np.testing.assert_allclose(out, ref, atol=2e-2, rtol=2e-2)
+
+
 def test_scale_query_rounds_in_the_query_dtype():
     """q · D^-0.5 with the scale rounded to q's dtype — the TPU kernel's
     convention, bit for bit."""
