@@ -28,10 +28,21 @@ exits non-zero if any phase fails:
 (b) the port's serving path at full llama-3-8b-lite width (8 layers,
     random weights from a seed) through ``build_engine`` and
     ``AsyncTorchEngine.generate``: 32 requests, prompt 128, 64 greedy
-    output tokens, once for each KV cache dtype (bfloat16, int8, int4); the
-    kernel launch counts are set to 0 just before each run and read just
-    after, and each run must launch its own variant only, 8 per step, through
-    its route's kernel (the tensor-core ``mma_*`` kernels);
+    output tokens, once for each KV cache dtype (bfloat16, int8, int4).
+    ``build_engine`` first captures the CUDA graph of every bucket of the
+    enumerated lattice (``warmup_mode="full"``): no capture may fail,
+    coverage must be 1.0, and serving must make no new graph — every step
+    is a replay. The kernel launch counts (counted through replays) are set
+    to 0 just before each run and read just after, and each run must launch
+    its own variant only, 8 per forward step, through its route's kernel
+    (the tensor-core ``mma_*`` kernels);
+(b') the same bf16 serving run with fused decode windows
+    (``decode_window=4``, one graph of 4 decode steps): its greedy streams
+    must equal (b)'s bf16 streams token for token, each window's graph must
+    hold 8 x 4 launches, and the launches must be 8 per forward step. Its
+    one serve-time capture is the legacy prefill step of all 32 rows, whose
+    batch size lies past the legacy prefill ladder (1, 2, 4, 8) that the
+    lattice enumerates, as the JAX package's does;
 (c) coherence: the trained checkpoint ``tests/data/tiny-real-llama``
     through the port's loader and tokenizer must continue "one two three
     four" with " five six seven eight" on the card, with a bf16 and with an
@@ -39,7 +50,8 @@ exits non-zero if any phase fails:
     the card must equal the plain path's on the CPU for every cache dtype,
     and those f32 runs must go through the scalar design's kernels only;
     no step dispatch may wait for the card (the host/device overlap of the
-    pipelined step loop), with a bf16 and with an int8 cache.
+    pipelined step loop), at every kv dtype. These engines capture each
+    bucket's graph lazily, at its first step.
 
 Prints the card's name and power limit (nvidia-smi), one JSON ``kernels``
 line (an entry per kernel of ``ROUTES``, its launches counted in the run
@@ -47,9 +59,9 @@ that serves its route: (b) for ``mma_*``, (c)'s f32 runs for
 ``scalar_*``), and as its last line ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero and prints no result.
 
-``python3 chip_smoke.py --profile`` also runs phase (b) under
+``python3 chip_smoke.py --profile`` also runs phase (b) and (b') under
 ``torch.profiler`` and prints device time by kernel and the device's busy
-share of the serving wall time, for each cache dtype.
+share of the serving wall time, for each run.
 """
 
 from __future__ import annotations
@@ -353,28 +365,36 @@ def print_profile(prof, wall_s: float) -> None:
             f"{100 * e.self_device_time_total / busy_us:5.1f}% x{e.count:<6d} {e.key[:90]}")
 
 
-def phase_serve(kind: str, profile: bool = False) -> dict:
-    """One serving run with the KV cache of ``kind``: it must launch that
-    kernel variant only, once per layer and step."""
+def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict, dict]:
+    """One serving run with the KV cache of ``kind`` after a full warmup:
+    it must launch that kernel variant only, once per layer and forward
+    step, all through replays of graphs the warmup captured. Returns the
+    run's numbers and its token streams."""
     from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.obs.compile_ledger import get_compile_ledger
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.utils.config import EngineConfig
 
     batch, prompt, decode = 32, 128, 64
+    tag = f"[b] kv_dtype={KV_DTYPES[kind]}" if window == 1 else f"[b'] decode_window={window}"
     t0 = time.perf_counter()
     engine = build_engine(EngineConfig(
         model="llama-3-8b-lite", block_size=16, max_batch_size=batch,
         max_model_len=prompt + decode + 16, prefill_chunk=prompt,
-        kv_dtype=KV_DTYPES[kind], allow_random_weights=True))
+        kv_dtype=KV_DTYPES[kind], allow_random_weights=True,
+        decode_window=window, warmup_mode="full"))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    vocab = engine.core.model_cfg.vocab_size
-    spec = engine.core.runner.spec
-    tag = f"[b] kv_dtype={KV_DTYPES[kind]}"
-    log(f"{tag}: llama-3-8b-lite engine built in {setup_s:.2f}s; kv blocks "
-        f"{spec.num_blocks}, {spec.bytes_per_block()} bytes per block")
+    core = engine.core
+    vocab = core.model_cfg.vocab_size
+    spec = core.runner.spec
+    warm = core.warmup_summary
+    log(f"{tag}: llama-3-8b-lite engine built and warmed up in {setup_s:.2f}s; kv blocks "
+        f"{spec.num_blocks}, {spec.bytes_per_block()} bytes per block; warmup {warm}")
+    if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
+        raise AssertionError(f"{tag}: warmup left buckets without a graph: {warm}")
 
     async def serve():
         first_at, done_at, streams = {}, {}, {}
@@ -405,7 +425,10 @@ def phase_serve(kind: str, profile: bool = False) -> dict:
         return t_start, first_at, done_at, streams
 
     torch.cuda.reset_peak_memory_stats()
-    steps0 = engine.core.metrics.num_steps
+    steps0 = core.metrics.num_steps
+    led = get_compile_ledger()
+    warmed = dict(core.runner.programs)
+    serve_events0 = sum(e.source == "serve" for e in led.events)
     prof = None
     if profile:
         from torch.profiler import ProfilerActivity
@@ -419,36 +442,56 @@ def phase_serve(kind: str, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
         print_profile(prof, max(done_at.values()) - t_start)
-    steps = engine.core.metrics.num_steps - steps0
+    steps = core.metrics.num_steps - steps0
     for i, (toks, lps) in streams.items():
         if len(toks) != decode or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f"request {i}: {len(toks)} tokens, expected {decode}")
         if not all(lp <= 1e-3 and lp == lp for lp in lps):
             raise AssertionError(f"request {i}: bad logprobs {lps[:4]}")
-    layers = engine.core.model_cfg.num_layers
+    programs = core.runner.programs
+    minted = sorted(set(programs) - set(warmed))
+    serve_events = sum(e.source == "serve" for e in led.events) - serve_events0
+    # (b, t, nblk, window, fast_greedy): the legacy prefill ladder is (1, 2, 4, 8)
+    allowed = [k for k in minted if window > 1 and k[1] > 1 and k[0] > 8]
+    if minted != allowed or serve_events != len(minted):
+        raise AssertionError(f"{tag}: serving made graphs {minted} ({serve_events} serve "
+                             "ledger events); every step must replay a warmed-up graph")
+    layers = core.model_cfg.num_layers
     route = pa.ROUTES[(torch.bfloat16, kind)]
-    want = {k: (layers * steps if k == route else 0) for k in by_kernel}
+    forward_steps = sum(p.calls * p.shape[3] for p in programs.values())
+    want = {k: (layers * forward_steps if k == route else 0) for k in by_kernel}
     launches = sum(by_kernel.values())
-    if launches <= 0 or by_kernel != want:
+    if launches <= 0 or by_kernel != want or (window == 1 and forward_steps != steps):
         raise AssertionError(f"{tag}: kernel launches {by_kernel}, expected {want} "
-                             f"({layers} per step, this run's route only)")
+                             f"({layers} per forward step, this run's route only; "
+                             f"{forward_steps} forward steps in {steps} engine steps)")
+    for key, p in programs.items():
+        if p.launches.get(route, 0) != layers * key[3]:
+            raise AssertionError(f"{tag}: graph {key} holds {p.launches}, expected "
+                                 f"{layers * key[3]} launches of {route}")
+    windows_run = sum(p.calls for k, p in programs.items() if k[3] > 1)
+    if window > 1 and windows_run == 0:
+        raise AssertionError(f"{tag}: no fused window ran")
     t_first = max(first_at.values())
     t_end = max(done_at.values())
     res = {
-        "kv_dtype": KV_DTYPES[kind], "requests": batch, "tokens": batch * decode,
-        "steps": steps, "launches": launches, "launches_by_kernel": by_kernel,
-        "launches_per_step": launches / max(steps, 1),
+        "kv_dtype": KV_DTYPES[kind], "decode_window": window, "requests": batch,
+        "tokens": batch * decode, "steps": steps, "forward_steps": forward_steps,
+        "windows": windows_run, "launches": launches, "launches_by_kernel": by_kernel,
+        "launches_per_forward_step": launches / max(forward_steps, 1),
         "ttft_all_s": t_first - t_start,
         "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
         "wall_s": t_end - t_start,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "kv_blocks": spec.num_blocks, "bytes_per_block": spec.bytes_per_block(),
+        "warmup_s": warm["seconds"], "graphs_warmed": len(warmed),
+        "graph_pool_gib": warm["graph_pool_gib"], "serve_captures": [list(k) for k in minted],
     }
     log(f"{tag} " + json.dumps(res))
-    del engine
+    del engine, core, programs, warmed
     gc.collect()
     torch.cuda.empty_cache()
-    return res
+    return res, {i: toks for i, (toks, _) in streams.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +609,15 @@ def main() -> int:
 
     kern = phase_kernels(bw, peak)
     profile = "--profile" in sys.argv[1:]
-    serve = {kind: phase_serve(kind, profile=profile) for kind in KV_DTYPES}
+    serve, streams = {}, {}
+    for kind in KV_DTYPES:
+        serve[kind], streams[kind] = phase_serve(kind, profile=profile)
+    _, win_streams = phase_serve("float", profile=profile, window=4)
+    differ = [i for i in streams["float"] if win_streams[i] != streams["float"][i]]
+    log(f"[b'] decode_window=4 greedy streams equal to (b)'s bf16 streams: "
+        f"{len(streams['float']) - len(differ)} of {len(streams['float'])}")
+    if differ:
+        raise AssertionError(f"[b'] streams {differ} differ from decode_window=1's")
     coherence = phase_coherence()
 
     lines = []

@@ -4,7 +4,12 @@ Port of ``dynamo_tpu/engine/engine.py`` for the dense Llama serving path
 on one device:
 
 - ``ModelRunner``: owns params, the paged KV cache and per-slot sampling
-  state on the device; runs one bucketed ragged step per dispatch.
+  state on the device; runs one bucketed ragged step per dispatch, or a
+  fused window of decode steps.
+- ``StepProgram``: one bucket's step program, the counterpart of a jitted
+  step of the JAX runner. On the card it is a CUDA graph captured once
+  (lazily at first use, or at warmup) and replayed every step; on the CPU
+  the same object runs its body eagerly.
 - ``EngineCore``: synchronous scheduler + step loop (directly testable),
   pipelined one step deep through ``step_begin`` / ``step_finalize``.
 - ``AsyncTorchEngine``: thread-hosted step loop bridging to asyncio
@@ -13,10 +18,12 @@ on one device:
 Where JAX donates the cache and the sampling state to a jitted step and
 gets new arrays back, the runner updates them in place. Host/device
 overlap: JAX gets it from async dispatch. Here a dispatch stages its
-inputs in pinned host memory and copies them with ``non_blocking=True``
-(a copy from pageable memory would synchronise the stream), and copies the
-sampled tokens back into pinned memory behind a CUDA event, so finalizing
-step N waits for step N only while step N+1 already runs on the card.
+inputs in fresh pinned host memory and copies them with
+``non_blocking=True`` into the bucket's static input buffers (a copy from
+pageable memory would synchronise the stream), replays the bucket's graph,
+and copies the sampled tokens back into pinned memory behind a CUDA event,
+so finalizing step N waits for step N only while step N+1 already runs on
+the card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,13 @@ from dynamo_tpu_torch.engine.sampling import (
 from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
+from dynamo_tpu_torch.obs.compile_ledger import (
+    WARMUP_MODES,
+    BucketSig,
+    enumerate_buckets,
+    get_compile_ledger,
+)
+from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -78,13 +92,16 @@ def _derived_seed(request_id: str) -> int:
 
 def check_supported(ec: EngineConfig) -> None:
     """Raise on settings this slice of the port does not carry, naming the
-    slice that brings them (ROADMAP)."""
+    slice that brings them (ROADMAP), and on invalid ones."""
+    if ec.spec_ngram > 0 and ec.decode_window > 1:
+        raise ValueError(
+            "spec_ngram and decode_window>1 are mutually exclusive "
+            "(both amortize dispatches over future tokens; pick one)")
     later = {
         "tp/pp/dp/ep/sp > 1 (parallelism slice)":
             any(v != 1 for v in ec.mesh_shape().values()),
         "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
         "spec_ngram > 0 (speculative decoding, variants slice)": ec.spec_ngram > 0,
-        "decode_window > 1 (fused decode windows, variants slice)": ec.decode_window > 1,
         "host/disk/remote KV tiers (KVBM slice)": bool(
             ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr
             or ec.global_prefix_cache or ec.stream_ckpt_blocks > 0),
@@ -102,6 +119,12 @@ def check_supported(ec: EngineConfig) -> None:
                          "[model-precision cache], int8, int4)")
     if ec.attn_num_splits < 0:
         raise ValueError(f"attn_num_splits must be >= 0 (0 = auto), got {ec.attn_num_splits}")
+    if ec.warmup_mode not in WARMUP_MODES:
+        raise ValueError(f"unknown warmup_mode {ec.warmup_mode!r} "
+                         f"(supported: {', '.join(WARMUP_MODES)})")
+    if ec.warmup_deadline < 0:
+        raise ValueError(f"warmup_deadline must be >= 0 (0 = unbounded), "
+                         f"got {ec.warmup_deadline}")
 
 
 @dataclass
@@ -166,7 +189,8 @@ class PendingStep:
 
 
 class ModelRunner:
-    """Device-state owner + bucketed step dispatch."""
+    """Device-state owner + bucketed step dispatch through one
+    :class:`StepProgram` per bucket."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None):
@@ -214,6 +238,13 @@ class ModelRunner:
         # the pipelined step loop. Row maxb = trash.
         self.slot_toks = torch.zeros((maxb + 1,), dtype=torch.int32, device=dev)
         self.max_nblk = -(-engine_cfg.max_model_len // engine_cfg.block_size)
+        # The bucket programs made so far (step_fn), and on the card the
+        # pool their graphs share and the side stream they are captured on.
+        self.programs: dict[tuple, StepProgram] = {}
+        self._ledger = get_compile_ledger()
+        if dev.type == "cuda":
+            self.graph_pool = torch.cuda.graph_pool_handle()
+            self.capture_stream = torch.cuda.Stream(dev)
 
     def _auto_num_blocks(self) -> int:
         """Size the device KV pool from free card memory, or a small default
@@ -235,19 +266,29 @@ class ModelRunner:
         self.seeds[slot] = seed
         self.draws[slot] = 0
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def step_fn(self, b: int, t: int, nblk: int, window: int = 1,
+                fast_greedy: bool = False) -> "StepProgram":
+        """The bucket's program, made (warmed and captured) on first use —
+        the counterpart of the JAX runner's ``step_fn`` cache, keyed by
+        ``(b, t, nblk, window, fast_greedy)``."""
+        key = (b, t, nblk, window, fast_greedy)
+        prog = self.programs.get(key)
+        if prog is None:
+            log.info("capturing step program B=%d T=%d NBLK=%d W=%d greedy=%s",
+                     b, t, nblk, window, fast_greedy)
+            prog = self.programs[key] = StepProgram(self, *key)
+        return prog
 
     def dispatch(self, rows: list[tuple[Seq, int, int]], sample_rows: list[bool],
-                 mixed: bool = False) -> StepOutputs:
+                 window: int = 1, mixed: bool = False) -> StepOutputs:
         """Enqueue one bucketed step on the device without waiting for it;
-        returns its outputs, to be materialized later. ``mixed`` marks a
-        unified ragged step (decode rows packed with prefill-chunk rows):
-        the batch buckets over the decode row ladder while t takes the
-        prefill chunk ladder."""
+        returns its outputs (tokens [B], or [B, window] for a fused decode
+        window), to be materialized later. ``window > 1`` (decode rows
+        only) fuses that many decode steps into the dispatch — the caller
+        must have grown each seq's block table to cover ``window`` more
+        tokens. ``mixed`` marks a unified ragged step (decode rows packed
+        with prefill-chunk rows): the batch buckets over the decode row
+        ladder while t takes the prefill chunk ladder."""
         ec = self.engine_cfg
         n = len(rows)
         t_max = max(length for _, _, length in rows)
@@ -256,13 +297,16 @@ class ModelRunner:
             # the decode step.
             b, t = _bucket(n, ec.decode_bucket), 1
         elif mixed:
+            window = 1
             b, t = _bucket(n, ec.decode_bucket), _pow2_bucket(t_max, 16, ec.prefill_chunk)
         else:
+            window = 1  # windows are a decode-dispatch concept
             b, t = _bucket(n, (1, 2, 4, 8)), _pow2_bucket(t_max, 16, ec.prefill_chunk)
         # Block-table width from the batch's max KV coverage — blocks past
-        # start + length are never read. Pow2-bucketed like the JAX runner.
+        # start + length (+ window - 1 for a fused window) are never read.
+        # Pow2-bucketed like the JAX runner.
         bsz = ec.block_size
-        nblk_need = max(min(len(s.block_ids), -(-(start + length) // bsz))
+        nblk_need = max(min(len(s.block_ids), -(-(start + length + window - 1) // bsz))
                         for s, start, length in rows)
         nblk = min(_pow2_bucket(max(nblk_need, 1), 4, self.max_nblk), self.max_nblk)
 
@@ -306,12 +350,27 @@ class ModelRunner:
             do_sample[i] = sample_rows[i]
             if temp[i] > 0.0 or fp[i] != 0.0 or pp[i] != 0.0 or rp[i] != 1.0:
                 fast_greedy = False
-        return self._step(self._to_device(ints), self._to_device(floats),
-                          b, t, nblk, fast_greedy)
 
-    def _step(self, ints: torch.Tensor, floats: torch.Tensor, b: int, t: int,
-              nblk: int, fast_greedy: bool) -> StepOutputs:
-        """The step program (JAX: ``_build_step_fn``) on device tensors."""
+        led = self._ledger
+        cold = led.enabled and (b, t, nblk, window, fast_greedy) not in self.programs
+        if cold:
+            # Making a program blocks this thread for its warm run, its
+            # capture and the graph's instantiation.
+            t_capture = time.perf_counter()
+        prog = self.step_fn(b, t, nblk, window, fast_greedy)
+        if cold:
+            kind = ("window" if window > 1 else "decode" if t == 1
+                    else "mixed" if mixed else "prefill")
+            led.record(BucketSig(kind, b, t, nblk, fast_greedy, ec.kv_dtype or "bfloat16"),
+                       time.perf_counter() - t_capture)
+        return prog(ints, floats)
+
+    def _body(self, ints: torch.Tensor, floats: torch.Tensor, b: int, t: int,
+              nblk: int, window: int, fast_greedy: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step program on its static inputs (JAX: ``_build_step_fn``;
+        with ``window > 1``, ``_build_window_fn``: W decode steps unrolled,
+        step j at ``q_start + j`` on step j-1's tokens). Returns tokens and
+        logprobs, [B] or [B, W]."""
         cfg = self.cfg
         trash_row = self.engine_cfg.max_batch_size
         tokens = ints[: b * t].view(b, t)
@@ -319,32 +378,183 @@ class ModelRunner:
         q_start, q_len, slots, top_k, do_sample, from_slot = ints[b * (t + nblk):].view(6, b)
         slots_l = slots.long()
         do_sample = do_sample.bool()
+        # Only sampling rows persist state; others write to the trash row.
+        write_slots = torch.where(do_sample, slots_l, torch.full_like(slots_l, trash_row))
         # Device-fed decode input: rows whose previous token was sampled by
         # an in-flight step read it from slot_toks (stream order guarantees
         # the producing step has run).
         tokens[:, 0] = torch.where(from_slot.bool(), self.slot_toks[slots_l], tokens[:, 0])
-        hidden = llama.forward(self.params, cfg, tokens, q_start, q_len, bt,
-                               self.cache_k, self.cache_v,
-                               attn_num_splits=self.engine_cfg.attn_num_splits)
-        logits = llama.logits_from_hidden(self.params, cfg, hidden).float()
-        write_slots = torch.where(do_sample, slots_l, torch.full_like(slots_l, trash_row))
-        if fast_greedy:
-            # Whole batch greedy + penalty-free: argmax over raw logits is
-            # identical to the general path and skips its sort and noise.
-            toks, lps = greedy_sample(logits)
-        else:
-            temp, top_p, fp, pp, rp = floats
-            st = SamplingState(
-                temperature=temp, top_k=top_k, top_p=top_p,
-                frequency_penalty=fp, presence_penalty=pp, repetition_penalty=rp,
-                seeds=self.seeds[slots_l], draws=self.draws[slots_l],
-                token_counts=self.counts[slots_l])
-            toks, lps = sample(logits, st)
-            # Only sampling rows persist state; others write to the trash row.
-            self.counts[write_slots] = record_tokens(st.token_counts, toks, do_sample)
-            self.draws[write_slots] = st.draws + 1
-        self.slot_toks[write_slots] = toks
-        if self.device.type != "cuda":
+        toks_w, lps_w = [], []
+        for j in range(window):
+            hidden = llama.forward(self.params, cfg, tokens if j == 0 else toks_w[-1][:, None],
+                                   q_start if j == 0 else q_start + j, q_len, bt,
+                                   self.cache_k, self.cache_v,
+                                   attn_num_splits=self.engine_cfg.attn_num_splits)
+            logits = llama.logits_from_hidden(self.params, cfg, hidden).float()
+            if fast_greedy:
+                # Whole batch greedy + penalty-free: argmax over raw logits
+                # is identical to the general path and skips its sort and
+                # noise.
+                toks, lps = greedy_sample(logits)
+            else:
+                temp, top_p, fp, pp, rp = floats
+                st = SamplingState(
+                    temperature=temp, top_k=top_k, top_p=top_p,
+                    frequency_penalty=fp, presence_penalty=pp, repetition_penalty=rp,
+                    seeds=self.seeds[slots_l], draws=self.draws[slots_l],
+                    token_counts=self.counts[slots_l])
+                toks, lps = sample(logits, st)
+                self.counts[write_slots] = record_tokens(st.token_counts, toks, do_sample)
+                self.draws[write_slots] = st.draws + 1
+            self.slot_toks[write_slots] = toks
+            toks_w.append(toks)
+            lps_w.append(lps)
+        if window == 1:
+            return toks_w[0], lps_w[0]
+        return torch.stack(toks_w, dim=1), torch.stack(lps_w, dim=1)
+
+    def run(self, rows: list[tuple[Seq, int, int]],
+            sample_rows: list[bool]) -> tuple[np.ndarray, np.ndarray]:
+        """Dispatch one step and block for host results (tokens, logprobs)."""
+        toks, lps = self.dispatch(rows, sample_rows).materialize()
+        n = len(rows)
+        return toks[:n], lps[:n]
+
+    # -- bucket warmup ---------------------------------------------------
+    def warmup(self, sigs: list[BucketSig], deadline_s: float = 0.0) -> dict:
+        """Make (warm and capture) the program of each enumerated bucket
+        (obs/compile_ledger.py) before serving, so no serving dispatch pays
+        a capture. The warm runs use padding inputs — q_len=0 rows,
+        do_sample=False (sampling-state writes land on the trash row), KV
+        writes to pool block 0, which no sequence reads. ``deadline_s``
+        bounds the total wall (0 = unbounded); lattice entries past the
+        deadline stay cold and count against coverage. On the card the
+        summary also has ``graph_pool_gib``: the growth of the allocator's
+        reserved memory over the warmup, which is the graphs' shared pool
+        (every capture empties the allocator's other cached blocks)."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        captured = cached = failed = skipped = 0
+        for sig in sigs:
+            if deadline_s > 0 and time.perf_counter() - t0 >= deadline_s:
+                skipped += 1
+                continue
+            try:
+                hit = self._warm_one(sig)
+            except Exception:
+                log.warning("warmup capture failed for %s", sig, exc_info=True)
+                failed += 1
+                continue
+            cached += 1 if hit else 0
+            captured += 0 if hit else 1
+        summary = {"captured": captured, "cached": cached, "failed": failed,
+                   "deadline_skipped": skipped,
+                   "seconds": round(time.perf_counter() - t0, 3),
+                   "coverage": round(self._ledger.coverage(), 4)}
+        if cuda:
+            torch.cuda.empty_cache()
+            summary["graph_pool_gib"] = (
+                torch.cuda.memory_reserved(self.device) - reserved0) / 2**30
+        log.info("bucket warmup: %s", summary)
+        return summary
+
+    def _warm_one(self, sig: BucketSig) -> bool:
+        """Make one bucket's program. Returns True when it already
+        existed (nothing captured)."""
+        window = self.engine_cfg.decode_window if sig.kind == "window" else 1
+        key = (sig.b, sig.t, sig.nblk, window, sig.greedy)
+        if key in self.programs:
+            return True
+        t0 = time.perf_counter()
+        self.step_fn(*key)
+        self._ledger.record(sig, time.perf_counter() - t0, source="warmup")
+        return False
+
+
+class StepProgram:
+    """One bucket's step program: the counterpart of a jitted step of the
+    JAX runner.
+
+    It owns the bucket's static inputs — one int32 and one float32 buffer
+    laid out as ``ModelRunner.dispatch`` packs them, holding padding until
+    a step fills them. Making it runs the body once on those padding inputs
+    (the warm run: first launches build the kernels and size cuBLAS's
+    workspaces, off the capture); on the card it then captures the body
+    into a CUDA graph in the runner's shared graph pool, on the runner's
+    side stream. A capture failure raises; nothing falls back to eager. A
+    call copies the step's host inputs into the static buffers, replays the
+    graph, and right after the replay, on the same stream, copies its
+    static outputs (``toks``, ``lps``) into fresh pinned host tensors behind
+    an event — before any other graph of the pool can reuse their memory.
+    On the CPU nothing is captured: a call runs the body eagerly on the
+    same static buffers.
+
+    Kernel launches: the warm run's are not counted, the capture's are
+    recorded (``launches``, by kernel) and every call counts them once
+    (``ops.paged_attention.count_launches``); ``calls`` counts the calls."""
+
+    def __init__(self, runner: ModelRunner, b: int, t: int, nblk: int, window: int,
+                 fast_greedy: bool):
+        self.runner = runner
+        self.shape = (b, t, nblk, window, fast_greedy)
+        dev = runner.device
+        self.ints = torch.zeros(b * t + b * nblk + 6 * b, dtype=torch.int32, device=dev)
+        # padding sampling params: temp 0, top_p 1, penalties 0, rep 1
+        self.floats = torch.tensor([0.0, 1.0, 0.0, 0.0, 1.0], device=dev)[:, None].repeat(1, b)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: tuple[torch.Tensor, torch.Tensor] | None = None
+        with pa.launches_made():
+            self._warm()
+        with pa.launches_made() as made:
+            self._capture()
+        self.launches: dict[str, int] = made
+        self.calls = 0
+
+    def _run(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.runner._body(self.ints, self.floats, *self.shape)
+
+    def _warm(self) -> None:
+        if self.runner.device.type != "cuda":
+            self._run()
+            return
+        side = self.runner.capture_stream
+        side.wait_stream(torch.cuda.current_stream(self.runner.device))
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream(self.runner.device).wait_stream(side)
+
+    def _capture(self) -> None:
+        if self.runner.device.type != "cuda":
+            return
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: an unsafe CUDA call made meanwhile by another thread
+        # (the asyncio side of AsyncTorchEngine) does not void the capture.
+        with torch.cuda.graph(self.graph, pool=self.runner.graph_pool,
+                              stream=self.runner.capture_stream,
+                              capture_error_mode="thread_local"):
+            self.outputs = self._run()
+
+    def _replay(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.graph is None:
+            return self._run()
+        self.graph.replay()
+        return self.outputs
+
+    def __call__(self, ints: np.ndarray, floats: np.ndarray) -> StepOutputs:
+        cuda = self.runner.device.type == "cuda"
+        for static, arr in ((self.ints, ints), (self.floats, floats)):
+            host = torch.from_numpy(arr)
+            # A fresh pinned tensor per step: the previous step's
+            # non-blocking copy may not have run yet.
+            static.copy_(host.pin_memory() if cuda else host, non_blocking=cuda)
+        toks, lps = self._replay()
+        pa.count_launches(self.launches)
+        self.calls += 1
+        if not cuda:
             return StepOutputs(toks, lps)
         toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
         lps_h = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
@@ -353,13 +563,6 @@ class ModelRunner:
         event = torch.cuda.Event()
         event.record()
         return StepOutputs(toks_h, lps_h, event)
-
-    def run(self, rows: list[tuple[Seq, int, int]],
-            sample_rows: list[bool]) -> tuple[np.ndarray, np.ndarray]:
-        """Dispatch one step and block for host results (tokens, logprobs)."""
-        toks, lps = self.dispatch(rows, sample_rows).materialize()
-        n = len(rows)
-        return toks[:n], lps[:n]
 
 
 class EngineCore:
@@ -373,9 +576,19 @@ class EngineCore:
         if self.model_cfg.is_moe:
             raise ValueError(f"{engine_cfg.model!r} is a MoE model: not supported "
                              "by the torch port yet (MoE slice)")
-        self._unified = engine_cfg.unified_step
+        # Unified ragged mixed-phase steps: one launch per iteration when
+        # prefill work rides along. Fused decode windows keep the legacy
+        # path (a window is decode-only).
+        self._unified = engine_cfg.unified_step and engine_cfg.decode_window == 1
+        # Compile ledger gate (obs/compile_ledger.py): configured before the
+        # runner exists so every program this engine makes is governed by
+        # the same mode; the enumerated lattice is the coverage denominator
+        # in lazy mode and the capture worklist in full mode (warmup()).
+        get_compile_ledger().configure(engine_cfg.warmup_mode)
         self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
                                   device=device)
+        if engine_cfg.warmup_mode != "off":
+            get_compile_ledger().set_plan(enumerate_buckets(engine_cfg))
         self.pool = PrefixPool(self.runner.spec.num_blocks, engine_cfg.block_size,
                                enable_prefix_caching=engine_cfg.enable_prefix_caching)
         self.sched = Scheduler(
@@ -384,6 +597,7 @@ class EngineCore:
             prefill_chunk=engine_cfg.prefill_chunk,
             max_model_len=engine_cfg.max_model_len,
             max_tokens_per_step=engine_cfg.max_tokens_per_step,
+            decode_window=engine_cfg.decode_window,
         )
         self.metrics = EngineMetrics(
             kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks,
@@ -392,6 +606,27 @@ class EngineCore:
         self.default_eos: list[int] = []
         # Deadline clock for the current step window.
         self._step_now: float | None = None
+        # The last warmup()'s summary.
+        self.warmup_summary: dict | None = None
+
+    def warmup(self) -> dict:
+        """Bucket warmup (obs/compile_ledger.py), run before the engine
+        serves (``build_engine`` calls it before the step loop starts, so
+        device state has one owner throughout). ``off``/``lazy`` return at
+        once; ``full`` makes the program of every enumerated bucket under
+        ``warmup_deadline``."""
+        ec = self.engine_cfg
+        led = get_compile_ledger()
+        out: dict = {"mode": ec.warmup_mode, "coverage": round(led.coverage(), 4)}
+        if ec.warmup_mode != "off" and led.plan is not None:
+            out["buckets"] = len(led.plan)
+        if ec.warmup_mode == "full":
+            out.update(self.runner.warmup(
+                sorted(led.plan or enumerate_buckets(ec),
+                       key=lambda s: (s.kind, s.b, s.t, s.nblk, s.greedy)),
+                deadline_s=ec.warmup_deadline))
+        self.warmup_summary = out
+        return out
 
     # ------------------------------------------------------------------
     def add_request(self, req: PreprocessedRequest,
@@ -476,7 +711,7 @@ class EngineCore:
                 seq.slot_initialized = True
 
         pending = PendingStep()
-        batches: list[tuple[str, list, list[bool]]] = []
+        batches: list[tuple[str, list, list[bool], int]] = []
         dec_rows = [(s, s.num_computed, 1) for s in plan.decode]
         pf_rows = [(w.seq, w.start, w.length) for w in plan.prefill]
         # Sample only on the chunk completing a *fresh* prompt; a
@@ -491,39 +726,53 @@ class EngineCore:
             # One ragged step: decode rows, then the prefill chunks.
             pending.mixed_dec_rows = len(dec_rows)
             batches.append(("mixed", dec_rows + pf_rows,
-                            [True] * len(dec_rows) + pf_sample_rows))
+                            [True] * len(dec_rows) + pf_sample_rows, 1))
         else:
             if dec_rows:
-                batches.append(("decode", dec_rows, [True] * len(dec_rows)))
+                batches.append(("decode", dec_rows, [True] * len(dec_rows),
+                                plan.decode_window))
             if pf_rows:
-                batches.append(("prefill", pf_rows, pf_sample_rows))
+                batches.append(("prefill", pf_rows, pf_sample_rows, 1))
 
-        for kind, rows, sample_rows in batches:
-            out = self.runner.dispatch(rows, sample_rows, mixed=(kind == "mixed"))
+        for kind, rows, sample_rows, window in batches:
+            out = self.runner.dispatch(rows, sample_rows, window=window,
+                                       mixed=(kind == "mixed"))
             # Value-independent bookkeeping, done at dispatch so the next
-            # plan() sees advanced positions.
+            # plan() sees advanced positions: a decode batch advances each
+            # row by its window.
+            advance = window if kind == "decode" else None
             for i, (seq, start, length) in enumerate(rows):
-                seq.num_computed = start + length
+                seq.num_computed = start + (advance or length)
                 if sample_rows[i]:
                     seq.inflight_samples += 1
             pending.batches.append((kind, rows, sample_rows, out))
         return pending
 
-    def _emit_and_finish(self, seq: Seq, token: int, lp: float,
+    def _emit_and_finish(self, seq: Seq, candidates: list[int], lps_row: np.ndarray,
                          outputs: dict[str, LLMEngineOutput],
                          count_decode: bool) -> None:
-        """Append the sampled token, commit blocks, assemble the output and
-        run finish bookkeeping."""
-        seq.tokens.append(token)
-        seq.block_seq.append(token)
-        reason = self._check_stop(seq, token)
+        """Append candidate tokens (one, or a fused window's) until a stop
+        fires — the rest of a window is discarded, its KV in blocks this seq
+        owns — then commit blocks, assemble the output and run finish
+        bookkeeping."""
+        emitted: list[int] = []
+        reason = None
+        for token in candidates:
+            seq.tokens.append(token)
+            seq.block_seq.append(token)
+            emitted.append(token)
+            reason = self._check_stop(seq, token)
+            if reason is not None:
+                break
         if count_decode:
-            self.metrics.num_decode_tokens += 1
+            self.metrics.num_decode_tokens += len(emitted)
         self.sched.commit_computed_blocks(seq)
         if seq.prefix_hit_blocks:
             self.metrics.prefix_hit_blocks += seq.prefix_hit_blocks
             seq.prefix_hit_blocks = 0
-        out = LLMEngineOutput(token_ids=[token], cum_log_probs=lp, log_probs=[lp])
+        per_tok = [float(x) for x in lps_row[: len(emitted)]]
+        out = LLMEngineOutput(token_ids=emitted, cum_log_probs=sum(per_tok),
+                              log_probs=per_tok)
         if reason is not None:
             out.finish_reason = reason
             self.sched.finish(seq, reason)
@@ -538,6 +787,10 @@ class EngineCore:
         outputs: dict[str, LLMEngineOutput] = {}
         for kind, rows, sample_rows, out in pending.batches:
             toks, lps = out.materialize()
+            # Normalize to [n, W]: single steps return [B], fused decode
+            # windows [B, W] — one finalize path serves both.
+            n = len(rows)
+            toks, lps = toks[:n].reshape(n, -1), lps[:n].reshape(n, -1)
             for i, (seq, start, length) in enumerate(rows):
                 if seq.phase is Phase.FINISHED:
                     # Finished (stop/abort) while this step was in flight:
@@ -554,7 +807,7 @@ class EngineCore:
                     self.sched.commit_computed_blocks(seq)
                     continue
                 seq.inflight_samples -= 1
-                self._emit_and_finish(seq, int(toks[i]), float(lps[i]), outputs,
+                self._emit_and_finish(seq, [int(x) for x in toks[i]], lps[i], outputs,
                                       count_decode=decode_row)
         return outputs
 
@@ -699,5 +952,9 @@ class AsyncTorchEngine:
 def build_engine(engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None) -> AsyncTorchEngine:
     """The port's engine for ``engine_cfg`` on ``device`` (default: the
-    CUDA card; raises when there is none)."""
-    return AsyncTorchEngine(EngineCore(engine_cfg, params=params, device=device))
+    CUDA card; raises when there is none), warmed up as
+    ``engine_cfg.warmup_mode`` asks before its step loop starts (the
+    summary is ``engine.core.warmup_summary``)."""
+    core = EngineCore(engine_cfg, params=params, device=device)
+    core.warmup()
+    return AsyncTorchEngine(core)

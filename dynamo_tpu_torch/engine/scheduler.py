@@ -8,10 +8,13 @@ One step = decode rows AND at most a token-budgeted set of prefill chunks
 (decode first): decode streams advance every step, so a long prompt's
 prefill can stall ITL by at most one chunk's compute. By default the
 engine runs the whole plan as ONE ragged mixed-phase step;
-``unified_step=False`` restores the legacy two-launch path.
+``unified_step=False`` restores the legacy two-launch path. Fused decode
+windows (``decode_window > 1``) are decode-only and keep it: each decode
+row grows its blocks ``w`` tokens ahead and the engine runs ``w`` decode
+steps in one program.
 
-Not carried yet (later slices): fused decode windows, speculative
-lookahead, session ids and the scheduling/memory ledger hooks.
+Not carried yet (later slices): speculative lookahead, session ids and
+the scheduling/memory ledger hooks.
 """
 
 from __future__ import annotations
@@ -104,6 +107,9 @@ class PrefillWork:
 class StepPlan:
     prefill: list[PrefillWork] = field(default_factory=list)
     decode: list[Seq] = field(default_factory=list)
+    # Fused decode steps for the decode rows this plan; every decode seq
+    # has blocks allocated for `decode_window` more tokens.
+    decode_window: int = 1
 
     @property
     def empty(self) -> bool:
@@ -119,12 +125,14 @@ class Scheduler:
         max_model_len: int,
         max_tokens_per_step: int = 8192,
         qos_weights: dict[str, int] | None = None,
+        decode_window: int = 1,
     ):
         self.pool = pool
         self.max_batch_size = max_batch_size
         self.prefill_chunk = prefill_chunk
         self.max_model_len = max_model_len
         self.max_tokens_per_step = max_tokens_per_step
+        self.decode_window = max(decode_window, 1)
         # Weighted deficit-round-robin over priority classes instead of a
         # plain FIFO: interactive traffic admits ahead of batch without
         # starving it (preempted seqs resume ahead of all lanes via
@@ -192,10 +200,10 @@ class Scheduler:
         self.running.append(seq)
         return True
 
-    def _grow_for_decode(self, seq: Seq) -> bool:
-        """Ensure block capacity for one more token; False if allocation
-        failed."""
-        need = seq.blocks_needed(seq.num_computed + 1)
+    def _grow_for_decode(self, seq: Seq, tokens_ahead: int = 1) -> bool:
+        """Ensure block capacity for `tokens_ahead` more tokens; False if
+        allocation failed."""
+        need = seq.blocks_needed(seq.num_computed + tokens_ahead)
         if need > len(seq.block_ids):
             try:
                 seq.block_ids.extend(self.pool.allocate(need - len(seq.block_ids)))
@@ -249,6 +257,24 @@ class Scheduler:
 
         # Decode batch first (every decodable stream advances every step);
         # grow blocks, preempting from the back on pressure.
+        # Window: fuse up to decode_window steps into one dispatch. Shrink to
+        # (a) fit every seq under max_model_len (the block table must cover
+        # every fused position) and (b) the useful horizon — past the point
+        # every stream will have hit max_tokens, fused steps are pure waste
+        # (their tokens are discarded at finalize).
+        cands = [s for s in self.running
+                 if s.in_decode and s.num_computed < self.max_model_len]
+        w = self.decode_window
+        if w > 1 and cands:
+            cap = min(self.max_model_len - s.num_computed for s in cands)
+            useful = 1
+            for s in cands:
+                mt = s.req.stop_conditions.max_tokens
+                # decode positions already computed (incl. in-flight windows)
+                out_est = max(s.num_computed - s.prefill_target(), 0)
+                useful = max(useful, (mt - out_est) if mt is not None else cap)
+            w = max(1, min(w, cap, useful))
+            w = 1 << (w.bit_length() - 1)  # pow2 bucket bounds the program count
         decodable: list[Seq] = []
         for seq in list(self.running):
             if not seq.in_decode:
@@ -258,7 +284,7 @@ class Scheduler:
                 # this seq (pipelined stepping plans ahead of stop checks);
                 # decoding past max_model_len would outgrow the block table.
                 continue
-            while not self._grow_for_decode(seq):
+            while not self._grow_for_decode(seq, w):
                 # preempt the most recently admitted other seq
                 victims = [s for s in reversed(self.running) if s is not seq]
                 if not victims:
@@ -273,10 +299,12 @@ class Scheduler:
             # could not grow even after preemption: preempt seq itself
             self.preempt(seq)
         plan.decode = decodable[: self.max_batch_size]
+        plan.decode_window = w if plan.decode else 1
 
         # Prefill chunks for seqs short of their target, within what's left
-        # of the step token budget after the decode rows.
-        budget = self.max_tokens_per_step - len(plan.decode)
+        # of the step token budget after the decode rows (a fused window
+        # computes window tokens per row).
+        budget = self.max_tokens_per_step - len(plan.decode) * plan.decode_window
         for seq in self.running:
             target = seq.prefill_target()
             if seq.num_computed < target and budget > 0:

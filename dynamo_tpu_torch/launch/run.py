@@ -11,6 +11,12 @@ Examples:
     python -m dynamo_tpu_torch.launch.run in=text out=torch --model tests/data/tiny-real-llama
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
         --device cpu --kv-dtype int8 --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model llama-3-8b-lite \
+        --allow-random-weights --decode-window 4 --warmup-mode full --input-jsonl prompts.jsonl
+
+``--warmup-mode`` and ``--warmup-deadline`` are the JAX worker's flags
+(``dynamo_tpu/components/worker.py``); the launcher takes them until the
+worker is ported.
 """
 
 from __future__ import annotations
@@ -59,6 +65,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--no-unified-step", action="store_true",
                    help="dispatch decode and prefill chunks as two steps "
                         "instead of one ragged mixed step")
+    p.add_argument("--decode-window", type=int, default=1,
+                   help="fuse N decode steps into one dispatch (one CUDA graph); "
+                        "N > 1 implies the two-launch step path")
+    p.add_argument("--warmup-mode", default="lazy", choices=["off", "lazy", "full"],
+                   help="step-program warmup: off (no ledger), lazy (capture each "
+                        "bucket's graph on first use), full (capture the whole "
+                        "bucket lattice before serving)")
+    p.add_argument("--warmup-deadline", type=float, default=120.0,
+                   help="wall-seconds budget for --warmup-mode full (0 = unbounded)")
     p.add_argument("--max-tokens", type=int, default=256, help="default max output tokens")
     p.add_argument("--input-jsonl", default=None)
     p.add_argument("--allow-random-weights", action="store_true",
@@ -79,6 +94,9 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         prefill_chunk=ns.prefill_chunk,
         kv_dtype=ns.kv_dtype,
         unified_step=not ns.no_unified_step,
+        decode_window=ns.decode_window,
+        warmup_mode=ns.warmup_mode,
+        warmup_deadline=ns.warmup_deadline,
         allow_random_weights=ns.allow_random_weights,
     )
     return build_engine(cfg, device=ns.device), cfg

@@ -1,0 +1,312 @@
+"""Compile ledger: per-bucket program events and the warmup lattice — copy
+of ``dynamo_tpu/obs/compile_ledger.py``.
+
+Every step the engine runs is one bucketed program: on the card a CUDA
+graph captured once per bucket (``engine.engine.StepProgram``), where the
+JAX engine has one ``jax.jit`` compile. Making a program blocks the engine
+thread for its whole wall (a warm run, the capture and the graph's
+instantiation), so this module makes those stalls observable and
+schedulable:
+
+* ``CompileLedger`` — process-global record of every program event keyed
+  by bucket signature ``(kind, b, t, nblk, greedy, kv_dtype)``: wall
+  seconds, trigger timestamp, the victim request's trace id, and the live
+  program inventory.
+* ``enumerate_buckets(EngineConfig)`` — the reachable bucket lattice,
+  computed with the SAME ``_bucket``/``_pow2_bucket`` math the dispatch
+  path uses (engine/engine.py), so warmup captures exactly what serving
+  would mint lazily.
+
+Not carried yet: the ``dynamo_xla_compile_*`` Prometheus family and the
+``engine.compile`` span of a serve-path event; they come with the port's
+metrics and tracer (ROADMAP Queue 1 item 11).
+
+Disabled mode (``warmup_mode="off"``) flips ``CompileLedger.enabled``;
+the dispatch path gates on that flag before touching timestamps or bucket
+signatures, so a disabled ledger adds no per-dispatch work.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+
+#: Warmup modes: ``off`` disables the ledger entirely; ``lazy`` records
+#: organic captures against the enumerated lattice (coverage grows as
+#: traffic mints buckets); ``full`` captures the lattice at startup.
+WARMUP_MODES = ("off", "lazy", "full")
+
+
+# Mirrors of engine/engine.py's bucket helpers, kept import-free so tests
+# can compute signatures device-free.
+
+def _bucket(n: int, buckets: tuple[int, ...]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+def _pow2_bucket(n: int, lo: int, hi: int) -> int:
+    b = lo
+    while b < n and b < hi:
+        b *= 2
+    return b
+
+
+@dataclass(frozen=True)
+class BucketSig:
+    """One program's bucket signature. ``kind`` is one of decode | window
+    | prefill | mixed (verify and embed come with their slices); ``greedy``
+    is the argmax-only fast path variant. "mixed" is the unified
+    ragged step (decode rows + a prefill chunk in one launch): b buckets
+    over the DECODE ladder, t over the prefill chunk ladder — the program
+    itself is the same ragged step either way."""
+
+    kind: str
+    b: int
+    t: int
+    nblk: int
+    greedy: bool
+    kv_dtype: str
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "b": self.b, "t": self.t,
+                "nblk": self.nblk, "greedy": self.greedy,
+                "kv_dtype": self.kv_dtype}
+
+
+@dataclass
+class CompileEvent:
+    """One observed (or warmup-forced) program capture."""
+
+    sig: BucketSig
+    seconds: float
+    ts: float                     # trigger timestamp (epoch)
+    trace_id: str | None = None   # victim request's trace, if any
+    source: str = "serve"         # "serve" | "warmup"
+
+    def to_dict(self) -> dict:
+        d = {**self.sig.to_dict(), "seconds": self.seconds, "ts": self.ts,
+             "source": self.source}
+        if self.trace_id:
+            d["trace_id"] = self.trace_id
+        return d
+
+
+class CompileLedger:
+    """Process-global program event record + warmup coverage accounting.
+
+    Thread-safe: the engine thread records serve captures while other
+    threads read snapshots. Events are bounded (``cap``) — the inventory
+    and counters stay exact past the cap; only the per-event detail
+    rolls."""
+
+    def __init__(self, cap: int = 2048):
+        self._lock = threading.Lock()
+        self.cap = cap
+        self.enabled = True
+        self.mode = "lazy"
+        self.events: list[CompileEvent] = []
+        self.inventory: set[BucketSig] = set()
+        self._dropped = 0
+        # Warmup plan: the enumerated lattice; None until an engine
+        # configures warmup (coverage reads 0 with an empty plan).
+        self.plan: set[BucketSig] | None = None
+
+    # -- configuration --------------------------------------------------
+    def configure(self, mode: str) -> None:
+        """Engine-startup hook: sets the mode and the enabled gate."""
+        if mode not in WARMUP_MODES:
+            raise ValueError(
+                f"warmup_mode must be one of {WARMUP_MODES}, got {mode!r}")
+        with self._lock:
+            self.mode = mode
+            self.enabled = mode != "off"
+
+    def set_plan(self, sigs: list[BucketSig] | set[BucketSig]) -> None:
+        with self._lock:
+            self.plan = set(sigs)
+
+    def reset(self) -> None:
+        """Test hook: drop all events/inventory/plan."""
+        with self._lock:
+            self.events.clear()
+            self.inventory.clear()
+            self.plan = None
+            self._dropped = 0
+
+    # -- recording ------------------------------------------------------
+    def record(self, sig: BucketSig, seconds: float, *,
+               trace_ctx=None, source: str = "serve",
+               ts: float | None = None) -> CompileEvent | None:
+        """File one program event; returns it (None when disabled)."""
+        if not self.enabled:
+            return None
+        end = ts if ts is not None else time.time()
+        ev = CompileEvent(sig=sig, seconds=seconds, ts=end - seconds,
+                          trace_id=getattr(trace_ctx, "trace_id", None),
+                          source=source)
+        with self._lock:
+            if len(self.events) < self.cap:
+                self.events.append(ev)
+            else:
+                self._dropped += 1
+            self.inventory.add(sig)
+        return ev
+
+    # -- accounting -----------------------------------------------------
+    def coverage(self) -> float:
+        """Fraction of the warmup plan already captured. 0.0 with no plan
+        (nothing enumerated yet — the conservative answer for routers)."""
+        with self._lock:
+            if not self.plan:
+                return 0.0
+            return len(self.plan & self.inventory) / len(self.plan)
+
+    def by_bucket(self) -> dict[BucketSig, tuple[int, float]]:
+        """{sig: (event count, total seconds)} over recorded events."""
+        out: dict[BucketSig, tuple[int, float]] = {}
+        with self._lock:
+            events = list(self.events)
+        for e in events:
+            n, s = out.get(e.sig, (0, 0.0))
+            out[e.sig] = (n + 1, s + e.seconds)
+        return out
+
+    def snapshot(self, events: bool = False) -> dict:
+        """Compact dict for stats publishing / bench artifacts."""
+        with self._lock:
+            out = {
+                "mode": self.mode,
+                "enabled": self.enabled,
+                "cache_entries": len(self.inventory),
+                "events_total": len(self.events) + self._dropped,
+                "compile_seconds_total": sum(e.seconds for e in self.events),
+                "serve_stall_seconds": sum(
+                    e.seconds for e in self.events if e.source == "serve"),
+                "warmup_buckets": len(self.plan) if self.plan else 0,
+            }
+            if events:
+                out["events"] = [e.to_dict() for e in self.events]
+        out["warmup_coverage"] = round(self.coverage(), 4)
+        return out
+
+
+_ledger: CompileLedger | None = None
+_ledger_lock = threading.Lock()
+
+
+def get_compile_ledger() -> CompileLedger:
+    global _ledger
+    with _ledger_lock:
+        if _ledger is None:
+            _ledger = CompileLedger()
+        return _ledger
+
+
+# ---------------------------------------------------------------------------
+# Bucket lattice enumeration — the SAME math as engine/engine.py dispatch.
+# ---------------------------------------------------------------------------
+
+def _nblk_ladder(max_nblk: int) -> list[int]:
+    """Reachable block-table widths: dispatch computes
+    ``min(_pow2_bucket(need, 4, max_nblk), max_nblk)`` — the pow2 ladder
+    from 4, clamped to (and always including) max_nblk."""
+    out: list[int] = []
+    b = 4
+    while b < max_nblk:
+        out.append(b)
+        b *= 2
+    out.append(max_nblk)
+    return sorted({min(n, max_nblk) for n in out})
+
+
+def _reachable_batch_buckets(maxn: int, buckets: tuple[int, ...]) -> list[int]:
+    """Batch sizes ``_bucket(n, buckets)`` can return for n in 1..maxn.
+    Past the ladder, _bucket returns n itself; only ``maxn`` (the cap) is
+    enumerated for that open tail — intermediate fallthrough sizes are
+    organic-capture territory, not warmup's."""
+    out: list[int] = []
+    for x in buckets:
+        out.append(x)
+        if x >= maxn:
+            break
+    else:
+        out.append(maxn)
+    return sorted(set(out))
+
+
+def _prefill_t_ladder(ec) -> list[int]:
+    """Reachable prefill chunk buckets: ``_pow2_bucket(t, 16, prefill_chunk)``
+    over t in 1..min(prefill_chunk, max_model_len, max_tokens_per_step)."""
+    cap = min(ec.prefill_chunk, ec.max_model_len, ec.max_tokens_per_step)
+    out = [16]
+    t = 16
+    while t < cap:
+        t *= 2
+        out.append(t)
+    return out
+
+
+def enumerate_buckets(ec) -> list[BucketSig]:
+    """The reachable generate-path bucket lattice for one EngineConfig —
+    what ``warmup_mode="full"`` captures and what coverage is measured
+    against.
+
+    Unified mode (``ec.unified_step``): every step carrying prefill work
+    dispatches as ONE ragged "mixed" program (decode-ladder b × prefill
+    t ladder), so the separate "prefill" rungs are unreachable and are
+    pruned from the plan. Pure-decode steps still dispatch the
+    decode/window rungs, which stay. The JAX lattice's verify rungs come
+    with speculative decoding (``spec_ngram > 0``, not ported yet)."""
+    kv = ec.kv_dtype or "bfloat16"
+    max_nblk = -(-ec.max_model_len // ec.block_size)
+    nblks = _nblk_ladder(max_nblk)
+    out: list[BucketSig] = []
+    dec_bs = _reachable_batch_buckets(ec.max_batch_size, ec.decode_bucket)
+    greedy_variants = (True, False)
+    for b in dec_bs:
+        for nblk in nblks:
+            for g in greedy_variants:
+                out.append(BucketSig("decode", b, 1, nblk, g, kv))
+                if ec.decode_window > 1:
+                    out.append(BucketSig("window", b, 1, nblk, g, kv))
+    # Fused decode windows are a decode-only concept: a window>1 engine
+    # keeps the legacy two-launch path, so its prefill rungs stay.
+    unified = getattr(ec, "unified_step", False) and ec.decode_window == 1
+    pf_kind = "mixed" if unified else "prefill"
+    pf_bs = (dec_bs if unified else
+             [x for x in (1, 2, 4, 8) if x <= max(ec.max_batch_size, 1)])
+    for b in pf_bs:
+        for t in _prefill_t_ladder(ec):
+            for nblk in nblks:
+                for g in greedy_variants:
+                    out.append(BucketSig(pf_kind, b, t, nblk, g, kv))
+    return out
+
+
+def sig_for_rows(kind: str, n_rows: int, t_max: int, nblk_need: int,
+                 ec, greedy: bool = True) -> BucketSig:
+    """Bucket signature for a dispatched batch — the device-free mirror of
+    dispatch()'s geometry math."""
+    kv = ec.kv_dtype if getattr(ec, "kv_dtype", None) else "bfloat16"
+    max_nblk = -(-ec.max_model_len // ec.block_size)
+    nblk = min(_pow2_bucket(max(nblk_need, 1), 4, max_nblk), max_nblk)
+    if kind in ("decode", "window"):
+        return BucketSig(kind, _bucket(n_rows, ec.decode_bucket), 1, nblk,
+                         greedy, kv)
+    if kind == "mixed":
+        # Unified ragged step: rows bucket over the DECODE ladder, t over
+        # the prefill chunk ladder. Degenerate mixed batches (every live
+        # row one token) ARE the decode program — same rule as dispatch().
+        if t_max <= 1:
+            return BucketSig("decode", _bucket(n_rows, ec.decode_bucket),
+                             1, nblk, greedy, kv)
+        t = _pow2_bucket(t_max, 16, ec.prefill_chunk)
+        return BucketSig("mixed", _bucket(n_rows, ec.decode_bucket), t,
+                         nblk, greedy, kv)
+    t = _pow2_bucket(t_max, 16, ec.prefill_chunk)
+    return BucketSig("prefill", _bucket(n_rows, (1, 2, 4, 8)), t, nblk,
+                     greedy, kv)

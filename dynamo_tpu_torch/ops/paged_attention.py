@@ -25,6 +25,7 @@ Conventions kept from the TPU kernel, so both versions agree with it:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -393,8 +394,9 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
     ``num_splits``: 0 = auto (:func:`num_splits_for`), 1 = sequential walk,
     N = forced (clamped to NBLK). On a CUDA tensor this launches the
     ``sm_90a`` kernel that :data:`ROUTES` names for (q dtype, cache kind)
-    and counts it in ``paged_attention.launches_by_kernel``; on a CPU
-    tensor it runs :func:`paged_attention_plain`."""
+    and counts it in ``paged_attention.launches_by_kernel`` (under CUDA
+    graph capture, see :func:`launches_made`); on a CPU tensor it runs
+    :func:`paged_attention_plain`."""
     kind = cache_kind(k_cache)
     payload = k_cache if kind == "float" else k_cache["q"]
     nblk = block_tables.shape[1]
@@ -444,7 +446,31 @@ def reset_launches() -> None:
     paged_attention.launches_by_kernel = dict.fromkeys(ROUTE_KERNELS, 0)
 
 
+@contextlib.contextmanager
+def launches_made():
+    """Keep the launches made inside the block out of the counts; yields a
+    dict that holds them, by kernel, once the block exits. A CUDA graph's
+    capture records launches without running them, and its replays run
+    them without Python: the step program counts each replay with
+    :func:`count_launches` of what its capture recorded."""
+    saved = paged_attention.launches_by_kernel
+    reset_launches()
+    made: dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        made.update(paged_attention.launches_by_kernel)
+        paged_attention.launches_by_kernel = saved
+
+
+def count_launches(made: dict[str, int]) -> None:
+    """Add ``made`` (launches by kernel, as :func:`launches_made` yields
+    them) to the counts: one replay of a captured graph."""
+    for route, n in made.items():
+        paged_attention.launches_by_kernel[route] += n
+
+
 #: launches of each CUDA kernel of :data:`ROUTES` since the counts were last
-#: set to 0 (``launches_by_kernel``); a total or a count per cache kind is a
-#: sum over it
+#: set to 0 (``launches_by_kernel``), eager launches and the launches of
+#: replayed graphs alike; a total or a count per cache kind is a sum over it
 reset_launches()

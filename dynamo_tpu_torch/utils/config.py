@@ -61,6 +61,13 @@ class EngineConfig:
     attn_num_splits: int = 0
     # Fused decode window (decode steps per dispatch).
     decode_window: int = 1
+    # Step-program warmup (obs/compile_ledger.py): "off" disables the
+    # ledger, "lazy" captures each bucket's CUDA graph on first use,
+    # "full" captures the whole enumerated lattice before serving.
+    warmup_mode: str = "lazy"
+    # Wall-seconds budget for full warmup (0 = unbounded); buckets past it
+    # stay cold and count against coverage.
+    warmup_deadline: float = 120.0
     # Session-sticky KV retention seconds (0 = off).
     session_ttl: float = 0.0
     # Crash-consistent stream checkpoint cadence (0 = off).
