@@ -1,10 +1,12 @@
 """Device time of the port's paged-attention wrapper, under two timers.
 
-    python3 attention_timing.py [--label NAME] [--cache float,int8,int4]
+    python3 attention_timing.py [--label NAME] [--cache float,int8,int4] [--q bf16,f32]
 
 Times ``dynamo_tpu_torch.ops.paged_attention.paged_attention`` with bf16
-queries over a bf16, an int8 and a packed-int4 cache at the five shapes of
-``chip_smoke.py`` phase (a) that every slice of the port has run (decode,
+queries (``--q bf16``, the default) or f32 queries (``--q f32``; the
+model-precision cache then holds f32) over a model-precision, an int8 and a
+packed-int4 cache at the five shapes of ``chip_smoke.py`` phase (a) that
+every slice of the port has run (decode,
 prefill, ragged, split-K, long context; llama-3-8b-lite attention: KH=8,
 H=32, D=128, block 16), then at decode with the two other head widths
 (D=64, KH=8, H=64; D=16, KH=2, H=4) and at phase (a)'s 8-token chunk (B=8:
@@ -19,15 +21,20 @@ is timed by two timers, 20 calls each, L2 flushed before each call:
   host side where that outlasts its kernels.
 
 It uses only what every slice of the port has (the wrapper, its plain
-version and ``models.llama._scatter_kv``) and imports the
+version and ``models.llama._scatter_kv``; f32 q over every cache since the
+second slice) and imports the
 ``dynamo_tpu_torch`` beside it, so a copy placed at the root of an older
 checkout (or of a copy with an edited kernel source) times that tree's
 kernels. To compare two trees, run it in both on one machine, in the order
 old, new, new, old.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line a
-case: ``label``, ``cache``, ``shape``, ``ms``, ``ms_idle`` and
-``max_abs_err`` against the plain version. Exits non-zero without a CUDA
+case: ``label``, ``q``, ``cache``, ``route``, ``shape``, ``ms``,
+``ms_idle``, ``max_abs_err`` against the plain version and
+``err_over_limit``, the worst |err| / (rel |ref| + abs) under the limit of
+q's dtype in chip_smoke.py (bf16: 2^-7, 1e-4; f32: 2e-5, 2e-5). It fails
+only where ``max_abs_err`` exceeds 2e-2, so an older tree is timed whatever
+its error; chip_smoke.py holds the limits. Exits non-zero without a CUDA
 card.
 """
 
@@ -43,6 +50,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 KINDS = ("float", "int8", "int4")
+#: --q names: the query dtype and its error limit (rel, abs)
+Q_DTYPES = {"bf16": (torch.bfloat16, (2.0**-7, 1e-4)), "f32": (torch.float32, (2e-5, 2e-5))}
 
 
 def timed(fn, sleep: bool, iters: int = 20, warmup: int = 3) -> float:
@@ -67,15 +76,16 @@ def timed(fn, sleep: bool, iters: int = 20, warmup: int = 3) -> float:
 
 def case(seed: int, b: int, t: int, nblk: int, q_start, q_len, device: str = "cuda",
          h: int = 32, kh: int = 8, d: int = 128, bs: int = 16):
-    """bf16 q, K, V and the tables of one shape, from ``seed``."""
+    """f32 q (``--q bf16`` times it rounded to bf16), bf16 K and V and the
+    tables of one shape, from ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     nb = b * nblk + 1
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=device)
 
-    q, k, v = randn(b, t, h, d), randn(nb, bs, kh, d), randn(nb, bs, kh, d)
+    q, k, v = randn(b, t, h, d), randn(nb, bs, kh, d).bfloat16(), randn(nb, bs, kh, d).bfloat16()
     perm = torch.randperm(nb - 1, generator=gen, device=device)[: b * nblk] + 1
     bt = perm.reshape(b, nblk).to(torch.int32).contiguous()
     qs = torch.tensor(q_start, dtype=torch.int32, device=device)
@@ -132,11 +142,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--label", default=ROOT.name, help="tag of every output line")
     ap.add_argument("--cache", default=",".join(KINDS),
-                    help="comma-separated cache kinds to time (float = bf16 cache)")
+                    help="comma-separated cache kinds to time (float = q's dtype)")
+    ap.add_argument("--q", default="bf16",
+                    help=f"comma-separated query dtypes to time, of {tuple(Q_DTYPES)}")
     args = ap.parse_args()
     kinds = [k for k in args.cache.split(",") if k]
     if not set(kinds) <= set(KINDS):
         ap.error(f"--cache takes kinds of {KINDS}, got {kinds}")
+    q_names = [n for n in args.q.split(",") if n]
+    if not set(q_names) <= set(Q_DTYPES):
+        ap.error(f"--q takes dtypes of {tuple(Q_DTYPES)}, got {q_names}")
     if not torch.cuda.is_available():
         print("attention_timing: no CUDA device is available", file=sys.stderr)
         return 2
@@ -146,22 +161,31 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
-    for name, ((q, k, v, bt, qs, kl), ns) in shapes().items():
+    for name, ((q32, k, v, bt, qs, kl), ns) in shapes().items():
         for kind in kinds:
-            kc, vc = (k, v) if kind == "float" else (quantize(k, kind), quantize(v, kind))
-            call = (q, kc, vc, bt, qs, kl)
-            ref = pa.paged_attention_plain(*call, num_splits=1).float()
-            err = (pa.paged_attention(*call, num_splits=ns).float() - ref).abs().max().item()
-            row = {"label": args.label, "cache": kind, "shape": name,
-                   "ms": timed(lambda: pa.paged_attention(*call, num_splits=ns), sleep=True),
-                   "ms_idle": timed(lambda: pa.paged_attention(*call, num_splits=ns),
-                                    sleep=False),
-                   "max_abs_err": err}
-            print(json.dumps(row), flush=True)
-            if not err <= 2e-2:
-                raise AssertionError(f"{kind} {name}: max_abs_err {err} against the plain "
-                                     "version (tol 2e-2)")
-            del kc, vc, call, ref
+            kq, vq = (None, None) if kind == "float" else (quantize(k, kind), quantize(v, kind))
+            for q_name in q_names:
+                q_dtype, (rel, abs_) = Q_DTYPES[q_name]
+                q = q32.to(q_dtype)
+                kc, vc = (k.to(q_dtype), v.to(q_dtype)) if kind == "float" else (kq, vq)
+                call = (q, kc, vc, bt, qs, kl)
+                ref = pa.paged_attention_plain(*call, num_splits=1).float()
+                diff = (pa.paged_attention(*call, num_splits=ns).float() - ref).abs()
+                err = diff.max().item()
+                row = {"label": args.label, "q": q_name, "cache": kind,
+                       "route": getattr(pa, "ROUTES", {}).get((q_dtype, kind)), "shape": name,
+                       "ms": timed(lambda: pa.paged_attention(*call, num_splits=ns),
+                                   sleep=True),
+                       "ms_idle": timed(lambda: pa.paged_attention(*call, num_splits=ns),
+                                        sleep=False),
+                       "max_abs_err": err,
+                       "err_over_limit": (diff / (rel * ref.abs() + abs_)).max().item()}
+                print(json.dumps(row), flush=True)
+                if not err <= 2e-2:
+                    raise AssertionError(f"{q_name} q, {kind} {name}: max_abs_err {err} "
+                                         "against the plain version (tol 2e-2)")
+                del q, kc, vc, call, ref, diff
+            del kq, vq
         torch.cuda.empty_cache()
     return 0
 

@@ -2,35 +2,27 @@
 // scalar design (CUDA cores, f32 products).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel, body _kernel) for f32 q: over its f32
-// model-precision cache and over its int8 and packed-int4 caches, whose
-// products must stay f32 (f32 parity). bf16 q over any cache runs the
-// tensor-core design in paged_attention_mma.cu (its head comment has the
-// table of routes). Same function: flash
-// attention with an online softmax straight over the paged cache, no
-// gathered or widened context tensor in device memory. Query token t
-// of row b sees context position c when c <= q_start[b] + t and
-// c < kv_lens[b]; a row whose context is all masked outputs 0. q is
-// scaled by D^-0.5 (qscale, rounded to f32) as it is loaded, one f32
-// rounding of the product, as the JAX wrapper's multiply rounds it;
-// every sum is f32.
+// (paged_attention_kernel, body _kernel) for f32 q over its f32
+// model-precision cache (route scalar_float). Every other route, f32 q over
+// an int8 or packed-int4 cache included, runs the tensor-core design in
+// paged_attention_mma.cu (its head comment has the table of routes). Same
+// function: flash attention with an online softmax straight over the paged
+// cache, no gathered context tensor in device memory. Query token t of row
+// b sees context position c when c <= q_start[b] + t and c < kv_lens[b]; a
+// row whose context is all masked outputs 0. q is scaled by D^-0.5
+// (qscale, rounded to f32) as it is loaded, one f32 rounding of the
+// product, as the JAX wrapper's multiply rounds it; every sum is f32.
 //
-// Quantized caches (the TPU kernel's quant/int4 branches) keep a
-// per-(block, kv head) f32 scale beside an int payload. A cache policy
-// (FloatCache / Int8Cache / Int4Cache below) loads one element of one
-// context position as f32: int8 reads the byte and widens it; int4 reads
-// the split-half packed byte (element d < D/2 is the low nibble of byte d,
-// element d >= D/2 the high nibble of byte d - D/2) and sign-extends it.
-// The tiles hold the int values; as on the TPU, the block's K scale
-// multiplies the scores after q.k and its V scale multiplies the block's
-// p.v before it joins the accumulator. The scales are looked up by the
-// physical block bt[b, g], once per context block.
+// A cache policy (FloatCache below, the one this file instantiates) loads
+// one element of one context position as f32; its kQuant hooks (a
+// per-(block, kv head) K scale on the scores after q.k, a V scale on each
+// chunk's p.v, the TPU kernel's order) are set by no policy here.
 //
-// What bounds it on an H100: the bytes of K/V read (4 bytes an element for
-// an f32 cache, 1 for int8, half a byte for int4, plus 8 bytes of scales a
-// block and head). Each context block a row uses is read once per (row,
-// kv head, tile of query rows, split); the arithmetic (two length-D products per visible position) is far below
-// the card's FMA rate. The design keeps the reads to what the rows need:
+// What bounds it on an H100: the bytes of K/V read (4 bytes an element).
+// Each context block a row uses is read once per (row, kv head, tile of
+// query rows, split); the arithmetic (two length-D products per visible
+// position) is far below the card's FMA rate. The design keeps the reads to
+// what the rows need:
 //   - one thread block per (row b, kv head, tile of 16 query rows, split);
 //     the TPU's sequential grid axis over context blocks becomes a loop
 //     inside the block, carrying (m, l, acc) in registers;
@@ -43,7 +35,8 @@
 //   - split-K (gridDim.y > 1) cuts the block walk into contiguous ranges
 //     and writes each range's raw (acc, m, l); a torch combine outside the
 //     kernel merges them, as the jnp combine does outside the TPU kernel.
-// Plain CUDA cores and FMA; wgmma and TMA are later work.
+// Plain CUDA cores and FMA; its redesign for the tensor cores is later
+// work (ROADMAP Queue 2).
 //
 // Thread layout: 4 warps x 4 rows per warp = 16 query rows per block (row
 // lr = warp + 4 * i). Inside a warp, lane c owns context position c of a
@@ -68,33 +61,12 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Cache policies: the payload element type, whether the cache carries
 // scales, and the load of element d of a context row as f32. `row` points
-// at the row's payload for one kv head (Dp elements: D, or D/2 for int4).
+// at the row's payload for one kv head (Dp = D / kPack elements).
 struct FloatCache {
     using Elem = float;
     static constexpr bool kQuant = false;
     static constexpr int kPack = 1;
     __device__ static float load(const Elem* row, int d, int /*half*/) { return row[d]; }
-};
-
-struct Int8Cache {
-    using Elem = int8_t;
-    static constexpr bool kQuant = true;
-    static constexpr int kPack = 1;
-    __device__ static float load(const Elem* row, int d, int /*half*/) {
-        return static_cast<float>(row[d]);
-    }
-};
-
-struct Int4Cache {
-    using Elem = uint8_t;
-    static constexpr bool kQuant = true;
-    static constexpr int kPack = 2;  // two elements a byte
-    // half = D/2: byte j holds element j (low nibble) and j + D/2 (high).
-    __device__ static float load(const Elem* row, int d, int half) {
-        const int byte = row[d < half ? d : d - half];
-        const int x = d < half ? (byte & 0xF) : (byte >> 4);
-        return static_cast<float>(x - ((x & 8) << 1));  // sign-extend 4 bits
-    }
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -332,8 +304,6 @@ int dispatch_cache(int cache_kind, const void* q, const void* k, const void* v,
     return dispatch_nch<C>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, KH, \
                            D, BS, NBLK, ns, spb, qscale, stream)
     if (cache_kind == 0) DYN_PA_CACHE(FloatCache);
-    if (cache_kind == 1) DYN_PA_CACHE(Int8Cache);
-    if (cache_kind == 2) DYN_PA_CACHE(Int4Cache);
 #undef DYN_PA_CACHE
     return (int)cudaErrorInvalidValue;
 }
@@ -342,12 +312,12 @@ int dispatch_cache(int cache_kind, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32 q and out, the only q this design takes (bf16 q over
-// any cache is dyn_paged_attention_mma; 1 = bfloat16 returns
-// cudaErrorInvalidValue). q is unscaled: the kernel multiplies it by
-// qscale = D^-0.5 rounded to f32. cache_kind: 0 = model precision (an f32
-// cache, scales unused), 1 = int8 payload, 2 = packed-int4 uint8 payload
-// [NB, BS, KH, D/2]; 1 and 2 take f32 scales [NB, KH] for K and V.
+// dtype: 0 = float32 q and out, the only q this design takes (1 =
+// bfloat16 returns cudaErrorInvalidValue). q is unscaled: the kernel
+// multiplies it by qscale = D^-0.5 rounded to f32. cache_kind: 0 = model
+// precision (an f32 cache, scales unused), the only cache it takes (1 =
+// int8 and 2 = packed int4 are dyn_paged_attention_mma's with f32 q, and
+// return cudaErrorInvalidValue here).
 // ns == 1 writes normalised rows to `out`; ns > 1 writes each split's raw
 // (acc, m, l) and leaves `out` alone. Returns cudaGetLastError() of the
 // launch (0 = launched).

@@ -1,15 +1,20 @@
 // Paged attention for bf16 queries over a bf16, an int8 or a packed-int4 KV
-// cache, on Hopper's tensor cores (sm_90a).
+// cache, and for f32 queries over an int8 or a packed-int4 cache, on
+// Hopper's tensor cores (sm_90a).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel :314, body _kernel :199) whenever q is bf16:
+// (paged_attention_kernel :314, body _kernel :199) for every route but f32
+// q over an f32 cache:
 //
 //   TPU kernel variant (:314)             | route here (q dtype, cache) | design
 //   model-precision cache                 | bf16 q, bf16 cache          | mma, this file (Bf16Cache)
 //   int8 cache (quant :201-206, :258-276) | bf16 q, int8 cache          | mma, this file (Int8Cache)
 //   packed-int4 cache (int4 :240-251)     | bf16 q, int4 cache          | mma, this file (Int4Cache)
 //   model-precision cache, f32            | f32 q, f32 cache            | scalar, paged_attention.cu
-//   int8 / int4 cache with f32 q          | f32 q, int8 / int4 cache    | scalar, paged_attention.cu
+//   int8 cache with f32 q (f32 products   | f32 q, int8 cache           | mma, this file (Int8Cache,
+//     :256, :273)                         |                             |   QueryF32)
+//   packed-int4 cache with f32 q          | f32 q, int4 cache           | mma, this file (Int4Cache,
+//                                         |                             |   QueryF32)
 //
 // Same function as the TPU kernel and the scalar kernel: flash attention
 // with an online softmax straight over the paged cache. Query token t of
@@ -18,17 +23,30 @@
 // block's f32 K scale multiplies the scores after q.k and its V scale the
 // block's p.v before it joins the accumulator; split-K (gridDim.y > 1)
 // writes each split's raw f32 (acc, m, l) for the torch combine. q is
-// scaled by D^-0.5 in bf16 as it is loaded (the TPU wrapper's rounding).
+// scaled by D^-0.5 in q's dtype as it is loaded (the TPU wrapper's
+// rounding), and the output has q's dtype.
 // Payloads: bf16 [NB, BS, KH, D]; int8 [NB, BS, KH, D]; int4 uint8 [NB, BS,
 // KH, D/2], byte j holding element j (low nibble) and j + D/2 (high),
 // sign-extended.
 //
+// f32 q keeps the TPU kernel's f32 products on bf16 tensor cores. An int8
+// or int4 value is exact in bf16, and an f32 x splits exactly into three
+// bf16 terms: hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid) (8 + 8 + 8
+// bits of significand for f32's 24; each subtraction is exact in f32). So
+// q.k = q_hi.k + q_mid.k + q_lo.k and p.v = p_hi.v + p_mid.v + p_lo.v, three
+// MMAs each, every partial product exact in f32 (8-bit x 8-bit
+// significands) and summed in f32 by the tensor core: the f32 products up
+// to the order of the f32 sums. A query policy (QueryBf16, QueryF32 below)
+// holds what differs: bf16 q is one term and p two (p_hi + p_lo, ~16 bits,
+// enough for a bf16 output), f32 q three of each.
+//
 // What bounds it on an H100: bytes. Each (row, kv head) reads its context
 // once at 2 bytes (bf16), 1 byte (int8) or half a byte (int4) an element,
 // plus 8 bytes of scales per block for a quantized cache; the two products
-// do ~2-4 operations per byte read, far below the ~295 per byte at which
-// the tensor cores would be the limit. So the design keeps many loads in
-// flight and little work per byte:
+// do ~2-4 operations per byte read (three times as many MMAs for f32 q),
+// far below the ~295 per byte at which the tensor cores would be the
+// limit. So the design keeps many loads in flight and little work per
+// byte:
 //   - loads: the context is walked in units of 16 positions (a block is
 //     BS/16 units). A unit's K and V rows are copied with 16-byte cp.async
 //     (8-byte where a quantized head's row is not a multiple of 16 bytes),
@@ -47,8 +65,11 @@
 //   - both products on tensor cores (mma.sync m16n8k16, bf16 in, f32
 //     accumulate): S = Q.K^T with a warp's 16 query rows on M and the
 //     unit's 16 positions on N; S's accumulator fragments are P's A
-//     fragments for O += P.V, a unit being one k-step. P enters as
-//     p = p_hi + p_lo, both bf16, two MMAs, so p keeps ~16 bits;
+//     fragments for O += P.V, a unit being one k-step. q's first term sits
+//     in registers for the whole walk; f32 q's mid and lo terms are staged
+//     once a row group in shared memory, in fragment order (one 16-byte
+//     load a lane and k-step), and shared by the row group's walkers, so a
+//     thread need hold no more of q than for bf16 q;
 //   - parallelism: one CTA of 4 warps per (row, kv head, tile of query
 //     rows, split). Decode (R = T * H/KH <= 16 rows) puts all 4 warps on
 //     the same 16 rows, each walking every 4th unit through its own ring;
@@ -67,8 +88,9 @@
 // thread reads contiguous bytes of a row: K bytes [tig*D/4, +D/4) (int8) or
 // [tig*D/8, +D/8) (int4) of positions gid and gid+8; V bytes [gid*D/8,
 // +D/8) or [gid*D/16, +D/16) of positions 2tig, 2tig+1, 2tig+8, 2tig+9.
-// The output columns follow (dmap). The bf16 policy keeps the MMA's own
-// layout (dmap is the identity).
+// q's A fragments follow K's choice (q_elem), the output columns V's
+// (dmap). The bf16 policy keeps the MMA's own layout (dmap is the
+// identity).
 //
 // Shapes: D a multiple of 16 up to 256, BS a multiple of 16 (the wrapper
 // refuses others). Built by dynamo_tpu_torch/ops/build.py with
@@ -218,12 +240,20 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t n0, uint32_t n1) {
     return as_u32(__hsub2(as_bf162(v), as_bf162(0x43084308u)));
 }
 
-// p = hi + lo, both bf16x2, for the pair (a, b)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    hi = as_u32(h);
-    lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+// x = t[0] + t[1] + ... for the pair (a, b), each term bf16x2: t[i] is
+// what is left after the earlier terms, rounded to nearest even. Two terms
+// keep ~16 bits of an f32; three keep all 24 (each remainder is exact in
+// f32, and the third fits bf16's 8-bit significand).
+template <int NT>
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t (&t)[NT]) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        const float2 hf = __bfloat1622float2(h);
+        t[i] = as_u32(h);
+        a -= hf.x;
+        b -= hf.y;
+    }
 }
 
 // q * D^-0.5 rounded to bf16, as the wrapper's torch multiply rounds it
@@ -231,6 +261,60 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 __device__ __forceinline__ uint32_t scale_pair(uint32_t u, float s) {
     const float2 f = __bfloat1622float2(as_bf162(u));
     return as_u32(__floats2bfloat162_rn(f.x * s, f.y * s));
+}
+
+// ---------------------------------------------------------------------------
+// Query policies: q's (and the output's) element type, the bf16 terms q
+// enters q.k as (kQTerms) and p enters p.v as (kPTerms), and the load of
+// q's A-fragment words times qscale, word j of a k-step holding q elements
+// e_j, e_j + 1. bf16 q (one term) loads a k-step's two words together and,
+// where they are adjacent (kAdjacent: e1 = e0 + 2, e0 a multiple of 4),
+// with one 8-byte load; f32 q loads a word's two elements at a time, one
+// 8-byte load a word. Both were chosen by paired timing on an H100 (PERF.md
+// §6): two 4-byte loads cost the int8 bf16-q kernel ~3% at decode, and
+// other f32 load loops led nvcc to give the int8 D=128 kernel 168
+// registers instead of 254 and run 4-14% slower.
+// ---------------------------------------------------------------------------
+
+struct QueryBf16 {
+    using T = __nv_bfloat16;
+    static constexpr int kQTerms = 1;  // q scaled in bf16 is a bf16
+    static constexpr int kPTerms = 2;  // p_hi + p_lo: ~16 bits of p
+    template <bool kAdjacent>
+    __device__ static void load_kstep(uint32_t (&w)[2], const T* row, int e0, int e1, float qs) {
+        if constexpr (kAdjacent) {
+            const uint2 v = *reinterpret_cast<const uint2*>(row + e0);
+            w[0] = scale_pair(v.x, qs);
+            w[1] = scale_pair(v.y, qs);
+        } else {
+            w[0] = scale_pair(*reinterpret_cast<const uint32_t*>(row + e0), qs);
+            w[1] = scale_pair(*reinterpret_cast<const uint32_t*>(row + e1), qs);
+        }
+    }
+    __device__ static T to_out(float x) { return __float2bfloat16(x); }
+};
+
+// f32 q: one f32 multiply by qscale (the wrapper's rounding; __fmul_rn, so
+// the split's first subtraction is not contracted into an FMA with the
+// unrounded product), then the exact three-term split; p is split the same
+// way
+struct QueryF32 {
+    using T = float;
+    static constexpr int kQTerms = 3;
+    static constexpr int kPTerms = 3;
+    __device__ static void load_pair(uint32_t (&t)[kQTerms], const T* row, int e, float qs) {
+        const float2 v = *reinterpret_cast<const float2*>(row + e);
+        split_bf16<kQTerms>(__fmul_rn(v.x, qs), __fmul_rn(v.y, qs), t);
+    }
+    __device__ static T to_out(float x) { return x; }
+};
+
+// c += a.b with a's four words read from shared memory in one load (a
+// staged term of q, see the kernel's q stage)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4* a, uint32_t b0, uint32_t b1) {
+    const uint4 w = *a;
+    const uint32_t r[4] = {w.x, w.y, w.z, w.w};
+    mma_bf16(c, r, b0, b1);
 }
 
 // acc[j] = acc[j] * alpha + pv * vs for one n-tile of p.v
@@ -275,6 +359,8 @@ struct QuantCache {
     // register (rows gid, columns 2tig + e) hits 32 banks
     static constexpr int MS0 = D + D / (2 * VCH);
     static constexpr int MS = MS0 % 8 == 0 ? MS0 + 4 : MS0;
+    // q_elem(kk, tig, 1) = q_elem(kk, tig, 0) + 2, a multiple of 4 (int8)
+    static constexpr bool kQAdjacent = !kInt4;
 
     __device__ static int merge_idx(int row, int d) { return row * MS + d + d / (2 * VCH); }
 
@@ -287,34 +373,22 @@ struct QuantCache {
             return n * VCH + j;
     }
 
-    // Q's A fragments of one half (row gid or gid + 8) for every k-step,
-    // times qscale; zeros past the last row (qrow null)
-    __device__ static void load_q(uint32_t (&qa)[NK][4], const __nv_bfloat16* qrow, int half,
-                                  int tig, float qscale) {
-#pragma unroll
-        for (int kk = 0; kk < NK; ++kk) {
-            uint32_t lo = 0, hi = 0;  // k 2tig, 2tig+1 and 2tig+8, 2tig+9
-            if (qrow != nullptr) {
-                if constexpr (kInt4) {
-                    const int d0 = tig * KCH + 2 * kk;
-                    lo = *reinterpret_cast<const uint32_t*>(qrow + d0);
-                    hi = *reinterpret_cast<const uint32_t*>(qrow + D / 2 + d0);
-                } else {
-                    const uint2 v = *reinterpret_cast<const uint2*>(qrow + tig * KCH + 4 * kk);
-                    lo = v.x;
-                    hi = v.y;
-                }
-                lo = scale_pair(lo, qscale);
-                hi = scale_pair(hi, qscale);
-            }
-            qa[kk][half] = lo;
-            qa[kk][2 + half] = hi;
-        }
+    // The q element in the first half of A-fragment word j of k-step kk
+    // (j = 0: contraction index 2tig, 2tig+1; j = 1: 2tig+8, 2tig+9), as the
+    // K byte choice below pairs them
+    __device__ static int q_elem(int kk, int tig, int j) {
+        if constexpr (kInt4)
+            return (j ? D / 2 : 0) + tig * KCH + 2 * kk;
+        else
+            return tig * KCH + 4 * kk + 2 * j;
     }
 
-    // S = Q.K^T over the staged K rows: n-tile n holds positions 8n + gid
+    // S = Q.K^T over the staged K rows: n-tile n holds positions 8n + gid.
+    // q's first term is qa; with f32 q (QT = 3) term t of k-step kk is read
+    // from the stage at qx[((t - 1) * NK + kk) * 32]
+    template <int QT>
     __device__ static void scores(float (&s)[2][4], const uint32_t (&qa)[NK][4],
-                                  const uint8_t* kst, int lane) {
+                                  const uint4* qx, const uint8_t* kst, int lane) {
         const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
@@ -334,14 +408,17 @@ struct QuantCache {
                     b1 = bf16_pair(i8_f32(x, 2), i8_f32(x, 3));
                 }
                 mma_bf16(s[n], qa[kk], b0, b1);
+#pragma unroll
+                for (int t = 1; t < QT; ++t) mma_bf16(s[n], qx + ((t - 1) * NK + kk) * 32, b0, b1);
             }
         }
     }
 
-    // O = O * alpha + (P.V) * vs over the staged V rows, n-tile j by n-tile j
-    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p_hi)[4],
-                              const uint32_t (&p_lo)[4], const uint8_t* vst, int lane,
-                              const float (&alpha)[2], float vs) {
+    // O = O * alpha + (P.V) * vs over the staged V rows, n-tile j by n-tile
+    // j; P enters as the sum of its PT bf16 terms
+    template <int PT>
+    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p)[PT][4],
+                              const uint8_t* vst, int lane, const float (&alpha)[2], float vs) {
         const int gid = lane >> 2, tig = lane & 3;
         uint32_t vw[4][VW];  // positions 2tig, 2tig+1, 2tig+8, 2tig+9
 #pragma unroll
@@ -365,10 +442,10 @@ struct QuantCache {
                 b0 = bf16_pair(i8_f32(vw[0][j >> 2], j & 3), i8_f32(vw[1][j >> 2], j & 3));
                 b1 = bf16_pair(i8_f32(vw[2][j >> 2], j & 3), i8_f32(vw[3][j >> 2], j & 3));
             }
-            float p[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_bf16(p, p_hi, b0, b1);
-            mma_bf16(p, p_lo, b0, b1);
-            accumulate(acc[j], p, alpha, vs);
+            float pvj[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int t = 0; t < PT; ++t) mma_bf16(pvj, p[t], b0, b1);
+            accumulate(acc[j], pvj, alpha, vs);
         }
     }
 };
@@ -398,30 +475,19 @@ struct Bf16Cache {
     // word later, so a warp's store of one accumulator register (rows gid,
     // columns 2tig + e) hits 32 banks
     static constexpr int MS = D + (D % 32 == 0 ? 8 : 24);
+    static constexpr bool kQAdjacent = false;
 
     __device__ static int merge_idx(int row, int d) { return row * MS + d + ((row >> 2) & 1); }
     __device__ static int dmap(int j, int n) { return 8 * j + n; }
 
-    __device__ static void load_q(uint32_t (&qa)[NK][4], const __nv_bfloat16* qrow, int half,
-                                  int tig, float qscale) {
-#pragma unroll
-        for (int kk = 0; kk < NK; ++kk) {
-            uint32_t lo = 0, hi = 0;  // k 2tig, 2tig+1 and 2tig+8, 2tig+9
-            if (qrow != nullptr) {
-                lo = scale_pair(*reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * tig),
-                                qscale);
-                hi = scale_pair(*reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig),
-                                qscale);
-            }
-            qa[kk][half] = lo;
-            qa[kk][2 + half] = hi;
-        }
-    }
+    __device__ static int q_elem(int kk, int tig, int j) { return 16 * kk + 8 * j + 2 * tig; }
 
     // One ldmatrix.x4 a k-step: matrices (positions 0-7 | 8-15) x (dims
-    // 16kk.. | 16kk+8..), the B fragments of both n-tiles.
+    // 16kk.. | 16kk+8..), the B fragments of both n-tiles. bf16 q only.
+    template <int QT>
     __device__ static void scores(float (&s)[2][4], const uint32_t (&qa)[NK][4],
-                                  const uint8_t* kst, int lane) {
+                                  const uint4* /*qx*/, const uint8_t* kst, int lane) {
+        static_assert(QT == 1, "a bf16 cache takes bf16 q only");
         const int mi = lane >> 3;
         const uint8_t* row = kst + ((lane & 7) + 8 * (mi >> 1)) * SP + 16 * (mi & 1);
 #pragma unroll
@@ -435,9 +501,9 @@ struct Bf16Cache {
 
     // One ldmatrix.x4.trans a pair of n-tiles: matrices (positions 0-7 |
     // 8-15) x (dims 8j.. | 8j+8..), V^T's B fragments of n-tiles j, j+1.
-    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p_hi)[4],
-                              const uint32_t (&p_lo)[4], const uint8_t* vst, int lane,
-                              const float (&alpha)[2], float vs) {
+    template <int PT>
+    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p)[PT][4],
+                              const uint8_t* vst, int lane, const float (&alpha)[2], float vs) {
         const int mi = lane >> 3;
         const uint8_t* row = vst + ((lane & 7) + 8 * (mi & 1)) * SP + 16 * (mi >> 1);
 #pragma unroll
@@ -446,18 +512,25 @@ struct Bf16Cache {
             ldsm_x4_trans(b, row + 16 * j);
 #pragma unroll
             for (int t = 0; t < 2; ++t) {
-                float p[4] = {0.f, 0.f, 0.f, 0.f};
-                mma_bf16(p, p_hi, b[2 * t], b[2 * t + 1]);
-                mma_bf16(p, p_lo, b[2 * t], b[2 * t + 1]);
-                accumulate(acc[j + t], p, alpha, vs);
+                float pvj[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                for (int i = 0; i < PT; ++i) mma_bf16(pvj, p[i], b[2 * t], b[2 * t + 1]);
+                accumulate(acc[j + t], pvj, alpha, vs);
             }
         }
     }
 };
 
-template <class C>
+// Bytes of f32 q's staged terms (terms 1 and 2 of every k-step, in
+// fragment order) for one row group
+template <class C, class Q>
+__host__ __device__ constexpr int q_stage_bytes() {
+    return (Q::kQTerms - 1) * C::NK * 32 * 16;
+}
+
+template <class C, class Q>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D]
+paged_attention_mma_kernel(const typename Q::T* __restrict__ q,      // [B, T, H, D]
                            const uint8_t* __restrict__ k_cache,      // [NB, BS, KH, Dp]
                            const uint8_t* __restrict__ v_cache,      // [NB, BS, KH, Dp]
                            const float* __restrict__ k_scale,        // [NB, KH] (quantized)
@@ -465,7 +538,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
                            const int32_t* __restrict__ block_tables, // [B, NBLK]
                            const int32_t* __restrict__ q_start,      // [B]
                            const int32_t* __restrict__ kv_lens,      // [B]
-                           __nv_bfloat16* __restrict__ out,          // [B, T, H, D] (1 split)
+                           typename Q::T* __restrict__ out,          // [B, T, H, D] (1 split)
                            float* __restrict__ acc_out,              // [B, NS, KH, R, D]
                            float* __restrict__ m_out,                // [B, NS, KH, R]
                            float* __restrict__ l_out,                // [B, NS, KH, R]
@@ -495,18 +568,49 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
     // one ring for the whole CTA (bf16 with 2 or 4 row groups), else one a warp
     const bool shared = C::kSharedStage && RW > 1;
 
-    // Q's A fragments for every k-step, rows gid (half 0) and gid + 8 (half 1)
+    // Q's A fragments for every k-step, rows gid (half 0) and gid + 8 (half
+    // 1), word 2j + half of k-step kk holding the elements q_elem(kk, tig, j)
+    // and the next; zeros past the last row. Term 0 stays in registers (qa);
+    // f32 q's terms 1 and 2 go to the row group's q stage after the rings,
+    // written by its first walker: word w of term t, k-step kk, lane L at
+    // uint32 index (((t - 1) * NK + kk) * 32 + L) * 4 + w
+    constexpr int QT = Q::kQTerms;
+    const size_t ring_bytes = (size_t)(shared ? PW : kWarps) * S * C::STAGE;
+    uint32_t* qx = reinterpret_cast<uint32_t*>(smem + ring_bytes
+                                               + (size_t)rg * q_stage_bytes<C, Q>());
     int qpos[2];  // query position of the row; -1 past the last row
     uint32_t qa[C::NK][4];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int r = row0 + gid + 8 * half;
         qpos[half] = r < R ? qs + r / rep : -1;
-        C::load_q(qa,
-                  r < R ? q + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D
-                        : nullptr,
-                  half, tig, qscale);
+        const typename Q::T* qrow =
+            r < R ? q + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D : q;
+#pragma unroll
+        for (int kk = 0; kk < C::NK; ++kk) {
+            if constexpr (QT == 1) {
+                uint32_t w[2] = {0, 0};
+                if (r < R)
+                    Q::template load_kstep<C::kQAdjacent>(w, qrow, C::q_elem(kk, tig, 0),
+                                                           C::q_elem(kk, tig, 1), qscale);
+                qa[kk][half] = w[0];
+                qa[kk][2 + half] = w[1];
+            } else {
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    uint32_t t[QT] = {};
+                    if (r < R) Q::load_pair(t, qrow, C::q_elem(kk, tig, j), qscale);
+                    qa[kk][2 * j + half] = t[0];
+#pragma unroll
+                    for (int i = 1; i < QT; ++i)
+                        if (pl == 0)
+                            qx[(((i - 1) * C::NK + kk) * 32 + lane) * 4 + 2 * j + half] = t[i];
+                }
+            }
+        }
     }
+    if constexpr (QT > 1) __syncthreads();  // the q stage is written
+    const uint4* qx_lane = reinterpret_cast<const uint4*>(qx) + lane;
 
     // The units of rows up to last_row: the split's blocks, cut at the row's
     // last used block (ragged early exit) and at last_row's last visible
@@ -606,7 +710,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
             for (int n = 0; n < 2; ++n)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-            C::scores(s, qa, st, lane);
+            C::template scores<QT>(s, qa, qx_lane, st, lane);
 
             // online softmax; s[n][e] is row gid + 8*(e>>1), position
             // pos0 + 8n + 2tig + (e&1)
@@ -640,13 +744,19 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
                     s[n][e] = vis[n][e] ? expf(s[n][e] - m[h]) : 0.f;
                     l[h] += s[n][e];
                 }
-            uint32_t p_hi[4], p_lo[4];  // P's A fragments: S's accumulators
-            split_bf16(s[0][0], s[0][1], p_hi[0], p_lo[0]);
-            split_bf16(s[0][2], s[0][3], p_hi[1], p_lo[1]);
-            split_bf16(s[1][0], s[1][1], p_hi[2], p_lo[2]);
-            split_bf16(s[1][2], s[1][3], p_hi[3], p_lo[3]);
+            // P's A fragments, one a term: S's accumulators, word i from
+            // s[i / 2][2 (i % 2)], s[i / 2][2 (i % 2) + 1]
+            constexpr int PT = Q::kPTerms;
+            uint32_t pa[PT][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                uint32_t t[PT];
+                split_bf16<PT>(s[i >> 1][2 * (i & 1)], s[i >> 1][2 * (i & 1) + 1], t);
+#pragma unroll
+                for (int k = 0; k < PT; ++k) pa[k][i] = t[k];
+            }
 
-            C::pv(acc, p_hi, p_lo, st + kUnit * C::SP, lane, alpha, vs);
+            C::template pv<PT>(acc, pa, st + kUnit * C::SP, lane, alpha, vs);
         }
         sync_ring();  // the stage is consumed before it is refilled
     }
@@ -666,14 +776,14 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
             const int r = row0 + gid + 8 * h;
             if (r >= R) continue;
             if (ns == 1) {
-                __nv_bfloat16* o =
+                typename Q::T* o =
                     out + (((size_t)b * n_tok + r / rep) * H + kh * rep + r % rep) * D;
                 const float L = l[h] == 0.f ? 1.f : l[h];  // all-masked rows -> 0
 #pragma unroll
                 for (int j = 0; j < C::NN; ++j)
 #pragma unroll
                     for (int e = 2 * h; e < 2 * h + 2; ++e)
-                        o[C::dmap(j, 2 * tig + (e & 1))] = __float2bfloat16(acc[j][e] / L);
+                        o[C::dmap(j, 2 * tig + (e & 1))] = Q::to_out(acc[j][e] / L);
             } else {
                 const size_t srow = (((size_t)b * ns + split) * KH + kh) * R + r;
 #pragma unroll
@@ -690,7 +800,8 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
         return;
     }
 
-    // merge the walkers of each row group (the rings are free now)
+    // merge the walkers of each row group (the rings and the q stage are
+    // free now)
     __syncthreads();
     float* sm_acc = reinterpret_cast<float*>(smem);   // [kWarps][16][MS]
     float* sm_m = sm_acc + kWarps * kRows * C::MS;     // [kWarps][16]
@@ -728,7 +839,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
         if (ns == 1) {
             const int h = kh * rep + r % rep;
             out[(((size_t)b * n_tok + r / rep) * H + h) * D + d] =
-                __float2bfloat16(O / (L == 0.f ? 1.f : L));  // all-masked rows -> 0
+                Q::to_out(O / (L == 0.f ? 1.f : L));  // all-masked rows -> 0
         } else {
             const size_t srow = (((size_t)b * ns + split) * KH + kh) * R + r;
             acc_out[srow * D + d] = O;
@@ -740,7 +851,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H
     }
 }
 
-template <class C>
+template <class C, class Q>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int32_t* bt, const int32_t* qs, const int32_t* kl, void* out, float* acc,
            float* m, float* l, int B, int n_tok, int H, int KH, int BS, int NBLK, int ns,
@@ -748,11 +859,12 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     const int R = n_tok * (H / KH);
     const int n_rtiles = (R + kRows * RW - 1) / (kRows * RW);
     const int rings = C::kSharedStage && RW > 1 ? kWarps / RW : kWarps;  // units a step
-    const size_t ring = (size_t)rings * C::kStages * C::STAGE;
+    const size_t ring = (size_t)rings * C::kStages * C::STAGE
+                        + (size_t)RW * q_stage_bytes<C, Q>();
     const size_t merge = RW == kWarps ? 0  // one walker a row group: no merge
                          : sizeof(float) * ((size_t)kWarps * kRows * C::MS + 2 * kWarps * kRows);
     const size_t smem = ring > merge ? ring : merge;
-    auto kernel = paged_attention_mma_kernel<C>;
+    auto kernel = paged_attention_mma_kernel<C, Q>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -760,13 +872,13 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     }
     dim3 grid((unsigned)(B * KH * n_rtiles), (unsigned)ns);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
-        static_cast<const uint8_t*>(v), ks, vs, bt, qs, kl, static_cast<__nv_bfloat16*>(out),
+        static_cast<const typename Q::T*>(q), static_cast<const uint8_t*>(k),
+        static_cast<const uint8_t*>(v), ks, vs, bt, qs, kl, static_cast<typename Q::T*>(out),
         acc, m, l, n_tok, H, KH, BS, NBLK, spb, n_rtiles, RW, qscale);
     return (int)cudaGetLastError();
 }
 
-template <template <int> class Policy>
+template <template <int> class Policy, class Q>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const float* ks,
                const float* vs, const int32_t* bt, const int32_t* qs, const int32_t* kl,
                void* out, float* acc, float* m, float* l, int B, int n_tok, int H, int KH,
@@ -774,8 +886,8 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const float* 
     switch (D) {
 #define DYN_MMA_D(N)                                                                       \
     case N:                                                                                \
-        return launch<Policy<N>>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, H, \
-                                 KH, BS, NBLK, ns, spb, RW, qscale, stream);
+        return launch<Policy<N>, Q>(q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B, n_tok, \
+                                    H, KH, BS, NBLK, ns, spb, RW, qscale, stream);
         DYN_MMA_D(16) DYN_MMA_D(32) DYN_MMA_D(48) DYN_MMA_D(64)
         DYN_MMA_D(80) DYN_MMA_D(96) DYN_MMA_D(112) DYN_MMA_D(128)
         DYN_MMA_D(144) DYN_MMA_D(160) DYN_MMA_D(176) DYN_MMA_D(192)
@@ -790,16 +902,17 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const float* 
 
 extern "C" {
 
-// bf16 q (unscaled: the kernel multiplies it by qscale = D^-0.5 rounded to
-// bf16, rounding the product to bf16) and out. cache_kind: 0 = bf16
-// payload [NB, BS, KH, D] (scales
-// unused), 1 = int8 payload [NB, BS, KH, D], 2 = packed int4 uint8 payload
-// [NB, BS, KH, D/2]; 1 and 2 take f32 scales [NB, KH] for K and V.
-// D a multiple of 16 up to 256, BS a multiple of 16; RW = row groups of 16
-// query rows a CTA holds (1, 2 or 4). ns == 1 writes normalised rows to
-// `out`; ns > 1 writes each split's raw (acc, m, l) and leaves `out` alone.
-// Returns cudaGetLastError() of the launch (0 = launched).
-int dyn_paged_attention_mma(int cache_kind, const void* q, const void* k_cache,
+// q_dtype: 0 = bf16 q and out, 1 = f32 q and out. q is unscaled: the
+// kernel multiplies it by qscale = D^-0.5 rounded to q's dtype, rounding the
+// product to q's dtype. cache_kind: 0 = bf16 payload [NB, BS, KH, D]
+// (scales unused; bf16 q only), 1 = int8 payload [NB, BS, KH, D], 2 =
+// packed int4 uint8 payload [NB, BS, KH, D/2]; 1 and 2 take f32 scales
+// [NB, KH] for K and V. D a multiple of 16 up to 256, BS a multiple of 16;
+// RW = row groups of 16 query rows a CTA holds (1, 2 or 4). ns == 1 writes
+// normalised rows to `out`; ns > 1 writes each split's raw (acc, m, l) and
+// leaves `out` alone. Returns cudaGetLastError() of the launch (0 =
+// launched), cudaErrorInvalidValue for what it does not take.
+int dyn_paged_attention_mma(int q_dtype, int cache_kind, const void* q, const void* k_cache,
                             const void* v_cache, const float* k_scale, const float* v_scale,
                             const int32_t* block_tables, const int32_t* q_start,
                             const int32_t* kv_lens, void* out, float* acc, float* m, float* l,
@@ -807,13 +920,15 @@ int dyn_paged_attention_mma(int cache_kind, const void* q, const void* k_cache,
                             int spb, int RW, float qscale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (BS % kUnit != 0 || !(RW == 1 || RW == 2 || RW == 4)) return (int)cudaErrorInvalidValue;
-#define DYN_MMA_CACHE(P)                                                                   \
-    return dispatch_d<P>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables, q_start, \
-                         kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK, ns, spb, RW,    \
-                         qscale, s)
-    if (cache_kind == 0) DYN_MMA_CACHE(Bf16Cache);
-    if (cache_kind == 1) DYN_MMA_CACHE(Int8Cache);
-    if (cache_kind == 2) DYN_MMA_CACHE(Int4Cache);
+#define DYN_MMA_CACHE(P, Q)                                                                \
+    return dispatch_d<P, Q>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables, q_start, \
+                            kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK, ns, spb, RW, \
+                            qscale, s)
+    if (q_dtype == 0 && cache_kind == 0) DYN_MMA_CACHE(Bf16Cache, QueryBf16);
+    if (q_dtype == 0 && cache_kind == 1) DYN_MMA_CACHE(Int8Cache, QueryBf16);
+    if (q_dtype == 0 && cache_kind == 2) DYN_MMA_CACHE(Int4Cache, QueryBf16);
+    if (q_dtype == 1 && cache_kind == 1) DYN_MMA_CACHE(Int8Cache, QueryF32);
+    if (q_dtype == 1 && cache_kind == 2) DYN_MMA_CACHE(Int4Cache, QueryF32);
 #undef DYN_MMA_CACHE
     return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -86,6 +87,35 @@ def build_log(name: str) -> str:
     library predates this process's build directory)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_KERNEL_ARGS = (
+    (r"QuantCacheILb0ELi(\d+)E", "Int8Cache<{}>"),
+    (r"QuantCacheILb1ELi(\d+)E", "Int4Cache<{}>"),
+    (r"Bf16CacheILi(\d+)E", "Bf16Cache<{}>"),
+    (r"(QueryBf16|QueryF32)", "{}"),
+    (r"FloatCacheELi(\d+)E", "FloatCache, NCH {}"),
+)
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """One entry per kernel instantiation in ``build_log(name)``: its
+    template arguments read from the mangled name (``kernel``), registers
+    and spill bytes."""
+    rows: list[dict] = []
+    for line in build_log(name).splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            args = [fmt.format(m.group(1)) for pat, fmt in _KERNEL_ARGS
+                    for m in [re.search(pat, mangled)] if m]
+            rows.append({"kernel": ", ".join(args) or mangled})
+        elif rows and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            rows[-1].update(spill_stores=int(st), spill_loads=int(ld))
+        elif rows and "Used" in line and "registers" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return rows
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -10,8 +10,10 @@ is the variant marker, as in JAX. :func:`paged_attention` is the one entry:
 on a CUDA tensor it launches the kernel that :data:`ROUTES` names for (q
 dtype, cache kind) — or raises, there is no fallback — and on a CPU tensor
 it runs :func:`paged_attention_plain`. Two designs: ``mma`` (tensor cores,
-pipelined cp.async page loads: bf16 q over every cache) and ``scalar`` (CUDA
-cores, f32 products: f32 q over every cache, for f32 parity).
+pipelined cp.async page loads: bf16 q over every cache, and f32 q over an
+int8 or int4 cache, whose f32 products it keeps by splitting q and p into
+three bf16 terms each) and ``scalar`` (CUDA cores, f32 products: f32 q over
+the f32 cache).
 
 Conventions kept from the TPU kernel, so both versions agree with it:
 - q is scaled by ``D^-0.5`` in q's own dtype before attention
@@ -56,6 +58,9 @@ INT4_QMAX = 7.0
 #: the kernel's cache variants, by the ``cache_kind`` code it takes
 CACHE_KINDS = ("float", "int8", "int4")
 
+#: the mma kernel's query dtypes, by the ``q_dtype`` code it takes
+MMA_Q_DTYPES = (torch.bfloat16, torch.float32)
+
 #: (q dtype, cache kind) -> the kernel that serves it on the card; the part
 #: before "_" is its design
 ROUTES = {
@@ -63,8 +68,8 @@ ROUTES = {
     (torch.bfloat16, "int8"): "mma_int8",
     (torch.bfloat16, "int4"): "mma_int4",
     (torch.float32, "float"): "scalar_float",
-    (torch.float32, "int8"): "scalar_int8_f32q",
-    (torch.float32, "int4"): "scalar_int4_f32q",
+    (torch.float32, "int8"): "mma_int8_f32q",
+    (torch.float32, "int4"): "mma_int4_f32q",
 }
 ROUTE_KERNELS = tuple(dict.fromkeys(ROUTES.values()))
 
@@ -367,12 +372,12 @@ def _ptr(x: torch.Tensor | None) -> ctypes.c_void_p:
 def _kernel_fn(kernel_design: str):
     """The ctypes entry of a design: ``dyn_paged_attention`` (scalar:
     dtype code, cache kind, ..., q scale) or ``dyn_paged_attention_mma``
-    (cache kind, ..., row groups, q scale)."""
+    (q dtype code, cache kind, ..., row groups, q scale)."""
     from dynamo_tpu_torch.ops.build import load_library
 
     if kernel_design == "mma":
         fn = load_library("paged_attention_mma").dyn_paged_attention_mma
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     else:
         fn = load_library("paged_attention").dyn_paged_attention
@@ -427,8 +432,8 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
     qscale = _query_scale(d, q.dtype)   # both kernels scale q as they load it
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     if design(route) == "mma":
-        rc = _kernel_fn("mma")(CACHE_KINDS.index(kind), *ptrs, *dims, mma_row_groups(r),
-                               qscale, stream)
+        rc = _kernel_fn("mma")(MMA_Q_DTYPES.index(q.dtype), CACHE_KINDS.index(kind), *ptrs,
+                               *dims, mma_row_groups(r), qscale, stream)
     else:
         rc = _kernel_fn("scalar")(0, CACHE_KINDS.index(kind), *ptrs, *dims,  # 0: f32 q
                                   qscale, stream)

@@ -3,16 +3,22 @@ tensor-core design rests on, on the CPU.
 
 ``ops.paged_attention.ROUTES`` maps (q dtype, cache kind) to a kernel:
 the mma design (``csrc/paged_attention_mma.cu``: bf16 q over a bf16, int8
-or packed-int4 cache) or the scalar design (``csrc/paged_attention.cu``:
-f32 q over every cache). Both kernels run only on the card, where
-``chip_smoke.py`` holds them against the plain version; here the route
-table, the input checks, the split count and the exactness argument of the
-mma design are checked:
+or packed-int4 cache, and f32 q over an int8 or packed-int4 cache) or the
+scalar design (``csrc/paged_attention.cu``: f32 q over the f32 cache). Both
+kernels run only on the card, where ``chip_smoke.py`` holds them against
+the plain version; here the route table, the input checks, the split count
+and the exactness argument of the mma design are checked:
 - int8 and int4 values widen to bf16 exactly (|x| <= 127 fits bf16's 8-bit
   significand), including through the kernel's bit tricks;
 - P enters the MMA as p_hi + p_lo, both bf16: the product with int8 or
   bf16 V then equals the f32 product to 2^-16 of sum |p v| (p alone as
   bf16 errs by up to 2^-9 a weight);
+- f32 q: an f32 splits exactly into three bf16 terms (round to nearest
+  even, as ``__float2bfloat16_rn``), each partial product of a term with
+  an int8 or int4 value is exact, and the three sum to the exact product
+  (two terms do not); summed in f32 a k-step of 16 at a time, as the MMA
+  sums, scores and p.v stay within chip_smoke.py's f32 limit
+  (2e-5 |ref| + 2e-5) of the f64 reference at the decode shape;
 - q scaled by D^-0.5 as either kernel loads it (bf16 or f32) has the bits
   of the wrapper's ``scale_query``.
 """
@@ -32,10 +38,11 @@ PAIRS = {
     (torch.bfloat16, "int8"): ("mma_int8", "mma"),
     (torch.bfloat16, "int4"): ("mma_int4", "mma"),
     (torch.float32, "float"): ("scalar_float", "scalar"),
-    (torch.float32, "int8"): ("scalar_int8_f32q", "scalar"),
-    (torch.float32, "int4"): ("scalar_int4_f32q", "scalar"),
+    (torch.float32, "int8"): ("mma_int8_f32q", "mma"),
+    (torch.float32, "int4"): ("mma_int4_f32q", "mma"),
 }
 KINDS = ["float", "int8", "int4"]
+QUANT = ["int8", "int4"]
 
 
 @pytest.mark.parametrize("pair", list(PAIRS), ids=lambda p: f"{p[0]}-{p[1]}")
@@ -67,18 +74,26 @@ def _inputs(q_dtype, kind, d, bs, kh=2, h=4, b=2, nblk=3, nb=8):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,bs", [(24, 16), (40, 16), (16, 8), (64, 24)])
 def test_mma_route_refuses_shapes_it_does_not_take(kind, d, bs):
-    """bf16 q over any cache needs D and BS multiples of 16 and raises
-    otherwise (never re-routes); f32 q at the same shape takes the scalar
-    route and passes."""
+    """bf16 q over any cache, and f32 q over an int8 or int4 cache, need D
+    and BS multiples of 16 and raise otherwise (never re-route); f32 q over
+    the f32 cache at the same shape takes the scalar route and passes."""
     with pytest.raises(ValueError, match="multiples of 16"):
         tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
-    tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
+    if kind == "float":
+        tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
+    else:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
 
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,bs", [(16, 16), (64, 16), (128, 16), (128, 32), (256, 16)])
 def test_mma_route_takes_its_shapes(kind, d, bs):
-    tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
+    """bf16 q over every cache, and f32 q over an int8 or int4 cache."""
+    q_dtypes = [torch.bfloat16] + ([torch.float32] if kind in QUANT else [])
+    for q_dtype in q_dtypes:
+        assert tpa.design(tpa.ROUTES[(q_dtype, kind)]) == "mma"
+        tpa._check_cuda_inputs(*_inputs(q_dtype, kind, d, bs))
 
 
 def _offset_view(x: torch.Tensor, elems: int) -> torch.Tensor:
@@ -91,14 +106,20 @@ def _offset_view(x: torch.Tensor, elems: int) -> torch.Tensor:
 @pytest.mark.parametrize("kind", KINDS)
 def test_mma_route_refuses_a_misaligned_query(kind):
     """The mma kernels read q in 4- and 8-byte vectors: a contiguous q at a
-    storage offset off 16 bytes raises instead of faulting on the card; the
-    scalar route reads f32 q an element at a time and takes it."""
+    storage offset off 16 bytes raises instead of faulting on the card, f32
+    q over an int8 or int4 cache as bf16 q; the scalar route (f32 q over
+    the f32 cache) reads q an element at a time and takes it."""
     q, *rest = _inputs(torch.bfloat16, kind, 128, 16)
     tpa._check_cuda_inputs(_offset_view(q, 8), *rest)        # 16 bytes in: aligned
     with pytest.raises(ValueError, match="16-byte aligned"):
         tpa._check_cuda_inputs(_offset_view(q, 1), *rest)
     q32, *rest32 = _inputs(torch.float32, kind, 128, 16)
-    tpa._check_cuda_inputs(_offset_view(q32, 1), *rest32)
+    tpa._check_cuda_inputs(_offset_view(q32, 4), *rest32)    # 16 bytes in: aligned
+    if kind == "float":
+        tpa._check_cuda_inputs(_offset_view(q32, 1), *rest32)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tpa._check_cuda_inputs(_offset_view(q32, 1), *rest32)
 
 
 def test_programs_per_row():
@@ -107,6 +128,8 @@ def test_programs_per_row():
                               (65, 16, 40), (512, 64, 256)):
         assert tpa.programs_per_row("mma_int8", rows, 8) == mma, rows
         assert tpa.programs_per_row("mma_bf16", rows, 8) == mma, rows
+        assert tpa.programs_per_row("mma_int8_f32q", rows, 8) == mma, rows
+        assert tpa.programs_per_row("mma_int4_f32q", rows, 8) == mma, rows
         assert tpa.programs_per_row("scalar_float", rows, 8) == scalar, rows
     assert [tpa.mma_row_groups(r) for r in (1, 16, 17, 32, 33, 512)] == [1, 1, 2, 2, 4, 4]
 
@@ -156,12 +179,14 @@ def test_num_splits_for_at_the_serving_shapes(name, kind, card_splits):
 
 
 def test_num_splits_for_counts_the_route_programs(card_splits):
-    """8 query tokens x rep 4 = 32 rows: the scalar design has 2 row tiles of
-    16 a kv head, the mma design one CTA of 2 row groups, so the mma route
-    splits further to fill the card."""
+    """8 query tokens x rep 4 = 32 rows: the scalar design (f32 q, f32
+    cache) has 2 row tiles of 16 a kv head, the mma design (every other
+    route, f32 q over int8 included) one CTA of 2 row groups, so the mma
+    routes split further to fill the card."""
     q32 = torch.zeros((1, 8, 32, 128), dtype=torch.float32)
     q16 = q32.to(torch.bfloat16)
-    assert card_splits(q32, 8, 64, 0, "int8") == 9
+    assert card_splits(q32, 8, 64, 0, "float") == 9
+    assert card_splits(q32, 8, 64, 0, "int8") == 16
     assert card_splits(q16, 8, 64, 0, "int8") == 16
     assert card_splits(q16, 8, 64, 3, "int8") == 3
 
@@ -215,10 +240,10 @@ def test_kernel_q_scale_matches_scale_query(d):
 
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 def test_scalar_kernel_q_scale_matches_scale_query(d):
-    """The scalar kernel scales f32 q as it loads it: one f32 multiply by
-    D^-0.5 rounded to f32, i.e. the exact product (24-bit x 24-bit
-    significands fit a double) rounded once to f32, is the wrapper's
-    ``scale_query`` bit for bit."""
+    """The scalar kernel and the mma kernel's f32-q policy scale f32 q as
+    they load it: one f32 multiply by D^-0.5 rounded to f32, i.e. the exact
+    product (24-bit x 24-bit significands fit a double) rounded once to
+    f32, is the wrapper's ``scale_query`` bit for bit."""
     rng = np.random.default_rng(d)
     q = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32) * 8)
     s = tpa._query_scale(d, torch.float32)
@@ -250,3 +275,173 @@ def test_split_p_keeps_pv_to_2_pow_minus_16(seed, v_kind):
     assert ((split - ref).abs() / scale).max().item() <= 2.0**-16
     one = (hi @ v).double()
     assert ((one - ref).abs() / scale).max().item() > 2.0**-12  # why the split is needed
+
+
+# ---------------------------------------------------------------------------
+# f32 q on the tensor cores: the exact three-term bf16 split of q and p
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's limit for the f32-q routes: |err| <= F32_REL |ref| + F32_ABS
+F32_REL = F32_ABS = 2e-5
+
+
+def _bf16_rn(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 (returned as f32) with round to nearest even, as
+    ``__float2bfloat16_rn`` rounds (finite inputs)."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    r = ((b >> 16) & 1) + np.uint32(0x7FFF)
+    return ((b + r) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _split(x: np.ndarray, terms: int) -> list[np.ndarray]:
+    """The kernel's split_bf16: term i is what the earlier terms leave,
+    rounded to bf16; every remainder is taken in f32."""
+    out, rest = [], np.asarray(x, np.float32)
+    for _ in range(terms):
+        t = _bf16_rn(rest)
+        out.append(t)
+        rest = (rest - t).astype(np.float32)
+    return out
+
+
+def _normal_f32(rng, n: int, e_lo: int, e_hi: int) -> np.ndarray:
+    """Normal f32 numbers with random 24-bit significands, signs and
+    exponents in [e_lo, e_hi]."""
+    sig = (rng.integers(0, 2**23, size=n) | 2**23).astype(np.float64) / 2**23
+    e = rng.integers(e_lo, e_hi + 1, size=n).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], size=n)
+    return (sign * sig * 2.0**e).astype(np.float32)
+
+
+@pytest.mark.parametrize("e_lo,e_hi", [(-100, -60), (-60, -2), (-2, 2), (2, 60), (60, 100)])
+def test_three_way_split_is_exact(e_lo, e_hi):
+    rng = np.random.default_rng(e_lo + 1000)
+    x = _normal_f32(rng, 50_000, e_lo, e_hi)
+    # the emulated rounding is torch's (round to nearest even)
+    assert np.array_equal(_bf16_rn(x), torch.from_numpy(x).to(torch.bfloat16).float().numpy())
+    hi, mid, lo = _split(x, 3)
+    # each remainder is exact in f32, and the third fits bf16 unrounded
+    r1 = x.astype(np.float64) - hi
+    assert np.array_equal(r1, (x - hi).astype(np.float64))
+    assert np.array_equal(r1 - mid, (r1 - mid).astype(np.float32).astype(np.float64))
+    assert np.array_equal(lo.astype(np.float64), r1 - mid)
+    total = hi.astype(np.float64) + mid + lo
+    assert np.array_equal(total, x.astype(np.float64))
+    # two terms keep ~16 of the 24 bits
+    assert np.mean(hi.astype(np.float64) + mid != x) > 0.9
+
+
+def _ints(rng, kind: str, shape) -> np.ndarray:
+    lo, hi = (-127, 128) if kind == "int8" else (-8, 8)
+    return rng.integers(lo, hi, size=shape).astype(np.float64)
+
+
+@pytest.mark.parametrize("product", ["qk", "pv"])
+@pytest.mark.parametrize("kind", QUANT)
+def test_three_term_partial_products_are_exact(kind, product):
+    """Element by element, in f64: each term times an int8 or int4 value is
+    exact in f32 (8-bit x 8-bit significands), and the three partial
+    products sum to the exact product. The two-term split of
+    test_split_p_keeps_pv_to_2_pow_minus_16 does not."""
+    rng = np.random.default_rng(7 if kind == "int8" else 8)
+    n = 100_000
+    if product == "qk":   # q * D^-0.5 in f32, as the kernel loads it
+        x = (rng.standard_normal(n).astype(np.float32) * 4
+             * np.float32(tpa._query_scale(128, torch.float32))).astype(np.float32)
+    else:                 # softmax weights in [0, 1]
+        x = np.exp(-rng.exponential(4.0, n)).astype(np.float32)
+    w = _ints(rng, kind, n)
+    w[w == 0] = 1
+    exact = x.astype(np.float64) * w
+    parts = [t.astype(np.float64) * w for t in _split(x, 3)]
+    for p in parts:
+        assert np.array_equal(p.astype(np.float32).astype(np.float64), p)
+    assert np.array_equal(parts[0] + parts[1] + parts[2], exact)
+    two = [t.astype(np.float64) * w for t in _split(x, 2)]
+    assert np.mean(two[0] + two[1] != exact) > 0.9
+
+
+def _k_steps(kind: str, d: int) -> list[np.ndarray]:
+    """The head-dim elements of each k-step of q.k in the kernel's
+    fragment layout: k-step kk holds q_elem(kk, tig, j) and the next, for
+    tig < 4, j < 2 (csrc/paged_attention_mma.cu, QuantCache::q_elem)."""
+    kch = d // 8 if kind == "int4" else d // 4
+    steps = []
+    for kk in range(d // 16):
+        idx = []
+        for tig in range(4):
+            for j in range(2):
+                e0 = ((d // 2 if j else 0) + tig * kch + 2 * kk if kind == "int4"
+                      else tig * kch + 4 * kk + 2 * j)
+                idx += [e0, e0 + 1]
+        steps.append(np.array(idx))
+    assert np.array_equal(np.sort(np.concatenate(steps)), np.arange(d))
+    return steps
+
+
+def _mma(c: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """c + a.b^T over one k-step: exact products summed, one f32 rounding."""
+    return (c.astype(np.float64) + a.astype(np.float64) @ b.T).astype(np.float32)
+
+
+def _within_f32_limit(got, ref) -> float:
+    return float(np.max(np.abs(got - ref) / (F32_REL * np.abs(ref) + F32_ABS)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", QUANT)
+def test_f32_summed_split_emulation_within_the_f32_limit(kind, seed):
+    """The f32-q kernel at the decode shape (D=128, rep 4 query rows of a kv
+    head, 10 units of 16 positions, one block a unit), emulated: q * D^-0.5
+    in f32 split into three bf16 terms, q.k as three MMAs a k-step of the
+    kernel's layout, each summing exact products into the f32 accumulator
+    with one rounding; the K scale on the scores; the online softmax in
+    f32; p split into three terms, p.v as three MMAs a unit; the V scale;
+    the final division. Scores, each unit's p.v and the output stay within
+    the f32 limit of the f64 reference."""
+    rng = np.random.default_rng(seed)
+    d, rows, units, unit = 128, 4, 10, 16
+    qmax = 127.0 if kind == "int8" else tpa.INT4_QMAX
+    q = (rng.standard_normal((rows, d)).astype(np.float32)
+         * np.float32(tpa._query_scale(d, torch.float32))).astype(np.float32)
+    kv = {}
+    for name in ("k", "v"):
+        real = rng.standard_normal((units, unit, d))
+        scale = (np.abs(real).max(axis=(1, 2)) / qmax).astype(np.float32)   # a block's
+        ints = np.clip(np.round(real / scale[:, None, None]), -qmax, qmax)
+        kv[name] = (ints, scale)
+    (k, ks), (v, vs) = kv["k"], kv["v"]
+    steps = _k_steps(kind, d)
+    q_terms = _split(q, 3)
+
+    m = np.full(rows, -1e30, np.float32)
+    l = np.zeros(rows, np.float32)
+    acc = np.zeros((rows, d), np.float32)
+    ref_s = []
+    for u in range(units):
+        s = np.zeros((rows, unit), np.float32)
+        for idx in steps:
+            for t in q_terms:
+                s = _mma(s, t[:, idx], k[u][:, idx])
+        s = (s * ks[u]).astype(np.float32)
+        ref = q.astype(np.float64) @ k[u].T * np.float64(ks[u])
+        assert _within_f32_limit(s, ref) <= 1.0
+        ref_s.append(ref)
+        m_new = np.maximum(m, s.max(axis=1))
+        alpha = np.exp(m - m_new).astype(np.float32)
+        p = np.exp(s - m_new[:, None]).astype(np.float32)
+        l = (l * alpha + p.sum(axis=1, dtype=np.float32)).astype(np.float32)
+        pv = np.zeros((rows, d), np.float32)
+        for t in _split(p, 3):
+            pv = _mma(pv, t, v[u].T)
+        pv = (pv * vs[u]).astype(np.float32)
+        pv_ref = p.astype(np.float64) @ v[u] * np.float64(vs[u])
+        assert _within_f32_limit(pv, pv_ref) <= 1.0
+        acc = (acc.astype(np.float64) * alpha[:, None] + pv).astype(np.float32)  # fmaf
+        m = m_new
+    out = (acc / l[:, None]).astype(np.float32)
+    s_all = np.concatenate(ref_s, axis=1)                                   # [rows, S]
+    w = np.exp(s_all - s_all.max(axis=1, keepdims=True))
+    v_all = (v * vs[:, None, None].astype(np.float64)).reshape(units * unit, d)
+    ref_out = (w @ v_all) / w.sum(axis=1, keepdims=True)
+    assert _within_f32_limit(out, ref_out) <= 1.0

@@ -135,6 +135,49 @@ def test_scale_query_rounds_in_the_query_dtype():
     np.testing.assert_array_equal(out, ref)
 
 
+def _decode_case(rng, kind: str):
+    """chip_smoke.py phase (a)'s decode shape (B=32, kv 128-192, KH=8,
+    H=32, D=128, BS=16): f32 q, and an f32, int8 or packed-int4 cache."""
+    b, h, kh, d, bs, nblk = 32, 32, 8, 128, 16, 16
+    nb = b * nblk + 1
+    kv_len = rng.integers(128, 193, size=b).astype(np.int32)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32))
+
+    def cache():
+        if kind == "float":
+            return torch.from_numpy(rng.standard_normal((nb, bs, kh, d)).astype(np.float32))
+        qmax = 127 if kind == "int8" else 7
+        ints = torch.from_numpy(rng.integers(-qmax, qmax + 1, size=(nb, bs, kh, d)))
+        payload = ints.to(torch.int8) if kind == "int8" else tpa.pack_int4(ints)
+        # scales of standard-normal rows (amax ~ 3), as chip_smoke quantizes
+        scale = rng.uniform(0.7, 1.3, (nb, kh)) * 3 / qmax
+        return {"q": payload, "s": torch.from_numpy(scale.astype(np.float32))}
+
+    bt = torch.from_numpy((rng.permutation(nb - 1)[: b * nblk] + 1)
+                          .reshape(b, nblk).astype(np.int32))
+    kl = torch.from_numpy(kv_len)
+    return q, cache(), cache(), bt, kl - 1, kl
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "int4"])
+def test_f32_limit_catches_a_query_rounded_to_bf16(kind):
+    """chip_smoke.py holds every f32-q route to |err| <= F32_REL |ref| +
+    F32_ABS (2e-5, 2e-5). At its decode shape the plain version with q
+    rounded to bf16 breaks that limit against the plain f32 version, while
+    the plain f32 version walked in 4 splits (f32 sums in another order)
+    keeps it."""
+    from chip_smoke import F32_ABS, F32_REL
+
+    q, kc, vc, bt, qs, kl = _decode_case(np.random.default_rng(31), kind)
+    ref = tpa.paged_attention_plain(q, kc, vc, bt, qs, kl, num_splits=1)
+    limit = F32_REL * ref.abs() + F32_ABS
+    split = tpa.paged_attention_plain(q, kc, vc, bt, qs, kl, num_splits=4)
+    assert ((split - ref).abs() / limit).max().item() <= 1.0
+    q_bf16 = q.to(torch.bfloat16).float()
+    rounded = tpa.paged_attention_plain(q_bf16, kc, vc, bt, qs, kl, num_splits=1)
+    assert ((rounded - ref).abs() / limit).max().item() > 1.0
+
+
 def test_resolve_num_splits_matches_jax():
     table = [
         dict(num_splits=0, nblk=nblk, batch=b, q_chunks=qc, q_tokens=t,
