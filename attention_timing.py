@@ -30,9 +30,11 @@ old, new, new, old.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line a
 case: ``label``, ``q``, ``cache``, ``route``, ``shape``, ``ms``,
-``ms_idle``, ``max_abs_err`` against the plain version and
+``ms_idle``, ``max_abs_err`` against the plain version,
 ``err_over_limit``, the worst |err| / (rel |ref| + abs) under the limit of
-q's dtype in chip_smoke.py (bf16: 2^-7, 1e-4; f32: 2e-5, 2e-5). It fails
+q's dtype in chip_smoke.py (bf16: 2^-7, 1e-4; f32: 2e-5, 2e-5), and
+``out_sha256``, a digest of the output's bytes (two trees that print the
+same digest for a case computed the same bits from the same inputs). It fails
 only where ``max_abs_err`` exceeds 2e-2, so an older tree is timed whatever
 its error; chip_smoke.py holds the limits. Exits non-zero without a CUDA
 card.
@@ -41,6 +43,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -76,8 +79,9 @@ def timed(fn, sleep: bool, iters: int = 20, warmup: int = 3) -> float:
 
 def case(seed: int, b: int, t: int, nblk: int, q_start, q_len, device: str = "cuda",
          h: int = 32, kh: int = 8, d: int = 128, bs: int = 16):
-    """f32 q (``--q bf16`` times it rounded to bf16), bf16 K and V and the
-    tables of one shape, from ``seed``."""
+    """f32 q, K and V and the tables of one shape, from ``seed``: ``--q
+    bf16`` times q rounded to bf16, and the bf16 cache and the quantized
+    caches' source are K and V rounded to bf16."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     nb = b * nblk + 1
@@ -85,7 +89,7 @@ def case(seed: int, b: int, t: int, nblk: int, q_start, q_len, device: str = "cu
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    q, k, v = randn(b, t, h, d), randn(nb, bs, kh, d).bfloat16(), randn(nb, bs, kh, d).bfloat16()
+    q, k, v = randn(b, t, h, d), randn(nb, bs, kh, d), randn(nb, bs, kh, d)
     perm = torch.randperm(nb - 1, generator=gen, device=device)[: b * nblk] + 1
     bt = perm.reshape(b, nblk).to(torch.int32).contiguous()
     qs = torch.tensor(q_start, dtype=torch.int32, device=device)
@@ -161,17 +165,21 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
-    for name, ((q32, k, v, bt, qs, kl), ns) in shapes().items():
+    for name, ((q32, k32, v32, bt, qs, kl), ns) in shapes().items():
+        k, v = k32.bfloat16(), v32.bfloat16()
         for kind in kinds:
             kq, vq = (None, None) if kind == "float" else (quantize(k, kind), quantize(v, kind))
             for q_name in q_names:
                 q_dtype, (rel, abs_) = Q_DTYPES[q_name]
                 q = q32.to(q_dtype)
-                kc, vc = (k.to(q_dtype), v.to(q_dtype)) if kind == "float" else (kq, vq)
+                kc, vc = (((k32, v32) if q_dtype == torch.float32 else (k, v))
+                          if kind == "float" else (kq, vq))
                 call = (q, kc, vc, bt, qs, kl)
                 ref = pa.paged_attention_plain(*call, num_splits=1).float()
-                diff = (pa.paged_attention(*call, num_splits=ns).float() - ref).abs()
+                out = pa.paged_attention(*call, num_splits=ns)
+                diff = (out.float() - ref).abs()
                 err = diff.max().item()
+                digest = hashlib.sha256(out.cpu().view(torch.uint8).numpy().tobytes())
                 row = {"label": args.label, "q": q_name, "cache": kind,
                        "route": getattr(pa, "ROUTES", {}).get((q_dtype, kind)), "shape": name,
                        "ms": timed(lambda: pa.paged_attention(*call, num_splits=ns),
@@ -179,12 +187,13 @@ def main() -> int:
                        "ms_idle": timed(lambda: pa.paged_attention(*call, num_splits=ns),
                                         sleep=False),
                        "max_abs_err": err,
-                       "err_over_limit": (diff / (rel * ref.abs() + abs_)).max().item()}
+                       "err_over_limit": (diff / (rel * ref.abs() + abs_)).max().item(),
+                       "out_sha256": digest.hexdigest()[:16]}
                 print(json.dumps(row), flush=True)
                 if not err <= 2e-2:
                     raise AssertionError(f"{q_name} q, {kind} {name}: max_abs_err {err} "
                                          "against the plain version (tol 2e-2)")
-                del q, kc, vc, call, ref, diff
+                del q, kc, vc, call, ref, out, diff
             del kq, vq
         torch.cuda.empty_cache()
     return 0

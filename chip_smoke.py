@@ -3,20 +3,25 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``dynamo_tpu_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs, in order, and
-exits non-zero if any phase fails:
+``nvcc`` per source, all started together: one source,
+``csrc/paged_attention_mma.cu``), then runs, in order, and exits non-zero
+if any phase fails:
 
 (a) each kernel of ``ops.paged_attention.ROUTES`` against its plain
     PyTorch version on the card: every cache (bf16 or f32 for the
-    model-precision cache, int8, packed int4) with bf16 queries (the
-    tensor-core ``mma_*`` kernels) and with f32 queries (``scalar_float``
-    over the f32 cache, the tensor-core ``mma_*_f32q`` kernels over int8
-    and int4) at the main path's shapes (llama-3-8b-lite attention: KH=8,
+    model-precision cache, int8, packed int4) with bf16 queries
+    (``mma_bf16``, ``mma_int8``, ``mma_int4``) and with f32 queries
+    (``mma_f32`` over the f32 cache, ``mma_int8_f32q``, ``mma_int4_f32q``),
+    all instantiations of the one tensor-core design, at the main path's
+    shapes (llama-3-8b-lite attention: KH=8,
     H=32, D=128, block 16: decode, a 128-token prefill, ragged chunks, an
     8-token chunk whose 32 query rows make 2 row groups a CTA, split-K), at
-    the long-context decode geometry of ``bench.py`` (B=16, kv 8192) and at
-    the two other head widths the tensor-core design serves (D=16, KH=2,
-    H=4: tiny-real-llama; D=64, KH=8, H=64: the D=64 presets). bf16-q
+    the long-context decode geometry of ``bench.py`` (B=16, kv 8192), at
+    the two other head widths of the presets (D=16, KH=2, H=4:
+    tiny-real-llama; D=64, KH=8, H=64: the D=64 presets) and at the widest
+    head the kernel takes (D=256, KH=1, H=2, B=4: its largest shared-memory
+    layout). q is drawn in f32; the f32 cache holds full-precision f32
+    draws of K and V, the bf16 cache the same draws rounded to bf16. bf16-q
     routes are held to one bf16 rounding, f32-q routes to the f32 limit
     (with TF32 off for the plain version's f32 products). Each case checks
     it ran the kernel its route names; with kernel / plain / library
@@ -36,8 +41,7 @@ exits non-zero if any phase fails:
     coverage must be 1.0, and serving must make no new graph — every step
     is a replay. The kernel launch counts (counted through replays) are set
     to 0 just before each run and read just after, and each run must launch
-    its own variant only, 8 per forward step, through its route's kernel
-    (the tensor-core ``mma_*`` kernels);
+    its own variant only, 8 per forward step, through its route's kernel;
 (b') the same bf16 serving run with fused decode windows
     (``decode_window=4``, one graph of 4 decode steps): its greedy streams
     must equal (b)'s bf16 streams token for token, each window's graph must
@@ -45,6 +49,15 @@ exits non-zero if any phase fails:
     one serve-time capture is the legacy prefill step of all 32 rows, whose
     batch size lies past the legacy prefill ladder (1, 2, 4, 8) that the
     lattice enumerates, as the JAX package's does;
+(b'') the serving path in f32: llama-3-8b-lite with f32 weights (random,
+    from a seed) and the f32 model-precision KV cache, 32 requests, prompt
+    128, 32 greedy output tokens, after a full warmup as in (b), through
+    ``mma_f32`` only, 8 launches per forward step counted through replays;
+    then, in every layer, ``mma_f32`` over the f32 cache as the run left it
+    (the model's own f32 K and V, checked not to be bf16 values), with the
+    tables of the run's last decode step, must keep the f32 limit against
+    the plain version; prints decode tok/s beside the card's name and power
+    limit;
 (c) coherence: the trained checkpoint ``tests/data/tiny-real-llama``
     through the port's loader and tokenizer must continue "one two three
     four" with " five six seven eight" on the card, with a bf16 and with an
@@ -55,10 +68,12 @@ exits non-zero if any phase fails:
     pipelined step loop), at every kv dtype. These engines capture each
     bucket's graph lazily, at its first step.
 
-Prints the card's name and power limit (nvidia-smi), one JSON ``kernels``
-line (an entry per kernel of ``ROUTES``, its launches counted in the run
-that serves its route: (b) for bf16 q, (c)'s f32 runs for f32 q), and as
-its last line ``{"ok": true, "device": {...}}``.
+Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
+per kernel instantiation (registers, spills), one JSON ``kernels`` line
+(an entry per kernel of ``ROUTES``, its launches counted in the run that
+serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
+(c)'s f32 runs for f32 q over int8 and int4), and as its last line
+``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b) and (b') under
@@ -94,10 +109,15 @@ F32_REL, F32_ABS = 2e-5, 2e-5
 
 # H100 SXM memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s), NVIDIA
 # data sheet; the port runs on that card only.
-# float32 outside the tensor cores: 67 TFLOP/s, the rate of f32-q products
-# (the bound of the function in its own type, whatever units compute it).
+# float32 outside the tensor cores: 67 TFLOP/s. The f32 products of an
+# f32-q route are done at the lesser cost of that rate and the bf16 tensor
+# rate over the MMAs an f32-exact product takes there (F32_MMAS).
 CARD, CARD_BW, CARD_PEAK = "H100 80GB HBM3", 3.35e12, 989e12
 CARD_PEAK_F32 = 67e12
+#: bf16 MMAs an f32-exact product takes, by cache kind: three q (or p)
+#: terms against an exact int8 / int4 value; six term products of two
+#: three-way splits against an f32 cache
+F32_MMAS = {"float": 6, "int8": 3, "int4": 3}
 
 #: the kernel's cache variants (ops.paged_attention.CACHE_KINDS) and the
 #: engine's kv_dtype that serves each with bf16 queries
@@ -123,9 +143,8 @@ def card_rates(name: str) -> tuple[float, float]:
     return CARD_BW, CARD_PEAK
 
 
-#: the source of each kernel design
-SOURCES = {"scalar": "dynamo_tpu_torch/csrc/paged_attention.cu",
-           "mma": "dynamo_tpu_torch/csrc/paged_attention_mma.cu"}
+#: the source of every route's kernel
+SOURCE = "dynamo_tpu_torch/csrc/paged_attention_mma.cu"
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -155,13 +174,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 def attention_case(gen, b, t, nblk, q_start, q_len, h=32, kh=8, d=128, bs=16):
-    """f32 q (every bit of its significand used: a route that rounded f32 q
-    to bf16 would show), bf16 K and V, and the tables of one shape."""
+    """f32 q, K and V (every bit of their significands used: a route that
+    rounded f32 q, or an f32 cache, to bf16 would show) and the tables of
+    one shape. The bf16 cache and the quantized caches' source are K and V
+    rounded to bf16."""
     nb = b * nblk + 1
-    dt = torch.bfloat16
     q = torch.randn((b, t, h, d), generator=gen, device="cuda")
-    k = torch.randn((nb, bs, kh, d), generator=gen, device="cuda").to(dt)
-    v = torch.randn((nb, bs, kh, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((nb, bs, kh, d), generator=gen, device="cuda")
+    v = torch.randn((nb, bs, kh, d), generator=gen, device="cuda")
     perm = torch.randperm(nb - 1, generator=gen, device="cuda")[: b * nblk] + 1
     bt = perm.reshape(b, nblk).to(torch.int32).contiguous()
     qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
@@ -293,10 +313,13 @@ def check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak) -> dic
     if name.startswith("ragged"):
         finite = finite and bool((out[4] == 0).all())  # all-masked row → 0
     nbytes, ops = attention_work(q, kc, bt, qs, kl)
-    rate = peak if q.dtype == torch.bfloat16 else CARD_PEAK_F32
-    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
+    if q.dtype == torch.bfloat16:
+        ops_s = ops / peak
+    else:
+        ops_s = min(ops / CARD_PEAK_F32, ops * F32_MMAS[kind] / peak)
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops_s * 1e3
     row = {
-        "route": route, "design": pa.design(route),
+        "route": route,
         "max_abs_err": err, "err_over_limit": ratio, "err_limit": [rel, abs_],
         "num_splits": ns_used,
         "ms": time_ms(lambda: pa.paged_attention(*args, num_splits=ns)),
@@ -353,9 +376,12 @@ def phase_kernels(bw: float, peak: float) -> dict:
             gen, **decode, h=4, kh=2, d=16), 0),
         "decode D=64 KH=8 H=64 B=32 kv 128-192": (attention_case(
             gen, **decode, h=64, kh=8, d=64), 0),
+        "decode D=256 KH=1 H=2 B=4 kv 128-192 auto splits": (attention_case(
+            gen, 4, 1, 16, [n - 1 for n in lens[:4]], [1] * 4, h=2, kh=1, d=256), 0),
     }
     results: dict[str, dict] = {route: {} for route in pa.ROUTE_KERNELS}
-    for name, ((q32, k, v, bt, qs, kl), ns) in cases.items():
+    for name, ((q32, k32, v32, bt, qs, kl), ns) in cases.items():
+        k, v = k32.bfloat16(), v32.bfloat16()
         for kind in KV_DTYPES:
             if kind == "float":
                 mism = None
@@ -365,8 +391,10 @@ def phase_kernels(bw: float, peak: float) -> dict:
                                               scatter_mismatch(v, vq, kind))]
             for q_dtype in Q_DTYPES:
                 q = q32.to(q_dtype)
-                # a model-precision cache holds q's dtype
-                kc, vc = (k.to(q_dtype), v.to(q_dtype)) if kind == "float" else (kq, vq)
+                # a model-precision cache holds q's dtype: the f32 cache full
+                # f32 draws, the bf16 cache the same rounded
+                kc, vc = (((k32, v32) if q_dtype == torch.float32 else (k, v))
+                          if kind == "float" else (kq, vq))
                 row = check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak)
                 results[row["route"]][name] = row
                 del q, kc, vc
@@ -395,11 +423,72 @@ def print_profile(prof, wall_s: float) -> None:
             f"{100 * e.self_device_time_total / busy_us:5.1f}% x{e.count:<6d} {e.key[:90]}")
 
 
-def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict, dict]:
-    """One serving run with the KV cache of ``kind`` after a full warmup:
-    it must launch that kernel variant only, once per layer and forward
-    step, all through replays of graphs the warmup captured. Returns the
-    run's numbers and its token streams."""
+#: llama-3-8b-lite with f32 weights, the model of (b'')
+F32_MODEL = "llama-3-8b-lite-f32"
+
+
+def register_f32_model() -> str:
+    """Register llama-3-8b-lite with f32 weights as a preset of its own
+    (its random weights are drawn in f32 from the same seed); returns its
+    name."""
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+
+    MODEL_PRESETS[F32_MODEL] = dataclasses.replace(
+        MODEL_PRESETS["llama-3-8b-lite"], dtype="float32", name=F32_MODEL)
+    return F32_MODEL
+
+
+def check_live_cache(runner, gen) -> dict:
+    """(b''): the f32 cache as the serving run left it holds the model's own
+    f32 K and V (post-RoPE, mostly not bf16 values). In every layer, one
+    decode call of the f32 route over that cache, with the block tables,
+    q_start and q_len of the run's last step in a decode bucket (its
+    program's static inputs) and f32 q drawn from ``gen``, must agree with
+    the plain version within the f32 limit."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = runner.cfg
+    h, d = cfg.num_heads, cfg.head_dim
+    key, prog = max(((k, p) for k, p in runner.programs.items()
+                     if k[1] == 1 and k[3] == 1 and p.calls), key=lambda kp: kp[0][0])
+    b, _, nblk = key[:3]
+    bt = prog.ints[b: b + b * nblk].view(b, nblk)
+    qs, q_len = prog.ints[b * (1 + nblk): b * (1 + nblk) + 2 * b].view(2, b)
+    kl = qs + q_len
+    used = torch.unique(bt[kl > 0])
+    rel, abs_ = err_limit(torch.float32)
+    worst, not_bf16 = 0.0, []
+    for li in range(cfg.num_layers):
+        kc, vc = runner.cache_k[li], runner.cache_v[li]
+        held = torch.cat([kc[used].flatten(), vc[used].flatten()])
+        held = held[held != 0]
+        not_bf16.append((held != held.bfloat16().float()).float().mean().item())
+        q = torch.randn((b, 1, h, d), generator=gen, device=gen.device)
+        args = (q, kc, vc, bt, qs, kl)
+        out = pa.paged_attention(*args)
+        ref = pa.paged_attention_plain(*args, num_splits=1)
+        ratio = ((out - ref).abs() / (rel * ref.abs() + abs_)).max().item()
+        if not (ratio <= 1.0 and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"[b''] layer {li}: {pa.ROUTES[(torch.float32, 'float')]} "
+                                 f"on the live f32 cache: err/limit {ratio}")
+        worst = max(worst, ratio)
+    if min(not_bf16) < 0.5:
+        raise AssertionError(f"[b''] the f32 cache holds bf16 values: the share of its "
+                             f"nonzero elements that are not bf16 values is {not_bf16}")
+    res = {"bucket": list(key), "rows": int((kl > 0).sum()), "kv_len_max": int(kl.max()),
+           "blocks": int(used.numel()), "layers": cfg.num_layers,
+           "err_over_limit": worst, "not_bf16_share_min": min(not_bf16)}
+    log(f"[b''] live f32 cache vs plain version, every layer: {json.dumps(res)}")
+    return res
+
+
+def phase_serve(kind: str, profile: bool = False, window: int = 1,
+                f32: bool = False) -> tuple[dict, dict]:
+    """One serving run with the KV cache of ``kind`` after a full warmup
+    (bf16 weights, or with ``f32`` f32 weights over the f32 model-precision
+    cache): it must launch its route's kernel only, once per layer and
+    forward step, all through replays of graphs the warmup captured.
+    Returns the run's numbers and its token streams."""
     from dynamo_tpu_torch.engine.engine import build_engine
     from dynamo_tpu_torch.obs.compile_ledger import get_compile_ledger
     from dynamo_tpu_torch.ops import paged_attention as pa
@@ -407,11 +496,13 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict
         PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.utils.config import EngineConfig
 
-    batch, prompt, decode = 32, 128, 64
-    tag = f"[b] kv_dtype={KV_DTYPES[kind]}" if window == 1 else f"[b'] decode_window={window}"
+    batch, prompt, decode = 32, 128, 32 if f32 else 64
+    model = register_f32_model() if f32 else "llama-3-8b-lite"
+    tag = ("[b''] f32" if f32 else f"[b] kv_dtype={KV_DTYPES[kind]}" if window == 1
+           else f"[b'] decode_window={window}")
     t0 = time.perf_counter()
     engine = build_engine(EngineConfig(
-        model="llama-3-8b-lite", block_size=16, max_batch_size=batch,
+        model=model, block_size=16, max_batch_size=batch,
         max_model_len=prompt + decode + 16, prefill_chunk=prompt,
         kv_dtype=KV_DTYPES[kind], allow_random_weights=True,
         decode_window=window, warmup_mode="full"))
@@ -421,7 +512,7 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict
     vocab = core.model_cfg.vocab_size
     spec = core.runner.spec
     warm = core.warmup_summary
-    log(f"{tag}: llama-3-8b-lite engine built and warmed up in {setup_s:.2f}s; kv blocks "
+    log(f"{tag}: {model} engine built and warmed up in {setup_s:.2f}s; kv blocks "
         f"{spec.num_blocks}, {spec.bytes_per_block()} bytes per block; warmup {warm}")
     if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
         raise AssertionError(f"{tag}: warmup left buckets without a graph: {warm}")
@@ -487,7 +578,7 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict
         raise AssertionError(f"{tag}: serving made graphs {minted} ({serve_events} serve "
                              "ledger events); every step must replay a warmed-up graph")
     layers = core.model_cfg.num_layers
-    route = pa.ROUTES[(torch.bfloat16, kind)]
+    route = pa.ROUTES[(torch.float32 if f32 else torch.bfloat16, kind)]
     forward_steps = sum(p.calls * p.shape[3] for p in programs.values())
     want = {k: (layers * forward_steps if k == route else 0) for k in by_kernel}
     launches = sum(by_kernel.values())
@@ -502,10 +593,15 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict
     windows_run = sum(p.calls for k, p in programs.items() if k[3] > 1)
     if window > 1 and windows_run == 0:
         raise AssertionError(f"{tag}: no fused window ran")
+    live = None
+    if f32:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        live = check_live_cache(core.runner, gen)
     t_first = max(first_at.values())
     t_end = max(done_at.values())
     res = {
-        "kv_dtype": KV_DTYPES[kind], "decode_window": window, "requests": batch,
+        "model": model, "kv_dtype": KV_DTYPES[kind], "decode_window": window, "requests": batch,
         "tokens": batch * decode, "steps": steps, "forward_steps": forward_steps,
         "windows": windows_run, "launches": launches, "launches_by_kernel": by_kernel,
         "launches_per_forward_step": launches / max(forward_steps, 1),
@@ -517,6 +613,8 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1) -> tuple[dict
         "warmup_s": warm["seconds"], "graphs_warmed": len(warmed),
         "graph_pool_gib": warm["graph_pool_gib"], "serve_captures": [list(k) for k in minted],
     }
+    if live is not None:
+        res["live_cache_check"] = live
     log(f"{tag} " + json.dumps(res))
     del engine, core, programs, warmed
     gc.collect()
@@ -618,7 +716,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from dynamo_tpu_torch.ops import build
-    from dynamo_tpu_torch.ops.paged_attention import ROUTES, design
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -647,6 +745,10 @@ def main() -> int:
         f"{len(streams['float']) - len(differ)} of {len(streams['float'])}")
     if differ:
         raise AssertionError(f"[b'] streams {differ} differ from decode_window=1's")
+    serve_f32, _ = phase_serve("float", profile=profile, f32=True)
+    log(f"[b''] f32 llama-3-8b-lite decode tok/s {serve_f32['decode_tok_s']} on {smi}, "
+        f"{serve_f32['launches_per_forward_step']} launches of "
+        f"{ROUTES[(torch.float32, 'float')]} a forward step")
     coherence = phase_coherence()
 
     lines = []
@@ -655,12 +757,14 @@ def main() -> int:
         main_shape = rows[MAIN_CASE]
         if q_dtype == torch.bfloat16:
             launches, run = serve[kind]["launches_by_kernel"][route], "(b) serving"
+        elif kind == "float":
+            launches, run = serve_f32["launches_by_kernel"][route], "(b'') f32 serving"
         else:
             launches = coherence[KV_DTYPES[kind]]["f32_launches_by_kernel"][route]
             run = "(c) f32 coherence"
         lines.append({
-            "name": route, "route": "cuda", "design": design(route),
-            "source": SOURCES[design(route)],
+            "name": route, "route": "cuda",
+            "source": SOURCE,
             "replaces": "dynamo_tpu/ops/paged_attention.py:314",
             "q_dtype": str(q_dtype).removeprefix("torch."),
             "cache": str(q_dtype).removeprefix("torch.") if kind == "float" else kind,

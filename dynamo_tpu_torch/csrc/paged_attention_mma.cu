@@ -1,22 +1,21 @@
-// Paged attention for bf16 queries over a bf16, an int8 or a packed-int4 KV
-// cache, and for f32 queries over an int8 or a packed-int4 cache, on
-// Hopper's tensor cores (sm_90a).
+// Paged attention on Hopper's tensor cores (sm_90a): bf16 queries over a
+// bf16, an int8 or a packed-int4 KV cache, and f32 queries over an f32, an
+// int8 or a packed-int4 cache.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/paged_attention.py
-// (paged_attention_kernel :314, body _kernel :199) for every route but f32
-// q over an f32 cache:
+// (paged_attention_kernel :314, body _kernel :199) for every route:
 //
-//   TPU kernel variant (:314)             | route here (q dtype, cache) | design
-//   model-precision cache                 | bf16 q, bf16 cache          | mma, this file (Bf16Cache)
-//   int8 cache (quant :201-206, :258-276) | bf16 q, int8 cache          | mma, this file (Int8Cache)
-//   packed-int4 cache (int4 :240-251)     | bf16 q, int4 cache          | mma, this file (Int4Cache)
-//   model-precision cache, f32            | f32 q, f32 cache            | scalar, paged_attention.cu
-//   int8 cache with f32 q (f32 products   | f32 q, int8 cache           | mma, this file (Int8Cache,
-//     :256, :273)                         |                             |   QueryF32)
-//   packed-int4 cache with f32 q          | f32 q, int4 cache           | mma, this file (Int4Cache,
-//                                         |                             |   QueryF32)
+//   TPU kernel variant (:314)             | route here (q dtype, cache) | cache policy, query policy
+//   model-precision cache                 | bf16 q, bf16 cache          | Bf16Cache, QueryBf16
+//   model-precision cache, f32 (f32       | f32 q, f32 cache            | F32Cache, QueryF32
+//     products :255-257, :272-274)        |                             |
+//   int8 cache (quant :201-206, :258-276) | bf16 q, int8 cache          | Int8Cache, QueryBf16
+//   packed-int4 cache (int4 :240-251)     | bf16 q, int4 cache          | Int4Cache, QueryBf16
+//   int8 cache with f32 q (f32 products   | f32 q, int8 cache           | Int8Cache, QueryF32
+//     :256, :273)                         |                             |
+//   packed-int4 cache with f32 q          | f32 q, int4 cache           | Int4Cache, QueryF32
 //
-// Same function as the TPU kernel and the scalar kernel: flash attention
+// Same function as the TPU kernel: flash attention
 // with an online softmax straight over the paged cache. Query token t of
 // row b sees context position c when c <= q_start[b] + t and c < kv_lens[b];
 // a row whose context is all masked outputs 0; for a quantized cache the
@@ -25,9 +24,9 @@
 // writes each split's raw f32 (acc, m, l) for the torch combine. q is
 // scaled by D^-0.5 in q's dtype as it is loaded (the TPU wrapper's
 // rounding), and the output has q's dtype.
-// Payloads: bf16 [NB, BS, KH, D]; int8 [NB, BS, KH, D]; int4 uint8 [NB, BS,
-// KH, D/2], byte j holding element j (low nibble) and j + D/2 (high),
-// sign-extended.
+// Payloads: bf16 [NB, BS, KH, D]; f32 [NB, BS, KH, D]; int8 [NB, BS, KH,
+// D]; int4 uint8 [NB, BS, KH, D/2], byte j holding element j (low nibble)
+// and j + D/2 (high), sign-extended.
 //
 // f32 q keeps the TPU kernel's f32 products on bf16 tensor cores. An int8
 // or int4 value is exact in bf16, and an f32 x splits exactly into three
@@ -36,32 +35,43 @@
 // q.k = q_hi.k + q_mid.k + q_lo.k and p.v = p_hi.v + p_mid.v + p_lo.v, three
 // MMAs each, every partial product exact in f32 (8-bit x 8-bit
 // significands) and summed in f32 by the tensor core: the f32 products up
-// to the order of the f32 sums. A query policy (QueryBf16, QueryF32 below)
-// holds what differs: bf16 q is one term and p two (p_hi + p_lo, ~16 bits,
-// enough for a bf16 output), f32 q three of each.
+// to the order of the f32 sums. An f32 cache element is split the same
+// way, and of the nine term products the three below 2^-24 of the whole
+// (mid.lo, lo.mid, lo.lo: |mid| <= 2^-8 |x|, |lo| <= 2^-16 |x|) are
+// dropped: six MMAs for q.k and six for p.v. A query policy (QueryBf16,
+// QueryF32 below) holds what differs on q's side: bf16 q is one term and p
+// two (p_hi + p_lo, ~16 bits, enough for a bf16 output), f32 q three of
+// each.
 //
 // What bounds it on an H100: bytes. Each (row, kv head) reads its context
-// once at 2 bytes (bf16), 1 byte (int8) or half a byte (int4) an element,
-// plus 8 bytes of scales per block for a quantized cache; the two products
-// do ~2-4 operations per byte read (three times as many MMAs for f32 q),
-// far below the ~295 per byte at which the tensor cores would be the
-// limit. So the design keeps many loads in flight and little work per
-// byte:
+// once at 4 bytes (f32), 2 bytes (bf16), 1 byte (int8) or half a byte
+// (int4) an element, plus 8 bytes of scales per block for a quantized
+// cache; the two products do ~1-4 operations per byte read (three or six
+// times as many MMAs for f32 q), far below the ~295 per byte at which the
+// tensor cores would be the limit. So the design keeps many loads in
+// flight and little work per byte:
 //   - loads: the context is walked in units of 16 positions (a block is
 //     BS/16 units). A unit's K and V rows are copied with 16-byte cp.async
 //     (8-byte where a quantized head's row is not a multiple of 16 bytes),
 //     and a quantized unit's two f32 scales with 4-byte ones, into a ring
-//     of kStages units in shared memory: the next kStages-1 units are in
-//     flight while one is consumed. Block-table entries are read 32 at a
-//     time, one per lane;
-//   - operands: a cache policy (Bf16Cache, Int8Cache, Int4Cache below)
-//     turns staged bytes into the MMA's bf16 B fragments. bf16 rows already
-//     are the operands: ldmatrix.x4 reads K as q.k's col-major B and
-//     ldmatrix.x4.trans reads V as p.v's. int8 / int4 are widened in
-//     registers, once per element: int8 through an exact f32 magic-number
-//     widening (|x| <= 127 fits bf16's significand, so the f32's upper half
-//     is the bf16); int4 by placing the biased nibble in a bf16 mantissa and
-//     subtracting the bias, both nibbles of a byte from one load;
+//     of kStages items in shared memory: the next kStages-1 items are in
+//     flight while one is consumed. An item is a whole unit, or for the
+//     f32 cache (kSplitKV) its K rows or its V rows: a ring of three such
+//     items keeps a unit in flight in 3/4 of the bytes of two whole units,
+//     which at D = 128 leaves room for 2 CTAs an SM at decode (4 rings of
+//     25,344 B + 8 KB of q terms = 109,568 B a CTA) and lets D = 256
+//     launch (216,064 B a CTA, 1 CTA an SM). Block-table entries are read
+//     32 at a time, one per lane;
+//   - operands: a cache policy (Bf16Cache, F32Cache, Int8Cache, Int4Cache
+//     below) turns staged bytes into the MMA's bf16 B fragments. bf16 rows
+//     already are the operands: ldmatrix.x4 reads K as q.k's col-major B
+//     and ldmatrix.x4.trans reads V as p.v's. f32 rows are read 16 bytes a
+//     thread and split into three terms in registers, as each fragment is
+//     built. int8 / int4 are widened in registers, once per element: int8
+//     through an exact f32 magic-number widening (|x| <= 127 fits bf16's
+//     significand, so the f32's upper half is the bf16); int4 by placing
+//     the biased nibble in a bf16 mantissa and subtracting the bias, both
+//     nibbles of a byte from one load;
 //   - both products on tensor cores (mma.sync m16n8k16, bf16 in, f32
 //     accumulate): S = Q.K^T with a warp's 16 query rows on M and the
 //     unit's 16 positions on N; S's accumulator fragments are P's A
@@ -75,21 +85,22 @@
 //     the same 16 rows, each walking every 4th unit through its own ring;
 //     R <= 32 puts 2 row groups of 16 in a CTA with 2 warps each, larger R
 //     4 row groups of one warp. There a quantized policy keeps one ring a
-//     warp, while the bf16 policy stages each unit once for the whole CTA
-//     (one ring the CTA's warps fill together, a CTA barrier before a stage
-//     is refilled) and every row group reads it: a bf16 unit is copied, not
-//     widened, so prefill's copies per (row, kv head) are the whole cost.
+//     warp, while the bf16 and f32 policies stage each unit once for the
+//     whole CTA (one ring the CTA's warps fill together, a CTA barrier
+//     before a stage is refilled) and every row group reads it.
 //     The walkers of a row group merge their (acc, m, l) in shared memory
 //     at the end with the logsumexp merge; a warp alone on its row group
 //     writes from its registers. The wrapper (ops/paged_attention.py,
 //     mma_row_groups) picks the row groups.
-// Fragment layout of the quantized policies: each index of a product's
-// contraction may be permuted as long as both operands agree, so each
-// thread reads contiguous bytes of a row: K bytes [tig*D/4, +D/4) (int8) or
-// [tig*D/8, +D/8) (int4) of positions gid and gid+8; V bytes [gid*D/8,
-// +D/8) or [gid*D/16, +D/16) of positions 2tig, 2tig+1, 2tig+8, 2tig+9.
-// q's A fragments follow K's choice (q_elem), the output columns V's
-// (dmap). The bf16 policy keeps the MMA's own layout (dmap is the
+// Fragment layout of the quantized and f32 policies: each index of a
+// product's contraction may be permuted as long as both operands agree, so
+// each thread reads contiguous bytes of a row: K bytes [tig*D/4, +D/4)
+// (int8) or [tig*D/8, +D/8) (int4) of positions gid and gid+8; V bytes
+// [gid*D/8, +D/8) or [gid*D/16, +D/16) of positions 2tig, 2tig+1, 2tig+8,
+// 2tig+9; f32 one 16-byte chunk of a row a read (F32Cache::k_chunk,
+// dmap), chosen so that the 8 lanes of a read phase hit 8 distinct bank
+// groups. q's A fragments follow K's choice (q_elem), the output columns
+// V's (dmap). The bf16 policy keeps the MMA's own layout (dmap is the
 // identity).
 //
 // Shapes: D a multiple of 16 up to 256, BS a multiple of 16 (the wrapper
@@ -327,11 +338,12 @@ __device__ __forceinline__ void accumulate(float (&acc)[4], const float (&pv)[4]
 }
 
 // ---------------------------------------------------------------------------
-// Cache policies. Each gives a staged unit's byte geometry (K rows, V rows,
-// and for a quantized cache the block's two f32 scales), the q A-fragment
-// layout its K fragments agree with, S = Q.K^T and O += P.V over one staged
-// unit, the head-dim element of each output column (dmap) and a merge-area
-// layout free of bank conflicts.
+// Cache policies. Each gives a ring item's byte geometry (K rows, V rows,
+// and for a quantized cache the block's two f32 scales; with kSplitKV an
+// item holds a unit's K rows or its V rows), the q A-fragment layout its K
+// fragments agree with, S = Q.K^T and O += P.V over one staged unit, the
+// head-dim element of each output column (dmap) and a merge-area layout
+// free of bank conflicts.
 // ---------------------------------------------------------------------------
 
 // int8 (kInt4 false) or packed int4 (true): widened in registers.
@@ -340,6 +352,8 @@ struct QuantCache {
     static constexpr int D = D_;
     static constexpr bool kScaled = true;
     static constexpr bool kSharedStage = false;
+    static constexpr bool kSplitKV = false;
+    static constexpr int kMinBlocks = 0;  // no minimum asked of ptxas (see F32Cache)
     static constexpr int kStages = 3;
     static constexpr int Dp = kInt4 ? D / 2 : D;         // payload bytes of a row
     static constexpr int SP = Dp + kPad;                  // staged row stride
@@ -461,6 +475,8 @@ struct Bf16Cache {
     static constexpr int D = D_;
     static constexpr bool kScaled = false;
     static constexpr bool kSharedStage = true;
+    static constexpr bool kSplitKV = false;
+    static constexpr int kMinBlocks = 0;  // no minimum asked of ptxas (see F32Cache)
     static constexpr int kStages = kBf16Stages;
     static constexpr int Dp = 2 * D;             // payload bytes of a row
     // staged row stride: SP / 16 is odd, so the 8 rows of one ldmatrix
@@ -521,6 +537,156 @@ struct Bf16Cache {
     }
 };
 
+__device__ __forceinline__ float elem(const float4& v, int e) {
+    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// c += the six products of a's and b's three bf16 terms (a[t], (b0[t],
+// b1[t])) larger than 2^-24 of the whole, smallest first: mid.mid, hi.lo,
+// lo.hi (~2^-16 of the whole), hi.mid, mid.hi, hi.hi (the f32-limit
+// errors of phase (a) read the same as with the largest first, PERF.md §6)
+__device__ __forceinline__ void mma6(float (&c)[4], const uint32_t (&a0)[4],
+                                     const uint32_t (&a1)[4], const uint32_t (&a2)[4],
+                                     const uint32_t (&b0)[3], const uint32_t (&b1)[3]) {
+    mma_bf16(c, a1, b0[1], b1[1]);
+    mma_bf16(c, a0, b0[2], b1[2]);
+    mma_bf16(c, a2, b0[0], b1[0]);
+    mma_bf16(c, a0, b0[1], b1[1]);
+    mma_bf16(c, a1, b0[0], b1[0]);
+    mma_bf16(c, a0, b0[0], b1[0]);
+}
+
+// f32: staged rows are f32, split in registers into three exact bf16 terms
+// as each B fragment is built; f32 q only. A unit's K rows and its V rows
+// are ring items of their own (kSplitKV), three a ring.
+template <int D_>
+struct F32Cache {
+    static constexpr int D = D_;
+    static constexpr bool kScaled = false;
+    static constexpr bool kSharedStage = true;
+    static constexpr bool kSplitKV = true;
+    // CTAs an SM the launch bounds ask of ptxas (0: none, the other
+    // policies' choice, which keeps their code as it was): asked for 2, it
+    // gives this policy up to 255 registers; left to itself it gave it 168
+    // at D = 128 and spilled, 5-20% slower outside prefill (PERF.md §6)
+    static constexpr int kMinBlocks = 2;
+    static constexpr int kStages = 3;             // ring items: K and V of a unit, the next K
+    static constexpr int Dp = 4 * D;              // payload bytes of a row
+    // staged row stride: SP / 16 = D/4 + 1 is odd, so the reads below put
+    // the 8 lanes of a 16-byte read phase in 8 distinct bank groups
+    static constexpr int SP = Dp + kPad;
+    static constexpr int CB = 16;                 // cp.async bytes
+    static constexpr int CPR = Dp / CB;
+    static constexpr int STAGE = kUnit * SP;      // one item: a unit's K rows or V rows
+    static constexpr int NK = D / 16;
+    static constexpr int NN = D / 8;
+    static constexpr int NG = NN / 4;             // n-tiles read 4 at a time (the rest 2)
+    // merge area: MS = 1 (mod 8) words a row, so a warp's store of one
+    // accumulator register (rows gid, columns 8tig apart) hits 32 banks
+    static constexpr int MS = D + 1;
+    static constexpr bool kQAdjacent = false;
+
+    __device__ static int merge_idx(int row, int d) { return row * MS + d; }
+
+    // The 16-byte chunk of a K row that thread tig reads for k-step kk:
+    // k-steps 2p and 2p+1 take chunks 8p + 2tig and 8p + 2tig + 1, so the
+    // two rows of a read phase (gid 0, 1: SP/16 odd apart) fall on even and
+    // odd bank groups; an odd last k-step takes its 4 chunks in order
+    __device__ static int k_chunk(int kk, int tig) {
+        return kk < (NK & ~1) ? 8 * (kk >> 1) + 2 * tig + (kk & 1) : 4 * kk + tig;
+    }
+
+    // The q element in the first half of A-fragment word j of k-step kk:
+    // the chunk's elements 0, 1 (j = 0) and 2, 3 (j = 1)
+    __device__ static int q_elem(int kk, int tig, int j) { return 4 * k_chunk(kk, tig) + 2 * j; }
+
+    // The head-dim element held in column n of p.v's n-tile j: thread gid
+    // reads chunk 8g + gid of a V row for n-tiles 4g..4g+3 (the 4 rows of a
+    // read phase 2 positions apart, SP/16 odd: distinct bank groups), and 8
+    // bytes at element 32 NG + 2 gid for a last pair of n-tiles
+    __device__ static int dmap(int j, int n) {
+        return j < 4 * NG ? 32 * (j >> 2) + 4 * n + (j & 3) : 32 * NG + 2 * n + (j - 4 * NG);
+    }
+
+    // S = Q.K^T over the staged K rows: n-tile n holds positions 8n + gid.
+    // q's hi term is qa, mid and lo are read from the stage at qx[kk * 32]
+    // and qx[(NK + kk) * 32]; K's three terms come from one 16-byte read a
+    // k-step and n-tile. The products with q_hi go to s, those with q_mid
+    // and q_lo (~2^-8 of them) to a second accumulator added at the end,
+    // whose sums then round at their own scale (one accumulator read a
+    // worst err / f32 limit of 0.104 at prefill against 0.082, PERF.md §6)
+    template <int QT>
+    __device__ static void scores(float (&s)[2][4], const uint32_t (&qa)[NK][4],
+                                  const uint4* qx, const uint8_t* kst, int lane) {
+        static_assert(QT == 3, "an f32 cache takes f32 q only");
+        const int gid = lane >> 2, tig = lane & 3;
+        float s2[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+            const uint4 m4 = qx[kk * 32], l4 = qx[(NK + kk) * 32];
+            const uint32_t qm[4] = {m4.x, m4.y, m4.z, m4.w};
+            const uint32_t ql[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                const float4 k = *reinterpret_cast<const float4*>(
+                    kst + (gid + 8 * n) * SP + 16 * k_chunk(kk, tig));
+                uint32_t b0[3], b1[3];
+                split_bf16<3>(k.x, k.y, b0);
+                split_bf16<3>(k.z, k.w, b1);
+                mma_bf16(s2[n], qm, b0[1], b1[1]);     // mid.mid
+                mma_bf16(s2[n], ql, b0[0], b1[0]);     // lo.hi
+                mma_bf16(s2[n], qm, b0[0], b1[0]);     // mid.hi
+                mma_bf16(s[n], qa[kk], b0[2], b1[2]);  // hi.lo
+                mma_bf16(s[n], qa[kk], b0[1], b1[1]);  // hi.mid
+                mma_bf16(s[n], qa[kk], b0[0], b1[0]);  // hi.hi
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] += s2[n][e];
+    }
+
+    // O = O * alpha + P.V over the staged V rows, n-tile by n-tile: V
+    // elements dmap(j, gid) of positions 2tig, 2tig+1, 2tig+8, 2tig+9, each
+    // split into three terms, six MMAs with p's three
+    template <int PT>
+    __device__ static void pv(float (&acc)[NN][4], const uint32_t (&p)[PT][4],
+                              const uint8_t* vst, int lane, const float (&alpha)[2], float vs) {
+        static_assert(PT == 3, "an f32 cache takes f32 q only");
+        const int gid = lane >> 2, tig = lane & 3;
+        const uint8_t* rows[4];  // positions 2tig, 2tig+1, 2tig+8, 2tig+9
+#pragma unroll
+        for (int i4 = 0; i4 < 4; ++i4) rows[i4] = vst + (2 * tig + (i4 & 1) + 8 * (i4 >> 1)) * SP;
+        auto tile = [&](float (&a)[4], float v0, float v1, float v2, float v3) {
+            uint32_t b0[3], b1[3];
+            split_bf16<3>(v0, v1, b0);
+            split_bf16<3>(v2, v3, b1);
+            float pvj[4] = {0.f, 0.f, 0.f, 0.f};
+            mma6(pvj, p[0], p[1], p[2], b0, b1);
+            accumulate(a, pvj, alpha, vs);
+        };
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+            float4 v[4];
+#pragma unroll
+            for (int i4 = 0; i4 < 4; ++i4)
+                v[i4] = *reinterpret_cast<const float4*>(rows[i4] + 16 * (8 * g + gid));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                tile(acc[4 * g + e], elem(v[0], e), elem(v[1], e), elem(v[2], e), elem(v[3], e));
+        }
+        if constexpr (NN % 4 != 0) {
+            float2 v[4];
+#pragma unroll
+            for (int i4 = 0; i4 < 4; ++i4)
+                v[i4] = *reinterpret_cast<const float2*>(rows[i4] + 4 * (32 * NG + 2 * gid));
+            tile(acc[4 * NG], v[0].x, v[1].x, v[2].x, v[3].x);
+            tile(acc[4 * NG + 1], v[0].y, v[1].y, v[2].y, v[3].y);
+        }
+    }
+};
+
 // Bytes of f32 q's staged terms (terms 1 and 2 of every k-step, in
 // fragment order) for one row group
 template <class C, class Q>
@@ -529,7 +695,7 @@ __host__ __device__ constexpr int q_stage_bytes() {
 }
 
 template <class C, class Q>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, C::kMinBlocks)
 paged_attention_mma_kernel(const typename Q::T* __restrict__ q,      // [B, T, H, D]
                            const uint8_t* __restrict__ k_cache,      // [NB, BS, KH, Dp]
                            const uint8_t* __restrict__ v_cache,      // [NB, BS, KH, Dp]
@@ -630,7 +796,8 @@ paged_attention_mma_kernel(const typename Q::T* __restrict__ q,      // [B, T, H
     // unit u_begin + pl + i * PW at step i. A private ring holds only the
     // warp's units; a shared one holds at step i units u_begin + i * PW + p
     // (p < PW) up to the end of the CTA's last row, unit p copied by the
-    // warps with warp % PW == p.
+    // warps with warp % PW == p. A step is one ring item, or with kSplitKV
+    // two: the unit's K rows (item 2i), then its V rows (item 2i + 1).
     const int n_my = row0 < R ? count(units_end(min(row0 + kRows, R) - 1), u_begin + pl) : 0;
     const int pc = shared ? warp % PW : pl;  // the unit slot this warp copies
     int n_copy = n_my, n_steps = n_my;       // units it copies, steps of the walk
@@ -647,24 +814,30 @@ paged_attention_mma_kernel(const typename Q::T* __restrict__ q,      // [B, T, H
     const size_t row_stride = (size_t)KH * C::Dp;
     const int32_t* bt_row = block_tables + (size_t)b * NBLK;
     int blk_vec = 0;  // block of the warp's copied unit (32-aligned base) + lane
+    constexpr int HV = C::kSplitKV ? 2 : 1;  // ring items a step
 
-    // copy unit u_begin + pc + i * PW (K rows, V rows, scales) into step i's stage
+    // copy item i of unit u_begin + pc + (i / HV) * PW (K rows, V rows,
+    // scales; or with kSplitKV its K rows for even i, V rows for odd) into
+    // the item's stage
     auto issue = [&](int i) {
-        if (i % 32 == 0) {
-            const int ii = i + lane;
+        const int us = i / HV;
+        if (us % 32 == 0 && i % HV == 0) {
+            const int ii = us + lane;
             blk_vec = ii < n_copy ? bt_row[(u_begin + pc + ii * PW) / U] : 0;
         }
-        const int u = u_begin + pc + i * PW;
-        const int blk = __shfl_sync(kFull, blk_vec, i % 32);
+        const int u = u_begin + pc + us * PW;
+        const int blk = __shfl_sync(kFull, blk_vec, us % 32);
         uint8_t* st = ring + ((i % S) * slot_units + (shared ? pc : 0)) * C::STAGE;
         const size_t base = ((size_t)blk * BS + (size_t)(u % U) * kUnit) * row_stride
                             + (size_t)kh * C::Dp;
+        const uint8_t* first = HV == 2 && i % 2 ? v_cache : k_cache;
         for (int c = c_first; c < kUnit * C::CPR; c += c_stride) {
             const int row = c / C::CPR;
             const int ch = c % C::CPR;
             const size_t src = base + row * row_stride + ch * C::CB;
-            cp_async<C::CB>(st + row * C::SP + ch * C::CB, k_cache + src);
-            cp_async<C::CB>(st + (kUnit + row) * C::SP + ch * C::CB, v_cache + src);
+            cp_async<C::CB>(st + row * C::SP + ch * C::CB, first + src);
+            if constexpr (HV == 1)
+                cp_async<C::CB>(st + (kUnit + row) * C::SP + ch * C::CB, v_cache + src);
         }
         if (C::kScaled && lane < 2)
             cp_async<4>(st + 2 * kUnit * C::SP + 4 * lane,
@@ -686,77 +859,83 @@ paged_attention_mma_kernel(const typename Q::T* __restrict__ q,      // [B, T, H
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad at the end
 
+    // P's A fragments (one a term), the softmax rescale and the V scale:
+    // from a step's scores to its p.v
+    constexpr int PT = Q::kPTerms;
+    uint32_t pa[PT][4];
+    float alpha[2];
+    float vs = 1.f;
+
 #pragma unroll
     for (int s = 0; s < S - 1; ++s) {
-        if (s < n_copy) issue(s);
+        if (s < n_copy * HV) issue(s);
         cp_async_commit();
     }
-    for (int i = 0; i < n_steps; ++i) {
-        if (i + S - 1 < n_copy) issue(i + S - 1);
+    for (int i = 0; i < n_steps * HV; ++i) {
+        if (i + S - 1 < n_copy * HV) issue(i + S - 1);
         cp_async_commit();
-        cp_async_wait<S - 1>();  // step i's unit has landed
+        cp_async_wait<S - 1>();  // item i has landed
         sync_ring();
-        if (i < n_my) {
+        if (i / HV < n_my) {
             const uint8_t* st = ring + ((i % S) * slot_units + (shared ? pl : 0)) * C::STAGE;
-            float ks = 1.f, vs = 1.f;
-            if constexpr (C::kScaled) {
-                ks = reinterpret_cast<const float*>(st + 2 * kUnit * C::SP)[0];
-                vs = reinterpret_cast<const float*>(st + 2 * kUnit * C::SP)[1];
-            }
-            const int pos0 = (u_begin + pl + i * PW) * kUnit;
-
-            float s[2][4];
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-            C::template scores<QT>(s, qa, qx_lane, st, lane);
-
-            // online softmax; s[n][e] is row gid + 8*(e>>1), position
-            // pos0 + 8n + 2tig + (e&1)
-            float mx[2] = {kNegInf, kNegInf};
-            bool vis[2][4];
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int h = e >> 1;
-                    const int pos = pos0 + 8 * n + 2 * tig + (e & 1);
-                    vis[n][e] = pos <= qpos[h] && pos < kv_len;
-                    s[n][e] = vis[n][e] ? s[n][e] * ks : kNegInf;
-                    mx[h] = fmaxf(mx[h], s[n][e]);
+            if (i % HV == 0) {
+                float ks = 1.f;
+                if constexpr (C::kScaled) {
+                    ks = reinterpret_cast<const float*>(st + 2 * kUnit * C::SP)[0];
+                    vs = reinterpret_cast<const float*>(st + 2 * kUnit * C::SP)[1];
                 }
-            float alpha[2];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-                mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-                const float m_new = fmaxf(m[h], mx[h]);
-                alpha[h] = expf(m[h] - m_new);
-                m[h] = m_new;
-                l[h] *= alpha[h];
-            }
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int h = e >> 1;
-                    s[n][e] = vis[n][e] ? expf(s[n][e] - m[h]) : 0.f;
-                    l[h] += s[n][e];
-                }
-            // P's A fragments, one a term: S's accumulators, word i from
-            // s[i / 2][2 (i % 2)], s[i / 2][2 (i % 2) + 1]
-            constexpr int PT = Q::kPTerms;
-            uint32_t pa[PT][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                uint32_t t[PT];
-                split_bf16<PT>(s[i >> 1][2 * (i & 1)], s[i >> 1][2 * (i & 1) + 1], t);
-#pragma unroll
-                for (int k = 0; k < PT; ++k) pa[k][i] = t[k];
-            }
+                const int pos0 = (u_begin + pl + (i / HV) * PW) * kUnit;
 
-            C::template pv<PT>(acc, pa, st + kUnit * C::SP, lane, alpha, vs);
+                float s[2][4];
+#pragma unroll
+                for (int n = 0; n < 2; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+                C::template scores<QT>(s, qa, qx_lane, st, lane);
+
+                // online softmax; s[n][e] is row gid + 8*(e>>1), position
+                // pos0 + 8n + 2tig + (e&1)
+                float mx[2] = {kNegInf, kNegInf};
+                bool vis[2][4];
+#pragma unroll
+                for (int n = 0; n < 2; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int h = e >> 1;
+                        const int pos = pos0 + 8 * n + 2 * tig + (e & 1);
+                        vis[n][e] = pos <= qpos[h] && pos < kv_len;
+                        s[n][e] = vis[n][e] ? s[n][e] * ks : kNegInf;
+                        mx[h] = fmaxf(mx[h], s[n][e]);
+                    }
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+                    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+                    const float m_new = fmaxf(m[h], mx[h]);
+                    alpha[h] = expf(m[h] - m_new);
+                    m[h] = m_new;
+                    l[h] *= alpha[h];
+                }
+#pragma unroll
+                for (int n = 0; n < 2; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int h = e >> 1;
+                        s[n][e] = vis[n][e] ? expf(s[n][e] - m[h]) : 0.f;
+                        l[h] += s[n][e];
+                    }
+                // P's A fragments, one a term: S's accumulators, word i from
+                // s[i / 2][2 (i % 2)], s[i / 2][2 (i % 2) + 1]
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    uint32_t t[PT];
+                    split_bf16<PT>(s[i >> 1][2 * (i & 1)], s[i >> 1][2 * (i & 1) + 1], t);
+#pragma unroll
+                    for (int k = 0; k < PT; ++k) pa[k][i] = t[k];
+                }
+            }
+            if (i % HV == HV - 1)  // the unit's V rows: after its K rows, or the item's own
+                C::template pv<PT>(acc, pa, st + (HV == 1 ? kUnit * C::SP : 0), lane, alpha, vs);
         }
         sync_ring();  // the stage is consumed before it is refilled
     }
@@ -858,7 +1037,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
            int spb, int RW, float qscale, cudaStream_t stream) {
     const int R = n_tok * (H / KH);
     const int n_rtiles = (R + kRows * RW - 1) / (kRows * RW);
-    const int rings = C::kSharedStage && RW > 1 ? kWarps / RW : kWarps;  // units a step
+    const int rings = C::kSharedStage && RW > 1 ? kWarps / RW : kWarps;  // items a stage
     const size_t ring = (size_t)rings * C::kStages * C::STAGE
                         + (size_t)RW * q_stage_bytes<C, Q>();
     const size_t merge = RW == kWarps ? 0  // one walker a row group: no merge
@@ -904,10 +1083,10 @@ extern "C" {
 
 // q_dtype: 0 = bf16 q and out, 1 = f32 q and out. q is unscaled: the
 // kernel multiplies it by qscale = D^-0.5 rounded to q's dtype, rounding the
-// product to q's dtype. cache_kind: 0 = bf16 payload [NB, BS, KH, D]
-// (scales unused; bf16 q only), 1 = int8 payload [NB, BS, KH, D], 2 =
-// packed int4 uint8 payload [NB, BS, KH, D/2]; 1 and 2 take f32 scales
-// [NB, KH] for K and V. D a multiple of 16 up to 256, BS a multiple of 16;
+// product to q's dtype. cache_kind: 0 = model precision, q's dtype: bf16 or
+// f32 payload [NB, BS, KH, D] (scales unused), 1 = int8 payload [NB, BS,
+// KH, D], 2 = packed int4 uint8 payload [NB, BS, KH, D/2]; 1 and 2 take f32
+// scales [NB, KH] for K and V. D a multiple of 16 up to 256, BS a multiple of 16;
 // RW = row groups of 16 query rows a CTA holds (1, 2 or 4). ns == 1 writes
 // normalised rows to `out`; ns > 1 writes each split's raw (acc, m, l) and
 // leaves `out` alone. Returns cudaGetLastError() of the launch (0 =
@@ -927,6 +1106,7 @@ int dyn_paged_attention_mma(int q_dtype, int cache_kind, const void* q, const vo
     if (q_dtype == 0 && cache_kind == 0) DYN_MMA_CACHE(Bf16Cache, QueryBf16);
     if (q_dtype == 0 && cache_kind == 1) DYN_MMA_CACHE(Int8Cache, QueryBf16);
     if (q_dtype == 0 && cache_kind == 2) DYN_MMA_CACHE(Int4Cache, QueryBf16);
+    if (q_dtype == 1 && cache_kind == 0) DYN_MMA_CACHE(F32Cache, QueryF32);
     if (q_dtype == 1 && cache_kind == 1) DYN_MMA_CACHE(Int8Cache, QueryF32);
     if (q_dtype == 1 && cache_kind == 2) DYN_MMA_CACHE(Int4Cache, QueryF32);
 #undef DYN_MMA_CACHE

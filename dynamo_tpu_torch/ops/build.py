@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` — no
-PyTorch headers, so a build takes seconds. Libraries land in
+PyTorch headers, so a build takes what the kernels themselves take (the
+paged-attention source's 96 template instantiations about two minutes,
+PERF.md). Libraries land in
 ``dynamo_tpu_torch/_build/`` (git-ignored), named by a digest of the source
 and flags, so an edited source rebuilds and an unchanged one is reused.
 Nothing is built at import time: the first launch builds, or a caller
@@ -27,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: every kernel source of the package (``csrc/<name>.cu``)
-KERNELS = ("paged_attention", "paged_attention_mma")
+KERNELS = ("paged_attention_mma",)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -93,8 +95,8 @@ _KERNEL_ARGS = (
     (r"QuantCacheILb0ELi(\d+)E", "Int8Cache<{}>"),
     (r"QuantCacheILb1ELi(\d+)E", "Int4Cache<{}>"),
     (r"Bf16CacheILi(\d+)E", "Bf16Cache<{}>"),
+    (r"F32CacheILi(\d+)E", "F32Cache<{}>"),
     (r"(QueryBf16|QueryF32)", "{}"),
-    (r"FloatCacheELi(\d+)E", "FloatCache, NCH {}"),
 )
 
 

@@ -1,6 +1,6 @@
 """Paged attention over a block-table KV cache: the hand-written CUDA
-kernels (``csrc/paged_attention.cu``, ``csrc/paged_attention_mma.cu``),
-their plain PyTorch version, the split-K sizing and the int4 nibble packing.
+kernel (``csrc/paged_attention_mma.cu``), its plain PyTorch version, the
+split-K sizing and the int4 nibble packing.
 
 Port of ``dynamo_tpu/ops/paged_attention.py`` (``paged_attention_kernel``)
 for its three caches: model precision (bf16/f32 tensor ``[NB, BS, KH, D]``),
@@ -9,16 +9,16 @@ int8 (``{"q": int8 [NB, BS, KH, D], "s": f32 [NB, KH]}``) and packed int4
 is the variant marker, as in JAX. :func:`paged_attention` is the one entry:
 on a CUDA tensor it launches the kernel that :data:`ROUTES` names for (q
 dtype, cache kind) — or raises, there is no fallback — and on a CPU tensor
-it runs :func:`paged_attention_plain`. Two designs: ``mma`` (tensor cores,
-pipelined cp.async page loads: bf16 q over every cache, and f32 q over an
-int8 or int4 cache, whose f32 products it keeps by splitting q and p into
-three bf16 terms each) and ``scalar`` (CUDA cores, f32 products: f32 q over
-the f32 cache).
+it runs :func:`paged_attention_plain`. Every route is an instantiation of
+one tensor-core design (``mma``: pipelined cp.async page loads,
+``mma.sync`` products): bf16 q over every cache, and f32 q over every
+cache, whose f32 products it keeps by splitting q and p — and the f32
+cache's K and V — into three bf16 terms each.
 
 Conventions kept from the TPU kernel, so both versions agree with it:
 - q is scaled by ``D^-0.5`` in q's own dtype before attention
-  (:func:`scale_query`; both kernels do the same rounded multiply as they
-  load q), not in f32 as the dense path of ``models/llama`` does — in bf16
+  (:func:`scale_query`; the kernel does the same rounded multiply as it
+  loads q), not in f32 as the dense path of ``models/llama`` does — in bf16
   the two differ by a rounding;
 - a row whose context is all masked outputs 0;
 - split-K emits each split's f32 ``(acc, m, l)`` and
@@ -43,12 +43,8 @@ _SPLIT_STATE_CAP_BYTES = 8 * 2**20
 #: so its split choice matches the JAX kernel's.
 TPU_CORE_COUNT = 8
 
-#: query rows per thread block of the scalar design (4 warps x 4 rows,
-#: csrc/paged_attention.cu)
-ROWS_PER_BLOCK = 16
-
-#: query rows one warp holds in the mma design (the MMA's M,
-#: csrc/paged_attention_mma.cu); a thread block has 4 warps
+#: query rows one warp holds (the MMA's M, csrc/paged_attention_mma.cu); a
+#: thread block has 4 warps
 MMA_WARP_ROWS = 16
 
 #: int4 payloads clip to ±7 (not -8): a symmetric range keeps dequant a pure
@@ -58,30 +54,25 @@ INT4_QMAX = 7.0
 #: the kernel's cache variants, by the ``cache_kind`` code it takes
 CACHE_KINDS = ("float", "int8", "int4")
 
-#: the mma kernel's query dtypes, by the ``q_dtype`` code it takes
+#: the kernel's query dtypes, by the ``q_dtype`` code it takes
 MMA_Q_DTYPES = (torch.bfloat16, torch.float32)
 
-#: (q dtype, cache kind) -> the kernel that serves it on the card; the part
-#: before "_" is its design
+#: (q dtype, cache kind) -> the kernel instantiation that serves it on the
+#: card
 ROUTES = {
     (torch.bfloat16, "float"): "mma_bf16",
     (torch.bfloat16, "int8"): "mma_int8",
     (torch.bfloat16, "int4"): "mma_int4",
-    (torch.float32, "float"): "scalar_float",
+    (torch.float32, "float"): "mma_f32",
     (torch.float32, "int8"): "mma_int8_f32q",
     (torch.float32, "int4"): "mma_int4_f32q",
 }
 ROUTE_KERNELS = tuple(dict.fromkeys(ROUTES.values()))
 
 
-def design(route: str) -> str:
-    """``scalar`` or ``mma``: the design of a :data:`ROUTES` kernel."""
-    return route.split("_", 1)[0]
-
-
 def mma_row_groups(rows: int) -> int:
-    """Row groups of :data:`MMA_WARP_ROWS` query rows a thread block of the
-    mma design holds: decode (<= 16 rows) puts all 4 warps on one group,
+    """Row groups of :data:`MMA_WARP_ROWS` query rows a thread block
+    holds: decode (<= 16 rows) puts all 4 warps on one group,
     each walking every 4th unit of the context; 2 groups of 2 warps up to
     32 rows; else 4 groups of one warp."""
     return 1 if rows <= MMA_WARP_ROWS else 2 if rows <= 2 * MMA_WARP_ROWS else 4
@@ -89,10 +80,11 @@ def mma_row_groups(rows: int) -> int:
 
 def programs_per_row(route: str, rows: int, kv_heads: int) -> int:
     """Thread blocks the route's kernel runs for one batch row and split:
-    kv heads x tiles of query rows."""
-    tile = (MMA_WARP_ROWS * mma_row_groups(rows) if design(route) == "mma"
-            else ROWS_PER_BLOCK)
-    return kv_heads * -(-rows // tile)
+    kv heads x tiles of query rows. Every route of :data:`ROUTES` tiles
+    rows alike (:func:`mma_row_groups`); a name that is no route raises."""
+    if route not in ROUTE_KERNELS:
+        raise KeyError(f"{route!r} is not a paged-attention route")
+    return kv_heads * -(-rows // (MMA_WARP_ROWS * mma_row_groups(rows)))
 
 
 def pack_int4(vals: torch.Tensor) -> torch.Tensor:
@@ -350,14 +342,13 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, q_start, kv_lens) -> N
     if d > 256:
         raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
     route = ROUTES[(q.dtype, kind)]
-    if design(route) == "mma":
-        bs = kp.shape[1]
-        if d % 16 or bs % 16:
-            raise ValueError(f"the {route} kernel takes head_dim and block_size multiples "
-                             f"of 16, got head_dim {d}, block_size {bs}")
-        if any(x.data_ptr() % 16 for x in (q, *payloads)):
-            raise ValueError(f"the {route} kernel reads q and payload rows in vectors of up "
-                             "to 16 bytes: q and the cache payloads must be 16-byte aligned")
+    bs = kp.shape[1]
+    if d % 16 or bs % 16:
+        raise ValueError(f"the {route} kernel takes head_dim and block_size multiples "
+                         f"of 16, got head_dim {d}, block_size {bs}")
+    if any(x.data_ptr() % 16 for x in (q, *payloads)):
+        raise ValueError(f"the {route} kernel reads q and payload rows in vectors of up "
+                         "to 16 bytes: q and the cache payloads must be 16-byte aligned")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be [{b}, NBLK], got {tuple(block_tables.shape)}")
     if q_start.shape != (b,) or kv_lens.shape != (b,):
@@ -369,20 +360,14 @@ def _ptr(x: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 @functools.cache
-def _kernel_fn(kernel_design: str):
-    """The ctypes entry of a design: ``dyn_paged_attention`` (scalar:
-    dtype code, cache kind, ..., q scale) or ``dyn_paged_attention_mma``
-    (q dtype code, cache kind, ..., row groups, q scale)."""
+def _kernel_fn():
+    """The kernel's ctypes entry, ``dyn_paged_attention_mma`` (q dtype
+    code, cache kind, ..., row groups, q scale)."""
     from dynamo_tpu_torch.ops.build import load_library
 
-    if kernel_design == "mma":
-        fn = load_library("paged_attention_mma").dyn_paged_attention_mma
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                       + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-    else:
-        fn = load_library("paged_attention").dyn_paged_attention
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn = load_library("paged_attention_mma").dyn_paged_attention_mma
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -429,14 +414,10 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
     ptrs = (_ptr(q), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(block_tables),
             _ptr(q_start), _ptr(kv_lens), _ptr(out), _ptr(acc), _ptr(m), _ptr(l))
     dims = (b, t, h, kh, d, bs, nblk, ns, -(-nblk // ns))
-    qscale = _query_scale(d, q.dtype)   # both kernels scale q as they load it
+    qscale = _query_scale(d, q.dtype)   # the kernel scales q as it loads it
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    if design(route) == "mma":
-        rc = _kernel_fn("mma")(MMA_Q_DTYPES.index(q.dtype), CACHE_KINDS.index(kind), *ptrs,
-                               *dims, mma_row_groups(r), qscale, stream)
-    else:
-        rc = _kernel_fn("scalar")(0, CACHE_KINDS.index(kind), *ptrs, *dims,  # 0: f32 q
-                                  qscale, stream)
+    rc = _kernel_fn()(MMA_Q_DTYPES.index(q.dtype), CACHE_KINDS.index(kind), *ptrs, *dims,
+                      mma_row_groups(r), qscale, stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel {route} launch failed ({kind} cache, "
                            f"q {q.dtype}): CUDA error {rc}")

@@ -1,13 +1,13 @@
 """Which paged-attention kernel serves which call, and the arithmetic the
 tensor-core design rests on, on the CPU.
 
-``ops.paged_attention.ROUTES`` maps (q dtype, cache kind) to a kernel:
-the mma design (``csrc/paged_attention_mma.cu``: bf16 q over a bf16, int8
-or packed-int4 cache, and f32 q over an int8 or packed-int4 cache) or the
-scalar design (``csrc/paged_attention.cu``: f32 q over the f32 cache). Both
-kernels run only on the card, where ``chip_smoke.py`` holds them against
-the plain version; here the route table, the input checks, the split count
-and the exactness argument of the mma design are checked:
+``ops.paged_attention.ROUTES`` maps (q dtype, cache kind) to an
+instantiation of the one kernel design, ``mma`` (``csrc/paged_attention_mma.cu``:
+bf16 q over a bf16, int8 or packed-int4 cache; f32 q over an f32, int8 or
+packed-int4 cache). The kernel runs only on the card, where
+``chip_smoke.py`` holds it against the plain version; here the route table,
+the input checks, the split count and the exactness argument of the design
+are checked:
 - int8 and int4 values widen to bf16 exactly (|x| <= 127 fits bf16's 8-bit
   significand), including through the kernel's bit tricks;
 - P enters the MMA as p_hi + p_lo, both bf16: the product with int8 or
@@ -19,6 +19,10 @@ and the exactness argument of the mma design are checked:
   (two terms do not); summed in f32 a k-step of 16 at a time, as the MMA
   sums, scores and p.v stay within chip_smoke.py's f32 limit
   (2e-5 |ref| + 2e-5) of the f64 reference at the decode shape;
+- f32 q over the f32 cache: K and V split three ways too, six of the nine
+  term products kept (the three dropped are each at most 2^-24 of |q||k|),
+  the kernel's fragment layout covers each product once, and the emulated
+  k-steps stay within the f32 limit at the decode and D=16 shapes;
 - q scaled by D^-0.5 as either kernel loads it (bf16 or f32) has the bits
   of the wrapper's ``scale_query``.
 """
@@ -37,7 +41,7 @@ PAIRS = {
     (torch.bfloat16, "float"): ("mma_bf16", "mma"),
     (torch.bfloat16, "int8"): ("mma_int8", "mma"),
     (torch.bfloat16, "int4"): ("mma_int4", "mma"),
-    (torch.float32, "float"): ("scalar_float", "scalar"),
+    (torch.float32, "float"): ("mma_f32", "mma"),
     (torch.float32, "int8"): ("mma_int8_f32q", "mma"),
     (torch.float32, "int4"): ("mma_int4_f32q", "mma"),
 }
@@ -48,7 +52,7 @@ QUANT = ["int8", "int4"]
 @pytest.mark.parametrize("pair", list(PAIRS), ids=lambda p: f"{p[0]}-{p[1]}")
 def test_route_table(pair):
     route, design = PAIRS[pair]
-    assert tpa.ROUTES[pair] == route and tpa.design(route) == design
+    assert tpa.ROUTES[pair] == route and route.split("_", 1)[0] == design
     assert set(tpa.ROUTES) == set(PAIRS)
     tpa.reset_launches()
     assert tpa.paged_attention.launches_by_kernel == dict.fromkeys(tpa.ROUTE_KERNELS, 0)
@@ -74,25 +78,18 @@ def _inputs(q_dtype, kind, d, bs, kh=2, h=4, b=2, nblk=3, nb=8):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,bs", [(24, 16), (40, 16), (16, 8), (64, 24)])
 def test_mma_route_refuses_shapes_it_does_not_take(kind, d, bs):
-    """bf16 q over any cache, and f32 q over an int8 or int4 cache, need D
-    and BS multiples of 16 and raise otherwise (never re-route); f32 q over
-    the f32 cache at the same shape takes the scalar route and passes."""
-    with pytest.raises(ValueError, match="multiples of 16"):
-        tpa._check_cuda_inputs(*_inputs(torch.bfloat16, kind, d, bs))
-    if kind == "float":
-        tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
-    else:
+    """Every route, bf16 or f32 q over any cache, needs D and BS multiples
+    of 16 and raises otherwise (there is no other route to take it)."""
+    for q_dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="multiples of 16"):
-            tpa._check_cuda_inputs(*_inputs(torch.float32, kind, d, bs))
+            tpa._check_cuda_inputs(*_inputs(q_dtype, kind, d, bs))
 
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,bs", [(16, 16), (64, 16), (128, 16), (128, 32), (256, 16)])
 def test_mma_route_takes_its_shapes(kind, d, bs):
-    """bf16 q over every cache, and f32 q over an int8 or int4 cache."""
-    q_dtypes = [torch.bfloat16] + ([torch.float32] if kind in QUANT else [])
-    for q_dtype in q_dtypes:
-        assert tpa.design(tpa.ROUTES[(q_dtype, kind)]) == "mma"
+    """bf16 q and f32 q over every cache."""
+    for q_dtype in (torch.bfloat16, torch.float32):
         tpa._check_cuda_inputs(*_inputs(q_dtype, kind, d, bs))
 
 
@@ -105,33 +102,27 @@ def _offset_view(x: torch.Tensor, elems: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_mma_route_refuses_a_misaligned_query(kind):
-    """The mma kernels read q in 4- and 8-byte vectors: a contiguous q at a
+    """The kernel reads q in 4- and 8-byte vectors: a contiguous q at a
     storage offset off 16 bytes raises instead of faulting on the card, f32
-    q over an int8 or int4 cache as bf16 q; the scalar route (f32 q over
-    the f32 cache) reads q an element at a time and takes it."""
+    q as bf16 q, over every cache."""
     q, *rest = _inputs(torch.bfloat16, kind, 128, 16)
     tpa._check_cuda_inputs(_offset_view(q, 8), *rest)        # 16 bytes in: aligned
     with pytest.raises(ValueError, match="16-byte aligned"):
         tpa._check_cuda_inputs(_offset_view(q, 1), *rest)
     q32, *rest32 = _inputs(torch.float32, kind, 128, 16)
     tpa._check_cuda_inputs(_offset_view(q32, 4), *rest32)    # 16 bytes in: aligned
-    if kind == "float":
+    with pytest.raises(ValueError, match="16-byte aligned"):
         tpa._check_cuda_inputs(_offset_view(q32, 1), *rest32)
-    else:
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            tpa._check_cuda_inputs(_offset_view(q32, 1), *rest32)
 
 
 def test_programs_per_row():
-    # rows = T * H/KH; kv heads 8
-    for rows, mma, scalar in ((2, 8, 8), (4, 8, 8), (16, 8, 8), (32, 8, 16), (48, 8, 24),
-                              (65, 16, 40), (512, 64, 256)):
-        assert tpa.programs_per_row("mma_int8", rows, 8) == mma, rows
-        assert tpa.programs_per_row("mma_bf16", rows, 8) == mma, rows
-        assert tpa.programs_per_row("mma_int8_f32q", rows, 8) == mma, rows
-        assert tpa.programs_per_row("mma_int4_f32q", rows, 8) == mma, rows
-        assert tpa.programs_per_row("scalar_float", rows, 8) == scalar, rows
+    # rows = T * H/KH; kv heads 8: one CTA of up to 4 row groups of 16 rows
+    for rows, mma in ((2, 8), (4, 8), (16, 8), (32, 8), (48, 8), (65, 16), (512, 64)):
+        for route in tpa.ROUTE_KERNELS:
+            assert tpa.programs_per_row(route, rows, 8) == mma, (route, rows)
     assert [tpa.mma_row_groups(r) for r in (1, 16, 17, 32, 33, 512)] == [1, 1, 2, 2, 4, 4]
+    with pytest.raises(KeyError):
+        tpa.programs_per_row("scalar_float", 16, 8)   # the retired scalar kernel
 
 
 # (b, t, h, kh, d, nblk): the card's split counts at the serving shapes, on
@@ -179,13 +170,13 @@ def test_num_splits_for_at_the_serving_shapes(name, kind, card_splits):
 
 
 def test_num_splits_for_counts_the_route_programs(card_splits):
-    """8 query tokens x rep 4 = 32 rows: the scalar design (f32 q, f32
-    cache) has 2 row tiles of 16 a kv head, the mma design (every other
-    route, f32 q over int8 included) one CTA of 2 row groups, so the mma
-    routes split further to fill the card."""
+    """8 query tokens x rep 4 = 32 rows: every route (f32 q over the f32
+    cache included, whose scalar kernel had 2 row tiles of 16 a kv head and
+    split 9 ways) runs one CTA of 2 row groups a kv head, so it splits
+    further to fill the card."""
     q32 = torch.zeros((1, 8, 32, 128), dtype=torch.float32)
     q16 = q32.to(torch.bfloat16)
-    assert card_splits(q32, 8, 64, 0, "float") == 9
+    assert card_splits(q32, 8, 64, 0, "float") == 16
     assert card_splits(q32, 8, 64, 0, "int8") == 16
     assert card_splits(q16, 8, 64, 0, "int8") == 16
     assert card_splits(q16, 8, 64, 3, "int8") == 3
@@ -239,9 +230,9 @@ def test_kernel_q_scale_matches_scale_query(d):
 
 
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
-def test_scalar_kernel_q_scale_matches_scale_query(d):
-    """The scalar kernel and the mma kernel's f32-q policy scale f32 q as
-    they load it: one f32 multiply by D^-0.5 rounded to f32, i.e. the exact
+def test_query_f32_q_scale_matches_scale_query(d):
+    """The kernel's f32-q policy (``QueryF32``) scales f32 q as it loads
+    it: one f32 multiply by D^-0.5 rounded to f32, i.e. the exact
     product (24-bit x 24-bit significands fit a double) rounded once to
     f32, is the wrapper's ``scale_query`` bit for bit."""
     rng = np.random.default_rng(d)
@@ -444,4 +435,181 @@ def test_f32_summed_split_emulation_within_the_f32_limit(kind, seed):
     w = np.exp(s_all - s_all.max(axis=1, keepdims=True))
     v_all = (v * vs[:, None, None].astype(np.float64)).reshape(units * unit, d)
     ref_out = (w @ v_all) / w.sum(axis=1, keepdims=True)
+    assert _within_f32_limit(out, ref_out) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# f32 q over the f32 cache: K and V split three ways too, six MMAs a product
+# ---------------------------------------------------------------------------
+
+def _f32_k_chunk(d: int, kk: int, tig: int) -> int:
+    """F32Cache::k_chunk: the 16-byte chunk of a K row thread tig reads
+    for k-step kk."""
+    nk = d // 16
+    return 8 * (kk >> 1) + 2 * tig + (kk & 1) if kk < (nk & ~1) else 4 * kk + tig
+
+
+def _f32_dmap(d: int, j: int, n: int) -> int:
+    """F32Cache::dmap: the head-dim element of column n of p.v's n-tile j."""
+    ng = d // 32
+    return 32 * (j >> 2) + 4 * n + (j & 3) if j < 4 * ng else 32 * ng + 2 * n + (j - 4 * ng)
+
+
+@pytest.mark.parametrize("d", [16, 48, 128, 256])
+def test_f32_cache_fragment_layout(d):
+    """One unit through the m16n8k16 fragments as the f32-cache kernel
+    fills them: lane (gid, tig) holds q elements q_elem(kk, tig, j) in its A
+    words and the K floats of chunk k_chunk(kk, tig) of positions gid, gid+8
+    in its B words; for p.v the V floats it reads at byte 16 (8g + gid) of
+    positions 2tig, 2tig+1, 2tig+8, 2tig+9 (8 bytes at 4 (32 NG + 2 gid) for
+    a last pair of n-tiles), whose columns dmap names. S = Q.K^T and O = P.V
+    come out exact (small integers), and every 16-byte read phase of 8 lanes
+    hits 8 distinct bank groups where D is a multiple of 32 (row stride
+    4D + 16 bytes)."""
+    rng = np.random.default_rng(d)
+    nk, nn, ng = d // 16, d // 8, d // 32
+    q = rng.integers(-4, 5, size=(16, d)).astype(np.float64)
+    k = rng.integers(-4, 5, size=(16, d)).astype(np.float64)
+    v = rng.integers(-4, 5, size=(16, d)).astype(np.float64)
+    p = rng.integers(-4, 5, size=(16, 16)).astype(np.float64)
+    sp = 4 * d + 16
+    s = np.zeros((16, 16))
+    for kk in range(nk):
+        a = np.zeros((16, 16))               # rows x contraction slots
+        b = np.zeros((2, 16, 8))             # n-tile, slots x columns
+        for lane in range(32):
+            gid, tig = lane >> 2, lane & 3
+            c = _f32_k_chunk(d, kk, tig)
+            for j in range(2):
+                e = 4 * c + 2 * j            # QueryF32 reads q elements e, e + 1
+                for i in range(2):
+                    a[gid, 2 * tig + 8 * j + i] = q[gid, e + i]
+                    a[gid + 8, 2 * tig + 8 * j + i] = q[gid + 8, e + i]
+            for n in range(2):
+                f4 = k[gid + 8 * n, 4 * c: 4 * c + 4]   # the float4 at byte 16 c
+                b[n, [2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9], gid] = f4
+        for n in range(2):
+            s[:, 8 * n: 8 * n + 8] += a @ b[n]
+        if d % 32 == 0:                      # a read phase: lanes 0-7 (gid 0, 1)
+            groups = {(gid * sp // 16 + _f32_k_chunk(d, kk, tig)) % 8
+                      for gid in (0, 1) for tig in range(4)}
+            assert len(groups) == 8, (kk, groups)
+    assert np.array_equal(s, q @ k.T)
+    o = np.zeros((16, d))
+    cols = []
+    for j in range(nn):
+        b = np.zeros((16, 8))
+        for lane in range(32):
+            gid, tig = lane >> 2, lane & 3
+            byte = 16 * (8 * (j >> 2) + gid) + 4 * (j & 3) if j < 4 * ng else \
+                4 * (32 * ng + 2 * gid) + 4 * (j - 4 * ng)
+            assert byte // 4 == _f32_dmap(d, j, gid)
+            for i4 in range(4):
+                pos = 2 * tig + (i4 & 1) + 8 * (i4 >> 1)
+                b[pos, gid] = v[pos, byte // 4]
+        out = p @ b
+        for n in range(8):
+            o[:, _f32_dmap(d, j, n)] = out[:, n]
+            cols.append(_f32_dmap(d, j, n))
+    assert sorted(cols) == list(range(d))
+    assert np.array_equal(o, p @ v)
+    if d % 32 == 0:                          # V read phase: lanes 0-7, one i4
+        for g in range(ng):
+            for i4 in range(4):
+                groups = {((2 * tig + (i4 & 1) + 8 * (i4 >> 1)) * sp // 16 + 8 * g + gid) % 8
+                          for gid in (0, 1) for tig in range(4)}
+                assert len(groups) == 8, (g, i4, groups)
+
+
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_dropped_term_products_are_below_2_pow_minus_24(product):
+    """f32 q (or p) times an f32 cache element, both split three ways: the
+    three term products the kernel drops (mid.lo, lo.mid, lo.lo) are each
+    at most 2^-24 of |x||w| (|mid| <= 2^-8 |x|, |lo| <= 2^-16 |x|), the six
+    it keeps sum to the exact product within their sum, 2^-23 + 2^-32 of
+    |x||w|, and the smallest kept ones (hi.lo, lo.hi, mid.mid) are larger
+    than that: none of them could go."""
+    rng = np.random.default_rng(11 if product == "qk" else 12)
+    n = 200_000
+    if product == "qk":
+        x = (rng.standard_normal(n).astype(np.float32)
+             * np.float32(tpa._query_scale(128, torch.float32))).astype(np.float32)
+    else:
+        x = np.exp(-rng.exponential(4.0, n)).astype(np.float32)
+    w = rng.standard_normal(n).astype(np.float32) * 3
+    xt = [t.astype(np.float64) for t in _split(x, 3)]
+    wt = [t.astype(np.float64) for t in _split(w, 3)]
+    mag = np.abs(x.astype(np.float64) * w)
+    dropped = {name: np.abs(xt[i] * wt[j]) / mag
+               for name, (i, j) in {"mid.lo": (1, 2), "lo.mid": (2, 1), "lo.lo": (2, 2)}.items()}
+    for name, rel in dropped.items():
+        assert rel.max() <= 2.0**-24, (name, rel.max())
+    kept = sum(xt[i] * wt[j] for i, j in ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1)))
+    miss = np.abs(kept - x.astype(np.float64) * w) / mag
+    assert miss.max() <= 2.0**-23 + 2.0**-32
+    assert miss.max() > 2.0**-30                  # the drop is seen, and measured
+    for i, j in ((0, 2), (2, 0), (1, 1)):
+        assert (np.abs(xt[i] * wt[j]) / mag).max() > 2.0**-23
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", ["decode D=128", "decode D=16"])
+def test_f32_cache_split_emulation_within_the_f32_limit(shape, seed):
+    """The f32-cache kernel (f32 q over an f32 cache) emulated at the
+    decode shapes of llama-3-8b-lite (D=128, 4 query rows a kv head) and
+    tiny-real-llama (D=16, 2 rows), 10 units of 16 positions: q * D^-0.5
+    in f32 and every K and V element split into three bf16 terms; q.k a
+    k-step of the kernel's layout at a time as six MMAs in the kernel's
+    order, the three with q_hi into one accumulator and the three with
+    q_mid / q_lo into a second, each MMA summing exact products with one
+    f32 rounding, the two added at the end; the online softmax in f32; p
+    split into three terms and p.v as the six MMAs of mma6 a unit,
+    smallest products first. Scores, each unit's p.v and the output stay
+    within the f32 limit of the f64 reference."""
+    rng = np.random.default_rng(seed)
+    d, rows = (128, 4) if shape == "decode D=128" else (16, 2)
+    units, unit = 10, 16
+    q = (rng.standard_normal((rows, d)).astype(np.float32)
+         * np.float32(tpa._query_scale(d, torch.float32))).astype(np.float32)
+    k = rng.standard_normal((units, unit, d)).astype(np.float32)
+    v = rng.standard_normal((units, unit, d)).astype(np.float32)
+    steps = [np.array([4 * _f32_k_chunk(d, kk, tig) + i for tig in range(4) for i in range(4)])
+             for kk in range(d // 16)]
+    assert np.array_equal(np.sort(np.concatenate(steps)), np.arange(d))
+    qh, qm, ql = _split(q, 3)
+    pairs = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))   # mma6's order
+
+    m = np.full(rows, -1e30, np.float32)
+    l = np.zeros(rows, np.float32)
+    acc = np.zeros((rows, d), np.float32)
+    ref_s = []
+    for u in range(units):
+        kh, km, kl = _split(k[u], 3)
+        s = np.zeros((rows, unit), np.float32)
+        s2 = np.zeros((rows, unit), np.float32)
+        for idx in steps:
+            for qt, kt in ((qm, km), (ql, kh), (qm, kh)):
+                s2 = _mma(s2, qt[:, idx], kt[:, idx])
+            for kt in (kl, km, kh):
+                s = _mma(s, qh[:, idx], kt[:, idx])
+        s = (s + s2).astype(np.float32)
+        ref = q.astype(np.float64) @ k[u].T.astype(np.float64)
+        assert _within_f32_limit(s, ref) <= 1.0
+        ref_s.append(ref)
+        m_new = np.maximum(m, s.max(axis=1))
+        alpha = np.exp(m - m_new).astype(np.float32)
+        p = np.exp(s - m_new[:, None]).astype(np.float32)
+        l = (l * alpha + p.sum(axis=1, dtype=np.float32)).astype(np.float32)
+        pt, vt = _split(p, 3), _split(v[u].T, 3)             # vt: [d, unit] terms
+        pv = np.zeros((rows, d), np.float32)
+        for i, j in pairs:
+            pv = _mma(pv, pt[i], vt[j])
+        pv_ref = p.astype(np.float64) @ v[u].astype(np.float64)
+        assert _within_f32_limit(pv, pv_ref) <= 1.0
+        acc = (acc.astype(np.float64) * alpha[:, None] + pv).astype(np.float32)  # fmaf
+        m = m_new
+    out = (acc / l[:, None]).astype(np.float32)
+    s_all = np.concatenate(ref_s, axis=1)
+    w = np.exp(s_all - s_all.max(axis=1, keepdims=True))
+    ref_out = (w @ v.reshape(units * unit, d).astype(np.float64)) / w.sum(axis=1, keepdims=True)
     assert _within_f32_limit(out, ref_out) <= 1.0

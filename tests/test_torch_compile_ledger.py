@@ -310,11 +310,11 @@ class _StubProgram(teng.StepProgram):
 def test_replays_count_the_captured_launches(window):
     runner = teng.EngineCore(_tiny(), device="cpu").runner
     pa.reset_launches()
-    pa.paged_attention.launches_by_kernel["scalar_float"] = 5   # earlier, eager
+    pa.paged_attention.launches_by_kernel["mma_f32"] = 5   # earlier, eager
     prog = _StubProgram(runner, 4, 1, 4, window, True)
     # the warm run's and the capture's launches are not counted
     assert pa.paged_attention.launches_by_kernel == {
-        k: 5 if k == "scalar_float" else 0 for k in pa.ROUTE_KERNELS}
+        k: 5 if k == "mma_f32" else 0 for k in pa.ROUTE_KERNELS}
     assert prog.launches == {k: 8 * window if k == "mma_bf16" else 0
                              for k in pa.ROUTE_KERNELS}
     ints = np.zeros(prog.ints.numel(), np.int32)

@@ -178,6 +178,27 @@ def test_f32_limit_catches_a_query_rounded_to_bf16(kind):
     assert ((rounded - ref).abs() / limit).max().item() > 1.0
 
 
+@pytest.mark.parametrize("operand", ["k", "v"])
+def test_f32_limit_catches_a_cache_rounded_to_bf16(operand):
+    """The same limit over the f32 cache: at chip_smoke.py's decode shape
+    the plain version over full-precision f32 K and V breaks it when K (or
+    V) is rounded to bf16 — what a kernel that read the f32 cache as bf16,
+    or dropped its mid and lo terms, would compute. So an f32-cache case
+    must hold f32 values that are not bf16 values to test those terms."""
+    from chip_smoke import F32_ABS, F32_REL
+
+    q, kc, vc, bt, qs, kl = _decode_case(np.random.default_rng(37), "float")
+    assert (kc != kc.to(torch.bfloat16).float()).float().mean().item() > 0.99
+    ref = tpa.paged_attention_plain(q, kc, vc, bt, qs, kl, num_splits=1)
+    limit = F32_REL * ref.abs() + F32_ABS
+    if operand == "k":
+        kc = kc.to(torch.bfloat16).float()
+    else:
+        vc = vc.to(torch.bfloat16).float()
+    rounded = tpa.paged_attention_plain(q, kc, vc, bt, qs, kl, num_splits=1)
+    assert ((rounded - ref).abs() / limit).max().item() > 1.0
+
+
 def test_resolve_num_splits_matches_jax():
     table = [
         dict(num_splits=0, nblk=nblk, batch=b, q_chunks=qc, q_tokens=t,
