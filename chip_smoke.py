@@ -20,7 +20,9 @@ if any phase fails:
     the two other head widths of the presets (D=16, KH=2, H=4:
     tiny-real-llama; D=64, KH=8, H=64: the D=64 presets) and at the widest
     head the kernel takes (D=256, KH=1, H=2, B=4: its largest shared-memory
-    layout). q is drawn in f32; the f32 cache holds full-precision f32
+    layout), and at the speculative verify shapes (B=32, T=2, 4 and 5
+    query tokens a row from q_start 128-187, mid-block: at T=5 the second
+    of a CTA's 2 row groups holds 4 live rows). q is drawn in f32; the f32 cache holds full-precision f32
     draws of K and V, the bf16 cache the same draws rounded to bf16. bf16-q
     routes are held to one bf16 rounding, f32-q routes to the f32 limit
     (with TF32 off for the plain version's f32 products). Each case checks
@@ -66,13 +68,47 @@ if any phase fails:
     and each of those f32 runs must go through its route's kernel only;
     no step dispatch may wait for the card (the host/device overlap of the
     pipelined step loop), at every kv dtype. These engines capture each
-    bucket's graph lazily, at its first step.
+    bucket's graph lazily, at its first step;
+(d1) speculative verify at full width in f32 (llama-3-8b-lite with f32
+    weights over the f32 cache): 32 greedy requests whose 128-token
+    prompts repeat a 16-token pattern 8 times, 32 output tokens, through
+    the pipelined ``AsyncTorchEngine`` with ``spec_ngram=2, spec_k=4`` and
+    again with spec off, each after a full warmup. The verify graphs must
+    come from the warmup (serving makes no graph), proposals and verify
+    steps must run, ``mma_f32`` only, 8 launches per forward step counted
+    through replays. Each spec stream must equal its spec-off twin, or
+    first leave it at a near-tie (the two runs' log-probs of their chosen
+    tokens within 1e-4; the count is printed). Prints acceptance and
+    decode tok/s beside the card's name and power limit;
+(d2) the same over the bf16 cache with bf16 weights: ``mma_bf16`` only,
+    8 a forward step; prints tok/s and acceptance beside (b)'s bf16 tok/s,
+    and the share of spec streams equal to the spec-off ones (bf16
+    rounding may flip a near-tie, so the share is no pass condition);
+(d3) guided decoding at full width over the bf16 cache: 8 json_object
+    and 4 json_schema requests (required keys, an enum) beside 8 plain
+    greedy ones in one unified engine, 48 tokens each: a guided output
+    that stopped must be a document that conforms to its schema, one cut
+    by its length a grammatical prefix; the masked programs must have
+    replayed their graphs; prints the host ms a step spent building masks;
+(d4) the multimodal embedding override at full width: four 128-token
+    prompts with a 64-position span at pos 16 beside the same prompts
+    without spans; spans of the embedding table's own rows (widened to
+    f32) must give the plain streams exactly, spans of random rows must
+    change them, through a replayed mm graph;
+(d5) embeddings at full width: 8 prompts of 7-128 tokens in one
+    ``AsyncTorchEngine.embed`` call, 8 ``mma_bf16`` launches for the call,
+    the serving pool's blocks as they were; the same weights widened to
+    f32 over an f32 cache, batched (8 ``mma_f32`` launches) and alone, must
+    agree row by row within 1e-4*|ref| + 1e-4; the bf16 rows' distance
+    from their single calls is printed (a bf16 forward is not batch
+    invariant). (d3)-(d5) capture graphs lazily.
 
 Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
 per kernel instantiation (registers, spills), one JSON ``kernels`` line
 (an entry per kernel of ``ROUTES``, its launches counted in the run that
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
-(c)'s f32 runs for f32 q over int8 and int4), and as its last line
+(c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
+verify case's time), and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero and prints no result.
 
@@ -92,6 +128,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -106,6 +143,10 @@ ULP_REL, ULP_ABS = 2.0**-7, 1e-4
 # the Pallas kernel; q rounded to bf16 breaks it
 # (tests/test_torch_paged_attention.py).
 F32_REL, F32_ABS = 2e-5, 2e-5
+# (d5)'s f32 witness: a batched f32 embedding row against the same input
+# embedded alone, |err| <= tol*|ref| + tol — the tolerance the CPU twins
+# hold f32 hidden states to after a whole forward.
+EMBED_F32_TOL = 1e-4
 
 # H100 SXM memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s), NVIDIA
 # data sheet; the port runs on that card only.
@@ -124,6 +165,14 @@ F32_MMAS = {"float": 6, "int8": 3, "int4": 3}
 KV_DTYPES = {"float": "bfloat16", "int8": "int8", "int4": "int4"}
 #: the phase-(a) case whose numbers stand in the kernels line
 MAIN_CASE = "decode B=32 T=1 kv 128-192"
+#: the phase-(a) verify chunk lengths (1 + spec_k proposals at spec_k 1, 3,
+#: 4: the verify ladder of spec_k=4), and the case name of each; the T=5
+#: case's time is the kernels line's ``verify_ms``
+VERIFY_TS = (2, 4, 5)
+
+
+def verify_case(t: int) -> str:
+    return f"verify B=32 T={t} kv {128 + t}-{187 + t}"
 #: the query dtypes phase (a) runs every case with
 Q_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -379,6 +428,13 @@ def phase_kernels(bw: float, peak: float) -> dict:
         "decode D=256 KH=1 H=2 B=4 kv 128-192 auto splits": (attention_case(
             gen, 4, 1, 16, [n - 1 for n in lens[:4]], [1] * 4, h=2, kh=1, d=256), 0),
     }
+    # speculative verify chunks at decode depth: T query tokens a row from
+    # q_start 128-187 (mid-block), each with its own causal limit; at
+    # H/KH = 4, T=5 makes 20 query rows a kv head, 2 row groups of which
+    # the second holds 4 live rows
+    vstart = torch.randint(128, 188, (32,), generator=gen, device="cuda").tolist()
+    for t in VERIFY_TS:
+        cases[verify_case(t)] = (attention_case(gen, 32, t, 12, vstart, [t] * 32), 0)
     results: dict[str, dict] = {route: {} for route in pa.ROUTE_KERNELS}
     for name, ((q32, k32, v32, bt, qs, kl), ns) in cases.items():
         k, v = k32.bfloat16(), v32.bfloat16()
@@ -482,6 +538,52 @@ def check_live_cache(runner, gen) -> dict:
     return res
 
 
+def check_engine_launches(tag: str, core, by_kernel: dict, route: str) -> int:
+    """The run launched ``route`` only, once per layer and forward step of
+    every program call (verify programs included); returns the forward
+    steps."""
+    layers = core.model_cfg.num_layers
+    forward_steps = sum(p.calls * (p.shape[3] if len(p.shape) > 3 else 1)
+                        for p in core.runner.programs.values())
+    want = {k: (layers * forward_steps if k == route else 0) for k in by_kernel}
+    if forward_steps <= 0 or by_kernel != want:
+        raise AssertionError(f"{tag}: kernel launches {by_kernel}, expected {want} "
+                             f"({layers} per forward step, {route} only; "
+                             f"{forward_steps} forward steps)")
+    return forward_steps
+
+
+async def serve(engine, reqs: dict, after=None):
+    """Send ``reqs`` ({key: PreprocessedRequest}) to ``engine`` at once and
+    collect each stream; then await ``after(engine)`` if given, and shut
+    the engine down. Returns (start, first-token times, end times,
+    {key: (tokens, logprobs)}, {key: finish reason}, and ``after``'s
+    result last)."""
+    first_at, done_at, streams, finish = {}, {}, {}, {}
+
+    async def one(key):
+        toks, lps = [], []
+        async for out in engine.generate(reqs[key]):
+            if out.error:
+                raise RuntimeError(f"request {key} failed: {out.error}")
+            if not toks:
+                first_at[key] = time.perf_counter()
+            toks += out.token_ids
+            lps += out.log_probs or []
+            if out.finish_reason is not None:
+                finish[key] = str(out.finish_reason)
+        done_at[key] = time.perf_counter()
+        streams[key] = (toks, lps)
+
+    t_start = time.perf_counter()
+    try:
+        await asyncio.gather(*(one(k) for k in reqs))
+        extra = await after(engine) if after is not None else None
+    finally:
+        await engine.shutdown()
+    return t_start, first_at, done_at, streams, (finish, extra)
+
+
 def phase_serve(kind: str, profile: bool = False, window: int = 1,
                 f32: bool = False) -> tuple[dict, dict]:
     """One serving run with the KV cache of ``kind`` after a full warmup
@@ -517,33 +619,12 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
     if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
         raise AssertionError(f"{tag}: warmup left buckets without a graph: {warm}")
 
-    async def serve():
-        first_at, done_at, streams = {}, {}, {}
-
-        async def one(i: int):
-            hi = vocab - 5
-            req = PreprocessedRequest(
-                token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(prompt)],
-                stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
-                sampling_options=SamplingOptions(temperature=0.0),
-                request_id=f"bench-{i}")
-            toks, lps = [], []
-            async for out in engine.generate(req):
-                if out.error:
-                    raise RuntimeError(f"request {i} failed: {out.error}")
-                if not toks:
-                    first_at[i] = time.perf_counter()
-                toks += out.token_ids
-                lps += out.log_probs or []
-            done_at[i] = time.perf_counter()
-            streams[i] = (toks, lps)
-
-        t_start = time.perf_counter()
-        try:
-            await asyncio.gather(*(one(i) for i in range(batch)))
-        finally:
-            await engine.shutdown()
-        return t_start, first_at, done_at, streams
+    hi = vocab - 5
+    reqs = {i: PreprocessedRequest(
+        token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(prompt)],
+        stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0),
+        request_id=f"bench-{i}") for i in range(batch)}
 
     torch.cuda.reset_peak_memory_stats()
     steps0 = core.metrics.num_steps
@@ -557,7 +638,7 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.__enter__()
     pa.reset_launches()
-    t_start, first_at, done_at, streams = asyncio.run(serve())
+    t_start, first_at, done_at, streams, _ = asyncio.run(serve(engine, reqs))
     by_kernel = dict(pa.paged_attention.launches_by_kernel)
     if prof is not None:
         torch.cuda.synchronize()
@@ -579,13 +660,10 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
                              "ledger events); every step must replay a warmed-up graph")
     layers = core.model_cfg.num_layers
     route = pa.ROUTES[(torch.float32 if f32 else torch.bfloat16, kind)]
-    forward_steps = sum(p.calls * p.shape[3] for p in programs.values())
-    want = {k: (layers * forward_steps if k == route else 0) for k in by_kernel}
+    forward_steps = check_engine_launches(tag, core, by_kernel, route)
     launches = sum(by_kernel.values())
-    if launches <= 0 or by_kernel != want or (window == 1 and forward_steps != steps):
-        raise AssertionError(f"{tag}: kernel launches {by_kernel}, expected {want} "
-                             f"({layers} per forward step, this run's route only; "
-                             f"{forward_steps} forward steps in {steps} engine steps)")
+    if window == 1 and forward_steps != steps:
+        raise AssertionError(f"{tag}: {forward_steps} forward steps in {steps} engine steps")
     for key, p in programs.items():
         if p.launches.get(route, 0) != layers * key[3]:
             raise AssertionError(f"{tag}: graph {key} holds {p.launches}, expected "
@@ -710,6 +788,357 @@ def phase_coherence() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# (d) speculative verify, guided masks, multimodal override, embeddings
+# ---------------------------------------------------------------------------
+
+#: (d1)/(d2): 32 greedy requests whose 128-token prompts repeat a 16-token
+#: pattern 8 times, 32 output tokens, spec_ngram=2, spec_k=4
+SPEC_BATCH, SPEC_PROMPT, SPEC_DECODE, SPEC_PATTERN = 32, 128, 32, 16
+#: a stream of the f32 spec run may first leave its spec-off twin only
+#: where the two runs' log-probs of their chosen tokens differ by less
+#: than this (a near-tie of the argmax)
+NEAR_TIE = 1e-4
+
+
+def spec_run(f32: bool, spec: bool, prompts: list[list[int]]) -> tuple[dict, dict]:
+    """One serving run of (d1) (``f32``) or (d2) over the pipelined
+    AsyncTorchEngine after a full warmup, with speculative verify on or
+    off. Serving must make no graph; with spec on the verify graphs come
+    from the warmup and verify steps run. Returns the run's numbers and
+    its streams {i: (tokens, logprobs)}."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.obs.compile_ledger import get_compile_ledger
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    model = register_f32_model() if f32 else "llama-3-8b-lite"
+    tag = f"[{'d1' if f32 else 'd2'}] spec {'on' if spec else 'off'}"
+    t0 = time.perf_counter()
+    engine = build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=SPEC_BATCH,
+        max_model_len=SPEC_PROMPT + SPEC_DECODE + 16, prefill_chunk=SPEC_PROMPT,
+        kv_dtype="bfloat16", allow_random_weights=True, warmup_mode="full",
+        spec_ngram=2 if spec else 0, spec_k=4))
+    torch.cuda.synchronize()
+    core = engine.core
+    warm = core.warmup_summary
+    log(f"{tag}: {model} engine built and warmed up in {time.perf_counter() - t0:.2f}s; "
+        f"warmup {warm}")
+    if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
+        raise AssertionError(f"{tag}: warmup left buckets without a graph: {warm}")
+    warm_verify = sorted(k for k in core.runner.programs if k[0] == "verify")
+    if spec and not warm_verify:
+        raise AssertionError(f"{tag}: the full warmup captured no verify graph")
+    reqs = {i: PreprocessedRequest(
+        token_ids=p, request_id=f"spec-{i}",
+        stop_conditions=StopConditions(max_tokens=SPEC_DECODE, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0)) for i, p in enumerate(prompts)}
+    led = get_compile_ledger()
+    warmed = set(core.runner.programs)
+    events0 = len(led.events)
+    steps0 = core.metrics.num_steps
+    pa.reset_launches()
+    t_start, first_at, done_at, streams, _ = asyncio.run(serve(engine, reqs))
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    minted = sorted(map(str, set(core.runner.programs) - warmed))
+    serve_sigs = [e.sig.to_dict() for e in led.events[events0:] if e.source == "serve"]
+    if minted or serve_sigs:
+        raise AssertionError(f"{tag}: serving made graphs {minted} (serve-time ledger "
+                             f"events {serve_sigs}); every step must replay a warmed-up graph")
+    route = pa.ROUTES[(torch.float32 if f32 else torch.bfloat16, "float")]
+    forward_steps = check_engine_launches(tag, core, by_kernel, route)
+    verify_steps = sum(p.calls for k, p in core.runner.programs.items() if k[0] == "verify")
+    m = core.metrics
+    if spec and (m.spec_proposed <= 0 or verify_steps <= 0):
+        raise AssertionError(f"{tag}: no speculation ran: proposed {m.spec_proposed}, "
+                             f"verify steps {verify_steps}")
+    for i, (toks, lps) in streams.items():
+        if len(toks) != SPEC_DECODE or len(lps) != SPEC_DECODE:
+            raise AssertionError(f"{tag}: request {i}: {len(toks)} tokens")
+    t_first, t_end = max(first_at.values()), max(done_at.values())
+    res = {
+        "model": model, "spec": spec, "requests": len(prompts), "steps": m.num_steps - steps0,
+        "forward_steps": forward_steps, "verify_steps": verify_steps,
+        "verify_calls_by_bucket": {"x".join(map(str, k[1:])): p.calls
+                                   for k, p in core.runner.programs.items()
+                                   if k[0] == "verify" and p.calls},
+        "verify_graphs_warmed": len(warm_verify),
+        "spec_proposed": m.spec_proposed, "spec_accepted": m.spec_accepted,
+        "acceptance": m.spec_accepted / m.spec_proposed if m.spec_proposed else None,
+        "launches_by_kernel": by_kernel,
+        "launches_per_forward_step": sum(by_kernel.values()) / forward_steps,
+        "decode_tok_s": len(prompts) * (SPEC_DECODE - 1) / (t_end - t_first),
+        "ttft_all_s": t_first - t_start, "wall_s": t_end - t_start,
+        "warmup_s": warm["seconds"], "graphs_warmed": len(warmed),
+    }
+    log(f"{tag} " + json.dumps(res))
+    del engine, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, streams
+
+
+def phase_spec(f32: bool, smi: str, b_tok_s: float | None = None) -> dict:
+    """(d1) with ``f32`` (f32 weights over the f32 cache: every stream must
+    equal its spec-off twin, or first leave it at a near-tie), else (d2)
+    over the bf16 cache (the share of equal streams is printed)."""
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+
+    hi = MODEL_PRESETS["llama-3-8b-lite"].vocab_size - 5
+    prompts = [[(7 * i + 11 * j) % hi + 5 for j in range(SPEC_PATTERN)]
+               * (SPEC_PROMPT // SPEC_PATTERN) for i in range(SPEC_BATCH)]
+    on, s_on = spec_run(f32, True, prompts)
+    off, s_off = spec_run(f32, False, prompts)
+    tag = "[d1] f32" if f32 else "[d2] bf16"
+    equal, ties, bad = 0, [], []
+    for i, (toks, lps) in s_on.items():
+        ref_toks, ref_lps = s_off[i]
+        j = next((j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b), None)
+        if j is None:
+            equal += 1
+        elif abs(lps[j] - ref_lps[j]) < NEAR_TIE:
+            ties.append((i, j, abs(lps[j] - ref_lps[j])))
+        else:
+            bad.append((i, j, toks[j], ref_toks[j], lps[j], ref_lps[j]))
+    log(f"{tag}: spec streams equal to spec-off: {equal} of {len(s_on)}; first differing "
+        f"at a near-tie (|dlp| < {NEAR_TIE}): {len(ties)} {ties}; otherwise: {len(bad)} "
+        f"{bad[:4]}")
+    log(f"{tag}: acceptance {on['acceptance']} ({on['spec_accepted']} of "
+        f"{on['spec_proposed']} proposed), decode tok/s spec {on['decode_tok_s']} / "
+        f"spec off {off['decode_tok_s']}"
+        + ("" if b_tok_s is None else f" / (b) bf16 {b_tok_s}") + f" on {smi}")
+    if f32 and bad:
+        raise AssertionError(f"{tag}: {len(bad)} spec streams leave their spec-off twins "
+                             f"at no near-tie: {bad[:4]}")
+    return {"spec": on, "off": off, "equal": equal, "near_ties": len(ties),
+            "differ_elsewhere": len(bad)}
+
+
+#: (d3)'s json_schema: required keys and a string enum
+GUIDED_SCHEMA = {"type": "object",
+                 "properties": {"name": {"type": "string", "enum": ["ada", "bob", "cy"]},
+                                "ok": {"type": "boolean"}, "n": {"type": "number"}},
+                 "required": ["name", "ok"]}
+
+
+def phase_guided() -> dict:
+    """(d3): 8 json_object and 4 json_schema requests beside 8 plain greedy
+    ones in one unified bf16-cache engine (graphs captured at first use),
+    48 tokens each. A guided output that stopped must be a document that
+    conforms to its schema; one cut by its length must be a grammatical
+    prefix. The masked programs must have replayed their graphs."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.engine.guided import JsonMachine, validate_json_output
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.tokenizer import ByteTokenizer, guided_vocab
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    prompt, decode = 64, 48
+    engine = build_engine(EngineConfig(
+        model="llama-3-8b-lite", block_size=16, max_batch_size=32,
+        max_model_len=prompt + decode + 16, prefill_chunk=prompt, kv_dtype="bfloat16",
+        allow_random_weights=True, warmup_mode="lazy"))
+    core = engine.core
+    vocab = core.model_cfg.vocab_size
+    eos = ByteTokenizer.EOS
+    schemas = {f"obj-{i}": {} for i in range(8)}
+    schemas.update({f"sch-{i}": GUIDED_SCHEMA for i in range(4)})
+    schemas.update({f"plain-{i}": None for i in range(8)})
+    reqs = {rid: PreprocessedRequest(
+        token_ids=[(13 * n + 7 * j) % (vocab - 5) + 5 for j in range(prompt)],
+        request_id=rid, eos_token_ids=[eos],
+        stop_conditions=StopConditions(max_tokens=decode),
+        sampling_options=SamplingOptions(temperature=0.0, guided_json=schema))
+        for n, (rid, schema) in enumerate(schemas.items())}
+    pa.reset_launches()
+    _t0, _f, _d, streams, (finish, _) = asyncio.run(serve(engine, reqs))
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    check_engine_launches("[d3]", core, by_kernel, pa.ROUTES[(torch.bfloat16, "float")])
+    pieces = guided_vocab(ByteTokenizer(), vocab)
+    counts = {"stop": 0, "length": 0}
+    for rid, (toks, _lps) in streams.items():
+        schema = schemas[rid]
+        if schema is None:
+            continue
+        text = "".join(pieces[t] for t in toks if t != eos)
+        if finish[rid] == "stop":
+            validate_json_output(text, schema)
+        elif finish[rid] == "length":
+            JsonMachine(schema).feed_str(text)
+        else:
+            raise AssertionError(f"[d3] {rid} finished {finish[rid]}")
+        counts[finish[rid]] += 1
+    masked = {k: p for k, p in core.runner.programs.items() if "masked" in k[5:]}
+    replayed = sum(p.calls for p in masked.values() if p.graph is not None)
+    if not masked or replayed <= 0:
+        raise AssertionError(f"[d3] masked programs {list(masked)} replayed {replayed} times")
+    m = core.metrics
+    res = {"guided": 12, "plain": 8, "finished_stop": counts["stop"],
+           "finished_length": counts["length"], "masked_graphs": len(masked),
+           "masked_replays": replayed, "mask_steps": m.guided_mask_steps,
+           "mask_host_ms_per_step": 1e3 * m.guided_mask_seconds / max(m.guided_mask_steps, 1),
+           "launches_by_kernel": by_kernel,
+           "example": "".join(pieces[t] for t in streams["sch-0"][0] if t != eos)}
+    log("[d3] guided " + json.dumps(res))
+    del engine, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def embed_exact(runner, texts: list[list[int]]) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """``runner.embed`` with the runner's weights widened to f32, over an
+    f32 cache: each input alone (the values the bf16 forward rounds), then
+    all inputs in one call, and the paged-attention launches of that
+    batched call."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    params, cfg = runner.params, runner.cfg
+    wide = {k: ({n: w.float() for n, w in v.items()} if isinstance(v, dict) else v.float())
+            for k, v in params.items()}
+    runner.params, runner.cfg = wide, dataclasses.replace(cfg, dtype="float32")
+    try:
+        single = torch.from_numpy(np.concatenate([runner.embed([t]) for t in texts]))
+        pa.reset_launches()
+        batch = torch.from_numpy(runner.embed(texts))
+        return single, batch, dict(pa.paged_attention.launches_by_kernel)
+    finally:
+        runner.params, runner.cfg = params, cfg
+        del wide
+
+
+def phase_mm_embed() -> dict:
+    """(d4) and (d5) on one bf16-cache engine (prefix caching off, graphs
+    captured at first use).
+
+    (d4): four requests of 128 prompt tokens with one 64-position span at
+    pos 16 beside the same four prompts without spans, 32 greedy tokens.
+    Two spans carry the embedding table's own rows for their tokens,
+    widened to f32: those streams must equal the plain ones token for
+    token. Two carry random f32 rows from a seed: those must differ.
+
+    (d5): 8 prompts of 7-128 tokens embedded in one call of
+    AsyncTorchEngine.embed; the batched call must launch mma_bf16 8 times
+    (once a layer) and leave the serving pool's blocks as they were. The
+    batch's rows are held to the prompts embedded alone in f32: the same
+    weights widened to f32 over an f32 cache (``embed_exact``), batched
+    and alone, through mma_f32 8 times for the batched call, each batched
+    row within |err| <= 1e-4*|ref| + 1e-4 (the twins' f32 hidden-state
+    tolerance) of its single call. A row that took another row's K and V
+    (the JAX runner's shared block table) is off by the size of the values
+    themselves. In bf16 the forward is not batch invariant, so the bf16
+    rows' distance from their single calls is printed beside the
+    elementwise bf16 rule (|err| <= 2^-7*|ref| + 1e-4) and twice the single
+    call's own distance from f32, and is no pass condition."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions, tensor_to_wire)
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    prompt, decode, pos, span = 128, 32, 16, 64
+    engine = build_engine(EngineConfig(
+        model="llama-3-8b-lite", block_size=16, max_batch_size=32,
+        max_model_len=prompt + decode + 16, prefill_chunk=prompt, kv_dtype="bfloat16",
+        allow_random_weights=True, warmup_mode="lazy", enable_prefix_caching=False))
+    core = engine.core
+    cfg = core.model_cfg
+    table = core.runner.params["embed"]
+    dev = core.runner.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    prompts = [[(17 * i + 5 * j) % (cfg.vocab_size - 5) + 5 for j in range(prompt)]
+               for i in range(4)]
+
+    def req(rid, toks, emb=None):
+        r = PreprocessedRequest(
+            token_ids=toks, request_id=rid,
+            stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0))
+        if emb is not None:
+            r.mm_embeddings = [{"pos": pos, **tensor_to_wire(emb.cpu().numpy())}]
+        return r
+
+    reqs = {}
+    for i, p in enumerate(prompts):
+        ids = torch.tensor(p[pos: pos + span], device=dev)
+        emb = (table[ids].float() if i < 2 else
+               torch.randn((span, cfg.hidden_size), generator=gen, device=dev)
+               * cfg.hidden_size ** -0.5)
+        reqs[f"mm-{i}"] = req(f"mm-{i}", p, emb)
+        reqs[f"plain-{i}"] = req(f"plain-{i}", p)
+    lens = [7, 16, 23, 40, 64, 90, 111, 128]
+    texts = [[(29 * n + 3 * j) % (cfg.vocab_size - 5) + 5 for j in range(k)]
+             for n, k in enumerate(lens)]
+
+    async def embed_calls(eng):
+        free0, blocks0 = core.pool.num_free, core.pool.num_blocks
+        pa.reset_launches()
+        batch = await eng.embed(texts)
+        launches = dict(pa.paged_attention.launches_by_kernel)
+        alone = [await eng.embed([t]) for t in texts]
+        return batch, launches, alone, (free0, blocks0, core.pool.num_free,
+                                        core.pool.num_blocks)
+
+    pa.reset_launches()
+    _t0, _f, _d, streams, (_fin, emb_res) = asyncio.run(serve(engine, reqs, embed_calls))
+    # (d4)
+    same = [streams[f"mm-{i}"][0] == streams[f"plain-{i}"][0] for i in range(4)]
+    mm_progs = {k: p for k, p in core.runner.programs.items() if "mm" in k[5:]}
+    mm_replays = sum(p.calls for p in mm_progs.values() if p.graph is not None)
+    d4 = {"identity_equal": same[:2], "random_equal": same[2:],
+          "mm_graphs": [list(k) for k in mm_progs], "mm_replays": mm_replays,
+          "mm_buffer_mib": core.runner._mm_override.numel() * 4 / 2**20}
+    log("[d4] multimodal " + json.dumps(d4))
+    if not all(same[:2]) or any(same[2:]) or mm_replays <= 0:
+        raise AssertionError(f"[d4] identity-row streams must equal the plain ones and "
+                             f"random-row streams must differ, through a replayed mm "
+                             f"graph: {d4}")
+    # (d5)
+    batch, launches, alone, (free0, blocks0, free1, blocks1) = emb_res
+    single = torch.from_numpy(np.concatenate(alone))
+    got = torch.from_numpy(batch)
+    exact, exact_batch, f32_launches = embed_exact(core.runner, texts)
+    f32_err = ((exact_batch - exact).abs()
+               / (EMBED_F32_TOL * exact.abs() + EMBED_F32_TOL)).max().item()
+    ulp = ((got - single).abs() / (ULP_REL * single.abs() + ULP_ABS)).max().item()
+    to_single = (got - single).abs().amax(dim=1)               # per row
+    noise = (single - exact).abs().amax(dim=1)
+    batch_noise = (got - exact).abs().amax(dim=1)
+    envelope = (to_single / (2 * noise + ULP_ABS)).max().item()
+    route = pa.ROUTES[(torch.bfloat16, "float")]
+    f32_route = pa.ROUTES[(torch.float32, "float")]
+    d5 = {"inputs": len(texts), "lens": lens, "shape": list(batch.shape),
+          "f32_batched_vs_single_max_abs": (exact_batch - exact).abs().amax(dim=1).tolist(),
+          "f32_batched_err_over_limit": f32_err, "f32_limit": [EMBED_F32_TOL, EMBED_F32_TOL],
+          "f32_launches_by_kernel": f32_launches,
+          "bf16_batched_vs_single_max_abs": to_single.tolist(),
+          "bf16_single_vs_f32_max_abs": noise.tolist(),
+          "bf16_batched_vs_f32_max_abs": batch_noise.tolist(),
+          "bf16_over_twice_the_noise": envelope, "bf16_ulp_rule_err_over_limit": ulp,
+          "max_abs_value": single.abs().max().item(),
+          "launches_by_kernel": launches, "pool_free": [free0, free1],
+          "pool_blocks": [blocks0, blocks1]}
+    log("[d5] embeddings " + json.dumps(d5))
+    want = {k: (cfg.num_layers if k == route else 0) for k in launches}
+    want_f32 = {k: (cfg.num_layers if k == f32_route else 0) for k in f32_launches}
+    if (tuple(batch.shape) != (len(texts), cfg.hidden_size) or not np.isfinite(batch).all()
+            or tuple(exact_batch.shape) != tuple(batch.shape) or f32_err > 1.0
+            or launches != want or f32_launches != want_f32
+            or (free0, blocks0) != (free1, blocks1)):
+        raise AssertionError(f"[d5] embeddings: {d5}; launches expected {want}, "
+                             f"f32 {want_f32}")
+    del engine, core, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"d4": d4, "d5": d5}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -750,6 +1179,11 @@ def main() -> int:
         f"{serve_f32['launches_per_forward_step']} launches of "
         f"{ROUTES[(torch.float32, 'float')]} a forward step")
     coherence = phase_coherence()
+    phase_spec(True, smi)
+    phase_spec(False, smi, serve["float"]["decode_tok_s"])
+    phase_guided()
+    phase_mm_embed()
+    log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
     for (q_dtype, kind), route in ROUTES.items():
@@ -773,7 +1207,8 @@ def main() -> int:
             "err_over_limit": max(r["err_over_limit"] for r in rows.values()),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-            "library_ms": main_shape["library_ms"], "tol": TOL,
+            "library_ms": main_shape["library_ms"],
+            "verify_ms": rows[verify_case(VERIFY_TS[-1])]["ms"], "tol": TOL,
             "err_limit": main_shape["err_limit"], "pass": True,
         })
     print(json.dumps({"kernels": lines}), flush=True)

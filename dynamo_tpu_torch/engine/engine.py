@@ -4,12 +4,16 @@ Port of ``dynamo_tpu/engine/engine.py`` for the dense Llama serving path
 on one device:
 
 - ``ModelRunner``: owns params, the paged KV cache and per-slot sampling
-  state on the device; runs one bucketed ragged step per dispatch, or a
-  fused window of decode steps.
+  state on the device; runs one bucketed ragged step per dispatch, a
+  fused window of decode steps, a speculative verify step (every
+  position's argmax, engine/spec.py), or an embedding call on a cache of
+  its own.
 - ``StepProgram``: one bucket's step program, the counterpart of a jitted
   step of the JAX runner. On the card it is a CUDA graph captured once
   (lazily at first use, or at warmup) and replayed every step; on the CPU
-  the same object runs its body eagerly.
+  the same object runs its body eagerly. Its variants take a guided
+  step's logits mask and a multimodal step's embedding override;
+  ``VerifyProgram`` is the verify step's.
 - ``EngineCore``: synchronous scheduler + step loop (directly testable),
   pipelined one step deep through ``step_begin`` / ``step_finalize``.
 - ``AsyncTorchEngine``: thread-hosted step loop bridging to asyncio
@@ -34,7 +38,7 @@ import queue as thread_queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Callable
 
 import numpy as np
 import torch
@@ -42,12 +46,15 @@ import torch
 from dynamo_tpu_torch.engine.cache import KVCacheSpec, allocate_cache
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
 from dynamo_tpu_torch.engine.sampling import (
+    NEG_INF,
     SamplingState,
     greedy_sample,
     record_tokens,
     sample,
 )
+from dynamo_tpu_torch.engine.guided import TokenMasker
 from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq
+from dynamo_tpu_torch.engine.spec import accept, propose, spec_eligible
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
 from dynamo_tpu_torch.obs.compile_ledger import (
@@ -61,6 +68,7 @@ from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
     PreprocessedRequest,
+    tensor_from_wire,
 )
 from dynamo_tpu_torch.qos.deadline import deadline_of, expired
 from dynamo_tpu_torch.utils.config import EngineConfig
@@ -101,7 +109,6 @@ def check_supported(ec: EngineConfig) -> None:
         "tp/pp/dp/ep/sp > 1 (parallelism slice)":
             any(v != 1 for v in ec.mesh_shape().values()),
         "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
-        "spec_ngram > 0 (speculative decoding, variants slice)": ec.spec_ngram > 0,
         "host/disk/remote KV tiers (KVBM slice)": bool(
             ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr
             or ec.global_prefix_cache or ec.stream_ckpt_blocks > 0),
@@ -143,6 +150,13 @@ class EngineMetrics:
     kv_cache_bytes: int = 0
     kv_quant_enabled: bool = False
 
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # host seconds step_begin spent building guided logits masks, and the
+    # steps that built any
+    guided_mask_seconds: float = 0.0
+    guided_mask_steps: int = 0
+
     def snapshot(self, sched: Scheduler, pool: PrefixPool) -> dict:
         return {
             "kv_cache_bytes": self.kv_cache_bytes,
@@ -158,6 +172,8 @@ class EngineMetrics:
             "preemptions": self.num_preemptions,
             "prefix_hit_rate": self.prefix_hit_blocks / max(self.prefix_lookup_blocks, 1),
             "deadline_cancelled": self.deadline_cancelled,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
         }
 
 
@@ -180,7 +196,9 @@ class StepOutputs:
 @dataclass
 class PendingStep:
     """A dispatched-but-unmaterialized engine step: per batch,
-    (kind, rows, sample_rows, outputs)."""
+    (kind, rows, sample_rows, outputs); a "verify" batch carries its
+    chunks (current token + proposals) where the others carry
+    sample_rows."""
 
     batches: list[tuple[str, list, list[bool], StepOutputs]] = field(default_factory=list)
     # Unified steps: the leading decode-row count of the "mixed" batch,
@@ -238,10 +256,20 @@ class ModelRunner:
         # the pipelined step loop. Row maxb = trash.
         self.slot_toks = torch.zeros((maxb + 1,), dtype=torch.int32, device=dev)
         self.max_nblk = -(-engine_cfg.max_model_len // engine_cfg.block_size)
-        # The bucket programs made so far (step_fn), and on the card the
-        # pool their graphs share and the side stream they are captured on.
+        # The bucket programs made so far (step_fn, verify_fn), and on the
+        # card the pool their graphs share and the side stream they are
+        # captured on.
         self.programs: dict[tuple, StepProgram] = {}
         self._ledger = get_compile_ledger()
+        # Static inputs the program variants share (variant_inputs): the
+        # guided programs' bool logits mask [max rows, V], made at the first
+        # guided step; the multimodal programs' f32 embedding override and
+        # its bool mask, sized to the largest mm bucket so far.
+        self._logit_mask: torch.Tensor | None = None
+        self._mm_override: torch.Tensor | None = None
+        self._mm_mask: torch.Tensor | None = None
+        # embed buckets (b, t) run so far (ledger: first use of each)
+        self._embed_buckets: set[tuple[int, int]] = set()
         if dev.type == "cuda":
             self.graph_pool = torch.cuda.graph_pool_handle()
             self.capture_stream = torch.cuda.Stream(dev)
@@ -266,29 +294,87 @@ class ModelRunner:
         self.seeds[slot] = seed
         self.draws[slot] = 0
 
+    @staticmethod
+    def step_key(b: int, t: int, nblk: int, window: int = 1, fast_greedy: bool = False,
+                 mm: bool = False, masked: bool = False) -> tuple:
+        """A step program's key: ``(b, t, nblk, window, fast_greedy)``, and
+        "mm" / "masked" after it for those variants."""
+        return ((b, t, nblk, window, fast_greedy) + (("mm",) if mm else ())
+                + (("masked",) if masked else ()))
+
     def step_fn(self, b: int, t: int, nblk: int, window: int = 1,
-                fast_greedy: bool = False) -> "StepProgram":
+                fast_greedy: bool = False, mm: bool = False,
+                masked: bool = False) -> "StepProgram":
         """The bucket's program, made (warmed and captured) on first use —
         the counterpart of the JAX runner's ``step_fn`` cache, keyed by
-        ``(b, t, nblk, window, fast_greedy)``."""
-        key = (b, t, nblk, window, fast_greedy)
+        :meth:`step_key`."""
+        key = self.step_key(b, t, nblk, window, fast_greedy, mm, masked)
         prog = self.programs.get(key)
         if prog is None:
-            log.info("capturing step program B=%d T=%d NBLK=%d W=%d greedy=%s",
-                     b, t, nblk, window, fast_greedy)
-            prog = self.programs[key] = StepProgram(self, *key)
+            log.info("capturing step program B=%d T=%d NBLK=%d W=%d greedy=%s mm=%s "
+                     "masked=%s", b, t, nblk, window, fast_greedy, mm, masked)
+            prog = self.programs[key] = StepProgram(self, b, t, nblk, window, fast_greedy,
+                                                    mm=mm, masked=masked)
         return prog
 
+    def verify_fn(self, b: int, t: int, nblk: int) -> "VerifyProgram":
+        """The verify bucket's program, keyed ``("verify", b, t, nblk)``."""
+        key = ("verify", b, t, nblk)
+        prog = self.programs.get(key)
+        if prog is None:
+            log.info("capturing verify program B=%d T=%d NBLK=%d", b, t, nblk)
+            prog = self.programs[key] = VerifyProgram(self, b, t, nblk)
+        return prog
+
+    def variant_inputs(self, b: int, t: int, mm: bool, masked: bool) -> list[torch.Tensor]:
+        """The variant programs' static inputs, views of the runner-wide
+        buffers: with ``mm`` the override [b, t, H] f32 and its mask [b, t];
+        with ``masked`` the logits mask [b, V]. The mm buffer grows to a
+        larger bucket by being made anew: the programs captured on the old
+        one are dropped then (the card first finishes their work), to be
+        captured again at their next use."""
+        dev = self.device
+        out: list[torch.Tensor] = []
+        if mm:
+            h = self.cfg.hidden_size
+            if self._mm_mask is None or self._mm_mask.numel() < b * t:
+                stale = [k for k in self.programs if "mm" in k[5:]]
+                if stale:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    for k in stale:
+                        del self.programs[k]
+                    log.info("mm buffer grows to B=%d T=%d: %d programs dropped",
+                             b, t, len(stale))
+                self._mm_override = self._mm_mask = None  # freed before the new one
+                self._mm_override = torch.zeros(b * t * h, dtype=torch.float32, device=dev)
+                self._mm_mask = torch.zeros(b * t, dtype=torch.bool, device=dev)
+            out += [self._mm_override[: b * t * h].view(b, t, h),
+                    self._mm_mask[: b * t].view(b, t)]
+        if masked:
+            if self._logit_mask is None:
+                # rows never outnumber max_batch_size; a count past a
+                # ladder is its own bucket
+                n, ladder = self.engine_cfg.max_batch_size, self.engine_cfg.decode_bucket
+                rows = max(_bucket(n, ladder), _bucket(n, (1, 2, 4, 8)))
+                self._logit_mask = torch.ones((rows, self.cfg.vocab_size),
+                                              dtype=torch.bool, device=dev)
+            out.append(self._logit_mask[:b])
+        return out
+
     def dispatch(self, rows: list[tuple[Seq, int, int]], sample_rows: list[bool],
-                 window: int = 1, mixed: bool = False) -> StepOutputs:
+                 window: int = 1, masks: list | None = None,
+                 mixed: bool = False) -> StepOutputs:
         """Enqueue one bucketed step on the device without waiting for it;
         returns its outputs (tokens [B], or [B, window] for a fused decode
         window), to be materialized later. ``window > 1`` (decode rows
         only) fuses that many decode steps into the dispatch — the caller
         must have grown each seq's block table to cover ``window`` more
-        tokens. ``mixed`` marks a unified ragged step (decode rows packed
+        tokens. ``masks``: per-row bool[V] allow-masks (guided rows) or
+        None. ``mixed`` marks a unified ragged step (decode rows packed
         with prefill-chunk rows): the batch buckets over the decode row
-        ladder while t takes the prefill chunk ladder."""
+        ladder while t takes the prefill chunk ladder. A chunk that meets a
+        multimodal span carries its embedding rows (the "mm" variant)."""
         ec = self.engine_cfg
         n = len(rows)
         t_max = max(length for _, _, length in rows)
@@ -351,26 +437,61 @@ class ModelRunner:
             if temp[i] > 0.0 or fp[i] != 0.0 or pp[i] != 0.0 or rp[i] != 1.0:
                 fast_greedy = False
 
+        extra: list[np.ndarray] = []
+        # Multimodal: chunks meeting an embedding span carry the encoder
+        # outputs for those positions. NOT gated on t > 1 — a length-1
+        # prefill tail (chunk budget, prefix-cache hit leaving one token)
+        # can land inside a span, and serving the placeholder embedding
+        # there would poison the prefix cache. Decode rows start at/after
+        # the prompt end, so they never meet a span.
+        for i, (seq, start, length) in enumerate(rows):
+            if not seq.mm_spans or start >= seq.mm_end:
+                continue  # decode rows skip the span scan with one compare
+            for pos, emb in seq.mm_spans:
+                lo, hi = max(pos, start), min(pos + emb.shape[0], start + length)
+                if lo >= hi:
+                    continue
+                if not extra:
+                    extra = [np.zeros((b, t, self.cfg.hidden_size), np.float32),
+                             np.zeros((b, t), bool)]
+                extra[0][i, lo - start: hi - start] = emb[lo - pos: hi - pos]
+                extra[1][i, lo - start: hi - start] = True
+        mm = bool(extra)
+        masked = masks is not None and any(m is not None for m in masks)
+        if masked:
+            fast_greedy = False
+            logit_mask = np.ones((b, self.cfg.vocab_size), bool)
+            for i, m in enumerate(masks):
+                if m is not None:
+                    logit_mask[i] = m
+            extra.append(logit_mask)
+
         led = self._ledger
-        cold = led.enabled and (b, t, nblk, window, fast_greedy) not in self.programs
+        cold = led.enabled and self.step_key(
+            b, t, nblk, window, fast_greedy, mm, masked) not in self.programs
         if cold:
             # Making a program blocks this thread for its warm run, its
             # capture and the graph's instantiation.
             t_capture = time.perf_counter()
-        prog = self.step_fn(b, t, nblk, window, fast_greedy)
+        prog = self.step_fn(b, t, nblk, window, fast_greedy, mm, masked)
         if cold:
             kind = ("window" if window > 1 else "decode" if t == 1
                     else "mixed" if mixed else "prefill")
             led.record(BucketSig(kind, b, t, nblk, fast_greedy, ec.kv_dtype or "bfloat16"),
                        time.perf_counter() - t_capture)
-        return prog(ints, floats)
+        return prog(ints, floats, *extra)
 
     def _body(self, ints: torch.Tensor, floats: torch.Tensor, b: int, t: int,
-              nblk: int, window: int, fast_greedy: bool) -> tuple[torch.Tensor, torch.Tensor]:
+              nblk: int, window: int, fast_greedy: bool,
+              emb_override: torch.Tensor | None = None, emb_mask: torch.Tensor | None = None,
+              logit_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The step program on its static inputs (JAX: ``_build_step_fn``;
         with ``window > 1``, ``_build_window_fn``: W decode steps unrolled,
         step j at ``q_start + j`` on step j-1's tokens). Returns tokens and
-        logprobs, [B] or [B, W]."""
+        logprobs, [B] or [B, W]. ``emb_override``/``emb_mask`` replace the
+        embeddings of the masked positions; ``logit_mask`` (guided rows)
+        sets disallowed logits to -1e30 — the bits of JAX's additive
+        0 / -1e30 mask for every finite logit below ~3.8e22."""
         cfg = self.cfg
         trash_row = self.engine_cfg.max_batch_size
         tokens = ints[: b * t].view(b, t)
@@ -389,8 +510,11 @@ class ModelRunner:
             hidden = llama.forward(self.params, cfg, tokens if j == 0 else toks_w[-1][:, None],
                                    q_start if j == 0 else q_start + j, q_len, bt,
                                    self.cache_k, self.cache_v,
-                                   attn_num_splits=self.engine_cfg.attn_num_splits)
+                                   attn_num_splits=self.engine_cfg.attn_num_splits,
+                                   embed_override=emb_override, embed_mask=emb_mask)
             logits = llama.logits_from_hidden(self.params, cfg, hidden).float()
+            if logit_mask is not None:
+                logits = logits.masked_fill(~logit_mask, NEG_INF)
             if fast_greedy:
                 # Whole batch greedy + penalty-free: argmax over raw logits
                 # is identical to the general path and skips its sort and
@@ -419,6 +543,113 @@ class ModelRunner:
         toks, lps = self.dispatch(rows, sample_rows).materialize()
         n = len(rows)
         return toks[:n], lps[:n]
+
+    # -- speculative verify ----------------------------------------------
+    def dispatch_verify(self, rows: list[tuple[Seq, int, int]],
+                        chunks: list[list[int]]) -> StepOutputs:
+        """Enqueue one verify step (engine/spec.py); the chunk tokens are
+        explicit (the proposals are not in seq.tokens yet). Returns
+        ([B, t] argmax tokens, their logprobs)."""
+        ec = self.engine_cfg
+        n = len(rows)
+        t_max = max(len(c) for c in chunks)
+        b = _bucket(n, ec.decode_bucket)
+        # clamp: _pow2_bucket's hi stops further doubling but does not cap
+        # the result — a 5-token chunk must not make (and pay for) T=8
+        t = min(_pow2_bucket(t_max, 2, ec.spec_k + 1), ec.spec_k + 1)
+        # Same coverage-based table width as dispatch(): the verify chunk
+        # reads nothing past start + len(chunk).
+        bsz = ec.block_size
+        nblk_need = max(min(len(seq.block_ids), -(-(start + len(c)) // bsz))
+                        for (seq, start, _), c in zip(rows, chunks))
+        nblk = min(_pow2_bucket(max(nblk_need, 1), 4, self.max_nblk), self.max_nblk)
+
+        ints = np.zeros(b * t + b * nblk + 2 * b, np.int32)
+        tokens = ints[: b * t].reshape(b, t)
+        bt = ints[b * t: b * t + b * nblk].reshape(b, nblk)
+        q_start, q_len = ints[b * (t + nblk):].reshape(2, b)
+        for i, (seq, start, _length) in enumerate(rows):
+            tokens[i, : len(chunks[i])] = chunks[i]
+            q_start[i] = start
+            q_len[i] = len(chunks[i])
+            ids = seq.block_ids[:nblk]
+            bt[i, : len(ids)] = ids
+
+        led = self._ledger
+        cold = led.enabled and ("verify", b, t, nblk) not in self.programs
+        if cold:
+            t_capture = time.perf_counter()
+        prog = self.verify_fn(b, t, nblk)
+        if cold:
+            led.record(BucketSig("verify", b, t, nblk, True, ec.kv_dtype or "bfloat16"),
+                       time.perf_counter() - t_capture)
+        return prog(ints)
+
+    def _verify_body(self, ints: torch.Tensor, b: int, t: int,
+                     nblk: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The verify program (JAX: ``_build_verify_fn``): one forward over
+        a [B, t] chunk of (current token + proposed continuation),
+        returning the argmax token and its logprob at every position.
+        Greedy-only by contract (the planner verifies greedy, penalty-free
+        rows only), so no sampling state is read or written; KV for all
+        positions is written (rejected positions are overwritten by later
+        true tokens)."""
+        tokens = ints[: b * t].view(b, t)
+        bt = ints[b * t: b * t + b * nblk].view(b, nblk)
+        q_start, q_len = ints[b * (t + nblk):].view(2, b)
+        hidden = llama.forward(self.params, self.cfg, tokens, q_start, q_len, bt,
+                               self.cache_k, self.cache_v,
+                               attn_num_splits=self.engine_cfg.attn_num_splits,
+                               return_all_hidden=True)
+        logits = llama.logits_from_hidden(self.params, self.cfg, hidden).float()  # [B, t, V]
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        lps = torch.log_softmax(logits, dim=-1).gather(-1, toks.long()[..., None])[..., 0]
+        return toks, lps
+
+    # -- embeddings ------------------------------------------------------
+    def embed(self, token_lists: list[list[int]]) -> np.ndarray:
+        """Embed a batch of token sequences → [N, H] float32: the
+        final-norm hidden state at each input's last token (JAX:
+        ``ModelRunner.embed``). A prefill-only forward on a cache of its
+        own, in the model dtype, made for the call: embedding calls never
+        touch the serving pool. Each row owns its blocks of that cache
+        (the JAX runner gives every row the same table, so a batch of
+        more than one input writes its rows' K and V over each other)."""
+        ec, cfg = self.engine_cfg, self.cfg
+        n = len(token_lists)
+        t_max = max(len(ts) for ts in token_lists)
+        if t_max > ec.max_model_len:
+            raise ValueError(f"embedding input of {t_max} tokens exceeds max_model_len="
+                             f"{ec.max_model_len}")
+        t = _pow2_bucket(t_max, 16, ec.max_model_len)
+        # Bounded bucket ladder, as the JAX runner's: client batch sizes
+        # do not make unbounded bucket shapes.
+        b = _bucket(n, (1, 2, 4, 8, 16, 32, 64))
+        nblk = -(-t // ec.block_size)
+        cold = self._ledger.enabled and (b, t) not in self._embed_buckets
+        t0 = time.perf_counter()
+        tokens = np.zeros((b, t), np.int32)
+        q_len = np.zeros((b,), np.int32)
+        for i, ts in enumerate(token_lists):
+            tokens[i, : len(ts)] = ts
+            q_len[i] = len(ts)
+        dev = self.device
+        # block 0 is the padding tokens' trash block; row i owns blocks
+        # 1 + i*nblk .. (i+1)*nblk
+        shape = (cfg.num_layers, b * nblk + 1, ec.block_size, cfg.num_kv_heads, cfg.head_dim)
+        ck = torch.zeros(shape, dtype=llama.torch_dtype(cfg.dtype), device=dev)
+        cv = torch.zeros_like(ck)
+        bt = torch.arange(1, b * nblk + 1, dtype=torch.int32, device=dev).view(b, nblk)
+        hidden = llama.forward(self.params, cfg, torch.from_numpy(tokens).to(dev),
+                               torch.zeros((b,), dtype=torch.int32, device=dev),
+                               torch.from_numpy(q_len).to(dev), bt, ck, cv,
+                               attn_num_splits=ec.attn_num_splits)
+        out = hidden[:n].float().cpu().numpy()
+        self._embed_buckets.add((b, t))
+        if cold:
+            self._ledger.record(BucketSig("embed", b, t, 0, True, ec.kv_dtype or "bfloat16"),
+                                time.perf_counter() - t0)
+        return out
 
     # -- bucket warmup ---------------------------------------------------
     def warmup(self, sigs: list[BucketSig], deadline_s: float = 0.0) -> dict:
@@ -465,12 +696,18 @@ class ModelRunner:
     def _warm_one(self, sig: BucketSig) -> bool:
         """Make one bucket's program. Returns True when it already
         existed (nothing captured)."""
-        window = self.engine_cfg.decode_window if sig.kind == "window" else 1
-        key = (sig.b, sig.t, sig.nblk, window, sig.greedy)
+        if sig.kind == "verify":
+            key: tuple = ("verify", sig.b, sig.t, sig.nblk)
+        else:
+            window = self.engine_cfg.decode_window if sig.kind == "window" else 1
+            key = self.step_key(sig.b, sig.t, sig.nblk, window, sig.greedy)
         if key in self.programs:
             return True
         t0 = time.perf_counter()
-        self.step_fn(*key)
+        if sig.kind == "verify":
+            self.verify_fn(*key[1:])
+        else:
+            self.step_fn(*key)
         self._ledger.record(sig, time.perf_counter() - t0, source="warmup")
         return False
 
@@ -481,30 +718,40 @@ class StepProgram:
 
     It owns the bucket's static inputs — one int32 and one float32 buffer
     laid out as ``ModelRunner.dispatch`` packs them, holding padding until
-    a step fills them. Making it runs the body once on those padding inputs
-    (the warm run: first launches build the kernels and size cuBLAS's
-    workspaces, off the capture); on the card it then captures the body
-    into a CUDA graph in the runner's shared graph pool, on the runner's
-    side stream. A capture failure raises; nothing falls back to eager. A
-    call copies the step's host inputs into the static buffers, replays the
-    graph, and right after the replay, on the same stream, copies its
-    static outputs (``toks``, ``lps``) into fresh pinned host tensors behind
-    an event — before any other graph of the pool can reuse their memory.
-    On the CPU nothing is captured: a call runs the body eagerly on the
-    same static buffers.
+    a step fills them; the "mm" and "masked" variants also take views of
+    the runner's shared buffers (``ModelRunner.variant_inputs``). Making it
+    runs the body once on those padding inputs (the warm run: first
+    launches build the kernels and size cuBLAS's workspaces, off the
+    capture); on the card it then captures the body into a CUDA graph in
+    the runner's shared graph pool, on the runner's side stream. A capture
+    failure raises; nothing falls back to eager. A call copies the step's
+    host inputs into the static buffers, replays the graph, and right after
+    the replay, on the same stream, copies its static outputs (``toks``,
+    ``lps``) into fresh pinned host tensors behind an event — before any
+    other graph of the pool can reuse their memory. On the CPU nothing is
+    captured: a call runs the body eagerly on the same static buffers.
 
     Kernel launches: the warm run's are not counted, the capture's are
     recorded (``launches``, by kernel) and every call counts them once
     (``ops.paged_attention.count_launches``); ``calls`` counts the calls."""
 
     def __init__(self, runner: ModelRunner, b: int, t: int, nblk: int, window: int,
-                 fast_greedy: bool):
+                 fast_greedy: bool, mm: bool = False, masked: bool = False):
         self.runner = runner
         self.shape = (b, t, nblk, window, fast_greedy)
+        self.mm, self.masked = mm, masked
         dev = runner.device
-        self.ints = torch.zeros(b * t + b * nblk + 6 * b, dtype=torch.int32, device=dev)
+        ints = torch.zeros(b * t + b * nblk + 6 * b, dtype=torch.int32, device=dev)
         # padding sampling params: temp 0, top_p 1, penalties 0, rep 1
-        self.floats = torch.tensor([0.0, 1.0, 0.0, 0.0, 1.0], device=dev)[:, None].repeat(1, b)
+        floats = torch.tensor([0.0, 1.0, 0.0, 0.0, 1.0], device=dev)[:, None].repeat(1, b)
+        self.inputs = [ints, floats, *runner.variant_inputs(b, t, mm, masked)]
+        self._make()
+
+    @property
+    def ints(self) -> torch.Tensor:
+        return self.inputs[0]
+
+    def _make(self) -> None:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple[torch.Tensor, torch.Tensor] | None = None
         with pa.launches_made():
@@ -515,7 +762,10 @@ class StepProgram:
         self.calls = 0
 
     def _run(self) -> tuple[torch.Tensor, torch.Tensor]:
-        return self.runner._body(self.ints, self.floats, *self.shape)
+        ints, floats, *rest = self.inputs
+        emb, emb_mask = rest[:2] if self.mm else (None, None)
+        logit_mask = rest[-1] if self.masked else None
+        return self.runner._body(ints, floats, *self.shape, emb, emb_mask, logit_mask)
 
     def _warm(self) -> None:
         if self.runner.device.type != "cuda":
@@ -544,9 +794,11 @@ class StepProgram:
         self.graph.replay()
         return self.outputs
 
-    def __call__(self, ints: np.ndarray, floats: np.ndarray) -> StepOutputs:
+    def __call__(self, *host_inputs: np.ndarray) -> StepOutputs:
+        """Run the program on ``host_inputs``, one array for each static
+        input, in order."""
         cuda = self.runner.device.type == "cuda"
-        for static, arr in ((self.ints, ints), (self.floats, floats)):
+        for static, arr in zip(self.inputs, host_inputs, strict=True):
             host = torch.from_numpy(arr)
             # A fresh pinned tensor per step: the previous step's
             # non-blocking copy may not have run yet.
@@ -563,6 +815,22 @@ class StepProgram:
         event = torch.cuda.Event()
         event.record()
         return StepOutputs(toks_h, lps_h, event)
+
+
+class VerifyProgram(StepProgram):
+    """A verify bucket's program (``ModelRunner._verify_body``): one int32
+    static input laid out as ``ModelRunner.dispatch_verify`` packs it
+    (tokens [B, t], block tables, q_start, q_len); outputs [B, t]."""
+
+    def __init__(self, runner: ModelRunner, b: int, t: int, nblk: int):
+        self.runner = runner
+        self.shape = (b, t, nblk)
+        self.inputs = [torch.zeros(b * t + b * nblk + 2 * b, dtype=torch.int32,
+                                   device=runner.device)]
+        self._make()
+
+    def _run(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.runner._verify_body(self.inputs[0], *self.shape)
 
 
 class EngineCore:
@@ -598,6 +866,7 @@ class EngineCore:
             max_model_len=engine_cfg.max_model_len,
             max_tokens_per_step=engine_cfg.max_tokens_per_step,
             decode_window=engine_cfg.decode_window,
+            spec_lookahead=engine_cfg.spec_k if engine_cfg.spec_ngram > 0 else 0,
         )
         self.metrics = EngineMetrics(
             kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks,
@@ -608,6 +877,19 @@ class EngineCore:
         self._step_now: float | None = None
         # The last warmup()'s summary.
         self.warmup_summary: dict | None = None
+        # Structured output: token-id → text table + tokenizer EOS, built
+        # lazily on the first guided request (engine/guided.py).
+        self._guided_vocab: tuple[list[str], list[int]] | None = None
+
+    def _guided_pieces(self) -> tuple[list[str], list[int]]:
+        if self._guided_vocab is None:
+            from dynamo_tpu_torch.tokenizer import guided_vocab, load_tokenizer
+
+            tok = load_tokenizer(self.engine_cfg.model)
+            pieces = guided_vocab(tok, self.runner.cfg.vocab_size)
+            eos = getattr(tok, "eos_id", None)
+            self._guided_vocab = (pieces, [eos] if eos is not None else [])
+        return self._guided_vocab
 
     def warmup(self) -> dict:
         """Bucket warmup (obs/compile_ledger.py), run before the engine
@@ -639,12 +921,29 @@ class EngineCore:
             # Already past deadline: never enters the scheduler.
             self.metrics.deadline_cancelled += 1
             return LLMEngineOutput(finish_reason=FinishReason.CANCELLED)
-        if req.sampling_options.guided_json is not None or req.mm_embeddings:
-            return LLMEngineOutput(
-                finish_reason=FinishReason.ERROR,
-                error="guided decoding and multimodal requests are not supported "
-                      "by the torch port yet (variants slice)")
         seq = Seq(req=req, block_size=self.engine_cfg.block_size)
+        if req.sampling_options.guided_json is not None:
+            pieces, tok_eos = self._guided_pieces()
+            eos_ids = list(req.eos_token_ids or self.default_eos or tok_eos)
+            seq.guided = TokenMasker(pieces, eos_ids, req.sampling_options.guided_json)
+        if req.mm_embeddings:
+            try:
+                seq.mm_spans = [(int(s["pos"]), tensor_from_wire(s))
+                                for s in req.mm_embeddings]
+            except Exception as exc:  # noqa: BLE001 - malformed client input
+                return LLMEngineOutput(
+                    finish_reason=FinishReason.ERROR,
+                    error=f"bad mm_embeddings payload: {exc}")
+            H = self.model_cfg.hidden_size
+            for pos, emb in seq.mm_spans:
+                if (emb.ndim != 2 or emb.shape[1] != H or pos < 0
+                        or pos + emb.shape[0] > len(req.token_ids)):
+                    return LLMEngineOutput(
+                        finish_reason=FinishReason.ERROR,
+                        error=f"mm span (pos={pos}, shape={emb.shape}) out of "
+                              f"range for prompt len {len(req.token_ids)} / "
+                              f"hidden {H}")
+            seq.mm_end = max(pos + emb.shape[0] for pos, emb in seq.mm_spans)
         self.sched.add(seq)
         if seq.phase is Phase.FINISHED:  # rejected (too long for model or pool)
             return LLMEngineOutput(
@@ -710,9 +1009,35 @@ class EngineCore:
                 self._init_slot(seq)
                 seq.slot_initialized = True
 
+        # Unified mode: decode rows, guided decode rows and the step's
+        # prefill-chunk rows pack into ONE ragged "mixed" step. Legacy mode
+        # (unified_step=False, or decode_window > 1) runs them as separate
+        # bucketed steps, decode first.
         pending = PendingStep()
-        batches: list[tuple[str, list, list[bool], int]] = []
-        dec_rows = [(s, s.num_computed, 1) for s in plan.decode]
+        batches: list[tuple[str, list, list[bool], int, list | None]] = []
+        decode_seqs = plan.decode
+        guided_rows: list = []
+        if any(s.guided is not None for s in decode_seqs):
+            rest = []
+            for s in decode_seqs:
+                if s.guided is None:
+                    rest.append(s)
+                elif s.inflight_samples == 0:
+                    # Unpipelined by design: the mask for token t needs
+                    # token t-1 on the host.
+                    guided_rows.append((s, s.num_computed, 1))
+                # else: pause this cycle until the in-flight token lands
+            decode_seqs = rest
+        if self.engine_cfg.spec_ngram > 0 and decode_seqs:
+            verify_rows, verify_chunks, decode_seqs = self._plan_verify(decode_seqs)
+            if verify_rows:
+                out = self.runner.dispatch_verify(verify_rows, verify_chunks)
+                for seq, start, length in verify_rows:
+                    seq.num_computed = start + length
+                    seq.inflight_samples += 1
+                    seq.verify_inflight = True
+                pending.batches.append(("verify", verify_rows, verify_chunks, out))
+        t_mask = time.perf_counter()
         pf_rows = [(w.seq, w.start, w.length) for w in plan.prefill]
         # Sample only on the chunk completing a *fresh* prompt; a
         # preempt-resumed seq already holds its next token (the resume
@@ -722,20 +1047,40 @@ class EngineCore:
             and len(w.seq.tokens) == w.seq.prompt_len
             for w in plan.prefill
         ]
+        pf_masks = None
+        if any(w.seq.guided is not None and smp
+               for w, smp in zip(plan.prefill, pf_sample_rows)):
+            # The FIRST sampled token must already obey the grammar.
+            pf_masks = [w.seq.guided.mask() if (w.seq.guided is not None and smp) else None
+                        for w, smp in zip(plan.prefill, pf_sample_rows)]
+        guided_masks = [s.guided.mask() for s, _, _ in guided_rows]
+        if guided_rows or pf_masks is not None:
+            self.metrics.guided_mask_seconds += time.perf_counter() - t_mask
+            self.metrics.guided_mask_steps += 1
+        dec_rows = [(s, s.num_computed, 1) for s in decode_seqs]
         if self._unified and pf_rows:
-            # One ragged step: decode rows, then the prefill chunks.
-            pending.mixed_dec_rows = len(dec_rows)
-            batches.append(("mixed", dec_rows + pf_rows,
-                            [True] * len(dec_rows) + pf_sample_rows, 1))
+            # One ragged step: decode rows, guided decode rows (their masks
+            # join per row), then the prefill chunks. dispatch() classifies
+            # a degenerate all-length-1 batch back to "decode".
+            pending.mixed_dec_rows = len(dec_rows) + len(guided_rows)
+            masks = None
+            if guided_rows or pf_masks is not None:
+                masks = ([None] * len(dec_rows) + guided_masks
+                         + (pf_masks if pf_masks is not None else [None] * len(pf_rows)))
+            batches.append(("mixed", dec_rows + guided_rows + pf_rows,
+                            [True] * pending.mixed_dec_rows + pf_sample_rows, 1, masks))
         else:
             if dec_rows:
                 batches.append(("decode", dec_rows, [True] * len(dec_rows),
-                                plan.decode_window))
+                                plan.decode_window, None))
+            if guided_rows:
+                batches.append(("decode", guided_rows, [True] * len(guided_rows), 1,
+                                guided_masks))
             if pf_rows:
-                batches.append(("prefill", pf_rows, pf_sample_rows, 1))
+                batches.append(("prefill", pf_rows, pf_sample_rows, 1, pf_masks))
 
-        for kind, rows, sample_rows, window in batches:
-            out = self.runner.dispatch(rows, sample_rows, window=window,
+        for kind, rows, sample_rows, window, masks in batches:
+            out = self.runner.dispatch(rows, sample_rows, window=window, masks=masks,
                                        mixed=(kind == "mixed"))
             # Value-independent bookkeeping, done at dispatch so the next
             # plan() sees advanced positions: a decode batch advances each
@@ -748,19 +1093,65 @@ class EngineCore:
             pending.batches.append((kind, rows, sample_rows, out))
         return pending
 
+    def _plan_verify(self, decode_seqs: list[Seq]
+                     ) -> tuple[list[tuple[Seq, int, int]], list[list[int]], list[Seq]]:
+        """Partition decode seqs into speculative-verify rows and plain
+        decode. A seq verifies when it passes ``spec_eligible`` (the rule
+        the scheduler reserved lookahead blocks by), its last token is on
+        the host (no in-flight device-fed sample), and the n-gram proposer
+        finds a continuation (engine/spec.py). Proposals are capped to the
+        positions the seq's blocks cover: a chunk position past them would
+        write its K/V through the table's padding into the trash block.
+
+        Pipelined entry: under the overlapped step loop a decode seq's last
+        token is always still in flight at plan time — so when the known
+        prefix already shows a repetition signal (a proposal exists even
+        without the pending token), the seq pauses one plan cycle (dropped
+        from this step) so its token lands and the next plan can verify.
+        The bubble costs one cycle; an accepted run repays it with up to
+        spec_k+1 tokens. No signal → plain pipelined decode, no bubble."""
+        ec = self.engine_cfg
+        verify_rows, verify_chunks, plain = [], [], []
+        for seq in decode_seqs:
+            if not spec_eligible(seq):
+                plain.append(seq)
+                continue
+            # cap proposals to stay inside the model context and the blocks
+            k = min(ec.spec_k, ec.max_model_len - 1 - seq.num_computed,
+                    len(seq.block_ids) * ec.block_size - 1 - seq.num_computed)
+            proposal = propose(seq.tokens, ec.spec_ngram, k) if k > 0 else []
+            if seq.inflight_samples > 0:
+                if not proposal:
+                    plain.append(seq)   # no signal: stay fully pipelined
+                # else: pause this cycle (dispatch nothing for this seq)
+                continue
+            if not proposal:
+                plain.append(seq)
+                continue
+            start = seq.num_computed
+            chunk = [seq.tokens[start], *proposal]
+            verify_rows.append((seq, start, len(chunk)))
+            verify_chunks.append(chunk)
+            self.metrics.spec_proposed += len(proposal)
+        return verify_rows, verify_chunks, plain
+
     def _emit_and_finish(self, seq: Seq, candidates: list[int], lps_row: np.ndarray,
                          outputs: dict[str, LLMEngineOutput],
-                         count_decode: bool) -> None:
-        """Append candidate tokens (one, or a fused window's) until a stop
-        fires — the rest of a window is discarded, its KV in blocks this seq
-        owns — then commit blocks, assemble the output and run finish
-        bookkeeping."""
+                         count_decode: bool) -> int:
+        """The finalize tail, shared by decode/window and verify batches so
+        the greedy-equivalence guarantee cannot drift between them: append
+        candidate tokens (one, a fused window's, or a verify step's
+        accepted run) until a stop fires — the rest is discarded, its KV in
+        blocks this seq owns — then commit blocks, assemble the output and
+        run finish bookkeeping. Returns the number of tokens emitted."""
         emitted: list[int] = []
         reason = None
         for token in candidates:
             seq.tokens.append(token)
             seq.block_seq.append(token)
             emitted.append(token)
+            if seq.guided is not None:
+                seq.guided.advance(token)
             reason = self._check_stop(seq, token)
             if reason is not None:
                 break
@@ -779,6 +1170,7 @@ class EngineCore:
             self.metrics.num_requests_finished += 1
             del self._seqs[seq.request_id]
         outputs[seq.request_id] = out
+        return len(emitted)
 
     def step_finalize(self, pending: PendingStep) -> dict[str, LLMEngineOutput]:
         """Materialize a dispatched step's tokens and apply value-dependent
@@ -787,6 +1179,9 @@ class EngineCore:
         outputs: dict[str, LLMEngineOutput] = {}
         for kind, rows, sample_rows, out in pending.batches:
             toks, lps = out.materialize()
+            if kind == "verify":
+                self._finalize_verify(rows, sample_rows, toks, lps, outputs)
+                continue
             # Normalize to [n, W]: single steps return [B], fused decode
             # windows [B, W] — one finalize path serves both.
             n = len(rows)
@@ -810,6 +1205,39 @@ class EngineCore:
                 self._emit_and_finish(seq, [int(x) for x in toks[i]], lps[i], outputs,
                                       count_decode=decode_row)
         return outputs
+
+    def _finalize_verify(self, rows: list[tuple[Seq, int, int]], chunks: list[list[int]],
+                         toks: np.ndarray, lps: np.ndarray,
+                         outputs: dict[str, LLMEngineOutput]) -> None:
+        """Accept/roll back a speculative verify step (engine/spec.py).
+
+        Position j's argmax is on the true greedy path iff every earlier
+        proposal matched; accepted tokens append exactly as decode tokens
+        would have, the rest of the chunk rolls back (its KV is stale but
+        unreachable — later true tokens overwrite those positions)."""
+        for i, (seq, start, length) in enumerate(rows):
+            seq.verify_inflight = False
+            if seq.phase is Phase.FINISHED:
+                continue  # finished (abort) while in flight: discard
+            seq.inflight_samples -= 1
+            emitted_all = accept(chunks[i], [int(x) for x in toks[i, :length]])
+            # A preemption while in flight reset num_computed: leave its
+            # bookkeeping alone and discard the step.
+            if seq.num_computed == start + length:
+                # Roll back to the KV-valid bound BEFORE the commit inside
+                # _emit_and_finish: KV at position start+j was computed from
+                # input chunk[j], which is a true token only for
+                # j < len(emitted_all). With the optimistic start+length
+                # still in place, a rejection landing on a block boundary
+                # would commit a block whose last slot holds KV from the
+                # rejected proposal token — poisoning the shared prefix pool
+                # for every later request with that chain. (A stop firing
+                # mid-candidates finishes the seq inside _emit_and_finish, so
+                # a live seq always emits all of emitted_all.)
+                seq.num_computed = start + len(emitted_all)
+            n_emitted = self._emit_and_finish(seq, emitted_all, lps[i], outputs,
+                                              count_decode=True)
+            self.metrics.spec_accepted += max(n_emitted - 1, 0)
 
     def set_step_time(self, now: float | None) -> None:
         self._step_now = now
@@ -836,6 +1264,11 @@ class EngineCore:
         if pending is not None:
             outs.update(self.step_finalize(pending))
         return outs
+
+    def embed(self, token_lists: list[list[int]]) -> np.ndarray:
+        """Last-token-pooled embeddings [N, H] f32 (engine-core thread only;
+        ``ModelRunner.embed``)."""
+        return self.runner.embed(token_lists)
 
     def fail_all(self, error: str) -> list[str]:
         """Abort every in-flight request (engine-fatal path). Returns the
@@ -894,6 +1327,19 @@ class AsyncTorchEngine:
                 elif kind == "abort":
                     self.core.abort(payload)
                     self._post(payload, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
+                elif kind == "exec":
+                    # Core access (embeddings) marshaled onto this thread, the
+                    # only one that touches device state. The future resolves
+                    # on the loop it was made on, which may not be self._loop.
+                    fn, fut, fut_loop = payload
+                    try:
+                        result, exc = fn(self.core), None
+                    except Exception as e:  # noqa: BLE001 - handed to the caller
+                        result, exc = None, e
+                    try:
+                        fut_loop.call_soon_threadsafe(self._resolve, fut, result, exc)
+                    except RuntimeError:
+                        pass  # the caller's loop closed before the result came
             if not self.core.has_work() and pending is None:
                 if not moved:
                     self._wake.wait(timeout=0.05)
@@ -920,6 +1366,24 @@ class AsyncTorchEngine:
                     self._post(rid, LLMEngineOutput(finish_reason=FinishReason.ERROR,
                                                     error=str(exc)))
 
+    @staticmethod
+    def _resolve(fut: asyncio.Future, result, exc: Exception | None) -> None:
+        if fut.cancelled():
+            return
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+
+    async def run_in_core(self, fn: Callable[[EngineCore], Any]) -> Any:
+        """Run ``fn(core)`` on the engine-core thread and await its result."""
+        self.start()
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._inbox.put(("exec", (fn, fut, loop)))
+        self._wake.set()
+        return await fut
+
     def _post(self, rid: str, out: LLMEngineOutput) -> None:
         loop, q = self._loop, self._streams.get(rid)
         if loop is None or q is None:
@@ -944,6 +1408,11 @@ class AsyncTorchEngine:
             if out is None or out.finish_reason is None:  # client bailed early
                 self._inbox.put(("abort", req.request_id))
                 self._wake.set()
+
+    async def embed(self, token_lists: list[list[int]]) -> np.ndarray:
+        """Embeddings via the engine-core thread (serialized with steps:
+        device state has one owner)."""
+        return await self.run_in_core(lambda core: core.embed(token_lists))
 
     def stats(self) -> dict[str, Any]:
         return self.core.metrics.snapshot(self.core.sched, self.core.pool)

@@ -11,10 +11,13 @@ engine runs the whole plan as ONE ragged mixed-phase step;
 ``unified_step=False`` restores the legacy two-launch path. Fused decode
 windows (``decode_window > 1``) are decode-only and keep it: each decode
 row grows its blocks ``w`` tokens ahead and the engine runs ``w`` decode
-steps in one program.
+steps in one program. With speculative decoding (``spec_lookahead > 0``)
+each verify-eligible decode row grows ``1 + spec_lookahead`` tokens ahead,
+and a row whose verify step is in flight is not planned again until the
+engine has accepted or rolled it back.
 
-Not carried yet (later slices): speculative lookahead, session ids and
-the scheduling/memory ledger hooks.
+Not carried yet (later slices): session ids and the scheduling/memory
+ledger hooks.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dataclasses import dataclass, field
 
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
+from dynamo_tpu_torch.engine.spec import spec_eligible
 from dynamo_tpu_torch.protocols.common import FinishReason, PreprocessedRequest
 from dynamo_tpu_torch.qos.deadline import deadline_of, expired, priority_of
 from dynamo_tpu_torch.qos.wdrr import WdrrQueue
@@ -57,6 +61,20 @@ class Seq:
     # not enough: with step N in flight, step N-1's finalize must not make
     # step N+1's dispatch read the (not yet appended) host token.
     inflight_samples: int = 0
+    # A speculative verify step is in flight: the scheduler must not plan
+    # this seq again until finalize accepts/rolls back (engine/spec.py).
+    verify_inflight: bool = False
+    # Structured output: a TokenMasker (engine/guided.py) constraining each
+    # sampled token to the request's JSON grammar. Guided seqs decode
+    # unpipelined in their own masked rows.
+    guided: object | None = None
+    # Multimodal embedding spans [(pos, np.ndarray[K, H])]: encoder outputs
+    # injected at prompt positions during prefill (engine dispatch). Spans
+    # are retained for the seq's whole life — preemption recomputes the
+    # prefill from position 0 and needs them again. mm_end (max span end)
+    # lets decode dispatches skip the span scan with one comparison.
+    mm_spans: list = field(default_factory=list)
+    mm_end: int = 0
     # QoS: priority class feeds the WDRR waiting queue; deadline_ts is an
     # absolute wall-clock deadline after which the seq is cancelled.
     qos_priority: str = "standard"
@@ -126,6 +144,7 @@ class Scheduler:
         max_tokens_per_step: int = 8192,
         qos_weights: dict[str, int] | None = None,
         decode_window: int = 1,
+        spec_lookahead: int = 0,
     ):
         self.pool = pool
         self.max_batch_size = max_batch_size
@@ -133,6 +152,9 @@ class Scheduler:
         self.max_model_len = max_model_len
         self.max_tokens_per_step = max_tokens_per_step
         self.decode_window = max(decode_window, 1)
+        # Speculative verify chunks write KV for up to spec_k proposed
+        # positions ahead — block growth must cover them (engine/spec.py).
+        self.spec_lookahead = spec_lookahead
         # Weighted deficit-round-robin over priority classes instead of a
         # plain FIFO: interactive traffic admits ahead of batch without
         # starving it (preempted seqs resume ahead of all lanes via
@@ -279,12 +301,24 @@ class Scheduler:
         for seq in list(self.running):
             if not seq.in_decode:
                 continue
+            if seq.verify_inflight:
+                # A dispatched-but-unfinalized verify step owns this seq's
+                # next positions; replanning it before the accept/rollback
+                # lands would read garbage state.
+                continue
+            if self.spec_lookahead and spec_eligible(seq):
+                # Only verify-eligible seqs reserve lookahead blocks —
+                # sampled/penalized seqs never speculate, and over-reserving
+                # for them would trigger preemptions for capacity nobody uses.
+                grow_ahead = max(w, 1 + self.spec_lookahead)
+            else:
+                grow_ahead = w
             if seq.num_computed >= self.max_model_len:
                 # At capacity: the finalize of an in-flight step will finish
                 # this seq (pipelined stepping plans ahead of stop checks);
                 # decoding past max_model_len would outgrow the block table.
                 continue
-            while not self._grow_for_decode(seq, w):
+            while not self._grow_for_decode(seq, grow_ahead):
                 # preempt the most recently admitted other seq
                 victims = [s for s in reversed(self.running) if s is not seq]
                 if not victims:

@@ -13,6 +13,8 @@ Examples:
         --device cpu --kv-dtype int8 --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model llama-3-8b-lite \
         --allow-random-weights --decode-window 4 --warmup-mode full --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
+        --device cpu --spec-ngram 2 --spec-k 4 --input-jsonl prompts.jsonl
 
 ``--warmup-mode`` and ``--warmup-deadline`` are the JAX worker's flags
 (``dynamo_tpu/components/worker.py``); the launcher takes them until the
@@ -74,6 +76,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "bucket lattice before serving)")
     p.add_argument("--warmup-deadline", type=float, default=120.0,
                    help="wall-seconds budget for --warmup-mode full (0 = unbounded)")
+    p.add_argument("--spec-ngram", type=int, default=0,
+                   help="n-gram speculative decoding (greedy-exact; 0 = off). It "
+                        "currently lowers decode throughput on the card: verify "
+                        "rows run as a second forward beside decode and a row "
+                        "pauses a cycle before each verify (ROADMAP Queue 1)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="max proposed tokens per verify step")
     p.add_argument("--max-tokens", type=int, default=256, help="default max output tokens")
     p.add_argument("--input-jsonl", default=None)
     p.add_argument("--allow-random-weights", action="store_true",
@@ -95,6 +104,8 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         kv_dtype=ns.kv_dtype,
         unified_step=not ns.no_unified_step,
         decode_window=ns.decode_window,
+        spec_ngram=ns.spec_ngram,
+        spec_k=ns.spec_k,
         warmup_mode=ns.warmup_mode,
         warmup_deadline=ns.warmup_deadline,
         allow_random_weights=ns.allow_random_weights,

@@ -263,10 +263,16 @@ def forward(params: Params, cfg: ModelConfig,
             cache_k: Cache,               # [L, NB, BS, KH, D] or {"q", "s"}, updated in place
             cache_v: Cache,
             attn_num_splits: int = 0,     # split-K: 0 auto, 1 off, N forced
-            return_all_hidden: bool = False) -> torch.Tensor:
+            return_all_hidden: bool = False,
+            embed_override: torch.Tensor | None = None,  # [B, T, H] multimodal embeds
+            embed_mask: torch.Tensor | None = None,      # [B, T] True → use override
+            ) -> torch.Tensor:
     """One engine step. Returns the final-norm hidden state at each row's
     last valid query token [B, H] (or at every token [B, T, H] with
-    ``return_all_hidden``), and writes the step's K/V into the caches.
+    ``return_all_hidden``: the speculative verify step), and writes the
+    step's K/V into the caches. Where ``embed_mask`` is True the token's
+    embedding is ``embed_override``'s row, cast to the hidden dtype
+    (multimodal positions carry encoder outputs).
 
     Query token t of row b sits at position q_start[b] + t; its KV goes to
     the cache slot its block table names; attention sees every cache
@@ -285,6 +291,8 @@ def forward(params: Params, cfg: ModelConfig,
     qs32 = q_start.to(torch.int32).contiguous()
 
     hid = embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype))  # [B, T, H]
+    if embed_override is not None:
+        hid = torch.where(embed_mask[..., None], embed_override.to(hid.dtype), hid)
     layers = params["layers"]
     for li in range(cfg.num_layers):
         x = rms_norm(hid, layers["attn_norm"][li], cfg.rms_norm_eps)

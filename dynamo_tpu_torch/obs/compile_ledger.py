@@ -58,8 +58,8 @@ def _pow2_bucket(n: int, lo: int, hi: int) -> int:
 @dataclass(frozen=True)
 class BucketSig:
     """One program's bucket signature. ``kind`` is one of decode | window
-    | prefill | mixed (verify and embed come with their slices); ``greedy``
-    is the argmax-only fast path variant. "mixed" is the unified
+    | prefill | mixed | verify | embed; ``greedy`` is the argmax-only fast
+    path variant (always True for verify and embed). "mixed" is the unified
     ragged step (decode rows + a prefill chunk in one launch): b buckets
     over the DECODE ladder, t over the prefill chunk ladder — the program
     itself is the same ragged step either way."""
@@ -250,17 +250,38 @@ def _prefill_t_ladder(ec) -> list[int]:
     return out
 
 
+def _verify_t_ladder(spec_k: int) -> list[int]:
+    """Reachable verify chunk buckets: ``min(_pow2_bucket(t, 2, k+1), k+1)``
+    over t in 1..spec_k+1 (chunk = current token + up to k proposals)."""
+    k1 = spec_k + 1
+    return sorted({min(_pow2_bucket(t, 2, k1), k1) for t in range(1, k1 + 1)})
+
+
+def embed_bucket_ladders(ec) -> tuple[list[int], list[int]]:
+    """Embed's (b, t) ladders — exported for tests/tools; embed buckets are
+    NOT part of the warmup plan (off the generate hot path)."""
+    bs = [x for x in (1, 2, 4, 8, 16, 32, 64)]
+    ts = [16]
+    t = 16
+    while t < ec.max_model_len:
+        t *= 2
+        ts.append(t)
+    return bs, ts
+
+
 def enumerate_buckets(ec) -> list[BucketSig]:
     """The reachable generate-path bucket lattice for one EngineConfig —
     what ``warmup_mode="full"`` captures and what coverage is measured
-    against.
+    against. Excludes: embed (off-path), multimodal/guided variants
+    (workload-dependent; captured at first use, still ledgered).
 
     Unified mode (``ec.unified_step``): every step carrying prefill work
     dispatches as ONE ragged "mixed" program (decode-ladder b × prefill
     t ladder), so the separate "prefill" rungs are unreachable and are
     pruned from the plan. Pure-decode steps still dispatch the
-    decode/window rungs, which stay. The JAX lattice's verify rungs come
-    with speculative decoding (``spec_ngram > 0``, not ported yet)."""
+    decode/window rungs, which stay. With speculative decoding
+    (``spec_ngram > 0``) the verify rungs join: decode-ladder b × verify
+    chunk ladder t."""
     kv = ec.kv_dtype or "bfloat16"
     max_nblk = -(-ec.max_model_len // ec.block_size)
     nblks = _nblk_ladder(max_nblk)
@@ -284,6 +305,11 @@ def enumerate_buckets(ec) -> list[BucketSig]:
             for nblk in nblks:
                 for g in greedy_variants:
                     out.append(BucketSig(pf_kind, b, t, nblk, g, kv))
+    if ec.spec_ngram > 0:
+        for b in dec_bs:
+            for t in _verify_t_ladder(ec.spec_k):
+                for nblk in nblks:
+                    out.append(BucketSig("verify", b, t, nblk, True, kv))
     return out
 
 
@@ -297,6 +323,10 @@ def sig_for_rows(kind: str, n_rows: int, t_max: int, nblk_need: int,
     if kind in ("decode", "window"):
         return BucketSig(kind, _bucket(n_rows, ec.decode_bucket), 1, nblk,
                          greedy, kv)
+    if kind == "verify":
+        t = min(_pow2_bucket(t_max, 2, ec.spec_k + 1), ec.spec_k + 1)
+        return BucketSig(kind, _bucket(n_rows, ec.decode_bucket), t, nblk,
+                         True, kv)
     if kind == "mixed":
         # Unified ragged step: rows bucket over the DECODE ladder, t over
         # the prefill chunk ladder. Degenerate mixed batches (every live

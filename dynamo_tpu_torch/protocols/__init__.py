@@ -4,6 +4,8 @@ from dynamo_tpu_torch.protocols.common import (
     PreprocessedRequest,
     SamplingOptions,
     StopConditions,
+    tensor_from_wire,
+    tensor_to_wire,
 )
 
 __all__ = [
@@ -12,4 +14,6 @@ __all__ = [
     "PreprocessedRequest",
     "SamplingOptions",
     "StopConditions",
+    "tensor_from_wire",
+    "tensor_to_wire",
 ]

@@ -68,6 +68,24 @@ class SamplingOptions:
         return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})  # type: ignore[arg-type]
 
 
+def tensor_to_wire(arr) -> dict:
+    """ONE envelope for tensors riding a request ({data, shape, dtype}:
+    multimodal embedding spans). Both directions live here so encoders,
+    frontends and engines can never drift on the format."""
+    import numpy as np
+
+    a = np.ascontiguousarray(arr, np.float32)
+    return {"data": a.tobytes(), "shape": list(a.shape), "dtype": "float32"}
+
+
+def tensor_from_wire(d: dict):
+    import numpy as np
+
+    return np.frombuffer(
+        d["data"], np.dtype(d.get("dtype", "float32"))
+    ).reshape(d["shape"]).astype(np.float32)
+
+
 @dataclass
 class PreprocessedRequest:
     """Tokenized request handed to an engine."""

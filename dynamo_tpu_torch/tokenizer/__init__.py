@@ -3,8 +3,9 @@ from dynamo_tpu_torch.tokenizer.base import (
     BPETokenizer,
     ByteTokenizer,
     DecodeStream,
+    guided_vocab,
     load_tokenizer,
 )
 
 __all__ = ["BaseTokenizer", "BPETokenizer", "ByteTokenizer", "DecodeStream",
-           "load_tokenizer"]
+           "guided_vocab", "load_tokenizer"]

@@ -198,6 +198,43 @@ class BPETokenizer:
         return _chatml(messages, add_generation_prompt, tools)
 
 
+_SP_BYTE_RE = re.compile(r"^<0x([0-9A-Fa-f]{2})>$")
+
+
+def guided_vocab(tok: ByteTokenizer | BPETokenizer, size: int | None = None) -> list[str]:
+    """Token-id → text table for constrained decoding (engine/guided.py) —
+    the JAX package's ``guided_vocab`` for this package's two tokenizers.
+
+    Built from the tokenizer's own vocab in one pass instead of V per-id
+    decodes: byte-level BPE pieces are mapped through the GPT-2 byte
+    decoder (exact text, leading-space markers included), sentencepiece
+    pieces get their ▁ marker substituted (``<0xHH>`` byte-fallback pieces:
+    an ASCII byte becomes its character, a non-ASCII byte — a partial UTF-8
+    sequence — stays "" so the masker never matches half a codepoint), and
+    special tokens decode to "" so the masker never trial-feeds control
+    markup. ``size`` pads with "" (or truncates) to the MODEL vocab."""
+    if isinstance(tok, ByteTokenizer):
+        v = size or tok.vocab_size
+        pieces = [""] * v
+        for i in range(tok.OFFSET, min(tok.OFFSET + 256, v)):
+            pieces[i] = bytes([i - tok.OFFSET]).decode("utf-8", errors="replace")
+        return pieces
+    v = size or tok.vocab_size
+    pieces = [""] * v
+    for piece, idx in tok._vocab.items():
+        if not (0 <= idx < v) or idx in tok._special_ids:
+            continue
+        m = _SP_BYTE_RE.match(piece)
+        if m is not None:
+            b = int(m.group(1), 16)
+            pieces[idx] = chr(b) if b < 0x80 else ""
+        elif all(ch in tok._dec for ch in piece):
+            pieces[idx] = bytes(tok._dec[ch] for ch in piece).decode("utf-8", errors="replace")
+        else:
+            pieces[idx] = piece.replace("▁", " ")
+    return pieces
+
+
 def load_tokenizer(name_or_path: str | None) -> BaseTokenizer:
     """A local dir with ``tokenizer.json`` → its byte-level BPE; anything
     else → the built-in byte tokenizer."""

@@ -49,8 +49,10 @@ class EngineConfig:
     disk_kv_path: str | None = None
     remote_kv_addr: str | None = None
     global_prefix_cache: bool = False
-    # N-gram speculative decoding: 0 = off.
+    # N-gram speculative decoding: 0 = off; spec_k = max proposed tokens
+    # a verify step checks.
     spec_ngram: int = 0
+    spec_k: int = 4
     seed: int = 0
     # A checkpoint PATH without loadable weights fails engine construction
     # unless this is set — a typo'd path must not silently serve garbage.
