@@ -101,7 +101,38 @@ if any phase fails:
     f32 over an f32 cache, batched (8 ``mma_f32`` launches) and alone, must
     agree row by row within 1e-4*|ref| + 1e-4; the bf16 rows' distance
     from their single calls is printed (a bf16 forward is not batch
-    invariant). (d3)-(d5) capture graphs lazily.
+    invariant). (d3)-(d5) capture graphs lazily;
+(e1) the OpenAI HTTP frontend (the port's ``HttpService`` over its stdlib
+    HTTP/1.1 server on 127.0.0.1, driven by an asyncio-streams client) in
+    f32: llama-3-8b-lite with f32 weights over the f32 cache, 32 concurrent
+    streaming /v1/completions with 128-token id prompts, 32 greedy tokens,
+    logprobs 0 and include_usage. A tap on the registered ``generate``
+    records what the engine handed the frontend: each stream's ids must
+    equal the same prompt's through ``engine.generate`` in-process (or
+    first differ at a near-tie), usage must count them, token_logprobs
+    must equal the tap's to 1e-6, every stream must end in [DONE], and the
+    HTTP run must launch ``mma_f32`` only, 8 a forward step;
+(e2) bf16 at (b)'s geometry over HTTP after a full warmup: 32 concurrent
+    streams of 128 prompt ids and 64 greedy tokens, once from a client in
+    this process and once from a client in a spawned process of its own;
+    prints decode tok/s and TTFT (all 32) measured at the client beside
+    (b)'s in-process tok/s, the CPU seconds of the event-loop, engine and
+    client threads (or client process), and the p50/p99 of the frontend's
+    own TTFT and ITL histograms; every stream must carry 64 tokens and a
+    finish reason (no bound on speed);
+(e3) the other routes on (e2)'s engine: 4 json_object and 2 json_schema
+    chats (stopped documents conform, masked graphs replay),
+    /v1/embeddings of 8 token lists equal to an in-process
+    ``engine.embed`` of the same batch (8 ``mma_bf16`` launches), a chat
+    with an image part through a stub encoder (rows of the model's own
+    embedding table: 200, an mm graph replays, the same image twice gives
+    the same answer; 501 without an encoder), /health, /v1/models,
+    /metrics, and ``frontend_requests_total{status="200"}`` equal to the
+    200s sent;
+(e4) a streaming request cut by the client after 4 chunks: within 1 s
+    the engine holds no seq for it and the pool's free blocks are back.
+    (e)'s engines run with prefix caching off, so that a request sent
+    twice prefills alike.
 
 Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
 per kernel instantiation (registers, spills), one JSON ``kernels`` line
@@ -120,11 +151,14 @@ share of the serving wall time, for each run.
 from __future__ import annotations
 
 import asyncio
+import base64
 import dataclasses
 import gc
 import json
+import multiprocessing
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1139,6 +1173,556 @@ def phase_mm_embed() -> dict:
     return {"d4": d4, "d5": d5}
 
 
+# ---------------------------------------------------------------------------
+# (e) the OpenAI HTTP frontend
+# ---------------------------------------------------------------------------
+
+#: (e2)/(e3)'s model name, and a second name on the same engine that has no
+#: image encoder
+HTTP_MODEL, HTTP_NOENC = "llama-3-8b-lite", "llama-3-8b-lite-noenc"
+#: rows of an (e3) image: the embedding table's rows for these ids
+IMAGE_IDS = list(range(1000, 1016))
+
+
+def wide_tokenizer():
+    """ByteTokenizer that also names the ids past the byte range (`` t<id>``),
+    so each token of a random-weight model streams text: the SSE chunk a
+    token that a trained model's vocabulary gives. Byte ids decode as the
+    ByteTokenizer's (the guided grammar only emits those)."""
+    from dynamo_tpu_torch.tokenizer import ByteTokenizer
+
+    class WideByteTokenizer(ByteTokenizer):
+        def decode(self, ids, skip_special: bool = True) -> str:
+            out, run = [], []
+            for i in ids:
+                if self.OFFSET <= i < self.OFFSET + 256:
+                    run.append(i - self.OFFSET)
+                    continue
+                if run:
+                    out.append(bytes(run).decode("utf-8", errors="replace"))
+                    run = []
+                if i >= self.OFFSET + 256:
+                    out.append(f" t{i}")
+            if run:
+                out.append(bytes(run).decode("utf-8", errors="replace"))
+            return "".join(out)
+
+    return WideByteTokenizer()
+
+
+def tapped(generate, taps: dict):
+    """``generate`` recording what the engine handed the frontend, by
+    request id: ids, log-probs, finish reason (None if the stream was
+    closed before it finished)."""
+    async def gen(pre):
+        rec = taps.setdefault(pre.request_id, {"ids": [], "lps": [], "finish": None})
+        async for out in generate(pre):
+            rec["ids"] += out.token_ids
+            rec["lps"] += out.log_probs or []
+            if out.finish_reason is not None:
+                rec["finish"] = str(out.finish_reason)
+            yield out
+    return gen
+
+
+class HttpServing:
+    """The port's HttpService on 127.0.0.1 in an event loop of its own
+    thread, with ``engine``'s step loop started on it (its streams live on
+    that loop); clients run on the main thread's loop."""
+
+    def __init__(self, models, engine):
+        from dynamo_tpu_torch.frontend.service import HttpService
+
+        self.engine = engine
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.svc = HttpService(models)
+        self.port = self.run(self.svc.start("127.0.0.1", 0))
+        self.run(self._start())
+
+    async def _start(self) -> None:
+        self.engine.start()
+
+    def run(self, coro, timeout: float = 300):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.run(self.svc.stop())
+        self.run(self.engine.shutdown())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+async def http_call(port: int, method: str, path: str, body=None, headers=None,
+                    cut_after: int | None = None) -> dict:
+    """One HTTP/1.1 request over asyncio streams: status, headers, body,
+    and for a chunked (SSE) answer each event with its arrival time.
+    ``cut_after``: close the connection after that many events."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    head = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1", "Connection: close",
+            "Content-Type: application/json", f"Content-Length: {len(data)}"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    t0 = time.perf_counter()
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + data)
+    try:
+        raw = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        status = int(raw[0].split(" ")[1])
+        hdrs = {k.strip().lower(): v.strip() for k, _, v in
+                (ln.partition(":") for ln in raw[1:] if ln)}
+        out = {"status": status, "headers": hdrs, "body": b"", "events": [], "times": [],
+               "t0": t0}
+        if hdrs.get("transfer-encoding") == "chunked":
+            buf = b""
+            while True:
+                size = int((await reader.readuntil(b"\r\n")).split(b";")[0], 16)
+                if size == 0:
+                    break
+                buf += await reader.readexactly(size)
+                await reader.readexactly(2)
+                while b"\n\n" in buf:
+                    ev, buf = buf.split(b"\n\n", 1)
+                    out["events"].append(ev.decode().removeprefix("data: "))
+                    out["times"].append(time.perf_counter())
+                    if cut_after is not None and len(out["events"]) >= cut_after:
+                        return out
+        else:
+            out["body"] = await reader.readexactly(int(hdrs.get("content-length", "0")))
+        return out
+    finally:
+        writer.close()
+
+
+def sse_summary(res: dict) -> dict:
+    """Text, token log-probs, finish reason and usage of a streamed
+    completion; the times of its first and last token chunks."""
+    evs = res["events"]
+    if not evs or evs[-1] != "[DONE]":
+        raise AssertionError(f"[e] stream did not end in [DONE]: {evs[-2:]}")
+    text, lps, finish, usage, tok_times = "", [], None, None, []
+    for ev, t in zip(evs[:-1], res["times"]):
+        d = json.loads(ev)
+        if d.get("usage"):
+            usage = d["usage"]
+        for ch in d["choices"]:
+            text += ch["text"]
+            finish = ch.get("finish_reason") or finish
+            lps += (ch.get("logprobs") or {}).get("token_logprobs", [])
+            if ch["text"]:
+                tok_times.append(t)
+    return {"text": text, "lps": lps, "finish": finish, "usage": usage,
+            "first": tok_times[0] if tok_times else None,
+            "last": tok_times[-1] if tok_times else None}
+
+
+def throughput_clients(port: int, bodies: dict) -> tuple[float, list, float]:
+    """(e2)'s clients: every body of ``bodies`` ({request id: body}) sent at
+    once to /v1/completions and streamed; returns the start time, each
+    answer's (status, ``sse_summary``) and the CPU seconds this process
+    spent."""
+    async def go():
+        return await asyncio.gather(*(http_call(
+            port, "POST", "/v1/completions", body, headers={"x-request-id": rid})
+            for rid, body in bodies.items()))
+
+    cpu0 = time.process_time()
+    t_start = time.perf_counter()
+    results = asyncio.run(go())
+    return (t_start, [(r["status"], sse_summary(r)) for r in results],
+            time.process_time() - cpu0)
+
+
+def _client_main(port: int, bodies: dict, conn) -> None:
+    conn.send(throughput_clients(port, bodies))
+    conn.close()
+
+
+def client_in_own_process(port: int, bodies: dict) -> tuple[float, list, float]:
+    """``throughput_clients`` in a spawned process of its own, as a user's
+    client is, so that its parsing does not share this process's
+    interpreter lock with the frontend and the engine (perf_counter is the
+    system's monotonic clock, one timeline in both processes)."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_client_main, args=(port, bodies, send))
+    proc.start()
+    try:
+        send.close()
+        if not recv.poll(300):
+            raise AssertionError("[e2] the client process sent no result in 300 s")
+        return recv.recv()
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+
+
+def histogram_quantiles(text: str, name: str, qs=(0.5, 0.99)) -> dict:
+    """Quantiles of a Prometheus histogram (summed over labels), each the
+    upper bound of the bucket that holds it."""
+    from dynamo_tpu_torch.utils.metrics import parse_prometheus
+
+    buckets: dict[float, float] = {}
+    for (n, labels), v in parse_prometheus(text).items():
+        if n == f"{name}_bucket":
+            le = float(dict(labels)["le"])
+            buckets[le] = buckets.get(le, 0.0) + v
+    les = sorted(buckets)
+    total = buckets[les[-1]] if les else 0.0
+    return {f"p{round(q * 100)}": next((le for le in les if buckets[le] >= q * total), None)
+            for q in qs} | {"count": total}
+
+
+def http_engine(model: str, decode: int, prompt: int = 128):
+    """(e)'s engine after a full warmup, with prefix caching off: a request
+    sent twice (an in-process reference, the same image) prefills alike
+    instead of from the first one's cached blocks, whose shapes round
+    otherwise in bf16."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    t0 = time.perf_counter()
+    engine = build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=32, max_model_len=prompt + decode + 16,
+        prefill_chunk=prompt, kv_dtype="bfloat16", allow_random_weights=True,
+        warmup_mode="full", enable_prefix_caching=False))
+    torch.cuda.synchronize()
+    warm = engine.core.warmup_summary
+    if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
+        raise AssertionError(f"[e] {model}: warmup left buckets without a graph: {warm}")
+    return engine, time.perf_counter() - t0
+
+
+def thread_cpu_s(threads: dict) -> dict:
+    """CPU seconds each named thread has used so far."""
+    return {name: time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+            for name, t in threads.items()}
+
+
+def forward_steps_since(core, calls0: dict) -> int:
+    return sum((p.calls - calls0.get(k, 0)) * (p.shape[3] if len(p.shape) > 3 else 1)
+               for k, p in core.runner.programs.items())
+
+
+def phase_http_f32() -> dict:
+    """(e1): 32 concurrent streaming /v1/completions (128-token id prompts,
+    32 greedy tokens, logprobs 0, include_usage) into llama-3-8b-lite with
+    f32 weights over the f32 cache. Each stream's ids (the tap's) must
+    equal the same prompt's through engine.generate in-process, or first
+    differ at a near-tie; usage must count the ids; token_logprobs must
+    equal the tap's to 1e-6; every stream ends in [DONE]; the HTTP run
+    launches mma_f32 only, 8 a forward step."""
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.preprocessor.preprocessor import ModelDefaults
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    batch, prompt, decode = 32, 128, 32
+    model = register_f32_model()
+    engine, setup_s = http_engine(model, decode)
+    core = engine.core
+    taps: dict = {}
+    models = ModelManager()
+    models.register(model, wide_tokenizer(), tapped(engine.generate, taps),
+                    defaults=ModelDefaults(max_model_len=prompt + decode + 16),
+                    stats=engine.stats)
+    srv = HttpServing(models, engine)
+    hi = core.model_cfg.vocab_size - 5
+    prompts = [[(7 * i + 11 * j) % hi + 5 for j in range(prompt)] for i in range(batch)]
+    calls0 = {k: p.calls for k, p in core.runner.programs.items()}
+    pa.reset_launches()
+
+    async def clients():
+        return await asyncio.gather(*(http_call(
+            srv.port, "POST", "/v1/completions",
+            {"model": model, "prompt": p, "max_tokens": decode, "temperature": 0,
+             "logprobs": 0, "ignore_eos": True, "stream": True,
+             "stream_options": {"include_usage": True}},
+            headers={"x-request-id": f"e1-{i}"}) for i, p in enumerate(prompts)))
+
+    results = asyncio.run(clients())
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    forward_steps = forward_steps_since(core, calls0)
+    route = pa.ROUTES[(torch.float32, "float")]
+    want = {k: (core.model_cfg.num_layers * forward_steps if k == route else 0)
+            for k in by_kernel}
+    if forward_steps <= 0 or by_kernel != want:
+        raise AssertionError(f"[e1] HTTP run launches {by_kernel}, expected {want}")
+
+    async def in_process():
+        async def one(i):
+            toks, lps = [], []
+            async for out in engine.generate(PreprocessedRequest(
+                    token_ids=prompts[i], request_id=f"e1-ref-{i}",
+                    stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+                    sampling_options=SamplingOptions(temperature=0.0))):
+                toks += out.token_ids
+                lps += out.log_probs or []
+            return toks, lps
+        return await asyncio.gather(*(one(i) for i in range(batch)))
+
+    refs = srv.run(in_process())
+    equal, ties, bad, lp_err = 0, [], [], 0.0
+    for i, res in enumerate(results):
+        s = sse_summary(res)
+        tap = taps[f"e1-{i}"]
+        if res["status"] != 200 or s["usage"]["completion_tokens"] != len(tap["ids"]):
+            raise AssertionError(f"[e1] request {i}: status {res['status']}, usage "
+                                 f"{s['usage']}, {len(tap['ids'])} ids")
+        if len(tap["ids"]) != decode or len(s["lps"]) != len(tap["lps"]):
+            raise AssertionError(f"[e1] request {i}: {len(tap['ids'])} ids, "
+                                 f"{len(s['lps'])} token_logprobs")
+        lp_err = max(lp_err, max(abs(a - b) for a, b in zip(s["lps"], tap["lps"])))
+        ref_toks, ref_lps = refs[i]
+        j = next((j for j, (a, b) in enumerate(zip(tap["ids"], ref_toks)) if a != b), None)
+        if j is None:
+            equal += 1
+        elif abs(tap["lps"][j] - ref_lps[j]) < NEAR_TIE:
+            ties.append((i, j))
+        else:
+            bad.append((i, j, tap["ids"][j], ref_toks[j], tap["lps"][j], ref_lps[j]))
+    res = {"model": model, "requests": batch, "decode": decode, "setup_s": setup_s,
+           "streams_equal_in_process": equal, "near_ties": ties, "differ": bad[:4],
+           "token_logprobs_max_abs_err": lp_err, "forward_steps": forward_steps,
+           "launches_by_kernel": by_kernel,
+           "launches_per_forward_step": sum(by_kernel.values()) / forward_steps}
+    log("[e1] f32 over HTTP " + json.dumps(res))
+    srv.close()
+    if bad or lp_err > 1e-6:
+        raise AssertionError(f"[e1] HTTP streams leave the in-process ones at no near-tie "
+                             f"({bad[:4]}) or token_logprobs off the tap's by {lp_err}")
+    del engine, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_http_bf16(smi: str, b_tok_s: float) -> dict:
+    """(e2)-(e4) on one bf16 llama-3-8b-lite engine behind the HTTP service.
+
+    (e2): after a full warmup, 32 concurrent streaming /v1/completions (128
+    prompt ids, 64 greedy tokens), from a client in this process and then
+    from one in its own process: decode tok/s and TTFT (all 32) measured
+    at the client as PERF.md §2 defines them, beside (b)'s in-process
+    tok/s, each thread's CPU seconds and the frontend's own TTFT / ITL
+    histograms (p50 / p99). Every stream must carry 64 tokens and a finish
+    reason.
+
+    (e3): 4 json_object and 2 json_schema chats (every stopped document
+    conforms, one cut by length is a grammatical prefix; masked graphs
+    replay); /v1/embeddings of 8 token lists (7-128) equal to an
+    in-process ``engine.embed`` of the same batch within one bf16 rounding,
+    8 mma_bf16 launches; a chat with an image part through a stub encoder
+    (rows of the model's own embedding table) answers 200 through a
+    replayed mm graph, twice the same; without an encoder 501; /health,
+    /v1/models and /metrics answer, and frontend_requests_total{status=
+    "200"} counts the 200s sent.
+
+    (e4): a streaming request cut by the client after 4 chunks: within 1 s
+    the engine holds no seq and the pool's free blocks are back."""
+    from dynamo_tpu_torch.engine.guided import JsonMachine, validate_json_output
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.preprocessor.preprocessor import ModelDefaults
+    from dynamo_tpu_torch.utils.metrics import metric_sum, parse_prometheus
+
+    batch, prompt, decode = 32, 128, 64
+    engine, setup_s = http_engine(HTTP_MODEL, decode)
+    core = engine.core
+    table = core.runner.params["embed"]
+    image_rows = table[torch.tensor(IMAGE_IDS, device=table.device)].float().cpu().numpy()
+
+    async def image_encoder(images):
+        return [image_rows for _ in images]
+
+    taps: dict = {}
+    models = ModelManager()
+    defaults = dict(max_model_len=prompt + decode + 16, default_max_tokens=decode)
+    models.register(HTTP_MODEL, wide_tokenizer(), tapped(engine.generate, taps),
+                    defaults=ModelDefaults(**defaults), stats=engine.stats,
+                    embed=engine.embed, image_encoder=image_encoder)
+    models.register(HTTP_NOENC, wide_tokenizer(), engine.generate,
+                    defaults=ModelDefaults(**defaults), stats=engine.stats)
+    srv = HttpServing(models, engine)
+    sent_200 = 0
+    hi = core.model_cfg.vocab_size - 5
+
+    # (e2)
+    prompts = [[(7 * i + 11 * j) % hi + 5 for j in range(prompt)] for i in range(batch)]
+    bodies = {f"e2-{i}": {"model": HTTP_MODEL, "prompt": p, "max_tokens": decode,
+                          "temperature": 0, "ignore_eos": True, "stream": True,
+                          "stream_options": {"include_usage": True}}
+              for i, p in enumerate(prompts)}
+    e2 = {"model": HTTP_MODEL, "requests": batch, "prompt": prompt, "decode": decode,
+          "setup_s": setup_s, "in_process_b_decode_tok_s": b_tok_s}
+    for where in ("client_in_process", "client_own_process"):
+        own = where == "client_own_process"
+        reqs = {f"{rid}-own" if own else rid: body for rid, body in bodies.items()}
+        threads = {"event_loop": srv.thread, "engine": engine._thread}
+        if not own:
+            threads["client"] = threading.main_thread()
+        cpu0 = thread_cpu_s(threads)
+        if own:
+            t_start, sums, client_cpu = client_in_own_process(srv.port, reqs)
+        else:
+            t_start, sums, client_cpu = throughput_clients(srv.port, reqs)
+        cpu = {k: v - cpu0[k] for k, v in thread_cpu_s(threads).items()}
+        if own:
+            cpu["client_process"] = client_cpu
+        for rid, (status, s) in zip(reqs, sums):
+            if (status != 200 or s["usage"]["completion_tokens"] != decode
+                    or s["finish"] is None or len(taps[rid]["ids"]) != decode):
+                raise AssertionError(f"[e2] {rid}: status {status}, usage {s['usage']}, "
+                                     f"finish {s['finish']}")
+        sent_200 += batch
+        t_first = max(s["first"] for _, s in sums)
+        t_end = max(s["last"] for _, s in sums)
+        e2[where] = {"decode_tok_s": batch * (decode - 1) / (t_end - t_first),
+                     "ttft_all_s": t_first - t_start, "wall_s": t_end - t_start,
+                     "cpu_s": cpu}
+        if not own:
+            text = asyncio.run(http_call(srv.port, "GET", "/metrics"))["body"].decode()
+            e2["frontend_ttft_s"] = histogram_quantiles(
+                text, "dynamo_frontend_time_to_first_token_seconds")
+            e2["frontend_itl_s"] = histogram_quantiles(
+                text, "dynamo_frontend_inter_token_latency_seconds")
+    log("[e2] bf16 over HTTP " + json.dumps(e2))
+    log(f"[e2] decode tok/s over HTTP {e2['client_in_process']['decode_tok_s']} (client in "
+        f"this process), {e2['client_own_process']['decode_tok_s']} (client in its own "
+        f"process) against (b) in-process {b_tok_s}; TTFT (all 32) "
+        f"{e2['client_in_process']['ttft_all_s']} / {e2['client_own_process']['ttft_all_s']} s; "
+        f"on {smi}")
+
+    # (e3) guided chats
+    schemas = [{}] * 4 + [GUIDED_SCHEMA] * 2
+    masked0 = {k: p.calls for k, p in core.runner.programs.items() if "masked" in k[5:]}
+
+    async def guided():
+        return await asyncio.gather(*(http_call(srv.port, "POST", "/v1/chat/completions", {
+            "model": HTTP_MODEL, "max_tokens": 48, "temperature": 0,
+            "messages": [{"role": "user", "content": f"give me JSON number {i}"}],
+            "response_format": ({"type": "json_object"} if not s else
+                                {"type": "json_schema", "json_schema": {"schema": s}})})
+            for i, s in enumerate(schemas)))
+
+    counts = {"stop": 0, "length": 0}
+    for s, r in zip(schemas, asyncio.run(guided())):
+        if r["status"] != 200:
+            raise AssertionError(f"[e3] guided chat: {r['status']} {r['body'][:300]}")
+        ch = json.loads(r["body"])["choices"][0]
+        text = ch["message"].get("content") or ""
+        if ch["finish_reason"] == "stop":
+            validate_json_output(text, s)
+        elif ch["finish_reason"] == "length":
+            JsonMachine(s).feed_str(text)
+        else:
+            raise AssertionError(f"[e3] guided chat finished {ch['finish_reason']}")
+        counts[ch["finish_reason"]] += 1
+    sent_200 += len(schemas)
+    masked = {k: p for k, p in core.runner.programs.items() if "masked" in k[5:]}
+    replayed = sum(p.calls - masked0.get(k, 0) for k, p in masked.items()
+                   if p.graph is not None)
+    if replayed <= 0:
+        raise AssertionError(f"[e3] masked programs {list(masked)} replayed {replayed} times")
+
+    # (e3) embeddings
+    lens = [7, 16, 23, 40, 64, 90, 111, 128]
+    texts = [[(29 * n + 3 * j) % hi + 5 for j in range(k)] for n, k in enumerate(lens)]
+    pa.reset_launches()
+    r = asyncio.run(http_call(srv.port, "POST", "/v1/embeddings",
+                              {"model": HTTP_MODEL, "input": texts}))
+    emb_launches = dict(pa.paged_attention.launches_by_kernel)
+    if r["status"] != 200:
+        raise AssertionError(f"[e3] embeddings: {r['status']} {r['body'][:300]}")
+    sent_200 += 1
+    got = torch.tensor([d["embedding"] for d in json.loads(r["body"])["data"]])
+    ref = torch.from_numpy(srv.run(engine.embed(texts))).double()
+    emb_err = ((got - ref).abs() / (ULP_REL * ref.abs() + ULP_ABS)).max().item()
+    route = pa.ROUTES[(torch.bfloat16, "float")]
+    want = {k: (core.model_cfg.num_layers if k == route else 0) for k in emb_launches}
+    if tuple(got.shape) != (len(texts), core.model_cfg.hidden_size) or emb_err > 1.0 \
+            or emb_launches != want:
+        raise AssertionError(f"[e3] embeddings: shape {tuple(got.shape)}, err/limit "
+                             f"{emb_err}, launches {emb_launches} (expected {want})")
+
+    # (e3) image parts
+    url = "data:image/png;base64," + base64.b64encode(b"one image's bytes").decode()
+    chat = {"model": HTTP_MODEL, "max_tokens": 16, "temperature": 0, "messages": [
+        {"role": "user", "content": [{"type": "text", "text": "what is in it?"},
+                                     {"type": "image_url", "image_url": {"url": url}}]}]}
+    mm0 = {k: p.calls for k, p in core.runner.programs.items() if "mm" in k[5:]}
+    answers = []
+    for n in range(2):
+        r = asyncio.run(http_call(srv.port, "POST", "/v1/chat/completions", chat,
+                                  headers={"x-request-id": f"e3-img-{n}"}))
+        if r["status"] != 200:
+            raise AssertionError(f"[e3] image chat: {r['status']} {r['body'][:300]}")
+        answers.append((json.loads(r["body"])["choices"][0]["message"]["content"],
+                        taps[f"e3-img-{n}"]["ids"]))
+    sent_200 += 2
+    mm_replays = sum(p.calls - mm0.get(k, 0) for k, p in core.runner.programs.items()
+                     if "mm" in k[5:] and p.graph is not None)
+    noenc = asyncio.run(http_call(srv.port, "POST", "/v1/chat/completions",
+                                  {**chat, "model": HTTP_NOENC}))["status"]
+    if answers[0] != answers[1] or mm_replays <= 0 or noenc != 501:
+        raise AssertionError(f"[e3] image chats equal: {answers[0] == answers[1]}, mm "
+                             f"replays {mm_replays}, without an encoder {noenc}")
+
+    # (e3) the other routes
+    routes = {p: asyncio.run(http_call(srv.port, "GET", p))
+              for p in ("/health", "/v1/models", "/metrics")}
+    if any(r["status"] != 200 for r in routes.values()) or \
+            json.loads(routes["/v1/models"]["body"])["data"][0]["id"] != HTTP_MODEL:
+        raise AssertionError(f"[e3] routes: {[(p, r['status']) for p, r in routes.items()]}")
+    counted = metric_sum(parse_prometheus(routes["/metrics"]["body"].decode()),
+                         "dynamo_frontend_requests_total", status="200")
+    if counted != sent_200:
+        raise AssertionError(f"[e3] frontend_requests_total{{status=200}} {counted}, "
+                             f"sent {sent_200}")
+    e3 = {"guided_finished": counts, "masked_replays": replayed,
+          "embeddings_err_over_limit": emb_err, "embeddings_launches": emb_launches,
+          "image_rows": len(IMAGE_IDS), "mm_replays": mm_replays, "image_answer": answers[0][0],
+          "no_encoder_status": noenc, "requests_200": counted}
+    log("[e3] routes " + json.dumps(e3))
+
+    # (e4) disconnect
+    deadline = time.monotonic() + 30
+    while core.sched.has_work() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    free0 = core.pool.num_free
+    max_tokens = decode + prompt - 16
+
+    async def cut():
+        return await http_call(srv.port, "POST", "/v1/completions", {
+            "model": HTTP_MODEL, "prompt": prompts[0][:16], "max_tokens": max_tokens,
+            "temperature": 0, "ignore_eos": True, "stream": True},
+            headers={"x-request-id": "e4-cut"}, cut_after=4)
+
+    asyncio.run(cut())
+    t_cut = time.monotonic()
+    while (core.sched.has_work() or core.pool.num_free != free0) and \
+            time.monotonic() - t_cut < 1.0:
+        time.sleep(0.002)
+    freed_s = time.monotonic() - t_cut
+    tap = taps["e4-cut"]
+    e4 = {"freed_after_s": freed_s, "tokens_before_abort": len(tap["ids"]),
+          "max_tokens": max_tokens, "finish": tap["finish"], "pool_free": [free0,
+                                                                         core.pool.num_free]}
+    log("[e4] disconnect " + json.dumps(e4))
+    if core.sched.has_work() or core.pool.num_free != free0 or tap["finish"] is not None \
+            or len(tap["ids"]) >= max_tokens:
+        raise AssertionError(f"[e4] the cut request was not aborted within 1 s: {e4}")
+    srv.close()
+    del engine, core, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"e2": e2, "e3": e3, "e4": e4}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1183,6 +1767,8 @@ def main() -> int:
     phase_spec(False, smi, serve["float"]["decode_tok_s"])
     phase_guided()
     phase_mm_embed()
+    phase_http_f32()
+    phase_http_bf16(smi, serve["float"]["decode_tok_s"])
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []

@@ -472,9 +472,11 @@ class ModelRunner:
         if cold:
             # Making a program blocks this thread for its warm run, its
             # capture and the graph's instantiation.
+            led.mark_inflight(True)
             t_capture = time.perf_counter()
         prog = self.step_fn(b, t, nblk, window, fast_greedy, mm, masked)
         if cold:
+            led.mark_inflight(False)
             kind = ("window" if window > 1 else "decode" if t == 1
                     else "mixed" if mixed else "prefill")
             led.record(BucketSig(kind, b, t, nblk, fast_greedy, ec.kv_dtype or "bfloat16"),
@@ -578,9 +580,11 @@ class ModelRunner:
         led = self._ledger
         cold = led.enabled and ("verify", b, t, nblk) not in self.programs
         if cold:
+            led.mark_inflight(True)
             t_capture = time.perf_counter()
         prog = self.verify_fn(b, t, nblk)
         if cold:
+            led.mark_inflight(False)
             led.record(BucketSig("verify", b, t, nblk, True, ec.kv_dtype or "bfloat16"),
                        time.perf_counter() - t_capture)
         return prog(ints)

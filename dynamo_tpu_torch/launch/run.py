@@ -1,11 +1,15 @@
 """Single-process launcher for the port:
-``python -m dynamo_tpu_torch.launch.run in=<batch|text> out=torch``.
+``python -m dynamo_tpu_torch.launch.run in=<http|text|batch> out=torch``.
 
-Port of ``dynamo_tpu/launch/run.py`` for the two inputs this slice serves
-(tokenizer → engine → detokenizer, all in-process). ``in=http`` comes with
-the frontend slice: the card's machine has no ``aiohttp``.
+Port of ``dynamo_tpu/launch/run.py``: frontend → preprocessor → engine →
+detokenizer, all in-process. ``in=http`` serves the OpenAI surface
+(``frontend/service.py``) over the port's stdlib HTTP/1.1 server.
 
 Examples:
+    python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
+        --allow-random-weights --port 8080
+    python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
+        --device cpu --port 8077 --block-size 4 --num-blocks 128 --max-model-len 256
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model llama-3-8b-lite \
         --allow-random-weights --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=text out=torch --model tests/data/tiny-real-llama
@@ -29,6 +33,9 @@ import json
 import sys
 
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine, build_engine
+from dynamo_tpu_torch.frontend.model_manager import ModelManager
+from dynamo_tpu_torch.frontend.service import HttpService
+from dynamo_tpu_torch.preprocessor.preprocessor import ModelDefaults
 from dynamo_tpu_torch.protocols.common import (
     PreprocessedRequest,
     SamplingOptions,
@@ -36,7 +43,9 @@ from dynamo_tpu_torch.protocols.common import (
 )
 from dynamo_tpu_torch.tokenizer import DecodeStream, load_tokenizer
 from dynamo_tpu_torch.utils.config import EngineConfig
-from dynamo_tpu_torch.utils.logging import configure_logging
+from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
+
+log = get_logger("launch")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -53,6 +62,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("dynamo-run (torch)")
     p.add_argument("--model", default="tiny-llama")
     p.add_argument("--tokenizer", default=None)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (cpu runs the "
                         "plain PyTorch path)")
@@ -88,6 +99,14 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--allow-random-weights", action="store_true",
                    help="serve RANDOM weights when the model path has no "
                         "loadable safetensors (tests/benches only)")
+    p.add_argument("--tool-call-parser", default=None,
+                   help="tool-call parser name (hermes, mistral, llama3_json, ...)")
+    p.add_argument("--reasoning-parser", default=None,
+                   help="reasoning parser name (basic, deepseek_r1, ...)")
+    p.add_argument("--mm-image-tokens", type=int, default=0,
+                   help="multimodal chat through an in-process vision encoder; not "
+                        "in the port yet (the ViT slice, ROADMAP Queue 1 item 15): "
+                        "only 0 is accepted")
     ns = p.parse_args(rest)
     ns.in_mode, ns.out_mode = in_mode, out_mode
     return ns
@@ -111,6 +130,36 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         allow_random_weights=ns.allow_random_weights,
     )
     return build_engine(cfg, device=ns.device), cfg
+
+
+async def run_http(ns: argparse.Namespace) -> None:
+    if ns.mm_image_tokens > 0:
+        raise SystemExit("--mm-image-tokens > 0 needs the vision encoder, which the port "
+                         "does not have yet (models/vision.py: ROADMAP Queue 1 item 15)")
+    engine, cfg = build_local_engine(ns)
+    tok = load_tokenizer(ns.tokenizer or ns.model)
+    models = ModelManager()
+    models.register(
+        ns.model, tok, engine.generate,
+        defaults=ModelDefaults(max_model_len=cfg.max_model_len, default_max_tokens=ns.max_tokens),
+        stats=engine.stats,
+        tool_parser=ns.tool_call_parser,
+        reasoning_parser=ns.reasoning_parser,
+        embed=engine.embed,
+    )
+    svc = HttpService(models)
+    if cfg.warmup_mode != "off":
+        from dynamo_tpu_torch.obs.compile_ledger import install_compile_metrics
+
+        # Compile ledger feeds dynamo_xla_compile_* (obs/compile_ledger.py).
+        install_compile_metrics(svc.metrics)
+    await svc.start(ns.host, ns.port)
+    log.info("serving %s on http://%s:%d/v1", ns.model, ns.host, svc.port)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await svc.stop()
+        await engine.shutdown()
 
 
 async def run_text(ns: argparse.Namespace) -> None:
@@ -178,13 +227,14 @@ def main(argv: list[str] | None = None) -> None:
     ns = parse_args(argv)
     if ns.out_mode != "torch":
         raise SystemExit(f"unknown out={ns.out_mode} (supported: torch)")
-    if ns.in_mode == "text":
+    if ns.in_mode == "http":
+        asyncio.run(run_http(ns))
+    elif ns.in_mode == "text":
         asyncio.run(run_text(ns))
     elif ns.in_mode == "batch":
         asyncio.run(run_batch(ns))
     else:
-        raise SystemExit(f"unknown in={ns.in_mode} (supported: batch, text; "
-                         "http comes with the frontend slice)")
+        raise SystemExit(f"unknown in={ns.in_mode} (supported: http, text, batch)")
 
 
 if __name__ == "__main__":

@@ -12,14 +12,16 @@ schedulable:
   by bucket signature ``(kind, b, t, nblk, greedy, kv_dtype)``: wall
   seconds, trigger timestamp, the victim request's trace id, and the live
   program inventory.
+* ``CompileMetrics`` — the ``dynamo_xla_compile_*`` Prometheus family
+  (the JAX package's names: one dashboard reads both), re-homed into the
+  HTTP service's registry by ``install_compile_metrics``.
 * ``enumerate_buckets(EngineConfig)`` — the reachable bucket lattice,
   computed with the SAME ``_bucket``/``_pow2_bucket`` math the dispatch
   path uses (engine/engine.py), so warmup captures exactly what serving
   would mint lazily.
 
-Not carried yet: the ``dynamo_xla_compile_*`` Prometheus family and the
-``engine.compile`` span of a serve-path event; they come with the port's
-metrics and tracer (ROADMAP Queue 1 item 11).
+Not carried yet: the ``engine.compile`` span of a serve-path event; it
+comes with the engine's spans (ROADMAP Queue 1 item 11).
 
 Disabled mode (``warmup_mode="off"``) flips ``CompileLedger.enabled``;
 the dispatch path gates on that flag before touching timestamps or bucket
@@ -32,11 +34,18 @@ import threading
 import time
 from dataclasses import dataclass
 
+from dynamo_tpu_torch.utils.metrics import MetricsRegistry
+
 #: Warmup modes: ``off`` disables the ledger entirely; ``lazy`` records
 #: organic captures against the enumerated lattice (coverage grows as
 #: traffic mints buckets); ``full`` captures the lattice at startup.
 WARMUP_MODES = ("off", "lazy", "full")
 
+
+#: Program walls span sub-second captures to long first warm runs.
+#: (MetricsRegistry appends the +Inf bucket.)
+_COMPILE_SECONDS_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                            60.0, 120.0)
 
 # Mirrors of engine/engine.py's bucket helpers, kept import-free so tests
 # can compute signatures device-free.
@@ -95,6 +104,76 @@ class CompileEvent:
         return d
 
 
+# ---------------------------------------------------------------------------
+# Prometheus family
+# ---------------------------------------------------------------------------
+
+class CompileMetrics:
+    """The dynamo_xla_compile_* family: on the card each event is a step
+    program made (warm run, capture, instantiation), where the JAX engine
+    has an XLA compile."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self.bind(registry or MetricsRegistry())
+
+    def bind(self, registry: MetricsRegistry) -> None:
+        self.registry = registry
+        self.events = registry.counter(
+            "xla_compile_events_total",
+            "Step programs made, by kind (decode|window|prefill|mixed|verify|"
+            "embed) and source (serve|warmup)")
+        self.seconds = registry.histogram(
+            "xla_compile_seconds",
+            "Wall seconds one program's making blocked the engine thread "
+            "(or the warmup loop)",
+            buckets=_COMPILE_SECONDS_BUCKETS)
+        self.cache_entries = registry.gauge(
+            "xla_compile_cache_entries",
+            "Live program inventory (distinct bucket signatures made)")
+        self.inflight = registry.gauge(
+            "xla_compile_inflight",
+            "Programs being made while a dispatch waits (0 or 1 per engine)")
+        self.stall_seconds = registry.counter(
+            "xla_compile_stall_seconds_total",
+            "Cumulative wall seconds SERVING dispatches were stalled by "
+            "program making (warmup excluded: it burns startup, not "
+            "requests)")
+        self.warmup_coverage = registry.gauge(
+            "xla_compile_warmup_coverage",
+            "Fraction of the enumerated warmup bucket lattice already made "
+            "(1.0 = no serving request can hit a cold bucket)")
+        self.warmup_buckets = registry.gauge(
+            "xla_compile_warmup_buckets",
+            "Size of the enumerated warmup bucket lattice for this "
+            "engine's config")
+
+
+_metrics: CompileMetrics | None = None
+
+
+def get_compile_metrics() -> CompileMetrics:
+    global _metrics
+    if _metrics is None:
+        _metrics = CompileMetrics()
+    return _metrics
+
+
+def install_compile_metrics(registry: MetricsRegistry) -> CompileMetrics:
+    """Re-home the singleton's metrics into ``registry`` (the HTTP
+    service's) so the family is exposed on /metrics. Gauges are
+    republished from the live ledger so an install that lands after the
+    engine was built still exposes the plan size and coverage; counters
+    stay monotonic and are not replayed."""
+    m = get_compile_metrics()
+    m.bind(registry)
+    led = get_compile_ledger()
+    with led._lock:
+        m.warmup_buckets.set(float(len(led.plan or ())))
+        m.cache_entries.set(float(len(led.inventory)))
+    m.warmup_coverage.set(led.coverage())
+    return m
+
+
 class CompileLedger:
     """Process-global program event record + warmup coverage accounting.
 
@@ -128,6 +207,8 @@ class CompileLedger:
     def set_plan(self, sigs: list[BucketSig] | set[BucketSig]) -> None:
         with self._lock:
             self.plan = set(sigs)
+            get_compile_metrics().warmup_buckets.set(float(len(self.plan)))
+        self._publish_coverage()
 
     def reset(self) -> None:
         """Test hook: drop all events/inventory/plan."""
@@ -154,7 +235,19 @@ class CompileLedger:
             else:
                 self._dropped += 1
             self.inventory.add(sig)
+            n_inv = len(self.inventory)
+        m = get_compile_metrics()
+        m.events.inc(kind=sig.kind, source=source)
+        m.seconds.observe(seconds, kind=sig.kind)
+        m.cache_entries.set(float(n_inv))
+        if source == "serve":
+            m.stall_seconds.inc(seconds)
+        self._publish_coverage()
         return ev
+
+    def mark_inflight(self, on: bool) -> None:
+        if self.enabled:
+            get_compile_metrics().inflight.set(1.0 if on else 0.0)
 
     # -- accounting -----------------------------------------------------
     def coverage(self) -> float:
@@ -164,6 +257,9 @@ class CompileLedger:
             if not self.plan:
                 return 0.0
             return len(self.plan & self.inventory) / len(self.plan)
+
+    def _publish_coverage(self) -> None:
+        get_compile_metrics().warmup_coverage.set(self.coverage())
 
     def by_bucket(self) -> dict[BucketSig, tuple[int, float]]:
         """{sig: (event count, total seconds)} over recorded events."""

@@ -1,4 +1,5 @@
 from dynamo_tpu_torch.protocols.common import (
+    BackendOutput,
     FinishReason,
     LLMEngineOutput,
     PreprocessedRequest,
@@ -9,6 +10,7 @@ from dynamo_tpu_torch.protocols.common import (
 )
 
 __all__ = [
+    "BackendOutput",
     "FinishReason",
     "LLMEngineOutput",
     "PreprocessedRequest",

@@ -3,7 +3,8 @@
 
 ``PreprocessedRequest`` is what flows to an engine (token ids plus
 sampling/stop options); ``LLMEngineOutput`` is what an engine streams back
-(token deltas). The wire dicts are the JAX package's, field for field.
+(token deltas); ``BackendOutput`` is a detokenized delta on its way to
+the OpenAI response. The wire dicts are the JAX package's, field for field.
 """
 
 from __future__ import annotations
@@ -57,7 +58,9 @@ class SamplingOptions:
     seed: int | None = None
     logprobs: int | None = None
     n: int = 1
-    # Structured output (OpenAI response_format); not served by the port yet.
+    # Structured output (OpenAI response_format): None = unconstrained,
+    # {} = json_object mode, non-empty dict = json_schema subset
+    # (engine/guided.py).
     guided_json: dict | None = None
 
     def to_dict(self) -> dict:
@@ -99,7 +102,8 @@ class PreprocessedRequest:
     annotations: dict[str, Any] = field(default_factory=dict)
     kv_transfer_params: dict[str, Any] | None = None
     estimated_prefix_hit_blocks: int = 0
-    # Multimodal embedding spans; not served by the port yet.
+    # Multimodal embedding spans ({pos, data, shape, dtype}: the forward
+    # takes these rows in place of the placeholder tokens' embeddings).
     mm_embeddings: list[dict] | None = None
 
     def to_dict(self) -> dict:
@@ -172,3 +176,14 @@ class LLMEngineOutput:
             error=d.get("error"),
             spans=d.get("spans"),
         )
+
+
+@dataclass
+class BackendOutput:
+    """Post-detokenization delta: text plus the tokens that produced it."""
+
+    text: str = ""
+    token_ids: list[int] = field(default_factory=list)
+    finish_reason: FinishReason | None = None
+    cum_log_probs: float | None = None
+    log_probs: list[float] | None = None  # per token in token_ids

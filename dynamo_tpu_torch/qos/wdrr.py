@@ -1,5 +1,5 @@
 """Weighted deficit-round-robin queue, deque-compatible — copy of
-``dynamo_tpu/qos/wdrr.py`` (with the class table of ``qos/config.py``).
+``dynamo_tpu/qos/wdrr.py``.
 
 Drop-in replacement for the scheduler's `waiting: deque[Seq]`: supports
 the exact surface the scheduler uses — `append`, `appendleft` (preempt
@@ -18,10 +18,7 @@ from __future__ import annotations
 from collections import deque
 from typing import Any, Callable, Iterator
 
-# Highest first. Unknown classes still get their own WDRR lane (weight 1).
-PRIORITY_CLASSES: tuple[str, ...] = ("interactive", "standard", "batch")
-
-DEFAULT_WEIGHTS: dict[str, int] = {"interactive": 8, "standard": 4, "batch": 1}
+from dynamo_tpu_torch.qos.config import DEFAULT_WEIGHTS, PRIORITY_CLASSES
 
 
 class WdrrQueue:
