@@ -22,7 +22,13 @@ if any phase fails:
     head the kernel takes (D=256, KH=1, H=2, B=4: its largest shared-memory
     layout), and at the speculative verify shapes (B=32, T=2, 4 and 5
     query tokens a row from q_start 128-187, mid-block: at T=5 the second
-    of a CTA's 2 row groups holds 4 live rows). q is drawn in f32; the f32 cache holds full-precision f32
+    of a CTA's 2 row groups holds 4 live rows), and at the prefill shapes
+    of (f)'s SLO-sized chunks (one 2048-token chunk of a fresh prompt, and
+    a unified step of 64 rows: 32 decode rows at kv 128-192, one 512-token
+    chunk, 31 empty rows; and (f)'s own [64, 2048] step: the same 32
+    decode rows, 4 chunks of 1,536 from position 0, 28 empty rows, its
+    plain version computed 4 rows at a time and its plain and SDPA times
+    over 3 calls). q is drawn in f32; the f32 cache holds full-precision f32
     draws of K and V, the bf16 cache the same draws rounded to bf16. bf16-q
     routes are held to one bf16 rounding, f32-q routes to the f32 limit
     (with TF32 off for the plain version's f32 products). Each case checks
@@ -128,11 +134,32 @@ if any phase fails:
     embedding table: 200, an mm graph replays, the same image twice gives
     the same answer; 501 without an encoder), /health, /v1/models,
     /metrics, and ``frontend_requests_total{status="200"}`` equal to the
-    200s sent;
+    200s sent; /debug/sched and /debug/mem answer 200 with the JAX
+    documents' keys and a non-empty step ring, /metrics carries the
+    engine's ``dynamo_engine_perf_*``, ``dynamo_sched_*`` and
+    ``dynamo_mem_*`` families, HEAD /health answers 200 with no body, and a
+    chat sent with a traceparent shows the engine's ``engine.queue``,
+    ``engine.prefill`` and ``engine.decode`` spans in /debug/traces;
 (e4) a streaming request cut by the client after 4 chunks: within 1 s
     the engine holds no seq for it and the pool's free blocks are back.
     (e)'s engines run with prefix caching off, so that a request sent
-    twice prefills alike.
+    twice prefills alike;
+(f) SLO-sized prefill chunks at full width: llama-3-8b-lite in bf16 with
+    ``prefill_chunk=0`` (``itl_slo_ms=50``, ``max_model_len=2048``) after a
+    full warmup, serving (b)'s 32 x (128 + 64 greedy) with 4 prompts of
+    1,536 tokens (4 greedy tokens each) sent after the first decode step,
+    so mixed steps form under the decoders: ``mma_bf16`` only, 8 a forward
+    step through replays, no graph made while serving, every block back
+    and the memory ledger's leak audit at 0 orphan pins. Prints the
+    resolved ``chunk_by_qos`` and hardware row, warmup seconds and
+    graph-pool growth with the buckets that grew it most, decode tok/s,
+    the decode rows' ITL while the late prompts prefill against
+    ``costmodel.mixed_step_seconds``, the scheduling and memory ledgers'
+    snapshots and the step profiler's EWMA of the decode-only and mixed
+    steps (shares of each step's device time; every step's within 1);
+    then the same traffic on a fresh
+    engine with ``DYN_SCHED_LEDGER=0 DYN_MEM_LEDGER=0 DYN_PERF_PROFILE=0``
+    (decode tok/s beside the first run's).
 
 Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
 per kernel instantiation (registers, spills), one JSON ``kernels`` line
@@ -156,6 +183,7 @@ import dataclasses
 import gc
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import threading
@@ -182,12 +210,13 @@ F32_REL, F32_ABS = 2e-5, 2e-5
 # hold f32 hidden states to after a whole forward.
 EMBED_F32_TOL = 1e-4
 
-# H100 SXM memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s), NVIDIA
-# data sheet; the port runs on that card only.
-# float32 outside the tensor cores: 67 TFLOP/s. The f32 products of an
-# f32-q route are done at the lesser cost of that rate and the bf16 tensor
-# rate over the MMAs an f32-exact product takes there (F32_MMAS).
-CARD, CARD_BW, CARD_PEAK = "H100 80GB HBM3", 3.35e12, 989e12
+# The card's memory rate (bytes/s) and dense bf16 tensor rate (FLOP/s) are
+# the cost model's row for it (``obs.costmodel.HW_SPECS``, NVIDIA's data
+# sheet for the H100 SXM): one table of card rates for the bounds here and
+# the engine's roofline counters. float32 outside the tensor cores: 67
+# TFLOP/s. The f32 products of an f32-q route are done at the lesser cost
+# of that rate and the bf16 tensor rate over the MMAs an f32-exact product
+# takes there (F32_MMAS).
 CARD_PEAK_F32 = 67e12
 #: bf16 MMAs an f32-exact product takes, by cache kind: three q (or p)
 #: terms against an exact int8 / int4 value; six term products of two
@@ -203,6 +232,19 @@ MAIN_CASE = "decode B=32 T=1 kv 128-192"
 #: 4: the verify ladder of spec_k=4), and the case name of each; the T=5
 #: case's time is the kernels line's ``verify_ms``
 VERIFY_TS = (2, 4, 5)
+
+
+#: phase (a)'s shapes of the SLO-sized prefill chunks of phase (f)
+CHUNK_CASE = "chunk B=1 T=2048 kv 2048"
+MIXED_CASE = "mixed B=64 T=512: 32 decode rows kv 128-192 + one chunk T=512, 31 empty rows"
+#: the [64, 2048] step phase (f) runs: 32 decode rows, the 4 late prompts'
+#: chunks of 1,536 tokens from position 0, and 28 empty rows
+MIXED_F_CASE = ("mixed B=64 T=2048: 32 decode rows kv 128-192 + 4 chunks T=1536, "
+                "28 empty rows")
+
+#: the largest score tensor (bytes, f32) the plain version builds in one
+#: call; a case past it is computed a few rows at a time
+PLAIN_SCORE_BYTES = 2 * 2**30
 
 
 def verify_case(t: int) -> str:
@@ -221,9 +263,12 @@ def log(*a) -> None:
 
 
 def card_rates(name: str) -> tuple[float, float]:
-    if CARD not in name:
-        raise RuntimeError(f"no memory/compute rates known for card {name!r}")
-    return CARD_BW, CARD_PEAK
+    """(memory bytes/s, dense bf16 FLOP/s) of the card: its cost-model row;
+    a card the table lacks raises, naming it."""
+    from dynamo_tpu_torch.obs.costmodel import hw_spec_for
+
+    hw = hw_spec_for(name)
+    return hw.hbm_bw, hw.peak_flops
 
 
 #: the source of every route's kernel
@@ -327,9 +372,10 @@ def attention_work(q, k, bt, qs, kl) -> tuple[float, float]:
     return float(nbytes), ops
 
 
-def library_fn(q, k, v, bt, qs, kl):
+def library_fn(q, k, v, bt, qs, kl, efficient: bool = False):
     """SDPA over the pre-gathered (dequantized), head-expanded context in
-    q's dtype, with the kernel's mask; all built outside the timed call."""
+    q's dtype, with the kernel's mask; all built outside the timed call.
+    ``efficient`` holds SDPA to its memory-efficient backend."""
     from dynamo_tpu_torch.models.llama import _gather_kv
 
     b, t, h, d = q.shape
@@ -344,7 +390,15 @@ def library_fn(q, k, v, bt, qs, kl):
     mask = (ctx[None, None, :] <= pos[:, :, None]) & (ctx[None, None, :] < kl[:, None, None].long())
     mask = mask[:, None]                                      # [B, 1, T, S]
     qt = q.transpose(1, 2).contiguous()
-    return lambda: torch.nn.functional.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask)
+    if not efficient:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, ck, cv, attn_mask=mask)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask)
+    return call
 
 
 def time_scatter(gen) -> dict:
@@ -370,9 +424,34 @@ def time_scatter(gen) -> dict:
     return res
 
 
+def plain_score_bytes(q, kc, bt) -> int:
+    """Bytes of one row's dense f32 score tensor [T, H, S] in the plain
+    version."""
+    payload = kc["q"] if isinstance(kc, dict) else kc
+    return q.shape[1] * q.shape[2] * bt.shape[1] * payload.shape[1] * 4
+
+
+def plain_by_rows(pa, q, kc, vc, bt, qs, kl, num_splits: int) -> torch.Tensor:
+    """``paged_attention_plain`` over rows in groups whose dense score
+    tensor stays within ``PLAIN_SCORE_BYTES`` (rows are independent, so
+    this is the same function); one call when it fits."""
+    b = q.shape[0]
+    step = max(1, min(b, PLAIN_SCORE_BYTES // plain_score_bytes(q, kc, bt)))
+    if step == b:
+        return pa.paged_attention_plain(q, kc, vc, bt, qs, kl, num_splits=num_splits)
+    return torch.cat([pa.paged_attention_plain(q[i: i + step], kc, vc, bt[i: i + step],
+                                               qs[i: i + step], kl[i: i + step],
+                                               num_splits=num_splits)
+                      for i in range(0, b, step)])
+
+
 def check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak) -> dict:
     """One route at one shape: it must launch its route's kernel once and
-    agree with the plain version within its q dtype's limit; with times."""
+    agree with the plain version within its q dtype's limit; with times.
+    A case whose plain version is computed in row groups (phase (f)'s
+    [64, 2048] step: 16 groups) times it and SDPA over 3 calls, not 20,
+    and runs SDPA on its memory-efficient backend, which takes the mask
+    without building the [B, H, T, S] score tensor."""
     args = (q, kc, vc, bt, qs, kl)
     route = pa.ROUTES[(q.dtype, kind)]
     kv_heads = (kc if kind == "float" else kc["q"]).shape[2]
@@ -385,7 +464,7 @@ def check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak) -> dic
         raise AssertionError(f"{name} ({kind}, q {q.dtype}): launches by kernel "
                              f"{pa.paged_attention.launches_by_kernel}, expected one of "
                              f"{route}")
-    ref = pa.paged_attention_plain(*args, num_splits=ns_used).float()
+    ref = plain_by_rows(pa, *args, num_splits=ns_used).float()
     rel, abs_ = err_limit(q.dtype)
     limit = rel * ref.abs() + abs_
     outs = [out] + ([pa.paged_attention(*args, num_splits=1)] if ns_used > 1 else [])
@@ -396,6 +475,8 @@ def check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak) -> dic
     if name.startswith("ragged"):
         finite = finite and bool((out[4] == 0).all())  # all-masked row → 0
     nbytes, ops = attention_work(q, kc, bt, qs, kl)
+    heavy = q.shape[0] * plain_score_bytes(q, kc, bt) > PLAIN_SCORE_BYTES
+    few, warm = (3, 1) if heavy else (20, 3)
     if q.dtype == torch.bfloat16:
         ops_s = ops / peak
     else:
@@ -406,8 +487,9 @@ def check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak) -> dic
         "max_abs_err": err, "err_over_limit": ratio, "err_limit": [rel, abs_],
         "num_splits": ns_used,
         "ms": time_ms(lambda: pa.paged_attention(*args, num_splits=ns)),
-        "plain_ms": time_ms(lambda: pa.paged_attention_plain(*args, num_splits=ns_used)),
-        "library_ms": time_ms(library_fn(*args)),
+        "plain_ms": time_ms(lambda: plain_by_rows(pa, *args, num_splits=ns_used),
+                            iters=few, warmup=warm),
+        "library_ms": time_ms(library_fn(*args, efficient=heavy), iters=few, warmup=warm),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "ops": ops,
@@ -461,6 +543,18 @@ def phase_kernels(bw: float, peak: float) -> dict:
             gen, **decode, h=64, kh=8, d=64), 0),
         "decode D=256 KH=1 H=2 B=4 kv 128-192 auto splits": (attention_case(
             gen, 4, 1, 16, [n - 1 for n in lens[:4]], [1] * 4, h=2, kh=1, d=256), 0),
+        # the prefill bucket that prefill_chunk=0 sizing reaches at
+        # max_model_len=2048 (phase (f))
+        CHUNK_CASE: (attention_case(gen, 1, 2048, 128, [0], [2048]), 0),
+        # a unified step's geometry: 32 decode rows, one 512-token chunk of
+        # a fresh prompt, the rest of the decode ladder's 64 rows empty
+        MIXED_CASE: (attention_case(
+            gen, 64, 512, 32, [n - 1 for n in lens] + [0] * 32, [1] * 32 + [512] + [0] * 31), 0),
+        # the [64, 2048] step of phase (f): its 32 decoders and the 4 late
+        # prompts' 1,536-token chunks in one grid
+        MIXED_F_CASE: (attention_case(
+            gen, 64, 2048, 128, [n - 1 for n in lens] + [0] * 32,
+            [1] * 32 + [LATE_PROMPT] * LATE + [0] * (32 - LATE)), 0),
     }
     # speculative verify chunks at decode depth: T query tokens a row from
     # q_start 128-187 (mid-block), each with its own causal limit; at
@@ -1232,12 +1326,19 @@ class HttpServing:
 
     def __init__(self, models, engine):
         from dynamo_tpu_torch.frontend.service import HttpService
+        from dynamo_tpu_torch.obs.mem_ledger import install_mem_metrics
+        from dynamo_tpu_torch.obs.profiler import install_perf_metrics
+        from dynamo_tpu_torch.obs.sched_ledger import install_sched_metrics
 
         self.engine = engine
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
         self.svc = HttpService(models)
+        # the engine's families on the service's /metrics, as the launcher
+        # installs them for in=http
+        for install in (install_perf_metrics, install_sched_metrics, install_mem_metrics):
+            install(self.svc.metrics)
         self.port = self.run(self.svc.start("127.0.0.1", 0))
         self.run(self._start())
 
@@ -1501,6 +1602,71 @@ def phase_http_f32() -> dict:
     return res
 
 
+def head_request(port: int, path: str) -> tuple[int, dict, bytes]:
+    """HEAD ``path`` with ``Connection: close``: (status, headers, every byte
+    the server sent after the head until it closed)."""
+    async def go():
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(f"HEAD {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                     "Connection: close\r\n\r\n".encode())
+        try:
+            raw = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+            rest = await asyncio.wait_for(reader.read(), 10)
+        finally:
+            writer.close()
+        hdrs = {k.strip().lower(): v.strip() for k, _, v in
+                (ln.partition(":") for ln in raw[1:] if ln)}
+        return int(raw[0].split(" ")[1]), hdrs, rest
+    return asyncio.run(go())
+
+
+def observability_routes(port: int, metrics_text: str) -> dict:
+    """(e3)'s observability checks on a service whose engine has served:
+    /debug/sched and /debug/mem answer 200 with the JAX documents' keys
+    and a non-empty step ring / device tier; /metrics carries the engine's
+    perf, sched and mem families; HEAD /health answers 200 with no body; a
+    chat sent with a traceparent shows the engine's queue, prefill and
+    decode spans under its trace id in /debug/traces."""
+    sched_keys = {"enabled", "env", "totals", "recent_steps", "goodput_trend",
+                  "top_culprits", "trace_culprits"}
+    mem_keys = {"enabled", "env", "totals", "top_owners", "churn_trend", "rates", "ttx",
+                "last_audit"}
+    docs = {}
+    for path, keys in (("/debug/sched", sched_keys), ("/debug/mem", mem_keys)):
+        r = asyncio.run(http_call(port, "GET", path))
+        doc = json.loads(r["body"]) if r["status"] == 200 else {}
+        if r["status"] != 200 or set(doc) != keys:
+            raise AssertionError(f"[e3] {path}: {r['status']} keys {sorted(doc)}")
+        docs[path] = doc
+    if not docs["/debug/sched"]["recent_steps"] or \
+            docs["/debug/mem"]["totals"]["tiers"].get("device", {}).get("blocks") is None:
+        raise AssertionError(f"[e3] empty ledger documents: {json.dumps(docs)[:600]}")
+    families = {"dynamo_engine_perf_mfu", "dynamo_sched_goodput_fraction",
+                "dynamo_mem_device_blocks"}
+    missing = sorted(f for f in families if f not in metrics_text)
+    if missing:
+        raise AssertionError(f"[e3] /metrics lacks {missing}")
+    head = head_request(port, "/health")
+    if head[0] != 200 or head[2] != b"" or "content-length" not in head[1]:
+        raise AssertionError(f"[e3] HEAD /health: {head}")
+    trace_id = "4bf92f3577b34da6a3ce929d0e0e4736"
+    r = asyncio.run(http_call(port, "POST", "/v1/chat/completions", {
+        "model": HTTP_MODEL, "max_tokens": 8, "temperature": 0,
+        "messages": [{"role": "user", "content": "trace me"}]},
+        headers={"traceparent": f"00-{trace_id}-00f067aa0ba902b7-01"}))
+    spans = asyncio.run(http_call(port, "GET",
+                                  f"/debug/traces?format=jsonl&trace_id={trace_id}"))
+    names = [json.loads(ln)["name"] for ln in spans["body"].decode().splitlines() if ln]
+    if r["status"] != 200 or not {"engine.queue", "engine.prefill", "engine.decode"} <= set(names):
+        raise AssertionError(f"[e3] traced chat {r['status']}: spans {names}")
+    sched = docs["/debug/sched"]
+    return {"sched_steps": sched["totals"]["steps_total"],
+            "goodput_fraction": sched["totals"]["goodput_fraction"],
+            "mem_device_tier": docs["/debug/mem"]["totals"]["tiers"]["device"],
+            "head_health": [head[0], head[1].get("content-length"), len(head[2])],
+            "trace_spans": names}
+
+
 def phase_http_bf16(smi: str, b_tok_s: float) -> dict:
     """(e2)-(e4) on one bf16 llama-3-8b-lite engine behind the HTTP service.
 
@@ -1683,10 +1849,11 @@ def phase_http_bf16(smi: str, b_tok_s: float) -> dict:
     if counted != sent_200:
         raise AssertionError(f"[e3] frontend_requests_total{{status=200}} {counted}, "
                              f"sent {sent_200}")
+    obs = observability_routes(srv.port, routes["/metrics"]["body"].decode())
     e3 = {"guided_finished": counts, "masked_replays": replayed,
           "embeddings_err_over_limit": emb_err, "embeddings_launches": emb_launches,
           "image_rows": len(IMAGE_IDS), "mm_replays": mm_replays, "image_answer": answers[0][0],
-          "no_encoder_status": noenc, "requests_200": counted}
+          "no_encoder_status": noenc, "requests_200": counted, "observability": obs}
     log("[e3] routes " + json.dumps(e3))
 
     # (e4) disconnect
@@ -1721,6 +1888,283 @@ def phase_http_bf16(smi: str, b_tok_s: float) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"e2": e2, "e3": e3, "e4": e4}
+
+
+# ---------------------------------------------------------------------------
+# (f) SLO-sized prefill chunks at full width
+# ---------------------------------------------------------------------------
+
+#: (f)'s engine: llama-3-8b-lite in bf16 with prefill_chunk=0 sized against
+#: a 50 ms ITL budget, max_model_len 2048 (the chunk ladder reaches 2048),
+#: the default max_tokens_per_step (8192: (f)'s step of 32 decode rows and
+#: 4 chunks of 1,536, 6,176 tokens, fits) and max_batch_size (64, so the
+#: decode ladder's largest row bucket is 64, which its 36 rows need): its
+#: largest step is [64, 2048], 131,072 token rows, whose graph holds most
+#: of the graph pool, over PERF.md's limit (ROADMAP Queue 1, the padded
+#: mixed step).
+SLO_CFG = dict(model="llama-3-8b-lite", block_size=16, max_model_len=2048, prefill_chunk=0,
+               itl_slo_ms=50.0, kv_dtype="bfloat16", allow_random_weights=True,
+               warmup_mode="full")
+#: the ledgers' own gates, all off for (f)'s second run
+LEDGER_GATES = ("DYN_SCHED_LEDGER", "DYN_MEM_LEDGER", "DYN_PERF_PROFILE")
+#: (f)'s late prompts: 4 of 1,536 tokens, 4 greedy tokens each
+LATE, LATE_PROMPT, LATE_DECODE = 4, 1536, 4
+
+
+async def serve_with_late(engine, reqs: dict, late: dict, after=None):
+    """Send ``reqs`` at once; when every one of them has two tokens (its
+    first decode step is done), send ``late``. Collect each stream's tokens
+    and the arrival time of each token; then await ``after(engine)`` and
+    shut the engine down. Returns (start, time the late ones were sent,
+    {key: (tokens, times)}, ``after``'s result)."""
+    streams: dict = {}
+    started = asyncio.Event()
+    need = set(reqs)
+
+    async def one(key, req):
+        toks, times = [], []
+        async for out in engine.generate(req):
+            if out.error:
+                raise RuntimeError(f"request {key} failed: {out.error}")
+            now = time.perf_counter()
+            for t in out.token_ids:
+                toks.append(t)
+                times.append(now)
+            if len(toks) >= 2 and key in need:
+                need.discard(key)
+                if not need:
+                    started.set()
+        streams[key] = (toks, times)
+
+    t_start = time.perf_counter()
+    try:
+        first = [asyncio.ensure_future(one(k, r)) for k, r in reqs.items()]
+        await started.wait()
+        t_late = time.perf_counter()
+        await asyncio.gather(*first, *(one(k, r) for k, r in late.items()))
+        extra = await after(engine) if after is not None else None
+    finally:
+        await engine.shutdown()
+    return t_start, t_late, streams, extra
+
+
+def ewma(values: list[float]) -> float | None:
+    """The step profiler's moving average over ``values``."""
+    from dynamo_tpu_torch.obs.profiler import ewma_step
+
+    out = None
+    for v in values:
+        out = ewma_step(out, v)
+    return out
+
+
+def slo_run(ledgers: bool) -> dict:
+    """One (f) run: (b)'s 32 x (128 + 64 greedy), and after their first
+    decode step 4 prompts of 1,536 tokens (4 greedy tokens each), on a
+    fresh engine after a full warmup; with the ledgers' gates off when
+    ``ledgers`` is False."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+    from dynamo_tpu_torch.obs.sched_ledger import get_sched_ledger
+    from dynamo_tpu_torch.obs.tracer import get_tracer
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    batch, prompt, decode = 32, 128, 64
+    tag = "[f]" if ledgers else "[f] ledgers off"
+    saved = {k: os.environ.get(k) for k in LEDGER_GATES}
+    if not ledgers:
+        os.environ.update({k: "0" for k in LEDGER_GATES})
+    try:
+        get_sched_ledger().reset()
+        get_mem_ledger().reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = build_engine(EngineConfig(**SLO_CFG))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    core = engine.core
+    warm = core.warmup_summary
+    if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
+        raise AssertionError(f"{tag}: warmup left buckets without a graph: {warm}")
+    gates = (core.sched_led.enabled, core.mem_led.enabled, core.perf.enabled)
+    if (not all(gates)) if ledgers else any(gates):
+        raise AssertionError(f"{tag}: ledger gates sched={core.sched_led.enabled} "
+                             f"mem={core.mem_led.enabled} perf={core.perf.enabled}")
+    vocab = core.model_cfg.vocab_size
+    hi = vocab - 5
+
+    def req(rid, ids, n):
+        return PreprocessedRequest(
+            token_ids=ids, request_id=rid,
+            stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0))
+
+    reqs = {i: req(f"slo-{i}", [(7 * i + 11 * j) % hi + 5 for j in range(prompt)], decode)
+            for i in range(batch)}
+    late = {f"late-{i}": req(f"slo-late-{i}", [(13 * i + 3 * j) % hi + 5
+                                               for j in range(LATE_PROMPT)], LATE_DECODE)
+            for i in range(LATE)}
+
+    async def after(engine):
+        # every stream finished: the pool's blocks are back and the audit
+        # finds no pin without a live owner (before shutdown drops the
+        # engine's live-id source)
+        pool, mled = engine.core.pool, engine.core.mem_led
+        return {"pool_free": pool.num_free, "pool_usable": pool.num_blocks - 1,
+                "stream_pins": mled.owner_blocks()["stream"] if mled.enabled else None,
+                "audit": mled.audit() if mled.enabled else None}
+
+    warmed = set(core.runner.programs)
+    pa.reset_launches()
+    epoch0 = time.time()
+    t_start, t_late, streams, fin = asyncio.run(serve_with_late(engine, reqs, late, after))
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    minted = sorted(set(core.runner.programs) - warmed)
+    if minted:
+        raise AssertionError(f"{tag}: serving made graphs {minted}")
+    route = pa.ROUTES[(torch.bfloat16, "float")]
+    forward_steps = check_engine_launches(tag, core, by_kernel, route)
+    for key, (toks, _) in streams.items():
+        want = LATE_DECODE if str(key).startswith("late") else decode
+        if len(toks) != want or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{tag} {key}: {len(toks)} tokens, expected {want}")
+    if fin["pool_free"] != fin["pool_usable"]:
+        raise AssertionError(f"{tag}: {fin['pool_usable'] - fin['pool_free']} blocks not back")
+    if ledgers and (fin["stream_pins"] or fin["audit"]["orphan_pins"]):
+        raise AssertionError(f"{tag}: stream pins {fin['stream_pins']}, audit {fin['audit']}")
+    dec = [streams[i] for i in range(batch)]
+    t_first = max(times[0] for _, times in dec)
+    t_end = max(times[-1] for _, times in dec)
+    t_late_first = max(streams[k][1][0] for k in late)
+    # the decode rows' ITL: each decoder's gap between two tokens while the
+    # late prompts prefilled (their send to their first token), against its
+    # gaps in the decode-only steps before and after
+    mixed_gaps, plain_gaps = [], []
+    for _, times in dec:
+        gaps = list(zip(times, times[1:]))
+        mixed_gaps.append(max((b - a for a, b in gaps if b > t_late and a < t_late_first),
+                              default=0.0))
+        plain_gaps += [b - a for a, b in gaps if b <= t_late or a >= t_late_first]
+    plain_gaps.sort()
+    # decode tok/s of the decode-only steps after the mixed step(s)
+    after = sum(sum(t > t_late_first for t in times) for _, times in dec)
+    res = {
+        "engine": {k: v for k, v in SLO_CFG.items() if k != "allow_random_weights"},
+        "chunk_by_qos": core.chunk_by_qos, "hw": core._hw.name,
+        "device_name": core.device_name, "resolved_prefill_chunk": core.engine_cfg.prefill_chunk,
+        "setup_s": setup_s, "warmup_s": warm["seconds"], "graphs": len(warmed),
+        "graph_pool_gib": warm["graph_pool_gib"],
+        "graph_pool_share_of_card": warm["graph_pool_gib"] * 2**30
+        / torch.cuda.get_device_properties(0).total_memory,
+        "graph_pool_top": warm["graph_pool_top"],
+        "forward_steps": forward_steps, "launches": by_kernel,
+        "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
+        "decode_tok_s_after_mixed": after / (t_end - t_late_first),
+        "itl_decode_only_median_s": plain_gaps[len(plain_gaps) // 2] if plain_gaps else None,
+        "itl_during_late_prefill_s": {"median": sorted(mixed_gaps)[batch // 2],
+                                      "max": max(mixed_gaps)},
+        "late_ttft_all_s": t_late_first - t_late, "pool": fin,
+    }
+    if ledgers:
+        from dynamo_tpu_torch.obs import costmodel as cm
+
+        snap = core.sched_led.snapshot(steps=True)
+        # the unified steps that carried prefill chunks under decode rows
+        mixed_recs = [r for r in core.sched_led.steps
+                      if "mixed" in r.kinds and r.decode_rows and r.prefill_rows]
+        preds = []
+        for r in mixed_recs:
+            chunk = r.live_tokens - r.decode_rows
+            kw = dict(decode_rows=r.decode_rows, decode_kv_len=prompt + decode,
+                      chunk_kv_len=min(chunk, LATE_PROMPT), block_size=16)
+            preds.append({
+                "decode_rows": r.decode_rows, "prefill_rows": r.prefill_rows,
+                "live_tokens": r.live_tokens, "sched_tokens": r.sched_tokens,
+                "goodput": r.goodput, "wall_s": r.wall_s, "hol_stall_s": r.hol_stall_s,
+                "predicted_mixed_step_s": cm.mixed_step_seconds(
+                    core.model_cfg, core._hw, chunk=chunk, **kw),
+                "predicted_pure_decode_s": cm.mixed_step_seconds(
+                    core.model_cfg, core._hw, chunk=0, **kw),
+                "padded_bound_s": r.sched_flops / core._hw.peak_flops})
+        if not mixed_recs:
+            raise AssertionError(f"{tag}: no mixed step formed: {snap['steps'][-8:]}")
+        ring = [r for r in get_tracer().recorder.steps.snapshot() if r.ts >= epoch0]
+        kinds = {"decode_only": [r for r in ring if r.decode_tokens and not r.prefill_tokens],
+                 "mixed": [r for r in ring if r.decode_tokens and r.prefill_tokens]}
+        res["perf_ewma"] = {k: {f: ewma([getattr(r, f) for r in rs])
+                                for f in ("mfu", "bw_util", "roofline_frac", "tok_s")}
+                            | {"steps": len(rs)} for k, rs in kinds.items()}
+        # shares of the device's time for each step: none can pass 1
+        shares = {f: max(getattr(r, f) for r in ring)
+                  for f in ("mfu", "bw_util", "roofline_frac")}
+        res["perf_step_max"] = shares
+        if not all(0.0 < v <= 1.0 for v in shares.values()) or not all(kinds.values()):
+            raise AssertionError(f"{tag}: step profiler shares out of (0, 1]: {shares}, "
+                                 f"steps by kind {[len(v) for v in kinds.values()]}")
+        res["sched"] = {k: snap[k] for k in (
+            "steps_total", "goodput_fraction", "goodput_mean_recent", "live_tokens_total",
+            "sched_tokens_total", "padding_flops_total", "padding_hbm_bytes_total",
+            "hol_stall_seconds_total", "hol_victims_total", "top_culprits",
+            "prefill_chunk_tokens", "admission_blocked")}
+        res["mixed_steps"] = preds
+        res["mem"] = core.mem_led.snapshot()
+    log(f"{tag} " + json.dumps(res, default=str))
+    del engine, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_slo(smi: str, b_tok_s: float) -> dict:
+    """(f): llama-3-8b-lite in bf16 with ``prefill_chunk=0`` (SLO-sized
+    chunks: ``itl_slo_ms=50``, ``max_model_len=2048``) after a full warmup,
+    serving (b)'s 32 x (128 + 64 greedy) with 4 prompts of 1,536 tokens
+    arriving after the first decode step, so mixed steps form under the
+    decoders. It must launch ``mma_bf16`` only, 8 a forward step through
+    replays, make no graph while serving, finish every stream with its
+    tokens, give every block back, and leave the leak audit at 0 orphan
+    pins. Prints the resolved ``chunk_by_qos`` and hardware row, warmup
+    seconds and graph-pool growth, decode tok/s, the decode rows' ITL
+    during the mixed steps against ``costmodel.mixed_step_seconds``, the
+    scheduling ledger's goodput, padding and HOL culprits, the memory
+    ledger's snapshot, and the step profiler's EWMA (MFU, HBM share,
+    roofline fraction over each step's device time) of the decode-only and
+    of the mixed steps; they must lie in [0, 1]. Then the same
+    traffic on a fresh engine with the ledgers' gates off
+    (``DYN_SCHED_LEDGER=0 DYN_MEM_LEDGER=0 DYN_PERF_PROFILE=0``): both
+    decode tok/s."""
+    from dynamo_tpu_torch.engine.engine import GRAPH_POOL_SHARE
+
+    on = slo_run(True)
+    off = slo_run(False)
+    summary = {
+        "chunk_by_qos": on["chunk_by_qos"], "hw": on["hw"],
+        "decode_tok_s": {"ledgers_on": on["decode_tok_s"], "ledgers_off": off["decode_tok_s"],
+                         "b_in_process": b_tok_s},
+        "decode_tok_s_after_mixed": {"ledgers_on": on["decode_tok_s_after_mixed"],
+                                     "ledgers_off": off["decode_tok_s_after_mixed"]},
+        "itl_decode_only_median_s": {"ledgers_on": on["itl_decode_only_median_s"],
+                                     "ledgers_off": off["itl_decode_only_median_s"]},
+        "itl_during_late_prefill_s": on["itl_during_late_prefill_s"],
+        "predicted_mixed_step_s": [m["predicted_mixed_step_s"] for m in on["mixed_steps"]],
+        "warmup_s": [on["warmup_s"], off["warmup_s"]],
+        "graph_pool_gib": [on["graph_pool_gib"], off["graph_pool_gib"]],
+        "graph_pool_share_of_card": on["graph_pool_share_of_card"],
+        "graph_pool_over_limit": on["graph_pool_share_of_card"] > GRAPH_POOL_SHARE,
+        "graph_pool_top": on["graph_pool_top"][:4],
+        "perf_ewma": on["perf_ewma"],
+    }
+    log(f"[f] summary {json.dumps(summary)} on {smi}")
+    return {"on": on, "off": off}
 
 
 def main() -> int:
@@ -1769,6 +2213,7 @@ def main() -> int:
     phase_mm_embed()
     phase_http_f32()
     phase_http_bf16(smi, serve["float"]["decode_tok_s"])
+    phase_slo(smi, serve["float"]["decode_tok_s"])
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []

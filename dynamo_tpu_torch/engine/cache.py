@@ -101,6 +101,24 @@ class KVCacheSpec:
         return 2 * self.num_layers * self.block_size * self.num_kv_heads * self.head_dim * itemsize
 
 
+def register_device_tier(pool, spec: KVCacheSpec, *, name: str = "device") -> None:
+    """Register the device block pool as a tier row in the memory ledger
+    (obs/mem_ledger.py). ``pool`` is a PrefixPool; resident means
+    referenced-or-cached — everything not on the raw free list (block 0,
+    never handed out, is excluded). Byte math comes from
+    :meth:`KVCacheSpec.bytes_per_block`, so quantized specs report their
+    packed footprint. Pulled only at snapshot/audit time, never per step."""
+    from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+
+    bytes_per_block = spec.bytes_per_block()
+
+    def _occupancy() -> tuple[int, int]:
+        resident = pool.num_blocks - 1 - pool.num_free_raw
+        return resident, resident * bytes_per_block
+
+    get_mem_ledger().register_tier(name, _occupancy)
+
+
 def allocate_cache(spec: KVCacheSpec, device: torch.device):
     """Zeroed K and V caches on ``device``: tensors at model precision, or
     ``{"q", "s"}`` dicts when ``spec.quantized``."""

@@ -28,22 +28,35 @@ pageable memory would synchronise the stream), replays the bucket's graph,
 and copies the sampled tokens back into pinned memory behind a CUDA event,
 so finalizing step N waits for step N only while step N+1 already runs on
 the card.
+
+Observability, as the JAX engine wires it: ``prefill_chunk=0`` resolves to
+per-QoS chunks through the cost model (obs/costmodel.py) at construction;
+each finalized step files a step record (obs/recorder.py) with the step
+profiler's analytic counters (obs/profiler.py), a scheduling-ledger record
+(goodput, padding, HOL stalls; obs/sched_ledger.py) and a memory-ledger
+observation (occupancy, TTX, leak audit; obs/mem_ledger.py); a request
+carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
+``engine.decode`` spans.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import gc
 import hashlib
+import os
 import queue as thread_queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable
 
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.engine.cache import KVCacheSpec, allocate_cache
+from dynamo_tpu_torch.engine.cache import KVCacheSpec, allocate_cache, register_device_tier
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
 from dynamo_tpu_torch.engine.sampling import (
     NEG_INF,
@@ -53,16 +66,22 @@ from dynamo_tpu_torch.engine.sampling import (
     sample,
 )
 from dynamo_tpu_torch.engine.guided import TokenMasker
-from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq
+from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq, StepPlan
 from dynamo_tpu_torch.engine.spec import accept, propose, spec_eligible
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
+from dynamo_tpu_torch.obs import costmodel as cm
 from dynamo_tpu_torch.obs.compile_ledger import (
     WARMUP_MODES,
     BucketSig,
     enumerate_buckets,
     get_compile_ledger,
 )
+from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger, live_ids_of
+from dynamo_tpu_torch.obs.profiler import StepPerfProfiler
+from dynamo_tpu_torch.obs.profiler import phase as _perf_phase
+from dynamo_tpu_torch.obs.sched_ledger import HolStall, get_sched_ledger, step_geometry
+from dynamo_tpu_torch.obs.tracer import get_tracer, trace_context_of
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
@@ -72,10 +91,14 @@ from dynamo_tpu_torch.protocols.common import (
 )
 from dynamo_tpu_torch.qos.deadline import deadline_of, expired
 from dynamo_tpu_torch.utils.config import EngineConfig
-from dynamo_tpu_torch.utils.device import resolve_device
+from dynamo_tpu_torch.utils.device import device_name, resolve_device
 from dynamo_tpu_torch.utils.logging import get_logger
 
 log = get_logger("engine")
+
+#: the share of the card's memory over which the warmup's graph pool is
+#: logged as a warning (PERF.md's limit for it)
+GRAPH_POOL_SHARE = 0.10
 
 
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -98,6 +121,20 @@ def _derived_seed(request_id: str) -> int:
     return int.from_bytes(hashlib.sha256(request_id.encode()).digest()[:4], "big")
 
 
+def _weak_source(method: Callable[[], dict]) -> Callable[[], dict]:
+    """A memory-ledger live-id source that does not keep its engine alive:
+    the process-global ledger would otherwise hold every engine ever made
+    (its weights and KV cache) through the bound method. A collected
+    engine's source reports nothing, as an unregistered one does."""
+    ref = weakref.WeakMethod(method)
+
+    def source() -> dict:
+        live = ref()
+        return live() if live is not None else {}
+
+    return source
+
+
 def check_supported(ec: EngineConfig) -> None:
     """Raise on settings this slice of the port does not carry, naming the
     slice that brings them (ROADMAP), and on invalid ones."""
@@ -113,8 +150,6 @@ def check_supported(ec: EngineConfig) -> None:
             ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr
             or ec.global_prefix_cache or ec.stream_ckpt_blocks > 0),
         "session_ttl > 0 (session retention slice)": ec.session_ttl > 0,
-        "prefill_chunk=0 auto sizing (cost model, observability slice)":
-            ec.prefill_chunk <= 0,
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
@@ -181,16 +216,26 @@ class EngineMetrics:
 class StepOutputs:
     """A dispatched step's sampled tokens and logprobs. On the card they are
     being copied into pinned host memory behind ``event``;
-    :meth:`materialize` waits for that copy only."""
+    :meth:`materialize` waits for that copy only. ``started`` is recorded
+    on the stream before the program's input copies, so the two events
+    bound the program's device time."""
 
     tokens: torch.Tensor
     logprobs: torch.Tensor
     event: torch.cuda.Event | None = None
+    started: torch.cuda.Event | None = None
 
     def materialize(self) -> tuple[np.ndarray, np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
         return self.tokens.numpy(), self.logprobs.numpy()
+
+    def device_seconds(self) -> float | None:
+        """The program's device time, input copies to output copies, once
+        materialized; None off the card."""
+        if self.started is None or self.event is None:
+            return None
+        return self.started.elapsed_time(self.event) / 1e3
 
 
 @dataclass
@@ -201,6 +246,10 @@ class PendingStep:
     sample_rows."""
 
     batches: list[tuple[str, list, list[bool], StepOutputs]] = field(default_factory=list)
+    # Scheduling-ledger context captured at plan time (decode_window,
+    # token-budget utilization, HOL victim list) — consumed by
+    # _record_step at finalize. None when DYN_SCHED_LEDGER=0.
+    sched: Any = None
     # Unified steps: the leading decode-row count of the "mixed" batch,
     # captured at plan time (prefill_target() moves as finalize appends).
     mixed_dec_rows: int = 0
@@ -480,7 +529,9 @@ class ModelRunner:
             kind = ("window" if window > 1 else "decode" if t == 1
                     else "mixed" if mixed else "prefill")
             led.record(BucketSig(kind, b, t, nblk, fast_greedy, ec.kv_dtype or "bfloat16"),
-                       time.perf_counter() - t_capture)
+                       time.perf_counter() - t_capture,
+                       trace_ctx=next((s.trace_ctx for s, _, _ in rows
+                                       if s.trace_ctx is not None), None))
         return prog(ints, floats, *extra)
 
     def _body(self, ints: torch.Tensor, floats: torch.Tensor, b: int, t: int,
@@ -517,21 +568,22 @@ class ModelRunner:
             logits = llama.logits_from_hidden(self.params, cfg, hidden).float()
             if logit_mask is not None:
                 logits = logits.masked_fill(~logit_mask, NEG_INF)
-            if fast_greedy:
-                # Whole batch greedy + penalty-free: argmax over raw logits
-                # is identical to the general path and skips its sort and
-                # noise.
-                toks, lps = greedy_sample(logits)
-            else:
-                temp, top_p, fp, pp, rp = floats
-                st = SamplingState(
-                    temperature=temp, top_k=top_k, top_p=top_p,
-                    frequency_penalty=fp, presence_penalty=pp, repetition_penalty=rp,
-                    seeds=self.seeds[slots_l], draws=self.draws[slots_l],
-                    token_counts=self.counts[slots_l])
-                toks, lps = sample(logits, st)
-                self.counts[write_slots] = record_tokens(st.token_counts, toks, do_sample)
-                self.draws[write_slots] = st.draws + 1
+            with _perf_phase("sampling"):
+                if fast_greedy:
+                    # Whole batch greedy + penalty-free: argmax over raw
+                    # logits is identical to the general path and skips its
+                    # sort and noise.
+                    toks, lps = greedy_sample(logits)
+                else:
+                    temp, top_p, fp, pp, rp = floats
+                    st = SamplingState(
+                        temperature=temp, top_k=top_k, top_p=top_p,
+                        frequency_penalty=fp, presence_penalty=pp, repetition_penalty=rp,
+                        seeds=self.seeds[slots_l], draws=self.draws[slots_l],
+                        token_counts=self.counts[slots_l])
+                    toks, lps = sample(logits, st)
+                    self.counts[write_slots] = record_tokens(st.token_counts, toks, do_sample)
+                    self.draws[write_slots] = st.draws + 1
             self.slot_toks[write_slots] = toks
             toks_w.append(toks)
             lps_w.append(lps)
@@ -586,7 +638,9 @@ class ModelRunner:
         if cold:
             led.mark_inflight(False)
             led.record(BucketSig("verify", b, t, nblk, True, ec.kv_dtype or "bfloat16"),
-                       time.perf_counter() - t_capture)
+                       time.perf_counter() - t_capture,
+                       trace_ctx=next((s.trace_ctx for s, _, _ in rows
+                                       if s.trace_ctx is not None), None))
         return prog(ints)
 
     def _verify_body(self, ints: torch.Tensor, b: int, t: int,
@@ -666,7 +720,10 @@ class ModelRunner:
         deadline stay cold and count against coverage. On the card the
         summary also has ``graph_pool_gib``: the growth of the allocator's
         reserved memory over the warmup, which is the graphs' shared pool
-        (every capture empties the allocator's other cached blocks)."""
+        (every capture empties the allocator's other cached blocks), and
+        ``graph_pool_top``: the buckets whose warm run and capture grew it
+        most, in GiB. A pool over ``GRAPH_POOL_SHARE`` of the card is
+        logged as a warning: that memory is no longer free for KV blocks."""
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -674,10 +731,12 @@ class ModelRunner:
             reserved0 = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         captured = cached = failed = skipped = 0
+        growth: list[tuple[float, BucketSig]] = []
         for sig in sigs:
             if deadline_s > 0 and time.perf_counter() - t0 >= deadline_s:
                 skipped += 1
                 continue
+            before = torch.cuda.memory_reserved(self.device) if cuda else 0
             try:
                 hit = self._warm_one(sig)
             except Exception:
@@ -686,14 +745,30 @@ class ModelRunner:
                 continue
             cached += 1 if hit else 0
             captured += 0 if hit else 1
+            if cuda:
+                growth.append(((torch.cuda.memory_reserved(self.device) - before) / 2**30, sig))
         summary = {"captured": captured, "cached": cached, "failed": failed,
                    "deadline_skipped": skipped,
                    "seconds": round(time.perf_counter() - t0, 3),
                    "coverage": round(self._ledger.coverage(), 4)}
         if cuda:
             torch.cuda.empty_cache()
-            summary["graph_pool_gib"] = (
-                torch.cuda.memory_reserved(self.device) - reserved0) / 2**30
+            pool = (torch.cuda.memory_reserved(self.device) - reserved0) / 2**30
+            summary["graph_pool_gib"] = pool
+            growth.sort(key=lambda gs: -gs[0])
+            summary["graph_pool_top"] = [
+                {"kind": sig.kind, "b": sig.b, "t": sig.t, "nblk": sig.nblk,
+                 "greedy": sig.greedy, "gib": gib} for gib, sig in growth[:8] if gib > 0]
+            card = torch.cuda.get_device_properties(self.device).total_memory / 2**30
+            if pool > GRAPH_POOL_SHARE * card:
+                log.warning(
+                    "the graph pool holds %.1f GiB, %.0f%% of the card, memory no KV block "
+                    "can use; most of it went to the buckets %s (b x t token rows of the "
+                    "largest: %d). Lower max_batch_size, max_tokens_per_step or the "
+                    "prefill chunk to keep it smaller.",
+                    pool, 100 * pool / card,
+                    [(s.kind, s.b, s.t) for _, s in growth[:4]],
+                    max(s.b * s.t for _, s in growth) if growth else 0)
         log.info("bucket warmup: %s", summary)
         return summary
 
@@ -785,12 +860,23 @@ class StepProgram:
         if self.runner.device.type != "cuda":
             return
         self.graph = torch.cuda.CUDAGraph()
-        # thread_local: an unsafe CUDA call made meanwhile by another thread
-        # (the asyncio side of AsyncTorchEngine) does not void the capture.
-        with torch.cuda.graph(self.graph, pool=self.runner.graph_pool,
-                              stream=self.runner.capture_stream,
-                              capture_error_mode="thread_local"):
-            self.outputs = self._run()
+        # No garbage collection while capturing: a collected program of an
+        # engine gone out of use (a cycle through its runner) destroys its
+        # CUDA graph, which a capturing stream does not permit, and that
+        # voids this capture.
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: an unsafe CUDA call made meanwhile by another
+            # thread (the asyncio side of AsyncTorchEngine) does not void
+            # the capture.
+            with torch.cuda.graph(self.graph, pool=self.runner.graph_pool,
+                                  stream=self.runner.capture_stream,
+                                  capture_error_mode="thread_local"):
+                self.outputs = self._run()
+        finally:
+            if gc_on:
+                gc.enable()
 
     def _replay(self) -> tuple[torch.Tensor, torch.Tensor]:
         if self.graph is None:
@@ -802,6 +888,10 @@ class StepProgram:
         """Run the program on ``host_inputs``, one array for each static
         input, in order."""
         cuda = self.runner.device.type == "cuda"
+        started = None
+        if cuda:
+            started = torch.cuda.Event(enable_timing=True)
+            started.record()
         for static, arr in zip(self.inputs, host_inputs, strict=True):
             host = torch.from_numpy(arr)
             # A fresh pinned tensor per step: the previous step's
@@ -816,9 +906,9 @@ class StepProgram:
         lps_h = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
         toks_h.copy_(toks, non_blocking=True)
         lps_h.copy_(lps, non_blocking=True)
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=True)
         event.record()
-        return StepOutputs(toks_h, lps_h, event)
+        return StepOutputs(toks_h, lps_h, event, started)
 
 
 class VerifyProgram(StepProgram):
@@ -848,6 +938,7 @@ class EngineCore:
         if self.model_cfg.is_moe:
             raise ValueError(f"{engine_cfg.model!r} is a MoE model: not supported "
                              "by the torch port yet (MoE slice)")
+        device = resolve_device(device)
         # Unified ragged mixed-phase steps: one launch per iteration when
         # prefill work rides along. Fused decode windows keep the legacy
         # path (a window is decode-only).
@@ -857,6 +948,53 @@ class EngineCore:
         # the same mode; the enumerated lattice is the coverage denominator
         # in lazy mode and the capture worklist in full mode (warmup()).
         get_compile_ledger().configure(engine_cfg.warmup_mode)
+        # Scheduling ledger gate (obs/sched_ledger.py): re-read the
+        # DYN_SCHED_LEDGER env at engine construction so tests flipping
+        # the env see the gate they set.
+        self.sched_led = get_sched_ledger()
+        self.sched_led.configure()
+        # The device's roofline row (obs/costmodel.py): the CPU row on the
+        # CPU, the card's row by its name. A card the table lacks prices
+        # nothing (None) and refuses prefill_chunk=0, whose chunks would
+        # otherwise be sized at another device's rates.
+        self.device_name = device_name(device)
+        self._hw: cm.HardwareSpec | None = None
+        try:
+            self._hw = cm.hw_spec_for(self.device_name)
+        except LookupError as exc:
+            if engine_cfg.prefill_chunk <= 0:
+                raise ValueError(f"prefill_chunk=0 sizes prefill chunks from the "
+                                 f"device's roofline: {exc}") from None
+        # SLO-driven chunk sizing (prefill_chunk=0 = auto): resolve to
+        # concrete per-QoS chunks BEFORE bucket enumeration and the
+        # scheduler read the config — the prefill t ladder, warmup plan
+        # and per-step token budget all key off ec.prefill_chunk, so auto
+        # must not leave a 0 behind. The cap is the batch class's chunk
+        # (largest SLO budget); interactive/standard refine downward
+        # per-seq inside the scheduler.
+        if engine_cfg.prefill_chunk <= 0:
+            ladder_cap = min(engine_cfg.max_model_len, engine_cfg.max_tokens_per_step)
+            self.chunk_by_qos = {
+                qos: cm.auto_prefill_chunk(
+                    self.model_cfg, self._hw,
+                    itl_slo_s=engine_cfg.itl_slo_ms / 1e3,
+                    decode_rows=engine_cfg.max_batch_size,
+                    decode_kv_len=max(engine_cfg.max_model_len // 2, engine_cfg.block_size),
+                    block_size=engine_cfg.block_size,
+                    max_chunk=ladder_cap,
+                    kv_dtype=engine_cfg.kv_dtype or "bfloat16",
+                    quantization=engine_cfg.quantization or "none",
+                    qos_class=qos)
+                for qos in cm.QOS_ITL_SLO_SCALE}
+            resolved = max(self.chunk_by_qos.values())
+            log.info("auto prefill chunk (itl_slo=%.1fms, %s): %s -> cap %d",
+                     engine_cfg.itl_slo_ms, self._hw.name, self.chunk_by_qos, resolved)
+            engine_cfg = dataclasses.replace(engine_cfg, prefill_chunk=resolved)
+            self.engine_cfg = engine_cfg
+        else:
+            self.chunk_by_qos = {qos: engine_cfg.prefill_chunk
+                                 for qos in cm.QOS_ITL_SLO_SCALE}
+        self.sched_led.set_prefill_chunks(self.chunk_by_qos)
         self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
                                   device=device)
         if engine_cfg.warmup_mode != "off":
@@ -871,12 +1009,21 @@ class EngineCore:
             max_tokens_per_step=engine_cfg.max_tokens_per_step,
             decode_window=engine_cfg.decode_window,
             spec_lookahead=engine_cfg.spec_k if engine_cfg.spec_ngram > 0 else 0,
+            chunk_by_qos=self.chunk_by_qos,
         )
         self.metrics = EngineMetrics(
             kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks,
             kv_quant_enabled=self.runner.spec.quantized)
+        # Hardware counters: analytic FLOPs/bytes + MFU/BW-util per step
+        # (obs/profiler.py). DYN_PERF_PROFILE=0 turns the whole thing into
+        # a no-op per step.
+        self.perf = StepPerfProfiler(self.model_cfg, engine_cfg, self.device_name)
         self._seqs: dict[str, Seq] = {}
         self.default_eos: list[int] = []
+        # Tracing: decode spans rotate every N generated tokens — one span
+        # (one allocation) per N steps, never per token (obs/tracer.py).
+        self._trace_stride = max(int(os.environ.get("DYN_TRACE_DECODE_STRIDE", "32")), 1)
+        self._trace_last_preempt = 0
         # Deadline clock for the current step window.
         self._step_now: float | None = None
         # The last warmup()'s summary.
@@ -884,6 +1031,26 @@ class EngineCore:
         # Structured output: token-id → text table + tokenizer EOS, built
         # lazily on the first guided request (engine/guided.py).
         self._guided_vocab: tuple[list[str], list[int]] | None = None
+        # Memory & capacity ledger (obs/mem_ledger.py): re-read the
+        # DYN_MEM_LEDGER env at construction (same contract as the sched
+        # ledger above), publish this engine's device pool as the tier row,
+        # and hand the audit a live-id source so orphaned pins reconcile
+        # against what this engine actually holds. Both are pulled only at
+        # snapshot/audit time, never on the step path.
+        self.mem_led = get_mem_ledger()
+        self.mem_led.configure()
+        register_device_tier(self.pool, self.runner.spec)
+        self._mem_source_key = f"engine:{id(self):x}"
+        self.mem_led.register_live_source(self._mem_source_key,
+                                          _weak_source(self._mem_live_ids))
+
+    def _mem_live_ids(self) -> dict:
+        """Per-owner-class live ids for the mem-ledger leak audit. A pin
+        tagged under any class but absent from the matching set here is an
+        orphan — a reference the engine no longer knows about. The port's
+        engine holds stream pins only: the other classes' owners (sessions,
+        KVBM queues, disagg staging) are not ported yet and report empty."""
+        return live_ids_of(streams=self._seqs.keys())
 
     def _guided_pieces(self) -> tuple[list[str], list[int]]:
         if self._guided_vocab is None:
@@ -957,6 +1124,14 @@ class EngineCore:
                       f"usable_kv_blocks={self.pool.num_blocks - 1})",
             )
         self._seqs[req.request_id] = seq
+        seq.trace_ctx = trace_context_of(getattr(req, "annotations", None))
+        if seq.trace_ctx is not None:
+            # Admission wait starts now; step_begin ends it when the first
+            # prefill chunk is planned (engine.queue → engine.prefill).
+            seq.trace_span = get_tracer().start_span(
+                "engine.queue", ctx=seq.trace_ctx,
+                request_id=req.request_id, model=req.model,
+                prompt_tokens=seq.prompt_len, priority=seq.qos_priority)
         self.metrics.prefix_lookup_blocks += max(len(seq.tokens) // seq.block_size, 1)
         return None
 
@@ -964,6 +1139,7 @@ class EngineCore:
         seq = self._seqs.get(request_id)
         if seq is None or seq.phase is Phase.FINISHED:
             return
+        self._trace_finish(seq, FinishReason.CANCELLED)
         self.sched.finish(seq, FinishReason.CANCELLED)
 
     def has_work(self) -> bool:
@@ -1008,6 +1184,7 @@ class EngineCore:
         if plan.empty:
             return None
         self.metrics.num_steps += 1
+        self._trace_plan(plan)
         for seq in [w.seq for w in plan.prefill] + plan.decode:
             if not seq.slot_initialized and seq.slot >= 0:
                 self._init_slot(seq)
@@ -1095,7 +1272,155 @@ class EngineCore:
                 if sample_rows[i]:
                     seq.inflight_samples += 1
             pending.batches.append((kind, rows, sample_rows, out))
+        if self.sched_led.enabled:
+            pending.sched = self._sched_info(plan)
         return pending
+
+    def _sched_info(self, plan: StepPlan) -> dict:
+        """The scheduling ledger's plan-time context of a step: decode
+        window, token-budget utilization and the HOL stall of its prefill
+        work on its decode rows."""
+        used = (len(plan.decode) * plan.decode_window
+                + sum(w.length for w in plan.prefill))
+        hol = None
+        if plan.prefill and plan.decode:
+            # Every decode-ready stream in this step waits out the prefill
+            # work before its token materializes; the culprit is the
+            # request contributing the largest chunk. Under the unified step
+            # the stall is NOT a whole separate launch — only the chunk's
+            # marginal share of the mixed step's wall (priced by the cost
+            # model) is charged to the victims.
+            culprit = max(plan.prefill, key=lambda w: w.length)
+            stall_share = None
+            if self._unified and self._hw is not None:
+                kw = dict(
+                    decode_rows=len(plan.decode),
+                    decode_kv_len=max(s.num_computed for s in plan.decode),
+                    chunk_kv_len=max(w.start + w.length for w in plan.prefill),
+                    block_size=self.engine_cfg.block_size,
+                    kv_dtype=self.engine_cfg.kv_dtype or "bfloat16",
+                    quantization=self.engine_cfg.quantization or "none")
+                mixed_s = cm.mixed_step_seconds(
+                    self.model_cfg, self._hw,
+                    chunk=sum(w.length for w in plan.prefill), **kw)
+                pure_s = cm.mixed_step_seconds(self.model_cfg, self._hw, chunk=0, **kw)
+                if mixed_s > 0:
+                    stall_share = max(mixed_s - pure_s, 0.0) / mixed_s
+            hol = HolStall(
+                culprit=culprit.seq.request_id,
+                culprit_tokens=sum(w.length for w in plan.prefill),
+                victims=[(s.trace_ctx, s.request_id, s.qos_priority)
+                         for s in plan.decode],
+                stall_share=stall_share)
+        return {"decode_window": plan.decode_window,
+                "budget_util": used / max(self.sched.max_tokens_per_step, 1),
+                "hol": hol}
+
+    def _trace_plan(self, plan: StepPlan) -> None:
+        """Advance per-seq phase spans from the step plan. Untraced seqs
+        (no obs.traceparent annotation) cost one None check here."""
+        tr = None
+        for w in plan.prefill:
+            s = w.seq
+            sp = s.trace_span
+            if s.trace_ctx is None or (sp is not None and sp.name == "engine.prefill"):
+                continue  # untraced, or a later chunk of the same prefill
+            tr = tr or get_tracer()
+            if sp is not None:
+                # queue→prefill admit, or a preempt-resume out of decode.
+                extra = ({"tokens": s.trace_tokens}
+                         if sp.name == "engine.decode" and s.trace_tokens else {})
+                tr.end_span(sp, prefix_hit_blocks=s.prefix_hit_blocks, **extra)
+            s.trace_span = tr.start_span(
+                "engine.prefill", ctx=s.trace_ctx, request_id=s.request_id,
+                prompt_tokens=s.prompt_len, prefix_hit_blocks=s.prefix_hit_blocks)
+            s.trace_tokens = 0
+        for s in plan.decode:
+            if s.trace_ctx is None:
+                continue
+            sp = s.trace_span
+            if sp is not None and sp.name == "engine.decode":
+                s.trace_tokens += plan.decode_window
+                if s.trace_tokens >= self._trace_stride:
+                    tr = tr or get_tracer()
+                    tr.end_span(sp, tokens=s.trace_tokens, batch=len(plan.decode))
+                    s.trace_span = tr.start_span(
+                        "engine.decode", ctx=s.trace_ctx, request_id=s.request_id)
+                    s.trace_tokens = 0
+                continue
+            tr = tr or get_tracer()
+            if sp is not None:  # prefill complete: decode begins
+                tr.end_span(sp)
+            s.trace_span = tr.start_span(
+                "engine.decode", ctx=s.trace_ctx, request_id=s.request_id,
+                batch=len(plan.decode))
+            s.trace_tokens = plan.decode_window
+
+    def _trace_finish(self, seq: Seq, reason: FinishReason | None) -> None:
+        sp = seq.trace_span
+        if sp is None:
+            return
+        seq.trace_span = None
+        status = "ok"
+        if reason is FinishReason.CANCELLED:
+            status = "cancelled"
+        elif reason is FinishReason.ERROR:
+            status = "error"
+        attrs: dict = {"finish_reason": str(reason) if reason else "",
+                       "output_tokens": seq.num_output_tokens}
+        if sp.name == "engine.decode" and seq.trace_tokens:
+            attrs["tokens"] = seq.trace_tokens
+        get_tracer().end_span(sp, status=status, **attrs)
+
+    def _record_step(self, t0: float, pending: PendingStep) -> None:
+        """Step profile, one ring append per engine step; then the
+        scheduling ledger's record and the memory ledger's observation."""
+        n_pf = n_dec = 0
+        for kind, rows, *_ in pending.batches:
+            if kind == "prefill":
+                n_pf += len(rows)
+            elif kind == "mixed":
+                n_dec += pending.mixed_dec_rows
+                n_pf += len(rows) - pending.mixed_dec_rows
+            else:
+                n_dec += len(rows)
+        pc = self.sched.preemption_count
+        wall = time.perf_counter() - t0
+        # The step profiler's time: on the card the device time of the
+        # step's programs (CUDA events around each), since under the
+        # pipelined loop the finalize's wall covers only the tail of a
+        # step already running; on the CPU the finalize's wall, as JAX's.
+        dev = [out.device_seconds() for *_, out in pending.batches] if self.perf.enabled else []
+        perf_s = wall if not dev or None in dev else sum(dev)
+        get_tracer().recorder.steps.record(
+            time.time(), wall,
+            num_prefill=n_pf, num_decode=n_dec,
+            num_waiting=self.sched.num_waiting,
+            num_preempted=pc - self._trace_last_preempt,
+            occupancy=self.sched.num_running / max(self.engine_cfg.max_batch_size, 1),
+            **self.perf.measure(pending.batches, perf_s))
+        self._trace_last_preempt = pc
+        if self.sched_led.enabled:
+            info = pending.sched or {}
+            self.sched_led.record_step(
+                wall_s=wall,
+                decode_window=info.get("decode_window", 1),
+                budget_util=info.get("budget_util", 0.0),
+                queue_depths=self.sched.waiting.depths(),
+                hol=info.get("hol"),
+                **step_geometry(self.model_cfg, self.engine_cfg, pending.batches,
+                                mixed_dec_rows=pending.mixed_dec_rows))
+        if self.mem_led.enabled:
+            # Capacity forecast + leak audit cadence ride the step clock:
+            # free-pool observations feed the per-QoS EWMA consumption
+            # rates behind dynamo_mem_ttx_seconds, and maybe_audit is a
+            # no-op until audit_interval_s has elapsed.
+            self.mem_led.observe_device(
+                free=self.pool.num_free_raw,
+                cached=self.pool.num_inactive,
+                total=self.pool.num_blocks - 1)
+            self.mem_led.observe_free(self.pool.num_free, now=time.time())
+            self.mem_led.maybe_audit(time.time())
 
     def _plan_verify(self, decode_seqs: list[Seq]
                      ) -> tuple[list[tuple[Seq, int, int]], list[list[int]], list[Seq]]:
@@ -1170,6 +1495,7 @@ class EngineCore:
                               log_probs=per_tok)
         if reason is not None:
             out.finish_reason = reason
+            self._trace_finish(seq, reason)
             self.sched.finish(seq, reason)
             self.metrics.num_requests_finished += 1
             del self._seqs[seq.request_id]
@@ -1180,6 +1506,7 @@ class EngineCore:
         """Materialize a dispatched step's tokens and apply value-dependent
         effects: append tokens, commit full blocks (hash chain), evaluate
         stop conditions, assemble per-request outputs."""
+        t0 = time.perf_counter()
         outputs: dict[str, LLMEngineOutput] = {}
         for kind, rows, sample_rows, out in pending.batches:
             toks, lps = out.materialize()
@@ -1208,6 +1535,7 @@ class EngineCore:
                 seq.inflight_samples -= 1
                 self._emit_and_finish(seq, [int(x) for x in toks[i]], lps[i], outputs,
                                       count_decode=decode_row)
+        self._record_step(t0, pending)
         return outputs
 
     def _finalize_verify(self, rows: list[tuple[Seq, int, int]], chunks: list[list[int]],
@@ -1309,6 +1637,9 @@ class AsyncTorchEngine:
         self._wake.set()
         if self._started:
             await asyncio.get_running_loop().run_in_executor(None, self._thread.join, 5.0)
+        # A dead engine must not keep vouching for its pins: drop its
+        # live-id source so anything it leaked surfaces in the next audit.
+        self.core.mem_led.unregister_live_source(self.core._mem_source_key)
 
     def _run(self) -> None:
         # Pipelined step loop: keep ONE step in flight. Each iteration plans
@@ -1419,7 +1750,21 @@ class AsyncTorchEngine:
         return await self.run_in_core(lambda core: core.embed(token_lists))
 
     def stats(self) -> dict[str, Any]:
-        return self.core.metrics.snapshot(self.core.sched, self.core.pool)
+        out = self.core.metrics.snapshot(self.core.sched, self.core.pool)
+        led = get_compile_ledger()
+        if led.enabled:
+            # Warmup coverage + capture stalls ride the published stats.
+            out["compile"] = led.snapshot()
+        sled = get_sched_ledger()
+        if sled.enabled:
+            # Goodput, padding waste, and stall attribution.
+            out["sched"] = sled.snapshot()
+        mled = get_mem_ledger()
+        if mled.enabled:
+            # Tier occupancy, pin-owner totals, TTX posture, and the last
+            # leak-audit verdict.
+            out["mem"] = mled.snapshot()
+        return out
 
 
 def build_engine(engine_cfg: EngineConfig, params=None,

@@ -6,8 +6,9 @@ copy of ``dynamo_tpu/engine/prefix_pool.py``.
   (a full block with a sequence hash) parks in an LRU **inactive** pool —
   still matchable, evicted only on allocation pressure.
 
-The KV-event, memory-ledger and KVBM hooks of the JAX pool come back with
-the slices that port those consumers.
+Device-tier eviction churn feeds the memory ledger (obs/mem_ledger.py) as
+in the JAX pool. Its KV-event and KVBM hooks come back with the slices
+that port those consumers.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 from collections import OrderedDict
 
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
+from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
 
 
 class PrefixPool:
@@ -29,6 +31,11 @@ class PrefixPool:
         self._hash_of: dict[int, int] = {}          # block_id -> seq_hash (committed)
         self._by_hash: dict[int, int] = {}          # seq_hash -> block_id
         self._inactive: OrderedDict[int, None] = OrderedDict()  # block_id -> LRU order
+        # Memory ledger (obs/mem_ledger.py): device-tier eviction churn is
+        # recorded where it happens. _churn_cause distinguishes pressure
+        # evictions from the deliberate clear() sweep.
+        self._mled = get_mem_ledger()
+        self._churn_cause = "allocation_pressure"
 
     # -- introspection -------------------------------------------------------
     @property
@@ -79,6 +86,8 @@ class PrefixPool:
         h = self._hash_of.pop(bid, None)
         if h is not None:
             del self._by_hash[h]
+            if self._mled.enabled:
+                self._mled.record_churn("device", self._churn_cause, 1)
         return bid
 
     # -- prefix matching -----------------------------------------------------
@@ -133,5 +142,9 @@ class PrefixPool:
 
     def clear(self) -> None:
         """Drop all cached (inactive) blocks."""
-        while self._inactive:
-            self._free.append(self._evict_one())
+        self._churn_cause = "clear"
+        try:
+            while self._inactive:
+                self._free.append(self._evict_one())
+        finally:
+            self._churn_cause = "allocation_pressure"

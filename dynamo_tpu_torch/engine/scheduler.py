@@ -16,8 +16,16 @@ each verify-eligible decode row grows ``1 + spec_lookahead`` tokens ahead,
 and a row whose verify step is in flight is not planned again until the
 engine has accepted or rolled it back.
 
-Not carried yet (later slices): session ids and the scheduling/memory
-ledger hooks.
+Chunk size is cost-model-driven when the engine's ``prefill_chunk == 0``:
+the engine resolves a per-QoS-class cap (costmodel.auto_prefill_chunk —
+the largest chunk whose predicted mixed-step time keeps decode ITL inside
+the SLO ladder) and passes it here as ``chunk_by_qos``; plan() caps each
+seq's chunk by its own class. The scheduling ledger (admission-block
+causes, preemption recompute) and the memory ledger (stream pins, per-QoS
+block consumption) are fed from here, each hook gated on its ledger's
+``enabled``.
+
+Not carried yet (a later slice): session ids.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from dataclasses import dataclass, field
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
 from dynamo_tpu_torch.engine.spec import spec_eligible
+from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+from dynamo_tpu_torch.obs.sched_ledger import get_sched_ledger
 from dynamo_tpu_torch.protocols.common import FinishReason, PreprocessedRequest
 from dynamo_tpu_torch.qos.deadline import deadline_of, expired, priority_of
 from dynamo_tpu_torch.qos.wdrr import WdrrQueue
@@ -79,6 +89,14 @@ class Seq:
     # absolute wall-clock deadline after which the seq is cancelled.
     qos_priority: str = "standard"
     deadline_ts: float | None = None
+    # Tracing (obs/tracer.py): the wire TraceContext parsed off the
+    # request annotations, the one currently-open phase span
+    # (engine.queue → engine.prefill → engine.decode), and the token
+    # count inside the open decode-window span. The engine owns all
+    # transitions; the scheduler never touches these.
+    trace_ctx: object | None = None
+    trace_span: object | None = None
+    trace_tokens: int = 0
 
     def __post_init__(self) -> None:
         self.tokens = list(self.req.token_ids)
@@ -145,10 +163,15 @@ class Scheduler:
         qos_weights: dict[str, int] | None = None,
         decode_window: int = 1,
         spec_lookahead: int = 0,
+        chunk_by_qos: dict[str, int] | None = None,
     ):
         self.pool = pool
         self.max_batch_size = max_batch_size
         self.prefill_chunk = prefill_chunk
+        # Per-QoS chunk caps (SLO-driven auto mode): each seq's prefill
+        # chunk is additionally capped by its own class. None/empty =
+        # uniform prefill_chunk for everyone.
+        self.chunk_by_qos = dict(chunk_by_qos) if chunk_by_qos else {}
         self.max_model_len = max_model_len
         self.max_tokens_per_step = max_tokens_per_step
         self.decode_window = max(decode_window, 1)
@@ -164,6 +187,14 @@ class Scheduler:
         self.running: list[Seq] = []
         self._slot_free: list[int] = list(range(max_batch_size - 1, -1, -1))
         self.preemption_count = 0
+        # Scheduling ledger (obs/sched_ledger.py): admission-block causes
+        # and preemption recompute accounting. Every hook is gated on
+        # .enabled so DYN_SCHED_LEDGER=0 adds no work to the plan path.
+        self._sled = get_sched_ledger()
+        # Memory ledger (obs/mem_ledger.py): stream-owned pin taxonomy and
+        # per-QoS block consumption rates (TTX forecast), gated the same
+        # way by DYN_MEM_LEDGER=0.
+        self._mled = get_mem_ledger()
 
     # ------------------------------------------------------------------
     def add(self, seq: Seq) -> None:
@@ -195,6 +226,8 @@ class Scheduler:
         """Admit a waiting seq: match cached prefix, allocate prompt blocks,
         claim a sampling slot. Returns False under resource pressure."""
         if not self._slot_free:
+            if self._sled.enabled:
+                self._sled.record_block("batch_full")
             return False
         # Match at most prefill_target-1 tokens so at least one token is
         # computed (we need last-position state before decode can continue).
@@ -206,16 +239,23 @@ class Scheduler:
         # seq we just admitted (admit→evict→re-admit thrash).
         if need + len(self.running) > self.pool.num_free:
             self.pool.release(matched)
+            if self._sled.enabled:
+                self._sled.record_block("no_free_blocks")
             return False
         try:
             fresh = self.pool.allocate(need)
         except NoFreeBlocks:
             self.pool.release(matched)
+            if self._sled.enabled:
+                self._sled.record_block("no_free_blocks")
             return False
         seq.block_ids = matched + fresh
         seq.committed_blocks = len(matched)
         seq.num_computed = len(matched) * seq.block_size
         seq.prefix_hit_blocks = len(matched)
+        if self._mled.enabled:
+            self._mled.pin("stream", seq.request_id, len(seq.block_ids))
+            self._mled.record_alloc(seq.qos_priority, len(fresh))
         seq.slot = self._slot_free.pop()
         seq.slot_initialized = False
         seq.phase = Phase.RUNNING
@@ -227,14 +267,25 @@ class Scheduler:
         allocation failed."""
         need = seq.blocks_needed(seq.num_computed + tokens_ahead)
         if need > len(seq.block_ids):
+            grow = need - len(seq.block_ids)
             try:
-                seq.block_ids.extend(self.pool.allocate(need - len(seq.block_ids)))
+                seq.block_ids.extend(self.pool.allocate(grow))
             except NoFreeBlocks:
                 return False
+            if self._mled.enabled:
+                self._mled.pin("stream", seq.request_id, grow)
+                self._mled.record_alloc(seq.qos_priority, grow)
         return True
 
-    def preempt(self, seq: Seq) -> None:
+    def preempt(self, seq: Seq, cause: str = "blocks") -> None:
         """Recompute-style preemption: release blocks, requeue at the front."""
+        if self._sled.enabled:
+            # Every resident-KV token released here must be recomputed
+            # through prefill from position 0 on re-admission.
+            self._sled.record_preempt(seq.num_computed, cause)
+        if self._mled.enabled:
+            self._mled.unpin("stream", seq.request_id)
+            self._mled.record_release(seq.qos_priority, len(seq.block_ids))
         self.pool.release(seq.block_ids)
         seq.block_ids = []
         seq.committed_blocks = 0
@@ -254,6 +305,9 @@ class Scheduler:
             self.running.remove(seq)
         elif seq in self.waiting:
             self.waiting.remove(seq)
+        if self._mled.enabled and seq.block_ids:
+            self._mled.unpin("stream", seq.request_id)
+            self._mled.record_release(seq.qos_priority, len(seq.block_ids))
         self.pool.release(seq.block_ids)
         seq.block_ids = []
         if seq.slot >= 0:
@@ -274,8 +328,18 @@ class Scheduler:
         # Admit as many waiting seqs as resources allow.
         while self.waiting and len(self.running) < self.max_batch_size:
             if not self._try_admit(self.waiting[0]):
+                if self._sled.enabled and sum(
+                        1 for d in self.waiting.depths().values() if d) > 1:
+                    # The blocked head also gates every other non-empty
+                    # WDRR lane behind its lane commitment — seqs that
+                    # might have admitted had the round-robin pointer sat
+                    # elsewhere.
+                    self._sled.record_block("wdrr_gate")
                 break
             self.waiting.popleft()
+        if (self._sled.enabled and self.waiting
+                and len(self.running) >= self.max_batch_size):
+            self._sled.record_block("batch_full")
 
         # Decode batch first (every decodable stream advances every step);
         # grow blocks, preempting from the back on pressure.
@@ -324,7 +388,9 @@ class Scheduler:
                 if not victims:
                     break
                 victim = victims[0]
-                self.preempt(victim)
+                self.preempt(victim, cause=(
+                    "qos" if victim.qos_priority != seq.qos_priority
+                    else "blocks"))
                 if victim in decodable:
                     decodable.remove(victim)
             else:
@@ -342,7 +408,8 @@ class Scheduler:
         for seq in self.running:
             target = seq.prefill_target()
             if seq.num_computed < target and budget > 0:
-                chunk = min(target - seq.num_computed, self.prefill_chunk, budget)
+                cap = self.chunk_by_qos.get(seq.qos_priority, self.prefill_chunk)
+                chunk = min(target - seq.num_computed, cap, budget)
                 plan.prefill.append(PrefillWork(seq=seq, start=seq.num_computed, length=chunk))
                 budget -= chunk
         return plan

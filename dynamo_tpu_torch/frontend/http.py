@@ -5,7 +5,10 @@ What the OpenAI surface needs of it, with aiohttp's behaviour where a
 client can see it:
 
 * routing by method and path (404 for an unknown path, 405 with ``Allow``
-  for a known path and another method);
+  for a known path and another method); ``add_get`` also routes HEAD to
+  the GET handler, whose answer goes out with its head only (its
+  ``Content-Length`` kept, no body), as aiohttp's ``allow_head=True`` does;
+  no answer to a HEAD request carries a body;
 * keep-alive (HTTP/1.1 by default, ``Connection: close`` or HTTP/1.0 end
   it; an idle connection closes after ``KEEPALIVE_TIMEOUT`` seconds);
 * request bodies by ``Content-Length`` or ``Transfer-Encoding: chunked``,
@@ -15,7 +18,10 @@ client can see it:
 * ``Response`` (a whole body; text bodies carry ``charset=utf-8``),
   ``json_response`` and ``StreamResponse`` (``prepare`` sends the head,
   each ``write`` one chunk of ``Transfer-Encoding: chunked``, the end is
-  written when the handler returns);
+  written when the handler returns; a handler that raises after
+  ``prepare`` leaves the stream cut where it was: the connection closes
+  with no further bytes, no terminating chunk and no 500, as aiohttp
+  does);
 * TLS through an ``ssl.SSLContext``.
 
 Disconnects: on asyncio streams a peer's FIN leaves the transport
@@ -110,6 +116,8 @@ class Request:
         self._too_large = too_large
         self._max_size = max_size
         self._reader, self._writer = reader, writer
+        # set when a StreamResponse sent its head on this request
+        self._prepared = False
         peer = writer.get_extra_info("peername")
         self.remote = peer[0] if isinstance(peer, tuple) and peer else None
         self.keep_alive = (version == "HTTP/1.1"
@@ -172,6 +180,7 @@ class StreamResponse:
         self._writer: asyncio.StreamWriter | None = None
         self._chunked = True
         self._ended = False
+        self._head_only = False
 
     @property
     def prepared(self) -> bool:
@@ -181,7 +190,11 @@ class StreamResponse:
         if self._writer is not None:
             return
         self._writer = request._writer
-        self._chunked = request.version == "HTTP/1.1"
+        request._prepared = True
+        # A HEAD request gets the head: no chunked body follows, and the
+        # connection closes after it (aiohttp's head for a HEAD stream).
+        self._head_only = request.method == "HEAD"
+        self._chunked = request.version == "HTTP/1.1" and not self._head_only
         hdrs = dict(self.headers)
         hdrs.setdefault("content-type", "application/octet-stream")
         hdrs["date"] = email.utils.formatdate(usegmt=True)
@@ -199,7 +212,7 @@ class StreamResponse:
         await w.drain()
 
     async def write(self, data: bytes) -> None:
-        if not data:
+        if not data or self._head_only:
             return
         if self._chunked:
             data = b"%x\r\n%b\r\n" % (len(data), data)
@@ -234,7 +247,9 @@ class HttpServer:
         self._routes.setdefault(path, {})[method.upper()] = handler
 
     def add_get(self, path: str, handler: Handler) -> None:
+        """GET ``path``, and HEAD of it through the same handler."""
         self.add_route("GET", path, handler)
+        self.add_route("HEAD", path, handler)
 
     def add_post(self, path: str, handler: Handler) -> None:
         self.add_route("POST", path, handler)
@@ -350,14 +365,21 @@ class HttpServer:
         else:
             try:
                 resp = await methods[req.method](req)
-            except HTTPException as exc:
-                resp = Response(status=exc.status, text=exc.text)
             except ConnectionError:
                 raise
-            except Exception:  # noqa: BLE001 - answered as a 500
-                log.exception("handler of %s %s failed", req.method, req.path)
-                resp = Response(status=500, text="500 Internal Server Error\n\n"
-                                                 "Server got itself in trouble")
+            except Exception as exc:  # noqa: BLE001 - answered as a 500
+                if req._prepared:
+                    # The head and maybe some chunks are out: an answer now
+                    # would land inside the chunked body. Cut the stream.
+                    log.exception("handler of %s %s failed after its response "
+                                  "was sent; closing the connection", req.method, req.path)
+                    return False
+                if isinstance(exc, HTTPException):
+                    resp = Response(status=exc.status, text=exc.text)
+                else:
+                    log.exception("handler of %s %s failed", req.method, req.path)
+                    resp = Response(status=500, text="500 Internal Server Error\n\n"
+                                                     "Server got itself in trouble")
         if isinstance(resp, StreamResponse):
             if not resp.prepared:
                 await resp.prepare(req)
@@ -370,7 +392,8 @@ class HttpServer:
         hdrs["date"] = email.utils.formatdate(usegmt=True)
         if not req.keep_alive:
             hdrs["connection"] = "close"
-        req._writer.write(_head(req.version, resp.status, hdrs) + resp.body)
+        body = b"" if req.method == "HEAD" else resp.body
+        req._writer.write(_head(req.version, resp.status, hdrs) + body)
         await req._writer.drain()
         return req.keep_alive
 

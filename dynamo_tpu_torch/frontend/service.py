@@ -10,16 +10,16 @@ disconnect.rs SSE disconnect detection):
 
 - POST /v1/chat/completions, /v1/completions (SSE streaming + aggregate)
 - GET  /v1/models
-- GET  /health, /live, /metrics
+- GET  /health, /live, /metrics (and HEAD of every GET route)
+- GET  /engine_stats, /debug/traces, /debug/sched, /debug/mem
 - POST /clear_kv_blocks (admin)
 
 Client disconnects cancel the underlying generation (the engine abort path):
 the streaming loop polls ``request.transport.is_closing()`` between deltas,
 which on this server also reads the connection's EOF.
 
-Not served yet: ``/debug/sched`` and ``/debug/mem`` answer 501 (the
-scheduling and memory ledgers come with ROADMAP Queue 1 item 11), and the
-KServe v2 routes of the JAX app are not registered (ROADMAP Queue 1).
+Not served yet: the KServe v2 routes of the JAX app are not registered
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -209,16 +209,22 @@ class HttpService:
         return web.json_response(rec.dump_chrome(trace_id=trace_id))
 
     async def debug_sched(self, request: web.Request) -> web.Response:
-        """Scheduling-ledger inspection: not in the port yet (the sched
-        ledger comes with ROADMAP Queue 1 item 11)."""
-        return _error(501, "/debug/sched is not served by the PyTorch port yet "
-                           "(the scheduling ledger: ROADMAP Queue 1 item 11)")
+        """Scheduling-ledger inspection (obs/sched_ledger.py): recent-step
+        ring, goodput trend, top HOL culprits, and ``trace_culprits`` from
+        the ``engine.hol_stall`` spans in this process's flight recorder."""
+        from dynamo_tpu_torch.obs.sched_ledger import get_sched_ledger
+
+        return web.json_response(
+            get_sched_ledger().debug_info(recorder=self.tracer.recorder))
 
     async def debug_mem(self, request: web.Request) -> web.Response:
-        """Memory-ledger inspection: not in the port yet (the memory ledger
-        comes with ROADMAP Queue 1 item 11)."""
-        return _error(501, "/debug/mem is not served by the PyTorch port yet "
-                           "(the memory ledger: ROADMAP Queue 1 item 11)")
+        """Memory-ledger inspection (obs/mem_ledger.py): tier occupancy
+        waterfall, top pin owners, churn trend, TTX forecast, last leak
+        audit. The engines in this process share its ledger, so the
+        document covers them."""
+        from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+
+        return web.json_response(get_mem_ledger().debug_info())
 
     async def engine_stats(self, request: web.Request) -> web.Response:
         """Per-model engine stats (scheduler depth, KV usage, KVBM tiers) —

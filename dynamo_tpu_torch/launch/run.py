@@ -19,6 +19,8 @@ Examples:
         --allow-random-weights --decode-window 4 --warmup-mode full --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
         --device cpu --spec-ngram 2 --spec-k 4 --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
+        --allow-random-weights --prefill-chunk 0 --itl-slo-ms 50 --max-model-len 2048
 
 ``--warmup-mode`` and ``--warmup-deadline`` are the JAX worker's flags
 (``dynamo_tpu/components/worker.py``); the launcher takes them until the
@@ -71,7 +73,20 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--num-blocks", type=int, default=0)
-    p.add_argument("--prefill-chunk", type=int, default=512)
+    p.add_argument("--prefill-chunk", type=int, default=512,
+                   help="prefill chunk tokens per step; 0 = SLO-driven auto "
+                        "sizing (largest per-QoS chunk keeping predicted "
+                        "decode ITL inside --itl-slo-ms). Its chunks reach "
+                        "thousands of tokens (up to --max-model-len), and a mixed "
+                        "step runs as a dense [rows, chunk] grid, so the graph of "
+                        "the largest step holds the activations of "
+                        "--max-batch-size x chunk token rows, which at an 8B "
+                        "model's width takes a large share of the card's memory "
+                        "from the KV cache (PERF.md section 5). Lower "
+                        "--max-batch-size or --max-model-len to bound it")
+    p.add_argument("--itl-slo-ms", type=float, default=50.0,
+                   help="decode ITL SLO budget for --prefill-chunk 0 auto "
+                        "sizing (interactive 1x, standard 2x, batch 4x)")
     p.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "int8", "int4"],
                    help="KV cache storage: model precision, or int8 / packed int4 "
                         "with per-(block, kv head) scales (2x / 4x the blocks)")
@@ -120,6 +135,7 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         block_size=ns.block_size,
         num_blocks=ns.num_blocks,
         prefill_chunk=ns.prefill_chunk,
+        itl_slo_ms=ns.itl_slo_ms,
         kv_dtype=ns.kv_dtype,
         unified_step=not ns.no_unified_step,
         decode_window=ns.decode_window,
@@ -148,6 +164,16 @@ async def run_http(ns: argparse.Namespace) -> None:
         embed=engine.embed,
     )
     svc = HttpService(models)
+    # Single-process launch: the engine lives here, so its perf-counter,
+    # scheduling-ledger and memory-ledger families belong on this /metrics
+    # (obs/profiler.py, obs/sched_ledger.py, obs/mem_ledger.py).
+    from dynamo_tpu_torch.obs.mem_ledger import install_mem_metrics
+    from dynamo_tpu_torch.obs.profiler import install_perf_metrics
+    from dynamo_tpu_torch.obs.sched_ledger import install_sched_metrics
+
+    install_perf_metrics(svc.metrics)
+    install_sched_metrics(svc.metrics)
+    install_mem_metrics(svc.metrics)
     if cfg.warmup_mode != "off":
         from dynamo_tpu_torch.obs.compile_ledger import install_compile_metrics
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.cache import cache_payload
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.obs.profiler import phase as _perf_phase
 from dynamo_tpu_torch.ops.paged_attention import (
     INT4_QMAX,
     pack_int4,
@@ -302,10 +303,15 @@ def forward(params: Params, cfg: ModelConfig,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         ck, cv = _layer_cache(cache_k, li), _layer_cache(cache_v, li)
-        _scatter_kv(ck, k, slot)
-        _scatter_kv(cv, v, slot)
-        attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
-                                      num_splits=attn_num_splits)
+        # Phase hooks (obs/profiler.py): host-side labels for torch.profiler
+        # traces, no device op; under a graph capture they run at capture
+        # time only.
+        with _perf_phase("scatter"):
+            _scatter_kv(ck, k, slot)
+            _scatter_kv(cv, v, slot)
+        with _perf_phase("attention"):
+            attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
+                                          num_splits=attn_num_splits)
         hid = hid + mm(attn.reshape(b, t, cfg.q_size), layers["wo"][li])
         x = rms_norm(hid, layers["mlp_norm"][li], cfg.rms_norm_eps)
         hid = hid + swiglu(x, layers["w_gate"][li], layers["w_up"][li],
@@ -320,6 +326,7 @@ def forward(params: Params, cfg: ModelConfig,
 def logits_from_hidden(params: Params, cfg: ModelConfig,
                        hidden: torch.Tensor) -> torch.Tensor:
     """Project hidden [B, H] → logits [B, V] (tied or separate lm head)."""
-    if cfg.tie_word_embeddings:
-        return hidden @ params["embed"].T
-    return mm(hidden, params["lm_head"])
+    with _perf_phase("logits"):
+        if cfg.tie_word_embeddings:
+            return hidden @ params["embed"].T
+        return mm(hidden, params["lm_head"])

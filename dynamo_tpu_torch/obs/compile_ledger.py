@@ -20,9 +20,6 @@ schedulable:
   path uses (engine/engine.py), so warmup captures exactly what serving
   would mint lazily.
 
-Not carried yet: the ``engine.compile`` span of a serve-path event; it
-comes with the engine's spans (ROADMAP Queue 1 item 11).
-
 Disabled mode (``warmup_mode="off"``) flips ``CompileLedger.enabled``;
 the dispatch path gates on that flag before touching timestamps or bucket
 signatures, so a disabled ledger adds no per-dispatch work.
@@ -222,7 +219,11 @@ class CompileLedger:
     def record(self, sig: BucketSig, seconds: float, *,
                trace_ctx=None, source: str = "serve",
                ts: float | None = None) -> CompileEvent | None:
-        """File one program event; returns it (None when disabled)."""
+        """File one program event; returns it (None when disabled).
+
+        Serve-path events emit an ``engine.compile`` span, under the trace
+        of the step's first traced row when it has one; warmup events skip
+        spans — they stall startup, not a request."""
         if not self.enabled:
             return None
         end = ts if ts is not None else time.time()
@@ -242,6 +243,14 @@ class CompileLedger:
         m.cache_entries.set(float(n_inv))
         if source == "serve":
             m.stall_seconds.inc(seconds)
+            from dynamo_tpu_torch.obs.tracer import get_tracer
+
+            tr = get_tracer()
+            span = tr.start_span(
+                "engine.compile", ctx=trace_ctx, start=ev.ts,
+                kind=sig.kind, b=sig.b, t=sig.t, nblk=sig.nblk,
+                greedy=sig.greedy, kv_dtype=sig.kv_dtype)
+            tr.end_span(span, end=end, seconds=round(seconds, 6))
         self._publish_coverage()
         return ev
 

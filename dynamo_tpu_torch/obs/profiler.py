@@ -1,0 +1,302 @@
+"""Step performance profiler: hardware counters for every engine step —
+copy of ``dynamo_tpu/obs/profiler.py``.
+
+Three pieces:
+
+* ``phase(name)`` — the hook models/llama.py and engine/engine.py wrap
+  their phases in (scatter, attention, logits, sampling). Outside a
+  capture it is ``torch.profiler.record_function(name)``: a host-side
+  label that adds no device op, so ``torch.profiler`` traces group by
+  phase; under a CUDA-graph capture it runs at capture time only and the
+  replays carry no label (the JAX copy's ``jax.named_scope`` likewise
+  runs at trace time only). Inside ``capture_phases()`` it also
+  accumulates wall time per phase.
+
+* ``StepPerfProfiler`` — folds the analytic cost model (obs/costmodel.py)
+  over each dispatched step's batches and, with the measured step wall,
+  derives tokens/s, MFU, HBM-bandwidth utilization, and the achieved
+  roofline fraction. EngineCore calls ``measure()`` from its step
+  recording; the returned fields land in the FlightRecorder step ring
+  (obs/recorder.py StepRecord). On the card EngineCore passes the
+  device time of the step's programs (CUDA events before their input
+  copies and after their output copies), so MFU, HBM share and roofline
+  fraction are shares of the device's time for the step. The JAX
+  engine's clock, the host's wall from the start of the step's finalize
+  to its end, covers under the pipelined step loop only the tail of a
+  step already running on the card and gives shares over 1; the CPU
+  keeps that clock, so the CPU twins read the JAX package's numbers.
+  Disabled (``DYN_PERF_PROFILE=0``) it returns ``{}`` before touching the
+  cost model.
+
+* ``PerfMetrics`` — the ``dynamo_engine_perf_*`` Prometheus family,
+  re-homeable into a service's registry via ``install_perf_metrics``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Any
+
+from dynamo_tpu_torch.obs import costmodel as cm
+from dynamo_tpu_torch.utils.logging import get_logger
+from dynamo_tpu_torch.utils.metrics import MetricsRegistry
+
+log = get_logger("obs.profiler")
+
+PERF_ENV = "DYN_PERF_PROFILE"
+
+# Engine steps span sub-ms fused-window decode on a card to multi-second
+# CPU prefill steps. (MetricsRegistry appends the +Inf bucket.)
+_STEP_SECONDS_BUCKETS = (
+    0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0,
+)
+
+
+def perf_enabled(default: bool = True) -> bool:
+    """The module-level gate: DYN_PERF_PROFILE=0 disables all per-step
+    cost-model math (the phase hooks are free either way)."""
+    val = os.environ.get(PERF_ENV, "")
+    if val == "":
+        return default
+    return val not in ("0", "false", "no", "off")
+
+
+# ---------------------------------------------------------------------------
+# Phase hooks
+# ---------------------------------------------------------------------------
+
+_capture = threading.local()
+
+
+class _TimedPhase:
+    """Capture-mode phase: record_function + wall accumulation. Wall times
+    are the phase's own on the CPU, where torch runs each op before it
+    returns; on a card they are host dispatch times unless the caller
+    synchronizes at the phase edges (see ``capture_phases``)."""
+
+    __slots__ = ("name", "_scope", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        import torch
+
+        self._scope = torch.profiler.record_function(self.name)
+        self._scope.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self._scope.__exit__(*exc)
+        sink = getattr(_capture, "sink", None)
+        if sink is not None:
+            sink[self.name] = sink.get(self.name, 0.0) + dt
+        return False
+
+
+def phase(name: str):
+    """Wrap one engine phase. No capture active → plain
+    ``torch.profiler.record_function`` (a host label, no device op)."""
+    if getattr(_capture, "sink", None) is None:
+        import torch
+
+        return torch.profiler.record_function(name)
+    return _TimedPhase(name)
+
+
+class capture_phases:
+    """Context manager enabling wall-time capture for ``phase()`` hooks on
+    this thread; yields the {phase: seconds} dict. Meaningful on the CPU,
+    and on a CUDA tensor only with CUDA graphs off (an engine whose
+    programs were never captured, i.e. eager calls) and a
+    ``torch.cuda.synchronize()`` at each phase edge — otherwise a phase's
+    wall is its kernels' launch time, and under a graph replay the hooks
+    do not run at all."""
+
+    def __enter__(self) -> dict[str, float]:
+        self._prev = getattr(_capture, "sink", None)
+        sink: dict[str, float] = {}
+        _capture.sink = sink
+        return sink
+
+    def __exit__(self, *exc):
+        _capture.sink = self._prev
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Prometheus family
+# ---------------------------------------------------------------------------
+
+class PerfMetrics:
+    """The dynamo_engine_perf_* family (the JAX family's names, labels and
+    help texts)."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self.bind(registry or MetricsRegistry())
+
+    def bind(self, registry: MetricsRegistry) -> None:
+        self.registry = registry
+        self.tok_s = registry.gauge(
+            "engine_perf_tokens_per_second",
+            "Generated tokens/s over recent engine steps (EWMA), by kind "
+            "(decode|prefill) and kv_dtype (bfloat16|int8|int4) — label set "
+            "declared in tools/lint_metrics.py PERF_METRIC_LABELS")
+        self.mfu = registry.gauge(
+            "engine_perf_mfu",
+            "Model-FLOPs utilization over recent engine steps (EWMA): "
+            "analytic matmul FLOP/s over the chip's peak")
+        self.bw_util = registry.gauge(
+            "engine_perf_hbm_bw_util",
+            "HBM bandwidth utilization over recent engine steps (EWMA): "
+            "analytic bytes/s over the chip's peak bandwidth")
+        self.roofline = registry.gauge(
+            "engine_perf_roofline_fraction",
+            "Achieved fraction of the analytic roofline floor for recent "
+            "engine steps (1.0 = running at the hardware bound)")
+        self.flops_total = registry.counter(
+            "engine_perf_model_flops_total",
+            "Cumulative analytic model FLOPs dispatched by the engine")
+        self.bytes_total = registry.counter(
+            "engine_perf_hbm_bytes_total",
+            "Cumulative analytic HBM bytes moved by engine steps")
+        self.step_seconds = registry.histogram(
+            "engine_perf_step_seconds",
+            "Engine step wall time (dispatch to materialize)",
+            buckets=_STEP_SECONDS_BUCKETS)
+
+
+_metrics: PerfMetrics | None = None
+
+
+def get_perf_metrics() -> PerfMetrics:
+    global _metrics
+    if _metrics is None:
+        _metrics = PerfMetrics()
+    return _metrics
+
+
+def install_perf_metrics(registry: MetricsRegistry) -> PerfMetrics:
+    """Re-home the singleton's metrics into ``registry`` (the worker's
+    runtime registry) so the family is exposed on /metrics."""
+    m = get_perf_metrics()
+    m.bind(registry)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Per-step measurement
+# ---------------------------------------------------------------------------
+
+#: the weight of a new step in the profiler's moving averages
+EWMA_ALPHA = 0.2
+
+
+def ewma_step(prev: float | None, value: float) -> float:
+    """One step of the profiler's exponentially weighted moving average."""
+    return value if prev is None else prev + EWMA_ALPHA * (value - prev)
+
+
+class StepPerfProfiler:
+    """Analytic per-step hardware counters for one EngineCore.
+
+    ``measure(batches, wall_s)`` charges each dispatched batch via the cost
+    model and returns the perf fields for the step ring; it also feeds the
+    dynamo_engine_perf_* family. ``wall_s`` is the step's device time on
+    the card and the finalize's host wall on the CPU (module docstring).
+    O(rows) host work per step; disabled it returns ``{}`` immediately.
+    """
+
+    def __init__(self, model_cfg, engine_cfg, device_name: str,
+                 enabled: bool | None = None):
+        self.cfg = model_cfg
+        self.block_size = engine_cfg.block_size
+        self.kv_dtype = engine_cfg.kv_dtype or "bfloat16"
+        self.quantization = engine_cfg.quantization or "none"
+        self.enabled = perf_enabled() if enabled is None else enabled
+        self.hw: cm.HardwareSpec | None = None
+        try:
+            self.hw = cm.hw_spec_for(device_name)
+        except LookupError as exc:
+            if self.enabled:
+                log.warning("step profiler disabled: %s", exc)
+            self.enabled = False
+        self._ewma: dict[str, float] = {}
+
+    def _smooth(self, key: str, value: float) -> float:
+        cur = ewma_step(self._ewma.get(key), value)
+        self._ewma[key] = cur
+        return cur
+
+    def measure(self, batches: list, wall_s: float) -> dict[str, Any]:
+        """Perf fields for one finalized step. ``batches`` is the port's
+        PendingStep.batches: (kind, rows, sample_rows, StepOutputs) with
+        rows of (seq, start, length); a batch's window is the width of its
+        sampled tokens ([B] one step, [B, W] a fused window, [B, t] a
+        verify chunk), as the JAX copy reads it off its device tokens."""
+        if not self.enabled or not batches:
+            return {}
+        bs = self.block_size
+        tokens = logit_rows = 0
+        attn_q_ctx = kv_blocks = 0.0
+        dec_tokens = pf_tokens = 0
+        for kind, rows, _sample_rows, out in batches:
+            toks = out.tokens
+            window = toks.shape[1] if toks.ndim == 2 else 1
+            for (seq, start, length) in rows:
+                if kind == "decode" or (length == 1 and window > 1):
+                    w = window
+                    dec_tokens += w
+                    tokens += w
+                    logit_rows += w
+                    for j in range(w):
+                        nblk = -(-(start + length + j) // bs)
+                        attn_q_ctx += nblk * bs
+                        kv_blocks += nblk
+                else:
+                    tokens += length
+                    logit_rows += 1
+                    nblk = -(-(start + length) // bs)
+                    attn_q_ctx += length * nblk * bs
+                    kv_blocks += nblk
+                    # Unified "mixed" batches carry both phases: multi-token
+                    # rows are prefill chunks, single-token rows decode.
+                    # (A 1-token prefill tail inside a mixed batch lands on
+                    # the decode counter — one token of split drift; the
+                    # aggregate volumes above stay exact.)
+                    if kind == "prefill" or (kind == "mixed" and length > 1):
+                        pf_tokens += length
+                    else:
+                        dec_tokens += length
+        phases = cm.model_step_cost(
+            self.cfg, tokens=tokens, logit_rows=logit_rows,
+            attn_q_ctx=attn_q_ctx, kv_blocks=kv_blocks, block_size=bs,
+            kv_dtype=self.kv_dtype, quantization=self.quantization)
+        cost = cm.total_cost(phases)
+        gen = dec_tokens if dec_tokens else tokens
+        tok_s = gen / wall_s if wall_s > 0 else 0.0
+        fields = {
+            "decode_tokens": dec_tokens,
+            "prefill_tokens": pf_tokens,
+            "flops": cost.flops,
+            "hbm_bytes": cost.hbm_bytes,
+            "tok_s": tok_s,
+            "mfu": cm.mfu(cost.flops, wall_s, self.hw),
+            "bw_util": cm.bw_util(cost.hbm_bytes, wall_s, self.hw),
+            "roofline_frac": cm.roofline_fraction(cost, wall_s, self.hw),
+        }
+        m = get_perf_metrics()
+        kind = "decode" if dec_tokens >= pf_tokens else "prefill"
+        m.tok_s.set(self._smooth(f"tok_s:{kind}", tok_s), kind=kind,
+                    kv_dtype=self.kv_dtype)
+        m.mfu.set(self._smooth("mfu", fields["mfu"]))
+        m.bw_util.set(self._smooth("bw_util", fields["bw_util"]))
+        m.roofline.set(self._smooth("roofline", fields["roofline_frac"]))
+        m.flops_total.inc(cost.flops)
+        m.bytes_total.inc(cost.hbm_bytes)
+        m.step_seconds.observe(wall_s)
+        return fields

@@ -1,25 +1,90 @@
 """Flight recorder: bounded, thread-safe ring of completed request
-timelines.
+timelines plus a fixed ring of engine step records.
 
 Two export formats, both dependency-free:
   * JSONL — one span per line, consumed by ``tools/trace_report.py``.
   * Chrome trace-event JSON — ``{"traceEvents": [...]}`` with complete
     ("ph":"X") events in microseconds, loadable in Perfetto / chrome://tracing.
 
-Copy of ``dynamo_tpu/obs/recorder.py`` without the engine's step ring
-(``StepRecord`` / ``StepProfiler`` and its ``engine.batch`` counter
-events), which comes with the engine-side spans (ROADMAP Queue 1 item 11).
+Copy of ``dynamo_tpu/obs/recorder.py``.
 """
 
 from __future__ import annotations
 
 import json
 import threading
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from dataclasses import dataclass
 from typing import TYPE_CHECKING, Iterable
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from dynamo_tpu_torch.obs.tracer import Span
+
+
+@dataclass
+class StepRecord:
+    """One engine step: wall time plus batch composition. Fixed-size
+    fields only — recording is a deque append, always-on cheap.
+
+    The perf fields (flops…roofline_frac) are the step profiler's analytic
+    hardware counters (obs/profiler.py); they stay 0 when the profiler is
+    disabled so the ring schema is stable either way."""
+
+    ts: float
+    wall_s: float
+    num_prefill: int
+    num_decode: int
+    num_waiting: int
+    num_preempted: int
+    occupancy: float
+    decode_tokens: int = 0
+    prefill_tokens: int = 0
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    tok_s: float = 0.0
+    mfu: float = 0.0
+    bw_util: float = 0.0
+    roofline_frac: float = 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "ts": self.ts, "wall_s": self.wall_s,
+            "num_prefill": self.num_prefill, "num_decode": self.num_decode,
+            "num_waiting": self.num_waiting,
+            "num_preempted": self.num_preempted,
+            "occupancy": self.occupancy,
+            "decode_tokens": self.decode_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+            "tok_s": self.tok_s, "mfu": self.mfu,
+            "bw_util": self.bw_util, "roofline_frac": self.roofline_frac,
+        }
+
+
+class StepProfiler:
+    """Ring of the last N engine step records (see StepRecord)."""
+
+    def __init__(self, capacity: int = 2048):
+        self._ring: deque[StepRecord] = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def record(self, ts: float, wall_s: float, *, num_prefill: int = 0,
+               num_decode: int = 0, num_waiting: int = 0,
+               num_preempted: int = 0, occupancy: float = 0.0,
+               decode_tokens: int = 0, prefill_tokens: int = 0,
+               flops: float = 0.0, hbm_bytes: float = 0.0,
+               tok_s: float = 0.0, mfu: float = 0.0, bw_util: float = 0.0,
+               roofline_frac: float = 0.0) -> None:
+        rec = StepRecord(ts, wall_s, num_prefill, num_decode, num_waiting,
+                         num_preempted, occupancy, decode_tokens,
+                         prefill_tokens, flops, hbm_bytes, tok_s, mfu,
+                         bw_util, roofline_frac)
+        with self._lock:
+            self._ring.append(rec)
+
+    def snapshot(self) -> list[StepRecord]:
+        with self._lock:
+            return list(self._ring)
 
 
 class FlightRecorder:
@@ -28,12 +93,14 @@ class FlightRecorder:
     eviction is LRU on trace insertion order (a trace that keeps
     receiving spans stays fresh)."""
 
-    def __init__(self, capacity: int = 256, spans_per_trace: int = 512):
+    def __init__(self, capacity: int = 256, spans_per_trace: int = 512,
+                 step_capacity: int = 2048):
         self.capacity = max(capacity, 1)
         self.spans_per_trace = spans_per_trace
         self._traces: "OrderedDict[str, list[Span]]" = OrderedDict()
         self._span_ids: dict[str, set[str]] = {}
         self._lock = threading.Lock()
+        self.steps = StepProfiler(capacity=step_capacity)
 
     def record(self, span: "Span") -> bool:
         """File a closed span. Returns False on duplicate span_id (wire
@@ -78,7 +145,8 @@ class FlightRecorder:
             json.dumps(s.to_dict(), separators=(",", ":")) + "\n"
             for s in spans)
 
-    def dump_chrome(self, trace_id: str | None = None) -> dict:
+    def dump_chrome(self, trace_id: str | None = None,
+                    include_steps: bool = True) -> dict:
         """Chrome trace-event JSON. pid = component (process row in the
         Perfetto UI), tid = short trace id (one track per request)."""
         events: list[dict] = []
@@ -112,6 +180,17 @@ class FlightRecorder:
                 "ts": s.start * 1e6, "dur": s.duration * 1e6,
                 "args": args,
             })
+        if include_steps and trace_id is None:
+            for rec in self.steps.snapshot():
+                events.append({
+                    "ph": "C", "name": "engine.batch", "pid": 0, "tid": 0,
+                    "ts": rec.ts * 1e6,
+                    "args": {"prefill": rec.num_prefill,
+                             "decode": rec.num_decode,
+                             "waiting": rec.num_waiting,
+                             "tok_s": round(rec.tok_s, 1),
+                             "mfu": round(rec.mfu, 4),
+                             "bw_util": round(rec.bw_util, 4)}})
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     def iter_spans(self) -> "Iterable[Span]":

@@ -1,0 +1,688 @@
+"""Scheduling ledger: per-step goodput, padding waste, HOL-stall attribution —
+copy of ``dynamo_tpu/obs/sched_ledger.py``.
+
+The compile ledger makes graph-capture stalls observable; this module does
+the same for the *scheduler's* decisions. Every dispatched engine step files one
+``SchedStepRecord``:
+
+* **Goodput** — the fraction of scheduled (bucket-padded) FLOPs that were
+  live tokens. The engine dispatches static-shape programs (one CUDA graph
+  per bucket)
+  (``_bucket``/``_pow2_bucket`` geometry, engine/engine.py dispatch()); the
+  gap between the ragged batch it planned and the padded batch it ran is
+  pure waste, priced through the same analytic cost model the perf
+  profiler uses (obs/costmodel.py) and exported as
+  ``dynamo_sched_goodput_fraction`` plus cumulative padding FLOPs/bytes.
+* **HOL interference** — when a prefill chunk shares a step with decode
+  streams, every decode row's token delivery is delayed by the whole
+  step's wall (outputs materialize only at finalize). Each victim stream
+  accrues an ``engine.hol_stall`` span in its OWN trace carrying the
+  culprit request id, aggregated into
+  ``dynamo_sched_hol_stall_seconds{qos_class}`` and a per-step
+  interference index (stalled-decode-row-seconds).
+* **Admission & preemption causes** — why waiting seqs could not admit
+  (no free blocks vs. batch full vs. WDRR lane gate) and how many tokens
+  preemption forces back through prefill
+  (``dynamo_sched_preempt_recompute_tokens_total{cause}``).
+
+Disabled mode (``DYN_SCHED_LEDGER=0``) flips ``SchedLedger.enabled``; the
+engine and scheduler gate on that flag BEFORE building any step info, so a
+disabled ledger adds zero per-step work — the same contract as the
+profiler's ``DYN_PERF_PROFILE`` gate.
+
+The ``dynamo_sched_*`` family (the JAX family's names) installs on a
+service's registry via ``install_sched_metrics``. ``/debug/sched`` serves
+``debug_info()``: the recent-step ring, the goodput trend, and the top
+stall culprits.
+
+Live and scheduled work are both priced through the cost model, and the
+scheduled side is the padded ``[b, t]`` token grid the step program runs:
+a unified step of 32 decode rows and one 512-token chunk is b=64 rows on
+the decode ladder times t=512, 32,768 token rows through every GEMM, where
+the live side counts 544. The goodput and padding counters exist to show
+that gap; the step geometry is the JAX engine's, kept equal.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+from dynamo_tpu_torch.obs.compile_ledger import _bucket, _pow2_bucket
+from dynamo_tpu_torch.utils.metrics import MetricsRegistry
+
+SCHED_ENV = "DYN_SCHED_LEDGER"
+
+#: Admission-block causes (engine/scheduler.py _try_admit / plan):
+#: ``no_free_blocks`` — the pool (or its watermark) refused the prompt;
+#: ``batch_full`` — no sampling slot / running at max_batch_size;
+#: ``wdrr_gate`` — the WDRR-committed head lane blocks while other
+#: non-empty lanes wait behind the commitment.
+BLOCK_CAUSES = ("no_free_blocks", "batch_full", "wdrr_gate")
+
+#: Preemption causes: ``blocks`` — recompute preemption reclaiming KV
+#: blocks for a growing decode stream; ``qos`` — the reclaimed victim
+#: belonged to a different QoS class than the stream that grew.
+PREEMPT_CAUSES = ("blocks", "qos")
+
+#: Victim stalls span one fused decode window (~ms) to a full 32k-prompt
+#: prefill chunk on CPU fallback. (MetricsRegistry appends +Inf.)
+_STALL_SECONDS_BUCKETS = (
+    0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0,
+)
+
+
+def sched_enabled(default: bool = True) -> bool:
+    """The module-level gate: DYN_SCHED_LEDGER=0 disables all per-step
+    scheduling accounting (record paths return before any work)."""
+    val = os.environ.get(SCHED_ENV, "")
+    if val == "":
+        return default
+    return val not in ("0", "false", "no", "off")
+
+
+# ---------------------------------------------------------------------------
+# Prometheus family
+# ---------------------------------------------------------------------------
+
+class SchedMetrics:
+    """The dynamo_sched_* family (the JAX family's names, labels and help
+    texts)."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self.bind(registry or MetricsRegistry())
+
+    def bind(self, registry: MetricsRegistry) -> None:
+        self.registry = registry
+        self.goodput = registry.gauge(
+            "sched_goodput_fraction",
+            "Live-token FLOPs over scheduled (bucket-padded) FLOPs for the "
+            "last engine step (1.0 = zero padding waste)")
+        self.budget_util = registry.gauge(
+            "sched_token_budget_utilization",
+            "Fraction of max_tokens_per_step the last step's planned rows "
+            "actually used (decode window rows + prefill chunk tokens)")
+        self.queue_depth = registry.gauge(
+            "sched_queue_depth",
+            "Waiting seqs per QoS class at the last step's record point "
+            "(WDRR lane depths, qos_class label)")
+        self.steps = registry.counter(
+            "sched_steps_total",
+            "Engine steps recorded by the scheduling ledger, by batch kind "
+            "(prefill|decode|window|verify|guided|mixed; a multi-batch "
+            "step counts once per kind it dispatched)")
+        self.prefill_chunk = registry.gauge(
+            "sched_prefill_chunk_tokens",
+            "Effective prefill chunk size in tokens per QoS class "
+            "(SLO-driven per-class when --prefill-chunk 0 auto mode is "
+            "on, uniform otherwise), qos_class label")
+        self.admission_blocked = registry.counter(
+            "sched_admission_blocked_total",
+            "Admission attempts blocked, by cause (no_free_blocks|"
+            "batch_full|wdrr_gate)")
+        self.preempt_recompute = registry.counter(
+            "sched_preempt_recompute_tokens_total",
+            "Tokens whose KV a preemption discarded and prefill must "
+            "recompute, by cause (blocks|qos)")
+        self.padding_flops = registry.counter(
+            "sched_padding_flops_total",
+            "Cumulative analytic FLOPs spent on bucket padding rather than "
+            "live tokens (scheduled minus live)")
+        self.padding_bytes = registry.counter(
+            "sched_padding_hbm_bytes_total",
+            "Cumulative analytic HBM bytes moved for bucket padding rather "
+            "than live tokens (scheduled minus live)")
+        self.hol_stall = registry.histogram(
+            "sched_hol_stall_seconds",
+            "Per-victim head-of-line stall: wall seconds one decode-ready "
+            "stream's token delivery waited on a step that carried a "
+            "prefill chunk, by qos_class",
+            buckets=_STALL_SECONDS_BUCKETS)
+        self.interference = registry.counter(
+            "sched_interference_row_seconds_total",
+            "Interference index: cumulative stalled-decode-row-seconds "
+            "(per step, victims x stall wall)")
+
+
+_metrics: SchedMetrics | None = None
+
+
+def get_sched_metrics() -> SchedMetrics:
+    global _metrics
+    if _metrics is None:
+        _metrics = SchedMetrics()
+    return _metrics
+
+
+def install_sched_metrics(registry: MetricsRegistry) -> SchedMetrics:
+    """Re-home the singleton's metrics into ``registry`` (the worker's
+    runtime registry) so the family is exposed on /metrics. Gauges are
+    republished from the live ledger so an install that lands AFTER the
+    engine recorded steps still exposes the current goodput; counters stay
+    monotonic and are not replayed."""
+    m = get_sched_metrics()
+    m.bind(registry)
+    led = get_sched_ledger()
+    with led._lock:
+        last = led.steps[-1] if led.steps else None
+    if last is not None:
+        m.goodput.set(last.goodput)
+        m.budget_util.set(last.budget_util)
+        for cls, d in last.queue_depths.items():
+            m.queue_depth.set(float(d), qos_class=cls)
+    for cls, chunk in led.prefill_chunks.items():
+        m.prefill_chunk.set(float(chunk), qos_class=cls)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Step records
+# ---------------------------------------------------------------------------
+
+@dataclass
+class HolStall:
+    """One step's head-of-line interference: the culprit prefill and the
+    decode-ready streams whose token delivery its chunk delayed.
+
+    ``stall_share`` scales the per-victim stall below the full step wall:
+    under the unified mixed step the chunk is not a separate launch, so
+    the engine passes the chunk's cost-model marginal share of the step
+    (mixed minus pure-decode over mixed). None = legacy two-launch
+    attribution (the whole wall)."""
+
+    culprit: str                    # culprit request id (largest chunk)
+    culprit_tokens: int             # prefill tokens the step carried
+    victims: list = field(default_factory=list)  # (trace_ctx, rid, qos_class)
+    stall_share: float | None = None  # chunk's marginal fraction of the wall
+
+
+@dataclass
+class SchedStepRecord:
+    """One dispatched engine step as the scheduler saw it."""
+
+    ts: float                       # record timestamp (epoch, at finalize)
+    wall_s: float                   # dispatch-to-materialize wall
+    kinds: tuple                    # batch kinds dispatched, in order
+    prefill_rows: int = 0
+    decode_rows: int = 0
+    decode_window: int = 1
+    live_tokens: int = 0            # tokens the plan actually needed
+    sched_tokens: int = 0           # tokens the padded buckets computed
+    live_flops: float = 0.0
+    sched_flops: float = 0.0
+    live_bytes: float = 0.0
+    sched_bytes: float = 0.0
+    goodput: float = 1.0            # live/sched FLOPs (token ratio fallback)
+    budget_util: float = 0.0        # planned tokens / max_tokens_per_step
+    queue_depths: dict = field(default_factory=dict)   # qos_class -> waiting
+    blocked: dict = field(default_factory=dict)        # cause -> attempts
+    preempt: dict = field(default_factory=dict)        # cause -> tokens
+    hol_culprit: str = ""
+    hol_victims: int = 0
+    hol_stall_s: float = 0.0        # per-victim stall (wall x stall_share;
+                                    # == full wall on the legacy path)
+    interference_row_s: float = 0.0  # victims x stall
+
+    def to_dict(self) -> dict:
+        d = {
+            "ts": self.ts,
+            "wall_s": round(self.wall_s, 6),
+            "kinds": list(self.kinds),
+            "prefill_rows": self.prefill_rows,
+            "decode_rows": self.decode_rows,
+            "decode_window": self.decode_window,
+            "live_tokens": self.live_tokens,
+            "sched_tokens": self.sched_tokens,
+            "goodput": round(self.goodput, 4),
+            "budget_util": round(self.budget_util, 4),
+        }
+        if self.queue_depths:
+            d["queue_depths"] = dict(self.queue_depths)
+        if self.blocked:
+            d["blocked"] = dict(self.blocked)
+        if self.preempt:
+            d["preempt_recompute_tokens"] = dict(self.preempt)
+        if self.hol_victims:
+            d["hol"] = {
+                "culprit": self.hol_culprit,
+                "victims": self.hol_victims,
+                "stall_s": round(self.hol_stall_s, 6),
+                "row_seconds": round(self.interference_row_s, 6),
+            }
+        return d
+
+
+# ---------------------------------------------------------------------------
+# The ledger
+# ---------------------------------------------------------------------------
+
+class SchedLedger:
+    """Process-global per-step scheduling record.
+
+    Thread-safe: the engine-core thread records steps/blocks/preempts
+    while the asyncio side reads snapshots for stats/debug endpoints. The
+    step ring is bounded (``cap``); totals stay exact past the cap."""
+
+    _CULPRIT_CAP = 512  # trim the per-culprit stall table past this
+
+    def __init__(self, cap: int = 2048):
+        self._lock = threading.Lock()
+        self.cap = cap
+        self.enabled = sched_enabled()
+        self.steps: deque[SchedStepRecord] = deque(maxlen=cap)
+        self.steps_total = 0
+        self.live_tokens_total = 0
+        self.sched_tokens_total = 0
+        self.padding_flops_total = 0.0
+        self.padding_bytes_total = 0.0
+        self.hol_stall_seconds_total = 0.0
+        self.hol_victims_total = 0
+        self.interference_row_seconds_total = 0.0
+        self.blocked_totals: dict[str, int] = {}
+        self.preempt_totals: dict[str, int] = {}
+        # effective per-QoS prefill chunk sizes (engine publishes at init)
+        self.prefill_chunks: dict[str, int] = {}
+        # per-culprit {rid: (stall_seconds, victim_count)}
+        self._culprits: dict[str, tuple[float, int]] = {}
+        # accumulated between steps, flushed into the next record
+        self._blocked_step: dict[str, int] = {}
+        self._preempt_step: dict[str, int] = {}
+
+    # -- configuration --------------------------------------------------
+    def configure(self, enabled: bool | None = None) -> None:
+        """Engine-startup hook: re-read the env gate (or force a value)."""
+        with self._lock:
+            self.enabled = sched_enabled() if enabled is None else enabled
+
+    def reset(self) -> None:
+        """Test hook: drop all records/totals (metrics counters are
+        monotonic and keep their values)."""
+        with self._lock:
+            self.steps.clear()
+            self.steps_total = 0
+            self.live_tokens_total = 0
+            self.sched_tokens_total = 0
+            self.padding_flops_total = 0.0
+            self.padding_bytes_total = 0.0
+            self.hol_stall_seconds_total = 0.0
+            self.hol_victims_total = 0
+            self.interference_row_seconds_total = 0.0
+            self.blocked_totals.clear()
+            self.preempt_totals.clear()
+            self._culprits.clear()
+            self._blocked_step.clear()
+            self._preempt_step.clear()
+            self.prefill_chunks = {}
+
+    def set_prefill_chunks(self, chunk_by_qos: dict) -> None:
+        """Publish the effective per-QoS prefill chunk sizes (resolved at
+        engine construction — SLO-driven in auto mode, uniform otherwise)
+        to the dynamo_sched_prefill_chunk_tokens gauge."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self.prefill_chunks = dict(chunk_by_qos)
+        m = get_sched_metrics()
+        for qos, chunk in chunk_by_qos.items():
+            m.prefill_chunk.set(float(chunk), qos_class=qos)
+
+    # -- recording ------------------------------------------------------
+    def record_block(self, cause: str) -> None:
+        """One blocked admission attempt (engine/scheduler.py)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._blocked_step[cause] = self._blocked_step.get(cause, 0) + 1
+            self.blocked_totals[cause] = self.blocked_totals.get(cause, 0) + 1
+        get_sched_metrics().admission_blocked.inc(cause=cause)
+
+    def record_preempt(self, tokens: int, cause: str = "blocks") -> None:
+        """One preemption: ``tokens`` of KV discarded and due for
+        recompute-prefill (read from seq.num_computed BEFORE the reset)."""
+        if not self.enabled:
+            return
+        tokens = max(int(tokens), 0)
+        with self._lock:
+            self._preempt_step[cause] = (
+                self._preempt_step.get(cause, 0) + tokens)
+            self.preempt_totals[cause] = (
+                self.preempt_totals.get(cause, 0) + tokens)
+        if tokens:
+            get_sched_metrics().preempt_recompute.inc(tokens, cause=cause)
+
+    def record_step(
+        self, *,
+        wall_s: float,
+        kinds: tuple | list,
+        prefill_rows: int = 0,
+        decode_rows: int = 0,
+        decode_window: int = 1,
+        live_tokens: int = 0,
+        sched_tokens: int = 0,
+        live_flops: float = 0.0,
+        sched_flops: float = 0.0,
+        live_bytes: float = 0.0,
+        sched_bytes: float = 0.0,
+        budget_util: float = 0.0,
+        queue_depths: dict | None = None,
+        hol: HolStall | None = None,
+        ts: float | None = None,
+    ) -> SchedStepRecord | None:
+        """File one step record; returns it (None when disabled).
+
+        HOL victims with a traced request additionally accrue a
+        retroactive ``engine.hol_stall`` span in their own trace (start =
+        end - wall, like the compile ledger's retro spans) carrying the
+        culprit request id; untraced victims still count in the metrics."""
+        if not self.enabled:
+            return None
+        end = ts if ts is not None else time.time()
+        if sched_flops > 0:
+            goodput = min(live_flops / sched_flops, 1.0)
+        elif sched_tokens > 0:
+            goodput = min(live_tokens / sched_tokens, 1.0)
+        else:
+            goodput = 1.0
+        rec = SchedStepRecord(
+            ts=end, wall_s=wall_s, kinds=tuple(kinds),
+            prefill_rows=prefill_rows, decode_rows=decode_rows,
+            decode_window=decode_window,
+            live_tokens=live_tokens, sched_tokens=sched_tokens,
+            live_flops=live_flops, sched_flops=sched_flops,
+            live_bytes=live_bytes, sched_bytes=sched_bytes,
+            goodput=goodput, budget_util=budget_util,
+            queue_depths=dict(queue_depths or {}))
+        m = get_sched_metrics()
+        pad_f = max(sched_flops - live_flops, 0.0)
+        pad_b = max(sched_bytes - live_bytes, 0.0)
+        if hol is not None and hol.victims:
+            # Every decode-ready stream in the step waited for its token
+            # (outputs materialize at finalize). Legacy two-launch steps
+            # charge the full step wall (the prefill program serialized
+            # after decode); unified mixed steps charge only the chunk's
+            # marginal share of the single launch.
+            stall = (wall_s * hol.stall_share
+                     if hol.stall_share is not None else wall_s)
+            rec.hol_culprit = hol.culprit
+            rec.hol_victims = len(hol.victims)
+            rec.hol_stall_s = stall
+            rec.interference_row_s = stall * len(hol.victims)
+            tr = None
+            for v_ctx, v_rid, v_cls in hol.victims:
+                m.hol_stall.observe(stall, qos_class=v_cls)
+                if v_ctx is None:
+                    continue  # untraced stream: metrics only, no span
+                if tr is None:
+                    from dynamo_tpu_torch.obs.tracer import get_tracer
+
+                    tr = get_tracer()
+                span = tr.start_span(
+                    "engine.hol_stall", ctx=v_ctx, start=end - stall,
+                    request_id=v_rid, culprit=hol.culprit,
+                    culprit_tokens=hol.culprit_tokens, qos_class=v_cls)
+                tr.end_span(span, end=end, seconds=round(stall, 6))
+            m.interference.inc(rec.interference_row_s)
+        with self._lock:
+            rec.blocked, self._blocked_step = self._blocked_step, {}
+            rec.preempt, self._preempt_step = self._preempt_step, {}
+            self.steps.append(rec)
+            self.steps_total += 1
+            self.live_tokens_total += live_tokens
+            self.sched_tokens_total += sched_tokens
+            self.padding_flops_total += pad_f
+            self.padding_bytes_total += pad_b
+            if rec.hol_victims:
+                self.hol_stall_seconds_total += rec.interference_row_s
+                self.hol_victims_total += rec.hol_victims
+                self.interference_row_seconds_total += rec.interference_row_s
+                s, n = self._culprits.get(rec.hol_culprit, (0.0, 0))
+                self._culprits[rec.hol_culprit] = (
+                    s + rec.interference_row_s, n + rec.hol_victims)
+                if len(self._culprits) > self._CULPRIT_CAP:
+                    keep = sorted(self._culprits.items(),
+                                  key=lambda kv: kv[1][0],
+                                  reverse=True)[: self._CULPRIT_CAP // 2]
+                    self._culprits = dict(keep)
+        for k in rec.kinds:
+            m.steps.inc(kind=k)
+        m.goodput.set(goodput)
+        m.budget_util.set(budget_util)
+        if pad_f:
+            m.padding_flops.inc(pad_f)
+        if pad_b:
+            m.padding_bytes.inc(pad_b)
+        for cls, d in rec.queue_depths.items():
+            m.queue_depth.set(float(d), qos_class=cls)
+        return rec
+
+    # -- accounting -----------------------------------------------------
+    def top_culprits(self, top: int = 5) -> list[dict]:
+        """Worst HOL offenders: [{request_id, stall_seconds, victims}]."""
+        with self._lock:
+            items = sorted(self._culprits.items(),
+                           key=lambda kv: kv[1][0], reverse=True)[:top]
+        return [{"request_id": rid, "stall_seconds": round(s, 6),
+                 "victims": n} for rid, (s, n) in items]
+
+    def snapshot(self, steps: bool = False) -> dict:
+        """Compact dict for stats publishing / bench artifacts."""
+        with self._lock:
+            recent = list(self.steps)
+            out = {
+                "enabled": self.enabled,
+                "steps_total": self.steps_total,
+                "goodput_fraction": (recent[-1].goodput if recent else 1.0),
+                "budget_utilization": (recent[-1].budget_util
+                                       if recent else 0.0),
+                "live_tokens_total": self.live_tokens_total,
+                "sched_tokens_total": self.sched_tokens_total,
+                "padding_flops_total": self.padding_flops_total,
+                "padding_hbm_bytes_total": self.padding_bytes_total,
+                "admission_blocked": dict(self.blocked_totals),
+                "preempt_recompute_tokens": dict(self.preempt_totals),
+                "hol_stall_seconds_total": round(
+                    self.hol_stall_seconds_total, 6),
+                "hol_victims_total": self.hol_victims_total,
+                "interference_row_seconds_total": round(
+                    self.interference_row_seconds_total, 6),
+            }
+            if self.prefill_chunks:
+                out["prefill_chunk_tokens"] = dict(self.prefill_chunks)
+        if recent:
+            out["goodput_mean_recent"] = round(
+                sum(r.goodput for r in recent) / len(recent), 4)
+        out["top_culprits"] = self.top_culprits()
+        if steps:
+            out["steps"] = [r.to_dict() for r in recent[-64:]]
+        return out
+
+    def debug_info(self, recorder=None, limit: int = 64) -> dict:
+        """The /debug/sched document: recent-step ring, goodput trend, top
+        culprits — plus span-derived culprit aggregation when a
+        FlightRecorder is given (the frontend's recorder holds hol spans
+        INGESTED from workers, so a frontend that never ran an engine
+        still attributes fleet-wide stalls)."""
+        with self._lock:
+            recent = list(self.steps)[-limit:]
+        out = {
+            "enabled": self.enabled,
+            "env": SCHED_ENV,
+            "totals": self.snapshot(),
+            "recent_steps": [r.to_dict() for r in recent],
+            "goodput_trend": [round(r.goodput, 4) for r in recent],
+            "top_culprits": self.top_culprits(),
+        }
+        if recorder is not None:
+            out["trace_culprits"] = hol_span_culprits(recorder)
+        return out
+
+
+def hol_span_culprits(recorder, top: int = 5) -> list[dict]:
+    """Aggregate ``engine.hol_stall`` spans in a FlightRecorder by culprit
+    — the cross-process view (workers ship victim spans on the wire)."""
+    agg: dict[str, tuple[float, int]] = {}
+    for span in recorder.iter_spans():
+        if span.name != "engine.hol_stall":
+            continue
+        culprit = str(span.attrs.get("culprit", ""))
+        s, n = agg.get(culprit, (0.0, 0))
+        agg[culprit] = (s + span.duration, n + 1)
+    items = sorted(agg.items(), key=lambda kv: kv[1][0], reverse=True)[:top]
+    return [{"request_id": rid, "stall_seconds": round(s, 6),
+             "victims": n} for rid, (s, n) in items]
+
+
+_ledger: SchedLedger | None = None
+_ledger_lock = threading.Lock()
+
+
+def get_sched_ledger() -> SchedLedger:
+    global _ledger
+    with _ledger_lock:
+        if _ledger is None:
+            _ledger = SchedLedger()
+        return _ledger
+
+
+# ---------------------------------------------------------------------------
+# Live-vs-scheduled step geometry — the SAME math as engine dispatch.
+# ---------------------------------------------------------------------------
+
+def step_geometry(model_cfg, engine_cfg, batches, *,
+                  mixed_dec_rows: int = 0) -> dict:
+    """Live and scheduled (bucket-padded) work for one finalized step.
+
+    ``batches`` is the port's PendingStep.batches: (kind, rows,
+    sample_rows, StepOutputs) with rows of (seq, start, length); a batch's
+    window is the width of its sampled tokens. The live walk mirrors
+    StepPerfProfiler.measure exactly; the padded walk prices the bucket
+    geometry dispatch() actually ran (``_bucket``/``_pow2_bucket``
+    over rows/t_max/nblk_need — without dispatch's len(block_ids) clamp,
+    which can have shrunk by finalize time for finished seqs). Both sides
+    run through obs/costmodel.model_step_cost, so goodput is a pure FLOPs
+    ratio hand-computable at any known bucket geometry.
+
+    Unified "mixed" batches (decode rows + prefill chunks in one launch)
+    price as: live = per-row exact tokens/contexts, scheduled = the mixed
+    program's b (DECODE row ladder) × t (prefill chunk ladder) envelope.
+    ``mixed_dec_rows`` is the plan-time decode-row count of the step's
+    mixed batch (leading rows), splitting prefill_rows/decode_rows.
+
+    Returns {kinds, prefill_rows, decode_rows, live_tokens, sched_tokens,
+    live_flops, sched_flops, live_bytes, sched_bytes}.
+    """
+    from dynamo_tpu_torch.obs import costmodel as cm
+
+    ec = engine_cfg
+    bs = ec.block_size
+    kv = ec.kv_dtype or "bfloat16"
+    quant = ec.quantization or "none"
+    max_nblk = -(-ec.max_model_len // bs)
+    live = {"tokens": 0, "logit_rows": 0, "attn_q_ctx": 0.0, "kv_blocks": 0.0}
+    sched = {"tokens": 0, "logit_rows": 0, "attn_q_ctx": 0.0, "kv_blocks": 0.0}
+    kinds: list[str] = []
+    pf_rows = dec_rows = 0
+    for kind, rows, _sample_rows, out in batches:
+        if not rows:
+            continue
+        n = len(rows)
+        toks = out.tokens
+        window = toks.shape[1] if toks.ndim == 2 else 1
+        t_max = max(length for _, _, length in rows)
+        # padded program geometry (engine/engine.py dispatch())
+        if kind == "verify":
+            b = _bucket(n, ec.decode_bucket)
+            t = min(_pow2_bucket(t_max, 2, ec.spec_k + 1), ec.spec_k + 1)
+            window = 1
+        elif t_max == 1:
+            # Includes degenerate "mixed" batches (every live row one token):
+            # dispatch reclassifies those to the decode program.
+            b, t = _bucket(n, ec.decode_bucket), 1
+        elif kind == "mixed":
+            # Unified step: decode-row ladder for b, prefill chunk ladder
+            # for t — the envelope dispatch() runs for mixed batches.
+            b, t = _bucket(n, ec.decode_bucket), _pow2_bucket(
+                t_max, 16, ec.prefill_chunk)
+            window = 1
+        else:
+            b, t = _bucket(n, (1, 2, 4, 8)), _pow2_bucket(
+                t_max, 16, ec.prefill_chunk)
+            window = 1
+        nblk_need = max(
+            -(-(start + length + window - 1) // bs)
+            for _s, start, length in rows)
+        nblk = min(_pow2_bucket(max(nblk_need, 1), 4, max_nblk), max_nblk)
+        if kind == "prefill":
+            kinds.append("prefill")
+            pf_rows += n
+        elif kind == "mixed":
+            # Leading rows of a mixed batch are decode/guided by
+            # construction; the split is captured at plan time because
+            # prefill_target() moves as finalize appends tokens.
+            kinds.append("mixed" if t_max > 1 else "decode")
+            d = min(mixed_dec_rows, n)
+            dec_rows += d
+            pf_rows += n - d
+        elif kind == "verify":
+            kinds.append("verify")
+            dec_rows += n
+        elif window > 1:
+            kinds.append("window")
+            dec_rows += n
+        elif rows[0][0] is not None and getattr(
+                rows[0][0], "guided", None) is not None:
+            kinds.append("guided")
+            dec_rows += n
+        else:
+            kinds.append("decode")
+            dec_rows += n
+        if kind == "decode":
+            # live: each row decodes `window` positions
+            for _seq, start, length in rows:
+                live["tokens"] += window
+                live["logit_rows"] += window
+                for j in range(window):
+                    nb = -(-(start + length + j) // bs)
+                    live["attn_q_ctx"] += nb * bs
+                    live["kv_blocks"] += nb
+            # scheduled: b padded rows x window positions at the bucketed
+            # block-table width
+            sched["tokens"] += b * window
+            sched["logit_rows"] += b * window
+            sched["attn_q_ctx"] += b * window * nblk * bs
+            sched["kv_blocks"] += b * window * nblk
+        else:
+            for _seq, start, length in rows:
+                live["tokens"] += length
+                live["logit_rows"] += 1
+                nb = -(-(start + length) // bs)
+                live["attn_q_ctx"] += length * nb * bs
+                live["kv_blocks"] += nb
+            sched["tokens"] += b * t
+            sched["logit_rows"] += b
+            sched["attn_q_ctx"] += b * t * nblk * bs
+            sched["kv_blocks"] += b * nblk
+
+    def _cost(agg: dict):
+        phases = cm.model_step_cost(
+            model_cfg, tokens=agg["tokens"], logit_rows=agg["logit_rows"],
+            attn_q_ctx=agg["attn_q_ctx"], kv_blocks=agg["kv_blocks"],
+            block_size=bs, kv_dtype=kv, quantization=quant)
+        return cm.total_cost(phases)
+
+    lc = _cost(live) if live["tokens"] else None
+    sc = _cost(sched) if sched["tokens"] else None
+    return {
+        "kinds": tuple(kinds),
+        "prefill_rows": pf_rows,
+        "decode_rows": dec_rows,
+        "live_tokens": live["tokens"],
+        "sched_tokens": sched["tokens"],
+        "live_flops": lc.flops if lc else 0.0,
+        "sched_flops": sc.flops if sc else 0.0,
+        "live_bytes": lc.hbm_bytes if lc else 0.0,
+        "sched_bytes": sc.hbm_bytes if sc else 0.0,
+    }

@@ -23,14 +23,21 @@ class EngineConfig:
     max_batch_size: int = 64
     max_model_len: int = 8192
     max_tokens_per_step: int = 8192       # prefill token budget per step
-    # Chunked-prefill bucket (tokens). 0 = SLO-driven auto sizing, which
-    # needs the cost model (not ported yet).
+    # Chunked-prefill bucket (tokens). 0 = auto: costmodel.auto_prefill_chunk
+    # picks, per QoS class, the largest chunk whose predicted mixed-step
+    # time keeps decode ITL inside itl_slo_ms (resolved to a concrete cap at
+    # engine construction, so bucket enumeration and warmup see real shapes).
     prefill_chunk: int = 512
     decode_bucket: tuple[int, ...] = (8, 16, 32, 64)
     # Unified ragged mixed-phase steps: decode rows and prefill-chunk rows
     # in ONE step per iteration. False = legacy two-launch path (decode
     # step, then prefill step) for bisection.
     unified_step: bool = True
+    # Decode inter-token-latency SLO budget (milliseconds) that
+    # costmodel.auto_prefill_chunk sizes chunks against when
+    # prefill_chunk=0. Per-QoS ladder scales it: interactive 1x,
+    # standard 2x, batch 4x.
+    itl_slo_ms: float = 50.0
     # Mesh axes sizes; 1 = unsharded. (data, pipe, seq, model, expert)
     dp: int = 1
     pp: int = 1

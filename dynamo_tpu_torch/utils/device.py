@@ -19,3 +19,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return dev
+
+
+def device_name(device: torch.device) -> str:
+    """The name the cost model's hardware table is keyed by: "cpu" for the
+    CPU, ``torch.cuda.get_device_name`` for a card."""
+    if device.type == "cpu":
+        return "cpu"
+    return torch.cuda.get_device_name(device)

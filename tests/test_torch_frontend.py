@@ -5,8 +5,8 @@ One canned engine per model (ByteTokenizer ids of a fixed text in deltas
 of 7, with fixed log-probs, one of them -inf), registered alike in the JAX
 ``HttpService`` (aiohttp) and the port's (its stdlib server). The same
 stdlib client sends the same table of requests to both, and compares the
-status, ``Content-Type``, ``Retry-After`` and the JSON body or the list of
-SSE events, after masking ``id``, ``created`` / ``created_at`` and trace
+status, ``Content-Type``, ``Retry-After``, ``Allow`` and the JSON body or
+the list of SSE events (HEAD and OPTIONS of every GET route included), after masking ``id``, ``created`` / ``created_at`` and trace
 ids. The preprocessed request each engine received (token ids, sampling
 and stop options, eos ids, multimodal spans, annotations without the
 trace) must be equal too.
@@ -202,12 +202,13 @@ def normalize(status, headers, body):
                 data = block[6:]
                 events.append(data if data == "[DONE]" else mask(json.loads(data)))
         content = events
-    elif ctype.startswith("application/json"):
+    elif ctype.startswith("application/json") and body:  # a HEAD answer has none
         content = mask(json.loads(body))
     else:
         content = body.decode()
     return {"status": status, "content-type": ctype,
-            "retry-after": headers.get("retry-after"), "body": content}
+            "retry-after": headers.get("retry-after"), "allow": headers.get("allow"),
+            "body": content}
 
 
 def _pre_view(pre) -> dict:
@@ -335,7 +336,16 @@ CASES.update({
     "traces-bad-format": dict(method="GET", path="/debug/traces?format=xml"),
     "no-route": dict(method="GET", path="/v2/nothing"),
     "wrong-method": dict(method="GET", path="/v1/chat/completions"),
+    "head-on-post-route": dict(method="HEAD", path="/v1/completions"),
 })
+#: every GET route of the service; HEAD answers as GET without a body,
+#: OPTIONS (any other method) with 405 and ``Allow: GET,HEAD``
+GET_ROUTES = ("/health", "/live", "/v1/models", "/metrics", "/engine_stats",
+              "/debug/traces", "/debug/sched", "/debug/mem")
+for _path in GET_ROUTES:
+    for _method in ("HEAD", "OPTIONS"):
+        CASES[f"{_method.lower()}-{_path.strip('/').replace('/', '-')}"] = dict(
+            method=_method, path=_path)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -370,6 +380,96 @@ def test_cases_cover_every_status(servers):
                           headers={"x-client-id": f"cover-{name}",
                                    **case.get("headers", {})})[0])
     assert statuses >= {200, 400, 404, 405, 429, 501, 502, 503, 504}
+
+
+def test_head_carries_the_get_head_without_a_body(servers):
+    """HEAD of a GET route: the GET answer's status, Content-Type and
+    Content-Length, and no body, on a connection that stays usable (a GET
+    pipelined behind it reads its own answer), on both servers."""
+    jport, tport, _, _ = servers
+    for port in (jport, tport):
+        for path in ("/health", "/v1/models"):
+            get_status, get_headers, get_body = call(port, "GET", path)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            try:
+                conn.request("HEAD", path)
+                r = conn.getresponse()
+                head = r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+                conn.request("GET", path)
+                again = conn.getresponse()
+                again_body = again.read()
+            finally:
+                conn.close()
+            assert head[0] == get_status == 200 and head[2] == b""
+            assert head[1]["content-type"] == get_headers["content-type"]
+            assert int(head[1]["content-length"]) == len(get_body)
+            assert again.status == 200 and again_body == get_body
+
+
+def _raw_exchange(port: int, data: bytes) -> bytes:
+    """Send ``data`` on a fresh connection and read until the server closes
+    it (a server that kept it open fails the read's timeout)."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as sock:
+        sock.sendall(data)
+        out = b""
+        while chunk := sock.recv(65536):
+            out += chunk
+    return out
+
+
+def test_handler_raising_after_prepare_cuts_the_stream():
+    """A handler that sends its head and one SSE chunk, then raises: aiohttp
+    and the port both leave the chunked body cut after that chunk (no
+    terminating chunk, no 500 written into the body) and close the
+    connection, so a request pipelined behind it gets no answer."""
+    from aiohttp import web as aioweb
+
+    from dynamo_tpu_torch.frontend import http as tweb
+
+    def handler(mod):
+        async def h(request):
+            resp = mod.StreamResponse(status=200, headers={"Content-Type": "text/event-stream"})
+            await resp.prepare(request)
+            await resp.write(b"data: one\n\n")
+            raise RuntimeError("failed mid-stream")
+        return h
+
+    async def health(request):
+        return aioweb.json_response({"status": "ok"})
+
+    async def go():
+        app = aioweb.Application()
+        app.router.add_get("/s", handler(aioweb))
+        app.router.add_get("/health", health)
+        runner = aioweb.AppRunner(app)
+        await runner.setup()
+        site = aioweb.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        jport = site._server.sockets[0].getsockname()[1]
+        srv = tweb.HttpServer()
+        srv.add_get("/s", handler(tweb))
+        srv.add_get("/health", lambda request: asyncio.sleep(0, tweb.json_response({})))
+        tport = await srv.start()
+        data = (b"GET /s HTTP/1.1\r\nHost: x\r\n\r\n"
+                b"GET /health HTTP/1.1\r\nHost: x\r\n\r\n")
+        loop = asyncio.get_running_loop()
+        try:
+            return [await loop.run_in_executor(None, _raw_exchange, port, data)
+                    for port in (jport, tport)]
+        finally:
+            await srv.stop()
+            await runner.cleanup()
+
+    got = []
+    for raw in asyncio.run(go()):
+        head, _, body = raw.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        hdrs = {k.lower(): v.strip() for k, _, v in (ln.partition(":") for ln in lines[1:])}
+        got.append((lines[0], hdrs["content-type"], hdrs["transfer-encoding"], body))
+    assert got[0] == got[1] == (
+        "HTTP/1.1 200 OK", "text/event-stream", "chunked", b"b\r\ndata: one\n\n\r\n")
 
 
 def test_keep_alive_and_chunked_request_body(servers):
@@ -424,8 +524,10 @@ def test_body_limit_and_metrics(servers):
     text = body.decode()
     assert 'dynamo_frontend_requests_total{route="chat",status="200"}' in text
     assert "dynamo_frontend_time_to_first_token_seconds_bucket" in text
-    status, _, body = call(tport, "GET", "/debug/sched")
-    assert status == 501 and b"Queue 1 item 11" in body
+    for route in ("/debug/sched", "/debug/mem"):
+        (status, _, body), (jstatus, _, jbody) = call(tport, "GET", route), call(jport, "GET", route)
+        assert status == jstatus == 200
+        assert sorted(json.loads(body)) == sorted(json.loads(jbody))
     status, headers, body = call(tport, "GET", "/debug/traces?format=jsonl")
     assert status == 200 and headers["content-type"] == "application/x-ndjson; charset=utf-8"
     assert any(json.loads(ln)["name"] == "request" for ln in body.decode().splitlines())
