@@ -161,6 +161,40 @@ if any phase fails:
     engine with ``DYN_SCHED_LEDGER=0 DYN_MEM_LEDGER=0 DYN_PERF_PROFILE=0``
     (decode tok/s beside the first run's).
 
+(g) the KVBM tiers, sessions, stream checkpoints and blocks across
+    engines at llama-3-8b-lite width (8 layers, random weights from a
+    seed; each serving run enters all its requests before its first step,
+    and must launch its route's kernel only, 8 a forward step, counted
+    through replays). First, at the model's block geometry on the card,
+    ``extract`` of ``inject(x)`` must be ``x`` byte for byte at every kv
+    dtype, written in place, and bf16 blocks the card quantizes into an
+    int8 or int4 cache must equal the CPU's ``quantize_block``. (g1) per kv
+    dtype: set A (32 greedy requests, 1024-token prompts, 32 tokens), set
+    B of the same shape on a device pool of one working set, evicting A to
+    a host tier (``host_kv_blocks``), then A again: it must onboard A's
+    blocks, prefill only each prompt's last block, replay graphs captured
+    before the first inject, keep the cache tensors where they were, and
+    equal A's second run on an engine whose pool kept A; again in bf16 with
+    a host tier of an eighth of a working set over a disk tier in a
+    temporary directory (blocks must reach the disk and come back). Prints
+    the transfers' D2H and H2D bytes/s and the flushes that waited for a
+    step in flight, and their ms. (g2) a ``RemoteBlockServer`` on 127.0.0.1 in a thread of its own:
+    a bf16 engine with ``global_prefix_cache`` publishes 8 prompts; an int8
+    engine onboards them from the store, its blocks equal to the CPU's
+    ``quantize_block`` of the stored bytes and its streams to int8 engines
+    into which the same blocks were imported (quantized on the CPU, and as
+    bf16 blocks the card quantizes, equal to the CPU's bytes too);
+    ``export_blocks`` into another bf16 engine's ``import_blocks`` gives the
+    exporting engine's continuation. (g3) 32 sessions: turn 2 prefills only
+    its suffix and equals an engine without sessions, its TTFT printed
+    beside a full recompute's; the memory ledger shows ``session`` pins;
+    after the TTL they demote to the host tier (no pin, no orphan), and
+    turn 3 re-imports them and equals the engine without sessions. (g4) in
+    f32 over the remote store with ``stream_ckpt_blocks=1``: a greedy and a
+    seeded sampled stream cut by shutting the engine down, resumed from
+    their records on a fresh engine, must equal an uninterrupted run token
+    for token; a finished stream's record is gone.
+
 Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
 per kernel instantiation (registers, spills), one JSON ``kernels`` line
 (an entry per kernel of ``ROUTES``, its launches counted in the run that
@@ -169,6 +203,9 @@ serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 verify case's time), and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --only-g`` builds the kernels and runs (g) alone,
+and prints neither the kernels line nor the result line.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b) and (b') under
 ``torch.profiler`` and prints device time by kernel and the device's busy
@@ -2167,6 +2204,645 @@ def phase_slo(smi: str, b_tok_s: float) -> dict:
     return {"on": on, "off": off}
 
 
+# ---------------------------------------------------------------------------
+# (g) the KVBM tiers, sessions, stream checkpoints, blocks across engines
+# ---------------------------------------------------------------------------
+
+#: (g1): two working sets of 32 greedy requests, 1024-token prompts, 32 tokens
+KV_BATCH, KV_PROMPT, KV_DECODE = 32, 1024, 32
+#: (g2): 8 prompts of 1024 tokens, 32 greedy tokens
+PUB_BATCH = 8
+#: (g3): 32 sessions; turn 1 a 512-token prompt, each later turn 64 new
+#: tokens after the previous turn; 32 greedy tokens a turn; the TTL
+SES_BATCH, SES_PROMPT, SES_NEW, SES_DECODE, SES_TTL = 32, 512, 64, 32, 4.0
+#: (g4): a greedy and a seeded sampled stream, 256-token prompts, 48
+#: tokens, cut once both have 20
+CKPT_PROMPT, CKPT_DECODE, CKPT_CUT = 256, 48, 20
+
+
+def kv_prompts(seed: int, n: int, length: int, vocab: int) -> list[list[int]]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(5, vocab - 5, length).tolist() for _ in range(n)]
+
+
+def kv_reqs(prompts: list[list[int]], tag: str, max_tokens: int, sessions: bool = False,
+            annotations: list[dict] | None = None, **so) -> dict:
+    """{i: PreprocessedRequest} (greedy unless ``so`` says otherwise); with
+    ``sessions`` each carries session id ``s{i}``."""
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    out = {}
+    for i, p in enumerate(prompts):
+        ann = dict(annotations[i]) if annotations else {}
+        if sessions:
+            ann["session.id"] = f"s{i}"
+        out[i] = PreprocessedRequest(
+            token_ids=list(p), request_id=f"{tag}-{i}", annotations=ann,
+            stop_conditions=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=so.get("temperature", 0.0),
+                                             seed=so.get("seed")))
+    return out
+
+
+def kv_engine(kv_dtype: str, num_blocks: int, max_model_len: int, prefill_chunk: int = 512,
+              model: str = "llama-3-8b-lite", **kw):
+    """A lazily captured engine of ``model`` (random weights from seed 0)
+    for (g)."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    return build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=32, num_blocks=num_blocks,
+        max_model_len=max_model_len, prefill_chunk=prefill_chunk, kv_dtype=kv_dtype,
+        allow_random_weights=True, **kw))
+
+
+def program_calls(core) -> dict:
+    return {k: p.calls for k, p in core.runner.programs.items()}
+
+
+async def serve_on(engine, reqs: dict, route: str, tag: str) -> dict:
+    """Serve ``reqs`` at once on a running engine (not shut down after):
+    the streams, TTFT (all requests, and the median), and a check that the
+    run launched ``route`` only, 8 a forward step, counted through replays
+    (the counts are set to 0 just before and read just after)."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    core = engine.core
+    calls0 = program_calls(core)
+    first_at, done_at, streams = {}, {}, {}
+
+    async def one(key):
+        toks, lps = [], []
+        async for out in engine.generate(reqs[key]):
+            if out.error:
+                raise RuntimeError(f"{tag}: request {key} failed: {out.error}")
+            if not toks:
+                first_at[key] = time.perf_counter()
+            toks += out.token_ids
+            lps += out.log_probs or []
+        done_at[key] = time.perf_counter()
+        streams[key] = (toks, lps)
+
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    # Every request enters before the first step: the engine thread is held
+    # in an exec while the requests queue behind it, so a run's first step
+    # (and so its batch composition) does not depend on thread timing.
+    gate = threading.Event()
+    held = asyncio.ensure_future(engine.run_in_core(lambda _core: gate.wait(120)))
+    await asyncio.sleep(0)
+    tasks = [asyncio.ensure_future(one(k)) for k in reqs]
+    await asyncio.sleep(0)
+    gate.set()
+    await held
+    await asyncio.gather(*tasks)
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    layers = core.model_cfg.num_layers
+    steps = sum((p.calls - calls0.get(k, 0)) * (p.shape[3] if len(p.shape) > 3 else 1)
+                for k, p in core.runner.programs.items())
+    want = {k: (layers * steps if k == route else 0) for k in by_kernel}
+    if steps <= 0 or by_kernel != want:
+        raise AssertionError(f"{tag}: kernel launches {by_kernel}, expected {want} "
+                             f"({layers} per forward step, {route} only)")
+    ttft = sorted(first_at[k] - t0 for k in reqs)
+    return {"streams": {k: v[0] for k, v in streams.items()},
+            "lps": {k: v[1] for k, v in streams.items()},
+            "ttft_all_s": ttft[-1], "ttft_median_s": ttft[len(ttft) // 2],
+            "wall_s": max(done_at.values()) - t0, "forward_steps": steps,
+            "launches": sum(by_kernel.values())}
+
+
+def cache_ptrs(runner) -> list[int]:
+    return [t.data_ptr() for c in (runner.cache_k, runner.cache_v)
+            for t in (c.values() if isinstance(c, dict) else [c])]
+
+
+def chains(prompts: list[list[int]]) -> list[list[int]]:
+    from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+    return [TokenBlockSequence.from_tokens(p, 16).sequence_hashes() for p in prompts]
+
+
+def free_engine() -> None:
+    """Give the card back the memory of the engines just gone out of use."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class StoreThread:
+    """The port's RemoteBlockServer on 127.0.0.1, in an event loop of its
+    own thread (the engines' clients are synchronous)."""
+
+    def __init__(self, capacity_bytes: int = 8 << 30):
+        from dynamo_tpu_torch.kvbm.remote import RemoteBlockServer
+
+        self.loop = asyncio.new_event_loop()
+        self.server = RemoteBlockServer(capacity_bytes=capacity_bytes)
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        port = asyncio.run_coroutine_threadsafe(
+            self.server.start("127.0.0.1", 0), self.loop).result(30)
+        self.addr = f"127.0.0.1:{port}"
+
+    def close(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.server.stop(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+
+
+def kv_transfer_check(smi: str, device: str = "cuda") -> dict:
+    """(g1) on the card at llama-3-8b-lite's block geometry (8 layers, 16
+    tokens, 8 kv heads, 128): ``extract`` of ``inject(x)`` is ``x`` byte for
+    byte at every kv dtype, written in place (the caches' ``data_ptr()``
+    unchanged), and bf16 blocks injected into an int8 or int4 cache (the
+    card quantizes them) extract as the CPU's ``quantize_block``."""
+    from dynamo_tpu_torch.engine.cache import KVCacheSpec, allocate_cache
+    from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine, quantize_block
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    ids, dst = [3, 17, 40, 41], [5, 6, 50, 63]
+    out, bf16_blocks = {}, None
+    for kv in ("bfloat16", "int8", "int4"):
+        spec = KVCacheSpec(num_blocks=64, block_size=16, num_layers=8, num_kv_heads=8,
+                           head_dim=128, dtype="bfloat16", kv_dtype=kv)
+        src = allocate_cache(spec, dev)
+        for c in src:
+            if isinstance(c, dict):
+                c["q"].copy_(torch.randint(-128, 128, c["q"].shape, generator=gen,
+                                           device=dev).to(c["q"].dtype))
+                c["s"].copy_(torch.rand(c["s"].shape, generator=gen, device=dev) + 0.01)
+            else:
+                c.copy_(torch.randn(c.shape, generator=gen, device=dev))
+        eng = BlockTransferEngine()
+        blocks = eng.extract(*src, ids)
+        if kv == "bfloat16":
+            bf16_blocks = blocks
+        zk, zv = allocate_cache(spec, dev)
+        ptrs = [t.data_ptr() for c in (zk, zv)
+                for t in (c.values() if isinstance(c, dict) else [c])]
+        eng.inject(zk, zv, dst, blocks)
+        back = eng.extract(zk, zv, dst)
+        same = all(a.tobytes() == b.tobytes() for a, b in zip(blocks, back))
+        moved = ptrs != [t.data_ptr() for c in (zk, zv)
+                         for t in (c.values() if isinstance(c, dict) else [c])]
+        quant_ok = None
+        if kv != "bfloat16":
+            eng.inject(zk, zv, dst, bf16_blocks)
+            got = eng.extract(zk, zv, dst)
+            quant_ok = all(g.tobytes() == quantize_block(b, kv).tobytes()
+                           for g, b in zip(got, bf16_blocks))
+        out[kv] = {"bytes_per_block": int(blocks[0].nbytes), "roundtrip_equal": same,
+                   "cache_moved": moved, "card_quantize_equals_cpu": quant_ok}
+        if not same or moved or quant_ok is False:
+            raise AssertionError(f"[g1] transfer at kv_dtype={kv}: {out[kv]}")
+        del src, zk, zv
+    log(f"[g1] extract(inject(x)) == x on the card at every kv dtype, in place: "
+        f"{json.dumps(out)} on {smi}")
+    return out
+
+
+def phase_g1(kv_dtype: str, smi: str, disk: bool = False) -> dict:
+    """(g1) one kv dtype: set A (32 x 1024 + 32 greedy), then set B of the
+    same shape on a device pool that holds one working set, evicting A's
+    blocks to the host tier (``disk``: a host tier of an eighth of a
+    working set spilling to a disk tier in a fresh temporary directory), then A again, which must
+    onboard A's blocks, prefill only each prompt's last block, replay
+    graphs captured before the first inject, and give the streams of A's
+    second run on an engine whose pool keeps A's blocks on the device."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.cache import KVCacheSpec
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    kind = {"bfloat16": "float", "int8": "int8", "int4": "int4"}[kv_dtype]
+    route = pa.ROUTES[(torch.bfloat16, kind)]
+    tag = f"[g1] kv_dtype={kv_dtype}{' disk' if disk else ''}"
+    cfg = MODEL_PRESETS["llama-3-8b-lite"]
+    a, b = (kv_prompts(seed, KV_BATCH, KV_PROMPT, cfg.vocab_size) for seed in (11, 12))
+    per_req = -(-(KV_PROMPT + KV_DECODE) // 16)
+    work = KV_BATCH * per_req  # one working set, in blocks
+    max_len = KV_PROMPT + KV_DECODE + 16
+    tmp = tempfile.mkdtemp(prefix="kvdisk-") if disk else None
+
+    async def tiered() -> dict:
+        block_bytes = KVCacheSpec.for_model(cfg, 1, 16, kv_dtype).bytes_per_block()
+        tiers = (dict(host_kv_blocks=work // 8, disk_kv_path=tmp,
+                      disk_kv_bytes=(2 * work + 2 * KV_BATCH) * block_bytes) if disk
+                 else dict(host_kv_blocks=2 * work + 2 * KV_BATCH))
+        engine = kv_engine(kv_dtype, work + 2 * KV_BATCH, max_len, prefill_chunk=KV_PROMPT, **tiers)
+        core = engine.core
+        try:
+            r1 = await serve_on(engine, kv_reqs(a, "a1", KV_DECODE), route, tag)
+            r2 = await serve_on(engine, kv_reqs(b, "b", KV_DECODE), route, tag)
+            offloaded = core.kvbm.stats.offloaded_blocks
+            before, ptrs = program_calls(core), cache_ptrs(core.runner)
+            pre = core.metrics.num_prefill_tokens
+            r3 = await serve_on(engine, kv_reqs(a, "a3", KV_DECODE), route, tag)
+            return {
+                "first": r1["streams"], "third": r3["streams"], "offloaded": offloaded,
+                "onboarded": core.kvbm.stats.onboarded_blocks,
+                "third_prefill_tokens": core.metrics.num_prefill_tokens - pre,
+                "replayed_pre_inject_graphs": sum(
+                    core.runner.programs[k].calls > c for k, c in before.items()),
+                "cache_moved": ptrs != cache_ptrs(core.runner),
+                "tiers": core.kvbm.snapshot(), "transfer": core.kvbm.transfer.stats.snapshot(),
+                "ttft_first_all_s": r1["ttft_all_s"], "ttft_b_all_s": r2["ttft_all_s"],
+                "ttft_third_all_s": r3["ttft_all_s"], "launches_third": r3["launches"]}
+        finally:
+            await engine.shutdown()
+
+    async def device_only() -> dict:
+        """A's second run on a pool that kept A: its streams and TTFT."""
+        engine = kv_engine(kv_dtype, 2 * work + 2 * KV_BATCH, max_len, prefill_chunk=KV_PROMPT)
+        try:
+            await serve_on(engine, kv_reqs(a, "a1", KV_DECODE), route, tag)
+            return await serve_on(engine, kv_reqs(a, "a2", KV_DECODE), route, tag)
+        finally:
+            await engine.shutdown()
+
+    try:
+        res = asyncio.run(tiered())
+        free_engine()
+        ref = asyncio.run(device_only())
+        free_engine()
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+    differ = [i for i in ref["streams"] if ref["streams"][i] != res["third"][i]]
+    t = res["transfer"]
+    summary = {k: v for k, v in res.items() if k not in ("first", "third", "transfer")}
+    summary.update({
+        "ttft_device_cached_all_s": ref["ttft_all_s"],
+        "streams_equal_device_only": KV_BATCH - len(differ),
+        "d2h_bytes_per_s": t["d2h_bytes_per_s"], "h2d_bytes_per_s": t["h2d_bytes_per_s"],
+        "extract_bytes": t["extract_bytes"], "inject_bytes": t["inject_bytes"],
+        "flushes": t["extracts"], "flushes_waited": t["waits"],
+        "flush_wait_ms": t["wait_s"] * 1e3, "inject_stage_ms": t["stage_s"] * 1e3})
+    log(f"{tag} {json.dumps(summary)} on {smi}")
+    suffix_tokens = KV_BATCH * (KV_PROMPT - 16 * ((KV_PROMPT - 1) // 16))
+    # (a few of A's blocks may still be on the device when A comes back: the
+    # suffix-only prefill shows that every prompt found its whole prefix)
+    if (res["offloaded"] <= 0 or res["onboarded"] <= 0
+            or res["third_prefill_tokens"] != suffix_tokens or differ
+            or res["replayed_pre_inject_graphs"] <= 0 or res["cache_moved"]):
+        raise AssertionError(f"{tag}: offloaded {res['offloaded']}, onboarded "
+                             f"{res['onboarded']}, third-run prefill "
+                             f"{res['third_prefill_tokens']} (want {suffix_tokens}), streams "
+                             f"{differ} differ from the device-only engine's, "
+                             f"{res['replayed_pre_inject_graphs']} graphs from before the "
+                             f"inject replayed, cache moved: {res['cache_moved']}")
+    if disk and not (res["tiers"]["disk"]["stores"] > 0 and res["tiers"]["disk"]["hits"] > 0):
+        raise AssertionError(f"{tag}: blocks did not cascade to disk and back: {res['tiers']}")
+    return summary
+
+
+def phase_g2(smi: str) -> dict:
+    """(g2) the remote tier and blocks across kv dtypes: a bf16 engine with
+    ``global_prefix_cache`` publishes 8 prompts' blocks to a store on
+    127.0.0.1; an int8 engine onboards them from the store; its quantized
+    blocks must equal the CPU's ``quantize_block`` of the stored bytes, and
+    its streams those of int8 engines into which the same blocks were
+    imported (quantized on the CPU, and as bf16 blocks the card quantizes,
+    whose bytes must equal the CPU's too). ``export_blocks`` from the bf16
+    engine into another bf16 engine's ``import_blocks`` gives the exporting
+    engine's continuation (its own second run, over its own blocks)."""
+    from dynamo_tpu_torch.engine.cache import KVCacheSpec
+    from dynamo_tpu_torch.kvbm.remote import RemoteBlockPool
+    from dynamo_tpu_torch.kvbm.transfer import quantize_block
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = MODEL_PRESETS["llama-3-8b-lite"]
+    bf16_route, int8_route = (pa.ROUTES[(torch.bfloat16, k)] for k in ("float", "int8"))
+    prompts = kv_prompts(21, PUB_BATCH, KV_PROMPT, cfg.vocab_size)
+    hashes = chains(prompts)
+    cap = (KV_PROMPT - 1) // 16  # blocks admission matches
+    max_len, nb = KV_PROMPT + KV_DECODE + 16, 1200
+    store = StoreThread()
+    res: dict = {}
+
+    async def publisher() -> list:
+        engine = kv_engine("bfloat16", nb, max_len, prefill_chunk=KV_PROMPT,
+                           remote_kv_addr=store.addr, global_prefix_cache=True)
+        try:
+            await serve_on(engine, kv_reqs(prompts, "p1", KV_DECODE), bf16_route, "[g2] publish")
+            again = await serve_on(engine, kv_reqs(prompts, "p2", KV_DECODE), bf16_route,
+                                   "[g2] publisher's own continuation")
+            plan = await engine.run_in_core(lambda c: [c.export_blocks(h) for h in hashes])
+            res["published_blocks"] = engine.core.kvbm.stats.published_blocks
+            res["own_continuation"] = again["streams"]
+            return plan
+        finally:
+            await engine.shutdown()
+
+    async def importer(kv: str, plans: list | None, route: str, tag: str, rid: str,
+                       **kw) -> dict:
+        engine = kv_engine(kv, nb, max_len, prefill_chunk=KV_PROMPT, **kw)
+        core = engine.core
+        try:
+            n = 0
+            if plans is not None:
+                n = await engine.run_in_core(lambda c: sum(c.import_blocks(p) for p in plans))
+            pre = core.metrics.num_prefill_tokens
+            r = await serve_on(engine, kv_reqs(prompts, rid, KV_DECODE), route, tag)
+            blocks = await engine.run_in_core(
+                lambda c: [c.export_blocks(h[:cap]) for h in hashes])
+            return {"imported": n, "streams": r["streams"],
+                    "prefill": core.metrics.num_prefill_tokens - pre,
+                    "onboarded": core.kvbm.stats.onboarded_blocks if core.kvbm else 0,
+                    "blocks": [[blk for _, _, blk in p] for p in blocks],
+                    "transfer": core.transfer.stats.snapshot()}
+        finally:
+            await engine.shutdown()
+
+    try:
+        plans = asyncio.run(publisher())
+        free_engine()
+        spec = KVCacheSpec.for_model(cfg, 1, 16, "bfloat16")
+        reader = RemoteBlockPool(spec, store.addr, fingerprint="llama-3-8b-lite")
+        stored = [[reader.get(h) for h in chain[:cap]] for chain in hashes]
+        reader.close()
+        if any(b is None for chain in stored for b in chain):
+            raise AssertionError("[g2] the store lacks published prompt blocks")
+        same = asyncio.run(importer("bfloat16", plans, bf16_route, "[g2] bf16 import", "q"))
+        free_engine()
+        onboard = asyncio.run(importer("int8", None, int8_route, "[g2] int8 onboard", "x",
+                                       remote_kv_addr=store.addr))
+        free_engine()
+        cpu_q = [[(h, par, quantize_block(blk, "int8")) for h, par, blk in p[:cap]]
+                 for p in plans]
+        cpu_imp = asyncio.run(importer("int8", cpu_q, int8_route, "[g2] int8 cpu-quantized",
+                                       "y"))
+        free_engine()
+        card_imp = asyncio.run(importer("int8", [p[:cap] for p in plans], int8_route,
+                                        "[g2] int8 card-quantized", "z"))
+        free_engine()
+    finally:
+        store.close()
+    want_q = [[quantize_block(b, "int8").tobytes() for b in chain] for chain in stored]
+    checks = {
+        "published_blocks": res["published_blocks"],
+        "store": store.server.stats.to_dict(),
+        "bf16_import_equals_own_continuation": same["streams"] == res["own_continuation"],
+        "bf16_import_prefill_tokens": same["prefill"],
+        "int8_onboarded_blocks": onboard["onboarded"],
+        "int8_onboarded_bytes_equal_cpu_quantize": [[b.tobytes() for b in c]
+                                                   for c in onboard["blocks"]] == want_q,
+        "int8_card_quantized_bytes_equal_cpu": [[b.tobytes() for b in c]
+                                                for c in card_imp["blocks"]] == want_q,
+        "int8_streams_equal_cpu_quantized_import": onboard["streams"] == cpu_imp["streams"],
+        "int8_streams_equal_card_quantized_import": onboard["streams"] == card_imp["streams"],
+        "int8_onboard_prefill_tokens": onboard["prefill"],
+        "h2d_bytes_per_s": onboard["transfer"]["h2d_bytes_per_s"],
+        "d2h_bytes_per_s_export": card_imp["transfer"]["d2h_bytes_per_s"],
+    }
+    log(f"[g2] {json.dumps(checks)} on {smi}")
+    want_prefill = PUB_BATCH * (KV_PROMPT - 16 * cap)
+    equal = ("bf16_import_equals_own_continuation", "int8_onboarded_bytes_equal_cpu_quantize",
+             "int8_card_quantized_bytes_equal_cpu", "int8_streams_equal_cpu_quantized_import",
+             "int8_streams_equal_card_quantized_import")
+    if not (checks["published_blocks"] > 0 and checks["int8_onboarded_blocks"] == PUB_BATCH * cap
+            and all(checks[k] for k in equal)
+            and same["prefill"] == want_prefill and onboard["prefill"] == want_prefill):
+        raise AssertionError(f"[g2] failed: {checks} (suffix prefill wants {want_prefill})")
+    return checks
+
+
+def phase_g3(smi: str) -> dict:
+    """(g3) sessions, bf16: 32 sessions. Turn 2 prefills only its suffix
+    (the prefill token count) and equals the same turn on an engine without
+    sessions whose prefix cache kept turn 1 (same bytes, same suffix); its
+    TTFT is printed beside a full recompute's (an engine with prefix caching
+    off). While sessions are retained the memory ledger shows ``session``
+    pins; after the TTL a request's sweep demotes them to the host tier
+    (none left, no orphan pin), the device copies are evicted, and turn 3
+    re-imports them and equals the engine without sessions' turn 3. The
+    two timed engines capture their graphs before serving
+    (``warmup_mode="full"``), so neither TTFT holds a capture."""
+    from dynamo_tpu_torch.engine.session import get_session_metrics
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    route = pa.ROUTES[(torch.bfloat16, "float")]
+    vocab = MODEL_PRESETS["llama-3-8b-lite"].vocab_size
+    p1 = kv_prompts(31, SES_BATCH, SES_PROMPT, vocab)
+    extra = [kv_prompts(32 + t, SES_BATCH, SES_NEW, vocab) for t in range(2)]
+    max_len = SES_PROMPT + 3 * SES_DECODE + 2 * SES_NEW + 32
+    led = get_mem_ledger()
+    sm = get_session_metrics()
+    res: dict = {}
+
+    async def with_sessions() -> dict:
+        engine = kv_engine("bfloat16", 1600, max_len, session_ttl=SES_TTL,
+                           host_kv_blocks=2400, warmup_mode="full")
+        core = engine.core
+        try:
+            t1 = await serve_on(engine, kv_reqs(p1, "t1", SES_DECODE, sessions=True), route,
+                                "[g3] turn 1")
+            pins = led.owner_blocks()["session"]
+            p2 = [p + t1["streams"][i] + extra[0][i] for i, p in enumerate(p1)]
+            pre, avoided0 = core.metrics.num_prefill_tokens, sm.avoided_tokens.get()
+            t2 = await serve_on(engine, kv_reqs(p2, "t2", SES_DECODE, sessions=True), route,
+                                "[g3] turn 2")
+            res.update(turn2_prefill=core.metrics.num_prefill_tokens - pre,
+                       turn2_avoided=sm.avoided_tokens.get() - avoided0,
+                       turn1_session_pins=pins, turn2_ttft=t2["ttft_all_s"],
+                       turn2_ttft_median=t2["ttft_median_s"])
+            dem0 = sm.demoted_blocks.get()
+            await asyncio.sleep(SES_TTL + 1.0)
+            await serve_on(engine, kv_reqs(kv_prompts(39, 1, 32, vocab), "sweep", 1), route,
+                           "[g3] sweep")
+            audit = led.audit()
+            res.update(sessions_after_ttl=len(core.sessions),
+                       session_pins_after_ttl=led.owner_blocks()["session"],
+                       demoted_blocks=sm.demoted_blocks.get() - dem0,
+                       orphan_pins=audit["orphan_pins"])
+            await engine.run_in_core(lambda c: c.pool.release(c.pool.allocate(c.pool.num_free)))
+            p3 = [p + t2["streams"][i] + extra[1][i] for i, p in enumerate(p2)]
+            on0 = core.kvbm.stats.onboarded_blocks
+            t3 = await serve_on(engine, kv_reqs(p3, "t3", SES_DECODE, sessions=True), route,
+                                "[g3] turn 3")
+            res.update(turn3_onboarded=core.kvbm.stats.onboarded_blocks - on0)
+            return {"p2": p2, "p3": p3, "t2": t2["streams"], "t3": t3["streams"]}
+        finally:
+            await engine.shutdown()
+
+    async def without_sessions(p2, p3) -> dict:
+        engine = kv_engine("bfloat16", 4000, max_len)
+        try:
+            await serve_on(engine, kv_reqs(p1, "n1", SES_DECODE), route, "[g3] no session")
+            n2 = await serve_on(engine, kv_reqs(p2, "n2", SES_DECODE), route, "[g3] no session")
+            n3 = await serve_on(engine, kv_reqs(p3, "n3", SES_DECODE), route, "[g3] no session")
+            return {"t2": n2["streams"], "t3": n3["streams"]}
+        finally:
+            await engine.shutdown()
+
+    async def recompute(p2) -> dict:
+        engine = kv_engine("bfloat16", 1600, max_len, enable_prefix_caching=False,
+                           warmup_mode="full")
+        try:
+            return await serve_on(engine, kv_reqs(p2, "r2", SES_DECODE), route,
+                                  "[g3] recompute")
+        finally:
+            await engine.shutdown()
+
+    led.reset()
+    s = asyncio.run(with_sessions())
+    free_engine()
+    n = asyncio.run(without_sessions(s["p2"], s["p3"]))
+    free_engine()
+    rc = asyncio.run(recompute(s["p2"]))
+    free_engine()
+    # the retained chain: every block turn 1 committed (the pipelined loop's
+    # speculative last step computes the last token's KV too)
+    kept = 16 * res["turn1_session_pins"] // SES_BATCH
+    want_prefill = sum(len(p) - kept for p in s["p2"])
+    res.update(
+        turn2_prefill_want=want_prefill,
+        turn2_equal_no_session=sum(s["t2"][i] == n["t2"][i] for i in n["t2"]),
+        turn3_equal_no_session=sum(s["t3"][i] == n["t3"][i] for i in n["t3"]),
+        turn2_equal_recompute=sum(s["t2"][i] == rc["streams"][i] for i in rc["streams"]),
+        recompute_ttft=rc["ttft_all_s"], recompute_ttft_median=rc["ttft_median_s"])
+    log(f"[g3] {json.dumps(res)} on {smi}")
+    if not (res["turn2_prefill"] == want_prefill
+            and res["turn2_avoided"] == SES_BATCH * kept
+            and kept >= 16 * ((SES_PROMPT + SES_DECODE - 1) // 16)
+            and res["turn2_equal_no_session"] == SES_BATCH
+            and res["turn3_equal_no_session"] == SES_BATCH
+            and res["sessions_after_ttl"] == 0 and res["session_pins_after_ttl"] == 0
+            and res["demoted_blocks"] > 0 and res["orphan_pins"] == 0
+            and res["turn3_onboarded"] > 0):
+        raise AssertionError(f"[g3] failed: {res}")
+    return res
+
+
+def phase_g4(smi: str) -> dict:
+    """(g4) stream checkpoints, f32 (llama-3-8b-lite with f32 weights over
+    the f32 cache): a greedy and a seeded sampled stream under
+    ``stream_ckpt_blocks=1`` against the remote store, cut when both have
+    20 tokens by shutting the engine down with their records stored; a
+    fresh engine resumes each from its record (the stored blocks onboard,
+    the draw counter and penalty counts restore) and both must equal an
+    uninterrupted run token for token; a finished stream's record is gone."""
+    from dynamo_tpu_torch.kvbm.remote import ckpt_client
+    from dynamo_tpu_torch.kvbm.stream_ckpt import CKPT_DRAWS_KEY, CKPT_GENERATED_KEY
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    model = register_f32_model()
+    route = pa.ROUTES[(torch.float32, "float")]
+    vocab = MODEL_PRESETS[model].vocab_size
+    prompts = kv_prompts(41, 2, CKPT_PROMPT, vocab)
+    so = [dict(), dict(temperature=0.8, seed=1234)]
+    rids = ["ckpt-greedy", "ckpt-sampled"]
+    max_len, nb = CKPT_PROMPT + CKPT_DECODE + 32, 256
+    store = StoreThread()
+    tiers = dict(remote_kv_addr=store.addr, stream_ckpt_blocks=1)
+
+    def reqs(plist, max_tokens, ann=None) -> dict:
+        out = {}
+        for i in range(2):
+            out.update({i: kv_reqs([plist[i]], "x", max_tokens[i],
+                                   annotations=[ann[i]] if ann else None, **so[i])[0]})
+            out[i].request_id = rids[i]
+        return out
+
+    async def uninterrupted() -> dict:
+        engine = kv_engine("bfloat16", nb, max_len, model=model)
+        try:
+            return (await serve_on(engine, reqs(prompts, [CKPT_DECODE] * 2), route,
+                                   "[g4] uninterrupted"))["streams"]
+        finally:
+            await engine.shutdown()
+
+    async def interrupted() -> dict:
+        engine = kv_engine("bfloat16", nb, max_len, model=model, **tiers)
+        got = {0: [], 1: []}
+        enough = asyncio.Event()
+
+        async def one(i, r):
+            async for out in engine.generate(r):
+                got[i] += out.token_ids
+                if all(len(v) >= CKPT_CUT for v in got.values()):
+                    enough.set()
+
+        tasks = [asyncio.ensure_future(one(i, r))
+                 for i, r in reqs(prompts, [CKPT_DECODE] * 2).items()]
+        await enough.wait()
+        await engine.shutdown()  # the worker dies: nothing reaps the records
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        return got
+
+    async def resumed(recs: list[dict]) -> dict:
+        engine = kv_engine("bfloat16", nb, max_len, model=model, **tiers)
+        core = engine.core
+        try:
+            gen = [r["generated"] for r in recs]
+            ann = [{CKPT_GENERATED_KEY: len(g), CKPT_DRAWS_KEY: r["draws"]}
+                   for g, r in zip(gen, recs)]
+            r = await serve_on(engine, reqs([prompts[i] + gen[i] for i in range(2)],
+                                            [CKPT_DECODE - len(g) for g in gen], ann),
+                               route, "[g4] resumed")
+            return {"streams": {i: gen[i] + r["streams"][i] for i in range(2)},
+                    "onboarded": core.kvbm.stats.onboarded_blocks,
+                    "resumes": core.metrics.stream_ckpt_resumes}
+        finally:
+            await engine.shutdown()
+
+    try:
+        full = asyncio.run(uninterrupted())
+        free_engine()
+        cut = asyncio.run(interrupted())
+        free_engine()
+        client = ckpt_client(store.addr)
+        recs = [client.get_stream_ckpt(rid) for rid in rids]
+        if any(r is None for r in recs):
+            raise AssertionError(f"[g4] no record stored for {rids}: {recs}")
+        res = asyncio.run(resumed(recs))
+        free_engine()
+        gone = [client.get_stream_ckpt(rid) is None for rid in rids]
+        client.close()
+    finally:
+        store.close()
+    out = {"cut_at": {rids[i]: len(cut[i]) for i in range(2)},
+           "record_generated": {rids[i]: len(recs[i]["generated"]) for i in range(2)},
+           "record_blocks": {rids[i]: len(recs[i]["hashes"]) for i in range(2)},
+           "onboarded": res["onboarded"], "resumes": res["resumes"],
+           "greedy_equal": res["streams"][0] == full[0],
+           "sampled_equal": res["streams"][1] == full[1],
+           "cut_prefix_equal": all(cut[i] == full[i][: len(cut[i])] for i in range(2)),
+           "records_gone": gone}
+    log(f"[g4] {json.dumps(out)} on {smi}")
+    if not (out["greedy_equal"] and out["sampled_equal"] and out["cut_prefix_equal"]
+            and all(gone) and out["onboarded"] > 0 and out["resumes"] == 2):
+        raise AssertionError(f"[g4] failed: {out}")
+    return out
+
+
+def phase_kvbm(smi: str) -> dict:
+    """(g): the KVBM tiers, sessions, stream checkpoints and blocks across
+    engines at llama-3-8b-lite width (8 layers, random weights)."""
+    t0 = time.perf_counter()
+    res = {"transfer": kv_transfer_check(smi)}
+    for kv in ("bfloat16", "int8", "int4"):
+        res[f"g1_{kv}"] = phase_g1(kv, smi)
+    res["g1_disk"] = phase_g1("bfloat16", smi, disk=True)
+    res["g2"] = phase_g2(smi)
+    res["g3"] = phase_g3(smi)
+    res["g4"] = phase_g4(smi)
+    log(f"[g] passed in {time.perf_counter() - t0:.1f}s on {smi}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2191,6 +2867,11 @@ def main() -> int:
             log(f"  ptxas {kname} {r['kernel']}: {r.get('registers')} registers, spill "
                 f"stores {r.get('spill_stores')} B, loads {r.get('spill_loads')} B")
 
+    if sys.argv[1:2] == ["--only-g"]:
+        # a rehearsal of (g) alone: no kernels line and no result line
+        phase_kvbm(smi)
+        log(f"(g) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     kern = phase_kernels(bw, peak)
     profile = "--profile" in sys.argv[1:]
     serve, streams = {}, {}
@@ -2214,6 +2895,7 @@ def main() -> int:
     phase_http_f32()
     phase_http_bf16(smi, serve["float"]["decode_tok_s"])
     phase_slo(smi, serve["float"]["decode_tok_s"])
+    phase_kvbm(smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []

@@ -37,6 +37,15 @@ profiler's analytic counters (obs/profiler.py), a scheduling-ledger record
 observation (occupancy, TTX, leak audit; obs/mem_ledger.py); a request
 carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
 ``engine.decode`` spans.
+
+Memory beyond the card's KV pool, as the JAX engine has it: the KVBM tiers
+(host, disk, remote; kvbm/) write evicted blocks back and onboard cached
+prefixes at admission, session retention (engine/session.py) keeps a
+finished turn's blocks for the next, stream checkpoints
+(kvbm/stream_ckpt.py) park a live stream's blocks and a resumable record
+in the remote store, and ``export_blocks`` / ``import_blocks`` move blocks
+between engines. Blocks come back into the cache by in-place writes, so
+the step graphs captured before them read them.
 """
 
 from __future__ import annotations
@@ -67,7 +76,14 @@ from dynamo_tpu_torch.engine.sampling import (
 )
 from dynamo_tpu_torch.engine.guided import TokenMasker
 from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq, StepPlan
+from dynamo_tpu_torch.engine.session import SessionStore, get_session_metrics
 from dynamo_tpu_torch.engine.spec import accept, propose, spec_eligible
+from dynamo_tpu_torch.kvbm.stream_ckpt import (
+    CKPT_DRAWS_KEY,
+    CKPT_GENERATED_KEY,
+    build_ckpt_record,
+    get_stream_ckpt_metrics,
+)
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
 from dynamo_tpu_torch.obs import costmodel as cm
@@ -146,10 +162,6 @@ def check_supported(ec: EngineConfig) -> None:
         "tp/pp/dp/ep/sp > 1 (parallelism slice)":
             any(v != 1 for v in ec.mesh_shape().values()),
         "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
-        "host/disk/remote KV tiers (KVBM slice)": bool(
-            ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr
-            or ec.global_prefix_cache or ec.stream_ckpt_blocks > 0),
-        "session_ttl > 0 (session retention slice)": ec.session_ttl > 0,
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
@@ -182,6 +194,10 @@ class EngineMetrics:
     prefix_hit_blocks: int = 0
     prefix_lookup_blocks: int = 0
     deadline_cancelled: int = 0
+    # Session turns resumed from a remote session record (pull-to-warm).
+    session_remote_resumes: int = 0
+    # Streams resumed warm from a checkpoint (kvbm/stream_ckpt.py).
+    stream_ckpt_resumes: int = 0
     kv_cache_bytes: int = 0
     kv_quant_enabled: bool = False
 
@@ -207,6 +223,8 @@ class EngineMetrics:
             "preemptions": self.num_preemptions,
             "prefix_hit_rate": self.prefix_hit_blocks / max(self.prefix_lookup_blocks, 1),
             "deadline_cancelled": self.deadline_cancelled,
+            "session_remote_resumes": self.session_remote_resumes,
+            "stream_ckpt_resumes": self.stream_ckpt_resumes,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
         }
@@ -336,12 +354,22 @@ class ModelRunner:
         cap = (ec.max_model_len // ec.block_size) * ec.max_batch_size + 1
         return int(min(n, cap))
 
-    def reset_slot(self, slot: int, seed: int) -> None:
+    def reset_slot(self, slot: int, seed: int, *, advance: int = 0,
+                   resume_tokens: list[int] | None = None) -> None:
         """Initialize a seq's persistent sampling state: fresh penalty
-        counts, its seed, and a draw counter at 0."""
+        counts, its seed, and its draw counter at ``advance`` — a draw's
+        noise is a pure function of (seed, draw), so a checkpoint-resumed
+        stream's next draw is the one the unkilled run would have made.
+        ``resume_tokens`` rebuilds the penalty counts from the generated
+        tokens riding a resume prompt."""
         self.counts[slot] = 0
+        if resume_tokens:
+            toks = torch.tensor(resume_tokens, dtype=torch.long)
+            if self.device.type == "cuda":  # a copy from pageable memory would wait
+                toks = toks.pin_memory().to(self.device, non_blocking=True)
+            self.counts[slot].index_add_(0, toks, torch.ones_like(toks, dtype=torch.int32))
         self.seeds[slot] = seed
-        self.draws[slot] = 0
+        self.draws[slot] = advance
 
     @staticmethod
     def step_key(b: int, t: int, nblk: int, window: int = 1, fast_greedy: bool = False,
@@ -1011,6 +1039,14 @@ class EngineCore:
             spec_lookahead=engine_cfg.spec_k if engine_cfg.spec_ngram > 0 else 0,
             chunk_by_qos=self.chunk_by_qos,
         )
+        # Session-sticky KV retention (engine/session.py): finished streams
+        # carrying a session.id keep their committed blocks pinned so the
+        # next turn prefills only the suffix. Needs prefix caching — the
+        # retained chain is claimed through the normal admission-time
+        # match_prefix, which is also how avoided tokens get measured.
+        self.sessions: SessionStore | None = None
+        if engine_cfg.session_ttl > 0 and engine_cfg.enable_prefix_caching:
+            self.sessions = SessionStore(self.pool, ttl=engine_cfg.session_ttl)
         self.metrics = EngineMetrics(
             kv_cache_bytes=self.runner.spec.bytes_per_block() * self.runner.spec.num_blocks,
             kv_quant_enabled=self.runner.spec.quantized)
@@ -1031,26 +1067,68 @@ class EngineCore:
         # Structured output: token-id → text table + tokenizer EOS, built
         # lazily on the first guided request (engine/guided.py).
         self._guided_vocab: tuple[list[str], list[int]] | None = None
+        # the block mover of export/import when there are no tiers
+        self._transfer = None
+        self.kvbm = self._make_kvbm(engine_cfg)
         # Memory & capacity ledger (obs/mem_ledger.py): re-read the
         # DYN_MEM_LEDGER env at construction (same contract as the sched
-        # ledger above), publish this engine's device pool as the tier row,
-        # and hand the audit a live-id source so orphaned pins reconcile
-        # against what this engine actually holds. Both are pulled only at
-        # snapshot/audit time, never on the step path.
+        # ledger above), publish this engine's device pool and every KVBM
+        # tier as tier rows, and hand the audit a live-id source so orphaned
+        # pins reconcile against what this engine actually holds. All are
+        # pulled only at snapshot/audit time, never on the step path.
         self.mem_led = get_mem_ledger()
         self.mem_led.configure()
         register_device_tier(self.pool, self.runner.spec)
+        if self.kvbm is not None:
+            for tier in self.kvbm.tiers:
+                self.mem_led.register_tier(tier.name, tier.occupancy)
         self._mem_source_key = f"engine:{id(self):x}"
         self.mem_led.register_live_source(self._mem_source_key,
                                           _weak_source(self._mem_live_ids))
 
+    def _make_kvbm(self, ec: EngineConfig):
+        """The KVBM tier cascade host → disk → remote (each tier spills
+        its LRU victims to the next, lookups walk the chain top-down) and
+        its offload manager, or None when no tier is configured."""
+        if not (ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr):
+            return None
+        from dynamo_tpu_torch.kvbm.offload import OffloadManager
+        from dynamo_tpu_torch.kvbm.pools import DiskBlockPool, HostBlockPool
+
+        spec, fp = self.runner.spec, ec.model
+        remote = None
+        if ec.remote_kv_addr:
+            from dynamo_tpu_torch.kvbm.remote import RemoteBlockPool
+
+            remote = RemoteBlockPool(spec, ec.remote_kv_addr, fingerprint=fp)
+        disk = (DiskBlockPool(spec, ec.disk_kv_path, ec.disk_kv_bytes,
+                              fingerprint=fp, overflow=remote)
+                if ec.disk_kv_path else None)
+        tiers: list = []
+        if ec.host_kv_blocks > 0:
+            # (``disk or remote`` would skip an empty disk tier: a pool with
+            # no blocks has len 0)
+            spill = disk if disk is not None else remote
+            tiers.append(HostBlockPool(spec, ec.host_kv_blocks, overflow=spill))
+        tiers += [t for t in (disk, remote) if t is not None]
+        return OffloadManager(
+            self.runner, self.pool, tiers,
+            # Fleet-wide prefix cache: committed blocks publish to the
+            # shared remote store as they form, not only on eviction.
+            publish_tier=remote if ec.global_prefix_cache else None,
+            # Stream checkpoints park in the same shared store.
+            ckpt_tier=remote if ec.stream_ckpt_blocks > 0 else None)
+
     def _mem_live_ids(self) -> dict:
         """Per-owner-class live ids for the mem-ledger leak audit. A pin
         tagged under any class but absent from the matching set here is an
-        orphan — a reference the engine no longer knows about. The port's
-        engine holds stream pins only: the other classes' owners (sessions,
-        KVBM queues, disagg staging) are not ported yet and report empty."""
-        return live_ids_of(streams=self._seqs.keys())
+        orphan — a reference the engine no longer knows about. Disagg
+        staging pins come with the staged handoff (distributed runtime) and
+        report empty."""
+        return live_ids_of(
+            streams=self._seqs.keys(),
+            sessions=self.sessions.session_ids() if self.sessions is not None else (),
+            **(self.kvbm.queue_live_ids() if self.kvbm is not None else {}))
 
     def _guided_pieces(self) -> tuple[list[str], list[int]]:
         if self._guided_vocab is None:
@@ -1132,6 +1210,35 @@ class EngineCore:
                 "engine.queue", ctx=seq.trace_ctx,
                 request_id=req.request_id, model=req.model,
                 prompt_tokens=seq.prompt_len, priority=seq.qos_priority)
+        if self.sessions is not None and seq.session_id is not None:
+            # Turn N+1 of a retained session: release the store's pins so
+            # the chain parks in the matchable inactive pool; this seq's
+            # admission-time match_prefix re-references it an instant later
+            # (single-threaded core — nothing allocates in between). The
+            # avoided-token count is measured from that match in step_begin.
+            sm = get_session_metrics()
+            sm.lookups.inc()
+            if self.sessions.claim(seq.session_id, self._step_now) is not None:
+                sm.hits.inc()
+            else:
+                # No local turn retained: the session may have been parked
+                # in the remote store (evacuate_sessions). A record hit
+                # means the onboard below pulls the chain back warm.
+                remote = self._remote_tier()
+                if remote is not None and remote.get_session(seq.session_id):
+                    sm.hits.inc()
+                    sm.remote_resumes.inc()
+                    self.metrics.session_remote_resumes += 1
+        if self.kvbm is not None:
+            # Same matchable cap as the scheduler: leave ≥1 prompt token to
+            # compute so decode has last-position state. Onboarding is an
+            # optimization — a corrupt tier entry must not take down the
+            # engine-core thread.
+            cap = (seq.prefill_target() - 1) // seq.block_size
+            try:
+                self.kvbm.onboard(seq.block_seq.sequence_hashes()[:cap])
+            except Exception:
+                log.exception("kvbm onboard failed; continuing without reuse")
         self.metrics.prefix_lookup_blocks += max(len(seq.tokens) // seq.block_size, 1)
         return None
 
@@ -1139,6 +1246,7 @@ class EngineCore:
         seq = self._seqs.get(request_id)
         if seq is None or seq.phase is Phase.FINISHED:
             return
+        self._reap_stream_ckpt(seq)
         self._trace_finish(seq, FinishReason.CANCELLED)
         self.sched.finish(seq, FinishReason.CANCELLED)
 
@@ -1164,12 +1272,81 @@ class EngineCore:
             return FinishReason.LENGTH
         return None
 
+    # -- crash-consistent stream checkpoints (kvbm/stream_ckpt.py) -------
     def _init_slot(self, seq: Seq) -> None:
-        """Reset a seq's sampling slot: every stream gets a concrete seed
-        (explicit or request-derived)."""
+        """Reset a seq's sampling slot — restoring the draw counter and
+        penalty counts when the request carries stream_ckpt.* resume
+        annotations. Every stream gets a concrete seed (explicit or
+        request-derived), so its noise after n draws is a pure function of
+        the request: a sampled resume is bit-identical at decode_window=1."""
         so = seq.req.sampling_options
         seed = so.seed if so.seed is not None else _derived_seed(seq.request_id)
-        self.runner.reset_slot(seq.slot, seed)
+        ann = getattr(seq.req, "annotations", None) or {}
+        gen = int(ann.get(CKPT_GENERATED_KEY) or 0)
+        if gen <= 0:
+            self.runner.reset_slot(seq.slot, seed)
+            return
+        gen = min(gen, seq.prompt_len)
+        self.runner.reset_slot(
+            seq.slot, seed, advance=int(ann.get(CKPT_DRAWS_KEY) or gen),
+            # the resume prompt's trailing ledger: the penalty counts the
+            # interrupted stream had accumulated
+            resume_tokens=seq.tokens[seq.prompt_len - gen:seq.prompt_len])
+
+    def _ckpt_interval(self, seq: Seq) -> int:
+        """Committed-block cadence for this seq, QoS-degraded from the
+        stream_ckpt_blocks base: interactive streams checkpoint at the
+        configured interval, standard at 2x, batch at 4x. 0 = off."""
+        base = self.engine_cfg.stream_ckpt_blocks
+        if base <= 0:
+            return 0
+        if seq.qos_priority == "interactive":
+            return base
+        return base * (4 if seq.qos_priority == "batch" else 2)
+
+    def _maybe_stream_ckpt(self, seq: Seq) -> None:
+        """Enqueue a StreamCheckpoint when due: once at prefill completion
+        (the first emit's commit), then every interval committed blocks."""
+        k = self._ckpt_interval(seq)
+        if (k <= 0 or self.kvbm is None or self.kvbm.ckpt_tier is None
+                or seq.committed_blocks <= 0):
+            return
+        if 0 <= seq.ckpt_blocks and seq.committed_blocks - seq.ckpt_blocks < k:
+            return
+        start = max(seq.ckpt_blocks, 0)
+        hashes = seq.block_seq.sequence_hashes()[: seq.committed_blocks]
+        pairs = list(zip(seq.block_ids[start:seq.committed_blocks], hashes[start:]))
+        generated = seq.tokens[seq.prompt_len:]
+        so = seq.req.sampling_options
+        seed = so.seed if so.seed is not None else _derived_seed(seq.request_id)
+        # The seed's two 32-bit words: the JAX engine's key data for it, and
+        # with the draw counter the port's whole sampler state.
+        record = build_ckpt_record(
+            seq.request_id, generated, hashes,
+            key_data=[(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+            draws=len(generated), seed=seed, prompt_tokens=seq.prompt_len)
+        span = None
+        if seq.trace_ctx is not None:
+            span = get_tracer().start_span(
+                "engine.ckpt", ctx=seq.trace_ctx, request_id=seq.request_id,
+                blocks=len(pairs), generated=len(generated))
+        self.kvbm.enqueue_stream_ckpt(seq.request_id, record, pairs)
+        if span is not None:
+            get_tracer().end_span(span)
+        seq.ckpt_blocks = seq.committed_blocks
+
+    def _reap_stream_ckpt(self, seq: Seq) -> None:
+        """Finish-time reap: a finished stream (any reason) must not be
+        resumable. Only streams that ever checkpointed pay the round trip."""
+        if self.kvbm is not None and seq.ckpt_blocks >= 0:
+            self.kvbm.delete_stream_ckpt(seq.request_id)
+
+    def ckpt_lag_blocks(self) -> int:
+        """Committed blocks of live streams not yet covered by a
+        checkpoint — the crash exposure, exported as
+        dynamo_stream_ckpt_lag_blocks."""
+        return sum(max(s.committed_blocks - max(s.ckpt_blocks, 0), 0)
+                   for s in list(self._seqs.values()) if s.phase is not Phase.FINISHED)
 
     def step_begin(self) -> PendingStep | None:
         """Plan one engine step and dispatch it to the device without
@@ -1179,12 +1356,45 @@ class EngineCore:
         tokens stay on the device (slot_toks) and feed the next decode step
         directly. Value-dependent effects (token append, hash commit, stop
         conditions) happen in :meth:`step_finalize`."""
+        if self.sessions is not None:
+            self._session_sweep()
         plan = self.sched.plan()
+        if self.kvbm is not None:
+            # Write back blocks evicted during planning before their slots
+            # are rewritten by this step's KV scatter (one transfer for all
+            # of them, ordered on the stream after the step in flight).
+            self.kvbm.flush_pending()
         self.metrics.num_preemptions = self.sched.preemption_count
         if plan.empty:
             return None
         self.metrics.num_steps += 1
         self._trace_plan(plan)
+        if self.sessions is not None:
+            # Avoided-token accounting: the blocks a session turn did NOT
+            # recompute are exactly its admission-time prefix hit — counted
+            # once per seq on its first planned chunk.
+            for w in plan.prefill:
+                seq = w.seq
+                if seq.session_id is not None and not seq.session_counted:
+                    seq.session_counted = True
+                    if seq.prefix_hit_blocks:
+                        get_session_metrics().avoided_tokens.inc(
+                            seq.prefix_hit_blocks * seq.block_size)
+        # Checkpoint-resume accounting mirrors the session pattern: the
+        # recompute a crash actually cost is the resume prompt MINUS what the
+        # admission onboard pulled back warm, measured once.
+        for w in plan.prefill:
+            seq = w.seq
+            if seq.ckpt_counted:
+                continue
+            seq.ckpt_counted = True
+            ann = getattr(seq.req, "annotations", None) or {}
+            if int(ann.get(CKPT_GENERATED_KEY) or 0) > 0:
+                self.metrics.stream_ckpt_resumes += 1
+                sm = get_stream_ckpt_metrics()
+                sm.resumes.inc(1)
+                sm.resume_recomputed_tokens.inc(max(
+                    seq.prefill_target() - seq.prefix_hit_blocks * seq.block_size, 0))
         for seq in [w.seq for w in plan.prefill] + plan.decode:
             if not seq.slot_initialized and seq.slot >= 0:
                 self._init_slot(seq)
@@ -1487,6 +1697,11 @@ class EngineCore:
         if count_decode:
             self.metrics.num_decode_tokens += len(emitted)
         self.sched.commit_computed_blocks(seq)
+        if reason is None:
+            # Checkpoint cadence rides the commit stream: first at prefill
+            # completion (this seq's first emit), then every interval
+            # committed blocks. Finishing streams skip straight to the reap.
+            self._maybe_stream_ckpt(seq)
         if seq.prefix_hit_blocks:
             self.metrics.prefix_hit_blocks += seq.prefix_hit_blocks
             seq.prefix_hit_blocks = 0
@@ -1495,6 +1710,13 @@ class EngineCore:
                               log_probs=per_tok)
         if reason is not None:
             out.finish_reason = reason
+            self._reap_stream_ckpt(seq)
+            if (self.sessions is not None and seq.session_id is not None
+                    and reason in (FinishReason.STOP, FinishReason.LENGTH)):
+                # Retain BEFORE sched.finish releases the seq's refs: the
+                # session pin increfs the committed chain while it is still
+                # active. Cancelled/errored streams never retain.
+                self._retain_session(seq)
             self._trace_finish(seq, reason)
             self.sched.finish(seq, reason)
             self.metrics.num_requests_finished += 1
@@ -1536,6 +1758,10 @@ class EngineCore:
                 self._emit_and_finish(seq, [int(x) for x in toks[i]], lps[i], outputs,
                                       count_decode=decode_row)
         self._record_step(t0, pending)
+        if self.kvbm is not None and not self.sched.has_work():
+            # Going idle: this finalize's commits would otherwise sit in the
+            # publish/checkpoint queues until the next step_begin.
+            self.kvbm.drain_publish()
         return outputs
 
     def _finalize_verify(self, rows: list[tuple[Seq, int, int]], chunks: list[list[int]],
@@ -1587,6 +1813,87 @@ class EngineCore:
             outs[seq.request_id] = LLMEngineOutput(finish_reason=FinishReason.CANCELLED)
         return outs
 
+    # -- session-sticky KV retention (engine/session.py) ----------------
+    def _retain_session(self, seq: Seq) -> None:
+        """Pin a finishing stream's committed chain under its session id."""
+        hashes = seq.block_seq.sequence_hashes()[: seq.committed_blocks]
+        self.sessions.retain(seq.session_id, hashes, self._step_now)
+        # Capacity cap: LRU sessions demote (not just drop) so a later turn
+        # can still re-import from the KVBM ladder.
+        while len(self.sessions) > self.sessions.max_sessions:
+            self._demote_session(*self.sessions.pop_oldest())
+
+    def _session_sweep(self) -> None:
+        """TTL + pool-pressure valve, run before each plan(). While the
+        head-of-line waiting seq cannot admit because session pins hold the
+        pool, the oldest sessions are released first — retained turns must
+        never starve live traffic."""
+        for sid, entry in self.sessions.pop_expired(self._step_now):
+            self._demote_session(sid, entry)
+        sched = self.sched
+        while len(self.sessions) and sched.waiting:
+            head = sched.waiting[0]
+            need = head.blocks_needed(len(head.tokens))
+            if need + len(sched.running) <= self.pool.num_free:
+                break
+            if need + len(sched.running) > self.pool.num_free + self.sessions.pinned_blocks:
+                break  # releasing every pin still wouldn't admit; keep them
+            self._demote_session(*self.sessions.pop_oldest())
+
+    def _demote_session(self, session_id: str, entry) -> None:
+        """Release a retained entry's pins, first write-staging the chain
+        down the KVBM tier ladder when session_tiers is on — so a turn after
+        device eviction re-imports instead of recomputing."""
+        sm = get_session_metrics()
+        sm.expired.inc()
+        if self.engine_cfg.session_tiers and self.kvbm is not None and entry.pinned:
+            try:
+                staged = self.kvbm.stage_blocks(list(zip(entry.pinned, entry.seq_hashes)))
+                sm.demoted_blocks.inc(staged)
+            except Exception:
+                log.exception("session %s: tier demotion failed; releasing pins to LRU",
+                              session_id)
+        if self.mem_led.enabled and entry.pinned:
+            self.mem_led.record_churn("device", "session_demote", len(entry.pinned))
+        self.pool.release(entry.pinned)
+        entry.pinned = []
+
+    def _remote_tier(self):
+        """The shared remote tier in the KVBM ladder, or None."""
+        if self.kvbm is None:
+            return None
+        return next((t for t in self.kvbm.tiers if t.name == "remote"), None)
+
+    def evacuate_sessions(self) -> dict:
+        """Push every retained session's device chain plus a resumable
+        record to the shared remote store, then release the pins: the next
+        turn, on this engine or another on the same store, pulls the chain
+        back warm instead of recomputing. Without a remote tier the chain is
+        staged down the local ladder (no record). Engine-core thread only."""
+        out = {"sessions": 0, "blocks": 0, "bytes": 0}
+        if self.sessions is None:
+            return out
+        remote = self._remote_tier()
+        while (popped := self.sessions.pop_oldest()) is not None:
+            sid, entry = popped
+            try:
+                if remote is not None and entry.pinned:
+                    blocks = self.transfer.extract(self.runner.cache_k,
+                                                   self.runner.cache_v, entry.pinned)
+                    for h, block in zip(entry.seq_hashes, blocks):
+                        remote.put(h, block)
+                        out["blocks"] += 1
+                        out["bytes"] += int(block.nbytes)
+                    if remote.put_session(sid, list(entry.seq_hashes), entry.tokens):
+                        out["sessions"] += 1
+                elif self.kvbm is not None and entry.pinned:
+                    self.kvbm.stage_blocks(list(zip(entry.pinned, entry.seq_hashes)))
+            except Exception:
+                log.exception("session %s evacuation failed; its blocks fall to the LRU", sid)
+            self.pool.release(entry.pinned)
+            entry.pinned = []
+        return out
+
     def step(self) -> dict[str, LLMEngineOutput]:
         """Run one engine step synchronously; returns per-request deltas."""
         now = time.time()
@@ -1596,6 +1903,58 @@ class EngineCore:
         if pending is not None:
             outs.update(self.step_finalize(pending))
         return outs
+
+    # -- KV-transfer primitives of disaggregated serving (engine-core thread)
+    @property
+    def transfer(self):
+        """The block mover: the offload manager's, else one of its own."""
+        if self.kvbm is not None:
+            return self.kvbm.transfer
+        if self._transfer is None:
+            from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine
+
+            self._transfer = BlockTransferEngine()
+        return self._transfer
+
+    def export_blocks(self, seq_hashes: list[int]) -> list[tuple[int, int | None, np.ndarray]]:
+        """Gather the device-resident prefix of a hash chain off the device
+        as ``(seq_hash, parent_hash, host block)`` — the prefill side of
+        disaggregated serving."""
+        ids, kept = [], []
+        parent: int | None = None
+        for h in seq_hashes:
+            bid = self.pool.block_for_hash(h)
+            if bid is None:
+                break
+            ids.append(bid)
+            kept.append((h, parent))
+            parent = h
+        if not ids:
+            return []
+        blocks = self.transfer.extract(self.runner.cache_k, self.runner.cache_v, ids)
+        return [(h, par, data) for (h, par), data in zip(kept, blocks)]
+
+    def import_blocks(self, plan: list[tuple[int, int | None, np.ndarray]],
+                      span_attrs: dict | None = None) -> int:
+        """Write externally received blocks into the cache as matchable
+        entries — the decode side of disaggregated serving. Blocks of any
+        format (either package's, any kv dtype) convert at the boundary;
+        hashes already on the device are skipped (and MRU-protected)."""
+        from dynamo_tpu_torch.kvbm.offload import inject_and_commit, plan_onboard
+
+        by_hash = {h: data for h, _, data in plan}
+        filtered = plan_onboard(self.pool, [h for h, _, _ in plan], by_hash.get)
+        flush = self.kvbm.flush_pending if self.kvbm is not None else None
+        return inject_and_commit(self.runner, self.pool, self.transfer, filtered,
+                                 flush=flush, span_attrs=span_attrs)
+
+    def pin_blocks(self, seq_hashes: list[int]) -> list[int]:
+        """Incref the device-resident prefix of a chain so it survives until
+        a pending transfer pulls it; pair with unpin_blocks."""
+        return self.pool.match_prefix(seq_hashes)
+
+    def unpin_blocks(self, block_ids: list[int]) -> None:
+        self.pool.release(block_ids)
 
     def embed(self, token_lists: list[list[int]]) -> np.ndarray:
         """Last-token-pooled embeddings [N, H] f32 (engine-core thread only;
@@ -1609,6 +1968,9 @@ class EngineCore:
         for rid in rids:
             self.abort(rid)
         self._seqs.clear()
+        if self.sessions is not None:
+            # Retained pins must not outlive the requests that made them.
+            self.sessions.release_all()
         return rids
 
 
@@ -1749,8 +2111,21 @@ class AsyncTorchEngine:
         device state has one owner)."""
         return await self.run_in_core(lambda core: core.embed(token_lists))
 
+    async def evacuate_sessions(self) -> dict:
+        """Push retained session KV + resumable records to the remote
+        store (``EngineCore.evacuate_sessions``, on the engine-core thread)."""
+        return await self.run_in_core(lambda core: core.evacuate_sessions())
+
     def stats(self) -> dict[str, Any]:
-        out = self.core.metrics.snapshot(self.core.sched, self.core.pool)
+        core = self.core
+        out = core.metrics.snapshot(core.sched, core.pool)
+        if core.kvbm is not None:
+            out["kvbm"] = core.kvbm.snapshot()
+            if core.kvbm.ckpt_tier is not None:
+                # Crash exposure refreshes on the stats poll cadence.
+                get_stream_ckpt_metrics().lag_blocks.set(float(core.ckpt_lag_blocks()))
+        if core.sessions is not None:
+            out["session"] = core.sessions.snapshot()
         led = get_compile_ledger()
         if led.enabled:
             # Warmup coverage + capture stalls ride the published stats.

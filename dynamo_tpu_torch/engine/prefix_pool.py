@@ -7,13 +7,15 @@ copy of ``dynamo_tpu/engine/prefix_pool.py``.
   still matchable, evicted only on allocation pressure.
 
 Device-tier eviction churn feeds the memory ledger (obs/mem_ledger.py) as
-in the JAX pool. Its KV-event and KVBM hooks come back with the slices
-that port those consumers.
+in the JAX pool, and the KVBM hooks (``evict_hook``, ``commit_hook``) feed
+the offload manager (kvbm/offload.py). The KV events for the router come
+back with the slice that ports the router.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import Callable
 
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
 from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
@@ -25,6 +27,14 @@ class PrefixPool:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_caching = enable_prefix_caching
+        # Called as evict_hook(block_id, seq_hash) *before* an evicted
+        # committed block's id is reused — the KVBM offload manager's
+        # write-back point (kvbm/offload.py).
+        self.evict_hook: Callable[[int, int], None] | None = None
+        # Called as commit_hook(block_id, seq_hash, parent_hash) after a
+        # block's content hash registers — the KVBM publish-on-commit point.
+        # Fires only for the canonical (first) commit of a hash.
+        self.commit_hook: Callable[[int, int, "int | None"], None] | None = None
         # block 0 reserved (trash)
         self._free: list[int] = list(range(num_blocks - 1, 0, -1))
         self._refcount: dict[int, int] = {}
@@ -65,6 +75,14 @@ class PrefixPool:
     def block_for_hash(self, seq_hash: int) -> int | None:
         return self._by_hash.get(seq_hash)
 
+    def touch(self, seq_hash: int) -> None:
+        """Refresh an inactive cached block to MRU so an imminent allocation
+        burst doesn't evict it (KVBM onboarding protects the on-device part
+        of a chain it is about to extend)."""
+        bid = self._by_hash.get(seq_hash)
+        if bid is not None and bid in self._inactive:
+            self._inactive.move_to_end(bid)
+
     # -- allocation ----------------------------------------------------------
     def allocate(self, n: int) -> list[int]:
         """Allocate n uncommitted blocks (refcount 1), evicting LRU inactive
@@ -85,6 +103,8 @@ class PrefixPool:
         bid, _ = self._inactive.popitem(last=False)  # oldest
         h = self._hash_of.pop(bid, None)
         if h is not None:
+            if self.evict_hook is not None:
+                self.evict_hook(bid, h)
             del self._by_hash[h]
             if self._mled.enabled:
                 self._mled.record_churn("device", self._churn_cause, 1)
@@ -122,6 +142,8 @@ class PrefixPool:
             return
         self._by_hash[seq_hash] = bid
         self._hash_of[bid] = seq_hash
+        if self.commit_hook is not None:
+            self.commit_hook(bid, seq_hash, parent_hash)
 
     def release(self, block_ids: list[int]) -> None:
         """Drop one reference per block; committed blocks park in the LRU
@@ -141,10 +163,13 @@ class PrefixPool:
                     self._free.append(bid)
 
     def clear(self) -> None:
-        """Drop all cached (inactive) blocks."""
+        """Drop all cached (inactive) blocks. A deliberate clear drops
+        content outright (no write-back offload)."""
+        hook, self.evict_hook = self.evict_hook, None
         self._churn_cause = "clear"
         try:
             while self._inactive:
                 self._free.append(self._evict_one())
         finally:
+            self.evict_hook = hook
             self._churn_cause = "allocation_pressure"

@@ -24,8 +24,6 @@ seq's chunk by its own class. The scheduling ledger (admission-block
 causes, preemption recompute) and the memory ledger (stream pins, per-QoS
 block consumption) are fed from here, each hook gated on its ledger's
 ``enabled``.
-
-Not carried yet (a later slice): session ids.
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ from dataclasses import dataclass, field
 
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
+from dynamo_tpu_torch.engine.session import session_id_of
 from dynamo_tpu_torch.engine.spec import spec_eligible
 from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
 from dynamo_tpu_torch.obs.sched_ledger import get_sched_ledger
@@ -89,6 +88,18 @@ class Seq:
     # absolute wall-clock deadline after which the seq is cancelled.
     qos_priority: str = "standard"
     deadline_ts: float | None = None
+    # Session-sticky KV retention (engine/session.py): the session.id
+    # annotation, and whether this seq's avoided-prefill tokens have been
+    # counted (once, on its first planned chunk — preemption must not
+    # double-count the re-admission match).
+    session_id: str | None = None
+    session_counted: bool = False
+    # Crash-consistent stream checkpoints (kvbm/stream_ckpt.py): committed
+    # blocks covered by the last enqueued checkpoint (-1 = none yet; the
+    # first fires at prefill completion), and whether this seq's
+    # warm-resume metrics were counted (once, on its first planned chunk).
+    ckpt_blocks: int = -1
+    ckpt_counted: bool = False
     # Tracing (obs/tracer.py): the wire TraceContext parsed off the
     # request annotations, the one currently-open phase span
     # (engine.queue → engine.prefill → engine.decode), and the token
@@ -105,6 +116,7 @@ class Seq:
         ann = getattr(self.req, "annotations", None)
         self.qos_priority = priority_of(ann, self.qos_priority)
         self.deadline_ts = deadline_of(ann)
+        self.session_id = session_id_of(ann)
 
     @property
     def request_id(self) -> str:

@@ -21,6 +21,10 @@ Examples:
         --device cpu --spec-ngram 2 --spec-k 4 --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
         --allow-random-weights --prefill-chunk 0 --itl-slo-ms 50 --max-model-len 2048
+    python -m dynamo_tpu_torch.kvbm.remote --port 7070 &
+    python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
+        --device cpu --num-blocks 64 --host-kv-blocks 256 --disk-kv-path /tmp/kv \
+        --remote-kv-addr 127.0.0.1:7070 --session-ttl 300
 
 ``--warmup-mode`` and ``--warmup-deadline`` are the JAX worker's flags
 (``dynamo_tpu/components/worker.py``); the launcher takes them until the
@@ -109,6 +113,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "pauses a cycle before each verify (ROADMAP Queue 1)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="max proposed tokens per verify step")
+    p.add_argument("--host-kv-blocks", type=int, default=0, help="G2 host KV tier capacity")
+    p.add_argument("--session-ttl", type=float, default=0.0,
+                   help="session-sticky KV retention: seconds a finished "
+                        "session's committed blocks stay pinned so the next "
+                        "turn prefills only the suffix (0 = off)")
+    p.add_argument("--no-session-tiers", action="store_true",
+                   help="skip staging expired session KV down the KVBM tier "
+                        "ladder before unpinning")
+    p.add_argument("--disk-kv-path", default=None, help="G3 disk KV tier directory")
+    p.add_argument("--remote-kv-addr", default=None,
+                   help="G4 remote block store host:port "
+                        "(python -m dynamo_tpu_torch.kvbm.remote)")
     p.add_argument("--max-tokens", type=int, default=256, help="default max output tokens")
     p.add_argument("--input-jsonl", default=None)
     p.add_argument("--allow-random-weights", action="store_true",
@@ -144,6 +160,11 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         warmup_mode=ns.warmup_mode,
         warmup_deadline=ns.warmup_deadline,
         allow_random_weights=ns.allow_random_weights,
+        host_kv_blocks=ns.host_kv_blocks,
+        disk_kv_path=ns.disk_kv_path,
+        remote_kv_addr=ns.remote_kv_addr,
+        session_ttl=ns.session_ttl,
+        session_tiers=not ns.no_session_tiers,
     )
     return build_engine(cfg, device=ns.device), cfg
 
@@ -174,6 +195,19 @@ async def run_http(ns: argparse.Namespace) -> None:
     install_perf_metrics(svc.metrics)
     install_sched_metrics(svc.metrics)
     install_mem_metrics(svc.metrics)
+    if cfg.session_ttl > 0:
+        from dynamo_tpu_torch.engine.session import install_session_metrics
+
+        # Session retention feeds dynamo_session_* (engine/session.py).
+        install_session_metrics(svc.metrics)
+    if cfg.host_kv_blocks > 0 or cfg.disk_kv_path or cfg.remote_kv_addr:
+        from dynamo_tpu_torch.kvbm.metrics import install_prefix_cache_metrics
+        from dynamo_tpu_torch.kvbm.stream_ckpt import install_stream_ckpt_metrics
+
+        # The KVBM tiers feed dynamo_prefix_cache_* (onboards, publishes)
+        # and dynamo_stream_ckpt_* (kvbm/metrics.py, kvbm/stream_ckpt.py).
+        install_prefix_cache_metrics(svc.metrics)
+        install_stream_ckpt_metrics(svc.metrics)
     if cfg.warmup_mode != "off":
         from dynamo_tpu_torch.obs.compile_ledger import install_compile_metrics
 

@@ -28,10 +28,12 @@ Three planes, all riding one process-global :class:`MemLedger`:
   ``dynamo_mem_headroom_observations_total{state}``, the counter pair
   behind the JAX package's fleet ``kv_headroom`` SLI.
 
-The port's engine pins ``stream`` blocks only (the scheduler's block
-tables); the other owner classes come with the sessions, KVBM tiers,
-stream checkpoints and disagg staging (ROADMAP Queue 1 item 12), and its
-live-id source reports them empty until then.
+The port's engine pins ``stream`` blocks (the scheduler's block tables),
+``session`` blocks (session retention) and the ``prefix_publish`` and
+``stream_ckpt`` queue blocks of the KVBM tiers, and its live-id source
+reports each from the store or queue that holds it; ``staging`` pins come
+with the disagg handoff, and the source reports that class empty. Every
+KVBM tier registers a tier row beside the device's.
 
 Disabled mode (``DYN_MEM_LEDGER=0``) flips ``MemLedger.enabled``; every
 call site gates on that flag BEFORE building any record, so a disabled

@@ -51,10 +51,17 @@ class EngineConfig:
     # per-(layer, block, kv head) f32 scales; int4 packs two nibbles a byte).
     kv_dtype: str = "bfloat16"
     enable_prefix_caching: bool = True
-    # KVBM tiers: G2 host blocks, G3 disk, G4 remote store.
+    # KVBM tiers: G2 host arena capacity in blocks (0 = disabled), an
+    # optional G3 disk tier (path + byte budget) and a G4 remote block
+    # store ("host:port" of a RemoteBlockServer), chained in that order.
+    # Device-evicted committed blocks write back down the chain, prompts
+    # onboard from any of them.
     host_kv_blocks: int = 0
     disk_kv_path: str | None = None
+    disk_kv_bytes: int = 1 << 30
     remote_kv_addr: str | None = None
+    # Publish committed prefix blocks to the remote store as they form, not
+    # only on eviction (needs remote_kv_addr).
     global_prefix_cache: bool = False
     # N-gram speculative decoding: 0 = off; spec_k = max proposed tokens
     # a verify step checks.
@@ -77,9 +84,20 @@ class EngineConfig:
     # Wall-seconds budget for full warmup (0 = unbounded); buckets past it
     # stay cold and count against coverage.
     warmup_deadline: float = 120.0
-    # Session-sticky KV retention seconds (0 = off).
+    # Session-sticky KV retention: when a stream carrying a session.id
+    # annotation finishes, its committed KV blocks stay pinned on the
+    # device for this many seconds of step time, so turn N+1 prefills only
+    # the new suffix. 0 = retention off.
     session_ttl: float = 0.0
-    # Crash-consistent stream checkpoint cadence (0 = off).
+    # On TTL expiry or pool pressure, stage a retained session's blocks
+    # down the KVBM tier ladder before unpinning, so a later turn can
+    # re-import them after device eviction. False drops the pins to plain
+    # LRU without the write-through.
+    session_tiers: bool = True
+    # Crash-consistent stream checkpoints: every N committed decode blocks
+    # (QoS-degraded: interactive 1x, standard 2x, batch 4x) a stream's
+    # blocks and a resumable record go to the remote store. 0 = off; needs
+    # remote_kv_addr.
     stream_ckpt_blocks: int = 0
 
     def mesh_shape(self) -> dict[str, int]:

@@ -301,10 +301,7 @@ def test_block_allocator_matches_jax():
 @pytest.mark.parametrize("setting", [
     dict(tp=2), dict(pp=2), dict(dp=2), dict(ep=2), dict(sp=2), dict(kv_dtype="fp8"),
     dict(quantization="int8"), dict(quantization="fp8"),
-    dict(spec_ngram=3, decode_window=4), dict(host_kv_blocks=8), dict(disk_kv_path="/nonexistent"),
-    dict(remote_kv_addr="localhost:1"), dict(session_ttl=5.0),
-    dict(global_prefix_cache=True), dict(stream_ckpt_blocks=4),
-    dict(warmup_mode="eager"), dict(warmup_deadline=-1.0), dict(kv_dtype="int2"),
+    dict(spec_ngram=3, decode_window=4), dict(warmup_mode="eager"), dict(warmup_deadline=-1.0), dict(kv_dtype="int2"),
 ])
 def test_unsupported_settings_raise(setting):
     with pytest.raises(ValueError, match="port|supported|exclusive|warmup"):
@@ -315,7 +312,7 @@ def test_unsupported_settings_raise(setting):
 
 @pytest.mark.parametrize("field", [
     "tokenizer", "dtype", "pp_microbatches", "kv_event_publishing",
-    "disk_kv_bytes", "attn_impl", "session_tiers", "ring_prefill_threshold",
+    "attn_impl", "ring_prefill_threshold",
 ])
 def test_settings_the_port_does_not_read_are_refused(field):
     """A JAX EngineConfig field that nothing in the port reads is not a

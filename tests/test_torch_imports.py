@@ -3,7 +3,7 @@
 package's other dependencies).
 
 In a subprocess whose ``sys.modules`` blocks ``jax``, ``dynamo_tpu`` and
-the packages the card's machine lacks, every module of
+the packages the card's machine lacks (msgpack among them), every module of
 ``dynamo_tpu_torch`` (frontend, preprocessor, parsers and launcher
 included) and ``chip_smoke.py`` import. And no import statement anywhere in
 their source, a deferred one inside a function included, names a blocked
@@ -19,7 +19,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "xxhash", "PIL", "grpc",
-           "transformers", "ml_dtypes")
+           "transformers", "ml_dtypes", "msgpack")
+#: modules the walk must reach (the KVBM tiers and their codec among them)
+MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
+               "dynamo_tpu_torch.kvbm.pools", "dynamo_tpu_torch.kvbm.transfer",
+               "dynamo_tpu_torch.kvbm.stream_ckpt", "dynamo_tpu_torch.kvbm.metrics",
+               "dynamo_tpu_torch.engine.session", "dynamo_tpu_torch.utils.msgpack")
 SOURCES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""
@@ -34,6 +39,7 @@ importlib.import_module("chip_smoke")
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BLOCKED!r}
                 and sys.modules[n] is not None)
 assert not leaked, leaked
+assert set({MUST_IMPORT!r}) <= set(mods), sorted(set({MUST_IMPORT!r}) - set(mods))
 print(len(mods))
 """
 
