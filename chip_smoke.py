@@ -195,17 +195,44 @@ if any phase fails:
     their records on a fresh engine, must equal an uninterrupted run token
     for token; a finished stream's record is gone.
 
+(a') tensor-parallel attention, right after (a): ``paged_attention_sharded``
+    (one launch a rank on that rank's heads, the per-rank launch of the
+    engine's ranks) at tp 2, 4 and 8 on all six routes, at the decode
+    shape and the 128-token prefill of (a): at the unsharded launch's split
+    count it must equal that launch bit for bit, with each rank's own split
+    choice keep the route's limit against the plain version, and launch
+    the route's kernel once a rank. Prints one rank's kernel time on its
+    local heads (also at the unsharded split count where the rank chooses
+    another), its bound, SDPA on the same heads and, at tp=2, the plain
+    version;
+(h) tensor parallelism at full width: llama-3-8b-lite at tp=2 as two
+    processes on cuda:0 over gloo (``dist_backend="gloo"``,
+    ``tp_devices=(0, 0)``, eager steps, an explicit KV pool), each rank
+    building the full weights from the seed and keeping its shard, through
+    ``build_engine`` and ``AsyncTorchEngine.generate``, 32 x (128 prompt +
+    64 greedy). Every rank's counts are set to 0 just before each run and
+    read just after: each rank must launch its route's kernel only, 8 a
+    forward step, on 16 of the 32 heads and 4 of the 8 kv heads. (h1) f32
+    weights over the f32 cache: every stream must equal a tp=1 engine's or
+    first differ at a near-tie; with two cards or more, again over nccl,
+    one card a rank (with one card a line says it was not run). (h2) bf16
+    over the bf16 and int8 caches: decode tok/s and TTFT beside (b)'s, and
+    each rank's milliseconds of collectives a step (no speed condition).
+
 Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
 per kernel instantiation (registers, spills), one JSON ``kernels`` line
 (an entry per kernel of ``ROUTES``, its launches counted in the run that
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
-verify case's time), and as its last line
+verify case's time; and a ``paged_attention_sharded`` entry: one rank's
+``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
+(h)), and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --only-g`` builds the kernels and runs (g) alone,
-and prints neither the kernels line nor the result line.
+and prints neither the kernels line nor the result line;
+``python3 chip_smoke.py --only-tp`` does the same for (a') and (h).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b) and (b') under
 ``torch.profiler`` and prints device time by kernel and the device's busy
@@ -2843,6 +2870,285 @@ def phase_kvbm(smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# (a) paged_attention_sharded: per-rank launches against the unsharded one
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel degrees phase (a) splits llama-3-8b-lite's 8 kv heads
+#: over (kv heads a rank: 4, 2, 1)
+TP_DEGREES = (2, 4, 8)
+#: the sharded cases: the main decode shape and the 128-token prefill
+SHARDED_PREFILL = "prefill B=32 T=128 kv 128"
+#: the sharded entry's source and the JAX function it replaces
+SHARDED_REPLACES = "dynamo_tpu/ops/paged_attention.py:467"
+
+
+def phase_sharded(bw: float, peak: float) -> dict:
+    """``ops.paged_attention.paged_attention_sharded`` at tp 2, 4 and 8 on
+    every route, at the main decode shape and the 128-token prefill: with
+    the split count forced to the unsharded launch's it must equal that
+    launch bit for bit (heads are independent: a CTA computes one (row,
+    kv head, split) alike however many heads the cache holds); with each
+    rank's own split choice (``num_splits_for`` on its local kv heads, as
+    JAX's shard_map'd call chooses) it must keep the route's limit against
+    the plain version. Each call must launch the route's kernel once a
+    rank. Times one rank's launch on its local heads (rank 0's shards),
+    its bound, SDPA on the same local heads and, at tp=2, the plain
+    version. Rows by route, then ``"{case} tp={tp}"``."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    lens = torch.randint(128, 193, (32,), generator=gen, device="cuda").tolist()
+    cases = {
+        MAIN_CASE: attention_case(gen, 32, 1, 16, [n - 1 for n in lens], [1] * 32),
+        SHARDED_PREFILL: attention_case(gen, 32, 128, 8, [0] * 32, [128] * 32),
+    }
+    results: dict[str, dict] = {route: {} for route in pa.ROUTE_KERNELS}
+    for name, (q32, k32, v32, bt, qs, kl) in cases.items():
+        k, v = k32.bfloat16(), v32.bfloat16()
+        for kind in KV_DTYPES:
+            kq, vq = (None, None) if kind == "float" else (quantize(k, kind), quantize(v, kind))
+            for q_dtype in Q_DTYPES:
+                q = q32.to(q_dtype)
+                kc, vc = (((k32, v32) if q_dtype == torch.float32 else (k, v))
+                          if kind == "float" else (kq, vq))
+                route = pa.ROUTES[(q_dtype, kind)]
+                kv_heads = (kc if kind == "float" else kc["q"]).shape[2]
+                ns = pa.num_splits_for(q, kv_heads, bt.shape[1], 0, kind)
+                whole = pa.paged_attention(q, kc, vc, bt, qs, kl, num_splits=ns)
+                ref = plain_by_rows(pa, q, kc, vc, bt, qs, kl, num_splits=ns).float()
+                rel, abs_ = err_limit(q_dtype)
+                limit = rel * ref.abs() + abs_
+                for tp in TP_DEGREES:
+                    pa.reset_launches()
+                    forced = pa.paged_attention_sharded(q, kc, vc, bt, qs, kl, tp=tp,
+                                                        num_splits=ns)
+                    auto = pa.paged_attention_sharded(q, kc, vc, bt, qs, kl, tp=tp)
+                    torch.cuda.synchronize()
+                    launches = dict(pa.paged_attention.launches_by_kernel)
+                    want = {r: (2 * tp if r == route else 0) for r in pa.ROUTE_KERNELS}
+                    bitwise = torch.equal(forced, whole)
+                    diff = (auto.float() - ref).abs()
+                    err, ratio = diff.max().item(), (diff / limit).max().item()
+                    ql = q.chunk(tp, dim=2)[0].contiguous()
+                    kr, vr = pa.shard_heads(kc, 0, tp), pa.shard_heads(vc, 0, tp)
+                    largs = (ql, kr, vr, bt, qs, kl)
+                    ns_rank = pa.num_splits_for(ql, kv_heads // tp, bt.shape[1], 0, kind)
+                    nbytes, ops = attention_work(ql, kr, bt, qs, kl)
+                    if q_dtype == torch.bfloat16:
+                        ops_s = ops / peak
+                    else:
+                        ops_s = min(ops / CARD_PEAK_F32, ops * F32_MMAS[kind] / peak)
+                    bytes_ms, ops_ms = nbytes / bw * 1e3, ops_s * 1e3
+                    row = {
+                        "route": route, "tp": tp, "heads": ql.shape[2],
+                        "kv_heads": kv_heads // tp, "num_splits_whole": ns,
+                        "num_splits_rank": ns_rank, "bitwise_at_equal_splits": bitwise,
+                        "launches": launches[route], "max_abs_err": err,
+                        "err_over_limit": ratio, "err_limit": [rel, abs_],
+                        "ms": time_ms(lambda: pa.paged_attention(*largs)),
+                        # the same launch at the unsharded launch's split count
+                        "ms_at_whole_splits": (
+                            time_ms(lambda: pa.paged_attention(*largs, num_splits=ns))
+                            if ns_rank != ns else None),
+                        "plain_ms": (time_ms(lambda: plain_by_rows(pa, *largs,
+                                                                   num_splits=ns_rank))
+                                     if tp == 2 else None),
+                        "library_ms": time_ms(library_fn(*largs)),
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    }
+                    results[route][f"{name} tp={tp}"] = row
+                    log(f"[a'] paged_attention_sharded {route} {name} tp={tp}: "
+                        + " ".join(f"{key}={row[key]}" for key in (
+                            "heads", "kv_heads", "num_splits_whole", "num_splits_rank",
+                            "bitwise_at_equal_splits", "launches", "err_over_limit", "ms",
+                            "ms_at_whole_splits", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")))
+                    if launches != want:
+                        raise AssertionError(f"sharded {route} {name} tp={tp}: launches "
+                                             f"{launches}, expected {want}")
+                    if not bitwise:
+                        raise AssertionError(
+                            f"sharded {route} {name} tp={tp}: at {ns} splits the per-rank "
+                            "launches differ from the unsharded launch")
+                    if not (ratio <= 1.0 and bool(torch.isfinite(auto.float()).all())):
+                        raise AssertionError(f"sharded {route} {name} tp={tp}: err/limit "
+                                             f"{ratio} with the ranks' own splits")
+                    del forced, auto, ql, kr, vr
+                del q, kc, vc, whole, ref, limit
+            del kq, vq
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# (h) tensor parallelism: llama-3-8b-lite at tp=2
+# ---------------------------------------------------------------------------
+
+#: (h)'s traffic: (b)'s 32 x (128 prompt + 64 greedy)
+TP_BATCH, TP_PROMPT, TP_DECODE = 32, 128, 64
+#: the KV pool of every (h) engine: ranks that share a card size it
+#: explicitly (32 rows of 13 blocks, and the trash block)
+TP_BLOCKS = 480
+
+
+def tp_engine(model: str, kv_dtype: str, tp: int, backend: str = "gloo",
+              devices: tuple[int, ...] = ()):
+    """An eager (warmup off) engine of ``model`` at ``tp`` for (h): random
+    weights from seed 0, every rank building the full tree and keeping its
+    shard."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    return build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=TP_BATCH, num_blocks=TP_BLOCKS,
+        max_model_len=TP_PROMPT + TP_DECODE + 16, prefill_chunk=TP_PROMPT,
+        kv_dtype=kv_dtype, allow_random_weights=True, warmup_mode="off",
+        tp=tp, dist_backend=backend, tp_devices=devices))
+
+
+def tp_run(tag: str, model: str, kv_dtype: str, tp: int, backend: str = "gloo",
+           devices: tuple[int, ...] = ()) -> tuple[dict, dict]:
+    """One (h) serving run: (b)'s traffic through ``AsyncTorchEngine``, all
+    requests entered before the first step. At tp > 1 every rank's counts
+    are set to 0 just before it and read just after, and every rank must
+    have launched its route's kernel only, once a layer and forward step,
+    over its local heads. Returns the run's numbers and its streams
+    {i: (tokens, logprobs)}."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    t0 = time.perf_counter()
+    engine = tp_engine(model, kv_dtype, tp, backend, devices)
+    core = engine.core
+    setup_s = time.perf_counter() - t0
+    cfg = core.model_cfg
+    hi = cfg.vocab_size - 5
+    reqs = {i: PreprocessedRequest(
+        token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(TP_PROMPT)],
+        stop_conditions=StopConditions(max_tokens=TP_DECODE, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0),
+        request_id=f"tp-{i}") for i in range(TP_BATCH)}
+    if tp > 1:
+        core.reset_tp_stats()
+    pa.reset_launches()
+    stats = (lambda eng: eng.run_in_core(lambda c: c.tp_stats())) if tp > 1 else None
+    t_start, first_at, done_at, streams, (_fin, ranks) = asyncio.run(
+        serve(engine, reqs, after=stats))
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    for i, (toks, lps) in streams.items():
+        if len(toks) != TP_DECODE or len(lps) != TP_DECODE:
+            raise AssertionError(f"{tag}: request {i}: {len(toks)} tokens, {len(lps)} "
+                                 f"logprobs, expected {TP_DECODE}")
+    q_dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    route = pa.ROUTES[(q_dtype, {"int8": "int8", "int4": "int4"}.get(kv_dtype, "float"))]
+    t_first, t_end = max(first_at.values()), max(done_at.values())
+    res = {"model": model, "kv_dtype": kv_dtype, "tp": tp, "backend": backend if tp > 1 else None,
+           "setup_s": setup_s, "ttft_all_s": t_first - t_start,
+           "decode_tok_s": TP_BATCH * (TP_DECODE - 1) / (t_end - t_first),
+           "wall_s": t_end - t_start, "route": route}
+    if tp > 1:
+        from dynamo_tpu_torch.parallel.mesh import local_heads
+
+        layers = cfg.num_layers
+        heads = local_heads(cfg, tp)
+        steps = {r["forward_steps"] for r in ranks}
+        for r in ranks:
+            want = {k: layers * r["forward_steps"] if k == route else 0
+                    for k in r["launches_by_kernel"]}
+            if (r["launches_by_kernel"] != want or r["forward_steps"] <= 0
+                    or (r["heads"], r["kv_heads"], r["cache_kv_heads"]) != (*heads, heads[1])):
+                raise AssertionError(f"{tag}: rank {r['rank']} launched "
+                                     f"{r['launches_by_kernel']} in {r['forward_steps']} "
+                                     f"forward steps on {r['heads']} heads / {r['kv_heads']} "
+                                     f"kv heads; expected {layers} of {route} a step on "
+                                     f"{heads[0]} / {heads[1]}")
+        if len(steps) != 1 or by_kernel != ranks[0]["launches_by_kernel"]:
+            raise AssertionError(f"{tag}: ranks ran {steps} forward steps; leader counts "
+                                 f"{by_kernel} against its report {ranks[0]}")
+        res["ranks"] = [{"rank": r["rank"], "launches": r["launches_by_kernel"][route],
+                         "forward_steps": r["forward_steps"], "heads": r["heads"],
+                         "kv_heads": r["kv_heads"], "collectives": r["collectives"],
+                         "collective_ms_per_step": 1e3 * r["collective_s"] / r["forward_steps"]}
+                        for r in ranks]
+        res["launches"] = sum(r["launches_by_kernel"][route] for r in ranks)
+        res["launches_per_rank_step"] = by_kernel[route] / ranks[0]["forward_steps"]
+    log(f"{tag} " + json.dumps(res))
+    del engine, core
+    free_engine()
+    return res, streams
+
+
+def compare_streams(tag: str, got: dict, ref: dict) -> tuple[int, list, list]:
+    """Streams equal to ``ref``'s, those that first differ at a near-tie
+    (|dlp| < NEAR_TIE between the two runs' log-probs of their chosen
+    tokens there), and the others."""
+    equal, ties, bad = 0, [], []
+    for i, (toks, lps) in got.items():
+        ref_toks, ref_lps = ref[i]
+        j = next((j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b), None)
+        if j is None:
+            equal += 1
+        elif abs(lps[j] - ref_lps[j]) < NEAR_TIE:
+            ties.append((i, j, abs(lps[j] - ref_lps[j])))
+        else:
+            bad.append((i, j, toks[j], ref_toks[j], lps[j], ref_lps[j]))
+    log(f"{tag}: streams equal: {equal} of {len(got)}; first differing at a near-tie "
+        f"(|dlp| < {NEAR_TIE}): {len(ties)} {ties}; otherwise: {len(bad)} {bad[:4]}")
+    return equal, ties, bad
+
+
+def phase_tp(smi: str, b_serve: dict, b_streams: dict) -> dict:
+    """(h) llama-3-8b-lite served at tp=2 as two processes on cuda:0 over
+    gloo (eager steps, an explicit KV pool): (h1) f32 weights over the f32
+    cache, every stream equal to tp=1's or first differing at a near-tie;
+    (h2) bf16 over the bf16 and int8 caches, decode tok/s and TTFT beside
+    (b)'s and the milliseconds a step spends in collectives (no speed
+    condition). With two cards or more, (h1) again over nccl, one card a
+    rank."""
+    free_engine()
+    t0 = time.perf_counter()
+    f32 = register_f32_model()
+    res: dict = {}
+    one, s_one = tp_run("[h1] f32 tp=1", f32, "bfloat16", 1)
+    two, s_two = tp_run("[h1] f32 tp=2 gloo, both ranks on cuda:0", f32, "bfloat16", 2,
+                        devices=(0, 0))
+    equal, ties, bad = compare_streams("[h1] f32 tp=2 against tp=1", s_two, s_one)
+    if bad:
+        raise AssertionError(f"[h1] {len(bad)} tp=2 streams leave tp=1's at no near-tie: "
+                             f"{bad[:4]}")
+    res["h1"] = {"tp1": one, "tp2": two, "equal": equal, "near_ties": len(ties)}
+    if torch.cuda.device_count() >= 2:
+        nccl, s_nccl = tp_run("[h1] f32 tp=2 nccl, cuda:0 and cuda:1", f32, "bfloat16", 2,
+                              backend="nccl")
+        equal, ties, bad = compare_streams("[h1] f32 tp=2 nccl against tp=1", s_nccl, s_one)
+        if bad:
+            raise AssertionError(f"[h1] nccl: {len(bad)} streams leave tp=1's at no near-tie")
+        res["h1_nccl"] = {"tp2": nccl, "equal": equal, "near_ties": len(ties)}
+    else:
+        log(f"[h1] the nccl configuration (one card a rank) was not run: this host has "
+            f"{torch.cuda.device_count()} CUDA device")
+    for kind in ("float", "int8"):
+        kv = KV_DTYPES[kind]
+        run, streams = tp_run(f"[h2] bf16 kv_dtype={kv} tp=2 gloo, both ranks on cuda:0",
+                              "llama-3-8b-lite", kv, 2, devices=(0, 0))
+        same = sum(streams[i][0] == b_streams[kind].get(i) for i in streams)
+        log(f"[h2] bf16 kv_dtype={kv} tp=2: decode tok/s {run['decode_tok_s']} against "
+            f"(b)'s {b_serve[kind]['decode_tok_s']}, TTFT (all 32) {run['ttft_all_s']} s "
+            f"against {b_serve[kind]['ttft_all_s']} s; collectives "
+            f"{[r['collective_ms_per_step'] for r in run['ranks']]} ms a step; greedy "
+            f"streams equal to (b)'s: {same} of {len(streams)} (bf16: no pass condition) "
+            f"on {smi}")
+        run["streams_equal_to_b"] = same
+        res[f"h2_{kv}"] = run
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[h] passed in {res['seconds']:.1f}s on {smi}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2872,7 +3178,15 @@ def main() -> int:
         phase_kvbm(smi)
         log(f"(g) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-tp"]:
+        # a rehearsal of (a)'s sharded cases and (h): no kernels or result line
+        phase_sharded(bw, peak)
+        b_serve = {kind: {"decode_tok_s": None, "ttft_all_s": None} for kind in KV_DTYPES}
+        phase_tp(smi, b_serve, {kind: {} for kind in KV_DTYPES})
+        log(f"(a) sharded and (h) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     kern = phase_kernels(bw, peak)
+    sharded = phase_sharded(bw, peak)
     profile = "--profile" in sys.argv[1:]
     serve, streams = {}, {}
     for kind in KV_DTYPES:
@@ -2896,6 +3210,7 @@ def main() -> int:
     phase_http_bf16(smi, serve["float"]["decode_tok_s"])
     phase_slo(smi, serve["float"]["decode_tok_s"])
     phase_kvbm(smi)
+    tp = phase_tp(smi, serve, streams)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -2924,6 +3239,26 @@ def main() -> int:
             "verify_ms": rows[verify_case(VERIFY_TS[-1])]["ms"], "tol": TOL,
             "err_limit": main_shape["err_limit"], "pass": True,
         })
+    # the per-rank launch: its numbers are one rank's mma_bf16 launch at
+    # tp=2 decode (KH=4, H=16); every route and degree is in (a)'s lines
+    main_tp = sharded[ROUTES[(torch.bfloat16, "float")]][f"{MAIN_CASE} tp=2"]
+    runs = [tp["h1"]["tp2"], tp["h2_bfloat16"], tp["h2_int8"]]
+    lines.append({
+        "name": "paged_attention_sharded", "route": "cuda", "source": SOURCE,
+        "replaces": SHARDED_REPLACES, "tp": 2,
+        "launches": sum(r["launches"] for r in runs),
+        "launched_in": "(h) tp=2, both ranks: " + ", ".join(
+            f"{r['route']} {r['launches']}" for r in runs),
+        "max_abs_err": max(r["max_abs_err"] for rows in sharded.values()
+                           for r in rows.values()),
+        "err_over_limit": max(r["err_over_limit"] for rows in sharded.values()
+                              for r in rows.values()),
+        "bitwise_at_equal_splits": all(r["bitwise_at_equal_splits"]
+                                       for rows in sharded.values() for r in rows.values()),
+        "ms": main_tp["ms"], "plain_ms": main_tp["plain_ms"],
+        "bound_ms": main_tp["bound_ms"], "bound_by": main_tp["bound_by"],
+        "library_ms": main_tp["library_ms"], "pass": True,
+    })
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -40,12 +40,16 @@ class KVCacheSpec:
 
     @classmethod
     def for_model(cls, cfg: ModelConfig, num_blocks: int, block_size: int,
-                  kv_dtype: str = "bfloat16") -> "KVCacheSpec":
+                  kv_dtype: str = "bfloat16", tp: int = 1) -> "KVCacheSpec":
+        """The cache of one rank of ``tp``: its share of the kv heads (so
+        ``bytes_per_block`` and ``allocate_cache`` are per rank)."""
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f"num_kv_heads={cfg.num_kv_heads} does not divide over tp={tp}")
         return cls(
             num_blocks=num_blocks,
             block_size=block_size,
             num_layers=cfg.num_layers,
-            num_kv_heads=cfg.num_kv_heads,
+            num_kv_heads=cfg.num_kv_heads // tp,
             head_dim=cfg.head_dim,
             dtype=cfg.dtype,
             kv_dtype=kv_dtype,

@@ -38,6 +38,13 @@ observation (occupancy, TTX, leak audit; obs/mem_ledger.py); a request
 carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
 ``engine.decode`` spans.
 
+Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis): the
+process that builds the ``EngineCore`` is rank 0, the leader, and starts
+the other ranks (engine/tp.py); every rank's ``ModelRunner`` holds its
+shard of the params and of the cache, the leader posts each program's
+key and broadcasts its inputs, and the ranks' forwards meet in the
+collectives of models/llama.py. Steps run eagerly.
+
 Memory beyond the card's KV pool, as the JAX engine has it: the KVBM tiers
 (host, disk, remote; kvbm/) write evicted blocks back and onboard cached
 prefixes at admission, session retention (engine/session.py) keeps a
@@ -99,6 +106,8 @@ from dynamo_tpu_torch.obs.profiler import phase as _perf_phase
 from dynamo_tpu_torch.obs.sched_ledger import HolStall, get_sched_ledger, step_geometry
 from dynamo_tpu_torch.obs.tracer import get_tracer, trace_context_of
 from dynamo_tpu_torch.ops import paged_attention as pa
+from dynamo_tpu_torch.parallel.collectives import TPGroup
+from dynamo_tpu_torch.parallel.mesh import shard_params
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -158,14 +167,42 @@ def check_supported(ec: EngineConfig) -> None:
         raise ValueError(
             "spec_ngram and decode_window>1 are mutually exclusive "
             "(both amortize dispatches over future tokens; pick one)")
+    tp = ec.tp > 1
     later = {
-        "tp/pp/dp/ep/sp > 1 (parallelism slice)":
-            any(v != 1 for v in ec.mesh_shape().values()),
+        "pp/dp/ep/sp > 1 (parallelism slice)":
+            any(v != 1 for k, v in ec.mesh_shape().items() if k != "model"),
         "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
+        # tp > 1 runs eager steps: a gloo collective cannot be captured in
+        # a CUDA graph (graph-captured TP over NCCL: ROADMAP Queue 1 item 14)
+        "tp > 1 with CUDA graphs (warmup_mode must be 'off')": tp and ec.warmup_mode != "off",
+        "tp > 1 with decode_window > 1": tp and ec.decode_window > 1,
+        "tp > 1 with the KVBM tiers (host_kv_blocks, disk_kv_path, remote_kv_addr)":
+            tp and bool(ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr),
+        "tp > 1 with sessions (session_ttl)": tp and ec.session_ttl > 0,
+        "tp > 1 with stream checkpoints or the global prefix cache":
+            tp and (ec.stream_ckpt_blocks > 0 or ec.global_prefix_cache),
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
+    if ec.tp < 1:
+        raise ValueError(f"tp must be >= 1, got {ec.tp}")
+    if ec.dist_backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown dist_backend {ec.dist_backend!r} (supported: gloo, nccl)")
+    if ec.tp_devices and len(ec.tp_devices) != ec.tp:
+        raise ValueError(f"tp_devices {ec.tp_devices} must name one card for each of "
+                         f"the tp={ec.tp} ranks")
+    if len(set(ec.tp_devices)) < len(ec.tp_devices):
+        # nccl refuses two ranks on one card; each rank would size its KV
+        # pool from free memory while the other is still allocating
+        if ec.dist_backend != "gloo":
+            raise ValueError(f"tp_devices {ec.tp_devices}: ranks that share a card need "
+                             f"dist_backend='gloo' (nccl takes one card a rank), got "
+                             f"{ec.dist_backend!r}")
+        if ec.num_blocks <= 0:
+            raise ValueError(f"tp_devices {ec.tp_devices}: ranks that share a card need an "
+                             "explicit num_blocks (sizing the pool from free memory would "
+                             "race between them)")
     if ec.quantization not in ("none", ""):
         raise ValueError(f"unknown quantization {ec.quantization!r} (supported: none)")
     if ec.kv_dtype not in ("bfloat16", "", "int8", "int4"):
@@ -275,13 +312,29 @@ class PendingStep:
 
 class ModelRunner:
     """Device-state owner + bucketed step dispatch through one
-    :class:`StepProgram` per bucket."""
+    :class:`StepProgram` per bucket.
+
+    Under tensor parallelism (``tp``, a rank's group) every rank has a
+    runner over its shard of the params and of the cache (its kv heads);
+    ``params``, when given, is that shard. The leader's dispatch posts
+    the step program's key to the followers and broadcasts the program's
+    inputs; each follower runs the same program in :meth:`follow`.
+    Sampling stays on the leader: a step's input tokens, the in-flight
+    ones read from ``slot_toks`` included, reach the followers by a
+    broadcast at the top of the step. Steps run eagerly (no graph)."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig, params=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, tp: TPGroup | None = None):
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         self.device = resolve_device(device)
+        self.tp = tp
+        rank, size = (tp.rank, tp.size) if tp is not None else (0, 1)
+        #: False on a follower: it runs each step's forward, not its sampling
+        self.samples = tp is None or tp.leader
+        #: step programs are CUDA graphs on the card, eager on the CPU and
+        #: under tensor parallelism
+        self.graphs = self.device.type == "cuda" and tp is None
         if params is not None:
             self.params = params
         else:
@@ -289,7 +342,8 @@ class ModelRunner:
             from dynamo_tpu_torch.models.loader import has_weights, load_params
 
             if has_weights(engine_cfg.model):
-                self.params = load_params(cfg, engine_cfg.model, device=self.device)
+                self.params = load_params(cfg, engine_cfg.model, device=self.device,
+                                          rank=rank, tp=size)
             else:
                 if engine_cfg.model not in MODEL_PRESETS:
                     # A real model PATH without safetensors: serving random
@@ -303,11 +357,18 @@ class ModelRunner:
                             "serve RANDOM weights (tests/benches only)")
                     log.warning("%s has no *.safetensors weights: engine will "
                                 "serve RANDOM weights", engine_cfg.model)
-                self.params = llama.init_params(cfg, seed=engine_cfg.seed,
-                                                device=self.device)
+                # every rank draws the full tree from the seed and keeps
+                # its shard; the full tree is freed before the cache exists
+                self.params = shard_params(
+                    llama.init_params(cfg, seed=engine_cfg.seed, device=self.device),
+                    cfg, rank, size)
+                if size > 1 and self.device.type == "cuda":
+                    torch.cuda.empty_cache()
         num_blocks = engine_cfg.num_blocks or self._auto_num_blocks()
+        if tp is not None:
+            num_blocks = tp.agree_min(num_blocks)   # JAX's multihost hello does the same
         self.spec = KVCacheSpec.for_model(cfg, num_blocks, engine_cfg.block_size,
-                                          kv_dtype=engine_cfg.kv_dtype)
+                                          kv_dtype=engine_cfg.kv_dtype, tp=size)
         self.cache_k, self.cache_v = allocate_cache(self.spec, self.device)
         maxb = engine_cfg.max_batch_size
         dev = self.device
@@ -337,7 +398,7 @@ class ModelRunner:
         self._mm_mask: torch.Tensor | None = None
         # embed buckets (b, t) run so far (ledger: first use of each)
         self._embed_buckets: set[tuple[int, int]] = set()
-        if dev.type == "cuda":
+        if self.graphs:
             self.graph_pool = torch.cuda.graph_pool_handle()
             self.capture_stream = torch.cuda.Stream(dev)
 
@@ -349,7 +410,8 @@ class ModelRunner:
         if self.device.type == "cuda":
             free, _total = torch.cuda.mem_get_info(self.device)
             budget = int(free * 0.85)
-        spec = KVCacheSpec.for_model(self.cfg, 1, ec.block_size, kv_dtype=ec.kv_dtype)
+        spec = KVCacheSpec.for_model(self.cfg, 1, ec.block_size, kv_dtype=ec.kv_dtype,
+                                     tp=ec.tp)
         n = max(budget // spec.bytes_per_block(), 16) if budget > 0 else 512
         cap = (ec.max_model_len // ec.block_size) * ec.max_batch_size + 1
         return int(min(n, cap))
@@ -551,6 +613,8 @@ class ModelRunner:
             # capture and the graph's instantiation.
             led.mark_inflight(True)
             t_capture = time.perf_counter()
+        if self.tp is not None:   # before step_fn: a new program's warm run is collective
+            self.tp.post("step", (b, t, nblk, window, fast_greedy, mm, masked))
         prog = self.step_fn(b, t, nblk, window, fast_greedy, mm, masked)
         if cold:
             led.mark_inflight(False)
@@ -586,14 +650,19 @@ class ModelRunner:
         # an in-flight step read it from slot_toks (stream order guarantees
         # the producing step has run).
         tokens[:, 0] = torch.where(from_slot.bool(), self.slot_toks[slots_l], tokens[:, 0])
+        if self.tp is not None:
+            self.tp.broadcast(tokens)   # the leader's tokens, sampled ones included
         toks_w, lps_w = [], []
         for j in range(window):
             hidden = llama.forward(self.params, cfg, tokens if j == 0 else toks_w[-1][:, None],
                                    q_start if j == 0 else q_start + j, q_len, bt,
                                    self.cache_k, self.cache_v,
                                    attn_num_splits=self.engine_cfg.attn_num_splits,
-                                   embed_override=emb_override, embed_mask=emb_mask)
-            logits = llama.logits_from_hidden(self.params, cfg, hidden).float()
+                                   embed_override=emb_override, embed_mask=emb_mask,
+                                   tp=self.tp)
+            logits = llama.logits_from_hidden(self.params, cfg, hidden, self.tp).float()
+            if not self.samples:   # a follower's step ends here; its outputs go unread
+                return tokens[:, 0], logits[:, 0]
             if logit_mask is not None:
                 logits = logits.masked_fill(~logit_mask, NEG_INF)
             with _perf_phase("sampling"):
@@ -662,6 +731,8 @@ class ModelRunner:
         if cold:
             led.mark_inflight(True)
             t_capture = time.perf_counter()
+        if self.tp is not None:
+            self.tp.post("verify", (b, t, nblk))
         prog = self.verify_fn(b, t, nblk)
         if cold:
             led.mark_inflight(False)
@@ -686,8 +757,9 @@ class ModelRunner:
         hidden = llama.forward(self.params, self.cfg, tokens, q_start, q_len, bt,
                                self.cache_k, self.cache_v,
                                attn_num_splits=self.engine_cfg.attn_num_splits,
-                               return_all_hidden=True)
-        logits = llama.logits_from_hidden(self.params, self.cfg, hidden).float()  # [B, t, V]
+                               return_all_hidden=True, tp=self.tp)
+        logits = llama.logits_from_hidden(self.params, self.cfg, hidden,
+                                          self.tp).float()  # [B, t, V]
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         lps = torch.log_softmax(logits, dim=-1).gather(-1, toks.long()[..., None])[..., 0]
         return toks, lps
@@ -711,7 +783,6 @@ class ModelRunner:
         # Bounded bucket ladder, as the JAX runner's: client batch sizes
         # do not make unbounded bucket shapes.
         b = _bucket(n, (1, 2, 4, 8, 16, 32, 64))
-        nblk = -(-t // ec.block_size)
         cold = self._ledger.enabled and (b, t) not in self._embed_buckets
         t0 = time.perf_counter()
         tokens = np.zeros((b, t), np.int32)
@@ -720,22 +791,87 @@ class ModelRunner:
             tokens[i, : len(ts)] = ts
             q_len[i] = len(ts)
         dev = self.device
-        # block 0 is the padding tokens' trash block; row i owns blocks
-        # 1 + i*nblk .. (i+1)*nblk
-        shape = (cfg.num_layers, b * nblk + 1, ec.block_size, cfg.num_kv_heads, cfg.head_dim)
-        ck = torch.zeros(shape, dtype=llama.torch_dtype(cfg.dtype), device=dev)
-        cv = torch.zeros_like(ck)
-        bt = torch.arange(1, b * nblk + 1, dtype=torch.int32, device=dev).view(b, nblk)
-        hidden = llama.forward(self.params, cfg, torch.from_numpy(tokens).to(dev),
-                               torch.zeros((b,), dtype=torch.int32, device=dev),
-                               torch.from_numpy(q_len).to(dev), bt, ck, cv,
-                               attn_num_splits=ec.attn_num_splits)
+        if self.tp is not None:
+            self.tp.post("embed", (b, t))
+        hidden = self._embed_forward(torch.from_numpy(tokens).to(dev),
+                                     torch.from_numpy(q_len).to(dev))
         out = hidden[:n].float().cpu().numpy()
         self._embed_buckets.add((b, t))
         if cold:
             self._ledger.record(BucketSig("embed", b, t, 0, True, ec.kv_dtype or "bfloat16"),
                                 time.perf_counter() - t0)
         return out
+
+    def _embed_forward(self, tokens: torch.Tensor, q_len: torch.Tensor) -> torch.Tensor:
+        """The embedding call's forward over [b, t] tokens on a zeroed cache
+        made for it (this rank's kv heads); under tensor parallelism the
+        leader's tokens and lengths are broadcast first."""
+        ec, cfg = self.engine_cfg, self.cfg
+        b, t = tokens.shape
+        if self.tp is not None:
+            self.tp.broadcast(tokens)
+            self.tp.broadcast(q_len)
+        nblk = -(-t // ec.block_size)
+        dev = self.device
+        # block 0 is the padding tokens' trash block; row i owns blocks
+        # 1 + i*nblk .. (i+1)*nblk
+        shape = (cfg.num_layers, b * nblk + 1, ec.block_size, self.spec.num_kv_heads,
+                 cfg.head_dim)
+        ck = torch.zeros(shape, dtype=llama.torch_dtype(cfg.dtype), device=dev)
+        cv = torch.zeros_like(ck)
+        bt = torch.arange(1, b * nblk + 1, dtype=torch.int32, device=dev).view(b, nblk)
+        return llama.forward(self.params, cfg, tokens,
+                             torch.zeros((b,), dtype=torch.int32, device=dev),
+                             q_len, bt, ck, cv, attn_num_splits=ec.attn_num_splits,
+                             tp=self.tp)
+
+    # -- tensor parallelism: a follower's loop ----------------------------
+    def follow(self) -> None:
+        """A follower's loop: run the leader's programs on this rank's
+        shard, one message of the leader's at a time, until ``stop``.
+        Programs are made on first use, as the leader makes them, so a new
+        program's warm run meets the leader's; its inputs arrive by
+        broadcast (:meth:`StepProgram.follow`)."""
+        dev = self.device
+        while True:
+            op, *args = self.tp.recv()
+            if op == "stop":
+                return
+            if op == "step":
+                self.step_fn(*args[0]).follow()
+            elif op == "verify":
+                self.verify_fn(*args[0]).follow()
+            elif op == "embed":
+                b, t = args[0]
+                self._embed_forward(torch.zeros((b, t), dtype=torch.int32, device=dev),
+                                    torch.zeros((b,), dtype=torch.int32, device=dev))
+            elif op == "stats":
+                self.tp.reply("stats", self.tp_stats())
+            elif op == "reset_stats":
+                self.reset_tp_stats()
+            else:
+                raise ValueError(f"unknown tensor-parallel op {op!r}")
+
+    def reset_tp_stats(self) -> None:
+        """Set this rank's launch counts, program calls and collective
+        counters to 0."""
+        pa.reset_launches()
+        self.tp.reset_stats()
+        for prog in self.programs.values():
+            prog.calls = 0
+
+    def tp_stats(self) -> dict:
+        """This rank's count of kernel launches by kernel, forward steps
+        (program calls), collectives and their host seconds since the last
+        ``reset_stats``, and its local head counts."""
+        layers = self.params["layers"]
+        d = self.cfg.head_dim
+        return {"rank": self.tp.rank,
+                "launches_by_kernel": dict(pa.paged_attention.launches_by_kernel),
+                "forward_steps": sum(p.calls for p in self.programs.values()),
+                "collectives": self.tp.collectives, "collective_s": self.tp.collective_s,
+                "heads": layers["wq"].shape[-1] // d, "kv_heads": layers["wk"].shape[-1] // d,
+                "cache_kv_heads": self.spec.num_kv_heads}
 
     # -- bucket warmup ---------------------------------------------------
     def warmup(self, sigs: list[BucketSig], deadline_s: float = 0.0) -> dict:
@@ -835,8 +971,9 @@ class StepProgram:
     host inputs into the static buffers, replays the graph, and right after
     the replay, on the same stream, copies its static outputs (``toks``,
     ``lps``) into fresh pinned host tensors behind an event — before any
-    other graph of the pool can reuse their memory. On the CPU nothing is
-    captured: a call runs the body eagerly on the same static buffers.
+    other graph of the pool can reuse their memory. On the CPU and under
+    tensor parallelism nothing is captured: a call runs the body eagerly
+    on the same static buffers (a leader's call broadcasts them first).
 
     Kernel launches: the warm run's are not counted, the capture's are
     recorded (``launches``, by kernel) and every call counts them once
@@ -875,7 +1012,7 @@ class StepProgram:
         return self.runner._body(ints, floats, *self.shape, emb, emb_mask, logit_mask)
 
     def _warm(self) -> None:
-        if self.runner.device.type != "cuda":
+        if not self.runner.graphs:
             self._run()
             return
         side = self.runner.capture_stream
@@ -885,7 +1022,7 @@ class StepProgram:
         torch.cuda.current_stream(self.runner.device).wait_stream(side)
 
     def _capture(self) -> None:
-        if self.runner.device.type != "cuda":
+        if not self.runner.graphs:
             return
         self.graph = torch.cuda.CUDAGraph()
         # No garbage collection while capturing: a collected program of an
@@ -925,6 +1062,9 @@ class StepProgram:
             # A fresh pinned tensor per step: the previous step's
             # non-blocking copy may not have run yet.
             static.copy_(host.pin_memory() if cuda else host, non_blocking=cuda)
+        if self.runner.tp is not None:
+            for static in self.inputs:
+                self.runner.tp.broadcast(static)
         toks, lps = self._replay()
         pa.count_launches(self.launches)
         self.calls += 1
@@ -937,6 +1077,14 @@ class StepProgram:
         event = torch.cuda.Event(enable_timing=True)
         event.record()
         return StepOutputs(toks_h, lps_h, event, started)
+
+    def follow(self) -> None:
+        """A follower's call: the static inputs are the leader's, by
+        broadcast; the outputs are the leader's to sample."""
+        for static in self.inputs:
+            self.runner.tp.broadcast(static)
+        self._replay()
+        self.calls += 1
 
 
 class VerifyProgram(StepProgram):
@@ -1023,8 +1171,24 @@ class EngineCore:
             self.chunk_by_qos = {qos: engine_cfg.prefill_chunk
                                  for qos in cm.QOS_ITL_SLO_SCALE}
         self.sched_led.set_prefill_chunks(self.chunk_by_qos)
-        self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
-                                  device=device)
+        # Tensor parallelism: this process is rank 0, the leader; the
+        # followers start here and hold their shards of params and cache.
+        self._tp_followers = None
+        tp_group = None
+        if engine_cfg.tp > 1:
+            from dynamo_tpu_torch.engine.tp import start_tp
+
+            tp_group, self._tp_followers, params = start_tp(
+                engine_cfg, self.model_cfg, device, params)
+            device = tp_group.device
+        try:
+            self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
+                                      device=device, tp=tp_group)
+        except BaseException:
+            if tp_group is not None:
+                self._tp_followers.stop()
+                tp_group.close()
+            raise
         if engine_cfg.warmup_mode != "off":
             get_compile_ledger().set_plan(enumerate_buckets(engine_cfg))
         self.pool = PrefixPool(self.runner.spec.num_blocks, engine_cfg.block_size,
@@ -1916,10 +2080,17 @@ class EngineCore:
             self._transfer = BlockTransferEngine()
         return self._transfer
 
+    def _no_blocks_under_tp(self) -> None:
+        if self.runner.tp is not None:
+            raise ValueError("not supported by the torch port yet: tp > 1 with block "
+                             "export/import (each rank holds its own kv heads: "
+                             "kvbm/distributed.py, ROADMAP Queue 1 item 14)")
+
     def export_blocks(self, seq_hashes: list[int]) -> list[tuple[int, int | None, np.ndarray]]:
         """Gather the device-resident prefix of a hash chain off the device
         as ``(seq_hash, parent_hash, host block)`` — the prefill side of
         disaggregated serving."""
+        self._no_blocks_under_tp()
         ids, kept = [], []
         parent: int | None = None
         for h in seq_hashes:
@@ -1942,6 +2113,7 @@ class EngineCore:
         hashes already on the device are skipped (and MRU-protected)."""
         from dynamo_tpu_torch.kvbm.offload import inject_and_commit, plan_onboard
 
+        self._no_blocks_under_tp()
         by_hash = {h: data for h, _, data in plan}
         filtered = plan_onboard(self.pool, [h for h, _, _ in plan], by_hash.get)
         flush = self.kvbm.flush_pending if self.kvbm is not None else None
@@ -1960,6 +2132,30 @@ class EngineCore:
         """Last-token-pooled embeddings [N, H] f32 (engine-core thread only;
         ``ModelRunner.embed``)."""
         return self.runner.embed(token_lists)
+
+    # -- tensor parallelism ------------------------------------------------
+    def tp_stats(self) -> list[dict]:
+        """Every rank's ``ModelRunner.tp_stats``, in rank order (between
+        steps: on the engine-core thread once it runs)."""
+        tp = self.runner.tp
+        if tp is None:
+            raise ValueError("tp_stats: this engine is not tensor-parallel")
+        tp.post("stats")
+        return [self.runner.tp_stats(), *self._tp_followers.replies("stats")]
+
+    def reset_tp_stats(self) -> None:
+        """Set every rank's launch counts, program calls and collective
+        counters to 0."""
+        self.runner.tp.post("reset_stats")
+        self.runner.reset_tp_stats()
+
+    def close(self) -> None:
+        """Stop a tensor-parallel engine's followers and leave its group;
+        nothing to do at tp=1. Idempotent."""
+        followers, self._tp_followers = self._tp_followers, None
+        if followers is not None:
+            followers.stop()
+            self.runner.tp.close()
 
     def fail_all(self, error: str) -> list[str]:
         """Abort every in-flight request (engine-fatal path). Returns the
@@ -1999,6 +2195,8 @@ class AsyncTorchEngine:
         self._wake.set()
         if self._started:
             await asyncio.get_running_loop().run_in_executor(None, self._thread.join, 5.0)
+        # a tensor-parallel engine's followers stop once the loop is done
+        await asyncio.get_running_loop().run_in_executor(None, self.core.close)
         # A dead engine must not keep vouching for its pins: drop its
         # live-id source so anything it leaked surfaces in the next audit.
         self.core.mem_led.unregister_live_source(self.core._mem_source_key)

@@ -21,6 +21,9 @@ Examples:
         --device cpu --spec-ngram 2 --spec-k 4 --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
         --allow-random-weights --prefill-chunk 0 --itl-slo-ms 50 --max-model-len 2048
+    python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
+        --allow-random-weights --tp 2 --dist-backend gloo --tp-devices 0,0 \
+        --num-blocks 2048 --warmup-mode off
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 &
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
         --device cpu --num-blocks 64 --host-kv-blocks 256 --disk-kv-path /tmp/kv \
@@ -113,6 +116,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "pauses a cycle before each verify (ROADMAP Queue 1)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="max proposed tokens per verify step")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks, one process each (this process is "
+                        "rank 0); heads, kv heads and FFN width must divide by it. "
+                        "Steps run eagerly: it needs --warmup-mode off, and refuses "
+                        "--decode-window > 1, the KV tiers and sessions")
+    p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                   help="torch.distributed backend of --tp: nccl takes one card a "
+                        "rank; ranks that share a card need gloo")
+    p.add_argument("--tp-devices", default=None,
+                   help="comma-separated card index of each rank (default rank r on "
+                        "cuda:r); ranks that share a card need --dist-backend gloo "
+                        "and an explicit --num-blocks")
     p.add_argument("--host-kv-blocks", type=int, default=0, help="G2 host KV tier capacity")
     p.add_argument("--session-ttl", type=float, default=0.0,
                    help="session-sticky KV retention: seconds a finished "
@@ -165,6 +180,9 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         remote_kv_addr=ns.remote_kv_addr,
         session_ttl=ns.session_ttl,
         session_tiers=not ns.no_session_tiers,
+        tp=ns.tp,
+        dist_backend=ns.dist_backend,
+        tp_devices=tuple(int(d) for d in ns.tp_devices.split(",")) if ns.tp_devices else (),
     )
     return build_engine(cfg, device=ns.device), cfg
 

@@ -18,11 +18,19 @@
 - **Attention** goes through ``ops.paged_attention``: the CUDA kernel on
   the card, its plain version on the CPU. The large products stay
   ``torch.matmul``, as the JAX package left them to XLA.
+- **Tensor parallelism** (a ``TPGroup``, parallel/collectives.py): each
+  rank holds its shard of the params (parallel/mesh.py) and of the cache
+  (its kv heads); the local head counts come from the weights' shapes.
+  Every rank launches the attention kernel over its own heads — the
+  port's ``paged_attention_sharded`` — and the partial products of ``wo``
+  and ``w_down`` are summed across ranks where GSPMD puts JAX's psum. The
+  embedding and the logits are vocab-parallel. With no group the code is
+  the one-device forward.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +45,9 @@ from dynamo_tpu_torch.ops.paged_attention import (
 )
 from dynamo_tpu_torch.ops.paged_attention import paged_attention as paged_attention_kernel
 from dynamo_tpu_torch.utils.device import resolve_device
+
+if TYPE_CHECKING:
+    from dynamo_tpu_torch.parallel.collectives import TPGroup
 
 Params = dict[str, Any]
 
@@ -243,8 +254,18 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(embed: torch.Tensor, token_ids: torch.Tensor,
-                 dt: torch.dtype) -> torch.Tensor:
-    return embed[token_ids.long()].to(dt)
+                 dt: torch.dtype, tp: "TPGroup | None" = None) -> torch.Tensor:
+    """Embedding rows of ``token_ids``. Vocab-parallel under ``tp``: this
+    rank's piece of the table holds rows ``[rank * per, (rank + 1) * per)``;
+    a token outside it looks up zeros, and the sum over ranks is the one
+    rank's row, bit for bit."""
+    if tp is None:
+        return embed[token_ids.long()].to(dt)
+    per = embed.shape[0]
+    local = token_ids.long() - tp.rank * per
+    mine = (local >= 0) & (local < per)
+    rows = embed[local.clamp(0, per - 1)].to(dt)
+    return tp.all_reduce_sum(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -267,6 +288,7 @@ def forward(params: Params, cfg: ModelConfig,
             return_all_hidden: bool = False,
             embed_override: torch.Tensor | None = None,  # [B, T, H] multimodal embeds
             embed_mask: torch.Tensor | None = None,      # [B, T] True → use override
+            tp: "TPGroup | None" = None,                 # this rank's group
             ) -> torch.Tensor:
     """One engine step. Returns the final-norm hidden state at each row's
     last valid query token [B, H] (or at every token [B, T, H] with
@@ -277,7 +299,8 @@ def forward(params: Params, cfg: ModelConfig,
 
     Query token t of row b sits at position q_start[b] + t; its KV goes to
     the cache slot its block table names; attention sees every cache
-    position ≤ its own and < q_start + q_len."""
+    position ≤ its own and < q_start + q_len. Under ``tp`` the params and
+    the caches are this rank's shards."""
     b, t = token_ids.shape
     bs = _cache_block_size(cache_k)
     dev = token_ids.device
@@ -291,15 +314,17 @@ def forward(params: Params, cfg: ModelConfig,
     bt32 = block_tables.to(torch.int32).contiguous()
     qs32 = q_start.to(torch.int32).contiguous()
 
-    hid = embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype))  # [B, T, H]
+    hid = embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype), tp)  # [B, T, H]
     if embed_override is not None:
         hid = torch.where(embed_mask[..., None], embed_override.to(hid.dtype), hid)
     layers = params["layers"]
+    d = cfg.head_dim
+    heads, kv_heads = layers["wq"].shape[-1] // d, layers["wk"].shape[-1] // d
     for li in range(cfg.num_layers):
         x = rms_norm(hid, layers["attn_norm"][li], cfg.rms_norm_eps)
-        q = mm(x, layers["wq"][li]).reshape(b, t, cfg.num_heads, cfg.head_dim)
-        k = mm(x, layers["wk"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = mm(x, layers["wv"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        q = mm(x, layers["wq"][li]).reshape(b, t, heads, d)
+        k = mm(x, layers["wk"][li]).reshape(b, t, kv_heads, d)
+        v = mm(x, layers["wv"][li]).reshape(b, t, kv_heads, d)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         ck, cv = _layer_cache(cache_k, li), _layer_cache(cache_v, li)
@@ -312,10 +337,11 @@ def forward(params: Params, cfg: ModelConfig,
         with _perf_phase("attention"):
             attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
                                           num_splits=attn_num_splits)
-        hid = hid + mm(attn.reshape(b, t, cfg.q_size), layers["wo"][li])
+        out = mm(attn.reshape(b, t, heads * d), layers["wo"][li])
+        hid = hid + (out if tp is None else tp.all_reduce_sum(out))
         x = rms_norm(hid, layers["mlp_norm"][li], cfg.rms_norm_eps)
-        hid = hid + swiglu(x, layers["w_gate"][li], layers["w_up"][li],
-                           layers["w_down"][li])
+        out = swiglu(x, layers["w_gate"][li], layers["w_up"][li], layers["w_down"][li])
+        hid = hid + (out if tp is None else tp.all_reduce_sum(out))
     h = rms_norm(hid, params["final_norm"], cfg.rms_norm_eps)
     if return_all_hidden:
         return h
@@ -323,10 +349,14 @@ def forward(params: Params, cfg: ModelConfig,
     return h[torch.arange(b, device=dev), last_idx]                   # [B, H]
 
 
-def logits_from_hidden(params: Params, cfg: ModelConfig,
-                       hidden: torch.Tensor) -> torch.Tensor:
-    """Project hidden [B, H] → logits [B, V] (tied or separate lm head)."""
+def logits_from_hidden(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+                       tp: "TPGroup | None" = None) -> torch.Tensor:
+    """Project hidden [..., H] → logits [..., V] (tied or separate lm head).
+    Under ``tp`` each rank projects onto its vocab piece and the pieces are
+    gathered (``TPGroup.gather_vocab``)."""
     with _perf_phase("logits"):
         if cfg.tie_word_embeddings:
-            return hidden @ params["embed"].T
-        return mm(hidden, params["lm_head"])
+            logits = hidden @ params["embed"].T
+        else:
+            logits = mm(hidden, params["lm_head"])
+        return logits if tp is None else tp.gather_vocab(logits, cfg.vocab_size)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.parallel.mesh import pad_dim, param_logical_axes, shard_bounds
 from dynamo_tpu_torch.utils.device import resolve_device
 from dynamo_tpu_torch.utils.logging import get_logger
 
@@ -69,7 +70,9 @@ class SafetensorsFile:
     def names(self) -> list[str]:
         return list(self.header)
 
-    def tensor(self, name: str) -> torch.Tensor:
+    def tensor(self, name: str, index: tuple[slice, ...] = ()) -> torch.Tensor:
+        """The tensor ``name``, or only its ``index`` slice of the stored
+        layout (only those bytes are copied out of the mapped file)."""
         meta = self.header[name]
         np_dt, dt = _ST_DTYPES[meta["dtype"]]
         shape = meta["shape"]
@@ -77,7 +80,7 @@ class SafetensorsFile:
         count = int(np.prod(shape)) if shape else 1
         arr = np.frombuffer(self._mm, dtype=np_dt, count=count,
                             offset=self._base + start).reshape(shape)
-        return _to_tensor(arr, dt)
+        return _to_tensor(arr[index], dt)
 
 
 class CheckpointReader:
@@ -113,8 +116,11 @@ class CheckpointReader:
     def names(self) -> list[str]:
         return list(self._where)
 
-    def get(self, name: str) -> torch.Tensor:
-        return self._file(self._where[name]).tensor(name)
+    def shape(self, name: str) -> list[int]:
+        return self._file(self._where[name]).header[name]["shape"]
+
+    def get(self, name: str, index: tuple[slice, ...] = ()) -> torch.Tensor:
+        return self._file(self._where[name]).tensor(name, index)
 
 
 def has_weights(model_dir: str | Path) -> bool:
@@ -145,43 +151,58 @@ _LAYER_SPECS: dict[str, tuple[str, bool]] = {
 }
 
 
-def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader,
-                      dtype: torch.dtype) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
+def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.dtype,
+                      rank: int = 0, tp: int = 1
+                      ) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
     """Yield ((path), stacked CPU tensor) for every model parameter; layer
-    params are stacked into [L, ...] one layer at a time."""
+    params are stacked into [L, ...] one layer at a time. With ``tp > 1``
+    each leaf is rank ``rank``'s shard (parallel/mesh.py), and only that
+    slice of each checkpoint tensor is read."""
     if cfg.is_moe:
         raise NotImplementedError(
             "MoE checkpoints are not ported yet (ROADMAP: MoE slice)")
+    axes = param_logical_axes(cfg)
 
-    def grab(name: str, transpose: bool) -> torch.Tensor:
+    def grab(name: str, transpose: bool, leaf_axes: tuple) -> torch.Tensor:
         if name not in reader:
             raise KeyError(f"checkpoint is missing tensor {name!r}; "
                            "config/checkpoint mismatch?")
-        t = reader.get(name)
-        return (t.T if transpose else t).to(dtype).contiguous()
+        # the shard's bounds on our [in, out] layout, read from HF's [out, in]
+        stored = reader.shape(name)
+        ours = stored[::-1] if transpose else stored
+        bounds = [shard_bounds(n, ax, rank, tp) for n, ax in zip(ours, leaf_axes)]
+        index = tuple(slice(lo, hi) for lo, hi, _ in bounds)
+        t = reader.get(name, index[::-1] if transpose else index)
+        t = t.T if transpose else t
+        for dim, (_lo, _hi, per) in enumerate(bounds):
+            t = pad_dim(t, dim, per)
+        return t.to(dtype).contiguous()
 
-    yield ("embed",), grab("model.embed_tokens.weight", False)
-    yield ("final_norm",), grab("model.norm.weight", False)
+    yield ("embed",), grab("model.embed_tokens.weight", False, axes["embed"])
+    yield ("final_norm",), grab("model.norm.weight", False, axes["final_norm"])
     if not cfg.tie_word_embeddings:
-        yield ("lm_head",), grab("lm_head.weight", True)
+        yield ("lm_head",), grab("lm_head.weight", True, axes["lm_head"])
     for our, (suffix, transpose) in _LAYER_SPECS.items():
-        first = grab(f"model.layers.0.{suffix}", transpose)
+        leaf_axes = axes["layers"][our][1:]
+        first = grab(f"model.layers.0.{suffix}", transpose, leaf_axes)
         out = torch.empty((cfg.num_layers, *first.shape), dtype=dtype)
         out[0] = first
         for i in range(1, cfg.num_layers):
-            out[i] = grab(f"model.layers.{i}.{suffix}", transpose)
+            out[i] = grab(f"model.layers.{i}.{suffix}", transpose, leaf_axes)
         yield ("layers", our), out
 
 
 def load_params(cfg: ModelConfig, model_dir: str | Path,
-                device: str | torch.device | None = None) -> Params:
+                device: str | torch.device | None = None, rank: int = 0,
+                tp: int = 1) -> Params:
     """Load an HF llama-family checkpoint into the port's params dict, at
-    ``cfg.dtype``, on ``device`` (default: the CUDA card)."""
+    ``cfg.dtype``, on ``device`` (default: the CUDA card): with ``tp > 1``
+    rank ``rank``'s shard, reading only its slice of each tensor."""
     dev = resolve_device(device)
     reader = CheckpointReader(model_dir)
     params: Params = {}
     n_bytes = 0
-    for path, t in iter_param_leaves(cfg, reader, getattr(torch, cfg.dtype)):
+    for path, t in iter_param_leaves(cfg, reader, getattr(torch, cfg.dtype), rank, tp):
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -198,7 +219,8 @@ def load_params(cfg: ModelConfig, model_dir: str | Path,
 
 def from_jax_params(params_np: Params, device: str | torch.device | None = None) -> Params:
     """The JAX package's params pytree, as numpy arrays (``jax.tree.map(
-    np.asarray, params)``), → the port's dict of tensors, bit for bit.
+    np.asarray, params)``), → the port's dict of tensors, bit for bit (a
+    full tree: ``parallel.mesh.shard_params`` cuts a rank's shard of it).
 
     ml_dtypes bfloat16 arrays travel as their ``uint16`` bits, because
     ``torch.from_numpy`` rejects them; the bits are viewed back as

@@ -23,6 +23,15 @@ Conventions kept from the TPU kernel, so both versions agree with it:
 - a row whose context is all masked outputs 0;
 - split-K emits each split's f32 ``(acc, m, l)`` and
   :func:`combine_splits` merges them outside the kernel.
+
+Tensor parallelism: JAX's ``paged_attention_sharded`` is a ``shard_map``
+of the kernel over the "model" (head) axis. In the port every rank is a
+process that launches :func:`paged_attention` on its own q heads and its
+own cache heads (the engine's ranks hold only those); no collective
+runs here, the sum comes in ``wo``. :func:`paged_attention_sharded` is its
+single-controller twin, which the tests and the chip smoke hold against
+the unsharded launch: one launch a rank on that rank's heads
+(:func:`shard_heads`), the heads put back together.
 """
 
 from __future__ import annotations
@@ -425,6 +434,41 @@ def paged_attention(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tenso
     if ns == 1:
         return out
     return _rows_to_bthd(combine_splits(acc, m, l, q.dtype), t)
+
+
+def shard_heads(cache, rank: int, tp: int):
+    """Rank ``rank``'s kv heads of a per-layer cache, contiguous: the
+    payload [NB, BS, KH, Dp] on KH, a quantized cache's scales [NB, KH] on
+    theirs (each rank dequantizes its own heads; packed int4 packs along
+    D, so it shards alike)."""
+    if isinstance(cache, dict):
+        return {"q": shard_heads(cache["q"], rank, tp),
+                "s": cache["s"].chunk(tp, dim=1)[rank].contiguous()}
+    kh = cache.shape[2]
+    if kh % tp:
+        raise ValueError(f"{kh} kv heads do not divide over tp={tp}")
+    return cache.chunk(tp, dim=2)[rank].contiguous()
+
+
+def paged_attention_sharded(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
+                            q_start: torch.Tensor, kv_lens: torch.Tensor, *, tp: int,
+                            num_splits: int = 0) -> torch.Tensor:
+    """Paged attention split over ``tp`` ranks by head, as JAX's
+    ``paged_attention_sharded`` on a pure-TP mesh: rank r takes q heads
+    ``[r H/tp, (r+1) H/tp)`` and kv heads ``[r KH/tp, (r+1) KH/tp)`` (GQA
+    groups stay whole), and :func:`paged_attention` runs on those — one
+    kernel launch a rank on the card, its split count chosen from the
+    rank's own heads (:func:`num_splits_for`), as the shard_map'd call
+    chooses it. Returns [B, T, H, D]."""
+    h = q.shape[2]
+    kh = (k_cache["q"] if isinstance(k_cache, dict) else k_cache).shape[2]
+    if h % tp or kh % tp:
+        raise ValueError(f"{h} query heads and {kh} kv heads must divide over tp={tp}")
+    qs = q.chunk(tp, dim=2)
+    return torch.cat([paged_attention(qs[r].contiguous(), shard_heads(k_cache, r, tp),
+                                      shard_heads(v_cache, r, tp), block_tables, q_start,
+                                      kv_lens, num_splits=num_splits)
+                      for r in range(tp)], dim=2)
 
 
 def reset_launches() -> None:

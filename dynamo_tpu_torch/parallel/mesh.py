@@ -1,0 +1,166 @@
+"""Mesh axes and the parameter layout of tensor parallelism — port of
+``dynamo_tpu/parallel/mesh.py`` (and of ``param_logical_axes`` from
+``dynamo_tpu/models/llama.py``) for the "model" axis.
+
+The JAX package places a params pytree on a device mesh and lets GSPMD
+insert the collectives. Here each rank is a process of its own: it holds
+its own slice of every sharded leaf (:func:`shard_params`), computes on
+it, and the model code calls the collectives itself
+(``parallel/collectives.py``). The slices are JAX's: rank r of tp holds
+the r-th of tp equal contiguous pieces of each dim whose logical axis
+:data:`PARAM_RULES` maps to "model":
+
+- ``wq``, ``wk``, ``wv``: output columns (the rank's q and kv heads);
+  ``wo``: input rows (the same heads);
+- ``w_gate``, ``w_up``: columns; ``w_down``: rows (the FFN width);
+- ``embed``: vocab rows; ``lm_head``: vocab columns;
+- norms replicated.
+
+The vocab is the one axis that need not divide: each rank's piece is
+``ceil(V / tp)`` rows, the last one padded with zero rows that the model
+masks (``models/llama.embed_lookup``, ``logits_from_hidden``). JAX refuses
+that placement (``device_put`` needs a divisible dim); the port serves
+it.
+
+Heads whose count does not divide tp are refused: JAX serves
+``num_kv_heads % tp != 0`` only through its dense gather fallback
+(``dynamo_tpu/models/llama.py:384-396``), which the port does not carry.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from dynamo_tpu_torch.models.config import ModelConfig
+
+AXES = ("data", "pipe", "seq", "model", "expert")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    dp: int = 1
+    pp: int = 1
+    sp: int = 1
+    tp: int = 1
+    ep: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.pp * self.sp * self.tp * self.ep
+
+
+# Logical→mesh axis rules for model parameters (a copy of JAX's). Keys are
+# the logical axis names of :func:`param_logical_axes`; values are mesh
+# axes (None = replicate). Only "model" has ranks in the port.
+PARAM_RULES: dict[str, str | None] = {
+    "vocab": "model",          # embedding/lm_head vocab-sharded
+    "hidden": None,            # activations' hidden axis replicated in params
+    "heads": "model",          # attention heads sharded (TP)
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",            # MLP intermediate sharded (TP)
+    "expert": "expert",        # MoE experts sharded (EP)
+    "layers": "pipe",          # stacked layer dim sharded over pipeline stages
+    "moe_mlp": "model",        # per-expert intermediate (TEP)
+}
+
+Params = dict[str, Any]
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axis names per parameter leaf of a dense model (copy of the
+    JAX function's dense branch)."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP: MoE slice)")
+    layer = {
+        "wq": ("layers", None, "heads"),
+        "wk": ("layers", None, "kv_heads"),
+        "wv": ("layers", None, "kv_heads"),
+        "wo": ("layers", "heads", None),
+        "attn_norm": ("layers", None),
+        "mlp_norm": ("layers", None),
+        "w_gate": ("layers", None, "mlp"),
+        "w_up": ("layers", None, "mlp"),
+        "w_down": ("layers", "mlp", None),
+    }
+    axes: Params = {"embed": ("vocab", None), "final_norm": (None,), "layers": layer}
+    if not cfg.tie_word_embeddings:
+        axes["lm_head"] = (None, "vocab")
+    return axes
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise unless ``cfg``'s query heads, kv heads and FFN width divide
+    over ``tp`` ranks."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"num_kv_heads={cfg.num_kv_heads} does not divide over tp={tp}: the JAX "
+            "package serves that only through its dense gather fallback, which the "
+            "torch port does not carry yet (ROADMAP Queue 1 item 14)")
+    for name, n in (("num_heads", cfg.num_heads), ("intermediate_size", cfg.intermediate_size)):
+        if n % tp:
+            raise ValueError(f"{name}={n} does not divide over tp={tp}")
+
+
+def local_heads(cfg: ModelConfig, tp: int) -> tuple[int, int]:
+    """(query heads, kv heads) of one rank."""
+    check_tp(cfg, tp)
+    return cfg.num_heads // tp, cfg.num_kv_heads // tp
+
+
+def shard_bounds(n: int, axis: str | None, rank: int, tp: int) -> tuple[int, int, int]:
+    """Rank ``rank``'s piece ``[lo, hi)`` of a dim of size ``n`` on logical
+    ``axis``, and the piece's size ``per`` once padded (``hi - lo`` but on
+    the vocab axis, whose last piece is padded to ``ceil(n / tp)``). A dim
+    not on "model" is whole: ``(0, n, n)``."""
+    if tp == 1 or PARAM_RULES.get(axis) != "model":
+        return 0, n, n
+    if axis == "vocab":
+        per = -(-n // tp)
+    elif n % tp:
+        raise ValueError(f"a {axis} dim of {n} does not divide over tp={tp}")
+    else:
+        per = n // tp
+    lo = min(rank * per, n)
+    return lo, min(lo + per, n), per
+
+
+def pad_dim(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``x`` with zeros appended along ``dim`` up to ``size``."""
+    short = size - x.shape[dim]
+    if short <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = short
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def shard_leaf(x: torch.Tensor, axes: tuple, rank: int, tp: int) -> torch.Tensor:
+    """One leaf's slice for ``rank``, in memory of its own (the full leaf
+    can be freed)."""
+    for dim, axis in enumerate(axes):
+        lo, hi, per = shard_bounds(x.shape[dim], axis, rank, tp)
+        if (lo, hi) != (0, x.shape[dim]):
+            x = pad_dim(x.narrow(dim, lo, hi - lo), dim, per)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int) -> Params:
+    """Rank ``rank``'s shard of a full params tree: the counterpart of
+    JAX's ``shard_params`` followed by taking that rank's addressable
+    shards."""
+    if tp == 1:
+        return params
+    check_tp(cfg, tp)
+
+    def walk(p, axes):
+        if isinstance(axes, dict):
+            return {k: walk(p[k], axes[k]) for k in axes}
+        return shard_leaf(p, axes, rank, tp)
+
+    return walk(params, param_logical_axes(cfg))

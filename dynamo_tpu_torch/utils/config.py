@@ -44,6 +44,13 @@ class EngineConfig:
     tp: int = 1
     ep: int = 1
     sp: int = 1
+    # Tensor parallelism (tp > 1): one process a rank over torch.distributed
+    # with this backend, "nccl" (a card a rank) or "gloo" (required when
+    # ranks share a card); rank r runs on cuda:tp_devices[r] (default
+    # cuda:r). Ranks that share a card also need an explicit num_blocks:
+    # sizing the pool from free memory would race between them.
+    dist_backend: str = "nccl"
+    tp_devices: tuple[int, ...] = ()
     # Weight-only quantization: "none" | "int8".
     quantization: str = "none"
     # KV-cache storage: "bfloat16" or "" (model precision: the cache is
