@@ -28,8 +28,12 @@ if any phase fails:
     chunk, 31 empty rows; and (f)'s own [64, 2048] step: the same 32
     decode rows, 4 chunks of 1,536 from position 0, 28 empty rows, its
     plain version computed 4 rows at a time and its plain and SDPA times
-    over 3 calls). q is drawn in f32; the f32 cache holds full-precision f32
-    draws of K and V, the bf16 cache the same draws rounded to bf16. bf16-q
+    over 3 calls), and at the attention shapes of the MoE runs (j1) and
+    (j2): gpt-oss's prefill step (B=16, T=128, H=64, KH=8, D=64) and
+    deepseek-moe's GQA group of 16 (H=128, KH=8, D=128) at decode (B=8,
+    kv 64-80) and at prefill (B=8, T=64). q is drawn in f32; the f32
+    cache holds full-precision f32 draws of K and V, the bf16 cache the
+    same draws rounded to bf16. bf16-q
     routes are held to one bf16 rounding, f32-q routes to the f32 limit
     (with TF32 off for the plain version's f32 products). Each case checks
     it ran the kernel its route names; with kernel / plain / library
@@ -195,6 +199,29 @@ if any phase fails:
     their records on a fresh engine, must equal an uninterrupted run token
     for token; a finished stream's record is gone.
 
+(i1) weight-only int8 at full width, after (c), with (i2) and (j) next:
+    (b)'s bf16 run (llama-3-8b-lite,
+    bf16 cache, full warmup, 32 x (128 prompt + 64 greedy)) with the
+    weights quantized to int8 (``quantization="int8"``): ``mma_bf16`` only,
+    8 a forward step through replays, no graph made while serving; prints
+    decode tok/s, TTFT, weight bytes, memory (peak from the build on, peak
+    while serving, allocated and reserved once built) and the KV blocks
+    the engine's free-memory rule would size without its cap, beside (b)'s;
+(i2) tiny-real-llama at f32 with int8 weights: its greedy tokens on the
+    card must equal the plain path's on the CPU, through ``mma_f32`` only;
+    the bf16 int8 continuation of "one two three four" is printed;
+(j1) the MoE family at full layer width: gpt-oss-120b (128 experts, top
+    4, H=2880, head dim 64) cut to 4 layers, random bf16 weights from a
+    seed (the expert stacks drawn a slab at a time), the bf16 cache,
+    lazily captured graphs, legacy steps whose prefill takes at most 2048
+    token rows: 32 x (128 prompt + 32 greedy) through ``build_engine`` and
+    ``AsyncTorchEngine.generate``, ``mma_bf16`` only, 4 a forward step;
+    prints decode tok/s, TTFT and peak memory; (j2) deepseek-moe (256
+    experts, top 8, a shared expert, H=7168) cut to 1 layer, 8 x (64 + 16)
+    in steps of at most 512 rows, 1 launch a forward step; (j3) tiny-moe at
+    f32, with and without int8 weights: greedy tokens on the card equal the
+    CPU plain path's, through ``mma_f32`` only;
+
 (a') tensor-parallel attention, right after (a): ``paged_attention_sharded``
     (one launch a rank on that rank's heads, the per-rank launch of the
     engine's ranks) at tp 2, 4 and 8 on all six routes, at the decode
@@ -218,25 +245,36 @@ if any phase fails:
     one card a rank (with one card a line says it was not run). (h2) bf16
     over the bf16 and int8 caches: decode tok/s and TTFT beside (b)'s, and
     each rank's milliseconds of collectives a step (no speed condition).
+(i3) after (h): (h1)'s f32 model with int8 weights at tp=2 (each rank
+    quantizing its shard, the row-parallel scales over the group) against
+    tp=1 int8, by (h1)'s stream rule.
+
+After every phase the script collects garbage, empties the allocator's
+cache and logs the card's allocated and reserved bytes (``[mem]``); an
+engine (``EngineCore``, ``ModelRunner``) of the phase still alive fails
+the run, named with the chain of references that holds it.
 
 Prints the card's name and power limit (nvidia-smi), one ``ptxas`` line
 per kernel instantiation (registers, spills), one JSON ``kernels`` line
 (an entry per kernel of ``ROUTES``, its launches counted in the run that
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
-verify case's time; and a ``paged_attention_sharded`` entry: one rank's
+verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
+in (i) and (j); and a ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
-(h)), and as its last line
+(h) and (i3)), and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --only-g`` builds the kernels and runs (g) alone,
 and prints neither the kernels line nor the result line;
-``python3 chip_smoke.py --only-tp`` does the same for (a') and (h).
+``python3 chip_smoke.py --only-tp`` does the same for (a') and (h);
+``python3 chip_smoke.py --only-ij`` for (b)'s bf16 run, (i), (j) and (h).
 
-``python3 chip_smoke.py --profile`` also runs phase (b) and (b') under
-``torch.profiler`` and prints device time by kernel and the device's busy
-share of the serving wall time, for each run.
+``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
+and (j2) under ``torch.profiler`` and prints device time by kernel and
+the device's busy share of the serving wall time, for each run
+(``--only-ij --profile``: (b)'s bf16 run, (i1), (j1) and (j2)).
 """
 
 from __future__ import annotations
@@ -309,6 +347,10 @@ MIXED_F_CASE = ("mixed B=64 T=2048: 32 decode rows kv 128-192 + 4 chunks T=1536,
 #: the largest score tensor (bytes, f32) the plain version builds in one
 #: call; a case past it is computed a few rows at a time
 PLAIN_SCORE_BYTES = 2 * 2**30
+#: (a)'s cases at the attention shapes of the MoE serving runs (j1), (j2)
+MOE_CASES = {"j1": "prefill D=64 KH=8 H=64 B=16 T=128 kv 128 (j1)",
+             "j2 decode": "decode D=128 KH=8 H=128 B=8 kv 64-80 (j2)",
+             "j2 prefill": "prefill D=128 KH=8 H=128 B=8 T=64 kv 64 (j2)"}
 
 
 def verify_case(t: int) -> str:
@@ -575,15 +617,9 @@ def check_case(pa, name, q, kc, vc, bt, qs, kl, ns, kind, mism, bw, peak) -> dic
     return row
 
 
-def phase_kernels(bw: float, peak: float) -> dict:
-    """Rows by route, then by shape."""
-    from dynamo_tpu_torch.ops import paged_attention as pa
-
-    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
-        raise AssertionError("f32 matmuls run in TF32: the plain version's f32 products "
-                             "would not be f32")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+def kernel_cases(gen) -> dict:
+    """Phase (a)'s shapes: {name: (attention_case, num_splits)}; every
+    case runs every cache kind with each q dtype."""
     lens = torch.randint(128, 193, (32,), generator=gen, device="cuda").tolist()
     ragged_start = [0, 37, 5, 100, 0, 64, 15, 0]
     ragged_len = [16, 1, 11, 1, 0, 16, 1, 9]                  # row 4: kv_len 0
@@ -627,6 +663,30 @@ def phase_kernels(bw: float, peak: float) -> dict:
     vstart = torch.randint(128, 188, (32,), generator=gen, device="cuda").tolist()
     for t in VERIFY_TS:
         cases[verify_case(t)] = (attention_case(gen, 32, t, 12, vstart, [t] * 32), 0)
+    # the MoE serving runs (j1), (j2): gpt-oss's prefill step of 16 prompts
+    # of 128 at D=64 (1024 query rows a kv head); deepseek-moe's GQA group
+    # of 16 (H=128 over KH=8) at decode, kv 64-80 (16 rows a kv head: one
+    # row group, the largest) and at its prefill step of 8 prompts of 64
+    moe_lens = torch.randint(64, 81, (8,), generator=gen, device="cuda").tolist()
+    cases[MOE_CASES["j1"]] = (attention_case(
+        gen, 16, 128, 8, [0] * 16, [128] * 16, h=64, kh=8, d=64), 0)
+    cases[MOE_CASES["j2 decode"]] = (attention_case(
+        gen, 8, 1, 6, [n - 1 for n in moe_lens], [1] * 8, h=128, kh=8), 0)
+    cases[MOE_CASES["j2 prefill"]] = (attention_case(
+        gen, 8, 64, 4, [0] * 8, [64] * 8, h=128, kh=8), 0)
+    return cases
+
+
+def phase_kernels(bw: float, peak: float) -> dict:
+    """Rows by route, then by shape."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls run in TF32: the plain version's f32 products "
+                             "would not be f32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases = kernel_cases(gen)
     results: dict[str, dict] = {route: {} for route in pa.ROUTE_KERNELS}
     for name, ((q32, k32, v32, bt, qs, kl), ns) in cases.items():
         k, v = k32.bfloat16(), v32.bfloat16()
@@ -777,13 +837,15 @@ async def serve(engine, reqs: dict, after=None):
 
 
 def phase_serve(kind: str, profile: bool = False, window: int = 1,
-                f32: bool = False) -> tuple[dict, dict]:
+                f32: bool = False, quantization: str = "none") -> tuple[dict, dict]:
     """One serving run with the KV cache of ``kind`` after a full warmup
     (bf16 weights, or with ``f32`` f32 weights over the f32 model-precision
-    cache): it must launch its route's kernel only, once per layer and
-    forward step, all through replays of graphs the warmup captured.
-    Returns the run's numbers and its token streams."""
+    cache; with ``quantization="int8"`` the weights quantized to int8): it
+    must launch its route's kernel only, once per layer and forward step,
+    all through replays of graphs the warmup captured. Returns the run's
+    numbers and its token streams."""
     from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.models.quant import param_bytes
     from dynamo_tpu_torch.obs.compile_ledger import get_compile_ledger
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.common import (
@@ -792,14 +854,18 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
 
     batch, prompt, decode = 32, 128, 32 if f32 else 64
     model = register_f32_model() if f32 else "llama-3-8b-lite"
-    tag = ("[b''] f32" if f32 else f"[b] kv_dtype={KV_DTYPES[kind]}" if window == 1
+    tag = ("[i1] int8 weights" if quantization == "int8" else "[b''] f32" if f32
+           else f"[b] kv_dtype={KV_DTYPES[kind]}" if window == 1
            else f"[b'] decode_window={window}")
+    free_engine()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = build_engine(EngineConfig(
         model=model, block_size=16, max_batch_size=batch,
         max_model_len=prompt + decode + 16, prefill_chunk=prompt,
         kv_dtype=KV_DTYPES[kind], allow_random_weights=True,
-        decode_window=window, warmup_mode="full"))
+        decode_window=window, warmup_mode="full", quantization=quantization))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     core = engine.core
@@ -810,6 +876,15 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
         f"{spec.num_blocks}, {spec.bytes_per_block()} bytes per block; warmup {warm}")
     if warm["failed"] or warm["deadline_skipped"] or warm["coverage"] != 1.0:
         raise AssertionError(f"{tag}: warmup left buckets without a graph: {warm}")
+    # the KV blocks the engine's own rule (85% of free memory) would size
+    # beside these weights and graphs without the max_batch_size x
+    # max_model_len cap that sets kv_blocks here
+    torch.cuda.empty_cache()
+    kv_free = torch.cuda.mem_get_info()[0] + spec.num_blocks * spec.bytes_per_block()
+    kv_uncapped = int(kv_free * 0.85) // spec.bytes_per_block()
+    built = {"built_alloc_gib": torch.cuda.memory_allocated() / 2**30,
+             "built_reserved_gib": torch.cuda.memory_reserved() / 2**30,
+             "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
     hi = vocab - 5
     reqs = {i: PreprocessedRequest(
@@ -871,15 +946,19 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
     t_first = max(first_at.values())
     t_end = max(done_at.values())
     res = {
-        "model": model, "kv_dtype": KV_DTYPES[kind], "decode_window": window, "requests": batch,
+        "model": model, "kv_dtype": KV_DTYPES[kind], "decode_window": window,
+        "quantization": quantization, "weight_bytes": param_bytes(core.runner.params),
+        "requests": batch,
         "tokens": batch * decode, "steps": steps, "forward_steps": forward_steps,
         "windows": windows_run, "launches": launches, "launches_by_kernel": by_kernel,
         "launches_per_forward_step": launches / max(forward_steps, 1),
         "ttft_all_s": t_first - t_start,
         "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
         "wall_s": t_end - t_start,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "kv_blocks": spec.num_blocks, "bytes_per_block": spec.bytes_per_block(),
+        "peak_mem_gib": max(built["build_peak_gib"], torch.cuda.max_memory_allocated() / 2**30),
+        "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "base_mem_gib": base_gib,
+        **built, "kv_blocks": spec.num_blocks, "kv_blocks_uncapped": kv_uncapped,
+        "bytes_per_block": spec.bytes_per_block(),
         "warmup_s": warm["seconds"], "graphs_warmed": len(warmed),
         "graph_pool_gib": warm["graph_pool_gib"], "serve_captures": [list(k) for k in minted],
     }
@@ -896,54 +975,75 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
 # (c) coherence on the trained checkpoint
 # ---------------------------------------------------------------------------
 
-def phase_coherence() -> dict:
-    from dynamo_tpu_torch.engine.engine import EngineCore
+#: the trained checkpoint of (c) and (i2)
+COHERENCE_CKPT = ROOT / "tests" / "data" / "tiny-real-llama"
+
+
+def coherence_setup():
+    """The trained checkpoint's path, tokenizer and the ids of "one two
+    three four"; its f32 twin registered as a preset, and that preset's
+    name with its params on the card and on the CPU."""
     from dynamo_tpu_torch.models.config import MODEL_PRESETS, ModelConfig
     from dynamo_tpu_torch.models.loader import load_params
-    from dynamo_tpu_torch.ops import paged_attention as pa
-    from dynamo_tpu_torch.protocols.common import (
-        PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.tokenizer import load_tokenizer
-    from dynamo_tpu_torch.utils.config import EngineConfig
 
-    ckpt = str(ROOT / "tests" / "data" / "tiny-real-llama")
+    ckpt = str(COHERENCE_CKPT)
     tok = load_tokenizer(ckpt)
     ids = tok.encode("one two three four", add_bos=True)
+    cfg32 = dataclasses.replace(ModelConfig.from_hf_config(ckpt), dtype="float32",
+                                name="tiny-real-llama-f32")
+    MODEL_PRESETS[cfg32.name] = cfg32
+    params = {dev: load_params(cfg32, ckpt, device=dev) for dev in ("cuda", "cpu")}
+    return ckpt, tok, ids, cfg32.name, params
 
-    def greedy(model: str, device: str, params=None, hold_stream: bool = False,
-               kv_dtype: str = "bfloat16"):
-        """Greedy tokens, and with ``hold_stream`` the count of held steps
-        and of those whose dispatch waited for the card: from the third
-        step on (first uses of the step shapes are past), the stream is held
-        busy by a ~0.1 s sleep kernel before ``step_begin``; a dispatch
-        that synchronises returns only after the sleep, with the stream
-        idle."""
-        core = EngineCore(EngineConfig(model=model, block_size=16, num_blocks=64,
-                                       max_batch_size=4, max_model_len=256,
-                                       kv_dtype=kv_dtype),
-                          params=params, device=device)
-        core.add_request(PreprocessedRequest(
-            token_ids=ids, request_id="c",
-            stop_conditions=StopConditions(max_tokens=8, ignore_eos=True),
-            sampling_options=SamplingOptions(temperature=0.0)))
-        out: list[int] = []
-        held = waited = 0
-        while core.has_work():
-            if hold_stream and core.metrics.num_steps >= 2:
-                torch.cuda._sleep(200_000_000)
-                pending = core.step_begin()
-                held += 1
-                waited += torch.cuda.current_stream().query()
-                outs = core.step_finalize(pending)
-            else:
-                outs = core.step()
-            for o in outs.values():
-                out += o.token_ids
-        return out, held, waited
+
+def greedy(model: str, device: str, ids: list[int], params=None, hold_stream: bool = False,
+           kv_dtype: str = "bfloat16", quantization: str = "none", max_tokens: int = 8):
+    """Greedy tokens of ``ids`` through an ``EngineCore`` of ``model`` on
+    ``device`` (lazily captured graphs on the card), and with
+    ``hold_stream`` the count of held steps and of those whose dispatch
+    waited for the card: from the third step on (first uses of the step
+    shapes are past), the stream is held busy by a ~0.1 s sleep kernel
+    before ``step_begin``; a dispatch that synchronises returns only after
+    the sleep, with the stream idle."""
+    from dynamo_tpu_torch.engine.engine import EngineCore
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    core = EngineCore(EngineConfig(model=model, block_size=16, num_blocks=64,
+                                   max_batch_size=4, max_model_len=256,
+                                   kv_dtype=kv_dtype, quantization=quantization,
+                                   allow_random_weights=True),
+                      params=params, device=device)
+    core.add_request(PreprocessedRequest(
+        token_ids=ids, request_id="c",
+        stop_conditions=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0)))
+    out: list[int] = []
+    held = waited = 0
+    while core.has_work():
+        if hold_stream and core.metrics.num_steps >= 2:
+            torch.cuda._sleep(200_000_000)
+            pending = core.step_begin()
+            held += 1
+            waited += torch.cuda.current_stream().query()
+            outs = core.step_finalize(pending)
+        else:
+            outs = core.step()
+        for o in outs.values():
+            out += o.token_ids
+    return out, held, waited
+
+
+def phase_coherence() -> dict:
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    ckpt, tok, ids, f32, params = coherence_setup()
 
     res: dict = {}
     for kv_dtype in ("bfloat16", "int8", "int4"):
-        toks, held, waited = greedy(ckpt, "cuda", hold_stream=True, kv_dtype=kv_dtype)
+        toks, held, waited = greedy(ckpt, "cuda", ids, hold_stream=True, kv_dtype=kv_dtype)
         text = tok.decode(toks)
         log(f"[c] tiny-real-llama bf16, kv_dtype={kv_dtype}, on the card: {text!r}")
         if kv_dtype != "int4" and " five six seven eight" not in text:
@@ -956,16 +1056,11 @@ def phase_coherence() -> dict:
                                  "dispatches synchronised with the card: the "
                                  "pipelined loop would not overlap")
         res[kv_dtype] = {"text": text, "held_steps": held, "waited": waited}
-    cfg32 = dataclasses.replace(ModelConfig.from_hf_config(ckpt), dtype="float32",
-                                name="tiny-real-llama-f32")
-    MODEL_PRESETS[cfg32.name] = cfg32
-    p_gpu = load_params(cfg32, ckpt, device="cuda")
-    p_cpu = load_params(cfg32, ckpt, device="cpu")
     for kind, kv_dtype in KV_DTYPES.items():
         pa.reset_launches()
-        gpu32 = greedy(cfg32.name, "cuda", p_gpu, kv_dtype=kv_dtype)[0]
+        gpu32 = greedy(f32, "cuda", ids, params["cuda"], kv_dtype=kv_dtype)[0]
         by_kernel = dict(pa.paged_attention.launches_by_kernel)
-        cpu32 = greedy(cfg32.name, "cpu", p_cpu, kv_dtype=kv_dtype)[0]
+        cpu32 = greedy(f32, "cpu", ids, params["cpu"], kv_dtype=kv_dtype)[0]
         log(f"[c] f32, kv_dtype={kv_dtype}: greedy tokens card {gpu32} cpu {cpu32}; "
             f"launches by kernel {by_kernel}")
         if gpu32 != cpu32:
@@ -977,6 +1072,184 @@ def phase_coherence() -> dict:
                                  f"expected {route} only")
         res[kv_dtype]["f32_tokens"] = gpu32
         res[kv_dtype]["f32_launches_by_kernel"] = by_kernel
+    return res
+
+
+# ---------------------------------------------------------------------------
+# (i) weight-only int8, (j) the MoE family
+# ---------------------------------------------------------------------------
+
+def phase_int8(smi: str, b_serve: dict, b_streams: dict, profile: bool = False) -> dict:
+    """(i1) llama-3-8b-lite with int8 weights over the bf16 cache, (b)'s
+    traffic after a full warmup: ``mma_bf16`` only, 8 a forward step
+    through replays; decode tok/s and weight bytes beside (b)'s bf16 run.
+    (i2) tiny-real-llama at f32 with int8 weights: greedy tokens on the
+    card equal the CPU plain path's, through ``mma_f32`` only; then the
+    bf16 int8 continuation of "one two three four" on the card."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    res: dict = {}
+    run, streams = phase_serve("float", profile=profile, quantization="int8")
+    bf16 = b_serve["float"]
+    same = sum(streams[i] == b_streams["float"].get(i) for i in streams)
+    log(f"[i1] int8 weights: decode tok/s {run['decode_tok_s']} against (b)'s bf16 "
+        f"{bf16['decode_tok_s']}; TTFT (all 32) {run['ttft_all_s']} s against "
+        f"{bf16['ttft_all_s']} s; weight bytes {run['weight_bytes']} against "
+        f"{bf16['weight_bytes']}; peak memory {run['peak_mem_gib']:.2f} GiB against "
+        f"{bf16['peak_mem_gib']:.2f} GiB (allocated at the start {run['base_mem_gib']:.2f} "
+        f"and {bf16['base_mem_gib']:.2f}; while serving {run['serve_peak_gib']:.2f} and "
+        f"{bf16['serve_peak_gib']:.2f}; allocated / reserved once built "
+        f"{run['built_alloc_gib']:.2f} / {run['built_reserved_gib']:.2f} and "
+        f"{bf16['built_alloc_gib']:.2f} / {bf16['built_reserved_gib']:.2f}); KV blocks "
+        f"{run['kv_blocks']} against {bf16['kv_blocks']}, {run['kv_blocks_uncapped']} against "
+        f"{bf16['kv_blocks_uncapped']} without the cap; greedy streams equal to (b)'s bf16 "
+        f"ones: {same} of {len(streams)} (int8 rounds the weights: no pass condition) on {smi}")
+    res["i1"] = dict(run, streams_equal_to_b=same)
+
+    ckpt, tok, ids, f32, params = coherence_setup()
+    pa.reset_launches()
+    gpu32 = greedy(f32, "cuda", ids, params["cuda"], quantization="int8")[0]
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    cpu32 = greedy(f32, "cpu", ids, params["cpu"], quantization="int8")[0]
+    route = pa.ROUTES[(torch.float32, "float")]
+    log(f"[i2] tiny-real-llama f32, int8 weights: greedy tokens card {gpu32} cpu {cpu32}; "
+        f"launches by kernel {by_kernel}")
+    if gpu32 != cpu32:
+        raise AssertionError("[i2] int8 f32 greedy tokens on the card differ from the CPU "
+                             "plain path")
+    if by_kernel[route] <= 0 or any(n for k, n in by_kernel.items() if k != route):
+        raise AssertionError(f"[i2] the int8 f32 run launched {by_kernel}, expected {route} only")
+    text = tok.decode(greedy(ckpt, "cuda", ids, quantization="int8")[0])
+    log(f"[i2] tiny-real-llama bf16, int8 weights, on the card: {text!r}")
+    res["i2"] = {"f32_tokens": gpu32, "launches_by_kernel": by_kernel, "bf16_text": text}
+    free_engine()
+    return res
+
+
+#: (j1): gpt-oss-120b at full width cut to 4 layers; (j2): deepseek-moe at
+#: full width cut to 1 layer — (model, layers, requests, prompt, greedy
+#: tokens, the most token rows a step)
+MOE_RUNS = {"j1": ("gpt-oss-120b", 4, 32, 128, 32, 2048),
+            "j2": ("deepseek-moe", 1, 8, 64, 16, 512)}
+
+
+def moe_serve(tag: str, base: str, layers: int, batch: int, prompt: int, decode: int,
+              max_rows: int, smi: str, profile: bool = False) -> dict:
+    """One MoE serving run: ``base`` at full width cut to ``layers`` layers
+    (random bf16 weights from seed 0), the bf16 cache, lazily captured
+    graphs, legacy (not unified) steps whose prefill takes at most
+    ``max_rows`` token rows, ``batch`` greedy requests entered at once. It
+    must launch ``mma_bf16`` only, once a layer and forward step."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.models.quant import param_bytes
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    free_engine()
+    name = f"{base}-{layers}l"
+    MODEL_PRESETS[name] = dataclasses.replace(MODEL_PRESETS[base], num_layers=layers,
+                                              name=name)
+    max_len = prompt + decode + 16
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine(EngineConfig(
+        model=name, block_size=16, max_batch_size=batch, max_model_len=max_len,
+        num_blocks=batch * -(-max_len // 16) + 1, prefill_chunk=prompt,
+        max_tokens_per_step=max_rows, unified_step=False, allow_random_weights=True,
+        warmup_mode="lazy"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    core = engine.core
+    cfg = core.model_cfg
+    hi = cfg.vocab_size - 5
+    reqs = {i: PreprocessedRequest(
+        token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(prompt)],
+        stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0),
+        request_id=f"{tag}-{i}") for i in range(batch)}
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    pa.reset_launches()
+    t_start, first_at, done_at, streams, _ = asyncio.run(serve(engine, reqs))
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    if prof is not None:
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        print_profile(prof, max(done_at.values()) - t_start)
+    for i, (toks, lps) in streams.items():
+        if len(toks) != decode or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{tag} request {i}: {len(toks)} tokens, expected {decode}")
+        if not all(lp <= 1e-3 and lp == lp for lp in lps):
+            raise AssertionError(f"{tag} request {i}: bad logprobs {lps[:4]}")
+    forward_steps = check_engine_launches(tag, core, by_kernel, pa.ROUTES[(torch.bfloat16,
+                                                                           "float")])
+    rows = max(k[0] * k[1] for k in core.runner.programs)
+    if rows > max_rows:
+        raise AssertionError(f"{tag}: a step of {rows} token rows, past {max_rows}")
+    t_first, t_end = max(first_at.values()), max(done_at.values())
+    ttfts = sorted(t - t_start for t in first_at.values())
+    res = {"model": name, "layers": layers, "experts": cfg.num_experts,
+           "experts_per_tok": cfg.num_experts_per_tok,
+           "shared_experts": cfg.num_shared_experts, "hidden": cfg.hidden_size,
+           "moe_intermediate": cfg.moe_intermediate_size, "head_dim": cfg.head_dim,
+           "requests": batch, "prompt": prompt, "tokens": batch * decode,
+           "setup_s": setup_s, "weight_bytes": param_bytes(core.runner.params),
+           "forward_steps": forward_steps, "launches_by_kernel": by_kernel,
+           "launches_per_forward_step": sum(by_kernel.values()) / forward_steps,
+           "graphs": sorted(list(k) for k in core.runner.programs), "max_step_rows": rows,
+           "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_all_s": t_first - t_start,
+           "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
+           "wall_s": t_end - t_start,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "base_mem_gib": base_gib}
+    log(f"{tag} {json.dumps(res)} on {smi}")
+    del engine, core
+    free_engine()
+    return res
+
+
+def phase_moe(smi: str, profile: bool = False) -> dict:
+    """(j1), (j2) the MoE family at full width (``moe_serve``); (j3)
+    tiny-moe at f32 with and without int8 weights: greedy tokens on the
+    card equal the CPU plain path's, through ``mma_f32`` only."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    res = {tag: moe_serve(f"[{tag}]", *run, smi=smi, profile=profile)
+           for tag, run in MOE_RUNS.items()}
+    name = "tiny-moe-f32"
+    cfg = MODEL_PRESETS[name] = dataclasses.replace(MODEL_PRESETS["tiny-moe"],
+                                                    dtype="float32", name=name)
+    p_cpu = llama.init_params(cfg, seed=0, device="cpu")
+    p_gpu = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict) else v.cuda())
+             for k, v in p_cpu.items()}
+    ids = [1, 5, 9, 20, 33, 7, 7, 7, 100, 200, 250]
+    route = pa.ROUTES[(torch.float32, "float")]
+    for quantization in ("none", "int8"):
+        pa.reset_launches()
+        gpu = greedy(name, "cuda", ids, p_gpu, quantization=quantization, max_tokens=16)[0]
+        by_kernel = dict(pa.paged_attention.launches_by_kernel)
+        cpu = greedy(name, "cpu", ids, p_cpu, quantization=quantization, max_tokens=16)[0]
+        log(f"[j3] tiny-moe f32, quantization={quantization}: greedy tokens card {gpu} "
+            f"cpu {cpu}; launches by kernel {by_kernel}")
+        if gpu != cpu:
+            raise AssertionError(f"[j3] quantization={quantization}: tiny-moe f32 greedy "
+                                 "tokens on the card differ from the CPU plain path")
+        if by_kernel[route] <= 0 or any(n for k, n in by_kernel.items() if k != route):
+            raise AssertionError(f"[j3] launched {by_kernel}, expected {route} only")
+        res[f"j3_{quantization}"] = {"tokens": gpu, "launches_by_kernel": by_kernel}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[j] passed in {res['seconds']:.1f}s on {smi}")
+    free_engine()
     return res
 
 
@@ -2358,6 +2631,85 @@ def free_engine() -> None:
     torch.cuda.empty_cache()
 
 
+def live_engines() -> list:
+    """The port's engine objects (``EngineCore``, ``ModelRunner``) still
+    alive after a full collection."""
+    from dynamo_tpu_torch.engine.engine import EngineCore, ModelRunner
+
+    gc.collect()
+    return [o for o in gc.get_objects() if isinstance(o, (EngineCore, ModelRunner))]
+
+
+def _edge(holder, held) -> str:
+    """How ``holder`` refers to ``held``, for :func:`holder_chain`."""
+    if isinstance(holder, dict):
+        return f"[{next((k for k, v in holder.items() if v is held), '?')!r}]"
+    attrs = getattr(holder, "__dict__", None)
+    if isinstance(attrs, dict):
+        key = next((k for k, v in attrs.items() if v is held), None)
+        if key is not None:
+            return f"{type(holder).__qualname__}.{key}"
+    name = getattr(holder, "__qualname__", None)
+    return f"<{type(holder).__name__}{'' if name is None else ' ' + str(name)}>"
+
+
+def holder_chain(obj, ignore: tuple = (), depth: int = 16) -> str:
+    """What keeps ``obj`` alive: a breadth-first walk up its referrers
+    (frames and the ids in ``ignore`` left out) to a module's globals,
+    written "module['name'] -> ... -> obj"; or, when no module holds it,
+    the referrers where the walk ended."""
+    import types
+
+    modules = {id(vars(m)): name for name, m in list(sys.modules.items())
+               if m is not None and hasattr(m, "__dict__")}
+    objs, paths = [obj], [type(obj).__qualname__]
+    seen = {id(obj), *ignore}
+    for _ in range(depth):
+        next_objs: list = []
+        next_paths: list[str] = []
+        mine = {id(objs), id(paths), id(next_objs), id(next_paths)}
+        for i in range(len(objs)):
+            for r in gc.get_referrers(objs[i]):
+                if id(r) in seen or id(r) in mine or isinstance(r, types.FrameType):
+                    continue
+                seen.add(id(r))
+                if id(r) in modules:
+                    return f"{modules[id(r)]}{_edge(r, objs[i])} -> {paths[i]}"
+                next_objs.append(r)
+                next_paths.append(f"{_edge(r, objs[i])} -> {paths[i]}")
+        if not next_objs:
+            break
+        objs, paths = next_objs, next_paths
+    return "held by no module; the walk ended at: " + "; ".join(paths[:8])
+
+
+def audit_memory(tag: str) -> dict:
+    """After a phase: the card's allocated and reserved bytes, and no
+    engine of the phase still alive (each holds its weights, KV cache
+    and graphs): an engine that outlives its phase fails the run, named
+    with what holds it."""
+    free_engine()
+    alive = live_engines()
+    chains = [holder_chain(o, ignore=(id(alive),)) for o in alive]
+    del alive
+    storages = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    res = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+           "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+           # bytes of the card tensors Python still holds; the rest of
+           # allocated_gib is held by no Python object
+           "python_tensors_gib": sum(storages.values()) / 2**30}
+    log(f"[mem] after {tag}: {json.dumps(res)}"
+        + "".join(f"\n[mem]   alive: {c}" for c in chains))
+    if chains:
+        raise AssertionError(f"after {tag}: {len(chains)} engine objects still alive: "
+                             f"{chains}")
+    return res
+
+
 class StoreThread:
     """The port's RemoteBlockServer on 127.0.0.1, in an event loop of its
     own thread (the engines' clients are synchronous)."""
@@ -2995,10 +3347,11 @@ TP_BLOCKS = 480
 
 
 def tp_engine(model: str, kv_dtype: str, tp: int, backend: str = "gloo",
-              devices: tuple[int, ...] = ()):
-    """An eager (warmup off) engine of ``model`` at ``tp`` for (h): random
-    weights from seed 0, every rank building the full tree and keeping its
-    shard."""
+              devices: tuple[int, ...] = (), quantization: str = "none"):
+    """An eager (warmup off) engine of ``model`` at ``tp`` for (h) and (i3):
+    random weights from seed 0, every rank building the full tree and
+    keeping its shard (with int8 quantizing its shard, the row-parallel
+    scales over the group)."""
     from dynamo_tpu_torch.engine.engine import build_engine
     from dynamo_tpu_torch.utils.config import EngineConfig
 
@@ -3006,11 +3359,11 @@ def tp_engine(model: str, kv_dtype: str, tp: int, backend: str = "gloo",
         model=model, block_size=16, max_batch_size=TP_BATCH, num_blocks=TP_BLOCKS,
         max_model_len=TP_PROMPT + TP_DECODE + 16, prefill_chunk=TP_PROMPT,
         kv_dtype=kv_dtype, allow_random_weights=True, warmup_mode="off",
-        tp=tp, dist_backend=backend, tp_devices=devices))
+        tp=tp, dist_backend=backend, tp_devices=devices, quantization=quantization))
 
 
 def tp_run(tag: str, model: str, kv_dtype: str, tp: int, backend: str = "gloo",
-           devices: tuple[int, ...] = ()) -> tuple[dict, dict]:
+           devices: tuple[int, ...] = (), quantization: str = "none") -> tuple[dict, dict]:
     """One (h) serving run: (b)'s traffic through ``AsyncTorchEngine``, all
     requests entered before the first step. At tp > 1 every rank's counts
     are set to 0 just before it and read just after, and every rank must
@@ -3022,7 +3375,7 @@ def tp_run(tag: str, model: str, kv_dtype: str, tp: int, backend: str = "gloo",
         PreprocessedRequest, SamplingOptions, StopConditions)
 
     t0 = time.perf_counter()
-    engine = tp_engine(model, kv_dtype, tp, backend, devices)
+    engine = tp_engine(model, kv_dtype, tp, backend, devices, quantization)
     core = engine.core
     setup_s = time.perf_counter() - t0
     cfg = core.model_cfg
@@ -3046,10 +3399,11 @@ def tp_run(tag: str, model: str, kv_dtype: str, tp: int, backend: str = "gloo",
     q_dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
     route = pa.ROUTES[(q_dtype, {"int8": "int8", "int4": "int4"}.get(kv_dtype, "float"))]
     t_first, t_end = max(first_at.values()), max(done_at.values())
-    res = {"model": model, "kv_dtype": kv_dtype, "tp": tp, "backend": backend if tp > 1 else None,
+    res = {"model": model, "kv_dtype": kv_dtype, "quantization": quantization, "tp": tp,
+           "backend": backend if tp > 1 else None,
            "setup_s": setup_s, "ttft_all_s": t_first - t_start,
            "decode_tok_s": TP_BATCH * (TP_DECODE - 1) / (t_end - t_first),
-           "wall_s": t_end - t_start, "route": route}
+           "wall_s": t_end - t_start, "route": route, "launches": by_kernel[route]}
     if tp > 1:
         from dynamo_tpu_torch.parallel.mesh import local_heads
 
@@ -3108,7 +3462,8 @@ def phase_tp(smi: str, b_serve: dict, b_streams: dict) -> dict:
     (h2) bf16 over the bf16 and int8 caches, decode tok/s and TTFT beside
     (b)'s and the milliseconds a step spends in collectives (no speed
     condition). With two cards or more, (h1) again over nccl, one card a
-    rank."""
+    rank. Then (i3): f32 weights quantized to int8 at tp=2 (each rank its
+    shard) against tp=1, by (h1)'s stream rule."""
     free_engine()
     t0 = time.perf_counter()
     f32 = register_f32_model()
@@ -3146,6 +3501,17 @@ def phase_tp(smi: str, b_serve: dict, b_streams: dict) -> dict:
         res[f"h2_{kv}"] = run
     res["seconds"] = time.perf_counter() - t0
     log(f"[h] passed in {res['seconds']:.1f}s on {smi}")
+    t1 = time.perf_counter()
+    one, s_one = tp_run("[i3] f32 int8 tp=1", f32, "bfloat16", 1, quantization="int8")
+    two, s_two = tp_run("[i3] f32 int8 tp=2 gloo, both ranks on cuda:0", f32, "bfloat16", 2,
+                        devices=(0, 0), quantization="int8")
+    equal, ties, bad = compare_streams("[i3] f32 int8 tp=2 against tp=1", s_two, s_one)
+    if bad:
+        raise AssertionError(f"[i3] {len(bad)} int8 tp=2 streams leave tp=1's at no "
+                             f"near-tie: {bad[:4]}")
+    res["i3"] = {"tp1": one, "tp2": two, "equal": equal, "near_ties": len(ties),
+                 "seconds": time.perf_counter() - t1}
+    log(f"[i3] passed in {res['i3']['seconds']:.1f}s on {smi}")
     return res
 
 
@@ -3176,41 +3542,72 @@ def main() -> int:
     if sys.argv[1:2] == ["--only-g"]:
         # a rehearsal of (g) alone: no kernels line and no result line
         phase_kvbm(smi)
+        audit_memory("(g)")
         log(f"(g) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--only-ij"]:
+        # a rehearsal of (i) and (j) beside (b)'s bf16 run: no kernels or result line
+        profile = "--profile" in sys.argv[2:]
+        serve, streams = phase_serve("float", profile=profile)
+        audit_memory("(b) bf16")
+        phase_int8(smi, {"float": serve}, {"float": streams}, profile=profile)
+        audit_memory("(i1), (i2)")
+        phase_moe(smi, profile=profile)
+        audit_memory("(j)")
+        b_serve = {kind: {"decode_tok_s": None, "ttft_all_s": None} for kind in KV_DTYPES}
+        phase_tp(smi, b_serve, {kind: {} for kind in KV_DTYPES})
+        audit_memory("(h), (i3)")
+        log(f"(i) and (j) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
     if sys.argv[1:2] == ["--only-tp"]:
         # a rehearsal of (a)'s sharded cases and (h): no kernels or result line
         phase_sharded(bw, peak)
         b_serve = {kind: {"decode_tok_s": None, "ttft_all_s": None} for kind in KV_DTYPES}
         phase_tp(smi, b_serve, {kind: {} for kind in KV_DTYPES})
+        audit_memory("(h), (i3)")
         log(f"(a) sharded and (h) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
     kern = phase_kernels(bw, peak)
     sharded = phase_sharded(bw, peak)
+    audit_memory("(a), (a')")
     profile = "--profile" in sys.argv[1:]
     serve, streams = {}, {}
     for kind in KV_DTYPES:
         serve[kind], streams[kind] = phase_serve(kind, profile=profile)
+        audit_memory(f"(b) kv_dtype={KV_DTYPES[kind]}")
     _, win_streams = phase_serve("float", profile=profile, window=4)
+    audit_memory("(b')")
     differ = [i for i in streams["float"] if win_streams[i] != streams["float"][i]]
     log(f"[b'] decode_window=4 greedy streams equal to (b)'s bf16 streams: "
         f"{len(streams['float']) - len(differ)} of {len(streams['float'])}")
     if differ:
         raise AssertionError(f"[b'] streams {differ} differ from decode_window=1's")
     serve_f32, _ = phase_serve("float", profile=profile, f32=True)
+    audit_memory("(b'')")
     log(f"[b''] f32 llama-3-8b-lite decode tok/s {serve_f32['decode_tok_s']} on {smi}, "
         f"{serve_f32['launches_per_forward_step']} launches of "
         f"{ROUTES[(torch.float32, 'float')]} a forward step")
     coherence = phase_coherence()
+    audit_memory("(c)")
+    int8 = phase_int8(smi, serve, streams, profile=profile)
+    audit_memory("(i1), (i2)")
+    moe = phase_moe(smi, profile=profile)
+    audit_memory("(j)")
     phase_spec(True, smi)
     phase_spec(False, smi, serve["float"]["decode_tok_s"])
+    audit_memory("(d1), (d2)")
     phase_guided()
     phase_mm_embed()
+    audit_memory("(d3)-(d5)")
     phase_http_f32()
     phase_http_bf16(smi, serve["float"]["decode_tok_s"])
+    audit_memory("(e)")
     phase_slo(smi, serve["float"]["decode_tok_s"])
+    audit_memory("(f)")
     phase_kvbm(smi)
+    audit_memory("(g)")
     tp = phase_tp(smi, serve, streams)
+    audit_memory("(h), (i3)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -3239,15 +3636,28 @@ def main() -> int:
             "verify_ms": rows[verify_case(VERIFY_TS[-1])]["ms"], "tol": TOL,
             "err_limit": main_shape["err_limit"], "pass": True,
         })
+        if route == ROUTES[(torch.bfloat16, "float")]:
+            lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
+                "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}
+                for name in MOE_CASES.values()}
+            lines[-1]["launches_int8_moe"] = {
+                "i1 int8 llama-3-8b-lite": int8["i1"]["launches_by_kernel"][route],
+                **{f"{tag} {moe[tag]['model']}": moe[tag]["launches_by_kernel"][route]
+                   for tag in MOE_RUNS}}
+        elif route == ROUTES[(torch.float32, "float")]:
+            lines[-1]["launches_int8_moe"] = {
+                "i2 int8 tiny-real-llama f32": int8["i2"]["launches_by_kernel"][route],
+                **{f"j3 tiny-moe f32 {q}": moe[f"j3_{q}"]["launches_by_kernel"][route]
+                   for q in ("none", "int8")}}
     # the per-rank launch: its numbers are one rank's mma_bf16 launch at
     # tp=2 decode (KH=4, H=16); every route and degree is in (a)'s lines
     main_tp = sharded[ROUTES[(torch.bfloat16, "float")]][f"{MAIN_CASE} tp=2"]
-    runs = [tp["h1"]["tp2"], tp["h2_bfloat16"], tp["h2_int8"]]
+    runs = [tp["h1"]["tp2"], tp["h2_bfloat16"], tp["h2_int8"], tp["i3"]["tp2"]]
     lines.append({
         "name": "paged_attention_sharded", "route": "cuda", "source": SOURCE,
         "replaces": SHARDED_REPLACES, "tp": 2,
         "launches": sum(r["launches"] for r in runs),
-        "launched_in": "(h) tp=2, both ranks: " + ", ".join(
+        "launched_in": "(h) and (i3) tp=2, both ranks: " + ", ".join(
             f"{r['route']} {r['launches']}" for r in runs),
         "max_abs_err": max(r["max_abs_err"] for rows in sharded.values()
                            for r in rows.values()),

@@ -15,6 +15,7 @@ is the packed-int4 marker everywhere downstream (scatter, gather, kernel).
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 
 import torch
@@ -111,13 +112,21 @@ def register_device_tier(pool, spec: KVCacheSpec, *, name: str = "device") -> No
     referenced-or-cached — everything not on the raw free list (block 0,
     never handed out, is excluded). Byte math comes from
     :meth:`KVCacheSpec.bytes_per_block`, so quantized specs report their
-    packed footprint. Pulled only at snapshot/audit time, never per step."""
+    packed footprint. Pulled only at snapshot/audit time, never per step.
+    The process-global ledger holds the pool weakly: through the pool's
+    hooks (the KVBM's evict and commit) it would keep its engine, weights,
+    KV cache and graphs included, alive until another engine registered;
+    a collected pool reports nothing resident."""
     from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
 
     bytes_per_block = spec.bytes_per_block()
+    ref = weakref.ref(pool)
 
     def _occupancy() -> tuple[int, int]:
-        resident = pool.num_blocks - 1 - pool.num_free_raw
+        live = ref()
+        if live is None:
+            return 0, 0
+        resident = live.num_blocks - 1 - live.num_free_raw
         return resident, resident * bytes_per_block
 
     get_mem_ledger().register_tier(name, _occupancy)

@@ -1,7 +1,9 @@
 """The port's engine: model runner + engine core + async facade.
 
-Port of ``dynamo_tpu/engine/engine.py`` for the dense Llama serving path
-on one device:
+Port of ``dynamo_tpu/engine/engine.py`` for the Llama serving path, dense
+or MoE (the dense dispatch JAX runs at ep = 1), with weights at the model
+dtype or weight-only int8 (``quantization="int8"``: quantized after init
+or load, before the KV pool is sized, as in the JAX engine):
 
 - ``ModelRunner``: owns params, the paged KV cache and per-slot sampling
   state on the device; runs one bucketed ragged step per dispatch, a
@@ -93,6 +95,7 @@ from dynamo_tpu_torch.kvbm.stream_ckpt import (
 )
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
+from dynamo_tpu_torch.models.quant import QUANTIZATIONS, leaf_shape
 from dynamo_tpu_torch.obs import costmodel as cm
 from dynamo_tpu_torch.obs.compile_ledger import (
     WARMUP_MODES,
@@ -146,23 +149,26 @@ def _derived_seed(request_id: str) -> int:
     return int.from_bytes(hashlib.sha256(request_id.encode()).digest()[:4], "big")
 
 
-def _weak_source(method: Callable[[], dict]) -> Callable[[], dict]:
-    """A memory-ledger live-id source that does not keep its engine alive:
-    the process-global ledger would otherwise hold every engine ever made
-    (its weights and KV cache) through the bound method. A collected
-    engine's source reports nothing, as an unregistered one does."""
+def _weak_source(method: Callable[[], Any], empty: Callable[[], Any] = dict
+                 ) -> Callable[[], Any]:
+    """A memory-ledger callback (live-id source, tier occupancy) that does
+    not keep its owner alive: the process-global ledger would otherwise
+    hold every engine ever made (its weights and KV cache) through the
+    bound method. A collected owner's callback reports ``empty()``:
+    nothing, as an unregistered one does."""
     ref = weakref.WeakMethod(method)
 
-    def source() -> dict:
+    def source():
         live = ref()
-        return live() if live is not None else {}
+        return live() if live is not None else empty()
 
     return source
 
 
-def check_supported(ec: EngineConfig) -> None:
-    """Raise on settings this slice of the port does not carry, naming the
-    slice that brings them (ROADMAP), and on invalid ones."""
+def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
+    """Raise on settings this slice of the port does not carry for the
+    model ``cfg``, naming the slice that brings them (ROADMAP), and on
+    invalid ones."""
     if ec.spec_ngram > 0 and ec.decode_window > 1:
         raise ValueError(
             "spec_ngram and decode_window>1 are mutually exclusive "
@@ -171,7 +177,7 @@ def check_supported(ec: EngineConfig) -> None:
     later = {
         "pp/dp/ep/sp > 1 (parallelism slice)":
             any(v != 1 for k, v in ec.mesh_shape().items() if k != "model"),
-        "quantization=int8 (weight-only int8 slice)": ec.quantization == "int8",
+        "MoE with tp > 1 (EP/TEP: ROADMAP item 14)": tp and cfg.is_moe,
         # tp > 1 runs eager steps: a gloo collective cannot be captured in
         # a CUDA graph (graph-captured TP over NCCL: ROADMAP Queue 1 item 14)
         "tp > 1 with CUDA graphs (warmup_mode must be 'off')": tp and ec.warmup_mode != "off",
@@ -203,8 +209,8 @@ def check_supported(ec: EngineConfig) -> None:
             raise ValueError(f"tp_devices {ec.tp_devices}: ranks that share a card need an "
                              "explicit num_blocks (sizing the pool from free memory would "
                              "race between them)")
-    if ec.quantization not in ("none", ""):
-        raise ValueError(f"unknown quantization {ec.quantization!r} (supported: none)")
+    if ec.quantization not in QUANTIZATIONS:
+        raise ValueError(f"unknown quantization {ec.quantization!r} (supported: none, int8)")
     if ec.kv_dtype not in ("bfloat16", "", "int8", "int4"):
         raise ValueError(f"unknown kv_dtype {ec.kv_dtype!r} (supported: bfloat16 "
                          "[model-precision cache], int8, int4)")
@@ -364,6 +370,15 @@ class ModelRunner:
                     cfg, rank, size)
                 if size > 1 and self.device.type == "cuda":
                     torch.cuda.empty_cache()
+        if engine_cfg.quantization == "int8":
+            # After init or load and before the cache is sized, as in the
+            # JAX engine; under TP each rank quantizes its shard, the
+            # row-parallel scales taken over the group (models/quant.py).
+            from dynamo_tpu_torch.models.quant import quantize_params_int8
+
+            self.params = quantize_params_int8(self.params, cfg, tp=tp)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
         num_blocks = engine_cfg.num_blocks or self._auto_num_blocks()
         if tp is not None:
             num_blocks = tp.agree_min(num_blocks)   # JAX's multihost hello does the same
@@ -870,7 +885,8 @@ class ModelRunner:
                 "launches_by_kernel": dict(pa.paged_attention.launches_by_kernel),
                 "forward_steps": sum(p.calls for p in self.programs.values()),
                 "collectives": self.tp.collectives, "collective_s": self.tp.collective_s,
-                "heads": layers["wq"].shape[-1] // d, "kv_heads": layers["wk"].shape[-1] // d,
+                "heads": leaf_shape(layers["wq"])[-1] // d,
+                "kv_heads": leaf_shape(layers["wk"])[-1] // d,
                 "cache_kv_heads": self.spec.num_kv_heads}
 
     # -- bucket warmup ---------------------------------------------------
@@ -1108,12 +1124,9 @@ class EngineCore:
 
     def __init__(self, engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None):
-        check_supported(engine_cfg)
         self.engine_cfg = engine_cfg
         self.model_cfg = resolve_model_config(engine_cfg.model)
-        if self.model_cfg.is_moe:
-            raise ValueError(f"{engine_cfg.model!r} is a MoE model: not supported "
-                             "by the torch port yet (MoE slice)")
+        check_supported(engine_cfg, self.model_cfg)
         device = resolve_device(device)
         # Unified ragged mixed-phase steps: one launch per iteration when
         # prefill work rides along. Fused decode windows keep the legacy
@@ -1245,7 +1258,8 @@ class EngineCore:
         register_device_tier(self.pool, self.runner.spec)
         if self.kvbm is not None:
             for tier in self.kvbm.tiers:
-                self.mem_led.register_tier(tier.name, tier.occupancy)
+                self.mem_led.register_tier(tier.name,
+                                           _weak_source(tier.occupancy, lambda: (0, 0)))
         self._mem_source_key = f"engine:{id(self):x}"
         self.mem_led.register_live_source(self._mem_source_key,
                                           _weak_source(self._mem_live_ids))

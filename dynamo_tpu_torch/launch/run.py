@@ -15,6 +15,10 @@ Examples:
     python -m dynamo_tpu_torch.launch.run in=text out=torch --model tests/data/tiny-real-llama
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
         --device cpu --kv-dtype int8 --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
+        --device cpu --quantization int8 --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tiny-moe \
+        --device cpu --allow-random-weights --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model llama-3-8b-lite \
         --allow-random-weights --decode-window 4 --warmup-mode full --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
@@ -97,6 +101,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "int8", "int4"],
                    help="KV cache storage: model precision, or int8 / packed int4 "
                         "with per-(block, kv head) scales (2x / 4x the blocks)")
+    p.add_argument("--quantization", choices=["none", "int8"], default="none",
+                   help="weight-only quantization: int8 matrices with per-channel "
+                        "scales (MoE expert stacks stay at the model dtype)")
     p.add_argument("--no-unified-step", action="store_true",
                    help="dispatch decode and prefill chunks as two steps "
                         "instead of one ragged mixed step")
@@ -168,6 +175,7 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         prefill_chunk=ns.prefill_chunk,
         itl_slo_ms=ns.itl_slo_ms,
         kv_dtype=ns.kv_dtype,
+        quantization=ns.quantization,
         unified_step=not ns.no_unified_step,
         decode_window=ns.decode_window,
         spec_ngram=ns.spec_ngram,

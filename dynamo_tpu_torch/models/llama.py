@@ -1,11 +1,15 @@
 """Llama-family transformer in PyTorch over a paged KV cache — port of
-``dynamo_tpu/models/llama.py`` for one device and a dense MLP.
+``dynamo_tpu/models/llama.py``: the dense MLP and the MoE FFN in the JAX
+package's dense-dispatch form (``moe_mlp``, every expert computed; its
+``moe_impl="dense"``, what JAX runs at ep = 1), over plain or weight-only
+int8 leaves (models/quant.py).
 
 - **One forward for prefill and decode.** A step processes ``T`` query
   tokens per row (T = chunk for prefill, T = 1 for decode) against a paged
   KV cache addressed by per-request block tables.
 - **Layers are stacked** ``[L, ...]`` as in the JAX params; ``lax.scan``
-  becomes a Python loop over the layer index.
+  becomes a Python loop over the layer index, which slices each leaf
+  (both tensors of an int8 leaf) to the layer.
 - **The cache is updated in place.** JAX donates the cache to the step
   program and gets a new array back; here ``_scatter_kv`` writes the new
   K/V into the layer's cache slice with ``index_copy_``, and ``forward``
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.cache import cache_payload
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.quant import layer_leaf, leaf_shape
 from dynamo_tpu_torch.obs.profiler import phase as _perf_phase
 from dynamo_tpu_torch.ops.paged_attention import (
     INT4_QMAX,
@@ -44,7 +49,7 @@ from dynamo_tpu_torch.ops.paged_attention import (
     unpack_int4,
 )
 from dynamo_tpu_torch.ops.paged_attention import paged_attention as paged_attention_kernel
-from dynamo_tpu_torch.utils.device import resolve_device
+from dynamo_tpu_torch.utils.device import lasting_empty, resolve_device
 
 if TYPE_CHECKING:
     from dynamo_tpu_torch.parallel.collectives import TPGroup
@@ -60,23 +65,42 @@ def torch_dtype(name: str) -> torch.dtype:
 # Parameter init
 # ---------------------------------------------------------------------------
 
+#: f32 elements one draw of an MoE expert stack makes at a time (256 MiB):
+#: a full-width stack drawn at once would need an f32 temporary of its
+#: whole size (17 GB for gpt-oss-120b's ``w_gate`` at 4 layers)
+EXPERT_SLAB_ELEMS = 1 << 26
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: str | torch.device | None = None) -> Params:
     """Random-init params with the JAX package's shapes and law (scaled
     normal: N(0, 1) · fan_in^-0.5, cast to ``cfg.dtype``; norms at 1),
     drawn from a ``torch.Generator`` on the target device seeded with
-    ``seed``. The bits differ from JAX's threefry draws."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP: MoE slice)")
+    ``seed``. The bits differ from JAX's threefry draws. An MoE model's
+    expert stacks ``[L, E, in, out]`` are drawn a slab of experts at a
+    time (:data:`EXPERT_SLAB_ELEMS`), from the same generator."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    h, L, i = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
+    h, L = cfg.hidden_size, cfg.num_layers
+
+    def draw(out, fan_in):
+        w = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.float32)
+        out.copy_(w.mul_(fan_in ** -0.5))
 
     def dense(shape, fan_in):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * fan_in ** -0.5).to(dt)
+        out = lasting_empty(shape, dt, dev)
+        draw(out, fan_in)
+        return out
+
+    def expert_stack(shape, fan_in):
+        out = lasting_empty(shape, dt, dev)
+        mats = out.view(-1, *shape[-2:])
+        step = max(1, EXPERT_SLAB_ELEMS // (shape[-2] * shape[-1]))
+        for i in range(0, mats.shape[0], step):
+            draw(mats[i: i + step], fan_in)
+        return out
 
     layer: Params = {
         "wq": dense((L, h, cfg.q_size), h),
@@ -85,10 +109,29 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "wo": dense((L, cfg.q_size, h), cfg.q_size),
         "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
         "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
-        "w_gate": dense((L, h, i), h),
-        "w_up": dense((L, h, i), h),
-        "w_down": dense((L, i, h), i),
     }
+    if cfg.is_moe:
+        e, m = cfg.num_experts, cfg.moe_intermediate_size
+        layer.update(
+            router=dense((L, h, e), h),
+            w_gate=expert_stack((L, e, h, m), h),
+            w_up=expert_stack((L, e, h, m), h),
+            w_down=expert_stack((L, e, m, h), m),
+        )
+        if cfg.num_shared_experts:
+            sm = m * cfg.num_shared_experts
+            layer.update(
+                shared_gate=dense((L, h, sm), h),
+                shared_up=dense((L, h, sm), h),
+                shared_down=dense((L, sm, h), sm),
+            )
+    else:
+        i = cfg.intermediate_size
+        layer.update(
+            w_gate=dense((L, h, i), h),
+            w_up=dense((L, h, i), h),
+            w_down=dense((L, i, h), i),
+        )
     params: Params = {
         "embed": dense((cfg.vocab_size, h), h),
         "final_norm": torch.ones((h,), dtype=dt, device=dev),
@@ -249,28 +292,92 @@ def paged_attention(q: torch.Tensor, ctx_k: torch.Tensor, ctx_v: torch.Tensor,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def mm(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` over a plain or int8 (``{"q", "so"}``, models/quant.py)
+    matrix. The int8 values are widened to x's dtype and the per-column
+    scale, cast to x's dtype, applies after the contraction — the JAX
+    package's two roundings."""
+    if isinstance(w, dict):
+        return (x @ w["q"].to(x.dtype)) * w["so"].to(x.dtype)
     return x @ w
 
 
-def embed_lookup(embed: torch.Tensor, token_ids: torch.Tensor,
+def _embed_rows(embed, idx: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Rows ``idx`` of a plain or row-quantized (``{"q", "sr"}``) table at
+    ``dt``: the int8 rows and their scales are each cast to ``dt`` before
+    they multiply, as in the JAX package."""
+    if isinstance(embed, dict):
+        return embed["q"][idx].to(dt) * embed["sr"][idx][..., None].to(dt)
+    return embed[idx].to(dt)
+
+
+def embed_lookup(embed, token_ids: torch.Tensor,
                  dt: torch.dtype, tp: "TPGroup | None" = None) -> torch.Tensor:
-    """Embedding rows of ``token_ids``. Vocab-parallel under ``tp``: this
-    rank's piece of the table holds rows ``[rank * per, (rank + 1) * per)``;
-    a token outside it looks up zeros, and the sum over ranks is the one
-    rank's row, bit for bit."""
+    """Embedding rows of ``token_ids`` from a plain or row-quantized table.
+    Vocab-parallel under ``tp``: this rank's piece of the table holds rows
+    ``[rank * per, (rank + 1) * per)``; a token outside it looks up zeros,
+    and the sum over ranks is the one rank's row, bit for bit."""
     if tp is None:
-        return embed[token_ids.long()].to(dt)
-    per = embed.shape[0]
+        return _embed_rows(embed, token_ids.long(), dt)
+    per = leaf_shape(embed)[0]
     local = token_ids.long() - tp.rank * per
     mine = (local >= 0) & (local < per)
-    rows = embed[local.clamp(0, per - 1)].to(dt)
+    rows = _embed_rows(embed, local.clamp(0, per - 1), dt)
     return tp.all_reduce_sum(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return mm(F.silu(mm(x, w_gate)) * mm(x, w_up), w_down)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of the last axis and their indices, equal
+    values in index order — ``lax.top_k``'s order (``torch.topk`` promises
+    none): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+#: bytes one f32 intermediate of a slab of experts may take in
+#: :func:`moe_mlp` (the all-expert product at gpt-oss-120b width is
+#: 1.5 GB of bf16 a tensor for 2048 rows, and its f32 combine twice that)
+MOE_SLAB_BYTES = 1 << 30
+
+
+def moe_mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
+    """MoE FFN, the JAX package's dense-dispatch formulation: every expert
+    computed for every token, combined by the top-k router weights. x:
+    [B, T, H].
+
+    Router logits in f32, ``top_k`` in ``lax.top_k``'s tie order, softmax
+    over the top values, an f32 gate mask [N, E]. Each expert's output is
+    rounded to the model dtype and summed in f32 with its gate weight, as
+    JAX's ``per_expert.astype(f32)`` einsum does; the experts go a slab at
+    a time so that the [slab, N, M] and [slab, N, H] intermediates stay
+    under :data:`MOE_SLAB_BYTES` (the f32 sum visits the slabs in order).
+    The shared expert, if any, adds through :func:`swiglu`."""
+    b, t, h = x.shape
+    xt = x.reshape(-1, h)                                       # [N, H]
+    n = xt.shape[0]
+    logits = xt.float() @ lp["router"].float()                  # [N, E]
+    e = cfg.num_experts
+    topv, topi = top_k(logits, cfg.num_experts_per_tok)
+    weights = torch.softmax(topv, dim=-1)                       # [N, k]
+    gate_mask = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    gate_mask.scatter_add_(1, topi, weights)                    # [N, E]
+    w_gate, w_up, w_down = lp["w_gate"], lp["w_up"], lp["w_down"]
+    slab = max(1, min(e, MOE_SLAB_BYTES // (4 * n * max(h, cfg.moe_intermediate_size))))
+    out = torch.zeros((n, h), dtype=torch.float32, device=x.device)
+    for lo in range(0, e, slab):
+        hi = min(lo + slab, e)
+        gate = torch.matmul(xt, w_gate[lo:hi])                  # [S, N, M]
+        up = torch.matmul(xt, w_up[lo:hi])
+        per_expert = torch.matmul(F.silu(gate) * up, w_down[lo:hi])   # [S, N, H]
+        out += torch.einsum("snh,ns->nh", per_expert.float(), gate_mask[:, lo:hi])
+    out = out.to(x.dtype)
+    if cfg.num_shared_experts:
+        out = out + swiglu(xt, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
+    return out.reshape(b, t, h)
 
 
 # ---------------------------------------------------------------------------
@@ -319,12 +426,13 @@ def forward(params: Params, cfg: ModelConfig,
         hid = torch.where(embed_mask[..., None], embed_override.to(hid.dtype), hid)
     layers = params["layers"]
     d = cfg.head_dim
-    heads, kv_heads = layers["wq"].shape[-1] // d, layers["wk"].shape[-1] // d
+    heads, kv_heads = leaf_shape(layers["wq"])[-1] // d, leaf_shape(layers["wk"])[-1] // d
     for li in range(cfg.num_layers):
-        x = rms_norm(hid, layers["attn_norm"][li], cfg.rms_norm_eps)
-        q = mm(x, layers["wq"][li]).reshape(b, t, heads, d)
-        k = mm(x, layers["wk"][li]).reshape(b, t, kv_heads, d)
-        v = mm(x, layers["wv"][li]).reshape(b, t, kv_heads, d)
+        lp = {key: layer_leaf(leaf, li) for key, leaf in layers.items()}
+        x = rms_norm(hid, lp["attn_norm"], cfg.rms_norm_eps)
+        q = mm(x, lp["wq"]).reshape(b, t, heads, d)
+        k = mm(x, lp["wk"]).reshape(b, t, kv_heads, d)
+        v = mm(x, lp["wv"]).reshape(b, t, kv_heads, d)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         ck, cv = _layer_cache(cache_k, li), _layer_cache(cache_v, li)
@@ -337,10 +445,13 @@ def forward(params: Params, cfg: ModelConfig,
         with _perf_phase("attention"):
             attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
                                           num_splits=attn_num_splits)
-        out = mm(attn.reshape(b, t, heads * d), layers["wo"][li])
+        out = mm(attn.reshape(b, t, heads * d), lp["wo"])
         hid = hid + (out if tp is None else tp.all_reduce_sum(out))
-        x = rms_norm(hid, layers["mlp_norm"][li], cfg.rms_norm_eps)
-        out = swiglu(x, layers["w_gate"][li], layers["w_up"][li], layers["w_down"][li])
+        x = rms_norm(hid, lp["mlp_norm"], cfg.rms_norm_eps)
+        if cfg.is_moe:
+            out = moe_mlp(x, lp, cfg)       # one device: the engine refuses MoE at tp > 1
+        else:
+            out = swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
         hid = hid + (out if tp is None else tp.all_reduce_sum(out))
     h = rms_norm(hid, params["final_norm"], cfg.rms_norm_eps)
     if return_all_hidden:
@@ -355,8 +466,13 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
     Under ``tp`` each rank projects onto its vocab piece and the pieces are
     gathered (``TPGroup.gather_vocab``)."""
     with _perf_phase("logits"):
-        if cfg.tie_word_embeddings:
-            logits = hidden @ params["embed"].T
+        e = params["embed"]
+        if cfg.tie_word_embeddings and isinstance(e, dict):
+            # a row-quantized table: its row scale is the logit column's,
+            # applied after the contraction
+            logits = (hidden @ e["q"].to(hidden.dtype).T) * e["sr"].to(hidden.dtype)
+        elif cfg.tie_word_embeddings:
+            logits = hidden @ e.T
         else:
             logits = mm(hidden, params["lm_head"])
         return logits if tp is None else tp.gather_vocab(logits, cfg.vocab_size)

@@ -9,7 +9,9 @@ bf16 tensors are read as ``uint16`` and viewed as ``torch.bfloat16``.
 HF llama-family names map onto the same stacked-layer layout as the JAX
 package (``{"embed", "final_norm", ["lm_head"], "layers": {name: [L, ...]}}``),
 with projections transposed from HF's ``[out, in]`` to ``[in, out]``.
-MoE checkpoints are not ported yet.
+MoE checkpoints of both families the JAX loader reads (mixtral's
+``block_sparse_moe``, deepseek/qwen-moe's ``mlp.experts`` and
+``shared_experts``) stack their routed experts into ``[L, E, in, out]``.
 """
 
 from __future__ import annotations
@@ -135,37 +137,85 @@ def has_weights(model_dir: str | Path) -> bool:
 # HF llama-family name mapping
 # ---------------------------------------------------------------------------
 
-#: our layer param name → (HF suffix under model.layers.{i}., transpose).
-#: Transpose: HF stores linear weights as [out, in]; the port computes
-#: ``x @ W`` with W as [in, out].
-_LAYER_SPECS: dict[str, tuple[str, bool]] = {
-    "wq": ("self_attn.q_proj.weight", True),
-    "wk": ("self_attn.k_proj.weight", True),
-    "wv": ("self_attn.v_proj.weight", True),
-    "wo": ("self_attn.o_proj.weight", True),
-    "attn_norm": ("input_layernorm.weight", False),
-    "mlp_norm": ("post_attention_layernorm.weight", False),
-    "w_gate": ("mlp.gate_proj.weight", True),
-    "w_up": ("mlp.up_proj.weight", True),
-    "w_down": ("mlp.down_proj.weight", True),
-}
+def _layer_specs(cfg: ModelConfig, family: str) -> dict[str, tuple[str, bool]]:
+    """Our layer param name → (HF suffix under ``model.layers.{i}.``,
+    transpose). Transpose: HF stores linear weights as [out, in]; the port
+    computes ``x @ W`` with W as [in, out]."""
+    specs = {
+        "wq": ("self_attn.q_proj.weight", True),
+        "wk": ("self_attn.k_proj.weight", True),
+        "wv": ("self_attn.v_proj.weight", True),
+        "wo": ("self_attn.o_proj.weight", True),
+        "attn_norm": ("input_layernorm.weight", False),
+        "mlp_norm": ("post_attention_layernorm.weight", False),
+    }
+    if cfg.is_moe:
+        router = ("block_sparse_moe.gate.weight" if family == "mixtral"
+                  else "mlp.gate.weight")
+        specs["router"] = (router, True)
+        if cfg.num_shared_experts:
+            specs.update(
+                shared_gate=("mlp.shared_experts.gate_proj.weight", True),
+                shared_up=("mlp.shared_experts.up_proj.weight", True),
+                shared_down=("mlp.shared_experts.down_proj.weight", True),
+            )
+    else:
+        specs.update(
+            w_gate=("mlp.gate_proj.weight", True),
+            w_up=("mlp.up_proj.weight", True),
+            w_down=("mlp.down_proj.weight", True),
+        )
+    return specs
+
+
+def _moe_family(reader: CheckpointReader, cfg: ModelConfig) -> str:
+    """The MoE naming family of the checkpoint's tensors: mixtral
+    (``block_sparse_moe.experts.N.w1/w2/w3``, no shared experts) or
+    deepseek/qwen-moe (``mlp.experts.N.gate_proj/up_proj/down_proj``, and
+    ``mlp.shared_experts`` where the config has them)."""
+    if "model.layers.0.block_sparse_moe.gate.weight" in reader:
+        if cfg.num_shared_experts:
+            raise ValueError(
+                "config declares shared experts but checkpoint uses "
+                "mixtral-style names, which have none")
+        return "mixtral"
+    if "model.layers.0.mlp.gate.weight" in reader:
+        return "deepseek"
+    raise ValueError(
+        "MoE config but no recognized MoE router tensor in checkpoint "
+        "(looked for block_sparse_moe.gate / mlp.gate)")
+
+
+def _expert_specs(family: str) -> dict[str, str]:
+    """Routed-expert weights: our name → HF suffix pattern (mixtral: w1 =
+    gate, w3 = up, w2 = down)."""
+    if family == "mixtral":
+        return {
+            "w_gate": "block_sparse_moe.experts.{e}.w1.weight",
+            "w_up": "block_sparse_moe.experts.{e}.w3.weight",
+            "w_down": "block_sparse_moe.experts.{e}.w2.weight",
+        }
+    return {
+        "w_gate": "mlp.experts.{e}.gate_proj.weight",
+        "w_up": "mlp.experts.{e}.up_proj.weight",
+        "w_down": "mlp.experts.{e}.down_proj.weight",
+    }
 
 
 def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.dtype,
                       rank: int = 0, tp: int = 1
                       ) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
     """Yield ((path), stacked CPU tensor) for every model parameter; layer
-    params are stacked into [L, ...] one layer at a time. With ``tp > 1``
+    params are stacked into [L, ...] one layer at a time, an MoE model's
+    routed experts into [L, E, ...] one expert at a time. With ``tp > 1``
     each leaf is rank ``rank``'s shard (parallel/mesh.py), and only that
     slice of each checkpoint tensor is read."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE checkpoints are not ported yet (ROADMAP: MoE slice)")
     axes = param_logical_axes(cfg)
+    family = _moe_family(reader, cfg) if cfg.is_moe else "llama"
 
     def grab(name: str, transpose: bool, leaf_axes: tuple) -> torch.Tensor:
         if name not in reader:
-            raise KeyError(f"checkpoint is missing tensor {name!r}; "
+            raise KeyError(f"checkpoint is missing tensor {name!r} (family={family}); "
                            "config/checkpoint mismatch?")
         # the shard's bounds on our [in, out] layout, read from HF's [out, in]
         stored = reader.shape(name)
@@ -178,18 +228,30 @@ def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.d
             t = pad_dim(t, dim, per)
         return t.to(dtype).contiguous()
 
+    def stack(names: list[str], lead: tuple[int, ...], transpose: bool,
+              leaf_axes: tuple) -> torch.Tensor:
+        """The tensors ``names`` stacked into a ``[*lead, ...]`` tensor
+        allocated up front and filled a tensor at a time."""
+        first = grab(names[0], transpose, leaf_axes)
+        out = torch.empty((len(names), *first.shape), dtype=dtype)
+        out[0] = first
+        for i, name in enumerate(names[1:], 1):
+            out[i] = grab(name, transpose, leaf_axes)
+        return out.view(*lead, *first.shape)
+
     yield ("embed",), grab("model.embed_tokens.weight", False, axes["embed"])
     yield ("final_norm",), grab("model.norm.weight", False, axes["final_norm"])
     if not cfg.tie_word_embeddings:
         yield ("lm_head",), grab("lm_head.weight", True, axes["lm_head"])
-    for our, (suffix, transpose) in _LAYER_SPECS.items():
-        leaf_axes = axes["layers"][our][1:]
-        first = grab(f"model.layers.0.{suffix}", transpose, leaf_axes)
-        out = torch.empty((cfg.num_layers, *first.shape), dtype=dtype)
-        out[0] = first
-        for i in range(1, cfg.num_layers):
-            out[i] = grab(f"model.layers.{i}.{suffix}", transpose, leaf_axes)
-        yield ("layers", our), out
+    L, E = cfg.num_layers, cfg.num_experts
+    for our, (suffix, transpose) in _layer_specs(cfg, family).items():
+        names = [f"model.layers.{i}.{suffix}" for i in range(L)]
+        yield ("layers", our), stack(names, (L,), transpose, axes["layers"][our][1:])
+    if cfg.is_moe:
+        for our, pattern in _expert_specs(family).items():
+            names = [f"model.layers.{i}.{pattern.format(e=e)}"
+                     for i in range(L) for e in range(E)]
+            yield ("layers", our), stack(names, (L, E), True, axes["layers"][our][2:])
 
 
 def load_params(cfg: ModelConfig, model_dir: str | Path,
@@ -221,6 +283,8 @@ def from_jax_params(params_np: Params, device: str | torch.device | None = None)
     """The JAX package's params pytree, as numpy arrays (``jax.tree.map(
     np.asarray, params)``), → the port's dict of tensors, bit for bit (a
     full tree: ``parallel.mesh.shard_params`` cuts a rank's shard of it).
+    MoE leaves and int8 leaves (``{"q", "so"|"sr"}``, models/quant.py)
+    carry over as they are: nested dicts, int8 and f32 arrays.
 
     ml_dtypes bfloat16 arrays travel as their ``uint16`` bits, because
     ``torch.from_numpy`` rejects them; the bits are viewed back as

@@ -2,11 +2,14 @@
 and the leader's control channel to its followers.
 
 Everything the model needs across ranks is built from ``all_reduce``
-(sum) and ``broadcast``, the two that gloo documents for CUDA tensors:
-the partial products of ``wo`` and ``w_down`` are summed, a
-vocab-parallel embedding row or logit slice is gathered by summing each
-rank's piece written into a zeroed buffer (:meth:`TPGroup.gather_vocab`;
-no ``all_gather``), and the leader's step inputs are broadcast.
+and ``broadcast``, the two that gloo documents for CUDA tensors: the
+partial products of ``wo`` and ``w_down`` are summed, a vocab-parallel
+embedding row or logit slice is gathered by summing each rank's piece
+written into a zeroed buffer (:meth:`TPGroup.gather_vocab`; no
+``all_gather``), the int8 quantizer's per-channel abs-max over a
+row-parallel shard is an ``all_reduce`` with ``MAX``
+(:meth:`TPGroup.all_reduce_max`), and the leader's step inputs are
+broadcast.
 
 gloo reduces CUDA tensors through host memory, so its collectives cannot
 be captured in a CUDA graph: a tensor-parallel engine runs eager steps.
@@ -99,6 +102,12 @@ class TPGroup:
         full = local.new_zeros((*local.shape[:-1], per * self.size))
         full[..., self.rank * per: (self.rank + 1) * per] = local
         return self.all_reduce_sum(full)[..., :vocab]
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every rank's ``x``, in a new tensor."""
+        out = x.contiguous().clone()
+        self._run(dist.all_reduce, out, op=dist.ReduceOp.MAX)
+        return out
 
     def agree_min(self, n: int) -> int:
         """The least of every rank's ``n`` (each rank writes its own into a

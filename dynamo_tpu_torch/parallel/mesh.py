@@ -14,7 +14,12 @@ the r-th of tp equal contiguous pieces of each dim whose logical axis
   ``wo``: input rows (the same heads);
 - ``w_gate``, ``w_up``: columns; ``w_down``: rows (the FFN width);
 - ``embed``: vocab rows; ``lm_head``: vocab columns;
-- norms replicated.
+- norms replicated;
+- an int8 leaf (``{"q", "so"|"sr"}``, models/quant.py): ``q`` as its
+  matrix, the scales on the matrix's output (or vocab) axis.
+
+MoE leaves have their JAX axes ("expert", "moe_mlp"), but the port serves
+MoE at tp = 1 only (the engine refuses MoE with tp > 1).
 
 The vocab is the one axis that need not divide: each rank's piece is
 ``ceil(V / tp)`` rows, the last one padded with zero rows that the model
@@ -71,10 +76,7 @@ Params = dict[str, Any]
 
 
 def param_logical_axes(cfg: ModelConfig) -> Params:
-    """Logical axis names per parameter leaf of a dense model (copy of the
-    JAX function's dense branch)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP: MoE slice)")
+    """Logical axis names per parameter leaf (copy of the JAX function)."""
     layer = {
         "wq": ("layers", None, "heads"),
         "wk": ("layers", None, "kv_heads"),
@@ -82,10 +84,26 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
         "wo": ("layers", "heads", None),
         "attn_norm": ("layers", None),
         "mlp_norm": ("layers", None),
-        "w_gate": ("layers", None, "mlp"),
-        "w_up": ("layers", None, "mlp"),
-        "w_down": ("layers", "mlp", None),
     }
+    if cfg.is_moe:
+        layer.update(
+            router=("layers", None, "expert"),
+            w_gate=("layers", "expert", None, "moe_mlp"),
+            w_up=("layers", "expert", None, "moe_mlp"),
+            w_down=("layers", "expert", "moe_mlp", None),
+        )
+        if cfg.num_shared_experts:
+            layer.update(
+                shared_gate=("layers", None, "mlp"),
+                shared_up=("layers", None, "mlp"),
+                shared_down=("layers", "mlp", None),
+            )
+    else:
+        layer.update(
+            w_gate=("layers", None, "mlp"),
+            w_up=("layers", None, "mlp"),
+            w_down=("layers", "mlp", None),
+        )
     axes: Params = {"embed": ("vocab", None), "final_norm": (None,), "layers": layer}
     if not cfg.tie_word_embeddings:
         axes["lm_head"] = (None, "vocab")
@@ -150,10 +168,23 @@ def shard_leaf(x: torch.Tensor, axes: tuple, rank: int, tp: int) -> torch.Tensor
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def quantized_axes(axes: tuple, key: str) -> tuple:
+    """The logical axes of a quantized leaf's tensor ``key`` for a matrix
+    on ``axes``: ``q`` keeps them, a per-out-channel scale ``so`` drops the
+    contracted (second-to-last) axis, a per-row scale ``sr`` the last."""
+    if key == "so":
+        return axes[:-2] + axes[-1:]
+    if key == "sr":
+        return axes[:-1]
+    return axes
+
+
 def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int) -> Params:
     """Rank ``rank``'s shard of a full params tree: the counterpart of
     JAX's ``shard_params`` followed by taking that rank's addressable
-    shards."""
+    shards. A quantized leaf (models/quant.py) is cut as its matrix is:
+    ``q`` on the matrix's axes, its scales on theirs (a padded vocab
+    piece's scales are zeros, as its rows are)."""
     if tp == 1:
         return params
     check_tp(cfg, tp)
@@ -161,6 +192,8 @@ def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int) -> Params
     def walk(p, axes):
         if isinstance(axes, dict):
             return {k: walk(p[k], axes[k]) for k in axes}
+        if isinstance(p, dict):
+            return {k: shard_leaf(v, quantized_axes(axes, k), rank, tp) for k, v in p.items()}
         return shard_leaf(p, axes, rank, tp)
 
     return walk(params, param_logical_axes(cfg))

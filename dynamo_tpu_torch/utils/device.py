@@ -27,3 +27,15 @@ def device_name(device: torch.device) -> str:
     if device.type == "cpu":
         return "cpu"
     return torch.cuda.get_device_name(device)
+
+
+def lasting_empty(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An empty tensor meant to outlive the temporaries made after it (a
+    weight filled from f32 draws or from a quantizer's f32 work). On the
+    card the caching allocator first returns its cached blocks, so the
+    tensor takes a segment of its own: one that later holds the
+    temporaries' freed blocks beside it can never be given back, and the
+    KV pool, sized from free memory, would lose it."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return torch.empty(shape, dtype=dtype, device=device)

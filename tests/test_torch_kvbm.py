@@ -13,6 +13,8 @@ onboarded block counts, prefill tokens).
 from __future__ import annotations
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -444,3 +446,25 @@ def test_kvbm_and_session_settings_are_accepted(tiny32, tmp_path, setting):
     assert [t.name for t in tcore.kvbm.tiers] == [t.name for t in jcore.kvbm.tiers]
     assert (tcore.kvbm.publish_tier is None) == (jcore.kvbm.publish_tier is None)
     assert (tcore.kvbm.ckpt_tier is None) == (jcore.kvbm.ckpt_tier is None)
+
+
+def test_memory_ledger_does_not_keep_an_engine_with_tiers_alive(tmp_path):
+    """The process-global memory ledger holds the device pool (whose evict
+    and commit hooks reach the engine) and the KVBM tiers weakly: an
+    engine with a host and a disk tier is collected once dropped, weights
+    and KV cache with it, and its rows then report nothing resident."""
+    from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+
+    core = teng.EngineCore(TEngineConfig(
+        model="tiny-llama", block_size=4, num_blocks=32, max_batch_size=2, max_model_len=64,
+        host_kv_blocks=8, disk_kv_path=str(tmp_path), disk_kv_bytes=1 << 20,
+        allow_random_weights=True), device="cpu")
+    assert core.pool.evict_hook is not None
+    names = [t.name for t in core.kvbm.tiers]
+    ref = weakref.ref(core.runner)
+    del core
+    gc.collect()
+    assert ref() is None
+    rows = get_mem_ledger().tier_occupancy()
+    for name in ["device", *names]:
+        assert rows[name]["blocks"] == 0 and rows[name]["bytes"] == 0

@@ -240,28 +240,8 @@ def test_forward_tp2_matches_jax(tiny32, tmp_path):
                           cache_k=jck, cache_v=jcv)
         want.append((np.asarray(h), np.asarray(jl.logits_from_hidden(jparams, JCFG, h))))
 
-    init = f"file://{tmp_path / 'rendezvous'}"
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs, conns = [], []
-    for rank in range(2):
-        ours, theirs = ctx.Pipe()
-        proc = ctx.Process(target=torch_tp_rank.forward_rank, daemon=True,
-                           args=(rank, init, TCFG, full, steps, nb, bs, theirs))
-        proc.start()
-        theirs.close()
-        procs.append(proc)
-        conns.append(ours)
-    try:
-        got = []
-        for conn in conns:
-            assert conn.poll(120), "a rank sent nothing within 120 s"
-            got.append(conn.recv())
-    finally:
-        for proc in procs:
-            proc.join(timeout=60)
-            if proc.is_alive():
-                proc.kill()
-    assert [p.exitcode for p in procs] == [0, 0]
+    got = torch_tp_rank.run_ranks(torch_tp_rank.forward_rank, 2, tmp_path, TCFG, full,
+                                  steps, nb, bs)
     for rank_out in got:
         for (th, tl), (jh, jlg), (_, _, ql, _) in zip(rank_out, want, steps):
             live = ql > 0
