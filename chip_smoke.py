@@ -248,6 +248,31 @@ if any phase fails:
 (i3) after (h): (h1)'s f32 model with int8 weights at tp=2 (each rank
     quantizing its shard, the row-parallel scales over the group) against
     tp=1 int8, by (h1)'s stream rule.
+(k) the distributed deployment, last: the port's coordinator, frontend
+    (``--router-mode kv`` on 127.0.0.1) and four llama-3-8b-lite workers
+    on cuda:0 as processes (each ``--allow-random-weights --num-blocks N``,
+    full warmup): two at f32 over the f32 cache (component ``f32``) and
+    two at bf16 (component ``bf16``), spoken to over HTTP with the stdlib.
+    A tokenizer whose every id is the text `` t<id>`` lets the client read
+    the ids back. Each worker publishes its launches by route, forward
+    steps and peak memory; each subphase reads them through the
+    frontend's ``/engine_stats`` before and after. (k1) 32 x (128 + 32)
+    f32 greedy streams must equal (b'')'s in-process streams or first
+    differ at a near-tie, ``mma_f32`` only, 8 a forward step; (k2) bf16 at
+    (b)'s traffic: decode tok/s and TTFT at the client beside (b)'s and
+    (e2)'s, requests per worker, ``mma_bf16`` only, 8 a forward step on
+    each worker, each worker's peak memory, the codec's microseconds a
+    DATA frame; (k3) four groups of 8 requests sharing a 1024-token prefix
+    each, one request at a time: at least 7 of a group's 8 on the worker
+    that served its first (the router's decisions as the frontend reports
+    them), that worker's device prefix hits rising, the router's ms a
+    decision, a repeat's TTFT against the first's; (k4) 8 f32 streams of
+    (128 + 64): the worker serving some of them is SIGKILLed after their
+    first tokens; every stream finishes (the victim's through Migration on
+    the other worker) equal to an unbroken run's or first differing at a
+    near-tie, the dead instance leaves discovery within its lease, the
+    next 4 requests succeed. Then each survivor gets SIGTERM and must
+    drain (``WORKER_DRAINED``, state done) and exit 0; no process is left.
 
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
@@ -269,7 +294,9 @@ Without a CUDA card it exits non-zero and prints no result.
 ``python3 chip_smoke.py --only-g`` builds the kernels and runs (g) alone,
 and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-tp`` does the same for (a') and (h);
-``python3 chip_smoke.py --only-ij`` for (b)'s bf16 run, (i), (j) and (h).
+``python3 chip_smoke.py --only-ij`` for (b)'s bf16 run, (i), (j) and (h);
+``python3 chip_smoke.py --only-k`` for (b'')'s f32 run (the reference of
+(k1)) and (k).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -837,13 +864,15 @@ async def serve(engine, reqs: dict, after=None):
 
 
 def phase_serve(kind: str, profile: bool = False, window: int = 1,
-                f32: bool = False, quantization: str = "none") -> tuple[dict, dict]:
+                f32: bool = False, quantization: str = "none",
+                with_lps: bool = False) -> tuple[dict, dict]:
     """One serving run with the KV cache of ``kind`` after a full warmup
     (bf16 weights, or with ``f32`` f32 weights over the f32 model-precision
     cache; with ``quantization="int8"`` the weights quantized to int8): it
     must launch its route's kernel only, once per layer and forward step,
     all through replays of graphs the warmup captured. Returns the run's
-    numbers and its token streams."""
+    numbers and its token streams ({i: tokens}, or with ``with_lps``
+    {i: (tokens, logprobs)})."""
     from dynamo_tpu_torch.engine.engine import build_engine
     from dynamo_tpu_torch.models.quant import param_bytes
     from dynamo_tpu_torch.obs.compile_ledger import get_compile_ledger
@@ -968,6 +997,8 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
     del engine, core, programs, warmed
     gc.collect()
     torch.cuda.empty_cache()
+    if with_lps:
+        return res, streams
     return res, {i: toks for i, (toks, _) in streams.items()}
 
 
@@ -3515,6 +3546,459 @@ def phase_tp(smi: str, b_serve: dict, b_streams: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# (k) the distributed deployment: coordinator, frontend, workers as processes
+# ---------------------------------------------------------------------------
+
+#: (k)'s processes: the lease TTL within which a killed worker leaves
+#: discovery, and the workers' KV pools (explicit: four processes share the
+#: card, and sizing from free memory would race)
+K_TTL_S = 6.0
+K_MODEL = "llama-3-8b-lite"
+K_F32_NAME = "llama-3-8b-lite-f32"
+K_F32_BLOCKS, K_BF16_BLOCKS = 512, 1280
+K_BATCH, K_PROMPT = 32, 128
+K_PREFIX, K_SUFFIX, K_GROUPS, K_GROUP, K_GROUP_DECODE = 1024, 16, 4, 8, 32
+K4_STREAMS, K4_DECODE = 8, 64
+
+
+def k_prompts(vocab: int) -> list[list[int]]:
+    """(b)'s prompts (and (b'')'s, the reference of (k1))."""
+    hi = vocab - 5
+    return [[(7 * i + 11 * j) % hi + 5 for j in range(K_PROMPT)] for i in range(K_BATCH)]
+
+
+def k_tokenizer(root: Path, vocab: int) -> Path:
+    """A byte-level BPE tokenizer.json whose id ``i`` is the text `` t<i>``
+    (no merges): the frontend streams every token of the random-weight
+    model as text the client maps back to its id."""
+    d = root / "k-tokenizer"
+    d.mkdir(parents=True, exist_ok=True)
+    spec = {"model": {"type": "BPE", "vocab": {f"\u0120t{i}": i for i in range(vocab)},
+                      "merges": []}, "added_tokens": []}
+    (d / "tokenizer.json").write_text(json.dumps(spec))
+    return d
+
+
+class KCluster:
+    """(k)'s processes, each a module of the port started with
+    ``python -m`` from the checkout, its output in a log file."""
+
+    def __init__(self, root: Path, env: dict):
+        self.root, self.env = root, env
+        self.procs: dict[str, tuple[subprocess.Popen, Path]] = {}
+        self.expected_dead: set[str] = set()
+
+    def start(self, name: str, module: str, args: list[str]) -> None:
+        path = self.root / f"{name}.log"
+        out = open(path, "w")
+        proc = subprocess.Popen([sys.executable, "-u", "-m", module, *args], cwd=ROOT,
+                                env=self.env, stdout=out, stderr=subprocess.STDOUT)
+        out.close()
+        self.procs[name] = (proc, path)
+
+    def log_of(self, name: str) -> str:
+        return self.procs[name][1].read_text(errors="replace")
+
+    def wait_line(self, name: str, needle: str, timeout: float) -> str:
+        proc, _ = self.procs[name]
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in self.log_of(name).splitlines():
+                if needle in line:
+                    return line
+            if proc.poll() is not None:
+                raise AssertionError(f"[k] {name} exited rc={proc.returncode} before "
+                                     f"{needle!r}:\n{self.log_of(name)[-4000:]}")
+            time.sleep(0.1)
+        raise AssertionError(f"[k] {name}: no {needle!r} in {timeout}s:\n"
+                             f"{self.log_of(name)[-4000:]}")
+
+    def check_alive(self) -> None:
+        """A process that dies unasked fails the run."""
+        for name, (proc, _) in self.procs.items():
+            if name not in self.expected_dead and proc.poll() is not None:
+                raise AssertionError(f"[k] {name} died (rc={proc.returncode}):\n"
+                                     f"{self.log_of(name)[-4000:]}")
+
+    def kill(self, name: str) -> None:
+        self.expected_dead.add(name)
+        self.procs[name][0].kill()
+
+    def terminate(self, name: str, timeout: float) -> int:
+        self.expected_dead.add(name)
+        proc = self.procs[name][0]
+        proc.terminate()
+        return proc.wait(timeout)
+
+    def stop_all(self) -> None:
+        for name, (proc, _) in self.procs.items():
+            if proc.poll() is None:
+                proc.terminate()
+        for name, (proc, _) in self.procs.items():
+            try:
+                proc.wait(20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(10)
+
+
+def k_get(port: int, path: str) -> dict:
+    res = asyncio.run(http_call(port, "GET", path))
+    if res["status"] != 200:
+        raise AssertionError(f"[k] GET {path}: {res['status']} {res['body'][:300]}")
+    return json.loads(res["body"]) if path != "/metrics" else res["body"].decode()
+
+
+def k_stats(port: int, model: str) -> dict:
+    return k_get(port, "/engine_stats").get(model, {})
+
+
+def k_settled(port: int, model: str, workers: list[str]) -> dict:
+    """The model's stats once every worker's published engine is idle (each
+    worker publishes every 0.25 s: the wait lets the last step's counts
+    arrive)."""
+    time.sleep(0.6)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        st = k_stats(port, model)
+        ws = st.get("workers", {})
+        if all(w in ws and ws[w]["num_running"] == 0 and ws[w]["num_waiting"] == 0
+               for w in workers):
+            return st
+        time.sleep(0.1)
+    raise AssertionError(f"[k] {model}: workers {workers} never went idle: {st}")
+
+
+def k_launches(tag: str, before: dict, after: dict, workers: list[str], route: str,
+               layers: int) -> dict:
+    """Each worker's launches and forward steps between two stats reads:
+    ``route`` only, ``layers`` a forward step; returns them by worker."""
+    out = {}
+    for w in workers:
+        a0, a1 = before["workers"][w]["attention"], after["workers"][w]["attention"]
+        steps = a1["forward_steps"] - a0["forward_steps"]
+        by_kernel = {k: a1["launches"][k] - a0["launches"].get(k, 0) for k in a1["launches"]}
+        want = {k: layers * steps if k == route else 0 for k in by_kernel}
+        if by_kernel != want:
+            raise AssertionError(f"{tag}: worker {w} launched {by_kernel} in {steps} "
+                                 f"forward steps; expected {layers} of {route} a step")
+        out[w] = {"launches": by_kernel[route], "forward_steps": steps,
+                  "launches_per_forward_step": by_kernel[route] / steps if steps else None,
+                  "peak_mem_gib": a1["max_memory_allocated"] / 2**30}
+    return out
+
+
+def k_ids(text: str) -> list[int]:
+    """The ids of a stream's text (every token is `` t<id>``)."""
+    words = text.split()
+    if not all(w.startswith("t") and w[1:].isdigit() for w in words):
+        raise AssertionError(f"[k] text not made of `` t<id>`` tokens: {text[:200]!r}")
+    return [int(w[1:]) for w in words]
+
+
+async def k_stream(port: int, model: str, prompt: list[int], max_tokens: int) -> dict:
+    res = await http_call(port, "POST", "/v1/completions", {
+        "model": model, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+        "logprobs": 0, "ignore_eos": True, "stream": True,
+        "stream_options": {"include_usage": True}})
+    if res["status"] != 200:
+        raise AssertionError(f"[k] {model}: status {res['status']} {res['body'][:300]}")
+    s = sse_summary(res)
+    ids = k_ids(s["text"])
+    if len(ids) != max_tokens or len(s["lps"]) != max_tokens or s["finish"] != "length":
+        raise AssertionError(f"[k] {model}: {len(ids)} ids, {len(s['lps'])} logprobs, "
+                             f"finish {s['finish']}; expected {max_tokens}")
+    return {"ids": ids, "lps": s["lps"], "t0": res["t0"], "first": s["first"],
+            "last": s["last"]}
+
+
+def k_batch(port: int, model: str, prompts: list[list[int]], max_tokens: int) -> list[dict]:
+    async def go():
+        return await asyncio.gather(*(k_stream(port, model, p, max_tokens) for p in prompts))
+    return asyncio.run(go())
+
+
+def k_compare(tag: str, got: list[dict], ref: dict) -> dict:
+    """``compare_streams`` of the client's streams against ``ref``
+    ({i: (tokens, logprobs)}); fails on a stream that leaves it at no
+    near-tie."""
+    equal, ties, bad = compare_streams(tag, {i: (g["ids"], g["lps"]) for i, g in
+                                             enumerate(got)}, ref)
+    if bad:
+        raise AssertionError(f"{tag}: streams leave the reference at no near-tie: {bad[:4]}")
+    return {"streams_equal": equal, "near_ties": ties}
+
+
+def codec_us_per_frame(n: int = 20000) -> float:
+    """The port's codec on one streamed token's DATA frame, packed and
+    unpacked (the worker packs it, the frontend unpacks it): microseconds a
+    frame on this host."""
+    from dynamo_tpu_torch.protocols.common import LLMEngineOutput
+    from dynamo_tpu_torch.transports.wire import Frame, encode_frame
+    from dynamo_tpu_torch.utils import msgpack
+
+    frame = {"t": Frame.DATA, "id": 123456,
+             "d": LLMEngineOutput(token_ids=[91234], cum_log_probs=-12.5,
+                                  log_probs=[-0.25]).to_dict()}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        msgpack.unpackb(encode_frame(frame)[4:])
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def k_worker_args(url: str, component: str, served: str, blocks: int, max_len: int,
+                  tokenizer: Path, device: str, extra: list[str]) -> list[str]:
+    return ["--coordinator", url, "--model", K_MODEL, "--allow-random-weights",
+            "--component", component, "--served-model-name", served,
+            "--num-blocks", str(blocks), "--block-size", "16", "--max-batch-size", "32",
+            "--max-model-len", str(max_len), "--prefill-chunk", "128",
+            "--warmup-mode", "full", "--warmup-deadline", "0", "--tokenizer", str(tokenizer),
+            *(["--device", device] if device != "cuda" else []), *extra]
+
+
+def phase_cluster(smi: str, f32_ref: dict, b_bf16: dict | None, e2: dict | None,
+                  device: str = "cuda") -> dict:
+    """(k): see the module docstring. ``f32_ref`` is (b'')'s in-process f32
+    streams {i: (tokens, logprobs)}, ``b_bf16`` and ``e2`` (b)'s bf16 and
+    (e2)'s numbers to print beside (k2)'s."""
+    import socket
+    import tempfile
+
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    cfg = resolve_model_config(K_MODEL)
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    tmp = Path(tempfile.mkdtemp(prefix="k-cluster-"))
+    tok = k_tokenizer(tmp, vocab)
+
+    def free_port() -> int:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
+           "DYN_LEASE_TTL_S": str(K_TTL_S), "DYN_LOG": "info"}
+    cl = KCluster(tmp, env)
+    out: dict = {"smi": smi}
+    t_phase = time.perf_counter()
+    try:
+        coord_port, http_port = free_port(), free_port()
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(coord_port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 60)
+        url = f"tcp://127.0.0.1:{coord_port}"
+        f32_len = K_PROMPT + K4_DECODE + 16
+        bf16_len = max(K_PREFIX + K_SUFFIX + K_GROUP_DECODE, K_PROMPT + 64) + 16
+        for name in ("f32a", "f32b"):
+            cl.start(name, "dynamo_tpu_torch.components.worker", k_worker_args(
+                url, "f32", K_F32_NAME, K_F32_BLOCKS, f32_len, tok, device,
+                ["--dtype", "float32"]))
+        for name in ("bf16a", "bf16b"):
+            cl.start(name, "dynamo_tpu_torch.components.worker", k_worker_args(
+                url, "bf16", K_MODEL, K_BF16_BLOCKS, bf16_len, tok, device, []))
+        cl.start("frontend", "dynamo_tpu_torch.components.frontend",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(http_port),
+                  "--router-mode", "kv"])
+        cl.wait_line("frontend", "FRONTEND_READY", 120)
+        ids = {}
+        for name in ("f32a", "f32b", "bf16a", "bf16b"):
+            ids[name] = cl.wait_line(name, "WORKER_READY", 600).split(
+                "instance=")[1].strip().lstrip("0")
+        name_of = {v: k for k, v in ids.items()}
+        f32_w, bf16_w = [ids["f32a"], ids["f32b"]], [ids["bf16a"], ids["bf16b"]]
+        deadline = time.monotonic() + 60
+        while True:
+            st = k_get(http_port, "/engine_stats")
+            if all(sorted(st.get(m, {}).get("instances", [])) == sorted(ws)
+                   and set(st.get(m, {}).get("workers", {})) >= set(ws)
+                   for m, ws in ((K_F32_NAME, f32_w), (K_MODEL, bf16_w))):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[k] the frontend did not discover the workers: {st}")
+            time.sleep(0.2)
+        out["startup_s"] = time.perf_counter() - t_phase
+        for name in ids:
+            warm = [ln for ln in cl.log_of(name).splitlines() if "bucket warmup" in ln]
+            log(f"[k] {name} ({ids[name]}) {warm[-1].split(': ', 2)[-1] if warm else ''}")
+        log(f"[k] coordinator, frontend and 4 workers up in {out['startup_s']:.1f}s")
+        cl.check_alive()
+
+        # (k1) f32 against (b'')'s in-process streams
+        prompts = k_prompts(vocab)
+        s0 = k_settled(http_port, K_F32_NAME, f32_w)
+        got = k_batch(http_port, K_F32_NAME, prompts, len(f32_ref[0][0]))
+        s1 = k_settled(http_port, K_F32_NAME, f32_w)
+        k1 = k_compare("[k1] f32 through the frontend against (b'')", got, f32_ref)
+        k1["workers"] = k_launches("[k1]", s0, s1, f32_w, ROUTES[(torch.float32, "float")],
+                                   layers)
+        k1["requests_per_worker"] = {w: s1["router"]["routed"].get(w, 0)
+                                     - s0["router"]["routed"].get(w, 0) for w in f32_w}
+        out["k1"] = k1
+        log("[k1] " + json.dumps(k1))
+        # (k4)'s reference: its 8 prompts unbroken, 64 tokens
+        k4_prompts = prompts[:K4_STREAMS]
+        k4_ref = {i: (g["ids"], g["lps"]) for i, g in enumerate(
+            k_batch(http_port, K_F32_NAME, k4_prompts, K4_DECODE))}
+        cl.check_alive()
+
+        # (k2) bf16 at (b)'s traffic
+        s0 = k_settled(http_port, K_MODEL, bf16_w)
+        t_start = time.perf_counter()
+        got = k_batch(http_port, K_MODEL, prompts, 64)
+        t_first = max(g["first"] for g in got)
+        t_end = max(g["last"] for g in got)
+        s1 = k_settled(http_port, K_MODEL, bf16_w)
+        k2 = {"requests": K_BATCH, "prompt": K_PROMPT, "decode": 64,
+              "decode_tok_s": K_BATCH * 63 / (t_end - t_first), "ttft_all_s": t_first - t_start,
+              "ttft_median_s": float(np.median([g["first"] - g["t0"] for g in got])),
+              "wall_s": t_end - t_start,
+              "requests_per_worker": {w: s1["router"]["routed"].get(w, 0)
+                                      - s0["router"]["routed"].get(w, 0) for w in bf16_w},
+              "workers": k_launches("[k2]", s0, s1, bf16_w, ROUTES[(torch.bfloat16, "float")],
+                                    layers),
+              "codec_us_per_frame": codec_us_per_frame()}
+        if device == "cuda":
+            for w, r in k2["workers"].items():
+                if r["launches_per_forward_step"] != layers:
+                    raise AssertionError(f"[k2] worker {w}: {r}")
+        k2["b_in_process"] = ({k: b_bf16[k] for k in ("decode_tok_s", "ttft_all_s")}
+                              if b_bf16 else None)
+        k2["e2_http"] = ({k: e2["client_own_process"][k] for k in ("decode_tok_s", "ttft_all_s")}
+                         if e2 else None)
+        out["k2"] = k2
+        log("[k2] " + json.dumps(k2))
+        log(f"[k2] bf16 through the frontend and 2 workers: decode tok/s {k2['decode_tok_s']}, "
+            f"TTFT (all 32) {k2['ttft_all_s']} s; (b) in process {k2['b_in_process']}, (e2) "
+            f"over HTTP {k2['e2_http']}; on {smi}")
+        cl.check_alive()
+
+        # (k3) prefix affinity
+        rng = np.random.default_rng(3)
+        groups, k3 = [], {"groups": []}
+        r0 = k_stats(http_port, K_MODEL)["router"]
+        for g in range(K_GROUPS):
+            prefix = [int(x) for x in rng.integers(5, vocab - 5, K_PREFIX)]
+            served, ttft = [], []
+            hits0 = k_settled(http_port, K_MODEL, bf16_w)
+            for r in range(K_GROUP):
+                suffix = [int(x) for x in rng.integers(5, vocab - 5, K_SUFFIX)]
+                before = k_stats(http_port, K_MODEL)["router"]["routed"]
+                res = k_batch(http_port, K_MODEL, [prefix + suffix], K_GROUP_DECODE)[0]
+                after = k_stats(http_port, K_MODEL)["router"]["routed"]
+                moved = [w for w in bf16_w if after.get(w, 0) != before.get(w, 0)]
+                if len(moved) != 1:
+                    raise AssertionError(f"[k3] group {g} request {r}: routed {before} -> "
+                                         f"{after}")
+                served.append(moved[0])
+                ttft.append(res["first"] - res["t0"])
+                if r == 0:
+                    time.sleep(0.3)  # the first's KV events reach the router
+            hits1 = k_settled(http_port, K_MODEL, bf16_w)
+            same = sum(w == served[0] for w in served)
+            rise = (hits1["workers"][served[0]]["prefix_hit_blocks"]
+                    - hits0["workers"][served[0]]["prefix_hit_blocks"])
+            entry = {"worker": served[0], "same_worker": same, "served": served,
+                     "prefix_hit_blocks_rise": rise, "ttft_first_s": ttft[0],
+                     "ttft_repeat_mean_s": float(np.mean(ttft[1:]))}
+            k3["groups"].append(entry)
+            log(f"[k3] group {g}: " + json.dumps(entry))
+            if same < K_GROUP - 1 or rise < (same - 1) * (K_PREFIX // 16):
+                raise AssertionError(f"[k3] group {g}: {same} of {K_GROUP} on the first's "
+                                     f"worker, its prefix hits rose {rise}")
+        r1 = k_stats(http_port, K_MODEL)["router"]
+        n = r1["decisions"] - r0["decisions"]
+        k3["route_ms_per_decision"] = 1e3 * (r1["route_s"] - r0["route_s"]) / n
+        k3["prompt_tokens"] = K_PREFIX + K_SUFFIX
+        out["k3"] = k3
+        log(f"[k3] router ms per decision ({K_PREFIX + K_SUFFIX}-token prompts) "
+            f"{k3['route_ms_per_decision']}; on {smi}")
+        cl.check_alive()
+
+        # (k4) a worker killed mid-stream
+        m0 = k_get(http_port, "/metrics")
+        att0 = sum(float(ln.rsplit(" ", 1)[1]) for ln in m0.splitlines()
+                   if ln.startswith("dynamo_migration_attempts_total"))
+        st0 = k_stats(http_port, K_F32_NAME)
+        k4: dict = {}
+
+        async def run_k4():
+            tasks = [asyncio.create_task(k_stream(http_port, K_F32_NAME, p, K4_DECODE))
+                     for p in k4_prompts]
+            victim = None
+            deadline = time.monotonic() + 120
+            while victim is None:
+                if time.monotonic() > deadline:
+                    raise AssertionError("[k4] no worker ever had running streams")
+                st = await asyncio.to_thread(k_stats, http_port, K_F32_NAME)
+                for w in f32_w:
+                    m = st["workers"].get(w, {})
+                    took = st["router"]["routed"].get(w, 0) - st0["router"]["routed"].get(w, 0)
+                    if took > 0 and m.get("num_running", 0) > 0 and \
+                            m.get("decode_tokens", 0) > st0["workers"][w]["decode_tokens"]:
+                        victim, k4["victim_streams"] = w, took
+                        break
+                await asyncio.sleep(0.02)
+            cl.kill(name_of[victim])
+            t_kill = time.monotonic()
+            k4["victim"] = victim
+
+            async def discovery():
+                # when the frontend stops discovering the victim, read
+                # beside the streams' recovery
+                while time.monotonic() - t_kill < K_TTL_S + 10:
+                    st = await asyncio.to_thread(k_stats, http_port, K_F32_NAME)
+                    if victim not in st["instances"]:
+                        return time.monotonic() - t_kill
+                    await asyncio.sleep(0.05)
+                raise AssertionError("[k4] the dead instance is still discovered")
+
+            gone = asyncio.create_task(discovery())
+            streams = await asyncio.gather(*tasks)
+            k4["gone_after_s"] = await gone
+            return streams
+
+        got = asyncio.run(run_k4())
+        k4.update(k_compare("[k4] streams after the kill against the unbroken run", got, k4_ref))
+        m1 = k_get(http_port, "/metrics")
+        att1 = sum(float(ln.rsplit(" ", 1)[1]) for ln in m1.splitlines()
+                   if ln.startswith("dynamo_migration_attempts_total"))
+        k4["migrations"] = att1 - att0
+        if k4["migrations"] < k4["victim_streams"]:
+            raise AssertionError(f"[k4] {k4['victim_streams']} streams on the victim, "
+                                 f"{k4['migrations']} migrations")
+        if k4["gone_after_s"] > K_TTL_S + 1.0:
+            raise AssertionError(f"[k4] the dead instance left after {k4['gone_after_s']} s, "
+                                 f"past its lease TTL of {K_TTL_S} s")
+        k_batch(http_port, K_F32_NAME, prompts[K4_STREAMS:K4_STREAMS + 4], 8)
+        out["k4"] = k4
+        log("[k4] " + json.dumps(k4))
+        cl.check_alive()
+
+        # shutdown: the survivors drain and exit 0
+        drains = {}
+        for name in [n for n in ("f32a", "f32b", "bf16a", "bf16b") if n not in cl.expected_dead]:
+            rc = cl.terminate(name, 120)
+            line = [ln for ln in cl.log_of(name).splitlines() if "WORKER_DRAINED" in ln]
+            if rc != 0 or not line:
+                raise AssertionError(f"[k] {name} exited {rc} without a drain report:\n"
+                                     f"{cl.log_of(name)[-3000:]}")
+            drains[name] = json.loads(line[-1].split("WORKER_DRAINED ", 1)[1])
+            if drains[name]["state"] != "done":
+                raise AssertionError(f"[k] {name}'s drain: {drains[name]}")
+        out["drains"] = drains
+        log("[k] drains " + json.dumps(drains))
+    finally:
+        cl.stop_all()
+    left = [n for n, (p, _) in cl.procs.items() if p.poll() is None]
+    if left:
+        raise AssertionError(f"[k] processes left over: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[k] passed in {out['wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3567,6 +4051,15 @@ def main() -> int:
         audit_memory("(h), (i3)")
         log(f"(a) sharded and (h) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-k"]:
+        # a rehearsal of (k), with (b'')'s f32 run for (k1)'s reference: no
+        # kernels or result line
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        phase_cluster(smi, f32_streams, None, None)
+        audit_memory("(k)")
+        log(f"(k) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     kern = phase_kernels(bw, peak)
     sharded = phase_sharded(bw, peak)
     audit_memory("(a), (a')")
@@ -3582,7 +4075,7 @@ def main() -> int:
         f"{len(streams['float']) - len(differ)} of {len(streams['float'])}")
     if differ:
         raise AssertionError(f"[b'] streams {differ} differ from decode_window=1's")
-    serve_f32, _ = phase_serve("float", profile=profile, f32=True)
+    serve_f32, f32_streams = phase_serve("float", profile=profile, f32=True, with_lps=True)
     audit_memory("(b'')")
     log(f"[b''] f32 llama-3-8b-lite decode tok/s {serve_f32['decode_tok_s']} on {smi}, "
         f"{serve_f32['launches_per_forward_step']} launches of "
@@ -3600,7 +4093,7 @@ def main() -> int:
     phase_mm_embed()
     audit_memory("(d3)-(d5)")
     phase_http_f32()
-    phase_http_bf16(smi, serve["float"]["decode_tok_s"])
+    http = phase_http_bf16(smi, serve["float"]["decode_tok_s"])
     audit_memory("(e)")
     phase_slo(smi, serve["float"]["decode_tok_s"])
     audit_memory("(f)")
@@ -3608,6 +4101,8 @@ def main() -> int:
     audit_memory("(g)")
     tp = phase_tp(smi, serve, streams)
     audit_memory("(h), (i3)")
+    cluster = phase_cluster(smi, f32_streams, serve["float"], http["e2"])
+    audit_memory("(k)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -3636,6 +4131,11 @@ def main() -> int:
             "verify_ms": rows[verify_case(VERIFY_TS[-1])]["ms"], "tol": TOL,
             "err_limit": main_shape["err_limit"], "pass": True,
         })
+        k_run = {ROUTES[(torch.bfloat16, "float")]: "k2", ROUTES[(torch.float32, "float")]: "k1"}
+        if route in k_run:
+            # the launches of (k)'s two worker processes of the route
+            lines[-1]["launches_k"] = {w: r["launches"] for w, r in
+                                       cluster[k_run[route]]["workers"].items()}
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}

@@ -118,6 +118,7 @@ from dynamo_tpu_torch.protocols.common import (
     tensor_from_wire,
 )
 from dynamo_tpu_torch.qos.deadline import deadline_of, expired
+from dynamo_tpu_torch.router.events import KvCacheEvent
 from dynamo_tpu_torch.utils.config import EngineConfig
 from dynamo_tpu_torch.utils.device import device_name, resolve_device
 from dynamo_tpu_torch.utils.logging import get_logger
@@ -1123,7 +1124,8 @@ class EngineCore:
     """Synchronous engine: scheduler + runner + output assembly."""
 
     def __init__(self, engine_cfg: EngineConfig, params=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 event_sink: Callable[[KvCacheEvent], None] | None = None):
         self.engine_cfg = engine_cfg
         self.model_cfg = resolve_model_config(engine_cfg.model)
         check_supported(engine_cfg, self.model_cfg)
@@ -1205,6 +1207,7 @@ class EngineCore:
         if engine_cfg.warmup_mode != "off":
             get_compile_ledger().set_plan(enumerate_buckets(engine_cfg))
         self.pool = PrefixPool(self.runner.spec.num_blocks, engine_cfg.block_size,
+                               event_sink=event_sink,
                                enable_prefix_caching=engine_cfg.enable_prefix_caching)
         self.sched = Scheduler(
             pool=self.pool,
@@ -2072,6 +2075,18 @@ class EngineCore:
             entry.pinned = []
         return out
 
+    def abort_class(self, priority: str | None = None) -> list[str]:
+        """Abort every live request of one QoS class (None = all) — the
+        drain run-down's early-stop valve (runtime/drain.py abort_batch /
+        abort_all). Returns the aborted request ids so the async wrapper
+        can emit their terminal CANCELLED outputs."""
+        rids = [rid for rid, seq in self._seqs.items()
+                if seq.phase is not Phase.FINISHED
+                and (priority is None or seq.qos_priority == priority)]
+        for rid in rids:
+            self.abort(rid)
+        return rids
+
     def step(self) -> dict[str, LLMEngineOutput]:
         """Run one engine step synchronously; returns per-request deltas."""
         now = time.time()
@@ -2328,6 +2343,19 @@ class AsyncTorchEngine:
         store (``EngineCore.evacuate_sessions``, on the engine-core thread)."""
         return await self.run_in_core(lambda core: core.evacuate_sessions())
 
+    async def abort_class(self, priority: str | None = None) -> int:
+        """Early-stop every live stream of one QoS class (None = all),
+        emitting their terminal CANCELLED outputs. Returns the count."""
+        rids = await self.run_in_core(lambda core: core.abort_class(priority))
+        for rid in rids:
+            self._post(rid, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
+        return len(rids)
+
+    @property
+    def inflight(self) -> int:
+        """Streams with a live output queue (drain run-down's gauge)."""
+        return len(self._streams)
+
     def stats(self) -> dict[str, Any]:
         core = self.core
         out = core.metrics.snapshot(core.sched, core.pool)
@@ -2355,11 +2383,13 @@ class AsyncTorchEngine:
 
 
 def build_engine(engine_cfg: EngineConfig, params=None,
-                 device: str | torch.device | None = None) -> AsyncTorchEngine:
+                 device: str | torch.device | None = None,
+                 event_sink: Callable[[KvCacheEvent], None] | None = None) -> AsyncTorchEngine:
     """The port's engine for ``engine_cfg`` on ``device`` (default: the
     CUDA card; raises when there is none), warmed up as
     ``engine_cfg.warmup_mode`` asks before its step loop starts (the
-    summary is ``engine.core.warmup_summary``)."""
-    core = EngineCore(engine_cfg, params=params, device=device)
+    summary is ``engine.core.warmup_summary``). ``event_sink`` receives the
+    prefix pool's KV events (the router's publisher)."""
+    core = EngineCore(engine_cfg, params=params, device=device, event_sink=event_sink)
     core.warmup()
     return AsyncTorchEngine(core)

@@ -5,11 +5,12 @@ copy of ``dynamo_tpu/engine/prefix_pool.py``.
 - A block whose refcount drops to zero but which holds *committed* content
   (a full block with a sequence hash) parks in an LRU **inactive** pool —
   still matchable, evicted only on allocation pressure.
+- Commit/evict emit BlockStored/BlockRemoved KV events that feed the
+  KV-aware router (router/publisher.py).
 
 Device-tier eviction churn feeds the memory ledger (obs/mem_ledger.py) as
 in the JAX pool, and the KVBM hooks (``evict_hook``, ``commit_hook``) feed
-the offload manager (kvbm/offload.py). The KV events for the router come
-back with the slice that ports the router.
+the offload manager (kvbm/offload.py).
 """
 
 from __future__ import annotations
@@ -19,14 +20,17 @@ from typing import Callable
 
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
 from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+from dynamo_tpu_torch.router.events import BlockRemoved, BlockStored, KvCacheEvent
 
 
 class PrefixPool:
     def __init__(self, num_blocks: int, block_size: int,
+                 event_sink: Callable[[KvCacheEvent], None] | None = None,
                  enable_prefix_caching: bool = True):
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_caching = enable_prefix_caching
+        self._event_sink = event_sink
         # Called as evict_hook(block_id, seq_hash) *before* an evicted
         # committed block's id is reused — the KVBM offload manager's
         # write-back point (kvbm/offload.py).
@@ -83,6 +87,11 @@ class PrefixPool:
         if bid is not None and bid in self._inactive:
             self._inactive.move_to_end(bid)
 
+    # -- events --------------------------------------------------------------
+    def _emit(self, ev: KvCacheEvent) -> None:
+        if self._event_sink is not None:
+            self._event_sink(ev)
+
     # -- allocation ----------------------------------------------------------
     def allocate(self, n: int) -> list[int]:
         """Allocate n uncommitted blocks (refcount 1), evicting LRU inactive
@@ -108,6 +117,7 @@ class PrefixPool:
             del self._by_hash[h]
             if self._mled.enabled:
                 self._mled.record_churn("device", self._churn_cause, 1)
+            self._emit(BlockRemoved(block_hashes=(h,)))
         return bid
 
     # -- prefix matching -----------------------------------------------------
@@ -133,9 +143,9 @@ class PrefixPool:
 
     # -- commit / release ----------------------------------------------------
     def commit(self, bid: int, seq_hash: int, parent_hash: int | None = None) -> None:
-        """Register a now-full block's content hash. If the hash is already
-        cached by another block, this block stays uncommitted (the canonical
-        copy wins; dedup is at match time)."""
+        """Register a now-full block's content hash (emits BlockStored).
+        If the hash is already cached by another block, this block stays
+        uncommitted (the canonical copy wins; dedup is at match time)."""
         if not self.enable_prefix_caching:
             return
         if seq_hash in self._by_hash:
@@ -144,6 +154,7 @@ class PrefixPool:
         self._hash_of[bid] = seq_hash
         if self.commit_hook is not None:
             self.commit_hook(bid, seq_hash, parent_hash)
+        self._emit(BlockStored(block_hashes=(seq_hash,), parent_hash=parent_hash))
 
     def release(self, block_ids: list[int]) -> None:
         """Drop one reference per block; committed blocks park in the LRU

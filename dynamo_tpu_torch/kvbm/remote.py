@@ -19,9 +19,11 @@ the serving loop.
 
 Keys are ``(namespace, seq_hash)``: the namespace (model fingerprint +
 logical block geometry) partitions the store so two models never exchange
-blocks. Discovery through the coordinator (``register_store`` /
-``discover_store``) comes with the distributed runtime; until then a store
-runs on its own and engines are given its address::
+blocks. A store is given to engines by its address, or found in the
+coordinator where it was advertised (``discover_store``: the worker's
+``--remote-kv-addr auto``, the frontend's checkpoint lookup; the JAX
+package's ``components/kv_store.py`` advertises one, the port's store
+does not yet)::
 
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 --capacity-gib 4
 """
@@ -45,6 +47,10 @@ from dynamo_tpu_torch.utils import msgpack
 from dynamo_tpu_torch.utils.logging import get_logger
 
 log = get_logger("kvbm.remote")
+
+# Coordinator key prefix under which running stores advertise themselves
+# (lease-bound: a dead store disappears and engines fall back to local tiers).
+REMOTE_PREFIX = "kvbm/remote"
 
 
 class RemoteBlockServer:
@@ -375,6 +381,18 @@ class RemoteBlockPool:
                 except OSError:
                     pass
                 self._sock = None
+
+
+# ---------------------------------------------------------------------------
+# Discovery
+# ---------------------------------------------------------------------------
+
+async def discover_store(client) -> str | None:
+    """First advertised store address, or None."""
+    got = await client.get_prefix(REMOTE_PREFIX + "/")
+    for _, v in sorted(got.items()):
+        return v.decode()
+    return None
 
 
 def ckpt_client(addr: str, timeout: float = 1.0) -> RemoteBlockPool:

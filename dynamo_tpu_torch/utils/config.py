@@ -1,5 +1,6 @@
-"""Engine configuration — copy of ``EngineConfig`` from
-``dynamo_tpu/utils/config.py``, cut to the fields the port reads.
+"""Runtime and engine configuration — copies of ``RuntimeConfig`` and
+``EngineConfig`` from ``dynamo_tpu/utils/config.py``; the engine's cut to
+the fields the port reads.
 
 A field of the JAX engine's config that the port would accept and then
 ignore is left out, so setting it fails at construction; it comes back
@@ -10,7 +11,79 @@ this slice does not carry yet make the engine raise, naming that slice
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+ENV_PREFIX = "DYN_"
+
+
+def _coerce(value: str, typ: type) -> Any:
+    if typ is bool:
+        return value.lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(value)
+    if typ is float:
+        return float(value)
+    return value
+
+
+@dataclass
+class RuntimeConfig:
+    """Process-level runtime settings (reference: lib/runtime/src/config.rs).
+    Values resolve, in order of precedence: explicit kwargs > ``DYN_*``
+    environment variables > a JSON config file > defaults."""
+
+    # Worker threads for the compute pool (reference: compute/pool.rs).
+    num_worker_threads: int = 0  # 0 = os.cpu_count()
+    # Coordination service address (our consolidated etcd/NATS equivalent).
+    coordinator_url: str = "tcp://127.0.0.1:6650"
+    # Namespace this process operates in.
+    namespace: str = "dynamo"
+    # System status server (health/metrics) — reference: system_status_server.rs.
+    system_enabled: bool = False
+    system_port: int = 0  # 0 = ephemeral
+    # Logging.
+    log_level: str = "info"
+    log_jsonl: bool = False
+    # Request plane.
+    request_timeout_s: float = 600.0
+    # Primary lease TTL (liveness). Generous enough that a long GIL-holding
+    # build or capture can't starve the keep-alive loop into lease expiry.
+    lease_ttl_s: float = 20.0
+    # Graceful shutdown drain deadline.
+    drain_timeout_s: float = 30.0
+    # Scheduling-policy bound on concurrently-executing handler streams
+    # (excess CALLs queue; reference: tracker.rs semaphore policies).
+    max_handler_streams: int = 1024
+
+    @classmethod
+    def from_settings(cls, path: str | os.PathLike | None = None, **overrides: Any) -> "RuntimeConfig":
+        """Build config from defaults < file < DYN_* env < explicit overrides.
+        The file is JSON; a YAML file (which the JAX package also reads) is
+        refused by name until the port has a yaml reader (ROADMAP item 15)."""
+        values: dict[str, Any] = {}
+        candidate = path or os.environ.get(ENV_PREFIX + "CONFIG")
+        if candidate and Path(candidate).exists():
+            text = Path(candidate).read_text()
+            try:
+                values.update(json.loads(text))
+            except json.JSONDecodeError as exc:
+                if Path(candidate).suffix.lower() in (".yaml", ".yml"):
+                    raise ValueError(f"config file {candidate}: YAML is not read by "
+                                     "the torch port yet; give it as JSON") from exc
+                raise ValueError(f"could not parse config file {candidate}") from exc
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        for name, f in fields.items():
+            env_key = ENV_PREFIX + name.upper()
+            if env_key in os.environ:
+                values[name] = _coerce(os.environ[env_key], f.type if isinstance(f.type, type) else type(f.default))
+        values.update({k: v for k, v in overrides.items() if v is not None})
+        values = {k: v for k, v in values.items() if k in fields}
+        return cls(**values)
 
 
 @dataclass

@@ -3,9 +3,9 @@
 package's other dependencies).
 
 In a subprocess whose ``sys.modules`` blocks ``jax``, ``dynamo_tpu`` and
-the packages the card's machine lacks (msgpack among them), every module of
-``dynamo_tpu_torch`` (frontend, preprocessor, parsers and launcher
-included) and ``chip_smoke.py`` import. And no import statement anywhere in
+the packages the card's machine lacks (msgpack and yaml among them), every
+module of ``dynamo_tpu_torch`` (frontend, preprocessor, parsers, launcher,
+the distributed runtime, the router and the components included) and ``chip_smoke.py`` import. And no import statement anywhere in
 their source, a deferred one inside a function included, names a blocked
 package.
 """
@@ -19,12 +19,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "xxhash", "PIL", "grpc",
-           "transformers", "ml_dtypes", "msgpack")
-#: modules the walk must reach (the KVBM tiers and their codec among them)
+           "transformers", "ml_dtypes", "msgpack", "yaml")
+#: modules the walk must reach (the KVBM tiers and their codec, the
+#: distributed runtime, the router and the components among them)
 MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
                "dynamo_tpu_torch.kvbm.pools", "dynamo_tpu_torch.kvbm.transfer",
                "dynamo_tpu_torch.kvbm.stream_ckpt", "dynamo_tpu_torch.kvbm.metrics",
-               "dynamo_tpu_torch.engine.session", "dynamo_tpu_torch.utils.msgpack")
+               "dynamo_tpu_torch.engine.session", "dynamo_tpu_torch.utils.msgpack",
+               "dynamo_tpu_torch.transports.wire", "dynamo_tpu_torch.transports.coordinator",
+               "dynamo_tpu_torch.transports.client", "dynamo_tpu_torch.chaos",
+               "dynamo_tpu_torch.chaos.injector", "dynamo_tpu_torch.chaos.plan",
+               "dynamo_tpu_torch.chaos.metrics", "dynamo_tpu_torch.runtime.protocols",
+               "dynamo_tpu_torch.runtime.tasks", "dynamo_tpu_torch.runtime.runtime",
+               "dynamo_tpu_torch.runtime.status", "dynamo_tpu_torch.runtime.client",
+               "dynamo_tpu_torch.runtime.pipeline", "dynamo_tpu_torch.runtime.health",
+               "dynamo_tpu_torch.runtime.drain", "dynamo_tpu_torch.router.events",
+               "dynamo_tpu_torch.router.indexer", "dynamo_tpu_torch.router.scheduler",
+               "dynamo_tpu_torch.router.arbiter", "dynamo_tpu_torch.router.sequence",
+               "dynamo_tpu_torch.router.publisher", "dynamo_tpu_torch.router.kv_router",
+               "dynamo_tpu_torch.frontend.migration", "dynamo_tpu_torch.components.worker",
+               "dynamo_tpu_torch.components.frontend")
 SOURCES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""
