@@ -273,6 +273,31 @@ if any phase fails:
     near-tie, the dead instance leaves discovery within its lease, the
     next 4 requests succeed. Then each survivor gets SIGTERM and must
     drain (``WORKER_DRAINED``, state done) and exit 0; no process is left.
+(l) disaggregated prefill/decode, after (k)'s processes are gone: a
+    coordinator, the frontend (``--router-mode kv``) and four
+    llama-3-8b-lite workers on cuda:0 with (k)'s settings, each with a
+    status server whose /health carries its stats and /metrics its
+    ``dynamo_kv_transfer_*`` counters: an f32 pair (``--disagg prefill``
+    under component ``f32prefill``, ``--disagg decode`` at it, 512 blocks)
+    and a bf16 pair (1280 blocks), streamed handoffs, a 4 s transfer TTL.
+    (l1) (k1)'s 32 x (128 + 32) f32: streams equal (b'')'s or first differ
+    at a near-tie; all 32 prefills remote, 7 blocks of 1 MiB a request
+    staged by the prefill worker and pulled by the decode worker (the
+    counters by phase), ``mma_f32`` only, 8 a forward step, on both; (l2)
+    (k2)'s bf16 traffic: decode tok/s and TTFT at the client beside (b)'s
+    and (k2)'s, ``mma_bf16`` only, 8 a forward step on each, the overlap
+    ratio and each worker's peak memory; (l3) 8 distinct 1024-token
+    prompts + 32 greedy, one at a time: each TTFT beside (k3)'s cold
+    first-of-group TTFT, 63 blocks of 512 KiB a request, the handoff's
+    bytes/s by phase (stage: the prefill worker's extracts, D2H; pull: the
+    decode worker's fetch over loopback TCP through the port's codec;
+    import: its injects, H2D and scatter), the prefill worker's waits for a
+    step in flight, the codec's microseconds a MiB (on one card the
+    handoff goes through the host); (l4) the f32 prefill worker SIGKILLed,
+    (l1)'s first 8 prompts again: 8 of 8 equal (b'')'s through the decode
+    worker's own prefill (its fallbacks, prefill tokens and launches).
+    After the TTL no staging pin is left on the surviving prefill worker
+    and no block is in use on the survivors, which drain and exit 0.
 
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
@@ -285,7 +310,7 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i) and (j); and a ``paged_attention_sharded`` entry: one rank's
+in (i), (j), (k) and (l); and a ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -296,7 +321,7 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-tp`` does the same for (a') and (h);
 ``python3 chip_smoke.py --only-ij`` for (b)'s bf16 run, (i), (j) and (h);
 ``python3 chip_smoke.py --only-k`` for (b'')'s f32 run (the reference of
-(k1)) and (k).
+(k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -3589,11 +3614,12 @@ class KCluster:
         self.procs: dict[str, tuple[subprocess.Popen, Path]] = {}
         self.expected_dead: set[str] = set()
 
-    def start(self, name: str, module: str, args: list[str]) -> None:
+    def start(self, name: str, module: str, args: list[str], env: dict | None = None) -> None:
         path = self.root / f"{name}.log"
         out = open(path, "w")
         proc = subprocess.Popen([sys.executable, "-u", "-m", module, *args], cwd=ROOT,
-                                env=self.env, stdout=out, stderr=subprocess.STDOUT)
+                                env={**self.env, **(env or {})}, stdout=out,
+                                stderr=subprocess.STDOUT)
         out.close()
         self.procs[name] = (proc, path)
 
@@ -3747,6 +3773,14 @@ def codec_us_per_frame(n: int = 20000) -> float:
     return 1e6 * (time.perf_counter() - t0) / n
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
 def k_worker_args(url: str, component: str, served: str, blocks: int, max_len: int,
                   tokenizer: Path, device: str, extra: list[str]) -> list[str]:
     return ["--coordinator", url, "--model", K_MODEL, "--allow-random-weights",
@@ -3762,7 +3796,6 @@ def phase_cluster(smi: str, f32_ref: dict, b_bf16: dict | None, e2: dict | None,
     """(k): see the module docstring. ``f32_ref`` is (b'')'s in-process f32
     streams {i: (tokens, logprobs)}, ``b_bf16`` and ``e2`` (b)'s bf16 and
     (e2)'s numbers to print beside (k2)'s."""
-    import socket
     import tempfile
 
     from dynamo_tpu_torch.models.config import resolve_model_config
@@ -3772,11 +3805,6 @@ def phase_cluster(smi: str, f32_ref: dict, b_bf16: dict | None, e2: dict | None,
     layers, vocab = cfg.num_layers, cfg.vocab_size
     tmp = Path(tempfile.mkdtemp(prefix="k-cluster-"))
     tok = k_tokenizer(tmp, vocab)
-
-    def free_port() -> int:
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            return sk.getsockname()[1]
 
     env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
            "DYN_LEASE_TTL_S": str(K_TTL_S), "DYN_LOG": "info"}
@@ -3999,6 +4027,329 @@ def phase_cluster(smi: str, f32_ref: dict, b_bf16: dict | None, e2: dict | None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# (l) disaggregated prefill/decode: prefill and decode workers as processes
+# ---------------------------------------------------------------------------
+
+#: (l)'s transfer TTL (an unpulled transfer's pins go after it), its long
+#: prompts, and (l4)'s repeats of (l1)
+L_TTL_S = 4.0
+L_LONG, L_LONG_N, L_LONG_DECODE = 1024, 8, 32
+L4_STREAMS = 8
+
+
+def l_health(port: int) -> dict:
+    """A worker's published engine stats, from its status server."""
+    res = asyncio.run(http_call(port, "GET", "/health"))
+    if res["status"] not in (200, 503):
+        raise AssertionError(f"[l] GET /health on {port}: {res['status']}")
+    return json.loads(res["body"])["engine"]
+
+
+def l_counters(port: int) -> dict:
+    """A worker's ``dynamo_kv_transfer_*`` family from its /metrics: bytes
+    and waves by phase, and the last overlap ratio."""
+    res = asyncio.run(http_call(port, "GET", "/metrics"))
+    out: dict = {"bytes": {}, "waves": {}, "overlap_ratio": None}
+    for ln in res["body"].decode().splitlines():
+        for key, name in (("bytes", "dynamo_kv_transfer_bytes_total"),
+                          ("waves", "dynamo_kv_transfer_waves_total")):
+            if ln.startswith(name + "{"):
+                phase = ln.split('phase="', 1)[1].split('"', 1)[0]
+                out[key][phase] = float(ln.rsplit(" ", 1)[1])
+        if ln.startswith("dynamo_kv_transfer_overlap_ratio "):
+            out["overlap_ratio"] = float(ln.rsplit(" ", 1)[1])
+    return out
+
+
+def l_idle(port: int, tag: str, timeout: float = 30.0) -> dict:
+    """A worker's stats once its engine is idle (its stats are computed at
+    the call: no publishing delay)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = l_health(port)
+        if st["num_running"] == 0 and st["num_waiting"] == 0:
+            return st
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{tag}: the worker on {port} never went idle: {st}")
+        time.sleep(0.05)
+
+
+def l_delta(after: dict, before: dict, *path) -> float:
+    a, b = after, before
+    for k in path:
+        a, b = a[k], b[k]
+    return a - b
+
+
+def codec_us_per_mib(n: int = 200) -> float:
+    """The port's codec on one pulled block's frame (``{"i", "d": 1 MiB}``),
+    packed and unpacked (the shard server packs it, the decode side's
+    client unpacks it): microseconds a MiB on this host."""
+    from dynamo_tpu_torch.transports.wire import encode_frame
+    from dynamo_tpu_torch.utils import msgpack
+
+    frame = {"i": 3, "d": bytes(2**20)}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        msgpack.unpackb(encode_frame(frame)[4:])
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def phase_disagg(smi: str, f32_ref: dict, b_bf16: dict | None, k: dict | None,
+                 device: str = "cuda") -> dict:
+    """(l): see the module docstring. ``f32_ref`` is (b'')'s in-process f32
+    streams, ``b_bf16`` (b)'s bf16 numbers and ``k`` (k)'s results, printed
+    beside (l2)'s and (l3)'s."""
+    import tempfile
+
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    cfg = resolve_model_config(K_MODEL)
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    block_bytes = {"f32": 2 * layers * 16 * cfg.num_kv_heads * cfg.head_dim * 4}
+    block_bytes["bf16"] = block_bytes["f32"] // 2
+    f32_route, bf16_route = ROUTES[(torch.float32, "float")], ROUTES[(torch.bfloat16, "float")]
+    tmp = Path(tempfile.mkdtemp(prefix="l-disagg-"))
+    tok = k_tokenizer(tmp, vocab)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
+           "DYN_LEASE_TTL_S": str(K_TTL_S), "DYN_LOG": "info"}
+    cl = KCluster(tmp, env)
+    out: dict = {"smi": smi}
+    t_phase = time.perf_counter()
+    try:
+        coord_port, http_port = free_port(), free_port()
+        status = {name: free_port() for name in ("f32p", "f32d", "bf16p", "bf16d")}
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(coord_port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 60)
+        url = f"tcp://127.0.0.1:{coord_port}"
+        f32_len = K_PROMPT + K4_DECODE + 16
+        bf16_len = max(K_PREFIX + K_SUFFIX + K_GROUP_DECODE, K_PROMPT + 64) + 16
+        ttl = ["--kv-transfer-ttl", str(L_TTL_S)]
+        roles = {
+            "f32p": ("f32prefill", K_F32_NAME, K_F32_BLOCKS, f32_len,
+                     ["--dtype", "float32", "--disagg", "prefill", *ttl]),
+            "f32d": ("f32", K_F32_NAME, K_F32_BLOCKS, f32_len,
+                     ["--dtype", "float32", "--disagg", "decode",
+                      "--prefill-endpoint", "dyn://dynamo.f32prefill.generate"]),
+            "bf16p": ("bf16prefill", K_MODEL, K_BF16_BLOCKS, bf16_len,
+                      ["--disagg", "prefill", *ttl]),
+            "bf16d": ("bf16", K_MODEL, K_BF16_BLOCKS, bf16_len,
+                      ["--disagg", "decode",
+                       "--prefill-endpoint", "dyn://dynamo.bf16prefill.generate"]),
+        }
+        for name, (component, served, blocks, max_len, extra) in roles.items():
+            cl.start(name, "dynamo_tpu_torch.components.worker", k_worker_args(
+                url, component, served, blocks, max_len, tok, device, extra),
+                env={"DYN_SYSTEM_ENABLED": "true", "DYN_SYSTEM_PORT": str(status[name])})
+        cl.start("frontend", "dynamo_tpu_torch.components.frontend",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(http_port),
+                  "--router-mode", "kv"])
+        cl.wait_line("frontend", "FRONTEND_READY", 120)
+        ids = {name: cl.wait_line(name, "WORKER_READY", 600).split("instance=")[1]
+               .strip().lstrip("0") for name in roles}
+        deadline = time.monotonic() + 60
+        while True:
+            st = k_get(http_port, "/engine_stats")
+            found = all(st.get(m, {}).get("instances", []) == [ids[d]]
+                        and ids[d] in st.get(m, {}).get("workers", {})
+                        for m, d in ((K_F32_NAME, "f32d"), (K_MODEL, "bf16d")))
+            # each decode worker's prefill router has found its prefill worker
+            if found and all(l_health(status[d])["disagg"]["prefill_instances"] == 1
+                             for d in ("f32d", "bf16d")):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[l] the decode workers or their prefill routers did "
+                                     f"not discover their peers: {st}")
+            time.sleep(0.2)
+        out["startup_s"] = time.perf_counter() - t_phase
+        log(f"[l] coordinator, frontend, 2 prefill and 2 decode workers up in "
+            f"{out['startup_s']:.1f}s")
+        cl.check_alive()
+
+        def snap(*names) -> dict:
+            return {n: l_idle(status[n], "[l]") for n in names}
+
+        def counters(*names) -> dict:
+            return {n: l_counters(status[n]) for n in names}
+
+        def launches(tag, before, after, names, route) -> dict:
+            return k_launches(tag, {"workers": before}, {"workers": after}, list(names),
+                              route, layers)
+
+        # (l1) f32: every prefill on the prefill worker, 7 blocks a request pulled
+        prompts = k_prompts(vocab)
+        s0, c0 = snap("f32p", "f32d"), counters("f32p", "f32d")
+        got = k_batch(http_port, K_F32_NAME, prompts, len(f32_ref[0][0]))
+        s1, c1 = snap("f32p", "f32d"), counters("f32p", "f32d")
+        l1 = k_compare("[l1] f32 through the prefill and decode workers against (b'')",
+                       got, f32_ref)
+        blocks = K_BATCH * ((K_PROMPT - 1) // 16)
+        l1.update({
+            "remote_prefills": l_delta(s1["f32d"], s0["f32d"], "disagg", "remote_prefills"),
+            "local_fallbacks": l_delta(s1["f32d"], s0["f32d"], "disagg", "local_fallbacks"),
+            "pulled_blocks": l_delta(s1["f32d"], s0["f32d"], "kv_transfer", "pull", "blocks"),
+            "staged_blocks": l_delta(s1["f32p"], s0["f32p"], "kv_transfer", "extract_blocks"),
+            "pull_bytes": c1["f32d"]["bytes"].get("pull", 0) - c0["f32d"]["bytes"].get("pull", 0),
+            "stage_bytes": (c1["f32p"]["bytes"].get("stage", 0)
+                            - c0["f32p"]["bytes"].get("stage", 0)),
+            "workers": launches("[l1]", s0, s1, ("f32p", "f32d"), f32_route)})
+        want = {"remote_prefills": K_BATCH, "local_fallbacks": 0, "pulled_blocks": blocks,
+                "staged_blocks": blocks, "pull_bytes": blocks * block_bytes["f32"],
+                "stage_bytes": blocks * block_bytes["f32"]}
+        if {key: l1[key] for key in want} != want:
+            raise AssertionError(f"[l1] handoff counts {l1}; expected {want}")
+        if l1["workers"]["f32p"]["forward_steps"] == 0:
+            raise AssertionError(f"[l1] the prefill worker ran no forward step: {l1}")
+        out["l1"] = l1
+        log("[l1] " + json.dumps(l1))
+        cl.check_alive()
+
+        # (l2) bf16 at (b)'s traffic
+        s0, c0 = snap("bf16p", "bf16d"), counters("bf16p", "bf16d")
+        t_start = time.perf_counter()
+        got = k_batch(http_port, K_MODEL, prompts, 64)
+        t_first = max(g["first"] for g in got)
+        t_end = max(g["last"] for g in got)
+        s1, c1 = snap("bf16p", "bf16d"), counters("bf16p", "bf16d")
+        l2 = {"requests": K_BATCH, "prompt": K_PROMPT, "decode": 64,
+              "decode_tok_s": K_BATCH * 63 / (t_end - t_first),
+              "ttft_all_s": t_first - t_start,
+              "ttft_median_s": float(np.median([g["first"] - g["t0"] for g in got])),
+              "wall_s": t_end - t_start,
+              "remote_prefills": l_delta(s1["bf16d"], s0["bf16d"], "disagg", "remote_prefills"),
+              "pulled_blocks": l_delta(s1["bf16d"], s0["bf16d"], "kv_transfer", "pull",
+                                       "blocks"),
+              "overlap_ratio": c1["bf16d"]["overlap_ratio"],
+              "workers": launches("[l2]", s0, s1, ("bf16p", "bf16d"), bf16_route)}
+        if l2["remote_prefills"] != K_BATCH or l2["pulled_blocks"] != blocks:
+            raise AssertionError(f"[l2] {l2}")
+        if device == "cuda":
+            for w, r in l2["workers"].items():
+                if r["launches_per_forward_step"] != layers:
+                    raise AssertionError(f"[l2] worker {w}: {r}")
+        l2["b_in_process"] = ({key: b_bf16[key] for key in ("decode_tok_s", "ttft_all_s")}
+                              if b_bf16 else None)
+        l2["k2_aggregated"] = ({key: k["k2"][key] for key in ("decode_tok_s", "ttft_all_s")}
+                               if k else None)
+        out["l2"] = l2
+        log("[l2] " + json.dumps(l2))
+        log(f"[l2] bf16 through a prefill and a decode worker: decode tok/s "
+            f"{l2['decode_tok_s']}, TTFT (all 32) {l2['ttft_all_s']} s, overlap ratio "
+            f"{l2['overlap_ratio']}; (b) in process {l2['b_in_process']}, (k2) aggregated "
+            f"workers {l2['k2_aggregated']}; on {smi}")
+        cl.check_alive()
+
+        # (l3) bf16 long prompts, one at a time
+        rng = np.random.default_rng(5)
+        long_prompts = [[int(x) for x in rng.integers(5, vocab - 5, L_LONG)]
+                        for _ in range(L_LONG_N)]
+        s0 = snap("bf16p", "bf16d")
+        ttft = []
+        for p in long_prompts:
+            res = k_batch(http_port, K_MODEL, [p], L_LONG_DECODE)[0]
+            ttft.append(res["first"] - res["t0"])
+        s1 = snap("bf16p", "bf16d")
+        per_req = (L_LONG - 1) // 16
+        pre, dec = s1["bf16p"]["kv_transfer"], s0["bf16p"]["kv_transfer"]
+        d1, d0 = s1["bf16d"]["kv_transfer"], s0["bf16d"]["kv_transfer"]
+        stage_b, stage_s = pre["extract_bytes"] - dec["extract_bytes"], \
+            pre["extract_s"] - dec["extract_s"]
+        pull_b, pull_s = d1["pull"]["bytes"] - d0["pull"]["bytes"], \
+            d1["pull"]["seconds"] - d0["pull"]["seconds"]
+        imp_b, imp_s = d1["inject_bytes"] - d0["inject_bytes"], d1["inject_s"] - d0["inject_s"]
+        l3 = {"requests": L_LONG_N, "prompt": L_LONG, "decode": L_LONG_DECODE,
+              "ttft_s": ttft, "ttft_mean_s": float(np.mean(ttft)),
+              "k3_cold_first_ttft_s": ([g["ttft_first_s"] for g in k["k3"]["groups"]]
+                                       if k else None),
+              "blocks_per_request": (d1["pull"]["blocks"] - d0["pull"]["blocks"]) / L_LONG_N,
+              "mib_per_request": pull_b / L_LONG_N / 2**20,
+              "stage_gb_s": stage_b / stage_s / 1e9 if stage_s else None,
+              "pull_gb_s": pull_b / pull_s / 1e9 if pull_s else None,
+              "import_gb_s": imp_b / imp_s / 1e9 if imp_s else None,
+              "stage_s": stage_s, "pull_s": pull_s, "import_s": imp_s,
+              "prefill_waits": pre["waits"] - dec["waits"],
+              "prefill_wait_s": pre["wait_s"] - dec["wait_s"],
+              "codec_us_per_mib": codec_us_per_mib(),
+              "codec_us_per_data_frame": codec_us_per_frame()}
+        if l3["blocks_per_request"] != per_req or \
+                pull_b != L_LONG_N * per_req * block_bytes["bf16"]:
+            raise AssertionError(f"[l3] {l3}; expected {per_req} blocks of "
+                                 f"{block_bytes['bf16']} B a request")
+        out["l3"] = l3
+        log("[l3] " + json.dumps(l3))
+        log(f"[l3] {L_LONG}-token prompts: TTFT {l3['ttft_mean_s']} s in the mean (k3's cold "
+            f"first of a group, aggregated: {l3['k3_cold_first_ttft_s']}); the handoff of "
+            f"{l3['mib_per_request']} MiB a request: stage (D2H) {l3['stage_gb_s']} GB/s, "
+            f"pull (loopback TCP through the port's codec) {l3['pull_gb_s']} GB/s, import "
+            f"(H2D and inject) {l3['import_gb_s']} GB/s; the prefill worker waited "
+            f"{l3['prefill_waits']} times ({l3['prefill_wait_s']} s) for a step in flight; "
+            f"on one card the handoff goes through the host; on {smi}")
+        cl.check_alive()
+
+        # (l4) the f32 prefill worker killed: local prefill
+        s0 = snap("f32d")
+        cl.kill("f32p")
+        cl.procs["f32p"][0].wait(30)
+        got = k_batch(http_port, K_F32_NAME, prompts[:L4_STREAMS], len(f32_ref[0][0]))
+        s1 = snap("f32d")
+        l4 = k_compare("[l4] f32 streams through local prefill against (b'')", got,
+                       {i: f32_ref[i] for i in range(L4_STREAMS)})
+        l4.update({
+            "local_fallbacks": l_delta(s1["f32d"], s0["f32d"], "disagg", "local_fallbacks"),
+            "remote_prefills": l_delta(s1["f32d"], s0["f32d"], "disagg", "remote_prefills"),
+            "pulled_blocks": l_delta(s1["f32d"], s0["f32d"], "kv_transfer", "pull", "blocks"),
+            "prefill_tokens": l_delta(s1["f32d"], s0["f32d"], "prefill_tokens"),
+            "workers": launches("[l4]", s0, s1, ("f32d",), f32_route)})
+        if (l4["local_fallbacks"], l4["remote_prefills"], l4["pulled_blocks"]) != \
+                (L4_STREAMS, 0, 0) or l4["prefill_tokens"] <= 0:
+            raise AssertionError(f"[l4] {l4}")
+        out["l4"] = l4
+        log("[l4] " + json.dumps(l4))
+        cl.check_alive()
+
+        # no staging pin left on the surviving prefill worker after the TTL,
+        # and every block back on the survivors
+        t_last = time.monotonic()
+        deadline = t_last + L_TTL_S + 10
+        while True:
+            left = {n: l_health(status[n]) for n in ("bf16p", "bf16d", "f32d")}
+            pins = left["bf16p"]["kv_transfer"]["staged_pins"]
+            owners = left["bf16p"]["mem"]["device_blocks"]
+            used = {n: st["kv_usage"] for n, st in left.items()}
+            if pins == 0 and not owners.get("staging") and not any(used.values()) \
+                    and time.monotonic() - t_last >= L_TTL_S:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[l] staging pins {pins}, owners {owners}, kv usage "
+                                     f"{used} after the TTL")
+            time.sleep(0.2)
+        out["end"] = {"staged_pins": pins, "kv_usage": used,
+                      "orphan_pins": left["bf16p"]["mem"]["orphan_pins"]}
+        drains = {}
+        for name in ("f32d", "bf16d", "bf16p"):
+            rc = cl.terminate(name, 120)
+            line = [ln for ln in cl.log_of(name).splitlines() if "WORKER_DRAINED" in ln]
+            if rc != 0 or not line:
+                raise AssertionError(f"[l] {name} exited {rc} without a drain report:\n"
+                                     f"{cl.log_of(name)[-3000:]}")
+            drains[name] = json.loads(line[-1].split("WORKER_DRAINED ", 1)[1])
+            if drains[name]["state"] != "done":
+                raise AssertionError(f"[l] {name}'s drain: {drains[name]}")
+        out["drains"] = drains
+        log("[l] end " + json.dumps(out["end"]) + " drains " + json.dumps(drains))
+    finally:
+        cl.stop_all()
+    left = [n for n, (p, _) in cl.procs.items() if p.poll() is None]
+    if left:
+        raise AssertionError(f"[l] processes left over: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[l] passed in {out['wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4060,6 +4411,15 @@ def main() -> int:
         audit_memory("(k)")
         log(f"(k) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-l"]:
+        # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
+        # kernels or result line
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        phase_disagg(smi, f32_streams, None, None)
+        audit_memory("(l)")
+        log(f"(l) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     kern = phase_kernels(bw, peak)
     sharded = phase_sharded(bw, peak)
     audit_memory("(a), (a')")
@@ -4103,6 +4463,8 @@ def main() -> int:
     audit_memory("(h), (i3)")
     cluster = phase_cluster(smi, f32_streams, serve["float"], http["e2"])
     audit_memory("(k)")
+    disagg = phase_disagg(smi, f32_streams, serve["float"], cluster)
+    audit_memory("(l)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -4133,9 +4495,13 @@ def main() -> int:
         })
         k_run = {ROUTES[(torch.bfloat16, "float")]: "k2", ROUTES[(torch.float32, "float")]: "k1"}
         if route in k_run:
-            # the launches of (k)'s two worker processes of the route
+            # the launches of (k)'s two worker processes of the route, and
+            # of (l)'s prefill and decode workers
             lines[-1]["launches_k"] = {w: r["launches"] for w, r in
                                        cluster[k_run[route]]["workers"].items()}
+            l_run = "l2" if k_run[route] == "k2" else "l1"
+            lines[-1]["launches_l"] = {w: r["launches"] for w, r in
+                                       disagg[l_run]["workers"].items()}
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}

@@ -7,13 +7,18 @@ serve_endpoint → publish metrics.
 ``python -m dynamo_tpu_torch.components.worker --device cpu ...``; without
 ``--device`` the engine runs on the CUDA card and raises when there is none.
 
-Copy of ``dynamo_tpu/components/worker.py`` for ``--engine torch``. The
-mocker, disaggregated serving and multi-host engines are refused by name
+Copy of ``dynamo_tpu/components/worker.py`` for ``--engine torch``.
+``--disagg prefill`` serves the prefill half of disaggregated serving (a
+``KvTransferSource`` and a ``PrefillHandler``; no model card), ``--disagg
+decode`` the decode half (a ``DisaggDecodeHandler`` over a KV-aware or
+round-robin router of the prefill pool; disagg/). The mocker, multi-host
+engines and ``--disagg`` with ``--tp > 1`` are refused by name
 (:func:`check_worker_args`); so is whatever the engine's
 ``check_supported`` refuses. The published stats carry the paged-attention
 launches by route, the forward steps they ran in and the card's peak
 allocated bytes (``"attention"``), which a process that cannot read this
-one's counters checks launches against.
+one's counters checks launches against, and the KV handoff's bytes and
+seconds by phase (``"kv_transfer"``).
 """
 
 from __future__ import annotations
@@ -162,8 +167,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "blocks to the G4 remote store so cold workers can "
                         "import instead of recomputing (needs "
                         "--remote-kv-addr)")
-    # Disaggregated serving (reference: vllm decode-first pattern): refused
-    # by the port until disagg is ported (ROADMAP item 15).
+    # Disaggregated serving (reference: vllm decode-first pattern).
     p.add_argument("--disagg", choices=["none", "prefill", "decode"], default="none")
     p.add_argument("--prefill-endpoint", default="dyn://dynamo.prefill.generate",
                    help="decode mode: where the prefill pool lives")
@@ -200,8 +204,8 @@ def check_worker_args(ns: argparse.Namespace) -> None:
     the ROADMAP item that brings it."""
     later = {
         "--engine mocker (the mocker: ROADMAP item 15)": ns.engine == "mocker",
-        "--disagg prefill|decode (disaggregated serving: ROADMAP item 15)":
-            ns.disagg != "none",
+        "--disagg with --tp > 1 (the handoff of a sharded cache: ROADMAP item 14)":
+            ns.disagg != "none" and ns.tp > 1,
         "--num-nodes > 1 (multi-host engines: ROADMAP item 14)": ns.num_nodes > 1,
     }
     missing = [name for name, hit in later.items() if hit]
@@ -275,6 +279,16 @@ def attention_stats(core) -> dict:
         "max_memory_allocated": int(torch.cuda.max_memory_allocated(dev))
         if dev.type == "cuda" else 0,
     }
+
+
+def kv_transfer_stats(core) -> dict:
+    """The KV handoff's phases on this worker: the block mover's extracts
+    (the prefill side's stage: D2H) with the waits on a step in flight, and
+    its injects (the decode side's import: H2D and scatter), the pulls'
+    network half (fetch + assemble on the decode side), and the blocks the
+    staging pins hold now."""
+    return {**core.transfer.stats.snapshot(), "pull": dict(core.pull_stats),
+            "staged_pins": sum(len(v) for v in list(core._staged_pins.values()))}
 
 
 def model_card(ns: argparse.Namespace, name: str) -> dict:
@@ -379,11 +393,23 @@ async def amain(ns: argparse.Namespace) -> None:
     if warm:
         log.info("bucket warmup: %s", warm)
 
+    kv_source = None            # --disagg prefill
+    decode = None               # --disagg decode
+    prefill_client = None
+    kv_prefill_router = None
+
     def stats_fn() -> dict:
         # the device prefix hits as a count (the engine's stats carry their
         # rate), beside the kernel launches
-        return {**engine.stats(), "attention": attention_stats(engine.core),
-                "prefix_hit_blocks": engine.core.metrics.prefix_hit_blocks}
+        out = {**engine.stats(), "attention": attention_stats(engine.core),
+               "prefix_hit_blocks": engine.core.metrics.prefix_hit_blocks}
+        if ns.disagg != "none":
+            out["kv_transfer"] = kv_transfer_stats(engine.core)
+        if decode is not None:
+            out["disagg"] = {"remote_prefills": decode.remote_prefills,
+                             "local_fallbacks": decode.local_fallbacks,
+                             "prefill_instances": len(prefill_client.instance_ids())}
+        return out
 
     async def handler(payload: dict, ctx: RequestContext):
         req = PreprocessedRequest.from_dict(payload)
@@ -423,6 +449,58 @@ async def amain(ns: argparse.Namespace) -> None:
                     s.to_dict()
                     for s in tr.recorder.spans_for(tctx.trace_id)]
             yield d
+
+    if ns.disagg != "none":
+        from dynamo_tpu_torch.disagg.metrics import install_kv_metrics
+
+        install_kv_metrics(rt.metrics)
+    if ns.disagg == "prefill":
+        from dynamo_tpu_torch.disagg.handlers import PrefillHandler
+        from dynamo_tpu_torch.disagg.source import KvTransferSource
+
+        # shards[0] = this engine's shard server, started inside the source
+        kv_source = KvTransferSource(
+            engine, ttl_s=ns.kv_transfer_ttl,
+            advertise_host=rt.advertise_address.rsplit(":", 1)[0])
+        kv_source.start()
+        prefill = PrefillHandler(engine, kv_source, block_size=ns.block_size,
+                                 stream=not ns.no_kv_stream)
+        handler = prefill.generate
+    elif ns.disagg == "decode":
+        from dynamo_tpu_torch.disagg.handlers import DisaggDecodeHandler
+        from dynamo_tpu_torch.runtime.client import EndpointClient, PushRouter
+        from dynamo_tpu_torch.runtime.protocols import EndpointId
+
+        prefill_client = await EndpointClient.create(
+            rt, EndpointId.parse(ns.prefill_endpoint))
+        if ns.prefill_router == "kv":
+            # Prefix-aware prefill dispatch: repeated prefixes land on the
+            # prefill worker already holding their KV.
+            from dynamo_tpu_torch.router.kv_router import KvPushRouter, KvRouterConfig
+
+            # Each decode worker is one replica of the prefill-router fleet:
+            # share load predictions (SyncedActiveSequences) so concurrent
+            # decode workers don't make load-blind correlated placements,
+            # and leave snapshot dumping to standalone routers.
+            kv_prefill_router = await KvPushRouter.create(
+                prefill_client, KvRouterConfig(
+                    block_size=ns.block_size, sync_replicas=True,
+                    snapshot_interval_s=0.0))
+
+            async def prefill_call(payload, request_id):
+                async for item in kv_prefill_router.generate(payload):
+                    yield item
+        else:
+            prefill_router = PushRouter(prefill_client)
+
+            async def prefill_call(payload, request_id):
+                async for item in prefill_router.generate(payload, request_id):
+                    yield item
+
+        decode = DisaggDecodeHandler(
+            engine, prefill_call, block_size=ns.block_size,
+            min_prefill_blocks=ns.min_prefill_blocks)
+        handler = decode.generate
 
     if chaos.enabled():
         # Fault point covering the dispatch path — wrapped here, under the
@@ -497,19 +575,21 @@ async def amain(ns: argparse.Namespace) -> None:
     metrics_pub.start()
 
     name = ns.served_model_name or ns.model
+    if ns.disagg != "prefill":
+        # Prefill workers are internal capacity — only decode/agg workers
+        # publish a model card for the frontend to discover.
+        async def put_card() -> None:
+            await rt.client.put(
+                f"{MODEL_PREFIX}/{name}/{rt.instance_id:016x}",
+                json.dumps(model_card(ns, name)).encode(),
+                lease_id=rt.primary_lease.id)
 
-    async def put_card() -> None:
-        await rt.client.put(
-            f"{MODEL_PREFIX}/{name}/{rt.instance_id:016x}",
-            json.dumps(model_card(ns, name)).encode(),
-            lease_id=rt.primary_lease.id)
-
-    await put_card()
-    # A coordinator restart loses the card with the lease — re-declare
-    # it whenever the runtime re-registers this worker.
-    rt.on_reconnect(put_card)
-    log.info("worker ready: engine=%s model=%s instance=%x",
-             ns.engine, name, rt.instance_id)
+        await put_card()
+        # A coordinator restart loses the card with the lease — re-declare
+        # it whenever the runtime re-registers this worker.
+        rt.on_reconnect(put_card)
+    log.info("worker ready: engine=%s model=%s disagg=%s instance=%x",
+             ns.engine, name, ns.disagg, rt.instance_id)
     print(f"WORKER_READY instance={rt.instance_id:016x}", flush=True)
 
     # -- retirement (runtime/drain.py) ---------------------------------
@@ -567,11 +647,12 @@ async def amain(ns: argparse.Namespace) -> None:
     async def deregister() -> None:
         drain_state["draining"] = True
         await rt.deregister()
-        try:
-            await asyncio.wait_for(rt.client.delete(
-                f"{MODEL_PREFIX}/{name}/{rt.instance_id:016x}"), 3.0)
-        except Exception:
-            log.warning("model card delete failed; lease expiry will")
+        if ns.disagg != "prefill":
+            try:
+                await asyncio.wait_for(rt.client.delete(
+                    f"{MODEL_PREFIX}/{name}/{rt.instance_id:016x}"), 3.0)
+            except Exception:
+                log.warning("model card delete failed; lease expiry will")
 
     drainer = WorkerDrainer(
         inflight=lambda: rt.inflight_streams,
@@ -609,6 +690,10 @@ async def amain(ns: argparse.Namespace) -> None:
             json.dumps(terminal).encode()), 3.0)
     except Exception:
         log.warning("drain status publish failed (coordinator unreachable?)")
+    if kv_source is not None:
+        await kv_source.stop()
+    if kv_prefill_router is not None:
+        await kv_prefill_router.close()
     if publisher:
         await publisher.stop()
     await engine.shutdown()

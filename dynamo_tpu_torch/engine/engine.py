@@ -55,12 +55,23 @@ finished turn's blocks for the next, stream checkpoints
 in the remote store, and ``export_blocks`` / ``import_blocks`` move blocks
 between engines. Blocks come back into the cache by in-place writes, so
 the step graphs captured before them read them.
+
+Disaggregated prefill/decode (disagg/): the named core ops of ``CORE_OPS``
+(``AsyncTorchEngine.run_op``) pin and stage a chain to host memory in one
+shot or wave by wave while its prefill runs (``stage_export``,
+``stream_begin`` / ``stage_wave`` / ``stream_end``; the step loop stages a
+wave after each finalize that commits blocks), serve it from a shard
+server (disagg/sharded.py), and on the decode side fetch it on a thread
+beside the steps and inject it as prefix entries (``prefetch_remote``,
+``import_remote``). One process holds the whole cache, so the JAX
+package's rank vote is the identity; engines with tp > 1 refuse the ops.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import gc
 import hashlib
 import os
@@ -1249,6 +1260,19 @@ class EngineCore:
         self._guided_vocab: tuple[list[str], list[int]] | None = None
         # the block mover of export/import when there are no tiers
         self._transfer = None
+        # Disaggregated handoff (disagg/): the host staging store and the
+        # pins of each staged transfer (xfer id → block ids), the streamed
+        # exports by request and by transfer id, the decode side's pulls in
+        # flight, the shard server and the wave listener; ``pull_stats``
+        # counts the pulls' network half (fetch threads add to it).
+        self._staging = None
+        self._staged_pins: dict[str, list[int]] = {}
+        self._stream_exports: dict[str, _StreamExport] = {}
+        self._streams_by_xid: dict[str, _StreamExport] = {}
+        self._pulls: dict[str, dict] = {}
+        self._shard_server = None
+        self._stream_listener: Callable[[str, int], None] | None = None
+        self.pull_stats = {"pulls": 0, "blocks": 0, "bytes": 0, "seconds": 0.0}
         self.kvbm = self._make_kvbm(engine_cfg)
         # Memory & capacity ledger (obs/mem_ledger.py): re-read the
         # DYN_MEM_LEDGER env at construction (same contract as the sched
@@ -1303,13 +1327,14 @@ class EngineCore:
     def _mem_live_ids(self) -> dict:
         """Per-owner-class live ids for the mem-ledger leak audit. A pin
         tagged under any class but absent from the matching set here is an
-        orphan — a reference the engine no longer knows about. Disagg
-        staging pins come with the staged handoff (distributed runtime) and
-        report empty."""
+        orphan — a reference the engine no longer knows about. A staging
+        pin lives while its transfer is staged (until the decode side's
+        release or the source's TTL)."""
         return live_ids_of(
             streams=self._seqs.keys(),
             sessions=self.sessions.session_ids() if self.sessions is not None else (),
-            **(self.kvbm.queue_live_ids() if self.kvbm is not None else {}))
+            **(self.kvbm.queue_live_ids() if self.kvbm is not None else {}),
+            staging=list(self._staged_pins))
 
     def _guided_pieces(self) -> tuple[list[str], list[int]]:
         if self._guided_vocab is None:
@@ -2157,6 +2182,355 @@ class EngineCore:
     def unpin_blocks(self, block_ids: list[int]) -> None:
         self.pool.release(block_ids)
 
+    # -- disaggregated handoff: staged and streamed (named ops, CORE_OPS) ---
+    # The prefill side pins a chain's blocks and stages them to host memory
+    # (one shot, or wave by wave while the prefill runs); the shard server
+    # serves them; the decode side fetches them off the engine-core thread
+    # and injects them as matchable prefix entries. The JAX package runs
+    # these as replayed ops on every rank of a multi-host engine; the port's
+    # engine is one process, so the rank vote is the identity, and engines
+    # with more than one rank are refused (``_no_blocks_under_tp``).
+
+    @property
+    def staging(self):
+        if self._staging is None:
+            from dynamo_tpu_torch.disagg.sharded import StagingStore
+
+            self._staging = StagingStore()
+        return self._staging
+
+    def my_box(self) -> tuple[int, int, int, int]:
+        """This engine's (layer, head) extents of the global cache: all of
+        it, in one process."""
+        spec = self.runner.spec
+        return (0, spec.num_layers, 0, spec.num_kv_heads)
+
+    def start_shard_server(self, advertise_host: str, on_release=None) -> str:
+        """Start (once) the shard server serving staged KV; returns the
+        address to advertise in kv_transfer_params. Safe to call off the
+        engine-core thread: it only binds a socket and reads the
+        (lock-guarded) staging store."""
+        self._no_blocks_under_tp()
+        if self._shard_server is None:
+            from dynamo_tpu_torch.disagg.sharded import ShardServer
+
+            self._shard_server = ShardServer(self.staging, on_release=on_release)
+        return f"{advertise_host}:{self._shard_server.port}"
+
+    def stop_shard_server(self) -> None:
+        """Close the shard server and its connections. Idempotent."""
+        server, self._shard_server = self._shard_server, None
+        if server is not None:
+            server.close()
+
+    @staticmethod
+    def _vote_min(n: int) -> int:
+        """The minimum of ``n`` over the engine's ranks: one rank here."""
+        return n
+
+    def _stage_extract(self, ids: list[int], span_attrs: dict | None = None) -> np.ndarray:
+        """Blocks ``ids`` off the device as one [n, 2, L, BS, KH, D] array:
+        quantized caches stage dequantized (f32) blocks, as the JAX package
+        does; the importer requantizes at its inject boundary."""
+        blocks = self.transfer.extract(self.runner.cache_k, self.runner.cache_v, ids,
+                                       dequant=self.runner.spec.quantized,
+                                       span_attrs=span_attrs)
+        return np.stack(blocks)
+
+    def stage_export(self, xfer_id: str, seq_hashes: list[int]) -> int:
+        """Pin the device-resident prefix of a chain and stage it to host
+        memory; returns hashes covered. The pin and the staging hold until
+        release_export: pulls are served from host memory, never touching
+        device state again."""
+        self._no_blocks_under_tp()
+        block_ids = self.pool.match_prefix(seq_hashes)
+        data = None
+        try:
+            if block_ids:
+                data = self._stage_extract(block_ids)
+        except Exception as exc:  # noqa: BLE001 — the vote handles it
+            log.warning("stage_export extract failed: %s", exc)
+            data = None
+        n = self._vote_min(len(block_ids) if data is not None else 0)
+        if n < len(block_ids):
+            self.pool.release(block_ids[n:])
+            block_ids = block_ids[:n]
+        if n == 0:
+            return 0
+        covered = seq_hashes[:n]
+        parents: list[int | None] = [None, *covered[:-1]]
+        self.staging.fill(xfer_id, covered, parents, data[:n], self.my_box())
+        self._staged_pins[xfer_id] = block_ids
+        if self.mem_led.enabled:
+            self.mem_led.pin("staging", xfer_id, len(block_ids))
+        return n
+
+    def release_export(self, xfer_id: str) -> None:
+        """Unpin + unstage one transfer — final ack AND mid-stream abort.
+        For a still-streaming transfer this also tears down the stream
+        state, so pins already shipped, staged-but-unpulled, and
+        not-yet-staged waves all release together (later kv_stage_wave ops
+        for this id become no-ops)."""
+        st = self._streams_by_xid.pop(xfer_id, None)
+        if st is not None:
+            self._stream_exports.pop(st.request_id, None)
+        self.staging.drop(xfer_id)
+        ids = self._staged_pins.pop(xfer_id, None)
+        if ids is not None and self.mem_led.enabled:
+            self.mem_led.unpin("staging", xfer_id)
+        if ids:
+            self.pool.release(ids)
+
+    # -- streamed (wave-granular) export: kv_stream_begin declares the full
+    # expected chain once, the step loop stages one kv_stage_wave after each
+    # finalize that commits new blocks (AsyncTorchEngine._stage_stream_waves),
+    # and kv_stream_end closes it at the staged count.
+
+    def stream_begin(self, xfer_id: str, request_id: str,
+                     seq_hashes: list[int]) -> int:
+        """Open a streamed export for ``request_id``'s chain. No device
+        work — the staging entry just declares the expected hashes so
+        early pulls can wait on waves."""
+        self._no_blocks_under_tp()
+        st = _StreamExport(xfer_id=xfer_id, request_id=request_id,
+                           hashes=list(seq_hashes))
+        self._stream_exports[request_id] = st
+        self._streams_by_xid[xfer_id] = st
+        self._staged_pins.setdefault(xfer_id, [])
+        parents: list[int | None] = [None, *st.hashes[:-1]]
+        self.staging.begin(xfer_id, st.hashes, parents, self.my_box(),
+                           self.runner.spec.dtype)
+        return len(st.hashes)
+
+    def stream_wave_targets(self) -> list[tuple[str, int, int]]:
+        """Wave detection (engine-core thread, after step_finalize): chains
+        whose committed-block prefix grew past what has been staged. Also
+        caches each stream's Seq while it is still registered, so the final
+        wave (committed by the finalize that finishes the request) is still
+        visible after _seqs drops it."""
+        if not self._stream_exports:
+            return []
+        out: list[tuple[str, int, int]] = []
+        for rid, st in list(self._stream_exports.items()):
+            if st.seq is None:
+                st.seq = self._seqs.get(rid)
+            if st.seq is None:
+                continue
+            avail = min(st.seq.committed_blocks, len(st.hashes))
+            if avail > st.requested:
+                out.append((st.xfer_id, st.requested, avail))
+                st.requested = avail
+        return out
+
+    def stage_wave(self, xfer_id: str, start: int, stop: int) -> int:
+        """Stage blocks [start, stop) of a streamed chain: pin the new
+        wave, extract it, append to staging. A failed extract freezes the
+        stream's staged count, which stream_end closes it at. Returns the
+        blocks staged so far."""
+        st = self._streams_by_xid.get(xfer_id)
+        if st is None:  # released/aborted while the op was in flight
+            return 0
+        stop = min(stop, len(st.hashes))
+        if stop <= start:
+            return st.staged
+        # Pin [start, stop) without double-pinning earlier waves:
+        # match_prefix increfs the whole resident prefix, so drop the refs
+        # below start. The committed prefix can't shrink between the
+        # finalize that committed it and this op (no allocate in between),
+        # so len(ids) == stop in the healthy case.
+        ids = self.pool.match_prefix(st.hashes[:stop])
+        if start:
+            self.pool.release(ids[:start])
+        keep = ids[start:]
+        self._staged_pins.setdefault(xfer_id, []).extend(keep)
+        if keep and self.mem_led.enabled:
+            self.mem_led.pin("staging", xfer_id, len(keep))
+        if st.failed:
+            return st.staged
+        if len(ids) < stop:
+            log.warning("stage_wave %s: only %d/%d blocks resident; "
+                        "freezing stream", xfer_id, len(ids), stop)
+            st.failed = True
+            return st.staged
+        try:
+            data = self._stage_extract(keep, span_attrs={
+                "phase": "stage", "xfer_id": xfer_id, "start": start, "stop": stop})
+        except Exception as exc:  # noqa: BLE001 — stream_end closes at staged
+            log.warning("stage_wave extract failed: %s", exc)
+            st.failed = True
+            return st.staged
+        if st.staged != start or not self.staging.append(xfer_id, start, data):
+            st.failed = True
+            return st.staged
+        st.staged = stop
+        from dynamo_tpu_torch.disagg.metrics import get_kv_metrics
+
+        get_kv_metrics().record_wave("stage", int(data.nbytes))
+        return st.staged
+
+    def stream_end(self, xfer_id: str) -> int:
+        """Close a streamed export at its staged count: trim pins beyond
+        it, mark the staging entry complete. Returns the covered (pullable)
+        block count."""
+        st = self._streams_by_xid.pop(xfer_id, None)
+        if st is None:
+            return 0
+        self._stream_exports.pop(st.request_id, None)
+        covered = self._vote_min(st.staged)
+        pins = self._staged_pins.get(xfer_id, [])
+        if len(pins) > covered:
+            if self.mem_led.enabled:
+                self.mem_led.unpin("staging", xfer_id, len(pins) - covered)
+            self.pool.release(pins[covered:])
+            self._staged_pins[xfer_id] = pins[:covered]
+        self.staging.finalize(xfer_id, covered)
+        return covered
+
+    def _fetch_local(self, params: dict, start: int | None = None,
+                     stop: int | None = None, clients: dict | None = None):
+        """The network half of a pull: fetch + assemble this engine's box
+        (the window [start, stop) of the chain; the whole transfer when
+        stop is None). Touches no engine state — safe off the core thread.
+        ``clients`` is a per-transfer addr→ShardClient cache so wave pulls
+        reuse connections. Returns (hashes, parents, local_blocks) or None
+        on any failure."""
+        from dynamo_tpu_torch.disagg.sharded import (
+            ShardClient,
+            assemble_local,
+            box_intersection,
+        )
+
+        spec = self.runner.spec
+        box = self.my_box()
+        pieces: list[tuple[np.ndarray, tuple[int, int, int, int]]] = []
+        hashes: list[int] = []
+        parents: list[int | None] = []
+        try:
+            for sh in params.get("shards", []):
+                inter = box_intersection(box, tuple(sh["box"]))
+                if inter is None:
+                    continue
+                if clients is not None:
+                    client = clients.get(sh["addr"])
+                    if client is None:
+                        client = clients[sh["addr"]] = ShardClient(sh["addr"])
+                    h, p, flat, got = client.fetch(params["xfer_id"], inter,
+                                                   start, stop)
+                else:
+                    client = ShardClient(sh["addr"], retries=2)
+                    try:
+                        h, p, flat, got = client.fetch(params["xfer_id"],
+                                                       inter, start, stop)
+                    finally:
+                        client.close()
+                if hashes and len(h) != len(hashes):
+                    # Shards answered different windows (a partial serve
+                    # racing finalize-trim) — the slices no longer tile.
+                    raise RuntimeError(
+                        f"shard windows diverge: {len(h)} vs {len(hashes)}")
+                hashes, parents = h, p  # identical across shards (one chain)
+                pieces.append((flat, got))
+            local = (assemble_local(box, pieces, len(hashes), spec.block_size,
+                                    spec.head_dim, spec.dtype)
+                     if hashes else None)
+        except Exception as exc:  # noqa: BLE001 — nondeterministic IO
+            log.warning("shard pull failed: %s", exc)
+            return None
+        return (hashes, parents, local) if local is not None else None
+
+    def _pull_state(self, xfer_id: str) -> dict:
+        return self._pulls.setdefault(
+            xfer_id, {"clients": {}, "waves": {}, "last": None})
+
+    def prefetch_remote(self, params: dict, start: int | None = None,
+                        stop: int | None = None, tail: bool = False) -> None:
+        """Start the pull's network half on a background thread so engine
+        steps keep running while bytes move; import_remote joins it. Wave
+        pulls ([start, stop) windows) of one transfer chain on a single
+        thread lineage so the per-shard connections are reused without
+        cross-thread sharing."""
+        self._no_blocks_under_tp()
+        state = self._pull_state(params["xfer_id"])
+        prev = state["last"]
+        slot: dict = {}
+        stats = self.pull_stats
+
+        def run() -> None:
+            if prev is not None:
+                prev["thread"].join()
+            t0 = time.perf_counter()
+            with get_tracer().span("kv.transfer", phase="pull",
+                                   xfer_id=params["xfer_id"],
+                                   start=start if start is not None else 0,
+                                   stop=stop if stop is not None else -1,
+                                   tail=tail) as sp:
+                result = self._fetch_local(params, start, stop,
+                                           state["clients"])
+                if result is not None:
+                    sp.attrs["bytes"] = int(result[2].nbytes)
+                    sp.attrs["blocks"] = len(result[0])
+                    stats["pulls"] += 1
+                    stats["blocks"] += len(result[0])
+                    stats["bytes"] += int(result[2].nbytes)
+                    stats["seconds"] += time.perf_counter() - t0
+            slot["result"] = result
+
+        t = threading.Thread(target=run, name="kv-prefetch", daemon=True)
+        slot["thread"] = t
+        state["waves"][(start, stop)] = slot
+        state["last"] = slot
+        t.start()
+
+    def import_remote(self, params: dict, start: int | None = None,
+                      stop: int | None = None, final: bool = True) -> int:
+        """Join the prefetch (or fetch inline) and inject one window of the
+        chain. Returns blocks injected, or -1 when the pull failed (no
+        state was mutated). ``final`` closes the transfer's pull state
+        (shard connections) afterwards."""
+        self._no_blocks_under_tp()
+        state = self._pull_state(params["xfer_id"])
+        slot = state["waves"].pop((start, stop), None)
+        if slot is not None:
+            slot["thread"].join()
+            fetched = slot["result"]
+        else:
+            fetched = self._fetch_local(params, start, stop, state["clients"])
+        if self._vote_min(1 if fetched is not None else 0) == 0:
+            self.close_pull(params["xfer_id"])
+            return -1
+        hashes, parents, local = fetched
+        plan = [(h, par, local[i])
+                for i, (h, par) in enumerate(zip(hashes, parents))]
+        n = self.import_blocks(
+            plan, span_attrs={"phase": "import", "xfer_id": params["xfer_id"],
+                              "start": start if start is not None else 0,
+                              "stop": stop if stop is not None else len(hashes)})
+        from dynamo_tpu_torch.disagg.metrics import get_kv_metrics
+
+        get_kv_metrics().record_wave("pull", int(local.nbytes))
+        log.info("pulled %d KV blocks for box %s (injected %d)",
+                 len(plan), self.my_box(), n)
+        if final:
+            self.close_pull(params["xfer_id"])
+        return n
+
+    def close_pull(self, xfer_id: str) -> None:
+        """Tear down a transfer's pull state: close per-shard connections
+        and drop pending wave results. Closing the sockets first makes any
+        in-flight fetch thread fail fast, so the join is bounded."""
+        state = self._pulls.pop(xfer_id, None)
+        if state is None:
+            return
+        for client in state["clients"].values():
+            client.close()
+        last = state["last"]
+        if last is not None and last["thread"].is_alive():
+            last["thread"].join(timeout=5.0)
+
+    def run_op(self, name: str, args: dict):
+        """Execute one named core op (``CORE_OPS``)."""
+        return CORE_OPS[name](self, args)
+
     def embed(self, token_lists: list[list[int]]) -> np.ndarray:
         """Last-token-pooled embeddings [N, H] f32 (engine-core thread only;
         ``ModelRunner.embed``)."""
@@ -2199,6 +2573,50 @@ class EngineCore:
         return rids
 
 
+@dataclass
+class _StreamExport:
+    """Per-request state of a streamed (wave-granular) KV export.
+
+    ``requested`` is how far wave detection has emitted stage ops;
+    ``staged`` the prefix staged so far. ``seq`` is cached by wave
+    detection so the final wave — committed by the finalize that also
+    finishes the request — is still observable after the seq leaves
+    ``_seqs``."""
+
+    xfer_id: str
+    request_id: str
+    hashes: list[int]
+    seq: Seq | None = None
+    requested: int = 0
+    staged: int = 0
+    failed: bool = False
+
+
+#: The named core ops (the JAX package's registry of ops a multi-host
+#: engine replays; here they run on the one engine-core thread): the disagg
+#: handoff, session evacuation and the QoS class abort.
+CORE_OPS: dict[str, Callable[[EngineCore, dict], Any]] = {
+    "kv_stage": lambda core, a: core.stage_export(a["xfer_id"], a["hashes"]),
+    "kv_release": lambda core, a: core.release_export(a["xfer_id"]),
+    "kv_prefetch": lambda core, a: core.prefetch_remote(a["params"]),
+    "kv_import": lambda core, a: core.import_remote(a["params"]),
+    # Streamed (wave-granular) handoff — see EngineCore.stream_begin.
+    "kv_stream_begin": lambda core, a: core.stream_begin(
+        a["xfer_id"], a["request_id"], a["hashes"]),
+    "kv_stage_wave": lambda core, a: core.stage_wave(
+        a["xfer_id"], a["start"], a["stop"]),
+    "kv_stream_end": lambda core, a: core.stream_end(a["xfer_id"]),
+    "kv_prefetch_wave": lambda core, a: core.prefetch_remote(
+        a["params"], a["start"], a["stop"], a.get("tail", False)),
+    "kv_import_wave": lambda core, a: core.import_remote(
+        a["params"], a["start"], a["stop"], a.get("final", False)),
+    "kv_pull_abort": lambda core, a: core.close_pull(a["xfer_id"]),
+    "session_evacuate": lambda core, a: core.evacuate_sessions(),
+    "qos_abort_class": lambda core, a: core.abort_class(
+        a.get("priority") if a else None),
+}
+
+
 class AsyncTorchEngine:
     """Async facade: background step-loop thread + asyncio output streams
     (the JAX package's AsyncJaxEngine for one process)."""
@@ -2224,11 +2642,32 @@ class AsyncTorchEngine:
         self._wake.set()
         if self._started:
             await asyncio.get_running_loop().run_in_executor(None, self._thread.join, 5.0)
+        # the handoff's sockets and fetch threads end with the engine
+        self.core.stop_shard_server()
+        for xid in list(self.core._pulls):
+            self.core.close_pull(xid)
         # a tensor-parallel engine's followers stop once the loop is done
         await asyncio.get_running_loop().run_in_executor(None, self.core.close)
         # A dead engine must not keep vouching for its pins: drop its
         # live-id source so anything it leaked surfaces in the next audit.
         self.core.mem_led.unregister_live_source(self.core._mem_source_key)
+
+    def _stage_stream_waves(self) -> None:
+        """After each finalize: stage the newly committed prefill chunks of
+        any open streamed export as kv_stage_wave ops, and tell the source's
+        listener how far each stream is staged. The next step is already
+        dispatched when this runs, so each wave's extract first waits for
+        it (``TransferStats.waits``): committed blocks are no longer
+        written, but the gather is queued behind the step in flight."""
+        for xid, start, stop in self.core.stream_wave_targets():
+            staged = self.core.run_op(
+                "kv_stage_wave", {"xfer_id": xid, "start": start, "stop": stop})
+            listener = self.core._stream_listener
+            if listener is not None and staged:
+                try:
+                    listener(xid, staged)
+                except Exception:  # noqa: BLE001 — advisory only
+                    log.exception("stream wave listener failed")
 
     def _run(self) -> None:
         # Pipelined step loop: keep ONE step in flight. Each iteration plans
@@ -2251,11 +2690,17 @@ class AsyncTorchEngine:
                 elif kind == "abort":
                     self.core.abort(payload)
                     self._post(payload, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
-                elif kind == "exec":
-                    # Core access (embeddings) marshaled onto this thread, the
-                    # only one that touches device state. The future resolves
-                    # on the loop it was made on, which may not be self._loop.
-                    fn, fut, fut_loop = payload
+                elif kind in ("exec", "exec_op"):
+                    # Core access (a named CORE_OPS op, or a closure: the
+                    # disagg handoff, embeddings) marshaled onto this thread,
+                    # the only one that touches device state. The future
+                    # resolves on the loop it was made on, which may not be
+                    # self._loop.
+                    if kind == "exec_op":
+                        name, args, fut, fut_loop = payload
+                        fn = functools.partial(EngineCore.run_op, name=name, args=args)
+                    else:
+                        fn, fut, fut_loop = payload
                     try:
                         result, exc = fn(self.core), None
                     except Exception as e:  # noqa: BLE001 - handed to the caller
@@ -2280,6 +2725,7 @@ class AsyncTorchEngine:
                     for rid, out in self.core.step_finalize(pending).items():
                         self._post(rid, out)
                 pending = nxt
+                self._stage_stream_waves()
             except Exception as exc:
                 # Engine-fatal: fail + drain all in-flight state so the loop
                 # doesn't spin hot retrying the same failing step.
@@ -2305,6 +2751,16 @@ class AsyncTorchEngine:
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
         self._inbox.put(("exec", (fn, fut, loop)))
+        self._wake.set()
+        return await fut
+
+    async def run_op(self, name: str, args: dict) -> Any:
+        """Run a registered named core op (``CORE_OPS``) on the engine-core
+        thread and await its result."""
+        self.start()
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._inbox.put(("exec_op", (name, args, fut, loop)))
         self._wake.set()
         return await fut
 

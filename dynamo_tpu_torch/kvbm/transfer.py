@@ -29,6 +29,7 @@ kind or into a float cache is dequantized on the host first.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -267,12 +268,19 @@ class TransferStats:
     inject_s: float = 0.0
     stage_s: float = 0.0
     _open: list = field(default_factory=list)
+    #: guards ``_open``: a worker reads its stats off the engine-core thread
+    _lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def note_inject(self, start, end) -> None:
+        with self._lock:
+            self._open.append((start, end))
 
     def snapshot(self) -> dict:
-        for start, end in self._open:
+        with self._lock:
+            opened, self._open = self._open, []
+        for start, end in opened:
             end.synchronize()
             self.inject_s += start.elapsed_time(end) / 1e3
-        self._open.clear()
         return {
             "extracts": self.extracts, "extract_blocks": self.extract_blocks,
             "extract_bytes": self.extract_bytes, "extract_s": self.extract_s,
@@ -415,7 +423,7 @@ class BlockTransferEngine:
             if cuda:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
-                st._open.append((start, end))
+                st.note_inject(start, end)
             else:
                 st.inject_s += time.perf_counter() - t0
 

@@ -29,10 +29,11 @@ Three planes, all riding one process-global :class:`MemLedger`:
   behind the JAX package's fleet ``kv_headroom`` SLI.
 
 The port's engine pins ``stream`` blocks (the scheduler's block tables),
-``session`` blocks (session retention) and the ``prefix_publish`` and
-``stream_ckpt`` queue blocks of the KVBM tiers, and its live-id source
-reports each from the store or queue that holds it; ``staging`` pins come
-with the disagg handoff, and the source reports that class empty. Every
+``session`` blocks (session retention), the ``prefix_publish`` and
+``stream_ckpt`` queue blocks of the KVBM tiers and the ``staging`` blocks
+of a disaggregated handoff's transfers (pinned from staging until the
+decode side's release or the source's TTL), and its live-id source
+reports each from the store, queue or transfer table that holds it. Every
 KVBM tier registers a tier row beside the device's.
 
 Disabled mode (``DYN_MEM_LEDGER=0``) flips ``MemLedger.enabled``; every

@@ -9,8 +9,10 @@ and freed on stream end; dead workers purged when their instances vanish).
 
 Copy of ``dynamo_tpu/router/kv_router.py``: the router builds the
 pure-Python ``RadixIndexer`` directly (the JAX package's C++ twin,
-``native/indexer.cc``, is not ported yet), and ``KvPushRouter`` also counts
-its decisions by worker and their host time (``routing_stats``).
+``native/indexer.cc``, is not ported yet); ``KvPushRouter`` also counts
+its decisions by worker and their host time (``routing_stats``), and frees
+a request's load prediction at its stream's last item, where the JAX
+router waits for the stream's generator to be closed.
 """
 
 from __future__ import annotations
@@ -360,6 +362,7 @@ class KvPushRouter:
         prompt_len = len(req.token_ids)
         gen_tokens = 0
         seen_blocks = -(-prompt_len // bs)
+        freed = False
         try:
             async for item in self.client.generate_direct(req.to_dict(), wid, req.request_id):
                 if first:
@@ -367,6 +370,17 @@ class KvPushRouter:
                     first = False
                 if isinstance(item, dict):
                     gen_tokens += len(item.get("token_ids") or [])
+                    if item.get("finish_reason") is not None:
+                        # The stream's last item: free its load prediction
+                        # before handing it on. A caller that stops at the
+                        # last item (frontend/migration.py returns) leaves
+                        # this generator's close to the garbage collector,
+                        # and the client's next request must not find the
+                        # finished one counted against its worker.
+                        self.router.complete(req.request_id)
+                        freed = True
+                        yield item
+                        continue
                 total_blocks_now = -(-(prompt_len + gen_tokens) // bs)
                 if total_blocks_now > seen_blocks:
                     self.router.active.note_decode_progress(
@@ -374,15 +388,24 @@ class KvPushRouter:
                     seen_blocks = total_blocks_now
                 yield item
         finally:
-            self.router.complete(req.request_id)
+            if not freed:
+                self.router.complete(req.request_id)
 
     def routing_stats(self) -> dict:
         """Decisions per worker (hex id), their count, and the host seconds
         they took in all and in the mean (ms)."""
         n = sum(self.routed.values())
+        workers = set(self.routed) | set(self.router.worker_metrics)
         return {"routed": {f"{w:x}": c for w, c in self.routed.items()},
                 "decisions": n, "route_s": self.route_s,
-                "route_ms_mean": 1e3 * self.route_s / n if n else 0.0}
+                "route_ms_mean": 1e3 * self.route_s / n if n else 0.0,
+                # what the next decision reads: the blocks indexed from each
+                # worker's KV events and the predicted blocks of its
+                # requests in flight
+                "indexed_blocks": {f"{w:x}": self.router.indexer.worker_block_count(w)
+                                   for w in workers},
+                "active_blocks": {f"{w:x}": self.router.active.active_blocks(w)
+                                  for w in workers}}
 
     async def close(self) -> None:
         for t in self._tasks:

@@ -8,11 +8,15 @@ is ``[u32 big-endian length][msgpack payload]``. All control and data planes
 Copy of ``dynamo_tpu/transports/wire.py`` over the port's own codec
 (``utils/msgpack.py``): every frame is the bytes ``msgpack.packb(obj,
 use_bin_type=True)`` gives, so peers of either package interoperate.
+``send_frame`` / ``recv_frame`` are the same frame on a blocking socket
+(the JAX package keeps them in ``parallel/multihost.py``), for the KV
+handoff's shard server and client (disagg/sharded.py).
 """
 
 from __future__ import annotations
 
 import asyncio
+import socket
 import struct
 from typing import Any
 
@@ -45,6 +49,40 @@ def encode_frame(obj: Any) -> bytes:
     if len(payload) > MAX_FRAME:
         raise ValueError(f"frame too large: {len(payload)}")
     return struct.pack(">I", len(payload)) + payload
+
+
+def send_frame(sock: socket.socket, obj: Any) -> None:
+    """One frame on a blocking socket (the synchronous form of
+    :meth:`MsgpackConnection.send`, for threads that own a plain socket)."""
+    sock.sendall(encode_frame(obj))
+
+
+def recv_frame(sock: socket.socket) -> Any | None:
+    """Read one frame from a blocking socket; None on clean EOF (also
+    mid-frame: the peer went away). The payload is received into one
+    buffer, so a frame of many MiB costs no per-chunk concatenation."""
+    header = _recv_exact(sock, 4)
+    if header is None:
+        return None
+    (length,) = struct.unpack(">I", header)
+    if length > MAX_FRAME:
+        raise ValueError(f"oversized frame: {length}")
+    payload = _recv_exact(sock, length)
+    if payload is None:
+        return None
+    return msgpack.unpackb(payload)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytearray | None:
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], n - got)
+        if not k:
+            return None
+        got += k
+    return buf
 
 
 class MsgpackConnection:

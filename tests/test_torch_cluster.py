@@ -156,19 +156,53 @@ def test_greedy_completions_equal_jax(cluster, jax_ref, stream):
         assert max(abs(a - b) for a, b in zip(t["lps"], j["lps"])) < LP_TOL
 
 
+def poll(cond, timeout: float = 30.0):
+    """``cond()``'s first true result, polled every 50 ms; None after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got or time.monotonic() > deadline:
+            return got or None
+        time.sleep(0.05)
+
+
+def settled(cluster, worker: str, indexed: int) -> dict | None:
+    """The stats once the router holds ``indexed`` blocks of ``worker``'s
+    KV events and predicts no request in flight, and both workers publish
+    an idle engine (no waiting or running request); else None."""
+    st = stats(cluster)
+    router = st["router"]
+    if router["indexed_blocks"].get(worker, 0) < indexed:
+        return None
+    if any(router["active_blocks"].values()):
+        return None
+    if any(m["num_waiting"] or m["num_running"] for m in st["workers"].values()):
+        return None
+    return st
+
+
 def test_prefix_affinity(cluster):
     """A group of requests sharing a long prefix lands on the worker that
     served its first request (the frontend's router reports it), and that
-    worker's device prefix hits rise."""
+    worker's device prefix hits rise. Each wait polls the router's and the
+    workers' published state: the first request's blocks indexed on its
+    worker, no request predicted in flight, both engines idle."""
+    from dynamo_tpu_torch.tokenizer import load_tokenizer
+
     prefix = " ".join(f"w{i}" for i in range(60))
+    first_prompt = prefix + " first"
+    blocks = len(load_tokenizer(CKPT).encode(first_prompt, add_bos=True)) // 4
     before = stats(cluster)
     r0 = dict(before["router"]["routed"])
+    indexed0 = dict(before["router"]["indexed_blocks"])
     post(cluster["port"], "/v1/completions",
-         {"model": CKPT, "prompt": prefix + " first", "max_tokens": 4, "temperature": 0})
-    time.sleep(0.5)  # the workers' KV events reach the router
-    mid = stats(cluster)
-    first = [w for w, n in mid["router"]["routed"].items() if n > r0.get(w, 0)]
+         {"model": CKPT, "prompt": first_prompt, "max_tokens": 4, "temperature": 0})
+    routed = stats(cluster)["router"]["routed"]
+    first = [w for w, n in routed.items() if n > r0.get(w, 0)]
     assert len(first) == 1
+    mid = poll(lambda: settled(cluster, first[0], indexed0.get(first[0], 0) + blocks))
+    assert mid is not None, "the first request's blocks were never indexed on its worker"
     r1 = dict(mid["router"]["routed"])
     hits0 = mid["workers"][first[0]]["prefix_hit_blocks"]
     for i in range(5):
@@ -176,8 +210,15 @@ def test_prefix_affinity(cluster):
                          {"model": CKPT, "prompt": prefix + f" then {i}", "max_tokens": 4,
                           "temperature": 0})
         assert status == 200
-    time.sleep(0.6)
-    after = stats(cluster)
+
+    def repeats_published():
+        # both engines idle, and the repeats' hits in the published metrics
+        st = settled(cluster, first[0], 0)
+        if st and st["workers"][first[0]]["prefix_hit_blocks"] >= hits0 + 5 * 10:
+            return st
+        return None
+
+    after = poll(repeats_published, timeout=10) or stats(cluster)
     delta = {w: n - r1.get(w, 0) for w, n in after["router"]["routed"].items()}
     assert delta.get(first[0], 0) == 5, delta
     assert after["workers"][first[0]]["prefix_hit_blocks"] >= hits0 + 5 * 10

@@ -5,7 +5,8 @@ package's other dependencies).
 In a subprocess whose ``sys.modules`` blocks ``jax``, ``dynamo_tpu`` and
 the packages the card's machine lacks (msgpack and yaml among them), every
 module of ``dynamo_tpu_torch`` (frontend, preprocessor, parsers, launcher,
-the distributed runtime, the router and the components included) and ``chip_smoke.py`` import. And no import statement anywhere in
+the distributed runtime, the router, the components and the disaggregated
+handoff included) and ``chip_smoke.py`` import. And no import statement anywhere in
 their source, a deferred one inside a function included, names a blocked
 package.
 """
@@ -38,7 +39,10 @@ MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
                "dynamo_tpu_torch.router.arbiter", "dynamo_tpu_torch.router.sequence",
                "dynamo_tpu_torch.router.publisher", "dynamo_tpu_torch.router.kv_router",
                "dynamo_tpu_torch.frontend.migration", "dynamo_tpu_torch.components.worker",
-               "dynamo_tpu_torch.components.frontend")
+               "dynamo_tpu_torch.components.frontend", "dynamo_tpu_torch.disagg",
+               "dynamo_tpu_torch.disagg.sharded", "dynamo_tpu_torch.disagg.source",
+               "dynamo_tpu_torch.disagg.receiver", "dynamo_tpu_torch.disagg.handlers",
+               "dynamo_tpu_torch.disagg.metrics")
 SOURCES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""

@@ -181,6 +181,68 @@ def test_approx_ttl_equal_jax(seed):
     assert any(s[0] for s in out["torch"]) and not all(s[0] for s in out["torch"])
 
 
+class _FinishedStreams:
+    """A client whose every stream is two items, the second the last."""
+
+    def __init__(self, workers: list[int]):
+        self.workers = workers
+
+    def instance_ids(self) -> list[int]:
+        return list(self.workers)
+
+    async def generate_direct(self, payload, worker_id, request_id):
+        yield {"token_ids": [7]}
+        yield {"token_ids": [8], "finish_reason": "length"}
+
+
+async def _sequential_prefix(pkg: str) -> list[tuple]:
+    """Two requests of one 40-token prompt through ``KvPushRouter`` over
+    workers 11 and 22, the prompt's blocks indexed on 11; each stream is
+    read up to its last item and left open, as frontend/migration.py
+    leaves its inner stream when it returns. Per request: the decision
+    (worker, overlap) and 11's active blocks after the last item."""
+    m = PKG[pkg]
+    push = m.kv.KvPushRouter(_FinishedStreams([11, 22]), m.kv.KvRouterConfig(block_size=BS))
+    toks = list(range(100, 140))
+    push.router.apply_events([m.ev.RouterEvent(worker_id=11, event=m.ev.BlockStored(
+        block_hashes=tuple(m.tok.compute_block_hashes_for_tokens(toks, BS)), parent_hash=None))])
+    decisions = []
+    decide = push.router.find_best_match
+
+    def recorded(*a, **kw):
+        decisions.append(decide(*a, **kw))
+        return decisions[-1]
+
+    push.router.find_best_match = recorded
+    seen, open_streams = [], []
+    for i in range(2):
+        stream = push.generate({"token_ids": toks, "request_id": f"r{i}",
+                                "stop_conditions": {"max_tokens": 2}})
+        open_streams.append(stream)
+        async for item in stream:
+            if item.get("finish_reason"):
+                break
+        seen.append((decisions[-1], push.router.active.active_blocks(11)))
+    for stream in open_streams:
+        await stream.aclose()
+    return seen
+
+
+async def test_push_router_frees_a_finished_stream_at_its_last_item():
+    """The port's router frees a request's load prediction at its stream's
+    last item, so a client's next request of the same prefix goes to the
+    prefix's worker even while the finished stream's generator is still
+    open. The JAX router frees it only when the generator closes: its
+    second decision counts the finished request's 11 blocks against the
+    prefix's worker and sends the request to the other (ROADMAP, "Gaps in
+    the reference"). The first decisions, on equal state, are equal."""
+    got = await _sequential_prefix("torch")
+    ref = await _sequential_prefix("jax")
+    assert got[0] == ref[0][:1] + (0,) and ref[0] == ((11, 10), 11)
+    assert got[1] == ((11, 10), 0)
+    assert ref[1][0] == (22, 0)
+
+
 @pytest.mark.parametrize("temperature", [0.5, 2.0, 7.5])
 def test_softmax_probabilities_equal_jax(temperature):
     """At temperature > 0 each package draws from its own seeded generator;

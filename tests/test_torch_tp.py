@@ -287,7 +287,8 @@ def test_engine_tp2_matches_jax_tp2(tiny32, kv_dtype, pipelined):
     EngineCore(tp=2) on tiny-llama at f32 (the pipelined loop feeds decode
     rows their in-flight tokens through the leader's broadcast). Every rank
     launched the same forward steps on 2 of the 4 heads, 1 of the 2 kv
-    heads; blocks cannot be exported from a tensor-parallel engine."""
+    heads; blocks cannot be exported from a tensor-parallel engine, nor
+    handed off by the disaggregated handoff's ops."""
     jp, full = tiny32
     kw = _cfg(TINY32, kv_dtype=kv_dtype)
     core = _port_core(full, **kw)
@@ -297,6 +298,17 @@ def test_engine_tp2_matches_jax_tp2(tiny32, kv_dtype, pipelined):
         ranks = core.tp_stats()
         with pytest.raises(ValueError, match="tp > 1 with block export"):
             core.export_blocks([1, 2])
+        # nor handed off: every op of the disaggregated handoff refuses
+        params = {"xfer_id": "x", "block_hashes": [1], "shards": []}
+        for name, args in (("kv_stage", {"xfer_id": "x", "hashes": [1, 2]}),
+                           ("kv_stream_begin", {"xfer_id": "x", "request_id": "r",
+                                                "hashes": [1]}),
+                           ("kv_prefetch", {"params": params}),
+                           ("kv_import", {"params": params})):
+            with pytest.raises(ValueError, match="tp > 1 with block export"):
+                core.run_op(name, args)
+        with pytest.raises(ValueError, match="tp > 1 with block export"):
+            core.start_shard_server("127.0.0.1")
     finally:
         core.close()
     assert got == _jax_streams(jp, tp=2, **kw)

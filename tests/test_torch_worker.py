@@ -273,13 +273,20 @@ async def test_published_stats_pack_with_the_port_codec(real32):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--engine", "mocker"], "the mocker: ROADMAP item 15"),
-    (["--disagg", "prefill"], "disaggregated serving: ROADMAP item 15"),
-    (["--disagg", "decode"], "disaggregated serving: ROADMAP item 15"),
+    (["--disagg", "prefill", "--tp", "2"], "the handoff of a sharded cache: ROADMAP item 14"),
+    (["--disagg", "decode", "--tp", "2"], "the handoff of a sharded cache: ROADMAP item 14"),
     (["--num-nodes", "2"], "multi-host engines: ROADMAP item 14"),
 ])
 def test_worker_refuses_by_name(argv, needle):
     with pytest.raises(SystemExit, match=needle):
         tworker.check_worker_args(tworker.parse_args(argv))
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_worker_takes_disagg_at_tp1(role):
+    """``--disagg prefill|decode`` runs on one rank (tests/test_torch_disagg_cluster.py
+    serves through both)."""
+    tworker.check_worker_args(tworker.parse_args(["--disagg", role]))
 
 
 def test_worker_keeps_jax_flags_and_defaults():
