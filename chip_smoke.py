@@ -298,6 +298,38 @@ if any phase fails:
     worker's own prefill (its fallbacks, prefill tokens and launches).
     After the TTL no staging pin is left on the surviving prefill worker
     and no block is in use on the survivors, which drain and exit 0.
+(m) faults: (m1), beside the kernels' build (it needs neither them nor
+    the card), the port's chaos harness (``chaos/harness.py``) on this
+    host, which has no JAX: the scenarios ``smoke``, ``worker_kill``,
+    ``retire_under_load_smoke`` and ``worker_kill_mid_decode_smoke`` over
+    fleets of mocker workers (coordinator, ``--engine mocker`` workers,
+    the KV store process and the frontend), and the router component over
+    two mocker workers, pricing pulls against recompute at the card's row
+    of the cost model (``--global-prefix-cache --device-kind``; prefix
+    repeats concentrate on one worker, distinct prefixes spread), all at
+    once; each report must pass its invariants. After (l): (m2) a real engine
+    killed by a chaos plan: a coordinator, the KV store process, the
+    frontend (``--router-mode kv --migration-limit 3``) and one f32
+    llama-3-8b-lite worker with (k1)'s settings and stream checkpoints
+    every block (``--stream-ckpt-blocks 1``, to the store), whose
+    ``DYN_CHAOS_PLAN`` SIGKILLs it at its 46th ``engine.step`` with work:
+    mid-decode of one greedy request of 128 prompt tokens and 64 out,
+    after its checkpoints at 8 and 10 blocks. A fresh worker without the
+    plan starts when the victim dies (lazily captured graphs). The victim
+    must exit by SIGKILL, the stream finish through Migration from its
+    checkpoint (``stream_ckpt_resumes`` >= 1, at most (interval + 1) x 16
+    tokens recomputed), its tokens equal an unkilled control of the same
+    request id and the in-process f32 stream (or first differ at a
+    near-tie), the frontend quarantine the dead instance, the survivor
+    launch ``mma_f32`` only, 8 a forward step, and the port's
+    ``InvariantChecker`` pass (streams, block leaks, orphan pins,
+    checkpoint resume); prints the time from the kill to the resumed
+    stream's next token. (m3) the KVBM's fault points on an in-process f32
+    engine with a host tier and (m2)'s store: ``kvbm.remote`` errors open
+    the store client's breaker with the streams of an unfaulted run and no
+    orphan pin; a ``kvbm.offload`` error fails the in-flight streams
+    through ``fail_all`` (finish reason error), every block comes back, and
+    the next batch's streams equal the unfaulted run's.
 
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
@@ -310,7 +342,7 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k) and (l); and a ``paged_attention_sharded`` entry: one rank's
+in (i), (j), (k) and (l), ``mma_f32`` in (m); and a ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -321,7 +353,8 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-tp`` does the same for (a') and (h);
 ``python3 chip_smoke.py --only-ij`` for (b)'s bf16 run, (i), (j) and (h);
 ``python3 chip_smoke.py --only-k`` for (b'')'s f32 run (the reference of
-(k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l).
+(k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l);
+``python3 chip_smoke.py --only-m`` runs (m) alone.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -3723,11 +3756,12 @@ def k_ids(text: str) -> list[int]:
     return [int(w[1:]) for w in words]
 
 
-async def k_stream(port: int, model: str, prompt: list[int], max_tokens: int) -> dict:
+async def k_stream(port: int, model: str, prompt: list[int], max_tokens: int,
+                   headers: dict | None = None) -> dict:
     res = await http_call(port, "POST", "/v1/completions", {
         "model": model, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
         "logprobs": 0, "ignore_eos": True, "stream": True,
-        "stream_options": {"include_usage": True}})
+        "stream_options": {"include_usage": True}}, headers=headers)
     if res["status"] != 200:
         raise AssertionError(f"[k] {model}: status {res['status']} {res['body'][:300]}")
     s = sse_summary(res)
@@ -3736,7 +3770,7 @@ async def k_stream(port: int, model: str, prompt: list[int], max_tokens: int) ->
         raise AssertionError(f"[k] {model}: {len(ids)} ids, {len(s['lps'])} logprobs, "
                              f"finish {s['finish']}; expected {max_tokens}")
     return {"ids": ids, "lps": s["lps"], "t0": res["t0"], "first": s["first"],
-            "last": s["last"]}
+            "last": s["last"], "times": res["times"]}
 
 
 def k_batch(port: int, model: str, prompts: list[list[int]], max_tokens: int) -> list[dict]:
@@ -4350,6 +4384,477 @@ def phase_disagg(smi: str, f32_ref: dict, b_bf16: dict | None, k: dict | None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# (m) the chaos harness over mocker fleets, and a real engine killed by a
+# chaos plan and resumed from its stream checkpoint
+# ---------------------------------------------------------------------------
+
+M_SCENARIOS = ("smoke", "worker_kill", "retire_under_load_smoke",
+               "worker_kill_mid_decode_smoke")
+#: (m2): the stream, the step-loop iterations the victim runs before its
+#: kill (the prefill, then ~44 decode steps: past the checkpoints at
+#: prefill completion, 8 blocks, and at 10 blocks), and the checkpoint
+#: cadence (a standard-priority stream checkpoints every 2 x base blocks)
+M_PROMPT, M_DECODE, M_KILL_AFTER, M_CKPT_BLOCKS = 128, 64, 45, 1
+M_INTERVAL = 2 * M_CKPT_BLOCKS
+#: (m3): batches of f32 streams on an in-process engine with KVBM tiers
+M3_BATCH, M3_DECODE = 4, 16
+
+
+async def m_call_router(url: str, reqs: list, concurrent: bool = False) -> None:
+    """Send ``reqs`` (PreprocessedRequests) to the router component's
+    endpoint through the port's runtime, one at a time or all at once."""
+    from dynamo_tpu_torch.runtime.client import EndpointClient, PushRouter
+    from dynamo_tpu_torch.runtime.protocols import EndpointId
+    from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    rt = await DistributedRuntime.create(RuntimeConfig(coordinator_url=url))
+    try:
+        client = await EndpointClient.create(rt, EndpointId("dynamo", "router", "generate"))
+        await client.wait_for_instances(30.0)
+        push = PushRouter(client)
+
+        async def one(req):
+            async for _ in push.generate(req.to_dict(), req.request_id):
+                pass
+
+        if concurrent:
+            await asyncio.gather(*(one(r) for r in reqs))
+        else:
+            for r in reqs:
+                await one(r)
+    finally:
+        await rt.shutdown()
+
+
+def m_router(root: Path, env: dict, device_kind: str) -> dict:
+    """(m1)'s router check, the shape of tests/test_router_component.py: the
+    router component over two mocker workers; 6 requests sharing a
+    16-block prefix, one at a time, concentrate on one worker from the
+    third on; 6 distinct prompts at once use both. The router arbitrates
+    with the prefix-cache cost model of llama-3-8b-lite at ``device_kind``'s
+    row (``--global-prefix-cache``)."""
+    import re
+
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    def reqs(tag: str, prompts: list[list[int]]) -> list:
+        return [PreprocessedRequest(
+            token_ids=p, request_id=f"{tag}{i}",
+            stop_conditions=StopConditions(max_tokens=4, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0)) for i, p in enumerate(prompts)]
+
+    def routed(tag: str) -> list[str]:
+        return [m.group(2) for m in re.finditer(r"routed (\S+) -> worker ([0-9a-f]+)",
+                                                 cl.log_of("router"))
+                if m.group(1).startswith(tag)]
+
+    root.mkdir(parents=True, exist_ok=True)
+    cl = KCluster(root, env)
+    t0 = time.perf_counter()
+    try:
+        port = free_port()
+        url = f"tcp://127.0.0.1:{port}"
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 30)
+        for i in range(2):
+            cl.start(f"pool{i}", "dynamo_tpu_torch.components.worker", [
+                "--engine", "mocker", "--coordinator", url, "--component", "pool",
+                "--block-size", "4", "--speedup-ratio", "50", "--max-model-len", "512",
+                "--num-blocks", "128"])
+        for i in range(2):
+            cl.wait_line(f"pool{i}", "WORKER_READY", 60)
+        cl.start("router", "dynamo_tpu_torch.components.router",
+                 ["--coordinator", url, "--target", "dyn://dynamo.pool.generate",
+                  "--block-size", "4", "--global-prefix-cache", "--model", K_MODEL,
+                  "--device-kind", device_kind], env={"DYN_LOG": "debug"})
+        cl.wait_line("router", "ROUTER_READY", 60)
+        arbiter = cl.wait_line("router", "prefix-cache arbitration on", 1)
+        shared = list(range(100, 164))
+        asyncio.run(m_call_router(url, reqs("warm", [shared + [1000 + i] for i in range(6)])))
+        asyncio.run(m_call_router(url, reqs("cold", [[2000 + 97 * i + j for j in range(64)]
+                                                     for i in range(6)]), concurrent=True))
+        warm, cold = routed("warm"), routed("cold")
+        cl.check_alive()
+    finally:
+        cl.stop_all()
+    out = {"warm": warm, "cold": cold, "arbiter": arbiter.split(": ", 1)[-1],
+           "wall_s": time.perf_counter() - t0}
+    if len(warm) != 6 or len(set(warm[2:])) != 1 or warm[2] not in warm[:2]:
+        raise AssertionError(f"[m1] prefix traffic did not concentrate: {out}")
+    if len(cold) != 6 or len(set(cold)) != 2:
+        raise AssertionError(f"[m1] distinct prefixes did not spread: {out}")
+    return out
+
+
+def phase_harness(device_kind: str) -> dict:
+    """(m1): the port's chaos harness on this host (it has no JAX): each
+    scenario of ``M_SCENARIOS`` over mocker workers, and the router
+    component over two, all at once (each fleet is processes of its own on
+    ports of its own, light on the CPU). Each report must pass. ``main``
+    runs it beside the kernels' build, which it does not need."""
+    import concurrent.futures
+    import tempfile
+
+    from dynamo_tpu_torch.chaos.harness import run_scenario
+
+    root = Path(tempfile.mkdtemp(prefix="m1-harness-"))
+
+    def scenario(name: str) -> dict:
+        t0 = time.perf_counter()
+        try:
+            rep = run_scenario(name).report.to_dict()
+        except Exception as exc:  # noqa: BLE001 - reported beside the others
+            rep = {"passed": False, "checks": [], "details": {},
+                   "failures": [f"{type(exc).__name__}: {str(exc)[-3000:]}"]}
+        return {"report": rep, "wall_s": time.perf_counter() - t0}
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1", "DYN_LOG": "info"}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(M_SCENARIOS) + 1) as ex:
+        futs = {name: ex.submit(scenario, name) for name in M_SCENARIOS}
+        router = ex.submit(m_router, root / "m1-router", env, device_kind)
+        out = {name: f.result() for name, f in futs.items()}
+        out["router"] = router.result()
+    for name in M_SCENARIOS:
+        rep = out[name]["report"]
+        log(f"[m1] {name}: passed {rep['passed']} in {out[name]['wall_s']:.1f}s, checks "
+            f"{rep['checks']}, streams {rep['details'].get('streams')}")
+    failed = {name: out[name]["report"]["failures"] for name in M_SCENARIOS
+              if not out[name]["report"]["passed"]}
+    if failed:
+        raise AssertionError(f"[m1] scenarios failed: {failed}")
+    log(f"[m1] router component ({out['router']['arbiter']}): prefix repeats on "
+        f"{out['router']['warm']}, distinct prefixes on {out['router']['cold']}, "
+        f"{out['router']['wall_s']:.1f}s")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[m1] passed in {out['wall_s']:.1f}s")
+    return out
+
+
+async def m_serve(engine, reqs: dict) -> dict:
+    """Each request's (tokens, logprobs, finish reason) from ``engine``,
+    all sent at once; the engine keeps running."""
+    async def one(req):
+        toks, lps, fin = [], [], None
+        async for out in engine.generate(req):
+            toks += out.token_ids
+            lps += out.log_probs or []
+            fin = str(out.finish_reason) if out.finish_reason is not None else fin
+        return toks, lps, fin
+    got = await asyncio.gather(*(one(r) for r in reqs.values()))
+    return dict(zip(reqs, got))
+
+
+def m_engine(model: str, device: str, **kw):
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    cfg = dict(model=model, block_size=16, num_blocks=128, max_batch_size=8,
+               max_model_len=M_PROMPT + M_DECODE + 16, prefill_chunk=128,
+               allow_random_weights=True, warmup_mode="lazy")
+    cfg.update(kw)
+    return build_engine(EngineConfig(**cfg), device=device)
+
+
+def m_reqs(tag: str, prompts: list[list[int]], decode: int) -> dict:
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    return {i: PreprocessedRequest(
+        token_ids=p, request_id=f"{tag}-{i}",
+        stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0)) for i, p in enumerate(prompts)}
+
+
+def phase_kvbm_faults(smi: str, store_addr: str, device: str = "cuda") -> dict:
+    """(m3): the KVBM's fault points on an in-process f32 llama-3-8b-lite
+    engine with a host tier and (m2)'s store (publish on commit): batches A,
+    B and C of ``M3_BATCH`` greedy streams, first on an engine without a
+    plan, then on a fresh one where ``kvbm.remote`` errors twice (the
+    store client opens its breaker: A's streams as the unfaulted run's, no
+    orphan pin), then ``kvbm.offload`` errors once (B's in-flight streams
+    end with finish reason error through ``fail_all``, every block comes
+    back), then no fault (C's streams as the unfaulted run's)."""
+    from dynamo_tpu_torch import chaos
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.obs.mem_ledger import get_mem_ledger
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    model = register_f32_model()
+    route = ROUTES[(torch.float32, "float")]
+    kw = dict(host_kv_blocks=256, remote_kv_addr=store_addr, global_prefix_cache=True)
+    vocab = resolve_model_config(model).vocab_size
+    rng = np.random.default_rng(13)
+    b = {tag: m_reqs(f"m3{tag}", [[int(x) for x in rng.integers(5, vocab - 5, M_PROMPT)]
+                                  for _ in range(M3_BATCH)], M3_DECODE) for tag in "ABC"}
+    t0 = time.perf_counter()
+
+    def as_ref(streams: dict) -> dict:
+        return {i: (t, lp) for i, (t, lp, _) in streams.items()}
+
+    def blocks_back(core) -> bool:
+        return core.pool.num_free == core.pool.num_blocks - 1
+
+    async def unfaulted() -> dict:
+        engine = m_engine(model, device, **kw)
+        try:
+            return {tag: await m_serve(engine, b[tag]) for tag in "ABC"}
+        finally:
+            await engine.shutdown()
+
+    async def faulted() -> dict:
+        out: dict = {}
+        engine = m_engine(model, device, **kw)
+        core = engine.core
+        try:
+            get_mem_ledger().reset()
+            chaos.configure({"seed": 0, "rules": [
+                {"point": "kvbm.remote", "kind": "error", "rate": 1.0, "count": 2}]})
+            pa.reset_launches()
+            got = await m_serve(engine, b["A"])
+            tiers = [t for t in [*core.kvbm.tiers, core.kvbm.publish_tier]
+                     if getattr(t, "name", "") == "remote"]
+            out["remote"] = {"fired": [k[1] for k in chaos.injection_log()],
+                             "breaker_open": any(t._broken_until > time.monotonic()
+                                                 for t in tiers),
+                             "orphan_pins": get_mem_ledger().audit()["orphan_pins"],
+                             "blocks_back": blocks_back(core)}
+            eq, ties, bad = compare_streams("[m3] A under kvbm.remote errors against the "
+                                            "unfaulted run", as_ref(got), as_ref(ref["A"]))
+            out["remote"].update(streams_equal=eq, near_ties=ties)
+            r = out["remote"]
+            if r["fired"] != ["kvbm.remote"] * 2 or not r["breaker_open"] or bad \
+                    or r["orphan_pins"] or not r["blocks_back"]:
+                raise AssertionError(f"[m3] kvbm.remote: {r} {bad[:2]}")
+
+            chaos.configure({"seed": 0, "rules": [
+                {"point": "kvbm.offload", "kind": "error", "rate": 1.0, "count": 1}]})
+            got = await m_serve(engine, b["B"])
+            out["offload"] = {"fired": [k[1] for k in chaos.injection_log()],
+                              "finish": sorted({fin for _, _, fin in got.values()}),
+                              "blocks_back": blocks_back(core)}
+            chaos.reset()
+            if out["offload"]["fired"] != ["kvbm.offload"] or \
+                    out["offload"]["finish"] != ["error"] or not out["offload"]["blocks_back"]:
+                raise AssertionError(f"[m3] kvbm.offload: {out['offload']}")
+            got = await m_serve(engine, b["C"])
+            eq, ties, bad = compare_streams("[m3] C after the offload fault against the "
+                                            "unfaulted run", as_ref(got), as_ref(ref["C"]))
+            out["after"] = {"streams_equal": eq, "near_ties": ties}
+            if bad:
+                raise AssertionError(f"[m3] C's streams differ: {bad[:2]}")
+            by_kernel = dict(pa.paged_attention.launches_by_kernel)
+            if device == "cuda" and any(n for k, n in by_kernel.items() if k != route):
+                raise AssertionError(f"[m3] launched {by_kernel}; expected {route} only")
+            out["launches"] = by_kernel.get(route, 0)
+            return out
+        finally:
+            chaos.reset()
+            await engine.shutdown()
+
+    ref = asyncio.run(unfaulted())
+    free_engine()
+    out = {"smi": smi, **asyncio.run(faulted())}
+    free_engine()
+    out["wall_s"] = time.perf_counter() - t0
+    log("[m3] " + json.dumps(out))
+    log(f"[m3] passed in {out['wall_s']:.1f}s")
+    return out
+
+
+def phase_chaos(smi: str, m1, device: str = "cuda") -> dict:
+    """(m): see the module docstring. ``m1`` is (m1)'s future, started by
+    ``main`` beside the build."""
+    import tempfile
+
+    from dynamo_tpu_torch.chaos.invariants import InvariantChecker, StreamOutcome
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    tmp = Path(tempfile.mkdtemp(prefix="m-chaos-"))
+    out: dict = {"smi": smi, "m1": m1.result()}
+    t_phase = time.perf_counter()
+    cfg = resolve_model_config(K_MODEL)
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    route = ROUTES[(torch.float32, "float")]
+    prompt = k_prompts(vocab)[0]
+    rid = "m2-victim"
+
+    # the in-process f32 stream of the request
+    async def in_process():
+        engine = m_engine(register_f32_model(), device)
+        try:
+            return (await m_serve(engine, m_reqs("m2", [prompt], M_DECODE)))[0]
+        finally:
+            await engine.shutdown()
+
+    ref = asyncio.run(in_process())
+    free_engine()
+
+    tok = k_tokenizer(tmp, vocab)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
+           "DYN_LEASE_TTL_S": str(K_TTL_S), "DYN_LOG": "info"}
+    cl = KCluster(tmp, env)
+    try:
+        coord_port, http_port, store_port, status_port = (free_port() for _ in range(4))
+        url, store = f"tcp://127.0.0.1:{coord_port}", f"127.0.0.1:{store_port}"
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(coord_port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 60)
+        cl.start("kv_store", "dynamo_tpu_torch.components.kv_store",
+                 ["--host", "127.0.0.1", "--port", str(store_port), "--coordinator", url])
+        cl.wait_line("kv_store", "KV_STORE_READY", 60)
+        # no health canaries: a canary's steps would count against the
+        # plan's ``after``
+        extra = ["--dtype", "float32", "--stream-ckpt-blocks", str(M_CKPT_BLOCKS),
+                 "--remote-kv-addr", store, "--health-interval", "0"]
+        plan = {"seed": 0, "rules": [{"point": "engine.step", "kind": "kill", "rate": 1.0,
+                                      "count": 1, "after": M_KILL_AFTER}]}
+        t_victim = time.perf_counter()
+        cl.start("victim", "dynamo_tpu_torch.components.worker", k_worker_args(
+            url, "f32", K_F32_NAME, K_F32_BLOCKS, M_PROMPT + M_DECODE + 16, tok, device,
+            extra), env={"DYN_CHAOS_PLAN": json.dumps(plan)})
+        cl.start("frontend", "dynamo_tpu_torch.components.frontend",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(http_port),
+                  "--router-mode", "kv", "--migration-limit", "3"])
+        cl.wait_line("frontend", "FRONTEND_READY", 120)
+        victim = cl.wait_line("victim", "WORKER_READY", 600).split("instance=")[1].strip()
+        victim_up_s = time.perf_counter() - t_victim
+        deadline = time.monotonic() + 60
+        while victim.lstrip("0") not in k_stats(http_port, K_F32_NAME).get("instances", []):
+            if time.monotonic() > deadline:
+                raise AssertionError("[m2] the frontend did not discover the victim")
+            time.sleep(0.2)
+        m2: dict = {"victim": victim, "victim_up_s": victim_up_s}
+
+        async def run_m2():
+            stream = asyncio.create_task(k_stream(http_port, K_F32_NAME, prompt, M_DECODE,
+                                                  headers={"x-request-id": rid}))
+            proc = cl.procs["victim"][0]
+            while proc.poll() is None:
+                if stream.done():
+                    raise AssertionError(f"[m2] the stream ended before the kill: "
+                                         f"{stream.result()['ids'][:8]}")
+                await asyncio.sleep(0.01)
+            t_kill = time.perf_counter()
+            cl.expected_dead.add("victim")
+            m2["victim_rc"] = proc.returncode
+            # the fresh worker, without the plan; lazily captured graphs: the
+            # migration's three attempts wait 29.5 s in all for an instance
+            cl.start("survivor", "dynamo_tpu_torch.components.worker", [
+                *k_worker_args(url, "f32", K_F32_NAME, K_F32_BLOCKS,
+                               M_PROMPT + M_DECODE + 16, tok, device, extra),
+                "--warmup-mode", "lazy"],
+                env={"DYN_SYSTEM_ENABLED": "true", "DYN_SYSTEM_PORT": str(status_port)})
+            while "WORKER_READY" not in cl.log_of("survivor"):
+                if stream.done():
+                    break
+                await asyncio.sleep(0.05)
+            m2["survivor_up_s"] = time.perf_counter() - t_kill
+            got = await stream
+            after = [t for t in got["times"] if t > t_kill]
+            m2["kill_to_next_token_s"] = after[0] - t_kill if after else None
+            m2["tokens_before_kill"] = len(got["times"]) - len(after)
+            return got
+
+        got = asyncio.run(run_m2())
+        if m2["victim_rc"] != -9:
+            raise AssertionError(f"[m2] the victim exited rc={m2['victim_rc']}, not by "
+                                 f"SIGKILL:\n{cl.log_of('victim')[-3000:]}")
+        if "chaos: killing process at point engine.step" not in cl.log_of("victim"):
+            raise AssertionError("[m2] the victim did not die at engine.step")
+        survivor = cl.wait_line("survivor", "WORKER_READY", 10).split("instance=")[1].strip()
+        m2["survivor"] = survivor
+        before = l_idle(status_port, "[m2]")
+        recomputed = before["prefill_tokens"]
+        metrics = asyncio.run(http_call(status_port, "GET", "/metrics"))["body"].decode()
+        counter = sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+                      if ln.startswith("dynamo_stream_ckpt_resume_recomputed_tokens "))
+        # the control: the same request id, unkilled, on the survivor
+        control = asyncio.run(k_stream(http_port, K_F32_NAME, prompt, M_DECODE,
+                                       headers={"x-request-id": rid}))
+        after = l_idle(status_port, "[m2]")
+        m2.update({"stream_ckpt_resumes": before["stream_ckpt_resumes"],
+                   "recomputed_tokens": recomputed, "recomputed_counter": counter,
+                   "recompute_bound": (M_INTERVAL + 1) * 16})
+        m2["vs_control"] = k_compare("[m2] the resumed stream against the unkilled control",
+                                     [got], {0: (control["ids"], control["lps"])})
+        m2["vs_in_process"] = k_compare("[m2] the resumed stream against the in-process "
+                                        "f32 stream", [got], {0: (ref[0], ref[1])})
+        launches = k_launches(
+            "[m2] survivor", {"workers": {survivor: {"attention": {
+                "launches": {}, "forward_steps": 0}}}},
+            {"workers": {survivor: after}}, [survivor], route, layers)[survivor]
+        m2["survivor_launches"] = launches
+        if m2["stream_ckpt_resumes"] < 1 or not recomputed == counter <= m2["recompute_bound"]:
+            raise AssertionError(f"[m2] checkpoint resume: {m2}")
+        if device == "cuda" and launches["launches_per_forward_step"] != layers:
+            raise AssertionError(f"[m2] survivor launches: {launches}")
+        m1 = k_get(http_port, "/metrics")
+        m2["migrations_resumed"] = sum(
+            float(ln.rsplit(" ", 1)[1]) for ln in m1.splitlines()
+            if ln.startswith("dynamo_migration_attempts_total") and 'outcome="resumed"' in ln)
+        m2["quarantined"] = "quarantined" in cl.log_of("frontend")
+        # the victim's last published stats (a stream running) stay in the
+        # router's view until its lease expires and discovery drops it
+        deadline = time.monotonic() + K_TTL_S + 10
+        while True:
+            st = k_stats(http_port, K_F32_NAME)
+            if victim.lstrip("0") not in {*st.get("instances", []), *st.get("workers", {})}:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[m2] the dead victim is still discovered: {st}")
+            time.sleep(0.2)
+        stats = {K_F32_NAME: k_settled(http_port, K_F32_NAME, [survivor.lstrip("0")])}
+        inv = InvariantChecker()
+        inv.check_streams([StreamOutcome(rid, "finished", "length"),
+                           StreamOutcome(f"{rid} control", "finished", "length")])
+        inv.check_block_leaks(stats)
+        inv.check_ckpt_resume(stats)
+        orphans = sum(int((m.get("mem") or {}).get("orphan_pins", 0) or 0)
+                      for m in stats[K_F32_NAME].get("workers", {}).values())
+        if orphans:
+            inv.report.fail(f"orphan pins: {orphans}")
+        else:
+            inv.report.ok("orphan_pins_zero")
+        if m2["quarantined"]:
+            inv.report.ok("killed_instance_quarantined")
+        else:
+            inv.report.fail("the frontend never quarantined the killed instance")
+        if m2["migrations_resumed"] < 1:
+            inv.report.fail("no migration resumed from a checkpoint")
+        m2["invariants"] = inv.finish().to_dict()
+        log("[m2] " + json.dumps(m2))
+        if not m2["invariants"]["passed"]:
+            raise AssertionError(f"[m2] invariants: {m2['invariants']['failures']}")
+        log(f"[m2] f32 stream killed at engine.step after {m2['tokens_before_kill']} tokens, "
+            f"resumed from its checkpoint on a fresh worker: {m2['kill_to_next_token_s']} s "
+            f"from the kill to its next token, {recomputed} tokens recomputed (bound "
+            f"{m2['recompute_bound']}); on {smi}")
+        rc = cl.terminate("survivor", 120)
+        if rc != 0:
+            raise AssertionError(f"[m2] the survivor exited {rc}:\n"
+                                 f"{cl.log_of('survivor')[-3000:]}")
+        out["m2"] = m2
+        cl.check_alive()
+        out["m3"] = phase_kvbm_faults(smi, store, device)
+        cl.check_alive()
+    finally:
+        cl.stop_all()
+    left = [n for n, (p, _) in cl.procs.items() if p.poll() is None]
+    if left:
+        raise AssertionError(f"[m] processes left over: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[m] (m2), (m3) passed in {out['wall_s']:.1f}s, (m1) in "
+        f"{out['m1']['wall_s']:.1f}s beside the build")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4367,6 +4872,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
         f"sms {torch.cuda.get_device_properties(0).multi_processor_count}")
     t0 = time.perf_counter()
+    m1 = None
+    if sys.argv[1:2] in ([], ["--profile"], ["--only-m"]):
+        import concurrent.futures
+
+        # (m1) needs neither the card nor the kernels: it runs beside the build
+        m1 = concurrent.futures.ThreadPoolExecutor(1).submit(phase_harness, name)
     libs = build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f}s")
     for kname in libs:
@@ -4410,6 +4921,12 @@ def main() -> int:
         phase_cluster(smi, f32_streams, None, None)
         audit_memory("(k)")
         log(f"(k) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--only-m"]:
+        # a rehearsal of (m) alone: no kernels or result line
+        phase_chaos(smi, m1)
+        audit_memory("(m)")
+        log(f"(m) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
@@ -4465,6 +4982,8 @@ def main() -> int:
     audit_memory("(k)")
     disagg = phase_disagg(smi, f32_streams, serve["float"], cluster)
     audit_memory("(l)")
+    chaos_m = phase_chaos(smi, m1)
+    audit_memory("(m)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -4502,6 +5021,11 @@ def main() -> int:
             l_run = "l2" if k_run[route] == "k2" else "l1"
             lines[-1]["launches_l"] = {w: r["launches"] for w, r in
                                        disagg[l_run]["workers"].items()}
+        if route == ROUTES[(torch.float32, "float")]:
+            # (m2)'s fresh worker, after the victim's kill, and (m3)'s engine
+            lines[-1]["launches_m"] = {
+                "m2 survivor": chaos_m["m2"]["survivor_launches"]["launches"],
+                "m3": chaos_m["m3"]["launches"]}
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}

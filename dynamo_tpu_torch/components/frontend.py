@@ -45,12 +45,15 @@ def make_ckpt_lookup(rt: DistributedRuntime):
     advertise after the frontend starts) and runs the blocking record
     fetch off-loop. Any failure degrades to None — Migration then falls
     back to the plain reprompt path, never blocking recovery on the
-    checkpoint plane."""
+    checkpoint plane. The store client is imported here, not in the first
+    lookup: it brings torch (seconds on a card's host), and that import
+    would block the event loop, watches included, while streams migrate
+    (``amain`` imports it before the runtime starts)."""
+    from dynamo_tpu_torch.kvbm.remote import ckpt_client, discover_store
+
     state: dict = {"pool": None}
 
     async def lookup(request_id: str) -> dict | None:
-        from dynamo_tpu_torch.kvbm.remote import ckpt_client, discover_store
-
         try:
             if state["pool"] is None:
                 addr = await discover_store(rt.client)
@@ -144,7 +147,19 @@ def qos_config_from_args(ns: argparse.Namespace):
 
 
 class ModelWatcher:
-    """Watches dyn/models/ and (un)registers per-model pipelines."""
+    """Watches dyn/models/ and (un)registers per-model pipelines.
+
+    A model whose last instance goes away leaves the model list at once,
+    but its pipeline (endpoint client, router, migration operator) stays
+    open for ``PARK_S`` seconds: a stream that was migrating off the dead
+    instance keeps waiting on that client, which still watches the
+    endpoint, and lands on a replacement when one registers. A replacement
+    within the window re-registers the model over the same pipeline. (The
+    JAX copy closes the pipeline at once: such a stream then retries the
+    dead instance until its migration limit, and fails.)"""
+
+    #: seconds a model's pipeline outlives its last instance
+    PARK_S = 60.0
 
     def __init__(self, rt: DistributedRuntime, models: ModelManager, ns: argparse.Namespace):
         self.rt = rt
@@ -152,7 +167,9 @@ class ModelWatcher:
         self.args = ns
         self.lookup_ckpt = None    # set by amain (stream-ckpt warm resume)
         self._instances: dict[str, set[str]] = {}   # model -> instance keys
-        self._pipelines: dict[str, tuple] = {}       # model -> (client, router)
+        # model -> (client, router, generate, stats_fn)
+        self._pipelines: dict[str, tuple] = {}
+        self._parked: dict[str, tuple] = {}          # model -> (pipeline, close task)
         self._task: asyncio.Task | None = None
         self._sweep_task: asyncio.Task | None = None
 
@@ -223,6 +240,15 @@ class ModelWatcher:
     async def _add_model(self, name: str, card: dict) -> None:
         tool_parser, reasoning_parser = self._validated_parsers(card)
         endpoint = EndpointId.parse("dyn://" + card["endpoint"])
+        parked = self._parked.pop(name, None)
+        if parked is not None:
+            pipe, closer = parked
+            closer.cancel()
+            if pipe[0].endpoint == endpoint:
+                self._register(name, card, pipe, tool_parser, reasoning_parser)
+                log.info("model added: %s via %s (pipeline kept)", name, endpoint)
+                return
+            await self._close_pipeline(pipe)
         log.debug("add_model %s: creating endpoint client", name)
         client = await EndpointClient.create(self.rt, endpoint)
         log.debug("add_model %s: endpoint client ready", name)
@@ -277,16 +303,21 @@ class ModelWatcher:
                 out["router"] = router.routing_stats()
             return out
 
-        tokenizer = load_tokenizer(card.get("tokenizer"))
+        self._register(name, card, (client, router, generate, stats_fn), tool_parser,
+                       reasoning_parser)
+        log.info("model added: %s via %s (router=%s)", name, endpoint, mode)
+
+    def _register(self, name: str, card: dict, pipe: tuple, tool_parser,
+                  reasoning_parser) -> None:
+        _, _, generate, stats_fn = pipe
         self.models.register(
-            name, tokenizer, generate,
+            name, load_tokenizer(card.get("tokenizer")), generate,
             defaults=ModelDefaults(max_model_len=card.get("max_model_len", 8192)),
             stats=stats_fn,
             tool_parser=tool_parser,
             reasoning_parser=reasoning_parser,
         )
-        self._pipelines[name] = (client, router)
-        log.info("model added: %s via %s (router=%s)", name, endpoint, mode)
+        self._pipelines[name] = pipe
 
     async def _sweep_stale_models(self, settle_s: float = 10.0) -> None:
         """Post-reset: models whose workers never re-registered within the
@@ -303,15 +334,28 @@ class ModelWatcher:
         self.models.unregister(name)
         pipe = self._pipelines.pop(name, None)
         if pipe:
-            client, router = pipe
-            if hasattr(router, "close"):
-                await router.close()
-            await client.close()
+            # parked, not closed: a migrating stream keeps a watching client
+            self._parked[name] = (pipe, asyncio.create_task(self._close_parked(name)))
         log.info("model removed: %s", name)
+
+    async def _close_parked(self, name: str) -> None:
+        await asyncio.sleep(self.PARK_S)
+        pipe, _ = self._parked.pop(name)
+        await self._close_pipeline(pipe)
+
+    @staticmethod
+    async def _close_pipeline(pipe: tuple) -> None:
+        client, router = pipe[:2]
+        if hasattr(router, "close"):
+            await router.close()
+        await client.close()
 
 
 async def amain(ns: argparse.Namespace) -> None:
     check_frontend_args(ns)
+    # The checkpoint lookup's store client imports torch: import it before
+    # the runtime grants the lease, whose keepalives the import would stall.
+    import dynamo_tpu_torch.kvbm.remote  # noqa: F401
     cfg = RuntimeConfig.from_settings(coordinator_url=ns.coordinator)
     rt = await DistributedRuntime.create(cfg)
     models = ModelManager()

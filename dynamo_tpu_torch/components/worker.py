@@ -1,19 +1,21 @@
-"""Worker process: serve the torch engine on the distributed runtime.
+"""Worker process: serve an engine (torch | mocker) on the distributed runtime.
 
 Fills the role of the reference's engine worker components
-(reference: components/src/dynamo/vllm/main.py init flow): connect runtime
-→ build engine with KV-event publishing → register model card →
-serve_endpoint → publish metrics.
+(reference: components/src/dynamo/vllm/main.py init flow + mocker/main.py):
+connect runtime → build engine with KV-event publishing → register model
+card → serve_endpoint → publish metrics.
 ``python -m dynamo_tpu_torch.components.worker --device cpu ...``; without
 ``--device`` the engine runs on the CUDA card and raises when there is none.
 
-Copy of ``dynamo_tpu/components/worker.py`` for ``--engine torch``.
+Copy of ``dynamo_tpu/components/worker.py``. ``--engine mocker`` serves the
+mocker (mocker/engine.py: no tensor, no card, the torch engine's modules
+never imported), which the chaos harness and the fleet tests run.
 ``--disagg prefill`` serves the prefill half of disaggregated serving (a
 ``KvTransferSource`` and a ``PrefillHandler``; no model card), ``--disagg
 decode`` the decode half (a ``DisaggDecodeHandler`` over a KV-aware or
-round-robin router of the prefill pool; disagg/). The mocker, multi-host
-engines and ``--disagg`` with ``--tp > 1`` are refused by name
-(:func:`check_worker_args`); so is whatever the engine's
+round-robin router of the prefill pool; disagg/). Multi-host engines,
+``--disagg`` with ``--tp > 1`` and ``--disagg`` on the mocker are refused
+by name (:func:`check_worker_args`); so is whatever the engine's
 ``check_supported`` refuses. The published stats carry the paged-attention
 launches by route, the forward steps they ran in and the card's peak
 allocated bytes (``"attention"``), which a process that cannot read this
@@ -135,14 +137,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "entries past the deadline stay cold and show as "
                         "warmup coverage < 1.0 (0 = unbounded)")
     p.add_argument("--tokenizer", default=None)
-    p.add_argument("--speedup-ratio", type=float, default=10.0,
-                   help="mocker only (refused by the port)")
+    p.add_argument("--speedup-ratio", type=float, default=10.0, help="mocker only")
     p.add_argument("--vocab-size", type=int, default=32000,
-                   help="mocker only (refused by the port)")
+                   help="mocker only: bound on synthesized token ids; values "
+                        "<= 260 keep every id inside the ByteTokenizer's "
+                        "byte range so completion text round-trips")
     p.add_argument("--no-kv-events", action="store_true")
     p.add_argument("--health-interval", type=float, default=5.0,
                    help="idle seconds before a health canary replays through "
                         "the handler (reference: health_check.rs); 0 disables")
+    p.add_argument("--wedgeable", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--drain-deadline", type=float, default=30.0,
                    help="retirement: seconds in-flight streams get to finish "
                         "after SIGTERM / a planner drain request before "
@@ -202,8 +206,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def check_worker_args(ns: argparse.Namespace) -> None:
     """Raise on a worker setting the torch port does not carry yet, naming
     the ROADMAP item that brings it."""
+    if ns.disagg != "none" and ns.engine != "torch":
+        raise SystemExit("--disagg requires --engine torch (KV handoff needs a real cache)")
     later = {
-        "--engine mocker (the mocker: ROADMAP item 15)": ns.engine == "mocker",
         "--disagg with --tp > 1 (the handoff of a sharded cache: ROADMAP item 14)":
             ns.disagg != "none" and ns.tp > 1,
         "--num-nodes > 1 (multi-host engines: ROADMAP item 14)": ns.num_nodes > 1,
@@ -314,6 +319,18 @@ async def amain(ns: argparse.Namespace) -> None:
     if ns.chaos_plan is not None:
         # CLI mirror of DYN_CHAOS_PLAN/DYN_CHAOS_SEED (docs/CHAOS.md).
         chaos.configure(ns.chaos_plan, seed=ns.chaos_seed)
+    # Import the engine's modules before the runtime grants the lease: an
+    # import blocks the event loop (torch's takes seconds on a card's host),
+    # and a lease whose keepalives stall past its TTL dies before the
+    # endpoint registers (the mocker's store client brings torch too).
+    if ns.engine == "mocker":
+        from dynamo_tpu_torch.mocker.engine import MockEngine, MockEngineArgs
+
+        if ns.remote_kv_addr:
+            import dynamo_tpu_torch.kvbm.remote  # noqa: F401
+    else:
+        from dynamo_tpu_torch.engine.engine import build_engine
+        from dynamo_tpu_torch.obs.profiler import install_perf_metrics
     cfg = RuntimeConfig.from_settings(coordinator_url=ns.coordinator)
     rt = await DistributedRuntime.create(cfg)
     assert rt.client is not None and rt.primary_lease is not None
@@ -375,21 +392,36 @@ async def amain(ns: argparse.Namespace) -> None:
     # audit, TTX forecast — obs/mem_ledger.py).
     install_mem_metrics(rt.metrics)
 
-    from dynamo_tpu_torch.engine.engine import build_engine
-    from dynamo_tpu_torch.obs.profiler import install_perf_metrics
+    if ns.engine == "mocker":
+        engine = MockEngine(MockEngineArgs(
+            num_blocks=ns.num_blocks or 512,
+            block_size=ns.block_size,
+            max_batch_size=ns.max_batch_size,
+            max_model_len=ns.max_model_len,
+            speedup_ratio=ns.speedup_ratio,
+            vocab_size=ns.vocab_size,
+            remote_kv_addr=remote_kv,
+            global_prefix_cache=ns.global_prefix_cache,
+            session_ttl=ns.session_ttl,
+            stream_ckpt_blocks=ns.stream_ckpt_blocks,
+            warmup_mode=ns.warmup_mode,
+        ), event_sink=sink)
+        # the mocker files the lattice in its compile ledger (no real
+        # captures): full mode before the endpoint serves, as a real engine
+        warm = engine.warmup() if ns.warmup_mode != "off" else None
+    else:
+        # The engine feeds the dynamo_engine_perf_* family (MFU, HBM-BW
+        # utilization, roofline fraction — obs/profiler.py); re-home the
+        # singleton into the runtime registry so /metrics exposes it.
+        install_perf_metrics(rt.metrics)
 
-    # The engine feeds the dynamo_engine_perf_* family (MFU, HBM-BW
-    # utilization, roofline fraction — obs/profiler.py); re-home the
-    # singleton into the runtime registry so /metrics exposes it.
-    install_perf_metrics(rt.metrics)
-
-    # Engine construction (weights, cache, graph warmup) blocks for seconds
-    # — run off-loop so the lease keep-alive keeps ticking.
-    loop = asyncio.get_running_loop()
-    cfg_engine = engine_config(ns, remote_kv)
-    engine = await loop.run_in_executor(None, lambda: build_engine(
-        cfg_engine, device=ns.device, event_sink=sink))
-    warm = engine.core.warmup_summary
+        # Engine construction (weights, cache, graph warmup) blocks for
+        # seconds — run off-loop so the lease keep-alive keeps ticking.
+        loop = asyncio.get_running_loop()
+        cfg_engine = engine_config(ns, remote_kv)
+        engine = await loop.run_in_executor(None, lambda: build_engine(
+            cfg_engine, device=ns.device, event_sink=sink))
+        warm = engine.core.warmup_summary
     if warm:
         log.info("bucket warmup: %s", warm)
 
@@ -399,6 +431,8 @@ async def amain(ns: argparse.Namespace) -> None:
     kv_prefill_router = None
 
     def stats_fn() -> dict:
+        if ns.engine == "mocker":
+            return engine.stats()
         # the device prefix hits as a count (the engine's stats carry their
         # rate), beside the kernel launches
         out = {**engine.stats(), "attention": attention_stats(engine.core),
@@ -501,6 +535,19 @@ async def amain(ns: argparse.Namespace) -> None:
             engine, prefill_call, block_size=ns.block_size,
             min_prefill_blocks=ns.min_prefill_blocks)
         handler = decode.generate
+
+    if ns.wedgeable and ns.engine == "mocker":
+        # Test hook: a control payload wedges/unwedges the mock engine's
+        # step loop so e2e tests can exercise canary-driven NotReady.
+        inner_handler = handler
+
+        async def handler(payload: dict, ctx: RequestContext):  # noqa: F811
+            if isinstance(payload, dict) and "__wedge__" in payload:
+                engine.wedged = bool(payload["__wedge__"])
+                yield {"token_ids": [], "finish_reason": "stop"}
+                return
+            async for item in inner_handler(payload, ctx):
+                yield item
 
     if chaos.enabled():
         # Fault point covering the dispatch path — wrapped here, under the
@@ -696,7 +743,10 @@ async def amain(ns: argparse.Namespace) -> None:
         await kv_prefill_router.close()
     if publisher:
         await publisher.stop()
-    await engine.shutdown()
+    if ns.engine == "mocker":
+        await engine.stop()
+    else:
+        await engine.shutdown()
     await rt.shutdown()
     print(f"WORKER_DRAINED {json.dumps(terminal)}", flush=True)
 

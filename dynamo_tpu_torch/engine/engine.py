@@ -85,6 +85,7 @@ from typing import Any, AsyncIterator, Callable
 import numpy as np
 import torch
 
+from dynamo_tpu_torch import chaos
 from dynamo_tpu_torch.engine.cache import KVCacheSpec, allocate_cache, register_device_tier
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
 from dynamo_tpu_torch.engine.sampling import (
@@ -2715,6 +2716,11 @@ class AsyncTorchEngine:
                     self._wake.clear()
                 continue
             try:
+                # Chaos: inside the try so an error-kind injection exercises
+                # the engine-fatal path (fail_all + drain), and a delay is a
+                # straggling device step. After the idle continue: only
+                # iterations with work count against a rule's ``after``.
+                chaos.inject("engine.step")
                 t_step = time.time()
                 if self.core.has_expired_waiting(t_step):
                     for rid, out in self.core.reap_expired(t_step).items():

@@ -17,8 +17,18 @@ cache tensors (:mod:`dynamo_tpu_torch.kvbm.transfer`). The host, disk and
 wire formats are the JAX package's byte for byte.
 """
 
-from dynamo_tpu_torch.kvbm.offload import OffloadManager
-from dynamo_tpu_torch.kvbm.pools import DiskBlockPool, HostBlockPool
-from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine
+import importlib
 
-__all__ = ["BlockTransferEngine", "DiskBlockPool", "HostBlockPool", "OffloadManager"]
+#: the package's names, each loaded from its module at first use, so that a
+#: process that needs only the checkpoint records or the metrics (the
+#: mocker) does not import torch through the block mover
+_LAZY = {"BlockTransferEngine": "transfer", "DiskBlockPool": "pools",
+         "HostBlockPool": "pools", "OffloadManager": "offload"}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)

@@ -27,6 +27,7 @@ from typing import Callable
 
 import numpy as np
 
+from dynamo_tpu_torch import chaos
 from dynamo_tpu_torch.engine.errors import NoFreeBlocks
 from dynamo_tpu_torch.engine.prefix_pool import PrefixPool
 from dynamo_tpu_torch.kvbm.metrics import get_prefix_cache_metrics
@@ -217,6 +218,9 @@ class OffloadManager:
         if not self._pending and not publish and not ckpt:
             self._flush_ckpt_records(frozenset())
             return 0
+        # Chaos: an error here propagates into the engine step — the
+        # offload cascade failing is engine-fatal, not silently droppable.
+        chaos.inject("kvbm.offload", blocks=len(self._pending))
         pending, self._pending = self._pending, []
         blocks = self.transfer.extract(
             self.runner.cache_k, self.runner.cache_v,

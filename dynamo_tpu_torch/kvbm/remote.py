@@ -20,10 +20,10 @@ the serving loop.
 Keys are ``(namespace, seq_hash)``: the namespace (model fingerprint +
 logical block geometry) partitions the store so two models never exchange
 blocks. A store is given to engines by its address, or found in the
-coordinator where it was advertised (``discover_store``: the worker's
-``--remote-kv-addr auto``, the frontend's checkpoint lookup; the JAX
-package's ``components/kv_store.py`` advertises one, the port's store
-does not yet)::
+coordinator (``discover_store``: the worker's ``--remote-kv-addr auto``,
+the frontend's checkpoint lookup), where the store process
+``components/kv_store.py`` advertises itself lease-bound
+(``register_store``)::
 
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 --capacity-gib 4
 """
@@ -40,6 +40,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from dynamo_tpu_torch import chaos
 from dynamo_tpu_torch.engine.cache import KVCacheSpec
 from dynamo_tpu_torch.kvbm.pools import TierStats
 from dynamo_tpu_torch.kvbm.transfer import HOST_FLOAT, ensure_block_format
@@ -210,6 +211,10 @@ class RemoteBlockPool:
 
     # -- wire -------------------------------------------------------------
     def _connect(self) -> socket.socket:
+        # Chaos: a connect-time fault (delay models network congestion; an
+        # injected ConnectionError a refused/partitioned store) exercises
+        # the degrade-to-recompute path separately from per-op faults.
+        chaos.inject("kvbm.remote.connect", addr=self._addr[0])
         s = socket.create_connection(self._addr, timeout=self._timeout)
         s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         return s
@@ -223,6 +228,9 @@ class RemoteBlockPool:
                 return None
             for attempt in (0, 1):
                 try:
+                    # Chaos: injected ConnectionError takes the same path as
+                    # a dead store — reconnect once, then open the breaker.
+                    chaos.inject("kvbm.remote", op=msg.get("op"))
                     if self._sock is None:
                         self._sock = self._connect()
                     payload = msgpack.packb(msg)
@@ -386,6 +394,14 @@ class RemoteBlockPool:
 # ---------------------------------------------------------------------------
 # Discovery
 # ---------------------------------------------------------------------------
+
+async def register_store(client, instance_id: int, addr: str,
+                         lease_id: int = 0) -> None:
+    """Advertise a running store in the coordinator (lease-bound: a dead
+    store disappears and engines fall back to local tiers)."""
+    await client.put(f"{REMOTE_PREFIX}/{instance_id:016x}", addr.encode(),
+                     lease_id)
+
 
 async def discover_store(client) -> str | None:
     """First advertised store address, or None."""

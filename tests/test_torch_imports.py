@@ -6,9 +6,10 @@ In a subprocess whose ``sys.modules`` blocks ``jax``, ``dynamo_tpu`` and
 the packages the card's machine lacks (msgpack and yaml among them), every
 module of ``dynamo_tpu_torch`` (frontend, preprocessor, parsers, launcher,
 the distributed runtime, the router, the components and the disaggregated
-handoff included) and ``chip_smoke.py`` import. And no import statement anywhere in
-their source, a deferred one inside a function included, names a blocked
-package.
+handoff, the mocker and the chaos harness included) and ``chip_smoke.py``
+import. And no import statement anywhere in their source, a deferred one
+inside a function included, names a blocked package. A mocker worker
+imports neither torch nor the torch engine's modules.
 """
 
 from __future__ import annotations
@@ -42,7 +43,10 @@ MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
                "dynamo_tpu_torch.components.frontend", "dynamo_tpu_torch.disagg",
                "dynamo_tpu_torch.disagg.sharded", "dynamo_tpu_torch.disagg.source",
                "dynamo_tpu_torch.disagg.receiver", "dynamo_tpu_torch.disagg.handlers",
-               "dynamo_tpu_torch.disagg.metrics")
+               "dynamo_tpu_torch.disagg.metrics", "dynamo_tpu_torch.mocker",
+               "dynamo_tpu_torch.mocker.engine", "dynamo_tpu_torch.chaos.harness",
+               "dynamo_tpu_torch.chaos.invariants", "dynamo_tpu_torch.components.kv_store",
+               "dynamo_tpu_torch.components.router")
 SOURCES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""
@@ -83,3 +87,48 @@ def test_no_import_statement_names_a_blocked_package():
     bad = {str(p.relative_to(ROOT)): sorted(_imported(p) & set(BLOCKED)) for p in SOURCES}
     assert {k: v for k, v in bad.items() if v} == {}
     assert len(SOURCES) > 40
+
+
+#: what the worker's ``--engine mocker`` path imports (components/worker.py)
+_MOCKER_PROBE = """
+import sys
+for name in ("jax", "dynamo_tpu"):
+    sys.modules[name] = None
+import dynamo_tpu_torch.components.worker as w
+for m in ("chaos.metrics", "kvbm.metrics", "engine.session", "kvbm.stream_ckpt",
+          "obs.compile_ledger", "obs.sched_ledger", "obs.mem_ledger", "runtime.health",
+          "runtime.drain", "qos.deadline", "obs.tracer"):
+    __import__("dynamo_tpu_torch." + m)
+from dynamo_tpu_torch.mocker.engine import MockEngine, MockEngineArgs
+ns = w.parse_args(["--engine", "mocker"])
+w.check_worker_args(ns)
+eng = MockEngine(MockEngineArgs(num_blocks=64, block_size=4, warmup_mode=ns.warmup_mode))
+eng.warmup()
+heavy = [m for m in ("torch", "numpy", "dynamo_tpu_torch.engine.engine",
+                     "dynamo_tpu_torch.engine.cache", "dynamo_tpu_torch.models.llama",
+                     "dynamo_tpu_torch.ops.paged_attention", "dynamo_tpu_torch.kvbm.transfer")
+         if m in sys.modules]
+assert not heavy, heavy
+"""
+
+
+def test_a_mocker_worker_imports_no_torch_engine():
+    """The mocker allocates no tensor: a mocker worker (no store) starts
+    without torch, numpy or any module of the torch engine."""
+    res = subprocess.run([sys.executable, "-c", _MOCKER_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+
+
+def test_the_frontend_loads_its_checkpoint_client_before_it_serves():
+    """``make_ckpt_lookup`` (called while the frontend starts) imports the
+    store client, which brings torch: a first import inside a migration's
+    lookup would stall the frontend's event loop for seconds."""
+    probe = ("import sys\n"
+             "from dynamo_tpu_torch.components.frontend import make_ckpt_lookup\n"
+             "assert 'dynamo_tpu_torch.kvbm.remote' not in sys.modules\n"
+             "make_ckpt_lookup(None)\n"
+             "assert 'dynamo_tpu_torch.kvbm.remote' in sys.modules\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
