@@ -330,6 +330,38 @@ if any phase fails:
     orphan pin; a ``kvbm.offload`` error fails the in-flight streams
     through ``fail_all`` (finish reason error), every block comes back, and
     the next batch's streams equal the unfaulted run's.
+(n) the SLA planner: (n1) the port's profiler (``planner/profiler.py``)
+    in process on a bf16 llama-3-8b-lite engine sized by
+    ``engine_config_for_sweep`` for the CLI's default grids (ISL 128, 512,
+    2048; concurrency 1, 8, 32; context 256, 1024, 4096; 32 decode steps;
+    lazy capture). The npz must keep the schema, every entry finite and
+    positive; TTFT must rise with ISL, decode tok/s per card at
+    concurrency 32 be at least that at 1 at each context, and no reading
+    beat 0.95 x the card's roofline (``costmodel.decode_step_cost`` of the
+    step; ``prefill_cost`` summed over the prompt's chunks). Each
+    measurement window (a warmup's, a timed one) is read through the
+    profiler's clock: no serve-source capture of the compile ledger in a
+    timed window, ``mma_bf16`` only, 8 launches a forward step; prints the
+    table, peak memory and the graph pool's growth. (n2) a coordinator,
+    the port's aggregator (``--scrape-interval 0.5 --staleness-ttl 3``),
+    a frontend (``--router-mode kv``) and the planner (``--mode process
+    --fleet-url``, (n1)'s npz, a 5 s interval, 1-2 replicas, the
+    ``constant`` predictor, ``--itl-sla`` the least ITL of the profile at
+    context 128 + 64/2, whose arithmetic it prints) whose workers are bf16
+    llama-3-8b-lite torch workers with (k2)'s settings and lazy capture.
+    The first decision spawns A; (b)'s traffic back to back makes the
+    planner decide 2 and B serve; a trickle of one request each half
+    interval makes it decide 1 and retire B through the drain handshake
+    (an interval without a completed request is no data point to the
+    planner, as in the JAX package). B must exit 0 with a ``done`` report
+    and no escalation, its target leave the aggregator; every decision
+    equal ``Planner.compute_replicas`` of the load in its reason and carry
+    the SLO stamp; every request finish with 64 tokens; the invariants
+    (streams, block leaks, metrics balance, the fleet rollup) pass; each
+    worker's ``compile_storm`` gauge equal its own serve captures over the
+    window (flagged from 8 on); both workers launch ``mma_bf16`` only, 8 a
+    forward step. Prints the decisions, the time from the scale-up
+    decision to B's first request, the SLO snapshot and the launches.
 
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
@@ -342,7 +374,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k) and (l), ``mma_f32`` in (m); and a ``paged_attention_sharded`` entry: one rank's
+in (i), (j), (k) and (l), ``mma_f32`` in (m), ``mma_bf16`` in (n); and a
+``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -354,7 +387,8 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-ij`` for (b)'s bf16 run, (i), (j) and (h);
 ``python3 chip_smoke.py --only-k`` for (b'')'s f32 run (the reference of
 (k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l);
-``python3 chip_smoke.py --only-m`` runs (m) alone.
+``python3 chip_smoke.py --only-m`` runs (m) alone; ``--only-n`` builds the
+kernels and runs (n) alone.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -4855,6 +4889,599 @@ def phase_chaos(smi: str, m1, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (n) the SLA profile of llama-3-8b-lite on the card, and the planner scaling
+# torch workers from it, watched by the fleet aggregator
+# ---------------------------------------------------------------------------
+
+#: (n1): the profiler CLI's default grids
+N_ISL, N_CONC, N_CTX, N_STEPS = [128, 512, 2048], [1, 8, 32], [256, 1024, 4096], 32
+#: (n2): the planner's interval, (b)'s traffic (a batch of 32 streams, 128
+#: prompt ids, 64 greedy tokens) and the workers' model length ((k2)'s)
+N_INTERVAL, N_PROMPT, N_DECODE, N_MAX_LEN = 5.0, 128, 64, 1088
+#: the aggregator's sweep cadence and staleness TTL
+N_SCRAPE, N_STALE = 0.5, 3.0
+
+
+class TimedWindows:
+    """A ``time`` stand-in for the profiler module: each pair of its
+    ``perf_counter`` calls brackets one measurement window (a warmup's or a
+    timed one). Records, across each window, the compile ledger's
+    serve-source captures, the engine's decode tokens and forward steps and
+    the kernels' launches."""
+
+    def __init__(self):
+        self.core = None
+        self.open: dict | None = None
+        self.windows: list[dict] = []
+
+    def state(self) -> dict:
+        from dynamo_tpu_torch.obs.compile_ledger import get_compile_metrics
+        from dynamo_tpu_torch.ops.paged_attention import paged_attention as pa_fn
+        from dynamo_tpu_torch.utils.metrics import metric_sum, parse_prometheus
+
+        core = self.core
+        # the ledger's event list stops at its cap (earlier phases fill
+        # it); its counter stays exact
+        events = parse_prometheus("\n".join(get_compile_metrics().events.samples()))
+        return {"captures": metric_sum(events, "dynamo_xla_compile_events_total",
+                                       source="serve"),
+                "decode_tokens": core.metrics.num_decode_tokens,
+                "forward_steps": sum(p.calls * (p.shape[3] if len(p.shape) > 3 else 1)
+                                     for p in core.runner.programs.values()),
+                "launches": dict(pa_fn.launches_by_kernel)}
+
+    def perf_counter(self) -> float:
+        if self.open is None:
+            self.open = self.state()
+        else:
+            end = self.state()
+            self.windows.append({
+                **{k: end[k] - self.open[k] for k in ("captures", "decode_tokens",
+                                                       "forward_steps")},
+                "launches": {k: v - self.open["launches"].get(k, 0)
+                             for k, v in end["launches"].items() if v - self.open["launches"].get(k, 0)}})
+            self.open = None
+        return time.perf_counter()
+
+
+def n_bounds(core, isl: list[int], conc: list[int], ctx: list[int]) -> tuple[dict, dict]:
+    """The card's least time for each profile point from its row of the cost
+    model (``obs/costmodel.py``): a TTFT's prefill chunks, each at its
+    context, and an all-decode step of ``c`` rows at context ``x``."""
+    from dynamo_tpu_torch.obs import costmodel as cm
+
+    hw = cm.hw_spec_for(core.device_name)
+    cfg, ec = core.model_cfg, core.engine_cfg
+    ttft = {}
+    for n in isl:
+        ends = list(range(ec.prefill_chunk, n, ec.prefill_chunk)) + [n]
+        ttft[n] = sum(cm.total_cost(cm.prefill_cost(
+            cfg, batch=1, chunk=end - start, kv_len=end, block_size=ec.block_size)).time_bound(hw)
+            for start, end in zip([0] + ends[:-1], ends))
+    itl = {(c, x): cm.total_cost(cm.decode_step_cost(
+        cfg, batch=c, kv_len=x, block_size=ec.block_size)).time_bound(hw)
+        for c in conc for x in ctx}
+    return ttft, itl
+
+
+def phase_profile(smi: str, root: Path, device: str = "cuda") -> dict:
+    """(n1): see the module docstring. Writes the npz under ``root``."""
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+    from dynamo_tpu_torch.planner import profiler as prof_mod
+
+    route = ROUTES[(torch.bfloat16, "float")]
+    t_phase = time.perf_counter()
+    cfg = prof_mod.engine_config_for_sweep(K_MODEL, N_ISL, N_CONC, N_CTX, N_STEPS)
+    win = TimedWindows()
+    saved_time = prof_mod.time
+    prof_mod.time = win
+    try:
+        prof = prof_mod.SlaProfiler(cfg, device=device)
+        core = win.core = prof.core
+        layers = core.model_cfg.num_layers
+        cuda = device == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        data = prof.run(N_ISL, N_CONC, N_CTX, N_STEPS)
+        sweep_s = time.perf_counter() - t0
+        mem = {}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem = {"peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "graph_pool_growth_gib": (torch.cuda.memory_reserved() - reserved0) / 2**30}
+        ttft_b, itl_b = n_bounds(core, N_ISL, N_CONC, N_CTX)
+        programs = len(core.runner.programs)
+    finally:
+        prof_mod.time = saved_time
+    path = root / "profile.npz"
+    prof_mod.save_profile(str(path), data)
+    loaded = prof_mod.load_profile(str(path))
+    out: dict = {"smi": smi, "path": str(path), "sweep_s": sweep_s, "programs": programs,
+                 **mem, "engine": {k: getattr(cfg, k) for k in (
+                     "num_blocks", "max_batch_size", "max_model_len", "prefill_chunk",
+                     "max_tokens_per_step", "decode_bucket")}}
+    ni, nc, nx = len(N_ISL), len(N_CONC), len(N_CTX)
+    shapes = {"prefill_isl": (ni,), "prefill_ttft_s": (ni,), "prefill_thpt_per_chip": (ni,),
+              "decode_concurrency": (nc,), "decode_context": (nx,), "decode_itl_s": (nc, nx),
+              "decode_thpt_per_chip": (nc, nx)}
+    got_shapes = {k: tuple(v.shape) for k, v in loaded.items()}
+    if got_shapes != shapes or not all(np.isfinite(v).all() and (v > 0).all()
+                                       for v in loaded.values()):
+        raise AssertionError(f"[n1] profile schema or values: {got_shapes}, {loaded}")
+    # the windows: a warmup and a timed one for each point, prefill first
+    names = [("ttft", n) for n in N_ISL] + [("itl", c, x) for c in N_CONC for x in N_CTX]
+    if len(win.windows) != 2 * len(names):
+        raise AssertionError(f"[n1] {len(win.windows)} windows for {len(names)} points")
+    rows, faults = [], []
+    for i, name in enumerate(names):
+        warm, timed = win.windows[2 * i], win.windows[2 * i + 1]
+        if name[0] == "ttft":
+            n = name[1]
+            j = N_ISL.index(n)
+            got, bound = float(data["prefill_ttft_s"][j]), ttft_b[n]
+            row = {"point": f"ttft isl={n}", "ms": 1e3 * got, "bound_ms": 1e3 * bound,
+                   "tok_s_card": float(data["prefill_thpt_per_chip"][j])}
+        else:
+            c, x = name[1], name[2]
+            got, bound = float(data["decode_itl_s"][N_CONC.index(c), N_CTX.index(x)]), itl_b[(c, x)]
+            row = {"point": f"itl conc={c} ctx={x}", "ms": 1e3 * got, "bound_ms": 1e3 * bound,
+                   "tok_s_card": float(data["decode_thpt_per_chip"][N_CONC.index(c),
+                                                                    N_CTX.index(x)]),
+                   "window_decode_tokens": timed["decode_tokens"]}
+            if timed["decode_tokens"] < c * N_STEPS:
+                faults.append(f"{row['point']}: the timed window counted "
+                              f"{timed['decode_tokens']} decode tokens")
+        row.update({"timed_captures": timed["captures"], "warmup_captures": warm["captures"],
+                    "launches": timed["launches"], "forward_steps": timed["forward_steps"]})
+        rows.append(row)
+        if got < 0.95 * bound:
+            faults.append(f"{row['point']}: {row['ms']:.4f} ms beats 0.95 x the card's "
+                          f"roofline {row['bound_ms']:.4f} ms")
+        if timed["captures"]:
+            faults.append(f"{row['point']}: {timed['captures']} serve captures in its timed "
+                          f"window")
+        for w in (warm, timed):
+            want = {route: layers * w["forward_steps"]} if cuda and w["forward_steps"] else {}
+            if w["launches"] != want:
+                faults.append(f"{row['point']}: launches {w['launches']} in "
+                              f"{w['forward_steps']} forward steps; expected {want}")
+    ttft = data["prefill_ttft_s"]
+    if not all(a < b for a, b in zip(ttft, ttft[1:])):
+        faults.append(f"TTFT does not rise with ISL: {ttft.tolist()}")
+    thpt = data["decode_thpt_per_chip"]
+    for j, x in enumerate(N_CTX):
+        if thpt[-1, j] < thpt[0, j]:
+            faults.append(f"ctx {x}: {thpt[-1, j]:.1f} tok/s at concurrency {N_CONC[-1]} "
+                          f"below {thpt[0, j]:.1f} at {N_CONC[0]}")
+    out.update({"rows": rows, "launches": sum(r["launches"].get(route, 0) for r in rows),
+                "wall_s": time.perf_counter() - t_phase})
+    for r in rows:
+        log(f"[n1] {r['point']:>22}: {r['ms']:10.4f} ms (bound {r['bound_ms']:.4f}), "
+            f"{r['tok_s_card']:10.1f} tok/s per card, timed-window captures "
+            f"{r['timed_captures']} (warmup {r['warmup_captures']}), launches {r['launches']}")
+    log(f"[n1] sweep {sweep_s:.1f}s, {programs} programs, peak allocated "
+        f"{mem.get('peak_allocated_gib')} GiB, graph pool growth "
+        f"{mem.get('graph_pool_growth_gib')} GiB; on {smi}")
+    if faults:
+        raise AssertionError("[n1] " + "; ".join(faults))
+    del prof, core
+    win.core = None
+    return out
+
+
+def n_itl_sla(data: dict) -> tuple[float, dict]:
+    """(n2)'s ``--itl-sla``: the least ITL of the profile's column at
+    (b)'s mean context. Under it the planner sizes a decode replica at that
+    point's throughput, the least capacity any SLA gives (a tighter
+    corrected ITL falls back to the same point), which (b)'s traffic back
+    to back exceeds and a trickle does not."""
+    from dynamo_tpu_torch.planner.interpolator import DecodeInterpolator
+
+    di = DecodeInterpolator.from_data(data)
+    ctx = N_PROMPT + N_DECODE / 2
+    col = np.array([np.interp(ctx, di.context, row) for row in di.itl_s])
+    sla = float(col.min())
+    thpt, conc = di.find_best_throughput_per_chip(sla, ctx)
+    return sla, {"context": ctx, "itl_column_s": col.tolist(), "itl_sla_s": sla,
+                 "capacity_tok_s": thpt, "concurrency": conc}
+
+
+def n_procs_of(marker: str) -> list[int]:
+    """Pids of this user's processes whose command line holds ``marker``."""
+    pids = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit() and int(d.name) != os.getpid():
+            try:
+                if marker in (d / "cmdline").read_bytes().decode(errors="replace"):
+                    pids.append(int(d.name))
+            except OSError:
+                pass
+    return pids
+
+
+class FleetWatch:
+    """(n2)'s observer thread: every 0.2 s the aggregator's exposition and
+    /debug/fleet, the frontend's router counts, and the planner's log."""
+
+    def __init__(self, cl: "KCluster", http_port: int, agg_port: int):
+        self.cl, self.http_port, self.agg_port = cl, http_port, agg_port
+        self.samples: list[dict] = []
+        self.decisions: list[dict] = []
+        self.stop = threading.Event()
+        self.error: BaseException | None = None
+        self.thread = threading.Thread(target=self.run, daemon=True)
+
+    def run(self) -> None:
+        import re
+
+        from dynamo_tpu_torch.utils.metrics import parse_prometheus
+
+        pat = re.compile(r"decision prefill=(\d+) decode=(\d+) reason=(.*)$")
+        try:
+            while not self.stop.is_set():
+                t = time.perf_counter()
+                lines = [ln for ln in self.cl.log_of("planner").splitlines()
+                         if "decision prefill=" in ln]
+                for ln in lines[len(self.decisions):]:
+                    m = pat.search(ln)
+                    self.decisions.append({"t": t, "prefill": int(m.group(1)),
+                                           "decode": int(m.group(2)), "reason": m.group(3)})
+                text = asyncio.run(http_call(self.agg_port, "GET", "/metrics"))["body"].decode()
+                debug = k_get(self.agg_port, "/debug/fleet")
+                routed = k_stats(self.http_port, K_MODEL).get("router", {}).get("routed", {})
+                self.samples.append({"t": t, "metrics": parse_prometheus(text),
+                                     "targets": debug["targets"],
+                                     "storms": debug["compile_storms"], "routed": routed})
+                self.stop.wait(0.2)
+        except BaseException as exc:  # noqa: BLE001 - read by the phase
+            self.error = exc
+
+    def check(self) -> None:
+        if self.error is not None:
+            raise AssertionError(f"[n2] the watch failed: {self.error!r}")
+
+    def serve_series(self, instance: str) -> list[tuple[float, float]]:
+        """(t, the aggregator's copy of ``instance``'s serve captures) from
+        each sample that re-exposes the instance's own series (the ones
+        with a ``role`` label; 0 before its first capture: the family
+        appears with it)."""
+        out = []
+        for s in self.samples:
+            mine = [(name, labels, v) for (name, labels), v in s["metrics"].items()
+                    if ("instance", instance) in labels and any(k == "role" for k, _ in labels)]
+            if mine:
+                out.append((s["t"], sum(v for name, labels, v in mine
+                                        if name == "dynamo_xla_compile_events_total"
+                                        and ("source", "serve") in labels)))
+        return out
+
+
+def phase_planner(smi: str, n1: dict, device: str = "cuda") -> dict:
+    """(n2): see the module docstring; ``n1`` is (n1)'s result."""
+    import re
+    import shlex
+    import tempfile
+
+    from dynamo_tpu_torch.chaos.invariants import InvariantChecker, StreamOutcome
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.obs.fleet import COMPILE_STORM_THRESHOLD, COMPILE_STORM_WINDOW_S
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+    from dynamo_tpu_torch.planner.interpolator import DecodeInterpolator, PrefillInterpolator
+    from dynamo_tpu_torch.planner.planner_core import Planner, PlannerConfig
+    from dynamo_tpu_torch.planner.profiler import load_profile
+    from dynamo_tpu_torch.runtime.drain import drain_status_key
+    from dynamo_tpu_torch.transports.client import CoordinatorClient
+    from dynamo_tpu_torch.utils.metrics import parse_prometheus
+
+    route = ROUTES[(torch.bfloat16, "float")]
+    cfg = resolve_model_config(K_MODEL)
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    data = load_profile(n1["path"])
+    sla, arith = n_itl_sla(data)
+    pcfg = dict(itl_sla_s=sla, adjustment_interval_s=N_INTERVAL, min_replicas=1, max_replicas=2,
+                load_predictor="constant")
+    log(f"[n2] --itl-sla {sla}: find_best_throughput_per_chip at context {arith['context']} "
+        f"-> {arith['capacity_tok_s']:.1f} tok/s a replica (concurrency "
+        f"{arith['concurrency']:.0f}; ITL column {arith['itl_column_s']}); a replica is "
+        f"needed for each {arith['capacity_tok_s'] * N_INTERVAL / N_DECODE:.1f} requests "
+        f"of {N_DECODE} tokens completed in a {N_INTERVAL} s interval (num_req x osl / "
+        f"interval against it)")
+    tmp = Path(tempfile.mkdtemp(prefix="n-planner-"))
+    tok = k_tokenizer(tmp, vocab)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
+           "DYN_LEASE_TTL_S": str(K_TTL_S), "DYN_LOG": "info"}
+    cl = KCluster(tmp, env)
+    out: dict = {"smi": smi, "itl_sla": arith}
+    t_phase = time.perf_counter()
+    watch = None
+    outcomes: list = []
+    prompts = k_prompts(vocab)
+    try:
+        coord_port, http_port, agg_port = free_port(), free_port(), free_port()
+        url = f"tcp://127.0.0.1:{coord_port}"
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(coord_port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 60)
+        cl.start("aggregator", "dynamo_tpu_torch.components.aggregator",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(agg_port),
+                  "--scrape-interval", str(N_SCRAPE), "--staleness-ttl", str(N_STALE)])
+        cl.start("frontend", "dynamo_tpu_torch.components.frontend",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(http_port),
+                  "--router-mode", "kv"])
+        cl.wait_line("aggregator", "AGGREGATOR_READY", 60)
+        cl.wait_line("frontend", "FRONTEND_READY", 120)
+        worker = k_worker_args(url, "bf16", K_MODEL, K_BF16_BLOCKS, N_MAX_LEN, tok, device,
+                               ["--warmup-mode", "lazy"])
+        # the workers the planner spawns inherit its environment: a status
+        # server each, advertised to the aggregator
+        cl.start("planner", "dynamo_tpu_torch.components.planner", [
+            "--mode", "process", "--coordinator", url,
+            "--fleet-url", f"http://127.0.0.1:{agg_port}", "--model", K_MODEL,
+            "--profile-data", n1["path"], "--adjustment-interval", str(N_INTERVAL),
+            "--min-replicas", "1", "--max-replicas", "2", "--itl-sla", repr(sla),
+            "--load-predictor", "constant", "--decode-worker-args", shlex.join(worker)],
+            env={"DYN_SYSTEM_ENABLED": "1"})
+        cl.wait_line("planner", "PLANNER_READY", 60)
+        t_ready = time.perf_counter()
+        watch = FleetWatch(cl, http_port, agg_port)
+        watch.thread.start()
+
+        def ready_ids() -> list[str]:
+            return re.findall(r"WORKER_READY instance=([0-9a-f]{16})", cl.log_of("planner"))
+
+        def wait_for(pred, timeout: float, what: str):
+            deadline = time.monotonic() + timeout
+            while True:
+                got = pred()
+                if got:
+                    return got
+                watch.check()
+                cl.check_alive()
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"[n2] {what} in {timeout}s:\n"
+                                         f"{cl.log_of('planner')[-4000:]}")
+                time.sleep(0.1)
+
+        def fleet_roles() -> list[str]:
+            return sorted(t["role"] for t in k_get(agg_port, "/debug/fleet")["targets"]
+                          if t["fresh"])
+
+        # 1. the first decision spawns worker A; the aggregator finds it
+        wait_for(lambda: len(ready_ids()) >= 1, 300, "no first worker")
+        a_hex = ready_ids()[0]
+        a = a_hex.lstrip("0")
+        out["a_up_s"] = time.perf_counter() - t_ready
+        wait_for(lambda: a in k_stats(http_port, K_MODEL).get("instances", []), 60,
+                 "the frontend did not discover A")
+        wait_for(lambda: fleet_roles() == ["frontend", "worker"], 30,
+                 "the aggregator did not find the frontend and A")
+        a_inst = next(t["instance"] for t in k_get(agg_port, "/debug/fleet")["targets"]
+                      if t["role"] == "worker")
+        if watch.decisions[0]["decode"] != 1:
+            raise AssertionError(f"[n2] first decision: {watch.decisions[0]}")
+        log(f"[n2] A ({a_hex}) up {out['a_up_s']:.1f}s after the planner; the aggregator "
+            f"sees the frontend and A")
+
+        # 2. (b)'s traffic back to back: the planner decides 2, B serves
+        stop = threading.Event()
+        errors: list[BaseException] = []
+
+        def traffic(batch: int, pause: float) -> None:
+            k = 0
+            try:
+                while not stop.is_set():
+                    got = k_batch(http_port, K_MODEL, prompts[:batch], N_DECODE)
+                    outcomes.extend(StreamOutcome(f"n2-{len(outcomes) + i}", "finished",
+                                                  "length") for i in range(len(got)))
+                    k += 1
+                    stop.wait(pause)
+            except BaseException as exc:  # noqa: BLE001 - read below
+                errors.append(exc)
+
+        t_heavy = time.perf_counter()
+        heavy = threading.Thread(target=traffic, args=(len(prompts), 0.0), daemon=True)
+        heavy.start()
+        up = wait_for(lambda: next((d for d in watch.decisions if d["decode"] == 2), None),
+                      120, "no decision for 2 replicas")
+        wait_for(lambda: len(ready_ids()) >= 2, 300, "no second worker")
+        b_hex = ready_ids()[1]
+        b = b_hex.lstrip("0")
+        t_b_ready = time.perf_counter()
+        first_b = wait_for(lambda: next((s["t"] for s in watch.samples
+                                         if s["routed"].get(b, 0) > 0), None), 120,
+                           "the router sent B no request")
+        wait_for(lambda: fleet_roles() == ["frontend", "worker", "worker"], 30,
+                 "the aggregator did not find B")
+        b_inst = next(t["instance"] for t in k_get(agg_port, "/debug/fleet")["targets"]
+                      if t["role"] == "worker" and t["instance"] != a_inst)
+        wait_for(lambda: time.perf_counter() - t_heavy >= 3 * N_INTERVAL, 60, "")
+        stop.set()
+        heavy.join(300)
+        if errors:
+            raise AssertionError(f"[n2] heavy traffic: {errors[0]!r}")
+        out["heavy_s"] = time.perf_counter() - t_heavy
+        out["decision_to_b_ready_s"] = t_b_ready - up["t"]
+        out["decision_to_b_first_request_s"] = first_b - up["t"]
+        log(f"[n2] scale-up decision ({up['reason']}) -> B ({b_hex}) ready "
+            f"{out['decision_to_b_ready_s']:.2f}s, first request routed to B "
+            f"{out['decision_to_b_first_request_s']:.2f}s; on {smi}")
+
+        # the quiet: both workers' launches, and the compile storms against
+        # each worker's own serve captures
+        settled = k_settled(http_port, K_MODEL, [a, b])
+        zero = {"workers": {w: {"attention": {"launches": {}, "forward_steps": 0}}
+                            for w in (a, b)}}
+        out["launches"] = k_launches("[n2]", zero, settled, [a, b], route, layers)
+        time.sleep(3 * N_SCRAPE)
+        debug = k_get(agg_port, "/debug/fleet")
+        storms = {s["instance"] for s in debug["compile_storms"]}
+        gauges = parse_prometheus(asyncio.run(http_call(agg_port, "GET", "/metrics"))[
+            "body"].decode())
+        out["compile_storm"] = {}
+        for w, inst in ((a, a_inst), (b, b_inst)):
+            port = int(inst.rsplit(":", 1)[1])
+            own = parse_prometheus(asyncio.run(http_call(port, "GET", "/metrics"))[
+                "body"].decode())
+            own_now = sum(v for (name, labels), v in own.items()
+                          if name == "dynamo_xla_compile_events_total"
+                          and ("source", "serve") in labels)
+            series = watch.serve_series(inst)
+            now = time.perf_counter()
+            base = series[0][1]
+            for ts, v in series:
+                if ts <= now - COMPILE_STORM_WINDOW_S:
+                    base = v
+            want = own_now - base
+            gauge = sum(v for (name, labels), v in gauges.items()
+                        if name == "dynamo_fleet_compile_storm" and ("instance", inst) in labels)
+            out["compile_storm"][w] = {"instance": inst, "gauge": gauge,
+                                       "own_serve_captures": own_now, "base": base,
+                                       "flagged": inst in storms}
+            if gauge != want or (inst in storms) != (want >= COMPILE_STORM_THRESHOLD):
+                raise AssertionError(f"[n2] compile storm of {inst}: gauge {gauge}, "
+                                     f"flagged {inst in storms}; the worker's own serve "
+                                     f"captures {own_now} - {base} = {want} (threshold "
+                                     f"{COMPILE_STORM_THRESHOLD})")
+        log("[n2] compile storms " + json.dumps(out["compile_storm"]))
+
+        # 3. a trickle: the planner decides 1 and the connector retires B
+        n_up = len(watch.decisions)
+        stop.clear()
+        trickle = threading.Thread(target=traffic, args=(1, N_INTERVAL / 2), daemon=True)
+        trickle.start()
+        down = wait_for(lambda: next((d for d in watch.decisions[n_up:] if d["decode"] == 1),
+                                     None), 120, "no decision back to 1")
+        exited = wait_for(lambda: re.search(r"instance=%s exited rc=(\S+)" % b_hex,
+                                            cl.log_of("planner")), 120, "B never exited")
+        t_exit = time.perf_counter()
+        stop.set()
+        trickle.join(120)
+        if errors:
+            raise AssertionError(f"[n2] trickle: {errors[0]!r}")
+        planner_log = cl.log_of("planner")
+        drained = [json.loads(ln.split("WORKER_DRAINED ", 1)[1])
+                   for ln in planner_log.splitlines() if "WORKER_DRAINED " in ln]
+
+        async def drain_report():
+            c = await CoordinatorClient.connect(url)
+            try:
+                raw = await c.get(drain_status_key("dynamo", int(b_hex, 16)))
+                return json.loads(raw) if raw else None
+            finally:
+                await c.close()
+
+        report = asyncio.run(drain_report())
+        out["retired"] = {"instance": b_hex, "rc": exited.group(1), "report": report,
+                          "decision_to_exit_s": t_exit - down["t"]}
+        if exited.group(1) != "0" or not report or report.get("state") != "done" \
+                or len(drained) != 1 or drained[0]["state"] != "done":
+            raise AssertionError(f"[n2] B's retirement: {out['retired']}, {drained}")
+        if "SIGKILL" in planner_log or "ignored the drain window" in planner_log:
+            raise AssertionError("[n2] the retirement escalated:\n" + planner_log[-3000:])
+        # B's target: its lease goes with it (deregistered, last sample kept),
+        # then it leaves the aggregator
+        wait_for(lambda: b_inst not in {t["instance"] for t in
+                                        k_get(agg_port, "/debug/fleet")["targets"]},
+                 N_STALE + 10, "B's target never left the aggregator")
+        states = [next((t for t in s["targets"] if t["instance"] == b_inst), None)
+                  for s in watch.samples if s["t"] >= t_exit - 5]
+        seen = [st for st in states if st is not None]
+        out["retired"]["target_states"] = sorted({(st["registered"], st["fresh"]) for st in seen})
+        if not any(not st["registered"] or not st["fresh"] for st in seen):
+            raise AssertionError(f"[n2] B's target left without going stale or "
+                                 f"deregistered: {states}")
+        log("[n2] B retired: " + json.dumps(out["retired"]))
+
+        # every decision equals compute_replicas from its reason's load
+        planner = Planner(PlannerConfig(**pcfg), PrefillInterpolator.from_data(data),
+                          DecodeInterpolator.from_data(data))
+        pred = re.compile(r"pred: ([\d.]+) req × isl (\d+) / osl (\d+); p_corr ([\d.]+) "
+                          r"d_corr ([\d.]+)")
+        for d in watch.decisions:
+            if "slo[" not in d["reason"] or "budget=" not in d["reason"]:
+                raise AssertionError(f"[n2] a decision without the SLO stamp: {d}")
+            m = pred.search(d["reason"])
+            if m:
+                planner.p_correction, planner.d_correction = float(m.group(4)), float(m.group(5))
+                want = planner.compute_replicas(float(m.group(1)), float(m.group(2)),
+                                                float(m.group(3)))
+            elif d["reason"].startswith("no load"):
+                want = planner.compute_replicas(0.0, 0.0, 0.0)
+            else:
+                raise AssertionError(f"[n2] a reason without its load: {d}")
+            if (want.prefill_replicas, want.decode_replicas) != (d["prefill"], d["decode"]):
+                raise AssertionError(f"[n2] decision {d} against compute_replicas {want}")
+        seq = [d["decode"] for d in watch.decisions]
+        out["decisions"] = [{k: d[k] for k in ("decode", "reason")} | {
+            "t": d["t"] - t_ready} for d in watch.decisions]
+        for d in out["decisions"]:
+            log(f"[n2] decision at {d['t']:.1f}s: decode {d['decode']}: {d['reason']}")
+
+        # the invariants, after the drain
+        stats = {K_MODEL: k_settled(http_port, K_MODEL, [a])}
+        inv = InvariantChecker()
+        inv.check_streams(outcomes)
+        inv.check_block_leaks(stats)
+        inv.check_metrics_balance(k_get(http_port, "/metrics"))
+        inv.check_fleet_rollup(asyncio.run(http_call(agg_port, "GET", "/metrics"))[
+            "body"].decode())
+        out["invariants"] = inv.finish().to_dict()
+        if not out["invariants"]["passed"]:
+            raise AssertionError(f"[n2] invariants: {out['invariants']['failures']}")
+        out["slos"] = {name: {k: s[k] for k in ("burn_rates", "budget_remaining", "good",
+                                                "total", "page", "warn")}
+                       for name, s in k_get(agg_port, "/debug/fleet")["slos"].items()}
+        log("[n2] aggregator SLOs " + json.dumps(out["slos"]))
+        out["requests"] = len(outcomes)
+        if seq[0] != 1 or 2 not in seq or seq[-1] != 1:
+            raise AssertionError(f"[n2] decisions {seq}")
+        # the planner retires A through the drain when it stops
+        watch.stop.set()
+        watch.thread.join(10)
+        rc = cl.terminate("planner", 120)
+        final = cl.log_of("planner")
+        if rc != 0 or not re.search(r"instance=%s exited rc=0" % a_hex, final):
+            raise AssertionError(f"[n2] the planner exited {rc}, A's retirement:\n"
+                                 f"{final[-3000:]}")
+        log(f"[n2] {len(outcomes)} requests of {N_DECODE} tokens, decisions {seq}, A and B "
+            f"launched {json.dumps(out['launches'])}")
+    finally:
+        if watch is not None:
+            watch.stop.set()
+        cl.stop_all()
+        # workers the planner spawned, should it have died before retiring them
+        for pid in n_procs_of(str(tmp)):
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+    left = [n for n, (p, _) in cl.procs.items() if p.poll() is None] + n_procs_of(str(tmp))
+    if left:
+        raise AssertionError(f"[n] processes left over: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[n2] passed in {out['wall_s']:.1f}s")
+    return out
+
+
+def phase_planning(smi: str, device: str = "cuda") -> dict:
+    """(n): (n1), then (n2) on its profile."""
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="n-profile-"))
+    n1 = phase_profile(smi, root, device)
+    free_engine()
+    audit_memory("(n1)")
+    n2 = phase_planner(smi, n1, device)
+    log(f"[n] passed: (n1) {n1['wall_s']:.1f}s, (n2) {n2['wall_s']:.1f}s")
+    return {"n1": n1, "n2": n2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4928,6 +5555,12 @@ def main() -> int:
         audit_memory("(m)")
         log(f"(m) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-n"]:
+        # a rehearsal of (n) alone: no kernels or result line
+        phase_planning(smi)
+        audit_memory("(n)")
+        log(f"(n) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -4984,6 +5617,8 @@ def main() -> int:
     audit_memory("(l)")
     chaos_m = phase_chaos(smi, m1)
     audit_memory("(m)")
+    planning = phase_planning(smi)
+    audit_memory("(n)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -5030,6 +5665,11 @@ def main() -> int:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}
                 for name in MOE_CASES.values()}
+            # (n1)'s profile sweep, and (n2)'s two workers the planner spawned
+            lines[-1]["launches_n"] = {
+                "n1 profile": planning["n1"]["launches"],
+                **{f"n2 {w}": r["launches"] for w, r in zip(
+                    ("A", "B"), planning["n2"]["launches"].values())}}
             lines[-1]["launches_int8_moe"] = {
                 "i1 int8 llama-3-8b-lite": int8["i1"]["launches_by_kernel"][route],
                 **{f"{tag} {moe[tag]['model']}": moe[tag]["launches_by_kernel"][route]

@@ -13,12 +13,10 @@ two runs byte-for-byte.
 
 Copy of ``dynamo_tpu/chaos/harness.py``: the fleet is the port's processes
 (``dynamo_tpu_torch.transports.coordinator``, ``.components.worker
---engine mocker``, ``.components.kv_store`` and ``.components.frontend``),
-and their environment sets no JAX or TPU variable. The fleet aggregator
-waits for ROADMAP item 15d (``obs/fleet.py``, ``components/aggregator.py``):
-``FleetConfig(aggregator=True)`` and the ``aggregator_partition`` scenario
-are refused by name. ``tests/test_torch_chaos.py`` runs the scenarios,
-chip_smoke (m1) too::
+--engine mocker``, ``.components.kv_store``, ``.components.frontend`` and
+``.components.aggregator``), and their environment sets no JAX or TPU
+variable. ``tests/test_torch_chaos.py`` runs the scenarios, chip_smoke (m1)
+too::
 
     python -c "from dynamo_tpu_torch.chaos.harness import run_scenario; \
         print(run_scenario('smoke').to_dict())"
@@ -58,10 +56,6 @@ _BASE_ENV = {
     "PYTHONUNBUFFERED": "1",
     "DYN_LOG": "info",
 }
-
-#: what the fleet aggregator waits for
-AGGREGATOR_LATER = ("the fleet aggregator is not ported yet (obs/fleet.py, "
-                    "components/aggregator.py: ROADMAP item 15d)")
 
 
 def free_port() -> int:
@@ -162,10 +156,6 @@ class FleetConfig:
     aggregator_env: dict[str, str] = field(default_factory=dict)
     scrape_interval_s: float = 0.5            # aggregator sweep cadence
     staleness_ttl_s: float = 2.0              # aggregator staleness window
-
-    def __post_init__(self) -> None:
-        if self.aggregator:
-            raise NotImplementedError(f"FleetConfig(aggregator=True): {AGGREGATOR_LATER}")
 
 
 class MockerFleet:
@@ -543,8 +533,7 @@ def scenario_aggregator_partition(seed: int = 1234) -> ScenarioResult:
     the rest of the fleet stays fresh, count every failed scrape in
     ``dynamo_fleet_scrape_errors_total``, and — after the worker comes
     back — its fleet qos_admitted rollup must re-balance against the
-    terminal statuses. Refused until the aggregator is ported: its
-    ``FleetConfig(aggregator=True)`` raises, naming ROADMAP item 15d."""
+    terminal statuses."""
     agg_plan = ChaosPlan.from_dict({"seed": seed, "rules": [
         # a burst of injected scrape faults on top of the real partition
         {"point": "obs.fleet.scrape", "kind": "error", "rate": 0.2,
@@ -946,7 +935,5 @@ def run_scenario(name: str, seed: int = 1234) -> ScenarioResult:
     except KeyError:
         raise ValueError(
             f"unknown scenario {name!r} (one of {sorted(SCENARIOS)})")
-    if name == "aggregator_partition":
-        raise NotImplementedError(f"scenario {name!r}: {AGGREGATOR_LATER}")
     log.info("chaos scenario %s (seed=%d)", name, seed)
     return fn(seed)

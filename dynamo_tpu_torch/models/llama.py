@@ -316,9 +316,11 @@ def embed_lookup(embed, token_ids: torch.Tensor,
     """Embedding rows of ``token_ids`` from a plain or row-quantized table.
     Vocab-parallel under ``tp``: this rank's piece of the table holds rows
     ``[rank * per, (rank + 1) * per)``; a token outside it looks up zeros,
-    and the sum over ranks is the one rank's row, bit for bit."""
+    and the sum over ranks is the one rank's row, bit for bit. An id past
+    the vocabulary reads its last row, as the JAX package's gather clamps
+    (an unclamped index would be a device-side fault on the card)."""
     if tp is None:
-        return _embed_rows(embed, token_ids.long(), dt)
+        return _embed_rows(embed, token_ids.long().clamp(0, leaf_shape(embed)[0] - 1), dt)
     per = leaf_shape(embed)[0]
     local = token_ids.long() - tp.rank * per
     mine = (local >= 0) & (local < per)

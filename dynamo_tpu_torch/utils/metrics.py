@@ -1,7 +1,7 @@
 """Minimal Prometheus-compatible metrics registry — copy of
-``dynamo_tpu/utils/metrics.py`` without ``metrics_url`` / ``fetch_metrics``
-(an aiohttp scrape client for the planner and fleet tools, which come with
-their slice: the card's machine has no aiohttp).
+``dynamo_tpu/utils/metrics.py``, whose ``fetch_metrics`` scrape client is an
+asyncio-streams HTTP/1.1 GET here instead of aiohttp (the card's machine has
+no aiohttp).
 
 Fills the role of the reference's hierarchical MetricsRegistry
 (reference: lib/runtime/src/metrics.rs, name constants in
@@ -18,8 +18,10 @@ repr-stable formatter.
 
 from __future__ import annotations
 
+import asyncio
 import math
 import re
+import ssl
 import threading
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -245,6 +247,73 @@ def metric_sum(samples: Mapping[tuple[str, frozenset], float], name: str,
     want = set(where.items())
     return sum(v for (n, labels), v in samples.items()
                if n == name and want <= set(labels))
+
+
+def metrics_url(url: str) -> str:
+    """Normalize a target URL to its /metrics endpoint (idempotent)."""
+    u = url.rstrip("/")
+    return u if u.endswith("/metrics") else f"{u}/metrics"
+
+
+class HttpStatusError(Exception):
+    """A non-200 answer to a scrape (aiohttp's ``raise_for_status``)."""
+
+    def __init__(self, status: int, url: str):
+        super().__init__(f"{status} from {url}")
+        self.status = status
+
+
+async def _read_body(reader: asyncio.StreamReader, headers: dict[str, str]) -> bytes:
+    if "chunked" in headers.get("transfer-encoding", "").lower():
+        body = bytearray()
+        while True:
+            size = int((await reader.readuntil(b"\r\n")).split(b";")[0].strip(), 16)
+            if size == 0:
+                await reader.readuntil(b"\r\n")
+                return bytes(body)
+            body += await reader.readexactly(size)
+            await reader.readexactly(2)
+    if "content-length" in headers:
+        return await reader.readexactly(int(headers["content-length"]))
+    return await reader.read()
+
+
+async def http_get(url: str) -> tuple[int, bytes]:
+    """One HTTP/1.1 GET of ``url`` (``http`` or ``https``) on a connection of
+    its own: (status, body)."""
+    scheme, _, rest = url.partition("://")
+    hostport, _, path = rest.partition("/")
+    host, _, port = hostport.rpartition(":") if ":" in hostport else (hostport, "", "")
+    tls = scheme == "https"
+    reader, writer = await asyncio.open_connection(
+        host, int(port) if port else (443 if tls else 80),
+        ssl=ssl.create_default_context() if tls else None)
+    try:
+        writer.write(f"GET /{path} HTTP/1.1\r\nHost: {hostport}\r\n"
+                     f"Accept: text/plain\r\nConnection: close\r\n\r\n".encode("latin-1"))
+        await writer.drain()
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        status = int(head[0].split(" ", 2)[1])
+        headers = {}
+        for line in head[1:]:
+            if ":" in line:
+                k, v = line.split(":", 1)
+                headers[k.strip().lower()] = v.strip()
+        return status, await _read_body(reader, headers)
+    finally:
+        writer.close()
+
+
+async def fetch_metrics(url: str, timeout_s: float = 10.0) -> Sample:
+    """GET <url>[/metrics] and parse it. Raises on HTTP/connect errors and
+    on ``timeout_s`` passing (``asyncio.TimeoutError``) so callers decide
+    whether a dead target is fatal (planner) or counted and tolerated
+    (loadgen, fleet aggregator)."""
+    target = metrics_url(url)
+    status, body = await asyncio.wait_for(http_get(target), timeout_s)
+    if status != 200:
+        raise HttpStatusError(status, target)
+    return parse_prometheus(body.decode("utf-8", errors="replace"))
 
 
 @dataclass

@@ -13,10 +13,10 @@ replay, and the harness's scenarios over the port's mocker fleet.
   of an unfaulted engine).
 - The scenarios carry ``slow`` exactly where ``tests/test_chaos.py`` has
   it (the two whose fleets run a KV store, retirement and the mid-decode
-  kill, are in ``tests/test_torch_chaos_recovery.py``);
-  ``aggregator_partition`` and ``FleetConfig(aggregator=True)`` are
-  refused, naming ROADMAP item 15d; a fleet that fails to start stops
-  its processes.
+  kill, are in ``tests/test_torch_chaos_recovery.py``); a fleet with the
+  port's aggregator (``FleetConfig(aggregator=True)``) finds every target
+  and rolls up what its frontend admitted; a fleet that fails to start
+  stops its processes.
 """
 
 from __future__ import annotations
@@ -346,13 +346,34 @@ async def test_offload_error_is_engine_fatal(seed):
 # The harness
 # ---------------------------------------------------------------------------
 
-def test_aggregator_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15d"):
-        FleetConfig(aggregator=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15d"):
-        run_scenario("aggregator_partition")
+def test_unknown_scenario_is_refused():
     with pytest.raises(ValueError, match="unknown scenario"):
         run_scenario("no_such_scenario")
+
+
+def test_fleet_with_the_aggregator_finds_every_target():
+    """``FleetConfig(aggregator=True)`` starts the port's aggregator, which
+    discovers the frontend and both workers through the coordinator and
+    rolls up every request the frontend admitted."""
+    from dynamo_tpu_torch.chaos.harness import MockerFleet
+
+    with MockerFleet(FleetConfig(workers=2, aggregator=True, scrape_interval_s=0.3)) as fleet:
+        info = fleet.wait_fleet_fresh(3)
+        assert sorted(t["role"] for t in info["targets"]) == ["frontend", "worker", "worker"]
+        assert all(t["registered"] and t["consecutive_failures"] == 0
+                   for t in info["targets"])
+        outcomes = fleet.drive_load(n=6, concurrency=3)
+        assert all(o.status == "finished" for o in outcomes), outcomes
+        fleet.wait_drained()
+        for _ in range(50):
+            checker = tinv.InvariantChecker()
+            checker.check_fleet_rollup(fleet.aggregator_metrics_text())
+            rollup = checker.report.details["fleet_rollup"]
+            if checker.report.passed and rollup["completed"] == 6:
+                break
+            threading.Event().wait(0.2)
+        assert checker.report.passed and rollup["completed"] == 6, rollup
+        assert fleet.aggregator.alive()
 
 
 def test_a_fleet_that_fails_to_start_stops_its_processes():
@@ -397,6 +418,12 @@ def test_scenario_lease_expiry_storm(seed):
 @pytest.mark.slow
 def test_scenario_slow_rank_stall(seed):
     res = run_scenario("slow_rank_stall", seed=seed)
+    assert res.report.passed, res.report.failures
+
+
+@pytest.mark.slow
+def test_scenario_aggregator_partition(seed):
+    res = run_scenario("aggregator_partition", seed=seed)
     assert res.report.passed, res.report.failures
 
 

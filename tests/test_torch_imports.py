@@ -6,7 +6,8 @@ In a subprocess whose ``sys.modules`` blocks ``jax``, ``dynamo_tpu`` and
 the packages the card's machine lacks (msgpack and yaml among them), every
 module of ``dynamo_tpu_torch`` (frontend, preprocessor, parsers, launcher,
 the distributed runtime, the router, the components and the disaggregated
-handoff, the mocker and the chaos harness included) and ``chip_smoke.py``
+handoff, the mocker and the chaos harness, the fleet aggregator and the
+planner included) and ``chip_smoke.py``
 import. And no import statement anywhere in their source, a deferred one
 inside a function included, names a blocked package. A mocker worker
 imports neither torch nor the torch engine's modules.
@@ -46,7 +47,12 @@ MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
                "dynamo_tpu_torch.disagg.metrics", "dynamo_tpu_torch.mocker",
                "dynamo_tpu_torch.mocker.engine", "dynamo_tpu_torch.chaos.harness",
                "dynamo_tpu_torch.chaos.invariants", "dynamo_tpu_torch.components.kv_store",
-               "dynamo_tpu_torch.components.router")
+               "dynamo_tpu_torch.components.router", "dynamo_tpu_torch.obs.fleet",
+               "dynamo_tpu_torch.components.aggregator", "dynamo_tpu_torch.components.planner",
+               "dynamo_tpu_torch.planner", "dynamo_tpu_torch.planner.load_predictor",
+               "dynamo_tpu_torch.planner.interpolator", "dynamo_tpu_torch.planner.planner_core",
+               "dynamo_tpu_torch.planner.scrape", "dynamo_tpu_torch.planner.connector",
+               "dynamo_tpu_torch.planner.profiler")
 SOURCES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""
