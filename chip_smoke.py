@@ -362,6 +362,47 @@ if any phase fails:
     window (flagged from 8 on); both workers launch ``mma_bf16`` only, 8 a
     forward step. Prints the decisions, the time from the scale-up
     decision to B's first request, the SLO snapshot and the launches.
+(o) the loading tools, a recipe, KServe v2 and the encode worker. (o0)
+    llama-3-8b-lite's seed-0 bf16 weights ((b)'s) written as a GGUF file
+    through the port's ``save_gguf``: every matrix as Q8_0 blocks that
+    chip_smoke encodes itself on the card (an f16 scale of amax/127 and 32
+    int8 values a block; Q and K rows in llama.cpp's interleaved-rope
+    order), the norms F32, llama metadata; prints its bytes against bf16's.
+    The file lives in a temporary directory, removed at the end of the
+    phase whether it passes or fails. (o1) engine A loads the file through
+    ``hub.resolve_model_path`` and the engine's ``.gguf`` branch; engine B
+    holds the weights chip_smoke dequantizes from its own int8 values and
+    scales (``q.float() * s.float()`` → bf16, no reader): every leaf equal
+    byte for byte, (b)'s 32 x (128 + 64) greedy streams equal, ``mma_bf16``
+    only, 8 a forward step; prints both builds' seconds (their difference
+    the GGUF load). (o2) a ``TpuServeDeployment`` YAML (the GGUF model, a
+    coordinator and a kv-routed frontend on free ports, an encoder at
+    recipes/llama-3-8b/multimodal.yaml's geometry: 64 image tokens, LM
+    hidden 4096, 448-pixel images; one worker with (k2)'s engine settings;
+    the port's ``tokenizer`` key names a byte-level tokenizer whose ids
+    from 256 read `` t<id>``, so every generated token is text) brought up
+    by ``python -m dynamo_tpu_torch.launch.recipe up``, ready at
+    ``RECIPE_UP``. (o3) KServe v2 REST on that frontend: health live and
+    ready, the model's metadata and readiness; one prompt's greedy text
+    from ``/infer``, ``/generate`` and the ``/generate_stream`` deltas equal
+    to ``/v1/completions``'s; malformed tensors answer the JAX package's
+    400 texts; (b)'s geometry (32 prompts of 128 tokens, 64 greedy) through
+    ``/generate_stream`` from a client process of its own: decode tok/s and
+    TTFT at the client, ``mma_bf16`` only, 8 a forward step in the worker.
+    (o5) a ``StreamRecorder`` on the worker's KV-event subject during (o3):
+    ``load_router_events`` replays its file into a ``RadixIndexer``, which
+    must match every full block of (o3)'s one prompt on the worker. (o4) a
+    640 x 480 RGB PNG whose rows cycle through the five filter types, as a
+    data URL in a chat: the frontend calls the encode worker (PNG decode,
+    Pillow's bicubic resize to 448, the ViT on the card) and the worker
+    prefills the 64 embedding rows (``mma_bf16``, 8 a forward step); the
+    same image twice answers alike (text and usage; the second reads the
+    first's cached prefix, so their bf16 log-probs' largest difference is
+    printed, with the prefix hits); a JPEG answers 400 naming the format;
+    the encoder on the card is within 1e-4·max|ref| + 1e-5 of the CPU's on
+    that image; prints the worker's decode-and-resize and device
+    milliseconds. One SIGINT to the launcher stops every child, checked by
+    PID.
 
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
@@ -374,7 +415,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k) and (l), ``mma_f32`` in (m), ``mma_bf16`` in (n); and a
+in (i), (j), (k) and (l), ``mma_f32`` in (m), ``mma_bf16`` in (n) and
+(o); and a
 ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
@@ -388,7 +430,7 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-k`` for (b'')'s f32 run (the reference of
 (k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l);
 ``python3 chip_smoke.py --only-m`` runs (m) alone; ``--only-n`` builds the
-kernels and runs (n) alone.
+kernels and runs (n) alone, ``--only-o`` (o) alone.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -1878,41 +1920,44 @@ def sse_summary(res: dict) -> dict:
             "last": tok_times[-1] if tok_times else None}
 
 
-def throughput_clients(port: int, bodies: dict) -> tuple[float, list, float]:
-    """(e2)'s clients: every body of ``bodies`` ({request id: body}) sent at
-    once to /v1/completions and streamed; returns the start time, each
-    answer's (status, ``sse_summary``) and the CPU seconds this process
-    spent."""
+def throughput_clients(port: int, bodies: dict, path: str = "/v1/completions",
+                       kind: str = "openai") -> tuple[float, list, float]:
+    """(e2)'s and (o3)'s clients: every body of ``bodies`` ({request id:
+    body}) sent at once to ``path`` and streamed; returns the start time,
+    each answer's (status, ``sse_summary`` or, for ``kind`` "kserve",
+    ``kserve_summary``) and the CPU seconds this process spent."""
     async def go():
         return await asyncio.gather(*(http_call(
-            port, "POST", "/v1/completions", body, headers={"x-request-id": rid})
+            port, "POST", path, body, headers={"x-request-id": rid})
             for rid, body in bodies.items()))
 
+    summary = kserve_summary if kind == "kserve" else sse_summary
     cpu0 = time.process_time()
     t_start = time.perf_counter()
     results = asyncio.run(go())
-    return (t_start, [(r["status"], sse_summary(r)) for r in results],
+    return (t_start, [(r["status"], summary(r)) for r in results],
             time.process_time() - cpu0)
 
 
-def _client_main(port: int, bodies: dict, conn) -> None:
-    conn.send(throughput_clients(port, bodies))
+def _client_main(port: int, bodies: dict, conn, path: str, kind: str) -> None:
+    conn.send(throughput_clients(port, bodies, path, kind))
     conn.close()
 
 
-def client_in_own_process(port: int, bodies: dict) -> tuple[float, list, float]:
+def client_in_own_process(port: int, bodies: dict, path: str = "/v1/completions",
+                          kind: str = "openai") -> tuple[float, list, float]:
     """``throughput_clients`` in a spawned process of its own, as a user's
     client is, so that its parsing does not share this process's
     interpreter lock with the frontend and the engine (perf_counter is the
     system's monotonic clock, one timeline in both processes)."""
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_client_main, args=(port, bodies, send))
+    proc = ctx.Process(target=_client_main, args=(port, bodies, send, path, kind))
     proc.start()
     try:
         send.close()
         if not recv.poll(300):
-            raise AssertionError("[e2] the client process sent no result in 300 s")
+            raise AssertionError("the client process sent no result in 300 s")
         return recv.recv()
     finally:
         proc.join(60)
@@ -5482,6 +5527,637 @@ def phase_planning(smi: str, device: str = "cuda") -> dict:
     return {"n1": n1, "n2": n2}
 
 
+# ---------------------------------------------------------------------------
+# (o) the loading tools, a recipe, KServe v2 and the encode worker
+# ---------------------------------------------------------------------------
+
+#: (o)'s model, served name, engine settings ((k2)'s), encoder geometry
+#: (recipes/llama-3-8b/multimodal.yaml's) and image
+O_MODEL = "llama-3-8b-lite"
+O_SERVED = "llama-3-8b-lite-gguf"
+O_ENGINE = {"blockSize": 16, "numBlocks": 1280, "maxBatchSize": 32, "maxModelLen": 1088}
+O_ENCODER = {"imageTokens": 64, "lmHidden": 4096, "imageSize": 448}
+O_IMAGE = (480, 640)
+O_PROMPT = "one two three four five six seven eight nine ten eleven twelve thirteen"
+O_DECODE = 16
+#: the encoder on the card against the CPU: within 1e-4·max|ref| + 1e-5
+O_ENC_TOL = (1e-4, 1e-5)
+#: llama.cpp's tensor names of the layer leaves (the port's [in, out]
+#: layout is the transpose of each matrix's)
+O_NAMES = {"wq": "attn_q.weight", "wk": "attn_k.weight", "wv": "attn_v.weight",
+           "wo": "attn_output.weight", "attn_norm": "attn_norm.weight",
+           "mlp_norm": "ffn_norm.weight", "w_gate": "ffn_gate.weight",
+           "w_up": "ffn_up.weight", "w_down": "ffn_down.weight"}
+#: malformed v2 tensors and the JAX package's 400 texts for them
+O_BAD_INFER = [
+    ({"inputs": [{"name": "text_input", "datatype": "FP32", "shape": [1], "data": ["x"]}]},
+     "expected 'text_input' to be BYTES, got 'FP32'"),
+    ({"inputs": [{"name": "text_input", "datatype": "BYTES", "shape": [2],
+                  "data": ["a", "b"]}]},
+     "expected 'text_input' to have shape [1], got [2]"),
+    ({"inputs": []}, "missing required input tensor 'text_input'"),
+    ({"inputs": [{"name": "text_input", "datatype": "BYTES", "shape": [1], "data": ["x"]},
+                 {"name": "streaming", "datatype": "BOOL", "shape": [1], "data": [True]}]},
+     "REST ModelInfer is unary; use /generate_stream"),
+    (b"{not json", "invalid JSON body"),
+]
+
+
+def q8_0(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """GGML Q8_0 of a [rows, cols] matrix: int8 values [rows, cols] and
+    f16 scales [rows, cols // 32], each 32-value block's scale its amax /
+    127 and its values rounded against that scale."""
+    rows, cols = w.shape
+    b = w.float().reshape(rows, cols // 32, 32)
+    d = (b.abs().amax(-1) / 127.0).half()
+    df = d.float()[..., None]
+    q = torch.where(df > 0, torch.round(b / torch.where(df > 0, df, 1.0)), 0.0)
+    return q.clamp(-127, 127).to(torch.int8).reshape(rows, cols), d
+
+
+def q8_0_blob(q: torch.Tensor, d: torch.Tensor) -> np.ndarray:
+    """The blocks as GGUF stores them: each 32-value block's f16 scale, then
+    its 32 int8 values (34 bytes a block)."""
+    return torch.cat([d.reshape(-1, 1).view(torch.uint8),
+                      q.reshape(-1, 32).view(torch.uint8)], 1).cpu().numpy()
+
+
+def o_dequant(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    rows, cols = q.shape
+    return (q.float().reshape(rows, cols // 32, 32) * d.float()[..., None]) \
+        .reshape(rows, cols).to(torch.bfloat16)
+
+
+def write_gguf(path: Path, device: str) -> tuple[dict, dict]:
+    """(o0): ``O_MODEL``'s seed-0 bf16 weights ((b)'s) as a GGUF file: every
+    matrix Q8_0 (Q and K rows in llama.cpp's interleaved-rope order), the
+    norms F32. Returns the weights chip_smoke dequantizes from its own int8
+    values and scales, in the engine's layout (no reader involved), and the
+    numbers of the file."""
+    from dynamo_tpu_torch.models import gguf, llama
+    from dynamo_tpu_torch.models.config import resolve_model_config
+
+    cfg = resolve_model_config(O_MODEL)
+    t0 = time.perf_counter()
+    w = llama.init_params(cfg, seed=0, device=device)
+    md = {"general.architecture": "llama", "general.name": O_SERVED,
+          "llama.block_count": cfg.num_layers, "llama.embedding_length": cfg.hidden_size,
+          "llama.feed_forward_length": cfg.intermediate_size,
+          "llama.attention.head_count": cfg.num_heads,
+          "llama.attention.head_count_kv": cfg.num_kv_heads,
+          "llama.attention.key_length": cfg.head_dim, "llama.rope.freq_base": cfg.rope_theta,
+          "llama.attention.layer_norm_rms_epsilon": cfg.rms_norm_eps,
+          "llama.context_length": cfg.max_position_embeddings,
+          "llama.vocab_size": cfg.vocab_size}
+    if not cfg.tie_word_embeddings or "lm_head" in w:
+        raise AssertionError(f"[o0] {O_MODEL} is expected to tie its embeddings")
+    tensors: dict = {}
+    ref: dict = {"layers": {}}
+    params = 0
+
+    def matrix(name: str, hf: torch.Tensor, heads: int | None = None) -> torch.Tensor:
+        """Store ``hf`` ([out, in]) as Q8_0; its dequantized bf16 values back."""
+        nonlocal params
+        q, d = q8_0(hf)
+        stored_q, stored_d = ((gguf.permute_qk(q, heads), gguf.permute_qk(d, heads))
+                              if heads else (q, d))
+        tensors[name] = (tuple(hf.shape), gguf.GGML_Q8_0, q8_0_blob(stored_q, stored_d))
+        params += hf.numel()
+        return o_dequant(q, d)
+
+    ref["embed"] = matrix("token_embd.weight", w["embed"])
+    tensors["output_norm.weight"] = w["final_norm"].float().cpu()
+    ref["final_norm"] = w["final_norm"].clone()
+    heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads}
+    for our, suffix in O_NAMES.items():
+        stack = w["layers"][our]
+        out = []
+        for i in range(cfg.num_layers):
+            if stack.dim() == 2:     # a norm
+                tensors[f"blk.{i}.{suffix}"] = stack[i].float().cpu()
+                out.append(stack[i].clone())
+                params += stack[i].numel()
+            else:
+                out.append(matrix(f"blk.{i}.{suffix}", stack[i].T.contiguous(),
+                                  heads.get(our)).T)
+        ref["layers"][our] = torch.stack(out).contiguous()
+    del w
+    free_engine()
+    quant_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    gguf.save_gguf(path, md, tensors)
+    write_s = time.perf_counter() - t1
+    size = path.stat().st_size
+    info = {"params": params, "file_bytes": size, "bf16_bytes": 2 * params,
+            "ratio": size / (2 * params), "quantize_s": quant_s, "write_s": write_s}
+    log("[o0] " + json.dumps(info))
+    return ref, info
+
+
+def o_params_equal(tag: str, got: dict, want: dict, path: str = "") -> int:
+    """Every leaf of ``got`` equals ``want``'s byte for byte; returns the
+    leaves compared."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{tag}: leaves {sorted(got)} != {sorted(want)} at {path}")
+        return sum(o_params_equal(tag, got[k], want[k], f"{path}/{k}") for k in want)
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(
+            got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"{tag}: leaf {path} differs ({got.dtype} {tuple(got.shape)} "
+                             f"vs {want.dtype} {tuple(want.shape)})")
+    return 1
+
+
+def o_serve(tag: str, engine, device: str) -> tuple[dict, dict]:
+    """(b)'s 32 x (128 + 64) greedy requests on ``engine``: their streams, and
+    the run's launches (``mma_bf16`` only, 8 a forward step on the card)."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    core = engine.core
+    prompts = k_prompts(core.model_cfg.vocab_size)
+    reqs = {i: PreprocessedRequest(
+        token_ids=p, stop_conditions=StopConditions(max_tokens=64, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0), request_id=f"{tag}-{i}")
+        for i, p in enumerate(prompts)}
+    pa.reset_launches()
+    t_start, first_at, done_at, streams, _ = asyncio.run(serve(engine, reqs))
+    by_kernel = dict(pa.paged_attention.launches_by_kernel)
+    route = pa.ROUTES[(torch.bfloat16, "float")]
+    steps = check_engine_launches(tag, core, by_kernel, route) if device == "cuda" else None
+    if any(len(toks) != 64 for toks, _ in streams.values()):
+        raise AssertionError(f"{tag}: a stream is not 64 tokens long")
+    t_first = max(first_at.values())
+    res = {"launches": by_kernel.get(route, 0), "forward_steps": steps,
+           "launches_per_forward_step": (by_kernel.get(route, 0) / steps) if steps else None,
+           "decode_tok_s": 32 * 63 / (max(done_at.values()) - t_first),
+           "ttft_all_s": t_first - t_start}
+    return {i: toks for i, (toks, _) in streams.items()}, res
+
+
+def o_loader(path: Path, ref: dict, device: str) -> dict:
+    """(o1): engine A loads the file (hub resolution, the engine's .gguf
+    branch), engine B holds chip_smoke's own dequantized weights: equal
+    leaves, equal streams."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS, resolve_model_config
+    from dynamo_tpu_torch.models.hub import resolve_model_path
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    kw = dict(block_size=16, max_batch_size=32, max_model_len=128 + 64 + 16,
+              prefill_chunk=128, warmup_mode="lazy")
+    resolved = resolve_model_path(str(path))
+    if resolved != str(path):
+        raise AssertionError(f"[o1] the hub resolved {path} to {resolved}")
+    free_engine()
+    t0 = time.perf_counter()
+    a = build_engine(EngineConfig(model=resolved, **kw), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    a_build_s = time.perf_counter() - t0
+    leaves = o_params_equal("[o1] the GGUF engine's weights against chip_smoke's dequant",
+                            a.core.runner.params, ref)
+    a_streams, a_run = o_serve("[o1] A", a, device)
+    del a
+    free_engine()
+    # engine B: the same config under another name, chip_smoke's weights
+    ref_name = "o-gguf-reference"
+    MODEL_PRESETS[ref_name] = dataclasses.replace(resolve_model_config(resolved),
+                                                  name=ref_name)
+    try:
+        t0 = time.perf_counter()
+        b = build_engine(EngineConfig(model=ref_name, **kw), device=device, params=ref)
+        b_build_s = time.perf_counter() - t0
+        b_streams, b_run = o_serve("[o1] B", b, device)
+        del b
+    finally:
+        del MODEL_PRESETS[ref_name]
+    free_engine()
+    differ = [i for i in a_streams if a_streams[i] != b_streams[i]]
+    res = {"leaves_equal": leaves, "engine_a_build_s": a_build_s,
+           "engine_b_build_s": b_build_s, "gguf_load_s": a_build_s - b_build_s,
+           "streams_equal": len(a_streams) - len(differ), "a": a_run, "b": b_run}
+    log("[o1] " + json.dumps(res))
+    if differ:
+        raise AssertionError(f"[o1] streams {differ[:8]} of the GGUF engine differ from "
+                             "the dequantized reference's")
+    if device == "cuda" and (a_run["launches_per_forward_step"] != 8
+                             or b_run["launches_per_forward_step"] != 8):
+        raise AssertionError(f"[o1] launches a forward step: {a_run} {b_run}")
+    return res
+
+
+def o_tokenizer(root: Path, vocab: int) -> Path:
+    """A byte-level BPE tokenizer.json for the random-weight model: ids 0-255
+    are the bytes (text prompts encode to them), id ``i`` >= 256 the text
+    `` t<i>``, so every generated token is visible in text and SSE deltas."""
+    from dynamo_tpu_torch.tokenizer.base import _bytes_to_unicode
+
+    d = root / "o-tokenizer"
+    d.mkdir(parents=True, exist_ok=True)
+    b2u = _bytes_to_unicode()
+    vocab_map = {b2u[b]: b for b in range(256)}
+    vocab_map.update({f"Ġt{i}": i for i in range(256, vocab)})
+    (d / "tokenizer.json").write_text(json.dumps(
+        {"model": {"type": "BPE", "vocab": vocab_map, "merges": []}, "added_tokens": []}))
+    return d
+
+
+def o_recipe(root: Path, gguf_path: Path, tok: Path, coord_port: int,
+             http_port: int) -> Path:
+    """(o2)'s TpuServeDeployment: the GGUF model, a coordinator, a kv-routed
+    frontend, one encoder at the multimodal recipe's geometry and one
+    worker with (k2)'s engine settings."""
+    enc = ", ".join(f"{k}: {v}" for k, v in O_ENCODER.items())
+    eng = ", ".join(f"{k}: {v}" for k, v in O_ENGINE.items())
+    text = f"""# chip_smoke (o2): a GGUF model and an encode worker on one card
+apiVersion: dynamo-tpu/v1
+kind: TpuServeDeployment
+metadata: {{name: o-gguf-multimodal}}
+spec:
+  model: "{gguf_path}"
+  servedModelName: {O_SERVED}
+  tokenizer: "{tok}"
+  coordinator: {{port: {coord_port}}}
+  encoder: {{replicas: 1, {enc}}}
+  frontend: {{port: {http_port}, routerMode: kv}}
+  workers:
+    - name: worker
+      replicas: 1
+      engine: {{{eng}}}
+"""
+    path = root / "o-recipe.yaml"
+    path.write_text(text)
+    return path
+
+
+class RecorderThread:
+    """(o5)'s ``StreamRecorder`` on a subject, in an event loop of its own."""
+
+    def __init__(self, url: str, subject: str, out: Path):
+        from dynamo_tpu_torch.transports.client import CoordinatorClient
+        from dynamo_tpu_torch.utils.recorder import StreamRecorder
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+        async def start():
+            coord = await CoordinatorClient.connect(url)
+            rec = StreamRecorder(coord, subject, str(out))
+            await rec.start()
+            return coord, rec
+
+        self.coord, self.rec = self._run(start())
+
+    def _run(self, coro):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(60)
+
+    def stop(self) -> int:
+        async def stop():
+            await self.rec.stop()
+            await self.coord.close()
+
+        self._run(stop())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+        self.loop.close()
+        return self.rec.count
+
+
+def kserve_summary(res: dict) -> dict:
+    """Text, finish reason and the times of the first and last events of
+    a ``/generate_stream`` answer."""
+    text, finish = "", None
+    for ev in res["events"]:
+        d = json.loads(ev)
+        text += d.get("text_output", "")
+        finish = d.get("finish_reason") or finish
+    return {"text": text, "finish": finish, "events": len(res["events"]),
+            "first": res["times"][0] if res["times"] else None,
+            "last": res["times"][-1] if res["times"] else None}
+
+
+def o_worker_stats(port: int) -> tuple[dict, list[str]]:
+    st = k_settled(port, O_SERVED, k_stats(port, O_SERVED).get("instances", []))
+    return st, list(st.get("instances", []))
+
+
+def o_launches(tag: str, before: dict, after: dict, workers: list[str], device: str) -> dict:
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    if device != "cuda":     # the CPU has no kernel: forward steps only
+        return {w: {"forward_steps": after["workers"][w]["attention"]["forward_steps"]
+                    - before["workers"][w]["attention"]["forward_steps"]} for w in workers}
+    layers = resolve_model_config(O_MODEL).num_layers
+    out = k_launches(tag, before, after, workers, ROUTES[(torch.bfloat16, "float")], layers)
+    for w, r in out.items():
+        if r["launches_per_forward_step"] != layers:
+            raise AssertionError(f"{tag}: worker {w}: {r}")
+    return out
+
+
+def o_kserve(port: int, device: str, smi: str) -> dict:
+    """(o3): the v2 routes on the recipe's frontend."""
+    out: dict = {}
+    m = f"/v2/models/{O_SERVED}"
+    for path in ("/v2/health/live", "/v2/health/ready", m, f"{m}/ready"):
+        res = asyncio.run(http_call(port, "GET", path))
+        if res["status"] != 200:
+            raise AssertionError(f"[o3] GET {path}: {res['status']} {res['body'][:300]}")
+    meta = json.loads(asyncio.run(http_call(port, "GET", m))["body"])
+    if meta["name"] != O_SERVED or meta["inputs"][0]["name"] != "text_input":
+        raise AssertionError(f"[o3] metadata {meta}")
+    params = {"max_tokens": O_DECODE, "temperature": 0, "ignore_eos": True}
+
+    def post(path, body):
+        res = asyncio.run(http_call(port, "POST", path, body))
+        if res["status"] != 200:
+            raise AssertionError(f"[o3] POST {path}: {res['status']} {res['body'][:300]}")
+        return res
+
+    openai = json.loads(post("/v1/completions", {
+        "model": O_SERVED, "prompt": O_PROMPT, **params})["body"])["choices"][0]
+    want = openai["text"]
+    infer = json.loads(post(f"{m}/infer", {"inputs": [{
+        "name": "text_input", "datatype": "BYTES", "shape": [1], "data": [O_PROMPT]}],
+        "parameters": params})["body"])
+    gen = json.loads(post(f"{m}/generate", {"text_input": O_PROMPT,
+                                            "parameters": params})["body"])
+    stream = kserve_summary(post(f"{m}/generate_stream", {"text_input": O_PROMPT,
+                                                          "parameters": params}))
+    texts = {"infer": infer["outputs"][0]["data"][0], "generate": gen["text_output"],
+             "generate_stream": stream["text"]}
+    finishes = {"v1": openai["finish_reason"], "infer": infer["outputs"][1]["data"][0],
+                "generate": gen["finish_reason"], "generate_stream": stream["finish"]}
+    if any(t != want for t in texts.values()) or set(finishes.values()) != {"length"} \
+            or not want or stream["events"] < 2:
+        raise AssertionError(f"[o3] v2 texts {texts} / finishes {finishes} against the "
+                             f"OpenAI route's {want!r}")
+    out["one_prompt"] = {"text": want, "stream_events": stream["events"]}
+    log(f"[o3] one prompt: /v1/completions, /infer, /generate and /generate_stream all give "
+        f"{want!r}")
+    for body, text in O_BAD_INFER:
+        raw = body if isinstance(body, bytes) else json.dumps(body).encode()
+        res = asyncio.run(o_raw_post(port, f"{m}/infer", raw))
+        if res != (400, {"error": text}):
+            raise AssertionError(f"[o3] malformed {body!r}: {res}, expected 400 {text!r}")
+    out["malformed_400"] = len(O_BAD_INFER)
+
+    # (b)'s geometry through /generate_stream from a client process of its own
+    prompts = ["".join(chr(33 + t % 94) for t in p) for p in k_prompts(512)]
+    bodies = {f"o3-{i}": {"text_input": p, "parameters": {
+        "max_tokens": 64, "temperature": 0, "ignore_eos": True}} for i, p in enumerate(prompts)}
+    s0, workers = o_worker_stats(port)
+    t_start, sums, client_cpu = client_in_own_process(
+        port, bodies, f"{m}/generate_stream", "kserve")
+    s1, _ = o_worker_stats(port)
+    bad = [(st, s["finish"]) for st, s in sums if st != 200 or s["finish"] != "length"]
+    if bad:
+        raise AssertionError(f"[o3] streams failed: {bad[:4]}")
+    t_first = max(s["first"] for _, s in sums)
+    t_end = max(s["last"] for _, s in sums)
+    out["throughput"] = {
+        "requests": len(sums), "prompt_tokens": 128, "decode": 64,
+        "decode_tok_s": len(sums) * 63 / (t_end - t_first), "ttft_all_s": t_first - t_start,
+        "ttft_median_s": float(np.median([s["first"] - t_start for _, s in sums])),
+        "client_cpu_s": client_cpu,
+        "workers": o_launches("[o3]", s0, s1, workers, device)}
+    log("[o3] " + json.dumps(out["throughput"]))
+    log(f"[o3] KServe /generate_stream, 32 x (128 + 64) from a client process: decode tok/s "
+        f"{out['throughput']['decode_tok_s']}, TTFT (all 32) {out['throughput']['ttft_all_s']}"
+        f" s; on {smi}")
+    return out
+
+
+async def o_raw_post(port: int, path: str, raw: bytes) -> tuple[int, dict]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write((f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n"
+                  f"Content-Type: application/json\r\nContent-Length: {len(raw)}\r\n\r\n")
+                 .encode() + raw)
+    try:
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        n = int(next(ln.split(":", 1)[1] for ln in head if ln.lower().startswith(
+            "content-length")))
+        return int(head[0].split(" ")[1]), json.loads(await reader.readexactly(n))
+    finally:
+        writer.close()
+
+
+def o_images(port: int, launcher_log: Path, device: str, smi: str) -> dict:
+    """(o4): a 640 x 480 PNG through the frontend, the encode worker and the
+    worker's prefill of its 64 rows; the encoder on the card against the
+    CPU; a JPEG refused by name."""
+    from dynamo_tpu_torch.models.image import encode_png
+    from dynamo_tpu_torch.models.vision import VisionConfig, VisionEncoder
+
+    # gradients and an 8-pixel checkerboard: it compresses to a request body
+    # well under the server's 1 MiB limit (random pixels would not)
+    h, w = O_IMAGE
+    yy, xx = np.mgrid[0:h, 0:w]
+    board = ((yy // 8 + xx // 8) % 2) * 64
+    px = np.stack([xx * 191 // (w - 1) + board, yy * 191 // (h - 1) + board,
+                   (xx + yy) % 192 + board], -1).astype(np.uint8)
+    png = encode_png(px, 2, filters=(0, 1, 2, 3, 4))
+
+    def body(image: bytes, mime: str) -> dict:
+        url = f"data:{mime};base64," + base64.b64encode(image).decode()
+        return {"model": O_SERVED, "max_tokens": 8, "temperature": 0, "logprobs": True,
+                "messages": [{"role": "user", "content": [
+                    {"type": "text", "text": "describe "},
+                    {"type": "image_url", "image_url": {"url": url}}]}]}
+
+    def chat(image: bytes, mime: str = "image/png") -> tuple[int, dict]:
+        res = asyncio.run(http_call(port, "POST", "/v1/chat/completions", body(image, mime)))
+        try:
+            return res["status"], json.loads(res["body"])
+        except ValueError:
+            raise AssertionError(f"[o4] chat: {res['status']} {res['body'][:300]!r}") from None
+
+    s0, workers = o_worker_stats(port)
+    answers = []
+    for _ in range(2):
+        status, d = chat(png)
+        if status != 200 or d["choices"][0]["finish_reason"] != "length":
+            raise AssertionError(f"[o4] image chat: {status} {str(d)[:300]}")
+        answers.append((d["choices"][0]["message"]["content"],
+                        [e["logprob"] for e in d["choices"][0]["logprobs"]["content"]],
+                        d["usage"]))
+    s1, _ = o_worker_stats(port)
+    # the same answer: text and usage; the second request's prefix (image
+    # rows included, digest-salted) comes from the first's cached blocks, so
+    # its bf16 log-probs may differ in the last bits (printed)
+    if answers[0][0] != answers[1][0] or answers[0][2] != answers[1][2]:
+        raise AssertionError(f"[o4] the same image answered twice differently: {answers}")
+    lp_diff = max(abs(a - b) for a, b in zip(answers[0][1], answers[1][1]))
+    hits = {w: s1["workers"][w]["prefix_hit_blocks"] - s0["workers"][w]["prefix_hit_blocks"]
+            for w in workers}
+    jpeg = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)
+    status, d = chat(jpeg, "image/jpeg")
+    if status != 400 or "bad image: JPEG images are not read" not in d.get(
+            "error", {}).get("message", json.dumps(d)):
+        raise AssertionError(f"[o4] a JPEG: {status} {d}")
+    lines = [ln for ln in launcher_log.read_text(errors="replace").splitlines()
+             if "encoded 1 image(s)" in ln]
+    if len(lines) < 2:
+        raise AssertionError("[o4] the encode worker logged no encode")
+    worker_ms = [(float(ln.split("decode+resize ")[1].split(" ms")[0]),
+                  float(ln.split("device ")[1].split(" ms")[0])) for ln in lines]
+    # the encoder in this process on the card against the CPU
+    cfg = VisionConfig(num_image_tokens=O_ENCODER["imageTokens"],
+                       lm_hidden_size=O_ENCODER["lmHidden"], image_size=O_ENCODER["imageSize"])
+    card = VisionEncoder(cfg, device=device)
+    got = card.encode([png])
+    got = card.encode([png])        # the second call's timing: no first-use cost
+    timing = dict(card.last_timing)
+    ref = VisionEncoder(cfg, device="cpu").encode([png])
+    err = float(np.abs(got - ref).max())
+    limit = O_ENC_TOL[0] * float(np.abs(ref).max()) + O_ENC_TOL[1]
+    del card
+    res = {"png_bytes": len(png), "image": list(O_IMAGE), "resized": O_ENCODER["imageSize"],
+           "prompt_tokens": answers[0][2]["prompt_tokens"], "answers_equal": True,
+           "answer": answers[0][0], "repeat_lp_max_diff": lp_diff, "prefix_hit_blocks": hits,
+           "jpeg_status": status, "worker_decode_resize_ms": [a for a, _ in worker_ms],
+           "worker_device_ms": [b for _, b in worker_ms],
+           "in_process_decode_resize_ms": timing["decode_ms"],
+           "in_process_device_ms": timing["device_ms"], "card_vs_cpu_max_abs_err": err,
+           "card_vs_cpu_limit": limit,
+           "workers": o_launches("[o4]", s0, s1, workers, device)}
+    log("[o4] " + json.dumps(res) + f" on {smi}")
+    if answers[0][2]["prompt_tokens"] < O_ENCODER["imageTokens"]:
+        raise AssertionError(f"[o4] the prompt holds {answers[0][2]} tokens, fewer than the "
+                             f"image's {O_ENCODER['imageTokens']} rows")
+    if not err <= limit:
+        raise AssertionError(f"[o4] the encoder on {device} is {err} from the CPU's "
+                             f"(limit {limit})")
+    return res
+
+
+def o_pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:      # a zombie has exited
+        return Path(f"/proc/{pid}/stat").read_text().split()[2] != "Z"
+    except OSError:
+        return False
+
+
+def phase_gguf_recipe(smi: str, device: str = "cuda") -> dict:
+    """(o): see the module docstring."""
+    import shutil
+    import signal
+    import tempfile
+
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.router.indexer import RadixIndexer
+    from dynamo_tpu_torch.tokenizer import load_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_tokens
+    from dynamo_tpu_torch.utils.recorder import load_router_events
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="o-gguf-"))
+    out: dict = {"smi": smi}
+    launcher = None
+    pids: list[int] = []
+    try:
+        gguf_path = tmp / f"{O_SERVED}.gguf"
+        ref, out["o0"] = write_gguf(gguf_path, device)
+        out["o1"] = o_loader(gguf_path, ref, device)
+        del ref
+        free_engine()
+        audit_memory("(o1)")
+
+        # (o2) the recipe, brought up by the launcher
+        tok = o_tokenizer(tmp, resolve_model_config(O_MODEL).vocab_size)
+        coord_port, http_port = free_port(), free_port()
+        recipe = o_recipe(tmp, gguf_path, tok, coord_port, http_port)
+        log_path = tmp / "recipe-up.log"
+        env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
+               "DYN_LOG": "info"}
+        t_up = time.perf_counter()
+        with open(log_path, "w") as f:
+            launcher = subprocess.Popen(
+                [sys.executable, "-u", "-m", "dynamo_tpu_torch.launch.recipe", "up",
+                 str(recipe), "--start-timeout", "600",
+                 *(["--device", device] if device != "cuda" else [])],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 660
+        while not pids:
+            line = next((ln for ln in log_path.read_text(errors="replace").splitlines()
+                         if "RECIPE_UP" in ln), None)
+            if line:
+                pids = [int(x) for x in line.split("pids=", 1)[1].split()]
+            elif launcher.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"[o2] recipe up failed (rc {launcher.poll()}):\n"
+                                     + log_path.read_text(errors="replace")[-4000:])
+            else:
+                time.sleep(0.2)
+        deadline = time.monotonic() + 60
+        while not k_stats(http_port, O_SERVED).get("instances"):
+            if time.monotonic() > deadline:
+                raise AssertionError("[o2] the frontend never discovered the worker")
+            time.sleep(0.2)
+        out["o2"] = {"processes": len(pids), "up_s": time.perf_counter() - t_up}
+        log("[o2] " + json.dumps(out["o2"]))
+
+        # (o3) KServe v2, with (o5)'s recorder on the worker's KV events
+        rec_path = tmp / "kv-events.jsonl"
+        rec = RecorderThread(f"tcp://127.0.0.1:{coord_port}", "kv_events.dynamo.backend",
+                             rec_path)
+        try:
+            out["o3"] = o_kserve(http_port, device, smi)
+        finally:
+            time.sleep(0.5)      # the last step's events
+            recorded = rec.stop()
+        # (o5) the recording replayed into the router's indexer
+        events = load_router_events(str(rec_path))
+        idx = RadixIndexer()
+        for e in events:
+            idx.apply_event(e)
+        ids = load_tokenizer(str(tok)).encode(O_PROMPT, add_bos=True)
+        hashes = compute_block_hashes_for_tokens(ids, O_ENGINE["blockSize"])
+        scores = idx.find_matches(hashes).scores
+        out["o5"] = {"recorded": recorded, "events": len(events),
+                     "prompt_blocks": len(hashes), "matched": scores}
+        log("[o5] " + json.dumps({**out["o5"], "matched": {str(k): v for k, v in
+                                                          scores.items()}}))
+        if not hashes or sorted(scores.values()) != [len(hashes)]:
+            raise AssertionError(f"[o5] the replayed index matched {scores} of the prompt's "
+                                 f"{len(hashes)} full blocks")
+
+        out["o4"] = o_images(http_port, log_path, device, smi)
+
+        # one SIGINT stops every child
+        launcher.send_signal(signal.SIGINT)
+        rc = launcher.wait(120)
+        time.sleep(0.5)
+        left = [p for p in pids if o_pid_alive(p)]
+        out["shutdown"] = {"rc": rc, "children_left": left}
+        log("[o2] after SIGINT: " + json.dumps(out["shutdown"]))
+        if rc != 0 or left:
+            raise AssertionError(f"[o2] recipe up exited {rc}, children left {left}:\n"
+                                 + log_path.read_text(errors="replace")[-3000:])
+    finally:
+        if launcher is not None and launcher.poll() is None:
+            launcher.send_signal(signal.SIGINT)     # the launcher stops its children
+            try:
+                launcher.wait(120)
+            except subprocess.TimeoutExpired:
+                launcher.kill()
+                launcher.wait(30)
+        for pid in pids:
+            if o_pid_alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[o] passed in {out['wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5561,6 +6237,12 @@ def main() -> int:
         audit_memory("(n)")
         log(f"(n) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-o"]:
+        # a rehearsal of (o) alone: no kernels or result line
+        phase_gguf_recipe(smi)
+        audit_memory("(o)")
+        log(f"(o) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -5619,6 +6301,8 @@ def main() -> int:
     audit_memory("(m)")
     planning = phase_planning(smi)
     audit_memory("(n)")
+    loading = phase_gguf_recipe(smi)
+    audit_memory("(o)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -5670,6 +6354,14 @@ def main() -> int:
                 "n1 profile": planning["n1"]["launches"],
                 **{f"n2 {w}": r["launches"] for w, r in zip(
                     ("A", "B"), planning["n2"]["launches"].values())}}
+            # (o1)'s GGUF engine and its reference, and the recipe's worker
+            # under (o3)'s KServe streams and (o4)'s image prefills
+            lines[-1]["launches_o"] = {
+                "o1 GGUF engine": loading["o1"]["a"]["launches"],
+                "o1 dequantized reference": loading["o1"]["b"]["launches"],
+                **{f"o3 worker {w}": r["launches"]
+                   for w, r in loading["o3"]["throughput"]["workers"].items()},
+                **{f"o4 worker {w}": r["launches"] for w, r in loading["o4"]["workers"].items()}}
             lines[-1]["launches_int8_moe"] = {
                 "i1 int8 llama-3-8b-lite": int8["i1"]["launches_by_kernel"][route],
                 **{f"{tag} {moe[tag]['model']}": moe[tag]["launches_by_kernel"][route]

@@ -20,11 +20,11 @@ Interpretation is deterministic: the injector derives one RNG per fault
 point from ``sha256(seed, point)``, so the same plan + seed replays the
 identical fault sequence regardless of what other points do (see
 injector.py). Plans load from JSON files, inline JSON strings, or plain
-dicts — the env var ``DYN_CHAOS_PLAN`` accepts any of the three. The
-example above is the YAML form of the JAX package; the port refuses a
-``.yaml`` / ``.yml`` plan by name until it has a yaml reader.
+dicts — the env var ``DYN_CHAOS_PLAN`` accepts any of the three. A plan
+file is read as YAML (JSON is YAML's flow form) by the port's own reader,
+``utils/yaml_lite.py``.
 
-Copy of ``dynamo_tpu/chaos/plan.py``, JSON plans only.
+Copy of ``dynamo_tpu/chaos/plan.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Mapping
+
+from dynamo_tpu_torch.utils import yaml_lite
 
 FAULT_KINDS = ("delay", "error", "disconnect", "hang", "kill")
 
@@ -121,11 +123,7 @@ class ChaosPlan:
         if text.startswith("{"):
             return cls.from_dict(json.loads(text))
         path = Path(text)
-        if path.suffix.lower() in (".yaml", ".yml"):
-            raise ValueError(f"chaos plan {path}: YAML plans are not read by the "
-                             "torch port yet (its yaml reader comes with ROADMAP "
-                             "item 15); give the plan as JSON")
-        data = json.loads(path.read_text())
+        data = yaml_lite.safe_load(path.read_text())
         if not isinstance(data, Mapping):
             raise ValueError(f"chaos plan {path} is not a mapping")
         return cls.from_dict(data)

@@ -8,9 +8,10 @@ appears, build preprocessor → migration → (kv|round-robin) router pipeline
 and expose it at /v1/*; when its last instance vanishes, remove it.
 
 Copy of ``dynamo_tpu/components/frontend.py`` over the port's HTTP
-service. The KServe gRPC endpoint (``--grpc-port``: grpc is not on the
-card's machine) and the remote image encoder (``--encoder-endpoint``: the
-ViT encoder, ROADMAP item 15) are refused by name.
+service (the OpenAI and KServe v2 REST routes). ``--encoder-endpoint``
+sends a chat's images to an encode-worker pool
+(``components/encode.py``). The KServe gRPC endpoint (``--grpc-port``:
+grpc is not on the card's machine) is refused by name.
 ``python -m dynamo_tpu_torch.components.frontend --router-mode kv``.
 """
 
@@ -87,8 +88,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="PEM certificate chain; serves HTTPS")
     p.add_argument("--tls-key", default=None, help="PEM private key")
     p.add_argument("--encoder-endpoint", default=None,
-                   help="remote image encoder (refused by the port until the "
-                        "ViT encoder is ported: ROADMAP item 15)")
+                   help="encode-worker endpoint for chat images, e.g. "
+                        "dyn://dynamo.encoder.encode")
     # QoS gateway (qos/): admission control + load shedding.
     p.add_argument("--no-qos", action="store_true",
                    help="disable the QoS gateway entirely")
@@ -119,7 +120,6 @@ def check_frontend_args(ns: argparse.Namespace) -> None:
     later = {
         "--grpc-port (KServe gRPC: not queued, grpc is not on the card's machine)":
             ns.grpc_port is not None,
-        "--encoder-endpoint (the ViT encoder: ROADMAP item 15)": bool(ns.encoder_endpoint),
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
@@ -166,6 +166,7 @@ class ModelWatcher:
         self.models = models
         self.args = ns
         self.lookup_ckpt = None    # set by amain (stream-ckpt warm resume)
+        self.image_encoder = None  # set by amain when --encoder-endpoint
         self._instances: dict[str, set[str]] = {}   # model -> instance keys
         # model -> (client, router, generate, stats_fn)
         self._pipelines: dict[str, tuple] = {}
@@ -316,6 +317,7 @@ class ModelWatcher:
             stats=stats_fn,
             tool_parser=tool_parser,
             reasoning_parser=reasoning_parser,
+            image_encoder=self.image_encoder,
         )
         self._pipelines[name] = pipe
 
@@ -360,6 +362,37 @@ async def amain(ns: argparse.Namespace) -> None:
     rt = await DistributedRuntime.create(cfg)
     models = ModelManager()
     watcher = ModelWatcher(rt, models, ns)
+    if ns.encoder_endpoint:
+        # Multimodal: images route to the encode worker pool; embedding
+        # tensors come back over the data plane.
+        import uuid as _uuid
+
+        from dynamo_tpu_torch.protocols.common import tensor_from_wire
+
+        enc_client = await EndpointClient.create(
+            rt, EndpointId.parse(ns.encoder_endpoint))
+        enc_push = PushRouter(client=enc_client, mode=RouterMode("round_robin"))
+
+        async def image_encoder(imgs: list[bytes]):
+            async for item in enc_push.generate(
+                    {"images": list(imgs)}, _uuid.uuid4().hex):
+                if item.get("error"):
+                    # worker-side client error (bad image bytes) → the
+                    # HTTP layer maps ValueError to 400, not 502
+                    raise ValueError(item["error"])
+                embs = item.get("embeddings")
+                if embs is None:
+                    raise RuntimeError(f"bad encoder response: {item}")
+                try:
+                    return [tensor_from_wire(e) for e in embs]
+                except Exception as exc:  # noqa: BLE001 - replica bug/skew
+                    # malformed tensor envelopes are an infrastructure
+                    # fault (502), never the client's image
+                    raise RuntimeError(
+                        f"undecodable encoder payload: {exc}") from exc
+            raise RuntimeError("encoder returned no response")
+
+        watcher.image_encoder = image_encoder
     # Crash recovery: broken streams first try an exact warm resume from
     # the shared stream-checkpoint store (kvbm/stream_ckpt.py).
     watcher.lookup_ckpt = make_ckpt_lookup(rt)

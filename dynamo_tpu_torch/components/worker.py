@@ -314,6 +314,14 @@ async def amain(ns: argparse.Namespace) -> None:
     check_worker_args(ns)
     if ns.served_model_name is None:
         ns.served_model_name = ns.model
+    if ns.engine != "mocker":
+        # Hub repo ids resolve to a local snapshot (a GGUF-only one to its
+        # file) before anything else reads the model string (the card's
+        # tokenizer, the engine's weights); the served name stays the
+        # user-given id.
+        from dynamo_tpu_torch.models.hub import resolve_model_path
+
+        ns.model = resolve_model_path(ns.model)
     if ns.dtype is not None:
         override_dtype(ns.model, ns.dtype)
     if ns.chaos_plan is not None:
@@ -635,16 +643,15 @@ async def amain(ns: argparse.Namespace) -> None:
         # A coordinator restart loses the card with the lease — re-declare
         # it whenever the runtime re-registers this worker.
         rt.on_reconnect(put_card)
-    log.info("worker ready: engine=%s model=%s disagg=%s instance=%x",
-             ns.engine, name, ns.disagg, rt.instance_id)
-    print(f"WORKER_READY instance={rt.instance_id:016x}", flush=True)
 
     # -- retirement (runtime/drain.py) ---------------------------------
     # First SIGTERM/SIGINT starts a graceful drain: membership out, bounded
     # run-down, session-KV evacuation. A SECOND signal aborts the drain
     # (skip waiting + evacuation, bounded fast exit). A planner drain
     # request on the coordinator key starts the same protocol with its own
-    # reason/deadline.
+    # reason/deadline. The handlers are in place before the ready line: a
+    # signal right after it (a planner or launcher retiring a replica it
+    # just saw come up) must start the drain, not kill the process.
     from dynamo_tpu_torch.runtime.drain import (
         DrainRequest,
         WorkerDrainer,
@@ -668,6 +675,10 @@ async def amain(ns: argparse.Namespace) -> None:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, on_signal)
+
+    log.info("worker ready: engine=%s model=%s disagg=%s instance=%x",
+             ns.engine, name, ns.disagg, rt.instance_id)
+    print(f"WORKER_READY instance={rt.instance_id:016x}", flush=True)
 
     async def watch_drain_key() -> None:
         key = drain_key(ns.namespace, rt.instance_id)

@@ -360,7 +360,12 @@ class ModelRunner:
             from dynamo_tpu_torch.models.config import MODEL_PRESETS
             from dynamo_tpu_torch.models.loader import has_weights, load_params
 
-            if has_weights(engine_cfg.model):
+            if engine_cfg.model.endswith(".gguf"):
+                from dynamo_tpu_torch.models.gguf import load_params_gguf
+
+                _, self.params = load_params_gguf(engine_cfg.model, device=self.device,
+                                                  rank=rank, tp=size, dtype=cfg.dtype)
+            elif has_weights(engine_cfg.model):
                 self.params = load_params(cfg, engine_cfg.model, device=self.device,
                                           rank=rank, tp=size)
             else:

@@ -5,7 +5,12 @@ What the OpenAI surface needs of it, with aiohttp's behaviour where a
 client can see it:
 
 * routing by method and path (404 for an unknown path, 405 with ``Allow``
-  for a known path and another method); ``add_get`` also routes HEAD to
+  for a known path and another method); a path may hold ``{name}``
+  segments, each matching one non-empty segment without ``/``, whose
+  values (percent-decoded) the handler reads from ``request.match_info``;
+  exact paths match before patterns, patterns in the order they were
+  added (the first that matches answers, or its 405); ``add_get`` also
+  routes HEAD to
   the GET handler, whose answer goes out with its head only (its
   ``Content-Length`` kept, no body), as aiohttp's ``allow_head=True`` does;
   no answer to a HEAD request carries a body;
@@ -36,9 +41,10 @@ from __future__ import annotations
 import asyncio
 import email.utils
 import json
+import re
 import ssl
 from typing import Any, Awaitable, Callable, Mapping
-from urllib.parse import parse_qsl, urlsplit
+from urllib.parse import parse_qsl, unquote, urlsplit
 
 from dynamo_tpu_torch.utils.logging import get_logger
 
@@ -118,6 +124,8 @@ class Request:
         self._reader, self._writer = reader, writer
         # set when a StreamResponse sent its head on this request
         self._prepared = False
+        #: the ``{name}`` segments of the route that matched
+        self.match_info: dict[str, str] = {}
         peer = writer.get_extra_info("peername")
         self.remote = peer[0] if isinstance(peer, tuple) and peer else None
         self.keep_alive = (version == "HTTP/1.1"
@@ -240,11 +248,35 @@ class HttpServer:
 
     def __init__(self):
         self._routes: dict[str, dict[str, Handler]] = {}
+        #: pattern paths: (path, compiled regex, handlers by method)
+        self._patterns: list[tuple[str, re.Pattern, dict[str, Handler]]] = []
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.Task] = set()
 
     def add_route(self, method: str, path: str, handler: Handler) -> None:
-        self._routes.setdefault(path, {})[method.upper()] = handler
+        if "{" not in path:
+            self._routes.setdefault(path, {})[method.upper()] = handler
+            return
+        for known, _rx, methods in self._patterns:
+            if known == path:
+                methods[method.upper()] = handler
+                return
+        rx = re.compile("".join(
+            f"(?P<{part[1:-1]}>[^{{}}/]+)" if part.startswith("{") else re.escape(part)
+            for part in re.split(r"(\{[A-Za-z_][A-Za-z0-9_]*\})", path)) + "$")
+        self._patterns.append((path, rx, {method.upper(): handler}))
+
+    def _resolve(self, req: Request) -> dict[str, Handler] | None:
+        """The handlers of the route ``req.path`` matches, an exact path
+        first, else the first pattern (its ``match_info`` set on ``req``)."""
+        if req.path in self._routes:
+            return self._routes[req.path]
+        for _path, rx, methods in self._patterns:
+            m = rx.match(req.path)
+            if m is not None:
+                req.match_info = {k: unquote(v) for k, v in m.groupdict().items()}
+                return methods
+        return None
 
     def add_get(self, path: str, handler: Handler) -> None:
         """GET ``path``, and HEAD of it through the same handler."""
@@ -356,7 +388,7 @@ class HttpServer:
 
     async def _respond(self, req: Request) -> bool:
         """Run the handler and send its answer; True keeps the connection."""
-        methods = self._routes.get(req.path)
+        methods = self._resolve(req)
         if methods is None:
             resp: Response | StreamResponse = Response(status=404, text="404: Not Found")
         elif req.method not in methods:

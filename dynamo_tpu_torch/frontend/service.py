@@ -18,8 +18,7 @@ Client disconnects cancel the underlying generation (the engine abort path):
 the streaming loop polls ``request.transport.is_closing()`` between deltas,
 which on this server also reads the connection's EOF.
 
-Not served yet: the KServe v2 routes of the JAX app are not registered
-(ROADMAP Queue 1).
+The KServe v2 REST routes (frontend/kserve.py) ride the same server.
 """
 
 from __future__ import annotations
@@ -151,6 +150,10 @@ class HttpService:
         self.app.add_get("/debug/traces", self.debug_traces)
         self.app.add_get("/debug/sched", self.debug_sched)
         self.app.add_get("/debug/mem", self.debug_mem)
+        # KServe v2 protocol rides the same server and port.
+        from dynamo_tpu_torch.frontend.kserve import register_kserve
+
+        register_kserve(self.app, self.models, service=self)
         # Audit bus (reference: lib/llm/src/audit/) — enabled via
         # DYN_AUDIT_JSONL or a programmatic audit.init() before serving.
         from dynamo_tpu_torch.utils import audit as _audit

@@ -157,17 +157,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--reasoning-parser", default=None,
                    help="reasoning parser name (basic, deepseek_r1, ...)")
     p.add_argument("--mm-image-tokens", type=int, default=0,
-                   help="multimodal chat through an in-process vision encoder; not "
-                        "in the port yet (the ViT slice, ROADMAP Queue 1 item 15): "
-                        "only 0 is accepted")
+                   help="enable multimodal chat: run an in-process vision "
+                        "encoder producing this many embedding tokens per "
+                        "image (0 = multimodal off)")
     ns = p.parse_args(rest)
     ns.in_mode, ns.out_mode = in_mode, out_mode
     return ns
 
 
 def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, EngineConfig]:
+    # Hub repo ids resolve to a local snapshot; the served model name
+    # (ns.model, used for registration) keeps the user-given id.
+    from dynamo_tpu_torch.models.hub import resolve_model_path
+
+    resolved = resolve_model_path(ns.model)
+    if ns.tokenizer is None and resolved != ns.model:
+        ns.tokenizer = resolved
     cfg = EngineConfig(
-        model=ns.model,
+        model=resolved,
         max_batch_size=ns.max_batch_size,
         max_model_len=ns.max_model_len,
         block_size=ns.block_size,
@@ -196,11 +203,22 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
 
 
 async def run_http(ns: argparse.Namespace) -> None:
-    if ns.mm_image_tokens > 0:
-        raise SystemExit("--mm-image-tokens > 0 needs the vision encoder, which the port "
-                         "does not have yet (models/vision.py: ROADMAP Queue 1 item 15)")
     engine, cfg = build_local_engine(ns)
     tok = load_tokenizer(ns.tokenizer or ns.model)
+    image_encoder = None
+    if ns.mm_image_tokens > 0:
+        from dynamo_tpu_torch.models.config import resolve_model_config
+        from dynamo_tpu_torch.models.vision import VisionConfig, VisionEncoder
+
+        venc = VisionEncoder(VisionConfig(
+            num_image_tokens=ns.mm_image_tokens,
+            lm_hidden_size=resolve_model_config(cfg.model).hidden_size), device=ns.device)
+        loop = asyncio.get_running_loop()
+
+        async def image_encoder(imgs: list[bytes]):
+            out = await loop.run_in_executor(None, venc.encode, imgs)
+            return [out[i] for i in range(len(imgs))]
+
     models = ModelManager()
     models.register(
         ns.model, tok, engine.generate,
@@ -209,6 +227,7 @@ async def run_http(ns: argparse.Namespace) -> None:
         tool_parser=ns.tool_call_parser,
         reasoning_parser=ns.reasoning_parser,
         embed=engine.embed,
+        image_encoder=image_encoder,
     )
     svc = HttpService(models)
     # Single-process launch: the engine lives here, so its perf-counter,

@@ -1,8 +1,8 @@
 """Model architecture configs — copy of ``dynamo_tpu/models/config.py``.
 
 One dataclass covers the dense Llama family, MoE shapes and the tiny
-CPU-testable presets. The GGUF branch and the vision config are not
-ported yet (ROADMAP).
+CPU-testable presets; a ``.gguf`` file's config is read from its metadata
+(models/gguf.py).
 """
 
 from __future__ import annotations
@@ -163,6 +163,10 @@ def resolve_model_config(name_or_path: str) -> ModelConfig:
     if name_or_path in MODEL_PRESETS:
         return MODEL_PRESETS[name_or_path]
     p = Path(name_or_path)
+    if p.is_file() and p.suffix == ".gguf":
+        from dynamo_tpu_torch.models.gguf import GGUFReader
+
+        return GGUFReader(p).config()
     if p.is_dir() and (p / "config.json").exists():
         return ModelConfig.from_hf_config(name_or_path)
     raise ValueError(f"unknown model: {name_or_path!r} (presets: {sorted(MODEL_PRESETS)})")

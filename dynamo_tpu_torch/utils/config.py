@@ -63,19 +63,20 @@ class RuntimeConfig:
     @classmethod
     def from_settings(cls, path: str | os.PathLike | None = None, **overrides: Any) -> "RuntimeConfig":
         """Build config from defaults < file < DYN_* env < explicit overrides.
-        The file is JSON; a YAML file (which the JAX package also reads) is
-        refused by name until the port has a yaml reader (ROADMAP item 15)."""
+        The file is JSON, or YAML read by the port's ``utils/yaml_lite``."""
         values: dict[str, Any] = {}
         candidate = path or os.environ.get(ENV_PREFIX + "CONFIG")
         if candidate and Path(candidate).exists():
             text = Path(candidate).read_text()
             try:
                 values.update(json.loads(text))
-            except json.JSONDecodeError as exc:
-                if Path(candidate).suffix.lower() in (".yaml", ".yml"):
-                    raise ValueError(f"config file {candidate}: YAML is not read by "
-                                     "the torch port yet; give it as JSON") from exc
-                raise ValueError(f"could not parse config file {candidate}") from exc
+            except json.JSONDecodeError:
+                from dynamo_tpu_torch.utils import yaml_lite
+
+                try:
+                    values.update(yaml_lite.safe_load(text) or {})
+                except Exception as exc:
+                    raise ValueError(f"could not parse config file {candidate}") from exc
         fields = {f.name: f for f in dataclasses.fields(cls)}
         for name, f in fields.items():
             env_key = ENV_PREFIX + name.upper()

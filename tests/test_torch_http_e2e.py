@@ -236,8 +236,46 @@ def test_launcher_serves_http_on_cpu():
 
 
 def test_launcher_refuses_the_vision_encoder():
-    res = subprocess.run(
+    """``--mm-image-tokens`` serves chat images through the in-process ViT:
+    a PNG answers, a JPEG (which the port's decoder does not read) is
+    refused by name with a 400."""
+    import base64
+
+    import numpy as np
+
+    from dynamo_tpu_torch.models.image import encode_png
+
+    env = {**os.environ, "DYN_LOG": "info"}
+    proc = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=http", "out=torch",
-         "--model", str(CKPT), "--device", "cpu", "--mm-image-tokens", "16"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0 and "vision encoder" in res.stderr
+         "--model", str(CKPT), "--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+         "--block-size", "4", "--num-blocks", "64", "--max-model-len", "128",
+         "--max-batch-size", "2", "--mm-image-tokens", "4"],
+        cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stderr], daemon=True).start()
+
+    def chat(image: bytes, mime: str) -> tuple[int, bytes]:
+        url = f"data:{mime};base64," + base64.b64encode(image).decode()
+        return post(port, "/v1/chat/completions", {
+            "model": str(CKPT), "max_tokens": 4, "temperature": 0,
+            "messages": [{"role": "user", "content": [
+                {"type": "text", "text": "what is this"},
+                {"type": "image_url", "image_url": {"url": url}}]}]})
+
+    try:
+        port = None
+        while port is None:
+            line = lines.get(timeout=120)
+            if "serving" in line and "http://" in line:
+                port = int(line.rsplit(":", 1)[1].split("/")[0])
+        png = encode_png(np.random.default_rng(0).integers(0, 256, (40, 56, 3), np.uint8),
+                         filters=(0, 1, 2, 3, 4))
+        status, data = chat(png, "image/png")
+        assert status == 200, data
+        assert json.loads(data)["usage"]["completion_tokens"] == 4
+        status, data = chat(b"\xff\xd8\xff\xe0" + bytes(64), "image/jpeg")
+        assert status == 400 and b"JPEG images are not read" in data, data
+    finally:
+        proc.terminate()
+        proc.wait(30)

@@ -3,11 +3,14 @@
 package's other dependencies).
 
 In a subprocess whose ``sys.modules`` blocks ``jax``, ``dynamo_tpu`` and
-the packages the card's machine lacks (msgpack and yaml among them), every
-module of ``dynamo_tpu_torch`` (frontend, preprocessor, parsers, launcher,
-the distributed runtime, the router, the components and the disaggregated
-handoff, the mocker and the chaos harness, the fleet aggregator and the
-planner included) and ``chip_smoke.py``
+the packages the card's machine lacks (msgpack, yaml, PIL, ml_dtypes and
+huggingface_hub among them), every module of ``dynamo_tpu_torch``
+(frontend, preprocessor, parsers, launcher, the distributed runtime, the
+router, the components and the disaggregated handoff, the mocker and the
+chaos harness, the fleet aggregator and the planner, the KServe routes,
+the ViT encoder, image decode and encode worker, the GGUF reader, the hub
+resolver, the recipe launcher over the port's YAML reader, the recorder
+and the logprob analysis included) and ``chip_smoke.py``
 import. And no import statement anywhere in their source, a deferred one
 inside a function included, names a blocked package. A mocker worker
 imports neither torch nor the torch engine's modules.
@@ -22,7 +25,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "xxhash", "PIL", "grpc",
-           "transformers", "ml_dtypes", "msgpack", "yaml")
+           "transformers", "ml_dtypes", "msgpack", "yaml", "huggingface_hub")
 #: modules the walk must reach (the KVBM tiers and their codec, the
 #: distributed runtime, the router and the components among them)
 MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
@@ -52,7 +55,12 @@ MUST_IMPORT = ("dynamo_tpu_torch.kvbm.offload", "dynamo_tpu_torch.kvbm.remote",
                "dynamo_tpu_torch.planner", "dynamo_tpu_torch.planner.load_predictor",
                "dynamo_tpu_torch.planner.interpolator", "dynamo_tpu_torch.planner.planner_core",
                "dynamo_tpu_torch.planner.scrape", "dynamo_tpu_torch.planner.connector",
-               "dynamo_tpu_torch.planner.profiler")
+               "dynamo_tpu_torch.planner.profiler", "dynamo_tpu_torch.frontend.kserve",
+               "dynamo_tpu_torch.models.vision", "dynamo_tpu_torch.models.image",
+               "dynamo_tpu_torch.components.encode", "dynamo_tpu_torch.models.gguf",
+               "dynamo_tpu_torch.models.hub", "dynamo_tpu_torch.launch.recipe",
+               "dynamo_tpu_torch.utils.recorder", "dynamo_tpu_torch.utils.logprob_analysis",
+               "dynamo_tpu_torch.utils.yaml_lite")
 SOURCES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""

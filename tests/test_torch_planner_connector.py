@@ -7,6 +7,8 @@ mocker workers, as processes.
   respawned) re-run on the port: their deferred imports read the port's
   connector and coordinator client, and the connector spawns
   ``dynamo_tpu_torch.components.worker --engine mocker``.
+- A mocker worker signalled the instant it prints ``WORKER_READY`` drains
+  to exit 0 (its signal handlers come before its ready line).
 - ``python -m dynamo_tpu_torch.components.planner --mode process`` over a
   coordinator, a frontend and the aggregator (``--fleet-url``) goes from 1
   to 2 to 1 mocker workers: one worker at no load, two under a load its
@@ -26,6 +28,7 @@ import re
 import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
 
@@ -59,6 +62,38 @@ def test_connector_case_on_the_port(case, coord, monkeypatch):
     fn = getattr(jdrain, case)
     g = {**fn.__globals__, "drain_status_key": drain_status_key}
     asyncio.run(types.FunctionType(fn.__code__, g, fn.__name__)(coord))
+
+
+_SIGNAL_AT_READY = """
+import builtins, os, signal, sys
+from dynamo_tpu_torch.components import worker
+_print = builtins.print
+
+def print_then_signal(*a, **k):
+    _print(*a, **k)
+    if a and str(a[0]).startswith("WORKER_READY"):
+        os.kill(os.getpid(), signal.SIGTERM)   # a retirement the instant it is ready
+
+builtins.print = print_then_signal
+sys.argv = ["worker", *sys.argv[1:]]
+worker.main()
+"""
+
+
+def test_a_worker_signalled_as_it_reports_ready_drains_to_exit_0(coord):
+    """The connector retires a replica as soon as it reads its ready line
+    (``test_connector_spawn_to_ready``'s teardown does): the worker's signal
+    handlers must be in place by then. While ``WORKER_READY`` came before
+    them, a SIGTERM in between met the default action and killed the worker
+    (rc -15), which failed that test under ``-n 6`` load."""
+    import subprocess
+
+    res = subprocess.run(
+        [sys.executable, "-u", "-c", _SIGNAL_AT_READY, "--engine", "mocker",
+         "--coordinator", coord, "--speedup-ratio", "50", "--component", "signal-at-ready"],
+        cwd=Path(__file__).resolve().parent.parent, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "WORKER_READY" in res.stdout and "WORKER_DRAINED" in res.stdout
 
 
 #: the planner's cadence and its sizing: under ``ITL_SLA`` the synthetic
@@ -160,6 +195,10 @@ def test_planner_process_mode_scales_mockers_1_2_1():
         stop.set()
         for t in trickle:
             t.join(60)
+        # the connector logs the exit once the drained worker's process has
+        # ended, which is after WORKER_DRAINED: under load, seconds after it
+        wait(lambda: re.search(r"instance=%s exited rc=" % ids[1], planner.logs()), 30,
+             "the retired worker's exit was never logged", planner)
         logs = planner.logs()
         drained = json.loads(logs.split("WORKER_DRAINED ", 1)[1].splitlines()[0])
         assert drained["state"] == "done", drained

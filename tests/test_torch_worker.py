@@ -315,11 +315,17 @@ def test_engine_refusals_reach_the_worker(real32):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--grpc-port", "0"], "KServe gRPC"),
-    (["--encoder-endpoint", "dyn://ns.encoder.encode"], "the ViT encoder: ROADMAP item 15"),
+    (["--grpc-port", "0", "--encoder-endpoint", "dyn://ns.encoder.encode"], "KServe gRPC"),
 ])
 def test_frontend_refuses_by_name(argv, needle):
     with pytest.raises(SystemExit, match=needle):
         tfrontend.check_frontend_args(tfrontend.parse_args(argv))
+
+
+def test_frontend_accepts_the_encoder_endpoint():
+    """The remote ViT encoder is ported: ``--encoder-endpoint`` passes."""
+    tfrontend.check_frontend_args(tfrontend.parse_args(
+        ["--encoder-endpoint", "dyn://ns.encoder.encode"]))
 
 
 def test_frontend_keeps_jax_flags_and_defaults():
@@ -332,20 +338,29 @@ def test_frontend_keeps_jax_flags_and_defaults():
 
 
 def test_yaml_refused_by_name(tmp_path):
+    """YAML plans and configs read through the port's ``yaml_lite``; what
+    that reader does not read (an anchor, a tag) is refused by name."""
     from dynamo_tpu_torch.chaos.plan import ChaosPlan
     from dynamo_tpu_torch.utils.config import RuntimeConfig
+    from dynamo_tpu_torch.utils.yaml_lite import YamlError
 
     plan = tmp_path / "plan.yaml"
     plan.write_text("seed: 1\nrules: []\n")
-    with pytest.raises(ValueError, match="YAML plans are not read"):
+    assert ChaosPlan.load(str(plan)).seed == 1
+    plan.write_text("seed: &s 1\nrules: []\n")
+    with pytest.raises(YamlError, match="anchors are not read"):
         ChaosPlan.load(str(plan))
     (tmp_path / "plan.json").write_text('{"seed": 3, "rules": [{"point": "worker.*", '
                                         '"kind": "delay", "delay_s": 0.0}]}')
     assert ChaosPlan.load(str(tmp_path / "plan.json")).seed == 3
     cfg = tmp_path / "rt.yaml"
-    cfg.write_text("namespace: x\n")
-    with pytest.raises(ValueError, match="YAML is not read"):
+    cfg.write_text("namespace: x\nlease_ttl_s: 2.5  # seconds\n")
+    rc = RuntimeConfig.from_settings(str(cfg))
+    assert (rc.namespace, rc.lease_ttl_s) == ("x", 2.5)
+    cfg.write_text("namespace: !!str x\n")
+    with pytest.raises(ValueError, match="could not parse") as err:
         RuntimeConfig.from_settings(str(cfg))
+    assert "tags are not read" in str(err.value.__cause__)
     (tmp_path / "rt.json").write_text('{"namespace": "x", "lease_ttl_s": 3.5}')
     rc = RuntimeConfig.from_settings(str(tmp_path / "rt.json"))
     assert (rc.namespace, rc.lease_ttl_s) == ("x", 3.5)
