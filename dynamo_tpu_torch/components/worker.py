@@ -13,9 +13,9 @@ never imported), which the chaos harness and the fleet tests run.
 ``--disagg prefill`` serves the prefill half of disaggregated serving (a
 ``KvTransferSource`` and a ``PrefillHandler``; no model card), ``--disagg
 decode`` the decode half (a ``DisaggDecodeHandler`` over a KV-aware or
-round-robin router of the prefill pool; disagg/). Multi-host engines,
-``--disagg`` with ``--tp > 1`` and ``--disagg`` on the mocker are refused
-by name (:func:`check_worker_args`); so is whatever the engine's
+round-robin router of the prefill pool; disagg/), at any ``--tp`` (the
+leader hands off whole blocks). Multi-host engines and ``--disagg`` on the
+mocker are refused by name (:func:`check_worker_args`); so is whatever the engine's
 ``check_supported`` refuses. The published stats carry the paged-attention
 launches by route, the forward steps they ran in and the card's peak
 allocated bytes (``"attention"``), which a process that cannot read this
@@ -68,6 +68,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-batch-size", type=int, default=32)
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                   help="torch.distributed backend of --tp/--dp ranks: nccl takes one "
+                        "card a rank; ranks that share a card need gloo")
+    p.add_argument("--tp-devices", default=None,
+                   help="comma-separated card index of each rank (default rank r on "
+                        "cuda:r); ranks that share a card need --dist-backend gloo "
+                        "and an explicit --num-blocks")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline stages (layer blocks sharded over 'pipe')")
     p.add_argument("--dp", type=int, default=1,
@@ -209,8 +216,6 @@ def check_worker_args(ns: argparse.Namespace) -> None:
     if ns.disagg != "none" and ns.engine != "torch":
         raise SystemExit("--disagg requires --engine torch (KV handoff needs a real cache)")
     later = {
-        "--disagg with --tp > 1 (the handoff of a sharded cache: ROADMAP item 14)":
-            ns.disagg != "none" and ns.tp > 1,
         "--num-nodes > 1 (multi-host engines: ROADMAP item 14)": ns.num_nodes > 1,
     }
     missing = [name for name, hit in later.items() if hit]
@@ -238,6 +243,8 @@ def engine_config(ns: argparse.Namespace, remote_kv: str | None) -> EngineConfig
         max_batch_size=ns.max_batch_size,
         max_model_len=ns.max_model_len,
         tp=ns.tp,
+        dist_backend=ns.dist_backend,
+        tp_devices=tuple(int(d) for d in ns.tp_devices.split(",")) if ns.tp_devices else (),
         pp=ns.pp,
         dp=ns.dp,
         ep=ns.ep,

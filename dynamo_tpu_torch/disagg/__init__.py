@@ -15,8 +15,10 @@ Separate prefill and decode workers with a KV handoff:
 - Decode-first and conditional: short prompts skip the remote hop, and any
   prefill failure falls back to local prefill.
 
-Engines with more than one rank (tp > 1) refuse the handoff (ROADMAP item
-14).
+A tensor-parallel engine hands off whole blocks too: its leader gathers
+every rank's kv heads (kvbm/transfer.TPTransferEngine) and its shard server
+serves one shard, so a tp=2 prefill worker feeds a tp=1 decode worker and
+back.
 """
 
 from dynamo_tpu_torch.disagg.handlers import DisaggDecodeHandler

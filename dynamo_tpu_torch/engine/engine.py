@@ -40,12 +40,17 @@ observation (occupancy, TTX, leak audit; obs/mem_ledger.py); a request
 carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
 ``engine.decode`` spans.
 
-Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis): the
+Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis) and
+data parallelism inside the engine (``dp > 1``, its "data" axis): the
 process that builds the ``EngineCore`` is rank 0, the leader, and starts
 the other ranks (engine/tp.py); every rank's ``ModelRunner`` holds its
-shard of the params and of the cache, the leader posts each program's
-key and broadcasts its inputs, and the ranks' forwards meet in the
-collectives of models/llama.py. Steps run eagerly.
+shard of the params and of the cache (replicated over data), the leader
+posts each program's key and broadcasts its inputs, and the ranks'
+forwards meet in the collectives of models/llama.py. Steps run eagerly.
+The leader presents whole blocks (every kv head) to the KVBM tiers, the
+store, the handoff and ``export_blocks``, as JAX's engine at one process
+does (kvbm/transfer.TPTransferEngine): a follower gathers or writes its
+heads of them when the leader posts ``extract`` or ``inject``.
 
 Memory beyond the card's KV pool, as the JAX engine has it: the KVBM tiers
 (host, disk, remote; kvbm/) write evicted blocks back and onboard cached
@@ -63,8 +68,9 @@ shot or wave by wave while its prefill runs (``stage_export``,
 wave after each finalize that commits blocks), serve it from a shard
 server (disagg/sharded.py), and on the decode side fetch it on a thread
 beside the steps and inject it as prefix entries (``prefetch_remote``,
-``import_remote``). One process holds the whole cache, so the JAX
-package's rank vote is the identity; engines with tp > 1 refuse the ops.
+``import_remote``). The leader holds every block whole (a tensor-parallel
+engine's through its transfer engine), so the JAX package's rank vote is
+the identity and the shard server serves one shard.
 """
 
 from __future__ import annotations
@@ -99,6 +105,7 @@ from dynamo_tpu_torch.engine.guided import TokenMasker
 from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq, StepPlan
 from dynamo_tpu_torch.engine.session import SessionStore, get_session_metrics
 from dynamo_tpu_torch.engine.spec import accept, propose, spec_eligible
+from dynamo_tpu_torch.kvbm.transfer import tp_gather, tp_scatter
 from dynamo_tpu_torch.kvbm.stream_ckpt import (
     CKPT_DRAWS_KEY,
     CKPT_GENERATED_KEY,
@@ -188,29 +195,26 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
             "(both amortize dispatches over future tokens; pick one)")
     tp = ec.tp > 1
     later = {
-        "pp/dp/ep/sp > 1 (parallelism slice)":
-            any(v != 1 for k, v in ec.mesh_shape().items() if k != "model"),
+        "pp/ep/sp > 1 (parallelism slice)":
+            any(v != 1 for k, v in ec.mesh_shape().items() if k not in ("model", "data")),
         "MoE with tp > 1 (EP/TEP: ROADMAP item 14)": tp and cfg.is_moe,
-        # tp > 1 runs eager steps: a gloo collective cannot be captured in
-        # a CUDA graph (graph-captured TP over NCCL: ROADMAP Queue 1 item 14)
-        "tp > 1 with CUDA graphs (warmup_mode must be 'off')": tp and ec.warmup_mode != "off",
-        "tp > 1 with decode_window > 1": tp and ec.decode_window > 1,
-        "tp > 1 with the KVBM tiers (host_kv_blocks, disk_kv_path, remote_kv_addr)":
-            tp and bool(ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr),
-        "tp > 1 with sessions (session_ttl)": tp and ec.session_ttl > 0,
-        "tp > 1 with stream checkpoints or the global prefix cache":
-            tp and (ec.stream_ckpt_blocks > 0 or ec.global_prefix_cache),
+        # more than one rank runs eager steps: a gloo collective cannot be
+        # captured in a CUDA graph (graph-captured TP over NCCL: ROADMAP
+        # Queue 1 item 14)
+        "tp > 1 with CUDA graphs (warmup_mode must be 'off')":
+            ec.tp * ec.dp > 1 and ec.warmup_mode != "off",
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
-    if ec.tp < 1:
-        raise ValueError(f"tp must be >= 1, got {ec.tp}")
+    for axis in ("tp", "dp"):
+        if getattr(ec, axis) < 1:
+            raise ValueError(f"{axis} must be >= 1, got {getattr(ec, axis)}")
     if ec.dist_backend not in ("gloo", "nccl"):
         raise ValueError(f"unknown dist_backend {ec.dist_backend!r} (supported: gloo, nccl)")
-    if ec.tp_devices and len(ec.tp_devices) != ec.tp:
+    if ec.tp_devices and len(ec.tp_devices) != ec.tp * ec.dp:
         raise ValueError(f"tp_devices {ec.tp_devices} must name one card for each of "
-                         f"the tp={ec.tp} ranks")
+                         f"the dp x tp = {ec.dp} x {ec.tp} ranks")
     if len(set(ec.tp_devices)) < len(ec.tp_devices):
         # nccl refuses two ranks on one card; each rank would size its KV
         # pool from free memory while the other is still allocating
@@ -340,7 +344,9 @@ class ModelRunner:
     inputs; each follower runs the same program in :meth:`follow`.
     Sampling stays on the leader: a step's input tokens, the in-flight
     ones read from ``slot_toks`` included, reach the followers by a
-    broadcast at the top of the step. Steps run eagerly (no graph)."""
+    broadcast at the top of the step, and a fused window's sampled tokens
+    by one after each of its inner steps. Steps run eagerly (no graph).
+    Under data parallelism only the leader's replica computes logits."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None, tp: TPGroup | None = None):
@@ -351,6 +357,8 @@ class ModelRunner:
         rank, size = (tp.rank, tp.size) if tp is not None else (0, 1)
         #: False on a follower: it runs each step's forward, not its sampling
         self.samples = tp is None or tp.leader
+        #: False on a data replica past the first: its logits go unread
+        self.logits = tp is None or tp.data_rank == 0
         #: step programs are CUDA graphs on the card, eager on the CPU and
         #: under tensor parallelism
         self.graphs = self.device.type == "cuda" and tp is None
@@ -402,6 +410,10 @@ class ModelRunner:
             num_blocks = tp.agree_min(num_blocks)   # JAX's multihost hello does the same
         self.spec = KVCacheSpec.for_model(cfg, num_blocks, engine_cfg.block_size,
                                           kv_dtype=engine_cfg.kv_dtype, tp=size)
+        #: the cache of whole blocks (every kv head): what the leader's
+        #: tiers, exports and handoffs hold; ``spec`` at tp = 1
+        self.block_spec = (self.spec if size == 1 else KVCacheSpec.for_model(
+            cfg, num_blocks, engine_cfg.block_size, kv_dtype=engine_cfg.kv_dtype))
         self.cache_k, self.cache_v = allocate_cache(self.spec, self.device)
         maxb = engine_cfg.max_batch_size
         dev = self.device
@@ -687,15 +699,24 @@ class ModelRunner:
             self.tp.broadcast(tokens)   # the leader's tokens, sampled ones included
         toks_w, lps_w = [], []
         for j in range(window):
+            if j and self.tp is not None:
+                # a window's next input: the leader's sampled tokens
+                self.tp.broadcast(toks_w[-1])
             hidden = llama.forward(self.params, cfg, tokens if j == 0 else toks_w[-1][:, None],
                                    q_start if j == 0 else q_start + j, q_len, bt,
                                    self.cache_k, self.cache_v,
                                    attn_num_splits=self.engine_cfg.attn_num_splits,
                                    embed_override=emb_override, embed_mask=emb_mask,
                                    tp=self.tp)
+            if not self.samples:
+                # a follower's outputs go unread; its next input comes by
+                # the broadcast above (the leader's replica gathers logits)
+                if self.logits:
+                    llama.logits_from_hidden(self.params, cfg, hidden, self.tp)
+                toks_w.append(torch.zeros_like(tokens[:, 0]))
+                lps_w.append(torch.zeros(b, dtype=torch.float32, device=tokens.device))
+                continue
             logits = llama.logits_from_hidden(self.params, cfg, hidden, self.tp).float()
-            if not self.samples:   # a follower's step ends here; its outputs go unread
-                return tokens[:, 0], logits[:, 0]
             if logit_mask is not None:
                 logits = logits.masked_fill(~logit_mask, NEG_INF)
             with _perf_phase("sampling"):
@@ -791,6 +812,8 @@ class ModelRunner:
                                self.cache_k, self.cache_v,
                                attn_num_splits=self.engine_cfg.attn_num_splits,
                                return_all_hidden=True, tp=self.tp)
+        if not self.logits:   # a data replica past the first: nothing read
+            return tokens, torch.zeros(tokens.shape, device=tokens.device)
         logits = llama.logits_from_hidden(self.params, self.cfg, hidden,
                                           self.tp).float()  # [B, t, V]
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -864,7 +887,9 @@ class ModelRunner:
         shard, one message of the leader's at a time, until ``stop``.
         Programs are made on first use, as the leader makes them, so a new
         program's warm run meets the leader's; its inputs arrive by
-        broadcast (:meth:`StepProgram.follow`)."""
+        broadcast (:meth:`StepProgram.follow`). ``extract`` and ``inject``
+        move this rank's kv heads of whole blocks to or from the leader
+        (kvbm/transfer.tp_gather, tp_scatter), in step order."""
         dev = self.device
         while True:
             op, *args = self.tp.recv()
@@ -878,6 +903,15 @@ class ModelRunner:
                 b, t = args[0]
                 self._embed_forward(torch.zeros((b, t), dtype=torch.int32, device=dev),
                                     torch.zeros((b,), dtype=torch.int32, device=dev))
+            elif op == "extract":
+                ids, dequant = args
+                if self.tp.data_rank == 0:   # the leader's replica holds the blocks
+                    tp_gather(self.tp, self.cache_k, self.cache_v, ids, dequant,
+                              self.block_spec.num_kv_heads)
+            elif op == "inject":
+                ids, mode, shape, dtype = args
+                tp_scatter(self.tp, self.cache_k, self.cache_v, ids, mode, shape,
+                           getattr(torch, dtype.removeprefix("torch.")))
             elif op == "stats":
                 self.tp.reply("stats", self.tp_stats())
             elif op == "reset_stats":
@@ -895,14 +929,21 @@ class ModelRunner:
 
     def tp_stats(self) -> dict:
         """This rank's count of kernel launches by kernel, forward steps
-        (program calls), collectives and their host seconds since the last
-        ``reset_stats``, and its local head counts."""
+        (program calls), collectives and block moves and their host
+        seconds since the last ``reset_stats``, its peak device memory,
+        and its local head counts."""
         layers = self.params["layers"]
         d = self.cfg.head_dim
-        return {"rank": self.tp.rank,
+        return {"rank": self.tp.world_rank, "data_rank": self.tp.data_rank,
                 "launches_by_kernel": dict(pa.paged_attention.launches_by_kernel),
-                "forward_steps": sum(p.calls for p in self.programs.values()),
+                # a fused window's call runs its W forward steps
+                "forward_steps": sum(p.calls * (p.shape[3] if len(p.shape) > 3 else 1)
+                                     for p in self.programs.values()),
                 "collectives": self.tp.collectives, "collective_s": self.tp.collective_s,
+                "block_moves": self.tp.block_moves, "block_bytes": self.tp.block_bytes,
+                "block_s": self.tp.block_s,
+                "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
+                                         if self.device.type == "cuda" else 0),
                 "heads": leaf_shape(layers["wq"])[-1] // d,
                 "kv_heads": leaf_shape(layers["wk"])[-1] // d,
                 "cache_kv_heads": self.spec.num_kv_heads}
@@ -1203,11 +1244,11 @@ class EngineCore:
             self.chunk_by_qos = {qos: engine_cfg.prefill_chunk
                                  for qos in cm.QOS_ITL_SLO_SCALE}
         self.sched_led.set_prefill_chunks(self.chunk_by_qos)
-        # Tensor parallelism: this process is rank 0, the leader; the
-        # followers start here and hold their shards of params and cache.
+        # Tensor and data parallelism: this process is rank 0, the leader;
+        # the followers start here and hold their shards of params and cache.
         self._tp_followers = None
         tp_group = None
-        if engine_cfg.tp > 1:
+        if engine_cfg.tp * engine_cfg.dp > 1:
             from dynamo_tpu_torch.engine.tp import start_tp
 
             tp_group, self._tp_followers, params = start_tp(
@@ -1306,7 +1347,9 @@ class EngineCore:
         from dynamo_tpu_torch.kvbm.offload import OffloadManager
         from dynamo_tpu_torch.kvbm.pools import DiskBlockPool, HostBlockPool
 
-        spec, fp = self.runner.spec, ec.model
+        # whole blocks, fingerprinted by the model alone (JAX's engine at
+        # one process): a tier's or the store's blocks serve engines of any tp
+        spec, fp = self.runner.block_spec, ec.model
         remote = None
         if ec.remote_kv_addr:
             from dynamo_tpu_torch.kvbm.remote import RemoteBlockPool
@@ -1328,7 +1371,8 @@ class EngineCore:
             # shared remote store as they form, not only on eviction.
             publish_tier=remote if ec.global_prefix_cache else None,
             # Stream checkpoints park in the same shared store.
-            ckpt_tier=remote if ec.stream_ckpt_blocks > 0 else None)
+            ckpt_tier=remote if ec.stream_ckpt_blocks > 0 else None,
+            transfer=self._new_transfer())
 
     def _mem_live_ids(self) -> dict:
         """Per-owner-class live ids for the mem-ledger leak audit. A pin
@@ -2129,28 +2173,31 @@ class EngineCore:
         return outs
 
     # -- KV-transfer primitives of disaggregated serving (engine-core thread)
+    def _new_transfer(self):
+        """A block mover over this engine's cache: whole blocks from every
+        rank's heads under tensor parallelism, as JAX's engine at one
+        process moves them (its ``kvbm/distributed.py`` shards are the
+        multi-host design)."""
+        from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine, TPTransferEngine
+
+        tp = self.runner.tp
+        if tp is None:
+            return BlockTransferEngine()
+        return TPTransferEngine(tp, self.runner.block_spec.num_kv_heads)
+
     @property
     def transfer(self):
         """The block mover: the offload manager's, else one of its own."""
         if self.kvbm is not None:
             return self.kvbm.transfer
         if self._transfer is None:
-            from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine
-
-            self._transfer = BlockTransferEngine()
+            self._transfer = self._new_transfer()
         return self._transfer
-
-    def _no_blocks_under_tp(self) -> None:
-        if self.runner.tp is not None:
-            raise ValueError("not supported by the torch port yet: tp > 1 with block "
-                             "export/import (each rank holds its own kv heads: "
-                             "kvbm/distributed.py, ROADMAP Queue 1 item 14)")
 
     def export_blocks(self, seq_hashes: list[int]) -> list[tuple[int, int | None, np.ndarray]]:
         """Gather the device-resident prefix of a hash chain off the device
         as ``(seq_hash, parent_hash, host block)`` — the prefill side of
         disaggregated serving."""
-        self._no_blocks_under_tp()
         ids, kept = [], []
         parent: int | None = None
         for h in seq_hashes:
@@ -2173,7 +2220,6 @@ class EngineCore:
         hashes already on the device are skipped (and MRU-protected)."""
         from dynamo_tpu_torch.kvbm.offload import inject_and_commit, plan_onboard
 
-        self._no_blocks_under_tp()
         by_hash = {h: data for h, _, data in plan}
         filtered = plan_onboard(self.pool, [h for h, _, _ in plan], by_hash.get)
         flush = self.kvbm.flush_pending if self.kvbm is not None else None
@@ -2194,8 +2240,8 @@ class EngineCore:
     # serves them; the decode side fetches them off the engine-core thread
     # and injects them as matchable prefix entries. The JAX package runs
     # these as replayed ops on every rank of a multi-host engine; the port's
-    # engine is one process, so the rank vote is the identity, and engines
-    # with more than one rank are refused (``_no_blocks_under_tp``).
+    # leader holds every block whole (a tensor-parallel engine's through
+    # its transfer engine), so the rank vote is the identity.
 
     @property
     def staging(self):
@@ -2207,8 +2253,8 @@ class EngineCore:
 
     def my_box(self) -> tuple[int, int, int, int]:
         """This engine's (layer, head) extents of the global cache: all of
-        it, in one process."""
-        spec = self.runner.spec
+        it, whole blocks on the leader."""
+        spec = self.runner.block_spec
         return (0, spec.num_layers, 0, spec.num_kv_heads)
 
     def start_shard_server(self, advertise_host: str, on_release=None) -> str:
@@ -2216,7 +2262,6 @@ class EngineCore:
         address to advertise in kv_transfer_params. Safe to call off the
         engine-core thread: it only binds a socket and reads the
         (lock-guarded) staging store."""
-        self._no_blocks_under_tp()
         if self._shard_server is None:
             from dynamo_tpu_torch.disagg.sharded import ShardServer
 
@@ -2248,7 +2293,6 @@ class EngineCore:
         memory; returns hashes covered. The pin and the staging hold until
         release_export: pulls are served from host memory, never touching
         device state again."""
-        self._no_blocks_under_tp()
         block_ids = self.pool.match_prefix(seq_hashes)
         data = None
         try:
@@ -2297,7 +2341,6 @@ class EngineCore:
         """Open a streamed export for ``request_id``'s chain. No device
         work — the staging entry just declares the expected hashes so
         early pulls can wait on waves."""
-        self._no_blocks_under_tp()
         st = _StreamExport(xfer_id=xfer_id, request_id=request_id,
                            hashes=list(seq_hashes))
         self._stream_exports[request_id] = st
@@ -2406,7 +2449,7 @@ class EngineCore:
             box_intersection,
         )
 
-        spec = self.runner.spec
+        spec = self.runner.block_spec
         box = self.my_box()
         pieces: list[tuple[np.ndarray, tuple[int, int, int, int]]] = []
         hashes: list[int] = []
@@ -2455,7 +2498,6 @@ class EngineCore:
         pulls ([start, stop) windows) of one transfer chain on a single
         thread lineage so the per-shard connections are reused without
         cross-thread sharing."""
-        self._no_blocks_under_tp()
         state = self._pull_state(params["xfer_id"])
         prev = state["last"]
         slot: dict = {}
@@ -2493,7 +2535,6 @@ class EngineCore:
         chain. Returns blocks injected, or -1 when the pull failed (no
         state was mutated). ``final`` closes the transfer's pull state
         (shard connections) afterwards."""
-        self._no_blocks_under_tp()
         state = self._pull_state(params["xfer_id"])
         slot = state["waves"].pop((start, stop), None)
         if slot is not None:

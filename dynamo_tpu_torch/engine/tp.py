@@ -1,13 +1,15 @@
-"""The processes of a tensor-parallel engine.
+"""The processes of a tensor- and data-parallel engine.
 
 Rank 0, the leader, is the process that builds the ``EngineCore``: it runs
-the scheduler and the step loop, and samples. Ranks 1..tp-1, the
+the scheduler and the step loop, and samples. Ranks 1..dp*tp-1, the
 followers, are processes it starts (``spawn``: CUDA forbids ``fork`` once
 initialised) and joins at shutdown. A follower joins the group
 (parallel/collectives.py), builds its shard of the params and of the KV
 cache, and runs ``ModelRunner.follow``: for each step the leader posts the
 program's key on a pipe, broadcasts the step's inputs over the group, and
-every rank runs the same forward on its shard.
+every rank runs the same forward on its shard. World rank ``d*tp + m``
+holds model shard ``m`` of data replica ``d`` (JAX's "data" axis: params
+and cache replicated over it).
 
 The pipe is the followers' way back too: a follower that fails sends its
 traceback before it exits, and the leader's next collective fails at once
@@ -40,17 +42,23 @@ log = get_logger("engine.tp")
 JOIN_TIMEOUT_S = 30.0
 
 
+def engine_ranks(ec: EngineConfig) -> int:
+    """The processes of an engine: one a (data replica, model shard)."""
+    return ec.dp * ec.tp
+
+
 def tp_devices(ec: EngineConfig, device: str | torch.device | None) -> list[torch.device]:
-    """Each rank's device: every rank on the CPU for ``device="cpu"``
+    """Each world rank's device: every rank on the CPU for ``device="cpu"``
     (gloo only), else rank r on ``cuda:tp_devices[r]`` (default
     ``cuda:r``)."""
     dev = resolve_device(device)
+    n_ranks = engine_ranks(ec)
     if dev.type == "cpu":
         if ec.dist_backend != "gloo":
             raise ValueError(f"tensor-parallel ranks on the CPU need dist_backend='gloo', "
                              f"got {ec.dist_backend!r}")
-        return [dev] * ec.tp
-    ids = ec.tp_devices or tuple(range(ec.tp))
+        return [dev] * n_ranks
+    ids = ec.tp_devices or tuple(range(n_ranks))
     n = torch.cuda.device_count()
     if any(not 0 <= i < n for i in ids):
         raise ValueError(f"tp_devices {ids}: this host has {n} CUDA devices")
@@ -75,10 +83,11 @@ class TPFollowers:
         self.procs: list = []
         self.conns: list = []
         try:
-            for rank in range(1, ec.tp):
+            for rank in range(1, engine_ranks(ec)):
                 shard = None
                 if params is not None:   # the rank's shard, through host memory
-                    shard = _to(shard_params(params, cfg, rank, ec.tp), torch.device("cpu"))
+                    shard = _to(shard_params(params, cfg, rank % ec.tp, ec.tp),
+                                torch.device("cpu"))
                 ours, theirs = ctx.Pipe()
                 self.conns.append(ours)
                 proc = ctx.Process(target=follower_main, name=f"tp-rank-{rank}", daemon=True,
@@ -142,15 +151,16 @@ class TPFollowers:
 
 def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | None,
              params: dict | None) -> tuple[TPGroup, TPFollowers, dict | None]:
-    """Start the followers of a ``tp``-rank engine and join the group as
-    its leader. Returns the leader's group, the followers' handle and the
+    """Start the followers of a ``dp`` x ``tp``-rank engine and join the
+    group as its leader. Returns the leader's group, the followers' handle and the
     leader's shard of ``params`` (a full tree, or None to build them on
     every rank)."""
     check_tp(cfg, ec.tp)
     devices = tp_devices(ec, device)
     followers = TPFollowers(ec, cfg, devices, params)
     try:
-        group = init_tp_group(0, ec.tp, ec.dist_backend, followers.init_method, devices[0])
+        group = init_tp_group(0, ec.tp, ec.dist_backend, followers.init_method, devices[0],
+                              dp=ec.dp)
     except BaseException as exc:
         report = followers.report()
         followers.stop()
@@ -169,7 +179,7 @@ def follower_main(rank: int, ec: EngineConfig, cfg: ModelConfig, device: str,
     group = None
     try:
         dev = torch.device(device)
-        group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev)
+        group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev, dp=ec.dp)
         group.conns = [conn]
         from dynamo_tpu_torch.engine.engine import ModelRunner
 

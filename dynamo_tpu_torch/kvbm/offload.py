@@ -15,7 +15,9 @@ port of ``dynamo_tpu/kvbm/offload.py`` for one device.
 
 Where the JAX package rebinds the cache to the arrays its inject program
 returns, the port's inject writes the cache tensors in place: the engine's
-captured step graphs read them as static inputs.
+captured step graphs read them as static inputs. Under tensor parallelism
+the manager runs on the leader over the engine's ``TPTransferEngine``:
+the tiers hold whole blocks, as JAX's engine at one process keeps them.
 """
 
 from __future__ import annotations
@@ -119,12 +121,15 @@ class OffloadManager:
     CKPT_PER_FLUSH = 8
 
     def __init__(self, runner, pool: PrefixPool, tiers: list,
-                 publish_tier=None, ckpt_tier=None):
+                 publish_tier=None, ckpt_tier=None,
+                 transfer: BlockTransferEngine | None = None):
         assert tiers, "OffloadManager needs at least one tier"
         self.runner = runner
         self.pool = pool
         self.tiers = tiers
-        self.transfer = BlockTransferEngine()
+        # the block mover: a tensor-parallel engine's leader passes its own
+        # (kvbm/transfer.TPTransferEngine: whole blocks from every rank)
+        self.transfer = transfer if transfer is not None else BlockTransferEngine()
         # publish_tier: the global prefix cache's publish-on-commit target
         # (the shared remote store): committed prefix blocks are pushed
         # there as they form, not only on LRU eviction.

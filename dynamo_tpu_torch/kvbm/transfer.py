@@ -15,11 +15,13 @@ Host-side block formats, the JAX package's byte for byte:
   split-half nibbles); the two kinds are told apart by byte length alone.
 
 :class:`BlockTransferEngine` moves blocks between those host formats and
-the engine's cache tensors. ``extract`` gathers the blocks on the device
-into one contiguous tensor in the host layout and copies it off in one
-transfer. ``inject`` writes IN PLACE (``index_copy_`` on the block axis,
-scales included): the engine's step programs (CUDA graphs on the card)
-read the cache tensors as static inputs, so the cache is never rebound.
+the engine's cache tensors; :class:`TPTransferEngine` does the same for
+the leader of a tensor-parallel engine, whose ranks each hold some kv
+heads. ``extract`` gathers the blocks on the device into one contiguous
+tensor in the host layout and copies it off in one transfer. ``inject``
+writes IN PLACE (``index_copy_`` on the block axis, scales included): the
+engine's step programs (CUDA graphs on the card) read the cache tensors as
+static inputs, so the cache is never rebound.
 Format conversion happens at the inject boundary as in the JAX package:
 float blocks into a quantized cache are quantized on the device
 (:func:`quantize_lnh`: true division by the scale, round half to even, the
@@ -254,7 +256,9 @@ class TransferStats:
     inject never waits for the card; on the CPU its whole wall); the host
     wall time of each extract's gather and copy (an extract waits for its
     copy anyway); and the extracts that first waited for work already on
-    the stream (a step in flight), with that wait."""
+    the stream (a step in flight), with that wait. Over a sharded cache
+    (:class:`TPTransferEngine`) also the bytes and host seconds of the
+    ranks' head gathers (extract) and block broadcasts (inject)."""
 
     extracts: int = 0
     extract_blocks: int = 0
@@ -267,6 +271,10 @@ class TransferStats:
     inject_bytes: int = 0
     inject_s: float = 0.0
     stage_s: float = 0.0
+    gather_bytes: int = 0
+    gather_s: float = 0.0
+    scatter_bytes: int = 0
+    scatter_s: float = 0.0
     _open: list = field(default_factory=list)
     #: guards ``_open``: a worker reads its stats off the engine-core thread
     _lock: threading.Lock = field(default_factory=threading.Lock)
@@ -290,18 +298,154 @@ class TransferStats:
             "inject_bytes": self.inject_bytes, "inject_s": self.inject_s,
             "stage_s": self.stage_s,
             "h2d_bytes_per_s": self.inject_bytes / self.inject_s if self.inject_s else None,
+            "gather_bytes": self.gather_bytes, "gather_s": self.gather_s,
+            "gather_bytes_per_s": self.gather_bytes / self.gather_s if self.gather_s else None,
+            "scatter_bytes": self.scatter_bytes, "scatter_s": self.scatter_s,
+            "scatter_bytes_per_s": (self.scatter_bytes / self.scatter_s
+                                    if self.scatter_s else None),
         }
+
+
+def _device(cache_k) -> torch.device:
+    return (cache_k["q"] if isinstance(cache_k, dict) else cache_k).device
+
+
+def _place(x: torch.Tensor, dim: int, lo: int, total: int) -> torch.Tensor:
+    """``x`` at offset ``lo`` of a zeroed tensor whose ``dim`` is ``total``
+    long (``x`` itself when it already spans it)."""
+    if x.shape[dim] == total:
+        return x
+    shape = list(x.shape)
+    shape[dim] = total
+    out = x.new_zeros(shape)
+    out.narrow(dim, lo, x.shape[dim]).copy_(x)
+    return out
+
+
+def gather_blocks(cache_k, cache_v, idx: torch.Tensor, dequant: bool = False,
+                  heads: tuple[int, int] | None = None) -> torch.Tensor:
+    """Blocks ``idx`` of a cache in the host layout, block-major, on the
+    cache's device: flat uint8 ``[n, payload + scales]`` for a quantized
+    cache (``pack_kv_block``'s bytes), else ``[n, 2, L, BS, KH, D]``
+    (float32 for a dequantized one). ``heads=(lo, total)``: the cache holds
+    kv heads ``[lo, lo + KH)`` of ``total``, and the others are zeros (a
+    rank's share of a whole block)."""
+    n = idx.numel()
+    lo, total = heads if heads is not None else (0, None)
+
+    def wide(x, dim):
+        return x if total is None else _place(x, dim, lo, total)
+
+    if isinstance(cache_k, dict) and not dequant:
+        def rows(c):
+            return wide(c["q"].index_select(1, idx), 3), wide(c["s"].index_select(1, idx), 2)
+
+        (kq, ks), (vq, vs) = rows(cache_k), rows(cache_v)
+        payload = torch.stack([kq, vq]).permute(2, 0, 1, 3, 4, 5).contiguous()
+        scales = torch.stack([ks, vs]).permute(2, 0, 1, 3).contiguous()
+        return torch.cat([payload.view(torch.uint8).reshape(n, -1),
+                          scales.view(torch.uint8).reshape(n, -1)], dim=1)
+    if isinstance(cache_k, dict):
+        k, v = _dequant_rows(cache_k, idx), _dequant_rows(cache_v, idx)
+    else:
+        k, v = cache_k.index_select(1, idx), cache_v.index_select(1, idx)
+    return torch.stack([wide(k, 3), wide(v, 3)]).permute(2, 0, 1, 3, 4, 5).contiguous()
+
+
+def prepare_inject(blocks: list[np.ndarray], cache_k,
+                   kv_heads: int | None = None) -> tuple[str, list[np.ndarray]]:
+    """The host half of an inject: convert host blocks for ``cache_k``'s
+    kind and pick how they are written: ``"packed"`` (blocks of the cache's
+    own quantized kind, copied as bytes), ``"quantize"`` (float blocks
+    quantized on the device) or ``"float"`` (cast into a float cache). A
+    packed block of the other quantized kind, or one into a float cache, is
+    dequantized on the host. ``kv_heads``: the blocks' head count when the
+    cache holds a share of them (else the cache's own)."""
+    blocks = [host_bits(b) for b in blocks]
+    packed = _is_packed(blocks[0])
+    if isinstance(cache_k, dict):
+        cq = cache_k["q"]
+        int4 = cq.dtype == torch.uint8
+        L, _, BS, KH, Dp = cq.shape
+        logical = (L, BS, kv_heads or KH, Dp * 2 if int4 else Dp)
+        if packed and _packed_kind(blocks[0], logical) == ("int4" if int4 else "int8"):
+            return "packed", blocks
+        if packed:   # the other quantized kind: dequantize on the host
+            blocks = [dequantize_block(b, logical, "float32") for b in blocks]
+        return "quantize", blocks
+    if packed:
+        L, _, BS, KH, D = cache_k.shape
+        name = str(cache_k.dtype).removeprefix("torch.")
+        blocks = [dequantize_block(b, (L, BS, kv_heads or KH, D), name) for b in blocks]
+    return "float", blocks
+
+
+def write_blocks(cache_k, cache_v, idx: torch.Tensor, data: torch.Tensor, mode: str,
+                 lo: int = 0) -> None:
+    """The device half of an inject: write ``data`` (stacked host blocks on
+    the cache's device, :func:`prepare_inject`'s mode) into the cache at
+    ``idx``, in place; the cache holds the blocks' kv heads ``[lo, lo +
+    KH)`` (all of them at ``lo=0`` when the counts agree)."""
+    n = idx.numel()
+    if mode == "packed":
+        cq = cache_k["q"]
+        L, _, BS, kh, Dp = cq.shape
+        # the blocks' head count, from their byte length
+        total = data.shape[1] // (2 * L * (BS * Dp + 4))
+        split = 2 * L * BS * total * Dp                     # data: [n, P + S] uint8
+        payload = data[:, :split].view(cq.dtype).reshape(n, 2, L, BS, total, Dp)
+        scales = data[:, split:].contiguous().view(torch.float32).reshape(n, 2, L, total)
+        for j, c in enumerate((cache_k, cache_v)):
+            c["q"].index_copy_(1, idx, payload[:, j, :, :, lo: lo + kh].transpose(0, 1))
+            c["s"].index_copy_(1, idx, scales[:, j, :, lo: lo + kh].transpose(0, 1))
+        return
+    kh = (cache_k["q"] if mode == "quantize" else cache_k).shape[3]
+    x = data[..., lo: lo + kh, :]                           # [n, 2, L, BS, kh, D]
+    if mode == "quantize":
+        x = x.float()
+        int4 = cache_k["q"].dtype == torch.uint8
+        for j, c in enumerate((cache_k, cache_v)):
+            q, s = quantize_lnh(x[:, j].transpose(0, 1), int4)
+            c["q"].index_copy_(1, idx, q)
+            c["s"].index_copy_(1, idx, s)
+        return
+    x = x.to(cache_k.dtype)
+    cache_k.index_copy_(1, idx, x[:, 0].transpose(0, 1))
+    cache_v.index_copy_(1, idx, x[:, 1].transpose(0, 1))
 
 
 class BlockTransferEngine:
     """Block gather (extract) / in-place scatter (inject) over a cache."""
 
+    #: the kv heads of a whole block (None: the cache's own)
+    kv_heads: int | None = None
+
     def __init__(self) -> None:
         self.stats = TransferStats()
 
-    @staticmethod
-    def _device(cache_k) -> torch.device:
-        return (cache_k["q"] if isinstance(cache_k, dict) else cache_k).device
+    def _wait_for_stream(self, dev: torch.device) -> None:
+        """Before a gather on the card: wait for the steps already queued
+        on the stream, counting the wait when there was one."""
+        if dev.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(dev)
+        if not stream.query():
+            t_wait = time.perf_counter()
+            stream.synchronize()
+            self.stats.waits += 1
+            self.stats.wait_s += time.perf_counter() - t_wait
+
+    def _gather(self, cache_k, cache_v, ids: list[int], dequant: bool) -> torch.Tensor:
+        """The blocks ``ids`` in the host layout, in host memory."""
+        dev = _device(cache_k)
+        idx = torch.tensor(ids, dtype=torch.long).to(dev)
+        gathered = gather_blocks(cache_k, cache_v, idx, dequant)
+        if dev.type == "cuda":  # one copy into pinned memory (a pageable one runs at a fraction)
+            pinned = torch.empty(gathered.shape, dtype=gathered.dtype, pin_memory=True)
+            pinned.copy_(gathered, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            gathered = pinned
+        return gathered
 
     def extract(self, cache_k, cache_v, ids: list[int], dequant: bool = False,
                 span_attrs: dict | None = None) -> list[np.ndarray]:
@@ -312,41 +456,12 @@ class BlockTransferEngine:
         from dynamo_tpu_torch.obs.tracer import get_tracer
 
         n = len(ids)
-        dev = self._device(cache_k)
-        cuda = dev.type == "cuda"
         st = self.stats
         with get_tracer().span("kv.transfer", direction="extract",
                                blocks=n, **(span_attrs or {})) as sp:
-            if cuda:
-                stream = torch.cuda.current_stream(dev)
-                if not stream.query():
-                    t_wait = time.perf_counter()
-                    stream.synchronize()
-                    st.waits += 1
-                    st.wait_s += time.perf_counter() - t_wait
+            self._wait_for_stream(_device(cache_k))
             t0 = time.perf_counter()
-            idx = torch.tensor(ids, dtype=torch.long).to(dev)
-            if isinstance(cache_k, dict) and not dequant:
-                def rows(c):
-                    return c["q"].index_select(1, idx), c["s"].index_select(1, idx)
-
-                (kq, ks), (vq, vs) = rows(cache_k), rows(cache_v)
-                payload = torch.stack([kq, vq]).permute(2, 0, 1, 3, 4, 5).contiguous()
-                scales = torch.stack([ks, vs]).permute(2, 0, 1, 3).contiguous()
-                gathered = torch.cat([payload.view(torch.uint8).reshape(n, -1),
-                                      scales.view(torch.uint8).reshape(n, -1)], dim=1)
-            else:
-                if isinstance(cache_k, dict):
-                    k, v = _dequant_rows(cache_k, idx), _dequant_rows(cache_v, idx)
-                else:
-                    k, v = cache_k.index_select(1, idx), cache_v.index_select(1, idx)
-                gathered = torch.stack([k, v]).permute(2, 0, 1, 3, 4, 5).contiguous()
-            if cuda:  # one copy into pinned memory (a pageable one runs at a fraction)
-                pinned = torch.empty(gathered.shape, dtype=gathered.dtype, pin_memory=True)
-                pinned.copy_(gathered, non_blocking=True)
-                torch.cuda.current_stream(dev).synchronize()
-                gathered = pinned
-            host = _host_float(gathered)
+            host = _host_float(self._gather(cache_k, cache_v, ids, dequant))
             out = [host[i] for i in range(n)]
             nbytes = int(host.nbytes)
             st.extracts += 1
@@ -355,6 +470,16 @@ class BlockTransferEngine:
             st.extract_s += time.perf_counter() - t0
             sp.attrs["bytes"] = nbytes
             return out
+
+    def _write(self, cache_k, cache_v, ids: list[int], mode: str,
+               data: torch.Tensor) -> None:
+        """Copy the stacked host blocks to the card and write them."""
+        dev = _device(cache_k)
+        idx = torch.tensor(ids, dtype=torch.long)
+        if dev.type == "cuda":
+            idx = idx.pin_memory()
+        write_blocks(cache_k, cache_v, idx.to(dev, non_blocking=True),
+                     data.to(dev, non_blocking=True), mode)
 
     def inject(self, cache_k, cache_v, ids: list[int], blocks: list[np.ndarray],
                span_attrs: dict | None = None) -> None:
@@ -368,57 +493,21 @@ class BlockTransferEngine:
         assert len(ids) == len(blocks) and ids
         blocks = [host_bits(b) for b in blocks]
         nbytes = sum(int(b.nbytes) for b in blocks)
-        dev = self._device(cache_k)
-        cuda = dev.type == "cuda"
+        cuda = _device(cache_k).type == "cuda"
         st = self.stats
         with get_tracer().span("kv.transfer", direction="inject",
                                blocks=len(ids), bytes=nbytes, **(span_attrs or {})):
             t0 = time.perf_counter()
-            n = len(ids)
-            quant = isinstance(cache_k, dict)
-            packed = _is_packed(blocks[0])
-            same_kind = False
-            if quant:
-                cq = cache_k["q"]
-                int4 = cq.dtype == torch.uint8
-                L, _, BS, KH, Dp = cq.shape
-                logical = (L, BS, KH, Dp * 2 if int4 else Dp)
-                same_kind = packed and _packed_kind(blocks[0], logical) == (
-                    "int4" if int4 else "int8")
-                if packed and not same_kind:
-                    # the other quantized kind: dequantize on the host
-                    blocks = [dequantize_block(b, logical, "float32") for b in blocks]
-            elif packed:
-                L, _, BS, KH, D = cache_k.shape
-                name = str(cache_k.dtype).removeprefix("torch.")
-                blocks = [dequantize_block(b, (L, BS, KH, D), name) for b in blocks]
-            host = [torch.tensor(ids, dtype=torch.long), _stacked(blocks, pinned=cuda)]
+            mode, blocks = prepare_inject(blocks, cache_k, self.kv_heads)
+            data = _stacked(blocks, pinned=cuda)
             start = None
             if cuda:
-                host[0] = host[0].pin_memory()
                 st.stage_s += time.perf_counter() - t0
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-            idx, data = (t.to(dev, non_blocking=True) for t in host)
-            if same_kind:
-                split = 2 * L * BS * KH * Dp                        # data: [n, P + S] uint8
-                payload = data[:, :split].view(cq.dtype).reshape(n, 2, L, BS, KH, Dp)
-                scales = data[:, split:].contiguous().view(torch.float32).reshape(n, 2, L, KH)
-                for j, c in enumerate((cache_k, cache_v)):
-                    c["q"].index_copy_(1, idx, payload[:, j].transpose(0, 1))
-                    c["s"].index_copy_(1, idx, scales[:, j].transpose(0, 1))
-            elif quant:
-                x = data.float()                                    # [n, 2, L, BS, KH, D]
-                for j, c in enumerate((cache_k, cache_v)):
-                    q, s = quantize_lnh(x[:, j].transpose(0, 1), int4)
-                    c["q"].index_copy_(1, idx, q)
-                    c["s"].index_copy_(1, idx, s)
-            else:
-                x = data.to(cache_k.dtype)
-                cache_k.index_copy_(1, idx, x[:, 0].transpose(0, 1))
-                cache_v.index_copy_(1, idx, x[:, 1].transpose(0, 1))
+            self._write(cache_k, cache_v, ids, mode, data)
             st.injects += 1
-            st.inject_blocks += n
+            st.inject_blocks += len(ids)
             st.inject_bytes += nbytes
             if cuda:
                 end = torch.cuda.Event(enable_timing=True)
@@ -426,6 +515,92 @@ class BlockTransferEngine:
                 st.note_inject(start, end)
             else:
                 st.inject_s += time.perf_counter() - t0
+
+
+class TPTransferEngine(BlockTransferEngine):
+    """The leader's block mover over a cache sharded by kv head across the
+    ranks of a tensor-parallel engine (JAX's engine at one process, whose
+    ``export_blocks`` returns whole blocks): host blocks are always WHOLE
+    blocks, every kv head, in the layout, packing and bytes that
+    :class:`BlockTransferEngine` gives over one unsharded cache of the
+    same content, so blocks move freely between engines of any tp.
+
+    ``extract`` posts ``("extract", ids, dequant)`` to the followers (in
+    step order, on the control pipe), and every rank of data replica 0
+    gathers its heads into a zeroed whole-block buffer that is summed into
+    the leader's (:func:`tp_gather`). ``inject`` converts the host blocks
+    as ``BlockTransferEngine`` does, posts ``("inject", ids, mode, shape,
+    dtype)`` and broadcasts them to every rank as bytes; each writes its
+    own heads (:func:`tp_scatter`), every data replica its copy."""
+
+    def __init__(self, group, kv_heads: int) -> None:
+        super().__init__()
+        self.group = group
+        self.kv_heads = kv_heads
+
+    def _gather(self, cache_k, cache_v, ids: list[int], dequant: bool) -> torch.Tensor:
+        g = self.group
+        g.post("extract", list(ids), dequant)
+        bytes0, s0 = g.block_bytes, g.block_s
+        out = tp_gather(g, cache_k, cache_v, ids, dequant, self.kv_heads)
+        self.stats.gather_bytes += g.block_bytes - bytes0
+        self.stats.gather_s += g.block_s - s0
+        return out
+
+    def _write(self, cache_k, cache_v, ids: list[int], mode: str,
+               data: torch.Tensor) -> None:
+        g = self.group
+        g.post("inject", list(ids), mode, tuple(data.shape), str(data.dtype))
+        bytes0, s0 = g.block_bytes, g.block_s
+        tp_scatter(g, cache_k, cache_v, ids, mode, data.shape, data.dtype, data)
+        self.stats.scatter_bytes += g.block_bytes - bytes0
+        self.stats.scatter_s += g.block_s - s0
+
+
+def tp_gather(group, cache_k, cache_v, ids: list[int], dequant: bool,
+              kv_heads: int) -> torch.Tensor | None:
+    """One rank's part of a sharded extract (every rank of data replica 0
+    runs it, the leader last to post): the rank's heads of blocks ``ids``
+    in a zeroed whole-block buffer, summed over the model group into the
+    leader's. Returns the leader's whole blocks in the host layout, in host
+    memory (None on the other ranks)."""
+    dev = _device(cache_k)
+    idx = torch.tensor(ids, dtype=torch.long).to(dev)
+    kh = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
+    gathered = gather_blocks(cache_k, cache_v, idx, dequant, (group.rank * kh, kv_heads))
+    shape, dtype = gathered.shape, gathered.dtype
+    buf = gathered.view(torch.uint8)
+    if buf.device != group.block_device:
+        buf = buf.to(group.block_device)
+    buf = group.gather_heads(buf)
+    if not group.leader:
+        return None
+    if buf.device.type == "cuda":
+        pinned = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        pinned.copy_(buf)
+        buf = pinned
+    return buf.view(dtype).reshape(shape)
+
+
+def tp_scatter(group, cache_k, cache_v, ids: list[int], mode: str, shape: tuple,
+               dtype: torch.dtype, data: torch.Tensor | None = None) -> None:
+    """One rank's part of a sharded inject (every rank runs it): the
+    leader's stacked host blocks ``data`` ([n, ...] of ``dtype``) arrive
+    as bytes, and the rank writes its own kv heads of them into its
+    cache."""
+    if data is not None:
+        buf = data.contiguous().view(torch.uint8)
+        if buf.device != group.block_device:
+            buf = buf.to(group.block_device)
+    else:
+        nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=group.block_device)
+    buf = group.broadcast_bytes(buf.reshape(-1))
+    dev = _device(cache_k)
+    data = buf.view(dtype).reshape(shape).to(dev)
+    kh = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
+    write_blocks(cache_k, cache_v, torch.tensor(ids, dtype=torch.long).to(dev), data, mode,
+                 lo=group.rank * kh)
 
 
 def _dequant_rows(c: dict, idx: torch.Tensor) -> torch.Tensor:

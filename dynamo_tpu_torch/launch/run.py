@@ -126,8 +126,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks, one process each (this process is "
                         "rank 0); heads, kv heads and FFN width must divide by it. "
-                        "Steps run eagerly: it needs --warmup-mode off, and refuses "
-                        "--decode-window > 1, the KV tiers and sessions")
+                        "Steps run eagerly: it needs --warmup-mode off")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel replicas inside the engine (JAX's 'data' "
+                        "axis): dp x tp ranks, params and cache replicated over "
+                        "data; needs --warmup-mode off when dp x tp > 1")
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
                    help="torch.distributed backend of --tp: nccl takes one card a "
                         "rank; ranks that share a card need gloo")
@@ -196,6 +199,7 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         session_ttl=ns.session_ttl,
         session_tiers=not ns.no_session_tiers,
         tp=ns.tp,
+        dp=ns.dp,
         dist_backend=ns.dist_backend,
         tp_devices=tuple(int(d) for d in ns.tp_devices.split(",")) if ns.tp_devices else (),
     )

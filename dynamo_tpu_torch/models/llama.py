@@ -28,8 +28,10 @@ int8 leaves (models/quant.py).
   Every rank launches the attention kernel over its own heads — the
   port's ``paged_attention_sharded`` — and the partial products of ``wo``
   and ``w_down`` are summed across ranks where GSPMD puts JAX's psum. The
-  embedding and the logits are vocab-parallel. With no group the code is
-  the one-device forward.
+  embedding and the logits are vocab-parallel. Data replicas (the group's
+  ``dp``) hold the same shards and the whole cache; at tp > 1 each
+  launches the kernel on its rows of the batch, gathered before ``wo``.
+  With no group the code is the one-device forward.
 """
 
 from __future__ import annotations
@@ -409,7 +411,9 @@ def forward(params: Params, cfg: ModelConfig,
     Query token t of row b sits at position q_start[b] + t; its KV goes to
     the cache slot its block table names; attention sees every cache
     position ≤ its own and < q_start + q_len. Under ``tp`` the params and
-    the caches are this rank's shards."""
+    the caches are this rank's shards; a data replica (``tp.dp > 1``)
+    computes every row but, at ``tp.size > 1``, attends only its share of
+    them (the cache is replicated: every replica scatters every row)."""
     b, t = token_ids.shape
     bs = _cache_block_size(cache_k)
     dev = token_ids.device
@@ -422,6 +426,11 @@ def forward(params: Params, cfg: ModelConfig,
     slot = torch.where(valid, blk * bs + positions % bs, torch.zeros_like(blk))
     bt32 = block_tables.to(torch.int32).contiguous()
     qs32 = q_start.to(torch.int32).contiguous()
+    # Data parallelism with tensor parallelism (JAX: paged_attention_sharded's
+    # P("data", ...) batch): each replica attends its b/dp rows, when they
+    # divide; otherwise (JAX's dense fallback) every replica the whole
+    # batch, through the same kernel.
+    split_rows = tp is not None and tp.dp > 1 and tp.size > 1 and b % tp.dp == 0
 
     hid = embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype), tp)  # [B, T, H]
     if embed_override is not None:
@@ -445,8 +454,16 @@ def forward(params: Params, cfg: ModelConfig,
             _scatter_kv(ck, k, slot)
             _scatter_kv(cv, v, slot)
         with _perf_phase("attention"):
-            attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
-                                          num_splits=attn_num_splits)
+            if split_rows:
+                # this data replica's rows, gathered over the data group
+                r = slice(tp.data_rank * (b // tp.dp), (tp.data_rank + 1) * (b // tp.dp))
+                attn = tp.gather_rows(
+                    paged_attention_kernel(q[r].contiguous(), ck, cv, bt32[r].contiguous(),
+                                           qs32[r].contiguous(), kv_lens[r].contiguous(),
+                                           num_splits=attn_num_splits), b)
+            else:
+                attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
+                                              num_splits=attn_num_splits)
         out = mm(attn.reshape(b, t, heads * d), lp["wo"])
         hid = hid + (out if tp is None else tp.all_reduce_sum(out))
         x = rms_norm(hid, lp["mlp_norm"], cfg.rms_norm_eps)

@@ -28,10 +28,11 @@ Tensor parallelism: JAX's ``paged_attention_sharded`` is a ``shard_map``
 of the kernel over the "model" (head) axis. In the port every rank is a
 process that launches :func:`paged_attention` on its own q heads and its
 own cache heads (the engine's ranks hold only those); no collective
-runs here, the sum comes in ``wo``. :func:`paged_attention_sharded` is its
-single-controller twin, which the tests and the chip smoke hold against
-the unsharded launch: one launch a rank on that rank's heads
-(:func:`shard_heads`), the heads put back together.
+runs here, the sum comes in ``wo``; under data parallelism each data
+replica launches it on its rows of the batch. :func:`paged_attention_sharded`
+is its single-controller twin, which the tests and the chip smoke hold
+against the unsharded launch: one launch a rank on that rank's rows and
+heads (:func:`shard_heads`), put back together.
 """
 
 from __future__ import annotations
@@ -452,23 +453,31 @@ def shard_heads(cache, rank: int, tp: int):
 
 def paged_attention_sharded(q: torch.Tensor, k_cache, v_cache, block_tables: torch.Tensor,
                             q_start: torch.Tensor, kv_lens: torch.Tensor, *, tp: int,
-                            num_splits: int = 0) -> torch.Tensor:
-    """Paged attention split over ``tp`` ranks by head, as JAX's
-    ``paged_attention_sharded`` on a pure-TP mesh: rank r takes q heads
-    ``[r H/tp, (r+1) H/tp)`` and kv heads ``[r KH/tp, (r+1) KH/tp)`` (GQA
-    groups stay whole), and :func:`paged_attention` runs on those — one
-    kernel launch a rank on the card, its split count chosen from the
-    rank's own heads (:func:`num_splits_for`), as the shard_map'd call
-    chooses it. Returns [B, T, H, D]."""
+                            dp: int = 1, num_splits: int = 0) -> torch.Tensor:
+    """Paged attention split over ``dp`` x ``tp`` ranks, as JAX's
+    ``paged_attention_sharded`` on a ("data", "model") mesh: rank (d, m)
+    takes batch rows ``[d B/dp, (d+1) B/dp)`` (the "data" axis; the cache
+    is replicated over it), q heads ``[m H/tp, (m+1) H/tp)`` and kv heads
+    ``[m KH/tp, (m+1) KH/tp)`` (GQA groups stay whole), and
+    :func:`paged_attention` runs on those — one kernel launch a rank on
+    the card, its split count chosen from the rank's own rows and heads
+    (:func:`num_splits_for`), as the shard_map'd call chooses it. Returns
+    [B, T, H, D]."""
     h = q.shape[2]
     kh = (k_cache["q"] if isinstance(k_cache, dict) else k_cache).shape[2]
     if h % tp or kh % tp:
         raise ValueError(f"{h} query heads and {kh} kv heads must divide over tp={tp}")
-    qs = q.chunk(tp, dim=2)
-    return torch.cat([paged_attention(qs[r].contiguous(), shard_heads(k_cache, r, tp),
-                                      shard_heads(v_cache, r, tp), block_tables, q_start,
-                                      kv_lens, num_splits=num_splits)
-                      for r in range(tp)], dim=2)
+    if q.shape[0] % dp:
+        raise ValueError(f"a batch of {q.shape[0]} rows does not divide over dp={dp}")
+    rows = [slice(d * (q.shape[0] // dp), (d + 1) * (q.shape[0] // dp)) for d in range(dp)]
+    ks = [shard_heads(k_cache, m, tp) for m in range(tp)]
+    vs = [shard_heads(v_cache, m, tp) for m in range(tp)]
+    return torch.cat([
+        torch.cat([paged_attention(q[r].chunk(tp, dim=2)[m].contiguous(), ks[m], vs[m],
+                                   block_tables[r].contiguous(), q_start[r].contiguous(),
+                                   kv_lens[r].contiguous(), num_splits=num_splits)
+                   for m in range(tp)], dim=2)
+        for r in rows], dim=0)
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
-"""A tensor-parallel group over ``torch.distributed``: its two collectives
-and the leader's control channel to its followers.
+"""The ranks of a tensor- and data-parallel engine over
+``torch.distributed``: their collectives and the leader's control channel
+to its followers.
 
 Everything the model needs across ranks is built from ``all_reduce``
 and ``broadcast``, the two that gloo documents for CUDA tensors: the
@@ -11,13 +12,27 @@ row-parallel shard is an ``all_reduce`` with ``MAX``
 (:meth:`TPGroup.all_reduce_max`), and the leader's step inputs are
 broadcast.
 
+KV blocks move between the ranks and the leader's host memory with two
+more (:meth:`TPGroup.gather_heads`, :meth:`TPGroup.broadcast_bytes`): a
+rank's kv heads written into a zeroed buffer of every head and summed into
+the leader's (a reduce, byte for byte: each byte is one rank's plus
+zeros), and the leader's blocks broadcast to every rank as bytes. On gloo
+these buffers are CPU tensors.
+
 gloo reduces CUDA tensors through host memory, so its collectives cannot
 be captured in a CUDA graph: a tensor-parallel engine runs eager steps.
 Every collective blocks the calling thread until it is done; the group
-counts them and the host seconds they took.
+counts them and the host seconds they took, the block moves apart.
 
-The group is the process's default ``torch.distributed`` group: one
-tensor-parallel engine a process.
+Data parallelism (JAX's "data" mesh axis) multiplies the ranks: an engine
+of ``dp`` x ``tp`` ranks, rank ``d*tp + m`` holding model shard ``m`` of
+data replica ``d``. The model's collectives run in the replica's *model
+group* (``rank``, ``size``, ``pg``: the ``tp`` ranks of one replica), the
+attention rows a replica computed are gathered in the *data group* of its
+shard (the ``dp`` ranks holding shard ``m``, :meth:`TPGroup.gather_rows`),
+and the step inputs the leader broadcasts reach the whole world. The world
+is the process's default ``torch.distributed`` group: one engine a
+process.
 """
 
 from __future__ import annotations
@@ -46,52 +61,113 @@ class TPFailure(RuntimeError):
 
 @dataclass
 class TPGroup:
-    """One rank's membership of a tensor-parallel group."""
+    """One rank's membership of an engine's ranks: ``rank`` of ``size`` in
+    its replica's model group (what the model code shards by), replica
+    ``data_rank`` of ``dp``, ``world_rank`` of ``world_size`` in all."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
-    pg: Any                                  # the torch.distributed ProcessGroup
-    #: the control channel: the leader's connections to ranks 1..size-1,
-    #: or a follower's one connection to the leader
+    pg: Any                                  # the model group's ProcessGroup
+    #: the control channel: the leader's connections to world ranks
+    #: 1..world_size-1, or a follower's one connection to the leader
     conns: list = field(default_factory=list)
     #: the leader's description of its followers' state, for failures
     report: Callable[[], str] | None = None
+    dp: int = 1
+    data_rank: int = 0
+    data_pg: Any = None                      # this shard's data group (dp > 1)
+    world_pg: Any = None                     # every rank (None: the model group)
     collectives: int = 0
     collective_s: float = 0.0
+    #: block moves (gather_heads, broadcast_bytes): calls, bytes, host seconds
+    block_moves: int = 0
+    block_bytes: int = 0
+    block_s: float = 0.0
+
+    @property
+    def world_size(self) -> int:
+        return self.size * self.dp
+
+    @property
+    def world_rank(self) -> int:
+        return self.data_rank * self.size + self.rank
 
     @property
     def leader(self) -> bool:
-        return self.rank == 0
+        return self.world_rank == 0
+
+    @property
+    def _world(self):
+        return self.world_pg if self.world_pg is not None else self.pg
 
     def _failed(self, exc: BaseException) -> TPFailure:
-        what = f"rank {self.rank} of a tensor-parallel group of {self.size}: {exc}"
+        what = (f"rank {self.world_rank} of an engine of {self.world_size} ranks "
+                f"(tp={self.size}, dp={self.dp}): {exc}")
         if self.report is not None:
             what += "; " + self.report()
         return TPFailure(what)
 
-    def _run(self, fn, x: torch.Tensor, **kw) -> None:
+    def _run(self, fn, x: torch.Tensor, group=None, block: bool = False, **kw) -> None:
         t0 = time.perf_counter()
         try:
-            fn(x, group=self.pg, **kw)
+            fn(x, group=self.pg if group is None else group, **kw)
         except RuntimeError as exc:
             raise self._failed(exc) from exc
         finally:
-            self.collectives += 1
-            self.collective_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            if block:
+                self.block_moves += 1
+                self.block_bytes += x.numel() * x.element_size()
+                self.block_s += dt
+            else:
+                self.collectives += 1
+                self.collective_s += dt
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` (contiguous) over the ranks, in place; returns it."""
-        self._run(dist.all_reduce, x, op=dist.ReduceOp.SUM)
+        """Sum ``x`` (contiguous) over the model group, in place; returns
+        it."""
+        if self.size > 1:
+            self._run(dist.all_reduce, x, op=dist.ReduceOp.SUM)
         return x
 
-    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``x`` (contiguous) into every rank's, in place (a
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """The leader's ``x`` (contiguous) into every rank's, in place (a
         bool tensor travels as its bytes)."""
         self._run(dist.broadcast, x.view(torch.uint8) if x.dtype == torch.bool else x,
-                  src=src)
+                  group=self._world, src=0)
         return x
+
+    def gather_rows(self, local: torch.Tensor, rows: int) -> torch.Tensor:
+        """The full [rows, ...] tensor from each data replica's [rows/dp,
+        ...] piece (replica d's rows ``[d rows/dp, (d+1) rows/dp)``): the
+        pieces written into a zeroed buffer and summed over the data
+        group, each element one replica's value plus zeros."""
+        per = local.shape[0]
+        full = local.new_zeros((rows, *local.shape[1:]))
+        full[self.data_rank * per: (self.data_rank + 1) * per] = local
+        self._run(dist.all_reduce, full, group=self.data_pg, op=dist.ReduceOp.SUM)
+        return full
+
+    @property
+    def block_device(self) -> torch.device:
+        """Where block moves stage their buffers: host memory on gloo, the
+        rank's card on nccl."""
+        return torch.device("cpu") if self.backend == "gloo" else self.device
+
+    def gather_heads(self, buf: torch.Tensor) -> torch.Tensor:
+        """Sum every model rank's ``buf`` (uint8 bytes, zeros outside the
+        rank's own heads) into the leader's, in place: the leader's is
+        then every head's bytes (a reduce to the leader, in replica 0)."""
+        if self.size > 1:
+            self._run(dist.reduce, buf, block=True, op=dist.ReduceOp.SUM, dst=0)
+        return buf
+
+    def broadcast_bytes(self, buf: torch.Tensor) -> torch.Tensor:
+        """The leader's ``buf`` (uint8 bytes) into every rank's, in place."""
+        self._run(dist.broadcast, buf, group=self._world, block=True, src=0)
+        return buf
 
     def gather_vocab(self, local: torch.Tensor, vocab: int) -> torch.Tensor:
         """The full [..., vocab] tensor from each rank's [..., per] piece of
@@ -110,11 +186,12 @@ class TPGroup:
         return out
 
     def agree_min(self, n: int) -> int:
-        """The least of every rank's ``n`` (each rank writes its own into a
-        zeroed vector, summed)."""
-        v = torch.zeros(self.size, dtype=torch.int64, device=self.device)
-        v[self.rank] = n
-        return int(self.all_reduce_sum(v).min())
+        """The least of every rank's ``n``, over the world (each rank
+        writes its own into a zeroed vector, summed)."""
+        v = torch.zeros(self.world_size, dtype=torch.int64, device=self.device)
+        v[self.world_rank] = n
+        self._run(dist.all_reduce, v, group=self._world, op=dist.ReduceOp.SUM)
+        return int(v.min())
 
     # -- control channel (host messages, no collective) -------------------
     def post(self, *msg) -> None:
@@ -136,6 +213,7 @@ class TPGroup:
 
     def reset_stats(self) -> None:
         self.collectives, self.collective_s = 0, 0.0
+        self.block_moves, self.block_bytes, self.block_s = 0, 0, 0.0
 
     def close(self) -> None:
         """Leave the group (destroys the process's default group)."""
@@ -144,11 +222,15 @@ class TPGroup:
 
 
 def init_tp_group(rank: int, size: int, backend: str, init_method: str,
-                  device: torch.device, timeout: float = DEFAULT_TIMEOUT_S) -> TPGroup:
-    """Join a tensor-parallel group of ``size`` ranks as ``rank``, on
+                  device: torch.device, timeout: float = DEFAULT_TIMEOUT_S,
+                  dp: int = 1) -> TPGroup:
+    """Join an engine of ``dp`` x ``size`` ranks as world rank ``rank``
+    (model shard ``rank % size`` of replica ``rank // size``), on
     ``device`` (set as the process's current card first), through
     ``init_method`` (``file://`` or ``tcp://host:port``). nccl needs a
-    card a rank; gloo takes CPU and CUDA tensors."""
+    card a rank; gloo takes CPU and CUDA tensors. With ``dp > 1`` every
+    rank makes every replica's model group and every shard's data group,
+    in one order (``new_group`` is collective)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown dist backend {backend!r} (supported: {', '.join(BACKENDS)})")
     if backend == "nccl" and device.type != "cuda":
@@ -158,7 +240,16 @@ def init_tp_group(rank: int, size: int, backend: str, init_method: str,
                            "one tensor-parallel engine a process")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method, world_size=size, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout))
-    return TPGroup(rank=rank, size=size, device=device, backend=backend,
-                   pg=dist.group.WORLD)
+    td = datetime.timedelta(seconds=timeout)
+    dist.init_process_group(backend, init_method=init_method, world_size=size * dp,
+                            rank=rank, timeout=td)
+    if dp == 1:
+        return TPGroup(rank=rank, size=size, device=device, backend=backend,
+                       pg=dist.group.WORLD)
+    d, m = divmod(rank, size)
+    models = [dist.new_group([r * size + i for i in range(size)], timeout=td)
+              for r in range(dp)]
+    datas = [dist.new_group([r * size + i for r in range(dp)], timeout=td)
+             for i in range(size)]
+    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d],
+                   dp=dp, data_rank=d, data_pg=datas[m], world_pg=dist.group.WORLD)

@@ -27,9 +27,12 @@ masks (``models/llama.embed_lookup``, ``logits_from_hidden``). JAX refuses
 that placement (``device_put`` needs a divisible dim); the port serves
 it.
 
-Heads whose count does not divide tp are refused: JAX serves
-``num_kv_heads % tp != 0`` only through its dense gather fallback
-(``dynamo_tpu/models/llama.py:384-396``), which the port does not carry.
+Kv heads whose count does not divide tp are refused, as JAX's engine
+refuses them: its dense gather fallback (``dynamo_tpu/models/llama.py``,
+``forward``) serves a bare ``forward`` only, while its engine cannot place
+such a cache (``kv_cache_spec`` puts the kv heads on "model", and the
+placement needs a divisible dim), so ``EngineCore`` raises at
+construction.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ class MeshConfig:
 
 # Logical→mesh axis rules for model parameters (a copy of JAX's). Keys are
 # the logical axis names of :func:`param_logical_axes`; values are mesh
-# axes (None = replicate). Only "model" has ranks in the port.
+# axes (None = replicate). Params shard over "model" only: the port's
+# "data" ranks (engine/tp.py) each hold a copy of them.
 PARAM_RULES: dict[str, str | None] = {
     "vocab": "model",          # embedding/lm_head vocab-sharded
     "hidden": None,            # activations' hidden axis replicated in params
@@ -117,9 +121,9 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
         raise ValueError(f"tp must be >= 1, got {tp}")
     if cfg.num_kv_heads % tp:
         raise ValueError(
-            f"num_kv_heads={cfg.num_kv_heads} does not divide over tp={tp}: the JAX "
-            "package serves that only through its dense gather fallback, which the "
-            "torch port does not carry yet (ROADMAP Queue 1 item 14)")
+            f"num_kv_heads={cfg.num_kv_heads} does not divide over tp={tp}: the KV "
+            "cache shards its kv heads over the ranks (the JAX engine cannot place "
+            "such a cache either: ROADMAP, gaps in the reference)")
     for name, n in (("num_heads", cfg.num_heads), ("intermediate_size", cfg.intermediate_size)):
         if n % tp:
             raise ValueError(f"{name}={n} does not divide over tp={tp}")

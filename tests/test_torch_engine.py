@@ -299,7 +299,7 @@ def test_block_allocator_matches_jax():
 
 
 @pytest.mark.parametrize("setting", [
-    dict(tp=2, warmup_mode="full"), dict(pp=2), dict(dp=2), dict(ep=2), dict(sp=2),
+    dict(tp=2, warmup_mode="full"), dict(pp=2), dict(dp=2, pp=2), dict(ep=2), dict(sp=2),
     dict(kv_dtype="fp8"),
     dict(quantization="int4"), dict(quantization="fp8"),
     dict(spec_ngram=3, decode_window=4), dict(warmup_mode="eager"), dict(warmup_deadline=-1.0), dict(kv_dtype="int2"),

@@ -287,8 +287,12 @@ def test_engine_tp2_matches_jax_tp2(tiny32, kv_dtype, pipelined):
     EngineCore(tp=2) on tiny-llama at f32 (the pipelined loop feeds decode
     rows their in-flight tokens through the leader's broadcast). Every rank
     launched the same forward steps on 2 of the 4 heads, 1 of the 2 kv
-    heads; blocks cannot be exported from a tensor-parallel engine, nor
-    handed off by the disaggregated handoff's ops."""
+    heads. Blocks export whole (every kv head, as from one process), and
+    every op of the disaggregated handoff runs: a chain staged and
+    released, a stream opened and closed, a pull with no shard answered
+    -1 (nothing mutated), the shard server started."""
+    from dynamo_tpu_torch.tokens import TokenBlockSequence
+
     jp, full = tiny32
     kw = _cfg(TINY32, kv_dtype=kv_dtype)
     core = _port_core(full, **kw)
@@ -296,20 +300,27 @@ def test_engine_tp2_matches_jax_tp2(tiny32, kv_dtype, pipelined):
         got, fin = _run(core, _reqs(tproto), pipelined=pipelined)
         assert fin == set(got)
         ranks = core.tp_stats()
-        with pytest.raises(ValueError, match="tp > 1 with block export"):
-            core.export_blocks([1, 2])
-        # nor handed off: every op of the disaggregated handoff refuses
-        params = {"xfer_id": "x", "block_hashes": [1], "shards": []}
-        for name, args in (("kv_stage", {"xfer_id": "x", "hashes": [1, 2]}),
-                           ("kv_stream_begin", {"xfer_id": "x", "request_id": "r",
-                                                "hashes": [1]}),
-                           ("kv_prefetch", {"params": params}),
-                           ("kv_import", {"params": params})):
-            with pytest.raises(ValueError, match="tp > 1 with block export"):
-                core.run_op(name, args)
-        with pytest.raises(ValueError, match="tp > 1 with block export"):
-            core.start_shard_server("127.0.0.1")
+        hashes = TokenBlockSequence.from_tokens(PROMPTS[1], 4).sequence_hashes()
+        blocks = core.export_blocks(hashes)
+        whole = KVCacheSpec.for_model(TCFG, 1, 4, kv_dtype=kv_dtype)
+        assert len(blocks) == len(hashes) == 9
+        if kv_dtype == "int8":
+            assert all(b.shape == (whole.bytes_per_block(),) for _, _, b in blocks)
+        else:
+            assert all(b.shape == (2, TCFG.num_layers, 4, 2, TCFG.head_dim)
+                       for _, _, b in blocks)
+        params = {"xfer_id": "y", "block_hashes": hashes, "shards": []}
+        assert core.run_op("kv_stage", {"xfer_id": "x", "hashes": hashes}) == 9
+        core.run_op("kv_release", {"xfer_id": "x"})
+        assert core.run_op("kv_stream_begin", {"xfer_id": "s", "request_id": "r",
+                                                "hashes": hashes}) == 9
+        assert core.run_op("kv_stream_end", {"xfer_id": "s"}) == 0
+        core.run_op("kv_prefetch", {"params": params})
+        assert core.run_op("kv_import", {"params": params}) == -1
+        assert core.start_shard_server("127.0.0.1").startswith("127.0.0.1:")
+        assert not core._staged_pins.get("x")
     finally:
+        core.stop_shard_server()
         core.close()
     assert got == _jax_streams(jp, tp=2, **kw)
     assert [r["rank"] for r in ranks] == [0, 1]
@@ -377,9 +388,9 @@ def test_a_follower_that_fails_fails_the_leader_with_its_traceback(tiny32):
     (dict(tp_devices=(0, 0), num_blocks=0), "explicit num_blocks"),
     (dict(warmup_mode="lazy"), "CUDA graphs"),
     (dict(warmup_mode="full"), "CUDA graphs"),
-    (dict(host_kv_blocks=16), "KVBM tiers"),
-    (dict(session_ttl=30.0), "sessions"),
-    (dict(decode_window=4), "decode_window"),
+    (dict(pp=2), "pp/ep/sp > 1"),
+    (dict(ep=2), "pp/ep/sp > 1"),
+    (dict(sp=2), "pp/ep/sp > 1"),
     (dict(tp_devices=(0,)), "one card for each"),
     (dict(dist_backend="mpi"), "unknown dist_backend"),
 ])
@@ -391,8 +402,22 @@ def test_tp_refusals(setting, match):
         teng.EngineCore(TEngineConfig(**kw), device="cpu")
 
 
+def test_kv_heads_that_do_not_divide_are_refused_by_both_packages():
+    """tiny-llama's 2 kv heads over tp=4: JAX's EngineCore cannot place
+    its KV cache (the kv heads sit on "model") and raises at construction;
+    the port refuses by name before any follower starts."""
+    kw = dict(model="tiny-llama", block_size=4, num_blocks=16, max_batch_size=2,
+              max_model_len=64)
+    with pytest.raises(ValueError, match="implies that the global size"):
+        jeng.EngineCore(JEngineConfig(**kw, tp=4))
+    with pytest.raises(ValueError, match="num_kv_heads=2 does not divide over tp=4: the KV "
+                                         "cache shards its kv heads"):
+        teng.EngineCore(TEngineConfig(**kw, tp=4, dist_backend="gloo", warmup_mode="off"),
+                        device="cpu")
+
+
 def test_tp_refusals_that_need_the_model_or_the_device():
-    """kv heads that do not divide (JAX's dense fallback is not ported)
+    """kv heads that do not divide (neither package's engine serves them)
     and nccl on the CPU raise before any follower starts."""
     base = dict(model="tiny-llama", block_size=4, num_blocks=16, max_batch_size=2,
                 max_model_len=64, warmup_mode="off")

@@ -273,8 +273,9 @@ async def test_published_stats_pack_with_the_port_codec(real32):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--engine", "mocker", "--disagg", "prefill"], "--disagg requires --engine torch"),
-    (["--disagg", "prefill", "--tp", "2"], "the handoff of a sharded cache: ROADMAP item 14"),
-    (["--disagg", "decode", "--tp", "2"], "the handoff of a sharded cache: ROADMAP item 14"),
+    (["--disagg", "prefill", "--tp", "2", "--num-nodes", "2"],
+     "multi-host engines: ROADMAP item 14"),
+    (["--disagg", "decode", "--num-nodes", "2"], "multi-host engines: ROADMAP item 14"),
     (["--num-nodes", "2"], "multi-host engines: ROADMAP item 14"),
 ])
 def test_worker_refuses_by_name(argv, needle):
@@ -285,13 +286,19 @@ def test_worker_refuses_by_name(argv, needle):
 @pytest.mark.parametrize("role", ["prefill", "decode"])
 def test_worker_takes_disagg_at_tp1(role):
     """``--disagg prefill|decode`` runs on one rank (tests/test_torch_disagg_cluster.py
-    serves through both)."""
+    serves through both), and on two (the leader hands off whole blocks)."""
     tworker.check_worker_args(tworker.parse_args(["--disagg", role]))
+    ns = tworker.parse_args(["--disagg", role, "--tp", "2", "--dp", "2",
+                             "--dist-backend", "gloo", "--tp-devices", "0,0,0,0"])
+    tworker.check_worker_args(ns)
+    ec = tworker.engine_config(ns, None)
+    assert (ec.tp, ec.dp, ec.dist_backend, ec.tp_devices) == (2, 2, "gloo", (0, 0, 0, 0))
 
 
 def test_worker_keeps_jax_flags_and_defaults():
     """Every flag of the JAX worker parses on the port's, with JAX's
-    default (``--engine`` aside: the port serves ``torch``)."""
+    default (``--engine`` aside: the port serves ``torch``); the port's own
+    are the card and dtype, and its ranks' backend and cards."""
     from dynamo_tpu.components import worker as jworker
 
     j, t = vars(jworker.parse_args([])), vars(tworker.parse_args([]))
@@ -299,7 +306,7 @@ def test_worker_keeps_jax_flags_and_defaults():
     assert t["health_interval"] == 5.0
     for k, v in j.items():
         assert t[k] == v, k
-    assert set(t) - set(j) == {"device", "dtype"}
+    assert set(t) - set(j) == {"device", "dtype", "dist_backend", "tp_devices"}
     tworker.check_worker_args(tworker.parse_args([]))
 
 

@@ -92,3 +92,63 @@ def run_ranks(target, size: int, tmp_path, *args, timeout: float = 120.0) -> lis
     if codes != [0] * size:
         raise AssertionError(f"rank exit codes {codes}")
     return got
+
+
+def _bits(x: torch.Tensor):
+    """A tensor as numpy (bf16 as its int16 bits)."""
+    return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def _heads(cache, rank: int, size: int):
+    """Rank ``rank``'s kv heads of a cache [L, NB, BS, KH, D] (and of a
+    quantized one's scales [L, NB, KH])."""
+    if isinstance(cache, dict):
+        return {"q": _heads(cache["q"], rank, size),
+                "s": cache["s"].chunk(size, dim=2)[rank].contiguous()}
+    return cache.chunk(size, dim=3)[rank].contiguous()
+
+
+def transfer_rank(rank: int, init_method: str, cases: dict, conn) -> None:
+    """The sharded block mover on rank ``rank`` of two: for each case
+    (``{kind: (cache_k, cache_v, ids, [(mode-named blocks)...])}``, whole
+    caches) this rank holds its kv heads; the leader extracts ``ids``
+    through ``TPTransferEngine`` (packed, and dequantized for a quantized
+    cache) while the follower serves the gathers, then every host block
+    list is injected at ``ids`` the same way. Sends {kind: (extracts, the
+    rank's shard after the injects)}."""
+    from dynamo_tpu_torch.kvbm.transfer import (
+        TPTransferEngine,
+        _stacked,
+        prepare_inject,
+        tp_gather,
+        tp_scatter,
+    )
+
+    group = init_tp_group(rank, 2, "gloo", init_method, torch.device("cpu"), timeout=60.0)
+    try:
+        out = {}
+        for kind, (ck, cv, ids, injects) in cases.items():
+            ck, cv = _heads(ck, rank, 2), _heads(cv, rank, 2)
+            kh = (ck["q"] if isinstance(ck, dict) else ck).shape[3] * 2
+            eng = TPTransferEngine(group, kh)
+            quant = isinstance(ck, dict)
+            extracts = []
+            for dequant in ((False, True) if quant else (False,)):
+                if group.leader:
+                    extracts.append([b.tobytes() for b in eng.extract(ck, cv, ids, dequant)])
+                else:
+                    tp_gather(group, ck, cv, ids, dequant, kh)
+            for blocks in injects:
+                if group.leader:
+                    eng.inject(ck, cv, ids, blocks)
+                else:   # what the leader's post names: the mode, shape and dtype
+                    mode, host = prepare_inject(blocks, ck, kh)
+                    data = _stacked(host, pinned=False)
+                    tp_scatter(group, ck, cv, ids, mode, tuple(data.shape), data.dtype)
+            out[kind] = (extracts, *(_numpy_tree(c) if quant else _bits(c) for c in (ck, cv)))
+            if group.leader:
+                out[kind] += (eng.stats.snapshot(),)
+        conn.send(out)
+    finally:
+        group.close()
+        conn.close()
