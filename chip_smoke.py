@@ -361,8 +361,11 @@ if any phase fails:
     the SLO stamp; every request finish with 64 tokens; the invariants
     (streams, block leaks, metrics balance, the fleet rollup) pass; each
     worker's ``compile_storm`` gauge equal its own serve captures over the
-    window (flagged from 8 on); both workers launch ``mma_bf16`` only, 8 a
-    forward step. Prints the decisions, the time from the scale-up
+    window (flagged from 8 on), both read while the heavy traffic still
+    holds both replicas (at a moment no capture falls between two reads of
+    the worker's own count, 3 scrapes apart), so the planner cannot have
+    retired B yet; both workers launch ``mma_bf16`` only, 8 a forward
+    step, read as soon as the traffic stops. Prints the decisions, the time from the scale-up
     decision to B's first request, the SLO snapshot and the launches.
 (o) the loading tools, a recipe, KServe v2 and the encode worker. (o0)
     llama-3-8b-lite's seed-0 bf16 weights ((b)'s) written as a GGUF file
@@ -432,6 +435,23 @@ prefill`` worker and a ``--disagg decode`` worker at tp=1 (f32, 8 layers,
 eager tp=2 prefill): 8 x (128 + 32) equal (b'')'s streams,
 every prefill remote, no staging pin after the TTL.
 
+(q) MoE across ranks, every engine's ranks on the card over gloo (eager
+steps, an explicit pool; each rank draws only its shard of the seed-0
+weights). (q1) gpt-oss-120b's widths (H 2880, 64 heads, 8 kv heads, head
+dim 64, 128 experts, top 4) with f32 weights over the f32 cache, cut to 1
+layer: 16 x (128 + 16) greedy at tp=1 (lazily captured graphs), tp=2 (the
+dense dispatch, the per-expert width split: TEP), ep=2 (the dropless
+dispatch, 64 experts a rank) and tp=2 x ep=2 (four ranks); every stream
+equals tp=1's or first differs at a near-tie; every rank launches
+``mma_f32`` only, once a forward step, on 32 of the 64 heads and 4 of the
+8 kv heads at tp=2 and on all 64 at ep=2. (q2) (j1)'s cut (bf16, 4
+layers, 32 x (128 + 32)) at ep=2: each rank holds 64 experts, half of
+(j1)'s expert bytes within 1%, and launches ``mma_bf16`` only, 4 a
+forward step. Each run prints its setup s, TTFT, decode tok/s (beside
+(j1)'s for (q2)) and, a rank, its expert and weight bytes, peak memory and
+collective ms a forward step. No speed condition: the ranks share one
+card over gloo, through host memory.
+
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
 engine (``EngineCore``, ``ModelRunner``) of the phase still alive fails
@@ -443,8 +463,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k) and (l), ``mma_f32`` in (m), ``mma_bf16`` in (n) and
-(o); and a
+in (i), (j), (k), (l) and (q), ``mma_f32`` in (m) and (p), ``mma_bf16``
+in (n) and (o); and a
 ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
@@ -460,7 +480,8 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-k`` for (b'')'s f32 run (the reference of
 (k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l);
 ``python3 chip_smoke.py --only-m`` runs (m) alone; ``--only-n`` builds the
-kernels and runs (n) alone, ``--only-o`` (o) alone.
+kernels and runs (n) alone, ``--only-o`` (o) alone, ``--only-q`` (j1)
+(the reference of (q2)) and (q).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -1400,6 +1421,8 @@ def moe_serve(tag: str, base: str, layers: int, batch: int, prompt: int, decode:
            "moe_intermediate": cfg.moe_intermediate_size, "head_dim": cfg.head_dim,
            "requests": batch, "prompt": prompt, "tokens": batch * decode,
            "setup_s": setup_s, "weight_bytes": param_bytes(core.runner.params),
+           "expert_bytes": sum(param_bytes(core.runner.params["layers"][k])
+                               for k in ("w_gate", "w_up", "w_down")),
            "forward_steps": forward_steps, "launches_by_kernel": by_kernel,
            "launches_per_forward_step": sum(by_kernel.values()) / forward_steps,
            "graphs": sorted(list(k) for k in core.runner.programs), "max_step_rows": rows,
@@ -5409,38 +5432,40 @@ def phase_planner(smi: str, n1: dict, device: str = "cuda") -> dict:
         b_inst = next(t["instance"] for t in k_get(agg_port, "/debug/fleet")["targets"]
                       if t["role"] == "worker" and t["instance"] != a_inst)
         wait_for(lambda: time.perf_counter() - t_heavy >= 3 * N_INTERVAL, 60, "")
-        stop.set()
-        heavy.join(300)
-        if errors:
-            raise AssertionError(f"[n2] heavy traffic: {errors[0]!r}")
-        out["heavy_s"] = time.perf_counter() - t_heavy
-        out["decision_to_b_ready_s"] = t_b_ready - up["t"]
-        out["decision_to_b_first_request_s"] = first_b - up["t"]
-        log(f"[n2] scale-up decision ({up['reason']}) -> B ({b_hex}) ready "
-            f"{out['decision_to_b_ready_s']:.2f}s, first request routed to B "
-            f"{out['decision_to_b_first_request_s']:.2f}s; on {smi}")
 
-        # the quiet: both workers' launches, and the compile storms against
-        # each worker's own serve captures
-        settled = k_settled(http_port, K_MODEL, [a, b])
-        zero = {"workers": {w: {"attention": {"launches": {}, "forward_steps": 0}}
-                            for w in (a, b)}}
-        out["launches"] = k_launches("[n2]", zero, settled, [a, b], route, layers)
-        time.sleep(3 * N_SCRAPE)
-        debug = k_get(agg_port, "/debug/fleet")
-        storms = {s["instance"] for s in debug["compile_storms"]}
-        gauges = parse_prometheus(asyncio.run(http_call(agg_port, "GET", "/metrics"))[
-            "body"].decode())
-        out["compile_storm"] = {}
-        for w, inst in ((a, a_inst), (b, b_inst)):
+        # the compile storms against each worker's own serve captures, read
+        # while the heavy traffic still holds both replicas (once the load
+        # falls the planner may decide 1 and retire B before it is read):
+        # both workers' own counts, the aggregator after 3 scrapes, the own
+        # counts again; taken when no capture fell between the two reads
+        def own_captures(inst: str) -> float:
             port = int(inst.rsplit(":", 1)[1])
             own = parse_prometheus(asyncio.run(http_call(port, "GET", "/metrics"))[
                 "body"].decode())
-            own_now = sum(v for (name, labels), v in own.items()
-                          if name == "dynamo_xla_compile_events_total"
-                          and ("source", "serve") in labels)
-            series = watch.serve_series(inst)
+            return sum(v for (name, labels), v in own.items()
+                       if name == "dynamo_xla_compile_events_total"
+                       and ("source", "serve") in labels)
+
+        insts = ((a, a_inst), (b, b_inst))
+        deadline = time.monotonic() + 60
+        while True:
+            before = {w: own_captures(inst) for w, inst in insts}
+            time.sleep(3 * N_SCRAPE)
+            debug = k_get(agg_port, "/debug/fleet")
+            gauges = parse_prometheus(asyncio.run(http_call(agg_port, "GET", "/metrics"))[
+                "body"].decode())
             now = time.perf_counter()
+            after = {w: own_captures(inst) for w, inst in insts}
+            if after == before:
+                break
+            if errors or time.monotonic() > deadline:
+                raise AssertionError(f"[n2] serve captures still moving under the heavy "
+                                     f"traffic after 60 s ({before} -> {after}); {errors}")
+        storms = {s["instance"] for s in debug["compile_storms"]}
+        out["compile_storm"] = {}
+        for w, inst in insts:
+            own_now = after[w]
+            series = watch.serve_series(inst)
             base = series[0][1]
             for ts, v in series:
                 if ts <= now - COMPILE_STORM_WINDOW_S:
@@ -5456,6 +5481,22 @@ def phase_planner(smi: str, n1: dict, device: str = "cuda") -> dict:
                                      f"flagged {inst in storms}; the worker's own serve "
                                      f"captures {own_now} - {base} = {want} (threshold "
                                      f"{COMPILE_STORM_THRESHOLD})")
+        stop.set()
+        heavy.join(300)
+        if errors:
+            raise AssertionError(f"[n2] heavy traffic: {errors[0]!r}")
+        out["heavy_s"] = time.perf_counter() - t_heavy
+        out["decision_to_b_ready_s"] = t_b_ready - up["t"]
+        out["decision_to_b_first_request_s"] = first_b - up["t"]
+        log(f"[n2] scale-up decision ({up['reason']}) -> B ({b_hex}) ready "
+            f"{out['decision_to_b_ready_s']:.2f}s, first request routed to B "
+            f"{out['decision_to_b_first_request_s']:.2f}s; on {smi}")
+
+        # the quiet, at once: both workers' launches
+        settled = k_settled(http_port, K_MODEL, [a, b])
+        zero = {"workers": {w: {"attention": {"launches": {}, "forward_steps": 0}}
+                            for w in (a, b)}}
+        out["launches"] = k_launches("[n2]", zero, settled, [a, b], route, layers)
         log("[n2] compile storms " + json.dumps(out["compile_storm"]))
 
         # 3. a trickle: the planner decides 1 and the connector retires B
@@ -6784,6 +6825,179 @@ def phase_parity(smi: str, f32_ref: dict, bw: float, peak: float,
     return res
 
 
+# ---------------------------------------------------------------------------
+# (q) MoE across ranks: the expert width over tp, the experts over ep
+# ---------------------------------------------------------------------------
+
+#: (q1): gpt-oss-120b's widths with seed-0 f32 weights over the f32 cache,
+#: cut to Q1_LAYERS layers; Q1_BATCH greedy requests of Q1_PROMPT + Q1_DECODE
+Q1_BASE, Q1_LAYERS, Q1_BATCH, Q1_PROMPT, Q1_DECODE = "gpt-oss-120b", 1, 16, 128, 16
+#: (q1)'s meshes: the tp=1 reference, TEP, EP and both (four ranks)
+Q1_MESHES = {"tp1": {}, "tp2": dict(tp=2), "ep2": dict(ep=2), "tp2_ep2": dict(tp=2, ep=2)}
+#: (q2): (j1)'s cut (gpt-oss-120b, bf16, 4 layers, 32 x (128 + 32)) at ep=2
+Q2_EP = 2
+#: (q2): each rank's expert bytes against half of (j1)'s, relative
+Q2_BYTES_TOL = 0.01
+
+
+def q_model(base: str, layers: int, dtype: str) -> str:
+    """Register ``base`` at ``dtype`` cut to ``layers`` layers as a preset
+    of its own; returns its name."""
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+
+    name = f"{base}-{dtype}-{layers}l-q"
+    MODEL_PRESETS[name] = dataclasses.replace(MODEL_PRESETS[base], dtype=dtype,
+                                              num_layers=layers, name=name)
+    return name
+
+
+def q_engine(device: str, model: str, batch: int, max_len: int, prompt: int, max_rows: int,
+             tp: int = 1, ep: int = 1):
+    """A (q) engine of ``ep`` x ``tp`` ranks (on one card over gloo, eager
+    steps, an explicit pool; lazily captured graphs at one rank), random
+    weights from seed 0 (each rank draws only its shard), legacy steps
+    whose prefill takes ``prompt``-token chunks, at most ``max_rows``
+    token rows a step."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    ranks = tp * ep
+    return build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=batch, max_model_len=max_len,
+        num_blocks=batch * -(-max_len // 16) + 1, prefill_chunk=prompt,
+        max_tokens_per_step=max_rows, unified_step=False, allow_random_weights=True,
+        warmup_mode="lazy" if ranks == 1 else "off", tp=tp, ep=ep, dist_backend="gloo",
+        tp_devices=(0,) * ranks if ranks > 1 and device != "cpu" else ()), device=device)
+
+
+async def q_serve(device: str, tag: str, model: str, prompts: list, decode: int,
+                  max_rows: int, route: str, mesh: dict) -> dict:
+    """Build a (q) engine at ``mesh``, serve ``prompts`` once (``p_serve``:
+    ``route`` only, a launch a layer and forward step, on every rank),
+    and return the streams with the run's numbers: setup s, TTFT, decode
+    tok/s, and each rank's heads, experts, expert and weight bytes, peak
+    memory and collective ms a forward step."""
+    from dynamo_tpu_torch.models.quant import param_bytes
+
+    batch, prompt = len(prompts), len(prompts[0])
+    t0 = time.perf_counter()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    engine = q_engine(device, model, batch, prompt + decode + 16, prompt, max_rows, **mesh)
+    setup = time.perf_counter() - t0
+    try:
+        core = engine.core
+        r = await p_serve(engine, kv_reqs(prompts, tag, decode), f"[{tag}]", route)
+        ranks = (await engine.run_in_core(lambda c: c.tp_stats())
+                 if core.runner.tp is not None else None)
+        layers = core.runner.params["layers"]
+        one = {"rank": 0, "heads": layers["wq"].shape[-1] // core.model_cfg.head_dim,
+               "kv_heads": core.runner.spec.num_kv_heads, "launches": r["launches"],
+               "local_experts": layers["w_gate"].shape[1],
+               "expert_bytes": sum(param_bytes(layers[k]) for k in ("w_gate", "w_up", "w_down")),
+               "weight_bytes": param_bytes(core.runner.params),
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if device != "cpu" else 0.0)}
+    finally:
+        await engine.shutdown()
+    steps = r["forward_steps"]
+    if ranks is None:
+        per_rank = [one]
+    else:
+        by_rank = {x["rank"]: x for x in r["ranks"]}
+        per_rank = [{"rank": x["rank"], "expert_rank": x["expert_rank"],
+                     "model_rank": x["model_rank"], "heads": x["heads"],
+                     "kv_heads": x["kv_heads"], "local_experts": x["local_experts"],
+                     "expert_bytes": x["expert_bytes"], "weight_bytes": x["weight_bytes"],
+                     "peak_mem_gib": x["max_memory_allocated"] / 2**30,
+                     "launches": by_rank[x["rank"]]["launches"],
+                     "collective_ms_per_step": by_rank[x["rank"]]["collective_ms"] / steps}
+                    for x in ranks]
+    out = {"mesh": mesh, "setup_s": setup, "ttft_all_s": r["ttft_all_s"],
+           "ttft_median_s": r["ttft_median_s"], "wall_s": r["wall_s"],
+           "decode_tok_s": batch * (decode - 1) / max(r["wall_s"] - r["ttft_all_s"], 1e-9),
+           "forward_steps": steps, "launches": r["launches"], "ranks": per_rank,
+           "streams": r["streams"], "lps": r["lps"]}
+    log(f"[{tag}] " + json.dumps({k: v for k, v in out.items() if k not in ("streams", "lps")}))
+    return out
+
+
+def q_heads_check(tag: str, run: dict, cfg, tp: int, ep: int) -> None:
+    """Each rank attends its model shard's heads (every expert rank the
+    same ones) and holds its experts."""
+    for r in run["ranks"]:
+        want = (cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.num_experts // ep)
+        if (r["heads"], r["kv_heads"], r["local_experts"]) != want:
+            raise AssertionError(f"{tag}: rank {r['rank']} holds {r['heads']} heads, "
+                                 f"{r['kv_heads']} kv heads, {r['local_experts']} experts; "
+                                 f"expected {want}")
+
+
+def phase_moe_parallel(smi: str, j1: dict | None, device: str = "cuda") -> dict:
+    """(q): see the module docstring. ``j1`` is (j1)'s result (its expert
+    bytes and its speed, printed beside (q2)'s)."""
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    res: dict = {"smi": smi}
+    # (q1) f32 streams at four meshes against tp=1's
+    model = q_model(Q1_BASE, Q1_LAYERS, "float32")
+    cfg = MODEL_PRESETS[model]
+    route = pa.ROUTES[(torch.float32, "float")]
+    prompts = kv_prompts(61, Q1_BATCH, Q1_PROMPT, cfg.vocab_size)
+    runs = {}
+    for tag, mesh in Q1_MESHES.items():
+        t0 = time.perf_counter()
+        runs[tag] = asyncio.run(q_serve(device, f"q1 {tag}", model, prompts, Q1_DECODE,
+                                        Q1_BATCH * Q1_PROMPT, route, mesh))
+        free_engine()
+        audit_memory(f"(q1) {tag}")
+        q_heads_check(f"[q1] {tag}", runs[tag], cfg, mesh.get("tp", 1), mesh.get("ep", 1))
+        runs[tag]["seconds"] = time.perf_counter() - t0
+    q1 = {}
+    for tag, run in runs.items():
+        q1[tag] = {k: v for k, v in run.items() if k not in ("streams", "lps")}
+        if tag != "tp1":
+            q1[tag].update(p_same(f"[q1] {tag} against tp=1", run, runs["tp1"]))
+    res["q1"] = q1
+    log("[q1] " + json.dumps(q1))
+    # (q2) bf16 at (j1)'s cut, ep=2: half of (j1)'s expert bytes a rank
+    base, layers, batch, prompt, decode, max_rows = MOE_RUNS["j1"]
+    model = q_model(base, layers, "bfloat16")
+    cfg = MODEL_PRESETS[model]
+    route = pa.ROUTES[(torch.bfloat16, "float")]
+    t0 = time.perf_counter()
+    run = asyncio.run(q_serve(device, "q2 ep2", model,
+                              kv_prompts(62, batch, prompt, cfg.vocab_size), decode, max_rows,
+                              route, dict(ep=Q2_EP)))
+    free_engine()
+    audit_memory("(q2)")
+    q_heads_check("[q2] ep2", run, cfg, 1, Q2_EP)
+    for r in run["streams"].values():
+        if len(r) != decode or not all(0 <= t < cfg.vocab_size for t in r):
+            raise AssertionError(f"[q2] a stream of {len(r)} tokens, expected {decode}")
+    q2 = {k: v for k, v in run.items() if k not in ("streams", "lps")}
+    q2["seconds"] = time.perf_counter() - t0
+    if j1 is not None:
+        q2["j1"] = {k: j1.get(k) for k in ("decode_tok_s", "ttft_all_s", "ttft_p50_s",
+                                           "weight_bytes", "expert_bytes", "peak_mem_gib")}
+        half = j1["expert_bytes"] / Q2_EP
+        q2["expert_bytes_over_half_j1"] = [r["expert_bytes"] / half for r in run["ranks"]]
+        if any(abs(x - 1) > Q2_BYTES_TOL for x in q2["expert_bytes_over_half_j1"]):
+            raise AssertionError(f"[q2] expert bytes a rank {q2['expert_bytes_over_half_j1']} "
+                                 f"of half (j1)'s, beyond {Q2_BYTES_TOL}")
+    res["q2"] = q2
+    log("[q2] " + json.dumps(q2))
+    # every rank's launches of the route, summed
+    res["launches_q"] = {f"q1 {tag}": sum(r["launches"] for r in run["ranks"])
+                         for tag, run in q1.items()}
+    res["launches_q2"] = sum(r["launches"] for r in q2["ranks"])
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[q] passed in {res['seconds']:.1f}s on {smi}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6878,6 +7092,15 @@ def main() -> int:
         audit_memory("(p)")
         log(f"(p) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-q"]:
+        # a rehearsal of (q), with (j1) for (q2)'s reference: no kernels or
+        # result line
+        j1 = moe_serve("[j1]", *MOE_RUNS["j1"], smi=smi)
+        audit_memory("(j1)")
+        phase_moe_parallel(smi, j1)
+        audit_memory("(q)")
+        log(f"(q) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -6913,6 +7136,8 @@ def main() -> int:
     audit_memory("(i1), (i2)")
     moe = phase_moe(smi, profile=profile)
     audit_memory("(j)")
+    moe_par = phase_moe_parallel(smi, moe["j1"])
+    audit_memory("(q)")
     phase_spec(True, smi)
     phase_spec(False, smi, serve["float"]["decode_tok_s"])
     audit_memory("(d1), (d2)")
@@ -6985,6 +7210,8 @@ def main() -> int:
             # (p)'s tensor- and data-parallel engines, every rank, and (p3)'s
             # prefill (leader) and decode workers
             lines[-1]["launches_p"] = parity["launches_p"]
+            # (q1)'s MoE engines at tp=1, tp=2, ep=2 and tp=2 x ep=2, every rank
+            lines[-1]["launches_q"] = moe_par["launches_q"]
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}
@@ -7002,6 +7229,8 @@ def main() -> int:
                 **{f"o3 worker {w}": r["launches"]
                    for w, r in loading["o3"]["throughput"]["workers"].items()},
                 **{f"o4 worker {w}": r["launches"] for w, r in loading["o4"]["workers"].items()}}
+            # (q2)'s ep=2 engine, both ranks
+            lines[-1]["launches_q"] = {"q2 ep2": moe_par["launches_q2"]}
             lines[-1]["launches_int8_moe"] = {
                 "i1 int8 llama-3-8b-lite": int8["i1"]["launches_by_kernel"][route],
                 **{f"{tag} {moe[tag]['model']}": moe[tag]["launches_by_kernel"][route]

@@ -69,7 +69,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
-                   help="torch.distributed backend of --tp/--dp ranks: nccl takes one "
+                   help="torch.distributed backend of --tp/--ep/--dp ranks: nccl takes one "
                         "card a rank; ranks that share a card need gloo")
     p.add_argument("--tp-devices", default=None,
                    help="comma-separated card index of each rank (default rank r on "
@@ -80,7 +80,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas within ONE engine ('data' axis)")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel shards ('expert' axis; MoE models)")
+                   help="expert-parallel shards ('expert' axis; MoE models: the "
+                        "experts split over ep ranks, the dropless dispatch)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel shards ('seq' axis; ring attention)")
     p.add_argument("--allow-random-weights", action="store_true",

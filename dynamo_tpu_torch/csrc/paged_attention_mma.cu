@@ -1079,7 +1079,52 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const float* 
 
 }  // namespace
 
+// The build (ops/build.py) compiles this source once for each (cache,
+// query) policy pair, all at once: with DYN_MMA_PAIR = n the translation
+// unit holds pair n's 16 head-dim instantiations behind
+// dyn_paged_attention_mma_pair_n; without it, only the C entry point, which
+// picks the pair. The pairs' units are what take nvcc's time.
+#define DYN_MMA_PAIR_PARAMS                                                                 \
+    int D, const void *q, const void *k, const void *v, const float *ks, const float *vs,  \
+        const int32_t *bt, const int32_t *qs, const int32_t *kl, void *out, float *acc,    \
+        float *m, float *l, int B, int n_tok, int H, int KH, int BS, int NBLK, int ns,      \
+        int spb, int RW, float qscale, cudaStream_t stream
+
 extern "C" {
+
+#ifdef DYN_MMA_PAIR
+
+#if DYN_MMA_PAIR == 0
+#define DYN_MMA_POLICIES Bf16Cache, QueryBf16
+#elif DYN_MMA_PAIR == 1
+#define DYN_MMA_POLICIES Int8Cache, QueryBf16
+#elif DYN_MMA_PAIR == 2
+#define DYN_MMA_POLICIES Int4Cache, QueryBf16
+#elif DYN_MMA_PAIR == 3
+#define DYN_MMA_POLICIES F32Cache, QueryF32
+#elif DYN_MMA_PAIR == 4
+#define DYN_MMA_POLICIES Int8Cache, QueryF32
+#elif DYN_MMA_PAIR == 5
+#define DYN_MMA_POLICIES Int4Cache, QueryF32
+#else
+#error "DYN_MMA_PAIR must be 0..5"
+#endif
+#define DYN_MMA_NAME2(n) dyn_paged_attention_mma_pair_##n
+#define DYN_MMA_NAME(n) DYN_MMA_NAME2(n)
+
+int DYN_MMA_NAME(DYN_MMA_PAIR)(DYN_MMA_PAIR_PARAMS) {
+    return dispatch_d<DYN_MMA_POLICIES>(D, q, k, v, ks, vs, bt, qs, kl, out, acc, m, l, B,
+                                        n_tok, H, KH, BS, NBLK, ns, spb, RW, qscale, stream);
+}
+
+#else  // the entry point
+
+int dyn_paged_attention_mma_pair_0(DYN_MMA_PAIR_PARAMS);  // Bf16Cache, QueryBf16
+int dyn_paged_attention_mma_pair_1(DYN_MMA_PAIR_PARAMS);  // Int8Cache, QueryBf16
+int dyn_paged_attention_mma_pair_2(DYN_MMA_PAIR_PARAMS);  // Int4Cache, QueryBf16
+int dyn_paged_attention_mma_pair_3(DYN_MMA_PAIR_PARAMS);  // F32Cache, QueryF32
+int dyn_paged_attention_mma_pair_4(DYN_MMA_PAIR_PARAMS);  // Int8Cache, QueryF32
+int dyn_paged_attention_mma_pair_5(DYN_MMA_PAIR_PARAMS);  // Int4Cache, QueryF32
 
 // q_dtype: 0 = bf16 q and out, 1 = f32 q and out. q is unscaled: the
 // kernel multiplies it by qscale = D^-0.5 rounded to q's dtype, rounding the
@@ -1099,18 +1144,17 @@ int dyn_paged_attention_mma(int q_dtype, int cache_kind, const void* q, const vo
                             int spb, int RW, float qscale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (BS % kUnit != 0 || !(RW == 1 || RW == 2 || RW == 4)) return (int)cudaErrorInvalidValue;
-#define DYN_MMA_CACHE(P, Q)                                                                \
-    return dispatch_d<P, Q>(D, q, k_cache, v_cache, k_scale, v_scale, block_tables, q_start, \
-                            kv_lens, out, acc, m, l, B, n_tok, H, KH, BS, NBLK, ns, spb, RW, \
-                            qscale, s)
-    if (q_dtype == 0 && cache_kind == 0) DYN_MMA_CACHE(Bf16Cache, QueryBf16);
-    if (q_dtype == 0 && cache_kind == 1) DYN_MMA_CACHE(Int8Cache, QueryBf16);
-    if (q_dtype == 0 && cache_kind == 2) DYN_MMA_CACHE(Int4Cache, QueryBf16);
-    if (q_dtype == 1 && cache_kind == 0) DYN_MMA_CACHE(F32Cache, QueryF32);
-    if (q_dtype == 1 && cache_kind == 1) DYN_MMA_CACHE(Int8Cache, QueryF32);
-    if (q_dtype == 1 && cache_kind == 2) DYN_MMA_CACHE(Int4Cache, QueryF32);
-#undef DYN_MMA_CACHE
-    return (int)cudaErrorInvalidValue;
+    if (q_dtype < 0 || q_dtype > 1 || cache_kind < 0 || cache_kind > 2)
+        return (int)cudaErrorInvalidValue;
+    int (*const pairs[6])(DYN_MMA_PAIR_PARAMS) = {
+        dyn_paged_attention_mma_pair_0, dyn_paged_attention_mma_pair_1,
+        dyn_paged_attention_mma_pair_2, dyn_paged_attention_mma_pair_3,
+        dyn_paged_attention_mma_pair_4, dyn_paged_attention_mma_pair_5};
+    return pairs[3 * q_dtype + cache_kind](D, q, k_cache, v_cache, k_scale, v_scale,
+                                           block_tables, q_start, kv_lens, out, acc, m, l, B,
+                                           n_tok, H, KH, BS, NBLK, ns, spb, RW, qscale, s);
 }
+
+#endif  // DYN_MMA_PAIR
 
 }  // extern "C"

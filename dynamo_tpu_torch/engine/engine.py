@@ -40,13 +40,16 @@ observation (occupancy, TTX, leak audit; obs/mem_ledger.py); a request
 carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
 ``engine.decode`` spans.
 
-Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis) and
-data parallelism inside the engine (``dp > 1``, its "data" axis): the
-process that builds the ``EngineCore`` is rank 0, the leader, and starts
-the other ranks (engine/tp.py); every rank's ``ModelRunner`` holds its
-shard of the params and of the cache (replicated over data), the leader
+Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis),
+expert parallelism (``ep > 1``, its "expert" axis) and data parallelism
+inside the engine (``dp > 1``, its "data" axis): the process that builds
+the ``EngineCore`` is rank 0, the leader, and starts the other ranks
+(engine/tp.py); every rank's ``ModelRunner`` holds its shard of the
+params and of the cache (replicated over data and expert), the leader
 posts each program's key and broadcasts its inputs, and the ranks'
-forwards meet in the collectives of models/llama.py. Steps run eagerly.
+forwards meet in the collectives of models/llama.py. A MoE model runs the
+dense dispatch at ep = 1 (its width split over tp) and the dropless one
+(models/moe.py) at ep > 1, as JAX's engine picks. Steps run eagerly.
 The leader presents whole blocks (every kv head) to the KVBM tiers, the
 store, the handoff and ``export_blocks``, as JAX's engine at one process
 does (kvbm/transfer.TPTransferEngine): a follower gathers or writes its
@@ -114,7 +117,7 @@ from dynamo_tpu_torch.kvbm.stream_ckpt import (
 )
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig, resolve_model_config
-from dynamo_tpu_torch.models.quant import QUANTIZATIONS, leaf_shape
+from dynamo_tpu_torch.models.quant import QUANTIZATIONS, leaf_shape, param_bytes
 from dynamo_tpu_torch.obs import costmodel as cm
 from dynamo_tpu_torch.obs.compile_ledger import (
     WARMUP_MODES,
@@ -129,7 +132,6 @@ from dynamo_tpu_torch.obs.sched_ledger import HolStall, get_sched_ledger, step_g
 from dynamo_tpu_torch.obs.tracer import get_tracer, trace_context_of
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.parallel.collectives import TPGroup
-from dynamo_tpu_torch.parallel.mesh import shard_params
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -193,28 +195,34 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
         raise ValueError(
             "spec_ngram and decode_window>1 are mutually exclusive "
             "(both amortize dispatches over future tokens; pick one)")
-    tp = ec.tp > 1
+    ranks = ec.tp * ec.ep * ec.dp
     later = {
-        "pp/ep/sp > 1 (parallelism slice)":
-            any(v != 1 for k, v in ec.mesh_shape().items() if k not in ("model", "data")),
-        "MoE with tp > 1 (EP/TEP: ROADMAP item 14)": tp and cfg.is_moe,
+        "pp > 1 (pipeline parallelism: ROADMAP item 14c)": ec.pp != 1,
+        "sp > 1 (sequence parallelism with ops/ring_attention.py: ROADMAP item 14d)":
+            ec.sp != 1,
         # more than one rank runs eager steps: a gloo collective cannot be
-        # captured in a CUDA graph (graph-captured TP over NCCL: ROADMAP
-        # Queue 1 item 14)
-        "tp > 1 with CUDA graphs (warmup_mode must be 'off')":
-            ec.tp * ec.dp > 1 and ec.warmup_mode != "off",
+        # captured in a CUDA graph (graph-captured TP/EP over NCCL: ROADMAP
+        # item 14f)
+        "more than one rank (tp x ep x dp > 1) with CUDA graphs (warmup_mode must be "
+        "'off')": ranks > 1 and ec.warmup_mode != "off",
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
-    for axis in ("tp", "dp"):
+    for axis in ("tp", "dp", "ep"):
         if getattr(ec, axis) < 1:
             raise ValueError(f"{axis} must be >= 1, got {getattr(ec, axis)}")
+    if (ec.quantization == "int8" and ec.ep > 1 and cfg.is_moe
+            and cfg.num_shared_experts):
+        raise ValueError(
+            "int8 weights at ep > 1 for a model with a shared expert: the JAX engine "
+            "cannot serve them (its dropless shard_map's spec of the quantized shared "
+            "expert is a bare matrix's; ROADMAP, gaps in the reference)")
     if ec.dist_backend not in ("gloo", "nccl"):
         raise ValueError(f"unknown dist_backend {ec.dist_backend!r} (supported: gloo, nccl)")
-    if ec.tp_devices and len(ec.tp_devices) != ec.tp * ec.dp:
+    if ec.tp_devices and len(ec.tp_devices) != ranks:
         raise ValueError(f"tp_devices {ec.tp_devices} must name one card for each of "
-                         f"the dp x tp = {ec.dp} x {ec.tp} ranks")
+                         f"the dp x ep x tp = {ec.dp} x {ec.ep} x {ec.tp} ranks")
     if len(set(ec.tp_devices)) < len(ec.tp_devices):
         # nccl refuses two ranks on one card; each rank would size its KV
         # pool from free memory while the other is still allocating
@@ -355,10 +363,15 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.tp = tp
         rank, size = (tp.rank, tp.size) if tp is not None else (0, 1)
+        expert, ep = (tp.expert_rank, tp.ep) if tp is not None else (0, 1)
         #: False on a follower: it runs each step's forward, not its sampling
         self.samples = tp is None or tp.leader
-        #: False on a data replica past the first: its logits go unread
-        self.logits = tp is None or tp.data_rank == 0
+        #: False on a data replica or an expert shard past the first: its
+        #: logits go unread (the leader's model group gathers them)
+        self.logits = tp is None or (tp.data_rank == 0 and tp.expert_rank == 0)
+        #: a MoE model's FFN, as JAX's engine picks it: the dropless
+        #: dispatch once the experts are split, else the dense one
+        self.moe_impl = "ep" if engine_cfg.ep > 1 else "dense"
         #: step programs are CUDA graphs on the card, eager on the CPU and
         #: under tensor parallelism
         self.graphs = self.device.type == "cuda" and tp is None
@@ -375,7 +388,7 @@ class ModelRunner:
                                                   rank=rank, tp=size, dtype=cfg.dtype)
             elif has_weights(engine_cfg.model):
                 self.params = load_params(cfg, engine_cfg.model, device=self.device,
-                                          rank=rank, tp=size)
+                                          rank=rank, tp=size, expert=expert, ep=ep)
             else:
                 if engine_cfg.model not in MODEL_PRESETS:
                     # A real model PATH without safetensors: serving random
@@ -389,12 +402,11 @@ class ModelRunner:
                             "serve RANDOM weights (tests/benches only)")
                     log.warning("%s has no *.safetensors weights: engine will "
                                 "serve RANDOM weights", engine_cfg.model)
-                # every rank draws the full tree from the seed and keeps
-                # its shard; the full tree is freed before the cache exists
-                self.params = shard_params(
-                    llama.init_params(cfg, seed=engine_cfg.seed, device=self.device),
-                    cfg, rank, size)
-                if size > 1 and self.device.type == "cuda":
+                # every rank makes the full tree's draws from the seed and
+                # keeps only its shard of each (never the whole tree)
+                self.params = llama.init_params(cfg, seed=engine_cfg.seed, device=self.device,
+                                                rank=rank, tp=size, expert=expert, ep=ep)
+                if size * ep > 1 and self.device.type == "cuda":
                     torch.cuda.empty_cache()
         if engine_cfg.quantization == "int8":
             # After init or load and before the cache is sized, as in the
@@ -707,7 +719,7 @@ class ModelRunner:
                                    self.cache_k, self.cache_v,
                                    attn_num_splits=self.engine_cfg.attn_num_splits,
                                    embed_override=emb_override, embed_mask=emb_mask,
-                                   tp=self.tp)
+                                   tp=self.tp, moe_impl=self.moe_impl)
             if not self.samples:
                 # a follower's outputs go unread; its next input comes by
                 # the broadcast above (the leader's replica gathers logits)
@@ -811,7 +823,7 @@ class ModelRunner:
         hidden = llama.forward(self.params, self.cfg, tokens, q_start, q_len, bt,
                                self.cache_k, self.cache_v,
                                attn_num_splits=self.engine_cfg.attn_num_splits,
-                               return_all_hidden=True, tp=self.tp)
+                               return_all_hidden=True, tp=self.tp, moe_impl=self.moe_impl)
         if not self.logits:   # a data replica past the first: nothing read
             return tokens, torch.zeros(tokens.shape, device=tokens.device)
         logits = llama.logits_from_hidden(self.params, self.cfg, hidden,
@@ -879,7 +891,7 @@ class ModelRunner:
         return llama.forward(self.params, cfg, tokens,
                              torch.zeros((b,), dtype=torch.int32, device=dev),
                              q_len, bt, ck, cv, attn_num_splits=ec.attn_num_splits,
-                             tp=self.tp)
+                             tp=self.tp, moe_impl=self.moe_impl)
 
     # -- tensor parallelism: a follower's loop ----------------------------
     def follow(self) -> None:
@@ -905,7 +917,8 @@ class ModelRunner:
                                     torch.zeros((b,), dtype=torch.int32, device=dev))
             elif op == "extract":
                 ids, dequant = args
-                if self.tp.data_rank == 0:   # the leader's replica holds the blocks
+                # the leader's model group (replica 0, expert shard 0) gathers
+                if self.tp.data_rank == 0 and self.tp.expert_rank == 0:
                     tp_gather(self.tp, self.cache_k, self.cache_v, ids, dequant,
                               self.block_spec.num_kv_heads)
             elif op == "inject":
@@ -931,10 +944,12 @@ class ModelRunner:
         """This rank's count of kernel launches by kernel, forward steps
         (program calls), collectives and block moves and their host
         seconds since the last ``reset_stats``, its peak device memory,
-        and its local head counts."""
+        its local head counts, and the bytes of its weights and of its
+        MoE expert stacks."""
         layers = self.params["layers"]
         d = self.cfg.head_dim
         return {"rank": self.tp.world_rank, "data_rank": self.tp.data_rank,
+                "expert_rank": self.tp.expert_rank, "model_rank": self.tp.rank,
                 "launches_by_kernel": dict(pa.paged_attention.launches_by_kernel),
                 # a fused window's call runs its W forward steps
                 "forward_steps": sum(p.calls * (p.shape[3] if len(p.shape) > 3 else 1)
@@ -946,7 +961,12 @@ class ModelRunner:
                                          if self.device.type == "cuda" else 0),
                 "heads": leaf_shape(layers["wq"])[-1] // d,
                 "kv_heads": leaf_shape(layers["wk"])[-1] // d,
-                "cache_kv_heads": self.spec.num_kv_heads}
+                "cache_kv_heads": self.spec.num_kv_heads,
+                "weight_bytes": param_bytes(self.params),
+                # the MoE expert stacks this rank holds (0 for a dense model)
+                "expert_bytes": (sum(param_bytes(layers[k]) for k in ("w_gate", "w_up", "w_down"))
+                                 if self.cfg.is_moe else 0),
+                "local_experts": layers["w_gate"].shape[1] if self.cfg.is_moe else 0}
 
     # -- bucket warmup ---------------------------------------------------
     def warmup(self, sigs: list[BucketSig], deadline_s: float = 0.0) -> dict:
@@ -1248,7 +1268,7 @@ class EngineCore:
         # the followers start here and hold their shards of params and cache.
         self._tp_followers = None
         tp_group = None
-        if engine_cfg.tp * engine_cfg.dp > 1:
+        if engine_cfg.tp * engine_cfg.ep * engine_cfg.dp > 1:
             from dynamo_tpu_torch.engine.tp import start_tp
 
             tp_group, self._tp_followers, params = start_tp(

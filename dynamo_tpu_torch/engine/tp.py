@@ -1,15 +1,22 @@
-"""The processes of a tensor- and data-parallel engine.
+"""The processes of a tensor-, expert- and data-parallel engine.
 
 Rank 0, the leader, is the process that builds the ``EngineCore``: it runs
-the scheduler and the step loop, and samples. Ranks 1..dp*tp-1, the
+the scheduler and the step loop, and samples. Ranks 1..dp*ep*tp-1, the
 followers, are processes it starts (``spawn``: CUDA forbids ``fork`` once
 initialised) and joins at shutdown. A follower joins the group
 (parallel/collectives.py), builds its shard of the params and of the KV
 cache, and runs ``ModelRunner.follow``: for each step the leader posts the
 program's key on a pipe, broadcasts the step's inputs over the group, and
-every rank runs the same forward on its shard. World rank ``d*tp + m``
-holds model shard ``m`` of data replica ``d`` (JAX's "data" axis: params
-and cache replicated over it).
+every rank runs the same forward on its shard. World rank
+``(d*ep + e)*tp + m`` holds model shard ``m`` of expert shard ``e`` of
+data replica ``d`` (JAX's "data" axis: params and cache replicated over
+it; its "expert" axis: the MoE expert stacks split over it, attention
+and cache replicated).
+
+A follower's params: given a full tree, the leader cuts each follower's
+shard and hands it over through host memory at the spawn; without one,
+each rank draws (``llama.init_params``) or loads (``loader.load_params``)
+its own shard, and no rank holds the whole tree.
 
 The pipe is the followers' way back too: a follower that fails sends its
 traceback before it exits, and the leader's next collective fails at once
@@ -30,7 +37,12 @@ from typing import Any
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.parallel.collectives import TPFailure, TPGroup, init_tp_group
+from dynamo_tpu_torch.parallel.collectives import (
+    TPFailure,
+    TPGroup,
+    init_tp_group,
+    rank_coords,
+)
 from dynamo_tpu_torch.parallel.mesh import check_tp, shard_params
 from dynamo_tpu_torch.utils.config import EngineConfig
 from dynamo_tpu_torch.utils.device import resolve_device
@@ -43,8 +55,9 @@ JOIN_TIMEOUT_S = 30.0
 
 
 def engine_ranks(ec: EngineConfig) -> int:
-    """The processes of an engine: one a (data replica, model shard)."""
-    return ec.dp * ec.tp
+    """The processes of an engine: one a (data replica, expert shard,
+    model shard)."""
+    return ec.dp * ec.ep * ec.tp
 
 
 def tp_devices(ec: EngineConfig, device: str | torch.device | None) -> list[torch.device]:
@@ -86,7 +99,8 @@ class TPFollowers:
             for rank in range(1, engine_ranks(ec)):
                 shard = None
                 if params is not None:   # the rank's shard, through host memory
-                    shard = _to(shard_params(params, cfg, rank % ec.tp, ec.tp),
+                    _, e, m = rank_coords(rank, ec.tp, ec.ep)
+                    shard = _to(shard_params(params, cfg, m, ec.tp, e, ec.ep),
                                 torch.device("cpu"))
                 ours, theirs = ctx.Pipe()
                 self.conns.append(ours)
@@ -151,16 +165,16 @@ class TPFollowers:
 
 def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | None,
              params: dict | None) -> tuple[TPGroup, TPFollowers, dict | None]:
-    """Start the followers of a ``dp`` x ``tp``-rank engine and join the
-    group as its leader. Returns the leader's group, the followers' handle and the
+    """Start the followers of a ``dp`` x ``ep`` x ``tp``-rank engine and
+    join the group as its leader. Returns the leader's group, the followers' handle and the
     leader's shard of ``params`` (a full tree, or None to build them on
     every rank)."""
-    check_tp(cfg, ec.tp)
+    check_tp(cfg, ec.tp, ec.ep)
     devices = tp_devices(ec, device)
     followers = TPFollowers(ec, cfg, devices, params)
     try:
         group = init_tp_group(0, ec.tp, ec.dist_backend, followers.init_method, devices[0],
-                              dp=ec.dp)
+                              dp=ec.dp, ep=ec.ep)
     except BaseException as exc:
         report = followers.report()
         followers.stop()
@@ -168,7 +182,7 @@ def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | No
     group.conns = followers.conns
     group.report = followers.report
     if params is not None:
-        params = shard_params(params, cfg, 0, ec.tp)
+        params = shard_params(params, cfg, 0, ec.tp, 0, ec.ep)
     return group, followers, params
 
 
@@ -179,7 +193,8 @@ def follower_main(rank: int, ec: EngineConfig, cfg: ModelConfig, device: str,
     group = None
     try:
         dev = torch.device(device)
-        group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev, dp=ec.dp)
+        group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev, dp=ec.dp,
+                              ep=ec.ep)
         group.conns = [conn]
         from dynamo_tpu_torch.engine.engine import ModelRunner
 

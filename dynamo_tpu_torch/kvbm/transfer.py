@@ -526,12 +526,14 @@ class TPTransferEngine(BlockTransferEngine):
     same content, so blocks move freely between engines of any tp.
 
     ``extract`` posts ``("extract", ids, dequant)`` to the followers (in
-    step order, on the control pipe), and every rank of data replica 0
-    gathers its heads into a zeroed whole-block buffer that is summed into
-    the leader's (:func:`tp_gather`). ``inject`` converts the host blocks
+    step order, on the control pipe), and every rank of the leader's model
+    group (data replica 0, expert shard 0: the cache is replicated over
+    both) gathers its heads into a zeroed whole-block buffer that is
+    summed into the leader's (:func:`tp_gather`). ``inject`` converts the host blocks
     as ``BlockTransferEngine`` does, posts ``("inject", ids, mode, shape,
     dtype)`` and broadcasts them to every rank as bytes; each writes its
-    own heads (:func:`tp_scatter`), every data replica its copy."""
+    own heads (:func:`tp_scatter`), every data replica and expert shard
+    its copy."""
 
     def __init__(self, group, kv_heads: int) -> None:
         super().__init__()
@@ -559,8 +561,8 @@ class TPTransferEngine(BlockTransferEngine):
 
 def tp_gather(group, cache_k, cache_v, ids: list[int], dequant: bool,
               kv_heads: int) -> torch.Tensor | None:
-    """One rank's part of a sharded extract (every rank of data replica 0
-    runs it, the leader last to post): the rank's heads of blocks ``ids``
+    """One rank's part of a sharded extract (every rank of the leader's
+    model group runs it, the leader last to post): the rank's heads of blocks ``ids``
     in a zeroed whole-block buffer, summed over the model group into the
     leader's. Returns the leader's whole blocks in the host layout, in host
     memory (None on the other ranks)."""

@@ -28,6 +28,9 @@ Examples:
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
         --allow-random-weights --tp 2 --dist-backend gloo --tp-devices 0,0 \
         --num-blocks 2048 --warmup-mode off
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tiny-moe \
+        --device cpu --tp 2 --ep 2 --dist-backend gloo --num-blocks 64 \
+        --warmup-mode off --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 &
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
         --device cpu --num-blocks 64 --host-kv-blocks 256 --disk-kv-path /tmp/kv \
@@ -124,16 +127,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--spec-k", type=int, default=4,
                    help="max proposed tokens per verify step")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ranks, one process each (this process is "
-                        "rank 0); heads, kv heads and FFN width must divide by it. "
-                        "Steps run eagerly: it needs --warmup-mode off")
+                   help="tensor-parallel ranks ('model' axis), one process each (this "
+                        "process is rank 0); heads, kv heads and FFN width (a MoE "
+                        "model's per-expert and shared widths) must divide by it. "
+                        "The engine has dp x ep x tp ranks; more than one runs "
+                        "eager steps: it needs --warmup-mode off")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas inside the engine (JAX's 'data' "
-                        "axis): dp x tp ranks, params and cache replicated over "
-                        "data; needs --warmup-mode off when dp x tp > 1")
+                        "axis): dp x ep x tp ranks, params and cache replicated "
+                        "over data; needs --warmup-mode off when dp x ep x tp > 1")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel shards (JAX's 'expert' axis): a MoE model's "
+                        "experts split over ep ranks (num_experts must divide by "
+                        "it), served by the dropless dispatch; attention and cache "
+                        "replicated over expert; needs --warmup-mode off when "
+                        "dp x ep x tp > 1")
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
-                   help="torch.distributed backend of --tp: nccl takes one card a "
-                        "rank; ranks that share a card need gloo")
+                   help="torch.distributed backend of --tp/--ep/--dp ranks: nccl "
+                        "takes one card a rank; ranks that share a card need gloo")
     p.add_argument("--tp-devices", default=None,
                    help="comma-separated card index of each rank (default rank r on "
                         "cuda:r); ranks that share a card need --dist-backend gloo "
@@ -200,6 +211,7 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         session_tiers=not ns.no_session_tiers,
         tp=ns.tp,
         dp=ns.dp,
+        ep=ns.ep,
         dist_backend=ns.dist_backend,
         tp_devices=tuple(int(d) for d in ns.tp_devices.split(",")) if ns.tp_devices else (),
     )

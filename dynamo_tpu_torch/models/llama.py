@@ -1,8 +1,9 @@
 """Llama-family transformer in PyTorch over a paged KV cache — port of
 ``dynamo_tpu/models/llama.py``: the dense MLP and the MoE FFN in the JAX
 package's dense-dispatch form (``moe_mlp``, every expert computed; its
-``moe_impl="dense"``, what JAX runs at ep = 1), over plain or weight-only
-int8 leaves (models/quant.py).
+``moe_impl="dense"``, what JAX runs at ep = 1) or its dropless and
+capacity dispatch (models/moe.py), over plain or weight-only int8 leaves
+(models/quant.py).
 
 - **One forward for prefill and decode.** A step processes ``T`` query
   tokens per row (T = chunk for prefill, T = 1 for decode) against a paged
@@ -27,11 +28,14 @@ int8 leaves (models/quant.py).
   (its kv heads); the local head counts come from the weights' shapes.
   Every rank launches the attention kernel over its own heads — the
   port's ``paged_attention_sharded`` — and the partial products of ``wo``
-  and ``w_down`` are summed across ranks where GSPMD puts JAX's psum. The
-  embedding and the logits are vocab-parallel. Data replicas (the group's
-  ``dp``) hold the same shards and the whole cache; at tp > 1 each
-  launches the kernel on its rows of the batch, gathered before ``wo``.
-  With no group the code is the one-device forward.
+  and the dense ``w_down`` are summed across ranks where GSPMD puts
+  JAX's psum. A MoE layer's partial (its width over tp, its experts over
+  ep) is summed once in f32 over the MoE group. The embedding and the
+  logits are vocab-parallel. Data replicas (the group's ``dp``) and
+  expert ranks (its ``ep``) hold the same attention shards and the whole
+  cache; at tp > 1 a data replica launches the kernel on its rows of the
+  batch, gathered before ``wo``. With no group the code is the
+  one-device forward.
 """
 
 from __future__ import annotations
@@ -74,41 +78,81 @@ EXPERT_SLAB_ELEMS = 1 << 26
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: str | torch.device | None = None) -> Params:
+                device: str | torch.device | None = None, rank: int = 0, tp: int = 1,
+                expert: int = 0, ep: int = 1) -> Params:
     """Random-init params with the JAX package's shapes and law (scaled
     normal: N(0, 1) · fan_in^-0.5, cast to ``cfg.dtype``; norms at 1),
     drawn from a ``torch.Generator`` on the target device seeded with
     ``seed``. The bits differ from JAX's threefry draws. An MoE model's
     expert stacks ``[L, E, in, out]`` are drawn a slab of experts at a
-    time (:data:`EXPERT_SLAB_ELEMS`), from the same generator."""
+    time (:data:`EXPERT_SLAB_ELEMS`), from the same generator.
+
+    With ``tp`` or ``ep`` > 1, the shard of the rank at (model ``rank``,
+    expert ``expert``), equal to ``parallel.mesh.shard_params`` of the
+    full tree: every draw is made as for the full tree and only the
+    rank's slice of it is kept, so the rank never holds the whole tree
+    (a leaf's f32 draw, or a slab of experts, at most)."""
+    from dynamo_tpu_torch.parallel.mesh import check_tp, rank_logical_axes, shard_leaf
+
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     h, L = cfg.hidden_size, cfg.num_layers
+    sharded = tp > 1 or ep > 1
+    if sharded:
+        check_tp(cfg, tp, ep)
+    axes = rank_logical_axes(cfg)
+    cut = (rank, tp, expert, ep)
 
     def draw(out, fan_in):
         w = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.float32)
         out.copy_(w.mul_(fan_in ** -0.5))
 
-    def dense(shape, fan_in):
+    def dense(shape, fan_in, leaf_axes=()):
+        if sharded and leaf_axes:
+            w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+            w = shard_leaf(w, leaf_axes, *cut)
+            out = lasting_empty(w.shape, dt, dev)
+            out.copy_(w.mul_(fan_in ** -0.5))
+            return out
         out = lasting_empty(shape, dt, dev)
         draw(out, fan_in)
         return out
 
-    def expert_stack(shape, fan_in):
-        out = lasting_empty(shape, dt, dev)
-        mats = out.view(-1, *shape[-2:])
+    def expert_stack(shape, fan_in, key):
         step = max(1, EXPERT_SLAB_ELEMS // (shape[-2] * shape[-1]))
-        for i in range(0, mats.shape[0], step):
-            draw(mats[i: i + step], fan_in)
+        if not sharded:
+            out = lasting_empty(shape, dt, dev)
+            mats = out.view(-1, *shape[-2:])
+            for i in range(0, mats.shape[0], step):
+                draw(mats[i: i + step], fan_in)
+            return out
+        # the full tree's slabs, drawn in order; the rank keeps its
+        # experts' slice of each matrix
+        e = shape[1]
+        e_local = e // ep
+        mat_axes = axes["layers"][key][2:]
+        out = None
+        for i in range(0, L * e, step):
+            w = torch.randn((min(step, L * e - i), *shape[-2:]), generator=gen, device=dev,
+                            dtype=torch.float32).mul_(fan_in ** -0.5)
+            for j in range(w.shape[0]):
+                li, ei = divmod(i + j, e)
+                if ei // e_local != expert:
+                    continue
+                mat = shard_leaf(w[j], mat_axes, *cut)
+                if out is None:
+                    out = lasting_empty((L, e_local, *mat.shape), dt, dev)
+                out[li, ei - expert * e_local] = mat
         return out
 
+    la = axes["layers"]
     layer: Params = {
-        "wq": dense((L, h, cfg.q_size), h),
-        "wk": dense((L, h, cfg.kv_size), h),
-        "wv": dense((L, h, cfg.kv_size), h),
-        "wo": dense((L, cfg.q_size, h), cfg.q_size),
+        "wq": dense((L, h, cfg.q_size), h, la["wq"]),
+        "wk": dense((L, h, cfg.kv_size), h, la["wk"]),
+        "wv": dense((L, h, cfg.kv_size), h, la["wv"]),
+        "wo": dense((L, cfg.q_size, h), cfg.q_size, la["wo"]),
         "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
         "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
     }
@@ -116,31 +160,31 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         e, m = cfg.num_experts, cfg.moe_intermediate_size
         layer.update(
             router=dense((L, h, e), h),
-            w_gate=expert_stack((L, e, h, m), h),
-            w_up=expert_stack((L, e, h, m), h),
-            w_down=expert_stack((L, e, m, h), m),
+            w_gate=expert_stack((L, e, h, m), h, "w_gate"),
+            w_up=expert_stack((L, e, h, m), h, "w_up"),
+            w_down=expert_stack((L, e, m, h), m, "w_down"),
         )
         if cfg.num_shared_experts:
             sm = m * cfg.num_shared_experts
             layer.update(
-                shared_gate=dense((L, h, sm), h),
-                shared_up=dense((L, h, sm), h),
-                shared_down=dense((L, sm, h), sm),
+                shared_gate=dense((L, h, sm), h, la["shared_gate"]),
+                shared_up=dense((L, h, sm), h, la["shared_up"]),
+                shared_down=dense((L, sm, h), sm, la["shared_down"]),
             )
     else:
         i = cfg.intermediate_size
         layer.update(
-            w_gate=dense((L, h, i), h),
-            w_up=dense((L, h, i), h),
-            w_down=dense((L, i, h), i),
+            w_gate=dense((L, h, i), h, la["w_gate"]),
+            w_up=dense((L, h, i), h, la["w_up"]),
+            w_down=dense((L, i, h), i, la["w_down"]),
         )
     params: Params = {
-        "embed": dense((cfg.vocab_size, h), h),
+        "embed": dense((cfg.vocab_size, h), h, axes["embed"]),
         "final_norm": torch.ones((h,), dtype=dt, device=dev),
         "layers": layer,
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense((h, cfg.vocab_size), h)
+        params["lm_head"] = dense((h, cfg.vocab_size), h, axes["lm_head"])
     return params
 
 
@@ -348,7 +392,8 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 MOE_SLAB_BYTES = 1 << 30
 
 
-def moe_mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
+def moe_mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+            tp: "TPGroup | None" = None) -> torch.Tensor:
     """MoE FFN, the JAX package's dense-dispatch formulation: every expert
     computed for every token, combined by the top-k router weights. x:
     [B, T, H].
@@ -359,7 +404,15 @@ def moe_mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     JAX's ``per_expert.astype(f32)`` einsum does; the experts go a slab at
     a time so that the [slab, N, M] and [slab, N, H] intermediates stay
     under :data:`MOE_SLAB_BYTES` (the f32 sum visits the slabs in order).
-    The shared expert, if any, adds through :func:`swiglu`."""
+    The shared expert, if any, adds through :func:`swiglu`.
+
+    Under ``tp`` with more than one rank in the MoE group (tp x ep), the
+    expert stacks are the rank's shard: its experts (``ep``) and its slice
+    of their width M (TEP, ``tp``), so each rank's f32 sum is a partial
+    over both. The shared expert's partial (its width split too) joins it
+    in f32, over ep, and one f32 all-reduce over the MoE group completes
+    the layer before its one cast: a model-dtype partial would round once
+    a rank."""
     b, t, h = x.shape
     xt = x.reshape(-1, h)                                       # [N, H]
     n = xt.shape[0]
@@ -370,17 +423,25 @@ def moe_mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     gate_mask = torch.zeros((n, e), dtype=torch.float32, device=x.device)
     gate_mask.scatter_add_(1, topi, weights)                    # [N, E]
     w_gate, w_up, w_down = lp["w_gate"], lp["w_up"], lp["w_down"]
-    slab = max(1, min(e, MOE_SLAB_BYTES // (4 * n * max(h, cfg.moe_intermediate_size))))
+    e_local, m_local = w_gate.shape[0], w_gate.shape[-1]
+    e_lo = tp.expert_rank * e_local if tp is not None else 0
+    slab = max(1, min(e_local, MOE_SLAB_BYTES // (4 * n * max(h, m_local))))
     out = torch.zeros((n, h), dtype=torch.float32, device=x.device)
-    for lo in range(0, e, slab):
-        hi = min(lo + slab, e)
+    for lo in range(0, e_local, slab):
+        hi = min(lo + slab, e_local)
         gate = torch.matmul(xt, w_gate[lo:hi])                  # [S, N, M]
         up = torch.matmul(xt, w_up[lo:hi])
         per_expert = torch.matmul(F.silu(gate) * up, w_down[lo:hi])   # [S, N, H]
-        out += torch.einsum("snh,ns->nh", per_expert.float(), gate_mask[:, lo:hi])
+        out += torch.einsum("snh,ns->nh", per_expert.float(), gate_mask[:, e_lo + lo:e_lo + hi])
+    shared = ((lp["shared_gate"], lp["shared_up"], lp["shared_down"])
+              if cfg.num_shared_experts else None)
+    if tp is not None and tp.moe_size > 1:
+        if shared is not None:
+            out += swiglu(xt, *shared).float() / tp.ep
+        return tp.all_reduce_moe(out).to(x.dtype).reshape(b, t, h)
     out = out.to(x.dtype)
-    if cfg.num_shared_experts:
-        out = out + swiglu(xt, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
+    if shared is not None:
+        out = out + swiglu(xt, *shared)
     return out.reshape(b, t, h)
 
 
@@ -400,6 +461,7 @@ def forward(params: Params, cfg: ModelConfig,
             embed_override: torch.Tensor | None = None,  # [B, T, H] multimodal embeds
             embed_mask: torch.Tensor | None = None,      # [B, T] True → use override
             tp: "TPGroup | None" = None,                 # this rank's group
+            moe_impl: str = "dense",                     # "dense", "ep" or "ep_capacity"
             ) -> torch.Tensor:
     """One engine step. Returns the final-norm hidden state at each row's
     last valid query token [B, H] (or at every token [B, T, H] with
@@ -413,7 +475,15 @@ def forward(params: Params, cfg: ModelConfig,
     position ≤ its own and < q_start + q_len. Under ``tp`` the params and
     the caches are this rank's shards; a data replica (``tp.dp > 1``)
     computes every row but, at ``tp.size > 1``, attends only its share of
-    them (the cache is replicated: every replica scatters every row)."""
+    them (the cache is replicated: every replica scatters every row). An
+    expert rank (``tp.ep > 1``) computes its model shard's attention, as
+    every expert rank of that shard does (JAX replicates attention over
+    "expert"), and its part of each MoE layer.
+
+    ``moe_impl`` picks a MoE model's FFN, as JAX's ``forward`` does:
+    ``"dense"`` (:func:`moe_mlp`, the width split over tp), ``"ep"``
+    (``models/moe.moe_mlp_dropless``, the experts split over ep too) or
+    ``"ep_capacity"`` (``models/moe.moe_mlp_ep``, one device)."""
     b, t = token_ids.shape
     bs = _cache_block_size(cache_k)
     dev = token_ids.device
@@ -468,10 +538,24 @@ def forward(params: Params, cfg: ModelConfig,
         hid = hid + (out if tp is None else tp.all_reduce_sum(out))
         x = rms_norm(hid, lp["mlp_norm"], cfg.rms_norm_eps)
         if cfg.is_moe:
-            out = moe_mlp(x, lp, cfg)       # one device: the engine refuses MoE at tp > 1
+            # each reduces over the MoE group itself, in f32
+            if moe_impl == "ep":
+                from dynamo_tpu_torch.models.moe import moe_mlp_dropless
+
+                hid = hid + moe_mlp_dropless(x, lp, cfg, tp)
+            elif moe_impl == "ep_capacity":
+                if tp is not None and tp.moe_size > 1:
+                    raise ValueError("moe_impl='ep_capacity' runs on one device")
+                from dynamo_tpu_torch.models.moe import moe_mlp_ep
+
+                hid = hid + moe_mlp_ep(x, lp, cfg)
+            elif moe_impl == "dense":
+                hid = hid + moe_mlp(x, lp, cfg, tp)
+            else:
+                raise ValueError(f"unknown moe_impl {moe_impl!r} (dense, ep, ep_capacity)")
         else:
             out = swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
-        hid = hid + (out if tp is None else tp.all_reduce_sum(out))
+            hid = hid + (out if tp is None else tp.all_reduce_sum(out))
     h = rms_norm(hid, params["final_norm"], cfg.rms_norm_eps)
     if return_all_hidden:
         return h

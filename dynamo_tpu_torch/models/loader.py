@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.parallel.mesh import pad_dim, param_logical_axes, shard_bounds
+from dynamo_tpu_torch.parallel.mesh import pad_dim, rank_logical_axes, shard_bounds
 from dynamo_tpu_torch.utils.device import resolve_device
 from dynamo_tpu_torch.utils.logging import get_logger
 
@@ -203,14 +203,15 @@ def _expert_specs(family: str) -> dict[str, str]:
 
 
 def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.dtype,
-                      rank: int = 0, tp: int = 1
+                      rank: int = 0, tp: int = 1, expert: int = 0, ep: int = 1
                       ) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
     """Yield ((path), stacked CPU tensor) for every model parameter; layer
     params are stacked into [L, ...] one layer at a time, an MoE model's
-    routed experts into [L, E, ...] one expert at a time. With ``tp > 1``
-    each leaf is rank ``rank``'s shard (parallel/mesh.py), and only that
-    slice of each checkpoint tensor is read."""
-    axes = param_logical_axes(cfg)
+    routed experts into [L, E, ...] one expert at a time. With ``tp`` or
+    ``ep`` > 1 each leaf is the shard of the rank at (model ``rank``,
+    expert ``expert``) (parallel/mesh.py): only that rank's experts are
+    read, and only its slice of each checkpoint tensor."""
+    axes = rank_logical_axes(cfg)
     family = _moe_family(reader, cfg) if cfg.is_moe else "llama"
 
     def grab(name: str, transpose: bool, leaf_axes: tuple) -> torch.Tensor:
@@ -220,7 +221,7 @@ def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.d
         # the shard's bounds on our [in, out] layout, read from HF's [out, in]
         stored = reader.shape(name)
         ours = stored[::-1] if transpose else stored
-        bounds = [shard_bounds(n, ax, rank, tp) for n, ax in zip(ours, leaf_axes)]
+        bounds = [shard_bounds(n, ax, rank, tp, expert, ep) for n, ax in zip(ours, leaf_axes)]
         index = tuple(slice(lo, hi) for lo, hi, _ in bounds)
         t = reader.get(name, index[::-1] if transpose else index)
         t = t.T if transpose else t
@@ -248,23 +249,26 @@ def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.d
         names = [f"model.layers.{i}.{suffix}" for i in range(L)]
         yield ("layers", our), stack(names, (L,), transpose, axes["layers"][our][1:])
     if cfg.is_moe:
+        lo, hi, per = shard_bounds(E, "expert", rank, tp, expert, ep)
         for our, pattern in _expert_specs(family).items():
             names = [f"model.layers.{i}.{pattern.format(e=e)}"
-                     for i in range(L) for e in range(E)]
-            yield ("layers", our), stack(names, (L, E), True, axes["layers"][our][2:])
+                     for i in range(L) for e in range(lo, hi)]
+            yield ("layers", our), stack(names, (L, per), True, axes["layers"][our][2:])
 
 
 def load_params(cfg: ModelConfig, model_dir: str | Path,
                 device: str | torch.device | None = None, rank: int = 0,
-                tp: int = 1) -> Params:
+                tp: int = 1, expert: int = 0, ep: int = 1) -> Params:
     """Load an HF llama-family checkpoint into the port's params dict, at
-    ``cfg.dtype``, on ``device`` (default: the CUDA card): with ``tp > 1``
-    rank ``rank``'s shard, reading only its slice of each tensor."""
+    ``cfg.dtype``, on ``device`` (default: the CUDA card): with ``tp`` or
+    ``ep`` > 1 the shard of the rank at (``rank``, ``expert``), reading
+    only its slice of each tensor."""
     dev = resolve_device(device)
     reader = CheckpointReader(model_dir)
     params: Params = {}
     n_bytes = 0
-    for path, t in iter_param_leaves(cfg, reader, getattr(torch, cfg.dtype), rank, tp):
+    for path, t in iter_param_leaves(cfg, reader, getattr(torch, cfg.dtype), rank, tp,
+                                     expert, ep):
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -2,14 +2,17 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` — no
-PyTorch headers, so a build takes what the kernels themselves take (the
-paged-attention source's 96 template instantiations about two minutes,
-PERF.md). Libraries land in
-``dynamo_tpu_torch/_build/`` (git-ignored), named by a digest of the source
-and flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing is built at import time: the first launch builds, or a caller
-(``chip_smoke.py``) builds everything up front with :func:`build_all`,
-one ``nvcc`` per source, all started together.
+PyTorch headers, so a build takes what the kernels themselves take. A
+source may be compiled in parts (:data:`PARTS`: the same file under
+different macros, one translation unit each) that run as ``nvcc``
+processes at once and are linked into the one library: the
+paged-attention source's 96 template instantiations are six units of 16
+(a unit per policy pair) and the C entry point. Libraries land in
+``dynamo_tpu_torch/_build/`` (git-ignored), named by a digest of the source,
+flags and parts, so an edited source rebuilds and an unchanged one is
+reused. Nothing is built at import time: the first launch builds, or a
+caller (``chip_smoke.py``) builds everything up front with
+:func:`build_all`, every part of every source started together.
 """
 
 from __future__ import annotations
@@ -26,10 +29,15 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: every kernel source of the package (``csrc/<name>.cu``)
 KERNELS = ("paged_attention_mma",)
+#: the extra flags of each translation unit a source is compiled as (a
+#: source not named here is one unit)
+PARTS: dict[str, tuple[tuple[str, ...], ...]] = {
+    "paged_attention_mma": tuple((f"-DDYN_MMA_PAIR={n}",) for n in range(6)) + ((),),
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -48,35 +56,57 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            + repr(PARTS.get(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+def _start(name: str) -> tuple[list, Path, Path] | None:
+    """Start one ``nvcc -c`` for each translation unit of ``name``."""
     lib = library_path(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, lib
+    units = []
+    for i, flags in enumerate(PARTS.get(name, ((),))):
+        obj = lib.with_suffix(f".{os.getpid()}.{i}.o")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj),
+               str(CSRC_DIR / f"{name}.cu")]
+        units.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), obj))
+    return units, tmp, lib
 
 
-def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
-    proc, tmp, lib = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
+def _finish(name: str, job: tuple[list, Path, Path]) -> None:
+    """Wait for the units of ``name``, link them into its library."""
+    units, tmp, lib = job
+    logs, failed = [], False
+    for proc, _ in units:
+        log, _ = proc.communicate()
+        logs.append(log)
+        failed |= proc.returncode != 0
+    objs = [obj for _, obj in units]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n" + "\n".join(logs))
+        link = subprocess.run([nvcc_path(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking csrc/{name}.cu failed:\n{link.stdout}{link.stderr}")
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    lib.with_suffix(".log").write_text(log)   # -Xptxas -v: registers, smem, spills
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("".join(logs))  # -Xptxas -v: registers, spills
     os.replace(tmp, lib)                       # atomic: readers never see a partial file
 
 
 def build_all(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
-    """Build every named kernel library not yet built, one ``nvcc`` per
-    source, all running at once. Returns name → library path."""
+    """Build every named kernel library not yet built, every translation
+    unit of every source running at once. Returns name → library path."""
     jobs = {n: _start(n) for n in names}
     for n, job in jobs.items():
         if job is not None:

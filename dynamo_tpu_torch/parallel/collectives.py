@@ -24,15 +24,27 @@ be captured in a CUDA graph: a tensor-parallel engine runs eager steps.
 Every collective blocks the calling thread until it is done; the group
 counts them and the host seconds they took, the block moves apart.
 
-Data parallelism (JAX's "data" mesh axis) multiplies the ranks: an engine
-of ``dp`` x ``tp`` ranks, rank ``d*tp + m`` holding model shard ``m`` of
-data replica ``d``. The model's collectives run in the replica's *model
-group* (``rank``, ``size``, ``pg``: the ``tp`` ranks of one replica), the
-attention rows a replica computed are gathered in the *data group* of its
-shard (the ``dp`` ranks holding shard ``m``, :meth:`TPGroup.gather_rows`),
-and the step inputs the leader broadcasts reach the whole world. The world
-is the process's default ``torch.distributed`` group: one engine a
-process.
+Data parallelism (JAX's "data" mesh axis) and expert parallelism (its
+"expert" axis) multiply the ranks: an engine of ``dp`` x ``ep`` x ``tp``
+ranks, world rank ``(d*ep + e)*tp + m`` holding model shard ``m`` of
+expert shard ``e`` of data replica ``d`` (:func:`rank_coords`; at ep = 1
+this is ``d*tp + m``). Three kinds of group:
+
+- the *model group* (``rank``, ``size``, ``pg``: the ``tp`` ranks of one
+  (d, e)): the attention's ``wo`` sum, the vocab-parallel embedding and
+  logits, the int8 quantizer's row-parallel abs-max, the head gathers of
+  block moves. Attention is replicated over "expert", as in JAX: the
+  expert ranks of one model shard compute the same heads on the same
+  rows and hold the same cache;
+- the *MoE group* (``moe_pg``: the ``tp`` x ``ep`` ranks of one data
+  replica): one f32 sum per MoE layer completes both the expert combine
+  and the TEP contraction of the per-expert width (:meth:`all_reduce_moe`;
+  at ep = 1 it is the model group);
+- the *data group* (``data_pg``: the ``dp`` ranks holding shard (e, m)):
+  the attention rows a replica computed (:meth:`TPGroup.gather_rows`).
+
+The step inputs the leader broadcasts reach the whole world. The world is
+the process's default ``torch.distributed`` group: one engine a process.
 """
 
 from __future__ import annotations
@@ -62,8 +74,9 @@ class TPFailure(RuntimeError):
 @dataclass
 class TPGroup:
     """One rank's membership of an engine's ranks: ``rank`` of ``size`` in
-    its replica's model group (what the model code shards by), replica
-    ``data_rank`` of ``dp``, ``world_rank`` of ``world_size`` in all."""
+    its model group (what the attention shards by), expert shard
+    ``expert_rank`` of ``ep``, replica ``data_rank`` of ``dp``,
+    ``world_rank`` of ``world_size`` in all."""
 
     rank: int
     size: int
@@ -79,6 +92,9 @@ class TPGroup:
     data_rank: int = 0
     data_pg: Any = None                      # this shard's data group (dp > 1)
     world_pg: Any = None                     # every rank (None: the model group)
+    ep: int = 1
+    expert_rank: int = 0
+    moe_pg: Any = None                       # this replica's MoE group (None: the model group)
     collectives: int = 0
     collective_s: float = 0.0
     #: block moves (gather_heads, broadcast_bytes): calls, bytes, host seconds
@@ -88,11 +104,16 @@ class TPGroup:
 
     @property
     def world_size(self) -> int:
-        return self.size * self.dp
+        return self.size * self.ep * self.dp
 
     @property
     def world_rank(self) -> int:
-        return self.data_rank * self.size + self.rank
+        return (self.data_rank * self.ep + self.expert_rank) * self.size + self.rank
+
+    @property
+    def moe_size(self) -> int:
+        """The ranks of the MoE group: tp x ep."""
+        return self.size * self.ep
 
     @property
     def leader(self) -> bool:
@@ -104,7 +125,7 @@ class TPGroup:
 
     def _failed(self, exc: BaseException) -> TPFailure:
         what = (f"rank {self.world_rank} of an engine of {self.world_size} ranks "
-                f"(tp={self.size}, dp={self.dp}): {exc}")
+                f"(tp={self.size}, ep={self.ep}, dp={self.dp}): {exc}")
         if self.report is not None:
             what += "; " + self.report()
         return TPFailure(what)
@@ -130,6 +151,15 @@ class TPGroup:
         it."""
         if self.size > 1:
             self._run(dist.all_reduce, x, op=dist.ReduceOp.SUM)
+        return x
+
+    def all_reduce_moe(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` (contiguous) over the MoE group (the tp x ep ranks of
+        this data replica), in place; returns it."""
+        if self.moe_size > 1:
+            self._run(dist.all_reduce, x,
+                      group=self.moe_pg if self.moe_pg is not None else self.pg,
+                      op=dist.ReduceOp.SUM)
         return x
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
@@ -221,16 +251,23 @@ class TPGroup:
             dist.destroy_process_group()
 
 
+def rank_coords(world_rank: int, tp: int, ep: int = 1) -> tuple[int, int, int]:
+    """(data replica d, expert shard e, model shard m) of a world rank,
+    ``world_rank = (d*ep + e)*tp + m``."""
+    rest, m = divmod(world_rank, tp)
+    d, e = divmod(rest, ep)
+    return d, e, m
+
+
 def init_tp_group(rank: int, size: int, backend: str, init_method: str,
                   device: torch.device, timeout: float = DEFAULT_TIMEOUT_S,
-                  dp: int = 1) -> TPGroup:
-    """Join an engine of ``dp`` x ``size`` ranks as world rank ``rank``
-    (model shard ``rank % size`` of replica ``rank // size``), on
-    ``device`` (set as the process's current card first), through
-    ``init_method`` (``file://`` or ``tcp://host:port``). nccl needs a
-    card a rank; gloo takes CPU and CUDA tensors. With ``dp > 1`` every
-    rank makes every replica's model group and every shard's data group,
-    in one order (``new_group`` is collective)."""
+                  dp: int = 1, ep: int = 1) -> TPGroup:
+    """Join an engine of ``dp`` x ``ep`` x ``size`` ranks as world rank
+    ``rank`` (coordinates :func:`rank_coords`), on ``device`` (set as the
+    process's current card first), through ``init_method`` (``file://``
+    or ``tcp://host:port``). nccl needs a card a rank; gloo takes CPU and
+    CUDA tensors. Every rank makes every model, MoE and data group that
+    is not the whole world, in one order (``new_group`` is collective)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown dist backend {backend!r} (supported: {', '.join(BACKENDS)})")
     if backend == "nccl" and device.type != "cuda":
@@ -241,15 +278,19 @@ def init_tp_group(rank: int, size: int, backend: str, init_method: str,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     td = datetime.timedelta(seconds=timeout)
-    dist.init_process_group(backend, init_method=init_method, world_size=size * dp,
+    world = size * ep * dp
+    dist.init_process_group(backend, init_method=init_method, world_size=world,
                             rank=rank, timeout=td)
-    if dp == 1:
-        return TPGroup(rank=rank, size=size, device=device, backend=backend,
-                       pg=dist.group.WORLD)
-    d, m = divmod(rank, size)
-    models = [dist.new_group([r * size + i for i in range(size)], timeout=td)
-              for r in range(dp)]
-    datas = [dist.new_group([r * size + i for r in range(dp)], timeout=td)
-             for i in range(size)]
-    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d],
-                   dp=dp, data_rank=d, data_pg=datas[m], world_pg=dist.group.WORLD)
+    d, e, m = rank_coords(rank, size, ep)
+
+    def group(ranks: list[int]):
+        return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks, timeout=td)
+
+    models = {(r, x): group([(r * ep + x) * size + i for i in range(size)])
+              for r in range(dp) for x in range(ep)}
+    moes = {r: group(list(range(r * ep * size, (r + 1) * ep * size))) for r in range(dp)}
+    datas = {(x, i): group([(r * ep + x) * size + i for r in range(dp)])
+             for x in range(ep) for i in range(size)} if dp > 1 else {}
+    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, e],
+                   dp=dp, data_rank=d, data_pg=datas.get((e, m)), world_pg=dist.group.WORLD,
+                   ep=ep, expert_rank=e, moe_pg=moes[d])

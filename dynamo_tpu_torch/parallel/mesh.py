@@ -1,14 +1,15 @@
-"""Mesh axes and the parameter layout of tensor parallelism — port of
-``dynamo_tpu/parallel/mesh.py`` (and of ``param_logical_axes`` from
-``dynamo_tpu/models/llama.py``) for the "model" axis.
+"""Mesh axes and the parameter layout of tensor and expert parallelism —
+port of ``dynamo_tpu/parallel/mesh.py`` (and of ``param_logical_axes``
+from ``dynamo_tpu/models/llama.py``) for the "model" and "expert" axes.
 
 The JAX package places a params pytree on a device mesh and lets GSPMD
 insert the collectives. Here each rank is a process of its own: it holds
 its own slice of every sharded leaf (:func:`shard_params`), computes on
 it, and the model code calls the collectives itself
-(``parallel/collectives.py``). The slices are JAX's: rank r of tp holds
-the r-th of tp equal contiguous pieces of each dim whose logical axis
-:data:`PARAM_RULES` maps to "model":
+(``parallel/collectives.py``). The slices are JAX's: the rank at
+coordinates ``(m, e)`` in ("model", "expert") holds the m-th of tp equal
+contiguous pieces of each dim whose logical axis :data:`PARAM_RULES` maps
+to "model", and the e-th of ep pieces of each dim it maps to "expert":
 
 - ``wq``, ``wk``, ``wv``: output columns (the rank's q and kv heads);
   ``wo``: input rows (the same heads);
@@ -18,8 +19,17 @@ the r-th of tp equal contiguous pieces of each dim whose logical axis
 - an int8 leaf (``{"q", "so"|"sr"}``, models/quant.py): ``q`` as its
   matrix, the scales on the matrix's output (or vocab) axis.
 
-MoE leaves have their JAX axes ("expert", "moe_mlp"), but the port serves
-MoE at tp = 1 only (the engine refuses MoE with tp > 1).
+- MoE: the expert stacks ``w_gate``/``w_up`` [E, H, M] by columns and
+  ``w_down`` [E, M, H] by rows of the per-expert width M ("moe_mlp" on
+  "model": TEP), and by experts ("expert" on "expert": EP); the shared
+  expert's width as the dense FFN's ("mlp"); the router [H, E] whole on
+  every rank (:func:`rank_logical_axes`). JAX stores the router split on
+  "expert" but its dropless ``shard_fn`` gathers it before the top-k
+  (``dynamo_tpu/models/moe.py``), so every rank routes with the whole
+  matrix in both packages.
+
+An expert count that does not divide over ep is refused by name, as
+JAX's placement refuses it (``device_put`` needs a divisible dim).
 
 The vocab is the one axis that need not divide: each rank's piece is
 ``ceil(V / tp)`` rows, the last one padded with zero rows that the model
@@ -62,8 +72,8 @@ class MeshConfig:
 
 # Logical→mesh axis rules for model parameters (a copy of JAX's). Keys are
 # the logical axis names of :func:`param_logical_axes`; values are mesh
-# axes (None = replicate). Params shard over "model" only: the port's
-# "data" ranks (engine/tp.py) each hold a copy of them.
+# axes (None = replicate). Params shard over "model" and "expert": the
+# port's "data" ranks (engine/tp.py) each hold a copy of them.
 PARAM_RULES: dict[str, str | None] = {
     "vocab": "model",          # embedding/lm_head vocab-sharded
     "hidden": None,            # activations' hidden axis replicated in params
@@ -114,19 +124,38 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
     return axes
 
 
-def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise unless ``cfg``'s query heads, kv heads and FFN width divide
-    over ``tp`` ranks."""
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
+def rank_logical_axes(cfg: ModelConfig) -> Params:
+    """The logical axes a rank's shard is cut by: :func:`param_logical_axes`
+    with the MoE router whole (its expert axis replicated)."""
+    axes = param_logical_axes(cfg)
+    if cfg.is_moe:
+        axes["layers"]["router"] = ("layers", None, None)
+    return axes
+
+
+def check_tp(cfg: ModelConfig, tp: int, ep: int = 1) -> None:
+    """Raise unless ``cfg``'s query heads, kv heads and FFN width (a MoE
+    model's per-expert width M; its shared experts' width is a multiple
+    of M) divide over ``tp`` ranks, and a MoE model's experts over
+    ``ep``."""
+    for name, n in (("tp", tp), ("ep", ep)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
     if cfg.num_kv_heads % tp:
         raise ValueError(
             f"num_kv_heads={cfg.num_kv_heads} does not divide over tp={tp}: the KV "
             "cache shards its kv heads over the ranks (the JAX engine cannot place "
             "such a cache either: ROADMAP, gaps in the reference)")
-    for name, n in (("num_heads", cfg.num_heads), ("intermediate_size", cfg.intermediate_size)):
-        if n % tp:
-            raise ValueError(f"{name}={n} does not divide over tp={tp}")
+    dims = [("num_heads", cfg.num_heads, "tp", tp)]
+    if cfg.is_moe:
+        dims += [("moe_intermediate_size", cfg.moe_intermediate_size, "tp", tp),
+                 ("num_experts", cfg.num_experts, "ep", ep)]
+    else:
+        dims.append(("intermediate_size", cfg.intermediate_size, "tp", tp))
+    for name, n, axis, size in dims:
+        if n % size:
+            why = " (JAX's placement refuses it too)" if axis == "ep" else ""
+            raise ValueError(f"{name}={n} does not divide over {axis}={size}{why}")
 
 
 def local_heads(cfg: ModelConfig, tp: int) -> tuple[int, int]:
@@ -135,17 +164,26 @@ def local_heads(cfg: ModelConfig, tp: int) -> tuple[int, int]:
     return cfg.num_heads // tp, cfg.num_kv_heads // tp
 
 
-def shard_bounds(n: int, axis: str | None, rank: int, tp: int) -> tuple[int, int, int]:
-    """Rank ``rank``'s piece ``[lo, hi)`` of a dim of size ``n`` on logical
-    ``axis``, and the piece's size ``per`` once padded (``hi - lo`` but on
+def shard_bounds(n: int, axis: str | None, rank: int, tp: int, expert: int = 0,
+                 ep: int = 1) -> tuple[int, int, int]:
+    """The piece ``[lo, hi)`` of a dim of size ``n`` on logical ``axis``
+    held by the rank at (model ``rank`` of ``tp``, expert ``expert`` of
+    ``ep``), and the piece's size ``per`` once padded (``hi - lo`` but on
     the vocab axis, whose last piece is padded to ``ceil(n / tp)``). A dim
-    not on "model" is whole: ``(0, n, n)``."""
-    if tp == 1 or PARAM_RULES.get(axis) != "model":
+    on neither axis is whole: ``(0, n, n)``."""
+    mesh_axis = PARAM_RULES.get(axis)
+    if mesh_axis == "expert":
+        rank, tp, name = expert, ep, "ep"
+    elif mesh_axis == "model":
+        name = "tp"
+    else:
+        return 0, n, n
+    if tp == 1:
         return 0, n, n
     if axis == "vocab":
         per = -(-n // tp)
     elif n % tp:
-        raise ValueError(f"a {axis} dim of {n} does not divide over tp={tp}")
+        raise ValueError(f"a {axis} dim of {n} does not divide over {name}={tp}")
     else:
         per = n // tp
     lo = min(rank * per, n)
@@ -162,11 +200,12 @@ def pad_dim(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
-def shard_leaf(x: torch.Tensor, axes: tuple, rank: int, tp: int) -> torch.Tensor:
-    """One leaf's slice for ``rank``, in memory of its own (the full leaf
-    can be freed)."""
+def shard_leaf(x: torch.Tensor, axes: tuple, rank: int, tp: int, expert: int = 0,
+               ep: int = 1) -> torch.Tensor:
+    """One leaf's slice for the rank at (``rank``, ``expert``), in memory of
+    its own (the full leaf can be freed)."""
     for dim, axis in enumerate(axes):
-        lo, hi, per = shard_bounds(x.shape[dim], axis, rank, tp)
+        lo, hi, per = shard_bounds(x.shape[dim], axis, rank, tp, expert, ep)
         if (lo, hi) != (0, x.shape[dim]):
             x = pad_dim(x.narrow(dim, lo, hi - lo), dim, per)
     return x.clone(memory_format=torch.contiguous_format)
@@ -183,21 +222,25 @@ def quantized_axes(axes: tuple, key: str) -> tuple:
     return axes
 
 
-def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int) -> Params:
-    """Rank ``rank``'s shard of a full params tree: the counterpart of
-    JAX's ``shard_params`` followed by taking that rank's addressable
-    shards. A quantized leaf (models/quant.py) is cut as its matrix is:
-    ``q`` on the matrix's axes, its scales on theirs (a padded vocab
-    piece's scales are zeros, as its rows are)."""
-    if tp == 1:
+def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int, expert: int = 0,
+                 ep: int = 1) -> Params:
+    """The shard of a full params tree held by the rank at (model ``rank``
+    of ``tp``, expert ``expert`` of ``ep``): the counterpart of JAX's
+    ``shard_params`` on a (tp, ep) mesh followed by taking that rank's
+    addressable shards (the router whole). A quantized leaf
+    (models/quant.py) is cut as its matrix is: ``q`` on the matrix's axes,
+    its scales on theirs (a padded vocab piece's scales are zeros, as its
+    rows are)."""
+    if tp == 1 and ep == 1:
         return params
-    check_tp(cfg, tp)
+    check_tp(cfg, tp, ep)
 
     def walk(p, axes):
         if isinstance(axes, dict):
             return {k: walk(p[k], axes[k]) for k in axes}
         if isinstance(p, dict):
-            return {k: shard_leaf(v, quantized_axes(axes, k), rank, tp) for k, v in p.items()}
-        return shard_leaf(p, axes, rank, tp)
+            return {k: shard_leaf(v, quantized_axes(axes, k), rank, tp, expert, ep)
+                    for k, v in p.items()}
+        return shard_leaf(p, axes, rank, tp, expert, ep)
 
-    return walk(params, param_logical_axes(cfg))
+    return walk(params, rank_logical_axes(cfg))

@@ -204,13 +204,20 @@ def test_moe_engine_streams_equal_jax(moe32, quantization):
 
 
 def test_moe_refusals():
-    """MoE at tp > 1 and ep > 1 are refused by name; tp = 1 is served."""
+    """MoE at tp > 1 and at ep > 1 is served since the expert axis came
+    (tests/test_torch_moe_parallel*.py hold those engines to JAX's); an
+    expert count that does not divide over ep is refused by name, and so
+    are pp and sp; tp = 1 is served."""
     base = dict(model="tiny-moe", block_size=4, num_blocks=16, max_batch_size=2,
                 max_model_len=64, warmup_mode="off")
-    with pytest.raises(ValueError, match=r"MoE with tp > 1 \(EP/TEP: ROADMAP item 14\)"):
-        teng.EngineCore(TEngineConfig(**base, tp=2, dist_backend="gloo"), device="cpu")
-    with pytest.raises(ValueError, match="ep/sp > 1"):
-        teng.EngineCore(TEngineConfig(**base, ep=2), device="cpu")
+    cfg = TORCH_PRESETS["tiny-moe"]
+    for mesh in (dict(tp=2), dict(ep=2), dict(tp=2, ep=2), dict(ep=8, dp=2)):
+        teng.check_supported(TEngineConfig(**base, **mesh, dist_backend="gloo"), cfg)
+    with pytest.raises(ValueError, match="num_experts=8 does not divide over ep=3"):
+        teng.EngineCore(TEngineConfig(**base, ep=3, dist_backend="gloo"), device="cpu")
+    for axis in ("pp", "sp"):
+        with pytest.raises(ValueError, match=f"{axis} > 1"):
+            teng.EngineCore(TEngineConfig(**base, **{axis: 2}), device="cpu")
     core = teng.EngineCore(TEngineConfig(**base), device="cpu")
     assert core.runner.params["layers"]["w_gate"].shape[:2] == (2, 8)
 

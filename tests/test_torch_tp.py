@@ -388,9 +388,9 @@ def test_a_follower_that_fails_fails_the_leader_with_its_traceback(tiny32):
     (dict(tp_devices=(0, 0), num_blocks=0), "explicit num_blocks"),
     (dict(warmup_mode="lazy"), "CUDA graphs"),
     (dict(warmup_mode="full"), "CUDA graphs"),
-    (dict(pp=2), "pp/ep/sp > 1"),
-    (dict(ep=2), "pp/ep/sp > 1"),
-    (dict(sp=2), "pp/ep/sp > 1"),
+    (dict(pp=2), r"pp > 1 \(pipeline parallelism: ROADMAP item 14c\)"),
+    (dict(model="tiny-moe", ep=3), "num_experts=8 does not divide over ep=3"),
+    (dict(sp=2), r"sp > 1 \(sequence parallelism"),
     (dict(tp_devices=(0,)), "one card for each"),
     (dict(dist_backend="mpi"), "unknown dist_backend"),
 ])
