@@ -452,6 +452,24 @@ forward step. Each run prints its setup s, TTFT, decode tok/s (beside
 collective ms a forward step. No speed condition: the ranks share one
 card over gloo, through host memory.
 
+Phase (r), pipeline parallelism (models/llama.forward_pp): (r1)
+llama-3-8b-lite, all 8 layers, seed-0 f32 weights over the f32 cache, as
+two stages on cuda:0 over gloo (eager steps, an explicit pool of one
+working set and a host tier), serves (b'')'s 32 x (128 + 32) greedy:
+every stream equals (b'')'s or first differs at a near-tie; each stage
+holds its 4 layers, half the layer bytes and half of a block's cache
+bytes, and launches ``mma_f32`` only, 4 a microbatch of the schedule
+(the microbatches its programs' shapes make, Σ (L/pp)·m over its forward
+steps); then 32 fillers evict the pool to the host tier and the first 16
+prompts come back over it with the same streams, their prefix blocks
+onboarded. (r2) llama-3-8b-lite cut to 2 layers, bf16 weights over the
+int8 cache, 16 x (128 + 16) at dp=2 x pp=2 (four ranks) and dp=2 x pp=1:
+every stream ends with its length and finite logprobs, every rank of
+both launches ``mma_int8`` only, by the schedule, and the first decode
+step's logits at pp=2 are within 2e-2 of the largest of pp=1's. Each
+run prints setup s, TTFT, decode tok/s and, a rank, collective ms a
+forward step and peak memory. No speed condition.
+
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
 engine (``EngineCore``, ``ModelRunner``) of the phase still alive fails
@@ -463,8 +481,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k), (l) and (q), ``mma_f32`` in (m) and (p), ``mma_bf16``
-in (n) and (o); and a
+in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p) and (r),
+``mma_bf16`` in (n) and (o), ``mma_int8`` in (r); and a
 ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
@@ -481,7 +499,8 @@ and prints neither the kernels line nor the result line;
 (k1)) and (k); ``python3 chip_smoke.py --only-l`` the same for (l);
 ``python3 chip_smoke.py --only-m`` runs (m) alone; ``--only-n`` builds the
 kernels and runs (n) alone, ``--only-o`` (o) alone, ``--only-q`` (j1)
-(the reference of (q2)) and (q).
+(the reference of (q2)) and (q), ``--only-r`` (b'')'s f32 run (the
+reference of (r1)) and (r).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -1051,6 +1070,20 @@ async def serve(engine, reqs: dict, after=None):
     return t_start, first_at, done_at, streams, (finish, extra)
 
 
+def bench_reqs(vocab: int, batch: int, prompt: int, decode: int) -> dict:
+    """(b)'s greedy requests: {i: PreprocessedRequest} of ``prompt``
+    tokens, ``decode`` tokens each."""
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+
+    hi = vocab - 5
+    return {i: PreprocessedRequest(
+        token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(prompt)],
+        stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0),
+        request_id=f"bench-{i}") for i in range(batch)}
+
+
 def phase_serve(kind: str, profile: bool = False, window: int = 1,
                 f32: bool = False, quantization: str = "none",
                 with_lps: bool = False) -> tuple[dict, dict]:
@@ -1065,8 +1098,6 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
     from dynamo_tpu_torch.models.quant import param_bytes
     from dynamo_tpu_torch.obs.compile_ledger import get_compile_ledger
     from dynamo_tpu_torch.ops import paged_attention as pa
-    from dynamo_tpu_torch.protocols.common import (
-        PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.utils.config import EngineConfig
 
     batch, prompt, decode = 32, 128, 32 if f32 else 64
@@ -1103,12 +1134,7 @@ def phase_serve(kind: str, profile: bool = False, window: int = 1,
              "built_reserved_gib": torch.cuda.memory_reserved() / 2**30,
              "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
-    hi = vocab - 5
-    reqs = {i: PreprocessedRequest(
-        token_ids=[(7 * i + 11 * j) % hi + 5 for j in range(prompt)],
-        stop_conditions=StopConditions(max_tokens=decode, ignore_eos=True),
-        sampling_options=SamplingOptions(temperature=0.0),
-        request_id=f"bench-{i}") for i in range(batch)}
+    reqs = bench_reqs(vocab, batch, prompt, decode)
 
     torch.cuda.reset_peak_memory_stats()
     steps0 = core.metrics.num_steps
@@ -2843,18 +2869,40 @@ async def serve_on(engine, reqs: dict, route: str, tag: str) -> dict:
     await asyncio.gather(*tasks)
     by_kernel = dict(pa.paged_attention.launches_by_kernel)
     layers = core.model_cfg.num_layers
+    programs = core.runner.programs
     steps = sum((p.calls - calls0.get(k, 0)) * (p.shape[3] if len(p.shape) > 3 else 1)
-                for k, p in core.runner.programs.items())
-    want = {k: (layers * steps if k == route else 0) for k in by_kernel}
+                for k, p in programs.items())
+    launches = schedule_launches(core, [(k, p.calls - calls0.get(k, 0))
+                                        for k, p in programs.items()])
+    want = {k: (launches if k == route else 0) for k in by_kernel}
     if steps <= 0 or by_kernel != want:
         raise AssertionError(f"{tag}: kernel launches {by_kernel}, expected {want} "
-                             f"({layers} per forward step, {route} only)")
+                             f"({layers} per forward step, or at pp > 1 a layer of the "
+                             f"stage and microbatch; {route} only)")
     ttft = sorted(first_at[k] - t0 for k in reqs)
     return {"streams": {k: v[0] for k, v in streams.items()},
             "lps": {k: v[1] for k, v in streams.items()},
             "ttft_all_s": ttft[-1], "ttft_median_s": ttft[len(ttft) // 2],
             "wall_s": max(done_at.values()) - t0, "forward_steps": steps,
             "launches": sum(by_kernel.values())}
+
+
+def schedule_launches(core, calls: list) -> int:
+    """The attention launches one rank makes in ``calls`` ([(program key,
+    calls)]): a launch a layer and forward step, and at pp > 1 a launch a
+    layer of the rank's stage and microbatch of the schedule
+    (``models/llama.pp_microbatch_count`` of the program's shape)."""
+    from dynamo_tpu_torch.models.llama import pp_microbatch_count
+
+    ec = core.engine_cfg
+    per = core.model_cfg.num_layers // ec.pp
+    out = 0
+    for key, n in calls:
+        window = key[3] if len(key) > 4 else 1    # a verify key is ("verify", b, t, nblk)
+        b, t = (key[1], key[2]) if key[0] == "verify" else (key[0], key[1])
+        m = pp_microbatch_count(b, t, ec.pp, ec.pp_microbatches) if ec.pp > 1 else 1
+        out += n * window * per * m
+    return out
 
 
 def cache_ptrs(runner) -> list[int]:
@@ -6998,6 +7046,275 @@ def phase_moe_parallel(smi: str, j1: dict | None, device: str = "cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# (r) pipeline parallelism: the layers and their cache over stages
+# ---------------------------------------------------------------------------
+
+#: (r): pipeline stages; (r1)'s pool holds one working set of (b'')'s 32 x
+#: (128 + 32) (a block of slack a request, and the trash block), its host
+#: tier every block the fillers evict; fillers: 32 prompts of 160 tokens
+#: (11 blocks with their one token: together the whole pool), then the
+#: first R1_AGAIN prompts again
+R_PP = 2
+R1_BLOCKS = 32 * 11 + 1
+R1_HOST_BLOCKS = 512
+R1_FILLER_PROMPT, R1_AGAIN = 160, 16
+#: (r2): llama-3-8b-lite cut to R2_LAYERS layers, bf16 weights over the
+#: int8 cache, dp=2 x pp=2 against dp=2 x pp=1; R2_BATCH x (R2_PROMPT +
+#: R2_DECODE), the prompts prefilled in one step
+R2_LAYERS, R2_BATCH, R2_PROMPT, R2_DECODE = 2, 16, 128, 16
+#: (r2): the first decode step's logits against pp=1's, within this share
+#: of the largest logit (the bf16 forward's limit, tests/test_torch_moe.py)
+R2_LOGIT_TOL = 2e-2
+
+
+def r_engine(device: str, model: str, batch: int, max_len: int, num_blocks: int,
+             pp: int = R_PP, dp: int = 1, **kw):
+    """An (r) engine of ``dp`` x ``pp`` ranks, all on one card over gloo
+    (eager steps), random weights from seed 0 (each stage draws only its
+    layers), prompts prefilled in chunks of 128."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    ranks = dp * pp
+    if device != "cpu":     # the leader's peak is its own engine's
+        torch.cuda.reset_peak_memory_stats()
+    return build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=batch, max_model_len=max_len,
+        num_blocks=num_blocks, prefill_chunk=128, allow_random_weights=True,
+        warmup_mode="off", pp=pp, dp=dp, dist_backend="gloo",
+        tp_devices=(0,) * ranks if device != "cpu" else (), **kw), device=device)
+
+
+def r_layer_bytes(cfg) -> int:
+    """The bytes of every stacked layer leaf of a dense model (norms
+    included) at its dtype."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    per_layer = 2 * h * cfg.q_size + 2 * h * cfg.kv_size + 3 * h * i + 2 * h
+    return cfg.num_layers * per_layer * torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+
+def r_rank_check(tag: str, core, ranks: list[dict], route: str) -> list[dict]:
+    """Every rank launched ``route`` only, a launch a layer of its stage
+    and microbatch of its programs' schedule (``schedule_launches``), ran
+    that many microbatches (none at pp = 1), holds its stage's layers and
+    its share of a block's cache bytes; all ran the same forward steps.
+    Returns each rank's numbers."""
+    from dynamo_tpu_torch.engine.cache import KVCacheSpec
+    from dynamo_tpu_torch.models.llama import pp_microbatch_count
+
+    cfg, ec = core.model_cfg, core.engine_cfg
+    per = cfg.num_layers // ec.pp
+    whole = KVCacheSpec.for_model(cfg, 1, ec.block_size, kv_dtype=ec.kv_dtype).bytes_per_block()
+    out = []
+    for r in ranks:
+        calls = [(tuple(k), n) for k, n in r["programs"]]
+        want_mb = sum(n * k[3] * pp_microbatch_count(k[0], k[1], ec.pp, ec.pp_microbatches)
+                      for k, n in calls) if ec.pp > 1 else 0
+        launches = schedule_launches(core, calls)
+        want = {k: launches if k == route else 0 for k in r["launches_by_kernel"]}
+        stage = r["stage"]
+        if (r["launches_by_kernel"] != want or r["microbatches"] != want_mb or launches <= 0
+                or r["layers"] != [stage * per, (stage + 1) * per]
+                or r["cache_block_bytes"] * ec.pp != whole):
+            raise AssertionError(
+                f"{tag}: rank {r['rank']} (stage {stage}, layers {r['layers']}) launched "
+                f"{r['launches_by_kernel']} in {r['microbatches']} microbatches; expected "
+                f"{want} in {want_mb}; {r['cache_block_bytes']} cache bytes a block of "
+                f"{whole}")
+        steps = r["forward_steps"]
+        out.append({"rank": r["rank"], "data_rank": r["data_rank"], "stage": stage,
+                    "layers": r["layers"], "launches": launches,
+                    "microbatches": r["microbatches"], "forward_steps": steps,
+                    "layer_bytes": r["layer_bytes"], "weight_bytes": r["weight_bytes"],
+                    "cache_block_bytes": r["cache_block_bytes"],
+                    "collectives": r["collectives"],
+                    "collective_ms_per_step": 1e3 * r["collective_s"] / max(steps, 1),
+                    "block_moves": r["block_moves"], "block_bytes": r["block_bytes"],
+                    "peak_mem_gib": r["max_memory_allocated"] / 2**30})
+    if len({r["forward_steps"] for r in ranks}) != 1:
+        raise AssertionError(f"{tag}: the ranks ran {[r['forward_steps'] for r in ranks]} "
+                             "forward steps")
+    return out
+
+
+async def r_serve(engine, reqs: dict, tag: str, route: str) -> dict:
+    """``serve_on`` with every rank's counts set to 0 just before and read
+    just after (``r_rank_check``), and the run's decode tok/s."""
+    await engine.run_in_core(lambda c: c.reset_tp_stats())
+    res = await serve_on(engine, reqs, route, tag)
+    ranks = await engine.run_in_core(lambda c: c.tp_stats())
+    res["ranks"] = r_rank_check(tag, engine.core, ranks, route)
+    decode = len(next(iter(res["streams"].values())))
+    res["decode_tok_s"] = (len(reqs) * (decode - 1)
+                           / max(res["wall_s"] - res["ttft_all_s"], 1e-9))
+    return res
+
+
+def phase_pipeline(smi: str, f32_ref: dict, device: str = "cuda") -> dict:
+    """(r): see the module docstring. ``f32_ref`` is (b'')'s streams
+    ({i: (tokens, logprobs)}), (r1)'s reference."""
+    from dynamo_tpu_torch.engine.engine import StepProgram
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    res: dict = {"smi": smi, "pp": R_PP}
+    # (r1) f32 llama-3-8b-lite, all 8 layers, two stages on one card
+    model = register_f32_model()
+    cfg = MODEL_PRESETS[model]
+    route = pa.ROUTES[(torch.float32, "float")]
+    batch, prompt, decode = len(f32_ref), 128, len(next(iter(f32_ref.values()))[0])
+    reqs = bench_reqs(cfg.vocab_size, batch, prompt, decode)
+    fillers = kv_prompts(71, batch, R1_FILLER_PROMPT, cfg.vocab_size)
+
+    async def r1():
+        t0 = time.perf_counter()
+        engine = r_engine(device, model, batch, R1_FILLER_PROMPT + 16, R1_BLOCKS,
+                          host_kv_blocks=R1_HOST_BLOCKS)
+        out = {"setup_s": time.perf_counter() - t0}
+        try:
+            core = engine.core
+            out["first"] = await r_serve(engine, reqs, "[r1] f32 pp=2", route)
+            off0 = core.kvbm.stats.offloaded_blocks
+            await r_serve(engine, kv_reqs(fillers, "r1-fill", 1), "[r1] fillers", route)
+            out["offloaded"] = core.kvbm.stats.offloaded_blocks - off0
+            on0, hit0 = core.kvbm.stats.onboarded_blocks, core.metrics.prefix_hit_blocks
+            pre0 = core.metrics.num_prefill_tokens
+            again = bench_reqs(cfg.vocab_size, R1_AGAIN, prompt, decode)
+            for i, r in again.items():
+                r.request_id = f"again-{i}"
+            out["again"] = await r_serve(engine, again, "[r1] first 16 again", route)
+            out["onboarded"] = core.kvbm.stats.onboarded_blocks - on0
+            out["prefix_hit_blocks"] = core.metrics.prefix_hit_blocks - hit0
+            out["again_prefill_tokens"] = core.metrics.num_prefill_tokens - pre0
+            out["transfer"] = core.transfer.stats.snapshot()
+        finally:
+            await engine.shutdown()
+        return out
+
+    t0 = time.perf_counter()
+    one = asyncio.run(r1())
+    free_engine()
+    audit_memory("(r1)")
+    first = one["first"]
+    got = {i: (first["streams"][i], first["lps"][i]) for i in first["streams"]}
+    equal, ties, bad = compare_streams("[r1] f32 pp=2 against (b'')", got, f32_ref)
+    if bad:
+        raise AssertionError(f"[r1] pp=2 streams leave (b'')'s at no near-tie: {bad[:4]}")
+    whole = r_layer_bytes(cfg)
+    halves = [r["layer_bytes"] for r in first["ranks"]]
+    if halves != [whole // R_PP] * R_PP:
+        raise AssertionError(f"[r1] the stages hold {halves} layer bytes, expected half of "
+                             f"{whole} each")
+    again_eq = [i for i in range(R1_AGAIN)
+                if one["again"]["streams"][i] == first["streams"][i]]
+    r1_res = {"setup_s": one["setup_s"], "equal": equal, "near_ties": len(ties),
+              "ttft_all_s": first["ttft_all_s"], "ttft_median_s": first["ttft_median_s"],
+              "decode_tok_s": first["decode_tok_s"], "wall_s": first["wall_s"],
+              "ranks": first["ranks"],
+              "whole_layer_bytes": whole, "offloaded": one["offloaded"],
+              "onboarded": one["onboarded"], "prefix_hit_blocks": one["prefix_hit_blocks"],
+              "again_prefill_tokens": one["again_prefill_tokens"],
+              "again_equal": len(again_eq), "again_ranks": one["again"]["ranks"],
+              "transfer": one["transfer"], "seconds": time.perf_counter() - t0}
+    log("[r1] " + json.dumps(r1_res))
+    if (len(again_eq) != R1_AGAIN or one["offloaded"] <= 0 or one["onboarded"] <= 0
+            or one["prefix_hit_blocks"] < R1_AGAIN * (prompt // 16 - 1)):
+        raise AssertionError(f"[r1] the first {R1_AGAIN} prompts again over the host tier: "
+                             f"{len(again_eq)} streams equal, offloaded {one['offloaded']}, "
+                             f"onboarded {one['onboarded']}, prefix hits "
+                             f"{one['prefix_hit_blocks']}")
+    res["r1"] = r1_res
+
+    # (r2) bf16 over the int8 cache at dp=2 x pp=2 against dp=2 x pp=1
+    model2 = q_model("llama-3-8b-lite", R2_LAYERS, "bfloat16")
+    cfg2 = MODEL_PRESETS[model2]
+    route2 = pa.ROUTES[(torch.bfloat16, "int8")]
+    prompts = kv_prompts(72, R2_BATCH, R2_PROMPT, cfg2.vocab_size)
+    blocks = R2_BATCH * -(-(R2_PROMPT + R2_DECODE) // 16) + 1
+    runs = {}
+    for tag, pp in (("dp2_pp1", 1), ("dp2_pp2", R_PP)):
+        # the leader's logits of its first two program calls: the prefill
+        # step's, then the first decode step's (a program's warm run, made
+        # outside its calls, is not recorded)
+        logits: list = []
+        calling = [False]
+        plain, call = llama.logits_from_hidden, StepProgram.__call__
+
+        def recorded(*a, **kw):
+            out = plain(*a, **kw)
+            if calling[0] and len(logits) < 2:
+                logits.append(out.float().cpu())
+            return out
+
+        def called(self, *a):
+            calling[0] = True
+            try:
+                return call(self, *a)
+            finally:
+                calling[0] = False
+
+        async def r2():
+            t0 = time.perf_counter()
+            engine = r_engine(device, model2, R2_BATCH, R2_PROMPT + R2_DECODE + 16, blocks,
+                              pp=pp, dp=2, kv_dtype="int8",
+                              max_tokens_per_step=R2_BATCH * R2_PROMPT)
+            setup = time.perf_counter() - t0
+            try:
+                r = await r_serve(engine, kv_reqs(prompts, f"r2-{tag}", R2_DECODE),
+                                  f"[r2] {tag}", route2)
+            finally:
+                await engine.shutdown()
+            r["setup_s"] = setup
+            return r
+
+        llama.logits_from_hidden, StepProgram.__call__ = recorded, called
+        try:
+            t0 = time.perf_counter()
+            runs[tag] = asyncio.run(r2())
+        finally:
+            llama.logits_from_hidden, StepProgram.__call__ = plain, call
+        free_engine()
+        audit_memory(f"(r2) {tag}")
+        runs[tag]["logits"] = logits
+        runs[tag]["seconds"] = time.perf_counter() - t0
+        for i, (toks, lps) in enumerate(zip(runs[tag]["streams"].values(),
+                                            runs[tag]["lps"].values())):
+            if len(toks) != R2_DECODE or not all(lp == lp and lp <= 1e-3 for lp in lps):
+                raise AssertionError(f"[r2] {tag} stream {i}: {len(toks)} tokens of "
+                                     f"{R2_DECODE}, logprobs {lps[:4]}")
+    one2, two2 = runs["dp2_pp1"], runs["dp2_pp2"]
+    rows = [i for i in range(R2_BATCH)
+            if one2["streams"][i][:1] == two2["streams"][i][:1]]
+    if len(one2["logits"] + two2["logits"]) != 4 or any(
+            x.shape[0] < R2_BATCH for x in one2["logits"] + two2["logits"]):
+        raise AssertionError(f"[r2] recorded logits of {[tuple(x.shape) for x in one2['logits']]}"
+                             f" and {[tuple(x.shape) for x in two2['logits']]}; expected "
+                             f"a prefill and a decode step of {R2_BATCH} rows or more")
+    ref, got2 = one2["logits"][1][rows], two2["logits"][1][rows]
+    ratio = ((got2 - ref).abs().max() / (R2_LOGIT_TOL * ref.abs().max())).item()
+    r2_res = {tag: {k: v for k, v in run.items() if k not in ("streams", "lps", "logits")}
+              for tag, run in runs.items()}
+    r2_res.update(first_decode_rows=len(rows), logit_err_over_limit=ratio,
+                  streams_equal=sum(one2["streams"][i] == two2["streams"][i]
+                                    for i in range(R2_BATCH)))
+    log("[r2] " + json.dumps(r2_res))
+    if not (ratio <= 1.0 and len(rows) > R2_BATCH // 2 and len(two2["ranks"]) == 2 * R_PP):
+        raise AssertionError(f"[r2] the first decode step's logits at pp=2 against pp=1: "
+                             f"err/limit {ratio} over {len(rows)} rows")
+    res["r2"] = r2_res
+    res["launches_r"] = {
+        route: {f"r1 rank {r['rank']} (stage {r['stage']})": r["launches"]
+                for r in r1_res["ranks"]},
+        route2: {f"r2 dp2 x pp2 rank {r['rank']} (replica {r['data_rank']}, stage "
+                 f"{r['stage']})": r["launches"] for r in two2["ranks"]}}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[r] passed in {res['seconds']:.1f}s on {smi}: " + json.dumps(res["launches_r"]))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7101,6 +7418,15 @@ def main() -> int:
         audit_memory("(q)")
         log(f"(q) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-r"]:
+        # a rehearsal of (r), with (b'')'s f32 run for (r1)'s reference: no
+        # kernels or result line
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        phase_pipeline(smi, f32_streams)
+        audit_memory("(r)")
+        log(f"(r) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -7165,6 +7491,8 @@ def main() -> int:
     audit_memory("(o)")
     parity = phase_parity(smi, f32_streams, bw, peak)
     audit_memory("(p)")
+    pipeline = phase_pipeline(smi, f32_streams)
+    audit_memory("(r)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -7212,6 +7540,9 @@ def main() -> int:
             lines[-1]["launches_p"] = parity["launches_p"]
             # (q1)'s MoE engines at tp=1, tp=2, ep=2 and tp=2 x ep=2, every rank
             lines[-1]["launches_q"] = moe_par["launches_q"]
+        if route in pipeline["launches_r"]:
+            # (r1)'s two stages (mma_f32), (r2)'s four ranks of dp=2 x pp=2 (mma_int8)
+            lines[-1]["launches_r"] = pipeline["launches_r"][route]
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}

@@ -13,8 +13,8 @@ never imported), which the chaos harness and the fleet tests run.
 ``--disagg prefill`` serves the prefill half of disaggregated serving (a
 ``KvTransferSource`` and a ``PrefillHandler``; no model card), ``--disagg
 decode`` the decode half (a ``DisaggDecodeHandler`` over a KV-aware or
-round-robin router of the prefill pool; disagg/), at any ``--tp`` (the
-leader hands off whole blocks). Multi-host engines and ``--disagg`` on the
+round-robin router of the prefill pool; disagg/), at any ``--tp`` or
+``--pp`` (the leader hands off whole blocks). Multi-host engines and ``--disagg`` on the
 mocker are refused by name (:func:`check_worker_args`); so is whatever the engine's
 ``check_supported`` refuses. The published stats carry the paged-attention
 launches by route, the forward steps they ran in and the card's peak
@@ -69,14 +69,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
-                   help="torch.distributed backend of --tp/--ep/--dp ranks: nccl takes one "
+                   help="torch.distributed backend of --tp/--pp/--ep/--dp ranks: nccl takes one "
                         "card a rank; ranks that share a card need gloo")
     p.add_argument("--tp-devices", default=None,
                    help="comma-separated card index of each rank (default rank r on "
                         "cuda:r); ranks that share a card need --dist-backend gloo "
                         "and an explicit --num-blocks")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (layer blocks sharded over 'pipe')")
+                   help="pipeline stages (layer blocks and their KV cache sharded over "
+                        "'pipe', a rank a stage; composes with --dp only)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas within ONE engine ('data' axis)")
     p.add_argument("--ep", type=int, default=1,

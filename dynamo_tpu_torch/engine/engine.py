@@ -41,8 +41,10 @@ carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
 ``engine.decode`` spans.
 
 Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis),
-expert parallelism (``ep > 1``, its "expert" axis) and data parallelism
-inside the engine (``dp > 1``, its "data" axis): the process that builds
+expert parallelism (``ep > 1``, its "expert" axis), pipeline parallelism
+(``pp > 1``, its "pipe" axis: each rank a stage of its replica, holding
+its layers and their cache; composed with dp only, as in JAX) and data
+parallelism inside the engine (``dp > 1``, its "data" axis): the process that builds
 the ``EngineCore`` is rank 0, the leader, and starts the other ranks
 (engine/tp.py); every rank's ``ModelRunner`` holds its shard of the
 params and of the cache (replicated over data and expert), the leader
@@ -132,6 +134,7 @@ from dynamo_tpu_torch.obs.sched_ledger import HolStall, get_sched_ledger, step_g
 from dynamo_tpu_torch.obs.tracer import get_tracer, trace_context_of
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.parallel.collectives import TPGroup
+from dynamo_tpu_torch.parallel.mesh import check_pp, stage_layers
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -195,23 +198,34 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
         raise ValueError(
             "spec_ngram and decode_window>1 are mutually exclusive "
             "(both amortize dispatches over future tokens; pick one)")
-    ranks = ec.tp * ec.ep * ec.dp
+    # JAX's engine's words for what pipeline parallelism does not serve
+    if ec.spec_ngram > 0 and ec.pp > 1:
+        raise ValueError("spec_ngram requires pp=1 (forward_pp has "
+                         "no all-positions output)")
+    if ec.pp > 1 and (ec.tp > 1 or ec.ep > 1 or ec.sp > 1):
+        raise ValueError(
+            "pp>1 currently composes only with dp; tp/ep/sp must be 1 "
+            "(the PP stage block is not head/expert/sequence-sharded — "
+            "see models/llama.forward_pp)")
+    ranks = ec.tp * ec.ep * ec.pp * ec.dp
     later = {
-        "pp > 1 (pipeline parallelism: ROADMAP item 14c)": ec.pp != 1,
         "sp > 1 (sequence parallelism with ops/ring_attention.py: ROADMAP item 14d)":
             ec.sp != 1,
         # more than one rank runs eager steps: a gloo collective cannot be
         # captured in a CUDA graph (graph-captured TP/EP over NCCL: ROADMAP
         # item 14f)
-        "more than one rank (tp x ep x dp > 1) with CUDA graphs (warmup_mode must be "
-        "'off')": ranks > 1 and ec.warmup_mode != "off",
+        "more than one rank (dp x pp x ep x tp > 1) with CUDA graphs (warmup_mode must "
+        "be 'off')": ranks > 1 and ec.warmup_mode != "off",
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
-    for axis in ("tp", "dp", "ep"):
+    for axis in ("tp", "dp", "ep", "pp"):
         if getattr(ec, axis) < 1:
             raise ValueError(f"{axis} must be >= 1, got {getattr(ec, axis)}")
+    if ec.pp_microbatches < 0:
+        raise ValueError(f"pp_microbatches must be >= 0 (0 = auto), got {ec.pp_microbatches}")
+    check_pp(cfg, ec.pp)
     if (ec.quantization == "int8" and ec.ep > 1 and cfg.is_moe
             and cfg.num_shared_experts):
         raise ValueError(
@@ -222,7 +236,8 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
         raise ValueError(f"unknown dist_backend {ec.dist_backend!r} (supported: gloo, nccl)")
     if ec.tp_devices and len(ec.tp_devices) != ranks:
         raise ValueError(f"tp_devices {ec.tp_devices} must name one card for each of "
-                         f"the dp x ep x tp = {ec.dp} x {ec.ep} x {ec.tp} ranks")
+                         f"the dp x ep x tp = {ec.dp} x {ec.ep} x {ec.tp} ranks"
+                         + (f" of each of the pp = {ec.pp} stages" if ec.pp > 1 else ""))
     if len(set(ec.tp_devices)) < len(ec.tp_devices):
         # nccl refuses two ranks on one card; each rank would size its KV
         # pool from free memory while the other is still allocating
@@ -354,7 +369,11 @@ class ModelRunner:
     ones read from ``slot_toks`` included, reach the followers by a
     broadcast at the top of the step, and a fused window's sampled tokens
     by one after each of its inner steps. Steps run eagerly (no graph).
-    Under data parallelism only the leader's replica computes logits."""
+    Under data parallelism only the leader's replica computes logits.
+    Under pipeline parallelism a rank is one stage of its replica: it
+    holds the stage's layers and their cache (``spec`` is the stage's),
+    only stage 0 holds the embeddings, the final norm and the lm head, and
+    the last stage's hidden comes back to stage 0 (models/llama.forward_pp)."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None, tp: TPGroup | None = None):
@@ -364,11 +383,16 @@ class ModelRunner:
         self.tp = tp
         rank, size = (tp.rank, tp.size) if tp is not None else (0, 1)
         expert, ep = (tp.expert_rank, tp.ep) if tp is not None else (0, 1)
+        stage, pp = (tp.stage, tp.pp) if tp is not None else (0, 1)
+        #: the layers [lo, hi) this rank holds (a pipeline stage's)
+        self.layers = stage_layers(cfg, stage, pp)
         #: False on a follower: it runs each step's forward, not its sampling
         self.samples = tp is None or tp.leader
-        #: False on a data replica or an expert shard past the first: its
-        #: logits go unread (the leader's model group gathers them)
-        self.logits = tp is None or (tp.data_rank == 0 and tp.expert_rank == 0)
+        #: False on a data replica, an expert shard or a pipeline stage past
+        #: the first: its logits go unread (the leader's model group gathers
+        #: them; a later stage has no lm head)
+        self.logits = tp is None or (tp.data_rank == 0 and tp.expert_rank == 0
+                                     and tp.stage == 0)
         #: a MoE model's FFN, as JAX's engine picks it: the dropless
         #: dispatch once the experts are split, else the dense one
         self.moe_impl = "ep" if engine_cfg.ep > 1 else "dense"
@@ -385,10 +409,12 @@ class ModelRunner:
                 from dynamo_tpu_torch.models.gguf import load_params_gguf
 
                 _, self.params = load_params_gguf(engine_cfg.model, device=self.device,
-                                                  rank=rank, tp=size, dtype=cfg.dtype)
+                                                  rank=rank, tp=size, dtype=cfg.dtype,
+                                                  stage=stage, pp=pp)
             elif has_weights(engine_cfg.model):
                 self.params = load_params(cfg, engine_cfg.model, device=self.device,
-                                          rank=rank, tp=size, expert=expert, ep=ep)
+                                          rank=rank, tp=size, expert=expert, ep=ep,
+                                          stage=stage, pp=pp)
             else:
                 if engine_cfg.model not in MODEL_PRESETS:
                     # A real model PATH without safetensors: serving random
@@ -405,8 +431,9 @@ class ModelRunner:
                 # every rank makes the full tree's draws from the seed and
                 # keeps only its shard of each (never the whole tree)
                 self.params = llama.init_params(cfg, seed=engine_cfg.seed, device=self.device,
-                                                rank=rank, tp=size, expert=expert, ep=ep)
-                if size * ep > 1 and self.device.type == "cuda":
+                                                rank=rank, tp=size, expert=expert, ep=ep,
+                                                stage=stage, pp=pp)
+                if size * ep * pp > 1 and self.device.type == "cuda":
                     torch.cuda.empty_cache()
         if engine_cfg.quantization == "int8":
             # After init or load and before the cache is sized, as in the
@@ -421,10 +448,10 @@ class ModelRunner:
         if tp is not None:
             num_blocks = tp.agree_min(num_blocks)   # JAX's multihost hello does the same
         self.spec = KVCacheSpec.for_model(cfg, num_blocks, engine_cfg.block_size,
-                                          kv_dtype=engine_cfg.kv_dtype, tp=size)
-        #: the cache of whole blocks (every kv head): what the leader's
-        #: tiers, exports and handoffs hold; ``spec`` at tp = 1
-        self.block_spec = (self.spec if size == 1 else KVCacheSpec.for_model(
+                                          kv_dtype=engine_cfg.kv_dtype, tp=size, pp=pp)
+        #: the cache of whole blocks (every kv head, every layer): what the
+        #: leader's tiers, exports and handoffs hold; ``spec`` at tp = pp = 1
+        self.block_spec = (self.spec if size * pp == 1 else KVCacheSpec.for_model(
             cfg, num_blocks, engine_cfg.block_size, kv_dtype=engine_cfg.kv_dtype))
         self.cache_k, self.cache_v = allocate_cache(self.spec, self.device)
         maxb = engine_cfg.max_batch_size
@@ -468,7 +495,7 @@ class ModelRunner:
             free, _total = torch.cuda.mem_get_info(self.device)
             budget = int(free * 0.85)
         spec = KVCacheSpec.for_model(self.cfg, 1, ec.block_size, kv_dtype=ec.kv_dtype,
-                                     tp=ec.tp)
+                                     tp=ec.tp, pp=ec.pp)
         n = max(budget // spec.bytes_per_block(), 16) if budget > 0 else 512
         cap = (ec.max_model_len // ec.block_size) * ec.max_batch_size + 1
         return int(min(n, cap))
@@ -719,7 +746,8 @@ class ModelRunner:
                                    self.cache_k, self.cache_v,
                                    attn_num_splits=self.engine_cfg.attn_num_splits,
                                    embed_override=emb_override, embed_mask=emb_mask,
-                                   tp=self.tp, moe_impl=self.moe_impl)
+                                   tp=self.tp, moe_impl=self.moe_impl,
+                                   pp_microbatches=self.engine_cfg.pp_microbatches)
             if not self.samples:
                 # a follower's outputs go unread; its next input comes by
                 # the broadcast above (the leader's replica gathers logits)
@@ -872,8 +900,10 @@ class ModelRunner:
 
     def _embed_forward(self, tokens: torch.Tensor, q_len: torch.Tensor) -> torch.Tensor:
         """The embedding call's forward over [b, t] tokens on a zeroed cache
-        made for it (this rank's kv heads); under tensor parallelism the
-        leader's tokens and lengths are broadcast first."""
+        made for it (this rank's kv heads and layers); under tensor
+        parallelism the leader's tokens and lengths are broadcast first. At
+        pp > 1 the schedule takes its automatic microbatch count, as JAX's
+        embedding program does."""
         ec, cfg = self.engine_cfg, self.cfg
         b, t = tokens.shape
         if self.tp is not None:
@@ -883,7 +913,7 @@ class ModelRunner:
         dev = self.device
         # block 0 is the padding tokens' trash block; row i owns blocks
         # 1 + i*nblk .. (i+1)*nblk
-        shape = (cfg.num_layers, b * nblk + 1, ec.block_size, self.spec.num_kv_heads,
+        shape = (self.spec.num_layers, b * nblk + 1, ec.block_size, self.spec.num_kv_heads,
                  cfg.head_dim)
         ck = torch.zeros(shape, dtype=llama.torch_dtype(cfg.dtype), device=dev)
         cv = torch.zeros_like(ck)
@@ -900,8 +930,9 @@ class ModelRunner:
         Programs are made on first use, as the leader makes them, so a new
         program's warm run meets the leader's; its inputs arrive by
         broadcast (:meth:`StepProgram.follow`). ``extract`` and ``inject``
-        move this rank's kv heads of whole blocks to or from the leader
-        (kvbm/transfer.tp_gather, tp_scatter), in step order."""
+        move this rank's kv heads (and its stage's layers) of whole blocks
+        to or from the leader (kvbm/transfer.tp_gather, tp_scatter), in
+        step order."""
         dev = self.device
         while True:
             op, *args = self.tp.recv()
@@ -917,7 +948,7 @@ class ModelRunner:
                                     torch.zeros((b,), dtype=torch.int32, device=dev))
             elif op == "extract":
                 ids, dequant = args
-                # the leader's model group (replica 0, expert shard 0) gathers
+                # the leader's block group (replica 0, expert shard 0) gathers
                 if self.tp.data_rank == 0 and self.tp.expert_rank == 0:
                     tp_gather(self.tp, self.cache_k, self.cache_v, ids, dequant,
                               self.block_spec.num_kv_heads)
@@ -944,12 +975,19 @@ class ModelRunner:
         """This rank's count of kernel launches by kernel, forward steps
         (program calls), collectives and block moves and their host
         seconds since the last ``reset_stats``, its peak device memory,
-        its local head counts, and the bytes of its weights and of its
-        MoE expert stacks."""
+        its local head counts, its stage and the layers it holds, the
+        bytes of its weights (of its layers, and of its MoE expert stacks)
+        and of one block of its cache."""
         layers = self.params["layers"]
         d = self.cfg.head_dim
         return {"rank": self.tp.world_rank, "data_rank": self.tp.data_rank,
                 "expert_rank": self.tp.expert_rank, "model_rank": self.tp.rank,
+                "stage": self.tp.stage, "layers": list(self.layers),
+                "microbatches": self.tp.microbatches,
+                # each program's key and calls since the last reset_stats
+                "programs": [[list(k), p.calls] for k, p in self.programs.items()],
+                "layer_bytes": param_bytes(layers),
+                "cache_block_bytes": self.spec.bytes_per_block(),
                 "launches_by_kernel": dict(pa.paged_attention.launches_by_kernel),
                 # a fused window's call runs its W forward steps
                 "forward_steps": sum(p.calls * (p.shape[3] if len(p.shape) > 3 else 1)
@@ -1093,8 +1131,12 @@ class StepProgram:
     def _make(self) -> None:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple[torch.Tensor, torch.Tensor] | None = None
+        tp = self.runner.tp
+        microbatches = tp.microbatches if tp is not None else 0
         with pa.launches_made():
             self._warm()
+        if tp is not None:   # as its launches, the warm run's microbatches go uncounted
+            tp.microbatches = microbatches
         with pa.launches_made() as made:
             self._capture()
         self.launches: dict[str, int] = made
@@ -1268,7 +1310,7 @@ class EngineCore:
         # the followers start here and hold their shards of params and cache.
         self._tp_followers = None
         tp_group = None
-        if engine_cfg.tp * engine_cfg.ep * engine_cfg.dp > 1:
+        if engine_cfg.tp * engine_cfg.ep * engine_cfg.pp * engine_cfg.dp > 1:
             from dynamo_tpu_torch.engine.tp import start_tp
 
             tp_group, self._tp_followers, params = start_tp(
@@ -1452,6 +1494,12 @@ class EngineCore:
             eos_ids = list(req.eos_token_ids or self.default_eos or tok_eos)
             seq.guided = TokenMasker(pieces, eos_ids, req.sampling_options.guided_json)
         if req.mm_embeddings:
+            if self.engine_cfg.sp > 1 or self.engine_cfg.pp > 1:
+                return LLMEngineOutput(
+                    finish_reason=FinishReason.ERROR,
+                    error="multimodal requests require sp=1 and pp=1 "
+                          "(the ring/pipeline prefill paths have no "
+                          "embedding-override input yet)")
             try:
                 seq.mm_spans = [(int(s["pos"]), tensor_from_wire(s))
                                 for s in req.mm_embeddings]
@@ -2195,15 +2243,16 @@ class EngineCore:
     # -- KV-transfer primitives of disaggregated serving (engine-core thread)
     def _new_transfer(self):
         """A block mover over this engine's cache: whole blocks from every
-        rank's heads under tensor parallelism, as JAX's engine at one
-        process moves them (its ``kvbm/distributed.py`` shards are the
+        rank's heads (and every stage's layers) under tensor (and pipeline)
+        parallelism, as JAX's engine at one process moves them (its ``kvbm/distributed.py`` shards are the
         multi-host design)."""
         from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine, TPTransferEngine
 
         tp = self.runner.tp
         if tp is None:
             return BlockTransferEngine()
-        return TPTransferEngine(tp, self.runner.block_spec.num_kv_heads)
+        spec = self.runner.block_spec
+        return TPTransferEngine(tp, spec.num_kv_heads, spec.num_layers)
 
     @property
     def transfer(self):

@@ -1,17 +1,19 @@
-"""The processes of a tensor-, expert- and data-parallel engine.
+"""The processes of a tensor-, expert-, pipeline- and data-parallel engine.
 
 Rank 0, the leader, is the process that builds the ``EngineCore``: it runs
-the scheduler and the step loop, and samples. Ranks 1..dp*ep*tp-1, the
+the scheduler and the step loop, and samples. Ranks 1..dp*pp*ep*tp-1, the
 followers, are processes it starts (``spawn``: CUDA forbids ``fork`` once
 initialised) and joins at shutdown. A follower joins the group
 (parallel/collectives.py), builds its shard of the params and of the KV
 cache, and runs ``ModelRunner.follow``: for each step the leader posts the
 program's key on a pipe, broadcasts the step's inputs over the group, and
 every rank runs the same forward on its shard. World rank
-``(d*ep + e)*tp + m`` holds model shard ``m`` of expert shard ``e`` of
-data replica ``d`` (JAX's "data" axis: params and cache replicated over
-it; its "expert" axis: the MoE expert stacks split over it, attention
-and cache replicated).
+``((d*pp + s)*ep + e)*tp + m`` holds model shard ``m`` of expert shard
+``e`` of pipeline stage ``s`` of data replica ``d`` (JAX's "data" axis:
+params and cache replicated over it; its "expert" axis: the MoE expert
+stacks split over it, attention and cache replicated; its "pipe" axis:
+the layers and their cache split over it, stage 0 embedding and the last
+stage's hidden coming back to it).
 
 A follower's params: given a full tree, the leader cuts each follower's
 shard and hands it over through host memory at the spawn; without one,
@@ -43,7 +45,7 @@ from dynamo_tpu_torch.parallel.collectives import (
     init_tp_group,
     rank_coords,
 )
-from dynamo_tpu_torch.parallel.mesh import check_tp, shard_params
+from dynamo_tpu_torch.parallel.mesh import check_pp, check_tp, shard_params
 from dynamo_tpu_torch.utils.config import EngineConfig
 from dynamo_tpu_torch.utils.device import resolve_device
 from dynamo_tpu_torch.utils.logging import get_logger
@@ -55,9 +57,9 @@ JOIN_TIMEOUT_S = 30.0
 
 
 def engine_ranks(ec: EngineConfig) -> int:
-    """The processes of an engine: one a (data replica, expert shard,
-    model shard)."""
-    return ec.dp * ec.ep * ec.tp
+    """The processes of an engine: one a (data replica, stage, expert
+    shard, model shard)."""
+    return ec.dp * ec.pp * ec.ep * ec.tp
 
 
 def tp_devices(ec: EngineConfig, device: str | torch.device | None) -> list[torch.device]:
@@ -99,8 +101,8 @@ class TPFollowers:
             for rank in range(1, engine_ranks(ec)):
                 shard = None
                 if params is not None:   # the rank's shard, through host memory
-                    _, e, m = rank_coords(rank, ec.tp, ec.ep)
-                    shard = _to(shard_params(params, cfg, m, ec.tp, e, ec.ep),
+                    _, s, e, m = rank_coords(rank, ec.tp, ec.ep, ec.pp)
+                    shard = _to(shard_params(params, cfg, m, ec.tp, e, ec.ep, s, ec.pp),
                                 torch.device("cpu"))
                 ours, theirs = ctx.Pipe()
                 self.conns.append(ours)
@@ -165,16 +167,17 @@ class TPFollowers:
 
 def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | None,
              params: dict | None) -> tuple[TPGroup, TPFollowers, dict | None]:
-    """Start the followers of a ``dp`` x ``ep`` x ``tp``-rank engine and
-    join the group as its leader. Returns the leader's group, the followers' handle and the
-    leader's shard of ``params`` (a full tree, or None to build them on
-    every rank)."""
+    """Start the followers of a ``dp`` x ``pp`` x ``ep`` x ``tp``-rank engine
+    and join the group as its leader. Returns the leader's group, the
+    followers' handle and the leader's shard of ``params`` (a full tree,
+    or None to build them on every rank)."""
     check_tp(cfg, ec.tp, ec.ep)
+    check_pp(cfg, ec.pp)
     devices = tp_devices(ec, device)
     followers = TPFollowers(ec, cfg, devices, params)
     try:
         group = init_tp_group(0, ec.tp, ec.dist_backend, followers.init_method, devices[0],
-                              dp=ec.dp, ep=ec.ep)
+                              dp=ec.dp, ep=ec.ep, pp=ec.pp)
     except BaseException as exc:
         report = followers.report()
         followers.stop()
@@ -182,7 +185,7 @@ def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | No
     group.conns = followers.conns
     group.report = followers.report
     if params is not None:
-        params = shard_params(params, cfg, 0, ec.tp, 0, ec.ep)
+        params = shard_params(params, cfg, 0, ec.tp, 0, ec.ep, 0, ec.pp)
     return group, followers, params
 
 
@@ -194,7 +197,7 @@ def follower_main(rank: int, ec: EngineConfig, cfg: ModelConfig, device: str,
     try:
         dev = torch.device(device)
         group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev, dp=ec.dp,
-                              ep=ec.ep)
+                              ep=ec.ep, pp=ec.pp)
         group.conns = [conn]
         from dynamo_tpu_torch.engine.engine import ModelRunner
 

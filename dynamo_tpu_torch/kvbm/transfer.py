@@ -38,6 +38,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine.cache import cache_payload
 from dynamo_tpu_torch.ops.paged_attention import INT4_QMAX, pack_int4, unpack_int4
 
 #: divide-guard for quantization scales (matches models/llama._KV_SCALE_EPS)
@@ -323,18 +324,22 @@ def _place(x: torch.Tensor, dim: int, lo: int, total: int) -> torch.Tensor:
 
 
 def gather_blocks(cache_k, cache_v, idx: torch.Tensor, dequant: bool = False,
-                  heads: tuple[int, int] | None = None) -> torch.Tensor:
+                  heads: tuple[int, int] | None = None,
+                  layers: tuple[int, int] | None = None) -> torch.Tensor:
     """Blocks ``idx`` of a cache in the host layout, block-major, on the
     cache's device: flat uint8 ``[n, payload + scales]`` for a quantized
     cache (``pack_kv_block``'s bytes), else ``[n, 2, L, BS, KH, D]``
     (float32 for a dequantized one). ``heads=(lo, total)``: the cache holds
     kv heads ``[lo, lo + KH)`` of ``total``, and the others are zeros (a
-    rank's share of a whole block)."""
+    rank's share of a whole block); ``layers=(lo, total)`` likewise for
+    layers ``[lo, lo + L)`` (a pipeline stage's share)."""
     n = idx.numel()
     lo, total = heads if heads is not None else (0, None)
+    l_lo, l_total = layers if layers is not None else (0, None)
 
     def wide(x, dim):
-        return x if total is None else _place(x, dim, lo, total)
+        x = x if total is None else _place(x, dim, lo, total)
+        return x if l_total is None else _place(x, 0, l_lo, l_total)
 
     if isinstance(cache_k, dict) and not dequant:
         def rows(c):
@@ -352,22 +357,23 @@ def gather_blocks(cache_k, cache_v, idx: torch.Tensor, dequant: bool = False,
     return torch.stack([wide(k, 3), wide(v, 3)]).permute(2, 0, 1, 3, 4, 5).contiguous()
 
 
-def prepare_inject(blocks: list[np.ndarray], cache_k,
-                   kv_heads: int | None = None) -> tuple[str, list[np.ndarray]]:
+def prepare_inject(blocks: list[np.ndarray], cache_k, kv_heads: int | None = None,
+                   num_layers: int | None = None) -> tuple[str, list[np.ndarray]]:
     """The host half of an inject: convert host blocks for ``cache_k``'s
     kind and pick how they are written: ``"packed"`` (blocks of the cache's
     own quantized kind, copied as bytes), ``"quantize"`` (float blocks
     quantized on the device) or ``"float"`` (cast into a float cache). A
     packed block of the other quantized kind, or one into a float cache, is
-    dequantized on the host. ``kv_heads``: the blocks' head count when the
-    cache holds a share of them (else the cache's own)."""
+    dequantized on the host. ``kv_heads``, ``num_layers``: the blocks' head
+    and layer counts when the cache holds a share of them (else the
+    cache's own)."""
     blocks = [host_bits(b) for b in blocks]
     packed = _is_packed(blocks[0])
     if isinstance(cache_k, dict):
         cq = cache_k["q"]
         int4 = cq.dtype == torch.uint8
         L, _, BS, KH, Dp = cq.shape
-        logical = (L, BS, kv_heads or KH, Dp * 2 if int4 else Dp)
+        logical = (num_layers or L, BS, kv_heads or KH, Dp * 2 if int4 else Dp)
         if packed and _packed_kind(blocks[0], logical) == ("int4" if int4 else "int8"):
             return "packed", blocks
         if packed:   # the other quantized kind: dequantize on the host
@@ -376,31 +382,37 @@ def prepare_inject(blocks: list[np.ndarray], cache_k,
     if packed:
         L, _, BS, KH, D = cache_k.shape
         name = str(cache_k.dtype).removeprefix("torch.")
-        blocks = [dequantize_block(b, (L, BS, kv_heads or KH, D), name) for b in blocks]
+        blocks = [dequantize_block(b, (num_layers or L, BS, kv_heads or KH, D), name)
+                  for b in blocks]
     return "float", blocks
 
 
 def write_blocks(cache_k, cache_v, idx: torch.Tensor, data: torch.Tensor, mode: str,
-                 lo: int = 0) -> None:
+                 lo: int = 0, layers: tuple[int, int] | None = None) -> None:
     """The device half of an inject: write ``data`` (stacked host blocks on
     the cache's device, :func:`prepare_inject`'s mode) into the cache at
     ``idx``, in place; the cache holds the blocks' kv heads ``[lo, lo +
-    KH)`` (all of them at ``lo=0`` when the counts agree)."""
+    KH)`` (all of them at ``lo=0`` when the counts agree), and with
+    ``layers=(l_lo, total)`` their layers ``[l_lo, l_lo + L)`` of
+    ``total`` (a pipeline stage's; else all of them)."""
     n = idx.numel()
+    L = cache_payload(cache_k).shape[0]
+    l_lo, l_total = layers if layers is not None else (0, L)
     if mode == "packed":
         cq = cache_k["q"]
-        L, _, BS, kh, Dp = cq.shape
+        _, _, BS, kh, Dp = cq.shape
         # the blocks' head count, from their byte length
-        total = data.shape[1] // (2 * L * (BS * Dp + 4))
-        split = 2 * L * BS * total * Dp                     # data: [n, P + S] uint8
-        payload = data[:, :split].view(cq.dtype).reshape(n, 2, L, BS, total, Dp)
-        scales = data[:, split:].contiguous().view(torch.float32).reshape(n, 2, L, total)
+        total = data.shape[1] // (2 * l_total * (BS * Dp + 4))
+        split = 2 * l_total * BS * total * Dp               # data: [n, P + S] uint8
+        payload = data[:, :split].view(cq.dtype).reshape(n, 2, l_total, BS, total, Dp)
+        scales = data[:, split:].contiguous().view(torch.float32).reshape(n, 2, l_total, total)
         for j, c in enumerate((cache_k, cache_v)):
-            c["q"].index_copy_(1, idx, payload[:, j, :, :, lo: lo + kh].transpose(0, 1))
-            c["s"].index_copy_(1, idx, scales[:, j, :, lo: lo + kh].transpose(0, 1))
+            c["q"].index_copy_(1, idx, payload[:, j, l_lo: l_lo + L, :, lo: lo + kh]
+                               .transpose(0, 1))
+            c["s"].index_copy_(1, idx, scales[:, j, l_lo: l_lo + L, lo: lo + kh].transpose(0, 1))
         return
     kh = (cache_k["q"] if mode == "quantize" else cache_k).shape[3]
-    x = data[..., lo: lo + kh, :]                           # [n, 2, L, BS, kh, D]
+    x = data[:, :, l_lo: l_lo + L, :, lo: lo + kh, :]       # [n, 2, L, BS, kh, D]
     if mode == "quantize":
         x = x.float()
         int4 = cache_k["q"].dtype == torch.uint8
@@ -417,8 +429,9 @@ def write_blocks(cache_k, cache_v, idx: torch.Tensor, data: torch.Tensor, mode: 
 class BlockTransferEngine:
     """Block gather (extract) / in-place scatter (inject) over a cache."""
 
-    #: the kv heads of a whole block (None: the cache's own)
+    #: the kv heads and layers of a whole block (None: the cache's own)
     kv_heads: int | None = None
+    num_layers: int | None = None
 
     def __init__(self) -> None:
         self.stats = TransferStats()
@@ -498,7 +511,7 @@ class BlockTransferEngine:
         with get_tracer().span("kv.transfer", direction="inject",
                                blocks=len(ids), bytes=nbytes, **(span_attrs or {})):
             t0 = time.perf_counter()
-            mode, blocks = prepare_inject(blocks, cache_k, self.kv_heads)
+            mode, blocks = prepare_inject(blocks, cache_k, self.kv_heads, self.num_layers)
             data = _stacked(blocks, pinned=cuda)
             start = None
             if cuda:
@@ -519,26 +532,30 @@ class BlockTransferEngine:
 
 class TPTransferEngine(BlockTransferEngine):
     """The leader's block mover over a cache sharded by kv head across the
-    ranks of a tensor-parallel engine (JAX's engine at one process, whose
+    ranks of a tensor-parallel engine, or by layer across the stages of a
+    pipeline-parallel one (JAX's engine at one process, whose
     ``export_blocks`` returns whole blocks): host blocks are always WHOLE
-    blocks, every kv head, in the layout, packing and bytes that
-    :class:`BlockTransferEngine` gives over one unsharded cache of the
-    same content, so blocks move freely between engines of any tp.
+    blocks, every kv head and every layer, in the layout, packing and
+    bytes that :class:`BlockTransferEngine` gives over one unsharded cache
+    of the same content, so blocks move freely between engines of any tp
+    and pp.
 
     ``extract`` posts ``("extract", ids, dequant)`` to the followers (in
-    step order, on the control pipe), and every rank of the leader's model
+    step order, on the control pipe), and every rank of the leader's block
     group (data replica 0, expert shard 0: the cache is replicated over
-    both) gathers its heads into a zeroed whole-block buffer that is
-    summed into the leader's (:func:`tp_gather`). ``inject`` converts the host blocks
-    as ``BlockTransferEngine`` does, posts ``("inject", ids, mode, shape,
+    both; every stage and model shard) gathers its heads of its layers
+    into a zeroed whole-block buffer that is summed into the leader's
+    (:func:`tp_gather`). ``inject`` converts the host blocks as
+    ``BlockTransferEngine`` does, posts ``("inject", ids, mode, shape,
     dtype)`` and broadcasts them to every rank as bytes; each writes its
-    own heads (:func:`tp_scatter`), every data replica and expert shard
-    its copy."""
+    own heads of its own layers (:func:`tp_scatter`), every data replica
+    and expert shard its copy."""
 
-    def __init__(self, group, kv_heads: int) -> None:
+    def __init__(self, group, kv_heads: int, num_layers: int | None = None) -> None:
         super().__init__()
         self.group = group
         self.kv_heads = kv_heads
+        self.num_layers = num_layers
 
     def _gather(self, cache_k, cache_v, ids: list[int], dequant: bool) -> torch.Tensor:
         g = self.group
@@ -562,19 +579,21 @@ class TPTransferEngine(BlockTransferEngine):
 def tp_gather(group, cache_k, cache_v, ids: list[int], dequant: bool,
               kv_heads: int) -> torch.Tensor | None:
     """One rank's part of a sharded extract (every rank of the leader's
-    model group runs it, the leader last to post): the rank's heads of blocks ``ids``
-    in a zeroed whole-block buffer, summed over the model group into the
-    leader's. Returns the leader's whole blocks in the host layout, in host
-    memory (None on the other ranks)."""
+    block group runs it, the leader last to post): the rank's heads of its
+    stage's layers of blocks ``ids`` in a zeroed whole-block buffer,
+    summed over the block group into the leader's. Returns the leader's
+    whole blocks in the host layout, in host memory (None on the other
+    ranks)."""
     dev = _device(cache_k)
     idx = torch.tensor(ids, dtype=torch.long).to(dev)
-    kh = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
-    gathered = gather_blocks(cache_k, cache_v, idx, dequant, (group.rank * kh, kv_heads))
+    L, _, _, kh, _ = cache_payload(cache_k).shape
+    gathered = gather_blocks(cache_k, cache_v, idx, dequant, (group.rank * kh, kv_heads),
+                             (group.stage * L, group.pp * L))
     shape, dtype = gathered.shape, gathered.dtype
     buf = gathered.view(torch.uint8)
     if buf.device != group.block_device:
         buf = buf.to(group.block_device)
-    buf = group.gather_heads(buf)
+    buf = group.gather_parts(buf)
     if not group.leader:
         return None
     if buf.device.type == "cuda":
@@ -588,8 +607,8 @@ def tp_scatter(group, cache_k, cache_v, ids: list[int], mode: str, shape: tuple,
                dtype: torch.dtype, data: torch.Tensor | None = None) -> None:
     """One rank's part of a sharded inject (every rank runs it): the
     leader's stacked host blocks ``data`` ([n, ...] of ``dtype``) arrive
-    as bytes, and the rank writes its own kv heads of them into its
-    cache."""
+    as bytes, and the rank writes its own kv heads of its stage's layers
+    of them into its cache."""
     if data is not None:
         buf = data.contiguous().view(torch.uint8)
         if buf.device != group.block_device:
@@ -600,9 +619,9 @@ def tp_scatter(group, cache_k, cache_v, ids: list[int], mode: str, shape: tuple,
     buf = group.broadcast_bytes(buf.reshape(-1))
     dev = _device(cache_k)
     data = buf.view(dtype).reshape(shape).to(dev)
-    kh = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
+    L, _, _, kh, _ = cache_payload(cache_k).shape
     write_blocks(cache_k, cache_v, torch.tensor(ids, dtype=torch.long).to(dev), data, mode,
-                 lo=group.rank * kh)
+                 lo=group.rank * kh, layers=(group.stage * L, group.pp * L))
 
 
 def _dequant_rows(c: dict, idx: torch.Tensor) -> torch.Tensor:

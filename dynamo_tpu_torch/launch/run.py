@@ -31,6 +31,9 @@ Examples:
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tiny-moe \
         --device cpu --tp 2 --ep 2 --dist-backend gloo --num-blocks 64 \
         --warmup-mode off --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
+        --device cpu --pp 2 --dp 2 --dist-backend gloo --num-blocks 64 \
+        --warmup-mode off --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 &
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
         --device cpu --num-blocks 64 --host-kv-blocks 256 --disk-kv-path /tmp/kv \
@@ -130,8 +133,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="tensor-parallel ranks ('model' axis), one process each (this "
                         "process is rank 0); heads, kv heads and FFN width (a MoE "
                         "model's per-expert and shared widths) must divide by it. "
-                        "The engine has dp x ep x tp ranks; more than one runs "
+                        "The engine has dp x pp x ep x tp ranks; more than one runs "
                         "eager steps: it needs --warmup-mode off")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (JAX's 'pipe' axis): the layers and their KV "
+                        "cache split over pp ranks, one process each, a step run as "
+                        "microbatches through them; composes with --dp only; needs "
+                        "--warmup-mode off")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas inside the engine (JAX's 'data' "
                         "axis): dp x ep x tp ranks, params and cache replicated "
@@ -143,7 +151,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "replicated over expert; needs --warmup-mode off when "
                         "dp x ep x tp > 1")
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
-                   help="torch.distributed backend of --tp/--ep/--dp ranks: nccl "
+                   help="torch.distributed backend of --tp/--pp/--ep/--dp ranks: nccl "
                         "takes one card a rank; ranks that share a card need gloo")
     p.add_argument("--tp-devices", default=None,
                    help="comma-separated card index of each rank (default rank r on "
@@ -210,6 +218,7 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         session_ttl=ns.session_ttl,
         session_tiers=not ns.no_session_tiers,
         tp=ns.tp,
+        pp=ns.pp,
         dp=ns.dp,
         ep=ns.ep,
         dist_backend=ns.dist_backend,

@@ -224,13 +224,14 @@ _LAYER_SPECS = {
 
 
 def load_params_gguf(path: str | Path, device: str | torch.device | None = None,
-                     rank: int = 0, tp: int = 1, dtype: str | None = None
-                     ) -> tuple[ModelConfig, dict]:
+                     rank: int = 0, tp: int = 1, dtype: str | None = None,
+                     stage: int = 0, pp: int = 1) -> tuple[ModelConfig, dict]:
     """Read a llama-family GGUF into (config, the port's params dict) on
     ``device`` (default: the CUDA card): leaves rounded to bfloat16, then
     cast to ``dtype`` (default: the config's); with ``tp > 1`` rank
-    ``rank``'s shard."""
-    from dynamo_tpu_torch.parallel.mesh import shard_params
+    ``rank``'s shard, with ``pp > 1`` stage ``stage``'s layers only (and
+    no ``embed``, ``final_norm`` or ``lm_head`` past the first stage)."""
+    from dynamo_tpu_torch.parallel.mesh import shard_params, stage_layers
     from dynamo_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -241,14 +242,13 @@ def load_params_gguf(path: str | Path, device: str | torch.device | None = None,
     def leaf(t: torch.Tensor) -> torch.Tensor:
         return t.to(torch.bfloat16).to(out_dtype).contiguous()
 
-    params: dict = {
-        "embed": leaf(reader.tensor("token_embd.weight")),
-        "final_norm": leaf(reader.tensor("output_norm.weight")),
-        "layers": {},
-    }
-    if not cfg.tie_word_embeddings:
-        params["lm_head"] = leaf(reader.tensor("output.weight").T)
-    L = cfg.num_layers
+    params: dict = {"layers": {}}
+    if stage == 0:
+        params["embed"] = leaf(reader.tensor("token_embd.weight"))
+        params["final_norm"] = leaf(reader.tensor("output_norm.weight"))
+        if not cfg.tie_word_embeddings:
+            params["lm_head"] = leaf(reader.tensor("output.weight").T)
+    l_lo, l_hi = stage_layers(cfg, stage, pp)
     unperm = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads}
     for our, (suffix, transpose) in _LAYER_SPECS.items():
         def grab(i: int) -> torch.Tensor:
@@ -257,11 +257,11 @@ def load_params_gguf(path: str | Path, device: str | torch.device | None = None,
                 t = unpermute_qk(t, unperm[our])
             return leaf(t.T if transpose else t)
 
-        first = grab(0)
-        out = torch.empty((L, *first.shape), dtype=out_dtype)
+        first = grab(l_lo)
+        out = torch.empty((l_hi - l_lo, *first.shape), dtype=out_dtype)
         out[0] = first
-        for i in range(1, L):
-            out[i] = grab(i)
+        for i in range(l_lo + 1, l_hi):
+            out[i - l_lo] = grab(i)
         params["layers"][our] = out
     params = shard_params(params, cfg, rank, tp)
 

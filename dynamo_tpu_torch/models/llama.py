@@ -36,6 +36,11 @@ capacity dispatch (models/moe.py), over plain or weight-only int8 leaves
   cache; at tp > 1 a data replica launches the kernel on its rows of the
   batch, gathered before ``wo``. With no group the code is the
   one-device forward.
+- **Pipeline parallelism** (a group of ``pp > 1`` stages,
+  :func:`forward_pp`): each stage holds its layers and their cache, and a
+  step runs JAX's GPipe schedule over microbatches, the activations
+  passed stage to stage and the last stage's hidden brought back to
+  stage 0, which samples.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ EXPERT_SLAB_ELEMS = 1 << 26
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: str | torch.device | None = None, rank: int = 0, tp: int = 1,
-                expert: int = 0, ep: int = 1) -> Params:
+                expert: int = 0, ep: int = 1, stage: int = 0, pp: int = 1) -> Params:
     """Random-init params with the JAX package's shapes and law (scaled
     normal: N(0, 1) · fan_in^-0.5, cast to ``cfg.dtype``; norms at 1),
     drawn from a ``torch.Generator`` on the target device seeded with
@@ -87,23 +92,34 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     expert stacks ``[L, E, in, out]`` are drawn a slab of experts at a
     time (:data:`EXPERT_SLAB_ELEMS`), from the same generator.
 
-    With ``tp`` or ``ep`` > 1, the shard of the rank at (model ``rank``,
-    expert ``expert``), equal to ``parallel.mesh.shard_params`` of the
-    full tree: every draw is made as for the full tree and only the
-    rank's slice of it is kept, so the rank never holds the whole tree
-    (a leaf's f32 draw, or a slab of experts, at most)."""
-    from dynamo_tpu_torch.parallel.mesh import check_tp, rank_logical_axes, shard_leaf
+    With ``tp``, ``ep`` or ``pp`` > 1, the shard of the rank at (model
+    ``rank``, expert ``expert``, stage ``stage``), equal to
+    ``parallel.mesh.shard_params`` of the full tree: every draw is made as
+    for the full tree and only the rank's slice of it is kept, so the rank
+    never holds the whole tree (a leaf's f32 draw, or a slab of experts,
+    at most). A stage past the first draws no ``embed`` or ``lm_head``:
+    they come after every layer's draw, so skipping them leaves the
+    layers' bits as they are."""
+    from dynamo_tpu_torch.parallel.mesh import (
+        check_pp,
+        check_tp,
+        rank_logical_axes,
+        shard_leaf,
+        stage_layers,
+    )
 
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     h, L = cfg.hidden_size, cfg.num_layers
-    sharded = tp > 1 or ep > 1
+    sharded = tp > 1 or ep > 1 or pp > 1
     if sharded:
         check_tp(cfg, tp, ep)
+        check_pp(cfg, pp)
     axes = rank_logical_axes(cfg)
-    cut = (rank, tp, expert, ep)
+    cut = (rank, tp, expert, ep, stage, pp)
+    l_lo, l_hi = stage_layers(cfg, stage, pp)
 
     def draw(out, fan_in):
         w = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.float32)
@@ -139,12 +155,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                             dtype=torch.float32).mul_(fan_in ** -0.5)
             for j in range(w.shape[0]):
                 li, ei = divmod(i + j, e)
-                if ei // e_local != expert:
+                if ei // e_local != expert or not l_lo <= li < l_hi:
                     continue
                 mat = shard_leaf(w[j], mat_axes, *cut)
                 if out is None:
-                    out = lasting_empty((L, e_local, *mat.shape), dt, dev)
-                out[li, ei - expert * e_local] = mat
+                    out = lasting_empty((l_hi - l_lo, e_local, *mat.shape), dt, dev)
+                out[li - l_lo, ei - expert * e_local] = mat
         return out
 
     la = axes["layers"]
@@ -153,13 +169,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "wk": dense((L, h, cfg.kv_size), h, la["wk"]),
         "wv": dense((L, h, cfg.kv_size), h, la["wv"]),
         "wo": dense((L, cfg.q_size, h), cfg.q_size, la["wo"]),
-        "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
-        "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
+        "attn_norm": torch.ones((l_hi - l_lo, h), dtype=dt, device=dev),
+        "mlp_norm": torch.ones((l_hi - l_lo, h), dtype=dt, device=dev),
     }
     if cfg.is_moe:
         e, m = cfg.num_experts, cfg.moe_intermediate_size
         layer.update(
-            router=dense((L, h, e), h),
+            router=dense((L, h, e), h, la["router"]),
             w_gate=expert_stack((L, e, h, m), h, "w_gate"),
             w_up=expert_stack((L, e, h, m), h, "w_up"),
             w_down=expert_stack((L, e, m, h), m, "w_down"),
@@ -178,6 +194,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             w_up=dense((L, h, i), h, la["w_up"]),
             w_down=dense((L, i, h), i, la["w_down"]),
         )
+    if stage > 0:
+        return {"layers": layer}
     params: Params = {
         "embed": dense((cfg.vocab_size, h), h, axes["embed"]),
         "final_norm": torch.ones((h,), dtype=dt, device=dev),
@@ -449,6 +467,78 @@ def moe_mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _step_statics(q_start: torch.Tensor, q_len: torch.Tensor, block_tables: torch.Tensor,
+                  t: int, bs: int):
+    """A step's positions [B, T], flat cache slots [B, T] (padding → slot
+    0 of the trash block), and the kernel's int32 block tables, q_start
+    and kv_lens."""
+    dev = q_start.device
+    ar = torch.arange(t, device=dev)
+    positions = q_start[:, None].long() + ar[None, :]                 # [B, T]
+    valid = ar[None, :] < q_len[:, None]                              # [B, T]
+    blk = torch.gather(block_tables.long(), 1,
+                       (positions // bs).clamp(0, block_tables.shape[1] - 1))
+    slot = torch.where(valid, blk * bs + positions % bs, torch.zeros_like(blk))
+    return (positions, slot, block_tables.to(torch.int32).contiguous(),
+            q_start.to(torch.int32).contiguous(), (q_start + q_len).to(torch.int32))
+
+
+def _layer(lp: Params, hid: torch.Tensor, ck: Cache, cv: Cache, positions: torch.Tensor,
+           slot: torch.Tensor, bt32: torch.Tensor, qs32: torch.Tensor, kv_lens: torch.Tensor,
+           cfg: ModelConfig, attn_num_splits: int = 0, tp: "TPGroup | None" = None,
+           moe_impl: str = "dense", split_rows: bool = False) -> torch.Tensor:
+    """One layer of the forward on hid [B, T, H] over the layer's cache
+    slices ``ck``, ``cv``: attention through the kernel (over this data
+    replica's rows with ``split_rows``), then the FFN. Returns the new
+    hidden state; the step's K/V are written into the cache."""
+    b, t = positions.shape
+    d = cfg.head_dim
+    heads, kv_heads = leaf_shape(lp["wq"])[-1] // d, leaf_shape(lp["wk"])[-1] // d
+    x = rms_norm(hid, lp["attn_norm"], cfg.rms_norm_eps)
+    q = mm(x, lp["wq"]).reshape(b, t, heads, d)
+    k = mm(x, lp["wk"]).reshape(b, t, kv_heads, d)
+    v = mm(x, lp["wv"]).reshape(b, t, kv_heads, d)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    # Phase hooks (obs/profiler.py): host-side labels for torch.profiler
+    # traces, no device op; under a graph capture they run at capture
+    # time only.
+    with _perf_phase("scatter"):
+        _scatter_kv(ck, k, slot)
+        _scatter_kv(cv, v, slot)
+    with _perf_phase("attention"):
+        if split_rows:
+            # this data replica's rows, gathered over the data group
+            r = slice(tp.data_rank * (b // tp.dp), (tp.data_rank + 1) * (b // tp.dp))
+            attn = tp.gather_rows(
+                paged_attention_kernel(q[r].contiguous(), ck, cv, bt32[r].contiguous(),
+                                       qs32[r].contiguous(), kv_lens[r].contiguous(),
+                                       num_splits=attn_num_splits), b)
+        else:
+            attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
+                                          num_splits=attn_num_splits)
+    out = mm(attn.reshape(b, t, heads * d), lp["wo"])
+    hid = hid + (out if tp is None else tp.all_reduce_sum(out))
+    x = rms_norm(hid, lp["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.is_moe:
+        # each reduces over the MoE group itself, in f32
+        if moe_impl == "ep":
+            from dynamo_tpu_torch.models.moe import moe_mlp_dropless
+
+            return hid + moe_mlp_dropless(x, lp, cfg, tp)
+        if moe_impl == "ep_capacity":
+            if tp is not None and tp.moe_size > 1:
+                raise ValueError("moe_impl='ep_capacity' runs on one device")
+            from dynamo_tpu_torch.models.moe import moe_mlp_ep
+
+            return hid + moe_mlp_ep(x, lp, cfg)
+        if moe_impl == "dense":
+            return hid + moe_mlp(x, lp, cfg, tp)
+        raise ValueError(f"unknown moe_impl {moe_impl!r} (dense, ep, ep_capacity)")
+    out = swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return hid + (out if tp is None else tp.all_reduce_sum(out))
+
+
 def forward(params: Params, cfg: ModelConfig,
             token_ids: torch.Tensor,      # [B, T] int32
             q_start: torch.Tensor,        # [B] position of first query token
@@ -462,7 +552,8 @@ def forward(params: Params, cfg: ModelConfig,
             embed_mask: torch.Tensor | None = None,      # [B, T] True → use override
             tp: "TPGroup | None" = None,                 # this rank's group
             moe_impl: str = "dense",                     # "dense", "ep" or "ep_capacity"
-            ) -> torch.Tensor:
+            pp_microbatches: int = 0,                    # pp > 1: schedule depth (0 = auto)
+            ) -> torch.Tensor | None:
     """One engine step. Returns the final-norm hidden state at each row's
     last valid query token [B, H] (or at every token [B, T, H] with
     ``return_all_hidden``: the speculative verify step), and writes the
@@ -478,24 +569,24 @@ def forward(params: Params, cfg: ModelConfig,
     them (the cache is replicated: every replica scatters every row). An
     expert rank (``tp.ep > 1``) computes its model shard's attention, as
     every expert rank of that shard does (JAX replicates attention over
-    "expert"), and its part of each MoE layer.
+    "expert"), and its part of each MoE layer. A group of more than one
+    pipeline stage (``tp.pp > 1``) runs :func:`forward_pp`.
 
     ``moe_impl`` picks a MoE model's FFN, as JAX's ``forward`` does:
     ``"dense"`` (:func:`moe_mlp`, the width split over tp), ``"ep"``
     (``models/moe.moe_mlp_dropless``, the experts split over ep too) or
     ``"ep_capacity"`` (``models/moe.moe_mlp_ep``, one device)."""
+    if tp is not None and tp.pp > 1:
+        if return_all_hidden:
+            raise ValueError("forward_pp has no all-positions output")
+        if embed_override is not None:
+            raise ValueError("forward_pp has no embedding-override input")
+        return forward_pp(params, cfg, token_ids, q_start, q_len, block_tables, cache_k,
+                          cache_v, tp, microbatches=pp_microbatches,
+                          attn_num_splits=attn_num_splits)
     b, t = token_ids.shape
-    bs = _cache_block_size(cache_k)
-    dev = token_ids.device
-    ar = torch.arange(t, device=dev)
-    positions = q_start[:, None].long() + ar[None, :]                 # [B, T]
-    valid = ar[None, :] < q_len[:, None]                              # [B, T]
-    kv_lens = (q_start + q_len).to(torch.int32)                       # [B]
-    blk = torch.gather(block_tables.long(), 1,
-                       (positions // bs).clamp(0, block_tables.shape[1] - 1))
-    slot = torch.where(valid, blk * bs + positions % bs, torch.zeros_like(blk))
-    bt32 = block_tables.to(torch.int32).contiguous()
-    qs32 = q_start.to(torch.int32).contiguous()
+    positions, slot, bt32, qs32, kv_lens = _step_statics(
+        q_start, q_len, block_tables, t, _cache_block_size(cache_k))
     # Data parallelism with tensor parallelism (JAX: paged_attention_sharded's
     # P("data", ...) batch): each replica attends its b/dp rows, when they
     # divide; otherwise (JAX's dense fallback) every replica the whole
@@ -506,61 +597,135 @@ def forward(params: Params, cfg: ModelConfig,
     if embed_override is not None:
         hid = torch.where(embed_mask[..., None], embed_override.to(hid.dtype), hid)
     layers = params["layers"]
-    d = cfg.head_dim
-    heads, kv_heads = leaf_shape(layers["wq"])[-1] // d, leaf_shape(layers["wk"])[-1] // d
     for li in range(cfg.num_layers):
         lp = {key: layer_leaf(leaf, li) for key, leaf in layers.items()}
-        x = rms_norm(hid, lp["attn_norm"], cfg.rms_norm_eps)
-        q = mm(x, lp["wq"]).reshape(b, t, heads, d)
-        k = mm(x, lp["wk"]).reshape(b, t, kv_heads, d)
-        v = mm(x, lp["wv"]).reshape(b, t, kv_heads, d)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        ck, cv = _layer_cache(cache_k, li), _layer_cache(cache_v, li)
-        # Phase hooks (obs/profiler.py): host-side labels for torch.profiler
-        # traces, no device op; under a graph capture they run at capture
-        # time only.
-        with _perf_phase("scatter"):
-            _scatter_kv(ck, k, slot)
-            _scatter_kv(cv, v, slot)
-        with _perf_phase("attention"):
-            if split_rows:
-                # this data replica's rows, gathered over the data group
-                r = slice(tp.data_rank * (b // tp.dp), (tp.data_rank + 1) * (b // tp.dp))
-                attn = tp.gather_rows(
-                    paged_attention_kernel(q[r].contiguous(), ck, cv, bt32[r].contiguous(),
-                                           qs32[r].contiguous(), kv_lens[r].contiguous(),
-                                           num_splits=attn_num_splits), b)
-            else:
-                attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
-                                              num_splits=attn_num_splits)
-        out = mm(attn.reshape(b, t, heads * d), lp["wo"])
-        hid = hid + (out if tp is None else tp.all_reduce_sum(out))
-        x = rms_norm(hid, lp["mlp_norm"], cfg.rms_norm_eps)
-        if cfg.is_moe:
-            # each reduces over the MoE group itself, in f32
-            if moe_impl == "ep":
-                from dynamo_tpu_torch.models.moe import moe_mlp_dropless
-
-                hid = hid + moe_mlp_dropless(x, lp, cfg, tp)
-            elif moe_impl == "ep_capacity":
-                if tp is not None and tp.moe_size > 1:
-                    raise ValueError("moe_impl='ep_capacity' runs on one device")
-                from dynamo_tpu_torch.models.moe import moe_mlp_ep
-
-                hid = hid + moe_mlp_ep(x, lp, cfg)
-            elif moe_impl == "dense":
-                hid = hid + moe_mlp(x, lp, cfg, tp)
-            else:
-                raise ValueError(f"unknown moe_impl {moe_impl!r} (dense, ep, ep_capacity)")
-        else:
-            out = swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
-            hid = hid + (out if tp is None else tp.all_reduce_sum(out))
+        hid = _layer(lp, hid, _layer_cache(cache_k, li), _layer_cache(cache_v, li),
+                     positions, slot, bt32, qs32, kv_lens, cfg, attn_num_splits, tp,
+                     moe_impl, split_rows)
     h = rms_norm(hid, params["final_norm"], cfg.rms_norm_eps)
     if return_all_hidden:
         return h
     last_idx = (q_len.long() - 1).clamp(0, t - 1)                     # [B]
-    return h[torch.arange(b, device=dev), last_idx]                   # [B, H]
+    return h[torch.arange(b, device=token_ids.device), last_idx]      # [B, H]
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def pp_microbatch_count(b: int, t: int, pp: int, microbatches: int = 0) -> int:
+    """The microbatches of a [b, t] step over ``pp`` stages, as JAX's
+    ``forward_pp`` counts them: the largest divisor of the split axis (t
+    for a prefill chunk, b for decode) that is at most the target
+    (``microbatches``, or 2·pp when 0)."""
+    target = microbatches if microbatches > 0 else 2 * pp
+    axis = t if t > 1 else b
+    m = min(target, axis)
+    while m > 1 and axis % m:
+        m -= 1
+    return m
+
+
+def forward_pp(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
+               q_start: torch.Tensor, q_len: torch.Tensor, block_tables: torch.Tensor,
+               cache_k: Cache, cache_v: Cache, tp: "TPGroup", microbatches: int = 0,
+               attn_num_splits: int = 0) -> torch.Tensor | None:
+    """Pipeline-parallel forward (JAX: ``forward_pp``): this rank is stage
+    ``tp.stage`` of ``tp.pp`` and holds layers ``[s L/pp, (s+1) L/pp)`` and
+    their cache. Every stage has the step's inputs (the leader broadcast
+    them); stage 0 embeds.
+
+    GPipe's schedule over ``m`` microbatches (:func:`pp_microbatch_count`):
+    a prefill chunk (T > 1) splits along T — sub-chunk c sits at ``q_start
+    + c·T/m`` and sees the cache up to ``q_start + min(q_len, (c+1)·T/m)``,
+    which the sub-chunks before it wrote: a stage runs them in index
+    order, which is the causal order — and decode (T = 1) splits along B.
+    A stage takes microbatch c from the stage before it (stage 0 from its
+    embeddings), runs its layers on it (:func:`_pp_stage_block`, the
+    kernel in every layer) and hands it on, so stage s works on
+    microbatch c while stage s + 1 works on c - 1. JAX's bubble ticks
+    compute on stale activations and write to trash block 0; here a stage
+    idles instead, which leaves every block but the trash block as JAX's
+    stage leaves it. Fewer than 2 microbatches take the sequential
+    schedule (JAX: ``_forward_pp_sequential``, a lone decode row): the
+    whole batch goes through the stages one after the other. JAX's runs
+    every stage every round and keeps stage i's result in round i,
+    through dense attention; the port runs each stage once, through the
+    kernel.
+
+    The last stage picks each row's last valid token and sends those rows
+    [B, H] to stage 0 (JAX's psum over "pipe" of a buffer only the last
+    stage fills, before its pick), which applies the final norm and
+    returns them; the other stages return None. The MoE FFN is the dense
+    dispatch in every stage, as in JAX's stage block."""
+    b, t = token_ids.shape
+    positions, slot, bt32, qs32, kv_lens = _step_statics(
+        q_start, q_len, block_tables, t, _cache_block_size(cache_k))
+    h0 = (embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype))
+          if tp.stage == 0 else None)
+    m = pp_microbatch_count(b, t, tp.pp, microbatches)
+    parts = []
+    if m < 2:     # the sequential schedule
+        parts.append(((slice(None),), positions, slot, bt32, qs32, kv_lens))
+    elif t > 1:   # sub-chunks of T
+        tm = t // m
+        for c in range(m):
+            cols = slice(c * tm, (c + 1) * tm)
+            kl = (q_start + torch.clamp(q_len, max=(c + 1) * tm)).to(torch.int32)
+            parts.append(((slice(None), cols), positions[:, cols], slot[:, cols], bt32,
+                          qs32 + c * tm, kl))
+    else:       # rows of B
+        bm = b // m
+        for c in range(m):
+            rows = slice(c * bm, (c + 1) * bm)
+            parts.append(((rows,), positions[rows], slot[rows], bt32[rows], qs32[rows],
+                          kv_lens[rows]))
+    return _pp_schedule(params, cfg, parts, cache_k, cache_v, tp, h0, q_len, attn_num_splits)
+
+
+def _pp_schedule(params, cfg, parts, cache_k, cache_v, tp, h0, q_len, attn_num_splits):
+    """Run this stage's part of the schedule over ``parts`` (a
+    microbatch's index into [B, T] — rows, or all rows and a range of T —
+    and its positions, slots, block tables, q_start and kv_lens), in
+    order, and bring the last stage's hidden to stage 0 (see
+    :func:`forward_pp`)."""
+    pp, s = tp.pp, tp.stage
+    dt = torch_dtype(cfg.dtype)
+    outs = []
+    for index, pos, slot, bt, qs, kl in parts:
+        shape = (*pos.shape, cfg.hidden_size)
+        h = h0[index] if s == 0 else tp.recv_stage(shape, dt, s - 1)
+        h = _pp_stage_block(cfg, params["layers"], cache_k, cache_v, h, pos, slot, bt, qs, kl,
+                            attn_num_splits)
+        tp.microbatches += 1
+        if s < pp - 1:
+            tp.send_stage(h, s + 1)
+        else:
+            outs.append(h)
+    b = q_len.shape[0]
+    if s == pp - 1:
+        h = torch.cat(outs, dim=len(parts[0][0]) - 1)                  # [B, T, H]
+        last_idx = (q_len.long() - 1).clamp(0, h.shape[1] - 1)
+        tp.send_stage(h[torch.arange(b, device=h.device), last_idx], 0)
+        return None
+    if s > 0:
+        return None
+    last_h = tp.recv_stage((b, cfg.hidden_size), dt, pp - 1)
+    return rms_norm(last_h, params["final_norm"], cfg.rms_norm_eps)
+
+
+def _pp_stage_block(cfg: ModelConfig, layers: Params, cache_k: Cache, cache_v: Cache,
+                    h: torch.Tensor, positions: torch.Tensor, slot: torch.Tensor,
+                    bt32: torch.Tensor, qs32: torch.Tensor, kv_lens: torch.Tensor,
+                    attn_num_splits: int = 0) -> torch.Tensor:
+    """One stage's layer block (JAX: ``_pp_stage_block``) on one
+    microbatch: :func:`_layer` over the stage's layers, local layer ``li``
+    on the stage's cache slice ``li``; the MoE FFN is the dense dispatch."""
+    for li in range(leaf_shape(layers["attn_norm"])[0]):
+        lp = {key: layer_leaf(leaf, li) for key, leaf in layers.items()}
+        h = _layer(lp, h, _layer_cache(cache_k, li), _layer_cache(cache_v, li), positions,
+                   slot, bt32, qs32, kv_lens, cfg, attn_num_splits)
+    return h
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig, hidden: torch.Tensor,

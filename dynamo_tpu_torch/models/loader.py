@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.parallel.mesh import pad_dim, rank_logical_axes, shard_bounds
+from dynamo_tpu_torch.parallel.mesh import pad_dim, rank_logical_axes, shard_bounds, stage_layers
 from dynamo_tpu_torch.utils.device import resolve_device
 from dynamo_tpu_torch.utils.logging import get_logger
 
@@ -203,15 +203,19 @@ def _expert_specs(family: str) -> dict[str, str]:
 
 
 def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.dtype,
-                      rank: int = 0, tp: int = 1, expert: int = 0, ep: int = 1
+                      rank: int = 0, tp: int = 1, expert: int = 0, ep: int = 1,
+                      stage: int = 0, pp: int = 1
                       ) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
     """Yield ((path), stacked CPU tensor) for every model parameter; layer
     params are stacked into [L, ...] one layer at a time, an MoE model's
-    routed experts into [L, E, ...] one expert at a time. With ``tp`` or
-    ``ep`` > 1 each leaf is the shard of the rank at (model ``rank``,
-    expert ``expert``) (parallel/mesh.py): only that rank's experts are
-    read, and only its slice of each checkpoint tensor."""
+    routed experts into [L, E, ...] one expert at a time. With ``tp``,
+    ``ep`` or ``pp`` > 1 each leaf is the shard of the rank at (model
+    ``rank``, expert ``expert``, stage ``stage``) (parallel/mesh.py): only
+    that rank's layers and experts are read, and only its slice of each
+    checkpoint tensor; a stage past the first reads no ``embed``,
+    ``final_norm`` or ``lm_head``."""
     axes = rank_logical_axes(cfg)
+    l_lo, l_hi = stage_layers(cfg, stage, pp)
     family = _moe_family(reader, cfg) if cfg.is_moe else "llama"
 
     def grab(name: str, transpose: bool, leaf_axes: tuple) -> torch.Tensor:
@@ -240,35 +244,37 @@ def iter_param_leaves(cfg: ModelConfig, reader: CheckpointReader, dtype: torch.d
             out[i] = grab(name, transpose, leaf_axes)
         return out.view(*lead, *first.shape)
 
-    yield ("embed",), grab("model.embed_tokens.weight", False, axes["embed"])
-    yield ("final_norm",), grab("model.norm.weight", False, axes["final_norm"])
-    if not cfg.tie_word_embeddings:
-        yield ("lm_head",), grab("lm_head.weight", True, axes["lm_head"])
-    L, E = cfg.num_layers, cfg.num_experts
+    if stage == 0:
+        yield ("embed",), grab("model.embed_tokens.weight", False, axes["embed"])
+        yield ("final_norm",), grab("model.norm.weight", False, axes["final_norm"])
+        if not cfg.tie_word_embeddings:
+            yield ("lm_head",), grab("lm_head.weight", True, axes["lm_head"])
+    L, E = l_hi - l_lo, cfg.num_experts
     for our, (suffix, transpose) in _layer_specs(cfg, family).items():
-        names = [f"model.layers.{i}.{suffix}" for i in range(L)]
+        names = [f"model.layers.{i}.{suffix}" for i in range(l_lo, l_hi)]
         yield ("layers", our), stack(names, (L,), transpose, axes["layers"][our][1:])
     if cfg.is_moe:
         lo, hi, per = shard_bounds(E, "expert", rank, tp, expert, ep)
         for our, pattern in _expert_specs(family).items():
             names = [f"model.layers.{i}.{pattern.format(e=e)}"
-                     for i in range(L) for e in range(lo, hi)]
+                     for i in range(l_lo, l_hi) for e in range(lo, hi)]
             yield ("layers", our), stack(names, (L, per), True, axes["layers"][our][2:])
 
 
 def load_params(cfg: ModelConfig, model_dir: str | Path,
                 device: str | torch.device | None = None, rank: int = 0,
-                tp: int = 1, expert: int = 0, ep: int = 1) -> Params:
+                tp: int = 1, expert: int = 0, ep: int = 1, stage: int = 0,
+                pp: int = 1) -> Params:
     """Load an HF llama-family checkpoint into the port's params dict, at
-    ``cfg.dtype``, on ``device`` (default: the CUDA card): with ``tp`` or
-    ``ep`` > 1 the shard of the rank at (``rank``, ``expert``), reading
-    only its slice of each tensor."""
+    ``cfg.dtype``, on ``device`` (default: the CUDA card): with ``tp``,
+    ``ep`` or ``pp`` > 1 the shard of the rank at (``rank``, ``expert``,
+    ``stage``), reading only its slice of each tensor."""
     dev = resolve_device(device)
     reader = CheckpointReader(model_dir)
     params: Params = {}
     n_bytes = 0
     for path, t in iter_param_leaves(cfg, reader, getattr(torch, cfg.dtype), rank, tp,
-                                     expert, ep):
+                                     expert, ep, stage, pp):
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -115,7 +115,8 @@ def quantize_params_int8(params: Params, cfg: ModelConfig,
     do MoE expert stacks (the einsum path; a warning names them).
     Idempotent: a quantized leaf passes through. Under ``tp`` the params
     are this rank's shard and the row-parallel matrices' scales are taken
-    over the group."""
+    over the group; a pipeline stage past the first has no ``embed`` or
+    ``lm_head`` to quantize (each layer's scales are its own)."""
     from dynamo_tpu_torch.parallel.mesh import PARAM_RULES, param_logical_axes
 
     axes = param_logical_axes(cfg)["layers"]
@@ -131,7 +132,7 @@ def quantize_params_int8(params: Params, cfg: ModelConfig,
         row_parallel = tp is not None and PARAM_RULES.get(axes[key][-2]) == "model"
         layers[key] = _quant_mm(layers[key], tp if row_parallel else None)
     out["layers"] = layers
-    if not is_quantized(params["embed"]):
+    if "embed" in params and not is_quantized(params["embed"]):
         out["embed"] = _quant_rows(params["embed"])
         if "lm_head" in params and not is_quantized(params["lm_head"]):
             # [h, vocab]: a scale per vocab column, the mm geometry

@@ -13,22 +13,33 @@ row-parallel shard is an ``all_reduce`` with ``MAX``
 broadcast.
 
 KV blocks move between the ranks and the leader's host memory with two
-more (:meth:`TPGroup.gather_heads`, :meth:`TPGroup.broadcast_bytes`): a
-rank's kv heads written into a zeroed buffer of every head and summed into
-the leader's (a reduce, byte for byte: each byte is one rank's plus
-zeros), and the leader's blocks broadcast to every rank as bytes. On gloo
-these buffers are CPU tensors.
+more (:meth:`TPGroup.gather_parts`, :meth:`TPGroup.broadcast_bytes`): a
+rank's part of whole blocks (its kv heads, its stage's layers) written
+into a zeroed buffer of whole blocks and summed into the leader's (a
+reduce, byte for byte: each byte is one rank's plus zeros), and the
+leader's blocks broadcast to every rank as bytes. On gloo these buffers
+are CPU tensors.
+
+Pipeline stages (JAX's "pipe" axis) pass activations point to point
+(:meth:`TPGroup.send_stage`, :meth:`TPGroup.recv_stage`): a microbatch's
+hidden from stage s to s + 1 (JAX's ``ppermute``), and the last stage's
+hidden to stage 0, which samples (JAX's ``psum`` over "pipe", whose other
+terms are zeros). gloo's ``send`` and ``recv`` take CPU tensors only, so
+on gloo a card's tensor goes through host memory; nccl takes it as it
+is.
 
 gloo reduces CUDA tensors through host memory, so its collectives cannot
 be captured in a CUDA graph: a tensor-parallel engine runs eager steps.
 Every collective blocks the calling thread until it is done; the group
 counts them and the host seconds they took, the block moves apart.
 
-Data parallelism (JAX's "data" mesh axis) and expert parallelism (its
-"expert" axis) multiply the ranks: an engine of ``dp`` x ``ep`` x ``tp``
-ranks, world rank ``(d*ep + e)*tp + m`` holding model shard ``m`` of
-expert shard ``e`` of data replica ``d`` (:func:`rank_coords`; at ep = 1
-this is ``d*tp + m``). Three kinds of group:
+Data parallelism (JAX's "data" mesh axis), pipeline parallelism (its
+"pipe" axis) and expert parallelism (its "expert" axis) multiply the
+ranks: an engine of ``dp`` x ``pp`` x ``ep`` x ``tp`` ranks, world rank
+``((d*pp + s)*ep + e)*tp + m`` holding model shard ``m`` of expert shard
+``e`` of stage ``s`` of data replica ``d`` (:func:`rank_coords`; at pp =
+ep = 1 this is ``d*tp + m``; pp composes with dp only, as in JAX, so at
+pp > 1 it is ``d*pp + s``). Four kinds of group:
 
 - the *model group* (``rank``, ``size``, ``pg``: the ``tp`` ranks of one
   (d, e)): the attention's ``wo`` sum, the vocab-parallel embedding and
@@ -41,7 +52,10 @@ this is ``d*tp + m``). Three kinds of group:
   and the TEP contraction of the per-expert width (:meth:`all_reduce_moe`;
   at ep = 1 it is the model group);
 - the *data group* (``data_pg``: the ``dp`` ranks holding shard (e, m)):
-  the attention rows a replica computed (:meth:`TPGroup.gather_rows`).
+  the attention rows a replica computed (:meth:`TPGroup.gather_rows`);
+- the *block group* (``block_pg``: the ``pp`` x ``tp`` ranks of one
+  (d, e); at pp = 1 the model group): the parts of whole blocks summed
+  into the leader's (:meth:`TPGroup.gather_parts`).
 
 The step inputs the leader broadcasts reach the whole world. The world is
 the process's default ``torch.distributed`` group: one engine a process.
@@ -75,8 +89,8 @@ class TPFailure(RuntimeError):
 class TPGroup:
     """One rank's membership of an engine's ranks: ``rank`` of ``size`` in
     its model group (what the attention shards by), expert shard
-    ``expert_rank`` of ``ep``, replica ``data_rank`` of ``dp``,
-    ``world_rank`` of ``world_size`` in all."""
+    ``expert_rank`` of ``ep``, pipeline stage ``stage`` of ``pp``, replica
+    ``data_rank`` of ``dp``, ``world_rank`` of ``world_size`` in all."""
 
     rank: int
     size: int
@@ -95,20 +109,31 @@ class TPGroup:
     ep: int = 1
     expert_rank: int = 0
     moe_pg: Any = None                       # this replica's MoE group (None: the model group)
+    pp: int = 1
+    stage: int = 0
+    block_pg: Any = None                     # this (d, e)'s block group (None: the model group)
     collectives: int = 0
     collective_s: float = 0.0
-    #: block moves (gather_heads, broadcast_bytes): calls, bytes, host seconds
+    #: block moves (gather_parts, broadcast_bytes): calls, bytes, host seconds
     block_moves: int = 0
     block_bytes: int = 0
     block_s: float = 0.0
+    #: microbatches this pipeline stage ran through its layers
+    microbatches: int = 0
 
     @property
     def world_size(self) -> int:
-        return self.size * self.ep * self.dp
+        return self.size * self.ep * self.pp * self.dp
+
+    def stage_rank(self, stage: int) -> int:
+        """The world rank of stage ``stage`` at this rank's other
+        coordinates."""
+        return (((self.data_rank * self.pp + stage) * self.ep + self.expert_rank) * self.size
+                + self.rank)
 
     @property
     def world_rank(self) -> int:
-        return (self.data_rank * self.ep + self.expert_rank) * self.size + self.rank
+        return self.stage_rank(self.stage)
 
     @property
     def moe_size(self) -> int:
@@ -125,7 +150,7 @@ class TPGroup:
 
     def _failed(self, exc: BaseException) -> TPFailure:
         what = (f"rank {self.world_rank} of an engine of {self.world_size} ranks "
-                f"(tp={self.size}, ep={self.ep}, dp={self.dp}): {exc}")
+                f"(tp={self.size}, ep={self.ep}, pp={self.pp}, dp={self.dp}): {exc}")
         if self.report is not None:
             what += "; " + self.report()
         return TPFailure(what)
@@ -186,13 +211,31 @@ class TPGroup:
         rank's card on nccl."""
         return torch.device("cpu") if self.backend == "gloo" else self.device
 
-    def gather_heads(self, buf: torch.Tensor) -> torch.Tensor:
-        """Sum every model rank's ``buf`` (uint8 bytes, zeros outside the
-        rank's own heads) into the leader's, in place: the leader's is
-        then every head's bytes (a reduce to the leader, in replica 0)."""
-        if self.size > 1:
-            self._run(dist.reduce, buf, block=True, op=dist.ReduceOp.SUM, dst=0)
+    def gather_parts(self, buf: torch.Tensor) -> torch.Tensor:
+        """Sum the ``buf`` of every rank of the block group (uint8 bytes of
+        whole blocks, zeros outside the rank's own heads and layers) into
+        the leader's, in place: the leader's is then every head's and
+        every layer's bytes (a reduce to the leader, in replica 0)."""
+        if self.size * self.pp > 1:
+            self._run(dist.reduce, buf, group=self.block_pg, block=True,
+                      op=dist.ReduceOp.SUM, dst=0)
         return buf
+
+    def send_stage(self, x: torch.Tensor, stage: int) -> None:
+        """Send ``x`` to stage ``stage`` of this replica (its bytes, through
+        host memory on gloo)."""
+        buf = x.contiguous().view(torch.uint8)
+        if buf.device != self.block_device:
+            buf = buf.to(self.block_device)
+        self._run(dist.send, buf, group=self._world, dst=self.stage_rank(stage))
+
+    def recv_stage(self, shape: tuple, dtype: torch.dtype, stage: int) -> torch.Tensor:
+        """The ``shape`` x ``dtype`` tensor stage ``stage`` of this replica
+        sends, on this rank's device."""
+        n = int(torch.Size(shape).numel()) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.empty(n, dtype=torch.uint8, device=self.block_device)
+        self._run(dist.recv, buf, group=self._world, src=self.stage_rank(stage))
+        return buf.to(self.device).view(dtype).reshape(shape)
 
     def broadcast_bytes(self, buf: torch.Tensor) -> torch.Tensor:
         """The leader's ``buf`` (uint8 bytes) into every rank's, in place."""
@@ -244,6 +287,7 @@ class TPGroup:
     def reset_stats(self) -> None:
         self.collectives, self.collective_s = 0, 0.0
         self.block_moves, self.block_bytes, self.block_s = 0, 0, 0.0
+        self.microbatches = 0
 
     def close(self) -> None:
         """Leave the group (destroys the process's default group)."""
@@ -251,23 +295,26 @@ class TPGroup:
             dist.destroy_process_group()
 
 
-def rank_coords(world_rank: int, tp: int, ep: int = 1) -> tuple[int, int, int]:
-    """(data replica d, expert shard e, model shard m) of a world rank,
-    ``world_rank = (d*ep + e)*tp + m``."""
+def rank_coords(world_rank: int, tp: int, ep: int = 1,
+                pp: int = 1) -> tuple[int, int, int, int]:
+    """(data replica d, stage s, expert shard e, model shard m) of a world
+    rank, ``world_rank = ((d*pp + s)*ep + e)*tp + m``."""
     rest, m = divmod(world_rank, tp)
-    d, e = divmod(rest, ep)
-    return d, e, m
+    rest, e = divmod(rest, ep)
+    d, s = divmod(rest, pp)
+    return d, s, e, m
 
 
 def init_tp_group(rank: int, size: int, backend: str, init_method: str,
                   device: torch.device, timeout: float = DEFAULT_TIMEOUT_S,
-                  dp: int = 1, ep: int = 1) -> TPGroup:
-    """Join an engine of ``dp`` x ``ep`` x ``size`` ranks as world rank
-    ``rank`` (coordinates :func:`rank_coords`), on ``device`` (set as the
-    process's current card first), through ``init_method`` (``file://``
-    or ``tcp://host:port``). nccl needs a card a rank; gloo takes CPU and
-    CUDA tensors. Every rank makes every model, MoE and data group that
-    is not the whole world, in one order (``new_group`` is collective)."""
+                  dp: int = 1, ep: int = 1, pp: int = 1) -> TPGroup:
+    """Join an engine of ``dp`` x ``pp`` x ``ep`` x ``size`` ranks as world
+    rank ``rank`` (coordinates :func:`rank_coords`), on ``device`` (set as
+    the process's current card first), through ``init_method``
+    (``file://`` or ``tcp://host:port``). nccl needs a card a rank; gloo
+    takes CPU and CUDA tensors. Every rank makes every model, MoE, data and
+    block group that is not the whole world, in one order (``new_group``
+    is collective)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown dist backend {backend!r} (supported: {', '.join(BACKENDS)})")
     if backend == "nccl" and device.type != "cuda":
@@ -278,19 +325,26 @@ def init_tp_group(rank: int, size: int, backend: str, init_method: str,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     td = datetime.timedelta(seconds=timeout)
-    world = size * ep * dp
+    world = size * ep * pp * dp
     dist.init_process_group(backend, init_method=init_method, world_size=world,
                             rank=rank, timeout=td)
-    d, e, m = rank_coords(rank, size, ep)
+    d, s, e, m = rank_coords(rank, size, ep, pp)
+
+    def at(r, st, x, i):
+        return ((r * pp + st) * ep + x) * size + i
 
     def group(ranks: list[int]):
         return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks, timeout=td)
 
-    models = {(r, x): group([(r * ep + x) * size + i for i in range(size)])
-              for r in range(dp) for x in range(ep)}
-    moes = {r: group(list(range(r * ep * size, (r + 1) * ep * size))) for r in range(dp)}
-    datas = {(x, i): group([(r * ep + x) * size + i for r in range(dp)])
-             for x in range(ep) for i in range(size)} if dp > 1 else {}
-    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, e],
-                   dp=dp, data_rank=d, data_pg=datas.get((e, m)), world_pg=dist.group.WORLD,
-                   ep=ep, expert_rank=e, moe_pg=moes[d])
+    models = {(r, st, x): group([at(r, st, x, i) for i in range(size)])
+              for r in range(dp) for st in range(pp) for x in range(ep)}
+    moes = {(r, st): group([at(r, st, x, i) for x in range(ep) for i in range(size)])
+            for r in range(dp) for st in range(pp)}
+    datas = {(st, x, i): group([at(r, st, x, i) for r in range(dp)])
+             for st in range(pp) for x in range(ep) for i in range(size)} if dp > 1 else {}
+    blocks = {(r, x): group([at(r, st, x, i) for st in range(pp) for i in range(size)])
+              for r in range(dp) for x in range(ep)} if pp > 1 else {}
+    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, s, e],
+                   dp=dp, data_rank=d, data_pg=datas.get((s, e, m)),
+                   world_pg=dist.group.WORLD, ep=ep, expert_rank=e, moe_pg=moes[d, s],
+                   pp=pp, stage=s, block_pg=blocks.get((d, e)))

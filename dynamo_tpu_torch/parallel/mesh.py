@@ -1,15 +1,19 @@
-"""Mesh axes and the parameter layout of tensor and expert parallelism —
-port of ``dynamo_tpu/parallel/mesh.py`` (and of ``param_logical_axes``
-from ``dynamo_tpu/models/llama.py``) for the "model" and "expert" axes.
+"""Mesh axes and the parameter layout of tensor, expert and pipeline
+parallelism — port of ``dynamo_tpu/parallel/mesh.py`` (and of
+``param_logical_axes`` from ``dynamo_tpu/models/llama.py``) for the
+"model", "expert" and "pipe" axes.
 
 The JAX package places a params pytree on a device mesh and lets GSPMD
 insert the collectives. Here each rank is a process of its own: it holds
 its own slice of every sharded leaf (:func:`shard_params`), computes on
 it, and the model code calls the collectives itself
 (``parallel/collectives.py``). The slices are JAX's: the rank at
-coordinates ``(m, e)`` in ("model", "expert") holds the m-th of tp equal
-contiguous pieces of each dim whose logical axis :data:`PARAM_RULES` maps
-to "model", and the e-th of ep pieces of each dim it maps to "expert":
+coordinates ``(m, e, s)`` in ("model", "expert", "pipe") holds the m-th
+of tp equal contiguous pieces of each dim whose logical axis
+:data:`PARAM_RULES` maps to "model", the e-th of ep pieces of each dim it
+maps to "expert", and the s-th of pp pieces of the stacked layer dim
+("layers" on "pipe": pipeline stage s holds layers ``[s L/pp, (s+1)
+L/pp)``):
 
 - ``wq``, ``wk``, ``wv``: output columns (the rank's q and kv heads);
   ``wo``: input rows (the same heads);
@@ -28,8 +32,17 @@ to "model", and the e-th of ep pieces of each dim it maps to "expert":
   (``dynamo_tpu/models/moe.py``), so every rank routes with the whole
   matrix in both packages.
 
+- Pipeline stages: ``"layers"`` on "pipe" (JAX's ``PARAM_RULES``), so
+  stage ``s`` of ``pp`` holds layers ``[s L/pp, (s+1) L/pp)`` of every
+  stacked leaf (both tensors of an int8 leaf); only stage 0 holds
+  ``embed``, ``final_norm`` and ``lm_head``: it embeds, and the last
+  stage's hidden comes back to it for the final norm and the logits
+  (JAX replicates them over "pipe"; the port's later stages never read
+  them).
+
 An expert count that does not divide over ep is refused by name, as
-JAX's placement refuses it (``device_put`` needs a divisible dim).
+JAX's placement refuses it (``device_put`` needs a divisible dim), and a
+layer count that does not divide over pp in JAX's words.
 
 The vocab is the one axis that need not divide: each rank's piece is
 ``ceil(V / tp)`` rows, the last one padded with zero rows that the model
@@ -72,8 +85,8 @@ class MeshConfig:
 
 # Logical→mesh axis rules for model parameters (a copy of JAX's). Keys are
 # the logical axis names of :func:`param_logical_axes`; values are mesh
-# axes (None = replicate). Params shard over "model" and "expert": the
-# port's "data" ranks (engine/tp.py) each hold a copy of them.
+# axes (None = replicate). Params shard over "model", "expert" and
+# "pipe": the port's "data" ranks (engine/tp.py) each hold a copy of them.
 PARAM_RULES: dict[str, str | None] = {
     "vocab": "model",          # embedding/lm_head vocab-sharded
     "hidden": None,            # activations' hidden axis replicated in params
@@ -158,6 +171,22 @@ def check_tp(cfg: ModelConfig, tp: int, ep: int = 1) -> None:
             raise ValueError(f"{name}={n} does not divide over {axis}={size}{why}")
 
 
+def check_pp(cfg: ModelConfig, pp: int) -> None:
+    """Raise unless ``cfg``'s layers divide over ``pp`` pipeline stages, in
+    the words of JAX's ``forward_pp``."""
+    if pp < 1:
+        raise ValueError(f"pp must be >= 1, got {pp}")
+    if cfg.num_layers % pp:
+        raise ValueError(f"num_layers={cfg.num_layers} not divisible by pp={pp}")
+
+
+def stage_layers(cfg: ModelConfig, stage: int, pp: int) -> tuple[int, int]:
+    """The layers ``[lo, hi)`` pipeline stage ``stage`` of ``pp`` holds."""
+    check_pp(cfg, pp)
+    per = cfg.num_layers // pp
+    return stage * per, (stage + 1) * per
+
+
 def local_heads(cfg: ModelConfig, tp: int) -> tuple[int, int]:
     """(query heads, kv heads) of one rank."""
     check_tp(cfg, tp)
@@ -165,15 +194,18 @@ def local_heads(cfg: ModelConfig, tp: int) -> tuple[int, int]:
 
 
 def shard_bounds(n: int, axis: str | None, rank: int, tp: int, expert: int = 0,
-                 ep: int = 1) -> tuple[int, int, int]:
+                 ep: int = 1, stage: int = 0, pp: int = 1) -> tuple[int, int, int]:
     """The piece ``[lo, hi)`` of a dim of size ``n`` on logical ``axis``
     held by the rank at (model ``rank`` of ``tp``, expert ``expert`` of
-    ``ep``), and the piece's size ``per`` once padded (``hi - lo`` but on
-    the vocab axis, whose last piece is padded to ``ceil(n / tp)``). A dim
-    on neither axis is whole: ``(0, n, n)``."""
+    ``ep``, stage ``stage`` of ``pp``), and the piece's size ``per`` once
+    padded (``hi - lo`` but on the vocab axis, whose last piece is padded
+    to ``ceil(n / tp)``). A dim on none of the axes is whole: ``(0, n,
+    n)``."""
     mesh_axis = PARAM_RULES.get(axis)
     if mesh_axis == "expert":
         rank, tp, name = expert, ep, "ep"
+    elif mesh_axis == "pipe":
+        rank, tp, name = stage, pp, "pp"
     elif mesh_axis == "model":
         name = "tp"
     else:
@@ -201,11 +233,11 @@ def pad_dim(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
 
 
 def shard_leaf(x: torch.Tensor, axes: tuple, rank: int, tp: int, expert: int = 0,
-               ep: int = 1) -> torch.Tensor:
-    """One leaf's slice for the rank at (``rank``, ``expert``), in memory of
-    its own (the full leaf can be freed)."""
+               ep: int = 1, stage: int = 0, pp: int = 1) -> torch.Tensor:
+    """One leaf's slice for the rank at (``rank``, ``expert``, ``stage``),
+    in memory of its own (the full leaf can be freed)."""
     for dim, axis in enumerate(axes):
-        lo, hi, per = shard_bounds(x.shape[dim], axis, rank, tp, expert, ep)
+        lo, hi, per = shard_bounds(x.shape[dim], axis, rank, tp, expert, ep, stage, pp)
         if (lo, hi) != (0, x.shape[dim]):
             x = pad_dim(x.narrow(dim, lo, hi - lo), dim, per)
     return x.clone(memory_format=torch.contiguous_format)
@@ -223,24 +255,29 @@ def quantized_axes(axes: tuple, key: str) -> tuple:
 
 
 def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int, expert: int = 0,
-                 ep: int = 1) -> Params:
+                 ep: int = 1, stage: int = 0, pp: int = 1) -> Params:
     """The shard of a full params tree held by the rank at (model ``rank``
-    of ``tp``, expert ``expert`` of ``ep``): the counterpart of JAX's
-    ``shard_params`` on a (tp, ep) mesh followed by taking that rank's
-    addressable shards (the router whole). A quantized leaf
-    (models/quant.py) is cut as its matrix is: ``q`` on the matrix's axes,
-    its scales on theirs (a padded vocab piece's scales are zeros, as its
-    rows are)."""
-    if tp == 1 and ep == 1:
+    of ``tp``, expert ``expert`` of ``ep``, pipeline stage ``stage`` of
+    ``pp``): the counterpart of JAX's ``shard_params`` on a (tp, ep, pp)
+    mesh followed by taking that rank's addressable shards (the router
+    whole). A quantized leaf (models/quant.py) is cut as its matrix is:
+    ``q`` on the matrix's axes, its scales on theirs (a padded vocab
+    piece's scales are zeros, as its rows are). A stage past the first
+    holds its layers only."""
+    if tp == 1 and ep == 1 and pp == 1:
         return params
     check_tp(cfg, tp, ep)
+    check_pp(cfg, pp)
+    cut = (rank, tp, expert, ep, stage, pp)
 
     def walk(p, axes):
         if isinstance(axes, dict):
             return {k: walk(p[k], axes[k]) for k in axes}
         if isinstance(p, dict):
-            return {k: shard_leaf(v, quantized_axes(axes, k), rank, tp, expert, ep)
-                    for k, v in p.items()}
-        return shard_leaf(p, axes, rank, tp, expert, ep)
+            return {k: shard_leaf(v, quantized_axes(axes, k), *cut) for k, v in p.items()}
+        return shard_leaf(p, axes, *cut)
 
-    return walk(params, rank_logical_axes(cfg))
+    axes = rank_logical_axes(cfg)
+    if stage > 0:
+        axes = {"layers": axes["layers"]}
+    return walk(params, axes)

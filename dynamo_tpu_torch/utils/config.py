@@ -118,6 +118,11 @@ class EngineConfig:
     tp: int = 1
     ep: int = 1
     sp: int = 1
+    # pp > 1: microbatches a step's pipeline schedule runs through the stages
+    # (models/llama.forward_pp). 0 = auto (2*pp); a split axis they do not
+    # divide takes the largest divisor below, and fewer than 2 take the
+    # sequential schedule.
+    pp_microbatches: int = 0
     # Tensor parallelism (tp > 1): one process a rank over torch.distributed
     # with this backend, "nccl" (a card a rank) or "gloo" (required when
     # ranks share a card); rank r runs on cuda:tp_devices[r] (default

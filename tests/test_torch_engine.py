@@ -312,7 +312,7 @@ def test_unsupported_settings_raise(setting):
 
 
 @pytest.mark.parametrize("field", [
-    "tokenizer", "dtype", "pp_microbatches", "kv_event_publishing",
+    "tokenizer", "dtype", "kv_event_publishing",
     "attn_impl", "ring_prefill_threshold",
 ])
 def test_settings_the_port_does_not_read_are_refused(field):

@@ -111,7 +111,7 @@ def test_int8_at_ep2_with_a_shared_expert_is_refused_by_both_packages(moe32):  #
 
 
 @pytest.mark.parametrize("setting,match", [
-    (dict(pp=2), r"pp > 1 \(pipeline parallelism: ROADMAP item 14c\)"),
+    (dict(pp=2, ep=2), "pp>1 currently composes only with dp"),
     (dict(sp=2), r"sp > 1 \(sequence parallelism with ops/ring_attention.py: ROADMAP "
                  r"item 14d\)"),
     (dict(ep=2, warmup_mode="lazy"), "CUDA graphs"),
