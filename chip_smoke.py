@@ -4,8 +4,8 @@
 
 Builds every CUDA kernel of the port from ``dynamo_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together: one source,
-``csrc/paged_attention_mma.cu``), then runs, in order, and exits non-zero
-if any phase fails:
+``csrc/paged_attention_mma.cu``), then runs these phases (in the order
+given below the list) and exits non-zero if any phase fails:
 
 (a) each kernel of ``ops.paged_attention.ROUTES`` against its plain
     PyTorch version on the card: every cache (bf16 or f32 for the
@@ -233,13 +233,13 @@ if any phase fails:
     local heads (also at the unsharded split count where the rank chooses
     another), its bound, SDPA on the same heads and, at tp=2, the plain
     version;
-(h) tensor parallelism at full width: llama-3-8b-lite cut to 4 layers at
+(h) tensor parallelism at full width: llama-3-8b-lite cut to 2 layers at
     tp=2 as two processes on cuda:0 over gloo (``dist_backend="gloo"``,
     ``tp_devices=(0, 0)``, eager steps, an explicit KV pool), each rank
     building the full weights from the seed and keeping its shard, through
     ``build_engine`` and ``AsyncTorchEngine.generate``, 32 x (128 prompt +
     32 greedy). Every rank's counts are set to 0 just before each run and
-    read just after: each rank must launch its route's kernel only, 4 a
+    read just after: each rank must launch its route's kernel only, 2 a
     forward step, on 16 of the 32 heads and 4 of the 8 kv heads. (h1) f32
     weights over the f32 cache: every stream must equal a tp=1 engine's or
     first differ at a near-tie; with two cards or more, again over nccl,
@@ -300,8 +300,9 @@ if any phase fails:
     worker's own prefill (its fallbacks, prefill tokens and launches).
     After the TTL no staging pin is left on the surviving prefill worker
     and no block is in use on the survivors, which drain and exit 0.
-(m) faults: (m1), beside the kernels' build (it needs neither them nor
-    the card), the port's chaos harness (``chaos/harness.py``) on this
+(m) faults: (m1), from the end of the kernels' build on, beside the
+    phases before (m) (it needs neither the kernels nor the card), the
+    port's chaos harness (``chaos/harness.py``) on this
     host, which has no JAX: the scenarios ``smoke``, ``worker_kill``,
     ``retire_under_load_smoke`` and ``worker_kill_mid_decode_smoke`` over
     fleets of mocker workers (coordinator, ``--engine mocker`` workers,
@@ -470,6 +471,45 @@ step's logits at pp=2 are within 2e-2 of the largest of pp=1's. Each
 run prints setup s, TTFT, decode tok/s and, a rank, collective ms a
 forward step and peak memory. No speed condition.
 
+Phase (s), sequence parallelism (models/llama.forward_ring,
+ops/ring_attention.py): (s1) llama-3-8b-lite, all 8 layers, seed-0 f32
+weights over the f32 cache, at sp=2 (two seq ranks on cuda:0 over gloo,
+eager steps, an explicit pool, the default row ladder,
+``ring_prefill_threshold=1024``), serves three waves: 4 x (1024 + 32
+greedy) admitted in one step (one ring step, [8, 1024] in the ladder's
+smallest bucket), then 1 x (8192 + 16) alone (one [8, 8192] ring step),
+then 4 x (256 + 16), each entering beside the one before it (below the
+threshold, and beside decode rows: the chunked path on both seq ranks).
+Every stream equals an sp=1 engine's (one rank, the kernel path in chunks
+of 512) or first differs at a near-tie; the ring counters say 2 ring
+steps of 12288 tokens and at least 4 bypassed dispatches; each rank ran
+the same programs and launched ``mma_f32`` only, 8 a forward step that
+did not ring and none in a ring step, and hopped once a layer of each
+ring step. (s2) llama-3-8b-lite cut to 2 layers, bf16 weights over the
+int8 cache, 4 x (1024 + 16) together at sp=2 x tp=2 (four ranks) and sp=1
+x tp=2: every stream ends with its length and finite logprobs, every rank
+of sp=2 x tp=2 launches ``mma_int8`` only, 2 a forward step that did not
+ring, and the first decode step's logits are within 2e-2 of the largest
+of sp=1 x tp=2's. With two cards or more (s1)'s sp=2 runs again over
+nccl (cuda:0 and cuda:1), and with four (s2)'s sp=2 x tp=2 does, held
+to the same conditions. It prints the ring threshold the cost model would
+engage on the card (``ring_prefill_threshold=0``), and for each run setup
+s, TTFT, decode tok/s and, a rank, the ring's hop bytes and host ms,
+collective ms a forward step and peak memory. No speed condition.
+
+Order: (a), (a'), (p0), (b) to (b''), (c), (i) and (j) run first, with
+the card to themselves. Then a second process of this script
+(``--ranked``, on the same card) runs (q), (h), (i3), (k), (l) and (p)
+while this one runs (d), (e), (g), (m), (o), (r) and (s): most of those
+phases' time is processes starting (each rank and worker imports torch),
+which leaves the card and most host cores idle. (f) and (n) run last,
+alone ((f)'s full warmup holds a 33 GiB graph pool; (n)'s planner sizes
+replicas from the ITL it profiles). So the kernel times of (a), (a') and
+(p0) are taken on an idle card, and the serving numbers of (d), (e), (g)
+to (m) and (o) to (s) with two processes sharing the card and the host:
+they compare within a run. Either process failing fails the run, and
+the other one is stopped.
+
 After every phase the script collects garbage, empties the allocator's
 cache and logs the card's allocated and reserved bytes (``[mem]``); an
 engine (``EngineCore``, ``ModelRunner``) of the phase still alive fails
@@ -481,8 +521,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p) and (r),
-``mma_bf16`` in (n) and (o), ``mma_int8`` in (r); and a
+in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p), (r) and (s),
+``mma_bf16`` in (n) and (o), ``mma_int8`` in (r) and (s); and a
 ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
@@ -500,7 +540,7 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-m`` runs (m) alone; ``--only-n`` builds the
 kernels and runs (n) alone, ``--only-o`` (o) alone, ``--only-q`` (j1)
 (the reference of (q2)) and (q), ``--only-r`` (b'')'s f32 run (the
-reference of (r1)) and (r).
+reference of (r1)) and (r), ``--only-s`` (s) alone.
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -2831,24 +2871,31 @@ def program_calls(core) -> dict:
     return {k: p.calls for k, p in core.runner.programs.items()}
 
 
-async def serve_on(engine, reqs: dict, route: str, tag: str) -> dict:
+async def serve_on(engine, reqs: dict, route: str, tag: str, stagger: bool = False) -> dict:
     """Serve ``reqs`` at once on a running engine (not shut down after):
     the streams, TTFT (all requests, and the median), and a check that the
     run launched ``route`` only, 8 a forward step, counted through replays
-    (the counts are set to 0 just before and read just after)."""
+    (the counts are set to 0 just before and read just after). With
+    ``stagger`` each request after the first enters once the one before
+    it has its first token (so it joins that one's decode)."""
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     core = engine.core
     calls0 = program_calls(core)
     first_at, done_at, streams = {}, {}, {}
+    order = list(reqs)
+    got_first = {k: asyncio.Event() for k in order}
 
     async def one(key):
         toks, lps = [], []
+        if stagger and key != order[0]:
+            await got_first[order[order.index(key) - 1]].wait()
         async for out in engine.generate(reqs[key]):
             if out.error:
                 raise RuntimeError(f"{tag}: request {key} failed: {out.error}")
             if not toks:
                 first_at[key] = time.perf_counter()
+                got_first[key].set()
             toks += out.token_ids
             lps += out.log_probs or []
         done_at[key] = time.perf_counter()
@@ -2891,13 +2938,16 @@ def schedule_launches(core, calls: list) -> int:
     """The attention launches one rank makes in ``calls`` ([(program key,
     calls)]): a launch a layer and forward step, and at pp > 1 a launch a
     layer of the rank's stage and microbatch of the schedule
-    (``models/llama.pp_microbatch_count`` of the program's shape)."""
+    (``models/llama.pp_microbatch_count`` of the program's shape); none in
+    a ring prefill step (a key marked "sp": its attention is the ring)."""
     from dynamo_tpu_torch.models.llama import pp_microbatch_count
 
     ec = core.engine_cfg
     per = core.model_cfg.num_layers // ec.pp
     out = 0
     for key, n in calls:
+        if "sp" in key:
+            continue
         window = key[3] if len(key) > 4 else 1    # a verify key is ("verify", b, t, nblk)
         b, t = (key[1], key[2]) if key[0] == "verify" else (key[0], key[1])
         m = pp_microbatch_count(b, t, ec.pp, ec.pp_microbatches) if ec.pp > 1 else 1
@@ -3633,8 +3683,8 @@ def phase_sharded(bw: float, peak: float) -> dict:
 #: (h)'s traffic: (b)'s 32 prompts of 128, 32 greedy tokens
 TP_BATCH, TP_PROMPT, TP_DECODE = 32, 128, 32
 #: (h)'s and (i3)'s models are cut to this depth, which keeps the script,
-#: (p) included, inside its time limit
-TP_LAYERS = 4
+#: (p) and (s) included, inside its time limit
+TP_LAYERS = 2
 
 
 def tp_cut(model: str) -> str:
@@ -4708,7 +4758,7 @@ def phase_harness(device_kind: str) -> dict:
     scenario of ``M_SCENARIOS`` over mocker workers, and the router
     component over two, all at once (each fleet is processes of its own on
     ports of its own, light on the CPU). Each report must pass. ``main``
-    runs it beside the kernels' build, which it does not need."""
+    runs it beside the phases before (m), once the kernels are built."""
     import concurrent.futures
     import tempfile
 
@@ -4882,7 +4932,7 @@ def phase_kvbm_faults(smi: str, store_addr: str, device: str = "cuda") -> dict:
 
 def phase_chaos(smi: str, m1, device: str = "cuda") -> dict:
     """(m): see the module docstring. ``m1`` is (m1)'s future, started by
-    ``main`` beside the build."""
+    ``main`` after the build."""
     import tempfile
 
     from dynamo_tpu_torch.chaos.invariants import InvariantChecker, StreamOutcome
@@ -5064,7 +5114,7 @@ def phase_chaos(smi: str, m1, device: str = "cuda") -> dict:
         raise AssertionError(f"[m] processes left over: {left}")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[m] (m2), (m3) passed in {out['wall_s']:.1f}s, (m1) in "
-        f"{out['m1']['wall_s']:.1f}s beside the build")
+        f"{out['m1']['wall_s']:.1f}s beside the phases before (m)")
     return out
 
 
@@ -5833,7 +5883,8 @@ def o_params_equal(tag: str, got: dict, want: dict, path: str = "") -> int:
 
 def o_serve(tag: str, engine, device: str) -> tuple[dict, dict]:
     """(b)'s 32 x (128 + 64) greedy requests on ``engine``: their streams, and
-    the run's launches (``mma_bf16`` only, 8 a forward step on the card)."""
+    the run's launches (``mma_bf16`` only, a launch a layer and forward step
+    on the card)."""
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions)
@@ -5905,9 +5956,11 @@ def o_loader(path: Path, ref: dict, device: str) -> dict:
     if differ:
         raise AssertionError(f"[o1] streams {differ[:8]} of the GGUF engine differ from "
                              "the dequantized reference's")
-    if device == "cuda" and (a_run["launches_per_forward_step"] != 8
-                             or b_run["launches_per_forward_step"] != 8):
-        raise AssertionError(f"[o1] launches a forward step: {a_run} {b_run}")
+    layers = resolve_model_config(O_MODEL).num_layers
+    if device == "cuda" and (a_run["launches_per_forward_step"] != layers
+                             or b_run["launches_per_forward_step"] != layers):
+        raise AssertionError(f"[o1] launches a forward step: {a_run} {b_run}, expected "
+                             f"{layers}")
     return res
 
 
@@ -6666,9 +6719,11 @@ def p_disagg(smi: str, f32_ref: dict, device: str = "cuda") -> dict:
 
 
 def phase_parity(smi: str, f32_ref: dict, bw: float, peak: float,
-                 device: str = "cuda") -> dict:
+                 device: str = "cuda", data_rows: bool = True) -> dict:
     """(p): see the module docstring. ``f32_ref`` is (b'')'s in-process f32
-    streams of (k)'s prompts, (p3)'s reference."""
+    streams of (k)'s prompts, (p3)'s reference. ``data_rows=False`` leaves
+    (p0) to the caller (``main`` times it before the ranked process
+    starts)."""
     from dynamo_tpu_torch.models.config import MODEL_PRESETS
     from dynamo_tpu_torch.ops import paged_attention as pa
 
@@ -6677,7 +6732,7 @@ def phase_parity(smi: str, f32_ref: dict, bw: float, peak: float,
     route = pa.ROUTES[(torch.float32, "float")]
     vocab = MODEL_PRESETS[model].vocab_size
     res: dict = {"model": model, "layers": P_LAYERS}
-    if device != "cpu":
+    if device != "cpu" and data_rows:
         res["p0"] = p_data_rows(bw, peak, device)
     sets = {"a": kv_prompts(51, P_SET, P_SET_PROMPT, vocab),
             "b": kv_prompts(52, P_SET, P_SET_PROMPT, vocab)}
@@ -7315,6 +7370,453 @@ def phase_pipeline(smi: str, f32_ref: dict, device: str = "cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# (s) sequence parallelism: the ring prefill over seq ranks
+# ---------------------------------------------------------------------------
+
+#: (s): seq ranks; (s1)'s ring threshold and traffic: S1_BATCH x (S1_PROMPT
+#: + S1_DECODE) admitted in one step (one ring step of 4 prompts of 1024,
+#: [8, 1024] in the default ladder's smallest row bucket), then one
+#: S1_LONG-token prompt alone (one [8, 8192] ring step: a row and 7 of
+#: padding), then S1_SHORT_N x (S1_SHORT + S1_SHORT_DECODE), each entering
+#: beside the one before it (four prefill dispatches below the threshold,
+#: beside decode rows)
+S_SP = 2
+S_THRESHOLD = 1024
+S1_BATCH, S1_PROMPT, S1_DECODE = 4, 1024, 32
+S1_LONG, S1_LONG_DECODE = 8192, 16
+S1_SHORT_N, S1_SHORT, S1_SHORT_DECODE = 4, 256, 16
+S1_MAX_LEN = S1_LONG + S1_LONG_DECODE + 16
+#: a pool that holds the largest wave (the long prompt), a block of slack a
+#: request and the trash block
+S1_BLOCKS = -(-(S1_LONG + S1_LONG_DECODE) // 16) + 2 * S1_BATCH + 1
+#: the sp=1 reference's chunk (the kernel path, chunked)
+S1_REF_CHUNK = 512
+#: (s2): llama-3-8b-lite cut to S2_LAYERS layers, bf16 weights over the
+#: int8 cache, S2_BATCH x (S2_PROMPT + S2_DECODE) together, at sp=2 x tp=2
+#: against sp=1 x tp=2; the first decode step's logits within S2_LOGIT_TOL
+#: of the largest of sp=1's (the bf16 forward's limit, as (r2))
+S2_LAYERS, S2_BATCH, S2_PROMPT, S2_DECODE = 2, 4, 1024, 16
+S2_LOGIT_TOL = 2e-2
+
+
+def s_engine(device: str, model: str, max_len: int, num_blocks: int, sp: int = 1,
+             tp: int = 1, backend: str = "gloo", **kw):
+    """An (s) engine of ``sp`` x ``tp`` ranks (eager steps): over gloo all
+    on one card, over nccl one card a rank; random weights from seed 0
+    (every rank draws the full tree and keeps its shard), the default row
+    ladder (a step of fewer than 8 rows is padded to 8),
+    ``ring_prefill_threshold`` S_THRESHOLD."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    ranks = sp * tp
+    if device != "cpu":     # the leader's peak is its own engine's
+        torch.cuda.reset_peak_memory_stats()
+    if backend == "nccl":
+        devices = tuple(range(ranks))
+    else:
+        devices = (0,) * ranks if device != "cpu" and ranks > 1 else ()
+    return build_engine(EngineConfig(
+        model=model, block_size=16, max_model_len=max_len, num_blocks=num_blocks,
+        allow_random_weights=True, warmup_mode="off", sp=sp, tp=tp,
+        ring_prefill_threshold=S_THRESHOLD, dist_backend=backend, tp_devices=devices, **kw),
+        device=device)
+
+
+def s_rank_check(tag: str, ranks: list[dict], route: str, layers: int, rings: int) -> list[dict]:
+    """Every rank ran the same programs, ``rings`` of them ring steps, and
+    launched ``route`` only, a launch a layer of each forward step that did
+    not ring (none in a ring step), and hopped sp - 1 times a layer of each
+    ring step. Returns each rank's numbers."""
+    out = []
+    for r in ranks:
+        steps, ring = r["forward_steps"], r["ring_steps"]
+        launches = layers * (steps - ring)
+        want = {k: launches if k == route else 0 for k in r["launches_by_kernel"]}
+        hops = rings * layers * (S_SP - 1)
+        if (r["launches_by_kernel"] != want or ring != rings or r["ring_hops"] != hops
+                or launches <= 0):
+            raise AssertionError(
+                f"{tag}: rank {r['rank']} (seq {r['seq_rank']}, model {r['model_rank']}) "
+                f"launched {r['launches_by_kernel']} in {steps} forward steps, {ring} of "
+                f"them ring steps, with {r['ring_hops']} hops; expected {want}, {rings} "
+                f"ring steps, {hops} hops")
+        out.append({"rank": r["rank"], "seq_rank": r["seq_rank"], "model_rank": r["model_rank"],
+                    "launches": launches, "forward_steps": steps, "ring_steps": ring,
+                    "ring_hops": r["ring_hops"], "ring_bytes": r["ring_bytes"],
+                    "ring_host_ms": 1e3 * r["ring_s"], "collectives": r["collectives"],
+                    "collective_ms_per_step": 1e3 * r["collective_s"] / max(steps, 1),
+                    "peak_mem_gib": r["max_memory_allocated"] / 2**30})
+    if len({json.dumps(r["programs"]) for r in ranks}) != 1:
+        raise AssertionError(f"{tag}: the ranks ran different programs")
+    return out
+
+
+def s_sum_ranks(waves: list[list[dict]]) -> list[dict]:
+    """Each rank's ``tp_stats`` summed over runs (each read after its own
+    reset): counts and seconds added, the programs listed run by run, the
+    peak memory the largest."""
+    out = []
+    for per_run in zip(*waves):
+        r = dict(per_run[0])
+        for other in per_run[1:]:
+            for k in ("forward_steps", "ring_steps", "ring_hops", "ring_bytes", "ring_s",
+                      "collectives", "collective_s"):
+                r[k] += other[k]
+            r["launches_by_kernel"] = {k: v + other["launches_by_kernel"][k]
+                                       for k, v in r["launches_by_kernel"].items()}
+            r["max_memory_allocated"] = max(r["max_memory_allocated"],
+                                            other["max_memory_allocated"])
+        r["programs"] = [run["programs"] for run in per_run]
+        out.append(r)
+    return out
+
+
+def s_auto_thresholds(name: str, f32_model: str) -> dict:
+    """The ring threshold ``ring_prefill_threshold=0`` would engage on this
+    card (``obs/costmodel.py`` on its row) at sp=2, for llama-3-8b-lite at
+    bf16 over the bf16 cache and at f32 (s1's), at (s1)'s chunk limits."""
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.obs import costmodel as cm
+
+    hw = cm.hw_spec_for(name)
+    return {model: cm.ring_prefill_break_even_tokens(
+        MODEL_PRESETS[model], hw, sp=S_SP, chunk=S1_MAX_LEN, block_size=16,
+        kv_dtype="bfloat16", quantization="none", max_tokens=S1_MAX_LEN)
+        for model in ("llama-3-8b-lite", f32_model)} | {"ring_bytes_per_s": hw.ring_bytes_per_s}
+
+
+def phase_sp(smi: str, device: str = "cuda") -> dict:
+    """(s): see the module docstring."""
+    from dynamo_tpu_torch.engine.engine import StepProgram
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import MODEL_PRESETS
+    from dynamo_tpu_torch.obs.ring_prefill import get_ring_prefill_metrics
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    res: dict = {"smi": smi, "sp": S_SP, "threshold": S_THRESHOLD}
+    model = register_f32_model()
+    cfg = MODEL_PRESETS[model]
+    route = pa.ROUTES[(torch.float32, "float")]
+    name = torch.cuda.get_device_name(0) if device != "cpu" else "cpu"
+    res["auto_threshold"] = s_auto_thresholds(name, model)
+    log(f"[s] automatic ring threshold at sp={S_SP} on {name} ({smi}), costmodel's row: "
+        + json.dumps(res["auto_threshold"]) + "; ranks that share one card hop through host "
+        "memory, which that rate does not describe: (s) sets its threshold")
+    waves = [("together", bench_reqs(cfg.vocab_size, S1_BATCH, S1_PROMPT, S1_DECODE), False),
+             ("long", kv_reqs(kv_prompts(81, 1, S1_LONG, cfg.vocab_size), "s1-long",
+                              S1_LONG_DECODE), False),
+             ("short", kv_reqs(kv_prompts(82, S1_SHORT_N, S1_SHORT, cfg.vocab_size), "s1-short",
+                               S1_SHORT_DECODE), True)]
+
+    async def s1(sp: int, backend: str = "gloo"):
+        t0 = time.perf_counter()
+        engine = s_engine(device, model, S1_MAX_LEN, S1_BLOCKS, sp=sp, backend=backend,
+                          prefill_chunk=S1_REF_CHUNK, max_tokens_per_step=4 * S1_PROMPT)
+        out = {"setup_s": time.perf_counter() - t0}
+        try:
+            rpm = get_ring_prefill_metrics()
+            before = (rpm.invocations.get(), rpm.tokens.get(), rpm.bypassed.get())
+            for tag, reqs, stagger in waves:
+                if sp > 1:   # every rank's counts set to 0 just before, read just after
+                    await engine.run_in_core(lambda c: c.reset_tp_stats())
+                out[tag] = await serve_on(engine, reqs, route, f"[s1] sp={sp} {backend} {tag}",
+                                          stagger)
+                if sp > 1:
+                    out[tag]["ranks"] = await engine.run_in_core(lambda c: c.tp_stats())
+            out["ring"] = [a - b for a, b in zip(
+                (rpm.invocations.get(), rpm.tokens.get(), rpm.bypassed.get()), before)]
+        finally:
+            await engine.shutdown()
+        return out
+
+    # sp=1, sp=2 over gloo (both ranks on cuda:0) and, with two cards or
+    # more, sp=2 over nccl (cuda:0 and cuda:1)
+    confs = {"sp1": (1, "gloo"), f"sp{S_SP}": (S_SP, "gloo")}
+    if device != "cpu" and torch.cuda.device_count() >= S_SP:
+        confs[f"sp{S_SP}_nccl"] = (S_SP, "nccl")
+    else:
+        log(f"[s1] the nccl configuration (one card a seq rank) was not run: this host has "
+            f"{torch.cuda.device_count()} CUDA device")
+    runs = {}
+    for conf, (sp, backend) in confs.items():
+        t0 = time.perf_counter()
+        runs[conf] = asyncio.run(s1(sp, backend))
+        free_engine()
+        audit_memory(f"(s1) {conf}")
+        runs[conf]["seconds"] = time.perf_counter() - t0
+    one = runs["sp1"]
+    s1_res = {"setup_s": {conf: r["setup_s"] for conf, r in runs.items()},
+              "seconds": {conf: r["seconds"] for conf, r in runs.items()},
+              "ring": {conf: {"invocations": r["ring"][0], "tokens": r["ring"][1],
+                              "bypassed": r["ring"][2]} for conf, r in runs.items()},
+              "waves": {}}
+    for tag, reqs, _ in waves:
+        w = {"requests": len(reqs)}
+        for conf, r in runs.items():
+            run = r[tag]
+            decode = len(next(iter(run["streams"].values())))
+            w[conf] = {"ttft_all_s": run["ttft_all_s"], "ttft_median_s": run["ttft_median_s"],
+                       "wall_s": run["wall_s"], "forward_steps": run["forward_steps"],
+                       "decode_tok_s": len(reqs) * (decode - 1)
+                       / max(run["wall_s"] - run["ttft_all_s"], 1e-9)}
+            if conf == "sp1":
+                continue
+            got = {i: (run["streams"][i], run["lps"][i]) for i in reqs}
+            ref = {i: (one[tag]["streams"][i], one[tag]["lps"][i]) for i in reqs}
+            equal, ties, bad = compare_streams(f"[s1] {tag} {conf} against sp1", got, ref)
+            if bad:
+                raise AssertionError(f"[s1] {tag}: {conf} streams leave sp=1's at no near-tie: "
+                                     f"{bad[:4]}")
+            w[conf].update(equal=equal, near_ties=len(ties))
+        s1_res["waves"][tag] = w
+    want_tokens = S1_BATCH * S1_PROMPT + S1_LONG
+    for conf, r in runs.items():
+        bad_ring = (r["ring"] != [0] * 3 if conf == "sp1" else
+                    r["ring"][:2] != [2, want_tokens] or r["ring"][2] < S1_SHORT_N)
+        if bad_ring:
+            raise AssertionError(f"[s1] ring counters (invocations, tokens, bypassed) "
+                                 f"{r['ring']} at {conf}; expected 0, 0, 0 at sp=1 and 2, "
+                                 f"{want_tokens}, >= {S1_SHORT_N} at sp={S_SP}")
+        if conf != "sp1":
+            s1_res[f"ranks_{conf}"] = s_rank_check(
+                f"[s1] {conf}", s_sum_ranks([r[tag]["ranks"] for tag, _, _ in waves]), route,
+                cfg.num_layers, 2)
+    s1_res["ranks"] = s1_res.pop(f"ranks_sp{S_SP}")
+    log("[s1] " + json.dumps(s1_res))
+    res["s1"] = s1_res
+
+    # (s2) bf16 over int8, 2 layers, sp=2 x tp=2 against sp=1 x tp=2
+    model2 = q_model("llama-3-8b-lite", S2_LAYERS, "bfloat16")
+    cfg2 = MODEL_PRESETS[model2]
+    route2 = pa.ROUTES[(torch.bfloat16, "int8")]
+    prompts = kv_prompts(83, S2_BATCH, S2_PROMPT, cfg2.vocab_size)
+    blocks = S2_BATCH * (-(-(S2_PROMPT + S2_DECODE) // 16) + 1) + 1
+    confs2 = {"sp1_tp2": (1, "gloo"), "sp2_tp2": (S_SP, "gloo")}
+    if device != "cpu" and torch.cuda.device_count() >= 2 * S_SP:
+        confs2["sp2_tp2_nccl"] = (S_SP, "nccl")
+    else:
+        log(f"[s2] the nccl configuration (one card a rank) was not run: this host has "
+            f"{torch.cuda.device_count()} CUDA device")
+    runs2 = {}
+    for tag, (sp, backend) in confs2.items():
+        # the leader's logits of its first two program calls: the prefill
+        # step's, then the first decode step's (a program's warm run, made
+        # outside its calls, is not recorded)
+        logits: list = []
+        calling = [False]
+        plain, call = llama.logits_from_hidden, StepProgram.__call__
+
+        def recorded(*a, **kw):
+            out = plain(*a, **kw)
+            if calling[0] and len(logits) < 2:
+                logits.append(out.float().cpu())
+            return out
+
+        def called(self, *a):
+            calling[0] = True
+            try:
+                return call(self, *a)
+            finally:
+                calling[0] = False
+
+        async def s2():
+            t0 = time.perf_counter()
+            engine = s_engine(device, model2, S2_PROMPT + S2_DECODE + 16, blocks, sp=sp, tp=2,
+                              backend=backend, kv_dtype="int8", prefill_chunk=S2_PROMPT)
+            setup = time.perf_counter() - t0
+            try:
+                await engine.run_in_core(lambda c: c.reset_tp_stats())
+                r = await serve_on(engine, kv_reqs(prompts, f"s2-{tag}", S2_DECODE), route2,
+                                   f"[s2] {tag}")
+                r["ranks"] = await engine.run_in_core(lambda c: c.tp_stats())
+            finally:
+                await engine.shutdown()
+            r["setup_s"] = setup
+            return r
+
+        llama.logits_from_hidden, StepProgram.__call__ = recorded, called
+        try:
+            t0 = time.perf_counter()
+            runs2[tag] = asyncio.run(s2())
+        finally:
+            llama.logits_from_hidden, StepProgram.__call__ = plain, call
+        free_engine()
+        audit_memory(f"(s2) {tag}")
+        runs2[tag]["logits"] = logits
+        runs2[tag]["seconds"] = time.perf_counter() - t0
+        for i, (toks, lps) in enumerate(zip(runs2[tag]["streams"].values(),
+                                            runs2[tag]["lps"].values())):
+            if len(toks) != S2_DECODE or not all(lp == lp and lp <= 1e-3 for lp in lps):
+                raise AssertionError(f"[s2] {tag} stream {i}: {len(toks)} tokens of "
+                                     f"{S2_DECODE}, logprobs {lps[:4]}")
+        if sp > 1:
+            runs2[tag]["ranks"] = s_rank_check(f"[s2] {tag}", runs2[tag]["ranks"], route2,
+                                               S2_LAYERS, 1)
+        else:
+            runs2[tag]["ranks"] = [{k: r[k] for k in ("rank", "forward_steps",
+                                                      "launches_by_kernel")}
+                                   for r in runs2[tag]["ranks"]]
+    one2, two2 = runs2["sp1_tp2"], runs2["sp2_tp2"]
+    s2_res = {tag: {k: v for k, v in run.items() if k not in ("streams", "lps", "logits")}
+              for tag, run in runs2.items()}
+    for tag, got in runs2.items():
+        if tag == "sp1_tp2":
+            continue
+        rows = [i for i in range(S2_BATCH) if one2["streams"][i][:1] == got["streams"][i][:1]]
+        if len(one2["logits"] + got["logits"]) != 4 or any(
+                x.shape[0] < S2_BATCH for x in one2["logits"] + got["logits"]):
+            raise AssertionError(
+                f"[s2] {tag}: recorded logits of {[tuple(x.shape) for x in one2['logits']]} "
+                f"and {[tuple(x.shape) for x in got['logits']]}; expected a prefill and a "
+                f"decode step of {S2_BATCH} rows or more")
+        ref, got2 = one2["logits"][1][rows], got["logits"][1][rows]
+        ratio = ((got2 - ref).abs().max() / (S2_LOGIT_TOL * ref.abs().max())).item()
+        s2_res[tag].update(first_decode_rows=len(rows), logit_err_over_limit=ratio,
+                           streams_equal=sum(one2["streams"][i] == got["streams"][i]
+                                             for i in range(S2_BATCH)))
+        if not (ratio <= 1.0 and rows and len(got["ranks"]) == 2 * S_SP):
+            raise AssertionError(f"[s2] {tag}: the first decode step's logits at sp={S_SP} x "
+                                 f"tp=2 against sp=1 x tp=2: err/limit {ratio} over "
+                                 f"{len(rows)} rows")
+    log("[s2] " + json.dumps(s2_res))
+    res["s2"] = s2_res
+    res["launches_s"] = {
+        route: {f"s1 rank {r['rank']} (seq {r['seq_rank']})": r["launches"]
+                for r in s1_res["ranks"]},
+        route2: {f"s2 sp2 x tp2 rank {r['rank']} (seq {r['seq_rank']}, model "
+                 f"{r['model_rank']})": r["launches"] for r in two2["ranks"]}}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[s] passed in {res['seconds']:.1f}s on {smi}: " + json.dumps(res["launches_s"]))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the ranked process: (q), (h), (i3), (k), (l) and (p) beside the rest
+# ---------------------------------------------------------------------------
+
+#: seconds the ranked process may take after the other phases are done
+RANKED_WAIT_S = 900.0
+
+
+def put_pickle(d: Path, name: str, obj) -> None:
+    """``obj`` as ``d/name.pkl``, renamed into place once written whole."""
+    import pickle
+
+    tmp = d / f"{name}.tmp"
+    tmp.write_bytes(pickle.dumps(obj))
+    tmp.rename(d / f"{name}.pkl")
+
+
+def take_pickle(d: Path, name: str, timeout: float = RANKED_WAIT_S):
+    """``d/name.pkl`` once the main process has put it; fails if the main
+    process is gone or ``timeout`` passes first."""
+    import pickle
+
+    path, parent = d / f"{name}.pkl", os.getppid()
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if os.getppid() != parent or time.monotonic() > deadline:
+            raise AssertionError(f"the main process did not put {name} in {d}")
+        time.sleep(0.2)
+    return pickle.loads(path.read_bytes())
+
+
+class RankedGroup:
+    """The second process of the run, ``chip_smoke.py --ranked DIR``: it
+    runs (q), (h), (i3), (k), (l) and (p) while this process runs (d),
+    (e), (g), (m), (o), (r) and (s). Most of those phases' time is
+    processes starting (each follower and worker imports torch), which
+    leaves the card and most host cores idle. Inputs and results cross
+    as pickles in DIR; its output goes to this process's."""
+
+    def __init__(self, inputs: dict):
+        import tempfile
+
+        self.dir = Path(tempfile.mkdtemp(prefix="chip-ranked-"))
+        put_pickle(self.dir, "inputs", inputs)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", str(Path(__file__).resolve()), "--ranked", str(self.dir)],
+            cwd=ROOT, start_new_session=True)
+
+    def put(self, name: str, obj) -> None:
+        put_pickle(self.dir, name, obj)
+
+    def check(self) -> None:
+        """Fails at once if the ranked process has failed."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            raise AssertionError(f"the ranked phases failed (exit code {rc}; their "
+                                 "output is above)")
+
+    def result(self) -> dict:
+        try:
+            self.proc.wait(RANKED_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the ranked phases were still running {RANKED_WAIT_S} s "
+                                 "after the others") from None
+        self.check()
+        if not (self.dir / "results.pkl").exists():
+            raise AssertionError("the ranked phases left no results")
+        return take_pickle(self.dir, "results", 0.0)
+
+    def stop(self) -> None:
+        """Interrupts the process if it still runs (its phases' cleanups
+        stop what they started), kills its group after 60 s."""
+        import shutil
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def run_ranked(d: Path, smi: str, bw: float, peak: float, t0: float) -> int:
+    """The ranked process's phases, on the inputs ``main`` put in ``d``;
+    puts what the kernels line reads of them."""
+    import ctypes
+    import signal
+
+    # interrupted (its cleanups run) if the main process dies
+    ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGINT))  # PR_SET_PDEATHSIG
+    inp = take_pickle(d, "inputs")
+    f32_streams, serve = inp["f32_streams"], inp["serve"]
+    moe_par = phase_moe_parallel(smi, inp["j1"])
+    audit_memory("(q)")
+    tp = phase_tp(smi, serve)
+    audit_memory("(h), (i3)")
+    cluster = phase_cluster(smi, f32_streams, serve["float"], take_pickle(d, "e2"))
+    audit_memory("(k)")
+    disagg = phase_disagg(smi, f32_streams, serve["float"], cluster)
+    audit_memory("(l)")
+    parity = phase_parity(smi, f32_streams, bw, peak, data_rows=False)
+    audit_memory("(p)")
+
+    def launches(run: dict) -> dict:
+        return {"route": run["route"], "launches": run["launches"]}
+
+    def workers(run: dict) -> dict:
+        return {"workers": {w: {"launches": r["launches"]} for w, r in run["workers"].items()}}
+
+    put_pickle(d, "results", {
+        "tp": {"h1": {"tp2": launches(tp["h1"]["tp2"])}, "i3": {"tp2": launches(tp["i3"]["tp2"])},
+               **{k: launches(tp[k]) for k in ("h2_bfloat16", "h2_int8")}},
+        "cluster": {k: workers(cluster[k]) for k in ("k1", "k2")},
+        "disagg": {k: workers(disagg[k]) for k in ("l1", "l2")},
+        "parity": {"launches_p": parity["launches_p"]},
+        "moe_par": {k: moe_par[k] for k in ("launches_q", "launches_q2")},
+    })
+    log(f"the ranked phases passed in {time.perf_counter() - t0:.1f}s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7332,14 +7834,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
         f"sms {torch.cuda.get_device_properties(0).multi_processor_count}")
     t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f}s")
     m1 = None
     if sys.argv[1:2] in ([], ["--profile"], ["--only-m"]):
         import concurrent.futures
 
-        # (m1) needs neither the card nor the kernels: it runs beside the build
+        # (m1) needs neither the card nor the kernels: it runs beside the
+        # phases up to (m), started once the build's nvcc processes are
+        # done (beside them its fleets' processes may start too slowly for
+        # the harness's readiness waits)
         m1 = concurrent.futures.ThreadPoolExecutor(1).submit(phase_harness, name)
-    libs = build.build_all()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f}s")
+    if sys.argv[1:2] == ["--ranked"]:
+        return run_ranked(Path(sys.argv[2]), smi, bw, peak, t0)
     for kname in libs:
         for r in build.ptxas_report(kname):
             log(f"  ptxas {kname} {r['kernel']}: {r.get('registers')} registers, spill "
@@ -7427,6 +7934,12 @@ def main() -> int:
         audit_memory("(r)")
         log(f"(r) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-s"]:
+        # a rehearsal of (s) alone: no kernels or result line
+        phase_sp(smi)
+        audit_memory("(s)")
+        log(f"(s) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -7438,7 +7951,9 @@ def main() -> int:
         return 0
     kern = phase_kernels(bw, peak)
     sharded = phase_sharded(bw, peak)
-    audit_memory("(a), (a')")
+    # (p0)'s launch on the data axis, timed here with the card to itself
+    p0 = p_data_rows(bw, peak)
+    audit_memory("(a), (a'), (p0)")
     profile = "--profile" in sys.argv[1:]
     serve, streams = {}, {}
     for kind in KV_DTYPES:
@@ -7462,37 +7977,56 @@ def main() -> int:
     audit_memory("(i1), (i2)")
     moe = phase_moe(smi, profile=profile)
     audit_memory("(j)")
-    moe_par = phase_moe_parallel(smi, moe["j1"])
-    audit_memory("(q)")
-    phase_spec(True, smi)
-    phase_spec(False, smi, serve["float"]["decode_tok_s"])
-    audit_memory("(d1), (d2)")
-    phase_guided()
-    phase_mm_embed()
-    audit_memory("(d3)-(d5)")
-    phase_http_f32()
-    http = phase_http_bf16(smi, serve["float"]["decode_tok_s"])
-    audit_memory("(e)")
+    ranked = RankedGroup({
+        "f32_streams": f32_streams,
+        "serve": {kind: {k: serve[kind][k] for k in ("decode_tok_s", "ttft_all_s")}
+                  for kind in serve},
+        "j1": {k: moe["j1"].get(k) for k in ("decode_tok_s", "ttft_all_s", "ttft_p50_s",
+                                              "weight_bytes", "expert_bytes", "peak_mem_gib")},
+    })
+    try:
+        phase_spec(True, smi)
+        phase_spec(False, smi, serve["float"]["decode_tok_s"])
+        audit_memory("(d1), (d2)")
+        ranked.check()
+        phase_guided()
+        phase_mm_embed()
+        audit_memory("(d3)-(d5)")
+        ranked.check()
+        phase_http_f32()
+        http = phase_http_bf16(smi, serve["float"]["decode_tok_s"])
+        audit_memory("(e)")
+        ranked.put("e2", {"client_own_process": {
+            k: http["e2"]["client_own_process"][k] for k in ("decode_tok_s", "ttft_all_s")}})
+        ranked.check()
+        phase_kvbm(smi)
+        audit_memory("(g)")
+        ranked.check()
+        chaos_m = phase_chaos(smi, m1)
+        audit_memory("(m)")
+        ranked.check()
+        loading = phase_gguf_recipe(smi)
+        audit_memory("(o)")
+        ranked.check()
+        pipeline = phase_pipeline(smi, f32_streams)
+        audit_memory("(r)")
+        ranked.check()
+        seq = phase_sp(smi)
+        audit_memory("(s)")
+        log(f"(d), (e), (g), (m), (o), (r) and (s) passed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        got = ranked.result()
+    finally:
+        ranked.stop()
+    tp, cluster, disagg = got["tp"], got["cluster"], got["disagg"]
+    parity, moe_par = {**got["parity"], "p0": p0}, got["moe_par"]
+    # (f) and (n) last, with the card and the host to themselves: (f)'s
+    # full warmup holds a 33 GiB graph pool, and (n)'s planner sizes a
+    # replica from the ITL it profiles, which steps beside it would move
     phase_slo(smi, serve["float"]["decode_tok_s"])
     audit_memory("(f)")
-    phase_kvbm(smi)
-    audit_memory("(g)")
-    tp = phase_tp(smi, serve)
-    audit_memory("(h), (i3)")
-    cluster = phase_cluster(smi, f32_streams, serve["float"], http["e2"])
-    audit_memory("(k)")
-    disagg = phase_disagg(smi, f32_streams, serve["float"], cluster)
-    audit_memory("(l)")
-    chaos_m = phase_chaos(smi, m1)
-    audit_memory("(m)")
     planning = phase_planning(smi)
     audit_memory("(n)")
-    loading = phase_gguf_recipe(smi)
-    audit_memory("(o)")
-    parity = phase_parity(smi, f32_streams, bw, peak)
-    audit_memory("(p)")
-    pipeline = phase_pipeline(smi, f32_streams)
-    audit_memory("(r)")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     lines = []
@@ -7543,6 +8077,9 @@ def main() -> int:
         if route in pipeline["launches_r"]:
             # (r1)'s two stages (mma_f32), (r2)'s four ranks of dp=2 x pp=2 (mma_int8)
             lines[-1]["launches_r"] = pipeline["launches_r"][route]
+        if route in seq["launches_s"]:
+            # (s1)'s two seq ranks (mma_f32), (s2)'s four ranks of sp=2 x tp=2 (mma_int8)
+            lines[-1]["launches_s"] = seq["launches_s"][route]
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}

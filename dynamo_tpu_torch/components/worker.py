@@ -84,7 +84,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="expert-parallel shards ('expert' axis; MoE models: the "
                         "experts split over ep ranks, the dropless dispatch)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel shards ('seq' axis; ring attention)")
+                   help="sequence-parallel shards ('seq' axis; ring attention: "
+                        "a step of fresh whole prompts past "
+                        "--ring-prefill-threshold prefills as one chunk split "
+                        "over them)")
     p.add_argument("--allow-random-weights", action="store_true",
                    help="serve RANDOM weights when the model path has no "
                         "loadable safetensors (tests/benches only)")
@@ -124,8 +127,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "ladder before unpinning")
     p.add_argument("--ring-prefill-threshold", type=int, default=0,
                    help="sp>1 only: min prompt tokens for ring prefill "
-                        "(0 = cost-model break-even, -1 = never); the port "
-                        "refuses sp > 1 (ROADMAP item 14)")
+                        "(0 = cost-model break-even, -1 = never)")
     p.add_argument("--stream-ckpt-blocks", type=int, default=0,
                    help="crash-consistent stream checkpoints: every N "
                         "committed decode blocks (and once at prefill "
@@ -251,6 +253,7 @@ def engine_config(ns: argparse.Namespace, remote_kv: str | None) -> EngineConfig
         dp=ns.dp,
         ep=ns.ep,
         sp=ns.sp,
+        ring_prefill_threshold=ns.ring_prefill_threshold,
         decode_window=ns.decode_window,
         prefill_chunk=ns.prefill_chunk,
         itl_slo_ms=ns.itl_slo_ms,
@@ -393,6 +396,11 @@ async def amain(ns: argparse.Namespace) -> None:
 
         # Crash checkpoints feed dynamo_stream_ckpt_* (kvbm/stream_ckpt.py).
         install_stream_ckpt_metrics(rt.metrics)
+    if ns.sp > 1:
+        from dynamo_tpu_torch.obs.ring_prefill import install_ring_prefill_metrics
+
+        # Ring-vs-chunked arbitration feeds dynamo_ring_prefill_*.
+        install_ring_prefill_metrics(rt.metrics)
     if ns.warmup_mode != "off":
         from dynamo_tpu_torch.obs.compile_ledger import install_compile_metrics
 

@@ -41,13 +41,17 @@ carrying a traceparent gets ``engine.queue`` → ``engine.prefill`` →
 ``engine.decode`` spans.
 
 Tensor parallelism (``tp > 1``, the JAX engine's "model" mesh axis),
-expert parallelism (``ep > 1``, its "expert" axis), pipeline parallelism
-(``pp > 1``, its "pipe" axis: each rank a stage of its replica, holding
-its layers and their cache; composed with dp only, as in JAX) and data
-parallelism inside the engine (``dp > 1``, its "data" axis): the process that builds
-the ``EngineCore`` is rank 0, the leader, and starts the other ranks
-(engine/tp.py); every rank's ``ModelRunner`` holds its shard of the
-params and of the cache (replicated over data and expert), the leader
+expert parallelism (``ep > 1``, its "expert" axis), sequence parallelism
+(``sp > 1``, its "seq" axis: a step of fresh whole prompts past
+``ring_prefill_threshold`` rings, its positions split over the seq ranks
+(models/llama.forward_ring); every other step runs on each seq rank as on
+one), pipeline parallelism (``pp > 1``, its "pipe" axis: each rank a
+stage of its replica, holding its layers and their cache; composed with
+dp only, as in JAX) and data parallelism inside the engine (``dp > 1``,
+its "data" axis): the process that builds the ``EngineCore`` is rank 0,
+the leader, and starts the other ranks (engine/tp.py); every rank's
+``ModelRunner`` holds its shard of the params and of the cache
+(replicated over data, seq and expert), the leader
 posts each program's key and broadcasts its inputs, and the ranks'
 forwards meet in the collectives of models/llama.py. A MoE model runs the
 dense dispatch at ep = 1 (its width split over tp) and the dropless one
@@ -207,20 +211,18 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
             "pp>1 currently composes only with dp; tp/ep/sp must be 1 "
             "(the PP stage block is not head/expert/sequence-sharded — "
             "see models/llama.forward_pp)")
-    ranks = ec.tp * ec.ep * ec.pp * ec.dp
+    ranks = ec.tp * ec.ep * ec.sp * ec.pp * ec.dp
     later = {
-        "sp > 1 (sequence parallelism with ops/ring_attention.py: ROADMAP item 14d)":
-            ec.sp != 1,
         # more than one rank runs eager steps: a gloo collective cannot be
-        # captured in a CUDA graph (graph-captured TP/EP over NCCL: ROADMAP
-        # item 14f)
-        "more than one rank (dp x pp x ep x tp > 1) with CUDA graphs (warmup_mode must "
-        "be 'off')": ranks > 1 and ec.warmup_mode != "off",
+        # captured in a CUDA graph (graph-captured TP/EP/SP over NCCL:
+        # ROADMAP item 14f)
+        "more than one rank (dp x pp x sp x ep x tp > 1) with CUDA graphs (warmup_mode "
+        "must be 'off'; ROADMAP item 14f)": ranks > 1 and ec.warmup_mode != "off",
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
-    for axis in ("tp", "dp", "ep", "pp"):
+    for axis in ("tp", "dp", "ep", "pp", "sp"):
         if getattr(ec, axis) < 1:
             raise ValueError(f"{axis} must be >= 1, got {getattr(ec, axis)}")
     if ec.pp_microbatches < 0:
@@ -237,7 +239,8 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
     if ec.tp_devices and len(ec.tp_devices) != ranks:
         raise ValueError(f"tp_devices {ec.tp_devices} must name one card for each of "
                          f"the dp x ep x tp = {ec.dp} x {ec.ep} x {ec.tp} ranks"
-                         + (f" of each of the pp = {ec.pp} stages" if ec.pp > 1 else ""))
+                         + (f" of each of the pp = {ec.pp} stages" if ec.pp > 1 else "")
+                         + (f" of each of the sp = {ec.sp} seq ranks" if ec.sp > 1 else ""))
     if len(set(ec.tp_devices)) < len(ec.tp_devices):
         # nccl refuses two ranks on one card; each rank would size its KV
         # pool from free memory while the other is still allocating
@@ -369,7 +372,9 @@ class ModelRunner:
     ones read from ``slot_toks`` included, reach the followers by a
     broadcast at the top of the step, and a fused window's sampled tokens
     by one after each of its inner steps. Steps run eagerly (no graph).
-    Under data parallelism only the leader's replica computes logits.
+    Under data and sequence parallelism only the leader's replica and seq
+    rank compute logits; the leader alone decides whether a prefill step
+    rings (``ring_threshold``) and posts the flag in the step's key.
     Under pipeline parallelism a rank is one stage of its replica: it
     holds the stage's layers and their cache (``spec`` is the stage's),
     only stage 0 holds the embeddings, the final norm and the lm head, and
@@ -388,11 +393,11 @@ class ModelRunner:
         self.layers = stage_layers(cfg, stage, pp)
         #: False on a follower: it runs each step's forward, not its sampling
         self.samples = tp is None or tp.leader
-        #: False on a data replica, an expert shard or a pipeline stage past
-        #: the first: its logits go unread (the leader's model group gathers
-        #: them; a later stage has no lm head)
+        #: False on a data replica, an expert shard, a seq rank or a pipeline
+        #: stage past the first: its logits go unread (the leader's model
+        #: group gathers them; a later stage has no lm head)
         self.logits = tp is None or (tp.data_rank == 0 and tp.expert_rank == 0
-                                     and tp.stage == 0)
+                                     and tp.seq_rank == 0 and tp.stage == 0)
         #: a MoE model's FFN, as JAX's engine picks it: the dropless
         #: dispatch once the experts are split, else the dense one
         self.moe_impl = "ep" if engine_cfg.ep > 1 else "dense"
@@ -485,6 +490,35 @@ class ModelRunner:
         if self.graphs:
             self.graph_pool = torch.cuda.graph_pool_handle()
             self.capture_stream = torch.cuda.Stream(dev)
+        self.ring_threshold = self._ring_threshold() if self.samples else None
+
+    def _ring_threshold(self) -> int | None:
+        """The least prompt tokens with which a step of fresh whole prompts
+        rings (JAX's ``ModelRunner.__init__``): None at sp = 1 or with
+        ``ring_prefill_threshold=-1``, the knob when it is > 0, and at 0 the
+        cost model's ring-vs-chunked break-even for this model on this
+        device's row (``obs/costmodel.py``). Sets the threshold gauge."""
+        ec = self.engine_cfg
+        if ec.sp <= 1 or ec.ring_prefill_threshold < 0:
+            return None
+        if ec.ring_prefill_threshold > 0:
+            threshold = ec.ring_prefill_threshold
+        else:
+            try:
+                hw = cm.hw_spec_for(device_name(self.device))
+            except LookupError as exc:
+                raise ValueError(f"ring_prefill_threshold=0 prices the ring on the device's "
+                                 f"roofline: {exc}") from None
+            threshold = cm.ring_prefill_break_even_tokens(
+                self.cfg, hw, sp=ec.sp, chunk=ec.prefill_chunk, block_size=ec.block_size,
+                kv_dtype=ec.kv_dtype, quantization=ec.quantization,
+                max_tokens=ec.max_model_len)
+        from dynamo_tpu_torch.obs.ring_prefill import get_ring_prefill_metrics
+
+        get_ring_prefill_metrics().threshold_tokens.set(float(threshold))
+        log.info("ring prefill engaged: sp=%d threshold=%d tokens%s", ec.sp, threshold,
+                 "" if ec.ring_prefill_threshold else " (cost-model auto)")
+        return threshold
 
     def _auto_num_blocks(self) -> int:
         """Size the device KV pool from free card memory, or a small default
@@ -519,25 +553,28 @@ class ModelRunner:
 
     @staticmethod
     def step_key(b: int, t: int, nblk: int, window: int = 1, fast_greedy: bool = False,
-                 mm: bool = False, masked: bool = False) -> tuple:
+                 mm: bool = False, masked: bool = False, sp_prefill: bool = False) -> tuple:
         """A step program's key: ``(b, t, nblk, window, fast_greedy)``, and
-        "mm" / "masked" after it for those variants."""
+        "mm" / "masked" / "sp" (a ring prefill step: JAX's ``sp_prefill``
+        of its key) after it for those variants."""
         return ((b, t, nblk, window, fast_greedy) + (("mm",) if mm else ())
-                + (("masked",) if masked else ()))
+                + (("masked",) if masked else ()) + (("sp",) if sp_prefill else ()))
 
     def step_fn(self, b: int, t: int, nblk: int, window: int = 1,
                 fast_greedy: bool = False, mm: bool = False,
-                masked: bool = False) -> "StepProgram":
+                masked: bool = False, sp_prefill: bool = False) -> "StepProgram":
         """The bucket's program, made (warmed and captured) on first use —
         the counterpart of the JAX runner's ``step_fn`` cache, keyed by
         :meth:`step_key`."""
-        key = self.step_key(b, t, nblk, window, fast_greedy, mm, masked)
+        key = self.step_key(b, t, nblk, window, fast_greedy, mm, masked, sp_prefill)
         prog = self.programs.get(key)
         if prog is None:
             log.info("capturing step program B=%d T=%d NBLK=%d W=%d greedy=%s mm=%s "
-                     "masked=%s", b, t, nblk, window, fast_greedy, mm, masked)
+                     "masked=%s sp_prefill=%s", b, t, nblk, window, fast_greedy, mm, masked,
+                     sp_prefill)
             prog = self.programs[key] = StepProgram(self, b, t, nblk, window, fast_greedy,
-                                                    mm=mm, masked=masked)
+                                                    mm=mm, masked=masked,
+                                                    sp_prefill=sp_prefill)
         return prog
 
     def verify_fn(self, b: int, t: int, nblk: int) -> "VerifyProgram":
@@ -618,6 +655,22 @@ class ModelRunner:
         nblk_need = max(min(len(s.block_ids), -(-(start + length + window - 1) // bsz))
                         for s, start, length in rows)
         nblk = min(_pow2_bucket(max(nblk_need, 1), 4, self.max_nblk), self.max_nblk)
+        # Sequence-parallel prefill (JAX's dispatch): a step of fresh whole
+        # prompts (every row starts at 0) at sp > 1 rings, but only past the
+        # threshold (__init__); shorter prompts, and steps with any other
+        # row, take the chunked path on every seq rank, as at sp = 1.
+        sp_prefill = (t > 1 and self.ring_threshold is not None
+                      and all(start == 0 for _, start, _ in rows)
+                      and t_max >= self.ring_threshold)
+        if t > 1 and self.ring_threshold is not None:
+            from dynamo_tpu_torch.obs.ring_prefill import get_ring_prefill_metrics
+
+            rpm = get_ring_prefill_metrics()
+            if sp_prefill:
+                rpm.invocations.inc()
+                rpm.tokens.inc(sum(length for _, _, length in rows))
+            else:
+                rpm.bypassed.inc()
 
         # One int32 and one float32 host buffer carry every step input, so
         # the step costs two host→device copies.
@@ -691,15 +744,15 @@ class ModelRunner:
 
         led = self._ledger
         cold = led.enabled and self.step_key(
-            b, t, nblk, window, fast_greedy, mm, masked) not in self.programs
+            b, t, nblk, window, fast_greedy, mm, masked, sp_prefill) not in self.programs
         if cold:
             # Making a program blocks this thread for its warm run, its
             # capture and the graph's instantiation.
             led.mark_inflight(True)
             t_capture = time.perf_counter()
         if self.tp is not None:   # before step_fn: a new program's warm run is collective
-            self.tp.post("step", (b, t, nblk, window, fast_greedy, mm, masked))
-        prog = self.step_fn(b, t, nblk, window, fast_greedy, mm, masked)
+            self.tp.post("step", (b, t, nblk, window, fast_greedy, mm, masked, sp_prefill))
+        prog = self.step_fn(b, t, nblk, window, fast_greedy, mm, masked, sp_prefill)
         if cold:
             led.mark_inflight(False)
             kind = ("window" if window > 1 else "decode" if t == 1
@@ -713,14 +766,16 @@ class ModelRunner:
     def _body(self, ints: torch.Tensor, floats: torch.Tensor, b: int, t: int,
               nblk: int, window: int, fast_greedy: bool,
               emb_override: torch.Tensor | None = None, emb_mask: torch.Tensor | None = None,
-              logit_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              logit_mask: torch.Tensor | None = None,
+              sp_prefill: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """The step program on its static inputs (JAX: ``_build_step_fn``;
         with ``window > 1``, ``_build_window_fn``: W decode steps unrolled,
         step j at ``q_start + j`` on step j-1's tokens). Returns tokens and
         logprobs, [B] or [B, W]. ``emb_override``/``emb_mask`` replace the
         embeddings of the masked positions; ``logit_mask`` (guided rows)
         sets disallowed logits to -1e30 — the bits of JAX's additive
-        0 / -1e30 mask for every finite logit below ~3.8e22."""
+        0 / -1e30 mask for every finite logit below ~3.8e22. ``sp_prefill``
+        makes a prefill step a ring step (models/llama.forward_ring)."""
         cfg = self.cfg
         trash_row = self.engine_cfg.max_batch_size
         tokens = ints[: b * t].view(b, t)
@@ -747,7 +802,8 @@ class ModelRunner:
                                    attn_num_splits=self.engine_cfg.attn_num_splits,
                                    embed_override=emb_override, embed_mask=emb_mask,
                                    tp=self.tp, moe_impl=self.moe_impl,
-                                   pp_microbatches=self.engine_cfg.pp_microbatches)
+                                   pp_microbatches=self.engine_cfg.pp_microbatches,
+                                   sp_prefill=sp_prefill)
             if not self.samples:
                 # a follower's outputs go unread; its next input comes by
                 # the broadcast above (the leader's replica gathers logits)
@@ -948,8 +1004,10 @@ class ModelRunner:
                                     torch.zeros((b,), dtype=torch.int32, device=dev))
             elif op == "extract":
                 ids, dequant = args
-                # the leader's block group (replica 0, expert shard 0) gathers
-                if self.tp.data_rank == 0 and self.tp.expert_rank == 0:
+                # the leader's block group (replica 0, seq rank 0, expert
+                # shard 0) gathers: the cache is replicated over the others
+                if (self.tp.data_rank == 0 and self.tp.seq_rank == 0
+                        and self.tp.expert_rank == 0):
                     tp_gather(self.tp, self.cache_k, self.cache_v, ids, dequant,
                               self.block_spec.num_kv_heads)
             elif op == "inject":
@@ -981,6 +1039,7 @@ class ModelRunner:
         layers = self.params["layers"]
         d = self.cfg.head_dim
         return {"rank": self.tp.world_rank, "data_rank": self.tp.data_rank,
+                "seq_rank": self.tp.seq_rank,
                 "expert_rank": self.tp.expert_rank, "model_rank": self.tp.rank,
                 "stage": self.tp.stage, "layers": list(self.layers),
                 "microbatches": self.tp.microbatches,
@@ -992,6 +1051,10 @@ class ModelRunner:
                 # a fused window's call runs its W forward steps
                 "forward_steps": sum(p.calls * (p.shape[3] if len(p.shape) > 3 else 1)
                                      for p in self.programs.values()),
+                # the ring prefill steps among them (no paged-attention launch)
+                "ring_steps": sum(p.calls for p in self.programs.values() if p.sp_prefill),
+                "ring_hops": self.tp.ring_hops, "ring_bytes": self.tp.ring_bytes,
+                "ring_s": self.tp.ring_s,
                 "collectives": self.tp.collectives, "collective_s": self.tp.collective_s,
                 "block_moves": self.tp.block_moves, "block_bytes": self.tp.block_bytes,
                 "block_s": self.tp.block_s,
@@ -1112,11 +1175,15 @@ class StepProgram:
     recorded (``launches``, by kernel) and every call counts them once
     (``ops.paged_attention.count_launches``); ``calls`` counts the calls."""
 
+    #: a ring prefill step's program (models/llama.forward_ring)
+    sp_prefill = False
+
     def __init__(self, runner: ModelRunner, b: int, t: int, nblk: int, window: int,
-                 fast_greedy: bool, mm: bool = False, masked: bool = False):
+                 fast_greedy: bool, mm: bool = False, masked: bool = False,
+                 sp_prefill: bool = False):
         self.runner = runner
         self.shape = (b, t, nblk, window, fast_greedy)
-        self.mm, self.masked = mm, masked
+        self.mm, self.masked, self.sp_prefill = mm, masked, sp_prefill
         dev = runner.device
         ints = torch.zeros(b * t + b * nblk + 6 * b, dtype=torch.int32, device=dev)
         # padding sampling params: temp 0, top_p 1, penalties 0, rep 1
@@ -1132,11 +1199,11 @@ class StepProgram:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple[torch.Tensor, torch.Tensor] | None = None
         tp = self.runner.tp
-        microbatches = tp.microbatches if tp is not None else 0
+        counts = (tp.microbatches, tp.ring_hops, tp.ring_bytes, tp.ring_s) if tp else None
         with pa.launches_made():
             self._warm()
-        if tp is not None:   # as its launches, the warm run's microbatches go uncounted
-            tp.microbatches = microbatches
+        if tp is not None:   # as its launches, the warm run's microbatches and hops go uncounted
+            tp.microbatches, tp.ring_hops, tp.ring_bytes, tp.ring_s = counts
         with pa.launches_made() as made:
             self._capture()
         self.launches: dict[str, int] = made
@@ -1146,7 +1213,8 @@ class StepProgram:
         ints, floats, *rest = self.inputs
         emb, emb_mask = rest[:2] if self.mm else (None, None)
         logit_mask = rest[-1] if self.masked else None
-        return self.runner._body(ints, floats, *self.shape, emb, emb_mask, logit_mask)
+        return self.runner._body(ints, floats, *self.shape, emb, emb_mask, logit_mask,
+                                 self.sp_prefill)
 
     def _warm(self) -> None:
         if not self.runner.graphs:
@@ -1246,9 +1314,26 @@ class EngineCore:
     def __init__(self, engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None,
                  event_sink: Callable[[KvCacheEvent], None] | None = None):
-        self.engine_cfg = engine_cfg
         self.model_cfg = resolve_model_config(engine_cfg.model)
         check_supported(engine_cfg, self.model_cfg)
+        if engine_cfg.sp > 1 and engine_cfg.ring_prefill_threshold >= 0 and (
+                engine_cfg.prefill_chunk < engine_cfg.max_model_len
+                or engine_cfg.max_tokens_per_step < engine_cfg.max_model_len):
+            # A sequence-parallel engine prefills a whole prompt as ONE
+            # seq-sharded chunk (the ring's context must be the whole
+            # prompt); chunks cut by prefill_chunk or by the per-step token
+            # budget would start past 0 and take the chunked path. As JAX's
+            # engine, on a copy of the config, before prefill_chunk=0 would
+            # resolve (so it never does at sp > 1).
+            log.info("sp=%d: raising prefill_chunk %d and max_tokens_per_step %d -> "
+                     "max_model_len %d", engine_cfg.sp, engine_cfg.prefill_chunk,
+                     engine_cfg.max_tokens_per_step, engine_cfg.max_model_len)
+            engine_cfg = dataclasses.replace(
+                engine_cfg,
+                prefill_chunk=max(engine_cfg.prefill_chunk, engine_cfg.max_model_len),
+                max_tokens_per_step=max(engine_cfg.max_tokens_per_step,
+                                        engine_cfg.max_model_len))
+        self.engine_cfg = engine_cfg
         device = resolve_device(device)
         # Unified ragged mixed-phase steps: one launch per iteration when
         # prefill work rides along. Fused decode windows keep the legacy
@@ -1310,7 +1395,7 @@ class EngineCore:
         # the followers start here and hold their shards of params and cache.
         self._tp_followers = None
         tp_group = None
-        if engine_cfg.tp * engine_cfg.ep * engine_cfg.pp * engine_cfg.dp > 1:
+        if engine_cfg.tp * engine_cfg.ep * engine_cfg.sp * engine_cfg.pp * engine_cfg.dp > 1:
             from dynamo_tpu_torch.engine.tp import start_tp
 
             tp_group, self._tp_followers, params = start_tp(

@@ -542,14 +542,14 @@ class TPTransferEngine(BlockTransferEngine):
 
     ``extract`` posts ``("extract", ids, dequant)`` to the followers (in
     step order, on the control pipe), and every rank of the leader's block
-    group (data replica 0, expert shard 0: the cache is replicated over
-    both; every stage and model shard) gathers its heads of its layers
-    into a zeroed whole-block buffer that is summed into the leader's
-    (:func:`tp_gather`). ``inject`` converts the host blocks as
-    ``BlockTransferEngine`` does, posts ``("inject", ids, mode, shape,
-    dtype)`` and broadcasts them to every rank as bytes; each writes its
-    own heads of its own layers (:func:`tp_scatter`), every data replica
-    and expert shard its copy."""
+    group (data replica 0, seq rank 0, expert shard 0: the cache is
+    replicated over all three; every stage and model shard) gathers its
+    heads of its layers into a zeroed whole-block buffer that is summed
+    into the leader's (:func:`tp_gather`). ``inject`` converts the host
+    blocks as ``BlockTransferEngine`` does, posts ``("inject", ids, mode,
+    shape, dtype)`` and broadcasts them to every rank as bytes; each writes
+    its own heads of its own layers (:func:`tp_scatter`), every data
+    replica, seq rank and expert shard its copy."""
 
     def __init__(self, group, kv_heads: int, num_layers: int | None = None) -> None:
         super().__init__()

@@ -34,6 +34,9 @@ Examples:
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
         --device cpu --pp 2 --dp 2 --dist-backend gloo --num-blocks 64 \
         --warmup-mode off --input-jsonl prompts.jsonl
+    python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
+        --device cpu --sp 2 --ring-prefill-threshold 16 --dist-backend gloo \
+        --num-blocks 64 --warmup-mode off --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 &
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
         --device cpu --num-blocks 64 --host-kv-blocks 256 --disk-kv-path /tmp/kv \
@@ -133,7 +136,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="tensor-parallel ranks ('model' axis), one process each (this "
                         "process is rank 0); heads, kv heads and FFN width (a MoE "
                         "model's per-expert and shared widths) must divide by it. "
-                        "The engine has dp x pp x ep x tp ranks; more than one runs "
+                        "The engine has dp x pp x sp x ep x tp ranks; more than one runs "
                         "eager steps: it needs --warmup-mode off")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline stages (JAX's 'pipe' axis): the layers and their KV "
@@ -150,8 +153,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "it), served by the dropless dispatch; attention and cache "
                         "replicated over expert; needs --warmup-mode off when "
                         "dp x ep x tp > 1")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel shards (JAX's 'seq' axis; ring attention): "
+                        "params and cache replicated over sp ranks, a step of fresh "
+                        "whole prompts past --ring-prefill-threshold prefilled as one "
+                        "chunk split over them; needs --warmup-mode off")
+    p.add_argument("--ring-prefill-threshold", type=int, default=0,
+                   help="sp>1 only: min prompt tokens for ring prefill "
+                        "(0 = cost-model break-even, -1 = never)")
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
-                   help="torch.distributed backend of --tp/--pp/--ep/--dp ranks: nccl "
+                   help="torch.distributed backend of --tp/--pp/--sp/--ep/--dp ranks: nccl "
                         "takes one card a rank; ranks that share a card need gloo")
     p.add_argument("--tp-devices", default=None,
                    help="comma-separated card index of each rank (default rank r on "
@@ -221,6 +232,8 @@ def build_local_engine(ns: argparse.Namespace) -> tuple[AsyncTorchEngine, Engine
         pp=ns.pp,
         dp=ns.dp,
         ep=ns.ep,
+        sp=ns.sp,
+        ring_prefill_threshold=ns.ring_prefill_threshold,
         dist_backend=ns.dist_backend,
         tp_devices=tuple(int(d) for d in ns.tp_devices.split(",")) if ns.tp_devices else (),
     )
@@ -270,6 +283,11 @@ async def run_http(ns: argparse.Namespace) -> None:
 
         # Session retention feeds dynamo_session_* (engine/session.py).
         install_session_metrics(svc.metrics)
+    if cfg.sp > 1:
+        from dynamo_tpu_torch.obs.ring_prefill import install_ring_prefill_metrics
+
+        # Ring-vs-chunked arbitration feeds dynamo_ring_prefill_*.
+        install_ring_prefill_metrics(svc.metrics)
     if cfg.host_kv_blocks > 0 or cfg.disk_kv_path or cfg.remote_kv_addr:
         from dynamo_tpu_torch.kvbm.metrics import install_prefix_cache_metrics
         from dynamo_tpu_torch.kvbm.stream_ckpt import install_stream_ckpt_metrics

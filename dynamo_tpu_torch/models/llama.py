@@ -36,6 +36,11 @@ capacity dispatch (models/moe.py), over plain or weight-only int8 leaves
   cache; at tp > 1 a data replica launches the kernel on its rows of the
   batch, gathered before ``wo``. With no group the code is the
   one-device forward.
+- **Sequence parallelism** (a group of ``sp > 1`` seq ranks,
+  :func:`forward_ring`): params and cache are replicated over the seq
+  ranks; a ring prefill step splits its positions over them, the K/V
+  chunks passed round the ring (ops/ring_attention.py), and every other
+  step runs on each seq rank as on one rank.
 - **Pipeline parallelism** (a group of ``pp > 1`` stages,
   :func:`forward_pp`): each stage holds its layers and their cache, and a
   step runs JAX's GPipe schedule over microbatches, the activations
@@ -491,15 +496,8 @@ def _layer(lp: Params, hid: torch.Tensor, ck: Cache, cv: Cache, positions: torch
     slices ``ck``, ``cv``: attention through the kernel (over this data
     replica's rows with ``split_rows``), then the FFN. Returns the new
     hidden state; the step's K/V are written into the cache."""
-    b, t = positions.shape
-    d = cfg.head_dim
-    heads, kv_heads = leaf_shape(lp["wq"])[-1] // d, leaf_shape(lp["wk"])[-1] // d
-    x = rms_norm(hid, lp["attn_norm"], cfg.rms_norm_eps)
-    q = mm(x, lp["wq"]).reshape(b, t, heads, d)
-    k = mm(x, lp["wk"]).reshape(b, t, kv_heads, d)
-    v = mm(x, lp["wv"]).reshape(b, t, kv_heads, d)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    b = positions.shape[0]
+    q, k, v = _qkv(lp, hid, positions, cfg)
     # Phase hooks (obs/profiler.py): host-side labels for torch.profiler
     # traces, no device op; under a graph capture they run at capture
     # time only.
@@ -517,8 +515,38 @@ def _layer(lp: Params, hid: torch.Tensor, ck: Cache, cv: Cache, positions: torch
         else:
             attn = paged_attention_kernel(q.contiguous(), ck, cv, bt32, qs32, kv_lens,
                                           num_splits=attn_num_splits)
-    out = mm(attn.reshape(b, t, heads * d), lp["wo"])
-    hid = hid + (out if tp is None else tp.all_reduce_sum(out))
+    return _ffn(lp, _attn_out(lp, hid, attn, tp), cfg, tp, moe_impl)
+
+
+def _qkv(lp: Params, hid: torch.Tensor, positions: torch.Tensor,
+         cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A layer's attention prologue on hid [B, T, H] at ``positions`` [B,
+    T]: the attention norm, the q, k and v projections split into heads
+    (this rank's, under tp), and rope on q and k. Returns q [B, T, heads,
+    D], k and v [B, T, kv_heads, D]."""
+    b, t = positions.shape
+    d = cfg.head_dim
+    heads, kv_heads = leaf_shape(lp["wq"])[-1] // d, leaf_shape(lp["wk"])[-1] // d
+    x = rms_norm(hid, lp["attn_norm"], cfg.rms_norm_eps)
+    q = mm(x, lp["wq"]).reshape(b, t, heads, d)
+    k = mm(x, lp["wk"]).reshape(b, t, kv_heads, d)
+    v = mm(x, lp["wv"]).reshape(b, t, kv_heads, d)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _attn_out(lp: Params, hid: torch.Tensor, attn: torch.Tensor,
+              tp: "TPGroup | None" = None) -> torch.Tensor:
+    """``hid`` plus the attention's output projection of attn [B, T,
+    heads, D] (its ``wo`` partial summed over the model group)."""
+    out = mm(attn.reshape(*hid.shape[:2], -1), lp["wo"])
+    return hid + (out if tp is None else tp.all_reduce_sum(out))
+
+
+def _ffn(lp: Params, hid: torch.Tensor, cfg: ModelConfig, tp: "TPGroup | None" = None,
+         moe_impl: str = "dense") -> torch.Tensor:
+    """A layer's second half on hid [B, T, H]: the MLP norm, then the dense
+    MLP (its ``w_down`` partial summed over the model group) or the MoE
+    FFN that ``moe_impl`` names, added to ``hid``."""
     x = rms_norm(hid, lp["mlp_norm"], cfg.rms_norm_eps)
     if cfg.is_moe:
         # each reduces over the MoE group itself, in f32
@@ -553,6 +581,7 @@ def forward(params: Params, cfg: ModelConfig,
             tp: "TPGroup | None" = None,                 # this rank's group
             moe_impl: str = "dense",                     # "dense", "ep" or "ep_capacity"
             pp_microbatches: int = 0,                    # pp > 1: schedule depth (0 = auto)
+            sp_prefill: bool = False,                    # sp > 1: a ring prefill step
             ) -> torch.Tensor | None:
     """One engine step. Returns the final-norm hidden state at each row's
     last valid query token [B, H] (or at every token [B, T, H] with
@@ -575,7 +604,13 @@ def forward(params: Params, cfg: ModelConfig,
     ``moe_impl`` picks a MoE model's FFN, as JAX's ``forward`` does:
     ``"dense"`` (:func:`moe_mlp`, the width split over tp), ``"ep"``
     (``models/moe.moe_mlp_dropless``, the experts split over ep too) or
-    ``"ep_capacity"`` (``models/moe.moe_mlp_ep``, one device)."""
+    ``"ep_capacity"`` (``models/moe.moe_mlp_ep``, one device).
+
+    ``sp_prefill`` (the engine's flag for a step of fresh whole prompts
+    past the ring threshold) takes the ring (:func:`forward_ring`) where
+    JAX's forward takes it: more than one seq rank, T > 1 dividing over
+    them, the kv heads over tp and the rows over dp. Anything else runs
+    the step below on every seq rank, as on one rank."""
     if tp is not None and tp.pp > 1:
         if return_all_hidden:
             raise ValueError("forward_pp has no all-positions output")
@@ -585,6 +620,10 @@ def forward(params: Params, cfg: ModelConfig,
                           cache_v, tp, microbatches=pp_microbatches,
                           attn_num_splits=attn_num_splits)
     b, t = token_ids.shape
+    if (sp_prefill and tp is not None and tp.sp > 1 and t > 1 and t % tp.sp == 0
+            and cfg.num_kv_heads % tp.size == 0 and b % tp.dp == 0):
+        return forward_ring(params, cfg, token_ids, q_len, block_tables, cache_k, cache_v,
+                            tp, moe_impl)
     positions, slot, bt32, qs32, kv_lens = _step_statics(
         q_start, q_len, block_tables, t, _cache_block_size(cache_k))
     # Data parallelism with tensor parallelism (JAX: paged_attention_sharded's
@@ -607,6 +646,71 @@ def forward(params: Params, cfg: ModelConfig,
         return h
     last_idx = (q_len.long() - 1).clamp(0, t - 1)                     # [B]
     return h[torch.arange(b, device=token_ids.device), last_idx]      # [B, H]
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism
+# ---------------------------------------------------------------------------
+
+def forward_ring(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
+                 q_len: torch.Tensor, block_tables: torch.Tensor, cache_k: Cache,
+                 cache_v: Cache, tp: "TPGroup", moe_impl: str = "dense") -> torch.Tensor:
+    """A ring prefill step (JAX: ``forward`` with ``sp_prefill``, which
+    swaps the paged kernel for ``ring_attention_prefill``): every row is a
+    fresh whole prompt (q_start = 0), so its attention context is the step
+    itself. Seq rank ``q`` of ``sp`` carries positions ``[q T/sp, (q+1)
+    T/sp)`` of every row through every layer: the embedding, the norms,
+    the projections, rope at the global positions, the ring over the seq
+    group (ops/ring_attention.py, on the raw K and V as in JAX), ``wo``
+    with the model group's sum and the MLP or MoE FFN, so the matmul work
+    splits sp ways. Every K/V chunk the rank held in the ring is kept, and
+    the whole [B, T, KH, D] is written into the rank's cache once a layer
+    after the ring: a quantized block sees all of its rows at once, as in
+    JAX's one scatter a layer (the cache stays replicated over seq). A
+    row's last prompt token lies on one seq rank; its final-norm hidden
+    [B, H] reaches every rank as the sum of each rank's rows (zeros for
+    the rows it does not hold) over the seq group.
+
+    A padding row (q_len 0: a row of the step's bucket that no prompt
+    fills) is left out of the step: its hidden is zeros, its K/V are not
+    written and do not hop. JAX computes it and scatters its K/V into the
+    trash block, which nothing reads; no other row depends on it."""
+    from dynamo_tpu_torch.ops.ring_attention import ring_attention_prefill
+
+    b, t = token_ids.shape
+    live = torch.nonzero(q_len > 0).flatten()     # the same rows on every rank
+    if live.numel() < b:
+        out = torch.zeros((b, cfg.hidden_size), dtype=torch_dtype(cfg.dtype),
+                          device=token_ids.device)
+        if live.numel():
+            out[live] = forward_ring(params, cfg, token_ids[live], q_len[live],
+                                     block_tables[live], cache_k, cache_v, tp, moe_impl)
+        return out
+    sp, q = tp.sp, tp.seq_rank
+    tl = t // sp
+    mine = slice(q * tl, (q + 1) * tl)
+    positions, slot, _, _, kv_lens = _step_statics(
+        torch.zeros_like(q_len), q_len, block_tables, t, _cache_block_size(cache_k))
+    pos = positions[:, mine]
+    hid = embed_lookup(params["embed"], token_ids[:, mine], torch_dtype(cfg.dtype), tp)
+    layers = params["layers"]
+    for li in range(cfg.num_layers):
+        lp = {key: layer_leaf(leaf, li) for key, leaf in layers.items()}
+        qh, k, v = _qkv(lp, hid, pos, cfg)
+        held: list = []
+        with _perf_phase("attention"):
+            attn = ring_attention_prefill(tp, qh, k, v, kv_lens, keep=held)
+        held.sort(key=lambda c: c[0])
+        with _perf_phase("scatter"):
+            _scatter_kv(_layer_cache(cache_k, li), torch.cat([c[1] for c in held], dim=1), slot)
+            _scatter_kv(_layer_cache(cache_v, li), torch.cat([c[2] for c in held], dim=1), slot)
+        del held
+        hid = _ffn(lp, _attn_out(lp, hid, attn, tp), cfg, tp, moe_impl)
+    h = rms_norm(hid, params["final_norm"], cfg.rms_norm_eps)          # [B, T/sp, H]
+    last = (q_len.long() - 1).clamp(0, t - 1) - q * tl                  # [B]
+    here = (last >= 0) & (last < tl)
+    rows = h[torch.arange(b, device=h.device), last.clamp(0, tl - 1)]
+    return tp.sum_seq(torch.where(here[:, None], rows, torch.zeros_like(rows)))
 
 
 # ---------------------------------------------------------------------------

@@ -78,6 +78,14 @@ __all__ = [
 ]
 
 
+#: Bytes/s one ring hop sustains on a row that names no rate of its own:
+#: the JAX copy's value for the TPU rows' inter-chip link (the CPU row
+#: keeps it too, so that both packages price the CPU alike). The ring
+#: overlaps the hop with the block matmuls, so this binds only when the
+#: shard is large.
+ICI_BYTES_PER_S = 4.5e10
+
+
 @dataclass(frozen=True)
 class HardwareSpec:
     """Peak numbers one chip can theoretically sustain."""
@@ -85,6 +93,8 @@ class HardwareSpec:
     name: str
     peak_flops: float   # bf16 matmul FLOP/s
     hbm_bw: float       # HBM bytes/s
+    #: bytes/s of one ring hop to the next chip (one direction of its link)
+    ring_bytes_per_s: float = ICI_BYTES_PER_S
 
     @property
     def ridge_intensity(self) -> float:
@@ -96,18 +106,21 @@ class HardwareSpec:
 # Keyed by a lowercase substring of the device's name; first match wins
 # (dict order), so the more specific "tpu v5p" precedes "tpu v5". The TPU
 # rows are the JAX copy's (jax ``device_kind`` strings, which no torch
-# device name matches). The H100 row is the SXM card's data sheet: dense
-# bf16 tensor FLOP/s and HBM3 bytes/s; its key needs the "80GB HBM3" of
-# ``torch.cuda.get_device_name()``, so the PCIe and NVL cards (other memory
-# rates) do not match it. The CPU entry is a deliberately rough stand-in —
-# a few AVX cores and one DDR channel-ish — that the CPU engines of both
-# packages resolve alike.
+# device name matches). The H100 row is the SXM card's data sheet (NVIDIA
+# H100 Tensor Core GPU datasheet): dense bf16 tensor FLOP/s, HBM3 bytes/s,
+# and for a ring hop half of its 900 GB/s of NVLink 4 (both directions
+# together): 450 GB/s, one direction to the next card. Ranks that share
+# one card hop through host memory instead, which no row describes. Its
+# key needs the "80GB HBM3" of ``torch.cuda.get_device_name()``, so the
+# PCIe and NVL cards (other memory rates) do not match it. The CPU entry
+# is a deliberately rough stand-in — a few AVX cores and one DDR
+# channel-ish — that the CPU engines of both packages resolve alike.
 HW_SPECS: dict[str, HardwareSpec] = {
     "tpu v6": HardwareSpec("tpu-v6e", 918e12, 1638e9),
     "tpu v5p": HardwareSpec("tpu-v5p", 459e12, 2765e9),
     "tpu v5": HardwareSpec("tpu-v5e", 197e12, 819e9),
     "tpu v4": HardwareSpec("tpu-v4", 275e12, 1228e9),
-    "h100 80gb hbm3": HardwareSpec("h100-sxm", 989e12, 3.35e12),
+    "h100 80gb hbm3": HardwareSpec("h100-sxm", 989e12, 3.35e12, ring_bytes_per_s=450e9),
     "cpu": HardwareSpec("cpu", 200e9, 50e9),
 }
 
@@ -605,11 +618,6 @@ def prefix_cache_cost(
 # Context-parallel ring prefill: ring-vs-chunked break-even
 # ---------------------------------------------------------------------------
 
-#: Per-hop ICI bandwidth one rotating KV shard sustains during ring
-#: attention (a v5e 1D ring link, conservative). The ring overlaps the hop
-#: with the block matmuls, so this only binds when the shard is large.
-ICI_BYTES_PER_S = 4.5e10
-
 #: Fixed cost of taking the ring path for one prompt: the whole-prompt
 #: dispatch (one bucketed step fn at the full sequence length), the
 #: seq-axis scatter of the prompt, and the paged-cache writeback gather.
@@ -619,9 +627,9 @@ RING_PREFILL_OVERHEAD_S = 1e-3
 @dataclass(frozen=True)
 class RingPrefillDecision:
     """Priced comparison of the two ways an sp>1 engine can prefill one
-    prompt: ``ring`` (one seq-sharded whole-prompt chunk over ICI) vs
-    ``chunked`` (the sequential prefill_chunk walk with the seq axis
-    idle). ``use_ring`` is the auto-select verdict the engine applies when
+    prompt: ``ring`` (one seq-sharded whole-prompt chunk, hops between
+    chips) vs ``chunked`` (the sequential prefill_chunk walk with the seq
+    axis idle). ``use_ring`` is the auto-select verdict the engine applies when
     ``ring_prefill_threshold == 0``."""
 
     prompt_tokens: int
@@ -788,11 +796,14 @@ def ring_prefill_seconds(
     kv_dtype: str = "bfloat16",
     quantization: str = "none",
     prefill_mfu: float = PREFILL_MFU,
-    ici_bytes_per_s: float = ICI_BYTES_PER_S,
+    ici_bytes_per_s: float | None = None,
 ) -> float:
     """One seq-sharded whole-prompt ring prefill: the same matmul volume
-    split ``sp`` ways, overlapped with the per-layer KV shard rotation over
-    ICI, plus the fixed dispatch/writeback overhead."""
+    split ``sp`` ways, overlapped with the per-layer KV shard rotation
+    between chips (at ``ici_bytes_per_s``, by default the row's
+    ``ring_bytes_per_s``), plus the fixed dispatch/writeback overhead."""
+    if ici_bytes_per_s is None:
+        ici_bytes_per_s = hw.ring_bytes_per_s
     eff = hw.peak_flops * prefill_mfu
     if eff <= 0 or prompt_tokens <= 0:
         return 0.0

@@ -1,6 +1,6 @@
-"""The ranks of a tensor- and data-parallel engine over
-``torch.distributed``: their collectives and the leader's control channel
-to its followers.
+"""The ranks of a tensor-, expert-, sequence-, pipeline- and
+data-parallel engine over ``torch.distributed``: their collectives and
+the leader's control channel to its followers.
 
 Everything the model needs across ranks is built from ``all_reduce``
 and ``broadcast``, the two that gloo documents for CUDA tensors: the
@@ -24,9 +24,11 @@ Pipeline stages (JAX's "pipe" axis) pass activations point to point
 (:meth:`TPGroup.send_stage`, :meth:`TPGroup.recv_stage`): a microbatch's
 hidden from stage s to s + 1 (JAX's ``ppermute``), and the last stage's
 hidden to stage 0, which samples (JAX's ``psum`` over "pipe", whose other
-terms are zeros). gloo's ``send`` and ``recv`` take CPU tensors only, so
-on gloo a card's tensor goes through host memory; nccl takes it as it
-is.
+terms are zeros). Seq ranks (its "seq" axis) pass their K/V chunks round
+the ring of a ring prefill step the same way (:meth:`TPGroup.ring_pass`:
+both directions posted as one batch, ``batch_isend_irecv``, before
+either is waited for). gloo's point-to-point ops take CPU tensors only, so on gloo a
+card's tensor goes through host memory; nccl takes it as it is.
 
 gloo reduces CUDA tensors through host memory, so its collectives cannot
 be captured in a CUDA graph: a tensor-parallel engine runs eager steps.
@@ -34,25 +36,35 @@ Every collective blocks the calling thread until it is done; the group
 counts them and the host seconds they took, the block moves apart.
 
 Data parallelism (JAX's "data" mesh axis), pipeline parallelism (its
-"pipe" axis) and expert parallelism (its "expert" axis) multiply the
-ranks: an engine of ``dp`` x ``pp`` x ``ep`` x ``tp`` ranks, world rank
-``((d*pp + s)*ep + e)*tp + m`` holding model shard ``m`` of expert shard
-``e`` of stage ``s`` of data replica ``d`` (:func:`rank_coords`; at pp =
-ep = 1 this is ``d*tp + m``; pp composes with dp only, as in JAX, so at
-pp > 1 it is ``d*pp + s``). Four kinds of group:
+"pipe" axis), sequence parallelism (its "seq" axis) and expert
+parallelism (its "expert" axis) multiply the ranks: an engine of ``dp`` x
+``pp`` x ``sp`` x ``ep`` x ``tp`` ranks, world rank
+``(((d*pp + s)*sp + q)*ep + e)*tp + m`` holding model shard ``m`` of
+expert shard ``e`` of seq rank ``q`` of stage ``s`` of data replica ``d``
+(:func:`rank_coords`, JAX's axis order; at pp = sp = ep = 1 this is
+``d*tp + m``; pp composes with dp only, as in JAX, so at pp > 1 it is
+``d*pp + s``). Five kinds of group:
 
 - the *model group* (``rank``, ``size``, ``pg``: the ``tp`` ranks of one
-  (d, e)): the attention's ``wo`` sum, the vocab-parallel embedding and
+  (d, q, e)): the attention's ``wo`` sum, the vocab-parallel embedding and
   logits, the int8 quantizer's row-parallel abs-max, the head gathers of
   block moves. Attention is replicated over "expert", as in JAX: the
   expert ranks of one model shard compute the same heads on the same
   rows and hold the same cache;
-- the *MoE group* (``moe_pg``: the ``tp`` x ``ep`` ranks of one data
-  replica): one f32 sum per MoE layer completes both the expert combine
-  and the TEP contraction of the per-expert width (:meth:`all_reduce_moe`;
-  at ep = 1 it is the model group);
-- the *data group* (``data_pg``: the ``dp`` ranks holding shard (e, m)):
-  the attention rows a replica computed (:meth:`TPGroup.gather_rows`);
+- the *MoE group* (``moe_pg``: the ``tp`` x ``ep`` ranks of one (d, q)):
+  one f32 sum per MoE layer completes both the expert combine and the
+  TEP contraction of the per-expert width (:meth:`all_reduce_moe`; at
+  ep = 1 it is the model group). Each seq rank's group has its own
+  tokens in a ring step;
+- the *data group* (``data_pg``: the ``dp`` ranks holding shard (q, e,
+  m)): the attention rows a replica computed (:meth:`TPGroup.gather_rows`);
+- the *seq group* (``seq_pg``: the ``sp`` ranks of one (d, e, m)): the
+  ring of a ring prefill step, where each holds a chunk of the prompt's
+  positions and the K/V chunks rotate (:meth:`TPGroup.ring_pass`, JAX's
+  ``ppermute``: point to point, through host memory on gloo), and the
+  last-token rows brought together (:meth:`TPGroup.sum_seq`). Params and
+  cache are replicated over it, as JAX replicates them over "seq": every
+  step that does not ring runs on every seq rank as on one rank;
 - the *block group* (``block_pg``: the ``pp`` x ``tp`` ranks of one
   (d, e); at pp = 1 the model group): the parts of whole blocks summed
   into the leader's (:meth:`TPGroup.gather_parts`).
@@ -89,8 +101,9 @@ class TPFailure(RuntimeError):
 class TPGroup:
     """One rank's membership of an engine's ranks: ``rank`` of ``size`` in
     its model group (what the attention shards by), expert shard
-    ``expert_rank`` of ``ep``, pipeline stage ``stage`` of ``pp``, replica
-    ``data_rank`` of ``dp``, ``world_rank`` of ``world_size`` in all."""
+    ``expert_rank`` of ``ep``, seq rank ``seq_rank`` of ``sp``, pipeline
+    stage ``stage`` of ``pp``, replica ``data_rank`` of ``dp``,
+    ``world_rank`` of ``world_size`` in all."""
 
     rank: int
     size: int
@@ -112,6 +125,9 @@ class TPGroup:
     pp: int = 1
     stage: int = 0
     block_pg: Any = None                     # this (d, e)'s block group (None: the model group)
+    sp: int = 1
+    seq_rank: int = 0
+    seq_pg: Any = None                       # this (d, e, m)'s seq group (sp > 1)
     collectives: int = 0
     collective_s: float = 0.0
     #: block moves (gather_parts, broadcast_bytes): calls, bytes, host seconds
@@ -120,16 +136,29 @@ class TPGroup:
     block_s: float = 0.0
     #: microbatches this pipeline stage ran through its layers
     microbatches: int = 0
+    #: ring hops (ring_pass; counted with the collectives too): calls,
+    #: bytes sent, host seconds
+    ring_hops: int = 0
+    ring_bytes: int = 0
+    ring_s: float = 0.0
 
     @property
     def world_size(self) -> int:
-        return self.size * self.ep * self.pp * self.dp
+        return self.size * self.ep * self.sp * self.pp * self.dp
+
+    def _rank_at(self, stage: int, seq: int) -> int:
+        return ((((self.data_rank * self.pp + stage) * self.sp + seq) * self.ep
+                 + self.expert_rank) * self.size + self.rank)
 
     def stage_rank(self, stage: int) -> int:
         """The world rank of stage ``stage`` at this rank's other
         coordinates."""
-        return (((self.data_rank * self.pp + stage) * self.ep + self.expert_rank) * self.size
-                + self.rank)
+        return self._rank_at(stage, self.seq_rank)
+
+    def seq_peer(self, seq: int) -> int:
+        """The world rank of seq rank ``seq`` (mod ``sp``) at this rank's
+        other coordinates."""
+        return self._rank_at(self.stage, seq % self.sp)
 
     @property
     def world_rank(self) -> int:
@@ -150,7 +179,8 @@ class TPGroup:
 
     def _failed(self, exc: BaseException) -> TPFailure:
         what = (f"rank {self.world_rank} of an engine of {self.world_size} ranks "
-                f"(tp={self.size}, ep={self.ep}, pp={self.pp}, dp={self.dp}): {exc}")
+                f"(tp={self.size}, ep={self.ep}, sp={self.sp}, pp={self.pp}, dp={self.dp}): "
+                f"{exc}")
         if self.report is not None:
             what += "; " + self.report()
         return TPFailure(what)
@@ -237,6 +267,42 @@ class TPGroup:
         self._run(dist.recv, buf, group=self._world, src=self.stage_rank(stage))
         return buf.to(self.device).view(dtype).reshape(shape)
 
+    def ring_pass(self, x: torch.Tensor) -> torch.Tensor:
+        """One hop of the seq ring (JAX's ``ppermute`` of ring attention):
+        send ``x`` to seq rank ``q + 1`` and return what seq rank ``q - 1``
+        sent, a tensor of ``x``'s shape and dtype on this rank's device.
+        Both directions are posted as one batch before either is waited
+        for (``batch_isend_irecv``: one NCCL group, as NCCL asks of a send
+        and a receive between the same two ranks), so the ring cannot
+        deadlock; on gloo the bytes go through host memory."""
+        out = x.contiguous().view(torch.uint8).reshape(-1)
+        if out.device != self.block_device:
+            out = out.to(self.block_device)
+        into = torch.empty_like(out)
+        t0 = time.perf_counter()
+        try:
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, out, self.seq_peer(self.seq_rank + 1), self._world),
+                dist.P2POp(dist.irecv, into, self.seq_peer(self.seq_rank - 1), self._world)])
+            for req in reqs:
+                req.wait()
+        except RuntimeError as exc:
+            raise self._failed(exc) from exc
+        finally:
+            dt = time.perf_counter() - t0
+            self.collectives += 1
+            self.collective_s += dt
+            self.ring_hops += 1
+            self.ring_bytes += out.numel()
+            self.ring_s += dt
+        return into.to(self.device).view(x.dtype).reshape(x.shape)
+
+    def sum_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` (contiguous) over the seq group, in place; returns it."""
+        if self.sp > 1:
+            self._run(dist.all_reduce, x, group=self.seq_pg, op=dist.ReduceOp.SUM)
+        return x
+
     def broadcast_bytes(self, buf: torch.Tensor) -> torch.Tensor:
         """The leader's ``buf`` (uint8 bytes) into every rank's, in place."""
         self._run(dist.broadcast, buf, group=self._world, block=True, src=0)
@@ -288,6 +354,7 @@ class TPGroup:
         self.collectives, self.collective_s = 0, 0.0
         self.block_moves, self.block_bytes, self.block_s = 0, 0, 0.0
         self.microbatches = 0
+        self.ring_hops, self.ring_bytes, self.ring_s = 0, 0, 0.0
 
     def close(self) -> None:
         """Leave the group (destroys the process's default group)."""
@@ -295,26 +362,27 @@ class TPGroup:
             dist.destroy_process_group()
 
 
-def rank_coords(world_rank: int, tp: int, ep: int = 1,
-                pp: int = 1) -> tuple[int, int, int, int]:
-    """(data replica d, stage s, expert shard e, model shard m) of a world
-    rank, ``world_rank = ((d*pp + s)*ep + e)*tp + m``."""
+def rank_coords(world_rank: int, tp: int, ep: int = 1, pp: int = 1,
+                sp: int = 1) -> tuple[int, int, int, int, int]:
+    """(data replica d, stage s, seq rank q, expert shard e, model shard m)
+    of a world rank, ``world_rank = (((d*pp + s)*sp + q)*ep + e)*tp + m``."""
     rest, m = divmod(world_rank, tp)
     rest, e = divmod(rest, ep)
+    rest, q = divmod(rest, sp)
     d, s = divmod(rest, pp)
-    return d, s, e, m
+    return d, s, q, e, m
 
 
 def init_tp_group(rank: int, size: int, backend: str, init_method: str,
                   device: torch.device, timeout: float = DEFAULT_TIMEOUT_S,
-                  dp: int = 1, ep: int = 1, pp: int = 1) -> TPGroup:
-    """Join an engine of ``dp`` x ``pp`` x ``ep`` x ``size`` ranks as world
-    rank ``rank`` (coordinates :func:`rank_coords`), on ``device`` (set as
-    the process's current card first), through ``init_method``
+                  dp: int = 1, ep: int = 1, pp: int = 1, sp: int = 1) -> TPGroup:
+    """Join an engine of ``dp`` x ``pp`` x ``sp`` x ``ep`` x ``size`` ranks
+    as world rank ``rank`` (coordinates :func:`rank_coords`), on ``device``
+    (set as the process's current card first), through ``init_method``
     (``file://`` or ``tcp://host:port``). nccl needs a card a rank; gloo
-    takes CPU and CUDA tensors. Every rank makes every model, MoE, data and
-    block group that is not the whole world, in one order (``new_group``
-    is collective)."""
+    takes CPU and CUDA tensors. Every rank makes every model, MoE, data,
+    seq and block group that is not the whole world, in one order
+    (``new_group`` is collective)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown dist backend {backend!r} (supported: {', '.join(BACKENDS)})")
     if backend == "nccl" and device.type != "cuda":
@@ -325,26 +393,32 @@ def init_tp_group(rank: int, size: int, backend: str, init_method: str,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     td = datetime.timedelta(seconds=timeout)
-    world = size * ep * pp * dp
+    world = size * ep * sp * pp * dp
     dist.init_process_group(backend, init_method=init_method, world_size=world,
                             rank=rank, timeout=td)
-    d, s, e, m = rank_coords(rank, size, ep, pp)
+    d, s, q, e, m = rank_coords(rank, size, ep, pp, sp)
 
-    def at(r, st, x, i):
-        return ((r * pp + st) * ep + x) * size + i
+    def at(r, st, y, x, i):
+        return (((r * pp + st) * sp + y) * ep + x) * size + i
 
     def group(ranks: list[int]):
         return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks, timeout=td)
 
-    models = {(r, st, x): group([at(r, st, x, i) for i in range(size)])
-              for r in range(dp) for st in range(pp) for x in range(ep)}
-    moes = {(r, st): group([at(r, st, x, i) for x in range(ep) for i in range(size)])
-            for r in range(dp) for st in range(pp)}
-    datas = {(st, x, i): group([at(r, st, x, i) for r in range(dp)])
-             for st in range(pp) for x in range(ep) for i in range(size)} if dp > 1 else {}
-    blocks = {(r, x): group([at(r, st, x, i) for st in range(pp) for i in range(size)])
+    cells = [(r, st, y) for r in range(dp) for st in range(pp) for y in range(sp)]
+    models = {(r, st, y, x): group([at(r, st, y, x, i) for i in range(size)])
+              for r, st, y in cells for x in range(ep)}
+    moes = {(r, st, y): group([at(r, st, y, x, i) for x in range(ep) for i in range(size)])
+            for r, st, y in cells}
+    datas = {(st, y, x, i): group([at(r, st, y, x, i) for r in range(dp)])
+             for st in range(pp) for y in range(sp) for x in range(ep)
+             for i in range(size)} if dp > 1 else {}
+    seqs = {(r, st, x, i): group([at(r, st, y, x, i) for y in range(sp)])
+            for r in range(dp) for st in range(pp) for x in range(ep)
+            for i in range(size)} if sp > 1 else {}
+    blocks = {(r, x): group([at(r, st, 0, x, i) for st in range(pp) for i in range(size)])
               for r in range(dp) for x in range(ep)} if pp > 1 else {}
-    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, s, e],
-                   dp=dp, data_rank=d, data_pg=datas.get((s, e, m)),
-                   world_pg=dist.group.WORLD, ep=ep, expert_rank=e, moe_pg=moes[d, s],
-                   pp=pp, stage=s, block_pg=blocks.get((d, e)))
+    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, s, q, e],
+                   dp=dp, data_rank=d, data_pg=datas.get((s, q, e, m)),
+                   world_pg=dist.group.WORLD, ep=ep, expert_rank=e, moe_pg=moes[d, s, q],
+                   pp=pp, stage=s, block_pg=blocks.get((d, e)),
+                   sp=sp, seq_rank=q, seq_pg=seqs.get((d, s, e, m)))

@@ -170,6 +170,13 @@ class EngineConfig:
     # Wall-seconds budget for full warmup (0 = unbounded); buckets past it
     # stay cold and count against coverage.
     warmup_deadline: float = 120.0
+    # Context-parallel ring prefill (sp > 1, ops/ring_attention.py): the
+    # least prompt tokens with which a step of fresh whole prompts prefills
+    # as ONE seq-sharded ring chunk instead of the chunked path. 0 = auto
+    # (the ring-vs-chunked break-even of obs/costmodel.py on the device's
+    # row), N > 0 = that many tokens, -1 = never (the engine then serves as
+    # an sp=1 chunked engine on every seq rank).
+    ring_prefill_threshold: int = 0
     # Session-sticky KV retention: when a stream carrying a session.id
     # annotation finishes, its committed KV blocks stay pinned on the
     # device for this many seconds of step time, so turn N+1 prefills only

@@ -59,6 +59,9 @@ _ESCAPES = {"0": "\0", "a": "\x07", "b": "\x08", "t": "\t", "\t": "\t", "n": "\n
             "/": "/", "\\": "\\", "N": "\x85", "_": "\xa0", "L": " ", "P": " "}
 _HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
 _FLOW_END = ",]}"
+#: YAML's white space inside a line (str.strip would also take "\xa0" and the
+#: other Unicode spaces, which YAML reads as content)
+_WS = " \t"
 
 
 def _sexagesimal(value: str, cast) -> Any:
@@ -143,19 +146,19 @@ class _Parser:
         started = False
         for no, raw in enumerate(text.replace("\r\n", "\n").split("\n"), 1):
             body = raw.lstrip(" ")
-            if not body.strip() or body.startswith("#"):
+            if not body.strip(_WS) or body.startswith("#"):
                 continue
             if body[0] == "\t" or (raw[:len(raw) - len(body)].count("\t")):
                 raise YamlError(f"line {no}: tabs in indentation are not read")
             indent = len(raw) - len(body)
-            body = body.rstrip()
+            body = body.rstrip(_WS)
             if indent == 0 and body.startswith("%"):
                 raise YamlError(f"line {no}: directives are not read")
             if indent == 0 and (body == "..." or body.startswith("... ")):
                 raise YamlError(f"line {no}: several documents in one stream are not read")
             if indent == 0 and (body == "---" or body.startswith("--- ")
                                 or body.startswith("---\t")):
-                rest = body[3:].strip()
+                rest = body[3:].strip(_WS)
                 if started or self.lines:
                     raise YamlError(f"line {no}: several documents in one stream "
                                     "are not read")
@@ -222,16 +225,16 @@ class _Parser:
             key, end = _quoted(text, 0, ln.no)
             rest = text[end:].lstrip(" ")
             if rest == ":" or rest.startswith(": "):
-                return key, rest[1:].strip()
+                return key, rest[1:].strip(_WS)
             return None
         for j, c in enumerate(text):
             if _comment_at(text, j):
                 return None
             if c == ":" and (j + 1 == len(text) or text[j + 1] in " \t"):
-                raw = text[:j].rstrip()
+                raw = text[:j].rstrip(_WS)
                 if raw:
                     _refuse_indicator(raw[0], ln.no)
-                return _resolve(raw), text[j + 1:].strip()
+                return _resolve(raw), text[j + 1:].strip(_WS)
         return None
 
     def mapping(self, i: int, indent: int) -> tuple[dict, int]:
@@ -278,13 +281,13 @@ class _Parser:
             value = flow.node()
             used = flow.s.count("\n", 0, flow.pos)
             tail = flow.s[flow.pos:].split("\n", 1)[0]
-            if tail.strip() and not tail.strip().startswith("#"):
-                raise YamlError(f"line {ln.no + used}: unexpected {tail.strip()!r} "
+            if tail.strip(_WS) and not tail.strip(_WS).startswith("#"):
+                raise YamlError(f"line {ln.no + used}: unexpected {tail.strip(_WS)!r} "
                                 "after a flow collection")
             return value, self._after_node(i + used + 1, ln)
         if c in "\"'":
             value, end = _quoted(text, 0, ln.no)
-            tail = text[end:].strip()
+            tail = text[end:].strip(_WS)
             if tail and not tail.startswith("#"):
                 raise YamlError(f"line {ln.no}: unexpected {tail!r} after a quoted scalar")
             return value, self._after_node(i + 1, ln)
@@ -295,7 +298,7 @@ class _Parser:
                 break
             if text[j] == ":" and (j + 1 == len(text) or text[j + 1] in " \t"):
                 raise YamlError(f"line {ln.no}: mapping values are not allowed here")
-        return _resolve(text[:end].rstrip()), self._after_node(i + 1, ln)
+        return _resolve(text[:end].rstrip(_WS)), self._after_node(i + 1, ln)
 
     def _after_node(self, i: int, ln: _Line) -> int:
         if i < len(self.lines) and self.lines[i].indent > ln.indent:

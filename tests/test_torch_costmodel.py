@@ -103,9 +103,12 @@ def test_public_surface_is_the_same():
     for const in ("DCN_BYTES_PER_S", "PREFILL_MFU", "ICI_BYTES_PER_S",
                   "RING_PREFILL_OVERHEAD_S"):
         assert getattr(tcm, const) == getattr(jcm, const)
-    # every JAX row is in the port's table, unchanged
+    # every JAX row is in the port's table, unchanged, and prices a ring
+    # hop at the JAX copy's link rate (the port's rows carry the hop rate)
     for key, spec in jcm.HW_SPECS.items():
-        assert dataclasses.asdict(tcm.HW_SPECS[key]) == dataclasses.asdict(spec)
+        port = dataclasses.asdict(tcm.HW_SPECS[key])
+        assert port.pop("ring_bytes_per_s") == jcm.ICI_BYTES_PER_S
+        assert port == dataclasses.asdict(spec)
 
 
 @pytest.mark.parametrize("name", [
@@ -113,6 +116,8 @@ def test_public_surface_is_the_same():
 def test_h100_row_matches_the_sxm_card(name):
     spec = tcm.hw_spec_for(name)
     assert (spec.name, spec.peak_flops, spec.hbm_bw) == ("h100-sxm", 989e12, 3.35e12)
+    # a ring hop at one direction of NVLink 4 (900 GB/s both ways), not a TPU link
+    assert spec.ring_bytes_per_s == 450e9
 
 
 @pytest.mark.parametrize("name", [
@@ -127,7 +132,10 @@ def test_a_card_the_table_lacks_raises_naming_it(name):
 @pytest.mark.parametrize("kind", ["cpu", "", "TPU v5 lite", "TPU v5p", "TPU v6 lite",
                                   "TPU v4"])
 def test_hw_spec_for_agrees_with_jax_on_its_rows(kind):
-    close(jcm.hw_spec_for(kind), tcm.hw_spec_for(kind))
+    jrow, trow = jcm.hw_spec_for(kind), dataclasses.asdict(tcm.hw_spec_for(kind))
+    # the JAX copy prices every row's ring hop at its one link rate
+    assert trow.pop("ring_bytes_per_s") == jcm.ICI_BYTES_PER_S
+    close(dataclasses.asdict(jrow), trow)
 
 
 def test_chip_smoke_reads_the_cost_model_row():

@@ -299,7 +299,8 @@ def test_block_allocator_matches_jax():
 
 
 @pytest.mark.parametrize("setting", [
-    dict(tp=2, warmup_mode="full"), dict(pp=2), dict(dp=2, pp=2), dict(ep=2), dict(sp=2),
+    dict(tp=2, warmup_mode="full"), dict(pp=2), dict(dp=2, pp=2), dict(ep=2),
+    dict(sp=2, warmup_mode="lazy"),
     dict(kv_dtype="fp8"),
     dict(quantization="int4"), dict(quantization="fp8"),
     dict(spec_ngram=3, decode_window=4), dict(warmup_mode="eager"), dict(warmup_deadline=-1.0), dict(kv_dtype="int2"),
@@ -317,8 +318,15 @@ def test_unsupported_settings_raise(setting):
 ])
 def test_settings_the_port_does_not_read_are_refused(field):
     """A JAX EngineConfig field that nothing in the port reads is not a
-    field of the port's config: setting it fails instead of doing nothing."""
+    field of the port's config: setting it fails instead of doing nothing.
+    ``ring_prefill_threshold`` is read since the ring prefill came (the
+    sp twins, tests/test_torch_sp_*.py): it is the port's field, with
+    JAX's default, and reaches the engine."""
     value = getattr(JEngineConfig(), field)
+    if field == "ring_prefill_threshold":
+        assert getattr(TEngineConfig(**{field: 7}), field) == 7
+        assert getattr(TEngineConfig(), field) == value == 0
+        return
     with pytest.raises(TypeError, match=field):
         TEngineConfig(**{field: value})
 

@@ -112,8 +112,7 @@ def test_int8_at_ep2_with_a_shared_expert_is_refused_by_both_packages(moe32):  #
 
 @pytest.mark.parametrize("setting,match", [
     (dict(pp=2, ep=2), "pp>1 currently composes only with dp"),
-    (dict(sp=2), r"sp > 1 \(sequence parallelism with ops/ring_attention.py: ROADMAP "
-                 r"item 14d\)"),
+    (dict(sp=2, pp=2), "pp>1 currently composes only with dp"),
     (dict(ep=2, warmup_mode="lazy"), "CUDA graphs"),
     (dict(ep=0), "ep must be >= 1"),
     (dict(ep=2, tp_devices=(0, 0, 0)), "dp x ep x tp = 1 x 2 x 1 ranks"),

@@ -390,7 +390,7 @@ def test_a_follower_that_fails_fails_the_leader_with_its_traceback(tiny32):
     (dict(warmup_mode="full"), "CUDA graphs"),
     (dict(pp=2), "pp>1 currently composes only with dp"),
     (dict(model="tiny-moe", ep=3), "num_experts=8 does not divide over ep=3"),
-    (dict(sp=2), r"sp > 1 \(sequence parallelism"),
+    (dict(sp=2, tp_devices=(0, 0)), "of each of the sp = 2 seq ranks"),
     (dict(tp_devices=(0,)), "one card for each"),
     (dict(dist_backend="mpi"), "unknown dist_backend"),
 ])

@@ -316,7 +316,8 @@ def test_engine_refusals_reach_the_worker(real32):
     from dynamo_tpu_torch.engine import engine as teng
 
     ns = tworker.parse_args(["--model", REAL32, "--sp", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match=r"sp > 1 \(sequence parallelism"):
+    with pytest.raises(ValueError, match=r"CUDA graphs \(warmup_mode must be 'off'; ROADMAP "
+                                         r"item 14f\)"):
         teng.EngineCore(tworker.engine_config(ns, None), params=real32[1], device="cpu")
 
 

@@ -96,7 +96,9 @@ SCALARS = ["1", "-7", "+12", "0", "-0", "017", "-017", "08", "0x1F", "0b101", "1
            ".inf", "-.Inf", ".NaN", "true", "False", "yes", "No", "on", "OFF", "y",
            "n", "~", "null", "Null", "NULL", "", "plain text", "a#b",
            "tcp://127.0.0.1:4222", "x-y_z.w", "'it''s'", '"a\\tb"', '"\\u00e9\\x41"',
-           '"a # b"', "'a # b'", "value   # a comment", "-", "--x"]
+           '"a # b"', "'a # b'", "value   # a comment", "-", "--x",
+           # Unicode spaces are content, not YAML's white space
+           "\xa0", "a\xa0", "\u2003b"]
 
 
 @pytest.mark.parametrize("scalar", SCALARS)
