@@ -497,10 +497,35 @@ engage on the card (``ring_prefill_threshold=0``), and for each run setup
 s, TTFT, decode tok/s and, a rank, the ring's hop bytes and host ms,
 collective ms a forward step and peak memory. No speed condition.
 
+Phase (t), one engine over two nodes (parallel/multihost.py,
+kvbm/distributed.py): (t1) llama-3-8b-lite, all 8 layers, seed-0 f32
+weights over the f32 cache, at tp=2 as two ``components.worker``
+processes (``--num-nodes 2``, ``--node-rank 0`` and ``1``, one rank a
+node, both on cuda:0 over gloo, eager steps, an explicit pool) behind a
+coordinator and the frontend of their own: one instance registers, and
+9 of (b'')'s requests, 32 greedy tokens, equal (b'')'s tp=1 streams or
+first differ at a near-tie; each rank (the leader's counters from its
+published stats, node 1's from its exit line) launches ``mma_f32`` only,
+8 a forward step, and both ran the same forward steps; the leader's drain
+stops node 1 and both exit 0. It prints the op stream's frames and bytes,
+each node's setup seconds and the engine's stop. (t2) llama-3-8b-lite cut
+to 2 layers, bf16 weights over the int8 cache, tp=2 over two nodes in
+this process (node 1 a process of ``python -m
+dynamo_tpu_torch.parallel.multihost``) with a host tier: JAX's tier
+workload at block 16 (prompt A of 6 blocks, four fillers that churn it
+out of a 12-block pool, A again) — A's second stream equals its first,
+blocks went to the tiers and came back, each rank's host tier holds half
+a whole block's bytes a block (its kv heads), no rank gathered a block,
+and each rank launched ``mma_int8`` only, 2 a forward step, 30-70 in all.
+(t3), with two cards or more: (t1) again over nccl (node k on cuda:k),
+and a one-node tp=2 engine over nccl on cuda:0 and cuda:1; each prints
+its engine's stop seconds and the followers it had to kill (ROADMAP Queue
+3 item 13). No speed condition.
+
 Order: (a), (a'), (p0), (b) to (b''), (c), (i) and (j) run first, with
 the card to themselves. Then a second process of this script
-(``--ranked``, on the same card) runs (q), (h), (i3), (k), (l) and (p)
-while this one runs (d), (e), (g), (m), (o), (r) and (s): most of those
+(``--ranked``, on the same card) runs (q), (h), (i3), (k), (l), (p) and
+(t) while this one runs (d), (e), (g), (m), (o), (r) and (s): most of those
 phases' time is processes starting (each rank and worker imports torch),
 which leaves the card and most host cores idle. (f) and (n) run last,
 alone ((f)'s full warmup holds a 33 GiB graph pool; (n)'s planner sizes
@@ -521,8 +546,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p), (r) and (s),
-``mma_bf16`` in (n) and (o), ``mma_int8`` in (r) and (s); and a
+in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p), (r), (s) and
+(t), ``mma_bf16`` in (n) and (o), ``mma_int8`` in (r), (s) and (t); and a
 ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
@@ -540,7 +565,9 @@ and prints neither the kernels line nor the result line;
 ``python3 chip_smoke.py --only-m`` runs (m) alone; ``--only-n`` builds the
 kernels and runs (n) alone, ``--only-o`` (o) alone, ``--only-q`` (j1)
 (the reference of (q2)) and (q), ``--only-r`` (b'')'s f32 run (the
-reference of (r1)) and (r), ``--only-s`` (s) alone.
+reference of (r1)) and (r), ``--only-s`` (s) alone, ``--only-t`` (b'')'s
+f32 run (the reference of (t1)) and (t), ``--only-t3`` (on two cards or
+more) the same for (t3).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -7694,7 +7721,309 @@ def phase_sp(smi: str, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the ranked process: (q), (h), (i3), (k), (l) and (p) beside the rest
+# (t) one engine over two nodes (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+#: (t1): llama-3-8b-lite at f32 (8 layers) as tp=2 over two worker
+#: processes, 9 of (b'')'s requests; its served name and KV pool (explicit:
+#: both nodes' ranks share the card)
+T1_NAME = "llama-3-8b-lite-f32-2node"
+T1_REQS = 9
+T1_BLOCKS = T1_REQS * (-(-(K_PROMPT + 32) // 16) + 1) + 1
+#: (t2): bf16 over an int8 cache, 2 layers, tp=2 over two nodes in process:
+#: JAX's tier workload (tests/multihost_rank.py) at block 16 — prompt A of
+#: 6 blocks, A again while its blocks are on the card (a prefix hit), four
+#: fillers that churn it out of a 12-block pool, A again (onboarded)
+T2_LAYERS, T2_BLOCKS, T2_HOST_BLOCKS = 2, 13, 64
+T2_PROMPT, T2_A_DECODE, T2_FILLERS, T2_F_DECODE = 96, 4, 4, 2
+#: the mma_int8 launches each rank makes, from the forward steps a CPU run
+#: of the phase counts: each request alone
+#: takes one prefill step (A's repeats prefill only its last block, the
+#: rest a prefix hit or onboarded), max_tokens - 1 decode steps, and the
+#: one step the pipelined loop dispatches before the finalize that
+#: finishes it: 2 layers x (3 x (4 + 1) + 4 x (2 + 1)) = 54
+T2_LAUNCHES = T2_LAYERS * (3 * (T2_A_DECODE + 1) + T2_FILLERS * (T2_F_DECODE + 1))
+
+
+def t_worker_args(url: str, tok: Path, device: str, node: int, backend: str,
+                  card: int) -> list[str]:
+    """(t1)'s worker of node ``node``: the f32 model, eager steps, one rank
+    a node on cuda:``card``."""
+    return ["--coordinator", url, "--model", K_MODEL, "--allow-random-weights",
+            "--dtype", "float32", "--component", "mh", "--served-model-name", T1_NAME,
+            "--num-blocks", str(T1_BLOCKS), "--block-size", "16", "--max-batch-size", "32",
+            "--max-model-len", str(K_PROMPT + 32 + 16), "--prefill-chunk", "128",
+            "--warmup-mode", "off", "--health-interval", "0", "--tokenizer", str(tok),
+            "--tp", "2", "--dist-backend", backend, "--num-nodes", "2",
+            "--node-rank", str(node), "--multihost-group", f"t1-{backend}",
+            *(["--device", device] if device != "cuda" else ["--tp-devices", str(card)])]
+
+
+def t_two_workers(tag: str, f32_ref: dict, device: str, backend: str = "gloo",
+                  cards: tuple[int, int] = (0, 0)) -> dict:
+    """(t1) (and (t3) over nccl): a coordinator, the frontend and the two
+    nodes' workers as processes; 9 greedy f32 streams through the frontend
+    against ``f32_ref`` ((b'')'s tp=1 streams), each rank's launches of
+    ``mma_f32`` against its forward steps, the op stream, each node's setup
+    seconds, and the leader's drain stopping both (each exits 0)."""
+    import tempfile
+
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    cfg = resolve_model_config(K_MODEL)
+    route = ROUTES[(torch.float32, "float")]
+    tmp = Path(tempfile.mkdtemp(prefix="t-nodes-"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1", "DYN_LOG": "info"}
+    cl = KCluster(tmp, env)
+    out: dict = {}
+    t0 = time.perf_counter()
+    try:
+        coord_port, http_port = free_port(), free_port()
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(coord_port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 60)
+        url = f"tcp://127.0.0.1:{coord_port}"
+        tok = k_tokenizer(tmp, cfg.vocab_size)
+        for node in (0, 1):
+            cl.start(f"node{node}", "dynamo_tpu_torch.components.worker",
+                     t_worker_args(url, tok, device, node, backend, cards[node]))
+        t_start = time.perf_counter()
+        cl.start("frontend", "dynamo_tpu_torch.components.frontend",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(http_port),
+                  "--router-mode", "kv"])
+        cl.wait_line("frontend", "FRONTEND_READY", 120)
+        cl.wait_line("node1", "FOLLOWER_READY rank=1", 600)
+        out["node1_ready_s"] = time.perf_counter() - t_start
+        leader = cl.wait_line("node0", "WORKER_READY", 600).split(
+            "instance=")[1].strip().lstrip("0")
+        out["node0_ready_s"] = time.perf_counter() - t_start
+        deadline = time.monotonic() + 60
+        while sorted(k_stats(http_port, T1_NAME).get("instances", [])) != [leader]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag} the frontend did not discover one instance: "
+                                     f"{k_stats(http_port, T1_NAME)}")
+            time.sleep(0.2)
+        s0 = k_settled(http_port, T1_NAME, [leader])
+        prompts = k_prompts(cfg.vocab_size)[:T1_REQS]
+        got = k_batch(http_port, T1_NAME, prompts, len(f32_ref[0][0]))
+        s1 = k_settled(http_port, T1_NAME, [leader])
+        out.update(k_compare(f"{tag} f32 tp=2 over two nodes against (b'') tp=1", got,
+                             {i: f32_ref[i] for i in range(T1_REQS)}))
+        lead = k_launches(tag, s0, s1, [leader], route, cfg.num_layers)[leader]
+        out["multihost"] = s1["workers"][leader]["multihost"]
+        cl.check_alive()
+        rc = cl.terminate("node0", 120)
+        drained = [ln for ln in cl.log_of("node0").splitlines() if "WORKER_DRAINED" in ln]
+        if rc != 0 or not drained:
+            raise AssertionError(f"{tag} the leader exited {rc}:\n{cl.log_of('node0')[-3000:]}")
+        out["leader_stop"] = json.loads(drained[-1].split("WORKER_DRAINED ", 1)[1]).get(
+            "engine_shutdown")
+        t_stop = time.perf_counter()
+        rc1 = cl.procs["node1"][0].wait(120)
+        out["node1_exit_s"] = time.perf_counter() - t_stop
+        cl.expected_dead.add("node1")
+        done = [ln for ln in cl.log_of("node1").splitlines() if "FOLLOWER_DONE" in ln]
+        if rc1 != 0 or not done:
+            raise AssertionError(f"{tag} node 1 exited {rc1}:\n{cl.log_of('node1')[-3000:]}")
+        node1 = json.loads(done[-1].split("FOLLOWER_DONE rank=1 ", 1)[1])
+        steps = node1["forward_steps"]
+        want = {k: cfg.num_layers * steps if k == route else 0 for k in node1["launches"]}
+        if device == "cuda" and node1["launches"] != want:
+            raise AssertionError(f"{tag} node 1's rank launched {node1['launches']} in "
+                                 f"{steps} forward steps; expected {want}")
+        if steps != s1["workers"][leader]["attention"]["forward_steps"]:
+            raise AssertionError(f"{tag} node 1's rank ran {steps} forward steps, the "
+                                 f"leader {s1['workers'][leader]['attention']['forward_steps']}")
+        out["ranks"] = {"0 (node 0)": lead["launches"],
+                        "1 (node 1)": node1["launches"].get(route, 0)}
+        out["forward_steps"] = steps
+        out["node1"] = {k: node1[k] for k in ("frames", "bytes", "setup_s")}
+    finally:
+        cl.stop_all()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def t_node_engine(setting: dict, device: str):
+    """(t2)'s engine over two nodes in this process: node 1 is a process of
+    ``python -m dynamo_tpu_torch.parallel.multihost`` on the same card.
+    Returns (engine, its channel, node 1's process)."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.parallel import multihost as mh
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    channel = mh.LeaderOpChannel(0, 1, leader_addr=f"127.0.0.1:{free_port()}")
+    node = subprocess.Popen(
+        [sys.executable, "-u", "-m", "dynamo_tpu_torch.parallel.multihost",
+         "--op-addr", f"127.0.0.1:{channel.port}", "--node-rank", "1",
+         *(["--device", device] if device != "cuda" else ["--tp-devices", "0"])],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT), "DYN_LOG": "warning"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        channel.accept_followers(300)
+        ec = EngineConfig(**setting, tp=2, num_nodes=2, dist_backend="gloo",
+                          warmup_mode="off", allow_random_weights=True,
+                          tp_devices=(0,) if device != "cpu" else ())
+        return build_engine(ec, device=device, channel=channel), channel, node
+    except BaseException:
+        channel.close()
+        node.kill()
+        raise
+
+
+def t_tiers(smi: str, device: str) -> dict:
+    """(t2): see the module docstring."""
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+    model = q_model("llama-3-8b-lite", T2_LAYERS, "bfloat16")
+    vocab = resolve_model_config(model).vocab_size
+    route = ROUTES[(torch.bfloat16, "int8")]
+    setting = dict(model=model, block_size=16, num_blocks=T2_BLOCKS, max_batch_size=8,
+                   max_model_len=T2_PROMPT + 16, prefill_chunk=128,
+                   host_kv_blocks=T2_HOST_BLOCKS, kv_dtype="int8")
+    t0 = time.perf_counter()
+    engine, _, node = t_node_engine(setting, device)
+    out: dict = {"setup_s": time.perf_counter() - t0}
+
+    async def one(prompt: list[int], rid: str, decode: int) -> list[int]:
+        # one request at a time (a multi-host leader refuses run_in_core,
+        # which serve_on holds the engine thread with)
+        toks = []
+        async for o in engine.generate(kv_reqs([prompt], rid, decode)[0]):
+            if o.error:
+                raise AssertionError(f"[t2] {rid} failed: {o.error}")
+            toks += o.token_ids
+        return toks
+
+    async def run() -> dict:
+        core = engine.core
+        await engine.run_op("reset_tp_stats", {})
+        a = [(101 + 7 * i) % (vocab - 5) + 5 for i in range(T2_PROMPT)]
+        res = {"a1": await one(a, "t2-a1", T2_A_DECODE),
+               "hit": await one(a, "t2-hit", T2_A_DECODE)}
+        for f in range(T2_FILLERS):
+            filler = [(211 + 31 * f + 13 * i) % (vocab - 5) + 5 for i in range(T2_PROMPT)]
+            await one(filler, f"t2-f{f}", T2_F_DECODE)
+        res["a2"] = await one(a, "t2-a2", T2_A_DECODE)
+        res["offloaded"] = core.kvbm.stats.offloaded_blocks
+        res["onboarded"] = core.kvbm.stats.onboarded_blocks
+        res["ranks"] = await engine.run_op("tp_stats", {})
+        res["whole_block_bytes"] = core.runner.block_spec.bytes_per_block()
+        await engine.shutdown()
+        res["stop"] = core.shutdown_stats
+        return res
+
+    try:
+        res = asyncio.run(run())
+    finally:
+        if node.poll() is None:
+            try:
+                node.wait(120)
+            except subprocess.TimeoutExpired:
+                node.kill()
+    log_out = node.stdout.read()
+    if node.returncode != 0:
+        raise AssertionError(f"[t2] node 1 exited {node.returncode}:\n{log_out[-3000:]}")
+    # the onboarded run against A's prefix hit on the card (both prefill A's
+    # last block over its first five: (g1)'s rule); at bf16 a whole-prompt
+    # prefill is another sum order (a prefill is not chunk invariant), so
+    # the first run is printed beside them
+    if res["a2"] != res["hit"] or len(res["a2"]) != T2_A_DECODE:
+        raise AssertionError(f"[t2] A onboarded {res['a2']} is not A's prefix hit on the "
+                             f"card {res['hit']} (first run {res['a1']})")
+    out["a_first_equal"] = res["a2"] == res["a1"]
+    if not (res["offloaded"] > 0 and res["onboarded"] > 0):
+        raise AssertionError(f"[t2] no tier round trip: {res['offloaded']} offloaded, "
+                             f"{res['onboarded']} onboarded")
+    ranks = []
+    for r in res["ranks"]:
+        blocks, nbytes = r["tiers"]["host"]
+        per_block = nbytes / blocks if blocks else None
+        launches = r["launches_by_kernel"]
+        want = {k: T2_LAYERS * r["forward_steps"] if k == route else 0 for k in launches}
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"[t2] rank {r['rank']} launched {launches} in "
+                                 f"{r['forward_steps']} forward steps; expected {want}")
+        if per_block != res["whole_block_bytes"] / 2 or r["block_moves"] != 0:
+            raise AssertionError(f"[t2] rank {r['rank']}: {per_block} host-tier bytes a "
+                                 f"block (whole: {res['whole_block_bytes']}), "
+                                 f"{r['block_moves']} block moves")
+        ranks.append({"rank": r["rank"], "launches": launches.get(route, 0),
+                      "forward_steps": r["forward_steps"], "tier_blocks": blocks,
+                      "tier_bytes_per_block": per_block})
+    if device == "cuda" and not all(30 <= r["launches"] <= 70 for r in ranks):
+        raise AssertionError(f"[t2] launches a rank outside 30-70: {ranks}")
+    if not all(r["forward_steps"] * T2_LAYERS == T2_LAUNCHES for r in ranks):
+        log(f"[t2] forward steps {[r['forward_steps'] for r in ranks]} are not the "
+            f"prediction's {T2_LAUNCHES // T2_LAYERS}")
+    out.update({"ranks": ranks, "offloaded": res["offloaded"], "onboarded": res["onboarded"],
+                "predicted_launches": T2_LAUNCHES, "whole_block_bytes": res["whole_block_bytes"],
+                "stop": res["stop"], "seconds": time.perf_counter() - t0})
+    log(f"[t2] bf16 over int8, tp=2 over two nodes: A equal after {res['offloaded']} offloaded "
+        f"and {res['onboarded']} onboarded blocks; " + json.dumps(out) + f" on {smi}")
+    return out
+
+
+def t_nccl_stop(smi: str) -> dict:
+    """(t3)'s one-node half: a tp=2 engine over nccl on cuda:0 and cuda:1
+    (its follower a spawned process) serves a few requests and stops: the
+    seconds its stop took and the followers it had to kill (ROADMAP Queue 3
+    item 13's guard)."""
+    model = q_model("llama-3-8b-lite", T2_LAYERS, "bfloat16")
+    engine = p_engine("cuda", tp=2, model=model, dist_backend="nccl", tp_devices=(0, 1),
+                      num_blocks=64, max_model_len=256)
+
+    async def run() -> dict:
+        reqs = kv_reqs([[5 + i for i in range(64)]] * 4, "t3", 8)
+        from dynamo_tpu_torch.ops.paged_attention import ROUTES
+
+        await p_serve(engine, reqs, "[t3] one node", ROUTES[(torch.bfloat16, "float")])
+        await engine.shutdown()
+        return engine.core.shutdown_stats
+
+    stop = asyncio.run(run())
+    log(f"[t3] one-node tp=2 engine over nccl stopped: {stop} on {smi}")
+    return stop
+
+
+def t_nccl(smi: str, f32_ref: dict) -> dict:
+    """(t3), with two cards or more: (t1) over nccl, node k on cuda:k, and
+    a one-node tp=2 engine over nccl; each engine's stop seconds and the
+    followers it had to kill."""
+    res = {"two_nodes": t_two_workers("[t3] nccl", f32_ref, "cuda", "nccl", (0, 1)),
+           "one_node": t_nccl_stop(smi)}
+    log(f"[t3] stops over nccl: two nodes {res['two_nodes']['leader_stop']} (node 1 exited "
+        f"{res['two_nodes']['node1_exit_s']:.3f} s after the leader), one node "
+        f"{res['one_node']} on {smi}")
+    return res
+
+
+def phase_multihost(smi: str, f32_ref: dict, device: str = "cuda") -> dict:
+    """(t): see the module docstring. ``f32_ref`` is (b'')'s in-process f32
+    streams {i: (tokens, logprobs)}."""
+    free_engine()
+    t0 = time.perf_counter()
+    res = {"t1": t_two_workers("[t1]", f32_ref, device)}
+    res["t2"] = t_tiers(smi, device)
+    if device == "cuda" and torch.cuda.device_count() >= 2:
+        res["t3"] = t_nccl(smi, f32_ref)
+    else:
+        log(f"[t3] the nccl runs (one card a rank) were not run: this host has "
+            f"{torch.cuda.device_count() if device == 'cuda' else 0} CUDA device")
+    res["seconds"] = time.perf_counter() - t0
+    res["launches_t"] = {
+        "t1 f32 tp=2 over two nodes": res["t1"]["ranks"],
+        "t2 bf16 int8 tp=2 over two nodes": {f"rank {r['rank']}": r["launches"]
+                                             for r in res["t2"]["ranks"]}}
+    log(f"[t] passed in {res['seconds']:.1f}s on {smi}: " + json.dumps(res["launches_t"]))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the ranked process: (q), (h), (i3), (k), (l), (p) and (t) beside the rest
 # ---------------------------------------------------------------------------
 
 #: seconds the ranked process may take after the other phases are done
@@ -7726,7 +8055,7 @@ def take_pickle(d: Path, name: str, timeout: float = RANKED_WAIT_S):
 
 class RankedGroup:
     """The second process of the run, ``chip_smoke.py --ranked DIR``: it
-    runs (q), (h), (i3), (k), (l) and (p) while this process runs (d),
+    runs (q), (h), (i3), (k), (l), (p) and (t) while this process runs (d),
     (e), (g), (m), (o), (r) and (s). Most of those phases' time is
     processes starting (each follower and worker imports torch), which
     leaves the card and most host cores idle. Inputs and results cross
@@ -7798,6 +8127,8 @@ def run_ranked(d: Path, smi: str, bw: float, peak: float, t0: float) -> int:
     audit_memory("(l)")
     parity = phase_parity(smi, f32_streams, bw, peak, data_rows=False)
     audit_memory("(p)")
+    multihost = phase_multihost(smi, f32_streams)
+    audit_memory("(t)")
 
     def launches(run: dict) -> dict:
         return {"route": run["route"], "launches": run["launches"]}
@@ -7812,6 +8143,7 @@ def run_ranked(d: Path, smi: str, bw: float, peak: float, t0: float) -> int:
         "disagg": {k: workers(disagg[k]) for k in ("l1", "l2")},
         "parity": {"launches_p": parity["launches_p"]},
         "moe_par": {k: moe_par[k] for k in ("launches_q", "launches_q2")},
+        "multihost": {"launches_t": multihost["launches_t"]},
     })
     log(f"the ranked phases passed in {time.perf_counter() - t0:.1f}s")
     return 0
@@ -7940,6 +8272,26 @@ def main() -> int:
         audit_memory("(s)")
         log(f"(s) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-t"]:
+        # a rehearsal of (t), with (b'')'s f32 run for (t1)'s reference: no
+        # kernels or result line
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        phase_multihost(smi, f32_streams)
+        audit_memory("(t)")
+        log(f"(t) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--only-t3"]:
+        # (t3) alone on two cards or more, with (b'')'s f32 run for its
+        # reference: no kernels or result line
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        if torch.cuda.device_count() < 2:
+            raise AssertionError("--only-t3 needs two cards or more")
+        t_nccl(smi, f32_streams)
+        audit_memory("(t3)")
+        log(f"(t3) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -8019,6 +8371,7 @@ def main() -> int:
     finally:
         ranked.stop()
     tp, cluster, disagg = got["tp"], got["cluster"], got["disagg"]
+    launches_t = got["multihost"]["launches_t"]
     parity, moe_par = {**got["parity"], "p0": p0}, got["moe_par"]
     # (f) and (n) last, with the card and the host to themselves: (f)'s
     # full warmup holds a 33 GiB graph pool, and (n)'s planner sizes a
@@ -8080,6 +8433,12 @@ def main() -> int:
         if route in seq["launches_s"]:
             # (s1)'s two seq ranks (mma_f32), (s2)'s four ranks of sp=2 x tp=2 (mma_int8)
             lines[-1]["launches_s"] = seq["launches_s"][route]
+        if route == ROUTES[(torch.float32, "float")]:
+            # (t1)'s two ranks, one a node (the leader's worker and node 1's)
+            lines[-1]["launches_t"] = launches_t["t1 f32 tp=2 over two nodes"]
+        elif route == ROUTES[(torch.bfloat16, "int8")]:
+            # (t2)'s two ranks over their rank-local tiers
+            lines[-1]["launches_t"] = launches_t["t2 bf16 int8 tp=2 over two nodes"]
         if route == ROUTES[(torch.bfloat16, "float")]:
             lines[-1]["moe_shapes"] = {name: {key: rows[name][key] for key in (
                 "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "err_over_limit")}

@@ -14,9 +14,18 @@ never imported), which the chaos harness and the fleet tests run.
 ``KvTransferSource`` and a ``PrefillHandler``; no model card), ``--disagg
 decode`` the decode half (a ``DisaggDecodeHandler`` over a KV-aware or
 round-robin router of the prefill pool; disagg/), at any ``--tp`` or
-``--pp`` (the leader hands off whole blocks). Multi-host engines and ``--disagg`` on the
-mocker are refused by name (:func:`check_worker_args`); so is whatever the engine's
-``check_supported`` refuses. The published stats carry the paged-attention
+``--pp`` (the leader hands off whole blocks). ``--num-nodes N`` spreads
+one engine's ranks over N worker processes (parallel/multihost.py): node 0
+(``--node-rank 0``) binds the op channel, publishes the group's rendezvous
+under its lease, builds the engine and serves; node k > 0 finds the
+leader through the coordinator (or ``--leader-addr``), hosts its ranks,
+prints ``FOLLOWER_READY rank=k``, registers no endpoint, card or
+publisher, and exits 0 when the leader stops. A prefill engine's other
+nodes serve their ranks' boxes from shard servers of their own, listed in
+its transfer params. ``--disagg`` on the mocker and ``--num-nodes > 1`` on
+it are refused by name (:func:`check_worker_args`); so is whatever the
+engine's ``check_supported`` refuses (more than one rank with CUDA graphs:
+``--warmup-mode off``). The published stats carry the paged-attention
 launches by route, the forward steps they ran in and the card's peak
 allocated bytes (``"attention"``), which a process that cannot read this
 one's counters checks launches against, and the KV handoff's bytes and
@@ -207,10 +216,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "namespace.component; MUST differ across replicas "
                         "of one component)")
     p.add_argument("--num-nodes", type=int, default=1,
-                   help="processes forming ONE SPMD engine (1 = single-host)")
-    p.add_argument("--node-rank", type=int, default=0)
+                   help="worker processes (nodes) ONE engine's ranks are spread "
+                        "over: node k holds ranks [k R/N, (k+1) R/N) of its R = "
+                        "dp*pp*sp*ep*tp (1 = single-host)")
+    p.add_argument("--node-rank", type=int, default=0,
+                   help="this worker's node: 0 leads and serves, the others host "
+                        "their ranks")
     p.add_argument("--leader-addr", default=None,
-                   help="multi-host only (refused by the port)")
+                   help="multi-host only: host:port of the group's rendezvous "
+                        "(default: the leader picks a free port on its advertise "
+                        "host and publishes it; the op channel's port is always "
+                        "read from the coordinator)")
     return p.parse_args(argv)
 
 
@@ -219,13 +235,11 @@ def check_worker_args(ns: argparse.Namespace) -> None:
     the ROADMAP item that brings it."""
     if ns.disagg != "none" and ns.engine != "torch":
         raise SystemExit("--disagg requires --engine torch (KV handoff needs a real cache)")
-    later = {
-        "--num-nodes > 1 (multi-host engines: ROADMAP item 14)": ns.num_nodes > 1,
-    }
-    missing = [name for name, hit in later.items() if hit]
-    if missing:
-        raise SystemExit("not supported by the torch port's worker yet: "
-                         + "; ".join(missing))
+    if ns.num_nodes > 1 and ns.engine != "torch":
+        raise SystemExit("--num-nodes > 1 requires --engine torch")
+    if not 0 <= ns.node_rank < ns.num_nodes:
+        raise SystemExit(f"--node-rank {ns.node_rank} is not a node of --num-nodes "
+                         f"{ns.num_nodes}")
 
 
 def override_dtype(model: str, dtype: str) -> None:
@@ -272,6 +286,7 @@ def engine_config(ns: argparse.Namespace, remote_kv: str | None) -> EngineConfig
         stream_ckpt_blocks=ns.stream_ckpt_blocks,
         warmup_mode=ns.warmup_mode,
         warmup_deadline=ns.warmup_deadline,
+        num_nodes=ns.num_nodes,
     )
 
 
@@ -359,6 +374,59 @@ async def amain(ns: argparse.Namespace) -> None:
 
         install_chaos_metrics(rt.metrics)
 
+    # Multi-host engine: the worker processes of --num-nodes form ONE engine;
+    # node 0 serves, the others host their ranks (reference: MultiNodeConfig,
+    # lib/llm/src/engines.rs:29-44).
+    op_channel = None
+    if ns.num_nodes > 1:
+        from dynamo_tpu_torch.parallel import multihost as mh
+
+        # Distinct multi-host replicas of one component must rendezvous in
+        # distinct groups (leader-key collision otherwise) — recipes pass
+        # --multihost-group per replica.
+        group = ns.multihost_group or f"{ns.namespace}.{ns.component}"
+        leader_addr = ns.leader_addr
+        loop = asyncio.get_running_loop()
+        if ns.node_rank == 0:
+            # Bind the op channel FIRST (port 0 → OS-assigned and owned from
+            # here on); only the rendezvous port keeps a small bind-probe
+            # window, since the group's store binds it later.
+            op_channel = mh.LeaderOpChannel(0, ns.num_nodes - 1)
+            if not leader_addr:
+                import socket as _socket
+
+                host = rt.advertise_address.rsplit(":", 1)[0]
+                with _socket.socket() as sock:
+                    sock.bind(("", 0))
+                    leader_addr = f"{host}:{sock.getsockname()[1]}"
+            op_channel.leader_addr = leader_addr
+            if ns.disagg == "prefill":
+                # the other nodes' serving ranks bind shard servers and ack
+                # their addresses in ready
+                op_channel.hello_extra["disagg_role"] = "prefill"
+            await mh.publish_leader_addr(rt.client, group, leader_addr,
+                                         op_channel.port, rt.primary_lease.id)
+            await loop.run_in_executor(None, op_channel.accept_followers)
+        else:
+            # The op port is the leader's OS-assigned one: it comes from the
+            # published record even with an explicit --leader-addr.
+            published, op_port = await mh.resolve_leader_addr(rt.client, group, timeout=120.0)
+            leader_addr = leader_addr or published
+            host = leader_addr.rsplit(":", 1)[0]
+            sock = await loop.run_in_executor(None, mh.connect_to_leader, host, op_port)
+            tp_devices = (tuple(int(d) for d in ns.tp_devices.split(","))
+                          if ns.tp_devices else ())
+            # Follower: no endpoint, no model card, no publishers —
+            # invisible to routing. Its ranks follow the leader until it
+            # stops.
+            log.info("follower node %d hosting its ranks of %s", ns.node_rank, group)
+            seen = await loop.run_in_executor(None, lambda: mh.follower_loop(
+                sock, ns.node_rank, ns.device, tp_devices))
+            sock.close()
+            await rt.shutdown()
+            print(f"FOLLOWER_DONE rank={ns.node_rank} {json.dumps(seen)}", flush=True)
+            return
+
     if rt.status_server is not None:
         # NotReady until the endpoint actually serves — model loading can
         # take minutes and a readiness probe must not pass before it.
@@ -445,7 +513,7 @@ async def amain(ns: argparse.Namespace) -> None:
         loop = asyncio.get_running_loop()
         cfg_engine = engine_config(ns, remote_kv)
         engine = await loop.run_in_executor(None, lambda: build_engine(
-            cfg_engine, device=ns.device, event_sink=sink))
+            cfg_engine, device=ns.device, event_sink=sink, channel=op_channel))
         warm = engine.core.warmup_summary
     if warm:
         log.info("bucket warmup: %s", warm)
@@ -464,6 +532,11 @@ async def amain(ns: argparse.Namespace) -> None:
                "prefix_hit_blocks": engine.core.metrics.prefix_hit_blocks}
         if ns.disagg != "none":
             out["kv_transfer"] = kv_transfer_stats(engine.core)
+        if op_channel is not None:
+            # the op stream's frames and bytes, each node's setup seconds
+            out["multihost"] = {"nodes": ns.num_nodes, "frames": op_channel.frames,
+                                "bytes": op_channel.bytes,
+                                "setup_s": [i.get("setup_s") for i in op_channel.ready_infos]}
         if decode is not None:
             out["disagg"] = {"remote_prefills": decode.remote_prefills,
                              "local_fallbacks": decode.local_fallbacks,
@@ -520,7 +593,9 @@ async def amain(ns: argparse.Namespace) -> None:
         # shards[0] = this engine's shard server, started inside the source
         kv_source = KvTransferSource(
             engine, ttl_s=ns.kv_transfer_ttl,
-            advertise_host=rt.advertise_address.rsplit(":", 1)[0])
+            advertise_host=rt.advertise_address.rsplit(":", 1)[0],
+            # over several nodes: the other nodes' serving ranks' boxes
+            extra_shards=engine.core.follower_shards())
         kv_source.start()
         prefill = PrefillHandler(engine, kv_source, block_size=ns.block_size,
                                  stream=not ns.no_kv_stream)
@@ -775,6 +850,10 @@ async def amain(ns: argparse.Namespace) -> None:
         await engine.stop()
     else:
         await engine.shutdown()
+        if engine.core.shutdown_stats is not None:
+            # more than one rank: the seconds the engine's stop took and
+            # the followers it had to kill
+            terminal["engine_shutdown"] = engine.core.shutdown_stats
     await rt.shutdown()
     print(f"WORKER_DRAINED {json.dumps(terminal)}", flush=True)
 

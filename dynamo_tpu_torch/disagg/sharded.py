@@ -19,9 +19,13 @@ The data path between a prefill engine and a decode engine:
   the waves that are ready.
 
 Boxes are global (layer_start, layer_end, head_start, head_end) extents.
-The port's engines hold the whole cache in one process, so each is the
-1-shard case of the protocol (its box is the whole cache); engines with
-more than one rank are refused by the engine (ROADMAP item 14).
+An engine on one node stages whole blocks on its leader (a tensor- or
+pipeline-parallel one gathers every rank's heads and layers first), so it
+is the 1-shard case of the protocol (its box is the whole cache). An
+engine over several nodes (parallel/multihost.py) stages each rank's own
+box on that rank, and every rank of replica 0 serves its box from a shard
+server of its own (kvbm/distributed.py); a decode engine over several
+nodes has each rank fetch and inject its own box (:func:`fetch_box`).
 
 bf16 on the wire: a staged bf16 shard is its uint16 bit patterns (numpy has
 no bfloat16, ``kvbm/transfer.py``), and its pull reply names the dtype
@@ -509,3 +513,45 @@ def assemble_local(my_box: Box, pieces: list[tuple[np.ndarray, Box]],
     if not covered.all():
         return None
     return out
+
+
+def fetch_box(params: dict, box: Box, block_size: int, head_dim: int, dtype: str,
+              start: int | None = None, stop: int | None = None,
+              clients: dict | None = None):
+    """The network half of a pull: fetch the slices of ``box`` from every
+    shard of ``params`` that intersects it (the window [start, stop) of the
+    chain; the whole transfer when stop is None) and assemble them.
+    ``clients`` is a per-transfer addr→ShardClient cache so wave pulls
+    reuse connections. Returns (hashes, parents, blocks [n, 2, L, bs, H,
+    hd]) or None on any failure. Touches no engine state."""
+    pieces: list[tuple[np.ndarray, Box]] = []
+    hashes: list[int] = []
+    parents: list[int | None] = []
+    try:
+        for sh in params.get("shards", []):
+            inter = box_intersection(box, tuple(sh["box"]))
+            if inter is None:
+                continue
+            if clients is not None:
+                client = clients.get(sh["addr"])
+                if client is None:
+                    client = clients[sh["addr"]] = ShardClient(sh["addr"])
+                h, p, flat, got = client.fetch(params["xfer_id"], inter, start, stop)
+            else:
+                client = ShardClient(sh["addr"], retries=2)
+                try:
+                    h, p, flat, got = client.fetch(params["xfer_id"], inter, start, stop)
+                finally:
+                    client.close()
+            if hashes and len(h) != len(hashes):
+                # Shards answered different windows (a partial serve racing
+                # finalize-trim) — the slices no longer tile.
+                raise RuntimeError(f"shard windows diverge: {len(h)} vs {len(hashes)}")
+            hashes, parents = h, p  # identical across shards (one chain)
+            pieces.append((flat, got))
+        local = (assemble_local(box, pieces, len(hashes), block_size, head_dim, dtype)
+                 if hashes else None)
+    except Exception as exc:  # noqa: BLE001 — nondeterministic IO
+        log.warning("shard pull failed: %s", exc)
+        return None
+    return (hashes, parents, local) if local is not None else None

@@ -61,6 +61,17 @@ store, the handoff and ``export_blocks``, as JAX's engine at one process
 does (kvbm/transfer.TPTransferEngine): a follower gathers or writes its
 heads of them when the leader posts ``extract`` or ``inject``.
 
+Over several nodes (``num_nodes > 1``, parallel/multihost.py: the
+leader's process builds the ``EngineCore`` with its op channel, the other
+nodes' processes host their ranks) every rank keeps its own box of each
+block instead, as JAX's processes do (kvbm/distributed.py): its own tiers
+and, on a prefill engine, its own staged transfers and shard server; the
+leader's offload manager decides and posts each rank's half. Named core
+ops run on the leader and vote with the ranks where an outcome may differ
+between them (``multihost.vote_min``); ``run_in_core`` is refused, as on
+JAX's multi-host leader, and a lost node stops the engine
+(``OpChannelDown``) with every open stream failed.
+
 Memory beyond the card's KV pool, as the JAX engine has it: the KVBM tiers
 (host, disk, remote; kvbm/) write evicted blocks back and onboard cached
 prefixes at admission, session retention (engine/session.py) keeps a
@@ -77,14 +88,16 @@ shot or wave by wave while its prefill runs (``stage_export``,
 wave after each finalize that commits blocks), serve it from a shard
 server (disagg/sharded.py), and on the decode side fetch it on a thread
 beside the steps and inject it as prefix entries (``prefetch_remote``,
-``import_remote``). The leader holds every block whole (a tensor-parallel
-engine's through its transfer engine), so the JAX package's rank vote is
-the identity and the shard server serves one shard.
+``import_remote``). On one node the leader holds every block whole (a
+tensor-parallel engine's through its transfer engine), so the JAX
+package's rank vote is the identity and the shard server serves one
+shard; over several nodes each rank of replica 0 stages and serves its box.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -222,9 +235,12 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
-    for axis in ("tp", "dp", "ep", "pp", "sp"):
+    for axis in ("tp", "dp", "ep", "pp", "sp", "num_nodes"):
         if getattr(ec, axis) < 1:
             raise ValueError(f"{axis} must be >= 1, got {getattr(ec, axis)}")
+    if ranks % ec.num_nodes:
+        raise ValueError(f"an engine of {ranks} ranks (dp x pp x sp x ep x tp) cannot be "
+                         f"spread over {ec.num_nodes} nodes: the nodes must divide the ranks")
     if ec.pp_microbatches < 0:
         raise ValueError(f"pp_microbatches must be >= 0 (0 = auto), got {ec.pp_microbatches}")
     check_pp(cfg, ec.pp)
@@ -236,11 +252,12 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
             "expert is a bare matrix's; ROADMAP, gaps in the reference)")
     if ec.dist_backend not in ("gloo", "nccl"):
         raise ValueError(f"unknown dist_backend {ec.dist_backend!r} (supported: gloo, nccl)")
-    if ec.tp_devices and len(ec.tp_devices) != ranks:
+    if ec.tp_devices and len(ec.tp_devices) != ranks // ec.num_nodes:
         raise ValueError(f"tp_devices {ec.tp_devices} must name one card for each of "
                          f"the dp x ep x tp = {ec.dp} x {ec.ep} x {ec.tp} ranks"
                          + (f" of each of the pp = {ec.pp} stages" if ec.pp > 1 else "")
-                         + (f" of each of the sp = {ec.sp} seq ranks" if ec.sp > 1 else ""))
+                         + (f" of each of the sp = {ec.sp} seq ranks" if ec.sp > 1 else "")
+                         + (f" on this node (1 of {ec.num_nodes})" if ec.num_nodes > 1 else ""))
     if len(set(ec.tp_devices)) < len(ec.tp_devices):
         # nccl refuses two ranks on one card; each rank would size its KV
         # pool from free memory while the other is still allocating
@@ -491,6 +508,15 @@ class ModelRunner:
             self.graph_pool = torch.cuda.graph_pool_handle()
             self.capture_stream = torch.cuda.Stream(dev)
         self.ring_threshold = self._ring_threshold() if self.samples else None
+        #: the tiers of this rank's box over several nodes (tp_stats)
+        self.tiers: list = []
+        #: a follower's half of the block moves over several nodes
+        #: (kvbm/distributed.RankBlocks: its tiers, staging, pulls)
+        self.blocks = None
+        if tp is not None and not tp.leader and engine_cfg.num_nodes > 1:
+            from dynamo_tpu_torch.kvbm.distributed import RankBlocks
+
+            self.blocks = RankBlocks(self)
 
     def _ring_threshold(self) -> int | None:
         """The least prompt tokens with which a step of fresh whole prompts
@@ -988,7 +1014,8 @@ class ModelRunner:
         broadcast (:meth:`StepProgram.follow`). ``extract`` and ``inject``
         move this rank's kv heads (and its stage's layers) of whole blocks
         to or from the leader (kvbm/transfer.tp_gather, tp_scatter), in
-        step order."""
+        step order; over several nodes the ``kv_*`` posts move this rank's
+        own box (kvbm/distributed.RankBlocks)."""
         dev = self.device
         while True:
             op, *args = self.tp.recv()
@@ -1014,6 +1041,8 @@ class ModelRunner:
                 ids, mode, shape, dtype = args
                 tp_scatter(self.tp, self.cache_k, self.cache_v, ids, mode, shape,
                            getattr(torch, dtype.removeprefix("torch.")))
+            elif op.startswith("kv_"):   # this rank's box (kvbm/distributed.py)
+                self.blocks.handle(op, args)
             elif op == "stats":
                 self.tp.reply("stats", self.tp_stats())
             elif op == "reset_stats":
@@ -1058,6 +1087,8 @@ class ModelRunner:
                 "collectives": self.tp.collectives, "collective_s": self.tp.collective_s,
                 "block_moves": self.tp.block_moves, "block_bytes": self.tp.block_bytes,
                 "block_s": self.tp.block_s,
+                # over several nodes: this rank's tiers, (blocks, bytes) each
+                "tiers": {t.name: list(t.occupancy()) for t in self.tiers},
                 "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
                                          if self.device.type == "cuda" else 0),
                 "heads": leaf_shape(layers["wq"])[-1] // d,
@@ -1313,9 +1344,17 @@ class EngineCore:
 
     def __init__(self, engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None,
-                 event_sink: Callable[[KvCacheEvent], None] | None = None):
+                 event_sink: Callable[[KvCacheEvent], None] | None = None,
+                 channel=None):
+        """``channel``: over several nodes (``num_nodes > 1``), the leader's
+        op channel (parallel/multihost.LeaderOpChannel) with the other
+        nodes accepted; the engine sends them the hello, forms the group
+        with their ranks and waits for their ``ready``."""
         self.model_cfg = resolve_model_config(engine_cfg.model)
         check_supported(engine_cfg, self.model_cfg)
+        if engine_cfg.num_nodes > 1 and channel is None:
+            raise ValueError("an engine over several nodes (num_nodes > 1) is built by its "
+                             "leader with its op channel (parallel/multihost.py)")
         if engine_cfg.sp > 1 and engine_cfg.ring_prefill_threshold >= 0 and (
                 engine_cfg.prefill_chunk < engine_cfg.max_model_len
                 or engine_cfg.max_tokens_per_step < engine_cfg.max_model_len):
@@ -1394,21 +1433,28 @@ class EngineCore:
         # Tensor and data parallelism: this process is rank 0, the leader;
         # the followers start here and hold their shards of params and cache.
         self._tp_followers = None
+        self._channel = channel
         tp_group = None
         if engine_cfg.tp * engine_cfg.ep * engine_cfg.sp * engine_cfg.pp * engine_cfg.dp > 1:
             from dynamo_tpu_torch.engine.tp import start_tp
 
             tp_group, self._tp_followers, params = start_tp(
-                engine_cfg, self.model_cfg, device, params)
+                engine_cfg, self.model_cfg, device, params, channel)
             device = tp_group.device
         try:
             self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
                                       device=device, tp=tp_group)
+            if channel is not None:
+                channel.wait_ready()
         except BaseException:
             if tp_group is not None:
-                self._tp_followers.stop()
-                tp_group.close()
+                self._tp_followers.stop(tp_group)
             raise
+        #: the engine's group over several nodes (None on one node): block
+        #: moves are per rank and outcomes that may differ are voted
+        self._mh = tp_group if engine_cfg.num_nodes > 1 else None
+        #: the last close's seconds and the followers it had to kill
+        self.shutdown_stats: dict | None = None
         if engine_cfg.warmup_mode != "off":
             get_compile_ledger().set_plan(enumerate_buckets(engine_cfg))
         self.pool = PrefixPool(self.runner.spec.num_blocks, engine_cfg.block_size,
@@ -1492,34 +1538,42 @@ class EngineCore:
         if not (ec.host_kv_blocks > 0 or ec.disk_kv_path or ec.remote_kv_addr):
             return None
         from dynamo_tpu_torch.kvbm.offload import OffloadManager
-        from dynamo_tpu_torch.kvbm.pools import DiskBlockPool, HostBlockPool
 
-        # whole blocks, fingerprinted by the model alone (JAX's engine at
-        # one process): a tier's or the store's blocks serve engines of any tp
-        spec, fp = self.runner.block_spec, ec.model
-        remote = None
-        if ec.remote_kv_addr:
-            from dynamo_tpu_torch.kvbm.remote import RemoteBlockPool
+        from dynamo_tpu_torch.kvbm import distributed as kd
 
-            remote = RemoteBlockPool(spec, ec.remote_kv_addr, fingerprint=fp)
-        disk = (DiskBlockPool(spec, ec.disk_kv_path, ec.disk_kv_bytes,
-                              fingerprint=fp, overflow=remote)
-                if ec.disk_kv_path else None)
-        tiers: list = []
-        if ec.host_kv_blocks > 0:
-            # (``disk or remote`` would skip an empty disk tier: a pool with
-            # no blocks has len 0)
-            spill = disk if disk is not None else remote
-            tiers.append(HostBlockPool(spec, ec.host_kv_blocks, overflow=spill))
-        tiers += [t for t in (disk, remote) if t is not None]
+        if self._mh is None:
+            # whole blocks, fingerprinted by the model alone (JAX's engine
+            # at one process): a tier's or the store's blocks serve engines
+            # of any tp
+            tiers, remote = kd.build_tiers(self.runner.block_spec, ec, ec.model,
+                                           ec.disk_kv_path)
+            return OffloadManager(
+                self.runner, self.pool, tiers,
+                # Fleet-wide prefix cache: committed blocks publish to the
+                # shared remote store as they form, not only on eviction.
+                publish_tier=remote if ec.global_prefix_cache else None,
+                # Stream checkpoints park in the same shared store.
+                ckpt_tier=remote if ec.stream_ckpt_blocks > 0 else None,
+                transfer=self._new_transfer())
+        # Over several nodes (JAX's engine at process_count > 1): each rank's
+        # tiers hold its box (the leader's here, the others' in their
+        # RankBlocks), fingerprinted by the shard, the disk tier under
+        # rank{k}; the leader decides and posts each rank's half.
+        _, shard_fp = kd.local_block_spec(self.runner.block_spec, self.my_box())
+        tiers, remote = kd.build_tiers(self.runner.spec, ec, f"{ec.model}|{shard_fp}",
+                                       kd.rank_disk_path(ec.disk_kv_path, 0))
+        self.runner.tiers = tiers
         return OffloadManager(
             self.runner, self.pool, tiers,
-            # Fleet-wide prefix cache: committed blocks publish to the
-            # shared remote store as they form, not only on eviction.
             publish_tier=remote if ec.global_prefix_cache else None,
-            # Stream checkpoints park in the same shared store.
-            ckpt_tier=remote if ec.stream_ckpt_blocks > 0 else None,
-            transfer=self._new_transfer())
+            # a rank's box in the shared store's checkpoint record would
+            # corrupt cross-worker reads (JAX: single-host only)
+            ckpt_tier=None,
+            transfer=self._new_transfer(),
+            # a tier that can answer differently on different ranks (the
+            # shared store; a disk tier a restart purged) is voted
+            vote_plans=bool(ec.remote_kv_addr or ec.disk_kv_path),
+            ranks=kd.TierMirror(self._mh, tiers))
 
     def _mem_live_ids(self) -> dict:
         """Per-owner-class live ids for the mem-ledger leak audit. A pin
@@ -2278,11 +2332,14 @@ class EngineCore:
         record to the shared remote store, then release the pins: the next
         turn, on this engine or another on the same store, pulls the chain
         back warm instead of recomputing. Without a remote tier the chain is
-        staged down the local ladder (no record). Engine-core thread only."""
+        staged down the local ladder (no record); so it is over several
+        nodes, where a rank's box in the SHARED store would corrupt
+        cross-worker reads (JAX's rule). Engine-core thread only (the
+        ``session_evacuate`` core op)."""
         out = {"sessions": 0, "blocks": 0, "bytes": 0}
         if self.sessions is None:
             return out
-        remote = self._remote_tier()
+        remote = self._remote_tier() if self._mh is None else None
         while (popped := self.sessions.pop_oldest()) is not None:
             sid, entry = popped
             try:
@@ -2329,13 +2386,17 @@ class EngineCore:
     def _new_transfer(self):
         """A block mover over this engine's cache: whole blocks from every
         rank's heads (and every stage's layers) under tensor (and pipeline)
-        parallelism, as JAX's engine at one process moves them (its ``kvbm/distributed.py`` shards are the
-        multi-host design)."""
+        parallelism on one node, as JAX's engine at one process moves them;
+        each rank's own box over several nodes (kvbm/distributed.py)."""
         from dynamo_tpu_torch.kvbm.transfer import BlockTransferEngine, TPTransferEngine
 
         tp = self.runner.tp
         if tp is None:
             return BlockTransferEngine()
+        if self._mh is not None:
+            from dynamo_tpu_torch.kvbm.distributed import ShardedBlockTransferEngine
+
+            return ShardedBlockTransferEngine(tp)
         spec = self.runner.block_spec
         return TPTransferEngine(tp, spec.num_kv_heads, spec.num_layers)
 
@@ -2351,7 +2412,8 @@ class EngineCore:
     def export_blocks(self, seq_hashes: list[int]) -> list[tuple[int, int | None, np.ndarray]]:
         """Gather the device-resident prefix of a hash chain off the device
         as ``(seq_hash, parent_hash, host block)`` — the prefill side of
-        disaggregated serving."""
+        disaggregated serving. Over several nodes: the leader's box of
+        each block, as a JAX process's export."""
         ids, kept = [], []
         parent: int | None = None
         for h in seq_hashes:
@@ -2367,15 +2429,23 @@ class EngineCore:
         return [(h, par, data) for (h, par), data in zip(kept, blocks)]
 
     def import_blocks(self, plan: list[tuple[int, int | None, np.ndarray]],
-                      span_attrs: dict | None = None) -> int:
+                      span_attrs: dict | None = None, pull: tuple | None = None) -> int:
         """Write externally received blocks into the cache as matchable
         entries — the decode side of disaggregated serving. Blocks of any
         format (either package's, any kv dtype) convert at the boundary;
-        hashes already on the device are skipped (and MRU-protected)."""
+        hashes already on the device are skipped (and MRU-protected). Over
+        several nodes ``plan`` holds the leader's box of each block and
+        ``pull`` names the pull (xfer id, start, stop) whose blocks each
+        other rank writes (:meth:`import_remote`)."""
         from dynamo_tpu_torch.kvbm.offload import inject_and_commit, plan_onboard
 
         by_hash = {h: data for h, _, data in plan}
         filtered = plan_onboard(self.pool, [h for h, _, _ in plan], by_hash.get)
+        if self._mh is not None:
+            if pull is None:
+                raise ValueError("import_blocks over several nodes takes blocks a pull "
+                                 "brought to every rank (import_remote)")
+            self._mh.post("kv_load_pull", list(pull), [h for h, _, _ in filtered])
         flush = self.kvbm.flush_pending if self.kvbm is not None else None
         return inject_and_commit(self.runner, self.pool, self.transfer, filtered,
                                  flush=flush, span_attrs=span_attrs)
@@ -2393,9 +2463,12 @@ class EngineCore:
     # (one shot, or wave by wave while the prefill runs); the shard server
     # serves them; the decode side fetches them off the engine-core thread
     # and injects them as matchable prefix entries. The JAX package runs
-    # these as replayed ops on every rank of a multi-host engine; the port's
-    # leader holds every block whole (a tensor-parallel engine's through
-    # its transfer engine), so the rank vote is the identity.
+    # these as replayed ops on every rank of a multi-host engine. On one
+    # node the port's leader holds every block whole (a tensor-parallel
+    # engine's through its transfer engine), so the rank vote is the
+    # identity; over several nodes the leader posts each op's rank-local
+    # half (``kv_*``: each rank of replica 0 stages its box, every rank
+    # pulls and injects its own) and votes where an outcome may differ.
 
     @property
     def staging(self):
@@ -2407,9 +2480,20 @@ class EngineCore:
 
     def my_box(self) -> tuple[int, int, int, int]:
         """This engine's (layer, head) extents of the global cache: all of
-        it, whole blocks on the leader."""
+        it, whole blocks on the leader; over several nodes the leader
+        rank's own box (kvbm/distributed.local_box)."""
         spec = self.runner.block_spec
+        if self._mh is not None:
+            from dynamo_tpu_torch.kvbm.distributed import local_box
+
+            return local_box(self._mh, spec.num_layers, spec.num_kv_heads)
         return (0, spec.num_layers, 0, spec.num_kv_heads)
+
+    def follower_shards(self) -> list[dict]:
+        """The other nodes' shard servers of a prefill engine, ``[{"addr",
+        "box"}, ...]`` (their ``ready`` acks): the handoff lists them after
+        this engine's own."""
+        return self._channel.shards() if self._channel is not None else []
 
     def start_shard_server(self, advertise_host: str, on_release=None) -> str:
         """Start (once) the shard server serving staged KV; returns the
@@ -2428,18 +2512,28 @@ class EngineCore:
         if server is not None:
             server.close()
 
-    @staticmethod
-    def _vote_min(n: int) -> int:
-        """The minimum of ``n`` over the engine's ranks: one rank here."""
-        return n
+    def _vote(self, n: int, kind: str, arg) -> int:
+        """The minimum of ``n`` over the engine's ranks
+        (``multihost.vote_min``): the identity on one node; over several,
+        each other rank votes its own count of ``kind`` (``out``: its last
+        extract's blocks, ``arg`` of them asked; ``staged``: the staged
+        prefix of transfer ``arg``, which it then closes; ``pulled``: 1 if
+        pull ``arg`` fetched its box)."""
+        from dynamo_tpu_torch.parallel.multihost import vote_min
+
+        if self._mh is not None:
+            self._mh.post("kv_vote", kind, arg)
+        return vote_min(n, self._mh)
 
     def _stage_extract(self, ids: list[int], span_attrs: dict | None = None) -> np.ndarray:
         """Blocks ``ids`` off the device as one [n, 2, L, BS, KH, D] array:
         quantized caches stage dequantized (f32) blocks, as the JAX package
-        does; the importer requantizes at its inject boundary."""
+        does; the importer requantizes at its inject boundary. Over several
+        nodes every serving rank extracts its box too."""
+        kw = {"serve": True} if self._mh is not None else {}
         blocks = self.transfer.extract(self.runner.cache_k, self.runner.cache_v, ids,
                                        dequant=self.runner.spec.quantized,
-                                       span_attrs=span_attrs)
+                                       span_attrs=span_attrs, **kw)
         return np.stack(blocks)
 
     def stage_export(self, xfer_id: str, seq_hashes: list[int]) -> int:
@@ -2455,7 +2549,7 @@ class EngineCore:
         except Exception as exc:  # noqa: BLE001 — the vote handles it
             log.warning("stage_export extract failed: %s", exc)
             data = None
-        n = self._vote_min(len(block_ids) if data is not None else 0)
+        n = self._vote(len(block_ids) if data is not None else 0, "out", len(block_ids))
         if n < len(block_ids):
             self.pool.release(block_ids[n:])
             block_ids = block_ids[:n]
@@ -2464,6 +2558,8 @@ class EngineCore:
         covered = seq_hashes[:n]
         parents: list[int | None] = [None, *covered[:-1]]
         self.staging.fill(xfer_id, covered, parents, data[:n], self.my_box())
+        if self._mh is not None:
+            self._mh.post("kv_stage_fill", xfer_id, covered, parents, n)
         self._staged_pins[xfer_id] = block_ids
         if self.mem_led.enabled:
             self.mem_led.pin("staging", xfer_id, len(block_ids))
@@ -2479,6 +2575,8 @@ class EngineCore:
         if st is not None:
             self._stream_exports.pop(st.request_id, None)
         self.staging.drop(xfer_id)
+        if self._mh is not None:
+            self._mh.post("kv_unstage", xfer_id)
         ids = self._staged_pins.pop(xfer_id, None)
         if ids is not None and self.mem_led.enabled:
             self.mem_led.unpin("staging", xfer_id)
@@ -2503,6 +2601,8 @@ class EngineCore:
         parents: list[int | None] = [None, *st.hashes[:-1]]
         self.staging.begin(xfer_id, st.hashes, parents, self.my_box(),
                            self.runner.spec.dtype)
+        if self._mh is not None:
+            self._mh.post("kv_stage_begin", xfer_id, st.hashes, parents)
         return len(st.hashes)
 
     def stream_wave_targets(self) -> list[tuple[str, int, int]]:
@@ -2565,6 +2665,8 @@ class EngineCore:
         if st.staged != start or not self.staging.append(xfer_id, start, data):
             st.failed = True
             return st.staged
+        if self._mh is not None:
+            self._mh.post("kv_stage_append", xfer_id, start, stop)
         st.staged = stop
         from dynamo_tpu_torch.disagg.metrics import get_kv_metrics
 
@@ -2579,7 +2681,7 @@ class EngineCore:
         if st is None:
             return 0
         self._stream_exports.pop(st.request_id, None)
-        covered = self._vote_min(st.staged)
+        covered = self._vote(st.staged, "staged", xfer_id)
         pins = self._staged_pins.get(xfer_id, [])
         if len(pins) > covered:
             if self.mem_led.enabled:
@@ -2591,55 +2693,13 @@ class EngineCore:
 
     def _fetch_local(self, params: dict, start: int | None = None,
                      stop: int | None = None, clients: dict | None = None):
-        """The network half of a pull: fetch + assemble this engine's box
-        (the window [start, stop) of the chain; the whole transfer when
-        stop is None). Touches no engine state — safe off the core thread.
-        ``clients`` is a per-transfer addr→ShardClient cache so wave pulls
-        reuse connections. Returns (hashes, parents, local_blocks) or None
-        on any failure."""
-        from dynamo_tpu_torch.disagg.sharded import (
-            ShardClient,
-            assemble_local,
-            box_intersection,
-        )
+        """The network half of a pull of this engine's box
+        (disagg/sharded.fetch_box). Safe off the core thread."""
+        from dynamo_tpu_torch.disagg.sharded import fetch_box
 
-        spec = self.runner.block_spec
-        box = self.my_box()
-        pieces: list[tuple[np.ndarray, tuple[int, int, int, int]]] = []
-        hashes: list[int] = []
-        parents: list[int | None] = []
-        try:
-            for sh in params.get("shards", []):
-                inter = box_intersection(box, tuple(sh["box"]))
-                if inter is None:
-                    continue
-                if clients is not None:
-                    client = clients.get(sh["addr"])
-                    if client is None:
-                        client = clients[sh["addr"]] = ShardClient(sh["addr"])
-                    h, p, flat, got = client.fetch(params["xfer_id"], inter,
-                                                   start, stop)
-                else:
-                    client = ShardClient(sh["addr"], retries=2)
-                    try:
-                        h, p, flat, got = client.fetch(params["xfer_id"],
-                                                       inter, start, stop)
-                    finally:
-                        client.close()
-                if hashes and len(h) != len(hashes):
-                    # Shards answered different windows (a partial serve
-                    # racing finalize-trim) — the slices no longer tile.
-                    raise RuntimeError(
-                        f"shard windows diverge: {len(h)} vs {len(hashes)}")
-                hashes, parents = h, p  # identical across shards (one chain)
-                pieces.append((flat, got))
-            local = (assemble_local(box, pieces, len(hashes), spec.block_size,
-                                    spec.head_dim, spec.dtype)
-                     if hashes else None)
-        except Exception as exc:  # noqa: BLE001 — nondeterministic IO
-            log.warning("shard pull failed: %s", exc)
-            return None
-        return (hashes, parents, local) if local is not None else None
+        spec = self.runner.spec if self._mh is not None else self.runner.block_spec
+        return fetch_box(params, self.my_box(), spec.block_size, spec.head_dim, spec.dtype,
+                         start, stop, clients)
 
     def _pull_state(self, xfer_id: str) -> dict:
         return self._pulls.setdefault(
@@ -2656,6 +2716,8 @@ class EngineCore:
         prev = state["last"]
         slot: dict = {}
         stats = self.pull_stats
+        if self._mh is not None:   # every rank fetches its own box
+            self._mh.post("kv_pull", params, start, stop)
 
         def run() -> None:
             if prev is not None:
@@ -2689,6 +2751,9 @@ class EngineCore:
         chain. Returns blocks injected, or -1 when the pull failed (no
         state was mutated). ``final`` closes the transfer's pull state
         (shard connections) afterwards."""
+        if self._mh is not None and (start, stop) not in self._pull_state(
+                params["xfer_id"])["waves"]:
+            self.prefetch_remote(params, start, stop)   # every rank fetches its box
         state = self._pull_state(params["xfer_id"])
         slot = state["waves"].pop((start, stop), None)
         if slot is not None:
@@ -2696,7 +2761,8 @@ class EngineCore:
             fetched = slot["result"]
         else:
             fetched = self._fetch_local(params, start, stop, state["clients"])
-        if self._vote_min(1 if fetched is not None else 0) == 0:
+        key = (params["xfer_id"], start, stop)
+        if self._vote(1 if fetched is not None else 0, "pulled", key) == 0:
             self.close_pull(params["xfer_id"])
             return -1
         hashes, parents, local = fetched
@@ -2705,7 +2771,8 @@ class EngineCore:
         n = self.import_blocks(
             plan, span_attrs={"phase": "import", "xfer_id": params["xfer_id"],
                               "start": start if start is not None else 0,
-                              "stop": stop if stop is not None else len(hashes)})
+                              "stop": stop if stop is not None else len(hashes)},
+            pull=key if self._mh is not None else None)
         from dynamo_tpu_torch.disagg.metrics import get_kv_metrics
 
         get_kv_metrics().record_wave("pull", int(local.nbytes))
@@ -2722,6 +2789,8 @@ class EngineCore:
         state = self._pulls.pop(xfer_id, None)
         if state is None:
             return
+        if self._mh is not None:
+            self._mh.post("kv_pull_close", xfer_id)
         for client in state["clients"].values():
             client.close()
         last = state["last"]
@@ -2754,12 +2823,18 @@ class EngineCore:
         self.runner.reset_tp_stats()
 
     def close(self) -> None:
-        """Stop a tensor-parallel engine's followers and leave its group;
-        nothing to do at tp=1. Idempotent."""
+        """Stop a tensor-parallel engine's followers and leave its group
+        (right after posting ``stop``: a rank's leave over nccl waits for
+        its peers'), then tell the other nodes and close the op channel;
+        nothing to do at tp=1. ``shutdown_stats`` keeps the seconds it took
+        and the followers it had to kill. Idempotent."""
         followers, self._tp_followers = self._tp_followers, None
         if followers is not None:
-            followers.stop()
-            self.runner.tp.close()
+            followers.stop(self.runner.tp)
+            self.shutdown_stats = dict(followers.shutdown)
+        channel, self._channel = self._channel, None
+        if channel is not None:
+            channel.close()
 
     def fail_all(self, error: str) -> list[str]:
         """Abort every in-flight request (engine-fatal path). Returns the
@@ -2794,8 +2869,9 @@ class _StreamExport:
 
 
 #: The named core ops (the JAX package's registry of ops a multi-host
-#: engine replays; here they run on the one engine-core thread): the disagg
-#: handoff, session evacuation and the QoS class abort.
+#: engine replays; here they run on the one engine-core thread, the only
+#: core access a multi-host leader allows): the disagg handoff, session
+#: evacuation, the QoS class abort, and the ranks' counters.
 CORE_OPS: dict[str, Callable[[EngineCore, dict], Any]] = {
     "kv_stage": lambda core, a: core.stage_export(a["xfer_id"], a["hashes"]),
     "kv_release": lambda core, a: core.release_export(a["xfer_id"]),
@@ -2815,15 +2891,38 @@ CORE_OPS: dict[str, Callable[[EngineCore, dict], Any]] = {
     "session_evacuate": lambda core, a: core.evacuate_sessions(),
     "qos_abort_class": lambda core, a: core.abort_class(
         a.get("priority") if a else None),
+    # The port's: every rank's counters, read or zeroed between steps (their
+    # posts must not interleave with a step's).
+    "tp_stats": lambda core, a: core.tp_stats(),
+    "reset_tp_stats": lambda core, a: core.reset_tp_stats(),
 }
+
+
+class OpChannelDown(RuntimeError):
+    """The multi-host op channel (or a rank on another node) failed — the
+    engine cannot continue (a node's ranks would be missing from every
+    collective)."""
 
 
 class AsyncTorchEngine:
     """Async facade: background step-loop thread + asyncio output streams
-    (the JAX package's AsyncJaxEngine for one process)."""
+    (the JAX package's AsyncJaxEngine).
 
-    def __init__(self, core: EngineCore):
+    ``op_sink``: on the leader of an engine over several nodes, the op
+    channel's broadcast (parallel/multihost.LeaderOpChannel): every
+    state-changing op (``add``, ``abort``, ``reap``, ``step``, ``exec`` of a
+    named core op, ``fail_all``) is broadcast before it is applied, as
+    JAX's leader does. The port's other nodes replay none of it (their
+    ranks follow the leader's posts), but a lost node makes a broadcast or
+    a step's collective fail: the engine then stops with
+    ``OpChannelDown`` and fails every open stream, and later requests at
+    once, instead of hanging. ``run_in_core`` is refused there (a closure
+    cannot be broadcast): only the named ``CORE_OPS`` run."""
+
+    def __init__(self, core: EngineCore, op_sink: Callable[[dict], None] | None = None):
         self.core = core
+        self._op_sink = op_sink
+        self._channel_down: str | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._inbox: thread_queue.Queue = thread_queue.Queue()
         self._streams: dict[str, asyncio.Queue] = {}
@@ -2853,6 +2952,22 @@ class AsyncTorchEngine:
         # live-id source so anything it leaked surfaces in the next audit.
         self.core.mem_led.unregister_live_source(self.core._mem_source_key)
 
+    def _emit_op(self, op: dict) -> None:
+        """Broadcast one op to the other nodes; a failed broadcast is fatal
+        for the whole engine, so stop the loop and raise OpChannelDown."""
+        if self._op_sink is None:
+            return
+        try:
+            self._op_sink(op)
+        except Exception as exc:
+            log.exception("op-channel broadcast failed; stopping engine loop")
+            self._down(str(exc))
+            raise OpChannelDown(str(exc)) from exc
+
+    def _down(self, error: str) -> None:
+        self._channel_down = f"multi-host op channel down: {error}"
+        self._stop = True
+
     def _stage_stream_waves(self) -> None:
         """After each finalize: stage the newly committed prefill chunks of
         any open streamed export as kv_stage_wave ops, and tell the source's
@@ -2861,8 +2976,9 @@ class AsyncTorchEngine:
         it (``TransferStats.waits``): committed blocks are no longer
         written, but the gather is queued behind the step in flight."""
         for xid, start, stop in self.core.stream_wave_targets():
-            staged = self.core.run_op(
-                "kv_stage_wave", {"xfer_id": xid, "start": start, "stop": stop})
+            args = {"xfer_id": xid, "start": start, "stop": stop}
+            self._emit_op({"op": "exec", "name": "kv_stage_wave", "args": args})
+            staged = self.core.run_op("kv_stage_wave", args)
             listener = self.core._stream_listener
             if listener is not None and staged:
                 try:
@@ -2884,32 +3000,12 @@ class AsyncTorchEngine:
                 except thread_queue.Empty:
                     break
                 moved = True
-                if kind == "add":
-                    err = self.core.add_request(payload, now=time.time())
-                    if err is not None:
-                        self._post(payload.request_id, err)
-                elif kind == "abort":
-                    self.core.abort(payload)
-                    self._post(payload, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
-                elif kind in ("exec", "exec_op"):
-                    # Core access (a named CORE_OPS op, or a closure: the
-                    # disagg handoff, embeddings) marshaled onto this thread,
-                    # the only one that touches device state. The future
-                    # resolves on the loop it was made on, which may not be
-                    # self._loop.
-                    if kind == "exec_op":
-                        name, args, fut, fut_loop = payload
-                        fn = functools.partial(EngineCore.run_op, name=name, args=args)
-                    else:
-                        fn, fut, fut_loop = payload
-                    try:
-                        result, exc = fn(self.core), None
-                    except Exception as e:  # noqa: BLE001 - handed to the caller
-                        result, exc = None, e
-                    try:
-                        fut_loop.call_soon_threadsafe(self._resolve, fut, result, exc)
-                    except RuntimeError:
-                        pass  # the caller's loop closed before the result came
+                try:
+                    self._apply(kind, payload)
+                except OpChannelDown:
+                    break   # _stop is set; streams fail below
+            if self._channel_down is not None:
+                break   # a node is lost: every stream fails below
             if not self.core.has_work() and pending is None:
                 if not moved:
                     self._wake.wait(timeout=0.05)
@@ -2923,8 +3019,10 @@ class AsyncTorchEngine:
                 chaos.inject("engine.step")
                 t_step = time.time()
                 if self.core.has_expired_waiting(t_step):
+                    self._emit_op({"op": "reap", "now": t_step})
                     for rid, out in self.core.reap_expired(t_step).items():
                         self._post(rid, out)
+                self._emit_op({"op": "step", "now": t_step})
                 self.core.set_step_time(t_step)
                 nxt = self.core.step_begin() if self.core.has_work() else None
                 if pending is not None:
@@ -2938,9 +3036,77 @@ class AsyncTorchEngine:
                 log.exception("engine step failed; failing all in-flight requests")
                 pending = None
                 self.core.fail_all(str(exc))
-                for rid in list(self._streams):
-                    self._post(rid, LLMEngineOutput(finish_reason=FinishReason.ERROR,
-                                                    error=str(exc)))
+                if self._op_sink is not None:
+                    from dynamo_tpu_torch.parallel.collectives import TPFailure
+
+                    if isinstance(exc, (OpChannelDown, TPFailure)):
+                        # a rank is gone (a lost node, a failed collective):
+                        # the group cannot run another step
+                        self._down(str(exc))
+                        break
+                    with contextlib.suppress(OpChannelDown):
+                        self._emit_op({"op": "fail_all", "error": str(exc)})
+                self._fail_streams(str(exc))
+        if self._channel_down is not None:
+            # fail everything in flight, an idle engine's streams too
+            self.core.fail_all(self._channel_down)
+            self._fail_streams(self._channel_down)
+
+    def _fail_streams(self, error: str) -> None:
+        for rid in list(self._streams):
+            self._post(rid, LLMEngineOutput(finish_reason=FinishReason.ERROR, error=error))
+
+    def _apply(self, kind: str, payload) -> None:
+        """One inbox item on the engine-core thread: broadcast (over several
+        nodes), then apply."""
+        if kind == "add":
+            t_add = time.time()
+            try:
+                self._emit_op({"op": "add", "req": payload.to_dict(), "now": t_add})
+            except OpChannelDown as exc:
+                self._post(payload.request_id, LLMEngineOutput(
+                    finish_reason=FinishReason.ERROR, error=str(exc)))
+                raise
+            err = self.core.add_request(payload, now=t_add)
+            if err is not None:
+                self._post(payload.request_id, err)
+        elif kind == "abort":
+            self._emit_op({"op": "abort", "rid": payload})
+            self.core.abort(payload)
+            self._post(payload, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
+        elif kind in ("exec", "exec_op"):
+            # Core access (a named CORE_OPS op, or a closure: embeddings)
+            # marshaled onto this thread, the only one that touches device
+            # state. The future resolves on the loop it was made on, which
+            # may not be self._loop.
+            if kind == "exec_op":
+                name, args, fut, fut_loop = payload
+                fn = functools.partial(EngineCore.run_op, name=name, args=args)
+            else:
+                fn, fut, fut_loop = payload
+            result = exc = None
+            if kind == "exec" and self._op_sink is not None:
+                # A closure cannot ride the op stream: refuse it, as JAX's
+                # multi-host leader does.
+                exc = RuntimeError("run_in_core is not supported on a multi-host leader; "
+                                   "use run_op with a registered named op")
+            else:
+                try:
+                    if kind == "exec_op":
+                        self._emit_op({"op": "exec", "name": name, "args": args})
+                    result = fn(self.core)
+                except OpChannelDown as e:
+                    self._resolve_on(fut_loop, fut, None, e)
+                    raise
+                except Exception as e:  # noqa: BLE001 - handed to the caller
+                    exc = e
+            self._resolve_on(fut_loop, fut, result, exc)
+
+    def _resolve_on(self, fut_loop, fut, result, exc) -> None:
+        try:
+            fut_loop.call_soon_threadsafe(self._resolve, fut, result, exc)
+        except RuntimeError:
+            pass  # the caller's loop closed before the result came
 
     @staticmethod
     def _resolve(fut: asyncio.Future, result, exc: Exception | None) -> None:
@@ -2953,6 +3119,8 @@ class AsyncTorchEngine:
 
     async def run_in_core(self, fn: Callable[[EngineCore], Any]) -> Any:
         """Run ``fn(core)`` on the engine-core thread and await its result."""
+        if self._channel_down is not None:
+            raise OpChannelDown(self._channel_down)
         self.start()
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
@@ -2962,7 +3130,10 @@ class AsyncTorchEngine:
 
     async def run_op(self, name: str, args: dict) -> Any:
         """Run a registered named core op (``CORE_OPS``) on the engine-core
-        thread and await its result."""
+        thread and await its result. On a multi-host leader the op is
+        broadcast first — the multi-host-safe form of ``run_in_core``."""
+        if self._channel_down is not None:
+            raise OpChannelDown(self._channel_down)
         self.start()
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
@@ -2977,6 +3148,9 @@ class AsyncTorchEngine:
         loop.call_soon_threadsafe(q.put_nowait, out)
 
     async def generate(self, req: PreprocessedRequest) -> AsyncIterator[LLMEngineOutput]:
+        if self._channel_down is not None:
+            yield LLMEngineOutput(finish_reason=FinishReason.ERROR, error=self._channel_down)
+            return
         self.start()
         q: asyncio.Queue = asyncio.Queue()
         self._streams[req.request_id] = q
@@ -3002,16 +3176,16 @@ class AsyncTorchEngine:
 
     async def evacuate_sessions(self) -> dict:
         """Push retained session KV + resumable records to the remote
-        store (``EngineCore.evacuate_sessions``, on the engine-core thread)."""
-        return await self.run_in_core(lambda core: core.evacuate_sessions())
+        store (the ``session_evacuate`` core op: multi-host-safe)."""
+        return await self.run_op("session_evacuate", {})
 
     async def abort_class(self, priority: str | None = None) -> int:
         """Early-stop every live stream of one QoS class (None = all),
         emitting their terminal CANCELLED outputs. Returns the count."""
-        rids = await self.run_in_core(lambda core: core.abort_class(priority))
-        for rid in rids:
+        rids = await self.run_op("qos_abort_class", {"priority": priority})
+        for rid in rids or []:
             self._post(rid, LLMEngineOutput(finish_reason=FinishReason.CANCELLED))
-        return len(rids)
+        return len(rids or [])
 
     @property
     def inflight(self) -> int:
@@ -3046,12 +3220,16 @@ class AsyncTorchEngine:
 
 def build_engine(engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None,
-                 event_sink: Callable[[KvCacheEvent], None] | None = None) -> AsyncTorchEngine:
+                 event_sink: Callable[[KvCacheEvent], None] | None = None,
+                 channel=None) -> AsyncTorchEngine:
     """The port's engine for ``engine_cfg`` on ``device`` (default: the
     CUDA card; raises when there is none), warmed up as
     ``engine_cfg.warmup_mode`` asks before its step loop starts (the
     summary is ``engine.core.warmup_summary``). ``event_sink`` receives the
-    prefix pool's KV events (the router's publisher)."""
-    core = EngineCore(engine_cfg, params=params, device=device, event_sink=event_sink)
+    prefix pool's KV events (the router's publisher). ``channel``: the op
+    channel of the leader of an engine over several nodes, whose broadcast
+    becomes the engine's op sink."""
+    core = EngineCore(engine_cfg, params=params, device=device, event_sink=event_sink,
+                      channel=channel)
     core.warmup()
-    return AsyncTorchEngine(core)
+    return AsyncTorchEngine(core, op_sink=channel.broadcast if channel is not None else None)

@@ -28,6 +28,18 @@ traceback before it exits, and the leader's next collective fails at once
 (gloo sees the closed connection) or after the group's timeout, with the
 follower's traceback and exit code in its message. A follower whose
 leader is gone sees the pipe close and exits.
+
+Over several nodes (``num_nodes > 1``, parallel/multihost.py) the leader
+spawns only its own node's ranks ``[0, R/N)``; node k's process hosts
+ranks ``[k R/N, (k+1) R/N)``. A remote rank's channel is a framed socket
+with the pipe's contract (``multihost.FrameConn``), opened on the leader's
+op channel, and the group forms over ``tcp://``. Its traceback, when it
+sends one, reaches the leader's failure message as a local follower's
+does; its exit code cannot.
+
+At shutdown the leader posts ``stop``, leaves the group at once (a rank's
+``destroy_process_group`` over nccl waits for its peers'), then joins its
+own node's followers; a remote node's ranks exit on the ``stop`` they read.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import contextlib
 import os
 import shutil
 import tempfile
+import time
 import traceback
 from typing import Any
 
@@ -66,11 +79,12 @@ def engine_ranks(ec: EngineConfig) -> int:
 
 
 def tp_devices(ec: EngineConfig, device: str | torch.device | None) -> list[torch.device]:
-    """Each world rank's device: every rank on the CPU for ``device="cpu"``
-    (gloo only), else rank r on ``cuda:tp_devices[r]`` (default
-    ``cuda:r``)."""
+    """Each of this node's ranks' device: every rank on the CPU for
+    ``device="cpu"`` (gloo only), else its i-th rank on
+    ``cuda:tp_devices[i]`` (default ``cuda:i``). A node holds R /
+    ``num_nodes`` of the engine's R ranks."""
     dev = resolve_device(device)
-    n_ranks = engine_ranks(ec)
+    n_ranks = engine_ranks(ec) // ec.num_nodes
     if dev.type == "cpu":
         if ec.dist_backend != "gloo":
             raise ValueError(f"tensor-parallel ranks on the CPU need dist_backend='gloo', "
@@ -94,19 +108,21 @@ class TPFollowers:
     state for failure messages, and their shutdown."""
 
     def __init__(self, ec: EngineConfig, cfg: ModelConfig, devices: list[torch.device],
-                 params: dict | None):
+                 params: dict | None, init_method: str | None = None):
         self._dir = tempfile.mkdtemp(prefix="dyn-tp-")
-        self.init_method = "file://" + os.path.join(self._dir, "rendezvous")
+        self.init_method = init_method or "file://" + os.path.join(self._dir, "rendezvous")
         ctx = torch.multiprocessing.get_context("spawn")
         self.procs: list = []
         self.conns: list = []
+        #: the remote ranks' channels (framed sockets), after the local pipes
+        self.remote: dict[int, Any] = {}
+        #: the last stop's seconds and the followers it had to kill
+        self.shutdown = {"seconds": 0.0, "killed": 0, "exit_codes": []}
         try:
-            for rank in range(1, engine_ranks(ec)):
+            for rank in range(1, len(devices)):
                 shard = None
                 if params is not None:   # the rank's shard, through host memory
-                    _, s, _, e, m = rank_coords(rank, ec.tp, ec.ep, ec.pp, ec.sp)
-                    shard = _to(shard_params(params, cfg, m, ec.tp, e, ec.ep, s, ec.pp),
-                                torch.device("cpu"))
+                    shard = _to(_shard(params, cfg, ec, rank), torch.device("cpu"))
                 ours, theirs = ctx.Pipe()
                 self.conns.append(ours)
                 proc = ctx.Process(target=follower_main, name=f"tp-rank-{rank}", daemon=True,
@@ -119,27 +135,48 @@ class TPFollowers:
             self.stop()
             raise
 
+    def add_remote(self, conns: dict) -> None:
+        """The remote ranks' channels, by world rank (after the local ones)."""
+        self.remote = dict(sorted(conns.items()))
+        self.conns = self.conns[:len(self.procs)] + list(self.remote.values())
+
+    @staticmethod
+    def _traceback(conn) -> tuple[str | None, bool]:
+        """A follower's traceback if it sent one, and whether its channel
+        is closed."""
+        tb, closed = None, False
+        try:
+            while conn.poll():
+                msg = conn.recv()
+                if msg[0] == "error":
+                    tb = msg[2]
+        except (EOFError, OSError):
+            closed = True
+        return tb, closed
+
     def report(self) -> str:
         """What the leader knows of each follower: its traceback if it sent
-        one, its exit code if it exited (each is given a few seconds to)."""
+        one, its exit code if it exited (each local one is given a few
+        seconds to), and of a remote one whether its channel is closed."""
         parts = []
         for rank, (proc, conn) in enumerate(zip(self.procs, self.conns), 1):
             proc.join(timeout=5.0)
-            tb = None
-            with contextlib.suppress(EOFError, OSError):
-                while conn.poll():
-                    msg = conn.recv()
-                    if msg[0] == "error":
-                        tb = msg[2]
+            tb, _ = self._traceback(conn)
             state = "alive" if proc.exitcode is None else f"exit code {proc.exitcode}"
             parts.append(f"follower rank {rank}: {state}"
+                         + (f", traceback:\n{tb}" if tb else ""))
+        for rank, conn in self.remote.items():
+            tb, closed = self._traceback(conn)
+            state = "channel closed" if closed else "channel open"
+            parts.append(f"remote follower rank {rank}: {state}"
                          + (f", traceback:\n{tb}" if tb else ""))
         return "; ".join(parts)
 
     def replies(self, kind: str) -> list:
         """One ``kind`` reply from each follower, in rank order."""
         out = []
-        for rank, conn in enumerate(self.conns, 1):
+        ranks = [*range(1, len(self.procs) + 1), *self.remote]
+        for rank, conn in zip(ranks, self.conns):
             try:
                 msg = conn.recv()
             except (EOFError, OSError) as exc:
@@ -151,36 +188,72 @@ class TPFollowers:
             out.append(msg[1])
         return out
 
-    def stop(self) -> None:
-        """Tell every follower to stop, join it (killing one that outlives
-        ``JOIN_TIMEOUT_S``) and close the pipes."""
+    def stop(self, group: TPGroup | None = None) -> None:
+        """Tell every follower to stop, leave ``group`` (the leader's) at
+        once, then join each local follower (killing one that outlives
+        ``JOIN_TIMEOUT_S``) and close the channels. ``shutdown`` records
+        the seconds it took and the followers killed."""
+        t0 = time.perf_counter()
+        killed = 0
         for conn in self.conns:
             with contextlib.suppress(OSError):
                 conn.send(("stop",))
+        if group is not None:
+            group.close()
         for rank, proc in enumerate(self.procs, 1):
             proc.join(timeout=JOIN_TIMEOUT_S)
             if proc.is_alive():
                 log.warning("tensor-parallel follower rank %d did not stop: killing it", rank)
                 proc.kill()
+                killed += 1
                 proc.join(timeout=JOIN_TIMEOUT_S)
         for conn in self.conns:
             conn.close()
         shutil.rmtree(self._dir, ignore_errors=True)
+        self.shutdown = {"seconds": time.perf_counter() - t0, "killed": killed,
+                         "exit_codes": [p.exitcode for p in self.procs]}
+
+
+def _shard(params: dict, cfg: ModelConfig, ec: EngineConfig, rank: int) -> dict:
+    _, s, _, e, m = rank_coords(rank, ec.tp, ec.ep, ec.pp, ec.sp)
+    return shard_params(params, cfg, m, ec.tp, e, ec.ep, s, ec.pp)
 
 
 def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | None,
-             params: dict | None) -> tuple[TPGroup, TPFollowers, dict | None]:
+             params: dict | None, channel=None) -> tuple[TPGroup, TPFollowers, dict | None]:
     """Start the followers of a ``dp`` x ``pp`` x ``sp`` x ``ep`` x
     ``tp``-rank engine and join the group as its leader. Returns the
     leader's group, the followers' handle and the leader's shard of
-    ``params`` (a full tree, or None to build them on every rank)."""
+    ``params`` (a full tree, or None to build them on every rank).
+
+    Over several nodes ``channel`` is the leader's op channel
+    (``multihost.LeaderOpChannel``, the other nodes accepted): the leader
+    spawns its node's ranks, sends every node the hello, accepts the
+    remote ranks' channels (handing each its shard of ``params`` over it),
+    and the group forms at ``tcp://channel.leader_addr``."""
     check_tp(cfg, ec.tp, ec.ep)
     check_pp(cfg, ec.pp)
     devices = tp_devices(ec, device)
-    followers = TPFollowers(ec, cfg, devices, params)
+    init = f"tcp://{channel.leader_addr}" if channel is not None else None
+    followers = TPFollowers(ec, cfg, devices, params, init)
     try:
-        group = init_tp_group(0, ec.tp, ec.dist_backend, followers.init_method, devices[0],
-                              dp=ec.dp, ep=ec.ep, pp=ec.pp, sp=ec.sp)
+        if channel is not None:
+            from dynamo_tpu_torch.parallel import multihost as mh
+
+            hello = {**mh.leader_hello(ec, cfg), **channel.hello_extra,
+                     "leader_addr": channel.leader_addr, "params": params is not None}
+            channel.broadcast(hello)
+            conns = channel.accept_ranks(range(len(devices), engine_ranks(ec)))
+            if params is not None:
+                for rank, conn in conns.items():
+                    conn.send(("params", mh.params_to_bytes(
+                        _to(_shard(params, cfg, ec, rank), torch.device("cpu")))))
+            followers.add_remote(conns)
+            group = mh.initialize_distributed(
+                mh.MultiNodeConfig(ec.num_nodes, 0, channel.leader_addr), 0, ec, devices[0])
+        else:
+            group = init_tp_group(0, ec.tp, ec.dist_backend, followers.init_method, devices[0],
+                                  dp=ec.dp, ep=ec.ep, pp=ec.pp, sp=ec.sp)
     except BaseException as exc:
         report = followers.report()
         followers.stop()
@@ -188,7 +261,7 @@ def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | No
     group.conns = followers.conns
     group.report = followers.report
     if params is not None:
-        params = shard_params(params, cfg, 0, ec.tp, 0, ec.ep, 0, ec.pp)
+        params = _shard(params, cfg, ec, 0)
     return group, followers, params
 
 
@@ -199,8 +272,15 @@ def follower_main(rank: int, ec: EngineConfig, cfg: ModelConfig, device: str,
     group = None
     try:
         dev = torch.device(device)
-        group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev, dp=ec.dp,
-                              ep=ec.ep, pp=ec.pp, sp=ec.sp)
+        if ec.num_nodes > 1:   # the group of an engine over several nodes
+            from dynamo_tpu_torch.parallel import multihost as mh
+
+            group = mh.initialize_distributed(
+                mh.MultiNodeConfig(ec.num_nodes, 0, init_method.removeprefix("tcp://")),
+                rank, ec, dev)
+        else:
+            group = init_tp_group(rank, ec.tp, ec.dist_backend, init_method, dev, dp=ec.dp,
+                                  ep=ec.ep, pp=ec.pp, sp=ec.sp)
         group.conns = [conn]
         from dynamo_tpu_torch.engine.engine import ModelRunner
 

@@ -18,6 +18,9 @@ returns, the port's inject writes the cache tensors in place: the engine's
 captured step graphs read them as static inputs. Under tensor parallelism
 the manager runs on the leader over the engine's ``TPTransferEngine``:
 the tiers hold whole blocks, as JAX's engine at one process keeps them.
+Over several nodes (kvbm/distributed.py) every rank's tiers hold its box:
+the manager's puts and lookups are mirrored on each rank (``ranks``), and
+with ``vote_plans`` an onboard plan shrinks to the engine-wide minimum.
 """
 
 from __future__ import annotations
@@ -122,7 +125,8 @@ class OffloadManager:
 
     def __init__(self, runner, pool: PrefixPool, tiers: list,
                  publish_tier=None, ckpt_tier=None,
-                 transfer: BlockTransferEngine | None = None):
+                 transfer: BlockTransferEngine | None = None,
+                 vote_plans: bool = False, ranks=None):
         assert tiers, "OffloadManager needs at least one tier"
         self.runner = runner
         self.pool = pool
@@ -130,6 +134,17 @@ class OffloadManager:
         # the block mover: a tensor-parallel engine's leader passes its own
         # (kvbm/transfer.TPTransferEngine: whole blocks from every rank)
         self.transfer = transfer if transfer is not None else BlockTransferEngine()
+        # vote_plans: ranks whose tiers can answer differently (the shared
+        # remote store: evictions, connection hiccups) must not inject
+        # different plans, so each onboard truncates its plan to the
+        # engine-wide minimum length (the walk order is a fixed hash chain,
+        # so equal lengths mean identical hash sets).
+        self.vote_plans = vote_plans
+        # ranks: over several nodes, the mirror that makes every rank's
+        # tier cascade take the same puts and lookups on its own box
+        # (kvbm/distributed.TierMirror); None on one node.
+        self.ranks = ranks
+        self._looked: list[int] | None = None
         # publish_tier: the global prefix cache's publish-on-commit target
         # (the shared remote store): committed prefix blocks are pushed
         # there as they form, not only on LRU eviction.
@@ -242,6 +257,10 @@ class OffloadManager:
             for (_, seq_hash), block in zip(ckpt, blocks[off:]):
                 self.ckpt_tier.put(seq_hash, block)
                 sm.bytes.inc(int(block.nbytes))
+        if self.ranks is not None:
+            self.ranks.store([(top, h) for _, h in pending]
+                             + [(self.publish_tier, h) for _, h in publish]
+                             + [(self.ckpt_tier, h) for _, h in ckpt])
         self._flush_ckpt_records({h for _, h in ckpt})
         if publish:
             self.stats.published_blocks += len(publish)
@@ -329,6 +348,8 @@ class OffloadManager:
 
     # -- onboard -----------------------------------------------------------
     def _lookup(self, seq_hash: int) -> np.ndarray | None:
+        if self._looked is not None:
+            self._looked.append(seq_hash)
         for tier in self.tiers:
             block = tier.get(seq_hash)
             if block is not None:
@@ -342,7 +363,16 @@ class OffloadManager:
         evicted blocks are disjoint from the ones being loaded, and tier
         ``get`` returned copies)."""
         t0 = time.perf_counter()
-        plan = plan_onboard(self.pool, seq_hashes, self._lookup)
+        if self.ranks is not None:
+            # every rank looks up what the leader's walk looked up, in order
+            self._looked = []
+            try:
+                plan = plan_onboard(self.pool, seq_hashes, self._lookup)
+            finally:
+                looked, self._looked = self._looked, None
+            plan = plan[: self.ranks.lookup(looked, len(plan), self.vote_plans)]
+        else:
+            plan = plan_onboard(self.pool, seq_hashes, self._lookup)
         self._onboarding = True  # imported commits must not re-publish
         try:
             n = inject_and_commit(self.runner, self.pool, self.transfer, plan,

@@ -381,17 +381,22 @@ def _embed_rows(embed, idx: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def embed_lookup(embed, token_ids: torch.Tensor,
-                 dt: torch.dtype, tp: "TPGroup | None" = None) -> torch.Tensor:
+                 dt: torch.dtype, tp: "TPGroup | None" = None,
+                 vocab: int | None = None) -> torch.Tensor:
     """Embedding rows of ``token_ids`` from a plain or row-quantized table.
     Vocab-parallel under ``tp``: this rank's piece of the table holds rows
     ``[rank * per, (rank + 1) * per)``; a token outside it looks up zeros,
     and the sum over ranks is the one rank's row, bit for bit. An id past
-    the vocabulary reads its last row, as the JAX package's gather clamps
-    (an unclamped index would be a device-side fault on the card)."""
-    if tp is None:
-        return _embed_rows(embed, token_ids.long().clamp(0, leaf_shape(embed)[0] - 1), dt)
+    the vocabulary (``vocab``, the global one; else the table's rows over
+    every rank) reads its last row, as the JAX package's gather clamps
+    (an unclamped index would be a device-side fault on the card, and at
+    tp > 1 no rank's piece would hold it)."""
     per = leaf_shape(embed)[0]
-    local = token_ids.long() - tp.rank * per
+    last = (vocab if vocab is not None else per * (tp.size if tp is not None else 1)) - 1
+    ids = token_ids.long().clamp(0, last)
+    if tp is None:
+        return _embed_rows(embed, ids, dt)
+    local = ids - tp.rank * per
     mine = (local >= 0) & (local < per)
     rows = _embed_rows(embed, local.clamp(0, per - 1), dt)
     return tp.all_reduce_sum(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
@@ -632,7 +637,8 @@ def forward(params: Params, cfg: ModelConfig,
     # batch, through the same kernel.
     split_rows = tp is not None and tp.dp > 1 and tp.size > 1 and b % tp.dp == 0
 
-    hid = embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype), tp)  # [B, T, H]
+    hid = embed_lookup(params["embed"], token_ids, torch_dtype(cfg.dtype), tp,
+                       cfg.vocab_size)  # [B, T, H]
     if embed_override is not None:
         hid = torch.where(embed_mask[..., None], embed_override.to(hid.dtype), hid)
     layers = params["layers"]
@@ -692,7 +698,8 @@ def forward_ring(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
     positions, slot, _, _, kv_lens = _step_statics(
         torch.zeros_like(q_len), q_len, block_tables, t, _cache_block_size(cache_k))
     pos = positions[:, mine]
-    hid = embed_lookup(params["embed"], token_ids[:, mine], torch_dtype(cfg.dtype), tp)
+    hid = embed_lookup(params["embed"], token_ids[:, mine], torch_dtype(cfg.dtype), tp,
+                       cfg.vocab_size)
     layers = params["layers"]
     for li in range(cfg.num_layers):
         lp = {key: layer_leaf(leaf, li) for key, leaf in layers.items()}

@@ -130,6 +130,10 @@ class EngineConfig:
     # sizing the pool from free memory would race between them.
     dist_backend: str = "nccl"
     tp_devices: tuple[int, ...] = ()
+    # Nodes the engine's dp*pp*sp*ep*tp ranks are spread over (node k holds
+    # world ranks [k R/N, (k+1) R/N); parallel/multihost.py). tp_devices
+    # then names one card for each of this node's ranks.
+    num_nodes: int = 1
     # Weight-only quantization: "none" | "int8".
     quantization: str = "none"
     # KV-cache storage: "bfloat16" or "" (model precision: the cache is

@@ -26,6 +26,7 @@ import dynamo_tpu.runtime.pipeline as jax_pipe
 import dynamo_tpu.runtime.protocols as jax_rproto
 import dynamo_tpu.runtime.runtime as jax_runtime
 import dynamo_tpu.runtime.tasks as jax_tasks
+import dynamo_tpu.transports.client as jax_tclient
 import dynamo_tpu.transports.coordinator as jax_coord
 import dynamo_tpu.utils.config as jax_config
 import dynamo_tpu_torch.frontend.migration as torch_mig
@@ -37,6 +38,8 @@ import dynamo_tpu_torch.runtime.pipeline as torch_pipe
 import dynamo_tpu_torch.runtime.protocols as torch_rproto
 import dynamo_tpu_torch.runtime.runtime as torch_runtime
 import dynamo_tpu_torch.runtime.tasks as torch_tasks
+import dynamo_tpu_torch.runtime.barrier as torch_barrier
+import dynamo_tpu_torch.transports.client as torch_tclient
 import dynamo_tpu_torch.transports.coordinator as torch_coord
 import dynamo_tpu_torch.utils.config as torch_config
 from tests import test_pipeline as jax_pipeline_tests
@@ -73,9 +76,7 @@ def client_names(pkg: str) -> dict:
             "NoInstancesError": rc.NoInstancesError}
 
 
-# test_leader_worker_barrier: runtime/barrier.py (multi-host) is not ported
-RUNTIME_CASES = [n for n in dir(jax_runtime_tests)
-                 if n.startswith("test_") and n != "test_leader_worker_barrier"]
+RUNTIME_CASES = [n for n in dir(jax_runtime_tests) if n.startswith("test_")]
 # (workers' package, caller's package)
 DIRECTIONS = [("torch", "jax"), ("jax", "torch")]
 
@@ -97,7 +98,34 @@ async def test_runtime_across_packages(case, served, caller):
         if case == "test_no_instances_error":
             names.update({k: v for k, v in client_names(served).items()
                           if k != "DistributedRuntime"})
+    if case == "test_leader_worker_barrier":
+        # the port's barrier over the caller's coordinator clients and the
+        # served package's coordinator (the case imports both inside)
+        names.update(server_names(served))
+        with swapped_modules({
+                "dynamo_tpu.runtime.barrier": torch_barrier,
+                "dynamo_tpu.transports.client": (torch_tclient if caller == "torch"
+                                                 else jax_tclient)}):
+            await rebind(getattr(jax_runtime_tests, case), **names)()
+        return
     await rebind(getattr(jax_runtime_tests, case), **names)()
+
+
+@contextlib.contextmanager
+def swapped_modules(mods: dict):
+    """``sys.modules`` entries swapped for a case's deferred imports."""
+    import sys
+
+    saved = {k: sys.modules.get(k) for k in mods}
+    sys.modules.update(mods)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
 
 
 def test_status_server_answers_equal_jax():

@@ -273,10 +273,9 @@ async def test_published_stats_pack_with_the_port_codec(real32):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--engine", "mocker", "--disagg", "prefill"], "--disagg requires --engine torch"),
-    (["--disagg", "prefill", "--tp", "2", "--num-nodes", "2"],
-     "multi-host engines: ROADMAP item 14"),
-    (["--disagg", "decode", "--num-nodes", "2"], "multi-host engines: ROADMAP item 14"),
-    (["--num-nodes", "2"], "multi-host engines: ROADMAP item 14"),
+    (["--engine", "mocker", "--num-nodes", "2"], "--num-nodes > 1 requires --engine torch"),
+    (["--num-nodes", "2", "--node-rank", "2"], "--node-rank 2 is not a node of --num-nodes 2"),
+    (["--num-nodes", "0"], "is not a node of --num-nodes 0"),
 ])
 def test_worker_refuses_by_name(argv, needle):
     with pytest.raises(SystemExit, match=needle):
