@@ -517,17 +517,56 @@ out of a 12-block pool, A again) — A's second stream equals its first,
 blocks went to the tiers and came back, each rank's host tier holds half
 a whole block's bytes a block (its kv heads), no rank gathered a block,
 and each rank launched ``mma_int8`` only, 2 a forward step, 30-70 in all.
-(t3), with two cards or more: (t1) again over nccl (node k on cuda:k),
-and a one-node tp=2 engine over nccl on cuda:0 and cuda:1; each prints
-its engine's stop seconds and the followers it had to kill (ROADMAP Queue
-3 item 13). No speed condition.
+(t3), with two cards or more: (t1) again over nccl (node k on cuda:k,
+the workers' default lazy warmup), and a
+one-node tp=2 engine over nccl on cuda:0 and cuda:1; each prints its
+engine's stop seconds and the followers it had to kill (ROADMAP Queue 3
+item 13). No speed condition.
+
+Phase (u), step programs at more than one rank (``engine.step_graphs``):
+(u0), on one card, f32 llama-3-8b-lite cut to 2 layers at tp=2 over gloo
+on cuda:0 (an explicit pool) with ``warmup_mode="full"``: every rank made
+the lattice's programs in the leader's order at the warmup (coverage 1.0)
+and none while serving; 16 x (128 + 16) greedy streams equal a tp=1
+engine's of the same model or first differ at a near-tie; the programs
+are eager, for gloo's reason; each rank's collectives a forward step
+(eager and inside graph replays) are printed, (u1)'s yardstick; so is
+the host latency the leader's bounded wait over nccl
+(``engine.tp.wait_event``) adds to a step beside ``event.synchronize()``,
+timed on the card, which (u0) does not pass. With two
+cards or more: (u1) (b'')'s f32 model (8 layers) and traffic, 32 x (128 +
+32), at tp=2 over nccl on cuda:0 and cuda:1 with a full warmup and an
+explicit pool: the streams equal (b'')'s or first differ at a near-tie;
+each rank made every program at the warmup, none while serving, and
+reports ``step_graphs``' decision (eager for now: ROADMAP item 14f);
+``mma_f32`` launches a rank are 8 a forward step (counted through
+replays where programs are graphs); each rank's collectives a forward
+step are (u0)'s and the two sums of each of the 6 layers (u0) lacks;
+each rank's reserved growth over the warmup and the warmup's seconds
+are printed; with four cards dp=2 x tp=2 runs too, the same checks (the
+collectives: alike within a replica). (u2) bf16 at (b)'s geometry, 8
+layers, 32 x (128 + 64), full warmup, tp=2 once over nccl and once over
+gloo on the same two cards: decode tok/s, TTFT, host ms in collectives a
+step and peak memory a rank beside (b)'s tp=1 numbers; no threshold.
+(u3) a coordinator, the frontend and one
+``components.worker --tp 2 --dist-backend nccl --tp-devices 0,1`` f32
+worker with its default ``--warmup-mode lazy``: 8 of (b'')'s streams equal
+(b'')'s and both ranks report ``step_graphs``' decision; then its follower process is
+SIGKILLed under 8 open streams: every stream ends with an error event
+within 10 s of the kill (no hang to the group's 60 s timeout) and the
+worker exits non-zero within 30 s; streams still open 30 s after the
+kill fail the phase, with the worker's threads' stacks (SIGUSR1) and the
+ends of its and the frontend's logs printed.
 
 Order: (a), (a'), (p0), (b) to (b''), (c), (i) and (j) run first, with
 the card to themselves. Then a second process of this script
 (``--ranked``, on the same card) runs (q), (h), (i3), (k), (l), (p) and
-(t) while this one runs (d), (e), (g), (m), (o), (r) and (s): most of those
-phases' time is processes starting (each rank and worker imports torch),
-which leaves the card and most host cores idle. (f) and (n) run last,
+(t) and (u0) while this one runs (d), (e), (g), (m), (o), (r) and (s): most
+of those phases' time is processes starting (each rank and worker imports
+torch), which leaves the card and most host cores idle. With two cards or
+more (u1), (u3) and (u2) run once both are done, in that order, with the
+cards to themselves (on one card the script says they were not run, and
+why). (f) and (n) run last,
 alone ((f)'s full warmup holds a 33 GiB graph pool; (n)'s planner sizes
 replicas from the ITL it profiles). So the kernel times of (a), (a') and
 (p0) are taken on an idle card, and the serving numbers of (d), (e), (g)
@@ -546,8 +585,8 @@ per kernel instantiation (registers, spills), one JSON ``kernels`` line
 serves its route: (b) for bf16 q, (b'') for f32 q over the f32 cache,
 (c)'s f32 runs for f32 q over int8 and int4; ``verify_ms`` is the T=5
 verify case's time; ``mma_bf16`` and ``mma_f32`` also carry their launches
-in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p), (r), (s) and
-(t), ``mma_bf16`` in (n) and (o), ``mma_int8`` in (r), (s) and (t); and a
+in (i), (j), (k), (l) and (q), ``mma_f32`` in (m), (p), (r), (s), (t)
+and (u), ``mma_bf16`` in (n) and (o), ``mma_int8`` in (r), (s) and (t); and a
 ``paged_attention_sharded`` entry: one rank's
 ``mma_bf16`` launch at tp=2 decode, its launches those of both ranks in
 (h) and (i3)), and as its last line
@@ -567,7 +606,9 @@ kernels and runs (n) alone, ``--only-o`` (o) alone, ``--only-q`` (j1)
 (the reference of (q2)) and (q), ``--only-r`` (b'')'s f32 run (the
 reference of (r1)) and (r), ``--only-s`` (s) alone, ``--only-t`` (b'')'s
 f32 run (the reference of (t1)) and (t), ``--only-t3`` (on two cards or
-more) the same for (t3).
+more) the same for (t3), ``--only-u`` (b)'s bf16 and (b'')'s f32 runs (the
+references of (u1)-(u3)) and (u), ``--only-u3`` (two cards or more)
+(b'')'s f32 run and (u3).
 
 ``python3 chip_smoke.py --profile`` also runs phase (b), (b'), (i1), (j1)
 and (j2) under ``torch.profiler`` and prints device time by kernel and
@@ -7747,13 +7788,15 @@ T2_LAUNCHES = T2_LAYERS * (3 * (T2_A_DECODE + 1) + T2_FILLERS * (T2_F_DECODE + 1
 
 def t_worker_args(url: str, tok: Path, device: str, node: int, backend: str,
                   card: int) -> list[str]:
-    """(t1)'s worker of node ``node``: the f32 model, eager steps, one rank
-    a node on cuda:``card``."""
+    """(t1)'s worker of node ``node``: the f32 model, one rank a node on
+    cuda:``card``; over gloo eager steps (warmup off), over nccl ((t3))
+    the default lazy warmup, its programs CUDA graphs."""
     return ["--coordinator", url, "--model", K_MODEL, "--allow-random-weights",
             "--dtype", "float32", "--component", "mh", "--served-model-name", T1_NAME,
             "--num-blocks", str(T1_BLOCKS), "--block-size", "16", "--max-batch-size", "32",
             "--max-model-len", str(K_PROMPT + 32 + 16), "--prefill-chunk", "128",
-            "--warmup-mode", "off", "--health-interval", "0", "--tokenizer", str(tok),
+            *(["--warmup-mode", "off"] if backend == "gloo" else []),
+            "--health-interval", "0", "--tokenizer", str(tok),
             "--tp", "2", "--dist-backend", backend, "--num-nodes", "2",
             "--node-rank", str(node), "--multihost-group", f"t1-{backend}",
             *(["--device", device] if device != "cuda" else ["--tp-devices", str(card)])]
@@ -8023,7 +8066,475 @@ def phase_multihost(smi: str, f32_ref: dict, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the ranked process: (q), (h), (i3), (k), (l), (p) and (t) beside the rest
+# (u) step programs at more than one rank
+# ---------------------------------------------------------------------------
+
+#: (u0): f32 llama-3-8b-lite cut to U0_LAYERS layers, 16 x (128 + 16) greedy
+#: at tp=2 over gloo on one card after a full warmup, against tp=1
+U0_LAYERS, U0_BATCH, U0_PROMPT, U0_DECODE = 2, 16, 128, 16
+#: (u1): (b'')'s f32 model and traffic, 32 x (128 + 32); (u2): (b)'s bf16
+#: traffic, 32 x (128 + 64); both after a full warmup
+U1_BATCH, U1_PROMPT, U1_DECODE = 32, 128, 32
+#: seconds ``--only-u1`` (build, (u0), the quick (u1)) may take before it
+#: prints every thread's stack and exits
+U1_QUICK_S = 90.0
+U2_BATCH, U2_PROMPT, U2_DECODE = 32, 128, 64
+#: (u3): the worker's first batch of (b'')'s prompts, and the batch its
+#: follower is killed under (long enough to be open at the kill)
+U3_NAME = "llama-3-8b-lite-f32-tp2-nccl"
+U3_STREAMS, U3_KILL_DECODE = 8, 256
+#: (u3)'s limits: every open stream ends with an error within U3_FAIL_S of
+#: the kill (no hang to the group's 60 s timeout), the worker exits
+#: non-zero within U3_EXIT_S
+U3_FAIL_S, U3_EXIT_S = 10.0, 30.0
+
+
+def u_blocks(batch: int, prompt: int, decode: int) -> int:
+    """An explicit pool: each request's blocks and one of slack, and the
+    trash block (ranks size no pool of their own from free memory)."""
+    return batch * (-(-(prompt + decode) // 16) + 1) + 1
+
+
+def u_engine(model: str, batch: int, prompt: int, decode: int, tp: int = 1, dp: int = 1,
+             backend: str = "gloo", devices: tuple[int, ...] = (), warmup: str = "full",
+             device: str = "cuda"):
+    """An engine of ``model`` in (b)'s shape (block 16, the prompt one
+    chunk, an explicit pool) from ``build_engine``. Returns (engine, warmup
+    summary, the ranks' stats right after the warmup, or None at one
+    rank)."""
+    from dynamo_tpu_torch.engine.engine import build_engine
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    engine = build_engine(EngineConfig(
+        model=model, block_size=16, max_batch_size=batch, max_model_len=prompt + decode + 16,
+        prefill_chunk=prompt, num_blocks=u_blocks(batch, prompt, decode),
+        allow_random_weights=True, warmup_mode=warmup, tp=tp, dp=dp, dist_backend=backend,
+        tp_devices=devices), device=device)
+    core = engine.core
+    return engine, core.warmup_summary, core.tp_stats() if core.runner.tp is not None else None
+
+
+def u_collectives(r: dict) -> float:
+    """A rank's collectives a forward step: the eager ones (the leader's
+    input broadcasts, and every collective of an eager step) and those its
+    graph replays ran."""
+    return (r["collectives"] + r["graph_collectives"]) / max(r["forward_steps"], 1)
+
+
+def u_run(tag: str, model: str, batch: int, prompt: int, decode: int, tp: int = 1,
+          dp: int = 1, backend: str = "gloo", devices: tuple[int, ...] = (),
+          warmup: str = "full", device: str = "cuda") -> tuple[dict, dict]:
+    """One (u) serving run: (b)'s greedy requests through
+    ``AsyncTorchEngine``. At more than one rank: the full warmup captured
+    every bucket (coverage 1.0) and every rank made the leader's programs
+    in its order; serving made none; every rank's counts are set to 0
+    just before the run and read just after, and each launched its
+    route's kernel only, a layer a forward step, counted through replays,
+    all ranks the same forward steps. Returns the run's numbers and its
+    streams {i: (tokens, logprobs)}."""
+    from dynamo_tpu_torch.models.config import resolve_model_config
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    engine, summary, warm_ranks = u_engine(model, batch, prompt, decode, tp, dp, backend,
+                                           devices, warmup, device)
+    core = engine.core
+    setup_s = time.perf_counter() - t0
+    cfg = resolve_model_config(model)
+    layers = cfg.num_layers
+    route = pa.ROUTES[(torch.float32 if cfg.dtype == "float32" else torch.bfloat16, "float")]
+    reqs = bench_reqs(cfg.vocab_size, batch, prompt, decode)
+    multi = warm_ranks is not None
+    if multi:
+        core.reset_tp_stats()
+    pa.reset_launches()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    stats = (lambda eng: eng.run_in_core(lambda c: c.tp_stats())) if multi else None
+    t_start, first_at, done_at, streams, (_fin, ranks) = asyncio.run(
+        serve(engine, reqs, after=stats))
+    for i, (toks, lps) in streams.items():
+        if len(toks) != decode or len(lps) != decode:
+            raise AssertionError(f"{tag}: request {i}: {len(toks)} tokens, {len(lps)} "
+                                 f"logprobs, expected {decode}")
+    t_first, t_end = max(first_at.values()), max(done_at.values())
+    res = {"model": model, "layers": layers, "tp": tp, "dp": dp,
+           "backend": backend if multi else None, "warmup": warmup, "setup_s": setup_s,
+           "warmup_s": summary.get("seconds", 0.0), "ttft_all_s": t_first - t_start,
+           "decode_tok_s": batch * (decode - 1) / (t_end - t_first),
+           "wall_s": t_end - t_start, "route": route}
+    if warmup == "full" and (summary.get("failed") or summary.get("deadline_skipped")
+                             or summary["coverage"] != 1.0):
+        raise AssertionError(f"{tag}: the warmup left buckets without a program: {summary}")
+    res["warmup_summary"] = {k: summary[k] for k in summary if k != "graph_pool_top"}
+    if not multi:
+        res["launches"] = dict(pa.paged_attention.launches_by_kernel).get(route, 0)
+        log(f"{tag} " + json.dumps(res))
+        del engine, core
+        free_engine()
+        return res, streams
+    leader = [k for k, _ in warm_ranks[0]["programs"]]
+    for w, r in zip(warm_ranks, ranks):
+        made = [k for k, _ in w["programs"]]
+        if made != leader or [k for k, _ in r["programs"]] != made:
+            raise AssertionError(f"{tag}: rank {r['rank']} made {len(made)} programs at the "
+                                 f"warmup and {len(r['programs'])} by the end; the leader "
+                                 f"{len(leader)}: the ranks' programs must be the leader's")
+    steps = {r["forward_steps"] for r in ranks}
+    if len(steps) != 1 or min(steps) <= 0:
+        raise AssertionError(f"{tag}: the ranks ran {steps} forward steps")
+    for r in ranks:
+        want = {k: layers * r["forward_steps"] if k == route else 0
+                for k in r["launches_by_kernel"]}
+        if device == "cuda" and r["launches_by_kernel"] != want:
+            raise AssertionError(f"{tag}: rank {r['rank']} launched {r['launches_by_kernel']} "
+                                 f"in {r['forward_steps']} forward steps; expected {layers} "
+                                 f"of {route} a step, counted through replays")
+    res["graphs"] = [r["graphs"] for r in ranks]
+    res["graph_reason"] = ranks[0]["graph_reason"]
+    res["programs"] = len(leader)
+    res["ranks"] = [{
+        "rank": r["rank"], "data_rank": r["data_rank"],
+        "launches": r["launches_by_kernel"].get(route, 0),
+        "forward_steps": r["forward_steps"], "collectives": r["collectives"],
+        "graph_collectives": r["graph_collectives"],
+        "collectives_per_step": u_collectives(r),
+        "collective_host_ms_per_step": 1e3 * r["collective_s"] / r["forward_steps"],
+        "peak_mem_gib": r["max_memory_allocated"] / 2**30,
+        "warmup_reserved_gib": r["warmup_reserved"] / 2**30} for r in ranks]
+    log(f"{tag} " + json.dumps(res))
+    del engine, core
+    free_engine()
+    return res, streams
+
+
+def u_same(tag: str, got: dict, ref: dict) -> dict:
+    equal, ties, bad = compare_streams(tag, got, ref)
+    if bad:
+        raise AssertionError(f"{tag}: streams leave the reference at no near-tie: {bad[:4]}")
+    return {"equal": equal, "near_ties": len(ties)}
+
+
+def u_decision(model: str, backend: str, tp: int = 1, dp: int = 1,
+               device: str = "cuda") -> tuple[bool, str]:
+    """``engine.step_graphs``' decision for a (u) engine: what its ranks
+    must report."""
+    from dynamo_tpu_torch.engine.engine import step_graphs
+    from dynamo_tpu_torch.utils.config import EngineConfig
+
+    return step_graphs(EngineConfig(model=model, tp=tp, dp=dp, dist_backend=backend), device)
+
+
+def u_graphs(tag: str, run: dict, graphs: bool, reason: str = "") -> None:
+    if run["graphs"] != [graphs] * len(run["ranks"]) or reason not in run["graph_reason"]:
+        raise AssertionError(f"{tag}: the ranks' programs are graphs {run['graphs']} "
+                             f"({run['graph_reason']!r}); expected {graphs} ({reason!r})")
+
+
+def u_wait_cost(n: int = 200, cycles: int = 200_000) -> dict:
+    """The host µs from launching ``cycles`` clock cycles of device work
+    and recording an event behind it to the return of the wait for that
+    event: by ``event.synchronize()`` and by the leader's bounded wait over
+    nccl (``engine.tp.wait_event``, a group with nothing to probe), ``n``
+    times each, interleaved, on one card. The medians' difference is the
+    latency the bounded wait adds to a step."""
+    from dynamo_tpu_torch.engine.tp import wait_event
+    from dynamo_tpu_torch.parallel.collectives import TPGroup
+
+    group = TPGroup(rank=0, size=2, device=None, backend="nccl", pg=None)
+    waits = {"synchronize": lambda ev: ev.synchronize(),
+             "wait_event": lambda ev: wait_event(ev, group)}
+    times: dict[str, list[float]] = {k: [] for k in waits}
+    torch.cuda.synchronize()
+    for _ in range(n):
+        for name, wait in waits.items():
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            ev = torch.cuda.Event()
+            ev.record()
+            wait(ev)
+            times[name].append(1e6 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return {"cycles": cycles, "n": n, "median_us": med,
+            "added_us": med["wait_event"] - med["synchronize"]}
+
+
+def phase_u0(smi: str, device: str = "cuda") -> dict:
+    """(u0): see the module docstring. Returns the tp=2 run with the
+    collectives a forward step that (u1) is held to."""
+    t0 = time.perf_counter()
+    model = q_model("llama-3-8b-lite", U0_LAYERS, "float32")
+    shape = (model, U0_BATCH, U0_PROMPT, U0_DECODE)
+    one, s_one = u_run("[u0] f32 tp=1", *shape, warmup="off", device=device)
+    two, s_two = u_run("[u0] f32 tp=2 gloo, both ranks on cuda:0", *shape, tp=2,
+                       devices=(0, 0) if device == "cuda" else (), device=device)
+    u_graphs("[u0]", two, False, "gloo" if device == "cuda" else "on the CPU")
+    per_step = {r["collectives_per_step"] for r in two["ranks"]}
+    if len(per_step) != 1:
+        raise AssertionError(f"[u0] the ranks ran {per_step} collectives a forward step")
+    res = {"tp2": two, "tp1": one, **u_same("[u0] f32 tp=2 against tp=1", s_two, s_one),
+           "collectives_per_step": per_step.pop(), "tp1_streams": s_one}
+    if device == "cuda":
+        res["wait_cost"] = u_wait_cost()
+        log(f"[u0] the leader's bounded wait against event.synchronize() on {smi}: "
+            + json.dumps(res["wait_cost"]))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[u0] passed in {res['seconds']:.1f}s: every rank made the lattice's "
+        f"{two['programs']} programs at the warmup, none serving; {res['equal']} of "
+        f"{U0_BATCH} streams equal tp=1's ({res['near_ties']} near-ties); eager "
+        f"({two['graph_reason']}); {res['collectives_per_step']} collectives a forward step "
+        f"at {U0_LAYERS} layers, a rank, on {smi}")
+    return res
+
+
+def phase_u1(smi: str, f32_ref: dict, u0: dict, quick: bool = False) -> dict:
+    """(u1): see the module docstring. ``quick``: tp=2 alone at (u0)'s
+    cut and traffic, against (u0)'s tp=1 streams (``--only-u1``)."""
+    t0 = time.perf_counter()
+    if quick:
+        model, shape = q_model("llama-3-8b-lite", U0_LAYERS, "float32"), (U0_BATCH, U0_PROMPT,
+                                                                         U0_DECODE)
+        f32_ref = u0["tp1_streams"]
+    else:
+        model, shape = register_f32_model(), (U1_BATCH, U1_PROMPT, U1_DECODE)
+    res = {}
+    meshes = [("tp2", dict(tp=2, devices=(0, 1)))]
+    if torch.cuda.device_count() >= 4 and not quick:
+        meshes.append(("dp2_tp2", dict(tp=2, dp=2, devices=(0, 1, 2, 3))))
+    for name, mesh in meshes:
+        tag = f"[u1] f32 {name.replace('_', ' x ')} nccl on cuda:{mesh['devices']}"
+        run, streams = u_run(tag, model, *shape, backend="nccl", **mesh)
+        u_graphs(tag, run, *u_decision(model, "nccl", mesh["tp"], mesh.get("dp", 1)))
+        ranks = run["ranks"]
+        if name == "tp2":
+            # (u0)'s count, and a layer's two sums (attention, MLP) for
+            # each of the layers (u0) was cut of
+            layers = run["layers"]
+            want = u0["collectives_per_step"] + 2 * (layers - U0_LAYERS)
+            got = [r["collectives_per_step"] for r in ranks]
+            if any(abs(g - want) > 1e-9 for g in got):
+                raise AssertionError(f"{tag}: {got} collectives a forward step; (u0) at "
+                                     f"{U0_LAYERS} layers gives {want} at {layers}")
+        else:
+            # each replica's ranks alike (replica 1 skips the logits' gather)
+            for d in (0, 1):
+                got = {r["collectives_per_step"] for r in ranks if r["data_rank"] == d}
+                if len(got) != 1:
+                    raise AssertionError(f"{tag}: replica {d}'s ranks ran {got} "
+                                         "collectives a forward step")
+        run.update(u_same(f"{tag} against " + ("(u0)'s tp=1" if quick else "(b'')"),
+                          streams, f32_ref))
+        log(f"{tag}: graph pool (reserved growth over the warmup) "
+            f"{[round(r['warmup_reserved_gib'], 3) for r in ranks]} GiB a rank, warmup "
+            f"{run['warmup_s']:.2f} s, {run['programs']} programs, launches a rank "
+            f"{[r['launches'] for r in ranks]} in {ranks[0]['forward_steps']} forward steps, "
+            f"collectives a forward step {[r['collectives_per_step'] for r in ranks]} on {smi}")
+        res[name] = run
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_u2(smi: str, b_bf16: dict) -> dict:
+    """(u2): see the module docstring."""
+    t0 = time.perf_counter()
+    res = {}
+    for backend in ("nccl", "gloo"):
+        tag = f"[u2] bf16 tp=2 {backend} on cuda:0 and cuda:1"
+        run, _ = u_run(tag, "llama-3-8b-lite", U2_BATCH, U2_PROMPT, U2_DECODE, tp=2,
+                       backend=backend, devices=(0, 1))
+        u_graphs(tag, run, *u_decision("llama-3-8b-lite", backend, tp=2))
+        res[backend] = run
+    log(f"[u2] bf16 llama-3-8b-lite, 8 layers, {U2_BATCH} x ({U2_PROMPT} + {U2_DECODE}) at "
+        f"tp=2 (graphs {res['nccl']['graphs'][0]} / {res['gloo']['graphs'][0]}): decode tok/s "
+        f"nccl {res['nccl']['decode_tok_s']}, gloo "
+        f"{res['gloo']['decode_tok_s']}, (b) tp=1 {b_bf16.get('decode_tok_s')}; TTFT (all) "
+        f"{res['nccl']['ttft_all_s']} / {res['gloo']['ttft_all_s']} / "
+        f"{b_bf16.get('ttft_all_s')} s; collective host ms a step a rank "
+        + json.dumps({b: [r["collective_host_ms_per_step"] for r in res[b]["ranks"]]
+                      for b in res})
+        + "; peak GiB a rank " + json.dumps({b: [r["peak_mem_gib"] for r in res[b]["ranks"]]
+                                             for b in res})
+        + f" ((b) {b_bf16.get('peak_mem_gib')}); no pass condition, on {smi}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def child_pids(pid: int, marker: str) -> list[int]:
+    """The pids of ``pid``'s children whose command line holds ``marker``."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
+            if ppid == pid and marker in (d / "cmdline").read_bytes().decode(errors="replace"):
+                out.append(int(d.name))
+        except (OSError, IndexError, ValueError):
+            pass
+    return out
+
+
+async def u3_streams(port: int, prompts: list[list[int]], max_tokens: int) -> list[dict]:
+    """Stream ``prompts`` at once; each stream's events, whether one is an
+    error, and the time it ended."""
+    async def one(p):
+        try:
+            res = await http_call(port, "POST", "/v1/completions", {
+                "model": U3_NAME, "prompt": p, "max_tokens": max_tokens, "temperature": 0,
+                "ignore_eos": True, "stream": True})
+            events = res["events"]
+        except (OSError, asyncio.IncompleteReadError) as exc:
+            events = [json.dumps({"error": {"message": repr(exc)}})]
+        return {"end": time.perf_counter(), "events": len(events),
+                "error": next((e for e in events if '"error"' in e), None)}
+
+    return await asyncio.gather(*(one(p) for p in prompts))
+
+
+def u3_dump(cl: "KCluster") -> None:
+    """On a (u3) hang: every thread's stack of the worker, while it is up
+    (SIGUSR1 makes its faulthandler print them to its log), and the end of
+    the worker's and the frontend's logs."""
+    import signal
+
+    worker = cl.procs["worker"][0]
+    if worker.poll() is None:
+        os.kill(worker.pid, signal.SIGUSR1)
+        time.sleep(1.0)
+    for name in ("worker", "frontend"):
+        log(f"[u3] the end of the {name}'s log:\n{cl.log_of(name)[-8000:]}")
+
+
+def phase_u3(smi: str, f32_ref: dict, device: str = "cuda") -> dict:
+    """(u3): see the module docstring. On the CPU (a rehearsal) the
+    worker's ranks run over gloo, eagerly."""
+    import concurrent.futures
+    import signal
+    import tempfile
+
+    from dynamo_tpu_torch.models.config import resolve_model_config
+
+    cfg = resolve_model_config(K_MODEL)
+    decode = len(f32_ref[0][0])
+    tmp = Path(tempfile.mkdtemp(prefix="u3-"))
+    cl = KCluster(tmp, {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1",
+                        "DYN_LOG": "info"})
+    out: dict = {}
+    t0 = time.perf_counter()
+    try:
+        coord_port, http_port = free_port(), free_port()
+        cl.start("coordinator", "dynamo_tpu_torch.transports.coordinator",
+                 ["--host", "127.0.0.1", "--port", str(coord_port)])
+        cl.wait_line("coordinator", "COORDINATOR_READY", 60)
+        url = f"tcp://127.0.0.1:{coord_port}"
+        max_len = U1_PROMPT + U3_KILL_DECODE + 16
+        cl.start("worker", "dynamo_tpu_torch.components.worker", [
+            "--coordinator", url, "--model", K_MODEL, "--allow-random-weights",
+            "--dtype", "float32", "--component", "u3", "--served-model-name", U3_NAME,
+            "--num-blocks", str(u_blocks(2 * U3_STREAMS, U1_PROMPT, U3_KILL_DECODE)),
+            "--block-size", "16", "--max-batch-size", "32", "--max-model-len", str(max_len),
+            "--prefill-chunk", "128", "--health-interval", "0",
+            "--tokenizer", str(k_tokenizer(tmp, cfg.vocab_size)),
+            "--tp", "2", *(["--dist-backend", "nccl", "--tp-devices", "0,1"]
+                           if device == "cuda" else ["--dist-backend", "gloo",
+                                                     "--device", device])])
+        cl.start("frontend", "dynamo_tpu_torch.components.frontend",
+                 ["--coordinator", url, "--host", "127.0.0.1", "--port", str(http_port),
+                  "--router-mode", "kv"])
+        cl.wait_line("frontend", "FRONTEND_READY", 120)
+        leader = cl.wait_line("worker", "WORKER_READY", 600).split(
+            "instance=")[1].strip().lstrip("0")
+        out["ready_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while sorted(k_stats(http_port, U3_NAME).get("instances", [])) != [leader]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[u3] the frontend did not discover the worker: "
+                                     f"{k_stats(http_port, U3_NAME)}")
+            time.sleep(0.2)
+        prompts = k_prompts(cfg.vocab_size)[:U3_STREAMS]
+        got = k_batch(http_port, U3_NAME, prompts, decode)
+        out.update(k_compare("[u3] f32 tp=2 nccl worker (lazy warmup) against (b'')", got,
+                             {i: f32_ref[i] for i in range(U3_STREAMS)}))
+        attn = k_settled(http_port, U3_NAME, [leader])["workers"][leader]["attention"]
+        want = u_decision(K_MODEL, "nccl" if device == "cuda" else "gloo", tp=2,
+                          device=device)[0]
+        if attn["graphs"] != [want] * 2:
+            raise AssertionError(f"[u3] the worker's ranks report graphs {attn['graphs']}")
+        worker = cl.procs["worker"][0]
+        follower = [p for p in child_pids(worker.pid, "spawn_main")]
+        if len(follower) != 1:
+            raise AssertionError(f"[u3] the worker's follower processes: {follower}")
+        # not a with block: its exit would wait for streams that hang
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        try:
+            w0 = k_stats(http_port, U3_NAME)["workers"][leader]["decode_tokens"]
+            fut = pool.submit(asyncio.run, u3_streams(
+                http_port, k_prompts(cfg.vocab_size)[U3_STREAMS:2 * U3_STREAMS],
+                U3_KILL_DECODE))
+            deadline = time.monotonic() + 120
+            while True:   # every stream of the second batch is decoding
+                w = k_stats(http_port, U3_NAME)["workers"][leader]
+                if w["num_running"] >= U3_STREAMS and w["decode_tokens"] >= w0 + 4 * U3_STREAMS:
+                    break
+                if time.monotonic() > deadline or fut.done():
+                    raise AssertionError(f"[u3] the second batch never ran: {w}")
+                time.sleep(0.05)
+            cl.expected_dead.add("worker")
+            os.kill(follower[0], signal.SIGKILL)
+            t_kill = time.perf_counter()
+            try:
+                ends = fut.result(timeout=U3_FAIL_S + 20)
+            except concurrent.futures.TimeoutError:
+                u3_dump(cl)
+                raise AssertionError(f"[u3] open streams did not end within "
+                                     f"{U3_FAIL_S + 20:g} s of the follower's kill") from None
+        finally:
+            pool.shutdown(wait=False)
+        rc = worker.wait(U3_EXIT_S + 30)
+        t_exit = time.perf_counter() - t_kill
+        out["streams_end_s"] = sorted(e["end"] - t_kill for e in ends)
+        out["errors"] = sum(e["error"] is not None for e in ends)
+        out["worker_exit"] = {"rc": rc, "seconds": t_exit,
+                              "failed_line": "WORKER_FAILED" in cl.log_of("worker")}
+        log(f"[u3] follower killed under {U3_STREAMS} open streams: each ended "
+            f"{[round(s, 3) for s in out['streams_end_s']]} s after the kill, "
+            f"{out['errors']} with an error event; the worker exited {rc} after "
+            f"{t_exit:.2f} s, on {smi}")
+        if out["errors"] != U3_STREAMS or max(out["streams_end_s"]) > U3_FAIL_S:
+            raise AssertionError(f"[u3] open streams after the kill: {ends}; expected each to "
+                                 f"end with an error within {U3_FAIL_S} s")
+        if rc == 0 or t_exit > U3_EXIT_S:
+            raise AssertionError(f"[u3] the worker exited {rc} {t_exit:.1f} s after the kill; "
+                                 f"expected non-zero within {U3_EXIT_S} s:\n"
+                                 f"{cl.log_of('worker')[-3000:]}")
+    finally:
+        cl.stop_all()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_programs(smi: str, f32_ref: dict, u0: dict, b_bf16: dict) -> dict:
+    """(u1)-(u3), with two cards or more; on one card says why they were
+    not run."""
+    if torch.cuda.device_count() < 2:
+        log(f"[u1]-[u3] the nccl runs (one card a rank) were not run: this host has "
+            f"{torch.cuda.device_count()} CUDA device")
+        return {}
+    t0 = time.perf_counter()
+    # (u2), which has no pass condition, last
+    res = {"u1": phase_u1(smi, f32_ref, u0)}
+    audit_memory("(u1)")
+    res["u3"] = phase_u3(smi, f32_ref)
+    audit_memory("(u3)")
+    res["u2"] = phase_u2(smi, b_bf16)
+    audit_memory("(u2)")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[u1]-[u3] passed in {res['seconds']:.1f}s on {smi}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the ranked process: (q), (h), (i3), (k), (l), (p), (t) and (u0) beside the rest
 # ---------------------------------------------------------------------------
 
 #: seconds the ranked process may take after the other phases are done
@@ -8055,7 +8566,7 @@ def take_pickle(d: Path, name: str, timeout: float = RANKED_WAIT_S):
 
 class RankedGroup:
     """The second process of the run, ``chip_smoke.py --ranked DIR``: it
-    runs (q), (h), (i3), (k), (l), (p) and (t) while this process runs (d),
+    runs (q), (h), (i3), (k), (l), (p), (t) and (u0) while this process runs (d),
     (e), (g), (m), (o), (r) and (s). Most of those phases' time is
     processes starting (each follower and worker imports torch), which
     leaves the card and most host cores idle. Inputs and results cross
@@ -8129,6 +8640,8 @@ def run_ranked(d: Path, smi: str, bw: float, peak: float, t0: float) -> int:
     audit_memory("(p)")
     multihost = phase_multihost(smi, f32_streams)
     audit_memory("(t)")
+    u0 = phase_u0(smi)
+    audit_memory("(u0)")
 
     def launches(run: dict) -> dict:
         return {"route": run["route"], "launches": run["launches"]}
@@ -8144,6 +8657,8 @@ def run_ranked(d: Path, smi: str, bw: float, peak: float, t0: float) -> int:
         "parity": {"launches_p": parity["launches_p"]},
         "moe_par": {k: moe_par[k] for k in ("launches_q", "launches_q2")},
         "multihost": {"launches_t": multihost["launches_t"]},
+        "u0": {"collectives_per_step": u0["collectives_per_step"],
+               "launches": [r["launches"] for r in u0["tp2"]["ranks"]]},
     })
     log(f"the ranked phases passed in {time.perf_counter() - t0:.1f}s")
     return 0
@@ -8292,6 +8807,42 @@ def main() -> int:
         audit_memory("(t3)")
         log(f"(t3) alone passed in {time.perf_counter() - t0:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--only-u1"]:
+        # a quick check on two cards or more: (u0), then (u1)'s tp=2 over
+        # nccl at (u0)'s cut against (u0)'s tp=1 streams and collectives;
+        # all threads' stacks and exit 1 if it has not ended in U1_QUICK_S
+        import faulthandler
+
+        if torch.cuda.device_count() < 2:
+            raise AssertionError("--only-u1 needs two cards or more")
+        faulthandler.dump_traceback_later(U1_QUICK_S, exit=True)
+        phase_u1(smi, None, phase_u0(smi), quick=True)
+        log(f"(u0) and the quick (u1) passed in {time.perf_counter() - t0:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--only-u3"]:
+        # (u3) alone on two cards or more, with (b'')'s f32 run for its
+        # reference: no kernels or result line
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        if torch.cuda.device_count() < 2:
+            raise AssertionError("--only-u3 needs two cards or more")
+        phase_u3(smi, f32_streams)
+        audit_memory("(u3)")
+        log(f"(u3) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--only-u"]:
+        # (u) with (b'')'s f32 run (the reference of (u1) and (u3)) and (b)'s
+        # bf16 run (beside (u2)): no kernels or result line
+        serve_b, _ = phase_serve("float")
+        audit_memory("(b) bf16")
+        _, f32_streams = phase_serve("float", f32=True, with_lps=True)
+        audit_memory("(b'')")
+        u0 = phase_u0(smi)
+        audit_memory("(u0)")
+        phase_programs(smi, f32_streams, u0, serve_b)
+        audit_memory("(u)")
+        log(f"(u) alone passed in {time.perf_counter() - t0:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--only-l"]:
         # a rehearsal of (l), with (b'')'s f32 run for (l1)'s reference: no
         # kernels or result line
@@ -8371,6 +8922,9 @@ def main() -> int:
     finally:
         ranked.stop()
     tp, cluster, disagg = got["tp"], got["cluster"], got["disagg"]
+    # (u1)-(u3) with the cards to themselves (nccl takes one card a rank)
+    programs = phase_programs(smi, f32_streams, got["u0"], serve["float"])
+    audit_memory("(u)")
     launches_t = got["multihost"]["launches_t"]
     parity, moe_par = {**got["parity"], "p0": p0}, got["moe_par"]
     # (f) and (n) last, with the card and the host to themselves: (f)'s
@@ -8436,6 +8990,11 @@ def main() -> int:
         if route == ROUTES[(torch.float32, "float")]:
             # (t1)'s two ranks, one a node (the leader's worker and node 1's)
             lines[-1]["launches_t"] = launches_t["t1 f32 tp=2 over two nodes"]
+            # (u0)'s two ranks after their full warmup, and with two cards or
+            # more (u1)'s, counted through the replays of their graphs
+            lines[-1]["launches_u"] = {"u0 tp=2 gloo": got["u0"]["launches"], **{
+                f"u1 {name} nccl": [r["launches"] for r in run["ranks"]]
+                for name, run in programs.get("u1", {}).items() if name != "seconds"}}
         elif route == ROUTES[(torch.bfloat16, "int8")]:
             # (t2)'s two ranks over their rank-local tiers
             lines[-1]["launches_t"] = launches_t["t2 bf16 int8 tp=2 over two nodes"]

@@ -24,20 +24,29 @@ publisher, and exits 0 when the leader stops. A prefill engine's other
 nodes serve their ranks' boxes from shard servers of their own, listed in
 its transfer params. ``--disagg`` on the mocker and ``--num-nodes > 1`` on
 it are refused by name (:func:`check_worker_args`); so is whatever the
-engine's ``check_supported`` refuses (more than one rank with CUDA graphs:
-``--warmup-mode off``). The published stats carry the paged-attention
-launches by route, the forward steps they ran in and the card's peak
-allocated bytes (``"attention"``), which a process that cannot read this
-one's counters checks launches against, and the KV handoff's bytes and
-seconds by phase (``"kv_transfer"``).
+engine's ``check_supported`` refuses. The default ``--warmup-mode lazy``
+serves at every ``--tp``, ``--dp``, ``--pp``, ``--sp``, ``--ep`` and
+``--num-nodes``: each step program is one CUDA graph at one rank; at more
+than one rank steps run eagerly, each case with its reason
+(``engine.step_graphs``; graphs over nccl at tp x dp: ROADMAP item 14f). A worker
+whose engine loses a rank (a follower or a node gone) fails its open
+streams, answers new requests with the error for ``LOST_RANK_EXIT_S``,
+prints ``WORKER_FAILED`` and exits 1. The published stats carry
+the paged-attention launches by route, the forward steps they ran in, the
+card's peak allocated bytes and whether each rank's programs are CUDA
+graphs (``"attention"``), which a process that cannot read this one's
+counters checks launches against, and the KV handoff's bytes and seconds
+by phase (``"kv_transfer"``).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
+import os
 import signal
 
 from dynamo_tpu_torch import chaos
@@ -53,6 +62,10 @@ from dynamo_tpu_torch.utils.config import EngineConfig, RuntimeConfig
 from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
 
 log = get_logger("worker")
+
+#: seconds a worker whose engine lost a rank keeps answering requests with
+#: the engine's error before it exits
+LOST_RANK_EXIT_S = 5.0
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -79,7 +92,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
                    help="torch.distributed backend of --tp/--pp/--ep/--dp ranks: nccl takes one "
-                        "card a rank; ranks that share a card need gloo")
+                        "card a rank; ranks that share a card need gloo. Steps run "
+                        "eagerly at more than one rank (CUDA graphs over nccl at tp x dp: "
+                        "ROADMAP item 14f)")
     p.add_argument("--tp-devices", default=None,
                    help="comma-separated card index of each rank (default rank r on "
                         "cuda:r); ranks that share a card need --dist-backend gloo "
@@ -151,7 +166,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "no ledger, lazy = capture on first use against the "
                         "enumerated lattice, full = capture the reachable "
                         "bucket lattice before the endpoint serves "
-                        "(readiness waits for it)")
+                        "(readiness waits for it); at any mesh, every rank "
+                        "making the same programs (CUDA graphs on the card at "
+                        "one rank, eager steps at more than one)")
     p.add_argument("--warmup-deadline", type=float, default=120.0,
                    help="full-mode warmup wall-seconds budget; lattice "
                         "entries past the deadline stay cold and show as "
@@ -290,12 +307,14 @@ def engine_config(ns: argparse.Namespace, remote_kv: str | None) -> EngineConfig
     )
 
 
-def attention_stats(core) -> dict:
+def attention_stats(core, rank_graphs: list[bool] | None = None) -> dict:
     """Paged-attention launches by route since the process started, the
     forward steps of every step program's calls (a fused window counts
     its steps; launches inside a program's capture are counted through its
-    calls), the model's layers, and the card's peak allocated bytes (0 on
-    the CPU, where no kernel launches)."""
+    calls), the model's layers, the card's peak allocated bytes (0 on
+    the CPU, where no kernel launches), and whether each rank's step
+    programs are CUDA graphs (``rank_graphs``, read from the ranks at
+    build; the leader's alone when not given)."""
     import torch
 
     from dynamo_tpu_torch.ops import paged_attention as pa
@@ -310,6 +329,7 @@ def attention_stats(core) -> dict:
         "layers": int(core.model_cfg.num_layers),
         "max_memory_allocated": int(torch.cuda.max_memory_allocated(dev))
         if dev.type == "cuda" else 0,
+        "graphs": rank_graphs if rank_graphs is not None else [core.runner.graphs],
     }
 
 
@@ -485,6 +505,7 @@ async def amain(ns: argparse.Namespace) -> None:
     # audit, TTX forecast — obs/mem_ledger.py).
     install_mem_metrics(rt.metrics)
 
+    rank_graphs = None
     if ns.engine == "mocker":
         engine = MockEngine(MockEngineArgs(
             num_blocks=ns.num_blocks or 512,
@@ -515,6 +536,11 @@ async def amain(ns: argparse.Namespace) -> None:
         engine = await loop.run_in_executor(None, lambda: build_engine(
             cfg_engine, device=ns.device, event_sink=sink, channel=op_channel))
         warm = engine.core.warmup_summary
+        if engine.core.runner.tp is not None:
+            # each rank's graphs decision, read once before the step loop
+            # owns the ranks
+            rank_graphs = [r["graphs"] for r in
+                           await loop.run_in_executor(None, engine.core.tp_stats)]
     if warm:
         log.info("bucket warmup: %s", warm)
 
@@ -528,7 +554,7 @@ async def amain(ns: argparse.Namespace) -> None:
             return engine.stats()
         # the device prefix hits as a count (the engine's stats carry their
         # rate), beside the kernel launches
-        out = {**engine.stats(), "attention": attention_stats(engine.core),
+        out = {**engine.stats(), "attention": attention_stats(engine.core, rank_graphs),
                "prefix_hit_blocks": engine.core.metrics.prefix_hit_blocks}
         if ns.disagg != "none":
             out["kv_transfer"] = kv_transfer_stats(engine.core)
@@ -790,9 +816,29 @@ async def amain(ns: argparse.Namespace) -> None:
                 return
             await asyncio.sleep(0.5)
 
+    async def watch_engine() -> None:
+        # An engine that lost a rank (a follower or a node gone) has failed
+        # its open streams and cannot serve again: exit non-zero. Leaving
+        # its group could wait forever over nccl on a peer that is gone,
+        # so the local followers are killed and the process ends without
+        # the group's teardown.
+        while engine.down is None:
+            await asyncio.sleep(0.2)
+        log.error("engine down: %s; the worker exits in %g s", engine.down, LOST_RANK_EXIT_S)
+        # meanwhile new requests fail at once with the reason
+        await asyncio.sleep(LOST_RANK_EXIT_S)
+        with contextlib.suppress(Exception):
+            await asyncio.wait_for(rt.deregister(), 3.0)
+        engine.core.abandon()
+        print(f"WORKER_FAILED {json.dumps({'error': engine.down[-2000:]})}", flush=True)
+        os._exit(1)
+
     watcher = asyncio.create_task(watch_drain_key())
+    engine_watch = (asyncio.create_task(watch_engine()) if ns.engine != "mocker" else None)
     await stop.wait()
     watcher.cancel()
+    if engine_watch is not None:
+        engine_watch.cancel()
 
     async def deregister() -> None:
         drain_state["draining"] = True
@@ -859,6 +905,9 @@ async def amain(ns: argparse.Namespace) -> None:
 
 
 def main() -> None:
+    import faulthandler
+
+    faulthandler.register(signal.SIGUSR1)  # kill -USR1 <pid> dumps stacks
     configure_logging()
     asyncio.run(amain(parse_args()))
 

@@ -127,6 +127,7 @@ from dynamo_tpu_torch.engine.guided import TokenMasker
 from dynamo_tpu_torch.engine.scheduler import Phase, Scheduler, Seq, StepPlan
 from dynamo_tpu_torch.engine.session import SessionStore, get_session_metrics
 from dynamo_tpu_torch.engine.spec import accept, propose, spec_eligible
+from dynamo_tpu_torch.engine.tp import wait_event
 from dynamo_tpu_torch.kvbm.transfer import tp_gather, tp_scatter
 from dynamo_tpu_torch.kvbm.stream_ckpt import (
     CKPT_DRAWS_KEY,
@@ -150,7 +151,7 @@ from dynamo_tpu_torch.obs.profiler import phase as _perf_phase
 from dynamo_tpu_torch.obs.sched_ledger import HolStall, get_sched_ledger, step_geometry
 from dynamo_tpu_torch.obs.tracer import get_tracer, trace_context_of
 from dynamo_tpu_torch.ops import paged_attention as pa
-from dynamo_tpu_torch.parallel.collectives import TPGroup
+from dynamo_tpu_torch.parallel.collectives import TPFailure, TPGroup
 from dynamo_tpu_torch.parallel.mesh import check_pp, stage_layers
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
@@ -207,6 +208,40 @@ def _weak_source(method: Callable[[], Any], empty: Callable[[], Any] = dict
     return source
 
 
+def step_graphs(ec: EngineConfig, device_type: str) -> tuple[bool, str]:
+    """Whether the step programs of an engine of ``ec`` on a device of
+    ``device_type`` are CUDA graphs, and the reason when they are not (""
+    when they are). A function of the configuration alone, so every rank,
+    a remote node's from the hello too, reaches the same answer.
+
+    Graphs on the card at one rank; eager at more than one rank, each
+    case with its reason. A graph can hold nccl's collectives (one card a
+    rank), and the rest of a capture at tp x dp is in place (communicators
+    formed eagerly, a replay's collectives counted, graphs dropped before
+    a rank leaves its group), but it is not taken until it has passed its
+    two-card check (ROADMAP item 14f)."""
+    if device_type != "cuda":
+        return False, "on the CPU, step programs run eagerly (CUDA graphs need a card)"
+    if ec.dp * ec.pp * ec.sp * ec.ep * ec.tp == 1:
+        return True, ""
+    if ec.dist_backend != "nccl":
+        return False, (f"{ec.dist_backend} reduces through host memory, which a CUDA graph "
+                       "cannot hold: steps run eagerly (graphs need nccl, one card a rank)")
+    if ec.pp > 1:
+        return False, ("pp > 1: forward_pp counts its microbatches on the host and its stage "
+                       "hops are point-to-point ops untried in a graph: steps run eagerly "
+                       "(ROADMAP item 14g)")
+    if ec.sp > 1:
+        return False, ("sp > 1: a ring step picks its live rows with torch.nonzero, a host "
+                       "read: steps run eagerly (ROADMAP item 14h)")
+    if ec.ep > 1:
+        return False, ("ep > 1: the dropless dispatch reads its group sizes on the host: "
+                       "steps run eagerly (ROADMAP item 16c)")
+    return False, ("tp x dp over nccl: a graph holding the ranks' collectives has not yet "
+                   "served and shut down on two cards: steps run eagerly (ROADMAP item 14f, "
+                   "its two-card check)")
+
+
 def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
     """Raise on settings this slice of the port does not carry for the
     model ``cfg``, naming the slice that brings them (ROADMAP), and on
@@ -224,17 +259,10 @@ def check_supported(ec: EngineConfig, cfg: ModelConfig) -> None:
             "pp>1 currently composes only with dp; tp/ep/sp must be 1 "
             "(the PP stage block is not head/expert/sequence-sharded — "
             "see models/llama.forward_pp)")
+    # warmup_mode lazy and full serve at every mesh, as in JAX: each rank
+    # makes the same programs in the same order, CUDA graphs where
+    # step_graphs says so (ROADMAP item 14f)
     ranks = ec.tp * ec.ep * ec.sp * ec.pp * ec.dp
-    later = {
-        # more than one rank runs eager steps: a gloo collective cannot be
-        # captured in a CUDA graph (graph-captured TP/EP/SP over NCCL:
-        # ROADMAP item 14f)
-        "more than one rank (dp x pp x sp x ep x tp > 1) with CUDA graphs (warmup_mode "
-        "must be 'off'; ROADMAP item 14f)": ranks > 1 and ec.warmup_mode != "off",
-    }
-    missing = [name for name, hit in later.items() if hit]
-    if missing:
-        raise ValueError("not supported by the torch port yet: " + "; ".join(missing))
     for axis in ("tp", "dp", "ep", "pp", "sp", "num_nodes"):
         if getattr(ec, axis) < 1:
             raise ValueError(f"{axis} must be >= 1, got {getattr(ec, axis)}")
@@ -345,10 +373,16 @@ class StepOutputs:
     logprobs: torch.Tensor
     event: torch.cuda.Event | None = None
     started: torch.cuda.Event | None = None
+    #: how to wait for ``event`` instead of blocking on it: the leader's
+    #: bounded wait over nccl (engine/tp.wait_event), None elsewhere
+    wait: Callable[[torch.cuda.Event], None] | None = None
 
     def materialize(self) -> tuple[np.ndarray, np.ndarray]:
         if self.event is not None:
-            self.event.synchronize()
+            if self.wait is not None:
+                self.wait(self.event)
+            else:
+                self.event.synchronize()
         return self.tokens.numpy(), self.logprobs.numpy()
 
     def device_seconds(self) -> float | None:
@@ -388,7 +422,10 @@ class ModelRunner:
     Sampling stays on the leader: a step's input tokens, the in-flight
     ones read from ``slot_toks`` included, reach the followers by a
     broadcast at the top of the step, and a fused window's sampled tokens
-    by one after each of its inner steps. Steps run eagerly (no graph).
+    by one after each of its inner steps. Every rank makes the same
+    programs in the same order (a new program's warm run and capture are
+    collective), CUDA graphs with their collectives inside or eager as
+    :func:`step_graphs` decides (``graphs``, ``graph_reason``).
     Under data and sequence parallelism only the leader's replica and seq
     rank compute logits; the leader alone decides whether a prefill step
     rings (``ring_threshold``) and posts the flag in the step's key.
@@ -418,9 +455,12 @@ class ModelRunner:
         #: a MoE model's FFN, as JAX's engine picks it: the dropless
         #: dispatch once the experts are split, else the dense one
         self.moe_impl = "ep" if engine_cfg.ep > 1 else "dense"
-        #: step programs are CUDA graphs on the card, eager on the CPU and
-        #: under tensor parallelism
-        self.graphs = self.device.type == "cuda" and tp is None
+        #: step programs are CUDA graphs, or eager for ``graph_reason``
+        self.graphs, self.graph_reason = step_graphs(engine_cfg, self.device.type)
+        #: the leader's wait for a step over nccl, whose collectives run on
+        #: the card asynchronously: bounded, and failed by a lost follower
+        self.wait = (functools.partial(wait_event, group=tp)
+                     if tp is not None and tp.leader and tp.backend == "nccl" else None)
         if params is not None:
             self.params = params
         else:
@@ -494,6 +534,8 @@ class ModelRunner:
         # card the pool their graphs share and the side stream they are
         # captured on.
         self.programs: dict[tuple, StepProgram] = {}
+        #: bytes the card's reserve grew by while the warmup made programs
+        self.warmup_reserved = 0
         self._ledger = get_compile_ledger()
         # Static inputs the program variants share (variant_inputs): the
         # guided programs' bool logits mask [max rows, V], made at the first
@@ -1006,12 +1048,32 @@ class ModelRunner:
                              tp=self.tp, moe_impl=self.moe_impl)
 
     # -- tensor parallelism: a follower's loop ----------------------------
+    def program(self, key: tuple) -> "StepProgram":
+        """The program of ``key`` (:meth:`step_key`, or ``("verify", b,
+        t, nblk)``), made if it does not exist yet."""
+        if key[0] == "verify":
+            return self.verify_fn(*key[1:])
+        b, t, nblk, window, fast_greedy, *tags = key
+        return self.step_fn(b, t, nblk, window, fast_greedy, mm="mm" in tags,
+                            masked="masked" in tags, sp_prefill="sp" in tags)
+
+    def release_graphs(self) -> None:
+        """Before a rank leaves its group over nccl: once the card has run
+        every replay, drop the step programs whose CUDA graphs hold the
+        group's collectives. Destroying a communicator that a live graph
+        still uses waits forever (each rank's leave hung after serving
+        with graphs on two cards). Eager programs stay."""
+        if self.graphs and self.tp is not None:
+            torch.cuda.synchronize(self.device)
+            self.programs.clear()
+
     def follow(self) -> None:
         """A follower's loop: run the leader's programs on this rank's
         shard, one message of the leader's at a time, until ``stop``.
-        Programs are made on first use, as the leader makes them, so a new
-        program's warm run meets the leader's; its inputs arrive by
-        broadcast (:meth:`StepProgram.follow`). ``extract`` and ``inject``
+        Programs are made on first use, as the leader makes them, or on
+        the leader's ``make`` (its warmup), so a new program's warm run
+        and capture meet the leader's; its inputs arrive by broadcast
+        (:meth:`StepProgram.follow`). ``extract`` and ``inject``
         move this rank's kv heads (and its stage's layers) of whole blocks
         to or from the leader (kvbm/transfer.tp_gather, tp_scatter), in
         step order; over several nodes the ``kv_*`` posts move this rank's
@@ -1020,11 +1082,14 @@ class ModelRunner:
         while True:
             op, *args = self.tp.recv()
             if op == "stop":
+                self.release_graphs()
                 return
             if op == "step":
                 self.step_fn(*args[0]).follow()
             elif op == "verify":
                 self.verify_fn(*args[0]).follow()
+            elif op == "make":   # the leader's warmup: make the program, run nothing
+                self._make(args[0])
             elif op == "embed":
                 b, t = args[0]
                 self._embed_forward(torch.zeros((b, t), dtype=torch.int32, device=dev),
@@ -1061,7 +1126,9 @@ class ModelRunner:
     def tp_stats(self) -> dict:
         """This rank's count of kernel launches by kernel, forward steps
         (program calls), collectives and block moves and their host
-        seconds since the last ``reset_stats``, its peak device memory,
+        seconds since the last ``reset_stats`` (and the collectives its
+        graph replays ran), whether its programs are CUDA graphs and why
+        not, its peak device memory,
         its local head counts, its stage and the layers it holds, the
         bytes of its weights (of its layers, and of its MoE expert stacks)
         and of one block of its cache."""
@@ -1085,12 +1152,17 @@ class ModelRunner:
                 "ring_hops": self.tp.ring_hops, "ring_bytes": self.tp.ring_bytes,
                 "ring_s": self.tp.ring_s,
                 "collectives": self.tp.collectives, "collective_s": self.tp.collective_s,
+                "graph_collectives": self.tp.graph_collectives,
+                "graphs": self.graphs, "graph_reason": self.graph_reason,
                 "block_moves": self.tp.block_moves, "block_bytes": self.tp.block_bytes,
                 "block_s": self.tp.block_s,
                 # over several nodes: this rank's tiers, (blocks, bytes) each
                 "tiers": {t.name: list(t.occupancy()) for t in self.tiers},
                 "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
                                          if self.device.type == "cuda" else 0),
+                # the card's reserved bytes that making the warmup's programs
+                # added (their graph pool on the card, 0 on the CPU)
+                "warmup_reserved": self.warmup_reserved,
                 "heads": leaf_shape(layers["wq"])[-1] // d,
                 "kv_heads": leaf_shape(layers["wk"])[-1] // d,
                 "cache_kv_heads": self.spec.num_kv_heads,
@@ -1114,7 +1186,16 @@ class ModelRunner:
         (every capture empties the allocator's other cached blocks), and
         ``graph_pool_top``: the buckets whose warm run and capture grew it
         most, in GiB. A pool over ``GRAPH_POOL_SHARE`` of the card is
-        logged as a warning: that memory is no longer free for KV blocks."""
+        logged as a warning: that memory is no longer free for KV blocks.
+
+        At more than one rank the leader posts each program to its
+        followers before it makes it (``make``: the warm run and the
+        capture are collective), and a bucket that fails on any rank stops
+        the warmup with a ``TPFailure`` naming the bucket (and the rank:
+        the leader's own failure, or a follower's traceback), where one
+        rank counts it as failed and goes on: the ranks' programs must not
+        differ (JAX counts and goes on at every mesh; ROADMAP, gaps in the
+        reference)."""
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -1130,7 +1211,12 @@ class ModelRunner:
             before = torch.cuda.memory_reserved(self.device) if cuda else 0
             try:
                 hit = self._warm_one(sig)
-            except Exception:
+            except Exception as exc:
+                if self.tp is not None:
+                    raise TPFailure(
+                        f"the warmup of bucket {sig} failed"
+                        + ("" if isinstance(exc, TPFailure) else " on rank 0 (the leader)")
+                        + f": {exc}") from exc
                 log.warning("warmup capture failed for %s", sig, exc_info=True)
                 failed += 1
                 continue
@@ -1174,12 +1260,21 @@ class ModelRunner:
         if key in self.programs:
             return True
         t0 = time.perf_counter()
-        if sig.kind == "verify":
-            self.verify_fn(*key[1:])
-        else:
-            self.step_fn(*key)
+        if self.tp is not None:
+            self.tp.post("make", key)
+        self._make(key)
         self._ledger.record(sig, time.perf_counter() - t0, source="warmup")
         return False
+
+    def _make(self, key: tuple) -> None:
+        """Make the program of ``key`` for the warmup (at more than one
+        rank every rank does, on the leader's ``make``), adding the growth
+        of the card's reserved bytes to ``warmup_reserved``."""
+        cuda = self.device.type == "cuda"
+        before = torch.cuda.memory_reserved(self.device) if cuda else 0
+        self.program(key)
+        if cuda:
+            self.warmup_reserved += torch.cuda.memory_reserved(self.device) - before
 
 
 class StepProgram:
@@ -1198,13 +1293,20 @@ class StepProgram:
     host inputs into the static buffers, replays the graph, and right after
     the replay, on the same stream, copies its static outputs (``toks``,
     ``lps``) into fresh pinned host tensors behind an event — before any
-    other graph of the pool can reuse their memory. On the CPU and under
-    tensor parallelism nothing is captured: a call runs the body eagerly
-    on the same static buffers (a leader's call broadcasts them first).
+    other graph of the pool can reuse their memory. At more than one rank
+    every rank makes the program at the same point of the leader's posts,
+    and a call first broadcasts the leader's static inputs, eagerly, on
+    the stream the replay then runs on; a graph over nccl would hold the
+    body's collectives. Where :func:`step_graphs` says eager (the CPU, and
+    for now every engine of more than one rank) nothing is captured: a
+    call runs the body eagerly on the same static buffers.
 
     Kernel launches: the warm run's are not counted, the capture's are
-    recorded (``launches``, by kernel) and every call counts them once
-    (``ops.paged_attention.count_launches``); ``calls`` counts the calls."""
+    recorded (``launches``, by kernel) and every call, a follower's too,
+    counts them once (``ops.paged_attention.count_launches``); so are the
+    capture's collectives (``collectives``: added to the group's
+    ``graph_collectives`` at each replay; the warm run's and the
+    capture's go uncounted). ``calls`` counts the calls."""
 
     #: a ring prefill step's program (models/llama.forward_ring)
     sp_prefill = False
@@ -1230,14 +1332,19 @@ class StepProgram:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple[torch.Tensor, torch.Tensor] | None = None
         tp = self.runner.tp
-        counts = (tp.microbatches, tp.ring_hops, tp.ring_bytes, tp.ring_s) if tp else None
+        counts = tp.step_counts() if tp is not None else None
         with pa.launches_made():
             self._warm()
-        if tp is not None:   # as its launches, the warm run's microbatches and hops go uncounted
-            tp.microbatches, tp.ring_hops, tp.ring_bytes, tp.ring_s = counts
+        if tp is not None:   # as its launches, the warm run's collectives go uncounted
+            tp.restore_step_counts(counts)
         with pa.launches_made() as made:
             self._capture()
         self.launches: dict[str, int] = made
+        #: the collectives the graph holds (each replay runs them)
+        self.collectives = 0
+        if tp is not None:
+            self.collectives = tp.collectives - counts[0]
+            tp.restore_step_counts(counts)
         self.calls = 0
 
     def _run(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1302,8 +1409,7 @@ class StepProgram:
             for static in self.inputs:
                 self.runner.tp.broadcast(static)
         toks, lps = self._replay()
-        pa.count_launches(self.launches)
-        self.calls += 1
+        self._count()
         if not cuda:
             return StepOutputs(toks, lps)
         toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
@@ -1312,7 +1418,15 @@ class StepProgram:
         lps_h.copy_(lps, non_blocking=True)
         event = torch.cuda.Event(enable_timing=True)
         event.record()
-        return StepOutputs(toks_h, lps_h, event, started)
+        return StepOutputs(toks_h, lps_h, event, started, self.runner.wait)
+
+    def _count(self) -> None:
+        """One call's counts: the launches and collectives of a replay
+        (an eager call's counted themselves as they ran) and the call."""
+        pa.count_launches(self.launches)
+        if self.collectives:
+            self.runner.tp.graph_collectives += self.collectives
+        self.calls += 1
 
     def follow(self) -> None:
         """A follower's call: the static inputs are the leader's, by
@@ -1320,7 +1434,7 @@ class StepProgram:
         for static in self.inputs:
             self.runner.tp.broadcast(static)
         self._replay()
-        self.calls += 1
+        self._count()
 
 
 class VerifyProgram(StepProgram):
@@ -1450,6 +1564,9 @@ class EngineCore:
             if tp_group is not None:
                 self._tp_followers.stop(tp_group)
             raise
+        if tp_group is not None:   # every rank decided the same from the config
+            log.info("step programs of the %d ranks: %s", tp_group.world_size,
+                     "CUDA graphs" if self.runner.graphs else self.runner.graph_reason)
         #: the engine's group over several nodes (None on one node): block
         #: moves are per rank and outcomes that may differ are voted
         self._mh = tp_group if engine_cfg.num_nodes > 1 else None
@@ -1608,6 +1725,8 @@ class EngineCore:
         out: dict = {"mode": ec.warmup_mode, "coverage": round(led.coverage(), 4)}
         if ec.warmup_mode != "off" and led.plan is not None:
             out["buckets"] = len(led.plan)
+        if self.runner.tp is not None:   # more than one rank: graphs, or eager and why
+            out["graphs"], out["graph_reason"] = self.runner.graphs, self.runner.graph_reason
         if ec.warmup_mode == "full":
             out.update(self.runner.warmup(
                 sorted(led.plan or enumerate_buckets(ec),
@@ -2814,7 +2933,8 @@ class EngineCore:
         if tp is None:
             raise ValueError("tp_stats: this engine is not tensor-parallel")
         tp.post("stats")
-        return [self.runner.tp_stats(), *self._tp_followers.replies("stats")]
+        return [self.runner.tp_stats(),
+                *self._tp_followers.replies("stats", self.runner.tp.timeout)]
 
     def reset_tp_stats(self) -> None:
         """Set every rank's launch counts, program calls and collective
@@ -2830,8 +2950,20 @@ class EngineCore:
         and the followers it had to kill. Idempotent."""
         followers, self._tp_followers = self._tp_followers, None
         if followers is not None:
+            self.runner.release_graphs()
             followers.stop(self.runner.tp)
             self.shutdown_stats = dict(followers.shutdown)
+        channel, self._channel = self._channel, None
+        if channel is not None:
+            channel.close()
+
+    def abandon(self) -> None:
+        """After a lost rank, on the way out of the process: kill this
+        node's followers and close the op channel, without leaving the
+        group (over nccl a rank's leave waits for peers that are gone)."""
+        followers, self._tp_followers = self._tp_followers, None
+        if followers is not None:
+            followers.kill()
         channel, self._channel = self._channel, None
         if channel is not None:
             channel.close()
@@ -2904,6 +3036,10 @@ class OpChannelDown(RuntimeError):
     collective)."""
 
 
+#: seconds between two looks at a tensor-parallel engine's followers
+RANK_WATCH_S = 0.1
+
+
 class AsyncTorchEngine:
     """Async facade: background step-loop thread + asyncio output streams
     (the JAX package's AsyncJaxEngine).
@@ -2917,7 +3053,11 @@ class AsyncTorchEngine:
     a step's collective fail: the engine then stops with
     ``OpChannelDown`` and fails every open stream, and later requests at
     once, instead of hanging. ``run_in_core`` is refused there (a closure
-    cannot be broadcast): only the named ``CORE_OPS`` run."""
+    cannot be broadcast): only the named ``CORE_OPS`` run.
+
+    At more than one rank a watcher thread (``_watch_ranks``) stops the
+    engine the same way when a local follower process exits, even while
+    the step loop waits on the card for a collective that cannot end."""
 
     def __init__(self, core: EngineCore, op_sink: Callable[[dict], None] | None = None):
         self.core = core
@@ -2935,7 +3075,28 @@ class AsyncTorchEngine:
         if not self._started:
             self._loop = asyncio.get_running_loop()
             self._thread.start()
+            followers = self.core._tp_followers
+            if followers is not None and followers.procs:
+                threading.Thread(target=self._watch_ranks, args=(followers.procs,),
+                                 name="rank-watch", daemon=True).start()
             self._started = True
+
+    def _watch_ranks(self, procs: list) -> None:
+        """Stop the engine and fail every open stream as soon as a local
+        follower process exits, whatever the engine-core thread is doing:
+        over nccl a step whose peer is gone never completes on the card,
+        and a call that waits for the card (a pinned allocation, a copy to
+        the host) holds that thread for good. Reads the processes' exit
+        codes only; a remote node's loss shows at the op channel."""
+        while not self._stop:
+            time.sleep(RANK_WATCH_S)
+            for rank, proc in enumerate(procs, 1):
+                code = proc.exitcode
+                if code is not None and not self._stop:
+                    self._down(f"follower rank {rank} exited with exit code {code}")
+                    self._fail_streams(self._channel_down)
+                    self._wake.set()
+                    return
 
     async def shutdown(self) -> None:
         self._stop = True
@@ -2946,8 +3107,14 @@ class AsyncTorchEngine:
         self.core.stop_shard_server()
         for xid in list(self.core._pulls):
             self.core.close_pull(xid)
-        # a tensor-parallel engine's followers stop once the loop is done
-        await asyncio.get_running_loop().run_in_executor(None, self.core.close)
+        # a tensor-parallel engine's followers stop once the loop is done;
+        # over nccl one that lost a rank is abandoned instead (its
+        # followers killed, its group left as it is): its card holds
+        # collectives that wait for the lost rank, and so would the leave
+        tp = self.core.runner.tp
+        lost = self.down is not None and tp is not None and tp.backend == "nccl"
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.core.abandon if lost else self.core.close)
         # A dead engine must not keep vouching for its pins: drop its
         # live-id source so anything it leaked surfaces in the next audit.
         self.core.mem_led.unregister_live_source(self.core._mem_source_key)
@@ -2965,8 +3132,15 @@ class AsyncTorchEngine:
             raise OpChannelDown(str(exc)) from exc
 
     def _down(self, error: str) -> None:
-        self._channel_down = f"multi-host op channel down: {error}"
+        self._channel_down = (f"multi-host op channel down: {error}" if self._op_sink is not None
+                              else f"a rank of the engine is lost: {error}")
         self._stop = True
+
+    @property
+    def down(self) -> str | None:
+        """Why the engine stopped for good (a rank, a node or the op
+        channel lost), or None while it serves."""
+        return self._channel_down
 
     def _stage_stream_waves(self) -> None:
         """After each finalize: stage the newly committed prefill chunks of
@@ -3036,14 +3210,12 @@ class AsyncTorchEngine:
                 log.exception("engine step failed; failing all in-flight requests")
                 pending = None
                 self.core.fail_all(str(exc))
+                if isinstance(exc, (OpChannelDown, TPFailure)):
+                    # a rank is gone (a lost node or follower, a failed
+                    # collective): the group cannot run another step
+                    self._down(str(exc))
+                    break
                 if self._op_sink is not None:
-                    from dynamo_tpu_torch.parallel.collectives import TPFailure
-
-                    if isinstance(exc, (OpChannelDown, TPFailure)):
-                        # a rank is gone (a lost node, a failed collective):
-                        # the group cannot run another step
-                        self._down(str(exc))
-                        break
                     with contextlib.suppress(OpChannelDown):
                         self._emit_op({"op": "fail_all", "error": str(exc)})
                 self._fail_streams(str(exc))
@@ -3218,6 +3390,19 @@ class AsyncTorchEngine:
         return out
 
 
+def abandon_build(core: EngineCore) -> None:
+    """After a failed warmup: a warmup that fails at more than one rank
+    leaves the followers inside a collective the leader never joins, so
+    kill them (``EngineCore.abandon``). Over gloo also leave the group,
+    which waits for no peer, so the process can form another; over nccl
+    the group stays as it is, since its leave would wait for the peers
+    just killed."""
+    core.abandon()
+    tp = core.runner.tp
+    if tp is not None and tp.backend != "nccl":
+        tp.close()
+
+
 def build_engine(engine_cfg: EngineConfig, params=None,
                  device: str | torch.device | None = None,
                  event_sink: Callable[[KvCacheEvent], None] | None = None,
@@ -3231,5 +3416,9 @@ def build_engine(engine_cfg: EngineConfig, params=None,
     becomes the engine's op sink."""
     core = EngineCore(engine_cfg, params=params, device=device, event_sink=event_sink,
                       channel=channel)
-    core.warmup()
+    try:
+        core.warmup()
+    except BaseException:
+        abandon_build(core)
+        raise
     return AsyncTorchEngine(core, op_sink=channel.broadcast if channel is not None else None)

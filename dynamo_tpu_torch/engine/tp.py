@@ -37,9 +37,23 @@ op channel, and the group forms over ``tcp://``. Its traceback, when it
 sends one, reaches the leader's failure message as a local follower's
 does; its exit code cannot.
 
-At shutdown the leader posts ``stop``, leaves the group at once (a rank's
-``destroy_process_group`` over nccl waits for its peers'), then joins its
-own node's followers; a remote node's ranks exit on the ``stop`` they read.
+Over nccl a step's collectives run on the card asynchronously, and no
+collective fails at once when a peer dies: an eager one waits for it
+until NCCL's watchdog times it out, one inside a CUDA graph forever (the
+watchdog does not watch captured work). The leader then waits for a
+step's outputs by polling (:func:`wait_event`), and between polls asks
+its followers whether they live (:meth:`TPFollowers.lost`: the exit code
+of a local follower's process, the closed channel of a remote rank), so a
+lost follower fails the step with its rank and exit code instead of
+hanging it.
+
+At shutdown the leader drops its CUDA graphs (over nccl a communicator
+that a live graph uses cannot be destroyed), posts ``stop``, leaves the
+group at once (a rank's ``destroy_process_group`` over nccl waits for its
+peers'), then joins its own node's followers; each follower drops its
+graphs and leaves on the ``stop`` it reads, a remote node's ranks too.
+After a lost rank, over nccl, nobody leaves: the leader kills its own
+node's followers and closes the op channel (``EngineCore.abandon``).
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.parallel.collectives import (
+    DEFAULT_TIMEOUT_S,
     TPFailure,
     TPGroup,
     init_tp_group,
@@ -70,6 +85,9 @@ log = get_logger("engine.tp")
 
 #: seconds the leader waits for a follower to exit after ``stop``
 JOIN_TIMEOUT_S = 30.0
+#: seconds between two liveness probes while the leader waits for a step
+#: or for its followers' replies
+PROBE_S = 0.05
 
 
 def engine_ranks(ec: EngineConfig) -> int:
@@ -172,11 +190,43 @@ class TPFollowers:
                          + (f", traceback:\n{tb}" if tb else ""))
         return "; ".join(parts)
 
-    def replies(self, kind: str) -> list:
-        """One ``kind`` reply from each follower, in rank order."""
+    def lost(self, remote: bool = True) -> str | None:
+        """The liveness probe: None while every follower lives, else a
+        message naming the first one gone: a local follower whose process
+        exited (its exit code and traceback), with ``remote`` a remote rank
+        whose channel closed or spoke unasked (a follower sends only replies
+        the leader waits for, and its traceback when it fails). No join and
+        no wait."""
+        for rank, (proc, conn) in enumerate(zip(self.procs, self.conns), 1):
+            if proc.exitcode is not None:
+                tb, _ = self._traceback(conn)
+                return (f"follower rank {rank} exited with exit code {proc.exitcode}"
+                        + (f", traceback:\n{tb}" if tb else ""))
+        for rank, conn in self.remote.items() if remote else ():
+            if conn.poll():
+                tb, closed = self._traceback(conn)
+                return (f"remote follower rank {rank}: "
+                        + ("channel closed" if closed else "failed")
+                        + (f", traceback:\n{tb}" if tb else ""))
+        return None
+
+    def replies(self, kind: str, timeout: float = DEFAULT_TIMEOUT_S) -> list:
+        """One ``kind`` reply from each follower, in rank order, within
+        ``timeout`` seconds in all: a follower that hangs (its ops run in
+        order, so a reply waits for every op posted before it) or whose
+        process exits fails the wait with ``TPFailure``."""
         out = []
         ranks = [*range(1, len(self.procs) + 1), *self.remote]
+        deadline = time.monotonic() + timeout
         for rank, conn in zip(ranks, self.conns):
+            while not conn.poll(PROBE_S):
+                # a remote rank's channel may hold its reply already: only
+                # the local processes are probed here
+                gone = self.lost(remote=False)
+                if gone or time.monotonic() > deadline:
+                    raise TPFailure(f"follower rank {rank} sent no {kind!r} reply"
+                                    + (f": {gone}" if gone else
+                                       f" within {timeout:g} s: it hangs"))
             try:
                 msg = conn.recv()
             except (EOFError, OSError) as exc:
@@ -212,6 +262,17 @@ class TPFollowers:
         shutil.rmtree(self._dir, ignore_errors=True)
         self.shutdown = {"seconds": time.perf_counter() - t0, "killed": killed,
                          "exit_codes": [p.exitcode for p in self.procs]}
+
+    def kill(self) -> None:
+        """Kill every local follower at once and close the channels (the
+        way out after a lost rank: no ``stop``, no group teardown)."""
+        for proc in self.procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=5.0)
+        for conn in self.conns:
+            conn.close()
+        shutil.rmtree(self._dir, ignore_errors=True)
 
 
 def _shard(params: dict, cfg: ModelConfig, ec: EngineConfig, rank: int) -> dict:
@@ -260,9 +321,36 @@ def start_tp(ec: EngineConfig, cfg: ModelConfig, device: str | torch.device | No
         raise TPFailure(f"the tensor-parallel group did not form: {exc}; {report}") from exc
     group.conns = followers.conns
     group.report = followers.report
+    group.probe = followers.lost
     if params is not None:
         params = _shard(params, cfg, ec, 0)
     return group, followers, params
+
+
+def wait_event(event, group: TPGroup) -> None:
+    """The leader's wait for a step's outputs behind ``event`` (a CUDA
+    event, or anything with its ``query``) when its ranks' collectives run
+    on the card asynchronously (nccl): a spin on the event that yields the
+    GIL between queries (a blocking ``synchronize`` spins too, so no sleep
+    adds to a step's latency), and every ``PROBE_S`` seconds the group's
+    liveness probe. Raises ``TPFailure`` naming the rank when a follower
+    is gone, and when the event has not completed within the group's
+    timeout while every follower lives (a rank that hangs)."""
+    t0 = probed = time.monotonic()
+    while not event.query():
+        time.sleep(0)
+        now = time.monotonic()
+        if now - probed < PROBE_S:
+            continue
+        probed = now
+        gone = group.probe() if group.probe is not None else None
+        if gone:
+            raise TPFailure(f"a step of the engine of {group.world_size} ranks cannot "
+                            f"complete: {gone}")
+        if now - t0 > group.timeout:
+            raise TPFailure(f"a step of the engine of {group.world_size} ranks did not "
+                            f"complete within the group's timeout of {group.timeout:g} s, "
+                            "every follower alive: a rank hangs")
 
 
 def follower_main(rank: int, ec: EngineConfig, cfg: ModelConfig, device: str,

@@ -27,16 +27,18 @@ Examples:
         --allow-random-weights --prefill-chunk 0 --itl-slo-ms 50 --max-model-len 2048
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
         --allow-random-weights --tp 2 --dist-backend gloo --tp-devices 0,0 \
-        --num-blocks 2048 --warmup-mode off
+        --num-blocks 2048
+    python -m dynamo_tpu_torch.launch.run in=http out=torch --model llama-3-8b-lite \
+        --allow-random-weights --tp 2 --dist-backend nccl --tp-devices 0,1
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tiny-moe \
         --device cpu --tp 2 --ep 2 --dist-backend gloo --num-blocks 64 \
-        --warmup-mode off --input-jsonl prompts.jsonl
+        --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
         --device cpu --pp 2 --dp 2 --dist-backend gloo --num-blocks 64 \
-        --warmup-mode off --input-jsonl prompts.jsonl
+        --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.launch.run in=batch out=torch --model tests/data/tiny-real-llama \
         --device cpu --sp 2 --ring-prefill-threshold 16 --dist-backend gloo \
-        --num-blocks 64 --warmup-mode off --input-jsonl prompts.jsonl
+        --num-blocks 64 --input-jsonl prompts.jsonl
     python -m dynamo_tpu_torch.kvbm.remote --port 7070 &
     python -m dynamo_tpu_torch.launch.run in=http out=torch --model tests/data/tiny-real-llama \
         --device cpu --num-blocks 64 --host-kv-blocks 256 --disk-kv-path /tmp/kv \
@@ -122,7 +124,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--warmup-mode", default="lazy", choices=["off", "lazy", "full"],
                    help="step-program warmup: off (no ledger), lazy (capture each "
                         "bucket's graph on first use), full (capture the whole "
-                        "bucket lattice before serving)")
+                        "bucket lattice before serving); at any mesh, every rank "
+                        "making the same programs: CUDA graphs on the card at one "
+                        "rank, eager steps at more than one (graphs over nccl at "
+                        "tp x dp: ROADMAP item 14f)")
     p.add_argument("--warmup-deadline", type=float, default=120.0,
                    help="wall-seconds budget for --warmup-mode full (0 = unbounded)")
     p.add_argument("--spec-ngram", type=int, default=0,
@@ -136,28 +141,29 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="tensor-parallel ranks ('model' axis), one process each (this "
                         "process is rank 0); heads, kv heads and FFN width (a MoE "
                         "model's per-expert and shared widths) must divide by it. "
-                        "The engine has dp x pp x sp x ep x tp ranks; more than one runs "
-                        "eager steps: it needs --warmup-mode off")
+                        "The engine has dp x pp x sp x ep x tp ranks; its steps run "
+                        "eagerly (CUDA graphs over nccl: ROADMAP item 14f)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline stages (JAX's 'pipe' axis): the layers and their KV "
                         "cache split over pp ranks, one process each, a step run as "
-                        "microbatches through them; composes with --dp only; needs "
-                        "--warmup-mode off")
+                        "microbatches through them; composes with --dp only; its "
+                        "steps run eagerly (graphs at pp > 1: ROADMAP item 14g)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas inside the engine (JAX's 'data' "
                         "axis): dp x ep x tp ranks, params and cache replicated "
-                        "over data; needs --warmup-mode off when dp x ep x tp > 1")
+                        "over data; its steps run eagerly (ROADMAP item 14f)")
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel shards (JAX's 'expert' axis): a MoE model's "
                         "experts split over ep ranks (num_experts must divide by "
                         "it), served by the dropless dispatch; attention and cache "
-                        "replicated over expert; needs --warmup-mode off when "
-                        "dp x ep x tp > 1")
+                        "replicated over expert; its steps run eagerly (the "
+                        "dispatch reads its group sizes on the host: ROADMAP 16c)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel shards (JAX's 'seq' axis; ring attention): "
                         "params and cache replicated over sp ranks, a step of fresh "
                         "whole prompts past --ring-prefill-threshold prefilled as one "
-                        "chunk split over them; needs --warmup-mode off")
+                        "chunk split over them; its steps run eagerly (graphs at "
+                        "sp > 1: ROADMAP item 14h)")
     p.add_argument("--ring-prefill-threshold", type=int, default=0,
                    help="sp>1 only: min prompt tokens for ring prefill "
                         "(0 = cost-model break-even, -1 = never)")

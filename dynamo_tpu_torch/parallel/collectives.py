@@ -30,10 +30,18 @@ both directions posted as one batch, ``batch_isend_irecv``, before
 either is waited for). gloo's point-to-point ops take CPU tensors only, so on gloo a
 card's tensor goes through host memory; nccl takes it as it is.
 
-gloo reduces CUDA tensors through host memory, so its collectives cannot
-be captured in a CUDA graph: a tensor-parallel engine runs eager steps.
-Every collective blocks the calling thread until it is done; the group
-counts them and the host seconds they took, the block moves apart.
+Over nccl (one card a rank) a step's collectives run on the card
+asynchronously, and a CUDA graph can hold them: the group's communicators
+are formed by one eager all-reduce each as the group forms
+(:func:`init_tp_group`), since NCCL makes a communicator at a group's
+first collective and cannot inside a capture. Whether a step program is
+captured is engine/engine.py's ``step_graphs``: at more than one rank
+not yet (ROADMAP item 14f). gloo reduces CUDA tensors through host
+memory, which a graph cannot hold, and every gloo collective blocks the
+calling thread until it is done. The group counts the eager collectives
+and the host seconds they took (``collectives``, ``collective_s``), the
+block moves apart, and the collectives its programs' graph replays ran
+(``graph_collectives``: a capture's collectives, added at each replay).
 
 Data parallelism (JAX's "data" mesh axis), pipeline parallelism (its
 "pipe" axis), sequence parallelism (its "seq" axis) and expert
@@ -128,8 +136,16 @@ class TPGroup:
     sp: int = 1
     seq_rank: int = 0
     seq_pg: Any = None                       # this (d, e, m)'s seq group (sp > 1)
+    #: seconds a collective may wait for a peer, and a step's device work
+    #: for the ranks (engine/tp.wait_event)
+    timeout: float = DEFAULT_TIMEOUT_S
+    #: the leader's liveness probe of its followers (engine/tp.py): None
+    #: while every follower lives, else a message naming the one gone
+    probe: Callable[[], str | None] | None = None
     collectives: int = 0
     collective_s: float = 0.0
+    #: the collectives inside graph replays: each replay adds its capture's
+    graph_collectives: int = 0
     #: block moves (gather_parts, broadcast_bytes): calls, bytes, host seconds
     block_moves: int = 0
     block_bytes: int = 0
@@ -350,8 +366,19 @@ class TPGroup:
         """Follower: send ``msg`` to the leader."""
         self.conns[0].send(msg)
 
+    def step_counts(self) -> tuple:
+        """The counters a step program's body moves (collectives and
+        their host seconds, microbatches, ring hops), to be put back with
+        :meth:`restore_step_counts` after a warm run or a capture."""
+        return (self.collectives, self.collective_s, self.microbatches,
+                self.ring_hops, self.ring_bytes, self.ring_s)
+
+    def restore_step_counts(self, counts: tuple) -> None:
+        (self.collectives, self.collective_s, self.microbatches,
+         self.ring_hops, self.ring_bytes, self.ring_s) = counts
+
     def reset_stats(self) -> None:
-        self.collectives, self.collective_s = 0, 0.0
+        self.collectives, self.collective_s, self.graph_collectives = 0, 0.0, 0
         self.block_moves, self.block_bytes, self.block_s = 0, 0, 0.0
         self.microbatches = 0
         self.ring_hops, self.ring_bytes, self.ring_s = 0, 0, 0.0
@@ -417,8 +444,19 @@ def init_tp_group(rank: int, size: int, backend: str, init_method: str,
             for i in range(size)} if sp > 1 else {}
     blocks = {(r, x): group([at(r, st, 0, x, i) for st in range(pp) for i in range(size)])
               for r in range(dp) for x in range(ep)} if pp > 1 else {}
-    return TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, s, q, e],
-                   dp=dp, data_rank=d, data_pg=datas.get((s, q, e, m)),
-                   world_pg=dist.group.WORLD, ep=ep, expert_rank=e, moe_pg=moes[d, s, q],
-                   pp=pp, stage=s, block_pg=blocks.get((d, e)),
-                   sp=sp, seq_rank=q, seq_pg=seqs.get((d, s, e, m)))
+    g = TPGroup(rank=m, size=size, device=device, backend=backend, pg=models[d, s, q, e],
+                dp=dp, data_rank=d, data_pg=datas.get((s, q, e, m)),
+                world_pg=dist.group.WORLD, ep=ep, expert_rank=e, moe_pg=moes[d, s, q],
+                pp=pp, stage=s, block_pg=blocks.get((d, e)),
+                sp=sp, seq_rank=q, seq_pg=seqs.get((d, s, e, m)), timeout=timeout)
+    if backend == "nccl":
+        # NCCL makes a group's communicator at its first collective, which
+        # a CUDA graph's capture cannot hold: one all-reduce over each group
+        # of this rank now, while the ranks are in lockstep. Every rank
+        # takes the kinds in one order (each kind partitions the ranks), so
+        # no rank waits on a group its peers reach later. Not counted.
+        x = torch.zeros(1, device=device)
+        for pg in (g.world_pg, g.pg, g.moe_pg, g.data_pg, g.seq_pg, g.block_pg):
+            if pg is not None:
+                dist.all_reduce(x, group=pg)
+    return g

@@ -21,6 +21,15 @@ broadcast over the group. Over several nodes that stays so:
   (:class:`LeaderOpChannel`).
 - The group forms over ``tcp://leader_addr`` (:func:`initialize_distributed`,
   with one warm-up all-reduce while the ranks are in lockstep).
+- A remote rank's runner takes its step programs' form, CUDA graphs or
+  eager (``engine.step_graphs``: eager at more than one rank for now),
+  from the hello's config, whose fields (the axes, ``dist_backend``,
+  ``warmup_mode``) are the leader's: every rank reaches the leader's
+  answer and makes the leader's programs.
+- The leader's liveness probe (``engine/tp.TPFollowers.lost``), which its
+  wait for a step polls over nccl, covers the remote ranks: a rank's
+  control connection that closes, or speaks unasked (a failing rank's
+  traceback), names that rank.
 - Each node's process keeps JAX's node connection: it reads the leader's
   ``hello`` (the engine essentials, ``_HELLO_FIELDS``, and the model's
   config), acks ``ready`` (with its ranks' shard servers on a prefill

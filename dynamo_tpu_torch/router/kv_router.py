@@ -202,6 +202,7 @@ class KvPushRouter:
         self._tasks: list[asyncio.Task] = []
         self._known_workers: set[WorkerId] = set()
         self._snapshot_workers: set[WorkerId] = set()
+        self._gone: set[WorkerId] = set()   # purged workers not live again
         self._synced: "SyncedActiveSequences | None" = None
         # Decision accounting (the port's addition; the frontend's stats
         # report it): decisions per worker, and the host seconds spent in
@@ -318,10 +319,22 @@ class KvPushRouter:
                     log.info("purging snapshot-only worker %x", wid)
                     self.router.remove_worker(wid)
                 self._snapshot_workers = set()
-            for wid in self._known_workers - live:
-                log.info("purging dead worker %x from router state", wid)
-                self.router.remove_worker(wid)
-            self._known_workers = live
+            self._purge_dead(live)
+
+    def _purge_dead(self, live: set[WorkerId]) -> None:
+        """Remove the state of the workers that left discovery since the
+        last pass. A worker's last load metrics can arrive after its purge
+        (published just before it left): they are dropped again on every
+        pass while the worker stays gone, so /engine_stats and the health
+        gate never keep a dead worker's last load."""
+        gone = self._known_workers - live
+        for wid in gone:
+            log.info("purging dead worker %x from router state", wid)
+            self.router.remove_worker(wid)
+        self._gone = (self._gone | gone) - live
+        for wid in self._gone.intersection(self.router.worker_metrics):
+            del self.router.worker_metrics[wid]
+        self._known_workers = live
 
     # ------------------------------------------------------------------
     async def generate(self, request: PreprocessedRequest | dict) -> AsyncIterator[Any]:

@@ -207,8 +207,9 @@ def test_moe_refusals():
     """MoE at tp > 1 and at ep > 1 is served since the expert axis came
     (tests/test_torch_moe_parallel*.py hold those engines to JAX's); an
     expert count that does not divide over ep is refused by name, and so
-    are pp with ep (JAX's words: pp composes with dp only) and sp with
-    CUDA graphs (more than one rank runs eager steps); tp = 1 is served."""
+    is pp with ep (JAX's words: pp composes with dp only); sp with lazy
+    warmup, refused until warmup came to every mesh, builds (its programs
+    eager on the CPU, the reason given); tp = 1 is served."""
     base = dict(model="tiny-moe", block_size=4, num_blocks=16, max_batch_size=2,
                 max_model_len=64, warmup_mode="off")
     cfg = TORCH_PRESETS["tiny-moe"]
@@ -216,10 +217,14 @@ def test_moe_refusals():
         teng.check_supported(TEngineConfig(**base, **mesh, dist_backend="gloo"), cfg)
     with pytest.raises(ValueError, match="num_experts=8 does not divide over ep=3"):
         teng.EngineCore(TEngineConfig(**base, ep=3, dist_backend="gloo"), device="cpu")
-    for setting, match in ((dict(pp=2, ep=2), "pp>1 currently composes only with dp"),
-                           (dict(sp=2, warmup_mode="lazy"), "CUDA graphs")):
-        with pytest.raises(ValueError, match=match):
-            teng.EngineCore(TEngineConfig(**{**base, **setting}), device="cpu")
+    with pytest.raises(ValueError, match="pp>1 currently composes only with dp"):
+        teng.EngineCore(TEngineConfig(**{**base, "pp": 2, "ep": 2}), device="cpu")
+    sp = teng.EngineCore(TEngineConfig(**{**base, "sp": 2, "warmup_mode": "lazy",
+                                          "dist_backend": "gloo"}), device="cpu")
+    try:
+        assert not sp.runner.graphs and "CUDA graphs" in sp.warmup()["graph_reason"]
+    finally:
+        sp.close()
     core = teng.EngineCore(TEngineConfig(**base), device="cpu")
     assert core.runner.params["layers"]["w_gate"].shape[:2] == (2, 8)
 

@@ -120,6 +120,17 @@ def test_int8_at_ep2_with_a_shared_expert_is_refused_by_both_packages(moe32):  #
 def test_moe_parallel_refusals(setting, match):
     kw = dict(model="tiny-moe", **BASE, dist_backend="gloo", warmup_mode="off")
     kw.update(setting)
+    if "warmup_mode" in setting:
+        # refused until warmup came to every mesh: ep=2 with lazy warmup
+        # builds, its programs eager (on the CPU; on the card: ROADMAP 16c)
+        core = teng.EngineCore(TEngineConfig(**kw), device="cpu")
+        try:
+            assert not core.runner.graphs and match in core.warmup()["graph_reason"]
+            assert "16c" in teng.step_graphs(dataclasses.replace(
+                core.engine_cfg, dist_backend="nccl"), "cuda")[1]
+        finally:
+            core.close()
+        return
     with pytest.raises(ValueError, match=match):
         teng.EngineCore(TEngineConfig(**kw), device="cpu")
 

@@ -1,7 +1,8 @@
 """The port's worker over two nodes, as processes on the CPU: a coordinator
 and, twice, two ``components.worker --device cpu --num-nodes 2 --tp 2``
 processes (``--node-rank 0`` and ``1``) serving tests/data/tiny-real-llama
-at f32 over gloo, one rank a node.
+at f32 over gloo, one rank a node, with the worker's default
+``--warmup-mode lazy`` (eager programs on the CPU).
 
 - Each engine registers ONE instance (the leader's; node 1 registers
   nothing and prints ``FOLLOWER_READY``).
@@ -34,7 +35,7 @@ CKPT = "tests/data/tiny-real-llama"
 SHAPE = ["--block-size", "4", "--num-blocks", "64", "--max-model-len", "128",
          "--max-batch-size", "8", "--prefill-chunk", "32"]
 ARGS = ["--engine", "torch", "--device", "cpu", "--model", CKPT, "--dtype", "float32",
-        *SHAPE, "--tp", "2", "--dist-backend", "gloo", "--warmup-mode", "off",
+        *SHAPE, "--tp", "2", "--dist-backend", "gloo",
         "--num-nodes", "2", "--health-interval", "0", "--no-kv-events"]
 PROMPTS = [[10 + i for i in range(9)], [40, 41, 42, 43, 44], [7] * 13]
 

@@ -305,9 +305,15 @@ def test_pp_refusals_in_both_packages(setting, match):
 
 
 def test_pp_refusals_of_the_port():
-    """pp with CUDA graphs (the stages' steps are eager), and
-    ``pp_microbatches`` below 0."""
-    with pytest.raises(ValueError, match="CUDA graphs"):
-        _port(model="tiny-llama", pp=2, warmup_mode="lazy")
+    """``pp_microbatches`` below 0 is refused. pp with lazy warmup,
+    refused until warmup came to every mesh, builds: its stages' programs
+    eager (on the CPU; on the card too: ROADMAP item 14g)."""
+    core = _port(model="tiny-llama", pp=2, warmup_mode="lazy")
+    try:
+        assert not core.runner.graphs and "CUDA graphs" in core.warmup()["graph_reason"]
+        assert "14g" in teng.step_graphs(dataclasses.replace(
+            core.engine_cfg, dist_backend="nccl"), "cuda")[1]
+    finally:
+        core.close()
     with pytest.raises(ValueError, match="pp_microbatches must be >= 0"):
         _port(model="tiny-llama", pp=2, pp_microbatches=-1)

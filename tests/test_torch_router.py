@@ -243,6 +243,25 @@ async def test_push_router_frees_a_finished_stream_at_its_last_item():
     assert ref[1][0] == (22, 0)
 
 
+def test_a_purged_workers_late_metrics_do_not_stay():
+    """A worker's last load metrics, published just before it left, can
+    reach the router after its instance was purged: the next pass drops
+    them again, while a worker that comes back keeps its new metrics."""
+    push = tkv.KvPushRouter(_FinishedStreams([11, 22]), tkv.KvRouterConfig(block_size=BS))
+    for wid in (11, 22):
+        push.router.update_metrics({"worker_id": wid, "num_running": 1})
+    push._purge_dead({11, 22})
+    push._purge_dead({11})
+    assert set(push.router.worker_metrics) == {11}
+    push.router.update_metrics({"worker_id": 22, "num_running": 1})   # late
+    push._purge_dead({11})
+    assert set(push.router.worker_metrics) == {11}
+    push._purge_dead({11, 22})                                        # back
+    push.router.update_metrics({"worker_id": 22, "num_running": 0})
+    push._purge_dead({11, 22})
+    assert push.router.worker_metrics[22] == {"worker_id": 22, "num_running": 0}
+
+
 @pytest.mark.parametrize("temperature", [0.5, 2.0, 7.5])
 def test_softmax_probabilities_equal_jax(temperature):
     """At temperature > 0 each package draws from its own seeded generator;

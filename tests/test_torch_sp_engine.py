@@ -18,6 +18,11 @@ Tolerances, with their reasons:
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -31,7 +36,7 @@ from dynamo_tpu_torch.parallel.collectives import TPFailure
 from dynamo_tpu_torch.protocols import common as tproto
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 from dynamo_tpu_torch.utils.config import EngineConfig as TEngineConfig
-from tests.test_torch_engine import _req, _run
+from tests.test_torch_engine import ROOT, _req, _run
 from tests.test_torch_tp import TCFG, TINY32, tiny32  # noqa: F401
 
 FWD_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -238,9 +243,28 @@ def test_pp_with_sp_is_refused_by_both_packages(setting, match):
 
 @pytest.mark.parametrize("mode", ["lazy", "full"])
 def test_cuda_graphs_at_sp2_are_refused(mode):
-    with pytest.raises(ValueError, match=r"CUDA graphs .*ROADMAP item 14f"):
-        teng.EngineCore(TEngineConfig(**engine_kw(model="tiny-llama", sp=2), dist_backend="gloo",
-                                      warmup_mode=mode), device="cpu")
+    """Refused until warmup came to every mesh (ROADMAP item 14f): sp=2
+    with lazy or full warmup builds and warms up (in a process of its own:
+    this module's shared engine holds this one's group), its programs
+    eager, on the CPU and on the card (a ring step's host read: ROADMAP
+    14h)."""
+    kw = dict(engine_kw(model="tiny-llama", sp=2, block_size=16, num_blocks=16,
+                        max_batch_size=2, max_model_len=64, decode_bucket=(2,)),
+              dist_backend="gloo", warmup_mode=mode)
+    script = ("import json\n"
+              "from dynamo_tpu_torch.engine import engine as teng\n"
+              "from dynamo_tpu_torch.utils.config import EngineConfig\n"
+              f"core = teng.EngineCore(EngineConfig(**{kw!r}), device='cpu')\n"
+              "print(json.dumps(core.warmup()))\n"
+              "core.close()\n")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    assert summary["mode"] == mode and summary["graphs"] is False
+    assert "CUDA graphs" in summary["graph_reason"]
+    assert summary["coverage"] == (1.0 if mode == "full" else 0.0)
+    assert "14h" in teng.step_graphs(TEngineConfig(**{**kw, "dist_backend": "nccl"}), "cuda")[1]
 
 
 def test_a_seq_rank_that_fails_fails_the_leader_with_its_traceback(engines):

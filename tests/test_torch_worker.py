@@ -310,14 +310,29 @@ def test_worker_keeps_jax_flags_and_defaults():
 
 
 def test_engine_refusals_reach_the_worker(real32):
-    """A setting the engine refuses (check_supported) is refused by the
-    worker's engine build, by name."""
+    """The worker's engine build is the engine's (check_supported).
+    ``--sp 2`` with the default ``--warmup-mode lazy``, refused until
+    warmup came to every mesh (ROADMAP item 14f), builds over gloo on the
+    CPU (eager programs, the reason given) and serves; nccl on the CPU is
+    refused by name."""
     from dynamo_tpu_torch.engine import engine as teng
+    from dynamo_tpu_torch.protocols import common as tproto
+    from tests.test_torch_engine import _req, _run
 
     ns = tworker.parse_args(["--model", REAL32, "--sp", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match=r"CUDA graphs \(warmup_mode must be 'off'; ROADMAP "
-                                         r"item 14f\)"):
+    with pytest.raises(ValueError, match="dist_backend='gloo'"):
         teng.EngineCore(tworker.engine_config(ns, None), params=real32[1], device="cpu")
+    ns = tworker.parse_args(["--model", REAL32, "--sp", "2", "--device", "cpu",
+                             "--dist-backend", "gloo", "--num-blocks", "64",
+                             "--max-model-len", "128"])
+    assert ns.warmup_mode == "lazy"
+    core = teng.EngineCore(tworker.engine_config(ns, None), params=real32[1], device="cpu")
+    try:
+        assert "CUDA graphs" in core.warmup()["graph_reason"]
+        got, fin = _run(core, [_req(tproto, [10, 11, 12, 13], "r0", 4)])
+        assert fin == {"r0"} and len(got["r0"]) == 4
+    finally:
+        core.close()
 
 
 @pytest.mark.parametrize("argv,needle", [
